@@ -1,0 +1,499 @@
+"""NetInvMgmt whole-episode kernels and their plain PyTorch versions.
+
+Port of ``or_gym_inventory_tpu/ops/pallas_net_step.py`` (the three kernels
+on the random-policy episode-return path). Each public function is a
+wrapper: on CPU tensors it runs the plain PyTorch version in this module, on
+CUDA tensors it launches its hand-written kernel in ``csrc/net_episode.cu``
+and raises if the launch fails; nothing falls back. Each wrapper counts its
+kernel launches in a plain integer attribute, ``<wrapper>.launches``.
+
+| wrapper                      | replaces (pallas_net_step.py)         |
+| ``episode_returns``          | ``episode_returns`` :820 (K1)         |
+| ``episode_returns_fully_fused`` | ``episode_returns_fully_fused`` :379 (K2) |
+| ``sample_streams_debug``     | ``sample_streams_debug`` :427 (K3)    |
+
+Layout follows the JAX package: per-env state as (rows, B) with the batch
+last, streams as (T, rows, B) or (T, E, rows, B). The random streams are
+Philox4x32-10 words (``ops/rng.py``), not the TPU's bits; the plain versions
+draw bit for bit what the kernels draw.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from or_gym_inventory_torch.core.device import resolve_device
+from or_gym_inventory_torch.ops import distributions as dist
+from or_gym_inventory_torch.ops import rng
+
+if TYPE_CHECKING:  # the env imports this module for its demand sampler
+    from or_gym_inventory_torch.envs.net_inv_management import NetInvParams
+
+# fixed maxima of the topology struct the kernels take by value
+# (csrc/net_topo.cuh); the wrappers raise beyond them
+MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
+
+
+def init_transposed(params: NetInvParams, batch: int, device=None):
+    """Reset state in the (rows, B) layout: X (n_main, B), Y (n_ro, B),
+    U (n_rt, B) and the newest-first order history RH (lt*n_ro, B)."""
+    dev = resolve_device(device)
+    T = params.topology
+    lt = max(T.lt_max, 1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    X = torch.tensor(T.I0, **f32)[:, None].expand(T.n_main, batch)
+    Y = torch.zeros((T.n_reorder, batch), **f32)
+    U = torch.zeros((T.n_retail, batch), **f32)
+    RH = torch.zeros((lt * T.n_reorder, batch), **f32)
+    return X, Y, U, RH
+
+
+def _step_math(T, backlog, X, Y, U, RH, act, dem, arrive_valid):
+    """One period over lists of (B,) tensors (pallas_net_step._step_math).
+    ``RH`` is a list of lt*n_ro rows, newest-first; ``arrive_valid[i]`` is
+    1.0 iff t >= L_i. Returns (X', Y', U', r_cur, period_profit)."""
+    n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
+
+    # --- 0) order fulfillment with sequential supplier contention ---
+    consumed = [torch.zeros_like(X[0]) for _ in range(n_main)]
+    r_cur = []
+    for i in range(n_ro):
+        req = torch.clamp_min(torch.round(act[i]), 0.0)
+        sup = T.ro_sup_main[i]
+        if sup < 0:
+            fulfilled = req
+        else:
+            remaining = X[sup] - consumed[sup]
+            avail = torch.clamp_min(remaining, 0.0)
+            if T.is_factory[sup]:
+                avail = torch.minimum(avail, torch.clamp_max(T.v[sup] * avail, T.C[sup]))
+            fulfilled = torch.minimum(req, avail)
+            consumed[sup] = consumed[sup] + fulfilled / T.v[sup]
+        r_cur.append(fulfilled)
+
+    # --- 1) deliveries + pipeline ---
+    arriving = []
+    for i, L in enumerate(T.ro_L):
+        if L == 0:
+            arriving.append(r_cur[i])
+        else:
+            arriving.append(RH[(L - 1) * n_ro + i] * arrive_valid[i])
+    Y_new = [Y[i] - arriving[i] + r_cur[i] for i in range(n_ro)]
+    arrivals_node = [torch.zeros_like(X[0]) for _ in range(n_main)]
+    for i in range(n_ro):
+        arrivals_node[T.ro_pur_main[i]] = arrivals_node[T.ro_pur_main[i]] + arriving[i]
+    X_mid = [X[j] + arrivals_node[j] - consumed[j] for j in range(n_main)]
+
+    # --- 2-4) sequential retail fulfillment ---
+    sales_rt, U_new = [], []
+    for j in range(n_rt):
+        ret = T.rt_retailer_main[j]
+        d = torch.clamp_min(torch.round(dem[j]), 0.0)
+        to_fill = d + U[j]
+        inv_r = torch.clamp_min(X_mid[ret], 0.0)
+        s = torch.minimum(to_fill, inv_r)
+        X_mid[ret] = X_mid[ret] - s
+        sales_rt.append(s)
+        unf = to_fill - s
+        U_new.append(unf if backlog else torch.zeros_like(unf))
+
+    # --- 5) per-node profit ---
+    zero = torch.zeros_like(X[0])
+    SR = [zero] * n_main
+    PC = [zero] * n_main
+    HCp = [zero] * n_main
+    sold = [zero] * n_main
+    for i in range(n_ro):
+        sup, pur = T.ro_sup_main[i], T.ro_pur_main[i]
+        rev = T.ro_price[i] * r_cur[i]
+        if sup >= 0:
+            SR[sup] = SR[sup] + rev
+            sold[sup] = sold[sup] + r_cur[i]
+        PC[pur] = PC[pur] + rev
+        HCp[pur] = HCp[pur] + T.ro_g[i] * torch.clamp_min(Y_new[i], 0.0)
+    UP = [zero] * n_main
+    for j in range(n_rt):
+        ret = T.rt_retailer_main[j]
+        SR[ret] = SR[ret] + T.rt_price[j] * sales_rt[j]
+        sold[ret] = sold[ret] + sales_rt[j]
+        UP[ret] = UP[ret] + T.rt_b[j] * U_new[j]
+
+    total = torch.zeros_like(X[0])
+    for n in range(n_main):
+        HC = T.h[n] * torch.clamp_min(X_mid[n], 0.0) + HCp[n]
+        OC = (T.o[n] * sold[n] / T.v[n]) if T.is_factory[n] else zero
+        total = total + (SR[n] - PC[n] - OC - HC - UP[n])
+    return X_mid, Y_new, U_new, r_cur, total
+
+
+def _poisson_cdf_table(lam: float, granularity: float = 2.0 ** -24):
+    """Poisson CDF values F(0..K-1) for inversion sampling
+    (pallas_net_step._poisson_cdf_table): float64 on host, truncated at the
+    first K with P(X >= K) < ``granularity`` and rounded to f32."""
+    if lam <= 0.0:
+        return (float("inf"),)  # demand identically 0
+    p = float(np.exp(-lam))
+    F = p
+    table = [F]
+    k = 0
+    while 1.0 - F > granularity and k < 4096:
+        k += 1
+        p *= lam / k
+        F += p
+        table.append(F)
+    return tuple(float(np.float32(v)) for v in table)
+
+
+def _topology_link_specs(T, num_steps):
+    """Per-retail-link demand plan (pallas_net_step._topology_link_specs):
+    ``("table", base, thresholds)`` for every static-parameter spec,
+    ``("const", per_period_values)`` for ``user``/``zero`` links. A ``hostfn``
+    link raises NotImplementedError, before anything is launched."""
+    specs = []
+    for spec in T.rt_demand:
+        if spec[0] == "user":
+            arr = tuple(float(v) for v in spec[1]) or (0.0,)
+            specs.append(("const", tuple(arr[min(t, len(arr) - 1)]
+                                         for t in range(num_steps))))
+        elif spec[0] == "zero":
+            specs.append(("const", (0.0,) * num_steps))
+        else:
+            specs.append(("table",) + dist.cdf_table_for_spec(spec))
+    return tuple(specs)
+
+
+def _discounts(alpha: float, num_steps: int):
+    """alpha**t per period as a Python double rounded to f32, as the JAX
+    kernels fold it (pallas_net_step.py:165)."""
+    return [float(np.float32(alpha ** t)) for t in range(num_steps)]
+
+
+def _act_scale(act_hi: float) -> float:
+    """The f32 factor of ``action = float(u24) * scale`` (pallas_net_step.py:328)."""
+    return float(np.float32(float(act_hi) / float(1 << 24)))
+
+
+# ------------------------------------------------------------ plain versions
+
+def _episode_returns_plain(params: NetInvParams, actions, demands):
+    """Plain version of K1 (``episode_returns``): the episode loop of
+    pallas_net_step._episode_kernel_body over (B,) rows."""
+    T = params.topology
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    lt = max(T.lt_max, 1)
+    num_steps, _, B = actions.shape
+    X, Y, U, RH = init_transposed(params, B, actions.device)
+    X, Y, U, RH = list(X), list(Y), list(U), list(RH)
+    total = torch.zeros(B, dtype=torch.float32, device=actions.device)
+    for t, disc in enumerate(_discounts(params.alpha, num_steps)):
+        valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
+        X, Y, U, r_cur, profit = _step_math(
+            T, params.backlog, X, Y, U, RH, list(actions[t]), list(demands[t]), valid)
+        RH = r_cur + RH[: (lt - 1) * n_ro]
+        total = total + disc * profit
+    return total
+
+
+def _device_link_plan(link_specs, device):
+    """``_topology_link_specs`` as f32 tensors on ``device``: per link
+    ("table", base, thresholds) or ("const", per-period values). An empty
+    table (a point mass at ``base``) becomes (inf,), which inverts to 0."""
+    plan = []
+    for spec in link_specs:
+        if spec[0] == "const":
+            plan.append(("const", torch.tensor(spec[1], dtype=torch.float32,
+                                               device=device)))
+        else:
+            _tag, base, table = spec
+            plan.append(("table", float(base),
+                         torch.tensor(table or (float("inf"),),
+                                      dtype=torch.float32, device=device)))
+    return plan
+
+
+def _draw_period_plain(plan, seed, lanes, e, t, n_ro, act_scale):
+    """Actions (n_ro rows) and demand (one row per link) of every lane in
+    ``lanes`` for episode ``e``, period ``t``: the words of ``rng`` turned
+    into values exactly as csrc/philox.cuh ``draw_period`` does."""
+    words = rng.period_words(seed, lanes, e, t, n_ro + len(plan))
+    act = [(w >> 8).to(torch.float32) * act_scale for w in words[:n_ro]]
+    dem = []
+    for spec, w in zip(plan, words[n_ro:]):
+        if spec[0] == "const":
+            vals = spec[1]
+            dem.append(vals[min(t, vals.shape[0] - 1)].expand(lanes.shape))
+        else:
+            _tag, base, table = spec
+            u = (w >> 8).to(torch.float32) * (2.0 ** -24)
+            d = torch.searchsorted(table, u, right=True).to(torch.float32)
+            dem.append(d + base if base else d)
+    return act, dem
+
+
+def _sample_streams_plain(params, seed, act_hi, batch, num_steps, e0, e1, device):
+    """Plain version of K3: (T, W, n_ro, B) actions and (T, W, n_rt, B)
+    demand of episodes [e0, e1)."""
+    T = params.topology
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    W = e1 - e0
+    acts = torch.empty((num_steps, W, n_ro, batch), dtype=torch.float32, device=device)
+    dems = torch.empty((num_steps, W, n_rt, batch), dtype=torch.float32, device=device)
+    scale = _act_scale(act_hi)
+    for w in range(W):
+        for t in range(num_steps):
+            act, dem = _draw_period_plain(plan, seed, lanes, e0 + w, t, n_ro, scale)
+            acts[t, w] = torch.stack(act)
+            dems[t, w] = torch.stack(dem)
+    return acts, dems
+
+
+def _episode_returns_fully_fused_plain(params, seed, act_hi, batch, num_steps,
+                                       episodes_per_lane, device):
+    """Plain version of K2: returns (E, B), one episode at a time."""
+    T = params.topology
+    n_ro = T.n_reorder
+    lt = max(T.lt_max, 1)
+    plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    scale = _act_scale(act_hi)
+    discs = _discounts(params.alpha, num_steps)
+    out = torch.empty((episodes_per_lane, batch), dtype=torch.float32, device=device)
+    for e in range(episodes_per_lane):
+        X, Y, U, RH = (list(a) for a in init_transposed(params, batch, device))
+        total = torch.zeros(batch, dtype=torch.float32, device=device)
+        for t in range(num_steps):
+            act, dem = _draw_period_plain(plan, seed, lanes, e, t, n_ro, scale)
+            valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
+            X, Y, U, r_cur, profit = _step_math(
+                T, params.backlog, X, Y, U, RH, act, dem, valid)
+            RH = r_cur + RH[: (lt - 1) * n_ro]
+            total = total + discs[t] * profit
+        out[e] = total
+    return out
+
+
+# ------------------------------------------------------------ kernel binding
+
+class _NetTopo(ctypes.Structure):
+    """Mirror of ``struct NetTopo`` in csrc/net_topo.cuh (all fields
+    4-byte, so both sides lay it out without padding)."""
+    _fields_ = [
+        ("n_main", ctypes.c_int), ("n_ro", ctypes.c_int),
+        ("n_rt", ctypes.c_int), ("backlog", ctypes.c_int),
+        ("ro_sup", ctypes.c_int * MAX_RO), ("ro_pur", ctypes.c_int * MAX_RO),
+        ("ro_L", ctypes.c_int * MAX_RO), ("ro_ring", ctypes.c_int * MAX_RO),
+        ("ro_price", ctypes.c_float * MAX_RO), ("ro_g", ctypes.c_float * MAX_RO),
+        ("is_factory", ctypes.c_int * MAX_MAIN),
+        ("I0", ctypes.c_float * MAX_MAIN), ("h", ctypes.c_float * MAX_MAIN),
+        ("C", ctypes.c_float * MAX_MAIN), ("o", ctypes.c_float * MAX_MAIN),
+        ("v", ctypes.c_float * MAX_MAIN),
+        ("rt_ret", ctypes.c_int * MAX_RT), ("rt_price", ctypes.c_float * MAX_RT),
+        ("rt_b", ctypes.c_float * MAX_RT), ("rt_const", ctypes.c_int * MAX_RT),
+        ("rt_off", ctypes.c_int * MAX_RT), ("rt_len", ctypes.c_int * MAX_RT),
+        ("rt_base", ctypes.c_float * MAX_RT),
+    ]
+
+
+def _pack_topology(params: NetInvParams, link_specs=None):
+    """The kernels' topology struct, and the flat f32 list of every link's
+    inversion table or per-period constants that ``rt_off``/``rt_len``
+    index. Raises ValueError for a topology beyond the struct's maxima."""
+    T = params.topology
+    n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
+    ring = sum(T.ro_L)
+    if n_main > MAX_MAIN or n_ro > MAX_RO or n_rt > MAX_RT or ring > MAX_RING:
+        raise ValueError(
+            f"topology too large for the CUDA kernels: n_main={n_main} "
+            f"(max {MAX_MAIN}), n_reorder={n_ro} (max {MAX_RO}), "
+            f"n_retail={n_rt} (max {MAX_RT}), sum of lead times={ring} "
+            f"(max {MAX_RING})")
+    tp = _NetTopo(n_main=n_main, n_ro=n_ro, n_rt=n_rt, backlog=int(params.backlog))
+    off = 0
+    for i in range(n_ro):
+        tp.ro_sup[i], tp.ro_pur[i] = T.ro_sup_main[i], T.ro_pur_main[i]
+        tp.ro_L[i], tp.ro_ring[i] = T.ro_L[i], off
+        tp.ro_price[i], tp.ro_g[i] = T.ro_price[i], T.ro_g[i]
+        off += T.ro_L[i]
+    for n in range(n_main):
+        tp.is_factory[n] = int(T.is_factory[n])
+        tp.I0[n], tp.h[n], tp.C[n] = T.I0[n], T.h[n], T.C[n]
+        tp.o[n], tp.v[n] = T.o[n], T.v[n]
+    tables = []
+    for j in range(n_rt):
+        tp.rt_ret[j] = T.rt_retailer_main[j]
+        tp.rt_price[j], tp.rt_b[j] = T.rt_price[j], T.rt_b[j]
+        if link_specs is None:
+            continue
+        spec = link_specs[j]
+        values = spec[1] if spec[0] == "const" else spec[2]
+        tp.rt_const[j] = int(spec[0] == "const")
+        tp.rt_base[j] = 0.0 if spec[0] == "const" else float(spec[1])
+        tp.rt_off[j], tp.rt_len[j] = len(tables), len(values)
+        tables.extend(values)
+    return tp, tables
+
+
+def _f32_on(values, device):
+    # one spare element keeps the buffer non-empty when every table is empty
+    return torch.tensor(list(values) + [0.0], dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_plan(params: NetInvParams, num_steps: int, device: str,
+                 with_demand: bool):
+    """A launch's host-built arguments: the topology struct, the f32 alpha^t
+    table and, ``with_demand``, every link's inversion table, the tables
+    copied to ``device``. Built once per (params, num_steps, device), so a
+    launch packs and copies nothing. K1 takes no demand tables, so its
+    topology may hold a ``hostfn`` link."""
+    link_specs = (_topology_link_specs(params.topology, num_steps)
+                  if with_demand else None)
+    tp, tables = _pack_topology(params, link_specs)
+    return (tp, _f32_on(_discounts(params.alpha, num_steps), device),
+            _f32_on(tables, device))
+
+
+def _launch(fn_name, *args):
+    from or_gym_inventory_torch.ops import _build
+    lib = _build.library()
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
+                           f"{lib.net_error_string(rc).decode()}")
+
+
+def _plan_key(device) -> str:
+    """``device`` with its index, so that a plan cached for "cuda" stays on
+    the card it was copied to."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return f"cuda:{index}"
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_streams(params, actions, demands):
+    T = params.topology
+    if actions.dtype != torch.float32 or demands.dtype != torch.float32:
+        raise TypeError("actions and demands must be float32")
+    if actions.device != demands.device:
+        raise ValueError(f"actions on {actions.device}, demands on {demands.device}")
+    num_steps, n_ro, B = actions.shape
+    if n_ro != T.n_reorder or demands.shape != (num_steps, T.n_retail, B):
+        raise ValueError(f"expected actions (T, {T.n_reorder}, B) and demands "
+                         f"(T, {T.n_retail}, B); got {tuple(actions.shape)} and "
+                         f"{tuple(demands.shape)}")
+
+
+# ------------------------------------------------------------------ wrappers
+
+def episode_returns(params: NetInvParams, actions: torch.Tensor,
+                    demands: torch.Tensor) -> torch.Tensor:
+    """Discounted episode returns (B,) for pre-sampled streams ``actions``
+    (T, n_reorder, B) and ``demands`` (T, n_retail, B), both float32 on one
+    device. K1: on CUDA tensors one thread per env runs the whole episode
+    (csrc/net_episode.cu ``k_episode_returns``); on CPU tensors the plain
+    version runs."""
+    _check_streams(params, actions, demands)
+    if actions.device.type == "cpu":
+        return _episode_returns_plain(params, actions, demands)
+    if actions.device.type != "cuda":
+        raise ValueError(f"unsupported device {actions.device}")
+    if not (actions.is_contiguous() and demands.is_contiguous()):
+        raise ValueError("actions and demands must be contiguous")
+    num_steps, _, B = actions.shape
+    dev = actions.device
+    tp, disc, _ = _launch_plan(params, num_steps, _plan_key(dev), False)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("net_episode_returns", ctypes.addressof(tp), actions.data_ptr(),
+                demands.data_ptr(), disc.data_ptr(), out.data_ptr(), B, num_steps,
+                _stream(dev))
+    episode_returns.launches += 1
+    return out
+
+
+episode_returns.launches = 0
+
+
+def episode_returns_fully_fused(params: NetInvParams, seed: int, act_hi: float,
+                                batch: int, num_steps: int = None,
+                                episodes_per_lane: int = 1, device=None):
+    """Random-policy episode returns with both streams drawn in the kernel:
+    uniform actions on [0, act_hi) and per-link demand by inversion of the
+    host CDF tables (``user``/``zero`` links take their per-period values;
+    a ``hostfn`` link raises NotImplementedError). K2: one thread per
+    (episode, lane). Returns (batch,) for episodes_per_lane=1, else
+    (episodes_per_lane, batch), episode-major."""
+    dev = resolve_device(device)
+    E = int(episodes_per_lane)
+    if E < 1 or batch < 1:
+        raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got "
+                         f"{batch}, {E}")
+    num_steps = params.num_periods if num_steps is None else num_steps
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        out = _episode_returns_fully_fused_plain(params, seed, act_hi, batch,
+                                                 num_steps, E, dev)
+    else:
+        tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+        out = torch.empty((E, batch), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            _launch("net_episode_returns_fused", ctypes.addressof(tp),
+                    disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed,
+                    _act_scale(act_hi), batch, E, num_steps, _stream(dev))
+        episode_returns_fully_fused.launches += 1
+    return out.reshape(batch) if E == 1 else out
+
+
+episode_returns_fully_fused.launches = 0
+
+
+def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
+                         batch: int, num_steps: int = None,
+                         episodes_per_lane: int = 1, dump_range=None,
+                         device=None):
+    """The exact action and demand streams ``episode_returns_fully_fused``
+    draws for ``seed``. K3: it shares K2's draw function
+    (csrc/philox.cuh ``draw_period``). Returns (actions (T, n_ro, batch),
+    demands (T, n_rt, batch)) for episodes_per_lane=1, else with an E axis
+    after T. ``dump_range=(e0, e1)`` writes only those episodes (the E axis
+    then has length e1-e0); with a counter-based generator the other
+    episodes need not be drawn at all."""
+    dev = resolve_device(device)
+    T = params.topology
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    E = int(episodes_per_lane)
+    e0, e1 = dump_range if dump_range is not None else (0, E)
+    if not 0 <= e0 < e1 <= E or batch < 1:
+        raise ValueError(f"need 0 <= e0 < e1 <= E and batch >= 1; got "
+                         f"dump_range={(e0, e1)}, E={E}, batch={batch}")
+    W = e1 - e0
+    num_steps = params.num_periods if num_steps is None else num_steps
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        acts, dems = _sample_streams_plain(params, seed, act_hi, batch,
+                                           num_steps, e0, e1, dev)
+    else:
+        tp, _, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+        acts = torch.empty((num_steps, W, n_ro, batch), dtype=torch.float32, device=dev)
+        dems = torch.empty((num_steps, W, n_rt, batch), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            _launch("net_sample_streams", ctypes.addressof(tp), tab.data_ptr(),
+                    acts.data_ptr(), dems.data_ptr(), seed, _act_scale(act_hi),
+                    batch, num_steps, e0, e1, _stream(dev))
+        sample_streams_debug.launches += 1
+    if E == 1:
+        return acts.reshape(num_steps, n_ro, batch), dems.reshape(num_steps, n_rt, batch)
+    return acts, dems
+
+
+sample_streams_debug.launches = 0
