@@ -1,0 +1,298 @@
+// NetInvMgmt episode kernels under a folded MLP actor, for Hopper (sm_90a),
+// bound with ctypes by ops/_build.py and wrapped by ops/net_step.py, whose
+// plain PyTorch versions compute the same functions.
+//
+// K4 k_rollout_traj  replaces pallas_net_step.rollout_traj_net (:683, body
+//    _net_traj_kernel :629, policy head pallas_episode_kernels.traj_policy
+//    "ppo" :1036). One stochastic-policy episode per lane, the training
+//    streams written to device memory: start-of-period X and U (T+1
+//    snapshots), fulfilled orders r, pre-squash raws, alpha^t rewards and
+//    demand, each (T[+1], rows, B) and coalesced along B.
+// K5/K6 k_policy_returns  replace _net_policy_call (:554) behind
+//    episode_returns_net_policy (:611) and its stream-dumping twin
+//    sample_policy_streams_debug_net (:756): the same policy, deterministic
+//    or stochastic, E episodes per lane, returns (E, B); with DUMP it also
+//    writes the squashed actions and the demand it used.
+//
+// Design (a simple kernel first): one thread per (lane, episode), as K2 has.
+// The folded actor (obs normalisation already in layer 1) is copied once per
+// block into shared memory, each layer as W^T (in, out16) row-major, then b
+// (out16), the outputs zero-padded to a multiple of 16; then the clipped std
+// when stochastic: ~9,600 floats, 38.5 KB, for the default 68-64-64-11
+// actor. Each thread runs its own forward pass as a plain FMA loop over 16
+// outputs at a time, the 16 sums in registers; the 16 weights of one input
+// are read as four 16-byte broadcasts (every thread of the block reads the
+// same address). The activations live in shared memory too, one column per
+// thread ([row][thread], conflict-free), two buffers of max(obs_dim, out16)
+// rows: 68 KB for the default actor at 128 threads, so two blocks fit an SM.
+// The observation is assembled from the live state in the order of
+// pallas_net_step._net_obs_rows (:482): U, X, then each reorder link's window
+// r[t-L..t-1] oldest first, read from net_step.cuh's per-link ring
+// (order_window). Bound by operations: the MLP's ~18,600 per env-step dwarf
+// the step and the draws. wgmma/mma tiles across lanes, TMA and the step's
+// state out of local memory are later work.
+//
+// Random stream (philox.cuh): key (seed, 1), counter (lane, episode,
+// period, block); per period the n_rt demand words, then the n_ro u1 and
+// the n_ro u2 words when stochastic.
+//
+// Rounding: act = (tanh(raw) + 1) * f32(0.5 * act_hi) as the JAX kernels
+// write it; raw = H + std * z with two roundings (__fmul_rn/__fadd_rn), as
+// the plain version computes it. The MLP sums in another order than a
+// matmul, so a lane whose action lands on a rint tie may take the other
+// integer and diverge from the plain version (the fraction-closeness rule
+// of ROADMAP.md Queue C): they are
+// held by the share of lanes that agree.
+
+#include <cuda_runtime.h>
+
+#include "net_step.cuh"
+#include "philox.cuh"
+
+#define NET_MAX_LAYERS 8
+
+// The actor's shape as the wrapper packs it (ops/net_step.py _NetMlp).
+struct NetMlp {
+  int n_layers;
+  int dims[NET_MAX_LAYERS + 1];  // dims[0] = obs_dim, dims[n_layers] = n_ro
+  int act_rows;                  // rows of each activation buffer
+  float half_hi;                 // f32(0.5 * act_hi)
+};
+
+namespace {
+
+constexpr int kChunk = 16;     // outputs summed at once, in registers
+constexpr int kThreads = 128;  // threads per block = activation columns
+
+__device__ __forceinline__ int pad16(int n) { return (n + kChunk - 1) & ~(kChunk - 1); }
+
+// Element i of this thread's activation column.
+__device__ __forceinline__ float& col(float* a, int i) { return a[i * kThreads]; }
+
+// The observation of the period-t state (pallas_net_step._net_obs_rows),
+// into the activation column h.
+__device__ __forceinline__ void assemble_obs(const NetTopo& tp,
+                                             const Episode& s, float* h) {
+  int k = 0;
+  for (int j = 0; j < tp.n_rt; ++j) col(h, k++) = s.U[j];
+  for (int n = 0; n < tp.n_main; ++n) col(h, k++) = s.X[n];
+  for (int i = 0; i < tp.n_ro; ++i)
+    for (int j = 0; j < tp.ro_L[i]; ++j) col(h, k++) = order_window(tp, s, i, j);
+}
+
+// The pre-squash mean (pallas_episode_kernels.mlp_forward): tanh after every
+// layer but the last. h0 holds the observation; returns the activation
+// column that holds the n_ro outputs.
+__device__ __forceinline__ float* mlp_forward(const NetMlp& m, const float* w,
+                                              float* h0, float* h1) {
+  float* in = h0;
+  float* out = h1;
+  for (int l = 0; l < m.n_layers; ++l) {
+    const int ni = m.dims[l], nop = pad16(m.dims[l + 1]);
+    const float* W = w;  // (ni, nop)
+    const float* b = w + ni * nop;
+    w = b + nop;
+    const bool last = l == m.n_layers - 1;
+    for (int o0 = 0; o0 < nop; o0 += kChunk) {
+      float acc[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) acc[k] = 0.f;
+      for (int i = 0; i < ni; ++i) {
+        const float x = col(in, i);
+        const float4* row = reinterpret_cast<const float4*>(W + i * nop + o0);
+#pragma unroll
+        for (int q = 0; q < kChunk / 4; ++q) {
+          const float4 v = row[q];
+          acc[4 * q] = fmaf(v.x, x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(v.y, x, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(v.z, x, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(v.w, x, acc[4 * q + 3]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        const float z = acc[k] + b[o0 + k];
+        col(out, o0 + k) = last ? z : tanhf(z);
+      }
+    }
+    float* tmp = in;
+    in = out;
+    out = tmp;
+  }
+  return in;
+}
+
+// Demand, then the policy's raw and squashed actions, of one (lane,
+// episode, period).
+template <bool STOCH>
+__device__ __forceinline__ void policy_period(
+    const NetTopo& tp, const NetMlp& m, const float* w, const float* stdv,
+    const float* __restrict__ tables, unsigned seed, unsigned lane, unsigned e,
+    unsigned t, const Episode& s, float* h0, float* h1, float* raw, float* act,
+    float* dem) {
+  WordStream ws(seed, 1u, lane, e, t);
+  for (int j = 0; j < tp.n_rt; ++j) dem[j] = link_demand(tp, tables, j, t, ws.next());
+  assemble_obs(tp, s, h0);
+  float* H = mlp_forward(m, w, h0, h1);
+  unsigned w1[NET_MAX_RO];
+  if (STOCH)
+    for (int i = 0; i < tp.n_ro; ++i) w1[i] = ws.next();
+  for (int i = 0; i < tp.n_ro; ++i) {
+    float x = col(H, i);
+    if (STOCH) x = __fadd_rn(x, __fmul_rn(stdv[i], normal01(w1[i], ws.next())));
+    raw[i] = x;
+    act[i] = (tanhf(x) + 1.f) * m.half_hi;
+  }
+}
+
+// Shared memory: the packed actor (n_params floats, 16-byte aligned), then
+// the two activation buffers of act_rows x kThreads. Returns this thread's
+// two activation columns through h0 and h1.
+__device__ __forceinline__ float* load_params(const NetMlp& m, const float* params,
+                                              int n_params, float*& h0, float*& h1) {
+  extern __shared__ float4 smem[];
+  float* sw = reinterpret_cast<float*>(smem);
+  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sw[k] = __ldg(params + k);
+  __syncthreads();
+  h0 = sw + ((n_params + 3) & ~3) + threadIdx.x;
+  h1 = h0 + m.act_rows * kThreads;
+  return sw;
+}
+
+__global__ void k_rollout_traj(const __grid_constant__ NetTopo tp,
+                               const __grid_constant__ NetMlp m,
+                               const float* __restrict__ params, int n_params,
+                               const float* __restrict__ tables,
+                               const float* __restrict__ disc,
+                               float* __restrict__ xo, float* __restrict__ uo,
+                               float* __restrict__ ro, float* __restrict__ rawo,
+                               float* __restrict__ rewo,
+                               float* __restrict__ demo, unsigned seed,
+                               long long B, int T) {
+  float *h0, *h1;
+  const float* sw = load_params(m, params, n_params, h0, h1);
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* stdv = sw + n_params - tp.n_ro;
+  Episode s;
+  episode_reset(tp, s);
+  float raw[NET_MAX_RO], act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  for (int t = 0; t <= T; ++t) {
+    for (int n = 0; n < tp.n_main; ++n) xo[((long long)t * tp.n_main + n) * B + b] = s.X[n];
+    for (int j = 0; j < tp.n_rt; ++j) uo[((long long)t * tp.n_rt + j) * B + b] = s.U[j];
+    if (t == T) break;  // the final snapshots are the bootstrap obs
+    policy_period<true>(tp, m, sw, stdv, tables, seed, (unsigned)b, 0u,
+                        (unsigned)t, s, h0, h1, raw, act, dem);
+    const float profit = step_period(tp, s, act, dem, r);
+    for (int i = 0; i < tp.n_ro; ++i) {
+      const long long k = ((long long)t * tp.n_ro + i) * B + b;
+      ro[k] = r[i];
+      rawo[k] = raw[i];
+    }
+    rewo[(long long)t * B + b] = __ldg(disc + t) * profit;
+    for (int j = 0; j < tp.n_rt; ++j) demo[((long long)t * tp.n_rt + j) * B + b] = dem[j];
+  }
+}
+
+template <bool STOCH, bool DUMP>
+__global__ void k_policy_returns(const __grid_constant__ NetTopo tp,
+                                 const __grid_constant__ NetMlp m,
+                                 const float* __restrict__ params, int n_params,
+                                 const float* __restrict__ tables,
+                                 const float* __restrict__ disc,
+                                 float* __restrict__ out, float* __restrict__ acts,
+                                 float* __restrict__ dems, unsigned seed,
+                                 long long B, int E, int T) {
+  float *h0, *h1;
+  const float* sw = load_params(m, params, n_params, h0, h1);
+  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (idx >= B * E) return;
+  const unsigned e = (unsigned)(idx / B);
+  const unsigned lane = (unsigned)(idx - (long long)e * B);
+  const float* stdv = sw + n_params - tp.n_ro;
+  Episode s;
+  episode_reset(tp, s);
+  float raw[NET_MAX_RO], act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  float total = 0.f;
+  for (int t = 0; t < T; ++t) {
+    policy_period<STOCH>(tp, m, sw, stdv, tables, seed, lane, e, (unsigned)t, s,
+                         h0, h1, raw, act, dem);
+    if (DUMP) {
+      const long long row = (long long)t * E + e;  // (T, E, rows, B)
+      for (int i = 0; i < tp.n_ro; ++i) acts[(row * tp.n_ro + i) * B + lane] = act[i];
+      for (int j = 0; j < tp.n_rt; ++j) dems[(row * tp.n_rt + j) * B + lane] = dem[j];
+    }
+    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
+  }
+  out[idx] = total;  // (E, B), episode-major
+}
+
+unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+// Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+size_t smem_bytes(const NetMlp& m, int n_params) {
+  return (size_t)(((n_params + 3) & ~3) + 2 * m.act_rows * kThreads) * sizeof(float);
+}
+
+template <bool STOCH, bool DUMP>
+int launch_policy_returns(const NetTopo& tp, const NetMlp& m, const float* params,
+                          int n_params, const float* tables, const float* disc,
+                          float* out, float* acts, float* dems, unsigned seed,
+                          long long B, int E, int T, cudaStream_t stream) {
+  const size_t smem = smem_bytes(m, n_params);
+  auto kernel = k_policy_returns<STOCH, DUMP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks_for(B * E), kThreads, smem, stream>>>(
+      tp, m, params, n_params, tables, disc, out, acts, dems, seed, B, E, T);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int net_rollout_traj(const NetTopo* topo, const NetMlp* mlp, const float* params,
+                     int n_params, const float* tables, const float* disc,
+                     float* xo, float* uo, float* ro, float* raw, float* rew,
+                     float* dem, unsigned seed, long long B, int T,
+                     cudaStream_t stream) {
+  const size_t smem = smem_bytes(*mlp, n_params);
+  cudaError_t err = allow_smem(k_rollout_traj, smem);
+  if (err != cudaSuccess) return (int)err;
+  k_rollout_traj<<<blocks_for(B), kThreads, smem, stream>>>(
+      *topo, *mlp, params, n_params, tables, disc, xo, uo, ro, raw, rew, dem,
+      seed, B, T);
+  return (int)cudaGetLastError();
+}
+
+// acts == dems == nullptr: returns only (K5); otherwise also the streams (K6).
+int net_policy_returns(const NetTopo* topo, const NetMlp* mlp,
+                       const float* params, int n_params, const float* tables,
+                       const float* disc, float* out, float* acts, float* dems,
+                       unsigned seed, long long B, int E, int T, int stochastic,
+                       cudaStream_t stream) {
+  const bool dump = acts != nullptr;
+  if (stochastic)
+    return dump ? launch_policy_returns<true, true>(*topo, *mlp, params, n_params, tables,
+                                                    disc, out, acts, dems, seed, B, E, T, stream)
+                : launch_policy_returns<true, false>(*topo, *mlp, params, n_params, tables,
+                                                     disc, out, acts, dems, seed, B, E, T, stream);
+  return dump ? launch_policy_returns<false, true>(*topo, *mlp, params, n_params, tables,
+                                                   disc, out, acts, dems, seed, B, E, T, stream)
+              : launch_policy_returns<false, false>(*topo, *mlp, params, n_params, tables,
+                                                    disc, out, acts, dems, seed, B, E, T, stream);
+}
+
+const char* net_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,16 +1,24 @@
-// Philox4x32-10 and the per-period draw shared by the fused episode kernel
-// (K2) and its stream-dumping twin (K3), so the two cannot drift apart.
+// Philox4x32-10 and the per-period draws of the episode kernels: the
+// random-policy kernels K2/K3 (net_episode.cu) share draw_period, the policy
+// kernels K4-K6 (net_policy.cu) share link_demand and normal01, so the
+// kernels and their stream-dumping twins cannot drift apart.
 //
 // Replaces the TPU's hardware generator (pltpu.prng_seed /
 // prng_random_bits in ops/pallas_net_step.py), which exists neither on a GPU
 // nor in interpret mode. The bits differ from the TPU's; the plain twin in
 // ops/rng.py gives the same words bit for bit for the same counter and key.
 //
-// Stream layout: key = (seed, 0); counter = (lane, episode, period, block).
-// Per (lane, episode, period), word w is component w % 4 of block w / 4: the
-// n_ro action words come first, then one demand word per retail link. A
-// const (user/zero) link still owns its word, so the layout does not depend
-// on the demand specs.
+// Stream layout: counter = (lane, episode, period, block); per (lane,
+// episode, period), word w is component w % 4 of block w / 4.
+// - Random-policy kernels, key (seed, 0): the n_ro action words, then one
+//   demand word per retail link.
+// - Policy kernels, key (seed, 1): one demand word per retail link, then,
+//   when stochastic, the n_ro u1 words and the n_ro u2 words of the
+//   Box-Muller normals (the JAX kernels draw the demand before the policy,
+//   pallas_net_step.py:528/:654, and u1 before u2,
+//   pallas_episode_kernels.py:69-70).
+// A const (user/zero) link still owns its word, so the layout does not
+// depend on the demand specs.
 //
 // Conversions, kept exactly as the JAX kernels have them:
 //   u24    = word >> 8
@@ -20,6 +28,10 @@
 //   demand = base + #{F in table : u >= F} (:265-288); a binary search over
 //            the nondecreasing table gives the same count as the linear
 //            compare, in log2(len) steps instead of len.
+//   normal = sqrt(-2 ln(1 - u1)) * cos(f32(2 pi) * u2)
+//            (pallas_episode_kernels.py:56-72). Built without fast math, so
+//            logf/cosf are the accurate library versions; they may still
+//            differ from the CPU's by an ulp.
 #pragma once
 
 #include "net_topo.cuh"
@@ -40,6 +52,32 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+// The words of one (lane, episode, period) in order, one block at a time.
+struct WordStream {
+  uint4 ctr;
+  uint2 key;
+  int w = 0;
+  uint4 blk;
+
+  __device__ WordStream(unsigned seed, unsigned key1, unsigned lane, unsigned e,
+                        unsigned t)
+      : ctr(make_uint4(lane, e, t, 0u)), key(make_uint2(seed, key1)) {}
+
+  __device__ __forceinline__ unsigned next() {
+    const int c = w & 3;
+    if (c == 0) {
+      ctr.w = (unsigned)(w >> 2);
+      blk = philox4x32_10(ctr, key);
+    }
+    ++w;
+    return c == 0 ? blk.x : c == 1 ? blk.y : c == 2 ? blk.z : blk.w;
+  }
+};
+
+__device__ __forceinline__ float u01(unsigned word) {
+  return (float)(word >> 8) * 5.9604644775390625e-8f;  // exact: u24 < 2^24
+}
+
 // #{i < len : tab[i] <= u}
 __device__ __forceinline__ int count_le(const float* __restrict__ tab, int len,
                                         float u) {
@@ -54,33 +92,29 @@ __device__ __forceinline__ int count_le(const float* __restrict__ tab, int len,
   return lo;
 }
 
+// Demand of retail link j in period t from its word.
+__device__ __forceinline__ float link_demand(const NetTopo& tp,
+                                             const float* __restrict__ tables,
+                                             int j, unsigned t, unsigned word) {
+  const float* tab = tables + tp.rt_off[j];
+  if (tp.rt_const[j]) return __ldg(tab + min((int)t, tp.rt_len[j] - 1));
+  return tp.rt_base[j] + (float)count_le(tab, tp.rt_len[j], u01(word));
+}
+
+__device__ __forceinline__ float normal01(unsigned w1, unsigned w2) {
+  const float r = sqrtf(-2.f * logf(1.f - u01(w1)));
+  return r * cosf(6.2831855f * u01(w2));
+}
+
 // Actions act[0, n_ro) and demand dem[0, n_rt) of one (lane, episode,
-// period).
+// period) of the random-policy kernels.
 __device__ __forceinline__ void draw_period(const NetTopo& tp,
                                             const float* __restrict__ tables,
                                             unsigned seed, unsigned lane,
                                             unsigned e, unsigned t,
                                             float act_scale, float* act,
                                             float* dem) {
-  const int n_words = tp.n_ro + tp.n_rt;
-  uint4 blk = make_uint4(0u, 0u, 0u, 0u);
-  for (int w = 0; w < n_words; ++w) {
-    const int c = w & 3;
-    if (c == 0)
-      blk = philox4x32_10(make_uint4(lane, e, t, (unsigned)(w >> 2)),
-                          make_uint2(seed, 0u));
-    const unsigned word = c == 0 ? blk.x : c == 1 ? blk.y : c == 2 ? blk.z : blk.w;
-    const float u24 = (float)(word >> 8);  // exact: u24 < 2^24
-    if (w < tp.n_ro) {
-      act[w] = u24 * act_scale;
-    } else {
-      const int j = w - tp.n_ro;
-      const float* tab = tables + tp.rt_off[j];
-      if (tp.rt_const[j])
-        dem[j] = tab[min((int)t, tp.rt_len[j] - 1)];
-      else
-        dem[j] = tp.rt_base[j] +
-                 (float)count_le(tab, tp.rt_len[j], u24 * 5.9604644775390625e-8f);
-    }
-  }
+  WordStream ws(seed, 0u, lane, e, t);
+  for (int i = 0; i < tp.n_ro; ++i) act[i] = (float)(ws.next() >> 8) * act_scale;
+  for (int j = 0; j < tp.n_rt; ++j) dem[j] = link_demand(tp, tables, j, t, ws.next());
 }

@@ -123,6 +123,33 @@ def _obs(params: NetInvParams, state: NetInvState) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def assemble_obs_from_streams(params: NetInvParams, x, u, r) -> torch.Tensor:
+    """The observation stream of whole episodes from a trajectory's streams:
+    the gather form of ``_obs``, which the PPO update feeds on
+    (``ops.net_step.rollout_traj_net``).
+
+    ``x`` (T+1, n_main, B) and ``u`` (T+1, n_rt, B) are start-of-period node
+    inventories and retail backlogs, ``r`` (T, n_ro, B) fulfilled orders.
+    Returns (T+1, B, obs_dim) float32 whose row t is ``_obs`` of the period-t
+    state: U, then X, then for each reorder link i the chronological window
+    ``r[t-L_i .. t-1, i]`` (zeros before the episode; links with L_i = 0 have
+    no rows)."""
+    T = params.topology
+    T1, _, B = x.shape
+    Tn = T1 - 1
+    f32 = dict(dtype=torch.float32)
+    parts = [u.to(**f32), x.to(**f32)]
+    # one zero row at index Tn stands for every period before the episode
+    padded = torch.cat([r.to(**f32), r.new_zeros((1, T.n_reorder, B), **f32)])
+    for i, L in enumerate(T.ro_L):
+        if L == 0:
+            continue
+        idx = torch.arange(T1)[:, None] - L + torch.arange(L)[None, :]
+        idx = torch.where((idx >= 0) & (idx < Tn), idx, Tn).to(x.device)
+        parts.append(padded[idx, i])                      # (T+1, L, B)
+    return torch.cat(parts, dim=1).transpose(1, 2)
+
+
 def _info(state):
     return {"period": state.period, "inventory": state.X,
             "pipeline": state.Y, "backlog_start": state.U}
@@ -269,10 +296,52 @@ def _demand_plan(T: Topology, device: str):
     """The episode kernels' per-link demand plan as device tensors, cached
     per topology and device so that a rollout copies the tables to the
     device once, not once per step. ``user`` arrays keep their full length,
-    so a period past the horizon takes the array's last value."""
+    so a period past the horizon takes the array's last value. A link whose
+    inversion table would exceed the cap is planned as ("law",): it is drawn
+    from its law (``_draw_from_law``). ``hostfn`` links are refused before
+    this is called."""
     steps = max([1] + [len(s[1]) for s in T.rt_demand if s[0] == "user"])
-    return tuple(net_step._device_link_plan(
-        net_step._topology_link_specs(T, steps), device))
+    plan = []
+    for spec in T.rt_demand:
+        try:
+            link = net_step._link_spec(spec, steps)
+        except NotImplementedError:   # support beyond the table cap
+            plan.append(("law",))
+            continue
+        plan.extend(net_step._device_link_plan((link,), device))
+    return tuple(plan)
+
+
+def _draw_from_law(spec, generator: torch.Generator, batch: int, dev):
+    """(batch,) draws of a static named spec from its law itself, with
+    ``generator``: the JAX env's samplers (ops/distributions.py sample_*), for
+    a spec whose support is too wide for an inversion table."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    tag = spec[0]
+    if tag == "poisson":
+        return torch.poisson(torch.full((batch,), float(spec[1]), **f32),
+                             generator=generator)
+    if tag == "binomial":
+        return torch.binomial(torch.full((batch,), float(spec[1]), **f32),
+                              torch.full((batch,), float(spec[2]), **f32),
+                              generator=generator)
+    if tag == "negbinomial":
+        # failures before the n-th success: Poisson(Gamma(n) * (1 - p) / p)
+        n, p = float(spec[1]), float(spec[2])
+        lam = torch._standard_gamma(torch.full((batch,), n, **f32),
+                                    generator=generator) * ((1.0 - p) / p)
+        return torch.poisson(lam, generator=generator)
+    if tag == "randint":
+        return torch.randint(int(spec[1]), int(spec[2]), (batch,),
+                             generator=generator, device=dev).to(torch.float32)
+    if tag == "geometric":
+        return torch.empty((batch,), **f32).geometric_(float(spec[1]),
+                                                      generator=generator)
+    if tag == "normal":
+        x = torch.normal(float(spec[1]), float(spec[2]), (batch,),
+                         generator=generator, **f32)
+        return torch.clamp_min(torch.round(x), 0.0)
+    raise NotImplementedError(f"no sampler for demand spec {tag!r}")
 
 
 def sample_demand(params: NetInvParams, generator: torch.Generator,
@@ -280,17 +349,23 @@ def sample_demand(params: NetInvParams, generator: torch.Generator,
     """(batch, n_retail) demand for every named spec the topology compiler
     emits. Each link inverts its host CDF table (``ops.distributions``)
     against a 24-bit uniform from ``generator`` — the sampler the kernels
-    use, exact for every static spec. ``user``/``zero`` links take their
-    per-period value; a ``hostfn`` spec raises. ``period`` is an int or a
-    (batch,) tensor; ``generator`` must live on ``device``."""
+    use, exact for every static spec. A spec whose table would exceed the
+    4,096-entry cap (e.g. Poisson(50,000)) is drawn from its law itself
+    with ``generator``, as the JAX env draws every spec (the kernels refuse
+    it). ``user``/``zero`` links take their per-period value; a ``hostfn``
+    spec raises. ``period`` is an int or a (batch,) tensor; ``generator``
+    must live on ``device``."""
     dev = resolve_device(device)
     T = params.topology
     _refuse_hostfn(T)
     period = torch.as_tensor(period, device=dev).expand(batch).long()
     cols = []
-    for kind, *rest in _demand_plan(T, str(dev)):
-        # every link draws its uniform, const links too, so the stream layout
-        # does not depend on the specs
+    for spec, (kind, *rest) in zip(T.rt_demand, _demand_plan(T, str(dev))):
+        if kind == "law":
+            cols.append(_draw_from_law(spec, generator, batch, dev))
+            continue
+        # every other link draws its uniform, const links too, so the stream
+        # layout does not depend on the specs
         u24 = torch.randint(0, 1 << 24, (batch,), generator=generator, device=dev)
         if kind == "table":
             base, table = rest

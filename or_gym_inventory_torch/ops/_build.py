@@ -25,15 +25,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32, ctypes.c_float)
-# C entry points of csrc/net_episode.cu: (argtypes, restype)
+# C entry points of each source: {source stem: {name: (argtypes, restype)}}
 SIGNATURES = {
-    # topo, acts, dems, disc, out, B, T, stream
-    "net_episode_returns": ((_P, _P, _P, _P, _P, _LL, _I, _P), _I),
-    # topo, disc, tables, out, seed, act_scale, B, E, T, stream
-    "net_episode_returns_fused": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
-    # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
-    "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
-    "net_error_string": ((_I,), ctypes.c_char_p),
+    "net_episode": {
+        # topo, acts, dems, disc, out, B, T, stream
+        "net_episode_returns": ((_P, _P, _P, _P, _P, _LL, _I, _P), _I),
+        # topo, disc, tables, out, seed, act_scale, B, E, T, stream
+        "net_episode_returns_fused": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
+        # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
+        "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
+        "net_error_string": ((_I,), ctypes.c_char_p),
+    },
+    "net_policy": {
+        # topo, mlp, params, n_params, tables, disc, x, u, r, raw, reward,
+        # demand, seed, B, T, stream
+        "net_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _U32, _LL, _I, _P), _I),
+        # topo, mlp, params, n_params, tables, disc, out, acts, dems, seed, B,
+        # E, T, stochastic, stream
+        "net_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _U32, _LL,
+                                _I, _I, _I, _P), _I),
+        "net_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 
@@ -81,11 +94,12 @@ def build() -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
+def library(name: str = "net_episode") -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``, built on first use (with
+    every other missing library)."""
     build()
-    lib = ctypes.CDLL(str(_target(CSRC / "net_episode.cu")))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
+    lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
+    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = list(argtypes), restype
     return lib

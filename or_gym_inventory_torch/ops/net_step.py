@@ -1,16 +1,20 @@
 """NetInvMgmt whole-episode kernels and their plain PyTorch versions.
 
-Port of ``or_gym_inventory_tpu/ops/pallas_net_step.py`` (the three kernels
-on the random-policy episode-return path). Each public function is a
-wrapper: on CPU tensors it runs the plain PyTorch version in this module, on
-CUDA tensors it launches its hand-written kernel in ``csrc/net_episode.cu``
-and raises if the launch fails; nothing falls back. Each wrapper counts its
-kernel launches in a plain integer attribute, ``<wrapper>.launches``.
+Port of ``or_gym_inventory_tpu/ops/pallas_net_step.py``: the three kernels
+of the random-policy episode returns (``csrc/net_episode.cu``) and the three
+of the learned policy (``csrc/net_policy.cu``). Each public function is a
+wrapper: on the CPU it runs the plain PyTorch version in this module, on
+CUDA it launches its hand-written kernel and raises if the launch fails;
+nothing falls back. Each wrapper counts its kernel launches in a plain
+integer attribute, ``<wrapper>.launches``.
 
 | wrapper                      | replaces (pallas_net_step.py)         |
 | ``episode_returns``          | ``episode_returns`` :820 (K1)         |
 | ``episode_returns_fully_fused`` | ``episode_returns_fully_fused`` :379 (K2) |
 | ``sample_streams_debug``     | ``sample_streams_debug`` :427 (K3)    |
+| ``rollout_traj_net``         | ``rollout_traj_net`` :683 (K4)        |
+| ``episode_returns_net_policy`` | ``episode_returns_net_policy`` :611 (K5) |
+| ``sample_policy_streams_debug_net`` | ``sample_policy_streams_debug_net`` :756 (K6) |
 
 Layout follows the JAX package: per-env state as (rows, B) with the batch
 last, streams as (T, rows, B) or (T, E, rows, B). The random streams are
@@ -29,6 +33,7 @@ import torch
 
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.ops import distributions as dist
+from or_gym_inventory_torch.ops import episode_kernels as ek
 from or_gym_inventory_torch.ops import rng
 
 if TYPE_CHECKING:  # the env imports this module for its demand sampler
@@ -37,6 +42,11 @@ if TYPE_CHECKING:  # the env imports this module for its demand sampler
 # fixed maxima of the topology struct the kernels take by value
 # (csrc/net_topo.cuh); the wrappers raise beyond them
 MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
+# and of the actor the policy kernels take (csrc/net_policy.cu); its
+# weights, biases and std must fit the dynamic shared memory a Hopper block
+# may opt in to (227 KB)
+MAX_LAYERS, MAX_WIDTH = 8, 256
+SMEM_OPTIN_BYTES = 232_448
 
 
 def init_transposed(params: NetInvParams, batch: int, device=None):
@@ -154,17 +164,19 @@ def _topology_link_specs(T, num_steps):
     ``("table", base, thresholds)`` for every static-parameter spec,
     ``("const", per_period_values)`` for ``user``/``zero`` links. A ``hostfn``
     link raises NotImplementedError, before anything is launched."""
-    specs = []
-    for spec in T.rt_demand:
-        if spec[0] == "user":
-            arr = tuple(float(v) for v in spec[1]) or (0.0,)
-            specs.append(("const", tuple(arr[min(t, len(arr) - 1)]
-                                         for t in range(num_steps))))
-        elif spec[0] == "zero":
-            specs.append(("const", (0.0,) * num_steps))
-        else:
-            specs.append(("table",) + dist.cdf_table_for_spec(spec))
-    return tuple(specs)
+    return tuple(_link_spec(spec, num_steps) for spec in T.rt_demand)
+
+
+def _link_spec(spec, num_steps):
+    """One link's entry of ``_topology_link_specs``. Raises
+    NotImplementedError for a ``hostfn`` spec and for one whose inversion
+    table would exceed the cap."""
+    if spec[0] == "user":
+        arr = tuple(float(v) for v in spec[1]) or (0.0,)
+        return ("const", tuple(arr[min(t, len(arr) - 1)] for t in range(num_steps)))
+    if spec[0] == "zero":
+        return ("const", (0.0,) * num_steps)
+    return ("table",) + dist.cdf_table_for_spec(spec)
 
 
 def _discounts(alpha: float, num_steps: int):
@@ -222,17 +234,22 @@ def _draw_period_plain(plan, seed, lanes, e, t, n_ro, act_scale):
     into values exactly as csrc/philox.cuh ``draw_period`` does."""
     words = rng.period_words(seed, lanes, e, t, n_ro + len(plan))
     act = [(w >> 8).to(torch.float32) * act_scale for w in words[:n_ro]]
+    return act, _link_demand_plain(plan, words[n_ro:], t)
+
+
+def _link_demand_plain(plan, words, t):
+    """Demand of period ``t``, one row per link, from one word per link
+    (csrc/philox.cuh ``link_demand``)."""
     dem = []
-    for spec, w in zip(plan, words[n_ro:]):
+    for spec, w in zip(plan, words):
         if spec[0] == "const":
             vals = spec[1]
-            dem.append(vals[min(t, vals.shape[0] - 1)].expand(lanes.shape))
+            dem.append(vals[min(t, vals.shape[0] - 1)].expand(w.shape))
         else:
             _tag, base, table = spec
-            u = (w >> 8).to(torch.float32) * (2.0 ** -24)
-            d = torch.searchsorted(table, u, right=True).to(torch.float32)
+            d = torch.searchsorted(table, rng.uniform01(w), right=True).to(torch.float32)
             dem.append(d + base if base else d)
-    return act, dem
+    return dem
 
 
 def _sample_streams_plain(params, seed, act_hi, batch, num_steps, e0, e1, device):
@@ -360,9 +377,9 @@ def _launch_plan(params: NetInvParams, num_steps: int, device: str,
             _f32_on(tables, device))
 
 
-def _launch(fn_name, *args):
+def _launch(fn_name, *args, lib_name="net_episode"):
     from or_gym_inventory_torch.ops import _build
-    lib = _build.library()
+    lib = _build.library(lib_name)
     rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
@@ -497,3 +514,294 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
 
 
 sample_streams_debug.launches = 0
+
+
+# ============================================ policy kernels K4-K6 (net_policy.cu)
+
+def _net_obs_rows(T, X, U, RH):
+    """The observation as a list of (B,) rows (pallas_net_step._net_obs_rows):
+    U per retail link, X per main node, then each reorder link's
+    chronological order window R[t-L..t-1], read oldest first from the
+    newest-first rows ``RH``; rows before period 0 are RH's zero rows."""
+    rows = list(U) + list(X)
+    n_ro = T.n_reorder
+    for i, L in enumerate(T.ro_L):
+        for j in range(L):
+            rows.append(RH[(L - 1 - j) * n_ro + i])
+    return rows
+
+
+def _half_hi(T) -> float:
+    """f32(0.5 * act_hi) with act_hi = 2 * order_cap_heuristic, the factor of
+    ``act = (tanh(raw) + 1) * (0.5 * act_hi)`` (pallas_net_step.py:537)."""
+    return float(np.float32(0.5 * float(T.order_cap_heuristic * 2)))
+
+
+def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH):
+    """Demand, raw and squashed actions of one period of the policy kernels
+    (csrc/net_policy.cu ``policy_period``), each a list of rows: the n_rt
+    demand words first, then the n_ro u1 and n_ro u2 words when ``std`` is
+    given."""
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    n_words = n_rt + (2 * n_ro if std is not None else 0)
+    words = rng.period_words(seed, lanes, episodes, t, n_words, key1=rng.POLICY_KEY)
+    dem = _link_demand_plain(plan, words[:n_rt], t)
+    obs_rows = _net_obs_rows(T, X, U, RH)
+    if std is None:
+        raw = ek.mlp_forward(layers, "tanh", obs_rows)
+    else:
+        z = rng.normal01(torch.stack(words[n_rt:n_rt + n_ro]),
+                         torch.stack(words[n_rt + n_ro:]))
+        raw, _ = ek.traj_policy("ppo", "tanh", n_ro, layers, std, obs_rows, z)
+    act = (torch.tanh(raw) + 1.0) * _half_hi(T)
+    return dem, raw, act
+
+
+def _rollout_traj_plain(params, actor, std, seed, batch, device):
+    """Plain version of K4: the streams of one stochastic-policy episode per
+    lane, as ``rollout_traj_net`` returns them."""
+    T = params.topology
+    n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
+    lt = max(T.lt_max, 1)
+    num_steps = params.num_periods
+    plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
+    layers = ek.kernel_layers(actor, device)
+    std = std.to(device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    discs = _discounts(params.alpha, num_steps)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
+               u=torch.empty((num_steps + 1, n_rt, batch), **f32),
+               r=torch.empty((num_steps, n_ro, batch), **f32),
+               raw=torch.empty((num_steps, n_ro, batch), **f32),
+               reward=torch.empty((num_steps, batch), **f32),
+               demand=torch.empty((num_steps, n_rt, batch), **f32))
+    X, Y, U, RH = (list(a) for a in init_transposed(params, batch, device))
+    for t in range(num_steps):
+        out["x"][t], out["u"][t] = torch.stack(X), torch.stack(U)
+        dem, raw, act = _policy_period_plain(T, plan, layers, std, seed, lanes, 0,
+                                             t, X, U, RH)
+        valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
+        X, Y, U, r_cur, profit = _step_math(T, params.backlog, X, Y, U, RH,
+                                            list(act), dem, valid)
+        RH = r_cur + RH[: (lt - 1) * n_ro]
+        out["r"][t], out["raw"][t] = torch.stack(r_cur), raw
+        out["reward"][t] = discs[t] * profit
+        out["demand"][t] = torch.stack(dem)
+    out["x"][num_steps], out["u"][num_steps] = torch.stack(X), torch.stack(U)
+    return out
+
+
+def _policy_returns_plain(params, actor, std, seed, batch, episodes_per_lane,
+                          device, dump=False):
+    """Plain version of K5 (and, with ``dump``, K6): returns (E, B), and the
+    actions (T, E, n_ro, B) and demand (T, E, n_rt, B) they came from. All
+    E * B episodes run at once, episode-major, each with its own counter."""
+    T = params.topology
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    lt = max(T.lt_max, 1)
+    num_steps, E = params.num_periods, episodes_per_lane
+    plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
+    layers = ek.kernel_layers(actor, device)
+    std = None if std is None else std.to(device)
+    idx = torch.arange(E * batch, dtype=torch.int64, device=device)
+    episodes, lanes = idx // batch, idx % batch
+    discs = _discounts(params.alpha, num_steps)
+    f32 = dict(dtype=torch.float32, device=device)
+    acts = torch.empty((num_steps, E, n_ro, batch), **f32) if dump else None
+    dems = torch.empty((num_steps, E, n_rt, batch), **f32) if dump else None
+    X, Y, U, RH = (list(a) for a in init_transposed(params, E * batch, device))
+    total = torch.zeros(E * batch, **f32)
+    for t in range(num_steps):
+        dem, _raw, act = _policy_period_plain(T, plan, layers, std, seed, lanes,
+                                              episodes, t, X, U, RH)
+        if dump:
+            acts[t] = act.reshape(n_ro, E, batch).transpose(0, 1)
+            dems[t] = torch.stack(dem).reshape(n_rt, E, batch).transpose(0, 1)
+        valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
+        X, Y, U, r_cur, profit = _step_math(T, params.backlog, X, Y, U, RH,
+                                            list(act), dem, valid)
+        RH = r_cur + RH[: (lt - 1) * n_ro]
+        total = total + discs[t] * profit
+    return total.reshape(E, batch), acts, dems
+
+
+class _NetMlp(ctypes.Structure):
+    """Mirror of ``struct NetMlp`` in csrc/net_policy.cu."""
+    _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+                ("act_rows", ctypes.c_int), ("half_hi", ctypes.c_float)]
+
+
+_POLICY_THREADS = 128   # kThreads of csrc/net_policy.cu: activation columns
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _actor_dims(T, actor):
+    """The actor's widths [obs_dim, ..., act_dim]; raises ValueError for an
+    actor that does not fit the topology or the kernels' maxima."""
+    Ws, bs = actor
+    if len(Ws) != len(bs) or not Ws:
+        raise ValueError("actor must be (Ws, bs) with one bias per layer")
+    dims = [int(Ws[0].shape[0])] + [int(W.shape[1]) for W in Ws]
+    for layer, (W, b) in enumerate(zip(Ws, bs)):
+        if tuple(W.shape) != (dims[layer], dims[layer + 1]) or tuple(b.shape) != (dims[layer + 1],):
+            raise ValueError(f"layer {layer}: W {tuple(W.shape)} and b {tuple(b.shape)} "
+                             f"do not chain to widths {dims}")
+    if dims[0] != T.obs_dim or dims[-1] != T.n_reorder:
+        raise ValueError(f"actor maps {dims[0]} -> {dims[-1]}; the topology needs "
+                         f"obs_dim {T.obs_dim} -> n_reorder {T.n_reorder}")
+    if len(Ws) > MAX_LAYERS or max(dims) > MAX_WIDTH:
+        raise ValueError(f"actor widths {dims}: the kernels take at most "
+                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH}")
+    return dims
+
+
+def _pack_actor(T, actor, std, device):
+    """The kernels' actor arguments: the NetMlp struct and one flat float32
+    buffer on ``device``, each layer as W^T (in, out16) then b (out16), the
+    outputs zero-padded to a multiple of 16, then the std when given. Raises
+    ValueError if the buffer and the activation buffers exceed the shared
+    memory of a block."""
+    dims = _actor_dims(T, actor)
+    Ws, bs = actor
+    parts = []
+    for W, b in zip(Ws, bs):
+        n_in, n_out = W.shape
+        Wp = torch.zeros((n_in, _pad16(n_out)), dtype=torch.float32, device=device)
+        bp = torch.zeros(_pad16(n_out), dtype=torch.float32, device=device)
+        Wp[:, :n_out] = torch.as_tensor(W, dtype=torch.float32, device=device)
+        bp[:n_out] = torch.as_tensor(b, dtype=torch.float32, device=device)
+        parts += [Wp.reshape(-1), bp]
+    if std is not None:
+        parts.append(std.to(device).reshape(-1))
+    flat = torch.cat(parts).contiguous()
+    act_rows = max([dims[0]] + [_pad16(d) for d in dims[1:]])
+    smem = (-(-flat.numel() // 4) * 4 + 2 * act_rows * _POLICY_THREADS) * 4
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"actor of {flat.numel()} floats with activation buffers of "
+                         f"{act_rows} rows needs {smem} bytes; the shared memory of "
+                         f"a block holds {SMEM_OPTIN_BYTES}")
+    mlp = _NetMlp(n_layers=len(dims) - 1, act_rows=act_rows, half_hi=_half_hi(T))
+    for k, d in enumerate(dims):
+        mlp.dims[k] = d
+    return mlp, flat
+
+
+def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
+                     policy: str = "ppo", act_name: str = "tanh", device=None):
+    """One full stochastic-policy episode per lane with the training streams
+    written out. ``actor`` is ``(Ws, bs)`` from
+    ``episode_kernels.fold_actor_params``; ``log_std`` the policy's log-std,
+    clipped through ``clipped_std``. Returns a dict of float32 tensors:
+    ``x (T+1, n_main, batch)`` and ``u (T+1, n_rt, batch)`` start-of-period
+    node inventories and retail backlogs (the final snapshots last),
+    ``r (T, n_ro, batch)`` fulfilled orders, ``raw (T, n_ro, batch)``
+    pre-squash Gaussian samples, ``reward (T, batch)`` (alpha^t-discounted)
+    and ``demand (T, n_rt, batch)``. K4: one thread per lane
+    (csrc/net_policy.cu ``k_rollout_traj``); on the CPU the plain version
+    runs. Only the PPO head with a tanh trunk is ported: other ``policy`` or
+    ``act_name`` values raise NotImplementedError, as does a ``hostfn``
+    demand link."""
+    if policy != "ppo" or act_name != "tanh":
+        ek._refuse_mode(f"policy={policy!r}, act_name={act_name!r}")
+    dev = resolve_device(device)
+    if batch < 1:
+        raise ValueError(f"need batch >= 1, got {batch}")
+    T = params.topology
+    n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
+    num_steps = params.num_periods
+    seed = int(seed) & rng.MASK32
+    std = ek.clipped_std(torch.as_tensor(log_std).detach())
+    mlp, flat = _pack_actor(T, actor, std, dev)
+    if dev.type == "cpu":
+        return _rollout_traj_plain(params, actor, std, seed, batch, dev)
+    tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
+               u=torch.empty((num_steps + 1, n_rt, batch), **f32),
+               r=torch.empty((num_steps, n_ro, batch), **f32),
+               raw=torch.empty((num_steps, n_ro, batch), **f32),
+               reward=torch.empty((num_steps, batch), **f32),
+               demand=torch.empty((num_steps, n_rt, batch), **f32))
+    with torch.cuda.device(dev):
+        _launch("net_rollout_traj", ctypes.addressof(tp), ctypes.addressof(mlp),
+                flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
+                *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
+                seed, batch, num_steps, _stream(dev), lib_name="net_policy")
+    rollout_traj_net.launches += 1
+    return out
+
+
+rollout_traj_net.launches = 0
+
+
+def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
+                 dump, device):
+    """K5 (``dump`` False) or K6 for ``wrapper``: (returns (E, B), actions,
+    demands), the streams None without ``dump``."""
+    dev = resolve_device(device)
+    E = int(episodes_per_lane)
+    if E < 1 or batch < 1:
+        raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got "
+                         f"{batch}, {E}")
+    T = params.topology
+    num_steps = params.num_periods
+    seed = int(seed) & rng.MASK32
+    std = None if log_std is None else ek.clipped_std(log_std)
+    mlp, flat = _pack_actor(T, actor, std, dev)
+    if dev.type == "cpu":
+        return _policy_returns_plain(params, actor, std, seed, batch, E, dev, dump)
+    tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((E, batch), **f32)
+    acts = dems = None
+    if dump:
+        acts = torch.empty((num_steps, E, T.n_reorder, batch), **f32)
+        dems = torch.empty((num_steps, E, T.n_retail, batch), **f32)
+    with torch.cuda.device(dev):
+        _launch("net_policy_returns", ctypes.addressof(tp), ctypes.addressof(mlp),
+                flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
+                out.data_ptr(), acts.data_ptr() if dump else None,
+                dems.data_ptr() if dump else None, seed, batch, E, num_steps,
+                int(std is not None), _stream(dev), lib_name="net_policy")
+    wrapper.launches += 1
+    return out, acts, dems
+
+
+def episode_returns_net_policy(params: NetInvParams, actor, seed, batch: int,
+                               episodes_per_lane: int = 1, log_std=None,
+                               device=None):
+    """Episode returns under a folded MLP actor (``episode_kernels.
+    fold_actor_params``), the policy run inside the kernel on the live state.
+    Deterministic by default; with the trained ``log_std`` the actions are
+    tanh-squashed Gaussian samples around the mean. Demand is drawn from the
+    links' CDF tables (a ``hostfn`` link raises NotImplementedError). K5: one
+    thread per (episode, lane) (csrc/net_policy.cu ``k_policy_returns``); on
+    the CPU the plain version runs. Returns (batch,) for
+    episodes_per_lane=1, else (episodes_per_lane, batch)."""
+    out, _, _ = _policy_call(episode_returns_net_policy, params, actor, seed,
+                             batch, episodes_per_lane, log_std, False, device)
+    return out.reshape(batch) if episodes_per_lane == 1 else out
+
+
+episode_returns_net_policy.launches = 0
+
+
+def sample_policy_streams_debug_net(params: NetInvParams, actor, seed, batch: int,
+                                    episodes_per_lane: int = 1, log_std=None,
+                                    device=None):
+    """(returns, actions (T, E, n_ro, batch), demands (T, E, n_rt, batch)):
+    ``episode_returns_net_policy`` with the squashed actions and the demand
+    it used written out. K6: the same kernel with its dump switched on, so
+    the streams are exactly the ones K5 consumes for the same seed. Returns
+    are (batch,) for episodes_per_lane=1, else (E, batch)."""
+    out, acts, dems = _policy_call(sample_policy_streams_debug_net, params, actor,
+                                   seed, batch, episodes_per_lane, log_std, True,
+                                   device)
+    return (out.reshape(batch) if episodes_per_lane == 1 else out), acts, dems
+
+
+sample_policy_streams_debug_net.launches = 0

@@ -9,10 +9,25 @@ unsigned 32-bit values, so the plain versions of the kernels draw exactly
 the kernels' bits: ``csrc/philox.cuh`` must give bit-identical words for the
 same counter and key.
 
-Stream layout of the episode kernels: key = (seed, 0); counter =
-(lane, episode, period, block). Per (lane, episode, period) the words are
-numbered w = 0, 1, ...: the n_ro action words, then the n_rt demand words;
-word w is component w % 4 of the block w // 4.
+Stream layout: counter = (lane, episode, period, block). Per (lane, episode,
+period) the words are numbered w = 0, 1, ...; word w is component w % 4 of
+the block w // 4.
+
+- Random-policy kernels (K2, K3), key = (seed, 0): the n_ro action words,
+  then the n_rt demand words.
+- Policy kernels (K4-K6), key = (seed, ``POLICY_KEY``) = (seed, 1), so that
+  their stream differs from K2's for the same seed: the n_rt demand words,
+  then, when the policy is stochastic, the n_ro u1 words and the n_ro u2
+  words of the Box-Muller normals. This is the order in which the JAX
+  kernels consume their draws: demand before the policy
+  (pallas_net_step.py:528, :654), u1 before u2
+  (pallas_episode_kernels.py:69-70).
+
+A word becomes a uniform as ``(word >> 8) * 2**-24`` (24 bits, exact in
+f32), and two uniforms a normal as ``sqrt(-2 ln(1 - u1)) * cos(2 pi u2)``
+(``normal01``). The words are bit for bit the kernels'; the normals may
+differ from the card's by an ulp, since ``logf``/``cosf`` there and the CPU's
+``log``/``cos`` are different implementations.
 """
 
 from __future__ import annotations
@@ -20,6 +35,8 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
+POLICY_KEY = 1                       # key[1] of the policy kernels' stream
+TWO_PI_F32 = 6.2831854820251465      # f32(2 pi), as the JAX kernels round it
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 
@@ -50,12 +67,26 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def period_words(seed: int, lanes: torch.Tensor, episode: int, period: int,
-                 n_words: int):
+def period_words(seed: int, lanes: torch.Tensor, episode, period: int,
+                 n_words: int, key1: int = 0):
     """The ``n_words`` words of every lane in ``lanes`` (int64 tensor) for
-    one (episode, period): a list of ``n_words`` int64 tensors shaped like
-    ``lanes``."""
+    one period of ``episode`` (an int, or an int64 tensor shaped like
+    ``lanes``) under the key (seed, key1): a list of ``n_words`` int64
+    tensors shaped like ``lanes``."""
     words = []
     for blk in range((n_words + 3) // 4):
-        words.extend(philox4x32_10(lanes, episode, period, blk, seed, 0))
+        words.extend(philox4x32_10(lanes, episode, period, blk, seed, key1))
     return words[:n_words]
+
+
+def uniform01(words: torch.Tensor) -> torch.Tensor:
+    """The 24-bit uniform in [0, 1) of each word, as float32."""
+    return (words >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def normal01(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Box-Muller standard normals from two words each
+    (pallas_episode_kernels._normal01): 1 - u1 lies in (0, 1], so the log
+    never sees 0 and the radius is at most sqrt(48 ln 2) ~ 5.77."""
+    r = torch.sqrt(-2.0 * torch.log(1.0 - uniform01(w1)))
+    return r * torch.cos(TWO_PI_F32 * uniform01(w2))

@@ -1,8 +1,10 @@
-"""Carrying NetInvMgmt parameters and state across from the JAX package.
+"""Carrying NetInvMgmt parameters and state, and PPO weights and
+statistics, across from the JAX package.
 
-Both functions take plain Python and NumPy values, so the JAX package is
-never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``
-and the JAX state's arrays through ``numpy.asarray``.
+Every function takes plain Python and NumPy values, so the JAX package is
+never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``,
+the JAX state's arrays through ``numpy.asarray``, and a flax parameter tree
+through ``jax.tree_util.tree_map(numpy.asarray, ...)``.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from or_gym_inventory_torch.agents.ppo import RunningMeanStd
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs.net_inv_management import NetInvParams, NetInvState
 from or_gym_inventory_torch.envs.topology import Topology
@@ -42,3 +45,44 @@ def net_state_from_numpy(X, Y, U, r_hist, period, device=None) -> NetInvState:
 
     return NetInvState(X=f32(X), Y=f32(Y), U=f32(U), r_hist=f32(r_hist),
                        period=torch.tensor(np.asarray(period, np.int32), device=dev))
+
+
+def ppo_params_from_numpy(flax_tree, device=None) -> dict:
+    """The state dict of the port's ``MLPActorCritic`` from the flax
+    ``MLPActorCritic`` parameters as NumPy arrays:
+    ``{"params": {"Dense_i": {"kernel": (in, out), "bias": (out,)}, ...,
+    "log_std": (act_dim,)}}``. flax numbers the layers pi trunk, mean head,
+    vf trunk, value head; the mean head is the first layer with act_dim
+    outputs that is followed by a layer reading the observation (the vf
+    trunk's first, or the value head). Kernels are transposed to torch's
+    (out, in)."""
+    dev = resolve_device(device)
+    p = flax_tree["params"]
+    n = sum(1 for k in p if k.startswith("Dense_"))
+    dense = [p[f"Dense_{i}"] for i in range(n)]
+    act_dim = int(np.asarray(p["log_std"]).shape[0])
+    obs_dim = int(np.asarray(dense[0]["kernel"]).shape[0])
+    n_pi = next(i for i in range(n - 1)
+                if np.asarray(dense[i]["kernel"]).shape[1] == act_dim
+                and np.asarray(dense[i + 1]["kernel"]).shape[0] == obs_dim)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    names = ([f"pi.{i}" for i in range(n_pi)] + ["mean"]
+             + [f"vf.{j}" for j in range(n - n_pi - 2)] + ["value"])
+    state = {"log_std": t(p["log_std"])}
+    for name, d in zip(names, dense):
+        state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
+        state[f"{name}.bias"] = t(d["bias"])
+    return state
+
+
+def rms_from_numpy(mean, var, count, device=None):
+    """The port's ``RunningMeanStd`` from a JAX one's three arrays."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    return RunningMeanStd(mean=t(mean), var=t(var), count=t(count))

@@ -1,11 +1,15 @@
-"""Whole-episode returns under the uniform-random policy.
+"""Whole-episode returns under the uniform-random policy and under a
+learned MLP policy.
 
-Port of ``or_gym_inventory_tpu/vector/fast_episodes.random_episode_returns``,
-NetInvMgmt branch. On CUDA the episodes run in the fused kernel K2
-(``ops.net_step.episode_returns_fully_fused``), on the CPU in its plain
-version. A ``hostfn`` demand link, which neither the kernel nor the env's
-``sample_demand`` can sample, raises NotImplementedError before anything is
-launched; a failure to build or launch a kernel propagates.
+Port of ``or_gym_inventory_tpu/vector/fast_episodes.random_episode_returns``
+and ``policy_episode_returns`` (:126-217), NetInvMgmt branch. On CUDA the
+episodes run in the fused kernels (``ops.net_step.
+episode_returns_fully_fused``, K2, and ``episode_returns_net_policy``, K5),
+on the CPU in their plain versions. A ``hostfn`` demand link, which neither
+the kernels nor the env's ``sample_demand`` can sample, raises
+NotImplementedError before anything is launched; a failure to build or
+launch a kernel propagates. The JAX package fell back to its XLA rollout
+there; the port has no such fallback.
 """
 
 from __future__ import annotations
@@ -24,6 +28,14 @@ def kernel_seed(generator: torch.Generator) -> int:
                              device=generator.device).item())
 
 
+def _refuse_other_families(params):
+    if not isinstance(params, net.NetInvParams):
+        raise NotImplementedError(
+            f"{type(params).__name__}: the PyTorch port runs NetInvMgmt only; "
+            "Newsvendor and InvManagement are still to port (ROADMAP.md "
+            "Queue A7)")
+
+
 def random_episode_returns(params, generator: torch.Generator, batch: int,
                            episodes_per_lane: int = 1, device=None):
     """Per-episode returns under the uniform-random policy, a
@@ -33,14 +45,37 @@ def random_episode_returns(params, generator: torch.Generator, batch: int,
     E = int(episodes_per_lane)
     if E < 1:
         raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
-    if not isinstance(params, net.NetInvParams):
-        raise NotImplementedError(
-            f"{type(params).__name__}: the PyTorch port runs NetInvMgmt only; "
-            "Newsvendor and InvManagement are still to port (ROADMAP.md "
-            "Queue A7)")
+    _refuse_other_families(params)
     T = params.topology
     net_step._topology_link_specs(T, params.num_periods)  # hostfn raises here
     hi = float(T.order_cap_heuristic * 2)
     return net_step.episode_returns_fully_fused(
         params, kernel_seed(generator), hi, batch, episodes_per_lane=E,
         device=dev).reshape(-1)
+
+
+def policy_episode_returns(params, actor, generator: torch.Generator, batch: int,
+                           episodes_per_lane: int = 1, deterministic: bool = True,
+                           log_std=None, device=None):
+    """Per-episode returns under a learned MLP policy, a
+    (episodes_per_lane * batch,) float32 tensor, episode-major.
+
+    ``actor`` is ``(Ws, bs)`` from ``ops.episode_kernels.fold_actor_params``
+    (pi trunk and mean head, obs normalisation folded in). The policy runs
+    inside the episode kernel K5. ``deterministic=False`` evaluates the
+    stochastic policy, tanh-squashed Gaussian samples around the mean, and
+    needs the trained ``log_std`` (the model's ``log_std`` parameter). The
+    kernel seed is drawn from ``generator`` (``kernel_seed``), which must
+    live on ``device``."""
+    dev = resolve_device(device)
+    E = int(episodes_per_lane)
+    if E < 1:
+        raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
+    if not deterministic and log_std is None:
+        raise ValueError("deterministic=False requires log_std (the trained "
+                         "per-action-dim log-std parameter)")
+    _refuse_other_families(params)
+    net_step._topology_link_specs(params.topology, params.num_periods)  # hostfn raises here
+    return net_step.episode_returns_net_policy(
+        params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+        log_std=None if deterministic else log_std, device=dev).reshape(-1)
