@@ -4,50 +4,64 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's two main paths, each with every launch
+at once), then drives the port's four main paths, each with every launch
 counter set to 0 just before it and read just after:
 
-- slice 1, random-policy episode returns (phases 3-4): what bench.py does on
-  the JAX package, a cross-check of the fused kernel on its own dumped
-  streams followed by random-policy returns of the NetInvMgmt default graph
+- slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
+  bench.py does on the JAX package, a cross-check of the fused kernel on its
+  own dumped streams followed by random-policy returns of the default graph
   at 4,194,304 lanes x 16 episodes x 30 periods, through
   ``vector.fast_episodes.random_episode_returns``;
-- slice 2, PPO and learned-policy evaluation (phase 8): ``agents.ppo.train``
-  with ``rollout="kernel"`` at 65,536 envs x 30 periods, the default 64x64
-  tanh actor-critic, 4 epochs x 8 minibatches, 3 updates, then
-  ``policy_episode_returns`` of the trained actor at 65,536 x 16,
-  deterministic and stochastic. After the counts are read, the
-  deterministic returns of the first 1,024 lanes are held against plain K5.
+- slice 2, NetInvMgmt PPO and learned-policy evaluation (phase 8):
+  ``agents.ppo.train`` with ``rollout="kernel"`` at 65,536 envs x 30
+  periods, the default 64x64 tanh actor-critic, 4 epochs x 8 minibatches,
+  3 updates, then ``policy_episode_returns`` of the trained actor at
+  65,536 x 16, deterministic and stochastic. After the counts are read, the
+  deterministic returns of the first 1,024 lanes are held against plain K5;
+- slice 3, InvManagement random-policy returns (phase 11): K9 dumps the
+  streams of the main path's seed, K7 replays them, then
+  ``random_episode_returns`` with ``inv_management.default_params()`` at
+  4,194,304 x 16 x 30 launches K8 once and no plain version;
+- slice 3, InvManagement PPO (phase 13): ``train`` with ``rollout="kernel"``
+  at 65,536 x 30, 64x64 (obs_dim 33, act_dim 3), 4 epochs x 8 minibatches,
+  3 updates: 3 launches of K10 and no plain version.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
 (at the main path's shapes, with a seeded actor whose obs statistics are
 folded into layer 1), which also holds the NaN propagation of the shared
-step. K6, K5 with its streams dumped, is on neither main path: it is
+step, K7-K9 in phase 10 for all five demand modes in backlog and lost
+sales, and K10 in phase 12 (with the env step chain on its streams and a
+NaN std). K6, K5 with its streams dumped, is on no main path: it is
 launched and held in phase 7 only. Then it times the vecenv rollout (phase
-5), each kernel against its plain version (phases 6 and 9), and one PPO
-update with its gradient in 8 chunks per minibatch against 1 (phase 9).
-Every phase prints its lines; any failure raises and exits non-zero.
-Without a CUDA device it exits 1 and prints no result.
+5), each kernel against its plain version (phases 6, 9 and 14), one PPO
+update with its gradient in 8 chunks per minibatch against 1 (phase 9),
+and trains InvManagement at the protocol of tools/validate_kernel_ppo.py
+for its reward (phase 15). Every phase prints its lines; any failure raises
+and exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
-The last four lines are one JSON object of per-kernel numbers
-(``launches`` is the sum of a kernel's launches in the two main-path runs,
-so 0 for K6; for K4 and K5, ``max_abs_err`` is over the lanes that agree
-with the plain version), one JSON object of the PPO path's rates, the
-card's name and power limit as nvidia-smi gives them, and
+The last five lines are one JSON object of per-kernel numbers
+(``launches`` is the sum of a kernel's launches in the four main-path runs,
+so 0 for K6; for K4, K5 and K10, ``max_abs_err`` is over the lanes that
+agree with the plain version), one JSON object of the NetInvMgmt PPO path's
+rates, one of the InvManagement paths' rates and reward, the card's name
+and power limit as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``.
 
-Tolerances: streams of draws (actions of K3, demand of K3/K4/K6) bit for
-bit; K1-K3 against their plain versions, the fused kernel against the
-stream-in kernel, and the stream-in kernel on K4/K6's streams against K4's
-rewards and K5's returns, rtol=1e-5 atol=1e-3 (f32 sums in another order,
-FMA contraction); the env step chain against the stream-in kernel and K4's
-state streams rtol=1e-4 atol=1e-2 (bench.py:156); K4's raws against the
-folded actor on the assembled obs plus the plain normals atol=1e-4 (matmul
-sums in another order, an ulp of logf/cosf); K4-K6 free-running against
+Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
+K9 and K10) bit for bit; the InvManagement int32 state of the env step
+chain against K10's inv exactly; K1-K3 and K7-K8 against their plain
+versions, the fused kernels against the stream-in kernels, and the
+stream-in kernels on K4/K6/K10's streams against their rewards and K5's
+returns, rtol=1e-5 atol=1e-3 (f32 sums in another order, FMA contraction);
+the env step chain against the stream-in kernel and K4/K10's reward
+streams rtol=1e-4 atol=1e-2 (bench.py:156); K4's raws against the folded
+actor on the assembled obs plus the plain normals atol=1e-4 (matmul sums
+in another order, an ulp of logf/cosf); K4-K6 and K10 free-running against
 their plain versions: at least 99% of lanes agree over the whole episode
-within rtol=1e-4 atol=1e-2, since a rounding tie in rint lets a lane take
-the other integer and diverge (the fraction-closeness rule, ROADMAP.md Queue C).
+within rtol=1e-4 atol=1e-2, since a rounding tie in rint (NetInvMgmt) or a
+truncation boundary (InvManagement) lets a lane take the other integer and
+diverge (the fraction-closeness rule, ROADMAP.md Queue C).
 """
 
 import json
@@ -86,6 +100,23 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_net_step.py:611"),
     ("sample_policy_streams_debug_net", "or_gym_inventory_torch/csrc/net_policy.cu",
      "or_gym_inventory_tpu/ops/pallas_net_step.py:756"),
+    ("episode_returns_im", "or_gym_inventory_torch/csrc/im_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:779"),
+    ("episode_returns_im_fused", "or_gym_inventory_torch/csrc/im_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:919"),
+    ("sample_streams_debug_im", "or_gym_inventory_torch/csrc/im_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1873"),
+    ("rollout_traj_im", "or_gym_inventory_torch/csrc/im_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1683"),
+]
+IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:]]
+# the five demand modes of InvManagement (inventory_management.py:169-184)
+IM_DIST_MODES = [
+    ("poisson", {}),
+    ("binomial", {"dist": 2, "dist_param": {"n": 40, "p": 0.5}}),
+    ("randint", {"dist": 3, "dist_param": {"low": 10, "high": 30}}),
+    ("geometric", {"dist": 4, "dist_param": {"p": 0.05}}),
+    ("user", {"dist": 5, "user_D": tuple((7 * t) % 41 for t in range(NUM_STEPS))}),
 ]
 
 
@@ -140,7 +171,7 @@ def step_ops(T):
 
 
 def draw_ops(T, link_specs):
-    """Operations of draw_period in csrc/philox.cuh for one period: the
+    """Operations of draw_period in csrc/net_step.cuh for one period: the
     Philox blocks, the word conversions, and for each table link the binary
     search this table needs."""
     words = T.n_reorder + T.n_retail
@@ -171,6 +202,40 @@ def policy_draw_ops(T, link_specs, stochastic):
     for spec in link_specs:
         ops += 4 * math.ceil(math.log2(len(spec[2]) + 1)) + 2 if spec[0] == "table" else 1
     return ops + T.n_reorder * ((8 if stochastic else 0) + 3)
+
+
+def im_step_ops(params):
+    """Operations of one period of im_step in csrc/im_step.cuh for params
+    with m1 stocked stages: per stage the order (max, add, two min), the
+    arrival (compare, slot, add), the decrement, the history store; per
+    stage of m1 + 1 the profit (two products, two sums, two casts), the
+    holding term (max, cast, product, sum) and the backlog; the retail
+    sale, the slot and the discount."""
+    m1 = params.m1
+    return 4 * m1 + 3 * m1 + (m1 - 1) + m1 + 7 * (m1 + 1) + 4 * m1 + 4 + 2 + 2
+
+
+def im_draw_ops(params, table_len):
+    """Operations of one period's random-policy draws (im_draw_actions,
+    im_demand): the Philox blocks of m1 + 1 words, the word conversions,
+    per action a product, a cast and a min, and the binary search of this
+    table (one load for USER mode)."""
+    words = params.m1 + 1
+    ops = math.ceil(words / 4) * (10 * 8 + 9 * 2) + 3 * words + 3 * params.m1
+    return ops + (4 * math.ceil(math.log2(table_len + 1)) + 2 if table_len else 1)
+
+
+def im_policy_draw_ops(params, table_len):
+    """Operations of one period's draws and head in K10: the Philox blocks of
+    1 + 2 m1 words, the conversions, the demand's binary search, the obs
+    (m1 (lt + 1) casts), and per action the Box-Muller normal (log, sqrt,
+    cos and five arithmetic ops), the sample and the squash (tanh, add,
+    product, cast)."""
+    m1 = params.m1
+    words = 1 + 2 * m1
+    ops = math.ceil(words / 4) * (10 * 8 + 9 * 2) + 3 * words
+    ops += 4 * math.ceil(math.log2(table_len + 1)) + 2 if table_len else 1
+    return ops + m1 * (params.lt_max + 1) + m1 * (8 + 2 + 4)
 
 
 def bound(n_bytes, n_ops):
@@ -539,6 +604,287 @@ def time_chunks(params, dev, trained, order=(8, 1, 1, 8)):
     return out
 
 
+# ------------------------------------------------ InvManagement (slice 3)
+
+def im_cross_check(dev):
+    """Phase 10: K7-K9 against their plain versions and each other, for each
+    of the five demand modes in backlog and lost sales: at 65,536 x 30
+    (E = 1) and at 1,024 lanes x 16 episodes, K9's streams bit for bit
+    against plain K9, K8 against K7 on K9's streams and against plain K8,
+    K7 _random on K9's demand against K8, and K7 against plain K7. Returns
+    the max |diff| per kernel."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    err = dict.fromkeys(IM_KERNELS, 0.0)
+
+    def track(name, *args):
+        err[name] = max(err[name], close(*args, 1e-5, 1e-3))
+
+    for label, kw in IM_DIST_MODES:
+        for backlog in (True, False):
+            params = im.default_params(backlog=backlog, **kw)
+            case = f"{label}, {'backlog' if backlog else 'lost sales'}"
+            a, d = ek.sample_streams_debug_im(params, SEED, CHECK_LANES, device=dev)
+            pa, pd = ek._im_fused_plain(params, SEED, CHECK_LANES, 1, dev, dump=True)
+            exact(f"K9 actions, {case}", a, pa[:, 0])
+            exact(f"K9 demand, {case}", d, pd[:, 0])
+            k8 = ek.episode_returns_im_fused(params, SEED, CHECK_LANES, device=dev)
+            k7 = ek.episode_returns_im(params, a, d)
+            close(f"K8 vs K7 on K9's streams, {case}", k8, k7, 1e-5, 1e-3)
+            close(f"K7 _random on K9's demand vs K8, {case}",
+                  ek.episode_returns_im_random(params, d, SEED), k8, 1e-5, 1e-3)
+            track("episode_returns_im", f"K7 vs plain K7, {case}", k7,
+                  ek._episode_returns_im_plain(params, a, d))
+            track("episode_returns_im_fused", f"K8 vs plain K8, {case}", k8,
+                  ek._im_fused_plain(params, SEED, CHECK_LANES, 1, dev)[0])
+            E = MAIN_EPISODES
+            a, d = ek.sample_streams_debug_im(params, SEED, MULTI_LANES, E, device=dev)
+            pa, pd = ek._im_fused_plain(params, SEED, MULTI_LANES, E, dev, dump=True)
+            exact(f"K9 actions, E={E}, {case}", a, pa)
+            exact(f"K9 demand, E={E}, {case}", d, pd)
+            k8 = ek.episode_returns_im_fused(params, SEED, MULTI_LANES, E, device=dev)
+            track("episode_returns_im_fused", f"K8 vs plain K8, E={E}, {case}", k8,
+                  ek._im_fused_plain(params, SEED, MULTI_LANES, E, dev))
+            for e in range(E):
+                close(f"K8 episode {e} vs K7 on K9's streams, {case}", k8[e],
+                      ek.episode_returns_im(params, a[:, e].contiguous(),
+                                            d[:, e].contiguous()), 1e-5, 1e-3)
+    return err
+
+
+def reset_counts(wrappers):
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
+
+
+def read_counts(wrappers):
+    """Launches per kernel row: the sum over the row's wrappers (K7 has two,
+    ``episode_returns_im`` and ``episode_returns_im_random``)."""
+    return {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
+
+
+class no_plain_versions:
+    """Within the block, every plain version of K7-K10 raises, so a counted
+    main-path run shows that it went through the kernels alone."""
+
+    NAMES = ("_episode_returns_im_plain", "_im_fused_plain", "_rollout_traj_im_plain")
+
+    def __enter__(self):
+        from or_gym_inventory_torch.ops import episode_kernels as ek
+        self.saved = {n: getattr(ek, n) for n in self.NAMES}
+
+        def refuse(*_a, **_k):
+            raise AssertionError("a plain version ran on the counted main path")
+
+        for n in self.NAMES:
+            setattr(ek, n, refuse)
+
+    def __exit__(self, *exc):
+        from or_gym_inventory_torch.ops import episode_kernels as ek
+        for n, fn in self.saved.items():
+            setattr(ek, n, fn)
+
+
+def im_main_path(dev, wrappers):
+    """Phase 11, the InvManagement random-policy path, counting launches
+    from 0: K9 dumps the streams of the main path's seed at 65,536 x 30, K7
+    replays them (stream-in and _random), then ``random_episode_returns`` at
+    4,194,304 x 16 must launch K8 exactly once and no plain version. After
+    the counts are read, the first 65,536 lanes of episode 0 are held
+    against K7 (the same counters) and the first 1,024 lanes of every
+    episode against plain K8. Returns (launches, max |diff| of K8, mean
+    return, streams and seed for phase 14)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    params = im.default_params(backlog=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen.get_state())
+    seed = fast_episodes.kernel_seed(replay)
+    reset_counts(wrappers)
+    a, d = ek.sample_streams_debug_im(params, seed, CHECK_LANES, device=dev)
+    k7 = ek.episode_returns_im(params, a, d)
+    k7r = ek.episode_returns_im_random(params, d, seed)
+    before = read_counts(wrappers)
+    with no_plain_versions():
+        ret = fast_episodes.random_episode_returns(params, gen, MAIN_LANES,
+                                                   episodes_per_lane=MAIN_EPISODES,
+                                                   device=dev)
+    launches = read_counts(wrappers)
+    torch.cuda.synchronize()
+    moved = {n: launches[n] - before[n] for n in launches if launches[n] != before[n]}
+    if moved != {"episode_returns_im_fused": 1}:
+        raise AssertionError(f"random_episode_returns launched {moved}, not K8 once")
+    if ret.shape != (MAIN_LANES * MAIN_EPISODES,):
+        raise AssertionError(f"IM main path: returns of shape {tuple(ret.shape)}")
+    ret = ret.reshape(MAIN_EPISODES, MAIN_LANES)
+    err = close("IM main path: K8 episode 0 vs K7 on K9's streams", ret[0, :CHECK_LANES],
+                k7, 1e-5, 1e-3)
+    close("IM main path: K7 _random vs K8 episode 0", k7r, ret[0, :CHECK_LANES], 1e-5, 1e-3)
+    err = max(err, close("IM main path: first lanes vs plain K8",
+                         ret[:, :MULTI_LANES].contiguous(),
+                         ek._im_fused_plain(params, seed, MULTI_LANES, MAIN_EPISODES, dev),
+                         1e-5, 1e-3))
+    mean = float(ret.double().mean())
+    del ret
+    return launches, err, mean, (params, a, d, seed)
+
+
+def seeded_im_actor(dev):
+    """Phase 12's actor: the default 64x64 actor-critic of InvManagement
+    (obs_dim 33, act_dim 3) from its own initialisation, with obs statistics
+    of mean ~50 and std ~20 folded into its first layer."""
+    import torch
+
+    from or_gym_inventory_torch.agents import networks, ppo
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    g = torch.Generator().manual_seed(SEED)
+    model = networks.MLPActorCritic(33, 3, generator=g)
+    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(33, generator=g),
+                             var=(20.0 + 5.0 * torch.rand(33, generator=g)) ** 2,
+                             count=torch.tensor(1e3))
+    Ws, bs = ek.fold_actor_params(ppo.PPOConfig(), model, rms)
+    actor = (tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs))
+    return actor, model.log_std.detach().to(dev)
+
+
+def im_policy_cross_check(dev, actor, log_std):
+    """Phase 12: K10 at 65,536 x 30, backlog and lost sales, against plain
+    K10 (demand bit for bit; inv, actions, raw and reward by the share of
+    lanes); the env step chain on K10's actions and demand reproduces its
+    inv exactly and its rewards within rtol=1e-4 atol=1e-2 on every lane; K7
+    on K10's streams gives the sum of its rewards; a NaN std gives NaN raws
+    and actions 0 in the kernel and the plain version. Returns (max |diff|
+    over agreeing lanes, plain ms, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    B = CHECK_LANES
+    std = ek.clipped_std(log_std)
+    err, plain_ms, lines = 0.0, None, []
+    for backlog in (True, False):
+        params = im.default_params(backlog=backlog)
+        case = "backlog" if backlog else "lost sales"
+        tr = ek.rollout_traj_im(params, actor, log_std, SEED, B, device=dev)
+        ms, want = timed_once(ek._rollout_traj_im_plain, params, actor, std, SEED, B, dev)
+        plain_ms = plain_ms or ms
+        exact(f"K10 demand, {case}", tr["demand"], want["demand"])
+        shares = {k: lane_share(f"K10 {k} vs plain, {case}", tr[k], want[k])
+                  for k in ("inv", "actions", "raw", "reward")}
+        err = max([err] + [e for _, e in shares.values()])
+        lines.append(f"K10 vs plain, {case}: lanes agreeing " + ", ".join(
+            f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
+        del want
+        state, _ = im.reset(params, batch=B, device=dev)
+        for t in range(NUM_STEPS):
+            exact(f"step chain inv[{t}] vs K10 inv, {case}", state.inv.T, tr["inv"][t])
+            state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
+                                            tr["demand"][t])
+            close(f"step chain reward[{t}] vs K10, {case}", ts.reward, tr["reward"][t],
+                  1e-4, 1e-2)
+        exact(f"step chain final inv vs K10, {case}", state.inv.T, tr["inv"][NUM_STEPS])
+        close(f"K7 on K10's streams vs its rewards, {case}",
+              ek.episode_returns_im(params, tr["actions"], tr["demand"]),
+              tr["reward"].sum(0), 1e-5, 1e-3)
+        lines.append(f"K10 teacher-forced, {case}: the env step chain gives its inv "
+                     "exactly and its rewards, K7 its returns")
+        nan_std = torch.full_like(log_std, float("nan"))
+        got = ek.rollout_traj_im(params, actor, nan_std, SEED, MULTI_LANES, device=dev)
+        plain = ek._rollout_traj_im_plain(params, actor, ek.clipped_std(nan_std), SEED,
+                                          MULTI_LANES, dev)
+        if not (torch.isnan(got["raw"]).all() and int(got["actions"].abs().max()) == 0
+                and torch.equal(got["actions"], plain["actions"])):
+            raise AssertionError(f"K10 with a NaN std, {case}: actions not all 0 or "
+                                 "not the plain version's")
+    lines.append("NaN raws: K10 and plain K10 cast them to 0, as JAX does")
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def im_ppo_main_path(dev, smi, wrappers):
+    """Phase 13, PPO on InvManagement through K10, counting launches from 0:
+    ``train`` at 65,536 envs x 30 periods, 64x64, 4 epochs x 8
+    minibatches, 3 updates, no plain version allowed. Returns (launches,
+    lines, best update ms, trained folded actor and log_std, rates)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    params = im.default_params(backlog=True)
+    cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_steps=NUM_STEPS, num_minibatches=8,
+                        update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64),
+                        rollout="kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stamps = []
+
+    def progress(_m, _s):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset_counts(wrappers)
+    stamps.append(time.perf_counter())
+    with no_plain_versions():
+        state, metrics = ppo.train(im.ENV, params, cfg, gen,
+                                   PPO_UPDATES * PPO_ENVS * NUM_STEPS, device=dev,
+                                   progress=progress)
+    launches = read_counts(wrappers)
+    if launches["rollout_traj_im"] != PPO_UPDATES:
+        raise AssertionError(f"rollout_traj_im launched {launches['rollout_traj_im']} "
+                             f"times in {PPO_UPDATES} updates")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    if bad or len(metrics["update"]) != PPO_UPDATES:
+        raise AssertionError(f"IM PPO metrics not finite: {bad}; {metrics}")
+    update_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    best = min(update_ms[1:])
+    samples = PPO_ENVS * NUM_STEPS
+    lines = [f"IM PPO {PPO_ENVS} x {NUM_STEPS}, 64x64, 4 epochs x 8 minibatches: update "
+             f"ms {', '.join(f'{t:.3f}' for t in update_ms)}; best {best:.3f} ms = "
+             f"{samples / best * 1e3:.6g} trained-steps/s on {smi}",
+             "IM PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
+                                            for k, v in metrics.items())]
+    actor = ek.fold_actor_params(cfg, state.params, state.rms)
+    rates = {"update_ms": best, "trained_steps_s": samples / best * 1e3}
+    return launches, lines, best, actor, state.params.log_std.detach(), rates
+
+
+def im_reward_check(dev):
+    """Phase 15, the IM-backlog protocol of tools/validate_kernel_ppo.py:
+    periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M steps
+    (39 updates), seed 0, rollout="kernel"; then 30 deterministic episodes
+    through ``vecenv.evaluate_episodes``. Returns (AvgReward, its standard
+    error, training seconds, updates)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.vector import vecenv
+    params = im.default_params(backlog=True, periods=50)
+    cfg = ppo.PPOConfig(num_envs=1024, rollout_steps=50, num_minibatches=8,
+                        update_epochs=4, shuffle_minibatches=False, rollout="kernel")
+    t0 = time.perf_counter()
+    state, metrics = ppo.train(im.ENV, params, cfg, torch.Generator(device=dev).manual_seed(0),
+                               2_000_000, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    policy = ppo.make_eval_policy(im.ENV, params, cfg, deterministic=True)
+    totals, _ = vecenv.evaluate_episodes(im.ENV, params, policy, (state.params, state.rms),
+                                         torch.Generator(device=dev).manual_seed(4000), 30,
+                                         device=dev)
+    totals = totals.double().cpu().numpy()
+    if not np.isfinite(totals).all():
+        raise AssertionError("IM reward check: non-finite episode totals")
+    return (float(totals.mean()), float(totals.std(ddof=1) / np.sqrt(len(totals))), wall,
+            len(metrics["update"]))
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -563,6 +909,7 @@ def main() -> int:
 
     from or_gym_inventory_torch.envs import net_inv_management as net
     from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.ops import net_step as ns
     from or_gym_inventory_torch.utils.profiling import cuda_time
     from or_gym_inventory_torch.vector import fast_episodes, vecenv
@@ -570,7 +917,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    wrappers = {name: getattr(ns, name) for name, _, _ in KERNEL_ROWS}
+    wrappers = {name: [getattr(ns, name)] for name, _, _ in KERNEL_ROWS[:6]}
+    wrappers.update({name: [getattr(ek, name)] for name in IM_KERNELS})
+    wrappers["episode_returns_im"].append(ek.episode_returns_im_random)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -595,8 +944,7 @@ def main() -> int:
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
     params = net.default_params(num_periods=NUM_STEPS)
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     err, acts, dems = cross_check(params, dev)
     print(f"[3 cross-check] K3 streams bit-exact; K1, K2 within rtol=1e-5 atol=1e-3 "
@@ -604,7 +952,7 @@ def main() -> int:
           f"atol=1e-2; {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     mean, k2_plain_ms = episode_returns_at_scale(params, dev, err)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_counts(wrappers)
     missing = [name for name in RANDOM_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
@@ -681,12 +1029,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 8. the second main path, counting launches: PPO, then the evaluation
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     lines, best_update_ms, actor, log_std, trained, det, det_seed, summary = \
         ppo_main_path(params, dev, smi)
-    launches2 = {name: w.launches for name, w in wrappers.items()}
+    launches2 = read_counts(wrappers)
     missing = [name for name in PPO_PATH_KERNELS if launches2[name] == 0]
     if missing:
         raise AssertionError(f"PPO main path launched no {missing}")
@@ -746,6 +1093,111 @@ def main() -> int:
     summary.update({f"update_ms_chunks_{k}": min(v) for k, v in chunk_ms.items()})
     summary["k4_share_of_update"] = k4_t["best_ms"] / best_update_ms
 
+    # 10. the InvManagement kernels against their plain versions, every
+    # demand mode, backlog and lost sales
+    t0 = time.perf_counter()
+    err.update(im_cross_check(dev))
+    print(f"[10 IM cross-check] 5 demand modes x backlog/lost sales at {CHECK_LANES} x "
+          f"{NUM_STEPS} and {MULTI_LANES} x {MAIN_EPISODES}: K9 streams bit-exact; K8 = K7 "
+          "on K9's streams = K7 _random on K9's demand, and K7, K8 = their plain versions, "
+          f"within rtol=1e-5 atol=1e-3; max |diff| "
+          f"{ {k: err[k] for k in IM_KERNELS[:2]} }; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11. the third main path, counting launches: IM random-policy returns
+    t0 = time.perf_counter()
+    launches3, k8_err, im_mean, (im_params, im_a, im_d, im_seed) = im_main_path(dev, wrappers)
+    err["episode_returns_im_fused"] = max(err["episode_returns_im_fused"], k8_err)
+    print(f"[11 IM main path] K9 -> K7 and K7 _random at {CHECK_LANES} x {NUM_STEPS}, then "
+          f"random_episode_returns {MAIN_LANES} x {MAIN_EPISODES}: K8 launched once, no "
+          f"plain version; episode 0 = K7 on K9's streams, the first {MULTI_LANES} lanes = "
+          f"plain K8; mean {im_mean:.3f}; launches {launches3}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    im_t = cuda_time(fast_episodes.random_episode_returns, im_params, gen, MAIN_LANES,
+                     MAIN_EPISODES, dev, warmup=1, iters=5)
+    print(f"[11 IM main path] random_episode_returns {MAIN_LANES} x {MAIN_EPISODES} x "
+          f"{NUM_STEPS}: best {im_t['best_ms']:.3f} ms, mean {im_t['mean_ms']:.3f} ms, "
+          f"{env_steps / im_t['best_ms'] * 1e3:.6g} env-steps/s on {smi}", flush=True)
+
+    # 12. K10 against its plain version and the env chain, a seeded actor
+    t0 = time.perf_counter()
+    im_actor, im_log_std = seeded_im_actor(dev)
+    err["rollout_traj_im"], k10_plain_ms, lines = im_policy_cross_check(dev, im_actor,
+                                                                        im_log_std)
+    for line in lines:
+        print(f"[12 IM policy kernel] {line}", flush=True)
+    print(f"[12 IM policy kernel] max |diff| over agreeing lanes "
+          f"{err['rollout_traj_im']}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. the fourth main path, counting launches: PPO on InvManagement
+    t0 = time.perf_counter()
+    launches4, lines, im_update_ms, im_actor, im_log_std, im_rates = im_ppo_main_path(
+        dev, smi, wrappers)
+    for line in lines:
+        print(f"[13 IM main path] {line}", flush=True)
+    print(f"[13 IM main path] launches {launches4}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {name: launches[name] + launches3[name] + launches4[name]
+                for name in wrappers}
+    missing = [name for name in IM_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the IM main paths launched no {missing}")
+
+    # 14. per-kernel times of K7-K10 at the main paths' shapes
+    table_len = len(ek._im_demand_spec(im_params)[1])
+    k7_t = cuda_time(ek.episode_returns_im, im_params, im_a, im_d, warmup=2, iters=20)
+    k7_p = cuda_time(ek._episode_returns_im_plain, im_params, im_a, im_d, warmup=1, iters=3)
+    k8_t = cuda_time(ek.episode_returns_im_fused, im_params, SEED, MAIN_LANES,
+                     MAIN_EPISODES, dev, warmup=1, iters=5)
+    k8_p = cuda_time(ek._im_fused_plain, im_params, SEED, CHECK_LANES, 1, dev,
+                     warmup=1, iters=3)
+    k9_t = cuda_time(ek.sample_streams_debug_im, im_params, SEED, CHECK_LANES, 1, dev,
+                     warmup=2, iters=20)
+    k9_p = cuda_time(ek._im_fused_plain, im_params, SEED, CHECK_LANES, 1, dev, True,
+                     warmup=1, iters=3)
+    k10_t = cuda_time(ek.rollout_traj_im, im_params, im_actor, im_log_std, SEED, PPO_ENVS,
+                      "ppo", "tanh", dev, warmup=1, iters=5)
+    del im_a, im_d
+    m1, T = im_params.m1, NUM_STEPS
+    im_dims = [im_params.pipeline_length, 64, 64, m1]
+    work.update({
+        "episode_returns_im": bound(CHECK_LANES * (T * (m1 + 1) + 1) * 4,
+                                    CHECK_LANES * T * im_step_ops(im_params)),
+        "episode_returns_im_fused": bound(
+            main_envs * 4,
+            main_envs * T * (im_step_ops(im_params) + im_draw_ops(im_params, table_len))),
+        "sample_streams_debug_im": bound(CHECK_LANES * T * (m1 + 1) * 4,
+                                         CHECK_LANES * T * im_draw_ops(im_params, table_len)),
+        "rollout_traj_im": bound(
+            PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4,
+            PPO_ENVS * T * (mlp_ops(im_dims) + im_step_ops(im_params)
+                            + im_policy_draw_ops(im_params, table_len))),
+    })
+    times.update({"episode_returns_im": (k7_t, k7_p),
+                  "episode_returns_im_fused": (k8_t, k8_p),
+                  "sample_streams_debug_im": (k9_t, k9_p),
+                  "rollout_traj_im": (k10_t, {"best_ms": k10_plain_ms})})
+    print(f"[14 work] IM per env-step: step {im_step_ops(im_params)} ops, random draws "
+          f"{im_draw_ops(im_params, table_len)} ops (table of {table_len}), K10 MLP "
+          f"{mlp_ops(im_dims)} + draws {im_policy_draw_ops(im_params, table_len)} ops; plain "
+          f"K8 timed at {CHECK_LANES} x {T}, E=1", flush=True)
+    for name in IM_KERNELS:
+        print_kernel(14, name, times[name], work[name], launches[name])
+    print(f"[14 kernel] rollout_traj_im is {k10_t['best_ms'] / im_update_ms:.1%} of the "
+          f"best IM PPO update ({im_update_ms:.3f} ms)", flush=True)
+
+    # 15. reward at the IM-backlog protocol of tools/validate_kernel_ppo.py
+    t0 = time.perf_counter()
+    avg, se, wall, n_upd = im_reward_check(dev)
+    print(f"[15 IM reward] periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M "
+          f"steps ({n_upd} updates, {wall:.1f} s), seed 0: AvgReward {avg:.1f} +- {se:.1f} "
+          f"over 30 deterministic episodes; {time.perf_counter() - t0:.1f} s", flush=True)
+    im_summary = dict(im_rates, random_ms=im_t["best_ms"],
+                      random_env_steps_s=env_steps / im_t["best_ms"] * 1e3,
+                      k10_share_of_update=k10_t["best_ms"] / im_update_ms,
+                      validate_avg_reward=avg, validate_eval_se=se)
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -759,6 +1211,7 @@ def main() -> int:
     # the end, where a short tail of the output still holds it), the card
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ppo_main_path": summary}))
+    print(json.dumps({"im_main_path": im_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,14 @@
-"""PPO trained through the NetInvMgmt trajectory kernel.
+"""PPO trained through the trajectory kernels.
 
 Port of ``or_gym_inventory_tpu/agents/ppo.py:46-785``, the
-``rollout="kernel"`` path without a mesh: each update runs one stochastic-
-policy episode per env in the trajectory kernel (``ops.net_step.
-rollout_traj_net``, K4), rebuilds the observation batch from the dumped
-streams, recomputes logp and values in one forward pass, and runs epochs of
-minibatched clipped-surrogate SGD. The SGD phase is plain PyTorch (``nn``
-layers, autograd, matmuls), as the JAX package left it to XLA.
+``rollout="kernel"`` path without a mesh, on NetInvMgmt and InvManagement:
+each update runs one stochastic-policy episode per env in the family's
+trajectory kernel (``ops.net_step.rollout_traj_net``, K4, or
+``ops.episode_kernels.rollout_traj_im``, K10), rebuilds the observation
+batch from the dumped streams, recomputes logp and values in one forward
+pass, and runs epochs of minibatched clipped-surrogate SGD. The SGD phase
+is plain PyTorch (``nn`` layers, autograd, matmuls), as the JAX package left
+it to XLA.
 
 Where the port differs in form:
 
@@ -37,7 +39,7 @@ import torch
 
 from or_gym_inventory_torch.agents import networks
 from or_gym_inventory_torch.core.device import resolve_device
-from or_gym_inventory_torch.envs import net_inv_management as fam_env
+from or_gym_inventory_torch.envs import inv_management, net_inv_management
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import episode_kernels, net_step
 from or_gym_inventory_torch.vector import vecenv
@@ -392,10 +394,11 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
         raise NotImplementedError(
             "rollout='xla' (the fused policy+env rollout) is still to port "
             "(ROADMAP.md A6b); use rollout='kernel'")
-    if getattr(env, "name", None) != "net_inv_management":
+    family = getattr(env, "name", None)
+    if family not in ("net_inv_management", "inv_management"):
         raise NotImplementedError(
-            "rollout='kernel' runs the NetInvMgmt family in the port; "
-            f"got {getattr(env, 'name', None)!r} (ROADMAP.md A7)")
+            "rollout='kernel' runs the NetInvMgmt and InvManagement families "
+            f"in the port; got {family!r} (ROADMAP.md A7b)")
     horizon = env.horizon(env_params)
     if cfg.rollout_steps != horizon:
         raise ValueError(
@@ -415,10 +418,16 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
         actor = episode_kernels.fold_actor_params(
             cfg, state.params, state.rms if cfg.normalize_obs else None)
         log_std = state.params.log_std.detach()
-        tr = net_step.rollout_traj_net(env_params, actor, log_std, seed, n_envs,
-                                       device=dev)
-        obs_all = fam_env.assemble_obs_from_streams(
-            env_params, tr["x"], tr["u"], tr["r"])        # (T+1, B, D)
+        if family == "inv_management":
+            tr = episode_kernels.rollout_traj_im(env_params, actor, log_std, seed,
+                                                 n_envs, device=dev)
+            obs_all = inv_management.assemble_obs_from_streams(
+                env_params, tr["inv"], tr["actions"])     # (T+1, B, D) i32
+        else:
+            tr = net_step.rollout_traj_net(env_params, actor, log_std, seed, n_envs,
+                                           device=dev)
+            obs_all = net_inv_management.assemble_obs_from_streams(
+                env_params, tr["x"], tr["u"], tr["r"])    # (T+1, B, D) f32
         raw = tr["raw"].transpose(1, 2)                   # (T, B, act_dim)
         reward_raw = tr["reward"]                         # (T, B)
 

@@ -1,0 +1,140 @@
+// One InvManagement period on one thread, and the period draws of the
+// random policy, shared by every InvManagement kernel (im_episode.cu K7-K9,
+// im_policy.cu K10), so that they cannot drift apart. It replaces
+// pallas_episode_kernels._im_step_math (:686), _im_sample_actions (:841),
+// _im_sample_demand (:853) and _invert_discrete_i32 (:824).
+//
+// The params travel as one POD struct by value (__grid_constant__), packed
+// at run time by the wrapper (ops/episode_kernels.py _im_plan, whose ctypes
+// mirror _ImParams must match this layout field for field); the JAX kernels baked them
+// in at trace time. All state is int32, as in the JAX package, so a kernel
+// that replays the same actions and demand reproduces it bit for bit.
+//
+// Where the semantics are easy to get wrong:
+// - Backlog or lost sales is the template parameter BACKLOG.
+// - A lead time of 0 delivers the order of the same period; the last
+//   stage's supplier holds 1 << 30 (unlimited raw material).
+// - Stages 1..m1-1 are decremented by the orders they placed, not by what
+//   they shipped (inventory_management.py:300), so on-hand can go negative.
+// - Fulfilled orders: the JAX kernel shifts a newest-first ring of
+//   lt_max x m1 rows every period and reads row L_i - 1. Here a ring of depth
+//   lt_max per stage holds the order of period p in slot p % lt_max; period t
+//   reads slot (t - L_i) % lt_max (zero before period L_i), then overwrites
+//   slot t % lt_max. Indexed at run time, it lives in local memory.
+// - Profit is summed per stage in the JAX order, (price - cost) * S, then
+//   - k * U, then - h * max(inv, 0), each product and sum rounded alone
+//   (__fmul_rn, __fadd_rn): no FMA contraction, so the plain version's
+//   elementwise torch arithmetic gives the same bits.
+//
+// Random policy (K7 _random, K8, K9): key (seed, 0), counter (lane,
+// episode, period, block); per period the m1 action words, then one demand
+// word. action = min((int)(u01(w) * f32(c_i + 1)), c_i), an inclusive
+// uniform int on [0, c_i] (pallas_episode_kernels.py:847-850); demand =
+// base + count_le(table, u01(w)) (:824-830). USER mode reads user_d[t] and
+// still owns its word, so the layout does not depend on the dist mode.
+#pragma once
+
+#include "philox.cuh"
+
+#define IM_MAX_M1 8
+#define IM_MAX_LT 32
+
+struct ImParams {
+  int m1, lt;          // stages that hold stock, lt_max
+  int user;            // 1: demand = user_d[t]; 0: invert the CDF table
+  int tab_len, base;   // the table's length and the demand's base
+  int c[IM_MAX_M1], L[IM_MAX_M1], I0[IM_MAX_M1];
+  float gain[IM_MAX_M1 + 1];    // f32(unit_price - unit_cost) per stage
+  float k[IM_MAX_M1 + 1];       // unfulfilled-demand cost per stage
+  float h[IM_MAX_M1];           // holding cost per stage that holds stock
+  float act_span[IM_MAX_M1];    // f32(c_i + 1), the random policy's factor
+};
+
+struct ImEpisode {
+  int inv[IM_MAX_M1];
+  int bkl[IM_MAX_M1 + 1];
+  int rh[IM_MAX_LT * IM_MAX_M1];  // fulfilled order of period p: slot p % lt
+  int slot;                       // t % lt
+};
+
+__device__ __forceinline__ void im_reset(const ImParams& p, ImEpisode& s) {
+  for (int i = 0; i < p.m1; ++i) s.inv[i] = p.I0[i];
+  for (int i = 0; i <= p.m1; ++i) s.bkl[i] = 0;
+  for (int k = 0; k < p.lt * p.m1; ++k) s.rh[k] = 0;
+  s.slot = 0;
+}
+
+// One period (pallas_episode_kernels._im_step_math): the requested orders
+// max(act, 0) go to r_req[0, m1); returns the undiscounted profit.
+template <bool BACKLOG>
+__device__ __forceinline__ float im_step(const ImParams& p, ImEpisode& s, int t,
+                                         const int* act, int d, int* r_req) {
+  const int m1 = p.m1;
+  int order_req[IM_MAX_M1], r_ful[IM_MAX_M1], inv[IM_MAX_M1];
+
+  // 0) orders: request = action + the prior backlog of stages 1..m, capped
+  // by the capacity and the supplier's on-hand
+  for (int i = 0; i < m1; ++i) {
+    r_req[i] = max(act[i], 0);
+    order_req[i] = r_req[i] + s.bkl[i + 1];
+    const int sup = i + 1 < m1 ? s.inv[i + 1] : (1 << 30);
+    r_ful[i] = min(min(order_req[i], p.c[i]), sup);
+  }
+
+  // 1) arrivals of the orders fulfilled L_i periods ago
+  for (int i = 0; i < m1; ++i) {
+    const int li = p.L[i];
+    int due = 0;
+    if (li == 0) {
+      due = r_ful[i];
+    } else if (t >= li) {
+      int k = s.slot - li;
+      if (k < 0) k += p.lt;
+      due = s.rh[k * m1 + i];
+    }
+    inv[i] = s.inv[i] + due;
+  }
+
+  // 2-3) retail sales with the prior backlog
+  const int to_fill = max(d, 0) + s.bkl[0];
+  const int sales0 = min(inv[0], to_fill);
+  inv[0] -= sales0;
+
+  // 4) supplier stages decremented by the orders they placed
+  for (int i = 1; i < m1; ++i) inv[i] -= r_ful[i];
+
+  // 5) profit per stage in the JAX order; the new backlog
+  float profit = 0.f;
+  for (int i = 0; i <= m1; ++i) {
+    const int S = i == 0 ? sales0 : r_ful[i - 1];
+    const int U = i == 0 ? to_fill - sales0 : order_req[i - 1] - r_ful[i - 1];
+    profit = __fadd_rn(profit, __fmul_rn(p.gain[i], (float)S));
+    profit = __fsub_rn(profit, __fmul_rn(p.k[i], (float)U));
+    if (i < m1) profit = __fsub_rn(profit, __fmul_rn(p.h[i], (float)max(inv[i], 0)));
+    s.bkl[i] = BACKLOG ? U : 0;
+  }
+
+  // history ring; then the new on-hand
+  if (p.lt > 0) {
+    for (int i = 0; i < m1; ++i) s.rh[s.slot * m1 + i] = r_ful[i];
+    s.slot = s.slot + 1 == p.lt ? 0 : s.slot + 1;
+  }
+  for (int i = 0; i < m1; ++i) s.inv[i] = inv[i];
+  return profit;
+}
+
+// The m1 inclusive-uniform actions of one period from the next m1 words.
+__device__ __forceinline__ void im_draw_actions(const ImParams& p, WordStream& ws,
+                                                int* act) {
+  for (int i = 0; i < p.m1; ++i)
+    act[i] = min((int)__fmul_rn(u01(ws.next()), p.act_span[i]), p.c[i]);
+}
+
+// Demand of period t from its word (USER mode ignores the word).
+__device__ __forceinline__ int im_demand(const ImParams& p,
+                                         const float* __restrict__ table,
+                                         const int* __restrict__ user_d, int t,
+                                         unsigned word) {
+  if (p.user) return __ldg(user_d + t);
+  return p.base + count_le(table, p.tab_len, u01(word));
+}

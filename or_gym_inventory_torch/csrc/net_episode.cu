@@ -8,7 +8,7 @@
 //    B, and keeps the state in registers and local memory for the whole
 //    episode. Bound by bytes: (T*(n_ro+n_rt)+1)*4 per env, read once.
 // K2 k_episode_returns_fused  replaces episode_returns_fully_fused (:379).
-//    Actions and demand are drawn in the kernel (philox.cuh draw_period),
+//    Actions and demand are drawn in the kernel (net_step.cuh draw_period),
 //    so only the returns leave it. Bound by operations: per env-step three
 //    Philox4x32-10 blocks, the contention chain, deliveries, retail, profit
 //    and one binary search per table link. One thread per (episode, lane):

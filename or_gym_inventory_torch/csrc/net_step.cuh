@@ -24,9 +24,21 @@
 //   diverged gives NaN returns here as it does in the JAX package.
 // - FMA contraction is left on, so the profit may differ from the plain
 //   version in the last bits; the state (integer-valued floats) is exact.
+//
+// The NetInvMgmt draws are here too (link_demand, draw_period), built on
+// philox.cuh. Random-policy kernels, key (seed, 0): the n_ro action words,
+// then one demand word per retail link; action = float(word >> 8) *
+// act_scale, act_scale = f32(act_hi / 2^24) (pallas_net_step.py:328-333).
+// Policy kernels, key (seed, 1): one demand word per retail link, then, when
+// stochastic, the n_ro u1 and the n_ro u2 words of the Box-Muller normals
+// (the JAX kernels draw the demand before the policy,
+// pallas_net_step.py:528/:654, and u1 before u2,
+// pallas_episode_kernels.py:69-70). A const (user/zero) link still owns its
+// word, so the layout does not depend on the demand specs.
 #pragma once
 
 #include "net_topo.cuh"
+#include "philox.cuh"
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return a != a ? a : b != b ? b : fmaxf(a, b);
@@ -143,4 +155,26 @@ __device__ __forceinline__ float step_period(const NetTopo& tp, Episode& s,
     total += SR[n] - PC[n] - OC - HC - UP[n];
   }
   return total;
+}
+
+// Demand of retail link j in period t from its word.
+__device__ __forceinline__ float link_demand(const NetTopo& tp,
+                                             const float* __restrict__ tables,
+                                             int j, unsigned t, unsigned word) {
+  const float* tab = tables + tp.rt_off[j];
+  if (tp.rt_const[j]) return __ldg(tab + min((int)t, tp.rt_len[j] - 1));
+  return tp.rt_base[j] + (float)count_le(tab, tp.rt_len[j], u01(word));
+}
+
+// Actions act[0, n_ro) and demand dem[0, n_rt) of one (lane, episode,
+// period) of the random-policy kernels.
+__device__ __forceinline__ void draw_period(const NetTopo& tp,
+                                            const float* __restrict__ tables,
+                                            unsigned seed, unsigned lane,
+                                            unsigned e, unsigned t,
+                                            float act_scale, float* act,
+                                            float* dem) {
+  WordStream ws(seed, 0u, lane, e, t);
+  for (int i = 0; i < tp.n_ro; ++i) act[i] = (float)(ws.next() >> 8) * act_scale;
+  for (int j = 0; j < tp.n_rt; ++j) dem[j] = link_demand(tp, tables, j, t, ws.next());
 }

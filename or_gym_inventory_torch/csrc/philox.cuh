@@ -1,30 +1,22 @@
-// Philox4x32-10 and the per-period draws of the episode kernels: the
-// random-policy kernels K2/K3 (net_episode.cu) share draw_period, the policy
-// kernels K4-K6 (net_policy.cu) share link_demand and normal01, so the
-// kernels and their stream-dumping twins cannot drift apart.
+// Philox4x32-10 and the family-free draws of the episode kernels: the word
+// stream, the 24-bit uniform, the inversion count and the Box-Muller normal.
+// Each family's kernels build their period draws from these (NetInvMgmt in
+// net_step.cuh, InvManagement in im_step.cuh), so a kernel and its
+// stream-dumping twin cannot drift apart.
 //
 // Replaces the TPU's hardware generator (pltpu.prng_seed /
-// prng_random_bits in ops/pallas_net_step.py), which exists neither on a GPU
-// nor in interpret mode. The bits differ from the TPU's; the plain twin in
-// ops/rng.py gives the same words bit for bit for the same counter and key.
+// prng_random_bits in the JAX package's kernels), which exists neither on a
+// GPU nor in interpret mode. The bits differ from the TPU's; the plain twin
+// in ops/rng.py gives the same words bit for bit for the same counter and
+// key.
 //
 // Stream layout: counter = (lane, episode, period, block); per (lane,
-// episode, period), word w is component w % 4 of block w / 4.
-// - Random-policy kernels, key (seed, 0): the n_ro action words, then one
-//   demand word per retail link.
-// - Policy kernels, key (seed, 1): one demand word per retail link, then,
-//   when stochastic, the n_ro u1 words and the n_ro u2 words of the
-//   Box-Muller normals (the JAX kernels draw the demand before the policy,
-//   pallas_net_step.py:528/:654, and u1 before u2,
-//   pallas_episode_kernels.py:69-70).
-// A const (user/zero) link still owns its word, so the layout does not
-// depend on the demand specs.
+// episode, period), word w is component w % 4 of block w / 4. Which words a
+// period takes is the family's (net_step.cuh, im_step.cuh).
 //
 // Conversions, kept exactly as the JAX kernels have them:
 //   u24    = word >> 8
-//   action = float(u24) * act_scale, act_scale = f32(act_hi / 2^24)
-//            (pallas_net_step.py:328-333)
-//   u      = float(u24) * 2^-24 (:257-262)
+//   u      = float(u24) * 2^-24 (pallas_net_step.py:257-262)
 //   demand = base + #{F in table : u >= F} (:265-288); a binary search over
 //            the nondecreasing table gives the same count as the linear
 //            compare, in log2(len) steps instead of len.
@@ -33,8 +25,6 @@
 //            logf/cosf are the accurate library versions; they may still
 //            differ from the CPU's by an ulp.
 #pragma once
-
-#include "net_topo.cuh"
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   const unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -92,29 +82,7 @@ __device__ __forceinline__ int count_le(const float* __restrict__ tab, int len,
   return lo;
 }
 
-// Demand of retail link j in period t from its word.
-__device__ __forceinline__ float link_demand(const NetTopo& tp,
-                                             const float* __restrict__ tables,
-                                             int j, unsigned t, unsigned word) {
-  const float* tab = tables + tp.rt_off[j];
-  if (tp.rt_const[j]) return __ldg(tab + min((int)t, tp.rt_len[j] - 1));
-  return tp.rt_base[j] + (float)count_le(tab, tp.rt_len[j], u01(word));
-}
-
 __device__ __forceinline__ float normal01(unsigned w1, unsigned w2) {
   const float r = sqrtf(-2.f * logf(1.f - u01(w1)));
   return r * cosf(6.2831855f * u01(w2));
-}
-
-// Actions act[0, n_ro) and demand dem[0, n_rt) of one (lane, episode,
-// period) of the random-policy kernels.
-__device__ __forceinline__ void draw_period(const NetTopo& tp,
-                                            const float* __restrict__ tables,
-                                            unsigned seed, unsigned lane,
-                                            unsigned e, unsigned t,
-                                            float act_scale, float* act,
-                                            float* dem) {
-  WordStream ws(seed, 0u, lane, e, t);
-  for (int i = 0; i < tp.n_ro; ++i) act[i] = (float)(ws.next() >> 8) * act_scale;
-  for (int j = 0; j < tp.n_rt; ++j) dem[j] = link_demand(tp, tables, j, t, ws.next());
 }

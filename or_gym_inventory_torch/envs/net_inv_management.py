@@ -32,6 +32,7 @@ from or_gym_inventory_torch.core.struct import TimeStep
 from or_gym_inventory_torch.envs import topology as topo_mod
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.envs.topology import Topology
+from or_gym_inventory_torch.ops import distributions as dist
 from or_gym_inventory_torch.ops import net_step
 
 
@@ -298,8 +299,8 @@ def _demand_plan(T: Topology, device: str):
     device once, not once per step. ``user`` arrays keep their full length,
     so a period past the horizon takes the array's last value. A link whose
     inversion table would exceed the cap is planned as ("law",): it is drawn
-    from its law (``_draw_from_law``). ``hostfn`` links are refused before
-    this is called."""
+    from its law (``ops.distributions.sample_from_law``). ``hostfn`` links
+    are refused before this is called."""
     steps = max([1] + [len(s[1]) for s in T.rt_demand if s[0] == "user"])
     plan = []
     for spec in T.rt_demand:
@@ -310,38 +311,6 @@ def _demand_plan(T: Topology, device: str):
             continue
         plan.extend(net_step._device_link_plan((link,), device))
     return tuple(plan)
-
-
-def _draw_from_law(spec, generator: torch.Generator, batch: int, dev):
-    """(batch,) draws of a static named spec from its law itself, with
-    ``generator``: the JAX env's samplers (ops/distributions.py sample_*), for
-    a spec whose support is too wide for an inversion table."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    tag = spec[0]
-    if tag == "poisson":
-        return torch.poisson(torch.full((batch,), float(spec[1]), **f32),
-                             generator=generator)
-    if tag == "binomial":
-        return torch.binomial(torch.full((batch,), float(spec[1]), **f32),
-                              torch.full((batch,), float(spec[2]), **f32),
-                              generator=generator)
-    if tag == "negbinomial":
-        # failures before the n-th success: Poisson(Gamma(n) * (1 - p) / p)
-        n, p = float(spec[1]), float(spec[2])
-        lam = torch._standard_gamma(torch.full((batch,), n, **f32),
-                                    generator=generator) * ((1.0 - p) / p)
-        return torch.poisson(lam, generator=generator)
-    if tag == "randint":
-        return torch.randint(int(spec[1]), int(spec[2]), (batch,),
-                             generator=generator, device=dev).to(torch.float32)
-    if tag == "geometric":
-        return torch.empty((batch,), **f32).geometric_(float(spec[1]),
-                                                      generator=generator)
-    if tag == "normal":
-        x = torch.normal(float(spec[1]), float(spec[2]), (batch,),
-                         generator=generator, **f32)
-        return torch.clamp_min(torch.round(x), 0.0)
-    raise NotImplementedError(f"no sampler for demand spec {tag!r}")
 
 
 def sample_demand(params: NetInvParams, generator: torch.Generator,
@@ -362,7 +331,7 @@ def sample_demand(params: NetInvParams, generator: torch.Generator,
     cols = []
     for spec, (kind, *rest) in zip(T.rt_demand, _demand_plan(T, str(dev))):
         if kind == "law":
-            cols.append(_draw_from_law(spec, generator, batch, dev))
+            cols.append(dist.sample_from_law(spec, generator, batch, dev))
             continue
         # every other link draws its uniform, const links too, so the stream
         # layout does not depend on the specs

@@ -47,6 +47,22 @@ SIGNATURES = {
                                 _I, _I, _I, _P), _I),
         "net_error_string": ((_I,), ctypes.c_char_p),
     },
+    "im_episode": {
+        # params, acts, dems, disc, out, seed, random, backlog, B, T, stream
+        "im_episode_returns": ((_P, _P, _P, _P, _P, _U32, _I, _I, _LL, _I, _P), _I),
+        # params, table, user_d, disc, out, seed, backlog, B, E, T, stream
+        "im_episode_returns_fused": ((_P, _P, _P, _P, _P, _U32, _I, _LL, _I, _I, _P), _I),
+        # params, table, user_d, acts, dems, seed, B, E, T, stream
+        "im_sample_streams": ((_P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
+        "im_error_string": ((_I,), ctypes.c_char_p),
+    },
+    "im_policy": {
+        # params, mlp, actor, n_actor, table, user_d, disc, inv, acts, raw,
+        # reward, demand, seed, backlog, B, T, stream
+        "im_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
+                             _LL, _I, _P), _I),
+        "im_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 
@@ -103,3 +119,10 @@ def library(name: str = "net_episode") -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = list(argtypes), restype
     return lib
+
+
+def error_string(name: str, err: int) -> str:
+    """CUDA's message for the error code ``err`` that an entry point of
+    ``csrc/<name>.cu`` returned."""
+    fn = next(f for f in SIGNATURES[name] if f.endswith("_error_string"))
+    return getattr(library(name), fn)(err).decode()

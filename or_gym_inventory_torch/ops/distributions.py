@@ -9,12 +9,14 @@ equal to the original.
 ``demand = base + #{F in thresholds : F <= u}`` for a 24-bit uniform u is an
 exact draw of the spec's law up to the uniform's resolution. The torch sampler
 that inverts these tables is ``envs.net_inv_management.sample_demand``; the
-kernels invert the same tables in ``csrc/philox.cuh``.
+kernels invert the same tables with ``count_le`` of ``csrc/philox.cuh``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 # Demand mode selectors (match reference `dist` integers, inventory_management.py:163)
 POISSON, BINOMIAL, RANDINT, GEOMETRIC, USER = 1, 2, 3, 4, 5
@@ -187,3 +189,36 @@ def cdf_table_for_spec(spec, granularity: float = 2.0 ** -24):
     raise NotImplementedError(
         f"no compile-time inversion for demand spec {tag!r} (an arbitrary "
         "host callable); pre-sample demand or use a named spec")
+
+
+def sample_from_law(spec, generator: torch.Generator, batch: int, dev):
+    """(batch,) float32 draws of a static named spec from its law itself,
+    with ``generator`` on ``dev``: the JAX env's samplers
+    (ops/distributions.py sample_*), for a spec whose support is too wide for
+    an inversion table. Both envs' ``sample_demand`` take it there."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    tag = spec[0]
+    if tag == "poisson":
+        return torch.poisson(torch.full((batch,), float(spec[1]), **f32),
+                             generator=generator)
+    if tag == "binomial":
+        return torch.binomial(torch.full((batch,), float(spec[1]), **f32),
+                              torch.full((batch,), float(spec[2]), **f32),
+                              generator=generator)
+    if tag == "negbinomial":
+        # failures before the n-th success: Poisson(Gamma(n) * (1 - p) / p)
+        n, p = float(spec[1]), float(spec[2])
+        lam = torch._standard_gamma(torch.full((batch,), n, **f32),
+                                    generator=generator) * ((1.0 - p) / p)
+        return torch.poisson(lam, generator=generator)
+    if tag == "randint":
+        return torch.randint(int(spec[1]), int(spec[2]), (batch,),
+                             generator=generator, device=dev).to(torch.float32)
+    if tag == "geometric":
+        return torch.empty((batch,), **f32).geometric_(float(spec[1]),
+                                                      generator=generator)
+    if tag == "normal":
+        x = torch.normal(float(spec[1]), float(spec[2]), (batch,),
+                         generator=generator, **f32)
+        return torch.clamp_min(torch.round(x), 0.0)
+    raise NotImplementedError(f"no sampler for demand spec {tag!r}")

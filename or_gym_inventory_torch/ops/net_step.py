@@ -42,11 +42,6 @@ if TYPE_CHECKING:  # the env imports this module for its demand sampler
 # fixed maxima of the topology struct the kernels take by value
 # (csrc/net_topo.cuh); the wrappers raise beyond them
 MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
-# and of the actor the policy kernels take (csrc/net_policy.cu); its
-# weights, biases and std must fit the dynamic shared memory a Hopper block
-# may opt in to (227 KB)
-MAX_LAYERS, MAX_WIDTH = 8, 256
-SMEM_OPTIN_BYTES = 232_448
 
 
 def init_transposed(params: NetInvParams, batch: int, device=None):
@@ -179,12 +174,6 @@ def _link_spec(spec, num_steps):
     return ("table",) + dist.cdf_table_for_spec(spec)
 
 
-def _discounts(alpha: float, num_steps: int):
-    """alpha**t per period as a Python double rounded to f32, as the JAX
-    kernels fold it (pallas_net_step.py:165)."""
-    return [float(np.float32(alpha ** t)) for t in range(num_steps)]
-
-
 def _act_scale(act_hi: float) -> float:
     """The f32 factor of ``action = float(u24) * scale`` (pallas_net_step.py:328)."""
     return float(np.float32(float(act_hi) / float(1 << 24)))
@@ -202,7 +191,7 @@ def _episode_returns_plain(params: NetInvParams, actions, demands):
     X, Y, U, RH = init_transposed(params, B, actions.device)
     X, Y, U, RH = list(X), list(Y), list(U), list(RH)
     total = torch.zeros(B, dtype=torch.float32, device=actions.device)
-    for t, disc in enumerate(_discounts(params.alpha, num_steps)):
+    for t, disc in enumerate(ek._discounts(params.alpha, num_steps)):
         valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
         X, Y, U, r_cur, profit = _step_math(
             T, params.backlog, X, Y, U, RH, list(actions[t]), list(demands[t]), valid)
@@ -231,7 +220,7 @@ def _device_link_plan(link_specs, device):
 def _draw_period_plain(plan, seed, lanes, e, t, n_ro, act_scale):
     """Actions (n_ro rows) and demand (one row per link) of every lane in
     ``lanes`` for episode ``e``, period ``t``: the words of ``rng`` turned
-    into values exactly as csrc/philox.cuh ``draw_period`` does."""
+    into values exactly as csrc/net_step.cuh ``draw_period`` does."""
     words = rng.period_words(seed, lanes, e, t, n_ro + len(plan))
     act = [(w >> 8).to(torch.float32) * act_scale for w in words[:n_ro]]
     return act, _link_demand_plain(plan, words[n_ro:], t)
@@ -239,7 +228,7 @@ def _draw_period_plain(plan, seed, lanes, e, t, n_ro, act_scale):
 
 def _link_demand_plain(plan, words, t):
     """Demand of period ``t``, one row per link, from one word per link
-    (csrc/philox.cuh ``link_demand``)."""
+    (csrc/net_step.cuh ``link_demand``)."""
     dem = []
     for spec, w in zip(plan, words):
         if spec[0] == "const":
@@ -280,7 +269,7 @@ def _episode_returns_fully_fused_plain(params, seed, act_hi, batch, num_steps,
     plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     scale = _act_scale(act_hi)
-    discs = _discounts(params.alpha, num_steps)
+    discs = ek._discounts(params.alpha, num_steps)
     out = torch.empty((episodes_per_lane, batch), dtype=torch.float32, device=device)
     for e in range(episodes_per_lane):
         X, Y, U, RH = (list(a) for a in init_transposed(params, batch, device))
@@ -373,28 +362,12 @@ def _launch_plan(params: NetInvParams, num_steps: int, device: str,
     link_specs = (_topology_link_specs(params.topology, num_steps)
                   if with_demand else None)
     tp, tables = _pack_topology(params, link_specs)
-    return (tp, _f32_on(_discounts(params.alpha, num_steps), device),
+    return (tp, _f32_on(ek._discounts(params.alpha, num_steps), device),
             _f32_on(tables, device))
 
 
 def _launch(fn_name, *args, lib_name="net_episode"):
-    from or_gym_inventory_torch.ops import _build
-    lib = _build.library(lib_name)
-    rc = getattr(lib, fn_name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
-                           f"{lib.net_error_string(rc).decode()}")
-
-
-def _plan_key(device) -> str:
-    """``device`` with its index, so that a plan cached for "cuda" stays on
-    the card it was copied to."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return f"cuda:{index}"
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    ek._launch(lib_name, fn_name, *args)
 
 
 def _check_streams(params, actions, demands):
@@ -428,12 +401,12 @@ def episode_returns(params: NetInvParams, actions: torch.Tensor,
         raise ValueError("actions and demands must be contiguous")
     num_steps, _, B = actions.shape
     dev = actions.device
-    tp, disc, _ = _launch_plan(params, num_steps, _plan_key(dev), False)
+    tp, disc, _ = _launch_plan(params, num_steps, ek._plan_key(dev), False)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("net_episode_returns", ctypes.addressof(tp), actions.data_ptr(),
                 demands.data_ptr(), disc.data_ptr(), out.data_ptr(), B, num_steps,
-                _stream(dev))
+                ek._stream(dev))
     episode_returns.launches += 1
     return out
 
@@ -461,12 +434,12 @@ def episode_returns_fully_fused(params: NetInvParams, seed: int, act_hi: float,
         out = _episode_returns_fully_fused_plain(params, seed, act_hi, batch,
                                                  num_steps, E, dev)
     else:
-        tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+        tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
         out = torch.empty((E, batch), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             _launch("net_episode_returns_fused", ctypes.addressof(tp),
                     disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed,
-                    _act_scale(act_hi), batch, E, num_steps, _stream(dev))
+                    _act_scale(act_hi), batch, E, num_steps, ek._stream(dev))
         episode_returns_fully_fused.launches += 1
     return out.reshape(batch) if E == 1 else out
 
@@ -480,7 +453,7 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
                          device=None):
     """The exact action and demand streams ``episode_returns_fully_fused``
     draws for ``seed``. K3: it shares K2's draw function
-    (csrc/philox.cuh ``draw_period``). Returns (actions (T, n_ro, batch),
+    (csrc/net_step.cuh ``draw_period``). Returns (actions (T, n_ro, batch),
     demands (T, n_rt, batch)) for episodes_per_lane=1, else with an E axis
     after T. ``dump_range=(e0, e1)`` writes only those episodes (the E axis
     then has length e1-e0); with a counter-based generator the other
@@ -500,13 +473,13 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
         acts, dems = _sample_streams_plain(params, seed, act_hi, batch,
                                            num_steps, e0, e1, dev)
     else:
-        tp, _, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+        tp, _, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
         acts = torch.empty((num_steps, W, n_ro, batch), dtype=torch.float32, device=dev)
         dems = torch.empty((num_steps, W, n_rt, batch), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             _launch("net_sample_streams", ctypes.addressof(tp), tab.data_ptr(),
                     acts.data_ptr(), dems.data_ptr(), seed, _act_scale(act_hi),
-                    batch, num_steps, e0, e1, _stream(dev))
+                    batch, num_steps, e0, e1, ek._stream(dev))
         sample_streams_debug.launches += 1
     if E == 1:
         return acts.reshape(num_steps, n_ro, batch), dems.reshape(num_steps, n_rt, batch)
@@ -535,6 +508,13 @@ def _half_hi(T) -> float:
     """f32(0.5 * act_hi) with act_hi = 2 * order_cap_heuristic, the factor of
     ``act = (tanh(raw) + 1) * (0.5 * act_hi)`` (pallas_net_step.py:537)."""
     return float(np.float32(0.5 * float(T.order_cap_heuristic * 2)))
+
+
+def _pack_net_actor(T, actor, std, device):
+    """``episode_kernels._pack_actor`` for the topology: obs_dim inputs,
+    one output per reorder link, each squashed to [0, act_hi)."""
+    return ek._pack_actor(actor, std, T.obs_dim, T.n_reorder,
+                          [_half_hi(T)] * T.n_reorder, device)
 
 
 def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH):
@@ -568,7 +548,7 @@ def _rollout_traj_plain(params, actor, std, seed, batch, device):
     layers = ek.kernel_layers(actor, device)
     std = std.to(device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
-    discs = _discounts(params.alpha, num_steps)
+    discs = ek._discounts(params.alpha, num_steps)
     f32 = dict(dtype=torch.float32, device=device)
     out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
                u=torch.empty((num_steps + 1, n_rt, batch), **f32),
@@ -606,7 +586,7 @@ def _policy_returns_plain(params, actor, std, seed, batch, episodes_per_lane,
     std = None if std is None else std.to(device)
     idx = torch.arange(E * batch, dtype=torch.int64, device=device)
     episodes, lanes = idx // batch, idx % batch
-    discs = _discounts(params.alpha, num_steps)
+    discs = ek._discounts(params.alpha, num_steps)
     f32 = dict(dtype=torch.float32, device=device)
     acts = torch.empty((num_steps, E, n_ro, batch), **f32) if dump else None
     dems = torch.empty((num_steps, E, n_rt, batch), **f32) if dump else None
@@ -624,70 +604,6 @@ def _policy_returns_plain(params, actor, std, seed, batch, episodes_per_lane,
         RH = r_cur + RH[: (lt - 1) * n_ro]
         total = total + discs[t] * profit
     return total.reshape(E, batch), acts, dems
-
-
-class _NetMlp(ctypes.Structure):
-    """Mirror of ``struct NetMlp`` in csrc/net_policy.cu."""
-    _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
-                ("act_rows", ctypes.c_int), ("half_hi", ctypes.c_float)]
-
-
-_POLICY_THREADS = 128   # kThreads of csrc/net_policy.cu: activation columns
-
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _actor_dims(T, actor):
-    """The actor's widths [obs_dim, ..., act_dim]; raises ValueError for an
-    actor that does not fit the topology or the kernels' maxima."""
-    Ws, bs = actor
-    if len(Ws) != len(bs) or not Ws:
-        raise ValueError("actor must be (Ws, bs) with one bias per layer")
-    dims = [int(Ws[0].shape[0])] + [int(W.shape[1]) for W in Ws]
-    for layer, (W, b) in enumerate(zip(Ws, bs)):
-        if tuple(W.shape) != (dims[layer], dims[layer + 1]) or tuple(b.shape) != (dims[layer + 1],):
-            raise ValueError(f"layer {layer}: W {tuple(W.shape)} and b {tuple(b.shape)} "
-                             f"do not chain to widths {dims}")
-    if dims[0] != T.obs_dim or dims[-1] != T.n_reorder:
-        raise ValueError(f"actor maps {dims[0]} -> {dims[-1]}; the topology needs "
-                         f"obs_dim {T.obs_dim} -> n_reorder {T.n_reorder}")
-    if len(Ws) > MAX_LAYERS or max(dims) > MAX_WIDTH:
-        raise ValueError(f"actor widths {dims}: the kernels take at most "
-                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH}")
-    return dims
-
-
-def _pack_actor(T, actor, std, device):
-    """The kernels' actor arguments: the NetMlp struct and one flat float32
-    buffer on ``device``, each layer as W^T (in, out16) then b (out16), the
-    outputs zero-padded to a multiple of 16, then the std when given. Raises
-    ValueError if the buffer and the activation buffers exceed the shared
-    memory of a block."""
-    dims = _actor_dims(T, actor)
-    Ws, bs = actor
-    parts = []
-    for W, b in zip(Ws, bs):
-        n_in, n_out = W.shape
-        Wp = torch.zeros((n_in, _pad16(n_out)), dtype=torch.float32, device=device)
-        bp = torch.zeros(_pad16(n_out), dtype=torch.float32, device=device)
-        Wp[:, :n_out] = torch.as_tensor(W, dtype=torch.float32, device=device)
-        bp[:n_out] = torch.as_tensor(b, dtype=torch.float32, device=device)
-        parts += [Wp.reshape(-1), bp]
-    if std is not None:
-        parts.append(std.to(device).reshape(-1))
-    flat = torch.cat(parts).contiguous()
-    act_rows = max([dims[0]] + [_pad16(d) for d in dims[1:]])
-    smem = (-(-flat.numel() // 4) * 4 + 2 * act_rows * _POLICY_THREADS) * 4
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"actor of {flat.numel()} floats with activation buffers of "
-                         f"{act_rows} rows needs {smem} bytes; the shared memory of "
-                         f"a block holds {SMEM_OPTIN_BYTES}")
-    mlp = _NetMlp(n_layers=len(dims) - 1, act_rows=act_rows, half_hi=_half_hi(T))
-    for k, d in enumerate(dims):
-        mlp.dims[k] = d
-    return mlp, flat
 
 
 def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
@@ -715,10 +631,10 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
     num_steps = params.num_periods
     seed = int(seed) & rng.MASK32
     std = ek.clipped_std(torch.as_tensor(log_std).detach())
-    mlp, flat = _pack_actor(T, actor, std, dev)
+    mlp, flat = _pack_net_actor(T, actor, std, dev)
     if dev.type == "cpu":
         return _rollout_traj_plain(params, actor, std, seed, batch, dev)
-    tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+    tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
                u=torch.empty((num_steps + 1, n_rt, batch), **f32),
@@ -730,7 +646,7 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
         _launch("net_rollout_traj", ctypes.addressof(tp), ctypes.addressof(mlp),
                 flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
                 *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
-                seed, batch, num_steps, _stream(dev), lib_name="net_policy")
+                seed, batch, num_steps, ek._stream(dev), lib_name="net_policy")
     rollout_traj_net.launches += 1
     return out
 
@@ -751,10 +667,10 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
     num_steps = params.num_periods
     seed = int(seed) & rng.MASK32
     std = None if log_std is None else ek.clipped_std(log_std)
-    mlp, flat = _pack_actor(T, actor, std, dev)
+    mlp, flat = _pack_net_actor(T, actor, std, dev)
     if dev.type == "cpu":
         return _policy_returns_plain(params, actor, std, seed, batch, E, dev, dump)
-    tp, disc, tab = _launch_plan(params, num_steps, _plan_key(dev), True)
+    tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((E, batch), **f32)
     acts = dems = None
@@ -766,7 +682,7 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
                 flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,
                 dems.data_ptr() if dump else None, seed, batch, E, num_steps,
-                int(std is not None), _stream(dev), lib_name="net_policy")
+                int(std is not None), ek._stream(dev), lib_name="net_policy")
     wrapper.launches += 1
     return out, acts, dems
 

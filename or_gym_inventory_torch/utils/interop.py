@@ -1,10 +1,11 @@
-"""Carrying NetInvMgmt parameters and state, and PPO weights and
-statistics, across from the JAX package.
+"""Carrying NetInvMgmt and InvManagement parameters and state, and PPO
+weights and statistics, across from the JAX package.
 
 Every function takes plain Python and NumPy values, so the JAX package is
-never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``,
-the JAX state's arrays through ``numpy.asarray``, and a flax parameter tree
-through ``jax.tree_util.tree_map(numpy.asarray, ...)``.
+never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``
+or ``dataclasses.asdict(jax_params)``, the JAX state's arrays through
+``numpy.asarray``, and a flax parameter tree through
+``jax.tree_util.tree_map(numpy.asarray, ...)``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 
 from or_gym_inventory_torch.agents.ppo import RunningMeanStd
 from or_gym_inventory_torch.core.device import resolve_device
+from or_gym_inventory_torch.envs.inv_management import (InvManagementParams,
+                                                        InvManagementState)
 from or_gym_inventory_torch.envs.net_inv_management import NetInvParams, NetInvState
 from or_gym_inventory_torch.envs.topology import Topology
 
@@ -45,6 +48,27 @@ def net_state_from_numpy(X, Y, U, r_hist, period, device=None) -> NetInvState:
 
     return NetInvState(X=f32(X), Y=f32(Y), U=f32(U), r_hist=f32(r_hist),
                        period=torch.tensor(np.asarray(period, np.int32), device=dev))
+
+
+def im_params_from_numpy(fields: dict) -> InvManagementParams:
+    """The port's InvManagementParams from a JAX InvManagementParams' fields
+    (``dataclasses.asdict``)."""
+    return InvManagementParams(**{k: _tuples(v) for k, v in fields.items()}).validate()
+
+
+def im_state_from_numpy(inv, backlog_v, action_hist, r_hist, period,
+                        device=None) -> InvManagementState:
+    """The port's batched InvManagementState from a JAX InvManagementState
+    stacked over B: inv (B, m1), backlog_v (B, m), action_hist and r_hist
+    (B, lt_max, m1), period (B,), all int32."""
+    dev = resolve_device(device)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    return InvManagementState(inv=i32(inv), backlog_v=i32(backlog_v),
+                              action_hist=i32(action_hist), r_hist=i32(r_hist),
+                              period=i32(period))
 
 
 def ppo_params_from_numpy(flax_tree, device=None) -> dict:

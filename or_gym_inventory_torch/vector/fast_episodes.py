@@ -2,14 +2,15 @@
 learned MLP policy.
 
 Port of ``or_gym_inventory_tpu/vector/fast_episodes.random_episode_returns``
-and ``policy_episode_returns`` (:126-217), NetInvMgmt branch. On CUDA the
+and ``policy_episode_returns`` (:126-217): the NetInvMgmt branches, and the
+InvManagement branch of ``random_episode_returns`` (:80-94). On CUDA the
 episodes run in the fused kernels (``ops.net_step.
-episode_returns_fully_fused``, K2, and ``episode_returns_net_policy``, K5),
-on the CPU in their plain versions. A ``hostfn`` demand link, which neither
-the kernels nor the env's ``sample_demand`` can sample, raises
-NotImplementedError before anything is launched; a failure to build or
-launch a kernel propagates. The JAX package fell back to its XLA rollout
-there; the port has no such fallback.
+episode_returns_fully_fused``, K2, ``episode_returns_net_policy``, K5, and
+``ops.episode_kernels.episode_returns_im_fused``, K8), on the CPU in their
+plain versions. A demand the kernels cannot draw (a ``hostfn`` link, a law
+beyond the inversion table's cap) raises NotImplementedError before anything
+is launched; a failure to build or launch a kernel propagates. The JAX
+package fell back to its XLA rollout there; the port has no such fallback.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from __future__ import annotations
 import torch
 
 from or_gym_inventory_torch.core.device import resolve_device
+from or_gym_inventory_torch.envs import inv_management as im
 from or_gym_inventory_torch.envs import net_inv_management as net
-from or_gym_inventory_torch.ops import net_step
+from or_gym_inventory_torch.ops import episode_kernels, net_step
 
 
 def kernel_seed(generator: torch.Generator) -> int:
@@ -29,23 +31,29 @@ def kernel_seed(generator: torch.Generator) -> int:
 
 
 def _refuse_other_families(params):
-    if not isinstance(params, net.NetInvParams):
+    if not isinstance(params, (net.NetInvParams, im.InvManagementParams)):
         raise NotImplementedError(
-            f"{type(params).__name__}: the PyTorch port runs NetInvMgmt only; "
-            "Newsvendor and InvManagement are still to port (ROADMAP.md "
-            "Queue A7)")
+            f"{type(params).__name__}: the PyTorch port runs NetInvMgmt and "
+            "InvManagement; Newsvendor is still to port (ROADMAP.md Queue A7b)")
 
 
 def random_episode_returns(params, generator: torch.Generator, batch: int,
                            episodes_per_lane: int = 1, device=None):
     """Per-episode returns under the uniform-random policy, a
     (episodes_per_lane * batch,) float32 tensor, episode-major. The kernel
-    seed is drawn from ``generator``, which must live on ``device``."""
+    seed is drawn from ``generator``, which must live on ``device``.
+    InvManagement steps' rewards are already alpha^t-discounted (reference
+    semantics), so are its returns."""
     dev = resolve_device(device)
     E = int(episodes_per_lane)
     if E < 1:
         raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
     _refuse_other_families(params)
+    if isinstance(params, im.InvManagementParams):
+        episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
+        return episode_kernels.episode_returns_im_fused(
+            params, kernel_seed(generator), batch, episodes_per_lane=E,
+            device=dev).reshape(-1)
     T = params.topology
     net_step._topology_link_specs(T, params.num_periods)  # hostfn raises here
     hi = float(T.order_cap_heuristic * 2)
@@ -74,6 +82,11 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     if not deterministic and log_std is None:
         raise ValueError("deterministic=False requires log_std (the trained "
                          "per-action-dim log-std parameter)")
+    if isinstance(params, im.InvManagementParams):
+        raise NotImplementedError(
+            "policy_episode_returns on InvManagement runs the learned-policy "
+            "kernel episode_returns_im_policy, still to port (ROADMAP.md "
+            "Queue B10)")
     _refuse_other_families(params)
     net_step._topology_link_specs(params.topology, params.num_periods)  # hostfn raises here
     return net_step.episode_returns_net_policy(

@@ -49,4 +49,7 @@ def test_sources_import_no_jax():
                 if root in ("jax", "jaxlib", "flax", "or_gym_inventory_tpu"):
                     offenders.append(f"{path.name}: {name}")
     assert not offenders, offenders
-    assert len(list(_port_modules())) >= 15
+    mods = set(_port_modules())
+    assert len(mods) >= 28
+    assert {"or_gym_inventory_torch.core.config", "or_gym_inventory_torch.envs.inv_management",
+            "or_gym_inventory_torch.ops.episode_kernels"} <= mods
