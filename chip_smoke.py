@@ -18,10 +18,10 @@ counter set to 0 just before it and read just after:
   3 updates, then ``policy_episode_returns`` of the trained actor at
   65,536 x 16, deterministic and stochastic. After the counts are read, the
   deterministic returns of the first 1,024 lanes are held against plain K5;
-- slice 3, InvManagement random-policy returns (phase 11): K9 dumps the
-  streams of the main path's seed, K7 replays them, then
+- slice 3, InvManagement random-policy returns (phase 11):
   ``random_episode_returns`` with ``inv_management.default_params()`` at
-  4,194,304 x 16 x 30 launches K8 once and no plain version;
+  4,194,304 x 16 x 30 launches K8 once, nothing else and no plain version
+  (K9 and K7 are held on the same seed's streams before the count);
 - slice 3, InvManagement PPO (phase 13): ``train`` with ``rollout="kernel"``
   at 65,536 x 30, 64x64 (obs_dim 33, act_dim 3), 4 epochs x 8 minibatches,
   3 updates: 3 launches of K10 and no plain version.
@@ -32,8 +32,9 @@ PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
 folded into layer 1), which also holds the NaN propagation of the shared
 step, K7-K9 in phase 10 for all five demand modes in backlog and lost
 sales, and K10 in phase 12 (with the env step chain on its streams and a
-NaN std). K6, K5 with its streams dumped, is on no main path: it is
-launched and held in phase 7 only. Then it times the vecenv rollout (phase
+NaN std). Three kernels are on no main path and are launched only to be
+held: K6, K5 with its streams dumped (phase 7), K9 and K7, the streams and
+the stream-in replay of K8's draws (phases 10-12). Then it times the vecenv rollout (phase
 5), each kernel against its plain version (phases 6, 9 and 14), one PPO
 update with its gradient in 8 chunks per minibatch against 1 (phase 9),
 and trains InvManagement at the protocol of tools/validate_kernel_ppo.py
@@ -42,7 +43,7 @@ and exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
 The last five lines are one JSON object of per-kernel numbers
 (``launches`` is the sum of a kernel's launches in the four main-path runs,
-so 0 for K6; for K4, K5 and K10, ``max_abs_err`` is over the lanes that
+so 0 for K6, K7 and K9; for K4, K5 and K10, ``max_abs_err`` is over the lanes that
 agree with the plain version), one JSON object of the NetInvMgmt PPO path's
 rates, one of the InvManagement paths' rates and reward, the card's name
 and power limit as nvidia-smi gives them, and
@@ -246,6 +247,46 @@ def bound(n_bytes, n_ops):
 
 # ------------------------------------------------------------------ phases
 
+def reset_counts(wrappers):
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
+
+
+def read_counts(wrappers):
+    """Launches per kernel row: the sum over the row's wrappers (K7 has two,
+    ``episode_returns_im`` and ``episode_returns_im_random``)."""
+    return {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
+
+
+class no_plain_versions:
+    """Within the block, every plain version of K1-K10 raises, so a counted
+    main-path run shows that it went through the kernels alone."""
+
+    NAMES = {"net_step": ("_episode_returns_plain", "_episode_returns_fully_fused_plain",
+                          "_sample_streams_plain", "_rollout_traj_plain",
+                          "_policy_returns_plain"),
+             "episode_kernels": ("_episode_returns_im_plain", "_im_fused_plain",
+                                 "_rollout_traj_im_plain")}
+
+    def __enter__(self):
+        import importlib
+
+        def refuse(*_a, **_k):
+            raise AssertionError("a plain version ran on the counted main path")
+
+        self.saved = []
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module(f"or_gym_inventory_torch.ops.{mod_name}")
+            for n in names:
+                self.saved.append((mod, n, getattr(mod, n)))
+                setattr(mod, n, refuse)
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+
 def timed_once(fn, *args):
     """(milliseconds between CUDA events around one call, its result)."""
     import torch
@@ -348,19 +389,19 @@ def episode_returns_at_scale(params, dev, err):
     return mean, plain_ms
 
 
-def seeded_actor(params, dev):
-    """Phase 7's actor: the default 64x64 actor-critic drawn from its own
-    initialisation, and obs statistics with mean ~50 and std ~20 folded into
-    its first layer. Returns (folded actor, log_std), on ``dev``."""
+def seeded_actor(obs_dim, act_dim, dev):
+    """Phases 7 and 12's actor: the default 64x64 actor-critic of
+    (obs_dim, act_dim) drawn from its own initialisation, and obs statistics
+    with mean ~50 and std ~20 folded into its first layer. Returns (folded
+    actor, log_std), on ``dev``."""
     import torch
 
     from or_gym_inventory_torch.agents import networks, ppo
     from or_gym_inventory_torch.ops import episode_kernels as ek
-    T = params.topology
     g = torch.Generator().manual_seed(SEED)
-    model = networks.MLPActorCritic(T.obs_dim, T.n_reorder, generator=g)
-    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(T.obs_dim, generator=g),
-                             var=(20.0 + 5.0 * torch.rand(T.obs_dim, generator=g)) ** 2,
+    model = networks.MLPActorCritic(obs_dim, act_dim, generator=g)
+    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(obs_dim, generator=g),
+                             var=(20.0 + 5.0 * torch.rand(obs_dim, generator=g)) ** 2,
                              count=torch.tensor(1e3))
     Ws, bs = ek.fold_actor_params(ppo.PPOConfig(), model, rms)
     actor = (tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs))
@@ -468,19 +509,16 @@ def policy_cross_check(params, dev, actor, log_std):
     return err, plain_ms, lines
 
 
-def ppo_main_path(params, dev, smi):
-    """Phase 8: PPO through the trajectory kernel, then the trained actor's
-    evaluation, deterministic and stochastic. Returns (lines, best update
-    ms, folded actor, log_std, (cfg, state, generator), the deterministic
-    returns, the kernel seed they came from, rates for the summary)."""
+def ppo_main_path(env, params, dev, smi, label, kernel):
+    """Phases 8 and 13: ``train`` with ``rollout="kernel"`` at 65,536 envs x
+    30 periods, 64x64, 4 epochs x 8 minibatches, 3 updates, no plain version
+    allowed; ``kernel``, the trajectory kernel's wrapper, must launch once
+    per update (its count set to 0 just before). Returns (lines, best
+    update ms, (cfg, state, generator), rates for the summary)."""
     import numpy as np
     import torch
 
     from or_gym_inventory_torch.agents import ppo
-    from or_gym_inventory_torch.envs import net_inv_management as net
-    from or_gym_inventory_torch.ops import episode_kernels as ek
-    from or_gym_inventory_torch.ops import net_step as ns
-    from or_gym_inventory_torch.vector import fast_episodes
     cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_steps=NUM_STEPS, num_minibatches=8,
                         update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64),
                         rollout="kernel")
@@ -491,24 +529,38 @@ def ppo_main_path(params, dev, smi):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
-    state, metrics = ppo.train(net.ENV, params, cfg, gen,
-                               PPO_UPDATES * PPO_ENVS * NUM_STEPS, device=dev,
-                               progress=progress)
+    with no_plain_versions():
+        state, metrics = ppo.train(env, params, cfg, gen,
+                                   PPO_UPDATES * PPO_ENVS * NUM_STEPS, device=dev,
+                                   progress=progress)
     bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
     if bad or len(metrics["update"]) != PPO_UPDATES:
-        raise AssertionError(f"PPO metrics not finite: {bad}; {metrics}")
-    if ns.rollout_traj_net.launches != PPO_UPDATES:
-        raise AssertionError(f"rollout_traj_net launched {ns.rollout_traj_net.launches} "
-                             f"times in {PPO_UPDATES} updates")
+        raise AssertionError(f"{label} PPO metrics not finite: {bad}; {metrics}")
+    if kernel.launches != PPO_UPDATES:
+        raise AssertionError(f"{kernel.__name__} launched {kernel.launches} times in "
+                             f"{PPO_UPDATES} updates")
     update_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     best = min(update_ms[1:])     # the first update also builds the model
     samples = PPO_ENVS * NUM_STEPS
-    lines = [f"PPO {PPO_ENVS} x {NUM_STEPS}, 64x64, 4 epochs x 8 minibatches: update "
-             f"ms {', '.join(f'{t:.3f}' for t in update_ms)}; best {best:.3f} ms = "
+    lines = [f"{label} PPO {PPO_ENVS} x {NUM_STEPS}, 64x64, 4 epochs x 8 minibatches: "
+             f"update ms {', '.join(f'{t:.3f}' for t in update_ms)}; best {best:.3f} ms = "
              f"{samples / best * 1e3:.6g} trained-steps/s on {smi}",
-             "PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
-                                         for k, v in metrics.items())]
+             f"{label} PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
+                                                  for k, v in metrics.items())]
+    rates = {"update_ms": best, "trained_steps_s": samples / best * 1e3}
+    return lines, best, (cfg, state, gen), rates
 
+
+def evaluate_trained(params, dev, smi, trained):
+    """Phase 8, after the NetInvMgmt ``train``: the trained actor's
+    ``policy_episode_returns`` at 65,536 x 16, deterministic and stochastic,
+    no plain version allowed. Returns (lines, folded actor, log_std, the
+    deterministic returns, the kernel seed they came from, rates)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    cfg, state, _ = trained
     actor = ek.fold_actor_params(cfg, state.params, state.rms)
     log_std = state.params.log_std.detach()
     E = EVAL_EPISODES
@@ -516,24 +568,23 @@ def ppo_main_path(params, dev, smi):
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     replay_gen = torch.Generator(device=dev)
     replay_gen.set_state(g.get_state())
-    det_ms, det = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
-                             PPO_ENVS, E, True, None, dev)
-    sto_ms, sto = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
-                             PPO_ENVS, E, False, log_std, dev)
+    with no_plain_versions():
+        det_ms, det = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
+                                 PPO_ENVS, E, True, None, dev)
+        sto_ms, sto = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
+                                 PPO_ENVS, E, False, log_std, dev)
     for name, ret in (("deterministic", det), ("stochastic", sto)):
         if ret.shape != (PPO_ENVS * E,) or not torch.isfinite(ret).all():
             raise AssertionError(f"{name} evaluation: shape {tuple(ret.shape)} or non-finite")
-    lines.append(f"policy_episode_returns {PPO_ENVS} x {E} x {NUM_STEPS}: deterministic "
-                 f"{det_ms:.3f} ms = {env_steps / det_ms * 1e3:.6g} env-steps/s, mean "
-                 f"{float(det.double().mean()):.3f}; stochastic {sto_ms:.3f} ms = "
-                 f"{env_steps / sto_ms * 1e3:.6g} env-steps/s, mean "
-                 f"{float(sto.double().mean()):.3f}; on {smi}")
+    lines = [f"policy_episode_returns {PPO_ENVS} x {E} x {NUM_STEPS}: deterministic "
+             f"{det_ms:.3f} ms = {env_steps / det_ms * 1e3:.6g} env-steps/s, mean "
+             f"{float(det.double().mean()):.3f}; stochastic {sto_ms:.3f} ms = "
+             f"{env_steps / sto_ms * 1e3:.6g} env-steps/s, mean "
+             f"{float(sto.double().mean()):.3f}; on {smi}"]
     torch.cuda.synchronize()
-    rates = {"update_ms": best, "trained_steps_s": samples / best * 1e3,
-             "eval_det_steps_s": env_steps / det_ms * 1e3,
+    rates = {"eval_det_steps_s": env_steps / det_ms * 1e3,
              "eval_sto_steps_s": env_steps / sto_ms * 1e3}
-    return (lines, best, actor, log_std, (cfg, state, gen), det,
-            fast_episodes.kernel_seed(replay_gen), rates)
+    return lines, actor, log_std, det, fast_episodes.kernel_seed(replay_gen), rates
 
 
 def check_evaluation(params, dev, actor, det, seed):
@@ -652,49 +703,16 @@ def im_cross_check(dev):
     return err
 
 
-def reset_counts(wrappers):
-    for ws in wrappers.values():
-        for w in ws:
-            w.launches = 0
-
-
-def read_counts(wrappers):
-    """Launches per kernel row: the sum over the row's wrappers (K7 has two,
-    ``episode_returns_im`` and ``episode_returns_im_random``)."""
-    return {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
-
-
-class no_plain_versions:
-    """Within the block, every plain version of K7-K10 raises, so a counted
-    main-path run shows that it went through the kernels alone."""
-
-    NAMES = ("_episode_returns_im_plain", "_im_fused_plain", "_rollout_traj_im_plain")
-
-    def __enter__(self):
-        from or_gym_inventory_torch.ops import episode_kernels as ek
-        self.saved = {n: getattr(ek, n) for n in self.NAMES}
-
-        def refuse(*_a, **_k):
-            raise AssertionError("a plain version ran on the counted main path")
-
-        for n in self.NAMES:
-            setattr(ek, n, refuse)
-
-    def __exit__(self, *exc):
-        from or_gym_inventory_torch.ops import episode_kernels as ek
-        for n, fn in self.saved.items():
-            setattr(ek, n, fn)
-
-
 def im_main_path(dev, wrappers):
-    """Phase 11, the InvManagement random-policy path, counting launches
-    from 0: K9 dumps the streams of the main path's seed at 65,536 x 30, K7
-    replays them (stream-in and _random), then ``random_episode_returns`` at
-    4,194,304 x 16 must launch K8 exactly once and no plain version. After
-    the counts are read, the first 65,536 lanes of episode 0 are held
-    against K7 (the same counters) and the first 1,024 lanes of every
-    episode against plain K8. Returns (launches, max |diff| of K8, mean
-    return, streams and seed for phase 14)."""
+    """Phase 11, the InvManagement random-policy path. Before the count, K9
+    dumps the streams of the main path's seed at 65,536 x 30 and K7 replays
+    them (stream-in and _random). Then, counting launches from 0,
+    ``random_episode_returns`` at 4,194,304 x 16 must launch K8 exactly
+    once, nothing else and no plain version. After the counts are read, the
+    first 65,536 lanes of episode 0 are held against K7 (the same counters)
+    and the first 1,024 lanes of every episode against plain K8. Returns
+    (launches, max |diff| of K8, mean return, streams and seed for phase
+    14)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
@@ -705,18 +723,17 @@ def im_main_path(dev, wrappers):
     replay = torch.Generator(device=dev)
     replay.set_state(gen.get_state())
     seed = fast_episodes.kernel_seed(replay)
-    reset_counts(wrappers)
     a, d = ek.sample_streams_debug_im(params, seed, CHECK_LANES, device=dev)
     k7 = ek.episode_returns_im(params, a, d)
     k7r = ek.episode_returns_im_random(params, d, seed)
-    before = read_counts(wrappers)
+    reset_counts(wrappers)
     with no_plain_versions():
         ret = fast_episodes.random_episode_returns(params, gen, MAIN_LANES,
                                                    episodes_per_lane=MAIN_EPISODES,
                                                    device=dev)
     launches = read_counts(wrappers)
     torch.cuda.synchronize()
-    moved = {n: launches[n] - before[n] for n in launches if launches[n] != before[n]}
+    moved = {n: c for n, c in launches.items() if c}
     if moved != {"episode_returns_im_fused": 1}:
         raise AssertionError(f"random_episode_returns launched {moved}, not K8 once")
     if ret.shape != (MAIN_LANES * MAIN_EPISODES,):
@@ -732,24 +749,6 @@ def im_main_path(dev, wrappers):
     mean = float(ret.double().mean())
     del ret
     return launches, err, mean, (params, a, d, seed)
-
-
-def seeded_im_actor(dev):
-    """Phase 12's actor: the default 64x64 actor-critic of InvManagement
-    (obs_dim 33, act_dim 3) from its own initialisation, with obs statistics
-    of mean ~50 and std ~20 folded into its first layer."""
-    import torch
-
-    from or_gym_inventory_torch.agents import networks, ppo
-    from or_gym_inventory_torch.ops import episode_kernels as ek
-    g = torch.Generator().manual_seed(SEED)
-    model = networks.MLPActorCritic(33, 3, generator=g)
-    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(33, generator=g),
-                             var=(20.0 + 5.0 * torch.rand(33, generator=g)) ** 2,
-                             count=torch.tensor(1e3))
-    Ws, bs = ek.fold_actor_params(ppo.PPOConfig(), model, rms)
-    actor = (tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs))
-    return actor, model.log_std.detach().to(dev)
 
 
 def im_policy_cross_check(dev, actor, log_std):
@@ -806,54 +805,6 @@ def im_policy_cross_check(dev, actor, log_std):
     return err, plain_ms, lines
 
 
-def im_ppo_main_path(dev, smi, wrappers):
-    """Phase 13, PPO on InvManagement through K10, counting launches from 0:
-    ``train`` at 65,536 envs x 30 periods, 64x64, 4 epochs x 8
-    minibatches, 3 updates, no plain version allowed. Returns (launches,
-    lines, best update ms, trained folded actor and log_std, rates)."""
-    import numpy as np
-    import torch
-
-    from or_gym_inventory_torch.agents import ppo
-    from or_gym_inventory_torch.envs import inv_management as im
-    from or_gym_inventory_torch.ops import episode_kernels as ek
-    params = im.default_params(backlog=True)
-    cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_steps=NUM_STEPS, num_minibatches=8,
-                        update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64),
-                        rollout="kernel")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    stamps = []
-
-    def progress(_m, _s):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    reset_counts(wrappers)
-    stamps.append(time.perf_counter())
-    with no_plain_versions():
-        state, metrics = ppo.train(im.ENV, params, cfg, gen,
-                                   PPO_UPDATES * PPO_ENVS * NUM_STEPS, device=dev,
-                                   progress=progress)
-    launches = read_counts(wrappers)
-    if launches["rollout_traj_im"] != PPO_UPDATES:
-        raise AssertionError(f"rollout_traj_im launched {launches['rollout_traj_im']} "
-                             f"times in {PPO_UPDATES} updates")
-    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
-    if bad or len(metrics["update"]) != PPO_UPDATES:
-        raise AssertionError(f"IM PPO metrics not finite: {bad}; {metrics}")
-    update_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    best = min(update_ms[1:])
-    samples = PPO_ENVS * NUM_STEPS
-    lines = [f"IM PPO {PPO_ENVS} x {NUM_STEPS}, 64x64, 4 epochs x 8 minibatches: update "
-             f"ms {', '.join(f'{t:.3f}' for t in update_ms)}; best {best:.3f} ms = "
-             f"{samples / best * 1e3:.6g} trained-steps/s on {smi}",
-             "IM PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
-                                            for k, v in metrics.items())]
-    actor = ek.fold_actor_params(cfg, state.params, state.rms)
-    rates = {"update_ms": best, "trained_steps_s": samples / best * 1e3}
-    return launches, lines, best, actor, state.params.log_std.detach(), rates
-
-
 def im_reward_check(dev):
     """Phase 15, the IM-backlog protocol of tools/validate_kernel_ppo.py:
     periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M steps
@@ -890,6 +841,9 @@ RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
                   "sample_policy_streams_debug_net")
 PPO_PATH_KERNELS = POLICY_KERNELS[:2]   # K6 is held in phase 7, off the path
+# K7 and K9 are held in phases 10-12, off the paths: random_episode_returns
+# runs K8 alone, as the JAX package's does (fast_episodes.py:80-94)
+IM_PATH_KERNELS = ("episode_returns_im_fused", "rollout_traj_im")
 
 
 def print_kernel(phase, name, kt, work, launches):
@@ -907,6 +861,7 @@ def main() -> int:
               "run needs a CUDA device", file=sys.stderr)
         return 1
 
+    from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.envs import net_inv_management as net
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
@@ -1020,7 +975,7 @@ def main() -> int:
     # 7. the policy kernels against their plain versions, at the main path's
     # shapes, with a seeded actor
     t0 = time.perf_counter()
-    actor, log_std = seeded_actor(params, dev)
+    actor, log_std = seeded_actor(T.obs_dim, T.n_reorder, dev)
     err2, policy_plain_ms, lines = policy_cross_check(params, dev, actor, log_std)
     err.update(err2)
     for line in lines:
@@ -1031,9 +986,13 @@ def main() -> int:
     # 8. the second main path, counting launches: PPO, then the evaluation
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    lines, best_update_ms, actor, log_std, trained, det, det_seed, summary = \
-        ppo_main_path(params, dev, smi)
+    lines, best_update_ms, trained, summary = ppo_main_path(
+        net.ENV, params, dev, smi, "NetInvMgmt", ns.rollout_traj_net)
+    eval_lines, actor, log_std, det, det_seed, eval_rates = evaluate_trained(
+        params, dev, smi, trained)
     launches2 = read_counts(wrappers)
+    lines += eval_lines
+    summary.update(eval_rates)
     missing = [name for name in PPO_PATH_KERNELS if launches2[name] == 0]
     if missing:
         raise AssertionError(f"PPO main path launched no {missing}")
@@ -1108,9 +1067,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches3, k8_err, im_mean, (im_params, im_a, im_d, im_seed) = im_main_path(dev, wrappers)
     err["episode_returns_im_fused"] = max(err["episode_returns_im_fused"], k8_err)
-    print(f"[11 IM main path] K9 -> K7 and K7 _random at {CHECK_LANES} x {NUM_STEPS}, then "
-          f"random_episode_returns {MAIN_LANES} x {MAIN_EPISODES}: K8 launched once, no "
-          f"plain version; episode 0 = K7 on K9's streams, the first {MULTI_LANES} lanes = "
+    print(f"[11 IM main path] K9 -> K7 and K7 _random at {CHECK_LANES} x {NUM_STEPS} "
+          f"before the count, then random_episode_returns {MAIN_LANES} x {MAIN_EPISODES}: "
+          f"K8 launched once, nothing else, no plain version; episode 0 = K7 on K9's streams, the first {MULTI_LANES} lanes = "
           f"plain K8; mean {im_mean:.3f}; launches {launches3}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1122,7 +1081,7 @@ def main() -> int:
 
     # 12. K10 against its plain version and the env chain, a seeded actor
     t0 = time.perf_counter()
-    im_actor, im_log_std = seeded_im_actor(dev)
+    im_actor, im_log_std = seeded_actor(im_params.pipeline_length, im_params.m1, dev)
     err["rollout_traj_im"], k10_plain_ms, lines = im_policy_cross_check(dev, im_actor,
                                                                         im_log_std)
     for line in lines:
@@ -1132,15 +1091,19 @@ def main() -> int:
 
     # 13. the fourth main path, counting launches: PPO on InvManagement
     t0 = time.perf_counter()
-    launches4, lines, im_update_ms, im_actor, im_log_std, im_rates = im_ppo_main_path(
-        dev, smi, wrappers)
+    reset_counts(wrappers)
+    lines, im_update_ms, (im_cfg, im_state, _), im_rates = ppo_main_path(
+        im.ENV, im_params, dev, smi, "InvManagement", ek.rollout_traj_im)
+    launches4 = read_counts(wrappers)
+    im_actor = ek.fold_actor_params(im_cfg, im_state.params, im_state.rms)
+    im_log_std = im_state.params.log_std.detach()
     for line in lines:
         print(f"[13 IM main path] {line}", flush=True)
     print(f"[13 IM main path] launches {launches4}; {time.perf_counter() - t0:.1f} s",
           flush=True)
     launches = {name: launches[name] + launches3[name] + launches4[name]
                 for name in wrappers}
-    missing = [name for name in IM_KERNELS if launches[name] == 0]
+    missing = [name for name in IM_PATH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"the IM main paths launched no {missing}")
 

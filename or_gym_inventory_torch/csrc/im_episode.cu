@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 
 #include "im_step.cuh"
+#include "launch.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -103,10 +104,6 @@ __global__ void k_im_sample_streams(const __grid_constant__ ImParams p,
   }
 }
 
-constexpr int kThreads = 128;
-
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
@@ -137,10 +134,6 @@ int im_sample_streams(const ImParams* p, const float* table, const int* user_d,
   k_im_sample_streams<<<blocks_for(B * E), kThreads, 0, stream>>>(
       *p, table, user_d, acts, dems, seed, B, E, T);
   return (int)cudaGetLastError();
-}
-
-const char* im_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "im_step.cuh"
+#include "launch.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
 
@@ -116,10 +117,6 @@ int im_rollout_traj(const ImParams* p, const Mlp* mlp, const float* params,
                                                     user_d, disc, inv, acts, raw, rew,
                                                     dem, seed, B, T);
   return (int)cudaGetLastError();
-}
-
-const char* im_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

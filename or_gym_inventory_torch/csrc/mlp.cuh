@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 #define MLP_MAX_LAYERS 8
 #define MLP_MAX_ACT 32
 
@@ -32,8 +34,8 @@ struct Mlp {
 
 namespace {
 
-constexpr int kChunk = 16;     // outputs summed at once, in registers
-constexpr int kThreads = 128;  // threads per block = activation columns
+constexpr int kChunk = 16;  // outputs summed at once, in registers
+// launch.cuh's kThreads threads per block: one activation column each
 
 __device__ __forceinline__ int pad16(int n) { return (n + kChunk - 1) & ~(kChunk - 1); }
 
@@ -95,8 +97,6 @@ __device__ __forceinline__ float* load_params(const Mlp& m, const float* params,
   h1 = h0 + m.act_rows * kThreads;
   return sw;
 }
-
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
 template <typename K>

@@ -28,6 +28,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "net_step.cuh"
 #include "philox.cuh"
 
@@ -95,10 +96,6 @@ __global__ void k_sample_streams(const __grid_constant__ NetTopo tp,
   }
 }
 
-constexpr int kThreads = 128;
-
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
@@ -126,10 +123,6 @@ int net_sample_streams(const NetTopo* topo, const float* tables, float* acts,
   k_sample_streams<<<blocks_for(B * (e1 - e0)), kThreads, 0, stream>>>(
       *topo, tables, acts, dems, seed, act_scale, B, T, e0, e1 - e0);
   return (int)cudaGetLastError();
-}
-
-const char* net_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

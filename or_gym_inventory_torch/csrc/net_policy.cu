@@ -39,6 +39,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "mlp.cuh"
 #include "net_step.cuh"
 #include "philox.cuh"
@@ -195,10 +196,6 @@ int net_policy_returns(const NetTopo* topo, const Mlp* mlp,
                                                    disc, out, acts, dems, seed, B, E, T, stream)
               : launch_policy_returns<false, false>(*topo, *mlp, params, n_params, tables,
                                                     disc, out, acts, dems, seed, B, E, T, stream);
-}
-
-const char* net_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32, ctypes.c_float)
-# C entry points of each source: {source stem: {name: (argtypes, restype)}}
+# C entry points of each source: {source stem: {name: (argtypes, restype)}};
+# every source also exports csrc/launch.cuh's cuda_error_message
 SIGNATURES = {
     "net_episode": {
         # topo, acts, dems, disc, out, B, T, stream
@@ -34,7 +35,6 @@ SIGNATURES = {
         "net_episode_returns_fused": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
         # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
         "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
-        "net_error_string": ((_I,), ctypes.c_char_p),
     },
     "net_policy": {
         # topo, mlp, params, n_params, tables, disc, x, u, r, raw, reward,
@@ -45,7 +45,6 @@ SIGNATURES = {
         # E, T, stochastic, stream
         "net_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _U32, _LL,
                                 _I, _I, _I, _P), _I),
-        "net_error_string": ((_I,), ctypes.c_char_p),
     },
     "im_episode": {
         # params, acts, dems, disc, out, seed, random, backlog, B, T, stream
@@ -54,16 +53,15 @@ SIGNATURES = {
         "im_episode_returns_fused": ((_P, _P, _P, _P, _P, _U32, _I, _LL, _I, _I, _P), _I),
         # params, table, user_d, acts, dems, seed, B, E, T, stream
         "im_sample_streams": ((_P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
-        "im_error_string": ((_I,), ctypes.c_char_p),
     },
     "im_policy": {
         # params, mlp, actor, n_actor, table, user_d, disc, inv, acts, raw,
         # reward, demand, seed, backlog, B, T, stream
         "im_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
                              _LL, _I, _P), _I),
-        "im_error_string": ((_I,), ctypes.c_char_p),
     },
 }
+_SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}
 
 
 def _nvcc() -> str:
@@ -115,7 +113,7 @@ def library(name: str = "net_episode") -> ctypes.CDLL:
     every other missing library)."""
     build()
     lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
-    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+    for fn_name, (argtypes, restype) in {**SIGNATURES[name], **_SHARED}.items():
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = list(argtypes), restype
     return lib
@@ -124,5 +122,4 @@ def library(name: str = "net_episode") -> ctypes.CDLL:
 def error_string(name: str, err: int) -> str:
     """CUDA's message for the error code ``err`` that an entry point of
     ``csrc/<name>.cu`` returned."""
-    fn = next(f for f in SIGNATURES[name] if f.endswith("_error_string"))
-    return getattr(library(name), fn)(err).decode()
+    return library(name).cuda_error_message(err).decode()

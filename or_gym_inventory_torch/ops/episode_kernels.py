@@ -188,7 +188,7 @@ class _Mlp(ctypes.Structure):
                 ("act_rows", ctypes.c_int), ("half_hi", ctypes.c_float * MAX_ACT)]
 
 
-_POLICY_THREADS = 128   # kThreads of csrc/mlp.cuh: activation columns
+_POLICY_THREADS = 128   # kThreads of csrc/launch.cuh: activation columns
 
 
 def _pad16(n: int) -> int:
