@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's four main paths, each with every launch
+at once), then drives the port's six main paths, each with every launch
 counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -24,7 +24,16 @@ counter set to 0 just before it and read just after:
   (K9 and K7 are held on the same seed's streams before the count);
 - slice 3, InvManagement PPO (phase 13): ``train`` with ``rollout="kernel"``
   at 65,536 x 30, 64x64 (obs_dim 33, act_dim 3), 4 epochs x 8 minibatches,
-  3 updates: 3 launches of K10 and no plain version.
+  3 updates: 3 launches of K10 and no plain version;
+- slice 4, InvManagement learned-policy evaluation (phase 17):
+  ``policy_episode_returns`` of phase 13's trained actor at 65,536 x 16 x 30,
+  deterministic and stochastic, launches K11 once per call, nothing else and
+  no plain version; the first 1,024 lanes are then held against plain K11;
+- slice 4, Newsvendor random-policy returns (phase 19):
+  ``random_episode_returns`` with benchmarks/benchmark_newsvendor.py's
+  ENV_CONFIG_EVAL (lead_time 5, step_limit 50, mu_max 200) at 4,194,304 x
+  16 x 50 launches K16 once, nothing else and no plain version; its first
+  65,536 x 16 returns are then held against plain K16 on the replayed seed.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -32,21 +41,27 @@ PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
 folded into layer 1), which also holds the NaN propagation of the shared
 step, K7-K9 in phase 10 for all five demand modes in backlog and lost
 sales, and K10 in phase 12 (with the env step chain on its streams and a
-NaN std). Three kernels are on no main path and are launched only to be
-held: K6, K5 with its streams dumped (phase 7), K9 and K7, the streams and
-the stream-in replay of K8's draws (phases 10-12). Then it times the vecenv rollout (phase
-5), each kernel against its plain version (phases 6, 9 and 14), one PPO
+NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
+K12's streams and K10 against the stochastic episode 0), and K13-K17 in
+phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
+0.99, mu_max 200 and 3, with the chain K16 = K14 = K13 _random = K13 on
+K17's streams and a NaN lane). Kernels on no main path are launched only
+to be held: K6, K5 with its streams dumped (phase 7), K9 and K7, the streams and
+the stream-in replay of K8's draws (phases 10-12), K12 (phase 16), K13,
+K14, K15 and K17 (phase 18). Then it times the vecenv rollout (phase
+5), each kernel against its plain version (phases 6, 9, 14 and 20), one PPO
 update with its gradient in 8 chunks per minibatch against 1 (phase 9),
 and trains InvManagement at the protocol of tools/validate_kernel_ppo.py
 for its reward (phase 15). Every phase prints its lines; any failure raises
 and exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
-The last five lines are one JSON object of per-kernel numbers
-(``launches`` is the sum of a kernel's launches in the four main-path runs,
-so 0 for K6, K7 and K9; for K4, K5 and K10, ``max_abs_err`` is over the lanes that
-agree with the plain version), one JSON object of the NetInvMgmt PPO path's
-rates, one of the InvManagement paths' rates and reward, the card's name
-and power limit as nvidia-smi gives them, and
+The last six lines are one JSON object of per-kernel numbers
+(``launches`` is the sum of a kernel's launches in the six main-path runs,
+so 0 for K6, K7, K9, K12-K15 and K17; for K4, K5, K10, K11, K14 and K16,
+``max_abs_err`` is over the lanes that agree with the plain version), one
+JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
+paths' rates and reward, one of the Newsvendor path's, the card's name and
+power limit as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
@@ -62,7 +77,15 @@ in another order, an ulp of logf/cosf); K4-K6 and K10 free-running against
 their plain versions: at least 99% of lanes agree over the whole episode
 within rtol=1e-4 atol=1e-2, since a rounding tie in rint (NetInvMgmt) or a
 truncation boundary (InvManagement) lets a lane take the other integer and
-diverge (the fraction-closeness rule, ROADMAP.md Queue C).
+diverge (the fraction-closeness rule, ROADMAP.md Queue C). K11 and K12 are
+held like K10, and K7 on K12's streams gives K11's returns within rtol=1e-5
+atol=1e-3. Newsvendor (K13-K17): econ and action streams bit for bit; the
+demand equal on at least 99.99% of draws and never more than 1 apart (the
+inversion's logf/expf may differ from torch's by an ulp); returns against
+the plain versions within rtol=1e-5 atol=1e-2 on at least 99% of lanes; the
+chain on K17's streams within rtol=1e-5 atol=1e-3 (the same words and the
+same arithmetic: bit for bit is expected, and the script says whether it
+was).
 """
 
 import json
@@ -109,8 +132,24 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1873"),
     ("rollout_traj_im", "or_gym_inventory_torch/csrc/im_policy.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1683"),
+    ("episode_returns_im_policy", "or_gym_inventory_torch/csrc/im_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1264"),
+    ("sample_policy_streams_debug_im", "or_gym_inventory_torch/csrc/im_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1287"),
+    ("episode_returns_nv", "or_gym_inventory_torch/csrc/nv_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:146"),
+    ("episode_returns_nv_fused", "or_gym_inventory_torch/csrc/nv_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:368"),
+    ("sample_streams_debug_nv", "or_gym_inventory_torch/csrc/nv_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:529"),
+    ("episode_returns_nv_reset_fused", "or_gym_inventory_torch/csrc/nv_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:495"),
+    ("sample_streams_debug_nv_reset", "or_gym_inventory_torch/csrc/nv_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:513"),
 ]
-IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:]]
+IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:10]]
+IM_EVAL_KERNELS = [name for name, _, _ in KERNEL_ROWS[10:12]]
+NV_KERNELS = [name for name, _, _ in KERNEL_ROWS[12:]]
 # the five demand modes of InvManagement (inventory_management.py:169-184)
 IM_DIST_MODES = [
     ("poisson", {}),
@@ -119,6 +158,12 @@ IM_DIST_MODES = [
     ("geometric", {"dist": 4, "dist_param": {"p": 0.05}}),
     ("user", {"dist": 5, "user_D": tuple((7 * t) % 41 for t in range(NUM_STEPS))}),
 ]
+# benchmarks/benchmark_newsvendor.py:35-38 (the reference's evaluation config)
+NV_ENV_CONFIG = {"lead_time": 5, "step_limit": 50, "p_max": 100.0, "h_max": 5.0,
+                 "k_max": 10.0, "mu_max": 200.0}
+NV_CASES = [(L, gamma, mu_max) for L in (5, 0) for gamma in (1.0, 0.99)
+            for mu_max in (200.0, 3.0)]
+DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain version's
 
 
 def close(name, got, want, rtol, atol):
@@ -226,17 +271,45 @@ def im_draw_ops(params, table_len):
     return ops + (4 * math.ceil(math.log2(table_len + 1)) + 2 if table_len else 1)
 
 
-def im_policy_draw_ops(params, table_len):
-    """Operations of one period's draws and head in K10: the Philox blocks of
-    1 + 2 m1 words, the conversions, the demand's binary search, the obs
-    (m1 (lt + 1) casts), and per action the Box-Muller normal (log, sqrt,
-    cos and five arithmetic ops), the sample and the squash (tanh, add,
-    product, cast)."""
+def im_policy_draw_ops(params, table_len, stochastic=True):
+    """Operations of one period's draws and head in K10-K12: the Philox
+    blocks of 1 (+ 2 m1 when stochastic) words, the conversions, the
+    demand's binary search, the obs (m1 (lt + 1) casts), and per action,
+    when stochastic, the Box-Muller normal (log, sqrt, cos and five
+    arithmetic ops) and the sample, then the squash (tanh, add, product,
+    cast)."""
     m1 = params.m1
-    words = 1 + 2 * m1
+    words = 1 + (2 * m1 if stochastic else 0)
     ops = math.ceil(words / 4) * (10 * 8 + 9 * 2) + 3 * words
     ops += 4 * math.ceil(math.log2(table_len + 1)) + 2 if table_len else 1
-    return ops + m1 * (params.lt_max + 1) + m1 * (8 + 2 + 4)
+    return ops + m1 * (params.lt_max + 1) + m1 * ((8 + 2 if stochastic else 0) + 4)
+
+
+def nv_step_ops(params):
+    """Operations of one period of nv_step in csrc/nv_step.cuh: the pipeline
+    sum (L - 1 adds), the cap (sub, min, max), sales, excess and shortage
+    (min, two subs, two max), the reward (four products, three subs), the
+    ring store and head, the discount (product, sum) and the order's clip
+    or product."""
+    return max(params.lead_time - 1, 0) + 3 + 5 + 7 + 2 + 2 + 2
+
+
+def nv_draw_ops(params, econ_drawn):
+    """Operations per env-step of the in-kernel draws of K14-K17, as the
+    kernel runs them: the period's Philox block and two word conversions,
+    the threshold (sub, product); per chunk of 16 periods K recurrence steps
+    of 7 operations (a Kahan sum of four, the quotient, the product, the
+    decrement), per period K compare-and-count pairs; per episode the
+    setup (~30 operations and K recurrence steps) and, when the econ is
+    drawn, the reset's two Philox blocks, five conversions and formulas;
+    spread over the episode's periods."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T = params.step_limit
+    _, K, _ = ek._nv_window(params)
+    per_episode = math.ceil(T / 16) * K * 7 + T * K * 2 + 30 + K * 7
+    if econ_drawn:
+        per_episode += 2 * (10 * 8 + 9 * 2) + 5 * 3 + 7
+    return (10 * 8 + 9 * 2) + 2 * 3 + 2 + per_episode / T
 
 
 def bound(n_bytes, n_ops):
@@ -260,14 +333,15 @@ def read_counts(wrappers):
 
 
 class no_plain_versions:
-    """Within the block, every plain version of K1-K10 raises, so a counted
+    """Within the block, every plain version of K1-K17 raises, so a counted
     main-path run shows that it went through the kernels alone."""
 
     NAMES = {"net_step": ("_episode_returns_plain", "_episode_returns_fully_fused_plain",
                           "_sample_streams_plain", "_rollout_traj_plain",
                           "_policy_returns_plain"),
              "episode_kernels": ("_episode_returns_im_plain", "_im_fused_plain",
-                                 "_rollout_traj_im_plain")}
+                                 "_rollout_traj_im_plain", "_im_policy_plain",
+                                 "_episode_returns_nv_plain", "_nv_fused_plain")}
 
     def __enter__(self):
         import importlib
@@ -836,6 +910,248 @@ def im_reward_check(dev):
             len(metrics["update"]))
 
 
+# ------------------------------------------ InvManagement evaluation (slice 4)
+
+def im_eval_cross_check(dev, params, actor, log_std):
+    """Phase 16: K11 and K12 at 65,536 x 16 x 30 with phase 13's trained
+    actor, deterministic and stochastic, against plain K11/K12 (demand bit
+    for bit; returns and actions by the share of lanes); K7 on K12's streams
+    gives K11's returns; the stochastic K11's episode 0 against K10 on the
+    same seed (actions and returns by the share of lanes). Returns (max
+    |diff| per kernel, plain ms per kernel, lines)."""
+    import functools
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    B, E, T, m1 = PPO_ENVS, EVAL_EPISODES, NUM_STEPS, params.m1
+    err = dict.fromkeys(IM_EVAL_KERNELS, 0.0)
+    plain_ms, lines = {}, []
+    for ls in (None, log_std):
+        kind = "deterministic" if ls is None else "stochastic"
+        k11 = ek.episode_returns_im_policy(params, actor, SEED, B, E, ls, dev)
+        r12, a12, d12 = ek.sample_policy_streams_debug_im(params, actor, SEED, B, E, ls, dev)
+        pstd = None if ls is None else ek.clipped_std(ls)
+        ms11, (want, _, _) = timed_once(ek._im_policy_plain, params, actor, pstd, SEED, B, E,
+                                        dev, False)
+        ms12, (_, want_a, want_d) = timed_once(ek._im_policy_plain, params, actor, pstd, SEED,
+                                               B, E, dev, True)
+        if ls is None:
+            plain_ms["episode_returns_im_policy"] = ms11
+            plain_ms["sample_policy_streams_debug_im"] = ms12
+        exact(f"K12 demand, {kind}", d12, want_d)
+        err["sample_policy_streams_debug_im"] = max(
+            err["sample_policy_streams_debug_im"],
+            close(f"K12 vs K11 returns, {kind}", r12, k11, 1e-5, 1e-3))
+        sh_r, e11 = lane_share(f"K11 vs plain, {kind}", k11, want)
+        sh_a, _ = lane_share(f"K12 actions vs plain, {kind}",
+                             a12.permute(0, 2, 1, 3).reshape(T * m1, E * B),
+                             want_a.permute(0, 2, 1, 3).reshape(T * m1, E * B))
+        err["episode_returns_im_policy"] = max(err["episode_returns_im_policy"], e11)
+        replay = ek.episode_returns_im(
+            params, a12.permute(0, 2, 1, 3).reshape(T, m1, E * B).contiguous(),
+            d12.reshape(T, E * B).contiguous())
+        close(f"K7 on K12's streams vs K11, {kind}", replay.reshape(E, B), k11, 1e-5, 1e-3)
+        lines.append(f"K11/K12 {kind}, {B} x {E} x {T}: K12 demand bit-exact, K7 replays "
+                     f"K12's streams, lanes agreeing with plain K11 {sh_r:.4%} (returns), "
+                     f"{sh_a:.4%} (actions)")
+        if ls is not None:
+            tr = ek.rollout_traj_im(params, actor, ls, SEED, B, device=dev)
+            sh_k, _ = lane_share("stochastic K11 episode 0 actions vs K10",
+                                 a12[:, 0].reshape(T * m1, B), tr["actions"].reshape(T * m1, B))
+            sh_kr, _ = lane_share("stochastic K11 episode 0 vs K10's reward sum", k11[0],
+                                  functools.reduce(torch.add, tr["reward"]), 1e-5, 1e-3)
+            lines.append(f"stochastic K11 episode 0 vs K10 on the same seed: lanes agreeing "
+                         f"{sh_k:.4%} (actions), {sh_kr:.4%} (returns); demand bit-exact "
+                         f"{bool(torch.equal(d12[:, 0], tr['demand']))}")
+            exact("stochastic K11 episode 0 demand vs K10", d12[:, 0], tr["demand"])
+            del tr
+        del k11, r12, a12, d12, want, want_a, want_d, replay
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def im_eval_main_path(dev, wrappers, params, actor, log_std, smi):
+    """Phase 17, the InvManagement learned-policy evaluation of phase 13's
+    trained actor: ``policy_episode_returns`` at 65,536 x 16 x 30,
+    deterministic and stochastic, counting launches from 0 and with every
+    plain version patched to raise: K11 once per call and nothing else.
+    After the counts are read, the deterministic evaluation's first 1,024
+    lanes are held against plain K11 on the replayed seed. Returns
+    (launches, lines, rates)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    E = EVAL_EPISODES
+    env_steps = PPO_ENVS * E * NUM_STEPS
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    replay = torch.Generator(device=dev)
+    replay.set_state(g.get_state())
+    det_seed = fast_episodes.kernel_seed(replay)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        det_ms, det = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
+                                 PPO_ENVS, E, True, None, dev)
+        sto_ms, sto = timed_once(fast_episodes.policy_episode_returns, params, actor, g,
+                                 PPO_ENVS, E, False, log_std, dev)
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"episode_returns_im_policy": 2}:
+        raise AssertionError(f"the IM evaluation launched {moved}, not K11 once per call")
+    for name, ret in (("deterministic", det), ("stochastic", sto)):
+        if ret.shape != (PPO_ENVS * E,) or not torch.isfinite(ret).all():
+            raise AssertionError(f"IM {name} evaluation: shape {tuple(ret.shape)} or "
+                                 "non-finite")
+    plain, _, _ = ek._im_policy_plain(params, actor, None, det_seed, MULTI_LANES, E, dev)
+    share, _ = lane_share("IM evaluation vs plain K11",
+                          det.reshape(E, PPO_ENVS)[:, :MULTI_LANES].contiguous(), plain)
+    lines = [f"policy_episode_returns {PPO_ENVS} x {E} x {NUM_STEPS}: deterministic "
+             f"{det_ms:.3f} ms = {env_steps / det_ms * 1e3:.6g} env-steps/s, mean "
+             f"{float(det.double().mean()):.3f}; stochastic {sto_ms:.3f} ms = "
+             f"{env_steps / sto_ms * 1e3:.6g} env-steps/s, mean "
+             f"{float(sto.double().mean()):.3f}; on {smi}",
+             f"K11 launched once per call, nothing else, no plain version; the "
+             f"deterministic evaluation's first {MULTI_LANES} lanes: {share:.4%} agree with "
+             "plain K11"]
+    rates = {"eval_det_ms": det_ms, "eval_det_steps_s": env_steps / det_ms * 1e3,
+             "eval_sto_ms": sto_ms, "eval_sto_steps_s": env_steps / sto_ms * 1e3}
+    return launches, lines, rates
+
+
+# --------------------------------------------------------- Newsvendor (slice 4)
+
+def nv_params(L=5, gamma=1.0, mu_max=200.0):
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    return nv.default_params(dict(NV_ENV_CONFIG, lead_time=L, gamma=gamma, mu_max=mu_max))
+
+
+def demand_check(name, got, want):
+    """Max |got - want| of two demand streams; raises unless they are equal
+    on at least DEMAND_SHARE of the draws and never more than 1 apart."""
+    diff = (got - want).abs()
+    share = float((diff == 0).double().mean())
+    if share < DEMAND_SHARE or float(diff.max()) > 1:
+        raise AssertionError(f"{name}: {share:.6%} of draws equal, max |diff| "
+                             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def nv_cross_check(dev):
+    """Phase 18: K13-K17 at 65,536 lanes x 50 periods, E 1 and 4, for lead
+    time 5 and 0, gamma 1 and 0.99, mu_max 200 and 3: K17's econ and
+    actions bit for bit against plain K17 and its demand by DEMAND_SHARE;
+    K16 against plain K16 by the share of lanes; K16 at E=1 equal to
+    episode 0 at E=4; on episode 0's streams K15 = K17, and the chain K16 =
+    K14 = K13 _random = K13 (rtol=1e-5 atol=1e-3; whether bit for bit is
+    reported); K13 and K14 against their plain versions; a NaN action
+    through K13 gives NaN in its lane only, as in plain K13. Returns (max
+    |diff| per kernel, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    B, E = CHECK_LANES, 4
+    err = dict.fromkeys(NV_KERNELS, 0.0)
+    lines, bitwise = [], True
+
+    def track(name, value):
+        err[name] = max(err[name], value)
+
+    for L, gamma, mu_max in NV_CASES:
+        params = nv_params(L, gamma, mu_max)
+        case = f"L={L}, gamma={gamma}, mu_max={mu_max}"
+        econ, acts, dems = ek.sample_streams_debug_nv_reset(params, SEED, B, E, dev)
+        pe, pa, pd = ek._nv_fused_plain(params, SEED, B, E, dev, dump=True)
+        exact(f"K17 econ, {case}", econ, pe)
+        exact(f"K17 actions, {case}", acts, pa)
+        track("sample_streams_debug_nv_reset", demand_check(f"K17 demand, {case}", dems, pd))
+        del pe, pa, pd
+        k16 = ek.episode_returns_nv_reset_fused(params, SEED, B, E, dev)
+        _, e16 = lane_share(f"K16 vs plain, {case}", k16,
+                            ek._nv_fused_plain(params, SEED, B, E, dev), 1e-5, 1e-2)
+        track("episode_returns_nv_reset_fused", e16)
+        exact(f"K16 E=1 vs episode 0 at E=4, {case}",
+              ek.episode_returns_nv_reset_fused(params, SEED, B, 1, dev), k16[0])
+        e0, a0, d0 = econ[0].contiguous(), acts[:, 0].contiguous(), dems[:, 0].contiguous()
+        a15, d15 = ek.sample_streams_debug_nv(params, e0, SEED)
+        exact(f"K15 actions vs K17 episode 0, {case}", a15, a0)
+        exact(f"K15 demand vs K17 episode 0, {case}", d15, d0)
+        pa15, pd15 = (x[:, 0] for x in ek._nv_fused_plain(params, SEED, B, 1, dev, e0,
+                                                           True)[1:])
+        exact(f"K15 actions vs plain, {case}", a15, pa15)
+        track("sample_streams_debug_nv", demand_check(f"K15 demand vs plain, {case}", d15,
+                                                      pd15))
+        k14 = ek.episode_returns_nv_fused(params, e0, SEED)
+        k13r = ek.episode_returns_nv_random(params, e0, d0, SEED)
+        k13 = ek.episode_returns_nv(params, e0, a0, d0)
+        for name, got in (("K14", k14), ("K13 _random", k13r), ("K13", k13)):
+            close(f"{name} on K17's streams vs K16, {case}", got, k16[0], 1e-5, 1e-3)
+            bitwise = bitwise and bool(torch.equal(got, k16[0]))
+        _, e14 = lane_share(f"K14 vs plain, {case}", k14,
+                            ek._nv_fused_plain(params, SEED, B, 1, dev, e0)[0], 1e-5, 1e-2)
+        track("episode_returns_nv_fused", e14)
+        track("episode_returns_nv", close(f"K13 vs plain, {case}", k13,
+                                          ek._episode_returns_nv_plain(params, e0, a0, d0),
+                                          1e-5, 1e-2))
+        nan_acts = a0.clone()
+        nan_lane = B // 3
+        nan_acts[7, nan_lane] = float("nan")
+        got = ek.episode_returns_nv(params, e0, nan_acts, d0)
+        want = ek._episode_returns_nv_plain(params, e0, nan_acts, d0)
+        if (torch.isnan(got).nonzero().flatten().tolist() != [nan_lane]
+                or not torch.equal(torch.isnan(got), torch.isnan(want))):
+            raise AssertionError(f"NaN lane, {case}: K13 NaN at "
+                                 f"{torch.isnan(got).nonzero().flatten()[:5].tolist()}")
+        lines.append(f"{case}: K17 econ and actions bit-exact, demand max |diff| "
+                     f"{err['sample_streams_debug_nv_reset']}; K16 = plain K16 and K16 E=1 = "
+                     "episode 0; K15 = K17's episode 0; K14, K13 _random, K13 on K17's "
+                     "streams = K16; a NaN action gives NaN in its lane only")
+        del econ, acts, dems, k16
+    lines.append(f"the chain K16 = K14 = K13 _random = K13 held bit for bit: {bitwise}")
+    torch.cuda.synchronize()
+    return err, lines
+
+
+def nv_main_path(dev, wrappers):
+    """Phase 19, the Newsvendor random-policy path: ``random_episode_returns``
+    with NV_ENV_CONFIG at 4,194,304 x 16 x 50, counting launches from 0 and
+    with every plain version patched to raise: K16 once and nothing else.
+    After the counts are read, the first 65,536 lanes of every episode are
+    held against plain K16 on the replayed seed (lanes keep their counters,
+    so a slice of lanes replays alone). Returns (launches, max |diff| over
+    agreeing lanes, share, mean, plain ms, params)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    params = nv_params()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen.get_state())
+    seed = fast_episodes.kernel_seed(replay)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        ret = fast_episodes.random_episode_returns(params, gen, MAIN_LANES,
+                                                   episodes_per_lane=MAIN_EPISODES,
+                                                   device=dev)
+    launches = read_counts(wrappers)
+    torch.cuda.synchronize()
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"episode_returns_nv_reset_fused": 1}:
+        raise AssertionError(f"random_episode_returns launched {moved}, not K16 once")
+    if ret.shape != (MAIN_LANES * MAIN_EPISODES,) or not torch.isfinite(ret).all():
+        raise AssertionError(f"NV main path: returns of shape {tuple(ret.shape)} or "
+                             "non-finite")
+    ret = ret.reshape(MAIN_EPISODES, MAIN_LANES)
+    plain_ms, plain = timed_once(ek._nv_fused_plain, params, seed, CHECK_LANES,
+                                 MAIN_EPISODES, dev)
+    share, err = lane_share("NV main path: first lanes vs plain K16",
+                            ret[:, :CHECK_LANES].contiguous(), plain, 1e-5, 1e-2)
+    mean = float(ret.double().mean())
+    del ret, plain
+    return launches, err, share, mean, plain_ms, params
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -873,8 +1189,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {name: [getattr(ns, name)] for name, _, _ in KERNEL_ROWS[:6]}
-    wrappers.update({name: [getattr(ek, name)] for name in IM_KERNELS})
+    wrappers.update({name: [getattr(ek, name)] for name, _, _ in KERNEL_ROWS[6:]})
     wrappers["episode_returns_im"].append(ek.episode_returns_im_random)
+    wrappers["episode_returns_nv"].append(ek.episode_returns_nv_random)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1161,6 +1478,127 @@ def main() -> int:
                       k10_share_of_update=k10_t["best_ms"] / im_update_ms,
                       validate_avg_reward=avg, validate_eval_se=se)
 
+    # 16. K11/K12 against their plain versions, with phase 13's trained actor
+    t0 = time.perf_counter()
+    err2, eval_plain_ms, lines = im_eval_cross_check(dev, im_params, im_actor, im_log_std)
+    err.update(err2)
+    for line in lines:
+        print(f"[16 IM policy kernels] {line}", flush=True)
+    print(f"[16 IM policy kernels] max |diff| {err2}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 17. the fifth main path, counting launches: IM learned-policy evaluation
+    t0 = time.perf_counter()
+    launches5, lines, eval_rates = im_eval_main_path(dev, wrappers, im_params, im_actor,
+                                                     im_log_std, smi)
+    im_summary.update(eval_rates)
+    for line in lines:
+        print(f"[17 IM eval main path] {line}", flush=True)
+    print(f"[17 IM eval main path] launches {launches5}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 18. the Newsvendor kernels against their plain versions and each other
+    t0 = time.perf_counter()
+    err2, lines = nv_cross_check(dev)
+    err.update(err2)
+    for line in lines:
+        print(f"[18 NV cross-check] {line}", flush=True)
+    print(f"[18 NV cross-check] {len(NV_CASES)} cases at {CHECK_LANES} x 50, E 1 and 4; max "
+          f"|diff| {err2}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 19. the sixth main path, counting launches: Newsvendor random-policy returns
+    t0 = time.perf_counter()
+    launches6, k16_err, nv_share, nv_mean, k16_plain_ms, nv_p = nv_main_path(dev, wrappers)
+    err["episode_returns_nv_reset_fused"] = max(err["episode_returns_nv_reset_fused"], k16_err)
+    nv_T = nv_p.step_limit
+    nv_steps = MAIN_LANES * MAIN_EPISODES * nv_T
+    print(f"[19 NV main path] random_episode_returns {MAIN_LANES} x {MAIN_EPISODES} x {nv_T} "
+          f"(benchmark_newsvendor.py ENV_CONFIG_EVAL): K16 launched once, nothing else, no "
+          f"plain version; the first {CHECK_LANES} lanes of every episode: {nv_share:.4%} "
+          f"agree with plain K16; mean {nv_mean:.3f}; launches {launches6}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nv_t = cuda_time(fast_episodes.random_episode_returns, nv_p, gen, MAIN_LANES,
+                     MAIN_EPISODES, dev, warmup=1, iters=5)
+    print(f"[19 NV main path] random_episode_returns {MAIN_LANES} x {MAIN_EPISODES} x {nv_T}: "
+          f"best {nv_t['best_ms']:.3f} ms, mean {nv_t['mean_ms']:.3f} ms, "
+          f"{nv_steps / nv_t['best_ms'] * 1e3:.6g} env-steps/s on {smi}", flush=True)
+    launches = {name: launches[name] + launches5[name] + launches6[name] for name in wrappers}
+    missing = [name for name in ("episode_returns_im_policy", "episode_returns_nv_reset_fused")
+               if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the slice-4 main paths launched no {missing}")
+
+    # 20. per-kernel times of K11-K17 at the main paths' shapes
+    E = EVAL_EPISODES
+    k11_t = cuda_time(ek.episode_returns_im_policy, im_params, im_actor, SEED, PPO_ENVS, E,
+                      None, dev, warmup=1, iters=3)
+    k11s_t = cuda_time(ek.episode_returns_im_policy, im_params, im_actor, SEED, PPO_ENVS, E,
+                       im_log_std, dev, warmup=1, iters=3)
+    k12_t = cuda_time(ek.sample_policy_streams_debug_im, im_params, im_actor, SEED, PPO_ENVS,
+                      E, None, dev, warmup=1, iters=3)
+    econ, acts, dems = ek.sample_streams_debug_nv_reset(nv_p, SEED, CHECK_LANES, 1, dev)
+    econ, acts, dems = econ[0].contiguous(), acts[:, 0].contiguous(), dems[:, 0].contiguous()
+    k13_t = cuda_time(ek.episode_returns_nv, nv_p, econ, acts, dems, warmup=2, iters=20)
+    k13_p = cuda_time(ek._episode_returns_nv_plain, nv_p, econ, acts, dems, warmup=1, iters=3)
+    k14_t = cuda_time(ek.episode_returns_nv_fused, nv_p, econ, SEED, warmup=2, iters=20)
+    k14_p = cuda_time(ek._nv_fused_plain, nv_p, SEED, CHECK_LANES, 1, dev, econ,
+                      warmup=1, iters=3)
+    k15_t = cuda_time(ek.sample_streams_debug_nv, nv_p, econ, SEED, warmup=2, iters=20)
+    k15_p = cuda_time(ek._nv_fused_plain, nv_p, SEED, CHECK_LANES, 1, dev, econ, True,
+                      warmup=1, iters=3)
+    k16_t = cuda_time(ek.episode_returns_nv_reset_fused, nv_p, SEED, MAIN_LANES,
+                      MAIN_EPISODES, dev, warmup=1, iters=5)
+    k17_t = cuda_time(ek.sample_streams_debug_nv_reset, nv_p, SEED, CHECK_LANES, 1, dev,
+                      warmup=2, iters=20)
+    k17_p = cuda_time(ek._nv_fused_plain, nv_p, SEED, CHECK_LANES, 1, dev, None, True,
+                      warmup=1, iters=3)
+    del econ, acts, dems
+    n_eval = PPO_ENVS * E * NUM_STEPS
+    k11_ops = (mlp_ops(im_dims) + im_step_ops(im_params)
+               + im_policy_draw_ops(im_params, table_len, stochastic=False))
+    nv_envs = MAIN_LANES * MAIN_EPISODES
+    nv_step, nv_draw = nv_step_ops(nv_p), nv_draw_ops(nv_p, False)
+    nv_draw_reset = nv_draw_ops(nv_p, True)
+    work.update({
+        "episode_returns_im_policy": bound(PPO_ENVS * E * 4, n_eval * k11_ops),
+        "sample_policy_streams_debug_im": bound(
+            PPO_ENVS * E * (1 + T * (m1 + 1)) * 4, n_eval * k11_ops),
+        "episode_returns_nv": bound(CHECK_LANES * (5 + 2 * nv_T + 1) * 4,
+                                    CHECK_LANES * nv_T * nv_step),
+        "episode_returns_nv_fused": bound(CHECK_LANES * (5 + 1) * 4,
+                                          CHECK_LANES * nv_T * (nv_step + nv_draw)),
+        "sample_streams_debug_nv": bound(CHECK_LANES * (5 + 2 * nv_T) * 4,
+                                         CHECK_LANES * nv_T * nv_draw),
+        "episode_returns_nv_reset_fused": bound(nv_envs * 4,
+                                                nv_envs * nv_T * (nv_step + nv_draw_reset)),
+        "sample_streams_debug_nv_reset": bound(CHECK_LANES * (5 + 2 * nv_T) * 4,
+                                               CHECK_LANES * nv_T * nv_draw_reset),
+    })
+    times.update({
+        "episode_returns_im_policy": (k11_t, {"best_ms": eval_plain_ms[
+            "episode_returns_im_policy"]}),
+        "sample_policy_streams_debug_im": (k12_t, {"best_ms": eval_plain_ms[
+            "sample_policy_streams_debug_im"]}),
+        "episode_returns_nv": (k13_t, k13_p), "episode_returns_nv_fused": (k14_t, k14_p),
+        "sample_streams_debug_nv": (k15_t, k15_p),
+        "episode_returns_nv_reset_fused": (k16_t, {"best_ms": k16_plain_ms}),
+        "sample_streams_debug_nv_reset": (k17_t, k17_p)})
+    print(f"[20 work] K11 per env-step: MLP {mlp_ops(im_dims)} + step {im_step_ops(im_params)} "
+          f"+ draws {im_policy_draw_ops(im_params, table_len, stochastic=False)} ops "
+          f"(deterministic); NV per env-step: step {nv_step} ops, draws {nv_draw:.1f} "
+          f"(econ in) / {nv_draw_reset:.1f} (econ drawn) ops; K13-K15 and K17 and plain "
+          f"K14-K17 at {CHECK_LANES} x {nv_T}, E=1, plain K16 at {CHECK_LANES} x "
+          f"{MAIN_EPISODES}", flush=True)
+    for name in IM_EVAL_KERNELS + NV_KERNELS:
+        print_kernel(20, name, times[name], work[name], launches[name])
+    print(f"[20 kernel] episode_returns_im_policy, stochastic: {k11s_t['best_ms']:.4f} ms "
+          f"(mean {k11s_t['mean_ms']:.4f})", flush=True)
+    nv_summary = {"random_ms": nv_t["best_ms"],
+                  "random_env_steps_s": nv_steps / nv_t["best_ms"] * 1e3,
+                  "k16_ms": k16_t["best_ms"], "mean_return": nv_mean,
+                  "plain_share": nv_share}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -1175,6 +1613,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ppo_main_path": summary}))
     print(json.dumps({"im_main_path": im_summary}))
+    print(json.dumps({"nv_main_path": nv_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -398,7 +398,7 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
     if family not in ("net_inv_management", "inv_management"):
         raise NotImplementedError(
             "rollout='kernel' runs the NetInvMgmt and InvManagement families "
-            f"in the port; got {family!r} (ROADMAP.md A7b)")
+            f"in the port; got {family!r} (Newsvendor: ROADMAP.md A7b, kernel B14)")
     horizon = env.horizon(env_params)
     if cfg.rollout_steps != horizon:
         raise ValueError(

@@ -19,9 +19,8 @@
 //   (t + j) % L_i for j = 0 .. L_i-1 (order_window below). Indexed at run
 //   time, the ring lives in local memory (cached in L1, spilling to L2), as
 //   do the per-node arrays indexed by supplier and purchaser.
-// - NaN: jnp.maximum/minimum propagate a NaN operand, fmaxf/fminf drop it.
-//   max_nan/min_nan keep the JAX semantics, so a policy whose weights
-//   diverged gives NaN returns here as it does in the JAX package.
+// - NaN: jnp.maximum/minimum propagate a NaN operand, fmaxf/fminf drop it;
+//   the step uses nanmath.cuh's max_nan/min_nan.
 // - FMA contraction is left on, so the profit may differ from the plain
 //   version in the last bits; the state (integer-valued floats) is exact.
 //
@@ -37,16 +36,9 @@
 // word, so the layout does not depend on the demand specs.
 #pragma once
 
+#include "nanmath.cuh"
 #include "net_topo.cuh"
 #include "philox.cuh"
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return a != a ? a : b != b ? b : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return a != a ? a : b != b ? b : fminf(a, b);
-}
 
 struct Episode {
   float X[NET_MAX_MAIN];

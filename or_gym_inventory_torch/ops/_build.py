@@ -59,6 +59,17 @@ SIGNATURES = {
         # reward, demand, seed, backlog, B, T, stream
         "im_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
                              _LL, _I, _P), _I),
+        # params, mlp, actor, n_actor, table, user_d, disc, out, acts, dems,
+        # seed, stochastic, backlog, B, E, T, stream
+        "im_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
+                               _LL, _I, _I, _P), _I),
+    },
+    "nv_episode": {
+        # params, econ, acts, dems, disc, out, seed, random, B, T, stream
+        "nv_episode_returns": ((_P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _P), _I),
+        # params, lgamma, econ_in, disc, out, econ_out, acts, dems, seed, B, E,
+        # T, stream
+        "nv_episodes": ((_P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
     },
 }
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}

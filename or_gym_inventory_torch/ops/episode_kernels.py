@@ -1,34 +1,51 @@
-"""InvManagement whole-episode kernels, the folded actor of the policy
-kernels, and the plain versions of the in-kernel helpers.
+"""InvManagement and Newsvendor whole-episode kernels, the folded actor of
+the policy kernels, and the plain versions of the in-kernel helpers.
 
 Port of ``or_gym_inventory_tpu/ops/pallas_episode_kernels.py``: the
-InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``) with
-their plain PyTorch versions, and what every policy kernel shares:
+InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``) and
+the Newsvendor kernels (``csrc/nv_episode.cu``) with their plain PyTorch
+versions, and what every policy kernel shares:
 
 - ``clipped_std``, ``fold_actor_params`` (the obs RunningMeanStd folded into
   layer 1), ``folded_actor_mean`` and ``apply_folded_actor``, on host;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by the NetInvMgmt policy kernels (``ops/net_step.py``) and K10;
+  shared by the NetInvMgmt policy kernels (``ops/net_step.py``), K10 and
+  K11;
 - the plain versions of the in-kernel helpers ``mlp_forward``,
-  ``traj_policy`` (mode ``"ppo"``), ``_im_step_math`` and ``_im_obs_rows``.
-  Those of ``_uniform01`` and ``_normal01`` are ``ops.rng.uniform01`` and
-  ``normal01``, which turn Philox words into the kernels' draws where the
-  TPU drew from its own generator.
+  ``traj_policy`` (mode ``"ppo"``), ``_im_step_math``, ``_im_obs_rows``,
+  ``_nv_step_math``, ``_nv_poisson_setup``, ``_nv_poisson_invert`` and
+  ``_nv_econ_from_uniforms``. Those of ``_uniform01`` and ``_normal01`` are
+  ``ops.rng.uniform01`` and ``normal01``, which turn Philox words into the
+  kernels' draws where the TPU drew from its own generator.
 
-| wrapper                      | replaces (pallas_episode_kernels.py)   |
-| ``episode_returns_im``       | ``episode_returns_im`` :802 (K7)       |
-| ``episode_returns_im_random`` | ``episode_returns_im_random`` :815 (K7) |
-| ``episode_returns_im_fused`` | ``episode_returns_im_fused`` :919 (K8) |
-| ``sample_streams_debug_im``  | ``sample_streams_debug_im`` :1873 (K9) |
-| ``rollout_traj_im``          | ``rollout_traj_im`` :1683 (K10)        |
+| wrapper                           | replaces (pallas_episode_kernels.py)         |
+| ``episode_returns_im``            | ``episode_returns_im`` :802 (K7)             |
+| ``episode_returns_im_random``     | ``episode_returns_im_random`` :815 (K7)      |
+| ``episode_returns_im_fused``      | ``episode_returns_im_fused`` :919 (K8)       |
+| ``sample_streams_debug_im``       | ``sample_streams_debug_im`` :1873 (K9)       |
+| ``rollout_traj_im``               | ``rollout_traj_im`` :1683 (K10)              |
+| ``episode_returns_im_policy``     | ``episode_returns_im_policy`` :1264 (K11)    |
+| ``sample_policy_streams_debug_im`` | ``sample_policy_streams_debug_im`` :1287 (K12) |
+| ``episode_returns_nv``            | ``episode_returns_nv`` :146 (K13)            |
+| ``episode_returns_nv_random``     | ``episode_returns_nv_random`` :157 (K13)     |
+| ``episode_returns_nv_fused``      | ``episode_returns_nv_fused`` :368 (K14)      |
+| ``sample_streams_debug_nv``       | ``sample_streams_debug_nv`` :529 (K15)       |
+| ``episode_returns_nv_reset_fused`` | ``episode_returns_nv_reset_fused`` :495 (K16) |
+| ``sample_streams_debug_nv_reset`` | ``sample_streams_debug_nv_reset`` :513 (K17) |
 
 Each wrapper runs the plain version for CPU tensors; on CUDA it launches its
 kernel and raises if the launch fails; nothing falls back. It counts its
 launches in ``<wrapper>.launches``. Layout follows the JAX package, the
-batch last; InvManagement streams are int32. The random streams are
-Philox4x32-10 words (``ops/rng.py``): the random policy's under key
-(seed, 0), m1 action words then one demand word per period; K10's under
-(seed, 1), one demand word, then m1 u1 and m1 u2 words.
+batch last; InvManagement streams are int32, Newsvendor streams float32.
+The wrappers drop the JAX entry points' ``block``, ``interpret`` and
+``precision`` (and the Newsvendor ones ``demand_chunk``): they set the TPU's
+tiling, the order in which it consumed its random numbers and its register
+pressure. The random streams are Philox4x32-10 words (``ops/rng.py``): the
+InvManagement random policy's under key (seed, 0), m1 action words then one
+demand word per period; the InvManagement policy kernels' (K10-K12) under
+(seed, 1), one demand word, then, when stochastic, m1 u1 and m1 u2 words;
+the Newsvendor kernels' under (seed, 0), the reset's 5 words at period
+``NV_ECON_PERIOD``, then per period one action word and one demand word.
 
 An actor is ``(Ws, bs)``: Ws[l] (in, out), bs[l] (out,), float32, as the JAX
 package has it. The plain versions compute with the layers as (out, in), as
@@ -40,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -47,6 +65,7 @@ import torch
 from or_gym_inventory_torch.agents import networks
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management as im
+from or_gym_inventory_torch.envs import newsvendor as nv
 from or_gym_inventory_torch.ops import distributions as dist
 from or_gym_inventory_torch.ops import rng
 
@@ -457,6 +476,30 @@ def _half_c(params: im.InvManagementParams):
     return [float(np.float32(0.5 * float(c))) for c in params.c]
 
 
+def _im_policy_period_plain(params, plan, layers, std, seed, lanes, episodes, t,
+                            inv, AH):
+    """Demand, raw samples and int actions of period ``t`` of the policy
+    kernels (csrc/im_policy.cu ``policy_period``) for every (lane, episode):
+    one demand word under key (seed, 1), then, with ``std``, the m1 u1 and
+    the m1 u2 words of the normals; the actor on ``_im_obs_rows``; the action
+    (int)((tanh(raw) + 1) * f32(0.5 c_i)) (pallas_episode_kernels.py
+    :1149-1167). Returns (demand, raw (m1, N), [m1 int32 action rows])."""
+    m1 = params.m1
+    words = rng.period_words(seed, lanes, episodes, t, 1 if std is None else 1 + 2 * m1,
+                             key1=rng.POLICY_KEY)
+    d = _im_demand_plain(plan, words[0], t)
+    obs = _im_obs_rows(params, t, inv, AH)
+    if std is None:
+        raw = mlp_forward(layers, "tanh", obs)
+        a_norm = torch.tanh(raw)
+    else:
+        z = rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]))
+        raw, a_norm = traj_policy("ppo", "tanh", m1, layers, std, obs, z)
+    S = a_norm + 1.0
+    half_c = _half_c(params)
+    return d, raw, [im.trunc_i32(S[i] * half_c[i]) for i in range(m1)]
+
+
 def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
     """Plain version of K10: the streams of one stochastic-policy episode
     per lane, as ``rollout_traj_im`` returns them."""
@@ -464,7 +507,6 @@ def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
     plan = _im_plan(params, str(device))
     layers = kernel_layers(actor, device)
     std = std.to(device)
-    half_c = _half_c(params)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -476,14 +518,9 @@ def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
     inv, bkl, RH = _im_reset_rows(params, batch, device)
     AH = list(RH)
     for t in range(T):
-        words = rng.period_words(seed, lanes, 0, t, 1 + 2 * m1, key1=rng.POLICY_KEY)
-        d = _im_demand_plain(plan, words[0], t)
         out["inv"][t] = torch.stack(inv)
-        z = rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]))
-        raw, a_norm = traj_policy("ppo", "tanh", m1, layers, std,
-                                  _im_obs_rows(params, t, inv, AH), z)
-        S = a_norm + 1.0
-        acts = [im.trunc_i32(S[i] * half_c[i]) for i in range(m1)]
+        d, raw, acts = _im_policy_period_plain(params, plan, layers, std, seed, lanes, 0,
+                                               t, inv, AH)
         out["raw"][t], out["actions"][t] = raw, torch.stack(acts)
         inv, bkl, RH, r_req, profit = _im_step_math(params, t, inv, bkl, RH, acts, d)
         if lt:
@@ -492,6 +529,36 @@ def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
         out["demand"][t] = d
     out["inv"][T] = torch.stack(inv)
     return out
+
+
+def _im_policy_plain(params, actor, std, seed, batch, E, device, dump=False):
+    """Plain version of K11 (and, with ``dump``, K12): returns (E, B), and
+    the int32 actions (T, E, m1, B) and demand (T, E, B) they came from
+    (None without ``dump``). ``std`` None is the deterministic policy. All
+    E * B episodes run at once, episode-major, each with its own counter."""
+    m1, lt, T = params.m1, params.lt_max, params.periods
+    plan = _im_plan(params, str(device))
+    layers = kernel_layers(actor, device)
+    std = None if std is None else std.to(device)
+    idx = torch.arange(E * batch, dtype=torch.int64, device=device)
+    episodes, lanes = idx // batch, idx % batch
+    i32 = dict(dtype=torch.int32, device=device)
+    acts = torch.empty((T, E, m1, batch), **i32) if dump else None
+    dems = torch.empty((T, E, batch), **i32) if dump else None
+    inv, bkl, RH = _im_reset_rows(params, E * batch, device)
+    AH = list(RH)
+    total = torch.zeros(E * batch, dtype=torch.float32, device=device)
+    for t, disc in enumerate(plan["discs"]):
+        d, _raw, act = _im_policy_period_plain(params, plan, layers, std, seed, lanes,
+                                               episodes, t, inv, AH)
+        if dump:
+            acts[t] = torch.stack(act).reshape(m1, E, batch).transpose(0, 1)
+            dems[t] = d.reshape(E, batch)
+        inv, bkl, RH, r_req, profit = _im_step_math(params, t, inv, bkl, RH, act, d)
+        if lt:
+            AH = r_req + AH[: (lt - 1) * m1]
+        total = total + disc * profit
+    return total.reshape(E, batch), acts, dems
 
 
 # ------------------------------------------------------------------ wrappers
@@ -662,3 +729,436 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
 
 
 rollout_traj_im.launches = 0
+
+
+def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
+                    dump, device):
+    """K11 (``dump`` False) or K12 for ``wrapper``: (returns (E, B), actions,
+    demands), the streams None without ``dump``."""
+    dev = resolve_device(device)
+    E = int(episodes_per_lane)
+    if E < 1 or batch < 1:
+        raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
+    m1, T = params.m1, params.periods
+    seed = int(seed) & rng.MASK32
+    std = None if log_std is None else clipped_std(torch.as_tensor(log_std).detach())
+    obs_dim = im.observation_space(params).shape[0]
+    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
+    if dev.type == "cpu":
+        return _im_policy_plain(params, actor, std, seed, batch, E, dev, dump)
+    plan = _im_plan(params, _plan_key(dev))
+    out = torch.empty((E, batch), dtype=torch.float32, device=dev)
+    acts = dems = None
+    if dump:
+        acts = torch.empty((T, E, m1, batch), dtype=torch.int32, device=dev)
+        dems = torch.empty((T, E, batch), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("im_policy", "im_policy_returns", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(),
+                plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
+                out.data_ptr(), acts.data_ptr() if dump else None,
+                dems.data_ptr() if dump else None, seed, int(std is not None),
+                int(params.backlog), batch, E, T, _stream(dev))
+    wrapper.launches += 1
+    return out, acts, dems
+
+
+def episode_returns_im_policy(params: im.InvManagementParams, actor, seed, batch: int,
+                              episodes_per_lane: int = 1, log_std=None, device=None):
+    """Learned-policy episode returns, the policy run inside the kernel on
+    the live state. ``actor`` is ``(Ws, bs)`` from ``fold_actor_params``.
+    Demand is drawn by inverting the demand law's CDF table (USER mode reads
+    ``user_D[t]``; a law beyond the table cap raises NotImplementedError).
+    Deterministic by default; with the trained ``log_std`` ((m1,)) the
+    actions come from tanh-squashed Gaussian samples around the mean. K11:
+    one thread per (episode, lane) (csrc/im_policy.cu
+    ``k_im_policy_returns``); on the CPU the plain version runs. Returns
+    (batch,) for episodes_per_lane=1, else (episodes_per_lane, batch)."""
+    out, _, _ = _im_policy_call(episode_returns_im_policy, params, actor, seed, batch,
+                                episodes_per_lane, log_std, False, device)
+    return out.reshape(batch) if episodes_per_lane == 1 else out
+
+
+episode_returns_im_policy.launches = 0
+
+
+def sample_policy_streams_debug_im(params: im.InvManagementParams, actor, seed,
+                                   batch: int, episodes_per_lane: int = 1, log_std=None,
+                                   device=None):
+    """(returns, actions (T, E, m1, batch) int32, demands (T, E, batch)
+    int32): ``episode_returns_im_policy`` with the int actions and the
+    demand it used written out. K12: the same kernel with its dump switched
+    on, so the streams are exactly the ones K11 consumes for the same seed.
+    Returns are (batch,) for episodes_per_lane=1, else (E, batch)."""
+    out, acts, dems = _im_policy_call(sample_policy_streams_debug_im, params, actor, seed,
+                                      batch, episodes_per_lane, log_std, True, device)
+    return (out.reshape(batch) if episodes_per_lane == 1 else out), acts, dems
+
+
+sample_policy_streams_debug_im.launches = 0
+
+
+# =============================================== Newsvendor kernels K13-K17
+
+NV_MAX_L = 32                # the pipeline ring's depth (csrc/nv_step.cuh)
+NV_ECON_PERIOD = 0xFFFFFFFF  # the period index of the reset's five words
+_NV_TAIL_Z = 5.75            # one-sided normal tail ~4.5e-9 at Z=5.75
+_NV_TAIL_PAD = 6             # absolute slack on top of Z*sqrt(mu) (small-mu skew)
+
+
+def _nv_step_math(params: nv.NewsvendorParams, P, price, cost, h, k, order_raw, d):
+    """One Newsvendor period over (N,) f32 tensors
+    (pallas_episode_kernels._nv_step_math), event order per
+    newsvendor.py:125-204. ``P`` is the pipeline as a list of L tensors,
+    oldest first. Returns (P', reward, capped order)."""
+    L = params.lead_time
+    zero = torch.zeros_like(order_raw)
+    if L == 0:
+        pipeline_sum = zero
+        inv_on_hand = order_raw  # reference quirk: pre-cap order on hand
+    else:
+        pipeline_sum = sum(P[1:], P[0])
+        inv_on_hand = P[0]
+    order_qty = torch.maximum(zero, torch.minimum(
+        order_raw, nv.as_f32(params.max_inventory) - pipeline_sum))
+    sales = torch.minimum(inv_on_hand, d)
+    excess = torch.maximum(zero, inv_on_hand - d)
+    short = torch.maximum(zero, d - inv_on_hand)
+    reward = sales * price - order_qty * cost - excess * h - short * k
+    if L > 0:
+        P = P[1:] + [order_qty]
+    return P, reward, order_qty
+
+
+def _nv_window(params: nv.NewsvendorParams):
+    """(Wb, K, lgamma_consts): worst-case half-width, the recurrence's steps
+    and float64 lgamma(k+1) for every reachable cutoff kc
+    (pallas_episode_kernels._nv_window)."""
+    mu_max = max(float(params.mu_max), 1.0)
+    Wb = int(math.ceil(_NV_TAIL_Z * math.sqrt(mu_max))) + _NV_TAIL_PAD
+    kc_max = int(math.floor(mu_max)) + Wb
+    return Wb, 2 * Wb + 1, tuple(float(math.lgamma(k + 1)) for k in range(kc_max + 1))
+
+
+@functools.lru_cache(maxsize=32)
+def _nv_lgamma_pairs(params: nv.NewsvendorParams) -> np.ndarray:
+    """(kc_max + 1, 2) f32: lgamma(k+1) split into hi = f32(x) and
+    lo = f32(x - hi) from float64, as JAX splits its constants (:237-242);
+    rows 0 and 1 are 0, since lgamma(1) = lgamma(2) = 0."""
+    _, _, lgam = _nv_window(params)
+    out = np.zeros((len(lgam), 2), np.float32)
+    for kk in range(2, len(lgam)):
+        hi = np.float32(lgam[kk])
+        out[kk] = hi, np.float32(lgam[kk] - float(hi))
+    return out
+
+
+def _nv_recur(T, comp, p, kf, mu_safe):
+    """One step of the descending recurrence: T += p (Kahan-compensated),
+    pmf(k-1) = pmf(k) * (k / mu), an exact division."""
+    y = p - comp
+    t_new = T + y
+    comp = (t_new - T) - y
+    return t_new, comp, p * (kf / mu_safe), kf - 1.0
+
+
+def _nv_poisson_setup(params: nv.NewsvendorParams, mu):
+    """Per-episode inversion anchor (mu_safe, kc, pmf(kc), t_total) of (N,)
+    f32 ``mu`` (pallas_episode_kernels._nv_poisson_setup), operation for
+    operation: the cutoff kc, the hi/lo lgamma pair, the Veltkamp split of
+    log(mu), the TwoSum-compensated exponent and the renormalisation total
+    of K = 2 Wb + 1 recurrence steps."""
+    Wb, K, _ = _nv_window(params)
+    mu = torch.as_tensor(mu).to(torch.float32)
+    one = torch.ones_like(mu)
+    mu_safe = torch.maximum(mu, torch.full_like(mu, nv.as_f32(1e-6)))
+    pad = 2.0 + 4.0 * torch.minimum(mu_safe, one)
+    w = torch.ceil(_NV_TAIL_Z * torch.sqrt(mu_safe) + pad)
+    kc = torch.floor(mu_safe) + torch.minimum(w, torch.full_like(w, float(Wb)))
+    pairs = torch.as_tensor(_nv_lgamma_pairs(params), device=mu.device)
+    row = pairs[torch.nan_to_num(kc).clamp(0, pairs.shape[0] - 1).long()]
+    lg_hi = torch.where(kc >= 2.0, row[..., 0], torch.zeros_like(mu))
+    lg_lo = torch.where(kc >= 2.0, row[..., 1], torch.zeros_like(mu))
+    logmu = torch.log(mu_safe)
+    s = logmu * 4097.0                      # Veltkamp split: 12-bit head
+    head = s - (s - logmu)
+    tail = logmu - head
+    a1 = kc * head                          # exact: 9 + 12 bits < 24
+    A = a1 - lg_hi                          # TwoSum-compensated cancels
+    t1 = A - a1
+    e1 = (a1 - (A - t1)) - (lg_hi + t1)
+    B = A - mu_safe
+    t2 = B - A
+    e2 = (A - (B - t2)) - (mu_safe + t2)
+    g = B + (e1 + e2 + kc * tail - lg_lo)
+    p_c = torch.exp(g)
+    p, T, comp, kf = p_c, torch.zeros_like(p_c), torch.zeros_like(p_c), kc
+    for _ in range(K):
+        T, comp, p, kf = _nv_recur(T, comp, p, kf, mu_safe)
+    return mu_safe, kc, p_c, T
+
+
+def _nv_poisson_invert(mu_safe, kc, p_c, t_total, K, us):
+    """demand_i = #{k : F(k) <= u_i} for each (N,) uniform in the list ``us``
+    (pallas_episode_kernels._nv_poisson_invert): one shared descending
+    suffix-sum recurrence of K steps, per-u compare-accumulate, thresholds
+    v = (1 - u) * t_total. Returns a list of (N,) f32 demands."""
+    vs = (1.0 - torch.stack(list(us))) * t_total   # 1 - u exact for 24-bit uniforms
+    cnt = torch.zeros_like(vs)
+    p, T, comp, kf = p_c, torch.zeros_like(p_c), torch.zeros_like(p_c), kc
+    for _ in range(K):
+        cnt += (T < vs).to(torch.float32)
+        T, comp, p, kf = _nv_recur(T, comp, p, kf, mu_safe)
+    d = torch.maximum(kc + 1.0 - cnt, torch.zeros_like(cnt))
+    return list(d)
+
+
+# the reset's formulas on the kernel's five uniforms
+# (pallas_episode_kernels._nv_econ_from_uniforms): the env's own
+_nv_econ_from_uniforms = nv.econ_from_uniforms
+
+
+class _NvParams(ctypes.Structure):
+    """Mirror of ``struct NvParams`` in csrc/nv_step.cuh (all fields 4-byte,
+    so both sides lay it out without padding)."""
+    _fields_ = [("L", ctypes.c_int), ("K", ctypes.c_int), ("kc_max", ctypes.c_int),
+                ("wb", ctypes.c_float), ("max_inv", ctypes.c_float),
+                ("max_order", ctypes.c_float), ("p_max", ctypes.c_float),
+                ("h_max", ctypes.c_float), ("k_max", ctypes.c_float),
+                ("mu_max", ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=32)
+def _nv_plan(params: nv.NewsvendorParams, device: str):
+    """A launch's host-built arguments, built once per (params, device): the
+    params struct, the f32 gamma^t table (as a list and on ``device``) and
+    the lgamma pairs on ``device``. Raises ValueError for a lead time beyond
+    the ring's depth."""
+    if params.lead_time > NV_MAX_L:
+        raise ValueError(f"lead_time={params.lead_time}: the CUDA kernels' pipeline "
+                         f"ring holds at most {NV_MAX_L}")
+    Wb, K, lgam = _nv_window(params)
+    st = _NvParams(L=params.lead_time, K=K, kc_max=len(lgam) - 1, wb=float(Wb),
+                   max_inv=params.max_inventory, max_order=params.max_order_quantity,
+                   p_max=params.p_max, h_max=params.h_max, k_max=params.k_max,
+                   mu_max=params.mu_max)
+    discs = _discounts(params.gamma, params.step_limit)
+    return dict(struct=st, discs=discs,
+                disc=torch.tensor(discs, dtype=torch.float32, device=device),
+                lgam=torch.as_tensor(_nv_lgamma_pairs(params), device=device).reshape(-1))
+
+
+def _nv_order(params, word):
+    """The random policy's order from its word: u * max_order."""
+    return rng.uniform01(word) * nv.as_f32(params.max_order_quantity)
+
+
+def _nv_returns(params, econ, orders, dems):
+    """gamma^t-discounted returns of episodes run with the (N,) econ rows
+    and the per-period orders and demand (lists of (N,) tensors)."""
+    price, cost, h, k = econ[:4]
+    P = [torch.zeros_like(price)] * params.lead_time
+    total = torch.zeros_like(price)
+    for t, disc in enumerate(_discounts(params.gamma, params.step_limit)):
+        P, reward, _ = _nv_step_math(params, P, price, cost, h, k, orders[t], dems[t])
+        total = total + disc * reward
+    return total
+
+
+def _episode_returns_nv_plain(params, econ, actions, demands, seed=None):
+    """Plain version of K13: the episode loop of _nv_kernel over (B,) rows.
+    ``actions`` (T, B), clipped to [0, max_order], or None with ``seed``:
+    the random policy's orders, K16's action words of episode 0."""
+    T, B = demands.shape
+    lanes = torch.arange(B, dtype=torch.int64, device=demands.device)
+    if actions is None:
+        orders = [_nv_order(params, rng.period_words(seed, lanes, 0, t, 1)[0])
+                  for t in range(T)]
+    else:
+        orders = [nv.clip_order(params, actions[t]) for t in range(T)]
+    return _nv_returns(params, list(econ), orders, list(demands))
+
+
+def _nv_fused_plain(params, seed, batch, E, device, econ=None, dump=False):
+    """Plain version of K14-K17 for E * batch episodes, episode-major: the
+    econ drawn from the words of period NV_ECON_PERIOD (K16, K17), or
+    ``econ`` (5, batch) given (K14, K15, E = 1); each period's order and
+    demand words, the demand inverted for all periods at once (the count
+    does not depend on the chunk). Returns (E, batch) returns, or with
+    ``dump`` (econ (E, 5, batch), actions (T, E, batch), demands
+    (T, E, batch))."""
+    T = params.step_limit
+    _, K, _ = _nv_window(params)
+    idx = torch.arange(E * batch, dtype=torch.int64, device=device)
+    episodes, lanes = idx // batch, idx % batch
+    if econ is None:
+        words = rng.period_words(seed, lanes, episodes, NV_ECON_PERIOD, 5)
+        econ = list(_nv_econ_from_uniforms(params, [rng.uniform01(w) for w in words]))
+    else:
+        econ = list(econ.to(torch.float32))
+    orders, us = [], []
+    for t in range(T):
+        w_act, w_dem = rng.period_words(seed, lanes, episodes, t, 2)
+        orders.append(_nv_order(params, w_act))
+        us.append(rng.uniform01(w_dem))
+    dems = _nv_poisson_invert(*_nv_poisson_setup(params, econ[4]), K, us)
+    if dump:
+        return (torch.stack(econ).reshape(5, E, batch).transpose(0, 1),
+                torch.stack(orders).reshape(T, E, batch),
+                torch.stack(dems).reshape(T, E, batch))
+    return _nv_returns(params, econ, orders, dems).reshape(E, batch)
+
+
+def _check_nv_inputs(params, econ, *streams):
+    tensors = (econ,) + tuple(s for s in streams if s is not None)
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError("econ, actions and demands must be float32")
+    B = econ.shape[-1]
+    if tuple(econ.shape) != (5, B):
+        raise ValueError(f"expected econ (5, B); got {tuple(econ.shape)}")
+    for s in tensors[1:]:
+        if tuple(s.shape) != (params.step_limit, B) or s.device != econ.device:
+            raise ValueError(f"expected streams ({params.step_limit}, {B}) on "
+                             f"{econ.device}; got {tuple(s.shape)} on {s.device}")
+    if econ.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {econ.device}")
+    if econ.device.type == "cuda" and not all(x.is_contiguous() for x in tensors):
+        raise ValueError("econ, actions and demands must be contiguous")
+
+
+def _nv_returns_call(wrapper, params, econ, actions, demands, seed):
+    """K13 for ``wrapper``: ``actions`` streamed in, or drawn from ``seed``."""
+    _check_nv_inputs(params, econ, actions, demands)
+    if econ.device.type == "cpu":
+        return _episode_returns_nv_plain(params, econ, actions, demands, seed)
+    dev = econ.device
+    T, B = demands.shape
+    plan = _nv_plan(params, _plan_key(dev))
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("nv_episode", "nv_episode_returns", ctypes.addressof(plan["struct"]),
+                econ.data_ptr(), None if actions is None else actions.data_ptr(),
+                demands.data_ptr(), plan["disc"].data_ptr(), out.data_ptr(), seed or 0,
+                int(actions is None), B, T, _stream(dev))
+    wrapper.launches += 1
+    return out
+
+
+def episode_returns_nv(params: nv.NewsvendorParams, econ: torch.Tensor,
+                       actions: torch.Tensor, demands: torch.Tensor) -> torch.Tensor:
+    """gamma^t-discounted episode returns (B,) float32 for per-lane
+    economics ``econ`` (5, B) [price, cost, h, k, mu] (mu unused: demand is
+    given) and float32 streams ``actions`` (step_limit, B), clipped to
+    [0, max_order] as the reference clips them, and ``demands``
+    (step_limit, B), on one device. K13: on CUDA tensors one thread per env
+    runs the whole episode (csrc/nv_episode.cu ``k_nv_returns``); on CPU
+    tensors the plain version runs."""
+    return _nv_returns_call(episode_returns_nv, params, econ, actions, demands, None)
+
+
+episode_returns_nv.launches = 0
+
+
+def episode_returns_nv_random(params: nv.NewsvendorParams, econ: torch.Tensor,
+                              demands: torch.Tensor, seed) -> torch.Tensor:
+    """Random-policy episode returns (B,) for ``econ`` (5, B) and the demand
+    stream ``demands`` (step_limit, B): orders uniform on [0, max_order)
+    drawn in the kernel from the words ``episode_returns_nv_reset_fused``
+    draws for its episode 0, so that on ``sample_streams_debug_nv_reset``'s
+    econ and demand it gives the reset-fused kernel's returns. K13 with its
+    action draws switched on."""
+    return _nv_returns_call(episode_returns_nv_random, params, econ, None, demands,
+                            int(seed) & rng.MASK32)
+
+
+episode_returns_nv_random.launches = 0
+
+
+def _nv_fused_call(wrapper, params, seed, batch, episodes_per_lane, device, econ, dump):
+    """K14/K15 (``econ`` given, E = 1) or K16/K17 for ``wrapper``: returns
+    (E, B), or with ``dump`` (econ (E, 5, B), actions, demands (T, E, B))."""
+    E = int(episodes_per_lane)
+    if econ is not None:
+        _check_nv_inputs(params, econ)
+        dev, batch = econ.device, econ.shape[1]
+    else:
+        dev = resolve_device(device)
+    if E < 1 or batch < 1:
+        raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        return _nv_fused_plain(params, seed, batch, E, dev, econ, dump)
+    plan = _nv_plan(params, _plan_key(dev))
+    T = params.step_limit
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = None if dump else torch.empty((E, batch), **f32)
+    econ_out = torch.empty((E, 5, batch), **f32) if dump and econ is None else None
+    acts = torch.empty((T, E, batch), **f32) if dump else None
+    dems = torch.empty((T, E, batch), **f32) if dump else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        _launch("nv_episode", "nv_episodes", ctypes.addressof(plan["struct"]),
+                plan["lgam"].data_ptr(), ptr(econ), plan["disc"].data_ptr(), ptr(out),
+                ptr(econ_out), ptr(acts), ptr(dems), seed, batch, E, T, _stream(dev))
+    wrapper.launches += 1
+    return (econ_out, acts, dems) if dump else out
+
+
+def episode_returns_nv_fused(params: nv.NewsvendorParams, econ: torch.Tensor, seed):
+    """Random-policy episode returns (B,) with the orders and the per-lane
+    Poisson(mu) demand drawn in the kernel, for the economics ``econ``
+    (5, B) of ``nv.draw_econ``-style resets. K14: one thread per lane
+    (csrc/nv_episode.cu ``k_nv_episodes``); the demand inverts the CDF by
+    ``_nv_poisson_setup``/``_nv_poisson_invert``'s recurrence. It draws
+    ``episode_returns_nv_reset_fused``'s action and demand words of episode
+    0."""
+    return _nv_fused_call(episode_returns_nv_fused, params, seed, None, 1, None, econ,
+                          False).reshape(-1)
+
+
+episode_returns_nv_fused.launches = 0
+
+
+def sample_streams_debug_nv(params: nv.NewsvendorParams, econ: torch.Tensor, seed):
+    """The exact order and demand streams ``episode_returns_nv_fused`` draws
+    for ``econ`` and ``seed``: (actions (T, B), demands (T, B)) float32. K15:
+    the same kernel with its dump switched on."""
+    _, acts, dems = _nv_fused_call(sample_streams_debug_nv, params, seed, None, 1, None,
+                                   econ, True)
+    return acts[:, 0], dems[:, 0]
+
+
+sample_streams_debug_nv.launches = 0
+
+
+def episode_returns_nv_reset_fused(params: nv.NewsvendorParams, seed, batch: int,
+                                   episodes_per_lane: int = 1, device=None):
+    """Random-policy Newsvendor episode returns with the reset fused too: the
+    economics, the orders and the per-lane Poisson(mu) demand are all drawn
+    in the kernel, gamma^t-discounted. K16: one thread per (episode, lane)
+    (csrc/nv_episode.cu ``k_nv_episodes``). Returns (batch,) for
+    episodes_per_lane=1, else (episodes_per_lane, batch), episode-major.
+    This is ``vector.fast_episodes.random_episode_returns``' Newsvendor
+    path."""
+    out = _nv_fused_call(episode_returns_nv_reset_fused, params, seed, batch,
+                         episodes_per_lane, device, None, False)
+    return out.reshape(batch) if episodes_per_lane == 1 else out
+
+
+episode_returns_nv_reset_fused.launches = 0
+
+
+def sample_streams_debug_nv_reset(params: nv.NewsvendorParams, seed, batch: int,
+                                  episodes_per_lane: int = 1, device=None):
+    """The exact econ, order and demand streams
+    ``episode_returns_nv_reset_fused`` draws for ``seed``: (econ
+    (E, 5, batch), actions (T, E, batch), demands (T, E, batch)) float32.
+    K17: the same kernel with its dump switched on."""
+    return _nv_fused_call(sample_streams_debug_nv_reset, params, seed, batch,
+                          episodes_per_lane, device, None, True)
+
+
+sample_streams_debug_nv_reset.launches = 0

@@ -2,15 +2,17 @@
 learned MLP policy.
 
 Port of ``or_gym_inventory_tpu/vector/fast_episodes.random_episode_returns``
-and ``policy_episode_returns`` (:126-217): the NetInvMgmt branches, and the
-InvManagement branch of ``random_episode_returns`` (:80-94). On CUDA the
-episodes run in the fused kernels (``ops.net_step.
-episode_returns_fully_fused``, K2, ``episode_returns_net_policy``, K5, and
-``ops.episode_kernels.episode_returns_im_fused``, K8), on the CPU in their
-plain versions. A demand the kernels cannot draw (a ``hostfn`` link, a law
-beyond the inversion table's cap) raises NotImplementedError before anything
-is launched; a failure to build or launch a kernel propagates. The JAX
-package fell back to its XLA rollout there; the port has no such fallback.
+and ``policy_episode_returns`` (:42-217): every family's branch of
+``random_episode_returns``, and the NetInvMgmt and InvManagement branches of
+``policy_episode_returns``. On CUDA the episodes run in the fused kernels
+(``ops.net_step.episode_returns_fully_fused``, K2, and
+``episode_returns_net_policy``, K5; ``ops.episode_kernels.
+episode_returns_im_fused``, K8, ``episode_returns_im_policy``, K11, and
+``episode_returns_nv_reset_fused``, K16), on the CPU in their plain
+versions. A demand the kernels cannot draw (a ``hostfn`` link, a law beyond
+the inversion table's cap) raises NotImplementedError before anything is
+launched; a failure to build or launch a kernel propagates. The JAX package
+fell back to its XLA rollout there; the port has no such fallback.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management as im
 from or_gym_inventory_torch.envs import net_inv_management as net
+from or_gym_inventory_torch.envs import newsvendor as nv
 from or_gym_inventory_torch.ops import episode_kernels, net_step
 
 
@@ -30,11 +33,10 @@ def kernel_seed(generator: torch.Generator) -> int:
                              device=generator.device).item())
 
 
-def _refuse_other_families(params):
-    if not isinstance(params, (net.NetInvParams, im.InvManagementParams)):
-        raise NotImplementedError(
-            f"{type(params).__name__}: the PyTorch port runs NetInvMgmt and "
-            "InvManagement; Newsvendor is still to port (ROADMAP.md Queue A7b)")
+def _check_family(params):
+    if not isinstance(params, (net.NetInvParams, im.InvManagementParams,
+                               nv.NewsvendorParams)):
+        raise TypeError(f"Unknown params type {type(params).__name__}")
 
 
 def random_episode_returns(params, generator: torch.Generator, batch: int,
@@ -43,12 +45,19 @@ def random_episode_returns(params, generator: torch.Generator, batch: int,
     (episodes_per_lane * batch,) float32 tensor, episode-major. The kernel
     seed is drawn from ``generator``, which must live on ``device``.
     InvManagement steps' rewards are already alpha^t-discounted (reference
-    semantics), so are its returns."""
+    semantics), so are its returns; Newsvendor's are gamma^t-discounted in
+    the kernel."""
     dev = resolve_device(device)
     E = int(episodes_per_lane)
     if E < 1:
         raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
-    _refuse_other_families(params)
+    _check_family(params)
+    if isinstance(params, nv.NewsvendorParams):
+        # reset-fused: econ, orders and per-lane Poisson(mu) demand all drawn
+        # in the kernel
+        return episode_kernels.episode_returns_nv_reset_fused(
+            params, kernel_seed(generator), batch, episodes_per_lane=E,
+            device=dev).reshape(-1)
     if isinstance(params, im.InvManagementParams):
         episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
         return episode_kernels.episode_returns_im_fused(
@@ -70,7 +79,8 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
 
     ``actor`` is ``(Ws, bs)`` from ``ops.episode_kernels.fold_actor_params``
     (pi trunk and mean head, obs normalisation folded in). The policy runs
-    inside the episode kernel K5. ``deterministic=False`` evaluates the
+    inside the episode kernel: K5 on NetInvMgmt, K11 on InvManagement (int
+    actions, alpha^t-discounted rewards). ``deterministic=False`` evaluates the
     stochastic policy, tanh-squashed Gaussian samples around the mean, and
     needs the trained ``log_std`` (the model's ``log_std`` parameter). The
     kernel seed is drawn from ``generator`` (``kernel_seed``), which must
@@ -82,13 +92,19 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     if not deterministic and log_std is None:
         raise ValueError("deterministic=False requires log_std (the trained "
                          "per-action-dim log-std parameter)")
-    if isinstance(params, im.InvManagementParams):
+    _check_family(params)
+    kern_log_std = None if deterministic else log_std
+    if isinstance(params, nv.NewsvendorParams):
         raise NotImplementedError(
-            "policy_episode_returns on InvManagement runs the learned-policy "
-            "kernel episode_returns_im_policy, still to port (ROADMAP.md "
-            "Queue B10)")
-    _refuse_other_families(params)
+            "policy_episode_returns on Newsvendor runs the learned-policy "
+            "kernel episode_returns_nv_policy, still to port (ROADMAP.md "
+            "Queue B15)")
+    if isinstance(params, im.InvManagementParams):
+        episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
+        return episode_kernels.episode_returns_im_policy(
+            params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+            log_std=kern_log_std, device=dev).reshape(-1)
     net_step._topology_link_specs(params.topology, params.num_periods)  # hostfn raises here
     return net_step.episode_returns_net_policy(
         params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
-        log_std=None if deterministic else log_std, device=dev).reshape(-1)
+        log_std=kern_log_std, device=dev).reshape(-1)

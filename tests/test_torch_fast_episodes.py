@@ -73,7 +73,7 @@ def test_user_demand_runs_in_the_kernel_path():
 
 
 def test_other_families_and_devices_refuse():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="Unknown params type"):
         tfe.random_episode_returns(object(), torch.Generator(), 4, device=CPU)
     with pytest.raises(ValueError):
         tfe.random_episode_returns(tnet.default_params(), torch.Generator(), 4,

@@ -115,5 +115,6 @@ def test_evaluation_of_a_trained_policy_and_what_is_not_ported():
     assert a.dtype == torch.int32 and int(a.min()) >= 0
     assert (a <= torch.tensor(tp.c)).all()
     actor = tek.fold_actor_params(cfg, model, rms)
-    with pytest.raises(NotImplementedError, match="B10"):
-        tfe.policy_episode_returns(tp, actor, torch.Generator(), 4, device=CPU)
+    out = tfe.policy_episode_returns(tp, actor, torch.Generator().manual_seed(2), 4,
+                                     device=CPU)
+    assert out.shape == (4,) and torch.isfinite(out).all()

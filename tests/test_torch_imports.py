@@ -52,4 +52,5 @@ def test_sources_import_no_jax():
     mods = set(_port_modules())
     assert len(mods) >= 28
     assert {"or_gym_inventory_torch.core.config", "or_gym_inventory_torch.envs.inv_management",
+            "or_gym_inventory_torch.envs.newsvendor",
             "or_gym_inventory_torch.ops.episode_kernels"} <= mods
