@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's six main paths, each with every launch
+at once), then drives the port's eight main paths, each with every launch
 counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -33,7 +33,14 @@ counter set to 0 just before it and read just after:
   ``random_episode_returns`` with benchmarks/benchmark_newsvendor.py's
   ENV_CONFIG_EVAL (lead_time 5, step_limit 50, mu_max 200) at 4,194,304 x
   16 x 50 launches K16 once, nothing else and no plain version; its first
-  65,536 x 16 returns are then held against plain K16 on the replayed seed.
+  65,536 x 16 returns are then held against plain K16 on the replayed seed;
+- slice 5, Newsvendor PPO (phase 22): ``train`` with ``rollout="kernel"`` at
+  ENV_CONFIG_EVAL, 65,536 x 50, 64x64 (obs_dim 10, act_dim 1), 4 epochs x 8
+  minibatches, 3 updates: 3 launches of K18 and nothing else;
+- slice 5, Newsvendor learned-policy evaluation (phase 23):
+  ``policy_episode_returns`` of phase 22's trained actor at 65,536 x 16 x
+  50, deterministic and stochastic, launches K19 once per call and nothing
+  else; the first 1,024 lanes are then held against plain K19.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -45,23 +52,31 @@ NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
 K12's streams and K10 against the stochastic episode 0), and K13-K17 in
 phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
 0.99, mu_max 200 and 3, with the chain K16 = K14 = K13 _random = K13 on
-K17's streams and a NaN lane). Kernels on no main path are launched only
-to be held: K6, K5 with its streams dumped (phase 7), K9 and K7, the streams and
-the stream-in replay of K8's draws (phases 10-12), K12 (phase 16), K13,
-K14, K15 and K17 (phase 18). Then it times the vecenv rollout (phase
-5), each kernel against its plain version (phases 6, 9, 14 and 20), one PPO
-update with its gradient in 8 chunks per minibatch against 1 (phase 9),
-and trains InvManagement at the protocol of tools/validate_kernel_ppo.py
-for its reward (phase 15). Every phase prints its lines; any failure raises
-and exits non-zero. Without a CUDA device it exits 1 and prints no result.
+K17's streams and a NaN lane), and K18-K21 in phase 21 (K18 at 65,536 x
+50, K19/K20 at 65,536 x 16 x 50, lead time 5 and 0, gamma 1 and 0.99,
+deterministic and stochastic, with K13 on K20's streams, K18 against the
+stochastic episode 0, a NaN std and K21's normals through the
+goodness-of-fit pin of tests/test_pallas_policy.py:394-419). Kernels on no
+main path are launched only to be held: K6, K5 with its streams dumped
+(phase 7), K9 and K7, the streams and the stream-in replay of K8's draws
+(phases 10-12), K12 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and
+K21 (phase 21). Then it times the vecenv rollout (phase 5), each kernel
+against its plain version (phases 6, 9, 14, 20 and 24), one PPO update
+with its gradient in 8 chunks per minibatch against 1 (phase 9), trains
+InvManagement at the protocol of tools/validate_kernel_ppo.py for its
+reward (phase 15), and Newsvendor at benchmarks/benchmark_newsvendor.py's
+PPO_CFG for 4M env-steps for its reward (phase 24). Every phase prints its
+lines; any failure raises and exits non-zero. Without a CUDA device it
+exits 1 and prints no result.
 
 The last six lines are one JSON object of per-kernel numbers
-(``launches`` is the sum of a kernel's launches in the six main-path runs,
-so 0 for K6, K7, K9, K12-K15 and K17; for K4, K5, K10, K11, K14 and K16,
-``max_abs_err`` is over the lanes that agree with the plain version), one
+(``launches`` is the sum of a kernel's launches in the eight main-path
+runs, so 0 for K6, K7, K9, K12-K15, K17, K20 and K21; for K4, K5, K10, K11,
+K14, K16, K18, K19 and K20, ``max_abs_err`` is over the lanes that agree
+with the plain version), one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
-paths' rates and reward, one of the Newsvendor path's, the card's name and
-power limit as nvidia-smi gives them, and
+paths' rates and reward, one of the Newsvendor paths' rates and reward, the
+card's name and power limit as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
@@ -85,7 +100,12 @@ inversion's logf/expf may differ from torch's by an ulp); returns against
 the plain versions within rtol=1e-5 atol=1e-2 on at least 99% of lanes; the
 chain on K17's streams within rtol=1e-5 atol=1e-3 (the same words and the
 same arithmetic: bit for bit is expected, and the script says whether it
-was).
+was). Newsvendor policy kernels (K18-K21): econ bit for bit, demand by the
+K16 rule; K18's raws teacher-forced atol=1e-4; free-running orders, raws,
+rewards and returns by the share of lanes (>= 99% within rtol=1e-4
+atol=1e-2: tanh and the MLP's sum order feed back through the pipeline);
+K13 on K20's streams and K18 against the stochastic K19's episode 0 within
+rtol=1e-5 atol=1e-3 (bit for bit expected, and reported); K21 atol=1e-5.
 """
 
 import json
@@ -146,10 +166,19 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:495"),
     ("sample_streams_debug_nv_reset", "or_gym_inventory_torch/csrc/nv_episode.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:513"),
+    ("rollout_traj_nv", "or_gym_inventory_torch/csrc/nv_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1796"),
+    ("episode_returns_nv_policy", "or_gym_inventory_torch/csrc/nv_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:648"),
+    ("sample_policy_streams_debug_nv", "or_gym_inventory_torch/csrc/nv_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:665"),
+    ("sample_normals_debug", "or_gym_inventory_torch/csrc/nv_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1849"),
 ]
 IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:10]]
 IM_EVAL_KERNELS = [name for name, _, _ in KERNEL_ROWS[10:12]]
-NV_KERNELS = [name for name, _, _ in KERNEL_ROWS[12:]]
+NV_KERNELS = [name for name, _, _ in KERNEL_ROWS[12:17]]
+NV_POLICY_KERNELS = [name for name, _, _ in KERNEL_ROWS[17:]]
 # the five demand modes of InvManagement (inventory_management.py:169-184)
 IM_DIST_MODES = [
     ("poisson", {}),
@@ -164,6 +193,11 @@ NV_ENV_CONFIG = {"lead_time": 5, "step_limit": 50, "p_max": 100.0, "h_max": 5.0,
 NV_CASES = [(L, gamma, mu_max) for L in (5, 0) for gamma in (1.0, 0.99)
             for mu_max in (200.0, 3.0)]
 DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain version's
+NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
+# benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for RESULTS.md:56's 4M env-steps
+NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
+                     ent_coef=0.0, rollout="kernel")
+NV_PPO_BUDGET = 4_000_000
 
 
 def close(name, got, want, rtol, atol):
@@ -312,6 +346,19 @@ def nv_draw_ops(params, econ_drawn):
     return (10 * 8 + 9 * 2) + 2 * 3 + 2 + per_episode / T
 
 
+def nv_policy_draw_ops(params, stochastic):
+    """Operations per env-step of the draws and the head of K18-K20:
+    ``nv_draw_ops`` with the reset drawn (the three of its order word's
+    conversion stand for the squash: tanh, add, product) and, when
+    stochastic, the period's Philox block again, two conversions, the
+    Box-Muller normal (log, sqrt, cos and five arithmetic operations) and
+    the sample (product, sum)."""
+    return nv_draw_ops(params, True) + ((10 * 8 + 9 * 2) + 2 * 3 + 8 + 2 if stochastic else 0)
+
+
+NORMAL_OPS = (10 * 8 + 9 * 2) + 2 * 3 + 8   # one K21 element: a Philox block, the normal
+
+
 def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -333,7 +380,7 @@ def read_counts(wrappers):
 
 
 class no_plain_versions:
-    """Within the block, every plain version of K1-K17 raises, so a counted
+    """Within the block, every plain version of K1-K21 raises, so a counted
     main-path run shows that it went through the kernels alone."""
 
     NAMES = {"net_step": ("_episode_returns_plain", "_episode_returns_fully_fused_plain",
@@ -341,7 +388,9 @@ class no_plain_versions:
                           "_policy_returns_plain"),
              "episode_kernels": ("_episode_returns_im_plain", "_im_fused_plain",
                                  "_rollout_traj_im_plain", "_im_policy_plain",
-                                 "_episode_returns_nv_plain", "_nv_fused_plain")}
+                                 "_episode_returns_nv_plain", "_nv_fused_plain",
+                                 "_rollout_traj_nv_plain", "_nv_policy_plain",
+                                 "_sample_normals_plain")}
 
     def __enter__(self):
         import importlib
@@ -583,17 +632,18 @@ def policy_cross_check(params, dev, actor, log_std):
     return err, plain_ms, lines
 
 
-def ppo_main_path(env, params, dev, smi, label, kernel):
-    """Phases 8 and 13: ``train`` with ``rollout="kernel"`` at 65,536 envs x
-    30 periods, 64x64, 4 epochs x 8 minibatches, 3 updates, no plain version
-    allowed; ``kernel``, the trajectory kernel's wrapper, must launch once
-    per update (its count set to 0 just before). Returns (lines, best
-    update ms, (cfg, state, generator), rates for the summary)."""
+def ppo_main_path(env, params, dev, smi, label, kernel, num_steps=NUM_STEPS):
+    """Phases 8, 13 and 22: ``train`` with ``rollout="kernel"`` at 65,536
+    envs x ``num_steps`` periods (the env's horizon), 64x64, 4 epochs x 8
+    minibatches, 3 updates, no plain version allowed; ``kernel``, the
+    trajectory kernel's wrapper, must launch once per update (its count set
+    to 0 just before). Returns (lines, best update ms, (cfg, state,
+    generator), rates for the summary)."""
     import numpy as np
     import torch
 
     from or_gym_inventory_torch.agents import ppo
-    cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_steps=NUM_STEPS, num_minibatches=8,
+    cfg = ppo.PPOConfig(num_envs=PPO_ENVS, rollout_steps=num_steps, num_minibatches=8,
                         update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64),
                         rollout="kernel")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -605,7 +655,7 @@ def ppo_main_path(env, params, dev, smi, label, kernel):
 
     with no_plain_versions():
         state, metrics = ppo.train(env, params, cfg, gen,
-                                   PPO_UPDATES * PPO_ENVS * NUM_STEPS, device=dev,
+                                   PPO_UPDATES * PPO_ENVS * num_steps, device=dev,
                                    progress=progress)
     bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
     if bad or len(metrics["update"]) != PPO_UPDATES:
@@ -615,8 +665,8 @@ def ppo_main_path(env, params, dev, smi, label, kernel):
                              f"{PPO_UPDATES} updates")
     update_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     best = min(update_ms[1:])     # the first update also builds the model
-    samples = PPO_ENVS * NUM_STEPS
-    lines = [f"{label} PPO {PPO_ENVS} x {NUM_STEPS}, 64x64, 4 epochs x 8 minibatches: "
+    samples = PPO_ENVS * num_steps
+    lines = [f"{label} PPO {PPO_ENVS} x {num_steps}, 64x64, 4 epochs x 8 minibatches: "
              f"update ms {', '.join(f'{t:.3f}' for t in update_ms)}; best {best:.3f} ms = "
              f"{samples / best * 1e3:.6g} trained-steps/s on {smi}",
              f"{label} PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
@@ -971,20 +1021,20 @@ def im_eval_cross_check(dev, params, actor, log_std):
     return err, plain_ms, lines
 
 
-def im_eval_main_path(dev, wrappers, params, actor, log_std, smi):
-    """Phase 17, the InvManagement learned-policy evaluation of phase 13's
-    trained actor: ``policy_episode_returns`` at 65,536 x 16 x 30,
-    deterministic and stochastic, counting launches from 0 and with every
-    plain version patched to raise: K11 once per call and nothing else.
-    After the counts are read, the deterministic evaluation's first 1,024
-    lanes are held against plain K11 on the replayed seed. Returns
-    (launches, lines, rates)."""
+def eval_main_path(dev, wrappers, params, actor, log_std, smi, kernel, plain, num_steps):
+    """Phases 17 and 23, the learned-policy evaluation of a trained actor:
+    ``policy_episode_returns`` at 65,536 x 16 x ``num_steps``, deterministic
+    and stochastic, counting launches from 0 and with every plain version
+    patched to raise: the wrapper named ``kernel`` (K11, K19) once per call
+    and nothing else. After the counts are read, the deterministic
+    evaluation's first 1,024 lanes are held against ``plain(seed)``, the
+    kernel's plain version on the replayed seed. Returns (launches, lines,
+    rates)."""
     import torch
 
-    from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.vector import fast_episodes
     E = EVAL_EPISODES
-    env_steps = PPO_ENVS * E * NUM_STEPS
+    env_steps = PPO_ENVS * E * num_steps
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     replay = torch.Generator(device=dev)
     replay.set_state(g.get_state())
@@ -997,23 +1047,23 @@ def im_eval_main_path(dev, wrappers, params, actor, log_std, smi):
                                  PPO_ENVS, E, False, log_std, dev)
     launches = read_counts(wrappers)
     moved = {n: c for n, c in launches.items() if c}
-    if moved != {"episode_returns_im_policy": 2}:
-        raise AssertionError(f"the IM evaluation launched {moved}, not K11 once per call")
+    if moved != {kernel: 2}:
+        raise AssertionError(f"the evaluation launched {moved}, not {kernel} once per call")
     for name, ret in (("deterministic", det), ("stochastic", sto)):
         if ret.shape != (PPO_ENVS * E,) or not torch.isfinite(ret).all():
-            raise AssertionError(f"IM {name} evaluation: shape {tuple(ret.shape)} or "
+            raise AssertionError(f"{name} evaluation: shape {tuple(ret.shape)} or "
                                  "non-finite")
-    plain, _, _ = ek._im_policy_plain(params, actor, None, det_seed, MULTI_LANES, E, dev)
-    share, _ = lane_share("IM evaluation vs plain K11",
-                          det.reshape(E, PPO_ENVS)[:, :MULTI_LANES].contiguous(), plain)
-    lines = [f"policy_episode_returns {PPO_ENVS} x {E} x {NUM_STEPS}: deterministic "
+    share, _ = lane_share(f"evaluation vs plain {kernel}",
+                          det.reshape(E, PPO_ENVS)[:, :MULTI_LANES].contiguous(),
+                          plain(det_seed))
+    lines = [f"policy_episode_returns {PPO_ENVS} x {E} x {num_steps}: deterministic "
              f"{det_ms:.3f} ms = {env_steps / det_ms * 1e3:.6g} env-steps/s, mean "
              f"{float(det.double().mean()):.3f}; stochastic {sto_ms:.3f} ms = "
              f"{env_steps / sto_ms * 1e3:.6g} env-steps/s, mean "
              f"{float(sto.double().mean()):.3f}; on {smi}",
-             f"K11 launched once per call, nothing else, no plain version; the "
+             f"{kernel} launched once per call, nothing else, no plain version; the "
              f"deterministic evaluation's first {MULTI_LANES} lanes: {share:.4%} agree with "
-             "plain K11"]
+             "its plain version"]
     rates = {"eval_det_ms": det_ms, "eval_det_steps_s": env_steps / det_ms * 1e3,
              "eval_sto_ms": sto_ms, "eval_sto_steps_s": env_steps / sto_ms * 1e3}
     return launches, lines, rates
@@ -1152,6 +1202,188 @@ def nv_main_path(dev, wrappers):
     return launches, err, share, mean, plain_ms, params
 
 
+# ---------------------------------------------- Newsvendor learning (slice 5)
+
+def normals_pin(z):
+    """The goodness-of-fit pin of tests/test_pallas_policy.py:394-419 on the
+    normals ``z``: mean within 5 / sqrt(n) of 0, std within 0.005 of 1, the
+    third and fourth central moments within 0.02 of 0 and 0.06 of 3, no
+    |z| beyond the sqrt(48 ln 2) cap of the 24-bit uniform, and a KS
+    distance to Phi under 0.006. Returns the statistics; raises if one
+    fails."""
+    import torch
+    z = z.double().reshape(-1)
+    n = z.numel()
+    c = z - z.mean()
+    stats = {"mean": float(z.mean()), "std": float(z.std(correction=0)),
+             "m3": float((c ** 3).mean()), "m4": float((c ** 4).mean()),
+             "max_abs": float(z.abs().max())}
+    cdf = 0.5 * (1.0 + torch.special.erf(torch.sort(z).values / math.sqrt(2.0)))
+    hi = torch.arange(1, n + 1, dtype=torch.float64, device=z.device) / n
+    stats["ks"] = float(torch.maximum((hi - cdf).abs(), (hi - 1.0 / n - cdf).abs()).max())
+    if not (abs(stats["mean"]) < 5.0 / math.sqrt(n) and abs(stats["std"] - 1.0) < 0.005
+            and abs(stats["m3"]) < 0.02 and abs(stats["m4"] - 3.0) < 0.06
+            and stats["max_abs"] <= math.sqrt(48 * math.log(2)) + 1e-3 and stats["ks"] < 0.006):
+        raise AssertionError(f"normals fail the goodness-of-fit pin: {stats}")
+    return stats
+
+
+def nv_policy_cross_check(dev):
+    """Phase 21: K18-K21 against their plain versions with a seeded actor
+    (obs_dim 10 or 5, act_dim 1, obs statistics folded), for lead time 5
+    and 0 and gamma 1 and 0.99. K18 at 65,536 x 50: econ bit for bit, demand
+    by DEMAND_SHARE, orders, raws and rewards by the share of lanes, and,
+    teacher-forced, its raws the folded actor on its assembled obs plus
+    std times the plain normals (atol=1e-4). K19/K20 at 65,536 x 16 x 50,
+    deterministic and stochastic: K20's econ bit for bit and demand by
+    DEMAND_SHARE, K20 = K19, K19 and K20's orders against the plain version
+    by the share of lanes, K13 on K20's streams = K19, the stochastic
+    episode 0 = K18 (econ and demand bit for bit, returns = its
+    gamma^t-summed rewards). A NaN std: NaN raws, orders and returns in the
+    kernels and the plain versions, the econ and demand untouched. K21 at
+    64 x 65,536 against plain K21 and through the goodness-of-fit pin.
+    Returns (max |diff| per kernel, plain ms per kernel, lines)."""
+    import functools
+
+    import torch
+
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    B, E = PPO_ENVS, EVAL_EPISODES
+    err = dict.fromkeys(NV_POLICY_KERNELS, 0.0)
+    plain_ms, lines, bitwise = {}, [], {"K13 on K20": True, "K19 episode 0 vs K18": True}
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+
+    def track(name, value):
+        err[name] = max(err[name], value)
+
+    for L in (5, 0):
+        for gamma in (1.0, 0.99):
+            params = nv_params(L, gamma)
+            T, case = params.step_limit, f"L={L}, gamma={gamma}"
+            actor, log_std = seeded_actor(params.obs_dim, 1, dev)
+            std = ek.clipped_std(log_std)
+            tr = ek.rollout_traj_nv(params, actor, log_std, SEED, B, device=dev)
+            ms, want = timed_once(ek._rollout_traj_nv_plain, params, actor, std, SEED, B, dev)
+            plain_ms.setdefault("rollout_traj_nv", ms)
+            exact(f"K18 econ, {case}", tr["econ"], want["econ"])
+            d_err = demand_check(f"K18 demand, {case}", tr["demand"], want["demand"])
+            track("rollout_traj_nv", d_err)
+            shares = {k: lane_share(f"K18 {k} vs plain, {case}", tr[k], want[k])
+                      for k in ("orders", "raw", "reward")}
+            track("rollout_traj_nv", max(e for _, e in shares.values()))
+            del want
+            obs = nv.assemble_obs_from_streams(params, tr["econ"], tr["orders"])
+            for t in range(T):
+                w = rng.period_words(SEED, lanes, 0, t, 3, key1=rng.POLICY_KEY)
+                close(f"K18 raw[{t}] vs folded actor + plain normals, {case}", tr["raw"][t, 0],
+                      ek.folded_actor_mean(actor, obs[t])[:, 0]
+                      + std[0, 0] * rng.normal01(w[1], w[2]), 0.0, 1e-4)
+            del obs
+            lines.append(f"K18 {case}: econ bit-exact, demand max |diff| {d_err}, lanes "
+                         "agreeing " + ", ".join(
+                             f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                         + "; raws = folded actor + plain normals within atol=1e-4")
+            disc = ek._discounts(params.gamma, T)
+            for ls in (None, log_std):
+                kind = "deterministic" if ls is None else "stochastic"
+                pstd = None if ls is None else std
+                k19 = ek.episode_returns_nv_policy(params, actor, SEED, B, E, ls, dev)
+                r20, e20, a20, d20 = ek.sample_policy_streams_debug_nv(params, actor, SEED, B, E,
+                                                                      ls, dev)
+                if not plain_ms.get("episode_returns_nv_policy"):
+                    plain_ms["episode_returns_nv_policy"], _ = timed_once(
+                        ek._nv_policy_plain, params, actor, pstd, SEED, B, E, dev)
+                ms, (want, we, wa, wd) = timed_once(ek._nv_policy_plain, params, actor, pstd,
+                                                    SEED, B, E, dev, True)
+                plain_ms.setdefault("sample_policy_streams_debug_nv", ms)
+                exact(f"K20 econ, {kind}, {case}", e20, we)
+                track("sample_policy_streams_debug_nv",
+                      demand_check(f"K20 demand, {kind}, {case}", d20, wd))
+                close(f"K20 vs K19 returns, {kind}, {case}", r20, k19, 1e-5, 1e-3)
+                sh_r, e19 = lane_share(f"K19 vs plain, {kind}, {case}", k19, want)
+                sh_a, e_orders = lane_share(f"K20 orders vs plain, {kind}, {case}",
+                                            a20.reshape(T, E * B), wa.reshape(T, E * B))
+                track("episode_returns_nv_policy", e19)
+                track("sample_policy_streams_debug_nv", e_orders)
+                k13 = ek.episode_returns_nv(params,
+                                            e20.permute(1, 0, 2).reshape(5, E * B).contiguous(),
+                                            a20.reshape(T, E * B).contiguous(),
+                                            d20.reshape(T, E * B).contiguous()).reshape(E, B)
+                close(f"K13 on K20's streams vs K19, {kind}, {case}", k13, k19, 1e-5, 1e-3)
+                bitwise["K13 on K20"] &= bool(torch.equal(k13, k19))
+                line = (f"K19/K20 {kind}, {case}: econ bit-exact, K13 on K20's streams = "
+                        f"K19, lanes agreeing with plain K19 {sh_r:.4%} (returns), {sh_a:.4%} "
+                        "(orders)")
+                if ls is not None:
+                    exact(f"stochastic K19 episode 0 econ vs K18, {case}", e20[0], tr["econ"])
+                    exact(f"stochastic K19 episode 0 demand vs K18, {case}", d20[:, 0],
+                          tr["demand"])
+                    ret18 = functools.reduce(lambda acc, t: acc + disc[t] * tr["reward"][t],
+                                             range(T), torch.zeros_like(k19[0]))
+                    close(f"stochastic K19 episode 0 vs K18's rewards, {case}", k19[0], ret18,
+                          1e-5, 1e-3)
+                    bitwise["K19 episode 0 vs K18"] &= bool(torch.equal(k19[0], ret18))
+                    line += "; episode 0 = K18"
+                lines.append(line)
+                del k19, r20, e20, a20, d20, want, we, wa, wd, k13
+            nan_ls = torch.full_like(log_std, float("nan"))
+            got = ek.rollout_traj_nv(params, actor, nan_ls, SEED, MULTI_LANES, device=dev)
+            plain = ek._rollout_traj_nv_plain(params, actor, ek.clipped_std(nan_ls), SEED,
+                                              MULTI_LANES, dev)
+            got19 = ek.episode_returns_nv_policy(params, actor, SEED, MULTI_LANES, E, nan_ls, dev)
+            if not (all(bool(torch.isnan(x[k]).all()) for x in (got, plain)
+                        for k in ("raw", "orders", "reward"))
+                    and bool(torch.isnan(got19).all())
+                    and torch.equal(got["econ"], tr["econ"][:, :MULTI_LANES])
+                    and torch.equal(got["demand"], tr["demand"][:, :MULTI_LANES])):
+                raise AssertionError(f"K18/K19 with a NaN std, {case}: not NaN throughout, or "
+                                     "the econ or demand moved")
+            del tr, got, plain, got19
+    lines.append("a NaN std: NaN raws, orders, rewards and returns in K18, K19 and plain K18, "
+                 "the econ and demand unchanged; bit for bit: " + ", ".join(
+                     f"{k} {v}" for k, v in bitwise.items()))
+    z = ek.sample_normals_debug(SEED, NORMAL_ROWS, B, device=dev)
+    plain_ms["sample_normals_debug"], pz = timed_once(ek._sample_normals_plain, SEED,
+                                                      NORMAL_ROWS, B, dev)
+    track("sample_normals_debug", close("K21 vs plain K21", z, pz, 0.0, 1e-5))
+    pin = normals_pin(z)
+    lines.append(f"K21 {NORMAL_ROWS} x {B}: within atol=1e-5 of plain K21; the "
+                 "goodness-of-fit pin holds: " + ", ".join(f"{k} {v:.6g}" for k, v in pin.items()))
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def nv_reward_check(dev, params):
+    """Phase 24's reward: benchmarks/benchmark_newsvendor.py's PPO_CFG with
+    rollout="kernel" (256 envs x 50, 8 minibatches, 4 epochs, ent_coef 0)
+    for RESULTS.md:56's 4M env-steps, seed 0, on ``params``; then the
+    deterministic ``policy_episode_returns`` of the trained actor over
+    65,536 x 16 episodes. Returns (mean, its standard error, training
+    seconds, updates)."""
+    import torch
+
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    cfg = ppo.PPOConfig(**NV_PPO_RECIPE)
+    t0 = time.perf_counter()
+    state, metrics = ppo.train(nv.ENV, params, cfg, torch.Generator(device=dev).manual_seed(0),
+                               NV_PPO_BUDGET, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    actor = ek.fold_actor_params(cfg, state.params, state.rms)
+    ret = fast_episodes.policy_episode_returns(
+        params, actor, torch.Generator(device=dev).manual_seed(2000), PPO_ENVS, EVAL_EPISODES,
+        True, None, dev).double()
+    if not torch.isfinite(ret).all():
+        raise AssertionError("NV reward check: non-finite returns")
+    return (float(ret.mean()), float(ret.std() / math.sqrt(ret.numel())), wall,
+            len(metrics["update"]))
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -1179,6 +1411,7 @@ def main() -> int:
 
     from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.ops import net_step as ns
@@ -1489,8 +1722,10 @@ def main() -> int:
 
     # 17. the fifth main path, counting launches: IM learned-policy evaluation
     t0 = time.perf_counter()
-    launches5, lines, eval_rates = im_eval_main_path(dev, wrappers, im_params, im_actor,
-                                                     im_log_std, smi)
+    launches5, lines, eval_rates = eval_main_path(
+        dev, wrappers, im_params, im_actor, im_log_std, smi, "episode_returns_im_policy",
+        lambda seed: ek._im_policy_plain(im_params, im_actor, None, seed, MULTI_LANES,
+                                         EVAL_EPISODES, dev)[0], NUM_STEPS)
     im_summary.update(eval_rates)
     for line in lines:
         print(f"[17 IM eval main path] {line}", flush=True)
@@ -1598,6 +1833,101 @@ def main() -> int:
                   "random_env_steps_s": nv_steps / nv_t["best_ms"] * 1e3,
                   "k16_ms": k16_t["best_ms"], "mean_return": nv_mean,
                   "plain_share": nv_share}
+
+    # 21. the Newsvendor policy kernels against their plain versions
+    t0 = time.perf_counter()
+    err2, nv_plain_ms, lines = nv_policy_cross_check(dev)
+    err.update(err2)
+    for line in lines:
+        print(f"[21 NV policy kernels] {line}", flush=True)
+    print(f"[21 NV policy kernels] max |diff| {err2}; plain ms {nv_plain_ms}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 22. the seventh main path, counting launches: PPO on Newsvendor
+    t0 = time.perf_counter()
+    reset_counts(wrappers)
+    lines, nv_update_ms, (nv_cfg, nv_state, _), nv_rates = ppo_main_path(
+        nv.ENV, nv_p, dev, smi, "Newsvendor", ek.rollout_traj_nv, nv_T)
+    launches7 = read_counts(wrappers)
+    moved = {n: c for n, c in launches7.items() if c}
+    if moved != {"rollout_traj_nv": PPO_UPDATES}:
+        raise AssertionError(f"the Newsvendor PPO path launched {moved}, not K18 once per "
+                             "update")
+    nv_actor = ek.fold_actor_params(nv_cfg, nv_state.params, nv_state.rms)
+    nv_log_std = nv_state.params.log_std.detach()
+    for line in lines:
+        print(f"[22 NV PPO main path] {line}", flush=True)
+    print(f"[22 NV PPO main path] K18 launched once per update, nothing else, no plain "
+          f"version; launches {launches7}; {time.perf_counter() - t0:.1f} s", flush=True)
+    nv_summary.update({f"ppo_{k}": v for k, v in nv_rates.items()})
+
+    # 23. the eighth main path, counting launches: Newsvendor learned-policy evaluation
+    t0 = time.perf_counter()
+    launches8, lines, eval_rates = eval_main_path(
+        dev, wrappers, nv_p, nv_actor, nv_log_std, smi, "episode_returns_nv_policy",
+        lambda seed: ek._nv_policy_plain(nv_p, nv_actor, None, seed, MULTI_LANES, E, dev)[0],
+        nv_T)
+    nv_summary.update(eval_rates)
+    for line in lines:
+        print(f"[23 NV eval main path] {line}", flush=True)
+    print(f"[23 NV eval main path] launches {launches8}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {name: launches[name] + launches7[name] + launches8[name] for name in wrappers}
+    missing = [name for name in ("rollout_traj_nv", "episode_returns_nv_policy")
+               if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the slice-5 main paths launched no {missing}")
+
+    # 24. per-kernel times of K18-K21 at the main paths' shapes, and the reward
+    k18_t = cuda_time(ek.rollout_traj_nv, nv_p, nv_actor, nv_log_std, SEED, PPO_ENVS, "ppo",
+                      "tanh", dev, warmup=1, iters=5)
+    k19_t = cuda_time(ek.episode_returns_nv_policy, nv_p, nv_actor, SEED, PPO_ENVS, E, None,
+                      dev, warmup=1, iters=3)
+    k19s_t = cuda_time(ek.episode_returns_nv_policy, nv_p, nv_actor, SEED, PPO_ENVS, E,
+                       nv_log_std, dev, warmup=1, iters=3)
+    k20_t = cuda_time(ek.sample_policy_streams_debug_nv, nv_p, nv_actor, SEED, PPO_ENVS, E,
+                      None, dev, warmup=1, iters=3)
+    k21_t = cuda_time(ek.sample_normals_debug, SEED, NORMAL_ROWS, PPO_ENVS, dev, warmup=2,
+                      iters=20)
+    nv_dims = [nv_p.obs_dim, 64, 64, 1]
+    nv_det = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False)
+    nv_sto = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, True)
+    n_nv_eval = PPO_ENVS * E * nv_T
+    work.update({
+        "rollout_traj_nv": bound(PPO_ENVS * (5 + 4 * nv_T) * 4, PPO_ENVS * nv_T * nv_sto),
+        "episode_returns_nv_policy": bound(PPO_ENVS * E * 4, n_nv_eval * nv_det),
+        "sample_policy_streams_debug_nv": bound(PPO_ENVS * E * (1 + 5 + 2 * nv_T) * 4,
+                                                n_nv_eval * nv_det),
+        "sample_normals_debug": bound(NORMAL_ROWS * PPO_ENVS * 4,
+                                      NORMAL_ROWS * PPO_ENVS * NORMAL_OPS),
+    })
+    times.update({name: (t, {"best_ms": nv_plain_ms[name]}) for name, t in (
+        ("rollout_traj_nv", k18_t), ("episode_returns_nv_policy", k19_t),
+        ("sample_policy_streams_debug_nv", k20_t), ("sample_normals_debug", k21_t))})
+    print(f"[24 work] NV policy per env-step: MLP {mlp_ops(nv_dims)} + step {nv_step} + draws "
+          f"{nv_policy_draw_ops(nv_p, False):.1f} (deterministic) / "
+          f"{nv_policy_draw_ops(nv_p, True):.1f} (stochastic) ops; K21 {NORMAL_OPS} ops a "
+          f"normal; plain versions timed in phase 21 with its seeded actor", flush=True)
+    for name in NV_POLICY_KERNELS:
+        print_kernel(24, name, times[name], work[name], launches[name])
+    print(f"[24 kernel] episode_returns_nv_policy, stochastic: {k19s_t['best_ms']:.4f} ms "
+          f"(mean {k19s_t['mean_ms']:.4f}); rollout_traj_nv is "
+          f"{k18_t['best_ms'] / nv_update_ms:.1%} of the best NV PPO update "
+          f"({nv_update_ms:.3f} ms)", flush=True)
+    t0 = time.perf_counter()
+    nv_avg, nv_se, nv_wall, nv_upd = nv_reward_check(dev, nv_p)
+    if not (math.isfinite(nv_avg) and nv_avg > nv_mean):
+        raise AssertionError(f"NV PPO reward {nv_avg} not above the random policy's {nv_mean}")
+    print(f"[24 NV reward] benchmark_newsvendor.py PPO_CFG (256 envs x 50, 8 minibatches, "
+          f"4 epochs, ent_coef 0), rollout=\"kernel\", {NV_PPO_BUDGET} env-steps ({nv_upd} "
+          f"updates, {nv_wall:.1f} s), seed 0: deterministic return {nv_avg:.1f} +- "
+          f"{nv_se:.1f} over {PPO_ENVS * E} episodes, random policy {nv_mean:.1f} (phase 19); "
+          "RESULTS.md's TPU rows, rewards not speeds: PPO +97,569, best heuristic -106,568 "
+          f"(XLA rollout, 30 episodes); {time.perf_counter() - t0:.1f} s", flush=True)
+    nv_summary.update(k18_ms=k18_t["best_ms"], k19_ms=k19_t["best_ms"],
+                      k18_share_of_update=k18_t["best_ms"] / nv_update_ms,
+                      reward_mean=nv_avg, reward_se=nv_se, reward_train_s=nv_wall,
+                      reward_updates=nv_upd)
 
     rows = []
     for name, source, replaces in KERNEL_ROWS:

@@ -1,14 +1,14 @@
 """PPO trained through the trajectory kernels.
 
 Port of ``or_gym_inventory_tpu/agents/ppo.py:46-785``, the
-``rollout="kernel"`` path without a mesh, on NetInvMgmt and InvManagement:
-each update runs one stochastic-policy episode per env in the family's
-trajectory kernel (``ops.net_step.rollout_traj_net``, K4, or
-``ops.episode_kernels.rollout_traj_im``, K10), rebuilds the observation
-batch from the dumped streams, recomputes logp and values in one forward
-pass, and runs epochs of minibatched clipped-surrogate SGD. The SGD phase
-is plain PyTorch (``nn`` layers, autograd, matmuls), as the JAX package left
-it to XLA.
+``rollout="kernel"`` path without a mesh, on all three families: each
+update runs one stochastic-policy episode per env in the family's
+trajectory kernel (``ops.net_step.rollout_traj_net``, K4,
+``ops.episode_kernels.rollout_traj_im``, K10, or ``rollout_traj_nv``, K18),
+rebuilds the observation batch from the dumped streams, recomputes logp and
+values in one forward pass, and runs epochs of minibatched
+clipped-surrogate SGD. The SGD phase is plain PyTorch (``nn`` layers,
+autograd, matmuls), as the JAX package left it to XLA.
 
 Where the port differs in form:
 
@@ -39,7 +39,7 @@ import torch
 
 from or_gym_inventory_torch.agents import networks
 from or_gym_inventory_torch.core.device import resolve_device
-from or_gym_inventory_torch.envs import inv_management, net_inv_management
+from or_gym_inventory_torch.envs import inv_management, net_inv_management, newsvendor
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import episode_kernels, net_step
 from or_gym_inventory_torch.vector import vecenv
@@ -395,10 +395,10 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
             "rollout='xla' (the fused policy+env rollout) is still to port "
             "(ROADMAP.md A6b); use rollout='kernel'")
     family = getattr(env, "name", None)
-    if family not in ("net_inv_management", "inv_management"):
+    if family not in ("net_inv_management", "inv_management", "newsvendor"):
         raise NotImplementedError(
-            "rollout='kernel' runs the NetInvMgmt and InvManagement families "
-            f"in the port; got {family!r} (Newsvendor: ROADMAP.md A7b, kernel B14)")
+            "rollout='kernel' runs the NetInvMgmt, InvManagement and Newsvendor "
+            f"families; got {family!r}")
     horizon = env.horizon(env_params)
     if cfg.rollout_steps != horizon:
         raise ValueError(
@@ -423,6 +423,11 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
                                                  n_envs, device=dev)
             obs_all = inv_management.assemble_obs_from_streams(
                 env_params, tr["inv"], tr["actions"])     # (T+1, B, D) i32
+        elif family == "newsvendor":
+            tr = episode_kernels.rollout_traj_nv(env_params, actor, log_std, seed, n_envs,
+                                                 device=dev)
+            obs_all = newsvendor.assemble_obs_from_streams(
+                env_params, tr["econ"], tr["orders"])     # (T+1, B, D) f32
         else:
             tr = net_step.rollout_traj_net(env_params, actor, log_std, seed, n_envs,
                                            device=dev)

@@ -1,8 +1,9 @@
 // One Newsvendor period on one thread, the reset's economics and the
 // per-episode Poisson(mu) inversion, shared by every Newsvendor kernel
-// (nv_episode.cu K13-K17), so that they cannot drift apart. It replaces
-// pallas_episode_kernels._nv_step_math (:77), _nv_econ_from_uniforms
-// (:393), _nv_poisson_setup (:213) and _nv_poisson_invert (:273).
+// (nv_episode.cu K13-K17, nv_policy.cu K18-K20), so that they cannot drift
+// apart. It replaces pallas_episode_kernels._nv_step_math (:77),
+// _nv_econ_from_uniforms (:393), _nv_poisson_setup (:213) and
+// _nv_poisson_invert (:273).
 //
 // The params travel as one POD struct by value (__grid_constant__), packed
 // at run time by the wrapper (ops/episode_kernels.py _nv_plan, whose ctypes
@@ -74,9 +75,10 @@ __device__ __forceinline__ void nv_econ(const NvParams& p, const float* u, NvEpi
   s.mu = __fmul_rn(u[4], p.mu_max);
 }
 
-// One period: the undiscounted reward of ``order_raw`` against demand d.
+// One period: the undiscounted reward of ``order_raw`` against demand d; the
+// capped order that enters the pipeline into q.
 __device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
-                                         float order_raw, float d) {
+                                         float order_raw, float d, float& q) {
   const int L = p.L;
   float psum = 0.f, inv = order_raw;
   if (L > 0) {
@@ -88,7 +90,7 @@ __device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
       psum = __fadd_rn(psum, s.ring[k]);
     }
   }
-  const float q = max_nan(0.f, min_nan(order_raw, __fsub_rn(p.max_inv, psum)));
+  q = max_nan(0.f, min_nan(order_raw, __fsub_rn(p.max_inv, psum)));
   const float sales = min_nan(inv, d);
   const float excess = max_nan(0.f, __fsub_rn(inv, d));
   const float shortage = max_nan(0.f, __fsub_rn(d, inv));
@@ -100,6 +102,12 @@ __device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
     s.head = s.head + 1 == L ? 0 : s.head + 1;
   }
   return reward;
+}
+
+__device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
+                                         float order_raw, float d) {
+  float q;
+  return nv_step(p, s, order_raw, d, q);
 }
 
 // The per-episode anchor of the inversion (_nv_poisson_setup).

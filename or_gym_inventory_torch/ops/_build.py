@@ -71,6 +71,18 @@ SIGNATURES = {
         # T, stream
         "nv_episodes": ((_P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
     },
+    "nv_policy": {
+        # params, mlp, actor, n_actor, lgamma, econ, orders, raw, reward,
+        # demand, seed, B, T, stream
+        "nv_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _P),
+                            _I),
+        # params, mlp, actor, n_actor, lgamma, disc, out, econ, acts, dems,
+        # seed, stochastic, B, E, T, stream
+        "nv_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I,
+                               _I, _P), _I),
+        # out, seed, B, rows, stream
+        "sample_normals": ((_P, _U32, _LL, _I, _P), _I),
+    },
 }
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}
 

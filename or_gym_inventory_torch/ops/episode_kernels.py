@@ -3,18 +3,18 @@ the policy kernels, and the plain versions of the in-kernel helpers.
 
 Port of ``or_gym_inventory_tpu/ops/pallas_episode_kernels.py``: the
 InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``) and
-the Newsvendor kernels (``csrc/nv_episode.cu``) with their plain PyTorch
-versions, and what every policy kernel shares:
+the Newsvendor kernels (``csrc/nv_episode.cu``, ``csrc/nv_policy.cu``) with
+their plain PyTorch versions, and what every policy kernel shares:
 
 - ``clipped_std``, ``fold_actor_params`` (the obs RunningMeanStd folded into
   layer 1), ``folded_actor_mean`` and ``apply_folded_actor``, on host;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by the NetInvMgmt policy kernels (``ops/net_step.py``), K10 and
-  K11;
+  shared by the NetInvMgmt policy kernels (``ops/net_step.py``), K10, K11
+  and K18-K20;
 - the plain versions of the in-kernel helpers ``mlp_forward``,
   ``traj_policy`` (mode ``"ppo"``), ``_im_step_math``, ``_im_obs_rows``,
-  ``_nv_step_math``, ``_nv_poisson_setup``, ``_nv_poisson_invert`` and
-  ``_nv_econ_from_uniforms``. Those of ``_uniform01`` and ``_normal01`` are
+  ``_nv_step_math``, ``_nv_obs_rows``, ``_nv_poisson_setup``,
+  ``_nv_poisson_invert`` and ``_nv_econ_from_uniforms``. Those of ``_uniform01`` and ``_normal01`` are
   ``ops.rng.uniform01`` and ``normal01``, which turn Philox words into the
   kernels' draws where the TPU drew from its own generator.
 
@@ -32,6 +32,10 @@ versions, and what every policy kernel shares:
 | ``sample_streams_debug_nv``       | ``sample_streams_debug_nv`` :529 (K15)       |
 | ``episode_returns_nv_reset_fused`` | ``episode_returns_nv_reset_fused`` :495 (K16) |
 | ``sample_streams_debug_nv_reset`` | ``sample_streams_debug_nv_reset`` :513 (K17) |
+| ``rollout_traj_nv``               | ``rollout_traj_nv`` :1796 (K18)              |
+| ``episode_returns_nv_policy``     | ``episode_returns_nv_policy`` :648 (K19)     |
+| ``sample_policy_streams_debug_nv`` | ``sample_policy_streams_debug_nv`` :665 (K20) |
+| ``sample_normals_debug``          | ``sample_normals_debug`` :1849 (K21)         |
 
 Each wrapper runs the plain version for CPU tensors; on CUDA it launches its
 kernel and raises if the launch fails; nothing falls back. It counts its
@@ -44,8 +48,13 @@ pressure. The random streams are Philox4x32-10 words (``ops/rng.py``): the
 InvManagement random policy's under key (seed, 0), m1 action words then one
 demand word per period; the InvManagement policy kernels' (K10-K12) under
 (seed, 1), one demand word, then, when stochastic, m1 u1 and m1 u2 words;
-the Newsvendor kernels' under (seed, 0), the reset's 5 words at period
-``NV_ECON_PERIOD``, then per period one action word and one demand word.
+the Newsvendor random-policy kernels' (K13-K17) under (seed, 0), the
+reset's 5 words at period ``NV_ECON_PERIOD``, then per period one action
+word and one demand word; the Newsvendor policy kernels' (K18-K20) under
+(seed, 1), the reset's 5 words at ``NV_ECON_PERIOD``, then per period one
+demand word and, when stochastic, the u1 and u2 words of the normal; K21
+dumps normal01 of words 0 and 1 of period ``row`` under (seed, 1). The
+Newsvendor dumps are laid out as K17's: econ (E, 5, B), streams (T, E, B).
 
 An actor is ``(Ws, bs)``: Ws[l] (in, out), bs[l] (out,), float32, as the JAX
 package has it. The plain versions compute with the layers as (out, in), as
@@ -1162,3 +1171,246 @@ def sample_streams_debug_nv_reset(params: nv.NewsvendorParams, seed, batch: int,
 
 
 sample_streams_debug_nv_reset.launches = 0
+
+
+# ====================================== Newsvendor policy kernels K18-K21
+
+def _nv_half_hi(params: nv.NewsvendorParams):
+    """[f32(0.5 * max_order)], the factor of ``order = (tanh(raw) + 1) *
+    (0.5 * max_order)`` (pallas_episode_kernels.py:591, :1788)."""
+    return [nv.as_f32(0.5 * float(params.max_order_quantity))]
+
+
+def _nv_obs_rows(econ, P):
+    """The Newsvendor observation as a list of (N,) rows
+    (pallas_episode_kernels.py:586, :1783): [price, cost, h, k, mu], then the
+    pipeline oldest first; for lead time 0 the econ alone (obs_dim 5)."""
+    return list(econ) + list(P)
+
+
+def _nv_policy_econ_plain(params, seed, lanes, episodes):
+    """The reset's economics from the first five words of period
+    NV_ECON_PERIOD under key (seed, 1)."""
+    words = rng.period_words(seed, lanes, episodes, NV_ECON_PERIOD, 5, key1=rng.POLICY_KEY)
+    return list(_nv_econ_from_uniforms(params, [rng.uniform01(w) for w in words]))
+
+
+def _nv_policy_demand_plain(params, seed, lanes, episodes, mu):
+    """Every period's demand from word 0 of its block under key (seed, 1),
+    inverted at once (the count does not depend on the chunk)."""
+    _, K, _ = _nv_window(params)
+    us = [rng.uniform01(rng.period_words(seed, lanes, episodes, t, 1, key1=rng.POLICY_KEY)[0])
+          for t in range(params.step_limit)]
+    return _nv_poisson_invert(*_nv_poisson_setup(params, mu), K, us)
+
+
+def _nv_policy_period_plain(params, layers, std, seed, lanes, episodes, t, econ, P):
+    """The raw sample and the order of period ``t`` of the policy kernels
+    (csrc/nv_policy.cu ``policy_period``) for every (lane, episode): the
+    period's block under key (seed, 1), whose word 0 is the demand's and,
+    with ``std``, words 1 and 2 the u1 and u2 of the normal; the actor on
+    ``_nv_obs_rows``; order = (tanh(raw) + 1) * f32(0.5 max_order). Returns
+    (raw (N,), order (N,))."""
+    obs = _nv_obs_rows(econ, P)
+    if std is None:
+        raw = mlp_forward(layers, "tanh", obs)
+        a_norm = torch.tanh(raw)
+    else:
+        words = rng.period_words(seed, lanes, episodes, t, 3, key1=rng.POLICY_KEY)
+        z = rng.normal01(words[1], words[2])[None]
+        raw, a_norm = traj_policy("ppo", "tanh", 1, layers, std, obs, z)
+    return raw[0], (a_norm[0] + 1.0) * _nv_half_hi(params)[0]
+
+
+def _rollout_traj_nv_plain(params, actor, std, seed, batch, device):
+    """Plain version of K18: the streams of one stochastic-policy episode
+    per lane, as ``rollout_traj_nv`` returns them."""
+    T = params.step_limit
+    layers = kernel_layers(actor, device)
+    std = std.to(device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    econ = _nv_policy_econ_plain(params, seed, lanes, 0)
+    dems = _nv_policy_demand_plain(params, seed, lanes, 0, econ[4])
+    f32 = dict(dtype=torch.float32, device=device)
+    out = dict(econ=torch.stack(econ), orders=torch.empty((T, batch), **f32),
+               raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
+               demand=torch.stack(dems))
+    P = [torch.zeros(batch, **f32)] * params.lead_time
+    for t in range(T):
+        raw, order = _nv_policy_period_plain(params, layers, std, seed, lanes, 0, t, econ, P)
+        P, reward, q = _nv_step_math(params, P, *econ[:4], order, dems[t])
+        out["raw"][t, 0], out["orders"][t], out["reward"][t] = raw, q, reward
+    return out
+
+
+def _nv_policy_plain(params, actor, std, seed, batch, E, device, dump=False):
+    """Plain version of K19 (and, with ``dump``, K20): returns (E, B), and
+    the econ (E, 5, B), orders (T, E, B) and demand (T, E, B) they came from
+    (None without ``dump``). ``std`` None is the deterministic policy. All
+    E * B episodes run at once, episode-major, each with its own counter."""
+    T = params.step_limit
+    layers = kernel_layers(actor, device)
+    std = None if std is None else std.to(device)
+    idx = torch.arange(E * batch, dtype=torch.int64, device=device)
+    episodes, lanes = idx // batch, idx % batch
+    econ = _nv_policy_econ_plain(params, seed, lanes, episodes)
+    dems = _nv_policy_demand_plain(params, seed, lanes, episodes, econ[4])
+    orders = []
+    P = [torch.zeros_like(econ[0])] * params.lead_time
+    total = torch.zeros_like(econ[0])
+    for t, disc in enumerate(_discounts(params.gamma, T)):
+        _raw, order = _nv_policy_period_plain(params, layers, std, seed, lanes, episodes, t,
+                                              econ, P)
+        P, reward, _ = _nv_step_math(params, P, *econ[:4], order, dems[t])
+        total = total + disc * reward
+        orders.append(order)
+    if not dump:
+        return total.reshape(E, batch), None, None, None
+    return (total.reshape(E, batch), torch.stack(econ).reshape(5, E, batch).transpose(0, 1),
+            torch.stack(orders).reshape(T, E, batch), torch.stack(dems).reshape(T, E, batch))
+
+
+def _sample_normals_plain(seed, rows, batch, device):
+    """Plain version of K21: normal01(word 0, word 1) of counter (lane, 0,
+    row, 0) under key (seed, 1), as (rows, batch) float32."""
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    return torch.stack([rng.normal01(*rng.period_words(seed, lanes, 0, r, 2,
+                                                       key1=rng.POLICY_KEY))
+                        for r in range(rows)])
+
+
+def _nv_policy_args(params, actor, log_std, batch, E, device):
+    """(device, std or None, Mlp struct, packed actor) of a K18-K20 call;
+    raises ValueError for a batch, E or actor the kernels do not take."""
+    dev = resolve_device(device)
+    if E < 1 or batch < 1:
+        raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
+    std = None if log_std is None else clipped_std(torch.as_tensor(log_std).detach())
+    mlp, flat = _pack_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), dev)
+    return dev, std, mlp, flat
+
+
+def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: int,
+                    policy: str = "ppo", act_name: str = "tanh", device=None):
+    """One full stochastic-policy Newsvendor episode per lane with the
+    training streams written out. ``actor`` is ``(Ws, bs)`` from
+    ``fold_actor_params``; ``log_std`` the policy's log-std, clipped through
+    ``clipped_std``. Returns a dict, all float32: ``econ (5, batch)``,
+    ``orders (T, batch)`` (the capped orders, the obs pipeline's stream),
+    ``raw (T, 1, batch)`` (pre-squash samples), ``reward (T, batch)``
+    (undiscounted, env semantics) and ``demand (T, batch)``. K18: one thread
+    per lane (csrc/nv_policy.cu ``k_nv_rollout_traj``); on the CPU the plain
+    version runs. Only the PPO head with a tanh trunk is ported: other
+    ``policy`` or ``act_name`` values raise NotImplementedError."""
+    if policy != "ppo" or act_name != "tanh":
+        _refuse_mode(f"policy={policy!r}, act_name={act_name!r}")
+    if log_std is None:
+        raise ValueError("rollout_traj_nv samples the stochastic policy: log_std is required")
+    dev, std, mlp, flat = _nv_policy_args(params, actor, log_std, batch, 1, device)
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        return _rollout_traj_nv_plain(params, actor, std, seed, batch, dev)
+    plan = _nv_plan(params, _plan_key(dev))
+    T = params.step_limit
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(econ=torch.empty((5, batch), **f32), orders=torch.empty((T, batch), **f32),
+               raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
+               demand=torch.empty((T, batch), **f32))
+    with torch.cuda.device(dev):
+        _launch("nv_policy", "nv_rollout_traj", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(), plan["lgam"].data_ptr(),
+                *(out[k].data_ptr() for k in ("econ", "orders", "raw", "reward", "demand")),
+                seed, batch, T, _stream(dev))
+    rollout_traj_nv.launches += 1
+    return out
+
+
+rollout_traj_nv.launches = 0
+
+
+def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std, dump,
+                    device):
+    """K19 (``dump`` False) or K20 for ``wrapper``: (returns (E, B), econ
+    (E, 5, B), orders (T, E, B), demands (T, E, B)), the streams None
+    without ``dump``."""
+    E = int(episodes_per_lane)
+    dev, std, mlp, flat = _nv_policy_args(params, actor, log_std, batch, E, device)
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        return _nv_policy_plain(params, actor, std, seed, batch, E, dev, dump)
+    plan = _nv_plan(params, _plan_key(dev))
+    T = params.step_limit
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((E, batch), **f32)
+    econ = acts = dems = None
+    if dump:
+        econ = torch.empty((E, 5, batch), **f32)
+        acts = torch.empty((T, E, batch), **f32)
+        dems = torch.empty((T, E, batch), **f32)
+    with torch.cuda.device(dev):
+        _launch("nv_policy", "nv_policy_returns", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(), plan["lgam"].data_ptr(),
+                plan["disc"].data_ptr(), out.data_ptr(),
+                *(None if x is None else x.data_ptr() for x in (econ, acts, dems)),
+                seed, int(std is not None), batch, E, T, _stream(dev))
+    wrapper.launches += 1
+    return out, econ, acts, dems
+
+
+def episode_returns_nv_policy(params: nv.NewsvendorParams, actor, seed, batch: int,
+                              episodes_per_lane: int = 1, log_std=None, device=None):
+    """Learned-policy Newsvendor episode returns with the reset, the per-lane
+    Poisson(mu) demand and the MLP actor all run inside the kernel,
+    gamma^t-discounted. ``actor`` is ``(Ws, bs)`` from ``fold_actor_params``.
+    Deterministic by default; with the trained ``log_std`` ((1,)) the orders
+    come from tanh-squashed Gaussian samples around the mean. K19: one
+    thread per (episode, lane) (csrc/nv_policy.cu ``k_nv_policy_returns``);
+    on the CPU the plain version runs. Returns (batch,) for
+    episodes_per_lane=1, else (episodes_per_lane, batch), episode-major.
+    This is ``vector.fast_episodes.policy_episode_returns``' Newsvendor
+    path."""
+    out = _nv_policy_call(episode_returns_nv_policy, params, actor, seed, batch,
+                          episodes_per_lane, log_std, False, device)[0]
+    return out.reshape(batch) if episodes_per_lane == 1 else out
+
+
+episode_returns_nv_policy.launches = 0
+
+
+def sample_policy_streams_debug_nv(params: nv.NewsvendorParams, actor, seed, batch: int,
+                                   episodes_per_lane: int = 1, log_std=None, device=None):
+    """(returns, econ (E, 5, batch), orders (T, E, batch), demands
+    (T, E, batch)), all float32: ``episode_returns_nv_policy`` with the
+    economics, the orders (before the max_inventory cap) and the demand it
+    used written out. K20: the same kernel with its dump switched on, so the
+    streams are exactly the ones K19 consumes for the same seed. Returns are
+    (batch,) for episodes_per_lane=1, else (E, batch)."""
+    out, econ, acts, dems = _nv_policy_call(sample_policy_streams_debug_nv, params, actor,
+                                            seed, batch, episodes_per_lane, log_std, True,
+                                            device)
+    return (out.reshape(batch) if episodes_per_lane == 1 else out), econ, acts, dems
+
+
+sample_policy_streams_debug_nv.launches = 0
+
+
+def sample_normals_debug(seed, rows: int, batch: int, device=None) -> torch.Tensor:
+    """(rows, batch) float32 of the policy kernels' Box-Muller standard
+    normals, for a goodness-of-fit pin: element (row, lane) is normal01 of
+    words 0 and 1 of counter (lane, 0, row, 0) under key (seed, 1). K21: one
+    thread per element (csrc/nv_policy.cu ``k_sample_normals``); on the CPU
+    the plain version runs."""
+    dev = resolve_device(device)
+    if rows < 1 or batch < 1:
+        raise ValueError(f"need rows >= 1 and batch >= 1, got {rows}, {batch}")
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        return _sample_normals_plain(seed, rows, batch, dev)
+    out = torch.empty((rows, batch), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("nv_policy", "sample_normals", out.data_ptr(), seed, batch, rows, _stream(dev))
+    sample_normals_debug.launches += 1
+    return out
+
+
+sample_normals_debug.launches = 0

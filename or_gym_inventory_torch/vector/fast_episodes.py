@@ -2,16 +2,15 @@
 learned MLP policy.
 
 Port of ``or_gym_inventory_tpu/vector/fast_episodes.random_episode_returns``
-and ``policy_episode_returns`` (:42-217): every family's branch of
-``random_episode_returns``, and the NetInvMgmt and InvManagement branches of
-``policy_episode_returns``. On CUDA the episodes run in the fused kernels
+and ``policy_episode_returns`` (:42-217), every family's branch of both.
+On CUDA the episodes run in the fused kernels
 (``ops.net_step.episode_returns_fully_fused``, K2, and
 ``episode_returns_net_policy``, K5; ``ops.episode_kernels.
-episode_returns_im_fused``, K8, ``episode_returns_im_policy``, K11, and
-``episode_returns_nv_reset_fused``, K16), on the CPU in their plain
-versions. A demand the kernels cannot draw (a ``hostfn`` link, a law beyond
-the inversion table's cap) raises NotImplementedError before anything is
-launched; a failure to build or launch a kernel propagates. The JAX package
+episode_returns_im_fused``, K8, ``episode_returns_im_policy``, K11,
+``episode_returns_nv_reset_fused``, K16, and ``episode_returns_nv_policy``,
+K19), on the CPU in their plain versions. A demand the kernels cannot draw
+(a ``hostfn`` link, a law beyond the inversion table's cap) raises
+NotImplementedError before anything is launched; a failure to build or launch a kernel propagates. The JAX package
 fell back to its XLA rollout there; the port has no such fallback.
 """
 
@@ -80,9 +79,11 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     ``actor`` is ``(Ws, bs)`` from ``ops.episode_kernels.fold_actor_params``
     (pi trunk and mean head, obs normalisation folded in). The policy runs
     inside the episode kernel: K5 on NetInvMgmt, K11 on InvManagement (int
-    actions, alpha^t-discounted rewards). ``deterministic=False`` evaluates the
-    stochastic policy, tanh-squashed Gaussian samples around the mean, and
-    needs the trained ``log_std`` (the model's ``log_std`` parameter). The
+    actions, alpha^t-discounted rewards), K19 on Newsvendor (the reset and
+    the per-lane Poisson(mu) demand in the kernel too, gamma^t-discounted
+    returns). ``deterministic=False`` evaluates the stochastic policy,
+    tanh-squashed Gaussian samples around the mean, and needs the trained
+    ``log_std`` (the model's ``log_std`` parameter). The
     kernel seed is drawn from ``generator`` (``kernel_seed``), which must
     live on ``device``."""
     dev = resolve_device(device)
@@ -95,10 +96,9 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     _check_family(params)
     kern_log_std = None if deterministic else log_std
     if isinstance(params, nv.NewsvendorParams):
-        raise NotImplementedError(
-            "policy_episode_returns on Newsvendor runs the learned-policy "
-            "kernel episode_returns_nv_policy, still to port (ROADMAP.md "
-            "Queue B15)")
+        return episode_kernels.episode_returns_nv_policy(
+            params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+            log_std=kern_log_std, device=dev).reshape(-1)
     if isinstance(params, im.InvManagementParams):
         episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
         return episode_kernels.episode_returns_im_policy(

@@ -258,9 +258,12 @@ def test_wrappers_check_inputs_and_count_no_launches_on_cpu():
         tek.episode_returns_nv_reset_fused(tp, 1, 8, episodes_per_lane=0, device=CPU)
     with pytest.raises(ValueError, match="lead_time"):
         tek._nv_plan(tnv.default_params(lead_time=33), CPU)
+    # the learned-policy evaluation runs plain K19 on the CPU, and counts nothing
     actor = ((torch.zeros(10, 4), torch.zeros(4, 1)), (torch.zeros(4), torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="B15"):
-        tfe.policy_episode_returns(tp, actor, torch.Generator(), 4, device=CPU)
+    launches = tek.episode_returns_nv_policy.launches
+    out = tfe.policy_episode_returns(tp, actor, torch.Generator(), 4, device=CPU)
+    assert out.shape == (4,) and torch.isfinite(out).all()
+    assert tek.episode_returns_nv_policy.launches == launches
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tfe.random_episode_returns(tp, torch.Generator(), 4)

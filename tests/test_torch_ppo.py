@@ -209,8 +209,8 @@ def test_train_on_cpu_and_what_is_not_ported():
         tppo.train(tnet.ENV, tp, cfg, gen, 600, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="horizon"):
         tppo.train(tnet.ENV, tp, cfg.replace(rollout_steps=5), gen, 600, device=CPU)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tppo.train(dataclasses.replace(tnet.ENV, name="newsvendor"), tp, cfg, gen, 600,
+    with pytest.raises(NotImplementedError, match="families"):
+        tppo.train(dataclasses.replace(tnet.ENV, name="unported_family"), tp, cfg, gen, 600,
                    device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
