@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's eight main paths, each with every launch
+at once), then drives the port's ten main paths, each with every launch
 counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -40,7 +40,14 @@ counter set to 0 just before it and read just after:
 - slice 5, Newsvendor learned-policy evaluation (phase 23):
   ``policy_episode_returns`` of phase 22's trained actor at 65,536 x 16 x
   50, deterministic and stochastic, launches K19 once per call and nothing
-  else; the first 1,024 lanes are then held against plain K19.
+  else; the first 1,024 lanes are then held against plain K19;
+- slice 6, recurrent PPO on InvManagement (phase 26):
+  ``recurrent_ppo.train`` with ``rollout="kernel"`` at 65,536 x 30, the
+  benchmark LSTM (encoder 64, hidden 128), 4 epochs x 8 env-sliced
+  minibatches, 3 updates: 3 launches of K24 and nothing else;
+- slice 6, LSTM-policy evaluation (phase 27): ``lstm_policy_episode_returns``
+  of phase 26's trained actor at 1,048,576 x 30 launches K22 once and
+  nothing else; the first 1,024 lanes are then held against plain K22.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -56,28 +63,34 @@ K17's streams and a NaN lane), and K18-K21 in phase 21 (K18 at 65,536 x
 50, K19/K20 at 65,536 x 16 x 50, lead time 5 and 0, gamma 1 and 0.99,
 deterministic and stochastic, with K13 on K20's streams, K18 against the
 stochastic episode 0, a NaN std and K21's normals through the
-goodness-of-fit pin of tests/test_pallas_policy.py:394-419). Kernels on no
-main path are launched only to be held: K6, K5 with its streams dumped
-(phase 7), K9 and K7, the streams and the stream-in replay of K8's draws
-(phases 10-12), K12 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and
-K21 (phase 21). Then it times the vecenv rollout (phase 5), each kernel
-against its plain version (phases 6, 9, 14, 20 and 24), one PPO update
+goodness-of-fit pin of tests/test_pallas_policy.py:394-419), and K22-K24
+in phase 25 (at 65,536 x 30 with a seeded actor of the benchmark widths,
+Poisson demand in backlog and lost sales, binomial and USER mode, with K7
+on K23's streams, K24 replayed through the env step chain, its raws
+squashed to its actions and a NaN std). Kernels on no main path are
+launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
+K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
+(phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
+(phase 25). Then it times the vecenv rollout (phase 5), each kernel
+against its plain version (phases 6, 9, 14, 20, 24 and 28), one PPO update
 with its gradient in 8 chunks per minibatch against 1 (phase 9), trains
 InvManagement at the protocol of tools/validate_kernel_ppo.py for its
-reward (phase 15), and Newsvendor at benchmarks/benchmark_newsvendor.py's
-PPO_CFG for 4M env-steps for its reward (phase 24). Every phase prints its
-lines; any failure raises and exits non-zero. Without a CUDA device it
-exits 1 and prints no result.
+reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
+PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
+validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
+beat the random policy's (phase 29). Every phase prints its lines; any
+failure raises and exits non-zero. Without a CUDA device it exits 1 and
+prints no result.
 
-The last six lines are one JSON object of per-kernel numbers
-(``launches`` is the sum of a kernel's launches in the eight main-path
-runs, so 0 for K6, K7, K9, K12-K15, K17, K20 and K21; for K4, K5, K10, K11,
-K14, K16, K18, K19 and K20, ``max_abs_err`` is over the lanes that agree
-with the plain version), one
+The last seven lines are one JSON object of per-kernel numbers
+(``launches`` is the sum of a kernel's launches in the ten main-path
+runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
+K10, K11, K14, K16, K18, K19, K20, K22 and K24, ``max_abs_err`` is over the
+lanes that agree with the plain version), one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
-paths' rates and reward, one of the Newsvendor paths' rates and reward, the
-card's name and power limit as nvidia-smi gives them, and
-``{"ok": true, "device": {...}}``.
+paths' rates and reward, one of the Newsvendor paths' rates and reward, one
+of the recurrent paths' rates and reward, the card's name and power limit
+as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
 K9 and K10) bit for bit; the InvManagement int32 state of the env step
@@ -106,6 +119,14 @@ rewards and returns by the share of lanes (>= 99% within rtol=1e-4
 atol=1e-2: tanh and the MLP's sum order feed back through the pipeline);
 K13 on K20's streams and K18 against the stochastic K19's episode 0 within
 rtol=1e-5 atol=1e-3 (bit for bit expected, and reported); K21 atol=1e-5.
+LSTM kernels (K22-K24), run in full f32 with TF32 off on both sides: demand
+bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
+rewards against the plain versions by the share of lanes (>= 99% within
+rtol=1e-4 atol=1e-2: the actor sums in another order, so a truncation
+boundary lets a lane diverge); K7 on K23's and K24's streams within
+rtol=1e-5 atol=1e-3 (whether bit for bit is reported); the env step chain
+on K24's streams: inv exactly, rewards rtol=1e-4 atol=1e-2; K24's raws
+squashed by torch give its actions on >= 99.99% of elements (reported).
 """
 
 import json
@@ -174,11 +195,22 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:665"),
     ("sample_normals_debug", "or_gym_inventory_torch/csrc/nv_policy.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1849"),
+    ("episode_returns_im_lstm", "or_gym_inventory_torch/csrc/im_lstm.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1459"),
+    ("sample_lstm_streams_debug_im", "or_gym_inventory_torch/csrc/im_lstm.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1470"),
+    ("rollout_traj_im_lstm", "or_gym_inventory_torch/csrc/im_lstm.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1551"),
 ]
 IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:10]]
 IM_EVAL_KERNELS = [name for name, _, _ in KERNEL_ROWS[10:12]]
 NV_KERNELS = [name for name, _, _ in KERNEL_ROWS[12:17]]
-NV_POLICY_KERNELS = [name for name, _, _ in KERNEL_ROWS[17:]]
+NV_POLICY_KERNELS = [name for name, _, _ in KERNEL_ROWS[17:21]]
+LSTM_KERNELS = [name for name, _, _ in KERNEL_ROWS[21:24]]
+# the recurrent learner: RecurrentPPOConfig's default widths, the benchmark
+# PPO_LSTM architecture (obs_dim 33, encoder 64, hidden 128, act_dim 3)
+LSTM_HIDDEN, LSTM_ENCODER = 128, (64,)
+LSTM_EVAL_LANES = 1_048_576  # the evaluation main path: lanes x 30 periods
 # the five demand modes of InvManagement (inventory_management.py:169-184)
 IM_DIST_MODES = [
     ("poisson", {}),
@@ -187,6 +219,15 @@ IM_DIST_MODES = [
     ("geometric", {"dist": 4, "dist_param": {"p": 0.05}}),
     ("user", {"dist": 5, "user_D": tuple((7 * t) % 41 for t in range(NUM_STEPS))}),
 ]
+# phase 25's cases: (demand mode, backlog)
+LSTM_CASES = [(IM_DIST_MODES[0], True), (IM_DIST_MODES[0], False), (IM_DIST_MODES[1], True),
+              (IM_DIST_MODES[4], False)]
+# tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel"): IM backlog, periods 50
+RPPO_RECIPE = dict(num_envs=1024, rollout_steps=50, num_minibatches=8, update_epochs=4,
+                   rollout="kernel")
+RPPO_BUDGET = 2_000_000
+RPPO_EVAL_ENVS = 64
+TPU_RPPO_REWARD = "+8,306.2 +- 15.5"  # tools/remeasure_logs/validate_kernel_ppo.jsonl:11
 # benchmarks/benchmark_newsvendor.py:35-38 (the reference's evaluation config)
 NV_ENV_CONFIG = {"lead_time": 5, "step_limit": 50, "p_max": 100.0, "h_max": 5.0,
                  "k_max": 10.0, "mu_max": 200.0}
@@ -270,6 +311,18 @@ def mlp_ops(dims):
     output, a tanh per hidden output (transcendentals counted as one)."""
     ops = sum(2 * a * b + b for a, b in zip(dims, dims[1:]))
     return ops + sum(dims[1:-1])
+
+
+def lstm_ops(dims, hidden, act_dim):
+    """Operations of one period of the folded LSTM actor in csrc/lstm.cuh,
+    an FMA counted as two and a transcendental as one: the encoder (a bias
+    add and a tanh per output), the gates (2 (enc + h) 4h and a bias per
+    gate), the cell per unit (three sigmoids of an exp, an add and a
+    division, two tanh, three products and a sum) and the mean head."""
+    ops = sum(2 * a * b + 2 * b for a, b in zip(dims, dims[1:]))
+    ops += 2 * (dims[-1] + hidden) * 4 * hidden + 4 * hidden
+    ops += hidden * (3 * 3 + 2 + 4)
+    return ops + 2 * hidden * act_dim + act_dim
 
 
 def policy_draw_ops(T, link_specs, stochastic):
@@ -380,8 +433,9 @@ def read_counts(wrappers):
 
 
 class no_plain_versions:
-    """Within the block, every plain version of K1-K21 raises, so a counted
-    main-path run shows that it went through the kernels alone."""
+    """Within the block, every plain version of K1-K24 (and the LSTM actor's,
+    ``lstm_forward``) raises, so a counted main-path run shows that it went
+    through the kernels alone."""
 
     NAMES = {"net_step": ("_episode_returns_plain", "_episode_returns_fully_fused_plain",
                           "_sample_streams_plain", "_rollout_traj_plain",
@@ -390,7 +444,8 @@ class no_plain_versions:
                                  "_rollout_traj_im_plain", "_im_policy_plain",
                                  "_episode_returns_nv_plain", "_nv_fused_plain",
                                  "_rollout_traj_nv_plain", "_nv_policy_plain",
-                                 "_sample_normals_plain")}
+                                 "_sample_normals_plain", "_im_lstm_plain",
+                                 "_rollout_traj_im_lstm_plain", "lstm_forward")}
 
     def __enter__(self):
         import importlib
@@ -408,6 +463,23 @@ class no_plain_versions:
     def __exit__(self, *exc):
         for mod, n, fn in self.saved:
             setattr(mod, n, fn)
+
+
+def ptxas_entries(out):
+    """Each kernel of one source's ``ptxas -v`` output as "name<template
+    flags>: registers, stack"."""
+    import re
+    rows, name = [], None
+    for ln in out.splitlines():
+        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:Lb[01]E)+E)?E", ln)
+        if m:
+            flags = ",".join(re.findall(r"Lb([01])", m.group(2) or ""))
+            name = f"{m.group(1)}<{flags}>" if flags else m.group(1)
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes (?:cumulative )?stack", ln)
+        if m and name:
+            rows.append(f"{name} {m.group(1)} registers, {m.group(2)} B stack")
+            name = None
+    return "; ".join(rows)
 
 
 def timed_once(fn, *args):
@@ -1384,6 +1456,248 @@ def nv_reward_check(dev, params):
             len(metrics["update"]))
 
 
+# ------------------------------------- InvManagement recurrent PPO (slice 6)
+
+def seeded_lstm_actor(params, dev):
+    """Phase 25's actor: an LSTMActorCritic of the benchmark widths (encoder
+    64, hidden 128) drawn from its own initialisation, its mean head scaled
+    by 30 so that the actions move across their range, and obs statistics
+    with mean ~50 and std ~20 folded into the encoder's first layer.
+    Returns (folded actor, log_std) on ``dev``."""
+    import torch
+
+    from or_gym_inventory_torch.agents import networks, ppo
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    g = torch.Generator().manual_seed(SEED)
+    D = im.observation_space(params).shape[0]
+    model = networks.LSTMActorCritic(D, params.m1, hidden=LSTM_HIDDEN, encoder=LSTM_ENCODER,
+                                     generator=g)
+    with torch.no_grad():
+        model.mean.weight.mul_(30.0)
+    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(D, generator=g),
+                             var=(20.0 + 5.0 * torch.rand(D, generator=g)) ** 2,
+                             count=torch.tensor(1e3))
+    actor = ek._lstm_on(ek.fold_lstm_actor(rppo.RecurrentPPOConfig(), model, rms), dev)
+    return actor, model.log_std.detach().to(dev)
+
+
+def lstm_cross_check(dev):
+    """Phase 25: K22-K24 against their plain versions at 65,536 x 30 with a
+    seeded actor of the benchmark widths, for Poisson demand in backlog and
+    lost sales, binomial in backlog and USER mode in lost sales. K23's
+    demand bit for bit and its returns equal to K22's; K22's returns and
+    K23's actions against the plain version by the share of lanes; K7 on
+    K23's streams gives K22's returns. K24's demand bit for bit against the
+    plain version and K23's; its inv, actions, raws and rewards by the share
+    of lanes; the env step chain on its actions and demand gives its inv
+    exactly and its rewards within rtol=1e-4 atol=1e-2; its raws squash to
+    its actions; K7 on its streams gives the sum of its rewards. A NaN std
+    gives NaN raws and actions 0 in K24 and its plain version. Returns (max
+    |diff| per kernel over agreeing lanes, plain ms per kernel, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    B, T = CHECK_LANES, NUM_STEPS
+    err = dict.fromkeys(LSTM_KERNELS, 0.0)
+    plain_ms, lines = {}, []
+    bitwise = {"K7 on K23": True, "K7 on K24": True, "squash": True}
+    for (label, kw), backlog in LSTM_CASES:
+        params = im.default_params(backlog=backlog, **kw)
+        case = f"{label}, {'backlog' if backlog else 'lost sales'}"
+        m1 = params.m1
+        actor, log_std = seeded_lstm_actor(params, dev)
+        std = ek.clipped_std(log_std)
+        k22 = ek.episode_returns_im_lstm(params, actor, SEED, B, dev)
+        r23, a23, d23 = ek.sample_lstm_streams_debug_im(params, actor, SEED, B, dev)
+        ms, (want, want_a, want_d) = timed_once(ek._im_lstm_plain, params, actor, SEED, B, dev,
+                                                True)
+        plain_ms.setdefault("sample_lstm_streams_debug_im", ms)
+        exact(f"K23 demand, {case}", d23, want_d)
+        exact(f"K23 returns vs K22, {case}", r23, k22)
+        sh_r, e22 = lane_share(f"K22 vs plain, {case}", k22, want)
+        sh_a, e23 = lane_share(f"K23 actions vs plain, {case}", a23.reshape(T * m1, B),
+                               want_a.reshape(T * m1, B))
+        err["episode_returns_im_lstm"] = max(err["episode_returns_im_lstm"], e22)
+        err["sample_lstm_streams_debug_im"] = max(err["sample_lstm_streams_debug_im"], e22, e23)
+        k7 = ek.episode_returns_im(params, a23, d23)
+        close(f"K7 on K23's streams vs K22, {case}", k7, k22, 1e-5, 1e-3)
+        bitwise["K7 on K23"] &= bool(torch.equal(k7, k22))
+        del want, want_a, want_d, k7
+
+        tr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, B, device=dev)
+        ms, ptr = timed_once(ek._rollout_traj_im_lstm_plain, params, actor, std, SEED, B, dev)
+        plain_ms.setdefault("rollout_traj_im_lstm", ms)
+        exact(f"K24 demand vs plain, {case}", tr["demand"], ptr["demand"])
+        exact(f"K24 demand vs K23, {case}", tr["demand"], d23)
+        shares = {k: lane_share(f"K24 {k} vs plain, {case}", tr[k], ptr[k])
+                  for k in ("inv", "actions", "raw", "reward")}
+        err["rollout_traj_im_lstm"] = max([err["rollout_traj_im_lstm"]]
+                                          + [e for _, e in shares.values()])
+        del ptr
+        state, _ = im.reset(params, batch=B, device=dev)
+        for t in range(T):
+            exact(f"step chain inv[{t}] vs K24 inv, {case}", state.inv.T, tr["inv"][t])
+            state, ts = im.step_with_demand(params, state, tr["actions"][t].T, tr["demand"][t])
+            close(f"step chain reward[{t}] vs K24, {case}", ts.reward, tr["reward"][t],
+                  1e-4, 1e-2)
+        exact(f"step chain final inv vs K24, {case}", state.inv.T, tr["inv"][T])
+        half_c = torch.tensor(ek._half_c(params), device=dev)[:, None]
+        squashed = im.trunc_i32((torch.tanh(tr["raw"]) + 1.0) * half_c)
+        same = float((squashed == tr["actions"]).double().mean())
+        if same < 0.9999:
+            raise AssertionError(f"K24's raws squash to its actions on {same:.6%} of elements, "
+                                 f"{case}")
+        bitwise["squash"] &= same == 1.0
+        k7 = ek.episode_returns_im(params, tr["actions"], tr["demand"])
+        close(f"K7 on K24's streams vs its rewards, {case}", k7, tr["reward"].sum(0), 1e-5, 1e-3)
+        bitwise["K7 on K24"] &= bool(torch.equal(k7, tr["reward"].sum(0)))
+        lines.append(f"{case}: K23 demand bit-exact and K23 = K22; lanes agreeing with plain "
+                     f"K22 {sh_r:.4%} (returns), {sh_a:.4%} (K23's actions); K24 demand = "
+                     "plain = K23's, lanes agreeing " + ", ".join(
+                         f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                     + f"; the step chain gives K24's inv exactly; raws squash to its actions "
+                     f"on {same:.6%} of elements")
+        del k22, r23, a23, d23, tr, k7
+    params = im.default_params()
+    actor, log_std = seeded_lstm_actor(params, dev)
+    nan_std = torch.full_like(log_std, float("nan"))
+    got = ek.rollout_traj_im_lstm(params, actor, nan_std, SEED, MULTI_LANES, device=dev)
+    plain = ek._rollout_traj_im_lstm_plain(params, actor, ek.clipped_std(nan_std), SEED,
+                                           MULTI_LANES, dev)
+    if not (torch.isnan(got["raw"]).all() and int(got["actions"].abs().max()) == 0
+            and torch.equal(got["actions"], plain["actions"])):
+        raise AssertionError("K24 with a NaN std: raws not NaN or actions not all 0")
+    lines.append("a NaN std: K24 and plain K24 give NaN raws and actions 0; bit for bit: "
+                 + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def lstm_train_main_path(dev, wrappers, smi):
+    """Phase 26, the recurrent learner's main path: ``recurrent_ppo.train``
+    with ``rollout="kernel"`` on ``inv_management.default_params()`` at
+    65,536 envs x 30, encoder 64 and hidden 128, 4 epochs x 8 env-sliced
+    minibatches, 3 updates, counting launches from 0 with every plain
+    version patched to raise: K24 once per update and nothing else.
+    Returns (launches, lines, (params, cfg, state, eval_episodes), rates)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    params = im.default_params()
+    cfg = rppo.RecurrentPPOConfig(num_envs=PPO_ENVS, rollout_steps=NUM_STEPS,
+                                  num_minibatches=8, update_epochs=4, hidden=LSTM_HIDDEN,
+                                  encoder=LSTM_ENCODER, rollout="kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stamps = [time.perf_counter()]
+
+    def progress(_m, _s):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset_counts(wrappers)
+    with no_plain_versions():
+        state, eval_episodes, metrics = rppo.train(im.ENV, params, cfg, gen,
+                                                   PPO_UPDATES * PPO_ENVS * NUM_STEPS,
+                                                   progress=progress, device=dev)
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"rollout_traj_im_lstm": PPO_UPDATES}:
+        raise AssertionError(f"the recurrent PPO path launched {moved}, not K24 once per "
+                             "update")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    if bad or len(metrics["update"]) != PPO_UPDATES:
+        raise AssertionError(f"recurrent PPO metrics not finite: {bad}; {metrics}")
+    update_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    best = min(update_ms)
+    samples = PPO_ENVS * NUM_STEPS
+    lines = [f"recurrent PPO {PPO_ENVS} x {NUM_STEPS}, encoder 64, hidden 128, 4 epochs x 8 "
+             f"env-sliced minibatches: update ms {', '.join(f'{t:.3f}' for t in update_ms)} "
+             f"(the first builds the model); best {best:.3f} ms = "
+             f"{samples / best * 1e3:.6g} trained-steps/s on {smi}",
+             "recurrent PPO metrics: " + "; ".join(f"{k} {', '.join(f'{x:.6g}' for x in v)}"
+                                                   for k, v in metrics.items()),
+             "K24 launched once per update, nothing else, no plain version"]
+    rates = {"update_ms": best, "trained_steps_s": samples / best * 1e3}
+    return launches, lines, (params, cfg, state, eval_episodes), rates
+
+
+def lstm_eval_main_path(dev, wrappers, params, actor, smi):
+    """Phase 27, the LSTM-policy evaluation of phase 26's trained actor:
+    ``lstm_policy_episode_returns`` at 1,048,576 lanes x 30, counting
+    launches from 0 with every plain version patched to raise: K22 once and
+    nothing else. After the counts are read, the first 1,024 lanes are held
+    against plain K22 on the replayed seed (lanes keep their counters).
+    Returns (launches, max |diff| over agreeing lanes, lines, rates)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    replay = torch.Generator(device=dev)
+    replay.set_state(g.get_state())
+    seed = fast_episodes.kernel_seed(replay)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        ms, ret = timed_once(fast_episodes.lstm_policy_episode_returns, params, actor, g,
+                             LSTM_EVAL_LANES, dev)
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"episode_returns_im_lstm": 1}:
+        raise AssertionError(f"the LSTM evaluation launched {moved}, not K22 once")
+    if ret.shape != (LSTM_EVAL_LANES,) or not torch.isfinite(ret).all():
+        raise AssertionError(f"LSTM evaluation: shape {tuple(ret.shape)} or non-finite")
+    share, err = lane_share("LSTM evaluation vs plain K22", ret[:MULTI_LANES].contiguous(),
+                            ek._im_lstm_plain(params, actor, seed, MULTI_LANES, dev)[0])
+    env_steps = LSTM_EVAL_LANES * NUM_STEPS
+    lines = [f"lstm_policy_episode_returns {LSTM_EVAL_LANES} x {NUM_STEPS}: {ms:.3f} ms = "
+             f"{env_steps / ms * 1e3:.6g} env-steps/s, mean {float(ret.double().mean()):.3f} "
+             f"on {smi}",
+             f"K22 launched once, nothing else, no plain version; the first {MULTI_LANES} "
+             f"lanes: {share:.4%} agree with plain K22"]
+    rates = {"eval_ms": ms, "eval_env_steps_s": env_steps / ms * 1e3,
+             "eval_mean": float(ret.double().mean())}
+    return launches, err, lines, rates
+
+
+def lstm_reward_check(dev):
+    """Phase 29, tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel")'s
+    protocol: IM backlog, periods 50, 1,024 envs, rollout_steps 50, 8
+    minibatches, 4 epochs, 2M steps (39 updates), seed 0; then the port's
+    ``eval_episodes`` on 64 envs. The random policy's mean return at the
+    same params (K8, 65,536 episodes) is the bar it must beat. Returns
+    (mean, its standard error, the random mean, training seconds,
+    updates)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.vector import fast_episodes
+    params = im.default_params(backlog=True, periods=50)
+    cfg = rppo.RecurrentPPOConfig(**RPPO_RECIPE)
+    t0 = time.perf_counter()
+    state, eval_episodes, metrics = rppo.train(
+        im.ENV, params, cfg, torch.Generator(device=dev).manual_seed(0), RPPO_BUDGET,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = eval_episodes(state.params, state.rms,
+                           torch.Generator(device=dev).manual_seed(4000), RPPO_EVAL_ENVS)
+    totals = totals.double().cpu().numpy()
+    random_mean = float(fast_episodes.random_episode_returns(
+        params, torch.Generator(device=dev).manual_seed(0), CHECK_LANES,
+        device=dev).double().mean())
+    if not np.isfinite(totals).all():
+        raise AssertionError("recurrent reward check: non-finite episode totals")
+    return (float(totals.mean()), float(totals.std(ddof=1) / np.sqrt(len(totals))),
+            random_mean, wall, len(metrics["update"]))
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -1445,6 +1759,8 @@ def main() -> int:
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"[2 build] {time.perf_counter() - t0:.1f} s, {len(logs)} source(s) "
           f"compiled; ptxas: {' | '.join(ptxas)}", flush=True)
+    print("[2 build] K22-K24 (csrc/im_lstm.cu): " + "; ".join(
+        ptxas_entries(out) for so, out in logs.items() if "libim_lstm" in so), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -1929,6 +2245,96 @@ def main() -> int:
                       reward_mean=nv_avg, reward_se=nv_se, reward_train_s=nv_wall,
                       reward_updates=nv_upd)
 
+    # 25. the LSTM kernels against their plain versions, with a seeded actor
+    t0 = time.perf_counter()
+    err2, lstm_plain_ms, lines = lstm_cross_check(dev)
+    err.update(err2)
+    for line in lines:
+        print(f"[25 LSTM kernels] {line}", flush=True)
+    print(f"[25 LSTM kernels] {len(LSTM_CASES)} cases at {CHECK_LANES} x {NUM_STEPS}; max "
+          f"|diff| over agreeing lanes {err2}; plain ms {lstm_plain_ms}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 26. the ninth main path, counting launches: recurrent PPO on InvManagement
+    t0 = time.perf_counter()
+    launches9, lines, (lstm_p, lstm_cfg, lstm_state, _), lstm_rates = lstm_train_main_path(
+        dev, wrappers, smi)
+    for line in lines:
+        print(f"[26 RPPO main path] {line}", flush=True)
+    print(f"[26 RPPO main path] launches {launches9}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    lstm_actor = ek.fold_lstm_actor(lstm_cfg, lstm_state.params, lstm_state.rms)
+    lstm_log_std = lstm_state.params.log_std.detach()
+
+    # 27. the tenth main path, counting launches: LSTM-policy evaluation
+    t0 = time.perf_counter()
+    launches10, k22_err, lines, eval_rates = lstm_eval_main_path(dev, wrappers, lstm_p,
+                                                                 lstm_actor, smi)
+    err["episode_returns_im_lstm"] = max(err["episode_returns_im_lstm"], k22_err)
+    lstm_rates.update(eval_rates)
+    for line in lines:
+        print(f"[27 LSTM eval main path] {line}", flush=True)
+    print(f"[27 LSTM eval main path] launches {launches10}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {name: launches[name] + launches9[name] + launches10[name] for name in wrappers}
+    missing = [name for name in ("rollout_traj_im_lstm", "episode_returns_im_lstm")
+               if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the slice-6 main paths launched no {missing}")
+
+    # 28. per-kernel times of K22-K24 at the main paths' shapes, and the work model
+    n22 = LSTM_EVAL_LANES
+    k22_t = cuda_time(ek.episode_returns_im_lstm, lstm_p, lstm_actor, SEED, n22, dev,
+                      warmup=1, iters=3)
+    k22_p = cuda_time(ek._im_lstm_plain, lstm_p, lstm_actor, SEED, n22, dev, warmup=0, iters=1)
+    k23_t = cuda_time(ek.sample_lstm_streams_debug_im, lstm_p, lstm_actor, SEED, n22, dev,
+                      warmup=1, iters=3)
+    k23_p = cuda_time(ek._im_lstm_plain, lstm_p, lstm_actor, SEED, n22, dev, True, warmup=0,
+                      iters=1)
+    k24_t = cuda_time(ek.rollout_traj_im_lstm, lstm_p, lstm_actor, lstm_log_std, SEED, PPO_ENVS,
+                      dev, warmup=1, iters=5)
+    k24_p = cuda_time(ek._rollout_traj_im_lstm_plain, lstm_p, lstm_actor,
+                      ek.clipped_std(lstm_log_std), SEED, PPO_ENVS, dev, warmup=0, iters=3)
+    lstm_dims = [lstm_p.pipeline_length] + list(LSTM_ENCODER)
+    cell_ops = lstm_ops(lstm_dims, LSTM_HIDDEN, m1) + im_step_ops(lstm_p)
+    det_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len, stochastic=False)
+    sto_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len)
+    work.update({
+        "episode_returns_im_lstm": bound(n22 * 4, n22 * T * det_ops),
+        "sample_lstm_streams_debug_im": bound(n22 * (1 + T * (m1 + 1)) * 4, n22 * T * det_ops),
+        "rollout_traj_im_lstm": bound(PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4,
+                                      PPO_ENVS * T * sto_ops),
+    })
+    times.update({"episode_returns_im_lstm": (k22_t, k22_p),
+                  "sample_lstm_streams_debug_im": (k23_t, k23_p),
+                  "rollout_traj_im_lstm": (k24_t, k24_p)})
+    print(f"[28 work] LSTM per env-step: actor {lstm_ops(lstm_dims, LSTM_HIDDEN, m1)} ops "
+          f"(widths {lstm_dims}, hidden {LSTM_HIDDEN}), step {im_step_ops(lstm_p)}, draws "
+          f"{im_policy_draw_ops(lstm_p, table_len, stochastic=False)} (deterministic) / "
+          f"{im_policy_draw_ops(lstm_p, table_len)} (stochastic); K22/K23 at {n22} x {T}, K24 "
+          f"at {PPO_ENVS} x {T}, with phase 26's trained actor", flush=True)
+    for name in LSTM_KERNELS:
+        print_kernel(28, name, times[name], work[name], launches[name])
+    lstm_rates.update(k22_ms=k22_t["best_ms"], k24_ms=k24_t["best_ms"],
+                      k24_share_of_update=k24_t["best_ms"] / lstm_rates["update_ms"])
+    print(f"[28 kernel] rollout_traj_im_lstm is {lstm_rates['k24_share_of_update']:.1%} of the "
+          f"best recurrent PPO update ({lstm_rates['update_ms']:.3f} ms)", flush=True)
+
+    # 29. reward at the recurrent protocol of tools/validate_kernel_ppo.py
+    t0 = time.perf_counter()
+    r_avg, r_se, r_random, r_wall, r_upd = lstm_reward_check(dev)
+    if not (math.isfinite(r_avg) and r_avg > r_random):
+        raise AssertionError(f"recurrent PPO reward {r_avg} not above the random policy's "
+                             f"{r_random}")
+    print(f"[29 RPPO reward] validate_kernel_ppo.py rppo_kernel protocol (IM backlog, periods "
+          f"50, 1,024 envs, 8 minibatches, 4 epochs, {RPPO_BUDGET} steps = {r_upd} updates, "
+          f"{r_wall:.1f} s), seed 0: AvgReward {r_avg:.1f} +- {r_se:.1f} over "
+          f"{RPPO_EVAL_ENVS} deterministic episodes (eval_episodes); random policy "
+          f"{r_random:.1f}; the JAX package's TPU run {TPU_RPPO_REWARD} (a reward, not a "
+          f"speed); {time.perf_counter() - t0:.1f} s", flush=True)
+    lstm_rates.update(reward_mean=r_avg, reward_se=r_se, reward_random_mean=r_random,
+                      reward_train_s=r_wall, reward_updates=r_upd)
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -1944,6 +2350,7 @@ def main() -> int:
     print(json.dumps({"ppo_main_path": summary}))
     print(json.dumps({"im_main_path": im_summary}))
     print(json.dumps({"nv_main_path": nv_summary}))
+    print(json.dumps({"lstm_main_path": lstm_rates}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Policy and value networks of the port (port of
-``or_gym_inventory_tpu/agents/networks.py:32-58, 107-133``).
+``or_gym_inventory_tpu/agents/networks.py:32-58, 74-133``).
 
 ``MLPActorCritic`` is the flax module as an ``nn.Module``: separate pi and vf
 trunks (SB3 layout), orthogonal initialisation with gain sqrt(2) for the
@@ -9,8 +9,13 @@ constructor takes ``obs_dim`` where flax inferred it. ``nn.Linear`` keeps its
 weight as (out, in); the flax kernel is the transpose (``utils.interop``
 carries one into the other).
 
+``LSTMActorCritic`` is the recurrent one: a tanh Dense encoder, flax's
+``OptimizedLSTMCell`` written out in tensor ops (so that a sequence can be
+re-run with episode boundaries inside it), and mean and value heads on the
+cell's output.
+
 Actions are tanh-squashed Gaussians rescaled to the env's action box.
-``QNetwork`` and ``LSTMActorCritic`` wait for ROADMAP.md A9 and A10.
+``QNetwork`` waits for ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -69,6 +74,103 @@ class MLPActorCritic(nn.Module):
         for layer in self.vf:
             g = act(layer(g))
         return self.mean(h), self.log_std, self.value(g).squeeze(-1)
+
+
+def _lecun_normal(n_in: int, n_out: int, generator) -> torch.Tensor:
+    """flax's default kernel init, (in, out): a normal of variance 1 / n_in
+    truncated at two standard deviations, rescaled to keep that variance."""
+    w = torch.empty(n_in, n_out)
+    std = math.sqrt(1.0 / n_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    return w
+
+
+class LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell(hidden)`` in its own layout: ``wi`` (in, 4h)
+    is the input kernels [ii | if | ig | io] side by side, without a bias;
+    ``wh`` (h, 4h) the recurrent kernels [hi | hf | hg | ho] and ``bh`` (4h,)
+    their biases. Gates i, f, o are sigmoids and g a tanh; c' = f c + i g and
+    h' = o tanh(c'). flax's inits: lecun-normal input kernels, orthogonal
+    recurrent kernels (gain 1, one per gate), zero biases."""
+
+    def __init__(self, n_in: int, hidden: int, generator: torch.Generator = None):
+        super().__init__()
+        self.hidden = hidden
+        self.wi = nn.Parameter(torch.cat([_lecun_normal(n_in, hidden, generator)
+                                          for _ in range(4)], dim=1))
+        wh = torch.empty(hidden, 4 * hidden)
+        for g in range(4):
+            nn.init.orthogonal_(wh[:, g * hidden:(g + 1) * hidden], generator=generator)
+        self.wh = nn.Parameter(wh)
+        self.bh = nn.Parameter(torch.zeros(4 * hidden))
+
+    def forward(self, carry, x):
+        c, h = carry
+        gates = (h @ self.wh + self.bh) + x @ self.wi
+        i, f, g, o = gates.split(self.hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class LSTMActorCritic(nn.Module):
+    """Recurrent actor-critic: tanh Dense encoder -> LSTM cell -> mean and
+    value heads (JAX networks.LSTMActorCritic). ``forward(carry, obs, done)``
+    returns (carry, (mean, log_std, value)) with the carry (c, h); a ``done``
+    row zeroes that env's carry before the cell. Inits as flax's: encoder
+    orthogonal sqrt(2), mean head orthogonal 0.01, value head lecun-normal,
+    zero biases, zero ``log_std``."""
+
+    def __init__(self, obs_dim: int, action_dim: int, hidden: int = 128,
+                 encoder: Tuple[int, ...] = (64,), activation: str = "tanh",
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.activation = activation
+        self.hidden = hidden
+        self.enc = _trunk(obs_dim, encoder, generator)
+        self.cell = LSTMCell(encoder[-1] if encoder else obs_dim, hidden, generator)
+        self.mean = _dense(hidden, action_dim, 0.01, generator)
+        self.log_std = nn.Parameter(torch.zeros(action_dim))
+        self.value = nn.Linear(hidden, 1)
+        with torch.no_grad():
+            self.value.weight.copy_(_lecun_normal(hidden, 1, generator).T)
+            self.value.bias.zero_()
+
+    def initial_carry(self, batch: int, device=None):
+        zeros = torch.zeros((batch, self.hidden), dtype=torch.float32, device=device)
+        return zeros, zeros.clone()
+
+    def encode(self, obs: torch.Tensor) -> torch.Tensor:
+        act = _ACTS[self.activation]
+        x = obs
+        for layer in self.enc:
+            x = act(layer(x))
+        return x
+
+    def heads(self, h: torch.Tensor):
+        return self.mean(h), self.log_std, self.value(h).squeeze(-1)
+
+    def step(self, carry, x, done=None):
+        """One cell step on the encoded input ``x``: (carry, h)."""
+        if done is not None:
+            keep = (1.0 - done.to(torch.float32))[..., None]
+            carry = (carry[0] * keep, carry[1] * keep)
+        return self.cell(carry, x)
+
+    def forward(self, carry, obs, done=None):
+        carry, h = self.step(carry, self.encode(obs), done)
+        return carry, self.heads(h)
+
+    def forward_sequence(self, carry, obs_seq, done_seq):
+        """``forward`` scanned over time-major (T, B, ...) inputs, the
+        encoder and heads batched over all T at once. Returns (final carry,
+        (mean (T, B, act), log_std, value (T, B)))."""
+        x = self.encode(obs_seq)
+        hs = []
+        for t in range(obs_seq.shape[0]):
+            carry, h = self.step(carry, x[t], done_seq[t])
+            hs.append(h)
+        return carry, self.heads(torch.stack(hs))
 
 
 # ------------------------------------------------------- action squashing

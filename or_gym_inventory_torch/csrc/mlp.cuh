@@ -98,14 +98,6 @@ __device__ __forceinline__ float* load_params(const Mlp& m, const float* params,
   return sw;
 }
 
-// Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 size_t smem_bytes(const Mlp& m, int n_params) {
   return (size_t)(((n_params + 3) & ~3) + 2 * m.act_rows * kThreads) * sizeof(float);
 }

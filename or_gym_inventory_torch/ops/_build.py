@@ -64,6 +64,15 @@ SIGNATURES = {
         "im_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
                                _LL, _I, _I, _P), _I),
     },
+    "im_lstm": {
+        # params, lstm, actor, table, user_d, disc, out, acts, dems, seed,
+        # backlog, B, T, stream
+        "im_lstm_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _P), _I),
+        # params, lstm, actor, table, user_d, disc, inv, acts, raw, reward,
+        # demand, seed, backlog, B, T, stream
+        "im_lstm_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL,
+                                  _I, _P), _I),
+    },
     "nv_episode": {
         # params, econ, acts, dems, disc, out, seed, random, B, T, stream
         "nv_episode_returns": ((_P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _P), _I),

@@ -2,9 +2,11 @@
 the policy kernels, and the plain versions of the in-kernel helpers.
 
 Port of ``or_gym_inventory_tpu/ops/pallas_episode_kernels.py``: the
-InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``) and
-the Newsvendor kernels (``csrc/nv_episode.cu``, ``csrc/nv_policy.cu``) with
-their plain PyTorch versions, and what every policy kernel shares:
+InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``, and
+under the LSTM actor ``csrc/im_lstm.cu``) and the Newsvendor kernels
+(``csrc/nv_episode.cu``, ``csrc/nv_policy.cu``) with their plain PyTorch
+versions, ``fold_lstm_actor`` and ``lstm_forward`` (the LSTM actor's plain
+version), and what every MLP policy kernel shares:
 
 - ``clipped_std``, ``fold_actor_params`` (the obs RunningMeanStd folded into
   layer 1), ``folded_actor_mean`` and ``apply_folded_actor``, on host;
@@ -26,6 +28,9 @@ their plain PyTorch versions, and what every policy kernel shares:
 | ``rollout_traj_im``               | ``rollout_traj_im`` :1683 (K10)              |
 | ``episode_returns_im_policy``     | ``episode_returns_im_policy`` :1264 (K11)    |
 | ``sample_policy_streams_debug_im`` | ``sample_policy_streams_debug_im`` :1287 (K12) |
+| ``episode_returns_im_lstm``       | ``episode_returns_im_lstm`` :1459 (K22)      |
+| ``sample_lstm_streams_debug_im``  | ``sample_lstm_streams_debug_im`` :1470 (K23) |
+| ``rollout_traj_im_lstm``          | ``rollout_traj_im_lstm`` :1551 (K24)         |
 | ``episode_returns_nv``            | ``episode_returns_nv`` :146 (K13)            |
 | ``episode_returns_nv_random``     | ``episode_returns_nv_random`` :157 (K13)     |
 | ``episode_returns_nv_fused``      | ``episode_returns_nv_fused`` :368 (K14)      |
@@ -46,8 +51,9 @@ The wrappers drop the JAX entry points' ``block``, ``interpret`` and
 tiling, the order in which it consumed its random numbers and its register
 pressure. The random streams are Philox4x32-10 words (``ops/rng.py``): the
 InvManagement random policy's under key (seed, 0), m1 action words then one
-demand word per period; the InvManagement policy kernels' (K10-K12) under
-(seed, 1), one demand word, then, when stochastic, m1 u1 and m1 u2 words;
+demand word per period; the InvManagement policy kernels' (K10-K12, and the
+LSTM kernels K22-K24) under (seed, 1), one demand word, then, when
+stochastic, m1 u1 and m1 u2 words;
 the Newsvendor random-policy kernels' (K13-K17) under (seed, 0), the
 reset's 5 words at period ``NV_ECON_PERIOD``, then per period one action
 word and one demand word; the Newsvendor policy kernels' (K18-K20) under
@@ -225,7 +231,7 @@ def _pad16(n: int) -> int:
 
 def _actor_dims(actor, obs_dim: int, act_dim: int):
     """The actor's widths [obs_dim, ..., act_dim]; raises ValueError for an
-    actor that does not fit the env or the kernels' maxima."""
+    actor that does not fit the env."""
     Ws, bs = actor
     if len(Ws) != len(bs) or not Ws:
         raise ValueError("actor must be (Ws, bs) with one bias per layer")
@@ -237,10 +243,6 @@ def _actor_dims(actor, obs_dim: int, act_dim: int):
     if dims[0] != obs_dim or dims[-1] != act_dim:
         raise ValueError(f"actor maps {dims[0]} -> {dims[-1]}; the env needs "
                          f"obs_dim {obs_dim} -> act_dim {act_dim}")
-    if len(Ws) > MAX_LAYERS or max(dims) > MAX_WIDTH or act_dim > MAX_ACT:
-        raise ValueError(f"actor widths {dims}: the kernels take at most "
-                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH} and "
-                         f"{MAX_ACT} actions")
     return dims
 
 
@@ -249,10 +251,15 @@ def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     factor that maps tanh(raw_i) + 1 onto action i's range) and one flat
     float32 buffer on ``device``, each layer as W^T (in, out16) then b
     (out16), the outputs zero-padded to a multiple of 16, then the std when
-    given. Raises ValueError if the buffer and the activation buffers exceed
-    the shared memory of a block."""
+    given. Raises ValueError for an actor beyond the kernels' maxima, or if
+    the buffer and the activation buffers exceed the shared memory of a
+    block."""
     dims = _actor_dims(actor, obs_dim, act_dim)
     Ws, bs = actor
+    if len(Ws) > MAX_LAYERS or max(dims) > MAX_WIDTH or act_dim > MAX_ACT:
+        raise ValueError(f"actor widths {dims}: the kernels take at most "
+                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH} and "
+                         f"{MAX_ACT} actions")
     parts = []
     for W, b in zip(Ws, bs):
         n_in, n_out = W.shape
@@ -372,21 +379,39 @@ class _ImParams(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=32)
-def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = True):
-    """A launch's host-built arguments, built once per (params, device):
-    the params struct, the f32 alpha^t table (as a list and on ``device``),
+def _im_host_plan(params: im.InvManagementParams, device: str, with_demand: bool = True):
+    """What the plain versions and the kernels both take, built once per
+    (params, device): the f32 alpha^t table (as a list and on ``device``),
     and with ``with_demand`` the demand's plan: the CDF table on ``device``
     ((inf,) when empty, which inverts to 0), its base, and USER mode's
-    per-period values. K7 reads no demand plan, so any law runs there.
-    Raises ValueError for params beyond the struct's maxima."""
-    m1, lt, T = params.m1, params.lt_max, params.periods
-    if m1 > IM_MAX_M1 or lt > IM_MAX_LT:
-        raise ValueError(f"InvManagement params too large for the CUDA kernels: "
-                         f"m1={m1} (max {IM_MAX_M1}), lt_max={lt} (max {IM_MAX_LT})")
+    per-period values. K7 reads no demand plan, so any law runs there. No
+    size cap applies: the plain versions run any params the JAX package
+    runs."""
+    T = params.periods
     spec = _im_demand_spec(params) if with_demand else None
     user = with_demand and spec is None
     base, table = spec if spec is not None else (0, ())
-    st = _ImParams(m1=m1, lt=lt, user=int(user), tab_len=len(table), base=int(base))
+    discs = _discounts(params.alpha, T)
+    user_d = [int(params.user_D[t]) if t < len(params.user_D) else 0 for t in range(T)]
+    return dict(discs=discs, user=user, base=int(base), tab_len=len(table),
+                disc=torch.tensor(discs, dtype=torch.float32, device=device),
+                table=torch.tensor(table or (float("inf"),), dtype=torch.float32,
+                                   device=device),
+                user_d=torch.tensor(user_d, dtype=torch.int32, device=device))
+
+
+@functools.lru_cache(maxsize=32)
+def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = True):
+    """A launch's host-built arguments: ``_im_host_plan`` and the params
+    struct of the CUDA kernels. Raises ValueError for params beyond the
+    struct's maxima."""
+    m1, lt = params.m1, params.lt_max
+    if m1 > IM_MAX_M1 or lt > IM_MAX_LT:
+        raise ValueError(f"InvManagement params too large for the CUDA kernels: "
+                         f"m1={m1} (max {IM_MAX_M1}), lt_max={lt} (max {IM_MAX_LT})")
+    host = _im_host_plan(params, device, with_demand)
+    st = _ImParams(m1=m1, lt=lt, user=int(host["user"]), tab_len=host["tab_len"],
+                   base=host["base"])
     up, uc, hv = params.unit_price, params.unit_cost, params.holding_cost_vec
     for i in range(m1):
         st.c[i], st.L[i], st.I0[i] = params.c[i], params.L[i], params.I0[i]
@@ -394,13 +419,7 @@ def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = Tr
     for i in range(params.num_stages):
         st.gain[i] = float(np.float32(float(up[i]) - float(uc[i])))
         st.k[i] = float(np.float32(params.k[i]))
-    discs = _discounts(params.alpha, T)
-    user_d = [int(params.user_D[t]) if t < len(params.user_D) else 0 for t in range(T)]
-    return dict(struct=st, discs=discs, user=user, base=int(base),
-                disc=torch.tensor(discs, dtype=torch.float32, device=device),
-                table=torch.tensor(table or (float("inf"),), dtype=torch.float32,
-                                   device=device),
-                user_d=torch.tensor(user_d, dtype=torch.int32, device=device))
+    return dict(host, struct=st)
 
 
 def _im_actions_plain(params: im.InvManagementParams, words):
@@ -458,7 +477,7 @@ def _im_fused_plain(params, seed, batch, episodes_per_lane, device, dump=False):
     (actions (T, E, m1, B), demand (T, E, B)). All E * B episodes run at
     once, episode-major, each with its own counter."""
     m1, T, E = params.m1, params.periods, episodes_per_lane
-    plan = _im_plan(params, str(device))
+    plan = _im_host_plan(params, str(device))
     idx = torch.arange(E * batch, dtype=torch.int64, device=device)
     episodes, lanes = idx // batch, idx % batch
     if dump:
@@ -513,7 +532,7 @@ def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
     """Plain version of K10: the streams of one stochastic-policy episode
     per lane, as ``rollout_traj_im`` returns them."""
     m1, lt, T = params.m1, params.lt_max, params.periods
-    plan = _im_plan(params, str(device))
+    plan = _im_host_plan(params, str(device))
     layers = kernel_layers(actor, device)
     std = std.to(device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
@@ -546,7 +565,7 @@ def _im_policy_plain(params, actor, std, seed, batch, E, device, dump=False):
     (None without ``dump``). ``std`` None is the deterministic policy. All
     E * B episodes run at once, episode-major, each with its own counter."""
     m1, lt, T = params.m1, params.lt_max, params.periods
-    plan = _im_plan(params, str(device))
+    plan = _im_host_plan(params, str(device))
     layers = kernel_layers(actor, device)
     std = None if std is None else std.to(device)
     idx = torch.arange(E * batch, dtype=torch.int64, device=device)
@@ -716,9 +735,10 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
     seed = int(seed) & rng.MASK32
     std = clipped_std(torch.as_tensor(log_std).detach())
     obs_dim = im.observation_space(params).shape[0]
-    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
     if dev.type == "cpu":
+        _actor_dims(actor, obs_dim, m1)
         return _rollout_traj_im_plain(params, actor, std, seed, batch, dev)
+    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
     plan = _im_plan(params, _plan_key(dev))
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -752,9 +772,10 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     seed = int(seed) & rng.MASK32
     std = None if log_std is None else clipped_std(torch.as_tensor(log_std).detach())
     obs_dim = im.observation_space(params).shape[0]
-    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
     if dev.type == "cpu":
+        _actor_dims(actor, obs_dim, m1)
         return _im_policy_plain(params, actor, std, seed, batch, E, dev, dump)
+    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
     plan = _im_plan(params, _plan_key(dev))
     out = torch.empty((E, batch), dtype=torch.float32, device=dev)
     acts = dems = None
@@ -805,6 +826,339 @@ def sample_policy_streams_debug_im(params: im.InvManagementParams, actor, seed,
 
 
 sample_policy_streams_debug_im.launches = 0
+
+
+# ======================================= InvManagement LSTM kernels K22-K24
+#
+# The recurrent actor of RecurrentPPO / A2C_LSTM, folded, in the episode:
+# per period the obs rows of the live state, a tanh encoder, the LSTM cell
+# G = Wx @ E + Wh @ H + bh with gate row blocks [i, f, g, o], C = f C + i g,
+# H = o tanh(C), and the mean head (pallas_episode_kernels.py:1304-1610).
+# The (hidden, lanes) carry stays in the kernel (csrc/lstm.cuh).
+
+# maxima of the LSTM kernels (csrc/lstm.cuh): encoder layers, the hidden
+# width (a multiple of 4: a thread owns 4 units; at most 256 threads a
+# block), actions; the widths are bounded by the shared memory of a block
+LSTM_MAX_ENC, LSTM_MAX_HIDDEN, LSTM_MAX_ACT = 4, 128, 8
+_LSTM_LANES = 32   # kLstmLanes of csrc/lstm.cuh: the lanes a block runs
+
+
+def fold_lstm_actor(cfg, model, rms=None) -> dict:
+    """The deterministic LSTM actor of a RecurrentPPO / A2C_LSTM model
+    (``networks.LSTMActorCritic``) as plain (out, in)-layout float32 tensors,
+    the obs normalisation folded into the first encoder layer as
+    ``fold_actor_params`` folds it (pallas_episode_kernels.fold_lstm_actor
+    :1326). Returns a dict: ``enc`` [(W (out, in), b (out, 1))], ``wx``
+    (4h, enc), ``wh`` (4h, h), ``bh`` (4h, 1), ``wm`` (act, h), ``bm``
+    (act, 1), the gate row blocks in the order i, f, g, o. As in the JAX
+    package, an actor without encoder layers keeps no normalisation."""
+    if getattr(cfg, "activation", "tanh") != "tanh":
+        raise NotImplementedError(
+            f"fold_lstm_actor: the LSTM kernels run a tanh encoder, as the JAX "
+            f"package's do; got activation={cfg.activation!r}")
+    enc = []
+    for i, layer in enumerate(model.enc):
+        W = layer.weight.detach().to(torch.float32).T   # (in, out), flax's kernel
+        b = layer.bias.detach().to(torch.float32)
+        if i == 0 and rms is not None and getattr(cfg, "normalize_obs", True):
+            invstd = 1.0 / torch.sqrt(rms.var.to(torch.float32) + 1e-8)
+            mu = rms.mean.to(torch.float32)
+            b = b - (mu * invstd) @ W
+            W = W * invstd[:, None]
+        enc.append((W.T.contiguous(), b.reshape(-1, 1).clone()))
+    cell = model.cell
+
+    def f32(p):
+        return p.detach().to(torch.float32)
+
+    return dict(enc=enc, wx=f32(cell.wi).T.contiguous(), wh=f32(cell.wh).T.contiguous(),
+                bh=f32(cell.bh).reshape(-1, 1).clone(),
+                wm=f32(model.mean.weight).clone(), bm=f32(model.mean.bias).reshape(-1, 1).clone())
+
+
+def _lstm_on(actor, device) -> dict:
+    """``actor`` with every tensor float32 on ``device``."""
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return dict(enc=[(t(W), t(b)) for W, b in actor["enc"]],
+                **{k: t(actor[k]) for k in ("wx", "wh", "bh", "wm", "bm")})
+
+
+def lstm_forward(actor, obs_rows, H, C):
+    """Plain version of the in-kernel LSTM actor (csrc/lstm.cuh
+    ``lstm_forward``; pallas_episode_kernels.py:1391-1403): the obs rows,
+    each (B,), stacked to (obs_dim, B), the tanh encoder, the gates
+    G = Wx @ E + Wh @ H + bh, the cell, and the mean head. ``H`` and ``C``
+    are (hidden, B). Returns (mean (act, B), H', C')."""
+    X = torch.stack([r.to(torch.float32) for r in obs_rows])
+    for W, b in actor["enc"]:
+        X = torch.tanh(W @ X + b)
+    h = actor["wh"].shape[1]
+    G = actor["wx"] @ X + actor["wh"] @ H + actor["bh"]
+    i, f, o = (torch.sigmoid(G[k * h:(k + 1) * h]) for k in (0, 1, 3))
+    C = f * C + i * torch.tanh(G[2 * h:3 * h])
+    H = o * torch.tanh(C)
+    return actor["wm"] @ H + actor["bm"], H, C
+
+
+def _im_lstm_period_plain(params, plan, actor, std, seed, lanes, t, inv, AH, H, C):
+    """Demand, raw samples and int actions of period ``t`` of the LSTM
+    kernels (csrc/im_lstm.cu ``lane_draws``/``lane_act``), K10's stream
+    layout: under key (seed, 1) one demand word, then, with ``std``, the m1
+    u1 and the m1 u2 words of the normals; the actor on ``_im_obs_rows``;
+    the action (int)((tanh(raw) + 1) * f32(0.5 c_i)). Returns (demand, raw
+    (m1, B), [m1 int32 action rows], H', C')."""
+    m1 = params.m1
+    words = rng.period_words(seed, lanes, 0, t, 1 if std is None else 1 + 2 * m1,
+                             key1=rng.POLICY_KEY)
+    d = _im_demand_plain(plan, words[0], t)
+    raw, H, C = lstm_forward(actor, _im_obs_rows(params, t, inv, AH), H, C)
+    if std is not None:
+        raw = raw + std * rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]))
+    S = torch.tanh(raw) + 1.0
+    half_c = _half_c(params)
+    return d, raw, [im.trunc_i32(S[i] * half_c[i]) for i in range(m1)], H, C
+
+
+def _im_lstm_episodes_plain(params, actor, std, seed, batch, device, traj):
+    """The episode loop shared by the plain K22-K24: one episode per lane,
+    zero carry at the start. With ``traj`` (K24) returns ``rollout_traj_im_lstm``'s
+    dict; otherwise (returns (B,), actions (T, m1, B), demand (T, B))."""
+    m1, lt, T = params.m1, params.lt_max, params.periods
+    plan = _im_host_plan(params, str(device))
+    actor = _lstm_on(actor, device)
+    std = None if std is None else std.to(device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = dict(inv=torch.empty((T + 1, m1, batch), **i32),
+               actions=torch.empty((T, m1, batch), **i32),
+               raw=torch.empty((T, m1, batch), **f32),
+               reward=torch.empty((T, batch), **f32),
+               demand=torch.empty((T, batch), **i32))
+    inv, bkl, RH = _im_reset_rows(params, batch, device)
+    AH = list(RH)
+    H = torch.zeros((actor["wh"].shape[1], batch), **f32)
+    C = torch.zeros_like(H)
+    total = torch.zeros(batch, **f32)
+    for t, disc in enumerate(plan["discs"]):
+        out["inv"][t] = torch.stack(inv)
+        d, raw, acts, H, C = _im_lstm_period_plain(params, plan, actor, std, seed, lanes, t,
+                                                   inv, AH, H, C)
+        out["raw"][t], out["actions"][t], out["demand"][t] = raw, torch.stack(acts), d
+        inv, bkl, RH, r_req, profit = _im_step_math(params, t, inv, bkl, RH, acts, d)
+        if lt:
+            AH = r_req + AH[: (lt - 1) * m1]
+        out["reward"][t] = disc * profit
+        total = total + disc * profit
+    out["inv"][T] = torch.stack(inv)
+    if traj:
+        return out
+    return total, out["actions"], out["demand"]
+
+
+def _im_lstm_plain(params, actor, seed, batch, device, dump=False):
+    """Plain version of K22 (and, with ``dump``, K23): (returns (B,),
+    actions (T, m1, B), demand (T, B)), the streams None without
+    ``dump``."""
+    total, acts, dems = _im_lstm_episodes_plain(params, actor, None, seed, batch, device,
+                                                False)
+    return (total, acts, dems) if dump else (total, None, None)
+
+
+def _rollout_traj_im_lstm_plain(params, actor, std, seed, batch, device):
+    """Plain version of K24: the streams of one stochastic LSTM-policy
+    episode per lane, as ``rollout_traj_im_lstm`` returns them."""
+    return _im_lstm_episodes_plain(params, actor, std, seed, batch, device, True)
+
+
+def _lstm_dims(actor, obs_dim: int, act_dim: int):
+    """(widths [obs_dim, enc...], hidden) of a folded LSTM actor; raises
+    ValueError for an actor that does not chain or fit the env."""
+    dims = [obs_dim]
+    for layer, (W, b) in enumerate(actor["enc"]):
+        if W.ndim != 2 or W.shape[1] != dims[-1] or tuple(b.shape) != (W.shape[0], 1):
+            raise ValueError(f"encoder layer {layer}: W {tuple(W.shape)} and b "
+                             f"{tuple(b.shape)} do not chain from obs_dim {obs_dim} "
+                             f"through widths {dims}")
+        dims.append(int(W.shape[0]))
+    h = int(actor["wh"].shape[1])
+    shapes = {"wx": (4 * h, dims[-1]), "wh": (4 * h, h), "bh": (4 * h, 1),
+              "wm": (act_dim, h), "bm": (act_dim, 1)}
+    for k, want in shapes.items():
+        if tuple(actor[k].shape) != want:
+            raise ValueError(f"LSTM actor {k} {tuple(actor[k].shape)}, expected {want} "
+                             f"(widths {dims}, hidden {h}, act_dim {act_dim})")
+    return dims, h
+
+
+class _Lstm(ctypes.Structure):
+    """Mirror of ``struct Lstm`` in csrc/lstm.cuh (all fields 4-byte, so
+    both sides lay it out without padding)."""
+    _fields_ = [("n_enc", ctypes.c_int), ("dims", ctypes.c_int * (LSTM_MAX_ENC + 1)),
+                ("hidden", ctypes.c_int), ("act", ctypes.c_int),
+                ("w_enc", ctypes.c_int * LSTM_MAX_ENC), ("b_enc", ctypes.c_int * LSTM_MAX_ENC),
+                ("w_gate", ctypes.c_int), ("b_gate", ctypes.c_int), ("w_mean", ctypes.c_int),
+                ("b_mean", ctypes.c_int), ("std", ctypes.c_int), ("threads", ctypes.c_int),
+                ("s_h0", ctypes.c_int), ("s_h1", ctypes.c_int), ("s_e", ctypes.c_int),
+                ("s_x0", ctypes.c_int), ("s_x1", ctypes.c_int), ("s_m", ctypes.c_int),
+                ("s_z", ctypes.c_int), ("s_total", ctypes.c_int),
+                ("half_hi", ctypes.c_float * LSTM_MAX_ACT)]
+
+
+def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
+    """The LSTM kernels' actor arguments: the Lstm struct and one flat
+    float32 buffer on ``device``. The buffer holds the gate weights as
+    (enc + h, h, 4), row k and unit j giving the four gates [i, f, g, o] of
+    unit j for input k (Wx's rows then Wh's), so that one 16-byte load
+    brings them; the gate biases (h, 4); each encoder layer's W (out, in)
+    and b; the mean head's W (act, h) and b; the std when given. The struct
+    carries their offsets, the block's thread count and its shared-memory
+    layout (floats, each buffer ``_LSTM_LANES`` columns wide). Raises
+    ValueError for an actor beyond the kernels' maxima or the shared memory
+    of a block."""
+    dims, h = _lstm_dims(actor, obs_dim, act_dim)
+    n_enc = len(dims) - 1
+    if n_enc > LSTM_MAX_ENC or h % 4 or h > LSTM_MAX_HIDDEN or act_dim > LSTM_MAX_ACT:
+        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}, {act_dim} actions: the "
+                         f"kernels take at most {LSTM_MAX_ENC} encoder layers, a hidden width "
+                         f"that is a multiple of 4 and <= {LSTM_MAX_HIDDEN}, and "
+                         f"{LSTM_MAX_ACT} actions")
+    a = _lstm_on(actor, device)
+    e = dims[-1]
+    w_gate = torch.cat([a["wx"], a["wh"]], dim=1).reshape(4, h, e + h).permute(2, 1, 0)
+    parts = [w_gate.reshape(-1), a["bh"].reshape(4, h).T.reshape(-1)]
+    st = _Lstm(n_enc=n_enc, hidden=h, act=act_dim, w_gate=0, b_gate=parts[0].numel())
+
+    def append(x) -> int:
+        offset = sum(p.numel() for p in parts)
+        parts.append(x.reshape(-1))
+        return offset
+
+    for layer, (W, b) in enumerate(a["enc"]):
+        st.w_enc[layer], st.b_enc[layer] = append(W), append(b)
+    st.w_mean, st.b_mean = append(a["wm"]), append(a["bm"])
+    st.std = -1 if std is None else append(std.to(device=device, dtype=torch.float32))
+    for k, d in enumerate(dims):
+        st.dims[k] = d
+    for i, v in enumerate(half_hi):
+        st.half_hi[i] = v
+    N = _LSTM_LANES
+    x_rows = max(dims[:-1]) if n_enc else dims[0]
+    st.s_h0, st.s_h1 = 0, h * N
+    st.s_x0 = 2 * h * N + (e * N if n_enc else 0)
+    st.s_e = 2 * h * N if n_enc else st.s_x0
+    st.s_x1 = st.s_x0 + x_rows * N
+    st.s_m = st.s_x1 + (x_rows * N if n_enc > 1 else 0)
+    st.s_z = st.s_m + act_dim * N
+    st.s_total = st.s_z + act_dim * N
+    st.threads = -(-max(h // 4 * (N // 4), N) // 32) * 32
+    if st.s_total * 4 > SMEM_OPTIN_BYTES:
+        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: {st.s_total * 4} bytes "
+                         f"of shared memory a block; a block holds {SMEM_OPTIN_BYTES}")
+    return st, torch.cat(parts).contiguous()
+
+
+def _im_lstm_args(params, actor, batch, device):
+    """(device, obs_dim) of a K22-K24 call, the actor checked against the env."""
+    dev = resolve_device(device)
+    if batch < 1:
+        raise ValueError(f"need batch >= 1, got {batch}")
+    obs_dim = im.observation_space(params).shape[0]
+    _lstm_dims(actor, obs_dim, params.m1)
+    return dev, obs_dim
+
+
+def _im_lstm_call(wrapper, params, actor, seed, batch, dump, device):
+    """K22 (``dump`` False) or K23 for ``wrapper``: (returns (B,), actions,
+    demands), the streams None without ``dump``."""
+    dev, obs_dim = _im_lstm_args(params, actor, batch, device)
+    seed = int(seed) & rng.MASK32
+    if dev.type == "cpu":
+        return _im_lstm_plain(params, actor, seed, batch, dev, dump)
+    st, flat = _pack_lstm_actor(actor, None, obs_dim, params.m1, _half_c(params), dev)
+    plan = _im_plan(params, _plan_key(dev))
+    T, m1 = params.periods, params.m1
+    out = torch.empty(batch, dtype=torch.float32, device=dev)
+    acts = torch.empty((T, m1, batch), dtype=torch.int32, device=dev) if dump else None
+    dems = torch.empty((T, batch), dtype=torch.int32, device=dev) if dump else None
+    with torch.cuda.device(dev):
+        _launch("im_lstm", "im_lstm_returns", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
+                plan["user_d"].data_ptr(), plan["disc"].data_ptr(), out.data_ptr(),
+                acts.data_ptr() if dump else None, dems.data_ptr() if dump else None,
+                seed, int(params.backlog), batch, T, _stream(dev))
+    wrapper.launches += 1
+    return out, acts, dems
+
+
+def episode_returns_im_lstm(params: im.InvManagementParams, actor, seed, batch: int,
+                            device=None) -> torch.Tensor:
+    """Deterministic LSTM-policy episode returns (batch,) float32, the
+    recurrent actor run inside the kernel on the live state with its
+    (hidden, lanes) carry kept there. ``actor`` is the dict of
+    ``fold_lstm_actor``. Demand is drawn by inverting the demand law's CDF
+    table (USER mode reads ``user_D[t]``; a law beyond the table cap raises
+    NotImplementedError). K22: a block per 32 lanes (csrc/im_lstm.cu
+    ``k_im_lstm_returns``); on the CPU the plain version runs."""
+    return _im_lstm_call(episode_returns_im_lstm, params, actor, seed, batch, False,
+                         device)[0]
+
+
+episode_returns_im_lstm.launches = 0
+
+
+def sample_lstm_streams_debug_im(params: im.InvManagementParams, actor, seed, batch: int,
+                                 device=None):
+    """(returns (batch,), actions (T, m1, batch) int32, demands (T, batch)
+    int32): ``episode_returns_im_lstm`` with the int actions and the demand
+    it used written out. K23: the same kernel with its dump switched on, so
+    the streams are exactly the ones K22 consumes for the same seed."""
+    return _im_lstm_call(sample_lstm_streams_debug_im, params, actor, seed, batch, True,
+                         device)
+
+
+sample_lstm_streams_debug_im.launches = 0
+
+
+def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, batch: int,
+                         device=None):
+    """One full stochastic LSTM-policy episode per lane, zero carry at the
+    start, with the training streams written out. ``actor`` is the dict of
+    ``fold_lstm_actor``; ``log_std`` the policy's log-std, clipped through
+    ``clipped_std``. Returns a dict: ``inv (T+1, m1, batch)`` int32
+    start-of-period on-hand (the final snapshot last), ``actions (T, m1,
+    batch)`` int32, ``raw (T, m1, batch)`` f32 pre-squash samples, ``reward
+    (T, batch)`` f32 (alpha^t-discounted) and ``demand (T, batch)`` int32.
+    It draws K10's stream, so its demand is K23's for the same seed. K24: a
+    block per 32 lanes (csrc/im_lstm.cu ``k_im_lstm_traj``); on the CPU the
+    plain version runs."""
+    dev, obs_dim = _im_lstm_args(params, actor, batch, device)
+    seed = int(seed) & rng.MASK32
+    std = clipped_std(torch.as_tensor(log_std).detach())
+    if dev.type == "cpu":
+        return _rollout_traj_im_lstm_plain(params, actor, std, seed, batch, dev)
+    st, flat = _pack_lstm_actor(actor, std, obs_dim, params.m1, _half_c(params), dev)
+    plan = _im_plan(params, _plan_key(dev))
+    T, m1 = params.periods, params.m1
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(inv=torch.empty((T + 1, m1, batch), **i32),
+               actions=torch.empty((T, m1, batch), **i32),
+               raw=torch.empty((T, m1, batch), **f32),
+               reward=torch.empty((T, batch), **f32),
+               demand=torch.empty((T, batch), **i32))
+    with torch.cuda.device(dev):
+        _launch("im_lstm", "im_lstm_rollout_traj", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
+                plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
+                *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
+                seed, int(params.backlog), batch, T, _stream(dev))
+    rollout_traj_im_lstm.launches += 1
+    return out
+
+
+rollout_traj_im_lstm.launches = 0
 
 
 # =============================================== Newsvendor kernels K13-K17

@@ -1,5 +1,5 @@
-"""Carrying NetInvMgmt and InvManagement parameters and state, and PPO
-weights and statistics, across from the JAX package.
+"""Carrying NetInvMgmt and InvManagement parameters and state, PPO and
+recurrent PPO weights, and statistics across from the JAX package.
 
 Every function takes plain Python and NumPy values, so the JAX package is
 never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``
@@ -97,6 +97,37 @@ def ppo_params_from_numpy(flax_tree, device=None) -> dict:
              + [f"vf.{j}" for j in range(n - n_pi - 2)] + ["value"])
     state = {"log_std": t(p["log_std"])}
     for name, d in zip(names, dense):
+        state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
+        state[f"{name}.bias"] = t(d["bias"])
+    return state
+
+
+def lstm_params_from_numpy(flax_tree, device=None) -> dict:
+    """The state dict of the port's ``LSTMActorCritic`` from the flax
+    ``LSTMActorCritic`` parameters as NumPy arrays: ``Dense_0`` ..
+    ``Dense_{n-1}`` the encoder, ``OptimizedLSTMCell_0`` the cell (input
+    kernels ``ii``/``if``/``ig``/``io`` without a bias, recurrent kernels and
+    biases ``hi``/``hf``/``hg``/``ho``), ``Dense_n`` the mean head,
+    ``Dense_{n+1}`` the value head and ``log_std``. Dense kernels are
+    transposed to torch's (out, in); the cell keeps flax's (in, 4h) layout
+    with the gates side by side in the order i, f, g, o."""
+    dev = resolve_device(device)
+    p = flax_tree["params"]
+    n_enc = sum(1 for k in p if k.startswith("Dense_")) - 2
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    cell = p["OptimizedLSTMCell_0"]
+    state = {"log_std": t(p["log_std"]),
+             "cell.wi": t(np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in "ifgo"],
+                                         axis=1)),
+             "cell.wh": t(np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in "ifgo"],
+                                         axis=1)),
+             "cell.bh": t(np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in "ifgo"]))}
+    names = [f"enc.{i}" for i in range(n_enc)] + ["mean", "value"]
+    for i, name in enumerate(names):
+        d = p[f"Dense_{i}"]
         state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
         state[f"{name}.bias"] = t(d["bias"])
     return state

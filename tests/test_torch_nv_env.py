@@ -14,7 +14,11 @@ per-step chain here). Tolerances:
   exact;
 - ``step``'s Poisson draws (``torch.poisson``, where JAX draws from
   ``jax.random.poisson``: the same law from another stream): a chi-squared
-  test at p > 1e-4.
+  test at p > 1e-4;
+- the seed-42 goldens of BASELINE.md:24-26, drawn through the port's own
+  ``core/parity.py``: the reset obs within 1e-3 and the 40-step total within
+  1.0, as tests/test_newsvendor.py:40-49 holds JAX to them; the demands
+  exactly.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ from scipy import stats
 from test_pallas_episode_kernels import _nv_reference_returns
 from test_torch_im_env import chi2_pvalue
 
+from or_gym_inventory_torch.core import parity as tparity
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.vector import vecenv
 from or_gym_inventory_tpu.envs import newsvendor as jnv
@@ -195,3 +200,25 @@ def test_vecenv_runs_newsvendor():
     totals, _ = vecenv.evaluate_episodes(tnv.ENV, tp, policy, None, gen, 16, device=CPU)
     assert totals.shape == (16,) and torch.isfinite(totals).all()
     assert tnv.ENV.horizon(tp) == 6 and tnv.ENV.name == "newsvendor"
+
+
+def test_golden_seed42():
+    """BASELINE.md:24-26 through the port's parity module: the reference's
+    reset(seed=42) obs, its first 5 Poisson demands, and the 40-step total
+    reward of a constant order of 100."""
+    params = tnv.default_params()
+    r = tparity.reference_rng(42)
+    econ = tparity.newsvendor_reset_draws(r, params.p_max, params.h_max, params.k_max,
+                                          params.mu_max)
+    state, ts = tnv.reset_with_econ(params, torch.tensor([econ], dtype=torch.float32))
+    np.testing.assert_allclose(ts.obs[0].numpy(),
+                               [77.3956, 33.9673, 4.2930, 6.9737, 18.8355, 0, 0, 0, 0, 0],
+                               atol=1e-3)
+    demands = tparity.newsvendor_demand_stream(r, econ[4], 40)
+    assert list(demands[:5]) == [23, 18, 27, 23, 15]
+    total = 0.0
+    for t in range(40):
+        state, ts = tnv.step_with_demand(params, state, torch.tensor([100.0]),
+                                         torch.tensor([float(demands[t])]))
+        total += float(ts.reward[0])
+    assert abs(total - (-99353.0228)) < 1.0, total
