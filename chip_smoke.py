@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's ten main paths, each with every launch
-counter set to 0 just before it and read just after:
+at once), then drives the port's thirteen main paths, each with every
+launch counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
   bench.py does on the JAX package, a cross-check of the fused kernel on its
@@ -47,7 +47,20 @@ counter set to 0 just before it and read just after:
   minibatches, 3 updates: 3 launches of K24 and nothing else;
 - slice 6, LSTM-policy evaluation (phase 27): ``lstm_policy_episode_returns``
   of phase 26's trained actor at 1,048,576 x 30 launches K22 once and
-  nothing else; the first 1,024 lanes are then held against plain K22.
+  nothing else; the first 1,024 lanes are then held against plain K22;
+- slice 7, the last two NetInvMgmt sites (phase 31): ``rollout_transposed``
+  of the default graph at 65,536 envs x 30 periods launches K25 once per
+  period, then ``episode_returns_random_policy`` on K3's demand K26 once,
+  nothing else; the rollout's total is then held against the plain step
+  replayed on the same generator seed, and K26 against K2;
+- slice 7, TD3 with ``collect="kernel"`` on InvManagement backlog (phase
+  33) at tools/validate_kernel_collect.py's config (1,024 envs, buffer
+  200,704, batch 256, 32 updates per period) for 8 iterations: K27 once
+  per iteration and nothing else; then the deterministic actor over 30
+  episodes, which must beat the random policy;
+- slice 7, SAC and DDPG on Newsvendor and NetInvMgmt (phase 34), 2
+  iterations each (the uniform warmup, then the algorithm's head): K28 or
+  K29 once per iteration and nothing else.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -67,7 +80,13 @@ goodness-of-fit pin of tests/test_pallas_policy.py:394-419), and K22-K24
 in phase 25 (at 65,536 x 30 with a seeded actor of the benchmark widths,
 Poisson demand in backlog and lost sales, binomial and USER mode, with K7
 on K23's streams, K24 replayed through the env step chain, its raws
-squashed to its actions and a NaN std). Kernels on no main path are
+squashed to its actions and a NaN std), K25/K26 in phase 30 (K25 on 30
+chained periods at 65,536 lanes, backlog and lost sales; K26 on K3's demand
+against K2 and plain K26) and K27-K29 in phase 32 (at 65,536 lanes with a
+seeded actor of SB3's default (256, 256) relu widths, heads det, sac and
+uniform, the demand against K10/K18/K4's on the same seed, a_norm
+teacher-forced on the kernel's own obs, each kernel's streams through the
+plain step chain, K29's through K1 too). Kernels on no main path are
 launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
 K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
@@ -78,19 +97,23 @@ InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
 PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
 validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
-beat the random policy's (phase 29). Every phase prints its lines; any
+beat the random policy's (phase 29), then K25-K29 and one TD3 iteration
+split into the kernel, ``insert_chunk`` and the gradient updates (phase 35).
+Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
-The last seven lines are one JSON object of per-kernel numbers
-(``launches`` is the sum of a kernel's launches in the ten main-path
+The last eight lines are one JSON object of per-kernel numbers, K1-K29
+(``launches`` is the sum of a kernel's launches in the thirteen main-path
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
-K10, K11, K14, K16, K18, K19, K20, K22 and K24, ``max_abs_err`` is over the
-lanes that agree with the plain version), one
+K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
+over the lanes that agree with the plain version; K27-K29's row is the det
+head's), one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
 paths' rates and reward, one of the Newsvendor paths' rates and reward, one
-of the recurrent paths' rates and reward, the card's name and power limit
-as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
+of the recurrent paths' rates and reward, one of the slice-7 paths' rates
+and TD3's reward, the card's name and power limit as nvidia-smi gives them,
+and ``{"ok": true, "device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
 K9 and K10) bit for bit; the InvManagement int32 state of the env step
@@ -127,6 +150,20 @@ boundary lets a lane diverge); K7 on K23's and K24's streams within
 rtol=1e-5 atol=1e-3 (whether bit for bit is reported); the env step chain
 on K24's streams: inv exactly, rewards rtol=1e-4 atol=1e-2; K24's raws
 squashed by torch give its actions on >= 99.99% of elements (reported).
+K25 and K26 against their plain versions, K26 against K2, and the
+rollout's total rtol=1e-5 atol=1e-3. K27-K29 (f32, TF32 off, the MLP summed
+in another order): demand bit for bit against the plain versions and the
+PPO kernels on the same seed; a_norm in [-1, 1], and teacher-forced (the
+plain head on the kernel's own obs and words) within atol=1e-4 on every
+element; free-running, a_norm on >= 99% of lanes within rtol=1e-4
+atol=1e-4 and the other streams by the share of lanes (rtol=1e-4
+atol=1e-2), uniform bit for bit, except the det and sac lanes of the float
+families (K28, K29), which their pipelines' feedback lets drift and which
+need only FLOAT_FREE_SHARE; K27's a_norm rescaled gives its actions on
+>= 99.99% of elements and the env step chain on its streams its inv
+exactly; the plain step chain on K28's and K29's a_norm and demand gives
+their other streams within rtol=1e-5 atol=1e-3 (orders rtol=1e-6
+atol=1e-4), and K1 on K29's streams its rewards.
 """
 
 import json
@@ -201,12 +238,24 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1470"),
     ("rollout_traj_im_lstm", "or_gym_inventory_torch/csrc/im_lstm.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1551"),
+    ("batched_step", "or_gym_inventory_torch/csrc/net_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_net_step.py:774"),
+    ("episode_returns_random_policy", "or_gym_inventory_torch/csrc/net_episode.cu",
+     "or_gym_inventory_tpu/ops/pallas_net_step.py:857"),
+    ("rollout_traj_im_offpolicy", "or_gym_inventory_torch/csrc/im_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1683"),
+    ("rollout_traj_nv_offpolicy", "or_gym_inventory_torch/csrc/nv_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1796"),
+    ("rollout_traj_net_offpolicy", "or_gym_inventory_torch/csrc/net_policy.cu",
+     "or_gym_inventory_tpu/ops/pallas_net_step.py:683"),
 ]
 IM_KERNELS = [name for name, _, _ in KERNEL_ROWS[6:10]]
 IM_EVAL_KERNELS = [name for name, _, _ in KERNEL_ROWS[10:12]]
 NV_KERNELS = [name for name, _, _ in KERNEL_ROWS[12:17]]
 NV_POLICY_KERNELS = [name for name, _, _ in KERNEL_ROWS[17:21]]
 LSTM_KERNELS = [name for name, _, _ in KERNEL_ROWS[21:24]]
+B6_KERNELS = [name for name, _, _ in KERNEL_ROWS[24:26]]
+OFF_KERNELS = [name for name, _, _ in KERNEL_ROWS[26:29]]
 # the recurrent learner: RecurrentPPOConfig's default widths, the benchmark
 # PPO_LSTM architecture (obs_dim 33, encoder 64, hidden 128, act_dim 3)
 LSTM_HIDDEN, LSTM_ENCODER = 128, (64,)
@@ -239,6 +288,24 @@ NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
                      ent_coef=0.0, rollout="kernel")
 NV_PPO_BUDGET = 4_000_000
+# the off-policy learners (slice 7): SB3's default actor, every roster's OFF_CFG
+# (off_policy.py:69); TD3/DDPG's exploration sigma
+OFF_ARCH = (256, 256)
+OFF_STD = 0.1
+OFF_MODES = ("det", "sac", "uniform")
+# K28/K29's det lanes free-running against the plain version are reported and
+# held only this far: the float families feed every order back into the obs,
+# so the 256-wide MLP's ulps grow over the episode (on an H100, K28 98.88% of
+# a_norm and 91.41% of reward lanes agreed, K29 97.69% of a_norm); their
+# per-element checks are teacher-forced
+FLOAT_FREE_SHARE = 0.5
+# tools/validate_kernel_collect.py run_row("td3", "kernel"), cut from 2M env-steps
+TD3_RECIPE = dict(algo="td3", collect="kernel", num_envs=1024, buffer_size=200_704,
+                  batch_size=256, updates_per_iter=32)
+# 245,760 env-steps, 1 uniform warmup + 7 det iterations: its 960 updates an
+# iteration are host-bound eager PyTorch, 8-15 ms each on an H100's host
+TD3_ITERS = 8
+TPU_TD3_REWARD = "+5,061.2 +- 29.1"  # tools/remeasure_logs/validate_kernel_collect.jsonl:10
 
 
 def close(name, got, want, rtol, atol):
@@ -258,17 +325,17 @@ def exact(name, got, want):
         raise AssertionError(f"{name}: streams differ from the plain Philox twin")
 
 
-def lane_share(name, got, want, rtol=1e-4, atol=1e-2):
+def lane_share(name, got, want, rtol=1e-4, atol=1e-2, need=LANE_SHARE):
     """(share of lanes, last axis, on which every element of ``got`` is
     within tolerance of ``want``; max |diff| over those lanes). Raises below
-    LANE_SHARE or on a non-finite value."""
+    ``need`` or on a non-finite value."""
     import torch
     err = (got.double() - want.double()).abs()
     ok = (err <= atol + rtol * want.double().abs()).reshape(-1, got.shape[-1]).all(0)
     share = float(ok.double().mean())
-    if share < LANE_SHARE or not torch.isfinite(got).all():
+    if share < need or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: {share:.4%} of lanes within rtol={rtol} "
-                             f"atol={atol}, need {LANE_SHARE:.0%}")
+                             f"atol={atol}, need {need:.0%}")
     return share, float(err.reshape(-1, got.shape[-1])[:, ok].max())
 
 
@@ -412,6 +479,44 @@ def nv_policy_draw_ops(params, stochastic):
 NORMAL_OPS = (10 * 8 + 9 * 2) + 2 * 3 + 8   # one K21 element: a Philox block, the normal
 
 
+def random_action_ops(T):
+    """Operations of one period's in-kernel actions of K26: the Philox
+    blocks of the n_ro action words, and per word a shift, a conversion and
+    a product."""
+    return math.ceil(T.n_reorder / 4) * (10 * 8 + 9 * 2) + 3 * T.n_reorder
+
+
+def offpolicy_work(name, params, obs_dim, act_dim, mode):
+    """(bytes per lane, operations per env-step, horizon, bytes of the
+    packed actor) of one K27-K29 launch under the ``det`` or ``sac`` head:
+    the streams written once; the (256, 256) relu actor (``mlp_ops``, 2
+    act_dim outputs for sac), the step, and the policy kernels' stochastic
+    draws (the demand's and 2 act_dim head words, Box-Muller, the squash),
+    plus per action the head's own operations (det: the clip's two; sac:
+    exp and the clip's two, a product)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    dims = [obs_dim, *OFF_ARCH, 2 * act_dim if mode == "sac" else act_dim]
+    weights = sum(a * b + b for a, b in zip(dims, dims[1:])) * 4
+    per_step = mlp_ops(dims) + act_dim * (4 if mode == "sac" else 2)
+    if name == "rollout_traj_im_offpolicy":
+        T, m1 = params.periods, params.m1
+        table_len = len(ek._im_demand_spec(params)[1])
+        per_step += im_step_ops(params) + im_policy_draw_ops(params, table_len)
+        n_bytes = ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4
+    elif name == "rollout_traj_nv_offpolicy":
+        T = params.step_limit
+        per_step += nv_step_ops(params) + nv_policy_draw_ops(params, True)
+        n_bytes = (5 + 4 * T) * 4
+    else:
+        topo, T = params.topology, params.num_periods
+        per_step += step_ops(topo) + policy_draw_ops(topo, ns._topology_link_specs(topo, T),
+                                                     True)
+        n_bytes = ((T + 1) * (topo.n_main + topo.n_retail)
+                   + T * (2 * topo.n_reorder + 1 + topo.n_retail)) * 4
+    return n_bytes, per_step, T, weights
+
+
 def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -433,19 +538,21 @@ def read_counts(wrappers):
 
 
 class no_plain_versions:
-    """Within the block, every plain version of K1-K24 (and the LSTM actor's,
-    ``lstm_forward``) raises, so a counted main-path run shows that it went
-    through the kernels alone."""
+    """Within the block, every plain version of K1-K29 (and the plain actors'
+    ``lstm_forward``, ``mlp_forward`` and ``traj_policy``) raises, so a
+    counted main-path run shows that it went through the kernels alone."""
 
     NAMES = {"net_step": ("_episode_returns_plain", "_episode_returns_fully_fused_plain",
                           "_sample_streams_plain", "_rollout_traj_plain",
-                          "_policy_returns_plain"),
+                          "_policy_returns_plain", "_batched_step_plain",
+                          "_episode_returns_random_policy_plain"),
              "episode_kernels": ("_episode_returns_im_plain", "_im_fused_plain",
                                  "_rollout_traj_im_plain", "_im_policy_plain",
                                  "_episode_returns_nv_plain", "_nv_fused_plain",
                                  "_rollout_traj_nv_plain", "_nv_policy_plain",
                                  "_sample_normals_plain", "_im_lstm_plain",
-                                 "_rollout_traj_im_lstm_plain", "lstm_forward")}
+                                 "_rollout_traj_im_lstm_plain", "lstm_forward",
+                                 "mlp_forward", "traj_policy")}
 
     def __enter__(self):
         import importlib
@@ -1143,6 +1250,11 @@ def eval_main_path(dev, wrappers, params, actor, log_std, smi, kernel, plain, nu
 
 # --------------------------------------------------------- Newsvendor (slice 4)
 
+def nv_env():
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    return nv.ENV
+
+
 def nv_params(L=5, gamma=1.0, mu_max=200.0):
     from or_gym_inventory_torch.envs import newsvendor as nv
     return nv.default_params(dict(NV_ENV_CONFIG, lead_time=L, gamma=gamma, mu_max=mu_max))
@@ -1698,6 +1810,552 @@ def lstm_reward_check(dev):
             random_mean, wall, len(metrics["update"]))
 
 
+# --------------------------------- the last two sites and the off-policy heads (slice 7)
+
+def b6_cross_check(dev):
+    """Phase 30: K25 against its plain version on 30 chained periods at
+    65,536 lanes of the default graph, backlog and lost sales (random
+    actions and demand, each period's input the kernel's last output; X, Y,
+    U, RH' and the reward within rtol=1e-5 atol=1e-3); K26 on K3's dumped
+    demand against K2's returns on the same seed and against plain K26,
+    rtol=1e-5 atol=1e-3. Returns (max |diff| per kernel, plain ms, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import net_step as ns
+    B = CHECK_LANES
+    err = {"batched_step": 0.0}
+    plain_ms, lines = {}, []
+    for backlog in (True, False):
+        params = net.default_params(num_periods=NUM_STEPS, backlog=backlog)
+        case = "backlog" if backlog else "lost sales"
+        T = params.topology
+        hi = float(T.order_cap_heuristic * 2)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, B, dev))
+        for t in range(NUM_STEPS):
+            action = torch.rand((T.n_reorder, B), generator=g, device=dev) * hi
+            demand = net.sample_demand(params, g, t, B, device=dev).T.contiguous()
+            got = ns.batched_step(params, X, Y, U, RH, action, demand, t)
+            ms, want = timed_once(ns._batched_step_plain, params, X, Y, U, RH, action, demand,
+                                  t)
+            plain_ms["batched_step"] = min(plain_ms.get("batched_step", ms), ms)
+            for name, a, b in zip(("X", "Y", "U", "RH", "reward"), got, want):
+                err["batched_step"] = max(err["batched_step"],
+                                          close(f"K25 {name}[{t}], {case}", a, b, 1e-5, 1e-3))
+            X, Y, U, RH = got[:4]
+        lines.append(f"K25 vs plain, {case}: {NUM_STEPS} chained periods at {B} lanes within "
+                     "rtol=1e-5 atol=1e-3")
+    params = net.default_params(num_periods=NUM_STEPS)
+    hi = float(params.topology.order_cap_heuristic * 2)
+    _, dems = ns.sample_streams_debug(params, SEED, hi, B, device=dev)
+    k2 = ns.episode_returns_fully_fused(params, SEED, hi, B, device=dev)
+    k26 = ns.episode_returns_random_policy(params, dems, SEED, hi)
+    plain_ms["episode_returns_random_policy"], want = timed_once(
+        ns._episode_returns_random_policy_plain, params, dems, SEED, hi)
+    e2 = close("K26 on K3's demand vs K2", k26, k2, 1e-5, 1e-3)
+    err["episode_returns_random_policy"] = max(
+        e2, close("K26 vs plain K26", k26, want, 1e-5, 1e-3))
+    lines.append(f"K26 on K3's demand = K2's returns ({'bit for bit' if e2 == 0 else e2}) "
+                 "and plain K26, within rtol=1e-5 atol=1e-3")
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def b6_main_path(dev, wrappers, smi):
+    """Phase 31, counted: ``rollout_transposed`` of the default graph at
+    65,536 envs x 30 periods (K25 once per period), then
+    ``episode_returns_random_policy`` on K3's demand dumped before the count
+    (K26 once), every plain version patched to raise. After the count, the
+    rollout's total against the plain step replayed on the same generator
+    seed (rtol=1e-5), and the time of the rollout. Returns (launches,
+    lines, rates)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    params = net.default_params(num_periods=NUM_STEPS)
+    T = params.topology
+    hi = float(T.order_cap_heuristic * 2)
+    B = CHECK_LANES
+    _, dems = ns.sample_streams_debug(params, SEED, hi, B, device=dev)
+    k2 = ns.episode_returns_fully_fused(params, SEED, hi, B, device=dev)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        total = ns.rollout_transposed(params, torch.Generator(device=dev).manual_seed(3), B,
+                                      NUM_STEPS, device=dev)
+        k26 = ns.episode_returns_random_policy(params, dems, SEED, hi)
+        torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"batched_step": NUM_STEPS, "episode_returns_random_policy": 1}:
+        raise AssertionError(f"the B6 path launched {moved}, not K25 once per period and "
+                             "K26 once")
+    g = torch.Generator(device=dev).manual_seed(3)
+    X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, B, dev))
+    want = torch.zeros((), dtype=torch.float64, device=dev)
+    for t in range(NUM_STEPS):
+        action = torch.rand((T.n_reorder, B), generator=g, device=dev) * hi
+        demand = net.sample_demand(params, g, t, B, device=dev).T.contiguous()
+        X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, action, demand, t)
+        want = want + rew.double().sum()
+    close("rollout_transposed vs the plain step's rollout", total.reshape(1),
+          want.float().reshape(1), 1e-5, 1e-3)
+    close("K26 vs K2 on the main path", k26, k2, 1e-5, 1e-3)
+    roll_t = cuda_time(ns.rollout_transposed, params, torch.Generator(device=dev).manual_seed(3),
+                       B, NUM_STEPS, None, dev, warmup=1, iters=3)
+    rate = B * NUM_STEPS / roll_t["best_ms"] * 1e3
+    lines = [f"rollout_transposed {B} x {NUM_STEPS}: K25 launched {NUM_STEPS} times, then K26 "
+             f"once, nothing else, no plain version; total {float(total):.6g} = the plain "
+             f"step's within rtol=1e-5; K26 = K2; best {roll_t['best_ms']:.3f} ms, "
+             f"{rate:.6g} env-steps/s on {smi}"]
+    return launches, lines, {"rollout_transposed_ms": roll_t["best_ms"],
+                             "rollout_transposed_env_steps_s": rate}
+
+
+def seeded_offpolicy_actor(obs_dim, act_dim, stochastic, dev):
+    """Phase 32's actor: an ``off_policy._Actor`` of SB3's default widths
+    OFF_ARCH drawn from its own initialisation, obs statistics with mean ~50
+    and std ~20 folded into its first layer, and the det head's log(0.1).
+    Returns (folded actor, log_std), on ``dev``."""
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    g = torch.Generator().manual_seed(SEED + int(stochastic))
+    actor = op._Actor(obs_dim, act_dim, OFF_ARCH, stochastic, g)
+    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(obs_dim, generator=g),
+                             var=(20.0 + 5.0 * torch.rand(obs_dim, generator=g)) ** 2,
+                             count=torch.tensor(1e3))
+    Ws, bs = ek.fold_offpolicy_actor(OFF_ARCH, actor, rms, stochastic)
+    return ((tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs)),
+            torch.full((act_dim,), math.log(OFF_STD), device=dev))
+
+
+def offpolicy_families(dev):
+    """(name, wrapper, plain version, params, ppo kernel, obs_dim, act_dim)
+    of K27-K29: InvManagement backlog (30 periods), Newsvendor
+    ENV_CONFIG_EVAL (50), NetInvMgmt's default graph (30)."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    imp, nvp, netp = im.default_params(backlog=True), nv_params(), \
+        net.default_params(num_periods=NUM_STEPS)
+    return [("rollout_traj_im_offpolicy", ek.rollout_traj_im_offpolicy,
+             ek._rollout_traj_im_plain, imp, ek.rollout_traj_im, imp.pipeline_length, imp.m1),
+            ("rollout_traj_nv_offpolicy", ek.rollout_traj_nv_offpolicy,
+             ek._rollout_traj_nv_plain, nvp, ek.rollout_traj_nv, nvp.obs_dim, 1),
+            ("rollout_traj_net_offpolicy", ns.rollout_traj_net_offpolicy,
+             ns._rollout_traj_plain, netp, ns.rollout_traj_net, netp.topology.obs_dim,
+             netp.topology.n_reorder)]
+
+
+def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev):
+    """The kernel's a_norm against the plain head (``traj_policy``) on the
+    kernel's own observations, rebuilt from its streams by the family's
+    ``assemble_obs_from_streams``, and the plain draws of its words: every
+    element within atol=1e-4 (the MLP's sums in another order, tanhf/expf
+    ulps; no feedback through the episode). Returns the max |diff|."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    if name == "rollout_traj_im_offpolicy":
+        obs_all, n_dem = im.assemble_obs_from_streams(params, tr["inv"], tr["actions"]), 1
+    elif name == "rollout_traj_nv_offpolicy":
+        obs_all, n_dem = nv.assemble_obs_from_streams(params, tr["econ"], tr["orders"]), 1
+    else:
+        obs_all = net.assemble_obs_from_streams(params, tr["x"], tr["u"], tr["r"])
+        n_dem = params.topology.n_retail
+    layers = ek.kernel_layers(actor, dev)
+    lanes = torch.arange(tr["raw"].shape[-1], dtype=torch.int64, device=dev)
+    n_head = ek._head_words(mode, act_dim)
+    worst = 0.0
+    for t in range(tr["raw"].shape[0]):
+        words = rng.period_words(SEED, lanes, 0, t, n_dem + n_head, key1=rng.POLICY_KEY)
+        _, a = ek.traj_policy(mode, "relu", act_dim, layers, std, list(obs_all[t].T),
+                              ek._head_noise(mode, words[n_dem:]))
+        worst = max(worst, close(f"{name} a_norm[{t}] vs the plain head on its own obs, {mode}",
+                                 tr["raw"][t], a, 0.0, 1e-4))
+    return worst
+
+
+def offpolicy_cross_check(dev):
+    """Phase 32: K27-K29 at 65,536 lanes with a seeded (256, 256) relu actor,
+    heads det (sigma 0.1), sac and uniform, against their plain versions:
+    demand bit for bit (Newsvendor's by the K16 rule), and bit for bit with
+    K10/K18/K4's on the same seed; the stored a_norm in [-1, 1],
+    teacher-forced within atol=1e-4 on every element
+    (``offpolicy_teacher_forced``), and free-running on >= 99% of lanes
+    within rtol=1e-4, atol=1e-4 (uniform: bit for bit); the other streams
+    by the share of lanes. The float families' det and sac lanes
+    free-running need only FLOAT_FREE_SHARE: their pipelines feed the MLP's
+    ulps back into the obs of the 256-wide actor, so their streams are held
+    teacher-forced instead: the a_norm as above, and the plain step chain
+    on K28's econ, demand and a_norm gives its orders and rewards, on K29's
+    demand and a_norm its x, u, r and rewards (rtol=1e-5, atol=1e-3), K1 on
+    K29's actions and demand its rewards' sum. The InvManagement step chain
+    on K27's streams gives its inv exactly. Returns (max |diff| per kernel
+    over agreeing lanes, plain ms of the det head, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    B = CHECK_LANES
+    err, plain_ms, lines = {}, {}, []
+    for name, kernel, plain, params, ppo_kernel, obs_dim, act_dim in offpolicy_families(dev):
+        ppo_actor, ppo_log_std = seeded_actor(obs_dim, act_dim, dev)
+        ppo_demand = ppo_kernel(params, ppo_actor, ppo_log_std, SEED, B, device=dev)["demand"]
+        nv_family = name == "rollout_traj_nv_offpolicy"
+        same = demand_check if nv_family else exact
+        err[name] = 0.0
+        for mode in OFF_MODES:
+            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
+            tr = kernel(params, actor, log_std, SEED, B, mode, "relu", dev)
+            std = ek.clipped_std(log_std) if mode == "det" else None
+            ms, want = timed_once(plain, params, actor, std, SEED, B, dev, mode, "relu")
+            if mode == "det":
+                plain_ms[name] = ms
+            same(f"{name} demand, {mode}", tr["demand"], want["demand"])
+            same(f"{name} demand vs the PPO kernel's, {mode}", tr["demand"], ppo_demand)
+            if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+                raise AssertionError(f"{name} {mode}: a_norm outside [-1, 1]")
+            forced = offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev)
+            need = FLOAT_FREE_SHARE if name != "rollout_traj_im_offpolicy" and \
+                mode != "uniform" else LANE_SHARE
+            if mode == "uniform":
+                exact(f"{name} a_norm, uniform", tr["raw"], want["raw"])
+                shares = {"raw": (1.0, 0.0)}
+            else:
+                shares = {"raw": lane_share(f"{name} a_norm vs plain, {mode}", tr["raw"],
+                                            want["raw"], 1e-4, 1e-4, need)}
+            shares.update({k: lane_share(f"{name} {k} vs plain, {mode}", tr[k], want[k],
+                                         need=need)
+                           for k in tr if k not in ("raw", "demand")})
+            err[name] = max([err[name]] + [e for _, e in shares.values()])
+            lines.append(f"{name} {mode}: demand equal to plain's and the PPO kernel's; "
+                         f"a_norm teacher-forced max |diff| {forced:.3g}; lanes agreeing "
+                         + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
+            if name == "rollout_traj_im_offpolicy":
+                acts = im.trunc_i32((tr["raw"] + 1.0) * torch.tensor(
+                    ek._half_c(params), device=dev)[None, :, None])
+                share = float((acts == tr["actions"]).double().mean())
+                if share < 0.9999:
+                    raise AssertionError(f"K27 {mode}: a_norm rescaled gives its actions on "
+                                         f"{share:.4%} of elements")
+                state, _ = im.reset(params, batch=B, device=dev)
+                for t in range(NUM_STEPS):
+                    exact(f"step chain inv[{t}] vs K27 inv, {mode}", state.inv.T, tr["inv"][t])
+                    state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
+                                                    tr["demand"][t])
+                    close(f"step chain reward[{t}] vs K27, {mode}", ts.reward,
+                          tr["reward"][t], 1e-4, 1e-2)
+                exact(f"step chain final inv vs K27, {mode}", state.inv.T,
+                      tr["inv"][NUM_STEPS])
+                lines.append(f"K27 {mode}: a_norm rescaled gives its actions on {share:.4%} "
+                             "of elements; the env step chain gives its inv exactly")
+            elif nv_family:
+                P = [torch.zeros_like(tr["reward"][0])] * params.lead_time
+                half_hi = ek._nv_half_hi(params)[0]
+                for t in range(params.step_limit):
+                    P, rew, q = ek._nv_step_math(params, P, *tr["econ"][:4],
+                                                 (tr["raw"][t, 0] + 1.0) * half_hi,
+                                                 tr["demand"][t])
+                    close(f"step chain order[{t}] vs K28, {mode}", q, tr["orders"][t], 1e-6, 1e-4)
+                    close(f"step chain reward[{t}] vs K28, {mode}", rew, tr["reward"][t], 1e-5,
+                          1e-3)
+                lines.append(f"K28 {mode}: the plain step chain on its econ, demand and a_norm "
+                             "gives its orders and rewards")
+            elif name == "rollout_traj_net_offpolicy":
+                acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
+                close(f"K1 on K29's streams vs its rewards, {mode}",
+                      ns.episode_returns(params, acts.contiguous(), tr["demand"]),
+                      tr["reward"].sum(0), 1e-5, 1e-3)
+                n_ro = params.topology.n_reorder
+                X, Y, U, RH = ns.init_transposed(params, B, dev)
+                for t in range(params.num_periods):
+                    X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, acts[t],
+                                                              tr["demand"][t], t)
+                    for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
+                        close(f"step chain {k}[{t}] vs K29, {mode}", tr[k][t + (k != "r")],
+                              want_k, 1e-5, 1e-3)
+                    close(f"step chain reward[{t}] vs K29, {mode}", tr["reward"][t], rew, 1e-5,
+                          1e-3)
+                lines.append(f"K29 {mode}: the plain step chain on its demand and a_norm gives "
+                             "its x, u, r and rewards; K1 on its streams its rewards' sum")
+            del tr, want
+    torch.cuda.synchronize()
+    return err, plain_ms, lines
+
+
+def td3_main_path(dev, wrappers, smi):
+    """Phase 33, counted: TD3 with ``collect="kernel"`` on InvManagement
+    backlog at tools/validate_kernel_collect.py's config (1,024 envs, buffer
+    200,704, batch 256, 32 updates per iteration, seed 0) for TD3_ITERS
+    iterations, every plain version patched to raise: K27 once per
+    iteration, nothing else. Then the deterministic actor over 30 episodes
+    (``vecenv.evaluate_episodes``) against the random policy's mean return
+    at the same params (K8, 65,536 episodes), which it must beat. Returns
+    (launches, lines, rates, (state, update))."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.vector import fast_episodes, vecenv
+    params = im.default_params(backlog=True)
+    cfg = op.OffPolicyConfig(**TD3_RECIPE)
+    steps = TD3_ITERS * cfg.num_envs * NUM_STEPS
+    reset_counts(wrappers)
+    with no_plain_versions():
+        t0 = time.perf_counter()
+        state, eval_policy, metrics = op.train(im.ENV, params, cfg,
+                                               torch.Generator(device=dev).manual_seed(0),
+                                               steps, log_every=4, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"rollout_traj_im_offpolicy": TD3_ITERS}:
+        raise AssertionError(f"the TD3 path launched {moved}, not K27 once per iteration")
+    totals, _ = vecenv.evaluate_episodes(im.ENV, params, eval_policy,
+                                         (state.actor_params, state.rms),
+                                         torch.Generator(device=dev).manual_seed(4000), 30,
+                                         device=dev)
+    totals = totals.double().cpu().numpy()
+    random_mean = float(fast_episodes.random_episode_returns(
+        params, torch.Generator(device=dev).manual_seed(0), CHECK_LANES,
+        device=dev).double().mean())
+    avg, se = float(totals.mean()), float(totals.std(ddof=1) / np.sqrt(len(totals)))
+    if not (np.isfinite(totals).all() and avg > random_mean):
+        raise AssertionError(f"TD3 reward {avg} not above the random policy's {random_mean}")
+    lines = [f"TD3, validate_kernel_collect.py's config (1,024 envs, buffer 200,704, batch 256, "
+             f"32 updates per iteration), {TD3_ITERS} iterations = {steps} env-steps (of its "
+             f"2M; 1 uniform warmup), {wall:.1f} s = {steps / wall:.6g} trained-steps/s on {smi}: "
+             f"K27 launched once per iteration, nothing else, no plain version; mean step "
+             f"reward per chunk {np.round(metrics['mean_step_reward'], 3).tolist()}",
+             f"TD3 reward: AvgReward {avg:.1f} +- {se:.1f} over 30 deterministic episodes "
+             f"(evaluate_episodes), random policy {random_mean:.1f} (K8, {CHECK_LANES} episodes); "
+             f"the JAX package's TPU run at 2M steps {TPU_TD3_REWARD} (a reward, not a speed)"]
+    rates = {"td3_train_s": wall, "td3_trained_steps_s": steps / wall, "td3_reward_mean": avg,
+             "td3_reward_se": se, "td3_random_mean": random_mean, "td3_iters": TD3_ITERS}
+    return launches, lines, rates, (state, cfg, params)
+
+
+def offpolicy_short_runs(dev, wrappers):
+    """Phase 34, counted: SAC and DDPG with ``collect="kernel"``, 2
+    iterations each (the uniform warmup, then the sac/det head) at 1,024
+    envs, one update per period, on Newsvendor ENV_CONFIG_EVAL and the
+    NetInvMgmt default graph, every plain version patched to raise: each run
+    launches its family's off-policy kernel twice and nothing else. Returns
+    (launches summed over the runs, lines)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    total, lines = {name: 0 for name in wrappers}, []
+    for fam, env, params, kname in (
+            ("Newsvendor", nv_env(), nv_params(), "rollout_traj_nv_offpolicy"),
+            ("NetInvMgmt", net.ENV, net.default_params(num_periods=NUM_STEPS),
+             "rollout_traj_net_offpolicy")):
+        horizon = env.horizon(params)
+        for algo in ("sac", "ddpg"):
+            cfg = op.OffPolicyConfig(algo=algo, collect="kernel", num_envs=1024,
+                                     buffer_size=1024 * horizon * 2, batch_size=256,
+                                     start_steps=1024 * horizon, updates_per_iter=1)
+            reset_counts(wrappers)
+            with no_plain_versions():
+                t0 = time.perf_counter()
+                state, _, metrics = op.train(env, params, cfg,
+                                             torch.Generator(device=dev).manual_seed(1),
+                                             2 * 1024 * horizon, log_every=1, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            moved = {n: c for n, c in launches.items() if c}
+            if moved != {kname: 2}:
+                raise AssertionError(f"{algo} on {fam} launched {moved}, not {kname} twice")
+            if not np.isfinite(metrics["mean_step_reward"]).all() or \
+                    state.buffer.filled != 2 * 1024 * horizon:
+                raise AssertionError(f"{algo} on {fam}: non-finite rewards or a buffer of "
+                                     f"{state.buffer.filled}")
+            total = {n: total[n] + launches[n] for n in total}
+            lines.append(f"{algo} on {fam}, 2 iterations (uniform, then {algo}'s head) at 1,024 "
+                         f"x {horizon}: {kname} launched twice, nothing else; mean step reward "
+                         f"{np.round(metrics['mean_step_reward'], 3).tolist()}; {wall:.1f} s")
+    return total, lines
+
+
+def td3_iteration_split(dev, state, cfg, params):
+    """Phase 35: one TD3 iteration of phase 33's trained state split into
+    the kernel's collection, the n-step collapse with ``insert_chunk``, and
+    the horizon x 32 gradient updates, each on the host clock with a
+    synchronise. Returns (ms per part, the iteration's env-steps/s)."""
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.envs import inv_management as im
+    _, update, _ = op.make_offpolicy(im.ENV, params, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    parts = {}
+
+    def clock(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    obs_all, a_norm, reward = clock("kernel", update.collect, state, 7, "det")
+    clock("insert_chunk", lambda: state.buffer.insert_chunk(*op.episode_transitions(
+        obs_all, a_norm, reward, cfg.n_step, cfg.gamma)))
+    n_upd = NUM_STEPS * cfg.updates_per_iter
+    idx = torch.randint(0, state.buffer.filled, (n_upd, cfg.batch_size), generator=g,
+                        device=dev)
+    z = torch.randn((n_upd, 2, cfg.batch_size, params.m1), generator=g, device=dev)
+
+    def updates():
+        for u in range(n_upd):
+            update.one_update(state, idx[u], z[u, 0], z[u, 1], u)
+    clock(f"{n_upd}_updates", updates)
+    total = sum(parts.values())
+    return parts, cfg.num_envs * NUM_STEPS / total * 1e3
+
+
+def slice7_phases(dev, wrappers, smi, err, times, work):
+    """Phases 30-35, the last two sites and the off-policy heads: K25/K26
+    and K27-K29 held against their plain versions, the three counted main
+    paths (``rollout_transposed`` and K26; TD3; SAC and DDPG), then the
+    kernels' times and work model and one TD3 iteration split into its
+    parts. Fills ``err``, ``times`` and ``work`` for K25-K29; returns (their
+    launches on the counted paths, the summary of the off-policy paths)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    params = net.default_params(num_periods=NUM_STEPS)
+    hi = float(params.topology.order_cap_heuristic * 2)
+
+    # 30. K25 and K26 against their plain versions, and K26 against K2
+    t0 = time.perf_counter()
+    err2, b6_plain_ms, lines = b6_cross_check(dev)
+    err.update(err2)
+    for line in lines:
+        print(f"[30 B6 kernels] {line}", flush=True)
+    print(f"[30 B6 kernels] max |diff| {err2}; plain ms {b6_plain_ms}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 31. the eleventh main path, counting launches: rollout_transposed, then K26
+    t0 = time.perf_counter()
+    launches11, lines, off_summary = b6_main_path(dev, wrappers, smi)
+    for line in lines:
+        print(f"[31 B6 main path] {line}", flush=True)
+    print(f"[31 B6 main path] launches {launches11}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 32. K27-K29 against their plain versions, with a seeded (256, 256) relu actor
+    t0 = time.perf_counter()
+    err2, off_plain_ms, lines = offpolicy_cross_check(dev)
+    err.update(err2)
+    for line in lines:
+        print(f"[32 off-policy kernels] {line}", flush=True)
+    print(f"[32 off-policy kernels] max |diff| over agreeing lanes {err2}; plain ms (det) "
+          f"{off_plain_ms}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 33. the twelfth main path, counting launches: TD3 with collect="kernel"
+    t0 = time.perf_counter()
+    launches12, lines, td3_rates, (td3_state, td3_cfg, td3_params) = td3_main_path(
+        dev, wrappers, smi)
+    off_summary.update(td3_rates)
+    for line in lines:
+        print(f"[33 TD3 main path] {line}", flush=True)
+    print(f"[33 TD3 main path] launches {launches12}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 34. the thirteenth main path, counting launches: SAC and DDPG on the other families
+    t0 = time.perf_counter()
+    launches13, lines = offpolicy_short_runs(dev, wrappers)
+    for line in lines:
+        print(f"[34 SAC/DDPG main paths] {line}", flush=True)
+    print(f"[34 SAC/DDPG main paths] launches {launches13}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {name: launches11[name] + launches12[name] + launches13[name]
+                for name in wrappers}
+    missing = [name for name in B6_KERNELS + OFF_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the slice-7 main paths launched no {missing}")
+
+    # 35. per-kernel times of K25-K29 at the main paths' shapes, the work
+    # model, and one TD3 iteration split into its parts
+    t0 = time.perf_counter()
+    topo, B = params.topology, CHECK_LANES
+    lt = max(topo.lt_max, 1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, B, dev))
+    action = torch.rand((topo.n_reorder, B), generator=g, device=dev) * hi
+    demand = net.sample_demand(params, g, 3, B, device=dev).T.contiguous()
+    k25_t = cuda_time(ns.batched_step, params, X, Y, U, RH, action, demand, 3, warmup=2,
+                      iters=20)
+    _, b6_dems = ns.sample_streams_debug(params, SEED, hi, B, device=dev)
+    k26_t = cuda_time(ns.episode_returns_random_policy, params, b6_dems, SEED, hi, warmup=2,
+                      iters=20)
+    del X, Y, U, RH, action, demand, b6_dems
+    state_rows = topo.n_main + topo.n_reorder + topo.n_retail + lt * topo.n_reorder
+    work.update({
+        "batched_step": bound(B * (2 * state_rows + topo.n_reorder + topo.n_retail + 1) * 4,
+                              B * step_ops(topo)),
+        "episode_returns_random_policy": bound(
+            B * (NUM_STEPS * topo.n_retail + 1) * 4,
+            B * NUM_STEPS * (step_ops(topo) + random_action_ops(topo))),
+    })
+    times.update({"batched_step": (k25_t, {"best_ms": b6_plain_ms["batched_step"]}),
+                  "episode_returns_random_policy": (
+                      k26_t, {"best_ms": b6_plain_ms["episode_returns_random_policy"]})})
+    off_lines = []
+    for name, kernel, _, fparams, _, obs_dim, act_dim in offpolicy_families(dev):
+        mode_ms = {}
+        for mode in OFF_MODES:
+            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
+            mode_ms[mode] = cuda_time(kernel, fparams, actor, log_std, SEED, B, mode, "relu",
+                                      dev, warmup=1, iters=5)
+        n_bytes, per_step, horizon, weights = offpolicy_work(name, fparams, obs_dim, act_dim,
+                                                             "det")
+        work[name] = bound(B * n_bytes + weights, B * horizon * per_step)
+        times[name] = (mode_ms["det"], {"best_ms": off_plain_ms[name]})
+        off_lines.append(f"{name}: det {mode_ms['det']['best_ms']:.4f} ms, sac "
+                         f"{mode_ms['sac']['best_ms']:.4f} ms, uniform "
+                         f"{mode_ms['uniform']['best_ms']:.4f} ms at {B} x {horizon}; "
+                         f"{per_step:.0f} operations an env-step (det)")
+        off_summary[f"{name}_sac_ms"] = mode_ms["sac"]["best_ms"]
+        off_summary[f"{name}_uniform_ms"] = mode_ms["uniform"]["best_ms"]
+    print(f"[35 work] K25 per lane {state_rows} state rows read and written, step "
+          f"{step_ops(topo)} ops; K26 per env-step step {step_ops(topo)} + actions "
+          f"{random_action_ops(topo)} ops; K27-K29: the (256, 256) relu actor "
+          f"(mlp_ops) + step + draws + head, det head; " + "; ".join(off_lines), flush=True)
+    for name in B6_KERNELS + OFF_KERNELS:
+        print_kernel(35, name, times[name], work[name], launches[name])
+    parts, split_rate = td3_iteration_split(dev, td3_state, td3_cfg, td3_params)
+    print("[35 TD3 iteration] " + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f": {split_rate:.6g} trained-steps/s for this iteration at {td3_cfg.num_envs} x "
+          f"{NUM_STEPS} env-steps and {td3_cfg.updates_per_iter} updates per period; the "
+          f"kernel is {parts['kernel'] / sum(parts.values()):.2%} of it, on {smi}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    off_summary.update({f"split_{k}_ms": v for k, v in parts.items()})
+    off_summary.update(split_trained_steps_s=split_rate,
+                       k25_ms=k25_t["best_ms"], k26_ms=k26_t["best_ms"])
+    return launches, off_summary
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -1735,8 +2393,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    wrappers = {name: [getattr(ns, name)] for name, _, _ in KERNEL_ROWS[:6]}
-    wrappers.update({name: [getattr(ek, name)] for name, _, _ in KERNEL_ROWS[6:]})
+    wrappers = {name: [getattr(ns if "/net_" in source else ek, name)]
+                for name, source, _ in KERNEL_ROWS}
     wrappers["episode_returns_im"].append(ek.episode_returns_im_random)
     wrappers["episode_returns_nv"].append(ek.episode_returns_nv_random)
 
@@ -1761,6 +2419,12 @@ def main() -> int:
           f"compiled; ptxas: {' | '.join(ptxas)}", flush=True)
     print("[2 build] K22-K24 (csrc/im_lstm.cu): " + "; ".join(
         ptxas_entries(out) for so, out in logs.items() if "libim_lstm" in so), flush=True)
+    new_entries = [e for out in logs.values() for e in ptxas_entries(out).split("; ")
+                   if e.startswith(("k_batched_step", "k_episode_returns_random",
+                                    "k_im_rollout_traj_wide", "k_nv_rollout_traj_wide",
+                                    "k_rollout_traj_wide"))]
+    print("[2 build] K25-K29 (net_episode.cu, im/nv/net_policy.cu on wide_mlp.cuh): "
+          + "; ".join(new_entries), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -2335,6 +2999,9 @@ def main() -> int:
     lstm_rates.update(reward_mean=r_avg, reward_se=r_se, reward_random_mean=r_random,
                       reward_train_s=r_wall, reward_updates=r_upd)
 
+    launches_s7, off_summary = slice7_phases(dev, wrappers, smi, err, times, work)
+    launches = {name: launches[name] + launches_s7[name] for name in wrappers}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -2351,6 +3018,7 @@ def main() -> int:
     print(json.dumps({"im_main_path": im_summary}))
     print(json.dumps({"nv_main_path": nv_summary}))
     print(json.dumps({"lstm_main_path": lstm_rates}))
+    print(json.dumps({"offpolicy_main_path": off_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -14,8 +14,11 @@ carries one into the other).
 re-run with episode boundaries inside it), and mean and value heads on the
 cell's output.
 
+``QNetwork`` is the Q(s, a) critic of the off-policy learners
+(``agents/off_policy.py``): orthogonal sqrt(2) trunk, a lecun-normal output,
+as flax initialises them.
+
 Actions are tanh-squashed Gaussians rescaled to the env's action box.
-``QNetwork`` waits for ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -83,6 +86,36 @@ def _lecun_normal(n_in: int, n_out: int, generator) -> torch.Tensor:
     std = math.sqrt(1.0 / n_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
     return w
+
+
+def _lecun_dense(n_in: int, n_out: int, generator) -> nn.Linear:
+    """flax's default ``nn.Dense``: a lecun-normal kernel and a zero bias."""
+    layer = nn.Linear(n_in, n_out)
+    with torch.no_grad():
+        layer.weight.copy_(_lecun_normal(n_in, n_out, generator).T)
+        layer.bias.zero_()
+    return layer
+
+
+class QNetwork(nn.Module):
+    """Q(s, a) critic for the off-policy learners (JAX networks.QNetwork
+    :61-71): the observation and the action concatenated, an ``activation``
+    trunk of widths ``arch`` (orthogonal sqrt(2), zero biases) and one
+    lecun-normal output. ``forward(obs, action)`` returns (B,)."""
+
+    def __init__(self, obs_dim: int, act_dim: int, arch: Tuple[int, ...] = (256, 256),
+                 activation: str = "relu", generator: torch.Generator = None):
+        super().__init__()
+        self.activation = activation
+        self.trunk = _trunk(obs_dim + act_dim, arch, generator)
+        self.out = _lecun_dense(arch[-1] if arch else obs_dim + act_dim, 1, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        act = _ACTS[self.activation]
+        x = torch.cat([obs, action], dim=-1)
+        for layer in self.trunk:
+            x = act(layer(x))
+        return self.out(x).squeeze(-1)
 
 
 class LSTMCell(nn.Module):

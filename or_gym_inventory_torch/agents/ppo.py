@@ -200,11 +200,17 @@ class Optimizer:
       N = updates * epochs * minibatches, in f32 as optax computes it;
     - Adam: bias-corrected moments, update m / (sqrt(v) + eps);
     - RMSprop: nu from 0, update g / sqrt(nu + eps) (eps inside the root,
-      optax's default)."""
+      optax's default).
 
-    def __init__(self, cfg: PPOConfig, total_updates: int):
+    ``clip=False`` drops the clip and ``eps`` sets Adam's epsilon: with
+    ``anneal_lr=False``, ``Optimizer(cfg, 1, eps=1e-8, clip=False)`` is
+    ``optax.adam(lr)``, the off-policy learners' optimizer."""
+
+    def __init__(self, cfg: PPOConfig, total_updates: int, eps: float = 1e-5,
+                 clip: bool = True):
         self.cfg = cfg
         self.steps = max(1, total_updates * cfg.update_epochs * cfg.num_minibatches)
+        self.eps, self.clip = eps, clip
 
     def init(self, params) -> OptState:
         zeros = [torch.zeros_like(p) for p in params]
@@ -220,10 +226,11 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params, grads, state: OptState) -> OptState:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        trigger = g_norm < self.cfg.max_grad_norm
-        grads = [torch.where(trigger, g, (g / g_norm) * self.cfg.max_grad_norm)
-                 for g in grads]
+        if self.clip:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            trigger = g_norm < self.cfg.max_grad_norm
+            grads = [torch.where(trigger, g, (g / g_norm) * self.cfg.max_grad_norm)
+                     for g in grads]
         count = state.count + 1
         if self.cfg.optimizer == "rmsprop":
             nu = [(1 - 0.99) * g ** 2 + 0.99 * n for g, n in zip(grads, state.nu)]
@@ -235,7 +242,7 @@ class Optimizer:
             nu = [(1 - b2) * g ** 2 + b2 * n for g, n in zip(grads, state.nu)]
             bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
             bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-            updates = [(m / bc1) / (torch.sqrt(n / bc2) + 1e-5)
+            updates = [(m / bc1) / (torch.sqrt(n / bc2) + self.eps)
                        for m, n in zip(mu, nu)]
         step_size = -self._lr(state.count)
         for p, u in zip(params, updates):

@@ -15,6 +15,14 @@
 //    actions _policy_actions :1149): the same policy, deterministic or
 //    stochastic, E episodes per lane, returns (E, B); with DUMP it also
 //    writes the int actions (T, E, m1, B) and the demand (T, E, B) it used.
+// K27 k_im_rollout_traj_wide  replaces rollout_traj_im (:1683) under the
+//    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
+//    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
+//    "kernel"): K10's streams, the raw stream holding the normalised [-1, 1]
+//    actions. The actor is wide_mlp.cuh's (a block per 32 lanes, the SB3
+//    default (256, 256) actor streamed from L2); threads 0..31 own the
+//    lanes' envs, as in K24. Bound by operations: the (256, 256) actor's
+//    ~1.5e5 per env-step.
 //
 // Design (a simple kernel first): one thread per lane (K10) or per
 // (episode, lane) (K11/K12); the step is im_step.cuh's, the actor mlp.cuh's
@@ -31,7 +39,9 @@
 // block); per period one demand word, then, when stochastic, the m1 u1 and
 // the m1 u2 words of the Box-Muller normals (pallas_episode_kernels.py
 // :1657-1658, :69-70). K10 is episode 0, so episode 0 of the stochastic K11
-// draws exactly K10's words for the same seed and takes K10's actions.
+// draws exactly K10's words for the same seed and takes K10's actions. K27
+// draws the demand word, then the head's m1 u1 and m1 u2 words (the m1 u1
+// words alone for "uniform"), so its demand is K10's for the same seed.
 //
 // Rounding: raw = H + std * z with two roundings (__fmul_rn/__fadd_rn), as
 // the plain version computes it; the action truncates,
@@ -49,6 +59,7 @@
 #include "launch.cuh"
 #include "mlp.cuh"
 #include "philox.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -202,6 +213,74 @@ int launch_policy_returns(const ImParams& p, const Mlp& m, const float* params,
                        seed, B, E, T, stream);
 }
 
+// The lane's observation into column n of x ([row][kWideLanes]), in the
+// order of policy_period's.
+__device__ __forceinline__ void wide_obs(const ImParams& p, const ImEpisode& s, int t,
+                                         const int* ah, float* x, int n) {
+  const int m1 = p.m1, lt = p.lt;
+  for (int i = 0; i < m1; ++i) x[i * kWideLanes + n] = (float)s.inv[i];
+  const int q0 = max(t - lt, 0);
+  for (int j = 0; j < lt; ++j) {
+    const int q = q0 + j;
+    for (int i = 0; i < m1; ++i)
+      x[(m1 + j * m1 + i) * kWideLanes + n] = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
+  }
+}
+
+template <bool RELU, bool BACKLOG>
+__global__ void __launch_bounds__(kWideThreads)
+    k_im_rollout_traj_wide(const __grid_constant__ ImParams p,
+                           const __grid_constant__ WideMlp m, const float* __restrict__ w,
+                           const float* __restrict__ table, const int* __restrict__ user_d,
+                           const float* __restrict__ disc, int* __restrict__ invo,
+                           int* __restrict__ acto, float* __restrict__ rawo,
+                           float* __restrict__ rewo, int* __restrict__ demo, unsigned seed,
+                           long long B, int T) {
+  extern __shared__ float4 smem4[];
+  float* x0 = reinterpret_cast<float*>(smem4);
+  float* x1 = x0 + m.rows * kWideLanes;
+  const int n = threadIdx.x;
+  const long long b = (long long)blockIdx.x * kWideLanes + n;
+  const bool lane = n < kWideLanes, live = lane && b < B;
+  const bool actor = m.head != kHeadUniform;
+  const int m1 = p.m1;
+  ImEpisode s;
+  int ah[IM_MAX_LT * IM_MAX_M1];  // requested order of period q: slot q % lt
+  int act[IM_MAX_M1], d = 0;
+  float z[WIDE_MAX_ACT];
+  if (lane) im_reset(p, s);
+  for (int t = 0; t < T; ++t) {
+    if (lane) {
+      if (live)
+        for (int i = 0; i < m1; ++i) invo[((long long)t * m1 + i) * B + b] = s.inv[i];
+      WordStream ws(seed, 1u, (unsigned)b, 0u, (unsigned)t);
+      d = im_demand(p, table, user_d, t, ws.next());
+      wide_noise(m, ws, z);
+      if (actor) wide_obs(p, s, t, ah, x0, n);
+    }
+    const float* H = actor ? wide_forward<RELU>(m, w, x0, x1) : x0;
+    if (lane) {
+      for (int i = 0; i < m1; ++i) {
+        float st;
+        const float a = wide_head(m, w, H, n, i, z[i], st);
+        act[i] = (int)__fmul_rn(__fadd_rn(a, 1.f), m.half_hi[i]);
+        if (live) {
+          const long long k = ((long long)t * m1 + i) * B + b;
+          rawo[k] = st;
+          acto[k] = act[i];
+        }
+      }
+      const float profit = step_and_record<BACKLOG>(p, s, t, act, d, ah);
+      if (live) {
+        rewo[(long long)t * B + b] = __fmul_rn(__ldg(disc + t), profit);
+        demo[(long long)t * B + b] = d;
+      }
+    }
+  }
+  if (live)
+    for (int i = 0; i < m1; ++i) invo[((long long)T * m1 + i) * B + b] = s.inv[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,6 +320,22 @@ int im_policy_returns(const ImParams* p, const Mlp* mlp, const float* params,
               : launch_policy_returns<false, false>(*p, *mlp, params, n_params, table,
                                                     user_d, disc, out, acts, dems, seed,
                                                     backlog, B, E, T, stream);
+}
+
+int im_rollout_traj_wide(const ImParams* p, const WideMlp* wm, const float* w,
+                         const float* table, const int* user_d, const float* disc, int* inv,
+                         int* acts, float* raw, float* rew, int* dem, unsigned seed, int relu,
+                         int backlog, long long B, int T, cudaStream_t stream) {
+  auto kernel = relu ? (backlog ? k_im_rollout_traj_wide<true, true>
+                                : k_im_rollout_traj_wide<true, false>)
+                     : (backlog ? k_im_rollout_traj_wide<false, true>
+                                : k_im_rollout_traj_wide<false, false>);
+  const size_t smem = wide_smem_bytes(*wm);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<wide_blocks(B), kWideThreads, smem, stream>>>(*p, *wm, w, table, user_d, disc, inv,
+                                                         acts, raw, rew, dem, seed, B, T);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

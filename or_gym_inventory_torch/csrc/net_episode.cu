@@ -19,6 +19,22 @@
 //    streams K2 draws for episodes [e0, e1), through the same draw_period.
 //    The counter-based generator needs no replay of the other episodes.
 //    Bound by bytes: the streams it writes.
+// K25 k_batched_step  replaces batched_step (:774, body _kernel_body :112):
+//    one period of a lockstep batch on the transposed (rows, B) state X, Y,
+//    U and the newest-first order history RH (lt x n_ro rows), with the
+//    actions and demand given; writes X', Y', U', RH' and the reward
+//    alpha^t * profit. One thread per lane: it loads the lane's rows into
+//    step_period's Episode, with the one order of each link that arrives
+//    this period (RH row L_i - 1, times the arrival mask t >= L_i) in slot 0
+//    of the link's ring, steps, and writes RH' as the new orders followed by
+//    RH's first lt - 1 rows. Bound by bytes: every row read and written once.
+// K26 k_episode_returns_random  replaces episode_returns_random_policy
+//    (:857, body _episode_kernel_body_inkernel_actions :169): whole-episode
+//    returns with the uniform [0, act_hi) actions drawn in the kernel and
+//    the demand (T, n_rt, B) streamed in. The actions are K2's action words
+//    of episode 0 (key (seed, 0), draw_period's first n_ro words), so K26 on
+//    K3's demand gives K2's returns. Bound by operations: the Philox blocks
+//    and the step.
 //
 // The period step (Episode, episode_reset, step_period) is in net_step.cuh,
 // shared with the policy kernels; its notes list the semantics that are easy
@@ -96,6 +112,62 @@ __global__ void k_sample_streams(const __grid_constant__ NetTopo tp,
   }
 }
 
+__global__ void k_batched_step(const __grid_constant__ NetTopo tp,
+                               const float* __restrict__ X, const float* __restrict__ Y,
+                               const float* __restrict__ U, const float* __restrict__ RH,
+                               const float* __restrict__ acts,
+                               const float* __restrict__ dems, float* __restrict__ Xo,
+                               float* __restrict__ Yo, float* __restrict__ Uo,
+                               float* __restrict__ RHo, float* __restrict__ rew,
+                               float disc, int t, int lt, long long B) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int n_ro = tp.n_ro;
+  Episode s;
+  for (int n = 0; n < tp.n_main; ++n) s.X[n] = X[n * B + b];
+  for (int j = 0; j < tp.n_rt; ++j) s.U[j] = U[j * B + b];
+  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  for (int i = 0; i < n_ro; ++i) {
+    s.Y[i] = Y[i * B + b];
+    s.slot[i] = 0;
+    const int L = tp.ro_L[i];
+    if (L > 0)
+      s.ring[tp.ro_ring[i]] = RH[((long long)(L - 1) * n_ro + i) * B + b] * (t >= L ? 1.f : 0.f);
+    act[i] = acts[i * B + b];
+  }
+  for (int j = 0; j < tp.n_rt; ++j) dem[j] = dems[j * B + b];
+  const float profit = step_period(tp, s, act, dem, r);
+  for (int n = 0; n < tp.n_main; ++n) Xo[n * B + b] = s.X[n];
+  for (int j = 0; j < tp.n_rt; ++j) Uo[j * B + b] = s.U[j];
+  for (int i = 0; i < n_ro; ++i) {
+    Yo[i * B + b] = s.Y[i];
+    RHo[i * B + b] = r[i];
+  }
+  for (long long k = n_ro; k < (long long)lt * n_ro; ++k) RHo[k * B + b] = RH[(k - n_ro) * B + b];
+  rew[b] = disc * profit;
+}
+
+__global__ void k_episode_returns_random(const __grid_constant__ NetTopo tp,
+                                         const float* __restrict__ dems,
+                                         const float* __restrict__ disc,
+                                         float* __restrict__ out, unsigned seed,
+                                         float act_scale, long long B, int T) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  Episode s;
+  episode_reset(tp, s);
+  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  float total = 0.f;
+  for (int t = 0; t < T; ++t) {
+    WordStream ws(seed, 0u, (unsigned)b, 0u, (unsigned)t);
+    for (int i = 0; i < tp.n_ro; ++i) act[i] = (float)(ws.next() >> 8) * act_scale;
+    for (int j = 0; j < tp.n_rt; ++j)
+      dem[j] = __ldg(dems + ((long long)t * tp.n_rt + j) * B + b);
+    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
+  }
+  out[b] = total;
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,6 +194,23 @@ int net_sample_streams(const NetTopo* topo, const float* tables, float* acts,
                        int T, int e0, int e1, cudaStream_t stream) {
   k_sample_streams<<<blocks_for(B * (e1 - e0)), kThreads, 0, stream>>>(
       *topo, tables, acts, dems, seed, act_scale, B, T, e0, e1 - e0);
+  return (int)cudaGetLastError();
+}
+
+int net_batched_step(const NetTopo* topo, const float* X, const float* Y, const float* U,
+                     const float* RH, const float* acts, const float* dems, float* Xo,
+                     float* Yo, float* Uo, float* RHo, float* rew, float disc, int t, int lt,
+                     long long B, cudaStream_t stream) {
+  k_batched_step<<<blocks_for(B), kThreads, 0, stream>>>(*topo, X, Y, U, RH, acts, dems, Xo,
+                                                         Yo, Uo, RHo, rew, disc, t, lt, B);
+  return (int)cudaGetLastError();
+}
+
+int net_episode_returns_random(const NetTopo* topo, const float* dems, const float* disc,
+                               float* out, unsigned seed, float act_scale, long long B,
+                               int T, cudaStream_t stream) {
+  k_episode_returns_random<<<blocks_for(B), kThreads, 0, stream>>>(*topo, dems, disc, out,
+                                                                   seed, act_scale, B, T);
   return (int)cudaGetLastError();
 }
 

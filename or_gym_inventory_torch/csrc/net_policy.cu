@@ -13,6 +13,13 @@
 //    sample_policy_streams_debug_net (:756): the same policy, deterministic
 //    or stochastic, E episodes per lane, returns (E, B); with DUMP it also
 //    writes the squashed actions and the demand it used.
+// K29 k_rollout_traj_wide  replaces rollout_traj_net (:683) under the
+//    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
+//    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
+//    "kernel"): K4's streams, the raw stream holding the normalised [-1, 1]
+//    actions. The actor is wide_mlp.cuh's (a block per 32 lanes); threads
+//    0..31 own the lanes' envs (net_step.cuh). Bound by operations: the
+//    (256, 256) actor's ~1.7e5 per env-step.
 //
 // Design (a simple kernel first): one thread per (lane, episode), as K2 has.
 // The actor runs as mlp.cuh has it: weights and activations in shared
@@ -27,7 +34,8 @@
 //
 // Random stream (net_step.cuh, philox.cuh): key (seed, 1), counter (lane,
 // episode, period, block); per period the n_rt demand words, then the n_ro
-// u1 and the n_ro u2 words when stochastic.
+// u1 and the n_ro u2 words when stochastic (K29: the head's words, the n_ro
+// u1 words alone for "uniform"), so K29's demand is K4's for the same seed.
 //
 // Rounding: act = (tanh(raw) + 1) * f32(0.5 * act_hi) as the JAX kernels
 // write it; raw = H + std * z with two roundings (__fmul_rn/__fadd_rn), as
@@ -43,6 +51,7 @@
 #include "mlp.cuh"
 #include "net_step.cuh"
 #include "philox.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -148,6 +157,66 @@ __global__ void k_policy_returns(const __grid_constant__ NetTopo tp,
   out[idx] = total;  // (E, B), episode-major
 }
 
+// The observation of the period-t state into column n of x
+// ([row][kWideLanes]), in assemble_obs's order.
+__device__ __forceinline__ void wide_obs(const NetTopo& tp, const Episode& s, float* x,
+                                         int n) {
+  int k = 0;
+  for (int j = 0; j < tp.n_rt; ++j) x[(k++) * kWideLanes + n] = s.U[j];
+  for (int i = 0; i < tp.n_main; ++i) x[(k++) * kWideLanes + n] = s.X[i];
+  for (int i = 0; i < tp.n_ro; ++i)
+    for (int j = 0; j < tp.ro_L[i]; ++j) x[(k++) * kWideLanes + n] = order_window(tp, s, i, j);
+}
+
+template <bool RELU>
+__global__ void __launch_bounds__(kWideThreads)
+    k_rollout_traj_wide(const __grid_constant__ NetTopo tp, const __grid_constant__ WideMlp m,
+                        const float* __restrict__ w, const float* __restrict__ tables,
+                        const float* __restrict__ disc, float* __restrict__ xo,
+                        float* __restrict__ uo, float* __restrict__ ro,
+                        float* __restrict__ rawo, float* __restrict__ rewo,
+                        float* __restrict__ demo, unsigned seed, long long B, int T) {
+  extern __shared__ float4 smem4[];
+  float* x0 = reinterpret_cast<float*>(smem4);
+  float* x1 = x0 + m.rows * kWideLanes;
+  const int n = threadIdx.x;
+  const long long b = (long long)blockIdx.x * kWideLanes + n;
+  const bool lane = n < kWideLanes, live = lane && b < B;
+  const bool actor = m.head != kHeadUniform;
+  Episode s;
+  float dem[NET_MAX_RT], act[NET_MAX_RO], r[NET_MAX_RO], st[NET_MAX_RO], z[WIDE_MAX_ACT];
+  if (lane) episode_reset(tp, s);
+  for (int t = 0; t <= T; ++t) {
+    if (live) {
+      for (int i = 0; i < tp.n_main; ++i) xo[((long long)t * tp.n_main + i) * B + b] = s.X[i];
+      for (int j = 0; j < tp.n_rt; ++j) uo[((long long)t * tp.n_rt + j) * B + b] = s.U[j];
+    }
+    if (t == T) break;  // the final snapshots are the bootstrap obs
+    if (lane) {
+      WordStream ws(seed, 1u, (unsigned)b, 0u, (unsigned)t);
+      for (int j = 0; j < tp.n_rt; ++j) dem[j] = link_demand(tp, tables, j, t, ws.next());
+      wide_noise(m, ws, z);
+      if (actor) wide_obs(tp, s, x0, n);
+    }
+    const float* H = actor ? wide_forward<RELU>(m, w, x0, x1) : x0;
+    if (lane) {
+      for (int i = 0; i < tp.n_ro; ++i)
+        act[i] = (wide_head(m, w, H, n, i, z[i], st[i]) + 1.f) * m.half_hi[i];
+      const float profit = step_period(tp, s, act, dem, r);
+      if (live) {
+        for (int i = 0; i < tp.n_ro; ++i) {
+          const long long k = ((long long)t * tp.n_ro + i) * B + b;
+          ro[k] = r[i];
+          rawo[k] = st[i];
+        }
+        rewo[(long long)t * B + b] = __ldg(disc + t) * profit;
+        for (int j = 0; j < tp.n_rt; ++j)
+          demo[((long long)t * tp.n_rt + j) * B + b] = dem[j];
+      }
+    }
+  }
+}
+
 template <bool STOCH, bool DUMP>
 int launch_policy_returns(const NetTopo& tp, const Mlp& m, const float* params,
                           int n_params, const float* tables, const float* disc,
@@ -196,6 +265,19 @@ int net_policy_returns(const NetTopo* topo, const Mlp* mlp,
                                                    disc, out, acts, dems, seed, B, E, T, stream)
               : launch_policy_returns<false, false>(*topo, *mlp, params, n_params, tables,
                                                     disc, out, acts, dems, seed, B, E, T, stream);
+}
+
+int net_rollout_traj_wide(const NetTopo* topo, const WideMlp* wm, const float* w,
+                          const float* tables, const float* disc, float* xo, float* uo,
+                          float* ro, float* raw, float* rew, float* dem, unsigned seed,
+                          int relu, long long B, int T, cudaStream_t stream) {
+  auto kernel = relu ? k_rollout_traj_wide<true> : k_rollout_traj_wide<false>;
+  const size_t smem = wide_smem_bytes(*wm);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<wide_blocks(B), kWideThreads, smem, stream>>>(*topo, *wm, w, tables, disc, xo, uo,
+                                                         ro, raw, rew, dem, seed, B, T);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

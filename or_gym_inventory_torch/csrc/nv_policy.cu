@@ -18,6 +18,13 @@
 //    (E, B) gamma^t-discounted; with DUMP it also writes the econ (E, 5, B),
 //    the orders before the max_inventory cap (T, E, B) and the demand
 //    (T, E, B) it used.
+// K28 k_nv_rollout_traj_wide  replaces rollout_traj_nv (:1796) under the
+//    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
+//    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
+//    "kernel"): K18's streams, the raw stream holding the normalised [-1, 1]
+//    orders. The actor is wide_mlp.cuh's (a block per 32 lanes); threads
+//    0..31 own the lanes' resets, demand chunks and pipelines. Bound by
+//    operations: the (256, 256) actor's ~1.4e5 per env-step.
 // K21 k_sample_normals  replaces sample_normals_debug (:1849): the
 //    Box-Muller normals of the policy kernels' generator, (rows, B), for the
 //    goodness-of-fit pin.
@@ -43,6 +50,8 @@
 // policy period recomputes the period's block for them. K18 is episode 0, so
 // episode 0 of the stochastic K19 draws exactly K18's words and takes K18's
 // orders for the same seed; the deterministic K19 draws one word a period.
+// K28 draws K18's reset and demand words; its head's words are words 1 and 2
+// of the period (word 1 alone for "uniform").
 // K21's element (row, lane) is normal01(word 0, word 1) of counter
 // (lane, 0, row, 0).
 //
@@ -60,6 +69,7 @@
 #include "mlp.cuh"
 #include "nv_step.cuh"
 #include "philox.cuh"
+#include "wide_mlp.cuh"
 
 namespace {
 
@@ -221,6 +231,77 @@ __global__ void k_sample_normals(float* __restrict__ out, unsigned seed, long lo
   out[idx] = normal01(w0, ws.next());  // (rows, B)
 }
 
+template <bool RELU>
+__global__ void __launch_bounds__(kWideThreads)
+    k_nv_rollout_traj_wide(const __grid_constant__ NvParams p,
+                           const __grid_constant__ WideMlp m, const float* __restrict__ w,
+                           const float* __restrict__ lgam, float* __restrict__ econo,
+                           float* __restrict__ ordo, float* __restrict__ rawo,
+                           float* __restrict__ rewo, float* __restrict__ demo, unsigned seed,
+                           long long B, int T) {
+  extern __shared__ float4 smem4[];
+  float* x0 = reinterpret_cast<float*>(smem4);
+  float* x1 = x0 + m.rows * kWideLanes;
+  const int n = threadIdx.x;
+  const long long b = (long long)blockIdx.x * kWideLanes + n;
+  const bool lane = n < kWideLanes, live = lane && b < B;
+  const bool actor = m.head != kHeadUniform;
+  const unsigned ln = (unsigned)b;
+  NvEpisode s;
+  NvPoisson q;
+  if (lane) {
+    policy_reset(p, seed, ln, 0u, s);
+    if (live) {
+      econo[b] = s.price;
+      econo[B + b] = s.cost;
+      econo[2 * B + b] = s.h;
+      econo[3 * B + b] = s.k;
+      econo[4 * B + b] = s.mu;
+    }
+    q = nv_poisson_setup(p, lgam, s.mu);
+  }
+  for (int t0 = 0; t0 < T; t0 += NV_CHUNK) {
+    float d[NV_CHUNK];
+    if (lane) chunk_demand(p, q, seed, ln, 0u, t0, T, d);
+    const int cn = min(NV_CHUNK, T - t0);
+    for (int i = 0; i < cn; ++i) {
+      const int t = t0 + i;
+      float z[WIDE_MAX_ACT];
+      if (lane) {
+        WordStream ws(seed, 1u, ln, 0u, (unsigned)t);
+        ws.next();  // word 0: the period's demand
+        wide_noise(m, ws, z);
+        if (actor) {
+          x0[n] = s.price;
+          x0[kWideLanes + n] = s.cost;
+          x0[2 * kWideLanes + n] = s.h;
+          x0[3 * kWideLanes + n] = s.k;
+          x0[4 * kWideLanes + n] = s.mu;
+          for (int j = 0; j < p.L; ++j) {
+            int k = s.head + j;
+            if (k >= p.L) k -= p.L;
+            x0[(5 + j) * kWideLanes + n] = s.ring[k];
+          }
+        }
+      }
+      const float* H = actor ? wide_forward<RELU>(m, w, x0, x1) : x0;
+      if (lane) {
+        float st, qty;
+        const float a = wide_head(m, w, H, n, 0, z[0], st);
+        const float order = __fmul_rn(__fadd_rn(a, 1.f), m.half_hi[0]);
+        const float reward = nv_step(p, s, order, d[i], qty);
+        if (live) {
+          const long long k = (long long)t * B + b;  // (T, B) and (T, 1, B)
+          ordo[k] = qty;
+          rawo[k] = st;
+          rewo[k] = reward;
+          demo[k] = d[i];
+        }
+      }
+    }
+  }
+}
+
 template <bool STOCH, bool DUMP>
 int launch_policy_returns(const NvParams& p, const Mlp& m, const float* params,
                           int n_params, const float* lgam, const float* disc, float* out,
@@ -269,6 +350,19 @@ int nv_policy_returns(const NvParams* p, const Mlp* mlp, const float* params, in
               : launch_policy_returns<false, false>(*p, *mlp, params, n_params, lgam, disc,
                                                     out, econ, acts, dems, seed, B, E, T,
                                                     stream);
+}
+
+int nv_rollout_traj_wide(const NvParams* p, const WideMlp* wm, const float* w,
+                         const float* lgam, float* econ, float* orders, float* raw, float* rew,
+                         float* dem, unsigned seed, int relu, long long B, int T,
+                         cudaStream_t stream) {
+  auto kernel = relu ? k_nv_rollout_traj_wide<true> : k_nv_rollout_traj_wide<false>;
+  const size_t smem = wide_smem_bytes(*wm);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<wide_blocks(B), kWideThreads, smem, stream>>>(*p, *wm, w, lgam, econ, orders, raw,
+                                                         rew, dem, seed, B, T);
+  return (int)cudaGetLastError();
 }
 
 int sample_normals(float* out, unsigned seed, long long B, int rows, cudaStream_t stream) {

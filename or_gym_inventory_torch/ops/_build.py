@@ -35,6 +35,12 @@ SIGNATURES = {
         "net_episode_returns_fused": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
         # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
         "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
+        # topo, X, Y, U, RH, acts, dems, X', Y', U', RH', reward, disc, t, lt,
+        # B, stream
+        "net_batched_step": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                              _LL, _P), _I),
+        # topo, dems, disc, out, seed, act_scale, B, T, stream
+        "net_episode_returns_random": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _P), _I),
     },
     "net_policy": {
         # topo, mlp, params, n_params, tables, disc, x, u, r, raw, reward,
@@ -45,6 +51,10 @@ SIGNATURES = {
         # E, T, stochastic, stream
         "net_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _U32, _LL,
                                 _I, _I, _I, _P), _I),
+        # topo, wide, actor, tables, disc, x, u, r, raw, reward, demand, seed,
+        # relu, B, T, stream
+        "net_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
+                                   _LL, _I, _P), _I),
     },
     "im_episode": {
         # params, acts, dems, disc, out, seed, random, backlog, B, T, stream
@@ -63,6 +73,10 @@ SIGNATURES = {
         # seed, stochastic, backlog, B, E, T, stream
         "im_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
                                _LL, _I, _I, _P), _I),
+        # params, wide, actor, table, user_d, disc, inv, acts, raw, reward,
+        # demand, seed, relu, backlog, B, T, stream
+        "im_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
+                                  _LL, _I, _P), _I),
     },
     "im_lstm": {
         # params, lstm, actor, table, user_d, disc, out, acts, dems, seed,
@@ -91,6 +105,10 @@ SIGNATURES = {
                                _I, _P), _I),
         # out, seed, B, rows, stream
         "sample_normals": ((_P, _U32, _LL, _I, _P), _I),
+        # params, wide, actor, lgamma, econ, orders, raw, reward, demand,
+        # seed, relu, B, T, stream
+        "nv_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _P),
+                                 _I),
     },
 }
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}

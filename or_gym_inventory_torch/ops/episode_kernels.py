@@ -10,11 +10,15 @@ version), and what every MLP policy kernel shares:
 
 - ``clipped_std``, ``fold_actor_params`` (the obs RunningMeanStd folded into
   layer 1), ``folded_actor_mean`` and ``apply_folded_actor``, on host;
+- ``fold_offpolicy_actor``, the off-policy learners' actor (relu trunk,
+  mean head, and for SAC the log_std head beside it) folded the same way;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
   shared by the NetInvMgmt policy kernels (``ops/net_step.py``), K10, K11
-  and K18-K20;
-- the plain versions of the in-kernel helpers ``mlp_forward``,
-  ``traj_policy`` (mode ``"ppo"``), ``_im_step_math``, ``_im_obs_rows``,
+  and K18-K20; and ``_pack_wide_actor``, the actor of the off-policy
+  trajectory kernels K27-K29 (``csrc/wide_mlp.cuh``);
+- the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
+  relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
+  ``"uniform"``), ``_im_step_math``, ``_im_obs_rows``,
   ``_nv_step_math``, ``_nv_obs_rows``, ``_nv_poisson_setup``,
   ``_nv_poisson_invert`` and ``_nv_econ_from_uniforms``. Those of ``_uniform01`` and ``_normal01`` are
   ``ops.rng.uniform01`` and ``normal01``, which turn Philox words into the
@@ -26,6 +30,7 @@ version), and what every MLP policy kernel shares:
 | ``episode_returns_im_fused``      | ``episode_returns_im_fused`` :919 (K8)       |
 | ``sample_streams_debug_im``       | ``sample_streams_debug_im`` :1873 (K9)       |
 | ``rollout_traj_im``               | ``rollout_traj_im`` :1683 (K10)              |
+| ``rollout_traj_im_offpolicy``     | ``rollout_traj_im`` :1683, off-policy heads (K27) |
 | ``episode_returns_im_policy``     | ``episode_returns_im_policy`` :1264 (K11)    |
 | ``sample_policy_streams_debug_im`` | ``sample_policy_streams_debug_im`` :1287 (K12) |
 | ``episode_returns_im_lstm``       | ``episode_returns_im_lstm`` :1459 (K22)      |
@@ -38,6 +43,7 @@ version), and what every MLP policy kernel shares:
 | ``episode_returns_nv_reset_fused`` | ``episode_returns_nv_reset_fused`` :495 (K16) |
 | ``sample_streams_debug_nv_reset`` | ``sample_streams_debug_nv_reset`` :513 (K17) |
 | ``rollout_traj_nv``               | ``rollout_traj_nv`` :1796 (K18)              |
+| ``rollout_traj_nv_offpolicy``     | ``rollout_traj_nv`` :1796, off-policy heads (K28) |
 | ``episode_returns_nv_policy``     | ``episode_returns_nv_policy`` :648 (K19)     |
 | ``sample_policy_streams_debug_nv`` | ``sample_policy_streams_debug_nv`` :665 (K20) |
 | ``sample_normals_debug``          | ``sample_normals_debug`` :1849 (K21)         |
@@ -53,19 +59,22 @@ pressure. The random streams are Philox4x32-10 words (``ops/rng.py``): the
 InvManagement random policy's under key (seed, 0), m1 action words then one
 demand word per period; the InvManagement policy kernels' (K10-K12, and the
 LSTM kernels K22-K24) under (seed, 1), one demand word, then, when
-stochastic, m1 u1 and m1 u2 words;
-the Newsvendor random-policy kernels' (K13-K17) under (seed, 0), the
+stochastic, m1 u1 and m1 u2 words (K27, the off-policy heads: the demand
+word, then m1 u1 and m1 u2 words, or for ``"uniform"`` the m1 u1 words
+alone); the Newsvendor random-policy kernels' (K13-K17) under (seed, 0), the
 reset's 5 words at period ``NV_ECON_PERIOD``, then per period one action
 word and one demand word; the Newsvendor policy kernels' (K18-K20) under
 (seed, 1), the reset's 5 words at ``NV_ECON_PERIOD``, then per period one
-demand word and, when stochastic, the u1 and u2 words of the normal; K21
+demand word and, when stochastic, the u1 and u2 words of the normal (K28:
+the u1 and u2 words, or for ``"uniform"`` the u1 word alone); K21
 dumps normal01 of words 0 and 1 of period ``row`` under (seed, 1). The
 Newsvendor dumps are laid out as K17's: econ (E, 5, B), streams (T, E, B).
 
 An actor is ``(Ws, bs)``: Ws[l] (in, out), bs[l] (out,), float32, as the JAX
 package has it. The plain versions compute with the layers as (out, in), as
 the Pallas kernels did (``kernel_layers``); the CUDA kernels take them as
-(in, out) with the outputs padded to 16 (``_pack_actor``).
+(in, out) with the outputs padded to 16 (``_pack_actor``), or to 8 for the
+wide kernels (``_pack_wide_actor``).
 """
 
 from __future__ import annotations
@@ -91,13 +100,17 @@ MAX_LAYERS, MAX_WIDTH, MAX_ACT = 8, 256, 32
 SMEM_OPTIN_BYTES = 232_448
 # and of the InvManagement params struct (csrc/im_step.cuh)
 IM_MAX_M1, IM_MAX_LT = 8, 32
+# the trajectory kernels' heads (csrc/wide_mlp.cuh WideHead) and trunks
+HEADS = {"ppo": 0, "det": 1, "sac": 2, "uniform": 3}
+_TRUNKS = {"tanh": torch.tanh, "relu": torch.relu}
 
 
-def _refuse_mode(what: str):
-    raise NotImplementedError(
-        f"{what}: the port's policy kernels run the PPO head with a tanh trunk; "
-        "the off-policy heads (det, sac, uniform) and relu trunks come with "
-        "the off-policy learners (ROADMAP.md A9)")
+def _check_head(policy: str, act_name: str):
+    """Raise ValueError for a head or a trunk that traj_policy does not have."""
+    if policy not in HEADS:
+        raise ValueError(f"unknown traj_policy mode {policy!r}")
+    if act_name not in _TRUNKS:
+        raise ValueError(f"unknown act_name {act_name!r}; the trunks are tanh and relu")
 
 
 def clipped_std(log_std) -> torch.Tensor:
@@ -115,11 +128,43 @@ def fold_actor_params(cfg, model, rms=None):
     b1' = b1 - (mu * invstd) @ W1. The layers are the pi trunk (tanh after
     each) and the mean head. ``model`` is an ``MLPActorCritic``."""
     if getattr(cfg, "activation", "tanh") != "tanh":
-        _refuse_mode(f"activation={cfg.activation!r}")
+        raise ValueError("policy-in-kernel supports tanh trunks (the benchmark default); "
+                         f"got activation={cfg.activation!r}")
     layers = list(model.pi) + [model.mean]
     Ws = [layer.weight.detach().to(torch.float32).T.clone() for layer in layers]
     bs = [layer.bias.detach().to(torch.float32).clone() for layer in layers]
     if rms is not None and getattr(cfg, "normalize_obs", True):
+        invstd = 1.0 / torch.sqrt(rms.var.to(torch.float32) + 1e-8)
+        mu = rms.mean.to(torch.float32)
+        bs[0] = bs[0] - (mu * invstd) @ Ws[0]
+        Ws[0] = Ws[0] * invstd[:, None]
+    return tuple(Ws), tuple(bs)
+
+
+def fold_offpolicy_actor(pi_arch, actor, rms=None, stochastic: bool = False):
+    """The off-policy learners' actor (``agents.off_policy._Actor``: relu
+    trunk, mean head and, for SAC, a log_std head) as plain (Ws, bs) float32
+    tensors for the trajectory kernels, the obs normalisation folded into
+    the first layer as ``fold_actor_params`` folds it. With ``stochastic``
+    the mean and log_std heads are concatenated into one output layer of
+    2 * act_dim outputs, which ``traj_policy("sac", ...)`` splits apart
+    (pallas_episode_kernels.fold_offpolicy_actor :1000)."""
+    if len(actor.trunk) != len(pi_arch):
+        raise ValueError(f"actor has {len(actor.trunk)} trunk layers, pi_arch {tuple(pi_arch)}")
+
+    def wb(layer):
+        return (layer.weight.detach().to(torch.float32).T.clone(),
+                layer.bias.detach().to(torch.float32).clone())
+
+    Ws, bs = (list(x) for x in zip(*(wb(layer) for layer in actor.trunk))) \
+        if len(actor.trunk) else ([], [])
+    W_out, b_out = wb(actor.mean)
+    if stochastic:
+        W_ls, b_ls = wb(actor.log_std)
+        W_out, b_out = torch.cat([W_out, W_ls], dim=1), torch.cat([b_out, b_ls])
+    Ws.append(W_out)
+    bs.append(b_out)
+    if rms is not None:
         invstd = 1.0 / torch.sqrt(rms.var.to(torch.float32) + 1e-8)
         mu = rms.mean.to(torch.float32)
         bs[0] = bs[0] - (mu * invstd) @ Ws[0]
@@ -159,30 +204,70 @@ def kernel_layers(actor, device):
 def mlp_forward(layers, act_name: str, obs_rows) -> torch.Tensor:
     """Plain version of the in-kernel trunk and head: the obs rows, each (B,),
     stacked to (obs_dim, B), then W @ H + b per layer of ``kernel_layers``
-    with ``act_name`` after every layer but the last. Returns (act_dim, B)."""
-    if act_name != "tanh":
-        _refuse_mode(f"act_name={act_name!r}")
+    with ``act_name`` ("tanh" or "relu", which keeps a NaN as jnp.maximum
+    does) after every layer but the last. Returns (outputs, B)."""
+    if act_name not in _TRUNKS:
+        raise ValueError(f"unknown act_name {act_name!r}; the trunks are tanh and relu")
+    act = _TRUNKS[act_name]
     H = torch.stack([r.to(torch.float32) for r in obs_rows])
     for i, (W, b) in enumerate(layers):
         H = W @ H + b
         if i < len(layers) - 1:
-            H = torch.tanh(H)
+            H = act(H)
     return H
 
 
 def traj_policy(mode: str, act_name: str, act_dim: int, layers, std, obs_rows,
                 z: torch.Tensor):
-    """Plain version of the trajectory kernels' policy head, mode ``"ppo"``:
-    the pre-squash Gaussian ``raw = H + std * z`` on the trunk's mean, with
-    ``z`` (act_dim, B) the period's standard normals. Returns (store, a_norm):
-    the raw sample the kernel writes out, and tanh(raw) in [-1, 1]."""
-    if mode != "ppo":
-        _refuse_mode(f"policy={mode!r}")
+    """Plain version of the trajectory kernels' policy head
+    (pallas_episode_kernels.traj_policy :1036-1081). ``z`` (act_dim, B) is
+    the period's noise: standard normals, or for ``"uniform"`` the 24-bit
+    uniforms in [0, 1). Returns (store, a_norm): what the kernel writes to
+    its raw stream, and the normalised action in [-1, 1] the env consumes.
+
+    - ``"ppo"``: raw = H + std * z, stored; a_norm = tanh(raw).
+    - ``"det"`` (TD3/DDPG): a = clip(tanh(H) + std * z, -1, 1).
+    - ``"sac"``: the actor's 2 * act_dim outputs split into mean and ls,
+      a = tanh(mean + exp(clip(ls, -10, 2)) * z).
+    - ``"uniform"`` (warmup): a = 2 z - 1; the actor does not run.
+
+    The off-policy heads store a_norm. An unknown mode raises ValueError."""
+    if mode == "uniform":
+        a = 2.0 * z - 1.0
+        return a, a
+    if mode not in HEADS:
+        raise ValueError(f"unknown traj_policy mode {mode!r}")
     H = mlp_forward(layers, act_name, obs_rows)
-    if H.shape[0] != act_dim:
-        raise ValueError(f"the actor has {H.shape[0]} outputs, expected {act_dim}")
-    raw = H + std * z
-    return raw, torch.tanh(raw)
+    want = 2 * act_dim if mode == "sac" else act_dim
+    if H.shape[0] != want:
+        raise ValueError(f"the actor has {H.shape[0]} outputs, expected {want}")
+    if mode == "ppo":
+        raw = H + std * z
+        return raw, torch.tanh(raw)
+    if mode == "det":
+        a = torch.clamp(torch.tanh(H) + std * z, -1.0, 1.0)
+        return a, a
+    mean, ls = H[:act_dim], H[act_dim:]
+    a = torch.tanh(mean + torch.exp(torch.clamp(ls, -10.0, 2.0)) * z)
+    return a, a
+
+
+def _head_noise(mode: str, words):
+    """The head's noise (act_dim, B) from the period's words after the
+    demand's: the act_dim u1 then act_dim u2 words as Box-Muller normals,
+    or for ``"uniform"`` the act_dim u1 words as uniforms."""
+    if mode == "uniform":
+        return rng.uniform01(torch.stack(words))
+    n = len(words) // 2
+    return rng.normal01(torch.stack(words[:n]), torch.stack(words[n:]))
+
+
+def _head_words(mode: str, act_dim: int, stochastic: bool = True) -> int:
+    """Words of the head's noise per period: 0 for the deterministic PPO
+    head, act_dim for "uniform", else 2 * act_dim."""
+    if mode == "uniform":
+        return act_dim
+    return 2 * act_dim if stochastic or mode != "ppo" else 0
 
 
 # ------------------------------------------------------- launch helpers
@@ -229,9 +314,10 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _actor_dims(actor, obs_dim: int, act_dim: int):
-    """The actor's widths [obs_dim, ..., act_dim]; raises ValueError for an
-    actor that does not fit the env."""
+def _actor_dims(actor, obs_dim: int, act_dim):
+    """The actor's widths [obs_dim, ..., outputs]; raises ValueError for an
+    actor that does not fit the env. ``act_dim`` is the output width, or a
+    tuple of the widths allowed."""
     Ws, bs = actor
     if len(Ws) != len(bs) or not Ws:
         raise ValueError("actor must be (Ws, bs) with one bias per layer")
@@ -240,10 +326,18 @@ def _actor_dims(actor, obs_dim: int, act_dim: int):
         if tuple(W.shape) != (dims[layer], dims[layer + 1]) or tuple(b.shape) != (dims[layer + 1],):
             raise ValueError(f"layer {layer}: W {tuple(W.shape)} and b {tuple(b.shape)} "
                              f"do not chain to widths {dims}")
-    if dims[0] != obs_dim or dims[-1] != act_dim:
+    outs = act_dim if isinstance(act_dim, tuple) else (act_dim,)
+    if dims[0] != obs_dim or dims[-1] not in outs:
         raise ValueError(f"actor maps {dims[0]} -> {dims[-1]}; the env needs "
                          f"obs_dim {obs_dim} -> act_dim {act_dim}")
     return dims
+
+
+def _head_dims(actor, obs_dim: int, act_dim: int, policy: str):
+    """``_actor_dims`` for ``policy``'s head: act_dim outputs, 2 * act_dim
+    for "sac", either for "uniform" (whose actor does not run)."""
+    outs = {"sac": (2 * act_dim,), "uniform": (act_dim, 2 * act_dim)}.get(policy, (act_dim,))
+    return _actor_dims(actor, obs_dim, outs)
 
 
 def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
@@ -283,6 +377,71 @@ def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     for i, h in enumerate(half_hi):
         mlp.half_hi[i] = h
     return mlp, flat
+
+
+# maxima of the wide actor of K27-K29 (csrc/wide_mlp.cuh): layers and the
+# env's actions; its widths are bounded by the shared memory of a block
+WIDE_MAX_LAYERS, WIDE_MAX_ACT = 8, 32
+_WIDE_LANES = 32   # kWideLanes of csrc/wide_mlp.cuh: the lanes a block runs
+
+
+class _WideMlp(ctypes.Structure):
+    """Mirror of ``struct WideMlp`` in csrc/wide_mlp.cuh."""
+    _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (WIDE_MAX_LAYERS + 1)),
+                ("rows", ctypes.c_int), ("act", ctypes.c_int), ("head", ctypes.c_int),
+                ("std", ctypes.c_int), ("half_hi", ctypes.c_float * WIDE_MAX_ACT)]
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, device):
+    """The wide kernels' actor arguments: the WideMlp struct (the head,
+    ``half_hi[i]`` the f32 factor that maps a_norm_i + 1 onto action i's
+    range) and one flat float32 buffer on ``device``, each layer as W^T
+    (in, out8) then b (out8), the outputs zero-padded to a multiple of 8,
+    then the std when the head takes one ("ppo", "det"). Raises ValueError
+    for an actor beyond the kernels' maxima or whose two activation buffers
+    of 32 lanes exceed the shared memory of a block."""
+    dims = _head_dims(actor, obs_dim, act_dim, policy)
+    Ws, bs = actor
+    if len(Ws) > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
+        raise ValueError(f"actor widths {dims}: the wide kernels take at most "
+                         f"{WIDE_MAX_LAYERS} layers and {WIDE_MAX_ACT} actions")
+    parts = []
+    for W, b in zip(Ws, bs):
+        n_in, n_out = W.shape
+        Wp = torch.zeros((n_in, _pad8(n_out)), dtype=torch.float32, device=device)
+        bp = torch.zeros(_pad8(n_out), dtype=torch.float32, device=device)
+        Wp[:, :n_out] = torch.as_tensor(W, dtype=torch.float32, device=device)
+        bp[:n_out] = torch.as_tensor(b, dtype=torch.float32, device=device)
+        parts += [Wp.reshape(-1), bp]
+    rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
+    st = _WideMlp(n_layers=len(dims) - 1, rows=rows, act=act_dim, head=HEADS[policy], std=-1)
+    if policy in ("ppo", "det"):
+        st.std = sum(p.numel() for p in parts)
+        parts.append(std.to(device=device, dtype=torch.float32).reshape(-1))
+    for k, d in enumerate(dims):
+        st.dims[k] = d
+    for i, h in enumerate(half_hi):
+        st.half_hi[i] = h
+    smem = 2 * rows * _WIDE_LANES * 4
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"actor of widths {dims}: two activation buffers of {rows} rows x "
+                         f"{_WIDE_LANES} lanes need {smem} bytes; the shared memory of a block "
+                         f"holds {SMEM_OPTIN_BYTES}")
+    return st, torch.cat(parts).contiguous()
+
+
+def _offpolicy_std(policy: str, log_std):
+    """The std the head takes: clipped_std(log_std) for "ppo" and "det"
+    (which raise ValueError without one), None for "sac" and "uniform"."""
+    if policy not in ("ppo", "det"):
+        return None
+    if log_std is None:
+        raise ValueError(f"the {policy!r} head samples around the actor: log_std is required")
+    return clipped_std(torch.as_tensor(log_std).detach())
 
 
 # ============================================ InvManagement kernels K7-K10
@@ -505,36 +664,39 @@ def _half_c(params: im.InvManagementParams):
 
 
 def _im_policy_period_plain(params, plan, layers, std, seed, lanes, episodes, t,
-                            inv, AH):
+                            inv, AH, policy="ppo", act_name="tanh"):
     """Demand, raw samples and int actions of period ``t`` of the policy
-    kernels (csrc/im_policy.cu ``policy_period``) for every (lane, episode):
-    one demand word under key (seed, 1), then, with ``std``, the m1 u1 and
-    the m1 u2 words of the normals; the actor on ``_im_obs_rows``; the action
-    (int)((tanh(raw) + 1) * f32(0.5 c_i)) (pallas_episode_kernels.py
-    :1149-1167). Returns (demand, raw (m1, N), [m1 int32 action rows])."""
+    kernels (csrc/im_policy.cu ``policy_period``, and K27's period) for every
+    (lane, episode): one demand word under key (seed, 1), then the head's
+    words (``_head_words``: none for the deterministic PPO head); the actor
+    on ``_im_obs_rows``; the action (int)((a_norm + 1) * f32(0.5 c_i))
+    (pallas_episode_kernels.py :1149-1167, :1666-1671). Returns (demand,
+    stored (m1, N), [m1 int32 action rows])."""
     m1 = params.m1
-    words = rng.period_words(seed, lanes, episodes, t, 1 if std is None else 1 + 2 * m1,
-                             key1=rng.POLICY_KEY)
+    n_head = _head_words(policy, m1, std is not None)
+    words = rng.period_words(seed, lanes, episodes, t, 1 + n_head, key1=rng.POLICY_KEY)
     d = _im_demand_plain(plan, words[0], t)
     obs = _im_obs_rows(params, t, inv, AH)
-    if std is None:
+    if not n_head:
         raw = mlp_forward(layers, "tanh", obs)
         a_norm = torch.tanh(raw)
     else:
-        z = rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]))
-        raw, a_norm = traj_policy("ppo", "tanh", m1, layers, std, obs, z)
+        raw, a_norm = traj_policy(policy, act_name, m1, layers, std, obs,
+                                  _head_noise(policy, words[1:]))
     S = a_norm + 1.0
     half_c = _half_c(params)
     return d, raw, [im.trunc_i32(S[i] * half_c[i]) for i in range(m1)]
 
 
-def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
-    """Plain version of K10: the streams of one stochastic-policy episode
-    per lane, as ``rollout_traj_im`` returns them."""
+def _rollout_traj_im_plain(params, actor, std, seed, batch, device, policy="ppo",
+                           act_name="tanh"):
+    """Plain version of K10 (and, with another head or trunk, of K27): the
+    streams of one stochastic-policy episode per lane, as
+    ``rollout_traj_im`` returns them."""
     m1, lt, T = params.m1, params.lt_max, params.periods
     plan = _im_host_plan(params, str(device))
     layers = kernel_layers(actor, device)
-    std = std.to(device)
+    std = None if std is None else std.to(device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -548,7 +710,7 @@ def _rollout_traj_im_plain(params, actor, std, seed, batch, device):
     for t in range(T):
         out["inv"][t] = torch.stack(inv)
         d, raw, acts = _im_policy_period_plain(params, plan, layers, std, seed, lanes, 0,
-                                               t, inv, AH)
+                                               t, inv, AH, policy, act_name)
         out["raw"][t], out["actions"][t] = raw, torch.stack(acts)
         inv, bkl, RH, r_req, profit = _im_step_math(params, t, inv, bkl, RH, acts, d)
         if lt:
@@ -724,10 +886,15 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
     ``raw (T, m1, batch)`` f32 pre-squash samples, ``reward (T, batch)`` f32
     (alpha^t-discounted) and ``demand (T, batch)`` int32. K10: one thread
     per lane (csrc/im_policy.cu ``k_im_rollout_traj``); on the CPU the plain
-    version runs. Only the PPO head with a tanh trunk is ported: other
-    ``policy`` or ``act_name`` values raise NotImplementedError."""
-    if policy != "ppo" or act_name != "tanh":
-        _refuse_mode(f"policy={policy!r}, act_name={act_name!r}")
+    version runs. ``policy``/``act_name`` select the head and the trunk
+    (``traj_policy``): the default ("ppo", "tanh") is K10's; any other pair
+    (the off-policy heads "det", "sac", "uniform", a relu trunk) is
+    ``rollout_traj_im_offpolicy``'s (K27), whose ``raw`` holds the
+    normalised [-1, 1] actions."""
+    _check_head(policy, act_name)
+    if (policy, act_name) != ("ppo", "tanh"):
+        return rollout_traj_im_offpolicy(params, actor, log_std, seed, batch, policy,
+                                         act_name, device)
     dev = resolve_device(device)
     if batch < 1:
         raise ValueError(f"need batch >= 1, got {batch}")
@@ -758,6 +925,54 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
 
 
 rollout_traj_im.launches = 0
+
+
+def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, seed,
+                              batch: int, policy: str = "det", act_name: str = "relu",
+                              device=None):
+    """``rollout_traj_im`` under the off-policy heads: one episode per lane
+    of the folded actor (``fold_offpolicy_actor``) with the head ``policy``
+    ("det": TD3/DDPG's clipped post-squash noise of std
+    ``clipped_std(log_std)``; "sac": the squashed state-dependent Gaussian
+    of the actor's 2 * m1 outputs; "uniform": the warmup's uniform actions;
+    or "ppo") on a ``act_name`` ("relu" or "tanh") trunk. Returns
+    ``rollout_traj_im``'s dict, ``raw`` holding the normalised [-1, 1]
+    actions (the pre-squash samples for "ppo"). The stream is K10's: per
+    period the demand word, then the head's words, so its demand is K10's
+    for the same seed. K27: a block per 32 lanes (csrc/im_policy.cu
+    ``k_im_rollout_traj_wide`` on csrc/wide_mlp.cuh), which runs the SB3
+    default (256, 256) actor; on the CPU the plain version runs."""
+    _check_head(policy, act_name)
+    dev = resolve_device(device)
+    if batch < 1:
+        raise ValueError(f"need batch >= 1, got {batch}")
+    m1, T = params.m1, params.periods
+    seed = int(seed) & rng.MASK32
+    std = _offpolicy_std(policy, log_std)
+    obs_dim = im.observation_space(params).shape[0]
+    if dev.type == "cpu":
+        _head_dims(actor, obs_dim, m1, policy)
+        return _rollout_traj_im_plain(params, actor, std, seed, batch, dev, policy, act_name)
+    st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev)
+    plan = _im_plan(params, _plan_key(dev))
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(inv=torch.empty((T + 1, m1, batch), **i32),
+               actions=torch.empty((T, m1, batch), **i32),
+               raw=torch.empty((T, m1, batch), **f32),
+               reward=torch.empty((T, batch), **f32),
+               demand=torch.empty((T, batch), **i32))
+    with torch.cuda.device(dev):
+        _launch("im_policy", "im_rollout_traj_wide", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
+                plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
+                *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
+                seed, int(act_name == "relu"), int(params.backlog), batch, T, _stream(dev))
+    rollout_traj_im_offpolicy.launches += 1
+    return out
+
+
+rollout_traj_im_offpolicy.launches = 0
 
 
 def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
@@ -1558,30 +1773,35 @@ def _nv_policy_demand_plain(params, seed, lanes, episodes, mu):
     return _nv_poisson_invert(*_nv_poisson_setup(params, mu), K, us)
 
 
-def _nv_policy_period_plain(params, layers, std, seed, lanes, episodes, t, econ, P):
-    """The raw sample and the order of period ``t`` of the policy kernels
-    (csrc/nv_policy.cu ``policy_period``) for every (lane, episode): the
-    period's block under key (seed, 1), whose word 0 is the demand's and,
-    with ``std``, words 1 and 2 the u1 and u2 of the normal; the actor on
-    ``_nv_obs_rows``; order = (tanh(raw) + 1) * f32(0.5 max_order). Returns
-    (raw (N,), order (N,))."""
+def _nv_policy_period_plain(params, layers, std, seed, lanes, episodes, t, econ, P,
+                            policy="ppo", act_name="tanh"):
+    """The stored value and the order of period ``t`` of the policy kernels
+    (csrc/nv_policy.cu ``policy_period``, and K28's period) for every (lane,
+    episode): the period's block under key (seed, 1), whose word 0 is the
+    demand's and words 1.. the head's (``_head_words``: u1 and u2 of the
+    normal, u1 alone for "uniform", none for the deterministic PPO head);
+    the actor on ``_nv_obs_rows``; order = (a_norm + 1) * f32(0.5
+    max_order). Returns (stored (N,), order (N,))."""
     obs = _nv_obs_rows(econ, P)
-    if std is None:
+    n_head = _head_words(policy, 1, std is not None)
+    if not n_head:
         raw = mlp_forward(layers, "tanh", obs)
         a_norm = torch.tanh(raw)
     else:
-        words = rng.period_words(seed, lanes, episodes, t, 3, key1=rng.POLICY_KEY)
-        z = rng.normal01(words[1], words[2])[None]
-        raw, a_norm = traj_policy("ppo", "tanh", 1, layers, std, obs, z)
+        words = rng.period_words(seed, lanes, episodes, t, 1 + n_head, key1=rng.POLICY_KEY)
+        raw, a_norm = traj_policy(policy, act_name, 1, layers, std, obs,
+                                  _head_noise(policy, words[1:]))
     return raw[0], (a_norm[0] + 1.0) * _nv_half_hi(params)[0]
 
 
-def _rollout_traj_nv_plain(params, actor, std, seed, batch, device):
-    """Plain version of K18: the streams of one stochastic-policy episode
-    per lane, as ``rollout_traj_nv`` returns them."""
+def _rollout_traj_nv_plain(params, actor, std, seed, batch, device, policy="ppo",
+                           act_name="tanh"):
+    """Plain version of K18 (and, with another head or trunk, of K28): the
+    streams of one stochastic-policy episode per lane, as
+    ``rollout_traj_nv`` returns them."""
     T = params.step_limit
     layers = kernel_layers(actor, device)
-    std = std.to(device)
+    std = None if std is None else std.to(device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     econ = _nv_policy_econ_plain(params, seed, lanes, 0)
     dems = _nv_policy_demand_plain(params, seed, lanes, 0, econ[4])
@@ -1591,7 +1811,8 @@ def _rollout_traj_nv_plain(params, actor, std, seed, batch, device):
                demand=torch.stack(dems))
     P = [torch.zeros(batch, **f32)] * params.lead_time
     for t in range(T):
-        raw, order = _nv_policy_period_plain(params, layers, std, seed, lanes, 0, t, econ, P)
+        raw, order = _nv_policy_period_plain(params, layers, std, seed, lanes, 0, t, econ, P,
+                                             policy, act_name)
         P, reward, q = _nv_step_math(params, P, *econ[:4], order, dems[t])
         out["raw"][t, 0], out["orders"][t], out["reward"][t] = raw, q, reward
     return out
@@ -1635,11 +1856,16 @@ def _sample_normals_plain(seed, rows, batch, device):
 
 def _nv_policy_args(params, actor, log_std, batch, E, device):
     """(device, std or None, Mlp struct, packed actor) of a K18-K20 call;
-    raises ValueError for a batch, E or actor the kernels do not take."""
+    raises ValueError for a batch, E or actor the kernels do not take. The
+    actor is packed only on the card (None, None on the CPU, where any
+    actor that fits the env runs)."""
     dev = resolve_device(device)
     if E < 1 or batch < 1:
         raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
     std = None if log_std is None else clipped_std(torch.as_tensor(log_std).detach())
+    if dev.type == "cpu":
+        _actor_dims(actor, params.obs_dim, 1)
+        return dev, std, None, None
     mlp, flat = _pack_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), dev)
     return dev, std, mlp, flat
 
@@ -1654,10 +1880,14 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
     ``raw (T, 1, batch)`` (pre-squash samples), ``reward (T, batch)``
     (undiscounted, env semantics) and ``demand (T, batch)``. K18: one thread
     per lane (csrc/nv_policy.cu ``k_nv_rollout_traj``); on the CPU the plain
-    version runs. Only the PPO head with a tanh trunk is ported: other
-    ``policy`` or ``act_name`` values raise NotImplementedError."""
-    if policy != "ppo" or act_name != "tanh":
-        _refuse_mode(f"policy={policy!r}, act_name={act_name!r}")
+    version runs. ``policy``/``act_name`` select the head and the trunk
+    (``traj_policy``): the default ("ppo", "tanh") is K18's; any other pair
+    is ``rollout_traj_nv_offpolicy``'s (K28), whose ``raw`` holds the
+    normalised [-1, 1] orders."""
+    _check_head(policy, act_name)
+    if (policy, act_name) != ("ppo", "tanh"):
+        return rollout_traj_nv_offpolicy(params, actor, log_std, seed, batch, policy,
+                                         act_name, device)
     if log_std is None:
         raise ValueError("rollout_traj_nv samples the stochastic policy: log_std is required")
     dev, std, mlp, flat = _nv_policy_args(params, actor, log_std, batch, 1, device)
@@ -1680,6 +1910,46 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
 
 
 rollout_traj_nv.launches = 0
+
+
+def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed, batch: int,
+                              policy: str = "det", act_name: str = "relu", device=None):
+    """``rollout_traj_nv`` under the off-policy heads (see
+    ``rollout_traj_im_offpolicy``): one episode per lane of the folded
+    actor with the head ``policy`` on an ``act_name`` trunk. Returns
+    ``rollout_traj_nv``'s dict, ``raw (T, 1, batch)`` holding the normalised
+    [-1, 1] orders (the pre-squash samples for "ppo"). The stream is K18's:
+    the reset's words, per period the demand's word 0, then the head's, so
+    its econ and demand are K18's for the same seed. K28: a block per 32
+    lanes (csrc/nv_policy.cu ``k_nv_rollout_traj_wide`` on
+    csrc/wide_mlp.cuh); on the CPU the plain version runs."""
+    _check_head(policy, act_name)
+    dev = resolve_device(device)
+    if batch < 1:
+        raise ValueError(f"need batch >= 1, got {batch}")
+    seed = int(seed) & rng.MASK32
+    std = _offpolicy_std(policy, log_std)
+    if dev.type == "cpu":
+        _head_dims(actor, params.obs_dim, 1, policy)
+        return _rollout_traj_nv_plain(params, actor, std, seed, batch, dev, policy, act_name)
+    st, flat = _pack_wide_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params),
+                                dev)
+    plan = _nv_plan(params, _plan_key(dev))
+    T = params.step_limit
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(econ=torch.empty((5, batch), **f32), orders=torch.empty((T, batch), **f32),
+               raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
+               demand=torch.empty((T, batch), **f32))
+    with torch.cuda.device(dev):
+        _launch("nv_policy", "nv_rollout_traj_wide", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(st), flat.data_ptr(), plan["lgam"].data_ptr(),
+                *(out[k].data_ptr() for k in ("econ", "orders", "raw", "reward", "demand")),
+                seed, int(act_name == "relu"), batch, T, _stream(dev))
+    rollout_traj_nv_offpolicy.launches += 1
+    return out
+
+
+rollout_traj_nv_offpolicy.launches = 0
 
 
 def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std, dump,

@@ -1,8 +1,8 @@
 """NetInvMgmt whole-episode kernels and their plain PyTorch versions.
 
-Port of ``or_gym_inventory_tpu/ops/pallas_net_step.py``: the three kernels
-of the random-policy episode returns (``csrc/net_episode.cu``) and the three
-of the learned policy (``csrc/net_policy.cu``). Each public function is a
+Port of ``or_gym_inventory_tpu/ops/pallas_net_step.py``: the kernels of the
+random-policy episode returns and the one-period step (``csrc/net_episode.cu``)
+and those of the learned policy (``csrc/net_policy.cu``). Each public function is a
 wrapper: on the CPU it runs the plain PyTorch version in this module, on
 CUDA it launches its hand-written kernel and raises if the launch fails;
 nothing falls back. Each wrapper counts its kernel launches in a plain
@@ -15,6 +15,11 @@ integer attribute, ``<wrapper>.launches``.
 | ``rollout_traj_net``         | ``rollout_traj_net`` :683 (K4)        |
 | ``episode_returns_net_policy`` | ``episode_returns_net_policy`` :611 (K5) |
 | ``sample_policy_streams_debug_net`` | ``sample_policy_streams_debug_net`` :756 (K6) |
+| ``batched_step``             | ``batched_step`` :774 (K25)           |
+| ``episode_returns_random_policy`` | ``episode_returns_random_policy`` :857 (K26) |
+| ``rollout_traj_net_offpolicy`` | ``rollout_traj_net`` :683, off-policy heads (K29) |
+
+``rollout_transposed`` (:907) drives ``batched_step`` once per period.
 
 Layout follows the JAX package: per-env state as (rows, B) with the batch
 last, streams as (T, rows, B) or (T, E, rows, B). The random streams are
@@ -489,6 +494,141 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
 sample_streams_debug.launches = 0
 
 
+def _batched_step_plain(params: NetInvParams, X, Y, U, RH, action, demand, t: int):
+    """Plain version of K25 (``batched_step``): pallas_net_step._kernel_body
+    over (B,) rows, the arrival mask t >= L_i and the discount alpha^t (a
+    Python double rounded to f32) computed from the host int ``t``."""
+    T = params.topology
+    lt = max(T.lt_max, 1)
+    valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
+    Xn, Yn, Un, r_cur, profit = _step_math(T, params.backlog, list(X), list(Y), list(U),
+                                           list(RH), list(action), list(demand), valid)
+    RHn = r_cur + list(RH)[: (lt - 1) * T.n_reorder]
+    disc = float(np.float32(params.alpha ** t))
+    return (torch.stack(Xn), torch.stack(Yn), torch.stack(Un), torch.stack(RHn),
+            disc * profit)
+
+
+def batched_step(params: NetInvParams, X: torch.Tensor, Y: torch.Tensor, U: torch.Tensor,
+                 RH: torch.Tensor, action: torch.Tensor, demand: torch.Tensor, t: int):
+    """One NetInvMgmt period over a transposed lockstep batch. Shapes
+    (rows, B), float32, on one device: X (n_main, B), Y (n_reorder, B), U
+    (n_retail, B), RH (lt_max * n_reorder, B) newest-first, action
+    (n_reorder, B), demand (n_retail, B); ``t`` the period, a host int.
+    Returns (X', Y', U', RH', reward (B,)), the reward alpha^t-discounted.
+    K25: one thread per lane (csrc/net_episode.cu ``k_batched_step``); on
+    CPU tensors the plain version runs."""
+    T = params.topology
+    lt = max(T.lt_max, 1)
+    B = X.shape[-1]
+    rows = {"X": (X, T.n_main), "Y": (Y, T.n_reorder), "U": (U, T.n_retail),
+            "RH": (RH, lt * T.n_reorder), "action": (action, T.n_reorder),
+            "demand": (demand, T.n_retail)}
+    for name, (x, n) in rows.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+        if tuple(x.shape) != (n, B) or x.device != X.device:
+            raise ValueError(f"expected {name} ({n}, {B}) on {X.device}; got "
+                             f"{tuple(x.shape)} on {x.device}")
+    t = int(t)
+    if X.device.type == "cpu":
+        return _batched_step_plain(params, X, Y, U, RH, action, demand, t)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    dev = X.device
+    tp, _, _ = _launch_plan(params, 1, ek._plan_key(dev), False)
+    ins = [x.contiguous() for x, _ in rows.values()]
+    outs = [torch.empty((n, B), dtype=torch.float32, device=dev)
+            for _, n in list(rows.values())[:4]]
+    rew = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("net_batched_step", ctypes.addressof(tp), *(x.data_ptr() for x in ins),
+                *(x.data_ptr() for x in outs), rew.data_ptr(),
+                float(np.float32(params.alpha ** t)), t, lt, B, ek._stream(dev))
+    batched_step.launches += 1
+    return (*outs, rew)
+
+
+batched_step.launches = 0
+
+
+def rollout_transposed(params: NetInvParams, generator: torch.Generator, batch: int,
+                       num_steps: int, action_value: float = None, device=None):
+    """Random-action rollout through ``batched_step`` (K25), one launch per
+    period; returns the summed reward (a 0-d tensor). Actions are uniform on
+    [0, 2 * order_cap_heuristic) from ``generator``, or the constant
+    ``action_value``; demand is ``envs.net_inv_management.sample_demand``'s
+    (a ``hostfn`` link raises). ``generator`` must live on ``device``."""
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    dev = resolve_device(device)
+    T = params.topology
+    hi = float(T.order_cap_heuristic * 2)
+    X, Y, U, RH = (x.contiguous() for x in init_transposed(params, batch, dev))
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for t in range(num_steps):
+        if action_value is None:
+            action = torch.rand((T.n_reorder, batch), generator=generator, device=dev) * hi
+        else:
+            action = torch.full((T.n_reorder, batch), float(action_value),
+                                dtype=torch.float32, device=dev)
+        demand = net.sample_demand(params, generator, t, batch, device=dev).T.contiguous()
+        X, Y, U, RH, rew = batched_step(params, X, Y, U, RH, action, demand, t)
+        total = total + rew.sum()
+    return total
+
+
+def _episode_returns_random_policy_plain(params: NetInvParams, demands, seed: int,
+                                         act_hi: float):
+    """Plain version of K26: ``_episode_returns_plain`` on the actions of
+    K2's action words of episode 0 (key (seed, 0), the period's first n_ro
+    words) and the given demand."""
+    num_steps, _, B = demands.shape
+    n_ro = params.topology.n_reorder
+    lanes = torch.arange(B, dtype=torch.int64, device=demands.device)
+    scale = _act_scale(act_hi)
+    acts = torch.stack([
+        torch.stack([(w >> 8).to(torch.float32) * scale
+                     for w in rng.period_words(seed, lanes, 0, t, n_ro)])
+        for t in range(num_steps)])
+    return _episode_returns_plain(params, acts, demands)
+
+
+def episode_returns_random_policy(params: NetInvParams, demands: torch.Tensor, seed,
+                                  act_hi: float) -> torch.Tensor:
+    """Discounted episode returns (B,) under the uniform-random policy, the
+    actions on [0, act_hi) drawn in the kernel and the demand ``demands``
+    (T, n_retail, B) float32 streamed in. The actions are
+    ``episode_returns_fully_fused``'s action words of episode 0, so on
+    ``sample_streams_debug``'s demand for the same seed it gives the fused
+    kernel's returns. K26: one thread per lane (csrc/net_episode.cu
+    ``k_episode_returns_random``); on CPU tensors the plain version runs."""
+    T = params.topology
+    if demands.dtype != torch.float32:
+        raise TypeError("demands must be float32")
+    if demands.ndim != 3 or demands.shape[1] != T.n_retail:
+        raise ValueError(f"expected demands (T, {T.n_retail}, B); got {tuple(demands.shape)}")
+    seed = int(seed) & rng.MASK32
+    if demands.device.type == "cpu":
+        return _episode_returns_random_policy_plain(params, demands, seed, act_hi)
+    if demands.device.type != "cuda":
+        raise ValueError(f"unsupported device {demands.device}")
+    if not demands.is_contiguous():
+        raise ValueError("demands must be contiguous")
+    num_steps, _, B = demands.shape
+    dev = demands.device
+    tp, disc, _ = _launch_plan(params, num_steps, ek._plan_key(dev), False)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("net_episode_returns_random", ctypes.addressof(tp), demands.data_ptr(),
+                disc.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi), B, num_steps,
+                ek._stream(dev))
+    episode_returns_random_policy.launches += 1
+    return out
+
+
+episode_returns_random_policy.launches = 0
+
+
 # ============================================ policy kernels K4-K6 (net_policy.cu)
 
 def _net_obs_rows(T, X, U, RH):
@@ -517,36 +657,41 @@ def _pack_net_actor(T, actor, std, device):
                           [_half_hi(T)] * T.n_reorder, device)
 
 
-def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH):
-    """Demand, raw and squashed actions of one period of the policy kernels
-    (csrc/net_policy.cu ``policy_period``), each a list of rows: the n_rt
-    demand words first, then the n_ro u1 and n_ro u2 words when ``std`` is
-    given."""
+def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH,
+                         policy="ppo", act_name="tanh"):
+    """Demand, stored values and actions of one period of the policy
+    kernels (csrc/net_policy.cu ``policy_period``, and K29's period), each a
+    list of rows: the n_rt demand words first, then the head's words
+    (``episode_kernels._head_words``: the n_ro u1 and n_ro u2 words, the
+    n_ro u1 alone for "uniform", none for the deterministic PPO head);
+    act = (a_norm + 1) * f32(0.5 act_hi)."""
     n_ro, n_rt = T.n_reorder, T.n_retail
-    n_words = n_rt + (2 * n_ro if std is not None else 0)
-    words = rng.period_words(seed, lanes, episodes, t, n_words, key1=rng.POLICY_KEY)
+    n_head = ek._head_words(policy, n_ro, std is not None)
+    words = rng.period_words(seed, lanes, episodes, t, n_rt + n_head, key1=rng.POLICY_KEY)
     dem = _link_demand_plain(plan, words[:n_rt], t)
     obs_rows = _net_obs_rows(T, X, U, RH)
-    if std is None:
+    if not n_head:
         raw = ek.mlp_forward(layers, "tanh", obs_rows)
+        a_norm = torch.tanh(raw)
     else:
-        z = rng.normal01(torch.stack(words[n_rt:n_rt + n_ro]),
-                         torch.stack(words[n_rt + n_ro:]))
-        raw, _ = ek.traj_policy("ppo", "tanh", n_ro, layers, std, obs_rows, z)
-    act = (torch.tanh(raw) + 1.0) * _half_hi(T)
+        raw, a_norm = ek.traj_policy(policy, act_name, n_ro, layers, std, obs_rows,
+                                     ek._head_noise(policy, words[n_rt:]))
+    act = (a_norm + 1.0) * _half_hi(T)
     return dem, raw, act
 
 
-def _rollout_traj_plain(params, actor, std, seed, batch, device):
-    """Plain version of K4: the streams of one stochastic-policy episode per
-    lane, as ``rollout_traj_net`` returns them."""
+def _rollout_traj_plain(params, actor, std, seed, batch, device, policy="ppo",
+                        act_name="tanh"):
+    """Plain version of K4 (and, with another head or trunk, of K29): the
+    streams of one stochastic-policy episode per lane, as
+    ``rollout_traj_net`` returns them."""
     T = params.topology
     n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
     lt = max(T.lt_max, 1)
     num_steps = params.num_periods
     plan = _device_link_plan(_topology_link_specs(T, num_steps), device)
     layers = ek.kernel_layers(actor, device)
-    std = std.to(device)
+    std = None if std is None else std.to(device)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     discs = ek._discounts(params.alpha, num_steps)
     f32 = dict(dtype=torch.float32, device=device)
@@ -560,7 +705,7 @@ def _rollout_traj_plain(params, actor, std, seed, batch, device):
     for t in range(num_steps):
         out["x"][t], out["u"][t] = torch.stack(X), torch.stack(U)
         dem, raw, act = _policy_period_plain(T, plan, layers, std, seed, lanes, 0,
-                                             t, X, U, RH)
+                                             t, X, U, RH, policy, act_name)
         valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
         X, Y, U, r_cur, profit = _step_math(T, params.backlog, X, Y, U, RH,
                                             list(act), dem, valid)
@@ -618,11 +763,15 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
     pre-squash Gaussian samples, ``reward (T, batch)`` (alpha^t-discounted)
     and ``demand (T, n_rt, batch)``. K4: one thread per lane
     (csrc/net_policy.cu ``k_rollout_traj``); on the CPU the plain version
-    runs. Only the PPO head with a tanh trunk is ported: other ``policy`` or
-    ``act_name`` values raise NotImplementedError, as does a ``hostfn``
-    demand link."""
-    if policy != "ppo" or act_name != "tanh":
-        ek._refuse_mode(f"policy={policy!r}, act_name={act_name!r}")
+    runs. ``policy``/``act_name`` select the head and the trunk
+    (``episode_kernels.traj_policy``): the default ("ppo", "tanh") is K4's;
+    any other pair is ``rollout_traj_net_offpolicy``'s (K29), whose ``raw``
+    holds the normalised [-1, 1] actions. A ``hostfn`` demand link raises
+    NotImplementedError."""
+    ek._check_head(policy, act_name)
+    if (policy, act_name) != ("ppo", "tanh"):
+        return rollout_traj_net_offpolicy(params, actor, log_std, seed, batch, policy,
+                                          act_name, device)
     dev = resolve_device(device)
     if batch < 1:
         raise ValueError(f"need batch >= 1, got {batch}")
@@ -631,9 +780,10 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
     num_steps = params.num_periods
     seed = int(seed) & rng.MASK32
     std = ek.clipped_std(torch.as_tensor(log_std).detach())
-    mlp, flat = _pack_net_actor(T, actor, std, dev)
     if dev.type == "cpu":
+        ek._actor_dims(actor, T.obs_dim, n_ro)
         return _rollout_traj_plain(params, actor, std, seed, batch, dev)
+    mlp, flat = _pack_net_actor(T, actor, std, dev)
     tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
@@ -654,6 +804,53 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
 rollout_traj_net.launches = 0
 
 
+def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch: int,
+                               policy: str = "det", act_name: str = "relu", device=None):
+    """``rollout_traj_net`` under the off-policy heads (see
+    ``episode_kernels.rollout_traj_im_offpolicy``): one episode per lane of
+    the folded actor (``episode_kernels.fold_offpolicy_actor``) with the
+    head ``policy`` on an ``act_name`` trunk. Returns ``rollout_traj_net``'s
+    dict, ``raw (T, n_ro, batch)`` holding the normalised [-1, 1] actions
+    (the pre-squash samples for "ppo"). The stream is K4's: per period the
+    n_rt demand words, then the head's, so its demand is K4's for the same
+    seed. K29: a block per 32 lanes (csrc/net_policy.cu
+    ``k_rollout_traj_wide`` on csrc/wide_mlp.cuh); on the CPU the plain
+    version runs. A ``hostfn`` demand link raises NotImplementedError."""
+    ek._check_head(policy, act_name)
+    dev = resolve_device(device)
+    if batch < 1:
+        raise ValueError(f"need batch >= 1, got {batch}")
+    T = params.topology
+    n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
+    num_steps = params.num_periods
+    seed = int(seed) & rng.MASK32
+    std = ek._offpolicy_std(policy, log_std)
+    if dev.type == "cpu":
+        ek._head_dims(actor, T.obs_dim, n_ro, policy)
+        return _rollout_traj_plain(params, actor, std, seed, batch, dev, policy, act_name)
+    st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy,
+                                   [_half_hi(T)] * n_ro, dev)
+    tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
+               u=torch.empty((num_steps + 1, n_rt, batch), **f32),
+               r=torch.empty((num_steps, n_ro, batch), **f32),
+               raw=torch.empty((num_steps, n_ro, batch), **f32),
+               reward=torch.empty((num_steps, batch), **f32),
+               demand=torch.empty((num_steps, n_rt, batch), **f32))
+    with torch.cuda.device(dev):
+        _launch("net_rollout_traj_wide", ctypes.addressof(tp), ctypes.addressof(st),
+                flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
+                *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
+                seed, int(act_name == "relu"), batch, num_steps, ek._stream(dev),
+                lib_name="net_policy")
+    rollout_traj_net_offpolicy.launches += 1
+    return out
+
+
+rollout_traj_net_offpolicy.launches = 0
+
+
 def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
                  dump, device):
     """K5 (``dump`` False) or K6 for ``wrapper``: (returns (E, B), actions,
@@ -667,9 +864,10 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
     num_steps = params.num_periods
     seed = int(seed) & rng.MASK32
     std = None if log_std is None else ek.clipped_std(log_std)
-    mlp, flat = _pack_net_actor(T, actor, std, dev)
     if dev.type == "cpu":
+        ek._actor_dims(actor, T.obs_dim, T.n_reorder)
         return _policy_returns_plain(params, actor, std, seed, batch, E, dev, dump)
+    mlp, flat = _pack_net_actor(T, actor, std, dev)
     tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((E, batch), **f32)

@@ -22,6 +22,15 @@ the block w // 4.
   kernels consume their draws: demand before the policy
   (pallas_net_step.py:528, :654), u1 before u2
   (pallas_episode_kernels.py:69-70).
+- The in-kernel random actions of K26 are K2's: under (seed, 0), the first
+  n_ro words of episode 0's period block, so K26 on K3's demand gives K2's
+  returns.
+- The off-policy heads of the trajectory kernels (K27-K29), key (seed, 1):
+  per period the family's demand word(s) first, exactly as K4/K10/K18 draw
+  them, so the demand of seed s is theirs bit for bit; then, for ``det``
+  and ``sac``, the act_dim u1 and the act_dim u2 words of the Box-Muller
+  normals, and for ``uniform`` the act_dim u1 words alone, as 24-bit
+  uniforms (a_norm = 2 u - 1).
 
 A word becomes a uniform as ``(word >> 8) * 2**-24`` (24 bits, exact in
 f32), and two uniforms a normal as ``sqrt(-2 ln(1 - u1)) * cos(2 pi u2)``

@@ -1,5 +1,6 @@
-"""Carrying NetInvMgmt and InvManagement parameters and state, PPO and
-recurrent PPO weights, and statistics across from the JAX package.
+"""Carrying NetInvMgmt and InvManagement parameters and state, PPO,
+recurrent PPO and off-policy weights, and statistics across from the JAX
+package.
 
 Every function takes plain Python and NumPy values, so the JAX package is
 never imported here: a caller passes ``dataclasses.asdict(jax_params.topology)``
@@ -131,6 +132,40 @@ def lstm_params_from_numpy(flax_tree, device=None) -> dict:
         state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
         state[f"{name}.bias"] = t(d["bias"])
     return state
+
+
+def offpolicy_params_from_numpy(actor_tree, q_tree, stochastic: bool, device=None):
+    """The state dicts of the port's off-policy ``_Actor`` and ``TwinQ``
+    (``agents/off_policy.py``) from the flax trees as NumPy arrays. The
+    actor's ``Dense_*`` layers are the relu trunk, then the mean head and,
+    when ``stochastic`` (SAC), the log_std head; the critics'
+    ``QNetwork_0`` (and ``QNetwork_1``, absent for DDPG) each hold the trunk
+    and then the output layer. Kernels are transposed to torch's (out, in).
+    Returns (actor state dict, critics state dict)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def dense_list(p):
+        return [p[f"Dense_{i}"] for i in range(sum(1 for k in p if k.startswith("Dense_")))]
+
+    actor = dense_list(actor_tree["params"])
+    n_heads = 2 if stochastic else 1
+    names = [f"trunk.{i}" for i in range(len(actor) - n_heads)] + ["mean", "log_std"][:n_heads]
+    a_state = {}
+    for name, d in zip(names, actor):
+        a_state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
+        a_state[f"{name}.bias"] = t(d["bias"])
+    q_state = {}
+    qp = q_tree["params"]
+    for j in range(sum(1 for k in qp if k.startswith("QNetwork_"))):
+        layers = dense_list(qp[f"QNetwork_{j}"])
+        for i, d in enumerate(layers):
+            name = f"qs.{j}." + (f"trunk.{i}" if i < len(layers) - 1 else "out")
+            q_state[f"{name}.weight"] = t(np.asarray(d["kernel"]).T)
+            q_state[f"{name}.bias"] = t(d["bias"])
+    return a_state, q_state
 
 
 def rms_from_numpy(mean, var, count, device=None):

@@ -254,9 +254,13 @@ def test_wrappers_check_inputs_and_count_no_launches_on_cpu():
         tek.episode_returns_im(tp, acts[:-1], dems[:-1])
     with pytest.raises(ValueError, match="episodes_per_lane"):
         tek.episode_returns_im_fused(tp, 1, 8, episodes_per_lane=0, device=CPU)
-    for kw in (dict(policy="sac"), dict(act_name="relu")):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tek.rollout_traj_im(tp, _actor(tp), torch.zeros(3), 1, 4, device=CPU, **kw)
+    # the off-policy heads are ported (K27): "sac" needs the 2 * m1 outputs of
+    # mean and log_std, and the PPO head runs on a relu trunk too
+    with pytest.raises(ValueError, match="obs_dim"):
+        tek.rollout_traj_im(tp, _actor(tp), torch.zeros(3), 1, 4, policy="sac", device=CPU)
+    relu = tek.rollout_traj_im(tp, _actor(tp), torch.zeros(3), 1, 4, act_name="relu",
+                               device=CPU)
+    assert relu["raw"].shape == (tp.periods, 3, 4) and counts == [w.launches for w in wrappers]
     with pytest.raises(ValueError, match="obs_dim"):
         Ws, bs = _actor(tp)
         tek.rollout_traj_im(tp, (Ws[1:], bs[1:]), torch.zeros(3), 1, 4, device=CPU)

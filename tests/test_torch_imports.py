@@ -50,10 +50,12 @@ def test_sources_import_no_jax():
                     offenders.append(f"{path.name}: {name}")
     assert not offenders, offenders
     mods = set(_port_modules())
-    assert len(mods) >= 29
+    assert len(mods) >= 30
     assert {"or_gym_inventory_torch.core.config", "or_gym_inventory_torch.envs.inv_management",
             "or_gym_inventory_torch.envs.newsvendor",
             "or_gym_inventory_torch.ops.episode_kernels",
+            "or_gym_inventory_torch.ops.net_step",
+            "or_gym_inventory_torch.agents.off_policy",
             "or_gym_inventory_torch.agents.recurrent_ppo",
             "or_gym_inventory_torch.agents.networks",
             "or_gym_inventory_torch.vector.fast_episodes"} <= mods

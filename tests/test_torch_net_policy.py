@@ -266,19 +266,25 @@ def test_policy_episode_returns_runs_plain_k5(params, actor):
 
 def test_policy_wrappers_refuse_what_is_not_ported(params, actor):
     _, tp = params
-    for kw in (dict(policy="det"), dict(policy="sac"), dict(act_name="relu")):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tns.rollout_traj_net(tp, actor, torch.zeros(11), 1, 4, device=CPU, **kw)
+    # the off-policy heads are ported (K29): "det" and a relu trunk run, and
+    # "sac" needs the 2 * n_ro outputs of mean and log_std
+    for kw in (dict(policy="det"), dict(act_name="relu")):
+        tr = tns.rollout_traj_net(tp, actor, torch.zeros(11), 1, 4, device=CPU, **kw)
+        assert tr["raw"].shape == (STEPS, 11, 4)
+    with pytest.raises(ValueError, match="obs_dim"):
+        tns.rollout_traj_net(tp, actor, torch.zeros(11), 1, 4, policy="sac", device=CPU)
     Ws, bs = actor
     with pytest.raises(ValueError, match="obs_dim"):
         tns.episode_returns_net_policy(tp, (Ws[1:], bs[1:]), 1, 4, device=CPU)
+    # the kernels' caps hold on the card only: the CPU takes any actor
     wide = (torch.zeros(68, 300), torch.zeros(300, 11)), (torch.zeros(300), torch.zeros(11))
+    assert tns.episode_returns_net_policy(tp, wide, 1, 4, device=CPU).shape == (4,)
     with pytest.raises(ValueError, match="width"):
-        tns.episode_returns_net_policy(tp, wide, 1, 4, device=CPU)
+        tns._pack_net_actor(tp.topology, wide, None, CPU)
     big = ((torch.zeros(68, 256),) + (torch.zeros(256, 256),) * 3 + (torch.zeros(256, 11),),
            (torch.zeros(256),) * 4 + (torch.zeros(11),))
     with pytest.raises(ValueError, match="shared memory"):
-        tns.episode_returns_net_policy(tp, big, 1, 4, device=CPU)
+        tns._pack_net_actor(tp.topology, big, None, CPU)
     T = dataclasses.replace(tp.topology, rt_demand=(("hostfn", lambda **kw: 5, ()),))
     with pytest.raises(NotImplementedError, match="host callable"):
         tns.rollout_traj_net(tnet.NetInvParams(topology=T, num_periods=STEPS), actor,

@@ -275,7 +275,9 @@ def test_policy_wrappers_check_inputs_and_count_no_launches_on_cpu():
     _, tp0 = _params(lead_time=0)
     with pytest.raises(ValueError, match="obs_dim"):
         tek.rollout_traj_nv(tp0, actor, LOG_STD, 1, 4, device=CPU)
-    with pytest.raises(NotImplementedError, match="A9"):
+    # the off-policy heads are ported (K28): "sac" needs the mean and log_std
+    # outputs, two for the one order
+    with pytest.raises(ValueError, match="obs_dim"):
         tek.rollout_traj_nv(tp, actor, LOG_STD, 1, 4, policy="sac", device=CPU)
     for fn in (tek.rollout_traj_nv, tek.episode_returns_nv_policy,
                tek.sample_policy_streams_debug_nv, tek.sample_normals_debug):
