@@ -11,7 +11,8 @@ launch counter set to 0 just before it and read just after:
   bench.py does on the JAX package, a cross-check of the fused kernel on its
   own dumped streams followed by random-policy returns of the default graph
   at 4,194,304 lanes x 16 episodes x 30 periods, through
-  ``vector.fast_episodes.random_episode_returns``;
+  ``vector.fast_episodes.random_episode_returns``, which alone launches K2
+  once, nothing else and no plain version;
 - slice 2, NetInvMgmt PPO and learned-policy evaluation (phase 8):
   ``agents.ppo.train`` with ``rollout="kernel"`` at 65,536 envs x 30
   periods, the default 64x64 tanh actor-critic, 4 epochs x 8 minibatches,
@@ -90,8 +91,12 @@ plain step chain, K29's through K1 too). Kernels on no main path are
 launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
 K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
-(phase 25). Then it times the vecenv rollout (phase 5), each kernel
-against its plain version (phases 6, 9, 14, 20, 24 and 28), one PPO update
+(phase 25). Phase 2 prints each kernel's registers and stack frame from
+``ptxas -v``, and the local-memory loads and stores (LDL/STL) in the SASS
+of net_episode.cu's kernels. Then it times the vecenv rollout (phase 5),
+each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
+against plain K2 on a graph with two retail links and L = 0 links, backlog
+and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
 with its gradient in 8 chunks per minibatch against 1 (phase 9), trains
 InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
@@ -342,19 +347,29 @@ def lane_share(name, got, want, rtol=1e-4, atol=1e-2, need=LANE_SHARE):
 # ------------------------------------------------------------- work model
 
 def step_ops(T):
-    """Arithmetic operations of one period of step_period in
-    csrc/net_episode.cu for topology T, an FMA counted as two."""
-    ops = 2 * T.n_main + 7 * T.n_retail + 5 * T.n_retail + 2  # X update, retail, profit, discount
+    """Arithmetic operations of one period of step_view in
+    csrc/net_step.cuh for topology T, an FMA counted as two: per reorder
+    link the request (rint, max); with a main supplier the contention
+    (avail's sub and max, the factory cap's product and two min, the min,
+    consumed's division and add) and sold's add, else the raw material's
+    -price * f (an FMA); Y, arrivals and, for L > 0, the ring slot; the
+    holding term (max, FMA). Per main node X's update (two adds), HC (max,
+    product), a factory's OC (product, division) and the total (two adds).
+    Per retail link the fill (rint, max, add), the sale (max, min), X and
+    sold, U, the revenue and penalty (product, FMA, add). The discount's
+    FMA."""
+    ops = 2 + 12 * T.n_retail
     for i, L in enumerate(T.ro_L):
         sup = T.ro_sup_main[i]
         ops += 2                                   # rint, max
         if sup >= 0:
-            ops += 5 + (3 if T.is_factory[sup] else 0)  # avail, cap, min, div, add
-            ops += 2                               # SR, sold
+            ops += 5 + (3 if T.is_factory[sup] else 0) + 1  # contention, sold
+        else:
+            ops += 2                               # -price * f
         ops += 3 + (2 if L > 0 else 0)             # Y, arrivals, ring slot
-        ops += 1 + 1 + 3                           # rev, PC, max + FMA into HCp
+        ops += 3                                   # max + FMA of the holding term
     for n in range(T.n_main):
-        ops += 3 + (3 if T.is_factory[n] else 0) + 5  # HC, OC, node total
+        ops += 2 + 2 + (2 if T.is_factory[n] else 0) + 2  # X, HC, OC, node total
     return ops
 
 
@@ -574,19 +589,80 @@ class no_plain_versions:
 
 def ptxas_entries(out):
     """Each kernel of one source's ``ptxas -v`` output as "name<template
-    flags>: registers, stack"."""
+    flags> registers, stack frame" (and its spills, where it has any)."""
     import re
-    rows, name = [], None
+    rows, name, frame = [], None, ""
     for ln in out.splitlines():
         m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:Lb[01]E)+E)?E", ln)
         if m:
             flags = ",".join(re.findall(r"Lb([01])", m.group(2) or ""))
-            name = f"{m.group(1)}<{flags}>" if flags else m.group(1)
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes (?:cumulative )?stack", ln)
+            name, frame = (f"{m.group(1)}<{flags}>" if flags else m.group(1)), ""
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
         if m and name:
-            rows.append(f"{name} {m.group(1)} registers, {m.group(2)} B stack")
+            frame = f"{m.group(1)} B stack" + (
+                f", spills {m.group(2)} B stored / {m.group(3)} B loaded"
+                if m.group(2) != "0" or m.group(3) != "0" else "")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{name} {m.group(1)} registers, {frame or '? B stack'}")
             name = None
     return "; ".join(rows)
+
+
+def sass_local_counts(so_path):
+    """{kernel: (LDL, STL)}: the local-memory loads and stores in the SASS of
+    each kernel of one built library, from ``cuobjdump -sass``; None where
+    the toolkit has no cuobjdump."""
+    import pathlib
+    import re
+
+    from or_gym_inventory_torch.ops import _build
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", so_path], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:Lb[01]E)+E)?E", ln)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            counts[name] = [0, 0]
+        elif name and re.search(r"\bLDL\b", ln):
+            counts[name][0] += 1
+        elif name and re.search(r"\bSTL\b", ln):
+            counts[name][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def k2_graph_check(dev):
+    """Phase 6: K2 on ``topology.two_retail_topology`` at 65,536 x 4 x 30, backlog and
+    lost sales, against plain K2 on the same seed, rtol=1e-5 atol=1e-3: the
+    shared layout's offsets on another graph than the default. Returns
+    (max |diff|, lines)."""
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import topology
+    from or_gym_inventory_torch.ops import net_step as ns
+    worst, lines = 0.0, []
+    for backlog in (True, False):
+        params = net.default_params(topology=topology.two_retail_topology(NUM_STEPS),
+                                    num_periods=NUM_STEPS, backlog=backlog)
+        T = params.topology
+        hi = float(T.order_cap_heuristic * 2)
+        got = ns.episode_returns_fully_fused(params, SEED, hi, CHECK_LANES,
+                                             episodes_per_lane=4, device=dev)
+        want = ns._episode_returns_fully_fused_plain(params, SEED, hi, CHECK_LANES,
+                                                     NUM_STEPS, 4, dev)
+        case = "backlog" if backlog else "lost sales"
+        e = close(f"K2 vs plain K2, two-retail graph, {case}", got, want, 1e-5, 1e-3)
+        worst = max(worst, e)
+        plan, _ = ns._shared_layout(T)
+        lines.append(f"two-retail graph ({case}; n_main {T.n_main}, n_ro {T.n_reorder}, "
+                     f"n_rt {T.n_retail}, lead times {T.ro_L}; {plan.words} words a thread): "
+                     f"{CHECK_LANES} x 4 x {NUM_STEPS} within rtol=1e-5 atol=1e-3 of plain K2, "
+                     f"max |diff| {e:.6g}")
+    return worst, lines
 
 
 def timed_once(fn, *args):
@@ -662,10 +738,11 @@ def cross_check(params, dev):
     return err, acts, dems
 
 
-def episode_returns_at_scale(params, dev, err):
+def episode_returns_at_scale(params, dev, err, wrappers):
     """Phase 4, random-policy returns at the operating point through
-    ``random_episode_returns``, held element by element against plain K2 on
-    the same seed. Returns the plain version's milliseconds."""
+    ``random_episode_returns``, which must launch K2 once, nothing else and
+    no plain version, held element by element against plain K2 on the same
+    seed. Returns the plain version's milliseconds."""
     import torch
 
     from or_gym_inventory_torch.ops import net_step as ns
@@ -673,10 +750,15 @@ def episode_returns_at_scale(params, dev, err):
     gen = torch.Generator(device=dev).manual_seed(0)
     replay = torch.Generator(device=dev)
     replay.set_state(gen.get_state())
-    ret = fast_episodes.random_episode_returns(params, gen, MAIN_LANES,
-                                               episodes_per_lane=MAIN_EPISODES,
-                                               device=dev)
-    torch.cuda.synchronize()
+    before = read_counts(wrappers)
+    with no_plain_versions():
+        ret = fast_episodes.random_episode_returns(params, gen, MAIN_LANES,
+                                                   episodes_per_lane=MAIN_EPISODES,
+                                                   device=dev)
+        torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in read_counts(wrappers).items() if c != before[n]}
+    if moved != {"episode_returns_fully_fused": 1}:
+        raise AssertionError(f"main path: random_episode_returns launched {moved}, not K2 once")
     if ret.shape != (MAIN_LANES * MAIN_EPISODES,):
         raise AssertionError(f"main path: returns of shape {tuple(ret.shape)}")
     hi = float(params.topology.order_cap_heuristic * 2)
@@ -2425,6 +2507,18 @@ def main() -> int:
                                     "k_rollout_traj_wide"))]
     print("[2 build] K25-K29 (net_episode.cu, im/nv/net_policy.cu on wide_mlp.cuh): "
           + "; ".join(new_entries), flush=True)
+    net_so = str(_build._target(_build.CSRC / "net_episode.cu"))
+    net_log = next((out for so, out in logs.items() if "libnet_episode" in so), "")
+    local = sass_local_counts(net_so)
+    k2_plan, _ = ns._shared_layout(net.default_params(num_periods=NUM_STEPS).topology)
+    print("[2 build] K2 and K26 (net_episode.cu, the state in shared memory): "
+          + "; ".join(e for e in ptxas_entries(net_log).split("; ")
+                      if e.startswith(("k_episode_returns_fused", "k_episode_returns_random")))
+          + f"; dynamic shared memory {k2_plan.bytes} B a block ({k2_plan.words} words x "
+          f"{k2_plan.threads} threads, {k2_plan.blocks_per_sm} blocks an SM) on the default "
+          "graph; SASS LDL/STL per kernel of net_episode.cu: "
+          + ("cuobjdump not found" if local is None else
+             ", ".join(f"{k} {ld}/{st}" for k, (ld, st) in sorted(local.items()))), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -2436,12 +2530,13 @@ def main() -> int:
           f"of their plain versions and of each other; step chain within rtol=1e-4 "
           f"atol=1e-2; {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    mean, k2_plain_ms = episode_returns_at_scale(params, dev, err)
+    mean, k2_plain_ms = episode_returns_at_scale(params, dev, err, wrappers)
     launches = read_counts(wrappers)
     missing = [name for name in RANDOM_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
-    print(f"[4 main path] {MAIN_LANES * MAIN_EPISODES} episode returns within "
+    print(f"[4 main path] {MAIN_LANES * MAIN_EPISODES} episode returns from K2 launched "
+          f"once and nothing else, within "
           f"rtol=1e-5 atol=1e-3 of plain K2 on the same seed, mean {mean:.3f}; "
           f"max |diff| {err}; launches {launches}; {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -2501,6 +2596,12 @@ def main() -> int:
           f"ops; peaks {HBM_BYTES_PER_S:.3g} B/s, {FP32_OPS_PER_S:.3g} op/s", flush=True)
     for name in RANDOM_KERNELS:
         print_kernel(6, name, times[name], work[name], launches[name])
+    t0 = time.perf_counter()
+    err2, lines = k2_graph_check(dev)
+    err["episode_returns_fully_fused"] = max(err["episode_returns_fully_fused"], err2)
+    for line in lines:
+        print(f"[6 K2 graph] {line}", flush=True)
+    print(f"[6 K2 graph] {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 7. the policy kernels against their plain versions, at the main path's
     # shapes, with a seeded actor

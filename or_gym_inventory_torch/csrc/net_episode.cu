@@ -8,13 +8,21 @@
 //    B, and keeps the state in registers and local memory for the whole
 //    episode. Bound by bytes: (T*(n_ro+n_rt)+1)*4 per env, read once.
 // K2 k_episode_returns_fused  replaces episode_returns_fully_fused (:379).
-//    Actions and demand are drawn in the kernel (net_step.cuh draw_period),
-//    so only the returns leave it. Bound by operations: per env-step three
-//    Philox4x32-10 blocks, the contention chain, deliveries, retail, profit
-//    and one binary search per table link. One thread per (episode, lane):
-//    the TPU interleaved E episodes per lane to hide the serial contention
-//    chain (:312-318); here more resident threads do that job, so E only
-//    widens the grid.
+//    Actions and demand are drawn in the kernel, so only the returns leave
+//    it. Bound by operations: per env-step three Philox4x32-10 blocks, the
+//    contention chain, deliveries, retail, profit and one binary search per
+//    table link. One thread per (episode, lane): the TPU interleaved E
+//    episodes per lane to hide the serial contention chain (:312-318); here
+//    more resident threads do that job, so E only widens the grid. The
+//    first version kept the state in a 2,240-byte local-memory frame whose
+//    traffic went out to HBM (2,217 ms at 4,194,304 x 16 x 30, 0.8% of the
+//    bound). Now the state is in shared memory (net_step.cuh SharedView,
+//    432 bytes a thread on the default graph, 4 blocks of 128 an SM) and
+//    step_view makes one pass over the links, drawing each action word as
+//    it reaches the link: no stack, no local loads or stores, 163-166 ms,
+//    10.5-10.7% of the 17.52 ms bound (H100 80GB HBM3, 700 W). Blocks of
+//    256 were ~1% faster (tools/k2_block_sweep.py), less than the spread
+//    between runs, so K2 keeps launch.cuh's kThreads.
 // K3 k_sample_streams  replaces sample_streams_debug (:427). It writes the
 //    streams K2 draws for episodes [e0, e1), through the same draw_period.
 //    The counter-based generator needs no replay of the other episodes.
@@ -31,16 +39,19 @@
 // K26 k_episode_returns_random  replaces episode_returns_random_policy
 //    (:857, body _episode_kernel_body_inkernel_actions :169): whole-episode
 //    returns with the uniform [0, act_hi) actions drawn in the kernel and
-//    the demand (T, n_rt, B) streamed in. The actions are K2's action words
-//    of episode 0 (key (seed, 0), draw_period's first n_ro words), so K26 on
-//    K3's demand gives K2's returns. Bound by operations: the Philox blocks
-//    and the step.
+//    the demand (T, n_rt, B) streamed in. K2's body (random_episode) with
+//    the demand read instead of drawn: its actions are K2's action words of
+//    episode 0 (key (seed, 0), the period's first n_ro words), so K26 on
+//    K3's demand gives K2's returns bit for bit. Bound by operations: the
+//    Philox blocks and the step. 0.19-0.23 ms at 65,536 x 30, 7-8% of the
+//    bound (first version, on the local frame, 0.95 ms).
 //
-// The period step (Episode, episode_reset, step_period) is in net_step.cuh,
-// shared with the policy kernels; its notes list the semantics that are easy
-// to get wrong. The batch tail is masked, so any B >= 1 works (no TPU tile
-// assert). Discount: alpha**t is a Python double rounded to f32 in the JAX
-// kernel (:165); the wrapper passes that table, the kernel calls no powf.
+// The period step (step_view, on an Episode or on shared memory) is in
+// net_step.cuh, shared with the policy kernels; its notes list the
+// semantics that are easy to get wrong. The batch tail is masked, so any
+// B >= 1 works (no TPU tile assert). Discount: alpha**t is a Python double
+// rounded to f32 in the JAX kernel (:165); the wrapper passes that table,
+// the kernel calls no powf.
 
 #include <cuda_runtime.h>
 
@@ -71,25 +82,42 @@ __global__ void k_episode_returns(const __grid_constant__ NetTopo tp,
   out[b] = total;
 }
 
+// The random policy's discounted return on the shared state s: per period
+// the n_ro action words of key (seed, 0) drawn as the link pass reaches each
+// link, then the demand source demand(ws, t).
+template <class DemandOf>
+__device__ __forceinline__ float random_episode(const NetTopo& tp, const SharedView& s,
+                                                unsigned seed, unsigned lane, unsigned e,
+                                                float act_scale,
+                                                const float* __restrict__ disc, int T,
+                                                DemandOf demand) {
+  reset_view(tp, s);
+  float total = 0.f;
+  for (int t = 0; t < T; ++t) {
+    WordStream ws(seed, 0u, lane, e, (unsigned)t);
+    total += __ldg(disc + t) *
+             step_view(tp, s, DrawnActions{ws, act_scale}, demand(ws, t), nullptr);
+  }
+  return total;
+}
+
 __global__ void k_episode_returns_fused(const __grid_constant__ NetTopo tp,
+                                        const __grid_constant__ NetSmem lay,
                                         const float* __restrict__ disc,
                                         const float* __restrict__ tables,
                                         float* __restrict__ out, unsigned seed,
                                         float act_scale, long long B, int E,
                                         int T) {
+  extern __shared__ float net_state[];
   const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (idx >= B * E) return;
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
-  Episode s;
-  episode_reset(tp, s);
-  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
-  float total = 0.f;
-  for (int t = 0; t < T; ++t) {
-    draw_period(tp, tables, seed, lane, e, (unsigned)t, act_scale, act, dem);
-    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
-  }
-  out[idx] = total;  // (E, B), episode-major
+  const SharedView s(net_state, lay);
+  out[idx] = random_episode(tp, s, seed, lane, e, act_scale, disc, T,  // (E, B)
+                            [&](WordStream& ws, int t) {
+                              return DrawnDemand{tp, tables, (unsigned)t, ws};
+                            });
 }
 
 __global__ void k_sample_streams(const __grid_constant__ NetTopo tp,
@@ -148,24 +176,30 @@ __global__ void k_batched_step(const __grid_constant__ NetTopo tp,
 }
 
 __global__ void k_episode_returns_random(const __grid_constant__ NetTopo tp,
+                                         const __grid_constant__ NetSmem lay,
                                          const float* __restrict__ dems,
                                          const float* __restrict__ disc,
                                          float* __restrict__ out, unsigned seed,
                                          float act_scale, long long B, int T) {
+  extern __shared__ float net_state[];
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (b >= B) return;
-  Episode s;
-  episode_reset(tp, s);
-  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
-  float total = 0.f;
-  for (int t = 0; t < T; ++t) {
-    WordStream ws(seed, 0u, (unsigned)b, 0u, (unsigned)t);
-    for (int i = 0; i < tp.n_ro; ++i) act[i] = (float)(ws.next() >> 8) * act_scale;
-    for (int j = 0; j < tp.n_rt; ++j)
-      dem[j] = __ldg(dems + ((long long)t * tp.n_rt + j) * B + b);
-    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
-  }
-  out[b] = total;
+  const SharedView s(net_state, lay);
+  out[b] = random_episode(tp, s, seed, (unsigned)b, 0u, act_scale, disc, T,
+                          [&](WordStream&, int t) {
+                            return FromStream{dems + (long long)t * tp.n_rt * B + b, B};
+                          });
+}
+
+// Dynamic shared memory of a block of the shared-state kernels: above 48 KB
+// it needs the opt-in, and the SM's whole carveout goes to shared memory
+// so that the most blocks fit.
+template <typename K>
+cudaError_t allow_state(K kernel, size_t bytes) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -180,12 +214,15 @@ int net_episode_returns(const NetTopo* topo, const float* acts,
   return (int)cudaGetLastError();
 }
 
-int net_episode_returns_fused(const NetTopo* topo, const float* disc,
+int net_episode_returns_fused(const NetTopo* topo, const NetSmem* lay, const float* disc,
                               const float* tables, float* out, unsigned seed,
                               float act_scale, long long B, int E, int T,
                               cudaStream_t stream) {
-  k_episode_returns_fused<<<blocks_for(B * E), kThreads, 0, stream>>>(
-      *topo, disc, tables, out, seed, act_scale, B, E, T);
+  const size_t smem = (size_t)lay->words * kThreads * sizeof(float);
+  cudaError_t err = allow_state(k_episode_returns_fused, smem);
+  if (err != cudaSuccess) return (int)err;
+  k_episode_returns_fused<<<blocks_for(B * E), kThreads, smem, stream>>>(
+      *topo, *lay, disc, tables, out, seed, act_scale, B, E, T);
   return (int)cudaGetLastError();
 }
 
@@ -206,11 +243,15 @@ int net_batched_step(const NetTopo* topo, const float* X, const float* Y, const 
   return (int)cudaGetLastError();
 }
 
-int net_episode_returns_random(const NetTopo* topo, const float* dems, const float* disc,
-                               float* out, unsigned seed, float act_scale, long long B,
-                               int T, cudaStream_t stream) {
-  k_episode_returns_random<<<blocks_for(B), kThreads, 0, stream>>>(*topo, dems, disc, out,
-                                                                   seed, act_scale, B, T);
+int net_episode_returns_random(const NetTopo* topo, const NetSmem* lay, const float* dems,
+                               const float* disc, float* out, unsigned seed,
+                               float act_scale, long long B, int T,
+                               cudaStream_t stream) {
+  const size_t smem = (size_t)lay->words * kThreads * sizeof(float);
+  cudaError_t err = allow_state(k_episode_returns_random, smem);
+  if (err != cudaSuccess) return (int)err;
+  k_episode_returns_random<<<blocks_for(B), kThreads, smem, stream>>>(
+      *topo, *lay, dems, disc, out, seed, act_scale, B, T);
   return (int)cudaGetLastError();
 }
 

@@ -391,3 +391,19 @@ def custom_topology(num_periods: int = 30, **kw) -> Topology:
         (6, 5, dict(L=0, p=0.500, g=0.000)),
     ]
     return compile_graph(nodes, edges, num_periods, **kw)
+
+
+def two_retail_topology(num_periods: int = 30, **kw) -> Topology:
+    """A 6-node test network, not one of the reference's: two retail links
+    (Poisson 20 and 15), a distributor that serves both retailers, one of
+    them over an L = 0 link, a factory of yield 0.9 and a raw-material link
+    of L = 0. It exercises what the default graph does not: several retail
+    links, same-period deliveries and v < 1."""
+    nodes = {0: {}, 1: dict(I0=100, h=0.03), 2: dict(I0=90, h=0.025), 3: dict(I0=200, h=0.02),
+             4: dict(I0=300, C=70, o=0.01, v=0.9, h=0.012), 5: {}}
+    edges = [(1, 0, dict(p=2.0, b=0.1, dist_param=dict(lam=20))),
+             (2, 0, dict(p=2.2, b=0.12, dist_param=dict(lam=15))),
+             (3, 1, dict(L=2, p=1.5, g=0.01)), (3, 2, dict(L=0, p=1.4, g=0.02)),
+             (4, 3, dict(L=4, p=1.0, g=0.008)), (4, 2, dict(L=3, p=1.1, g=0.009)),
+             (5, 4, dict(L=0, p=0.15, g=0.0))]
+    return compile_graph(nodes, edges, num_periods, **kw)

@@ -30,6 +30,7 @@ draw bit for bit what the kernels draw.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import TYPE_CHECKING
 
@@ -47,6 +48,13 @@ if TYPE_CHECKING:  # the env imports this module for its demand sampler
 # fixed maxima of the topology struct the kernels take by value
 # (csrc/net_topo.cuh); the wrappers raise beyond them
 MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
+
+# K2 and K26 keep each thread's state in dynamic shared memory. An H100 gives
+# a block at most 227 KB of it and an SM 228 KB, of which it keeps 1 KB for
+# each resident block; an SM holds at most 2,048 threads and 32 blocks.
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 232_448, 233_472, 1_024
+# threads a block of every kernel (csrc/launch.cuh kThreads)
+THREADS = 128
 
 
 def init_transposed(params: NetInvParams, batch: int, device=None):
@@ -312,6 +320,49 @@ class _NetTopo(ctypes.Structure):
     ]
 
 
+class _NetSmem(ctypes.Structure):
+    """Mirror of ``struct NetSmem`` in csrc/net_step.cuh: a thread's words
+    of shared state and each field's word offset."""
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("words", "x", "consumed", "arrivals", "sold", "y", "slot", "u", "ring")]
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedStatePlan:
+    """The launch plan of K2 and K26. ``offsets`` maps each state field to
+    its first word; word k of thread t lies at ``smem[k * threads + t]``."""
+    words: int            # 32-bit words of state a thread
+    offsets: dict
+    threads: int          # threads a block
+    bytes: int            # dynamic shared memory a block
+    blocks_per_sm: int    # resident blocks an SM holds on an H100
+
+
+def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int) -> SharedStatePlan:
+    """The shared-memory layout of a graph with ``n_main`` main nodes,
+    ``n_ro`` reorder links, ``n_rt`` retail links and lead times summing to
+    ``ring``: X, consumed, arrivals and sold per main node, Y and the ring
+    position per reorder link, U per retail link, then the order rings.
+    Every graph within the struct maxima fits a block of ``THREADS``."""
+    sizes = {"x": n_main, "consumed": n_main, "arrivals": n_main, "sold": n_main,
+             "y": n_ro, "slot": n_ro, "u": n_rt, "ring": ring}
+    offsets, words = {}, 0
+    for name, size in sizes.items():
+        offsets[name] = words
+        words += size
+    nbytes = words * 4 * THREADS
+    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), 2048 // THREADS, 32)
+    return SharedStatePlan(words, offsets, THREADS, nbytes, blocks)
+
+
+@functools.lru_cache(maxsize=16)
+def _shared_layout(topology):
+    """(plan, its ``_NetSmem``) for ``topology``."""
+    plan = _shared_state_plan(topology.n_main, topology.n_reorder, topology.n_retail,
+                              sum(topology.ro_L))
+    return plan, _NetSmem(words=plan.words, **plan.offsets)
+
+
 def _pack_topology(params: NetInvParams, link_specs=None):
     """The kernels' topology struct, and the flat f32 list of every link's
     inversion table or per-period constants that ``rt_off``/``rt_len``
@@ -426,8 +477,10 @@ def episode_returns_fully_fused(params: NetInvParams, seed: int, act_hi: float,
     uniform actions on [0, act_hi) and per-link demand by inversion of the
     host CDF tables (``user``/``zero`` links take their per-period values;
     a ``hostfn`` link raises NotImplementedError). K2: one thread per
-    (episode, lane). Returns (batch,) for episodes_per_lane=1, else
-    (episodes_per_lane, batch), episode-major."""
+    (episode, lane), its state in shared memory (csrc/net_episode.cu
+    ``k_episode_returns_fused``, laid out by ``_shared_state_plan``); on the
+    CPU the plain version runs. Returns (batch,) for episodes_per_lane=1,
+    else (episodes_per_lane, batch), episode-major."""
     dev = resolve_device(device)
     E = int(episodes_per_lane)
     if E < 1 or batch < 1:
@@ -440,11 +493,12 @@ def episode_returns_fully_fused(params: NetInvParams, seed: int, act_hi: float,
                                                  num_steps, E, dev)
     else:
         tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
+        _, layout = _shared_layout(params.topology)
         out = torch.empty((E, batch), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            _launch("net_episode_returns_fused", ctypes.addressof(tp),
-                    disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed,
-                    _act_scale(act_hi), batch, E, num_steps, ek._stream(dev))
+            _launch("net_episode_returns_fused", ctypes.addressof(tp), ctypes.addressof(layout),
+                    disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi),
+                    batch, E, num_steps, ek._stream(dev))
         episode_returns_fully_fused.launches += 1
     return out.reshape(batch) if E == 1 else out
 
@@ -600,7 +654,8 @@ def episode_returns_random_policy(params: NetInvParams, demands: torch.Tensor, s
     (T, n_retail, B) float32 streamed in. The actions are
     ``episode_returns_fully_fused``'s action words of episode 0, so on
     ``sample_streams_debug``'s demand for the same seed it gives the fused
-    kernel's returns. K26: one thread per lane (csrc/net_episode.cu
+    kernel's returns. K26: K2's kernel body on one thread per lane, the
+    demand read instead of drawn (csrc/net_episode.cu
     ``k_episode_returns_random``); on CPU tensors the plain version runs."""
     T = params.topology
     if demands.dtype != torch.float32:
@@ -617,11 +672,12 @@ def episode_returns_random_policy(params: NetInvParams, demands: torch.Tensor, s
     num_steps, _, B = demands.shape
     dev = demands.device
     tp, disc, _ = _launch_plan(params, num_steps, ek._plan_key(dev), False)
+    _, layout = _shared_layout(params.topology)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("net_episode_returns_random", ctypes.addressof(tp), demands.data_ptr(),
-                disc.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi), B, num_steps,
-                ek._stream(dev))
+        _launch("net_episode_returns_random", ctypes.addressof(tp), ctypes.addressof(layout),
+                demands.data_ptr(), disc.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi),
+                B, num_steps, ek._stream(dev))
     episode_returns_random_policy.launches += 1
     return out
 
