@@ -73,7 +73,8 @@ NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
 K12's streams and K10 against the stochastic episode 0), and K13-K17 in
 phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
 0.99, mu_max 200 and 3, with the chain K16 = K14 = K13 _random = K13 on
-K17's streams and a NaN lane), and K18-K21 in phase 21 (K18 at 65,536 x
+K17's streams and a NaN lane; and K16/K17 at mu_max 30,000, whose Poisson
+table no block holds, so they count linearly, at 4,096 x 2 x 50), and K18-K21 in phase 21 (K18 at 65,536 x
 50, K19/K20 at 65,536 x 16 x 50, lead time 5 and 0, gamma 1 and 0.99,
 deterministic and stochastic, with K13 on K20's streams, K18 against the
 stochastic episode 0, a NaN std and K21's normals through the
@@ -102,8 +103,13 @@ InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
 PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
 validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
-beat the random policy's (phase 29), then K25-K29 and one TD3 iteration
-split into the kernel, ``insert_chunk`` and the gradient updates (phase 35).
+beat the random policy's (phase 29), then K25-K29 (K27-K29 also at the
+learners' 1,024 lanes) and one TD3 iteration split into the kernel,
+``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
+for the search it runs (``nv_draw_ops``), with the first version's linear
+count's beside it; K22-K24's with the gate and encoder products as the
+three TF32 products on the tensor cores (``lstm_bound``), with the
+all-FP32 count's beside it.
 Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
@@ -147,8 +153,9 @@ rewards and returns by the share of lanes (>= 99% within rtol=1e-4
 atol=1e-2: tanh and the MLP's sum order feed back through the pipeline);
 K13 on K20's streams and K18 against the stochastic K19's episode 0 within
 rtol=1e-5 atol=1e-3 (bit for bit expected, and reported); K21 atol=1e-5.
-LSTM kernels (K22-K24), run in full f32 with TF32 off on both sides: demand
-bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
+LSTM kernels (K22-K24; the kernels run the gate product and the encoder on
+the tensor cores in 3xTF32, which keeps FP32's accuracy, the plain versions
+in full f32 with TF32 off): demand bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
 rewards against the plain versions by the share of lanes (>= 99% within
 rtol=1e-4 atol=1e-2: the actor sums in another order, so a truncation
 boundary lets a lane diverge); K7 on K23's and K24's streams within
@@ -173,6 +180,7 @@ atol=1e-4), and K1 on K29's streams its rewards.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -193,6 +201,7 @@ LANE_SHARE = 0.99            # free-running policy kernels vs plain
 # the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_TC_OPS_PER_S = 495e12   # the tensor cores' dense TF32 rate
 
 KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
     ("episode_returns", "or_gym_inventory_torch/csrc/net_episode.cu",
@@ -288,6 +297,9 @@ NV_ENV_CONFIG = {"lead_time": 5, "step_limit": 50, "p_max": 100.0, "h_max": 5.0,
 NV_CASES = [(L, gamma, mu_max) for L in (5, 0) for gamma in (1.0, 0.99)
             for mu_max in (200.0, 3.0)]
 DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain version's
+# a mu_max whose Poisson table (K = 2,005 floats a thread) no block of 32
+# holds, so K14-K17 count linearly; held at a small batch
+NV_LINEAR_MU_MAX, NV_LINEAR_LANES = 30_000.0, 4_096
 NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
 # benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for RESULTS.md:56's 4M env-steps
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
@@ -395,14 +407,27 @@ def mlp_ops(dims):
     return ops + sum(dims[1:-1])
 
 
+def lstm_gate_flops(dims, hidden):
+    """FLOPs of one period's gate product G = W [E; H] (an FMA counted as
+    two): 2 (enc + h) 4h."""
+    return 2 * (dims[-1] + hidden) * 4 * hidden
+
+
+def lstm_tc_flops(dims, hidden):
+    """FLOPs of one period that csrc/lstm.cuh runs on the tensor cores: the
+    gate product and each encoder layer's product, 2 in out (their bias
+    adds and tanh stay on the FP32 cores)."""
+    return lstm_gate_flops(dims, hidden) + sum(2 * a * b for a, b in zip(dims, dims[1:]))
+
+
 def lstm_ops(dims, hidden, act_dim):
     """Operations of one period of the folded LSTM actor in csrc/lstm.cuh,
     an FMA counted as two and a transcendental as one: the encoder (a bias
-    add and a tanh per output), the gates (2 (enc + h) 4h and a bias per
-    gate), the cell per unit (three sigmoids of an exp, an add and a
+    add and a tanh per output), the gates (``lstm_gate_flops`` and a bias
+    per gate), the cell per unit (three sigmoids of an exp, an add and a
     division, two tanh, three products and a sum) and the mean head."""
     ops = sum(2 * a * b + 2 * b for a, b in zip(dims, dims[1:]))
-    ops += 2 * (dims[-1] + hidden) * 4 * hidden + 4 * hidden
+    ops += lstm_gate_flops(dims, hidden) + 4 * hidden
     ops += hidden * (3 * 3 + 2 + 4)
     return ops + 2 * hidden * act_dim + act_dim
 
@@ -463,19 +488,28 @@ def nv_step_ops(params):
     return max(params.lead_time - 1, 0) + 3 + 5 + 7 + 2 + 2 + 2
 
 
-def nv_draw_ops(params, econ_drawn):
+def nv_draw_ops(params, econ_drawn, table=True):
     """Operations per env-step of the in-kernel draws of K14-K17, as the
     kernel runs them: the period's Philox block and two word conversions,
-    the threshold (sub, product); per chunk of 16 periods K recurrence steps
-    of 7 operations (a Kahan sum of four, the quotient, the product, the
-    decrement), per period K compare-and-count pairs; per episode the
-    setup (~30 operations and K recurrence steps) and, when the econ is
-    drawn, the reset's two Philox blocks, five conversions and formulas;
-    spread over the episode's periods."""
+    the threshold (sub, product); per episode the setup (~30 operations and
+    K recurrence steps of 7: a Kahan sum of four, the quotient, the
+    product, the decrement) and, when the econ is drawn, the reset's two
+    Philox blocks, five conversions and formulas; spread over the episode's
+    periods. With ``table`` (nv_table_setup/nv_table_invert), the setup
+    also stores each S(k) and tracks m and the suffix's min and max (4 a
+    step), and a period searches: ceil(log2 K) rounds of an address, a
+    load, a compare and a select, the last probe and the suffix's two
+    compares (the data's rare linear counts over the suffix not counted);
+    without, the linear count of the first version (nv_poisson_invert, as
+    K18-K20 run it): per chunk of 16 periods the K recurrence steps again
+    and per period K compare-and-count pairs."""
     from or_gym_inventory_torch.ops import episode_kernels as ek
     T = params.step_limit
     _, K, _ = ek._nv_window(params)
-    per_episode = math.ceil(T / 16) * K * 7 + T * K * 2 + 30 + K * 7
+    if table:
+        per_episode = 30 + K * (7 + 4) + T * (4 * math.ceil(math.log2(K)) + 2 + 2)
+    else:
+        per_episode = math.ceil(T / 16) * K * 7 + T * K * 2 + 30 + K * 7
     if econ_drawn:
         per_episode += 2 * (10 * 8 + 9 * 2) + 5 * 3 + 7
     return (10 * 8 + 9 * 2) + 2 * 3 + 2 + per_episode / T
@@ -488,7 +522,8 @@ def nv_policy_draw_ops(params, stochastic):
     stochastic, the period's Philox block again, two conversions, the
     Box-Muller normal (log, sqrt, cos and five arithmetic operations) and
     the sample (product, sum)."""
-    return nv_draw_ops(params, True) + ((10 * 8 + 9 * 2) + 2 * 3 + 8 + 2 if stochastic else 0)
+    return nv_draw_ops(params, True, table=False) + (
+        (10 * 8 + 9 * 2) + 2 * 3 + 8 + 2 if stochastic else 0)
 
 
 NORMAL_OPS = (10 * 8 + 9 * 2) + 2 * 3 + 8   # one K21 element: a Philox block, the normal
@@ -532,10 +567,24 @@ def offpolicy_work(name, params, obs_dim, act_dim, mode):
     return n_bytes, per_step, T, weights
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, n_tf32=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak, ``n_ops`` at FP32 and
+    ``n_tf32`` (the tensor-core products) at TF32."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_ops / FP32_OPS_PER_S + n_tf32 / TF32_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lstm_bound(n_bytes, n, ops, tc_flops):
+    """K22-K24's bound for ``n`` env-steps of ``ops`` operations each:
+    (the smaller of the two counts (ms, by), the FP32 count's ms): every
+    operation at FP32, or the ``tc_flops`` of them that the kernel runs on
+    the tensor cores (``lstm_tc_flops``) as three TF32 products each and the
+    rest at FP32."""
+    fp32 = bound(n_bytes, n * ops)
+    tc = bound(n_bytes, n * (ops - tc_flops), 3 * n * tc_flops)
+    return min(fp32, tc), fp32[0]
 
 
 # ------------------------------------------------------------------ phases
@@ -590,12 +639,11 @@ class no_plain_versions:
 def ptxas_entries(out):
     """Each kernel of one source's ``ptxas -v`` output as "name<template
     flags> registers, stack frame" (and its spills, where it has any)."""
-    import re
     rows, name, frame = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:Lb[01]E)+E)?E", ln)
+        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:L[bi]\d+E)+E)?E", ln)
         if m:
-            flags = ",".join(re.findall(r"Lb([01])", m.group(2) or ""))
+            flags = ",".join(re.findall(r"L[bi](\d+)", m.group(2) or ""))
             name, frame = (f"{m.group(1)}<{flags}>" if flags else m.group(1)), ""
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", ln)
@@ -615,7 +663,6 @@ def sass_local_counts(so_path):
     each kernel of one built library, from ``cuobjdump -sass``; None where
     the toolkit has no cuobjdump."""
     import pathlib
-    import re
 
     from or_gym_inventory_torch.ops import _build
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
@@ -625,7 +672,7 @@ def sass_local_counts(so_path):
                          check=True, timeout=120).stdout
     counts, name = {}, None
     for ln in out.splitlines():
-        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:Lb[01]E)+E)?E", ln)
+        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:L[bi]\d+E)+E)?E", ln)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             counts[name] = [0, 0]
@@ -1424,6 +1471,24 @@ def nv_cross_check(dev):
                      "streams = K16; a NaN action gives NaN in its lane only")
         del econ, acts, dems, k16
     lines.append(f"the chain K16 = K14 = K13 _random = K13 held bit for bit: {bitwise}")
+    for mu_max in (NV_CASES[0][2], NV_CASES[1][2], NV_LINEAR_MU_MAX):
+        params = nv_params(mu_max=mu_max)
+        K = ek._nv_window(params)[1]
+        lines.append(f"mu_max={mu_max}: K = {K}, {ek._nv_table_plan(K)}")
+    params = nv_params(mu_max=NV_LINEAR_MU_MAX)
+    b = NV_LINEAR_LANES
+    case = f"the linear count, mu_max={NV_LINEAR_MU_MAX}"
+    econ, acts, dems = ek.sample_streams_debug_nv_reset(params, SEED, b, 2, dev)
+    pe, pa, pd = ek._nv_fused_plain(params, SEED, b, 2, dev, dump=True)
+    exact(f"K17 econ, {case}", econ, pe)
+    exact(f"K17 actions, {case}", acts, pa)
+    track("sample_streams_debug_nv_reset", demand_check(f"K17 demand, {case}", dems, pd))
+    share, e16 = lane_share(f"K16 vs plain, {case}",
+                            ek.episode_returns_nv_reset_fused(params, SEED, b, 2, dev),
+                            ek._nv_fused_plain(params, SEED, b, 2, dev), 1e-5, 1e-2)
+    track("episode_returns_nv_reset_fused", e16)
+    lines.append(f"{case} at {b} x 2 x 50: K17 econ and actions bit-exact, demand max |diff| "
+                 f"{float((dems - pd).abs().max())}; K16 {share:.4%} of lanes = plain K16")
     torch.cuda.synchronize()
     return err, lines
 
@@ -1688,7 +1753,10 @@ def lstm_cross_check(dev):
     of lanes; the env step chain on its actions and demand gives its inv
     exactly and its rewards within rtol=1e-4 atol=1e-2; its raws squash to
     its actions; K7 on its streams gives the sum of its rewards. A NaN std
-    gives NaN raws and actions 0 in K24 and its plain version. Returns (max
+    gives NaN raws and actions 0 in K24 and its plain version; a NaN weight
+    (the bits CUDA's arithmetic makes, 0x7fffffff) in the encoder, wx or wh
+    gives K23 the plain version's actions, demand and returns and K24 NaN
+    raws and the plain version's actions. Returns (max
     |diff| per kernel over agreeing lanes, plain ms per kernel, lines)."""
     import torch
 
@@ -1764,8 +1832,30 @@ def lstm_cross_check(dev):
     if not (torch.isnan(got["raw"]).all() and int(got["actions"].abs().max()) == 0
             and torch.equal(got["actions"], plain["actions"])):
         raise AssertionError("K24 with a NaN std: raws not NaN or actions not all 0")
-    lines.append("a NaN std: K24 and plain K24 give NaN raws and actions 0; bit for bit: "
-                 + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32).to(dev)[0]
+    for where in ("enc", "wx", "wh"):
+        bad = {k: ([(W.clone(), b.clone()) for W, b in v] if k == "enc" else v.clone())
+               for k, v in actor.items()}
+        if where == "enc":
+            bad["enc"][0][0][5, 7] = nan
+        else:
+            bad[where][10, 3] = nan
+        r23, a23, d23 = ek.sample_lstm_streams_debug_im(params, bad, SEED, MULTI_LANES, dev)
+        want, want_a, want_d = ek._im_lstm_plain(params, bad, SEED, MULTI_LANES, dev, True)
+        exact(f"K23 actions with a NaN weight in {where}", a23, want_a)
+        exact(f"K23 demand with a NaN weight in {where}", d23, want_d)
+        close(f"K23 returns with a NaN weight in {where}", r23, want, 1e-5, 1e-3)
+        got = ek.rollout_traj_im_lstm(params, bad, log_std, SEED, MULTI_LANES, device=dev)
+        plain = ek._rollout_traj_im_lstm_plain(params, bad, ek.clipped_std(log_std), SEED,
+                                               MULTI_LANES, dev)
+        if not (torch.isnan(got["raw"]).all() and torch.isnan(plain["raw"]).all()
+                and torch.equal(got["actions"], plain["actions"])):
+            raise AssertionError(f"K24 with a NaN weight (0x7fffffff) in {where}: raws not "
+                                 "NaN or actions not those of plain K24")
+    lines.append("a NaN std: K24 and plain K24 give NaN raws and actions 0; a NaN weight "
+                 "(0x7fffffff) in the encoder, wx or wh: K23's actions, demand and returns "
+                 "those of plain K23, K24's raws NaN and its actions plain K24's; bit for "
+                 "bit: " + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
     torch.cuda.synchronize()
     return err, plain_ms, lines
 
@@ -2410,14 +2500,24 @@ def slice7_phases(dev, wrappers, smi, err, times, work):
             actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
             mode_ms[mode] = cuda_time(kernel, fparams, actor, log_std, SEED, B, mode, "relu",
                                       dev, warmup=1, iters=5)
+            if mode == "det":   # the learners' shape: TD3_RECIPE's 1,024 envs
+                mode_ms["det_learner"] = cuda_time(
+                    kernel, fparams, actor, log_std, SEED, TD3_RECIPE["num_envs"], mode,
+                    "relu", dev, warmup=1, iters=5)
         n_bytes, per_step, horizon, weights = offpolicy_work(name, fparams, obs_dim, act_dim,
                                                              "det")
         work[name] = bound(B * n_bytes + weights, B * horizon * per_step)
         times[name] = (mode_ms["det"], {"best_ms": off_plain_ms[name]})
+        n_learn = TD3_RECIPE["num_envs"]
+        learn_bound = bound(n_learn * n_bytes + weights, n_learn * horizon * per_step)
         off_lines.append(f"{name}: det {mode_ms['det']['best_ms']:.4f} ms, sac "
                          f"{mode_ms['sac']['best_ms']:.4f} ms, uniform "
-                         f"{mode_ms['uniform']['best_ms']:.4f} ms at {B} x {horizon}; "
-                         f"{per_step:.0f} operations an env-step (det)")
+                         f"{mode_ms['uniform']['best_ms']:.4f} ms at {B} x {horizon}; det "
+                         f"{mode_ms['det_learner']['best_ms']:.4f} ms at the learners' "
+                         f"{n_learn} x {horizon} (bound {learn_bound[0]:.4f} ms by "
+                         f"{learn_bound[1]}); {per_step:.0f} operations an env-step (det)")
+        off_summary[f"{name}_learner_ms"] = mode_ms["det_learner"]["best_ms"]
+        off_summary[f"{name}_learner_bound_ms"] = learn_bound[0]
         off_summary[f"{name}_sac_ms"] = mode_ms["sac"]["best_ms"]
         off_summary[f"{name}_uniform_ms"] = mode_ms["uniform"]["best_ms"]
     print(f"[35 work] K25 per lane {state_rows} state rows read and written, step "
@@ -2499,8 +2599,16 @@ def main() -> int:
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"[2 build] {time.perf_counter() - t0:.1f} s, {len(logs)} source(s) "
           f"compiled; ptxas: {' | '.join(ptxas)}", flush=True)
-    print("[2 build] K22-K24 (csrc/im_lstm.cu): " + "; ".join(
+    print("[2 build] K22-K24 (csrc/im_lstm.cu; <lanes,warps_m,...>): " + "; ".join(
         ptxas_entries(out) for so, out in logs.items() if "libim_lstm" in so), flush=True)
+    nv_entries = "; ".join(ptxas_entries(out) for so, out in logs.items()
+                           if "libnv_episode" in so)
+    print("[2 build] K13-K17 (csrc/nv_episode.cu; k_nv_episodes<econ in,dump,table>): "
+          + nv_entries, flush=True)
+    nv_regs = [int(r) for r in re.findall(r"k_nv_episodes<[\d,]+> (\d+) registers", nv_entries)]
+    if nv_regs and max(nv_regs) > ek._NV_TABLE_REGS:
+        raise AssertionError(f"k_nv_episodes uses {max(nv_regs)} registers a thread; "
+                             f"_nv_table_plan counts {ek._NV_TABLE_REGS}")
     new_entries = [e for out in logs.values() for e in ptxas_entries(out).split("; ")
                    if e.startswith(("k_batched_step", "k_episode_returns_random",
                                     "k_im_rollout_traj_wide", "k_nv_rollout_traj_wide",
@@ -2876,6 +2984,8 @@ def main() -> int:
     nv_envs = MAIN_LANES * MAIN_EPISODES
     nv_step, nv_draw = nv_step_ops(nv_p), nv_draw_ops(nv_p, False)
     nv_draw_reset = nv_draw_ops(nv_p, True)
+    nv_draw_linear = nv_draw_ops(nv_p, True, table=False)
+    k16_linear_bound = bound(nv_envs * 4, nv_envs * nv_T * (nv_step + nv_draw_linear))
     work.update({
         "episode_returns_im_policy": bound(PPO_ENVS * E * 4, n_eval * k11_ops),
         "sample_policy_streams_debug_im": bound(
@@ -2903,16 +3013,21 @@ def main() -> int:
     print(f"[20 work] K11 per env-step: MLP {mlp_ops(im_dims)} + step {im_step_ops(im_params)} "
           f"+ draws {im_policy_draw_ops(im_params, table_len, stochastic=False)} ops "
           f"(deterministic); NV per env-step: step {nv_step} ops, draws {nv_draw:.1f} "
-          f"(econ in) / {nv_draw_reset:.1f} (econ drawn) ops; K13-K15 and K17 and plain "
-          f"K14-K17 at {CHECK_LANES} x {nv_T}, E=1, plain K16 at {CHECK_LANES} x "
-          f"{MAIN_EPISODES}", flush=True)
+          f"(econ in) / {nv_draw_reset:.1f} (econ drawn) ops with the table "
+          f"({ek._nv_table_plan(ek._nv_window(nv_p)[1])}); the first version's "
+          f"linear count "
+          f"{nv_draw_linear:.1f} (econ drawn), K16's bound by it {k16_linear_bound[0]:.4f} ms; "
+          f"K13-K15 and K17 and plain K14-K17 at {CHECK_LANES} x {nv_T}, E=1, plain K16 at "
+          f"{CHECK_LANES} x {MAIN_EPISODES}", flush=True)
     for name in IM_EVAL_KERNELS + NV_KERNELS:
         print_kernel(20, name, times[name], work[name], launches[name])
     print(f"[20 kernel] episode_returns_im_policy, stochastic: {k11s_t['best_ms']:.4f} ms "
           f"(mean {k11s_t['mean_ms']:.4f})", flush=True)
     nv_summary = {"random_ms": nv_t["best_ms"],
                   "random_env_steps_s": nv_steps / nv_t["best_ms"] * 1e3,
-                  "k16_ms": k16_t["best_ms"], "mean_return": nv_mean,
+                  "k16_ms": k16_t["best_ms"], "k16_bound_ms": work[
+                      "episode_returns_nv_reset_fused"][0],
+                  "k16_linear_bound_ms": k16_linear_bound[0], "mean_return": nv_mean,
                   "plain_share": nv_share}
 
     # 21. the Newsvendor policy kernels against their plain versions
@@ -3061,26 +3176,38 @@ def main() -> int:
     k24_p = cuda_time(ek._rollout_traj_im_lstm_plain, lstm_p, lstm_actor,
                       ek.clipped_std(lstm_log_std), SEED, PPO_ENVS, dev, warmup=0, iters=3)
     lstm_dims = [lstm_p.pipeline_length] + list(LSTM_ENCODER)
+    gate = lstm_gate_flops(lstm_dims, LSTM_HIDDEN)
+    tc_flops = lstm_tc_flops(lstm_dims, LSTM_HIDDEN)
     cell_ops = lstm_ops(lstm_dims, LSTM_HIDDEN, m1) + im_step_ops(lstm_p)
     det_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len, stochastic=False)
     sto_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len)
-    work.update({
-        "episode_returns_im_lstm": bound(n22 * 4, n22 * T * det_ops),
-        "sample_lstm_streams_debug_im": bound(n22 * (1 + T * (m1 + 1)) * 4, n22 * T * det_ops),
-        "rollout_traj_im_lstm": bound(PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4,
-                                      PPO_ENVS * T * sto_ops),
-    })
+    lstm_bounds = {
+        "episode_returns_im_lstm": lstm_bound(n22 * 4, n22 * T, det_ops, tc_flops),
+        "sample_lstm_streams_debug_im": lstm_bound(n22 * (1 + T * (m1 + 1)) * 4, n22 * T,
+                                                   det_ops, tc_flops),
+        "rollout_traj_im_lstm": lstm_bound(
+            PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4, PPO_ENVS * T, sto_ops,
+            tc_flops),
+    }
+    work.update({name: b for name, (b, _) in lstm_bounds.items()})
     times.update({"episode_returns_im_lstm": (k22_t, k22_p),
                   "sample_lstm_streams_debug_im": (k23_t, k23_p),
                   "rollout_traj_im_lstm": (k24_t, k24_p)})
     print(f"[28 work] LSTM per env-step: actor {lstm_ops(lstm_dims, LSTM_HIDDEN, m1)} ops "
           f"(widths {lstm_dims}, hidden {LSTM_HIDDEN}), step {im_step_ops(lstm_p)}, draws "
           f"{im_policy_draw_ops(lstm_p, table_len, stochastic=False)} (deterministic) / "
-          f"{im_policy_draw_ops(lstm_p, table_len)} (stochastic); K22/K23 at {n22} x {T}, K24 "
-          f"at {PPO_ENVS} x {T}, with phase 26's trained actor", flush=True)
+          f"{im_policy_draw_ops(lstm_p, table_len)} (stochastic); the gate product {gate} "
+          f"and the encoder's products {tc_flops - gate} FLOPs of them, run as three TF32 "
+          f"products at {TF32_TC_OPS_PER_S:.3g} FLOP/s, the rest at FP32; K22/K23 at {n22} x {T}, K24 at {PPO_ENVS} x {T}, with phase 26's "
+          f"trained actor", flush=True)
     for name in LSTM_KERNELS:
         print_kernel(28, name, times[name], work[name], launches[name])
+        fp32_ms = lstm_bounds[name][1]
+        print(f"[28 kernel] {name}: bound with every operation at FP32 {fp32_ms:.4f} ms "
+              f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     lstm_rates.update(k22_ms=k22_t["best_ms"], k24_ms=k24_t["best_ms"],
+                      k22_bound_ms=work["episode_returns_im_lstm"][0],
+                      k22_fp32_bound_ms=lstm_bounds["episode_returns_im_lstm"][1],
                       k24_share_of_update=k24_t["best_ms"] / lstm_rates["update_ms"])
     print(f"[28 kernel] rollout_traj_im_lstm is {lstm_rates['k24_share_of_update']:.1%} of the "
           f"best recurrent PPO update ({lstm_rates['update_ms']:.3f} ms)", flush=True)

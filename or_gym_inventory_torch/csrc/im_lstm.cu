@@ -14,14 +14,22 @@
 //    inv (T+1 snapshots), int actions, pre-squash raws, alpha^t rewards and
 //    demand. Recurrent PPO with rollout="kernel" feeds on it.
 //
-// Design (a simple kernel first): a block runs kLstmLanes = 32 lanes.
-// Threads 0..31 each own one lane's env (im_step.cuh's state and step, the
-// ring of requested orders, in local memory as in K10), draw its words and
-// write its observation column; then the whole block runs the actor
-// (lstm.cuh: the encoder, the register-tiled cell with C in registers and
-// H in shared memory, the head); then the lane threads take the actions and
-// step. The carry never leaves the block. Bound by operations: the cell's
-// ~2e5 per env-step at the benchmark widths.
+// Design: a block runs a tile of LANES lanes (lstm.cuh; 64 at the
+// benchmark widths, the wrapper's _pack_lstm_actor picks the tile). Threads
+// 0..LANES-1, a warp per 32 lanes, each own one lane's env (im_step.cuh's
+// state and step, the ring of requested orders, in local memory as in K10:
+// ~2 KB a lane, where the block's activations already take ~104 KB of
+// shared memory and two blocks share an SM) and write its observation
+// column; then the whole block runs the actor (lstm.cuh: the encoder and
+// the gate product on the tensor cores in 3xTF32, C in registers and H in
+// shared memory, the head); then the lane threads take the actions and
+// step, while threads LANES..2 LANES-1 draw the next period's words
+// (draw_ahead, into two buffers of shared memory). The carry never leaves
+// the block. Bound by
+// operations: the gate product's ~2e5 FLOPs per env-step at the benchmark
+// widths, run as three TF32 products. The tiles the entry points can launch
+// are LSTM_TILES below; one is picked per actor by the wrapper and passed
+// in struct Lstm.
 //
 // Random stream (philox.cuh): K10's, key (seed, 1), counter (lane, 0,
 // period, block); per period one demand word, then, when stochastic, the m1
@@ -51,41 +59,60 @@ namespace {
 template <bool STOCH>
 __device__ __forceinline__ int lane_draws(const ImParams& p, const float* __restrict__ table,
                                           const int* __restrict__ user_d, unsigned seed,
-                                          unsigned lane, int t, float* z, int n) {
+                                          unsigned lane, int t, float* z, int S) {
   WordStream ws(seed, 1u, lane, 0u, (unsigned)t);
   const int d = im_demand(p, table, user_d, t, ws.next());
   if (STOCH) {
     unsigned w1[IM_MAX_M1];
     for (int i = 0; i < p.m1; ++i) w1[i] = ws.next();
-    for (int i = 0; i < p.m1; ++i) z[i * kLstmLanes + n] = normal01(w1[i], ws.next());
+    for (int i = 0; i < p.m1; ++i) z[i * S] = normal01(w1[i], ws.next());
   }
   return d;
 }
 
-// The lane's observation column n in x0, in the order of _im_obs_rows:
+// The lane's observation column in x0 (rows S floats apart), in the order
+// of _im_obs_rows:
 // on-hand, then the requested orders of periods max(t - lt, 0) .. t-1
 // oldest first, one row per (period, stage), zero rows at the end while
 // t < lt. ``ah`` is the ring of requested orders (slot q % lt).
 __device__ __forceinline__ void lane_obs(const ImParams& p, const ImEpisode& s, int t,
-                                         const int* ah, float* x0, int n) {
+                                         const int* ah, float* x0, int S) {
   const int m1 = p.m1, lt = p.lt;
-  for (int i = 0; i < m1; ++i) x0[i * kLstmLanes + n] = (float)s.inv[i];
+  for (int i = 0; i < m1; ++i) x0[i * S] = (float)s.inv[i];
   const int q0 = max(t - lt, 0);
   for (int j = 0; j < lt; ++j) {
     const int q = q0 + j;
     for (int i = 0; i < m1; ++i)
-      x0[(m1 + j * m1 + i) * kLstmLanes + n] = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
+      x0[(m1 + j * m1 + i) * S] = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
   }
 }
 
-// The lane's raw samples and int actions from the means in m.
+// Threads LANES..2 LANES-1 draw period t for the block's lanes 0..LANES-1
+// (lane0 is the block's first): the demand (an int in the last row) and,
+// when stochastic, the m1 normals (the rows before it) of buffer t & 1 of
+// the draw rows. The draws depend on the seed, the lane and t alone, so
+// these threads make them for period t + 1 while the lane threads step
+// period t, and the lanes read them after the next period's first barrier.
+template <bool STOCH, int LANES>
+__device__ __forceinline__ void draw_ahead(const ImParams& p, const Lstm& L,
+                                           const float* __restrict__ table,
+                                           const int* __restrict__ user_d, unsigned seed,
+                                           long long lane0, int t, float* smem) {
+  const int n = threadIdx.x - LANES, S = L.stride;
+  float* buf = smem + L.s_z + (t & 1) * (L.act + 1) * S + n;
+  buf[L.act * S] = __int_as_float(lane_draws<STOCH>(p, table, user_d, seed,
+                                                     (unsigned)(lane0 + n), t, buf, S));
+}
+
+// The lane's raw samples and int actions from the means in m (its column).
 template <bool STOCH>
 __device__ __forceinline__ void lane_act(const Lstm& L, const float* __restrict__ w,
-                                         const float* m, const float* z, int n, int m1,
+                                         const float* m, const float* z, int m1,
                                          float* raw, int* act) {
+  const int S = L.stride;
   for (int i = 0; i < m1; ++i) {
-    float x = m[i * kLstmLanes + n];
-    if (STOCH) x = __fadd_rn(x, __fmul_rn(__ldg(w + L.std + i), z[i * kLstmLanes + n]));
+    float x = m[i * S];
+    if (STOCH) x = __fadd_rn(x, __fmul_rn(__ldg(w + L.std + i), z[i * S]));
     raw[i] = x;
     act[i] = (int)__fmul_rn(__fadd_rn(tanhf(x), 1.f), L.half_hi[i]);
   }
@@ -103,78 +130,94 @@ __device__ __forceinline__ float lane_step(const ImParams& p, ImEpisode& s, int 
   return profit;
 }
 
-template <bool DUMP, bool BACKLOG>
-__global__ void __launch_bounds__(256)
+// The tiles compiled: (lanes a block, warps along the units). The wrapper's
+// _LSTM_TILES lists the entry points' preference among them.
+#define LSTM_TILES(X) X(64, 4) X(32, 8)
+
+// Blocks an SM the register allocation aims at: as many as its 65,536
+// registers hold at 128 a thread (two of 256 threads).
+__host__ __device__ constexpr int lstm_min_blocks(int threads) { return 512 / threads; }
+
+template <int LANES, int WM, bool DUMP, bool BACKLOG>
+__global__ void __launch_bounds__(LANES * WM, lstm_min_blocks(LANES * WM))
     k_im_lstm_returns(const __grid_constant__ ImParams p, const __grid_constant__ Lstm L,
                       const float* __restrict__ w, const float* __restrict__ table,
                       const int* __restrict__ user_d, const float* __restrict__ disc,
                       float* __restrict__ out, int* __restrict__ acto,
                       int* __restrict__ demo, unsigned seed, long long B, int T) {
+  static_assert(WM >= 2, "threads LANES..2 LANES-1 draw ahead");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int n = threadIdx.x;
-  const long long b = (long long)blockIdx.x * kLstmLanes + n;
-  const bool lane = n < kLstmLanes, live = lane && b < B;
+  const int n = threadIdx.x, S = L.stride;
+  const long long lane0 = (long long)blockIdx.x * LANES, b = lane0 + n;
+  const bool lane = n < LANES, live = lane && b < B, drawer = !lane && n < 2 * LANES;
   const int m1 = p.m1;
-  float c[4][4];
+  float c[lstm_groups_per_warp(WM)][4][2];
   float *hold, *hnew;
-  lstm_reset(L, smem, hold, hnew, c);
+  lstm_reset<WM>(L, smem, hold, hnew, c);
   ImEpisode s;
   int ah[IM_MAX_LT * IM_MAX_M1];  // requested order of period q: slot q % lt
-  int act[IM_MAX_M1], d = 0;
+  int act[IM_MAX_M1];
   float raw[IM_MAX_M1], total = 0.f;
   if (lane) im_reset(p, s);
+  __syncthreads();  // the reset's zeros are in before the obs rows and draws
+  if (drawer) draw_ahead<false, LANES>(p, L, table, user_d, seed, lane0, 0, smem);
   for (int t = 0; t < T; ++t) {
+    if (lane) lane_obs(p, s, t, ah, smem + L.s_x0 + n, S);
+    lstm_forward<LANES, WM>(L, w, smem, hold, hnew, c);
     if (lane) {
-      d = lane_draws<false>(p, table, user_d, seed, (unsigned)b, t, smem + L.s_z, n);
-      lane_obs(p, s, t, ah, smem + L.s_x0, n);
-    }
-    lstm_forward(L, w, smem, hold, hnew, c);
-    if (lane) {
-      lane_act<false>(L, w, smem + L.s_m, smem + L.s_z, n, m1, raw, act);
+      const float* buf = smem + L.s_z + (t & 1) * (L.act + 1) * S + n;
+      const int d = __float_as_int(buf[L.act * S]);
+      lane_act<false>(L, w, smem + L.s_m + n, buf, m1, raw, act);
       if (DUMP && live) {
         for (int i = 0; i < m1; ++i) acto[((long long)t * m1 + i) * B + b] = act[i];
         demo[(long long)t * B + b] = d;
       }
       const float profit = lane_step<BACKLOG>(p, s, t, act, d, ah);
       total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), profit));
+    } else if (drawer && t + 1 < T) {
+      draw_ahead<false, LANES>(p, L, table, user_d, seed, lane0, t + 1, smem);
     }
   }
   if (live) out[b] = total;
 }
 
-template <bool BACKLOG>
-__global__ void __launch_bounds__(256)
+template <int LANES, int WM, bool BACKLOG>
+__global__ void __launch_bounds__(LANES * WM, lstm_min_blocks(LANES * WM))
     k_im_lstm_traj(const __grid_constant__ ImParams p, const __grid_constant__ Lstm L,
                    const float* __restrict__ w, const float* __restrict__ table,
                    const int* __restrict__ user_d, const float* __restrict__ disc,
                    int* __restrict__ invo, int* __restrict__ acto, float* __restrict__ rawo,
                    float* __restrict__ rewo, int* __restrict__ demo, unsigned seed,
                    long long B, int T) {
+  static_assert(WM >= 2, "threads LANES..2 LANES-1 draw ahead");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int n = threadIdx.x;
-  const long long b = (long long)blockIdx.x * kLstmLanes + n;
-  const bool lane = n < kLstmLanes, live = lane && b < B;
+  const int n = threadIdx.x, S = L.stride;
+  const long long lane0 = (long long)blockIdx.x * LANES, b = lane0 + n;
+  const bool lane = n < LANES, live = lane && b < B, drawer = !lane && n < 2 * LANES;
   const int m1 = p.m1;
-  float c[4][4];
+  float c[lstm_groups_per_warp(WM)][4][2];
   float *hold, *hnew;
-  lstm_reset(L, smem, hold, hnew, c);
+  lstm_reset<WM>(L, smem, hold, hnew, c);
   ImEpisode s;
   int ah[IM_MAX_LT * IM_MAX_M1];
-  int act[IM_MAX_M1], d = 0;
+  int act[IM_MAX_M1];
   float raw[IM_MAX_M1];
   if (lane) im_reset(p, s);
+  __syncthreads();  // the reset's zeros are in before the obs rows and draws
+  if (drawer) draw_ahead<true, LANES>(p, L, table, user_d, seed, lane0, 0, smem);
   for (int t = 0; t < T; ++t) {
     if (lane) {
       if (live)
         for (int i = 0; i < m1; ++i) invo[((long long)t * m1 + i) * B + b] = s.inv[i];
-      d = lane_draws<true>(p, table, user_d, seed, (unsigned)b, t, smem + L.s_z, n);
-      lane_obs(p, s, t, ah, smem + L.s_x0, n);
+      lane_obs(p, s, t, ah, smem + L.s_x0 + n, S);
     }
-    lstm_forward(L, w, smem, hold, hnew, c);
+    lstm_forward<LANES, WM>(L, w, smem, hold, hnew, c);
     if (lane) {
-      lane_act<true>(L, w, smem + L.s_m, smem + L.s_z, n, m1, raw, act);
+      const float* buf = smem + L.s_z + (t & 1) * (L.act + 1) * S + n;
+      const int d = __float_as_int(buf[L.act * S]);
+      lane_act<true>(L, w, smem + L.s_m + n, buf, m1, raw, act);
       const float profit = lane_step<BACKLOG>(p, s, t, act, d, ah);
       if (live) {
         for (int i = 0; i < m1; ++i) {
@@ -185,25 +228,53 @@ __global__ void __launch_bounds__(256)
         rewo[(long long)t * B + b] = __fmul_rn(__ldg(disc + t), profit);
         demo[(long long)t * B + b] = d;
       }
+    } else if (drawer && t + 1 < T) {
+      draw_ahead<true, LANES>(p, L, table, user_d, seed, lane0, t + 1, smem);
     }
   }
   if (live)
     for (int i = 0; i < m1; ++i) invo[((long long)T * m1 + i) * B + b] = s.inv[i];
 }
 
-unsigned lstm_blocks(long long B) { return (unsigned)((B + kLstmLanes - 1) / kLstmLanes); }
+// Launch one kernel instance on the tile L names: the grid of
+// ceil(B / lanes) blocks of L.threads threads and L.s_total floats of
+// dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch_tile(Kernel kernel, const Lstm& L, long long B, cudaStream_t stream,
+                Args... args) {
+  const size_t smem = (size_t)L.s_total * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((B + L.lanes - 1) / L.lanes);
+  kernel<<<blocks, L.threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 template <bool DUMP, bool BACKLOG>
 int launch_returns(const ImParams& p, const Lstm& L, const float* w, const float* table,
                    const int* user_d, const float* disc, float* out, int* acts, int* dems,
                    unsigned seed, long long B, int T, cudaStream_t stream) {
-  auto kernel = k_im_lstm_returns<DUMP, BACKLOG>;
-  const size_t smem = (size_t)L.s_total * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<lstm_blocks(B), L.threads, smem, stream>>>(p, L, w, table, user_d, disc, out,
-                                                       acts, dems, seed, B, T);
-  return (int)cudaGetLastError();
+#define LSTM_RETURNS_TILE(N, W)                                                         \
+  if (L.lanes == N && L.warps_m == W && L.threads == N * W)                             \
+    return launch_tile(k_im_lstm_returns<N, W, DUMP, BACKLOG>, L, B, stream, p, L, w,   \
+                       table, user_d, disc, out, acts, dems, seed, B, T);
+  LSTM_TILES(LSTM_RETURNS_TILE)
+#undef LSTM_RETURNS_TILE
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+template <bool BACKLOG>
+int launch_traj(const ImParams& p, const Lstm& L, const float* w, const float* table,
+                const int* user_d, const float* disc, int* inv, int* acts, float* raw,
+                float* rew, int* dem, unsigned seed, long long B, int T,
+                cudaStream_t stream) {
+#define LSTM_TRAJ_TILE(N, W)                                                            \
+  if (L.lanes == N && L.warps_m == W && L.threads == N * W)                             \
+    return launch_tile(k_im_lstm_traj<N, W, BACKLOG>, L, B, stream, p, L, w, table,     \
+                       user_d, disc, inv, acts, raw, rew, dem, seed, B, T);
+  LSTM_TILES(LSTM_TRAJ_TILE)
+#undef LSTM_TRAJ_TILE
+  return (int)cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -229,13 +300,10 @@ int im_lstm_rollout_traj(const ImParams* p, const Lstm* L, const float* w,
                          const float* table, const int* user_d, const float* disc, int* inv,
                          int* acts, float* raw, float* rew, int* dem, unsigned seed,
                          int backlog, long long B, int T, cudaStream_t stream) {
-  auto kernel = backlog ? k_im_lstm_traj<true> : k_im_lstm_traj<false>;
-  const size_t smem = (size_t)L->s_total * sizeof(float);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<lstm_blocks(B), L->threads, smem, stream>>>(*p, *L, w, table, user_d, disc, inv,
-                                                        acts, raw, rew, dem, seed, B, T);
-  return (int)cudaGetLastError();
+  return backlog ? launch_traj<true>(*p, *L, w, table, user_d, disc, inv, acts, raw, rew, dem,
+                                     seed, B, T, stream)
+                 : launch_traj<false>(*p, *L, w, table, user_d, disc, inv, acts, raw, rew,
+                                      dem, seed, B, T, stream);
 }
 
 }  // extern "C"

@@ -19,15 +19,27 @@
 //    (E, 5, B), actions and demand (T, E, B). The production Newsvendor path
 //    (vector.fast_episodes.random_episode_returns) runs K16 alone.
 //
-// Design (a simple kernel first): one thread per (episode, lane), as K8.
-// The TPU interleaved E episodes per lane to hide the serial period chain;
-// here more resident threads do that job, so E only widens the grid. Bound
-// by operations: per env-step ~2 K / NV_CHUNK compares and sums of the
-// inversion (K = 177 at mu_max 200) plus the share of its recurrence, a
-// Philox block and the step. The demand of NV_CHUNK = 16 periods is inverted
-// at once, so the per-uniform counts and thresholds stay in registers and
-// one recurrence serves 16 periods; the count does not depend on the chunk,
-// so neither do the draws.
+// Design: one thread per (episode, lane), as K8. The TPU interleaved E
+// episodes per lane to hide the serial period chain; here more resident
+// threads do that job, so E only widens the grid. Bound by operations. The
+// inversion's recurrence depends on mu alone, so it runs once per episode
+// (nv_step.cuh nv_table_setup) and leaves its K suffix sums in the thread's
+// column of a [k][thread] dynamic shared-memory table (4 K bytes a thread,
+// 708 at mu_max 200); a period's count is then a lower-bound search of
+// ceil(log2 K) probes (nv_table_invert), where the first version reran the
+// K-step recurrence for every chunk of 16 periods and compared every sum
+// with each threshold (~2 K operations an env-step). Per env-step that
+// leaves the period's Philox block, ~8 probes, the step and 1/T of the
+// setup. The table bounds the resident threads (5 blocks of 64, 320 an
+// SM, at K = 177), so the wrapper sizes the block to it (_nv_table_plan;
+// the pipeline ring stays in local memory: under the table in shared
+// memory, which leaves fewer threads an SM, K16 ran slower);
+// the demand of NV_CHUNK = 16 periods is still drawn and inverted at once,
+// so 16 independent Philox blocks and searches overlap their latencies.
+// For a K whose table a block of 32 cannot hold, the plan launches the
+// TABLE = false instance, which counts linearly as the first version did.
+// The count does not depend on the chunk or the method, so neither do the
+// draws.
 //
 // Random stream (philox.cuh): key (seed, 0), counter (lane, episode, period,
 // block). The reset's five uniforms are the first five words of period
@@ -75,7 +87,7 @@ __global__ void k_nv_returns(const __grid_constant__ NvParams p,
   out[b] = total;
 }
 
-template <bool ECON_IN, bool DUMP>
+template <bool ECON_IN, bool DUMP, bool TABLE>
 __global__ void k_nv_episodes(const __grid_constant__ NvParams p,
                               const float* __restrict__ lgam,
                               const float* __restrict__ econ_in,
@@ -109,7 +121,13 @@ __global__ void k_nv_episodes(const __grid_constant__ NvParams p,
       row[4 * B] = s.mu;
     }
   }
-  const NvPoisson q = nv_poisson_setup(p, lgam, s.mu);
+  extern __shared__ float nv_table[];
+  NvPoisson q = nv_poisson_anchor(p, lgam, s.mu);
+  NvTable tab;
+  if (TABLE)
+    tab = nv_table_setup(p, q, nv_table + threadIdx.x, blockDim.x);
+  else
+    q.total = nv_poisson_total(p, q);
   float total = 0.f;
   for (int t0 = 0; t0 < T; t0 += NV_CHUNK) {
     float order[NV_CHUNK], v[NV_CHUNK], d[NV_CHUNK];
@@ -123,7 +141,10 @@ __global__ void k_nv_episodes(const __grid_constant__ NvParams p,
         v[i] = __fmul_rn(__fsub_rn(1.f, u01(ws.next())), q.total);
       }
     }
-    nv_poisson_invert(p, q, v, d);
+    if (TABLE)
+      nv_table_invert(p, q, tab, v, d);
+    else
+      nv_poisson_invert(p, q, v, d);
 #pragma unroll
     for (int i = 0; i < NV_CHUNK; ++i) {
       const int t = t0 + i;
@@ -140,14 +161,29 @@ __global__ void k_nv_episodes(const __grid_constant__ NvParams p,
   if (!DUMP) out[idx] = total;  // (E, B), episode-major
 }
 
+template <bool ECON_IN, bool DUMP, bool TABLE>
+int launch_plan(const NvParams& p, const float* lgam, const float* econ_in,
+                const float* disc, float* out, float* econ_out, float* acts, float* dems,
+                unsigned seed, long long B, int E, int T, cudaStream_t stream) {
+  auto kernel = k_nv_episodes<ECON_IN, DUMP, TABLE>;
+  const size_t smem = TABLE ? (size_t)p.K * p.threads * sizeof(float) : 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((B * E + p.threads - 1) / p.threads);
+  kernel<<<blocks, p.threads, smem, stream>>>(p, lgam, econ_in, disc, out, econ_out, acts,
+                                              dems, seed, B, E, T);
+  return (int)cudaGetLastError();
+}
+
 template <bool ECON_IN, bool DUMP>
 int launch_episodes(const NvParams& p, const float* lgam, const float* econ_in,
                     const float* disc, float* out, float* econ_out, float* acts,
                     float* dems, unsigned seed, long long B, int E, int T,
                     cudaStream_t stream) {
-  k_nv_episodes<ECON_IN, DUMP><<<blocks_for(B * E), kThreads, 0, stream>>>(
-      p, lgam, econ_in, disc, out, econ_out, acts, dems, seed, B, E, T);
-  return (int)cudaGetLastError();
+  return p.table ? launch_plan<ECON_IN, DUMP, true>(p, lgam, econ_in, disc, out, econ_out,
+                                                    acts, dems, seed, B, E, T, stream)
+                 : launch_plan<ECON_IN, DUMP, false>(p, lgam, econ_in, disc, out, econ_out,
+                                                     acts, dems, seed, B, E, T, stream);
 }
 
 }  // namespace

@@ -29,11 +29,26 @@
 // The inversion (the notes at pallas_episode_kernels.py:164-195): mu is
 // fixed for the episode, so the setup anchors a descending pmf recurrence at
 // kc = floor(mu) + min(w(mu), Wb) and runs it K = 2 Wb + 1 steps once for the
-// renormalisation total; each chunk of periods then runs the same K steps
-// again, counting for each uniform the steps whose Kahan-summed suffix sum
-// lies below v = (1 - u) * total; demand = max(kc + 1 - count, 0). Every
-// lane runs all K steps, the ones after kf reaches 0 included, since the
-// count identity depends on it. lgamma(kc + 1) is a host-built table of f32
+// renormalisation total; a period's demand is max(kc + 1 - count, 0), where
+// count is the number of steps whose Kahan-summed (pre-add) suffix sum S(k)
+// lies below v = (1 - u) * total. Every lane runs all K steps, the ones
+// after kf reaches 0 included, since the count identity depends on it. Two
+// ways to count, the same count bit for bit:
+// - the table (K14-K17, nv_table_setup/nv_table_invert): the setup's one
+//   pass also writes S(0..K-1) into the thread's column of a [k][thread]
+//   shared-memory table and records m, the first k with S(k+1) < S(k) (a
+//   Kahan step that adds a negative y, only in the far tail), and the min
+//   and max of S over [m, K). S is nondecreasing on [0, m), so a period's
+//   count there is a lower-bound search (ceil(log2 m) probes, the chunk's
+//   16 searches interleaved round by round so their shared-memory loads
+//   overlap); over [m, K) it is 0 below the minimum, K - m above the
+//   maximum, and a linear count in between (rare: the suffix sits within
+//   ulps of total). ops/episode_kernels.py _nv_table_plan sizes the block
+//   to the table (NvParams.threads) and picks, for a K whose table a block
+//   of 32 cannot hold, the linear count below instead (NvParams.table 0);
+// - linear (nv_poisson_invert; K18-K20, whose shared memory holds the
+//   actor): each chunk of 16 periods reruns the K steps and compares every
+//   S(k) with each threshold. lgamma(kc + 1) is a host-built table of f32
 // hi/lo pairs split from float64 exactly as JAX splits them, indexed by kc
 // (0 for kc < 2; kc beyond the table takes its last pair, as JAX's masked
 // loop does).
@@ -49,6 +64,9 @@
 struct NvParams {
   int L;                // lead_time
   int K;                // recurrence steps, 2 Wb + 1
+  int threads;          // K14-K17's block size (_nv_table_plan)
+  int table;            // 1: K14-K17 search a shared-memory table of 4 K
+                        // bytes a thread; 0: they count linearly
   int kc_max;           // floor(mu_max) + Wb: the lgamma table's last index
   float wb;             // Wb, the widest half-window
   float max_inv, max_order;
@@ -126,9 +144,10 @@ __device__ __forceinline__ void nv_recur(float& T, float& comp, float& p, float&
   kf = __fsub_rn(kf, 1.f);
 }
 
-__device__ __forceinline__ NvPoisson nv_poisson_setup(const NvParams& p,
-                                                      const float* __restrict__ lgam,
-                                                      float mu) {
+// The anchor: mu, kc and pmf(kc); total is left for the K steps.
+__device__ __forceinline__ NvPoisson nv_poisson_anchor(const NvParams& p,
+                                                       const float* __restrict__ lgam,
+                                                       float mu) {
   NvPoisson q;
   q.mu = max_nan(mu, 1e-6f);
   const float pad = __fadd_rn(2.f, __fmul_rn(4.f, min_nan(q.mu, 1.f)));
@@ -154,14 +173,86 @@ __device__ __forceinline__ NvPoisson nv_poisson_setup(const NvParams& p,
   const float g =
       __fadd_rn(Bv, __fsub_rn(__fadd_rn(__fadd_rn(e1, e2), __fmul_rn(q.kc, tail)), lg_lo));
   q.p_c = expf(g);
-  float T = 0.f, comp = 0.f, pk = q.p_c, kf = q.kc;
-  for (int k = 0; k < p.K; ++k) nv_recur(T, comp, pk, kf, q.mu);
-  q.total = T;
+  q.total = 0.f;
   return q;
 }
 
+// The renormalisation total: the K steps from the anchor.
+__device__ __forceinline__ float nv_poisson_total(const NvParams& p, const NvPoisson& q) {
+  float T = 0.f, comp = 0.f, pk = q.p_c, kf = q.kc;
+  for (int k = 0; k < p.K; ++k) nv_recur(T, comp, pk, kf, q.mu);
+  return T;
+}
+
+__device__ __forceinline__ NvPoisson nv_poisson_setup(const NvParams& p,
+                                                      const float* __restrict__ lgam,
+                                                      float mu) {
+  NvPoisson q = nv_poisson_anchor(p, lgam, mu);
+  q.total = nv_poisson_total(p, q);
+  return q;
+}
+
+// The thread's column of the table: S(k) at s[k * stride].
+struct NvTable {
+  float* s;
+  int stride;
+  int m;          // the first k with S(k+1) < S(k); K if there is none
+  float lo, hi;   // min and max of S over [m, K)
+};
+
+// nv_poisson_setup with the table: the same K steps, each pre-add sum
+// stored; sets q.total.
+__device__ __forceinline__ NvTable nv_table_setup(const NvParams& p, NvPoisson& q,
+                                                  float* col, int stride) {
+  NvTable t{col, stride, p.K, __int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+  float T = 0.f, comp = 0.f, pk = q.p_c, kf = q.kc;
+  for (int k = 0; k < p.K; ++k) {
+    const float s = T;
+    col[k * stride] = s;
+    nv_recur(T, comp, pk, kf, q.mu);
+    if (t.m == p.K && T < s) t.m = k;
+    if (t.m <= k) {
+      t.lo = fminf(t.lo, s);
+      t.hi = fmaxf(t.hi, s);
+    }
+  }
+  q.total = T;
+  return t;
+}
+
+// nv_poisson_invert's demands from the table. The lower bound on [0, m) is
+// the branchless one: its rounds depend on m alone, so the chunk's searches
+// run them together. A NaN threshold (a NaN mu makes total NaN) counts 0,
+// as the linear compare does.
+__device__ __forceinline__ void nv_table_invert(const NvParams& p, const NvPoisson& q,
+                                                const NvTable& t, const float* v,
+                                                float* d) {
+  int base[NV_CHUNK];
+#pragma unroll
+  for (int i = 0; i < NV_CHUNK; ++i) base[i] = 0;
+  for (int n = t.m; n > 1;) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int i = 0; i < NV_CHUNK; ++i)
+      base[i] = t.s[(base[i] + half) * t.stride] < v[i] ? base[i] + half : base[i];
+    n -= half;
+  }
+  const float top = __fadd_rn(q.kc, 1.f);
+#pragma unroll
+  for (int i = 0; i < NV_CHUNK; ++i) {
+    int cnt = t.m > 0 ? base[i] + (t.s[base[i] * t.stride] < v[i]) : 0;
+    if (v[i] > t.hi) {
+      cnt += p.K - t.m;
+    } else if (v[i] > t.lo) {
+      for (int k = t.m; k < p.K; ++k) cnt += t.s[k * t.stride] < v[i];
+    }
+    d[i] = max_nan(__fsub_rn(top, (float)cnt), 0.f);
+  }
+}
+
 // Demand d[i] = #{k : F(k) <= u_i} for the NV_CHUNK uniforms whose
-// thresholds v[i] = (1 - u_i) * total are given (_nv_poisson_invert).
+// thresholds v[i] = (1 - u_i) * total are given (_nv_poisson_invert), by
+// the linear count.
 __device__ __forceinline__ void nv_poisson_invert(const NvParams& p, const NvPoisson& q,
                                                   const float* v, float* d) {
   int cnt[NV_CHUNK];

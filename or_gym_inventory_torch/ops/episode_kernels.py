@@ -80,6 +80,7 @@ wide kernels (``_pack_wide_actor``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -98,6 +99,10 @@ from or_gym_inventory_torch.ops import rng
 # in to (227 KB)
 MAX_LAYERS, MAX_WIDTH, MAX_ACT = 8, 256, 32
 SMEM_OPTIN_BYTES = 232_448
+# an H100 SM's shared memory, the share the runtime reserves per resident
+# block, and the SM's limits on resident threads and blocks
+SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233_472, 1_024
+THREADS_PER_SM, BLOCKS_PER_SM = 2_048, 32
 # and of the InvManagement params struct (csrc/im_step.cuh)
 IM_MAX_M1, IM_MAX_LT = 8, 32
 # the trajectory kernels' heads (csrc/wide_mlp.cuh WideHead) and trunks
@@ -1052,10 +1057,10 @@ sample_policy_streams_debug_im.launches = 0
 # The (hidden, lanes) carry stays in the kernel (csrc/lstm.cuh).
 
 # maxima of the LSTM kernels (csrc/lstm.cuh): encoder layers, the hidden
-# width (a multiple of 4: a thread owns 4 units; at most 256 threads a
-# block), actions; the widths are bounded by the shared memory of a block
+# width (a multiple of 4, padded to the unit groups of 8 of the tensor-core
+# product; at most LSTM_MAX_GROUPS groups), actions; the widths are bounded
+# by the shared memory of a block
 LSTM_MAX_ENC, LSTM_MAX_HIDDEN, LSTM_MAX_ACT = 4, 128, 8
-_LSTM_LANES = 32   # kLstmLanes of csrc/lstm.cuh: the lanes a block runs
 
 
 def fold_lstm_actor(cfg, model, rms=None) -> dict:
@@ -1214,22 +1219,115 @@ class _Lstm(ctypes.Structure):
                 ("hidden", ctypes.c_int), ("act", ctypes.c_int),
                 ("w_enc", ctypes.c_int * LSTM_MAX_ENC), ("b_enc", ctypes.c_int * LSTM_MAX_ENC),
                 ("w_gate", ctypes.c_int), ("b_gate", ctypes.c_int), ("w_mean", ctypes.c_int),
-                ("b_mean", ctypes.c_int), ("std", ctypes.c_int), ("threads", ctypes.c_int),
-                ("s_h0", ctypes.c_int), ("s_h1", ctypes.c_int), ("s_e", ctypes.c_int),
+                ("b_mean", ctypes.c_int), ("std", ctypes.c_int), ("lanes", ctypes.c_int),
+                ("warps_m", ctypes.c_int), ("threads", ctypes.c_int), ("e_pad", ctypes.c_int),
+                ("h_pad", ctypes.c_int), ("k_steps", ctypes.c_int), ("stride", ctypes.c_int),
+                ("s_e", ctypes.c_int), ("s_h0", ctypes.c_int), ("s_h1", ctypes.c_int),
                 ("s_x0", ctypes.c_int), ("s_x1", ctypes.c_int), ("s_m", ctypes.c_int),
                 ("s_z", ctypes.c_int), ("s_total", ctypes.c_int),
                 ("half_hi", ctypes.c_float * LSTM_MAX_ACT)]
 
 
+@dataclasses.dataclass(frozen=True)
+class LstmPlan:
+    """A block's tile and shared-memory layout for the LSTM kernels:
+    ``lanes`` a block, ``warps_m`` warps along the units (lanes / 32
+    along the lanes), ``threads``; the gate product's inputs (``e_pad``:
+    the encoder's output padded to 16, or the obs to 8) and units (``h_pad``,
+    to 8) and its ``k_steps``; every
+    activation buffer [row][lane] with rows ``stride`` floats apart, at the
+    float offsets ``offsets`` (e, h0, h1, x0, x1, m, z), ``floats`` in all."""
+    lanes: int
+    warps_m: int
+    threads: int
+    e_pad: int
+    h_pad: int
+    k_steps: int
+    stride: int
+    offsets: dict
+    floats: int
+
+
+def _lstm_plan(dims, h: int, act_dim: int, tile) -> LstmPlan:
+    """The layout of tile ``(lanes, warps_m)`` for an actor of widths
+    ``dims`` [obs_dim, enc...] and hidden ``h``: E (the encoder's output,
+    or the obs rows without an encoder), H twice, the encoder's input and
+    ping-pong buffers, the means, and two buffers of the draws (each
+    ``act_dim`` rows of normals and a row of demand). A product's input rows
+    are padded to 8 (its k-steps) and an encoder layer's outputs to 16 (its
+    M-tiles); the padding rows stay zero."""
+    lanes, warps_m = tile
+    n_enc = len(dims) - 1
+    e_pad, h_pad = (_pad16(dims[-1]) if n_enc else _pad8(dims[0])), _pad8(h)
+    stride = lanes + 8   # B-fragment loads and the float2 stores hit 32 banks
+    x_rows = max([_pad8(dims[0])] + [_pad16(d) for d in dims[1:-1]]) if n_enc else 0
+    rows = {"e": e_pad, "h0": h_pad, "h1": h_pad, "x0": x_rows,
+            "x1": x_rows if n_enc > 1 else 0, "m": act_dim, "z": 2 * (act_dim + 1)}
+    offsets, at = {}, 0
+    for name, r in rows.items():
+        offsets[name] = at
+        at += r * stride
+    if not n_enc:
+        offsets["x0"] = offsets["e"]   # the obs rows are the gate input
+    return LstmPlan(lanes, warps_m, lanes * warps_m, e_pad, h_pad, (e_pad + h_pad) // 8,
+                    stride, offsets, at)
+
+
+def _mma_fragments(A) -> torch.Tensor:
+    """A (16 m, 8 k) as the A fragments of csrc/lstm.cuh's mma.sync
+    m16n8k8: per (M-tile, k-step, lane) the float4 {a0, a1, a2, a3} =
+    A[gid][tig], A[gid + 8][tig], A[gid][tig + 4], A[gid + 8][tig + 4] of
+    the tile's 16 x 8 block, gid = lane / 4, tig = lane % 4."""
+    m, k = A.shape[0] // 16, A.shape[1] // 8
+    # [mt][half][gid][ks][c4][tig] -> [mt][ks][gid][tig][c4][half]
+    T = A.reshape(m, 2, 8, k, 2, 4).permute(0, 3, 2, 5, 4, 1)
+    return T.reshape(-1)
+
+
+def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
+    """The gate weights [Wx | Wh] (4h, e + h), gate row blocks i, f, g, o,
+    as ``_mma_fragments``: zero-padded to (4, h_pad, e_pad + h_pad) (inputs
+    e..e_pad and units h..h_pad are 0), and unit group g (units 8g..8g+7)
+    the M-tiles 2g ([i; f], 16 rows) and 2g + 1 ([g; o])."""
+    h, e = wh.shape[1], wx.shape[1]
+    kp = e_pad + h_pad
+    W = torch.zeros((4, h_pad, kp), dtype=torch.float32, device=wx.device)
+    W[:, :h, :e] = wx.reshape(4, h, e)
+    W[:, :h, e_pad:e_pad + h] = wh.reshape(4, h, h)
+    # [s][half][ug][gid][k] -> [ug][s][half][gid][k]: M-tile 2 ug + s, row half * 8 + gid
+    rows = W.reshape(2, 2, h_pad // 8, 8, kp).permute(2, 0, 1, 3, 4)
+    return _mma_fragments(rows.reshape(-1, kp))
+
+
+def _encoder_fragments(W, b):
+    """An encoder layer's W (out, in) as ``_mma_fragments`` of its zero-padded
+    (pad16(out), pad8(in)) block, and b padded to pad16(out)."""
+    n_out, n_in = W.shape
+    Wp = torch.zeros((_pad16(n_out), _pad8(n_in)), dtype=torch.float32, device=W.device)
+    Wp[:n_out, :n_in] = W
+    bp = torch.zeros(_pad16(n_out), dtype=torch.float32, device=W.device)
+    bp[:n_out] = b.reshape(-1)
+    return _mma_fragments(Wp), bp
+
+
+# the float32 NaN the LSTM kernels' TF32 split keeps a NaN (csrc/lstm.cuh
+# split_tf32: rounding 0x7fffffff carries into the sign bit)
+_QUIET_NAN_BITS = 0x7FC00000
+# the tiles of the LSTM kernels (csrc/im_lstm.cu LSTM_TILES) the entry
+# points take, in order of preference: the first whose shared memory fits
+_LSTM_TILES = ((64, 4), (32, 8))
+
+
 def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     """The LSTM kernels' actor arguments: the Lstm struct and one flat
-    float32 buffer on ``device``. The buffer holds the gate weights as
-    (enc + h, h, 4), row k and unit j giving the four gates [i, f, g, o] of
-    unit j for input k (Wx's rows then Wh's), so that one 16-byte load
-    brings them; the gate biases (h, 4); each encoder layer's W (out, in)
-    and b; the mean head's W (act, h) and b; the std when given. The struct
-    carries their offsets, the block's thread count and its shared-memory
-    layout (floats, each buffer ``_LSTM_LANES`` columns wide). Raises
+    float32 buffer on ``device``. The buffer holds the gate weights as the
+    A fragments of the tensor-core product (``_gate_fragments``); the gate
+    biases (h_pad, 4), row j the four gates [i, f, g, o] of unit j; each
+    encoder layer's W and b, as fragments too (``_encoder_fragments``); the
+    mean head's W (act, h) and b; the std when given; every NaN as the
+    quiet NaN 0x7fc00000 (``_QUIET_NAN_BITS``). The struct carries
+    their offsets, the tile (the first of ``_LSTM_TILES`` whose layout fits
+    a block's shared memory) and the layout (``_lstm_plan``). Raises
     ValueError for an actor beyond the kernels' maxima or the shared memory
     of a block."""
     dims, h = _lstm_dims(actor, obs_dim, act_dim)
@@ -1239,10 +1337,16 @@ def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
                          f"kernels take at most {LSTM_MAX_ENC} encoder layers, a hidden width "
                          f"that is a multiple of 4 and <= {LSTM_MAX_HIDDEN}, and "
                          f"{LSTM_MAX_ACT} actions")
+    plans = [_lstm_plan(dims, h, act_dim, t) for t in _LSTM_TILES]
+    plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
+    if plan is None:
+        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: "
+                         f"{min(pl.floats for pl in plans) * 4} bytes of shared memory a "
+                         f"block; a block holds {SMEM_OPTIN_BYTES}")
     a = _lstm_on(actor, device)
-    e = dims[-1]
-    w_gate = torch.cat([a["wx"], a["wh"]], dim=1).reshape(4, h, e + h).permute(2, 1, 0)
-    parts = [w_gate.reshape(-1), a["bh"].reshape(4, h).T.reshape(-1)]
+    bias = torch.zeros((plan.h_pad, 4), dtype=torch.float32, device=device)
+    bias[:h] = a["bh"].reshape(4, h).T
+    parts = [_gate_fragments(a["wx"], a["wh"], plan.e_pad, plan.h_pad), bias.reshape(-1)]
     st = _Lstm(n_enc=n_enc, hidden=h, act=act_dim, w_gate=0, b_gate=parts[0].numel())
 
     def append(x) -> int:
@@ -1251,27 +1355,29 @@ def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
         return offset
 
     for layer, (W, b) in enumerate(a["enc"]):
-        st.w_enc[layer], st.b_enc[layer] = append(W), append(b)
+        frag, bias_l = _encoder_fragments(W, b)
+        st.w_enc[layer], st.b_enc[layer] = append(frag), append(bias_l)
     st.w_mean, st.b_mean = append(a["wm"]), append(a["bm"])
     st.std = -1 if std is None else append(std.to(device=device, dtype=torch.float32))
     for k, d in enumerate(dims):
         st.dims[k] = d
     for i, v in enumerate(half_hi):
         st.half_hi[i] = v
-    N = _LSTM_LANES
-    x_rows = max(dims[:-1]) if n_enc else dims[0]
-    st.s_h0, st.s_h1 = 0, h * N
-    st.s_x0 = 2 * h * N + (e * N if n_enc else 0)
-    st.s_e = 2 * h * N if n_enc else st.s_x0
-    st.s_x1 = st.s_x0 + x_rows * N
-    st.s_m = st.s_x1 + (x_rows * N if n_enc > 1 else 0)
-    st.s_z = st.s_m + act_dim * N
-    st.s_total = st.s_z + act_dim * N
-    st.threads = -(-max(h // 4 * (N // 4), N) // 32) * 32
-    if st.s_total * 4 > SMEM_OPTIN_BYTES:
-        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: {st.s_total * 4} bytes "
-                         f"of shared memory a block; a block holds {SMEM_OPTIN_BYTES}")
-    return st, torch.cat(parts).contiguous()
+    _set_lstm_tile(st, plan)
+    flat = torch.cat(parts)
+    # every NaN as the quiet NaN, which csrc/lstm.cuh split_tf32 keeps a NaN
+    quiet = torch.tensor(_QUIET_NAN_BITS, dtype=torch.int32).view(torch.float32).to(device)
+    return st, torch.where(torch.isnan(flat), quiet, flat).contiguous()
+
+
+def _set_lstm_tile(st: _Lstm, plan: LstmPlan) -> None:
+    """Write ``plan``'s tile and shared-memory layout into ``st`` (the
+    packed buffer does not depend on the tile)."""
+    for field in ("lanes", "warps_m", "threads", "e_pad", "h_pad", "k_steps", "stride"):
+        setattr(st, field, getattr(plan, field))
+    for name, offset in plan.offsets.items():
+        setattr(st, f"s_{name}", offset)
+    st.s_total = plan.floats
 
 
 def _im_lstm_args(params, actor, batch, device):
@@ -1314,8 +1420,9 @@ def episode_returns_im_lstm(params: im.InvManagementParams, actor, seed, batch: 
     (hidden, lanes) carry kept there. ``actor`` is the dict of
     ``fold_lstm_actor``. Demand is drawn by inverting the demand law's CDF
     table (USER mode reads ``user_D[t]``; a law beyond the table cap raises
-    NotImplementedError). K22: a block per 32 lanes (csrc/im_lstm.cu
-    ``k_im_lstm_returns``); on the CPU the plain version runs."""
+    NotImplementedError). K22: a block per 64 lanes, the gate product on
+    the tensor cores (csrc/im_lstm.cu ``k_im_lstm_returns``); on the CPU
+    the plain version runs."""
     return _im_lstm_call(episode_returns_im_lstm, params, actor, seed, batch, False,
                          device)[0]
 
@@ -1346,8 +1453,9 @@ def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, b
     batch)`` int32, ``raw (T, m1, batch)`` f32 pre-squash samples, ``reward
     (T, batch)`` f32 (alpha^t-discounted) and ``demand (T, batch)`` int32.
     It draws K10's stream, so its demand is K23's for the same seed. K24: a
-    block per 32 lanes (csrc/im_lstm.cu ``k_im_lstm_traj``); on the CPU the
-    plain version runs."""
+    block per 64 lanes, the gate product on the tensor cores
+    (csrc/im_lstm.cu ``k_im_lstm_traj``); on the CPU the plain version
+    runs."""
     dev, obs_dim = _im_lstm_args(params, actor, batch, device)
     seed = int(seed) & rng.MASK32
     std = clipped_std(torch.as_tensor(log_std).detach())
@@ -1499,24 +1607,74 @@ _nv_econ_from_uniforms = nv.econ_from_uniforms
 class _NvParams(ctypes.Structure):
     """Mirror of ``struct NvParams`` in csrc/nv_step.cuh (all fields 4-byte,
     so both sides lay it out without padding)."""
-    _fields_ = [("L", ctypes.c_int), ("K", ctypes.c_int), ("kc_max", ctypes.c_int),
+    _fields_ = [("L", ctypes.c_int), ("K", ctypes.c_int), ("threads", ctypes.c_int),
+                ("table", ctypes.c_int), ("kc_max", ctypes.c_int),
                 ("wb", ctypes.c_float), ("max_inv", ctypes.c_float),
                 ("max_order", ctypes.c_float), ("p_max", ctypes.c_float),
                 ("h_max", ctypes.c_float), ("k_max", ctypes.c_float),
                 ("mu_max", ctypes.c_float)]
 
 
+@dataclasses.dataclass(frozen=True)
+class NvTablePlan:
+    """K14-K17's launch: ``threads`` a block, ``bytes`` of dynamic shared
+    memory a block (the [k][thread] table of the K suffix sums), resident
+    ``blocks_per_sm``; ``table`` False picks the linear count instead."""
+    threads: int
+    bytes: int
+    blocks_per_sm: int
+    table: bool
+
+
+# a block of 256 threads launches at any register count (65,536 / 256)
+_NV_TABLE_MAX_THREADS = 256
+# registers a thread of K13-K17: the most ptxas -v reports for an instance
+# of k_nv_episodes (80-96 on sm_90a); an SM's 65,536 registers go to warps
+# in whole allocations of 32 x this (a multiple of 8)
+_NV_TABLE_REGS = 96
+REGS_PER_SM = 65_536
+
+
+def _nv_table_plan(K: int) -> NvTablePlan:
+    """The block size, among multiples of 32 up to 256, at which an SM holds
+    the most threads with a table of ``K`` floats a thread (the smallest
+    such block, for the fullest last wave), counting the SM's shared
+    memory, registers (``_NV_TABLE_REGS`` a thread), threads and blocks;
+    for a K whose table a block of 32 cannot hold (K > 1,816: mu_max >
+    ~24,500), the linear count at ``_POLICY_THREADS`` (csrc/launch.cuh
+    kThreads) with no table."""
+    per_thread = 4 * K
+    warps_by_regs = REGS_PER_SM // (32 * _NV_TABLE_REGS)
+    if 32 * per_thread > SMEM_OPTIN_BYTES:
+        blocks = min(warps_by_regs // (_POLICY_THREADS // 32),
+                     THREADS_PER_SM // _POLICY_THREADS, BLOCKS_PER_SM)
+        return NvTablePlan(_POLICY_THREADS, 0, blocks, False)
+    best = None
+    for threads in range(32, _NV_TABLE_MAX_THREADS + 1, 32):
+        nbytes = per_thread * threads
+        if nbytes > SMEM_OPTIN_BYTES:
+            break
+        blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED),
+                     warps_by_regs // (threads // 32), THREADS_PER_SM // threads,
+                     BLOCKS_PER_SM)
+        if best is None or blocks * threads > best.blocks_per_sm * best.threads:
+            best = NvTablePlan(threads, nbytes, blocks, True)
+    return best
+
+
 @functools.lru_cache(maxsize=32)
 def _nv_plan(params: nv.NewsvendorParams, device: str):
     """A launch's host-built arguments, built once per (params, device): the
-    params struct, the f32 gamma^t table (as a list and on ``device``) and
+    params struct (with K14-K17's ``_nv_table_plan``), the f32 gamma^t table (as a list and on ``device``) and
     the lgamma pairs on ``device``. Raises ValueError for a lead time beyond
     the ring's depth."""
     if params.lead_time > NV_MAX_L:
         raise ValueError(f"lead_time={params.lead_time}: the CUDA kernels' pipeline "
                          f"ring holds at most {NV_MAX_L}")
     Wb, K, lgam = _nv_window(params)
-    st = _NvParams(L=params.lead_time, K=K, kc_max=len(lgam) - 1, wb=float(Wb),
+    launch = _nv_table_plan(K)
+    st = _NvParams(L=params.lead_time, K=K, threads=launch.threads, table=int(launch.table),
+                   kc_max=len(lgam) - 1, wb=float(Wb),
                    max_inv=params.max_inventory, max_order=params.max_order_quantity,
                    p_max=params.p_max, h_max=params.h_max, k_max=params.k_max,
                    mu_max=params.mu_max)
@@ -1690,7 +1848,8 @@ def episode_returns_nv_fused(params: nv.NewsvendorParams, econ: torch.Tensor, se
     Poisson(mu) demand drawn in the kernel, for the economics ``econ``
     (5, B) of ``nv.draw_econ``-style resets. K14: one thread per lane
     (csrc/nv_episode.cu ``k_nv_episodes``); the demand inverts the CDF by
-    ``_nv_poisson_setup``/``_nv_poisson_invert``'s recurrence. It draws
+    ``_nv_poisson_setup``/``_nv_poisson_invert``'s recurrence, run once per
+    episode into a shared-memory table that each period searches. It draws
     ``episode_returns_nv_reset_fused``'s action and demand words of episode
     0."""
     return _nv_fused_call(episode_returns_nv_fused, params, seed, None, 1, None, econ,
@@ -1717,7 +1876,8 @@ def episode_returns_nv_reset_fused(params: nv.NewsvendorParams, seed, batch: int
     """Random-policy Newsvendor episode returns with the reset fused too: the
     economics, the orders and the per-lane Poisson(mu) demand are all drawn
     in the kernel, gamma^t-discounted. K16: one thread per (episode, lane)
-    (csrc/nv_episode.cu ``k_nv_episodes``). Returns (batch,) for
+    (csrc/nv_episode.cu ``k_nv_episodes``, the Poisson table in shared
+    memory, the block sized by ``_nv_table_plan``). Returns (batch,) for
     episodes_per_lane=1, else (episodes_per_lane, batch), episode-major.
     This is ``vector.fast_episodes.random_episode_returns``' Newsvendor
     path."""

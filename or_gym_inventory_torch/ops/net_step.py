@@ -52,7 +52,8 @@ MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
 # K2 and K26 keep each thread's state in dynamic shared memory. An H100 gives
 # a block at most 227 KB of it and an SM 228 KB, of which it keeps 1 KB for
 # each resident block; an SM holds at most 2,048 threads and 32 blocks.
-SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 232_448, 233_472, 1_024
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = (
+    ek.SMEM_OPTIN_BYTES, ek.SMEM_PER_SM, ek.SMEM_PER_BLOCK_RESERVED)
 # threads a block of every kernel (csrc/launch.cuh kThreads)
 THREADS = 128
 

@@ -320,8 +320,12 @@ def test_lstm_wrappers_check_inputs_and_count_no_launches_on_cpu():
         tek._pack_lstm_actor(odd, None, 33, 3, tek._half_c(tp), cpu)
     assert tek.episode_returns_im_lstm(tp, odd, 1, 4, device=CPU).shape == (4,)
     st, flat = tek._pack_lstm_actor(actor, tek.clipped_std(LOG_STD), 33, 3, tek._half_c(tp), cpu)
-    assert flat.numel() == (8 + 16) * 16 * 4 + 16 * 4 + 8 * 33 + 8 + 3 * 16 + 3 + 3
-    assert (st.threads, st.s_total) == (32, (2 * 16 + 8 + 33 + 2 * 3) * 32)
+    # the gates' and the encoder's weights as tensor-core fragments, zero-padded:
+    # gates (4 x 16, 16 + 16), encoder (16, 40) and its bias 16
+    assert flat.numel() == (16 + 16) * 16 * 4 + 16 * 4 + 16 * 40 + 16 + 3 * 16 + 3 + 3
+    # a block of 64 lanes, 8 warps; rows of 64 + 8 floats: E 16, H 2 x 16, obs
+    # 40, means 3, the draws' two buffers of 3 normals and the demand
+    assert (st.lanes, st.threads, st.s_total) == (64, 256, (16 + 2 * 16 + 40 + 3 + 8) * 72)
 
 
 # ------------------------------------------------------------ on the card

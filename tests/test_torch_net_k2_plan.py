@@ -72,7 +72,8 @@ def test_shared_layout_mirrors_the_plan(graph):
 
 def _c_struct_fields(header: str, struct: str):
     """[(name, element type, length)] of ``struct`` in csrc/``header``, the
-    array lengths resolved from the header's #defines (1 for a scalar)."""
+    array lengths resolved from the header's #defines, plus a constant where
+    one is added (1 for a scalar)."""
     text = (CSRC / header).read_text()
     defines = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", text)}
     body = re.search(r"struct %s \{(.*?)\n\};" % struct, text, re.S).group(1)
@@ -84,8 +85,9 @@ def _c_struct_fields(header: str, struct: str):
             continue
         ctype, rest = decl.split(None, 1)
         for item in rest.split(","):
-            m = re.fullmatch(r"(\w+)(?:\[(\w+)\])?", item.strip())
-            fields.append((m.group(1), ctype, defines.get(m.group(2), 1) if m.group(2) else 1))
+            m = re.fullmatch(r"(\w+)(?:\[(\w+)(?: \+ (\d+))?\])?", item.strip())
+            length = defines[m.group(2)] + int(m.group(3) or 0) if m.group(2) else 1
+            fields.append((m.group(1), ctype, length))
     return fields
 
 
