@@ -67,10 +67,12 @@ Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
 (at the main path's shapes, with a seeded actor whose obs statistics are
 folded into layer 1), which also holds the NaN propagation of the shared
-step, K7-K9 in phase 10 for all five demand modes in backlog and lost
-sales, and K10 in phase 12 (with the env step chain on its streams and a
+step and K5/K6 on a ragged batch (1,000 x 3) and with a NaN weight, K7-K9
+in phase 10 for all five demand modes in backlog and lost sales, and K10
+in phase 12 (with the env step chain on its streams and a
 NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
-K12's streams and K10 against the stochastic episode 0), and K13-K17 in
+K12's streams and K10 against the stochastic episode 0, a ragged batch and
+a NaN weight), and K13-K17 in
 phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
 0.99, mu_max 200 and 3, with the chain K16 = K14 = K13 _random = K13 on
 K17's streams and a NaN lane; and K16/K17 at mu_max 30,000, whose Poisson
@@ -94,7 +96,11 @@ K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
 (phase 25). Phase 2 prints each kernel's registers and stack frame from
 ``ptxas -v``, and the local-memory loads and stores (LDL/STL) in the SASS
-of net_episode.cu's kernels. Then it times the vecenv rollout (phase 5),
+of net_episode.cu's kernels; it fails unless K5/K6's deterministic
+instances (the state in shared memory) have none (the stochastic ones keep
+only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
+hold tensor-core (HMMA) instructions and spill nothing. Then it times the
+vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
 and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
@@ -107,9 +113,10 @@ beat the random policy's (phase 29), then K25-K29 (K27-K29 also at the
 learners' 1,024 lanes) and one TD3 iteration split into the kernel,
 ``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
 for the search it runs (``nv_draw_ops``), with the first version's linear
-count's beside it; K22-K24's with the gate and encoder products as the
-three TF32 products on the tensor cores (``lstm_bound``), with the
-all-FP32 count's beside it.
+count's beside it; K5/K6, K11/K12 and K22-K24's with their tensor-core
+products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate and encoder
+products, ``lstm_tc_flops``) as three TF32 products on the tensor cores
+(``tc_bound``), with the all-FP32 count's beside it.
 Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
@@ -576,12 +583,20 @@ def bound(n_bytes, n_ops, n_tf32=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lstm_bound(n_bytes, n, ops, tc_flops):
-    """K22-K24's bound for ``n`` env-steps of ``ops`` operations each:
-    (the smaller of the two counts (ms, by), the FP32 count's ms): every
-    operation at FP32, or the ``tc_flops`` of them that the kernel runs on
-    the tensor cores (``lstm_tc_flops``) as three TF32 products each and the
-    rest at FP32."""
+def mlp_tc_flops(dims):
+    """FLOPs of one forward pass that csrc/mlp_tile.cuh runs on the tensor
+    cores (K5/K6, K11/K12): 2 in out per layer at the unpadded widths (the
+    bias adds and tanh stay on the FP32 cores)."""
+    return sum(2 * a * b for a, b in zip(dims, dims[1:]))
+
+
+def tc_bound(n_bytes, n, ops, tc_flops):
+    """The bound of a tensor-core kernel (K5/K6, K11/K12, K22-K24) for
+    ``n`` env-steps of ``ops`` operations each: (the smaller of the two
+    counts (ms, by), the FP32 count's ms): every operation at FP32, or the
+    ``tc_flops`` of them that the kernel runs on the tensor cores
+    (``mlp_tc_flops``, ``lstm_tc_flops``) as three TF32 products each and
+    the rest at FP32."""
     fp32 = bound(n_bytes, n * ops)
     tc = bound(n_bytes, n * (ops - tc_flops), 3 * n * tc_flops)
     return min(fp32, tc), fp32[0]
@@ -658,10 +673,11 @@ def ptxas_entries(out):
     return "; ".join(rows)
 
 
-def sass_local_counts(so_path):
-    """{kernel: (LDL, STL)}: the local-memory loads and stores in the SASS of
-    each kernel of one built library, from ``cuobjdump -sass``; None where
-    the toolkit has no cuobjdump."""
+def sass_counts(so_path):
+    """{kernel: (LDL, STL, HMMA)}: the local-memory loads and stores and the
+    tensor-core instructions in the SASS of each kernel of one built
+    library, from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
     import pathlib
 
     from or_gym_inventory_torch.ops import _build
@@ -674,13 +690,48 @@ def sass_local_counts(so_path):
     for ln in out.splitlines():
         m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:L[bi]\d+E)+E)?E", ln)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-            counts[name] = [0, 0]
-        elif name and re.search(r"\bLDL\b", ln):
-            counts[name][0] += 1
-        elif name and re.search(r"\bSTL\b", ln):
-            counts[name][1] += 1
+            flags = ",".join(re.findall(r"L[bi](\d+)", m.group(2) or ""))
+            name = m.group(1) + (f"<{flags}>" if flags else "")
+            counts[name] = [0, 0, 0]
+        elif name:
+            for k, op in enumerate(("LDL", "STL", "HMMA")):
+                if re.search(r"\b%s\b" % op, ln):
+                    counts[name][k] += 1
     return {k: tuple(v) for k, v in counts.items()}
+
+
+def tile_sass_check(logs):
+    """Phase 2's check of the tile kernels: every instance of K5/K6
+    (net_policy.cu ``k_policy_returns<STOCH,DUMP>``) and of K11/K12
+    (im_policy.cu ``k_im_policy_returns``) holds HMMA instructions and
+    spills nothing (ptxas, where this run built the library);
+    K5/K6's deterministic instances have no local-memory load or store. Their stochastic instances may keep the
+    32-byte frame of cosf's Payne-Hanek reduction (CUDA's library, for
+    |x| > 105,615; the normals' argument 2 pi u stays below 2 pi, so it is
+    never run), at most 8 LDL/STL. Returns the line to print; raises on a
+    miss."""
+    from or_gym_inventory_torch.ops import _build
+    parts = []
+    for src, kernel in (("net_policy", "k_policy_returns"), ("im_policy", "k_im_policy_returns")):
+        counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
+        if counts is None:
+            raise AssertionError("cuobjdump not found: the tile kernels' SASS cannot be read")
+        mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+        log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
+        ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
+        if not mine or any(h == 0 for _, _, h in mine.values()) or any("spills" in e for e in ptx):
+            raise AssertionError(f"{kernel}: instances without HMMA or with spills {mine} {ptx}")
+        if src == "net_policy":
+            for name, (ld, st, _) in mine.items():
+                stoch = name.startswith(kernel + "<1")
+                frame = next((e for e in ptx if e.startswith(name + " ")), "0 B stack")
+                stack = int(re.search(r"(\d+) B stack", frame).group(1))
+                if ld + st > (8 if stoch else 0) or stack > (32 if stoch else 0):
+                    raise AssertionError(f"{name}: {ld} LDL / {st} STL, {frame}")
+        parts.append(f"{src}.cu {kernel} (LDL/STL/HMMA) " + ", ".join(
+            f"{k} {ld}/{st}/{h}" for k, (ld, st, h) in sorted(mine.items()))
+            + "; ptxas " + "; ".join(ptx))
+    return "; ".join(parts)
 
 
 def k2_graph_check(dev):
@@ -936,8 +987,66 @@ def policy_cross_check(params, dev, actor, log_std):
         lines.append(f"K5/K6 {kind}, {B} x {E}: K6 demand bit-exact, K1 replays "
                      f"K6's streams, {share:.4%} of lanes agree with plain K5")
         del k5, k6, a6, d6, want, want_d, replay
+    lines += tile_edge_cases("net", params, dev, actor, log_std)
     torch.cuda.synchronize()
     return err, plain_ms, lines
+
+
+RAGGED = (1_000, 3)   # B x E of the tile kernels' ragged launch: no multiple of a warp
+
+
+def nan_weight_actor(actor, layer=1):
+    """``actor`` with W[5, 1] of ``layer`` set to the canonical NaN
+    0x7fffffff (what CUDA's arithmetic produces; the wrappers write it as the
+    quiet NaN the TF32 split keeps)."""
+    import torch
+    Ws = [W.clone() for W in actor[0]]
+    Ws[layer][5, 1] = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32)[0]
+    return tuple(Ws), actor[1]
+
+
+def tile_edge_cases(family, params, dev, actor, log_std):
+    """K5/K6 (``family`` "net") or K11/K12 ("im") on the tile's edges, each
+    against its plain version: a ragged batch (``RAGGED``), deterministic
+    and stochastic, by the share of lanes; and a NaN weight in the hidden
+    layer 1, whose NaN raws reach every action: K5's actions all NaN as
+    the plain version's, K11's all 0 (the cast of a NaN) as its, the
+    demand bit for bit. Returns the lines to print."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    if family == "net":
+        run, plain, label = ns.sample_policy_streams_debug_net, ns._policy_returns_plain, "K5/K6"
+    else:
+        run, plain, label = ek.sample_policy_streams_debug_im, ek._im_policy_plain, "K11/K12"
+    b, e = RAGGED
+    lines = []
+    for ls in (None, log_std):
+        kind = "deterministic" if ls is None else "stochastic"
+        ret, acts, dems = run(params, actor, SEED, b, e, ls, dev)
+        want, want_a, want_d = plain(params, actor, None if ls is None else ek.clipped_std(ls),
+                                     SEED, b, e, dev, True)
+        exact(f"{label} ragged demand, {kind}", dems, want_d)
+        share, _ = lane_share(f"{label} ragged {b} x {e}, {kind}", ret, want)
+        share_a, _ = lane_share(f"{label} ragged actions, {kind}",
+                                acts.transpose(1, 2).reshape(-1, e * b),
+                                want_a.transpose(1, 2).reshape(-1, e * b))
+        lines.append(f"{label} ragged {b} x {e} ({b * e % 64} pairs in the last tile), {kind}: "
+                     f"demand bit-exact, lanes agreeing with plain {share:.4%} (returns), "
+                     f"{share_a:.4%} (actions)")
+    bad = nan_weight_actor(actor)
+    ret, acts, dems = run(params, bad, SEED, 4_096, 2, None, dev)
+    want, want_a, want_d = plain(params, bad, None, SEED, 4_096, 2, dev, True)
+    exact(f"{label} NaN weight demand", dems, want_d)
+    if family == "net":
+        if not (torch.isnan(acts).all() and torch.isnan(want_a).all()):
+            raise AssertionError(f"{label} NaN weight: actions not all NaN")
+    elif not (int(acts.abs().max()) == 0 and torch.equal(acts, want_a)):
+        raise AssertionError(f"{label} NaN weight: actions not the plain version's zeros")
+    lines.append(f"{label} NaN weight (0x7fffffff in layer 1): NaN raws, actions "
+                 f"{'NaN' if family == 'net' else '0'} as the plain version's, demand bit-exact")
+    return lines
 
 
 def ppo_main_path(env, params, dev, smi, label, kernel, num_steps=NUM_STEPS):
@@ -1325,6 +1434,7 @@ def im_eval_cross_check(dev, params, actor, log_std):
             exact("stochastic K11 episode 0 demand vs K10", d12[:, 0], tr["demand"])
             del tr
         del k11, r12, a12, d12, want, want_a, want_d, replay
+    lines += tile_edge_cases("im", params, dev, actor, log_std)
     torch.cuda.synchronize()
     return err, plain_ms, lines
 
@@ -2617,7 +2727,7 @@ def main() -> int:
           + "; ".join(new_entries), flush=True)
     net_so = str(_build._target(_build.CSRC / "net_episode.cu"))
     net_log = next((out for so, out in logs.items() if "libnet_episode" in so), "")
-    local = sass_local_counts(net_so)
+    local = sass_counts(net_so)
     k2_plan, _ = ns._shared_layout(net.default_params(num_periods=NUM_STEPS).topology)
     print("[2 build] K2 and K26 (net_episode.cu, the state in shared memory): "
           + "; ".join(e for e in ptxas_entries(net_log).split("; ")
@@ -2626,7 +2736,9 @@ def main() -> int:
           f"{k2_plan.threads} threads, {k2_plan.blocks_per_sm} blocks an SM) on the default "
           "graph; SASS LDL/STL per kernel of net_episode.cu: "
           + ("cuobjdump not found" if local is None else
-             ", ".join(f"{k} {ld}/{st}" for k, (ld, st) in sorted(local.items()))), flush=True)
+             ", ".join(f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(local.items()))), flush=True)
+    print("[2 build] K5/K6 and K11/K12 on the tensor-core tile (mlp_tile.cuh): "
+          + tile_sass_check(logs), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -2763,12 +2875,15 @@ def main() -> int:
         "rollout_traj_net": bound(
             PPO_ENVS * k4_rows * 4,
             PPO_ENVS * NUM_STEPS * (step_all + policy_draw_ops(T, specs, True))),
-        "episode_returns_net_policy": bound(
-            PPO_ENVS * E * 4, n_eval * (step_all + policy_draw_ops(T, specs, False))),
-        "sample_policy_streams_debug_net": bound(
-            PPO_ENVS * E * (1 + NUM_STEPS * words) * 4,
-            n_eval * (step_all + policy_draw_ops(T, specs, False))),
     })
+    k5_ops = step_all + policy_draw_ops(T, specs, False)
+    tile_bounds = {
+        "episode_returns_net_policy": tc_bound(PPO_ENVS * E * 4, n_eval, k5_ops,
+                                               mlp_tc_flops(dims)),
+        "sample_policy_streams_debug_net": tc_bound(PPO_ENVS * E * (1 + NUM_STEPS * words) * 4,
+                                                    n_eval, k5_ops, mlp_tc_flops(dims)),
+    }
+    work.update({name: b for name, (b, _) in tile_bounds.items()})
     times.update({name: (t, {"best_ms": policy_plain_ms[name]}) for name, t in (
         ("rollout_traj_net", k4_t), ("episode_returns_net_policy", k5_t),
         ("sample_policy_streams_debug_net", k6_t))})
@@ -2777,6 +2892,11 @@ def main() -> int:
           f"{policy_draw_ops(T, specs, False)} (deterministic) ops", flush=True)
     for name in POLICY_KERNELS:
         print_kernel(9, name, times[name], work[name], launches[name])
+        if name in tile_bounds:
+            fp32_ms = tile_bounds[name][1]
+            print(f"[9 kernel] {name}: the MLP's {mlp_tc_flops(dims)} FLOPs an env-step as "
+                  f"three TF32 products; bound with every operation at FP32 {fp32_ms:.4f} ms "
+                  f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     print(f"[9 kernel] episode_returns_net_policy, stochastic: {k5s_t['best_ms']:.4f} ms "
           f"(mean {k5s_t['mean_ms']:.4f}); rollout_traj_net is "
           f"{k4_t['best_ms'] / best_update_ms:.1%} of the best PPO update "
@@ -2986,10 +3106,14 @@ def main() -> int:
     nv_draw_reset = nv_draw_ops(nv_p, True)
     nv_draw_linear = nv_draw_ops(nv_p, True, table=False)
     k16_linear_bound = bound(nv_envs * 4, nv_envs * nv_T * (nv_step + nv_draw_linear))
+    tile_bounds = {
+        "episode_returns_im_policy": tc_bound(PPO_ENVS * E * 4, n_eval, k11_ops,
+                                              mlp_tc_flops(im_dims)),
+        "sample_policy_streams_debug_im": tc_bound(PPO_ENVS * E * (1 + T * (m1 + 1)) * 4,
+                                                   n_eval, k11_ops, mlp_tc_flops(im_dims)),
+    }
+    work.update({name: b for name, (b, _) in tile_bounds.items()})
     work.update({
-        "episode_returns_im_policy": bound(PPO_ENVS * E * 4, n_eval * k11_ops),
-        "sample_policy_streams_debug_im": bound(
-            PPO_ENVS * E * (1 + T * (m1 + 1)) * 4, n_eval * k11_ops),
         "episode_returns_nv": bound(CHECK_LANES * (5 + 2 * nv_T + 1) * 4,
                                     CHECK_LANES * nv_T * nv_step),
         "episode_returns_nv_fused": bound(CHECK_LANES * (5 + 1) * 4,
@@ -3021,6 +3145,11 @@ def main() -> int:
           f"{CHECK_LANES} x {MAIN_EPISODES}", flush=True)
     for name in IM_EVAL_KERNELS + NV_KERNELS:
         print_kernel(20, name, times[name], work[name], launches[name])
+        if name in tile_bounds:
+            fp32_ms = tile_bounds[name][1]
+            print(f"[20 kernel] {name}: the MLP's {mlp_tc_flops(im_dims)} FLOPs an env-step as "
+                  f"three TF32 products; bound with every operation at FP32 {fp32_ms:.4f} ms "
+                  f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     print(f"[20 kernel] episode_returns_im_policy, stochastic: {k11s_t['best_ms']:.4f} ms "
           f"(mean {k11s_t['mean_ms']:.4f})", flush=True)
     nv_summary = {"random_ms": nv_t["best_ms"],
@@ -3182,10 +3311,10 @@ def main() -> int:
     det_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len, stochastic=False)
     sto_ops = cell_ops + im_policy_draw_ops(lstm_p, table_len)
     lstm_bounds = {
-        "episode_returns_im_lstm": lstm_bound(n22 * 4, n22 * T, det_ops, tc_flops),
-        "sample_lstm_streams_debug_im": lstm_bound(n22 * (1 + T * (m1 + 1)) * 4, n22 * T,
+        "episode_returns_im_lstm": tc_bound(n22 * 4, n22 * T, det_ops, tc_flops),
+        "sample_lstm_streams_debug_im": tc_bound(n22 * (1 + T * (m1 + 1)) * 4, n22 * T,
                                                    det_ops, tc_flops),
-        "rollout_traj_im_lstm": lstm_bound(
+        "rollout_traj_im_lstm": tc_bound(
             PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4, PPO_ENVS * T, sto_ops,
             tc_flops),
     }

@@ -70,23 +70,6 @@ __device__ __forceinline__ int lane_draws(const ImParams& p, const float* __rest
   return d;
 }
 
-// The lane's observation column in x0 (rows S floats apart), in the order
-// of _im_obs_rows:
-// on-hand, then the requested orders of periods max(t - lt, 0) .. t-1
-// oldest first, one row per (period, stage), zero rows at the end while
-// t < lt. ``ah`` is the ring of requested orders (slot q % lt).
-__device__ __forceinline__ void lane_obs(const ImParams& p, const ImEpisode& s, int t,
-                                         const int* ah, float* x0, int S) {
-  const int m1 = p.m1, lt = p.lt;
-  for (int i = 0; i < m1; ++i) x0[i * S] = (float)s.inv[i];
-  const int q0 = max(t - lt, 0);
-  for (int j = 0; j < lt; ++j) {
-    const int q = q0 + j;
-    for (int i = 0; i < m1; ++i)
-      x0[(m1 + j * m1 + i) * S] = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
-  }
-}
-
 // Threads LANES..2 LANES-1 draw period t for the block's lanes 0..LANES-1
 // (lane0 is the block's first): the demand (an int in the last row) and,
 // when stochastic, the m1 normals (the rows before it) of buffer t & 1 of

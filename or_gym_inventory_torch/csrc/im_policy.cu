@@ -24,16 +24,30 @@
 //    lanes' envs, as in K24. Bound by operations: the (256, 256) actor's
 //    ~1.5e5 per env-step.
 //
-// Design (a simple kernel first): one thread per lane (K10) or per
-// (episode, lane) (K11/K12); the step is im_step.cuh's, the actor mlp.cuh's
-// (weights and activations in shared memory: 7,379 floats of weights for the
-// default 33-64-64-3 actor and 64 KB of activations at 128 threads). The
-// observation is assembled from the live state in the order of _im_obs_rows:
-// on-hand, then the requested orders of periods max(t - lt, 0) .. t-1 oldest
-// first, one row per (period, stage), zero rows at the end while t < lt. The
-// requested orders live in a ring of depth lt per stage (slot p % lt), in
-// local memory. Bound by operations: the MLP's ~12,800 per env-step dwarf
-// the step and the draws.
+// K10's design (a simple kernel first): one thread per lane; the step is
+// im_step.cuh's, the actor mlp.cuh's (weights and activations in shared
+// memory: 7,379 floats of weights for the default 33-64-64-3 actor and 64
+// KB of activations at 128 threads). The observation is assembled from the
+// live state in the order of _im_obs_rows: on-hand, then the requested
+// orders of periods max(t - lt, 0) .. t-1 oldest first, one row per
+// (period, stage), zero rows at the end while t < lt. The requested orders
+// live in a ring of depth lt per stage (slot p % lt), in local memory.
+// Bound by operations: the MLP's ~12,800 per env-step dwarf the step and
+// the draws.
+//
+// K11/K12's design: a block per tile of (episode, lane) pairs, one thread
+// each (mlp_tile.cuh). The first version ran K10's design with E episodes
+// per lane: 45.50 ms at 65,536 x 16 x 30 on an H100 (PERF.md), its MLP on
+// the FP32 cores at ~9 TFLOP/s. Now, per period, each thread writes its
+// obs column; its warp runs the actor for its 32 pairs on the tensor cores
+// in 3xTF32; then the thread draws its pair's demand (a register) and,
+// when stochastic, its normals (the transient rows of its column), takes
+// its actions and steps. The InvManagement step stays on K10's per-thread frame
+// (ImEpisode and the ring of requested orders, local memory): K8 steps
+// 31 M env-steps from such a frame in ~0.9 ms. Bound by operations: the
+// products, 2 sum(in out) FLOPs an env-step, as three TF32 products each.
+// The batch tail is masked: a warp past it returns, a pair past it
+// computes (its warp's products need every thread) but writes nothing.
 //
 // Random stream (philox.cuh): key (seed, 1), counter (lane, episode, period,
 // block); per period one demand word, then, when stochastic, the m1 u1 and
@@ -58,6 +72,7 @@
 #include "im_step.cuh"
 #include "launch.cuh"
 #include "mlp.cuh"
+#include "mlp_tile.cuh"
 #include "philox.cuh"
 #include "wide_mlp.cuh"
 
@@ -148,69 +163,73 @@ __global__ void k_im_rollout_traj(const __grid_constant__ ImParams p,
 
 template <bool STOCH, bool DUMP, bool BACKLOG>
 __global__ void k_im_policy_returns(const __grid_constant__ ImParams p,
-                                    const __grid_constant__ Mlp m,
-                                    const float* __restrict__ params, int n_params,
+                                    const __grid_constant__ MlpTile m,
+                                    const float* __restrict__ w,
                                     const float* __restrict__ table,
                                     const int* __restrict__ user_d,
                                     const float* __restrict__ disc,
                                     float* __restrict__ out, int* __restrict__ acto,
                                     int* __restrict__ demo, unsigned seed,
                                     long long B, int E, int T) {
-  float *h0, *h1;
-  const float* sw = load_params(m, params, n_params, h0, h1);
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= B * E) return;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = threadIdx.x, S = m.stride;
+  const long long pair0 = (long long)blockIdx.x * m.lanes, idx = pair0 + n;
+  if (pair0 + (n & ~31) >= B * E) return;  // the warp's pairs all lie past the batch
+  const bool live = idx < B * E;
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
-  const int m1 = p.m1;
-  const float* stdv = sw + n_params - m1;
+  const int m1 = p.m1, obs_pad = (m.dims[0] + 7) & ~7;
+  float* x = smem + m.s_x0 + n;
+  float* z = smem + m.s_z + n;
   ImEpisode s;
   im_reset(p, s);
-  int ah[IM_MAX_LT * IM_MAX_M1];
+  int ah[IM_MAX_LT * IM_MAX_M1];  // requested order of period q: slot q % lt
   int act[IM_MAX_M1];
-  float raw[IM_MAX_M1];
   float total = 0.f;
   for (int t = 0; t < T; ++t) {
-    const int d = policy_period<STOCH>(p, m, sw, stdv, table, user_d, seed, lane, e, t,
-                                       s, ah, h0, h1, raw, act);
-    if (DUMP) {
-      const long long row = (long long)t * E + e;  // (T, E, m1, B) and (T, E, B)
-      for (int i = 0; i < m1; ++i) acto[(row * m1 + i) * B + lane] = act[i];
-      demo[row * B + lane] = d;
+    lane_obs(p, s, t, ah, x, S);  // the obs rows, then zero rows up to pad8
+    for (int k = m1 * (p.lt + 1); k < obs_pad; ++k) x[k * S] = 0.f;
+    __syncwarp();
+    const float* H = mlp_tile_forward(m, w, smem) + n;
+    WordStream ws(seed, 1u, lane, e, (unsigned)t);  // the obs does not depend on the draws
+    const int d = im_demand(p, table, user_d, t, ws.next());
+    if (STOCH) {  // the normals into the transient rows
+      unsigned* u1 = reinterpret_cast<unsigned*>(z);
+      for (int i = 0; i < m1; ++i) u1[i * S] = ws.next();
+      for (int i = 0; i < m1; ++i) z[i * S] = normal01(u1[i * S], ws.next());
     }
+    const long long row = (long long)t * E + e;  // (T, E, m1, B) and (T, E, B)
+    for (int i = 0; i < m1; ++i) {
+      float v = H[i * S];
+      if (STOCH) v = __fadd_rn(v, __fmul_rn(__ldg(w + m.std + i), z[i * S]));
+      act[i] = (int)__fmul_rn(__fadd_rn(tanhf(v), 1.f), m.half_hi[i]);
+      if (DUMP && live) acto[(row * m1 + i) * B + lane] = act[i];
+    }
+    if (DUMP && live) demo[row * B + lane] = d;
     const float profit = step_and_record<BACKLOG>(p, s, t, act, d, ah);
     total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), profit));
   }
-  out[idx] = total;  // (E, B), episode-major
+  if (live) out[idx] = total;  // (E, B), episode-major
 }
 
 template <bool STOCH, bool DUMP, bool BACKLOG>
-int launch_policy_kernel(const ImParams& p, const Mlp& m, const float* params,
-                          int n_params, const float* table, const int* user_d,
-                          const float* disc, float* out, int* acts, int* dems,
-                          unsigned seed, long long B, int E, int T,
-                          cudaStream_t stream) {
-  auto kernel = k_im_policy_returns<STOCH, DUMP, BACKLOG>;
-  const size_t smem = smem_bytes(m, n_params);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_for(B * E), kThreads, smem, stream>>>(
-      p, m, params, n_params, table, user_d, disc, out, acts, dems, seed, B, E, T);
-  return (int)cudaGetLastError();
+int launch_policy_kernel(const ImParams& p, const MlpTile& m, const float* w, const float* table,
+                         const int* user_d, const float* disc, float* out, int* acts, int* dems,
+                         unsigned seed, long long B, int E, int T, cudaStream_t stream) {
+  return launch_mlp_tile(k_im_policy_returns<STOCH, DUMP, BACKLOG>, m, B * E, stream, p, m, w,
+                         table, user_d, disc, out, acts, dems, seed, B, E, T);
 }
 
 template <bool STOCH, bool DUMP>
-int launch_policy_returns(const ImParams& p, const Mlp& m, const float* params,
-                          int n_params, const float* table, const int* user_d,
-                          const float* disc, float* out, int* acts, int* dems,
+int launch_policy_returns(const ImParams& p, const MlpTile& m, const float* w, const float* table,
+                          const int* user_d, const float* disc, float* out, int* acts, int* dems,
                           unsigned seed, int backlog, long long B, int E, int T,
                           cudaStream_t stream) {
-  return backlog ? launch_policy_kernel<STOCH, DUMP, true>(
-                       p, m, params, n_params, table, user_d, disc, out, acts, dems,
-                       seed, B, E, T, stream)
-                 : launch_policy_kernel<STOCH, DUMP, false>(
-                       p, m, params, n_params, table, user_d, disc, out, acts, dems,
-                       seed, B, E, T, stream);
+  return backlog ? launch_policy_kernel<STOCH, DUMP, true>(p, m, w, table, user_d, disc, out,
+                                                           acts, dems, seed, B, E, T, stream)
+                 : launch_policy_kernel<STOCH, DUMP, false>(p, m, w, table, user_d, disc, out,
+                                                            acts, dems, seed, B, E, T, stream);
 }
 
 // The lane's observation into column n of x ([row][kWideLanes]), in the
@@ -301,25 +320,20 @@ int im_rollout_traj(const ImParams* p, const Mlp* mlp, const float* params,
 }
 
 // acts == dems == nullptr: returns only (K11); otherwise also the streams (K12).
-int im_policy_returns(const ImParams* p, const Mlp* mlp, const float* params,
-                      int n_params, const float* table, const int* user_d,
-                      const float* disc, float* out, int* acts, int* dems,
-                      unsigned seed, int stochastic, int backlog, long long B, int E,
-                      int T, cudaStream_t stream) {
+int im_policy_returns(const ImParams* p, const MlpTile* m, const float* w, const float* table,
+                      const int* user_d, const float* disc, float* out, int* acts, int* dems,
+                      unsigned seed, int stochastic, int backlog, long long B, int E, int T,
+                      cudaStream_t stream) {
   const bool dump = acts != nullptr;
   if (stochastic)
-    return dump ? launch_policy_returns<true, true>(*p, *mlp, params, n_params, table,
-                                                    user_d, disc, out, acts, dems, seed,
-                                                    backlog, B, E, T, stream)
-                : launch_policy_returns<true, false>(*p, *mlp, params, n_params, table,
-                                                     user_d, disc, out, acts, dems, seed,
-                                                     backlog, B, E, T, stream);
-  return dump ? launch_policy_returns<false, true>(*p, *mlp, params, n_params, table,
-                                                   user_d, disc, out, acts, dems, seed,
-                                                   backlog, B, E, T, stream)
-              : launch_policy_returns<false, false>(*p, *mlp, params, n_params, table,
-                                                    user_d, disc, out, acts, dems, seed,
-                                                    backlog, B, E, T, stream);
+    return dump ? launch_policy_returns<true, true>(*p, *m, w, table, user_d, disc, out, acts,
+                                                    dems, seed, backlog, B, E, T, stream)
+                : launch_policy_returns<true, false>(*p, *m, w, table, user_d, disc, out, acts,
+                                                     dems, seed, backlog, B, E, T, stream);
+  return dump ? launch_policy_returns<false, true>(*p, *m, w, table, user_d, disc, out, acts,
+                                                   dems, seed, backlog, B, E, T, stream)
+              : launch_policy_returns<false, false>(*p, *m, w, table, user_d, disc, out, acts,
+                                                    dems, seed, backlog, B, E, T, stream);
 }
 
 int im_rollout_traj_wide(const ImParams* p, const WideMlp* wm, const float* w,

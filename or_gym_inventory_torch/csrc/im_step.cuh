@@ -1,6 +1,7 @@
 // One InvManagement period on one thread, and the period draws of the
 // random policy, shared by every InvManagement kernel (im_episode.cu K7-K9,
-// im_policy.cu K10), so that they cannot drift apart. It replaces
+// im_policy.cu K10), so that they cannot drift apart; and the observation
+// column of the tile kernels (im_policy.cu K11/K12, im_lstm.cu K22-K24). It replaces
 // pallas_episode_kernels._im_step_math (:686), _im_sample_actions (:841),
 // _im_sample_demand (:853) and _invert_discrete_i32 (:824).
 //
@@ -137,4 +138,22 @@ __device__ __forceinline__ int im_demand(const ImParams& p,
                                          unsigned word) {
   if (p.user) return __ldg(user_d + t);
   return p.base + count_le(table, p.tab_len, u01(word));
+}
+
+// The lane's observation column in x0 (rows S floats apart), in the order
+// of _im_obs_rows (pallas_episode_kernels.py :1108): on-hand, then the
+// requested orders of periods max(t - lt, 0) .. t-1 oldest first, one row
+// per (period, stage), zero rows at the end while t < lt. ``ah`` is the
+// ring of requested orders (slot q % lt). The tile kernels' (K11/K12,
+// K22-K24) column of shared memory.
+__device__ __forceinline__ void lane_obs(const ImParams& p, const ImEpisode& s, int t,
+                                         const int* ah, float* x0, int S) {
+  const int m1 = p.m1, lt = p.lt;
+  for (int i = 0; i < m1; ++i) x0[i * S] = (float)s.inv[i];
+  const int q0 = max(t - lt, 0);
+  for (int j = 0; j < lt; ++j) {
+    const int q = q0 + j;
+    for (int i = 0; i < m1; ++i)
+      x0[(m1 + j * m1 + i) * S] = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
+  }
 }

@@ -8,12 +8,9 @@
 // What bounds it: the gate product G = W [E; H] + b, 2 (enc + h) 4h FLOPs an
 // env-step (196,608 at encoder 64 and hidden 128, 97% of the actor). It
 // runs on the tensor cores: mma.sync m16n8k8 in TF32, as three products
-// (3xTF32) so that the sums keep FP32's accuracy. Each operand x is split
-// into big = rna_tf32(x) and small = rna_tf32(x - big) (split_tf32), and
-// G += W_small X_big + W_big X_small + W_big X_big, accumulated in FP32
-// (the dropped W_small X_small is ~2^-22 relative). One TF32 product alone
-// keeps ~3 decimal digits, and a lane whose action sits near a truncation
-// boundary would take the other integer.
+// (3xTF32) so that the sums keep FP32's accuracy (mma_tf32.cuh, which
+// holds the split, the products and the quiet-NaN rule, shared with
+// mlp_tile.cuh).
 //
 // - The tile: a block runs LANES lanes (64 at the benchmark widths) with
 //   WM x WN warps, WN = LANES / 32 along the lanes (a warp owns 4 n-tiles of
@@ -67,6 +64,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 #define LSTM_MAX_ENC 4
 #define LSTM_MAX_ACT 8
 #define LSTM_MAX_GROUPS 16  // unit groups of 8: hidden <= 128
@@ -92,131 +91,24 @@ namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// x = big + small, both rounded to TF32 as cvt.rna.tf32.f32 rounds (to
-// nearest, ties away from zero): adding half a TF32 ulp to the bits, then
-// dropping the 13 low bits. big's are cleared, so that small = x - big is
-// exact; small's are left to the tensor core, which reads only the top 19
-// bits of a TF32 operand. Integer and FP32 operations at full rate, where
-// cvt.rna issues on the slower conversion path.
-//
-// x must be finite, infinite or the quiet NaN 0x7fc00000, which stays a NaN
-// (then small is a NaN that reads as a zero, and big makes the products
-// NaN, as in FP32). The canonical NaN 0x7fffffff, which CUDA's arithmetic
-// produces, would carry into the sign bit and read as a zero. So the
-// wrapper writes every NaN weight as 0x7fc00000, the obs rows are
-// integers, and the encoder and the cell write their outputs through
-// keep_nan: once per value produced, where a select here would run for
-// every one of its uses (16 per value of H at hidden 128).
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// v, a NaN written as the quiet NaN split_tf32 keeps.
-__device__ __forceinline__ float keep_nan(float v) {
-  return isnan(v) ? __uint_as_float(0x7fc00000u) : v;
-}
-
-// d += a b: one m16n8k8 TF32 product, FP32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k-step of NS M-tiles (their A fragments f, float4 {a0, a1, a2, a3}
-// per lane) over the warp's 4 n-tiles: the B fragments from rows tig and
-// tig + 4 of x (this k-step's 8 rows), lanes col + 8 nt; three TF32
-// products into each accumulator tile.
-template <int NS>
-__device__ __forceinline__ void mma_kstep(const float4 (&f)[NS], const float* x, int S,
-                                          int col, int tig, float (&acc)[NS][4][4]) {
-  unsigned ab[NS][4], as[NS][4];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    const float fa[4] = {f[s].x, f[s].y, f[s].z, f[s].w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split_tf32(fa[r], ab[s][r], as[s][r]);
-  }
-  const float* x0 = x + tig * S + col;
-  const float* x1 = x0 + 4 * S;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    unsigned bb[2], bs[2];
-    split_tf32(x0[8 * nt], bb[0], bs[0]);
-    split_tf32(x1[8 * nt], bb[1], bs[1]);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      mma_tf32(acc[s][nt], as[s], bb);
-      mma_tf32(acc[s][nt], ab[s], bs);
-      mma_tf32(acc[s][nt], ab[s], bb);
-    }
-  }
-}
-
-// acc += the product of NS M-tiles (A fragments at a + s * tile_stride +
-// 32 ks for k-step ks) and the k_steps * 8 input rows, the first ke of
-// them at x_lo and the rest at x_hi. Each k-step's fragments are loaded one
-// k-step ahead, so the L2 latency overlaps the products.
-template <int NS>
-__device__ __forceinline__ void mma_rows(const float4* __restrict__ a, int tile_stride,
-                                         int k_steps, int ke, const float* x_lo,
-                                         const float* x_hi, int S, int col, int tig,
-                                         float (&acc)[NS][4][4]) {
-  float4 next[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) next[s] = __ldg(a + s * tile_stride);
-#pragma unroll 2
-  for (int ks = 0; ks < k_steps; ++ks) {
-    float4 cur[NS];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      cur[s] = next[s];
-      if (ks + 1 < k_steps) next[s] = __ldg(a + s * tile_stride + 32 * (ks + 1));
-    }
-    const float* x = ks < ke ? x_lo + 8 * ks * S : x_hi + 8 * (ks - ke) * S;
-    mma_kstep<NS>(cur, x, S, col, tig, acc);
-  }
-}
-
 // The encoder: x0 (the obs rows, written by the lane threads) through the
 // tanh layers into E, each layer a product on the tensor cores like the
-// gates': the warp's M-tiles of 16 outputs (mt = wm, wm + WM, ...) over its
-// 32 lanes, K = the layer's inputs padded to 8 (zero rows), outputs padded
-// to 16 (zero weights and bias, so tanh writes 0). Ends with a barrier.
+// gates' (mma_tf32.cuh mma_layer_tiles): the warp's M-tiles of 16 outputs
+// (mt = wm, wm + WM, ...) over its 32 lanes, K = the layer's inputs padded
+// to 8 (zero rows), outputs padded to 16 (zero weights and bias, so tanh
+// writes 0). Ends with a barrier.
 template <int WM>
 __device__ __forceinline__ void lstm_encoder(const Lstm& L, const float* __restrict__ w,
                                              float* smem) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int wm = warp % WM, wn = warp / WM;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int S = L.stride, col = 32 * wn + gid;
   const float* in = smem + L.s_x0;
   for (int l = 0; l < L.n_enc; ++l) {
     const int ks_n = (L.dims[l] + 7) / 8, mt_n = (L.dims[l + 1] + 15) / 16;
     float* out = smem + (l == L.n_enc - 1 ? L.s_e : (l & 1) ? L.s_x0 : L.s_x1);
-    const float4* frag = reinterpret_cast<const float4*>(w + L.w_enc[l]) + lane;
-    const float* b = w + L.b_enc[l];
-    for (int mt = wm; mt < mt_n; mt += WM) {
-      const float b0 = __ldg(b + 16 * mt + gid), b1 = __ldg(b + 16 * mt + gid + 8);
-      float acc[1][4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        acc[0][nt][0] = acc[0][nt][1] = b0;
-        acc[0][nt][2] = acc[0][nt][3] = b1;
-      }
-      mma_rows<1>(frag + 32 * mt * ks_n, 0, ks_n, ks_n, in, in, S, col, tig, acc);
-      float* row = out + (16 * mt + gid) * S + 32 * wn + 2 * tig;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        *reinterpret_cast<float2*>(row + 8 * nt) =
-            make_float2(keep_nan(tanhf(acc[0][nt][0])), keep_nan(tanhf(acc[0][nt][1])));
-        *reinterpret_cast<float2*>(row + 8 * S + 8 * nt) =
-            make_float2(keep_nan(tanhf(acc[0][nt][2])), keep_nan(tanhf(acc[0][nt][3])));
-      }
-    }
+    const float4* frag = reinterpret_cast<const float4*>(w + L.w_enc[l]);
+    for (int mt = wm; mt < mt_n; mt += WM)
+      mma_layer_tiles<1, true>(frag, w + L.b_enc[l], mt, ks_n, in, out, L.stride, 32 * wn);
     __syncthreads();
     in = out;
   }

@@ -21,16 +21,33 @@
 //    0..31 own the lanes' envs (net_step.cuh). Bound by operations: the
 //    (256, 256) actor's ~1.7e5 per env-step.
 //
-// Design (a simple kernel first): one thread per (lane, episode), as K2 has.
-// The actor runs as mlp.cuh has it: weights and activations in shared
-// memory, ~9,600 floats (38.5 KB) of weights for the default 68-64-64-11
-// actor and 68 KB of activations at 128 threads, so two blocks fit an SM.
-// The observation is assembled from the live state in the order of
-// pallas_net_step._net_obs_rows (:482): U, X, then each reorder link's window
-// r[t-L..t-1] oldest first, read from net_step.cuh's per-link ring
-// (order_window). Bound by operations: the MLP's ~18,600 per env-step dwarf
-// the step and the draws. wgmma/mma tiles across lanes, TMA and the step's
-// state out of local memory are later work.
+// K4's design (a simple kernel first): one thread per lane, its state in a
+// local Episode (net_step.cuh FrameView), the actor as mlp.cuh has it:
+// weights and activations in shared memory, one forward pass per thread on
+// the FP32 cores. The observation is assembled from the live state in the
+// order of pallas_net_step._net_obs_rows (:482): U, X, then each reorder
+// link's window r[t-L..t-1] oldest first, read from net_step.cuh's per-link
+// ring (order_window). Bound by operations: the MLP's ~18,600 per env-step
+// dwarf the step and the draws.
+//
+// K5/K6's design: a block per tile of (lane, episode) pairs, one thread
+// each (mlp_tile.cuh). The first version ran K4's design with E episodes
+// per lane: 47.70 ms at 65,536 x 16 x 30 on an H100 (PERF.md), its MLP on
+// the FP32 cores at ~12 TFLOP/s and its step from a 2,240-byte local
+// Episode, the frame that cost K2 13x. Now, per period, each thread writes
+// its obs column (through keep_nan: the state may hold a NaN, which the
+// TF32 split must see as the quiet NaN); its warp runs the actor for its 32
+// pairs on the tensor cores in 3xTF32; then the thread draws its pair's
+// words (the demand and, when stochastic, the normals: the obs does not
+// depend on them) into the transient rows of its column, squashes its
+// actions in place and steps its state: the episode's state in shared
+// memory [word][lane] (TileView, laid out by ops/net_step.py
+// _shared_layout), the step's scratch in the transient rows. No local
+// frame. Bound by
+// operations: the products, 2 sum(in out) FLOPs an env-step, as three
+// TF32 products each. The batch tail is masked: a warp past it returns, a
+// pair past it computes (its warp's products need every thread) but
+// writes nothing.
 //
 // Random stream (net_step.cuh, philox.cuh): key (seed, 1), counter (lane,
 // episode, period, block); per period the n_rt demand words, then the n_ro
@@ -49,6 +66,7 @@
 
 #include "launch.cuh"
 #include "mlp.cuh"
+#include "mlp_tile.cuh"
 #include "net_step.cuh"
 #include "philox.cuh"
 #include "wide_mlp.cuh"
@@ -124,37 +142,103 @@ __global__ void k_rollout_traj(const __grid_constant__ NetTopo tp,
   }
 }
 
+// SharedView over the state that lasts the episode (X, Y, slot, U, the
+// rings: ops/net_step.py _shared_layout without the scratch), with the
+// step's per-node scratch (consumed, arrivals, sold) in the thread's column
+// of the tile's transient rows, rows S floats apart.
+struct TileView : SharedView {
+  float* scratch_;
+  int S, nm;
+  __device__ TileView(float* state, const NetSmem& L, float* scratch, int stride, int n_main)
+      : SharedView(state, L), scratch_(scratch), S(stride), nm(n_main) {}
+  __device__ float& consumed(int k) const { return scratch_[k * S]; }
+  __device__ float& arrivals(int k) const { return scratch_[(nm + k) * S]; }
+  __device__ float& sold(int k) const { return scratch_[(2 * nm + k) * S]; }
+};
+
+// A column of a [row][lane] buffer in shared memory, read as a step source.
+struct FromColumn {
+  const float* p;
+  int S;
+  __device__ float operator()(int k) const { return p[k * S]; }
+};
+
+// The words of one (lane, episode, period) of K5/K6 into the thread's
+// columns: the demand of each retail link into dem and, when stochastic,
+// the n_ro normals of the u1 then the u2 words into z.
+template <bool STOCH>
+__device__ __forceinline__ void pair_draws(const NetTopo& tp, const float* __restrict__ tables,
+                                           unsigned seed, unsigned lane, unsigned e,
+                                           unsigned t, float* dem, float* z, int S) {
+  WordStream ws(seed, 1u, lane, e, t);
+  for (int j = 0; j < tp.n_rt; ++j) dem[j * S] = link_demand(tp, tables, j, t, ws.next());
+  if (STOCH) {
+    unsigned* u1 = reinterpret_cast<unsigned*>(z);
+    for (int i = 0; i < tp.n_ro; ++i) u1[i * S] = ws.next();
+    for (int i = 0; i < tp.n_ro; ++i) z[i * S] = normal01(u1[i * S], ws.next());
+  }
+}
+
+// The observation of the state view s (assemble_obs's order) into the
+// column x, each value through keep_nan, then zero rows up to pad8.
+template <class V>
+__device__ __forceinline__ void view_obs(const NetTopo& tp, const V& s, int obs_pad, float* x,
+                                         int S) {
+  int k = 0;
+  for (int j = 0; j < tp.n_rt; ++j) x[(k++) * S] = keep_nan(s.U(j));
+  for (int n = 0; n < tp.n_main; ++n) x[(k++) * S] = keep_nan(s.X(n));
+  for (int i = 0; i < tp.n_ro; ++i) {  // the window, oldest first: slots slot .. slot - 1
+    const int L = tp.ro_L[i], ring = tp.ro_ring[i];
+    int q = L > 0 ? s.slot(i) : 0;
+    for (int j = 0; j < L; ++j) {
+      x[(k++) * S] = keep_nan(s.ring(ring + q));
+      q = q + 1 == L ? 0 : q + 1;
+    }
+  }
+  for (; k < obs_pad; ++k) x[k * S] = 0.f;
+}
+
 template <bool STOCH, bool DUMP>
 __global__ void k_policy_returns(const __grid_constant__ NetTopo tp,
-                                 const __grid_constant__ Mlp m,
-                                 const float* __restrict__ params, int n_params,
-                                 const float* __restrict__ tables,
-                                 const float* __restrict__ disc,
-                                 float* __restrict__ out, float* __restrict__ acts,
-                                 float* __restrict__ dems, unsigned seed,
-                                 long long B, int E, int T) {
-  float *h0, *h1;
-  const float* sw = load_params(m, params, n_params, h0, h1);
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= B * E) return;
+                                 const __grid_constant__ NetSmem lay,
+                                 const __grid_constant__ MlpTile m,
+                                 const float* __restrict__ w, const float* __restrict__ tables,
+                                 const float* __restrict__ disc, float* __restrict__ out,
+                                 float* __restrict__ acts, float* __restrict__ dems,
+                                 unsigned seed, long long B, int E, int T) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = threadIdx.x, S = m.stride;
+  const long long pair0 = (long long)blockIdx.x * m.lanes, idx = pair0 + n;
+  if (pair0 + (n & ~31) >= B * E) return;  // the warp's pairs all lie past the batch
+  const bool live = idx < B * E;
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
-  const float* stdv = sw + n_params - tp.n_ro;
-  Episode s;
-  episode_reset(tp, s);
-  float raw[NET_MAX_RO], act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  float* x = smem + m.s_x0 + n;
+  float* dem = smem + m.s_dem + n;
+  float* z = smem + m.s_z + n;
+  const TileView s(smem + m.s_state, lay, smem + m.s_scratch + n, S, tp.n_main);
+  reset_view(tp, s);
+  const int obs_pad = (m.dims[0] + 7) & ~7;
   float total = 0.f;
   for (int t = 0; t < T; ++t) {
-    policy_period<STOCH>(tp, m, sw, stdv, tables, seed, lane, e, (unsigned)t, s,
-                         h0, h1, raw, act, dem);
-    if (DUMP) {
-      const long long row = (long long)t * E + e;  // (T, E, rows, B)
-      for (int i = 0; i < tp.n_ro; ++i) acts[(row * tp.n_ro + i) * B + lane] = act[i];
-      for (int j = 0; j < tp.n_rt; ++j) dems[(row * tp.n_rt + j) * B + lane] = dem[j];
+    view_obs(tp, s, obs_pad, x, S);
+    __syncwarp();
+    float* a = mlp_tile_forward(m, w, smem) + n;  // H, squashed in place into the actions
+    pair_draws<STOCH>(tp, tables, seed, lane, e, (unsigned)t, dem, z, S);  // rows now dead
+    const long long row = (long long)t * E + e;   // (T, E, rows, B)
+    for (int i = 0; i < tp.n_ro; ++i) {
+      float v = a[i * S];
+      if (STOCH) v = __fadd_rn(v, __fmul_rn(__ldg(w + m.std + i), z[i * S]));
+      v = (tanhf(v) + 1.f) * m.half_hi[i];
+      a[i * S] = v;
+      if (DUMP && live) acts[(row * tp.n_ro + i) * B + lane] = v;
     }
-    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
+    if (DUMP && live)
+      for (int j = 0; j < tp.n_rt; ++j) dems[(row * tp.n_rt + j) * B + lane] = dem[j * S];
+    total += __ldg(disc + t) * step_view(tp, s, FromColumn{a, S}, FromColumn{dem, S}, nullptr);
   }
-  out[idx] = total;  // (E, B), episode-major
+  if (live) out[idx] = total;  // (E, B), episode-major
 }
 
 // The observation of the period-t state into column n of x
@@ -218,17 +302,12 @@ __global__ void __launch_bounds__(kWideThreads)
 }
 
 template <bool STOCH, bool DUMP>
-int launch_policy_returns(const NetTopo& tp, const Mlp& m, const float* params,
-                          int n_params, const float* tables, const float* disc,
-                          float* out, float* acts, float* dems, unsigned seed,
-                          long long B, int E, int T, cudaStream_t stream) {
-  const size_t smem = smem_bytes(m, n_params);
-  auto kernel = k_policy_returns<STOCH, DUMP>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_for(B * E), kThreads, smem, stream>>>(
-      tp, m, params, n_params, tables, disc, out, acts, dems, seed, B, E, T);
-  return (int)cudaGetLastError();
+int launch_policy_returns(const NetTopo& tp, const NetSmem& lay, const MlpTile& m,
+                          const float* w, const float* tables, const float* disc, float* out,
+                          float* acts, float* dems, unsigned seed, long long B, int E, int T,
+                          cudaStream_t stream) {
+  return launch_mlp_tile(k_policy_returns<STOCH, DUMP>, m, B * E, stream, tp, lay, m, w,
+                         tables, disc, out, acts, dems, seed, B, E, T);
 }
 
 }  // namespace
@@ -250,21 +329,20 @@ int net_rollout_traj(const NetTopo* topo, const Mlp* mlp, const float* params,
 }
 
 // acts == dems == nullptr: returns only (K5); otherwise also the streams (K6).
-int net_policy_returns(const NetTopo* topo, const Mlp* mlp,
-                       const float* params, int n_params, const float* tables,
-                       const float* disc, float* out, float* acts, float* dems,
-                       unsigned seed, long long B, int E, int T, int stochastic,
-                       cudaStream_t stream) {
+int net_policy_returns(const NetTopo* topo, const NetSmem* lay, const MlpTile* m,
+                       const float* w, const float* tables, const float* disc, float* out,
+                       float* acts, float* dems, unsigned seed, long long B, int E, int T,
+                       int stochastic, cudaStream_t stream) {
   const bool dump = acts != nullptr;
   if (stochastic)
-    return dump ? launch_policy_returns<true, true>(*topo, *mlp, params, n_params, tables,
-                                                    disc, out, acts, dems, seed, B, E, T, stream)
-                : launch_policy_returns<true, false>(*topo, *mlp, params, n_params, tables,
-                                                     disc, out, acts, dems, seed, B, E, T, stream);
-  return dump ? launch_policy_returns<false, true>(*topo, *mlp, params, n_params, tables,
-                                                   disc, out, acts, dems, seed, B, E, T, stream)
-              : launch_policy_returns<false, false>(*topo, *mlp, params, n_params, tables,
-                                                    disc, out, acts, dems, seed, B, E, T, stream);
+    return dump ? launch_policy_returns<true, true>(*topo, *lay, *m, w, tables, disc, out, acts,
+                                                    dems, seed, B, E, T, stream)
+                : launch_policy_returns<true, false>(*topo, *lay, *m, w, tables, disc, out,
+                                                     acts, dems, seed, B, E, T, stream);
+  return dump ? launch_policy_returns<false, true>(*topo, *lay, *m, w, tables, disc, out, acts,
+                                                   dems, seed, B, E, T, stream)
+              : launch_policy_returns<false, false>(*topo, *lay, *m, w, tables, disc, out, acts,
+                                                    dems, seed, B, E, T, stream);
 }
 
 int net_rollout_traj_wide(const NetTopo* topo, const WideMlp* wm, const float* w,

@@ -26,12 +26,12 @@
 // ro_pur[i], ro_ring[i], rt_ret[j]), so it cannot live in registers.
 // step_view is one body over two views of it, with the same accessors:
 // - FrameView: a thread's own Episode, sized to net_topo.cuh's maxima, in
-//   local memory. K1, K4-K6, K25 and K29 keep it (K1: 1,792 bytes a thread).
+//   local memory. K1, K4, K25 and K29 keep it (K1: 1,792 bytes a thread).
 // - SharedView: the words the real graph needs (4 n_main + 2 n_ro + n_rt +
 //   sum L_i: 108 on the default graph, 400 at the maxima) in dynamic shared
 //   memory, laid out [word][thread] so that a warp's 32 accesses to one
 //   warp-uniform word fall on 32 banks. ops/net_step.py _shared_state_plan
-//   sizes it. K2 and K26 take it.
+//   sizes it. K2, K26 and K5/K6 (over a block's lanes) take it.
 // K2 first kept the frame. At 4,194,304 x 16 threads its ~624 live bytes a
 // thread outran L1 and L2, and the old step's ~400 frame accesses an
 // env-step (seven scratch arrays zeroed, three passes over the links, a

@@ -47,9 +47,9 @@ SIGNATURES = {
         # demand, seed, B, T, stream
         "net_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _U32, _LL, _I, _P), _I),
-        # topo, mlp, params, n_params, tables, disc, out, acts, dems, seed, B,
-        # E, T, stochastic, stream
-        "net_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _U32, _LL,
+        # topo, state layout, tile, actor, tables, disc, out, acts, dems, seed,
+        # B, E, T, stochastic, stream
+        "net_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL,
                                 _I, _I, _I, _P), _I),
         # topo, wide, actor, tables, disc, x, u, r, raw, reward, demand, seed,
         # relu, B, T, stream
@@ -69,9 +69,9 @@ SIGNATURES = {
         # reward, demand, seed, backlog, B, T, stream
         "im_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
                              _LL, _I, _P), _I),
-        # params, mlp, actor, n_actor, table, user_d, disc, out, acts, dems,
-        # seed, stochastic, backlog, B, E, T, stream
-        "im_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
+        # params, tile, actor, table, user_d, disc, out, acts, dems, seed,
+        # stochastic, backlog, B, E, T, stream
+        "im_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
                                _LL, _I, _I, _P), _I),
         # params, wide, actor, table, user_d, disc, inv, acts, raw, reward,
         # demand, seed, relu, backlog, B, T, stream

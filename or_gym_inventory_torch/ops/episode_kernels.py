@@ -13,9 +13,11 @@ version), and what every MLP policy kernel shares:
 - ``fold_offpolicy_actor``, the off-policy learners' actor (relu trunk,
   mean head, and for SAC the log_std head beside it) folded the same way;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by the NetInvMgmt policy kernels (``ops/net_step.py``), K10, K11
-  and K18-K20; and ``_pack_wide_actor``, the actor of the off-policy
-  trajectory kernels K27-K29 (``csrc/wide_mlp.cuh``);
+  shared by K4 (``ops/net_step.py``), K10 and K18-K20;
+  ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5
+  and K11 over a tile of lanes on the tensor cores (``csrc/mlp_tile.cuh``,
+  its layout ``_mlp_tile_plan``); and ``_pack_wide_actor``, the actor of
+  the off-policy trajectory kernels K27-K29 (``csrc/wide_mlp.cuh``);
 - the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
   relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
   ``"uniform"``), ``_im_step_math``, ``_im_obs_rows``,
@@ -74,7 +76,8 @@ An actor is ``(Ws, bs)``: Ws[l] (in, out), bs[l] (out,), float32, as the JAX
 package has it. The plain versions compute with the layers as (out, in), as
 the Pallas kernels did (``kernel_layers``); the CUDA kernels take them as
 (in, out) with the outputs padded to 16 (``_pack_actor``), or to 8 for the
-wide kernels (``_pack_wide_actor``).
+wide kernels (``_pack_wide_actor``), or as tensor-core A fragments
+(``_pack_tile_actor``, ``_pack_lstm_actor``).
 """
 
 from __future__ import annotations
@@ -319,6 +322,10 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def _actor_dims(actor, obs_dim: int, act_dim):
     """The actor's widths [obs_dim, ..., outputs]; raises ValueError for an
     actor that does not fit the env. ``act_dim`` is the output width, or a
@@ -345,6 +352,16 @@ def _head_dims(actor, obs_dim: int, act_dim: int, policy: str):
     return _actor_dims(actor, obs_dim, outs)
 
 
+def _mlp_dims(actor, obs_dim: int, act_dim: int):
+    """``_actor_dims``, raising ValueError beyond the MLP kernels' maxima."""
+    dims = _actor_dims(actor, obs_dim, act_dim)
+    if len(dims) - 1 > MAX_LAYERS or max(dims) > MAX_WIDTH or act_dim > MAX_ACT:
+        raise ValueError(f"actor widths {dims}: the kernels take at most "
+                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH} and "
+                         f"{MAX_ACT} actions")
+    return dims
+
+
 def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     """The kernels' actor arguments: the Mlp struct (``half_hi[i]`` the f32
     factor that maps tanh(raw_i) + 1 onto action i's range) and one flat
@@ -353,12 +370,8 @@ def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     given. Raises ValueError for an actor beyond the kernels' maxima, or if
     the buffer and the activation buffers exceed the shared memory of a
     block."""
-    dims = _actor_dims(actor, obs_dim, act_dim)
+    dims = _mlp_dims(actor, obs_dim, act_dim)
     Ws, bs = actor
-    if len(Ws) > MAX_LAYERS or max(dims) > MAX_WIDTH or act_dim > MAX_ACT:
-        raise ValueError(f"actor widths {dims}: the kernels take at most "
-                         f"{MAX_LAYERS} layers of width <= {MAX_WIDTH} and "
-                         f"{MAX_ACT} actions")
     parts = []
     for W, b in zip(Ws, bs):
         n_in, n_out = W.shape
@@ -384,6 +397,188 @@ def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     return mlp, flat
 
 
+# ------------------------------------------ the tensor-core fragments
+
+# the float32 NaN the tile kernels' TF32 split keeps a NaN (csrc/mma_tf32.cuh
+# split_tf32: rounding 0x7fffffff carries into the sign bit)
+_QUIET_NAN_BITS = 0x7FC00000
+
+
+def _mma_fragments(A) -> torch.Tensor:
+    """A (16 m, 8 k) as the A fragments of csrc/mma_tf32.cuh's
+    mma.sync m16n8k8: per (M-tile, k-step, lane) the float4 {a0, a1, a2, a3} =
+    A[gid][tig], A[gid + 8][tig], A[gid][tig + 4], A[gid + 8][tig + 4] of
+    the tile's 16 x 8 block, gid = lane / 4, tig = lane % 4."""
+    m, k = A.shape[0] // 16, A.shape[1] // 8
+    # [mt][half][gid][ks][c4][tig] -> [mt][ks][gid][tig][c4][half]
+    T = A.reshape(m, 2, 8, k, 2, 4).permute(0, 3, 2, 5, 4, 1)
+    return T.reshape(-1)
+
+
+def _encoder_fragments(W, b):
+    """A dense layer's W (out, in) (an LSTM encoder layer, a tile MLP layer)
+    as ``_mma_fragments`` of its zero-padded (pad16(out), pad8(in)) block,
+    and b padded to pad16(out)."""
+    n_out, n_in = W.shape
+    Wp = torch.zeros((_pad16(n_out), _pad8(n_in)), dtype=torch.float32, device=W.device)
+    Wp[:n_out, :n_in] = W
+    bp = torch.zeros(_pad16(n_out), dtype=torch.float32, device=W.device)
+    bp[:n_out] = b.reshape(-1)
+    return _mma_fragments(Wp), bp
+
+
+def _quiet_nans(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` with every NaN written as the quiet NaN 0x7fc00000, which
+    csrc/mma_tf32.cuh split_tf32 keeps a NaN (the fill value, a Python
+    float, reaches float32 as those bits)."""
+    quiet = float(np.array([_QUIET_NAN_BITS], np.uint32).view(np.float32)[0])
+    return flat.masked_fill(torch.isnan(flat), quiet).contiguous()
+
+
+# ------------------------------------- the MLP actor over a tile of lanes
+
+class _MlpTile(ctypes.Structure):
+    """Mirror of ``struct MlpTile`` in csrc/mlp_tile.cuh (all fields 4-byte,
+    so both sides lay it out without padding)."""
+    _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+                ("w", ctypes.c_int * MAX_LAYERS), ("b", ctypes.c_int * MAX_LAYERS),
+                ("std", ctypes.c_int), ("lanes", ctypes.c_int), ("stride", ctypes.c_int),
+                ("s_x0", ctypes.c_int), ("s_x1", ctypes.c_int), ("s_dem", ctypes.c_int),
+                ("s_z", ctypes.c_int), ("s_scratch", ctypes.c_int), ("s_state", ctypes.c_int),
+                ("s_total", ctypes.c_int), ("half_hi", ctypes.c_float * MAX_ACT)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpTilePlan:
+    """A block's tile and shared-memory layout for K5/K6 and K11/K12:
+    ``lanes`` (lane, episode) pairs a block, one thread each; every buffer
+    [row][lane] with rows ``stride`` floats apart, except the state
+    ([word][lane], rows ``lanes`` apart); ``rows`` of each activation
+    buffer, one buffer when ``in_place``; the float offsets ``offsets``
+    (x0, x1; dem, z and scratch, the transient rows inside H's buffer;
+    state), ``floats`` in all."""
+    lanes: int
+    stride: int
+    rows: int
+    in_place: bool
+    offsets: dict
+    floats: int
+
+
+# M-tiles of 16 outputs a warp holds at once (csrc/mlp_tile.cuh MLP_TILE_GROUP)
+_MLP_TILE_GROUP = 4
+# the tiles the entry points take, in order of preference: the first whose
+# shared memory fits a block (the kernels take any multiple of 32)
+_MLP_TILES = (64, 32)
+
+
+def _mlp_tile_plan(dims, dem_rows: int, scratch_rows: int, state_words: int,
+                   lanes: int) -> MlpTilePlan:
+    """The layout of a tile of ``lanes`` pairs for an actor of widths
+    ``dims``: the activations (the obs rows padded to 8, each layer's
+    outputs to 16; in place when each layer is one product, since it reads
+    all of its inputs before it writes: a hidden layer of one M-tile or of
+    a group of ``_MLP_TILE_GROUP``, an output layer of one M-tile; else
+    two ping-pong buffers), then ``state_words``
+    words a lane of state that lasts the episode. The period's transient
+    rows lie in the buffer that ends with H, from row pad16(act), dead
+    until the next period's obs: ``dem_rows`` of demand, a row of normals
+    per action and ``scratch_rows`` of step scratch; the buffers have rows
+    enough for them."""
+    stride = lanes + 8   # B-fragment loads and the float2 stores hit 32 banks
+    act = dims[-1]
+    rows = max([_pad8(dims[0])] + [_pad16(d) for d in dims[1:]]
+               + [_pad16(act) + dem_rows + act + scratch_rows])
+    in_place = (all(_pad16(d) // 16 in (1, _MLP_TILE_GROUP) for d in dims[1:-1])
+                and _pad16(act) == 16)
+    x1 = 0 if in_place else rows * stride
+    h = x1 if (len(dims) - 1) % 2 else 0   # layer l writes buffer (l + 1) & 1
+    dem = h + _pad16(act) * stride
+    state = x1 + rows * stride
+    offsets = {"x0": 0, "x1": x1, "dem": dem, "z": dem + dem_rows * stride,
+               "scratch": dem + (dem_rows + act) * stride, "state": state}
+    return MlpTilePlan(lanes, stride, rows, in_place, offsets, state + state_words * lanes)
+
+
+def _set_mlp_tile(st: _MlpTile, plan: MlpTilePlan) -> None:
+    """Write ``plan``'s tile and layout into ``st`` (the packed buffer does
+    not depend on the tile)."""
+    st.lanes, st.stride = plan.lanes, plan.stride
+    for name, offset in plan.offsets.items():
+        setattr(st, f"s_{name}", offset)
+    st.s_total = plan.floats
+
+
+@functools.lru_cache(maxsize=32)
+def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: int,
+                    state_words: int, device: str):
+    """(the MlpTile struct, the gather index and a zero, both on ``device``)
+    of ``_pack_tile_actor``: the packed buffer is the concatenation of the
+    layers' W (in, out) row-major, their b, the std when given and the
+    zero, gathered by the index. Built once per shape, so a call packs with
+    a few launches."""
+    plans = [_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes)
+             for lanes in _MLP_TILES]
+    plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
+    if plan is None:
+        raise ValueError(f"actor of widths {list(dims)} with {state_words} words of state a "
+                         f"lane needs {min(pl.floats for pl in plans) * 4} bytes; the shared "
+                         f"memory of a block holds {SMEM_OPTIN_BYTES}")
+    pairs = list(zip(dims, dims[1:]))
+    w_src = np.cumsum([0] + [i * o for i, o in pairs])
+    b_src = w_src[-1] + np.cumsum([0] + [o for _, o in pairs])
+    zero = int(b_src[-1]) + (dims[-1] if with_std else 0)   # the source's last element
+    st = _MlpTile(n_layers=len(pairs), std=-1)
+    parts, at = [], 0
+    for layer, (i, o) in enumerate(pairs):
+        W = torch.full((_pad16(o), _pad8(i)), zero, dtype=torch.int64)   # W^T, zero-padded
+        W[:o, :i] = torch.from_numpy(w_src[layer] + np.arange(i)[None, :] * o
+                                     + np.arange(o)[:, None])
+        b = torch.full((_pad16(o),), zero, dtype=torch.int64)
+        b[:o] = torch.from_numpy(b_src[layer] + np.arange(o))
+        st.w[layer], st.b[layer] = at, at + W.numel()
+        parts += [_mma_fragments(W), b]
+        at += W.numel() + b.numel()
+    if with_std:
+        st.std = at
+        parts.append(torch.from_numpy(b_src[-1] + np.arange(dims[-1])))
+    for k, d in enumerate(dims):
+        st.dims[k] = d
+    for k, h in enumerate(half_hi):
+        st.half_hi[k] = h
+    _set_mlp_tile(st, plan)
+    return (st, torch.cat(parts).to(device),
+            torch.zeros(1, dtype=torch.float32, device=device))
+
+
+def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
+                     dem_rows: int = 0, scratch_rows: int = 0, state_words: int = 0):
+    """The tile kernels' actor arguments: the MlpTile struct and one flat
+    float32 buffer on ``device``. The buffer holds each layer's W as the A
+    fragments of the tensor-core product (W^T zero-padded to (pad16(out),
+    pad8(in)), in ``_mma_fragments``' order) and its b padded to 16, then
+    the std when given; every NaN as the quiet NaN 0x7fc00000. The struct
+    carries their offsets, ``half_hi`` (the f32 factor that maps
+    tanh(raw_i) + 1 onto action i's range), the tile (the first of
+    ``_MLP_TILES`` whose layout, ``_mlp_tile_plan`` with ``dem_rows``,
+    ``scratch_rows`` and ``state_words``, fits a block) and the layout
+    (``_tile_pack_plan``, cached). Raises ValueError for an actor beyond the
+    kernels' maxima, as ``_pack_actor`` does, or beyond the shared memory
+    of a block."""
+    dims = _mlp_dims(actor, obs_dim, act_dim)
+    dev = torch.device(device)
+    st, index, zero = _tile_pack_plan(tuple(dims), std is not None,
+                                      tuple(float(h) for h in half_hi), dem_rows, scratch_rows,
+                                      state_words, _plan_key(dev) if dev.type == "cuda" else "cpu")
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ws, bs = actor
+    src = [torch.as_tensor(W, **f32).reshape(-1) for W in Ws]
+    src += [torch.as_tensor(b, **f32).reshape(-1) for b in bs]
+    if std is not None:
+        src.append(torch.as_tensor(std, **f32).reshape(-1))
+    return st, _quiet_nans(torch.cat(src + [zero])[index])
+
+
 # maxima of the wide actor of K27-K29 (csrc/wide_mlp.cuh): layers and the
 # env's actions; its widths are bounded by the shared memory of a block
 WIDE_MAX_LAYERS, WIDE_MAX_ACT = 8, 32
@@ -395,10 +590,6 @@ class _WideMlp(ctypes.Structure):
     _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (WIDE_MAX_LAYERS + 1)),
                 ("rows", ctypes.c_int), ("act", ctypes.c_int), ("head", ctypes.c_int),
                 ("std", ctypes.c_int), ("half_hi", ctypes.c_float * WIDE_MAX_ACT)]
-
-
-def _pad8(n: int) -> int:
-    return -(-n // 8) * 8
 
 
 def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, device):
@@ -995,7 +1186,7 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     if dev.type == "cpu":
         _actor_dims(actor, obs_dim, m1)
         return _im_policy_plain(params, actor, std, seed, batch, E, dev, dump)
-    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
+    st, flat = _pack_tile_actor(actor, std, obs_dim, m1, _half_c(params), dev)
     plan = _im_plan(params, _plan_key(dev))
     out = torch.empty((E, batch), dtype=torch.float32, device=dev)
     acts = dems = None
@@ -1004,7 +1195,7 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
         dems = torch.empty((T, E, batch), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("im_policy", "im_policy_returns", ctypes.addressof(plan["struct"]),
-                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(),
+                ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,
                 dems.data_ptr() if dump else None, seed, int(std is not None),
@@ -1021,9 +1212,10 @@ def episode_returns_im_policy(params: im.InvManagementParams, actor, seed, batch
     ``user_D[t]``; a law beyond the table cap raises NotImplementedError).
     Deterministic by default; with the trained ``log_std`` ((m1,)) the
     actions come from tanh-squashed Gaussian samples around the mean. K11:
-    one thread per (episode, lane) (csrc/im_policy.cu
-    ``k_im_policy_returns``); on the CPU the plain version runs. Returns
-    (batch,) for episodes_per_lane=1, else (episodes_per_lane, batch)."""
+    a block per tile of (episode, lane) pairs, one thread each, the actor on
+    the tensor cores (csrc/im_policy.cu ``k_im_policy_returns`` on
+    csrc/mlp_tile.cuh); on the CPU the plain version runs. Returns (batch,)
+    for episodes_per_lane=1, else (episodes_per_lane, batch)."""
     out, _, _ = _im_policy_call(episode_returns_im_policy, params, actor, seed, batch,
                                 episodes_per_lane, log_std, False, device)
     return out.reshape(batch) if episodes_per_lane == 1 else out
@@ -1273,17 +1465,6 @@ def _lstm_plan(dims, h: int, act_dim: int, tile) -> LstmPlan:
                     stride, offsets, at)
 
 
-def _mma_fragments(A) -> torch.Tensor:
-    """A (16 m, 8 k) as the A fragments of csrc/lstm.cuh's mma.sync
-    m16n8k8: per (M-tile, k-step, lane) the float4 {a0, a1, a2, a3} =
-    A[gid][tig], A[gid + 8][tig], A[gid][tig + 4], A[gid + 8][tig + 4] of
-    the tile's 16 x 8 block, gid = lane / 4, tig = lane % 4."""
-    m, k = A.shape[0] // 16, A.shape[1] // 8
-    # [mt][half][gid][ks][c4][tig] -> [mt][ks][gid][tig][c4][half]
-    T = A.reshape(m, 2, 8, k, 2, 4).permute(0, 3, 2, 5, 4, 1)
-    return T.reshape(-1)
-
-
 def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
     """The gate weights [Wx | Wh] (4h, e + h), gate row blocks i, f, g, o,
     as ``_mma_fragments``: zero-padded to (4, h_pad, e_pad + h_pad) (inputs
@@ -1299,20 +1480,6 @@ def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
     return _mma_fragments(rows.reshape(-1, kp))
 
 
-def _encoder_fragments(W, b):
-    """An encoder layer's W (out, in) as ``_mma_fragments`` of its zero-padded
-    (pad16(out), pad8(in)) block, and b padded to pad16(out)."""
-    n_out, n_in = W.shape
-    Wp = torch.zeros((_pad16(n_out), _pad8(n_in)), dtype=torch.float32, device=W.device)
-    Wp[:n_out, :n_in] = W
-    bp = torch.zeros(_pad16(n_out), dtype=torch.float32, device=W.device)
-    bp[:n_out] = b.reshape(-1)
-    return _mma_fragments(Wp), bp
-
-
-# the float32 NaN the LSTM kernels' TF32 split keeps a NaN (csrc/lstm.cuh
-# split_tf32: rounding 0x7fffffff carries into the sign bit)
-_QUIET_NAN_BITS = 0x7FC00000
 # the tiles of the LSTM kernels (csrc/im_lstm.cu LSTM_TILES) the entry
 # points take, in order of preference: the first whose shared memory fits
 _LSTM_TILES = ((64, 4), (32, 8))
@@ -1364,10 +1531,7 @@ def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     for i, v in enumerate(half_hi):
         st.half_hi[i] = v
     _set_lstm_tile(st, plan)
-    flat = torch.cat(parts)
-    # every NaN as the quiet NaN, which csrc/lstm.cuh split_tf32 keeps a NaN
-    quiet = torch.tensor(_QUIET_NAN_BITS, dtype=torch.int32).view(torch.float32).to(device)
-    return st, torch.where(torch.isnan(flat), quiet, flat).contiguous()
+    return st, _quiet_nans(torch.cat(parts))
 
 
 def _set_lstm_tile(st: _Lstm, plan: LstmPlan) -> None:

@@ -330,8 +330,9 @@ class _NetSmem(ctypes.Structure):
 
 @dataclasses.dataclass(frozen=True)
 class SharedStatePlan:
-    """The launch plan of K2 and K26. ``offsets`` maps each state field to
-    its first word; word k of thread t lies at ``smem[k * threads + t]``."""
+    """The launch plan of K2 and K26, and (without the scratch) the state
+    K5/K6 keep a lane. ``offsets`` maps each state field to its first word;
+    word k of thread t lies at ``smem[k * threads + t]``."""
     words: int            # 32-bit words of state a thread
     offsets: dict
     threads: int          # threads a block
@@ -339,13 +340,19 @@ class SharedStatePlan:
     blocks_per_sm: int    # resident blocks an SM holds on an H100
 
 
-def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int) -> SharedStatePlan:
+def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int,
+                       scratch: bool = True) -> SharedStatePlan:
     """The shared-memory layout of a graph with ``n_main`` main nodes,
     ``n_ro`` reorder links, ``n_rt`` retail links and lead times summing to
     ``ring``: X, consumed, arrivals and sold per main node, Y and the ring
     position per reorder link, U per retail link, then the order rings.
-    Every graph within the struct maxima fits a block of ``THREADS``."""
-    sizes = {"x": n_main, "consumed": n_main, "arrivals": n_main, "sold": n_main,
+    Every graph within the struct maxima fits a block of ``THREADS``.
+    Without ``scratch`` the step's per-node scratch
+    (consumed, arrivals, sold) has no words (its offsets are the next
+    field's): K5/K6 keep it in their tile's transient rows (net_policy.cu
+    TileView), and the state here is what lasts the episode."""
+    n_scratch = n_main if scratch else 0
+    sizes = {"x": n_main, "consumed": n_scratch, "arrivals": n_scratch, "sold": n_scratch,
              "y": n_ro, "slot": n_ro, "u": n_rt, "ring": ring}
     offsets, words = {}, 0
     for name, size in sizes.items():
@@ -356,11 +363,12 @@ def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int) -> SharedSt
     return SharedStatePlan(words, offsets, THREADS, nbytes, blocks)
 
 
-@functools.lru_cache(maxsize=16)
-def _shared_layout(topology):
-    """(plan, its ``_NetSmem``) for ``topology``."""
+@functools.lru_cache(maxsize=32)
+def _shared_layout(topology, scratch: bool = True):
+    """(plan, its ``_NetSmem``) for ``topology``; ``scratch`` as
+    ``_shared_state_plan`` takes it (False: K5/K6's state)."""
     plan = _shared_state_plan(topology.n_main, topology.n_reorder, topology.n_retail,
-                              sum(topology.ro_L))
+                              sum(topology.ro_L), scratch=scratch)
     return plan, _NetSmem(words=plan.words, **plan.offsets)
 
 
@@ -708,10 +716,21 @@ def _half_hi(T) -> float:
 
 
 def _pack_net_actor(T, actor, std, device):
-    """``episode_kernels._pack_actor`` for the topology: obs_dim inputs,
-    one output per reorder link, each squashed to [0, act_hi)."""
+    """``episode_kernels._pack_actor`` for the topology (K4): obs_dim
+    inputs, one output per reorder link, each squashed to [0, act_hi)."""
     return ek._pack_actor(actor, std, T.obs_dim, T.n_reorder,
                           [_half_hi(T)] * T.n_reorder, device)
+
+
+def _pack_net_tile_actor(T, actor, std, device):
+    """``episode_kernels._pack_tile_actor`` for the topology (K5/K6): the
+    tile's transient rows hold a demand row per retail link and the step's
+    per-node scratch, and each lane keeps the state of ``_shared_layout(T,
+    scratch=False)``."""
+    return ek._pack_tile_actor(actor, std, T.obs_dim, T.n_reorder,
+                               [_half_hi(T)] * T.n_reorder, device, dem_rows=T.n_retail,
+                               scratch_rows=3 * T.n_main,
+                               state_words=_shared_layout(T, False)[0].words)
 
 
 def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH,
@@ -924,7 +943,7 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
     if dev.type == "cpu":
         ek._actor_dims(actor, T.obs_dim, T.n_reorder)
         return _policy_returns_plain(params, actor, std, seed, batch, E, dev, dump)
-    mlp, flat = _pack_net_actor(T, actor, std, dev)
+    st, flat = _pack_net_tile_actor(T, actor, std, dev)
     tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((E, batch), **f32)
@@ -933,8 +952,9 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
         acts = torch.empty((num_steps, E, T.n_reorder, batch), **f32)
         dems = torch.empty((num_steps, E, T.n_retail, batch), **f32)
     with torch.cuda.device(dev):
-        _launch("net_policy_returns", ctypes.addressof(tp), ctypes.addressof(mlp),
-                flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
+        _launch("net_policy_returns", ctypes.addressof(tp),
+                ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
+                flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,
                 dems.data_ptr() if dump else None, seed, batch, E, num_steps,
                 int(std is not None), ek._stream(dev), lib_name="net_policy")
@@ -949,10 +969,12 @@ def episode_returns_net_policy(params: NetInvParams, actor, seed, batch: int,
     fold_actor_params``), the policy run inside the kernel on the live state.
     Deterministic by default; with the trained ``log_std`` the actions are
     tanh-squashed Gaussian samples around the mean. Demand is drawn from the
-    links' CDF tables (a ``hostfn`` link raises NotImplementedError). K5: one
-    thread per (episode, lane) (csrc/net_policy.cu ``k_policy_returns``); on
-    the CPU the plain version runs. Returns (batch,) for
-    episodes_per_lane=1, else (episodes_per_lane, batch)."""
+    links' CDF tables (a ``hostfn`` link raises NotImplementedError). K5: a
+    block per tile of (episode, lane) pairs, one thread each, the actor on
+    the tensor cores and the state in shared memory (csrc/net_policy.cu
+    ``k_policy_returns`` on csrc/mlp_tile.cuh); on the CPU the plain
+    version runs. Returns (batch,) for episodes_per_lane=1, else
+    (episodes_per_lane, batch)."""
     out, _, _ = _policy_call(episode_returns_net_policy, params, actor, seed,
                              batch, episodes_per_lane, log_std, False, device)
     return out.reshape(batch) if episodes_per_lane == 1 else out

@@ -234,7 +234,7 @@ def _bits(u):
 
 
 def _kernel_split(x):
-    """csrc/lstm.cuh split_tf32 on float32 bits: (big, small) as stored."""
+    """csrc/mma_tf32.cuh split_tf32 on float32 bits: (big, small) as stored."""
     u = x.view(np.uint32)
     big = ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).astype(np.uint32)
     with np.errstate(invalid="ignore"):
@@ -243,7 +243,7 @@ def _kernel_split(x):
 
 
 def _keep_nan(x):
-    """csrc/lstm.cuh keep_nan: a NaN as the quiet NaN."""
+    """csrc/mma_tf32.cuh keep_nan: a NaN as the quiet NaN."""
     return np.where(np.isnan(x), _bits(tek._QUIET_NAN_BITS).view(np.float32), x)
 
 
@@ -268,9 +268,12 @@ def test_a_nan_through_keep_nan_stays_a_nan_through_the_split(name):
 
 def test_the_kernel_writes_activations_through_keep_nan():
     """The encoder's and the cell's outputs, the split's only operands that
-    the kernel computes, pass keep_nan."""
+    the kernel computes, pass keep_nan: the encoder's layers through the
+    layer tile that lstm.cuh shares with mlp_tile.cuh (mma_tf32.cuh
+    mma_layer_tiles with TANH), the cell's H in lstm.cuh."""
     text = (CSRC / "lstm.cuh").read_text()
-    assert text.count("make_float2(keep_nan(tanhf(acc[0][nt]") == 2
+    assert "mma_layer_tiles<1, true>(" in text
+    assert "TANH ? keep_nan(tanhf(acc[s][nt][r]))" in (CSRC / "mma_tf32.cuh").read_text()
     assert "hv[l] = keep_nan(" in text
 
 
