@@ -79,8 +79,10 @@ K17's streams and a NaN lane; and K16/K17 at mu_max 30,000, whose Poisson
 table no block holds, so they count linearly, at 4,096 x 2 x 50), and K18-K21 in phase 21 (K18 at 65,536 x
 50, K19/K20 at 65,536 x 16 x 50, lead time 5 and 0, gamma 1 and 0.99,
 deterministic and stochastic, with K13 on K20's streams, K18 against the
-stochastic episode 0, a NaN std and K21's normals through the
-goodness-of-fit pin of tests/test_pallas_policy.py:394-419), and K22-K24
+stochastic episode 0, a NaN std, K19/K20 on a ragged batch, with a NaN
+weight and on the linear count at mu_max 30,000 (4,096 x 2 x 50), and K21's
+normals through the goodness-of-fit pin of
+tests/test_pallas_policy.py:394-419), and K22-K24
 in phase 25 (at 65,536 x 30 with a seeded actor of the benchmark widths,
 Poisson demand in backlog and lost sales, binomial and USER mode, with K7
 on K23's streams, K24 replayed through the env step chain, its raws
@@ -99,8 +101,10 @@ K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 of net_episode.cu's kernels; it fails unless K5/K6's deterministic
 instances (the state in shared memory) have none (the stochastic ones keep
 only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
-hold tensor-core (HMMA) instructions and spill nothing. Then it times the
-vecenv rollout (phase 5),
+hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
+tensor-core tile too) are held as K5/K6, and K8 must have an instance for
+each m1 up to the struct maxima, none with a stack frame or a local-memory
+load or store. Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
 and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
@@ -113,10 +117,12 @@ beat the random policy's (phase 29), then K25-K29 (K27-K29 also at the
 learners' 1,024 lanes) and one TD3 iteration split into the kernel,
 ``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
 for the search it runs (``nv_draw_ops``), with the first version's linear
-count's beside it; K5/K6, K11/K12 and K22-K24's with their tensor-core
-products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate and encoder
-products, ``lstm_tc_flops``) as three TF32 products on the tensor cores
-(``tc_bound``), with the all-FP32 count's beside it.
+count's beside it; K5/K6, K11/K12, K19/K20 and K22-K24's with their
+tensor-core products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate
+and encoder products, ``lstm_tc_flops``) as three TF32 products on the
+tensor cores (``tc_bound``), with the all-FP32 count's beside it (and for
+K19/K20, whose search replaced the linear count, the first version's count
+too).
 Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
@@ -146,7 +152,10 @@ in another order, an ulp of logf/cosf); K4-K6 and K10 free-running against
 their plain versions: at least 99% of lanes agree over the whole episode
 within rtol=1e-4 atol=1e-2, since a rounding tie in rint (NetInvMgmt) or a
 truncation boundary (InvManagement) lets a lane take the other integer and
-diverge (the fraction-closeness rule, ROADMAP.md Queue C). K11 and K12 are
+diverge (the fraction-closeness rule, ROADMAP.md Queue C). K8 against plain
+K8 bit for bit (int32 state, the same arithmetic; E = 1, 16 and a ragged
+batch in phase 10, also on chains of 1, 2 and 8 stocked stages, each m1 its
+own instance; the main path's first lanes in phase 11). K11 and K12 are
 held like K10, and K7 on K12's streams gives K11's returns within rtol=1e-5
 atol=1e-3. Newsvendor (K13-K17): econ and action streams bit for bit; the
 demand equal on at least 99.99% of draws and never more than 1 apart (the
@@ -154,12 +163,14 @@ inversion's logf/expf may differ from torch's by an ulp); returns against
 the plain versions within rtol=1e-5 atol=1e-2 on at least 99% of lanes; the
 chain on K17's streams within rtol=1e-5 atol=1e-3 (the same words and the
 same arithmetic: bit for bit is expected, and the script says whether it
-was). Newsvendor policy kernels (K18-K21): econ bit for bit, demand by the
-K16 rule; K18's raws teacher-forced atol=1e-4; free-running orders, raws,
-rewards and returns by the share of lanes (>= 99% within rtol=1e-4
-atol=1e-2: tanh and the MLP's sum order feed back through the pipeline);
-K13 on K20's streams and K18 against the stochastic K19's episode 0 within
-rtol=1e-5 atol=1e-3 (bit for bit expected, and reported); K21 atol=1e-5.
+was). Newsvendor policy kernels (K18-K21): econ bit for bit; K18's demand
+by the K16 rule, K19/K20's bit for bit; K18's raws teacher-forced
+atol=1e-4; free-running orders, raws, rewards and returns by the share of
+lanes (>= 99% within rtol=1e-4 atol=1e-2: tanh and the MLP's sum order feed
+back through the pipeline); K20 = K19 and K13 on K20's streams = K19 bit for
+bit; the stochastic K19's episode 0 against K18 by the share of lanes (K19's
+actor on the tensor cores, K18's on the FP32 cores; whether bit for bit is
+reported); K21 atol=1e-5.
 LSTM kernels (K22-K24; the kernels run the gate product and the encoder on
 the tensor cores in 3xTF32, which keeps FP32's accuracy, the plain versions
 in full f32 with TF32 off): demand bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
@@ -305,8 +316,10 @@ NV_CASES = [(L, gamma, mu_max) for L in (5, 0) for gamma in (1.0, 0.99)
             for mu_max in (200.0, 3.0)]
 DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain version's
 # a mu_max whose Poisson table (K = 2,005 floats a thread) no block of 32
-# holds, so K14-K17 count linearly; held at a small batch
+# holds, so K14-K17 and K19/K20 count linearly; held at a small batch
 NV_LINEAR_MU_MAX, NV_LINEAR_LANES = 30_000.0, 4_096
+# K8's instances beside the default's three stocked stages (phase 10)
+IM_CHAIN_M1 = (1, 2, 8)
 NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
 # benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for RESULTS.md:56's 4M env-steps
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
@@ -346,7 +359,7 @@ def close(name, got, want, rtol, atol):
 
 def exact(name, got, want):
     if not (got.shape == want.shape and bool((got == want).all())):
-        raise AssertionError(f"{name}: streams differ from the plain Philox twin")
+        raise AssertionError(f"{name}: not equal bit for bit")
 
 
 def lane_share(name, got, want, rtol=1e-4, atol=1e-2, need=LANE_SHARE):
@@ -508,7 +521,7 @@ def nv_draw_ops(params, econ_drawn, table=True):
     load, a compare and a select, the last probe and the suffix's two
     compares (the data's rare linear counts over the suffix not counted);
     without, the linear count of the first version (nv_poisson_invert, as
-    K18-K20 run it): per chunk of 16 periods the K recurrence steps again
+    K18 runs it, and K19/K20's first version): per chunk of 16 periods the K recurrence steps again
     and per period K compare-and-count pairs."""
     from or_gym_inventory_torch.ops import episode_kernels as ek
     T = params.step_limit
@@ -522,14 +535,16 @@ def nv_draw_ops(params, econ_drawn, table=True):
     return (10 * 8 + 9 * 2) + 2 * 3 + 2 + per_episode / T
 
 
-def nv_policy_draw_ops(params, stochastic):
+def nv_policy_draw_ops(params, stochastic, table=False):
     """Operations per env-step of the draws and the head of K18-K20:
     ``nv_draw_ops`` with the reset drawn (the three of its order word's
-    conversion stand for the squash: tanh, add, product) and, when
-    stochastic, the period's Philox block again, two conversions, the
+    conversion stand for the squash: tanh, add, product), by the linear
+    count (K18, and K19/K20's first version) or, with ``table``, the search
+    (K19/K20's tile: every period's demand searched at the reset), and,
+    when stochastic, the period's Philox block again, two conversions, the
     Box-Muller normal (log, sqrt, cos and five arithmetic operations) and
     the sample (product, sum)."""
-    return nv_draw_ops(params, True, table=False) + (
+    return nv_draw_ops(params, True, table=table) + (
         (10 * 8 + 9 * 2) + 2 * 3 + 8 + 2 if stochastic else 0)
 
 
@@ -656,9 +671,9 @@ def ptxas_entries(out):
     flags> registers, stack frame" (and its spills, where it has any)."""
     rows, name, frame = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:L[bi]\d+E)+E)?E", ln)
+        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)+E)?E", ln)
         if m:
-            flags = ",".join(re.findall(r"L[bi](\d+)", m.group(2) or ""))
+            flags = ",".join(re.findall(r"L[bi](n?\d+)", m.group(2) or "")).replace("n", "-")
             name, frame = (f"{m.group(1)}<{flags}>" if flags else m.group(1)), ""
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", ln)
@@ -688,9 +703,9 @@ def sass_counts(so_path):
                          check=True, timeout=120).stdout
     counts, name = {}, None
     for ln in out.splitlines():
-        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:L[bi]\d+E)+E)?E", ln)
+        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)+E)?E", ln)
         if m:
-            flags = ",".join(re.findall(r"L[bi](\d+)", m.group(2) or ""))
+            flags = ",".join(re.findall(r"L[bi](n?\d+)", m.group(2) or "")).replace("n", "-")
             name = m.group(1) + (f"<{flags}>" if flags else "")
             counts[name] = [0, 0, 0]
         elif name:
@@ -702,17 +717,22 @@ def sass_counts(so_path):
 
 def tile_sass_check(logs):
     """Phase 2's check of the tile kernels: every instance of K5/K6
-    (net_policy.cu ``k_policy_returns<STOCH,DUMP>``) and of K11/K12
-    (im_policy.cu ``k_im_policy_returns``) holds HMMA instructions and
-    spills nothing (ptxas, where this run built the library);
-    K5/K6's deterministic instances have no local-memory load or store. Their stochastic instances may keep the
-    32-byte frame of cosf's Payne-Hanek reduction (CUDA's library, for
-    |x| > 105,615; the normals' argument 2 pi u stays below 2 pi, so it is
-    never run), at most 8 LDL/STL. Returns the line to print; raises on a
-    miss."""
+    (net_policy.cu ``k_policy_returns<STOCH,DUMP>``), of K11/K12
+    (im_policy.cu ``k_im_policy_returns``) and of K19/K20 (nv_policy.cu
+    ``k_nv_policy_returns<STOCH,DUMP,LAYOUT>``) holds HMMA instructions and
+    spills nothing (ptxas, where this run built the library); K5/K6's and
+    K19/K20's deterministic instances have no local-memory load or store
+    and no stack. Their stochastic instances may keep the 32-byte frame of
+    cosf's Payne-Hanek reduction (CUDA's library, for |x| > 105,615; the
+    normals' argument 2 pi u stays below 2 pi, so it is never run), at most
+    8 LDL/STL. K19/K20's instances use at most ``_NV_TILE_REGS``
+    registers, which their plan counts. Returns the line
+    to print; raises on a miss."""
     from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
     parts = []
-    for src, kernel in (("net_policy", "k_policy_returns"), ("im_policy", "k_im_policy_returns")):
+    for src, kernel in (("net_policy", "k_policy_returns"), ("im_policy", "k_im_policy_returns"),
+                        ("nv_policy", "k_nv_policy_returns")):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
         if counts is None:
             raise AssertionError("cuobjdump not found: the tile kernels' SASS cannot be read")
@@ -721,17 +741,55 @@ def tile_sass_check(logs):
         ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
         if not mine or any(h == 0 for _, _, h in mine.values()) or any("spills" in e for e in ptx):
             raise AssertionError(f"{kernel}: instances without HMMA or with spills {mine} {ptx}")
-        if src == "net_policy":
+        if src != "im_policy":
             for name, (ld, st, _) in mine.items():
                 stoch = name.startswith(kernel + "<1")
                 frame = next((e for e in ptx if e.startswith(name + " ")), "0 B stack")
                 stack = int(re.search(r"(\d+) B stack", frame).group(1))
                 if ld + st > (8 if stoch else 0) or stack > (32 if stoch else 0):
                     raise AssertionError(f"{name}: {ld} LDL / {st} STL, {frame}")
+        if src == "nv_policy":
+            regs = [int(r) for r in re.findall(r"%s<[\d,]+> (\d+) registers" % kernel,
+                                               "; ".join(ptx))]
+            if ptx and (not regs or max(regs) > ek._NV_TILE_REGS):
+                raise AssertionError(f"{kernel}: its instances use {regs} registers; "
+                                     f"_nv_tile_plan counts {ek._NV_TILE_REGS}")
         parts.append(f"{src}.cu {kernel} (LDL/STL/HMMA) " + ", ".join(
             f"{k} {ld}/{st}/{h}" for k, (ld, st, h) in sorted(mine.items()))
             + "; ptxas " + "; ".join(ptx))
     return "; ".join(parts)
+
+
+def k8_frame_check(logs):
+    """Phase 2's check of K8 (im_episode.cu ``k_im_returns_fused<BACKLOG,
+    M1>``): an instance for each m1 from 1 to IM_MAX_M1 in backlog and lost
+    sales, none with a stack frame or a local-memory load or store (its
+    state in registers and shared memory), each within the registers
+    ``_im_fused_plan`` counts for its m1 (``_IM_FUSED_REGS``). Returns the
+    line to print; raises on a miss."""
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    kernel = "k_im_returns_fused"
+    counts = sass_counts(str(_build._target(_build.CSRC / "im_episode.cu")))
+    if counts is None:
+        raise AssertionError("cuobjdump not found: K8's SASS cannot be read")
+    mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+    log = next((out for so, out in logs.items() if "libim_episode-" in so), "")
+    ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
+    for entry in ptx:
+        m = re.match(r"%s<\d,(\d+)> (\d+) registers, (\d+) B stack" % kernel, entry)
+        cap = ek._IM_FUSED_REGS.get(int(m.group(1)), 0) if m else 0
+        if m is None or int(m.group(3)) or "spills" in entry or int(m.group(2)) > cap:
+            raise AssertionError(f"K8 {entry}: a stack frame, spills or more than {cap} registers")
+    want = 2 * ek.IM_MAX_M1
+    if len(mine) != want or (ptx and len(ptx) != want):
+        raise AssertionError(f"K8: {len(mine)} instances in the SASS, {len(ptx)} in ptxas; "
+                             f"want one for each m1 in backlog and lost sales, {want}")
+    if any(ld + st for ld, st, _ in mine.values()):
+        raise AssertionError(f"K8: local-memory loads or stores {mine}")
+    return ("im_episode.cu k_im_returns_fused (LDL/STL) " + ", ".join(
+        f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(mine.items())) + "; ptxas "
+            + "; ".join(ptx))
 
 
 def k2_graph_check(dev):
@@ -1202,15 +1260,25 @@ def im_cross_check(dev):
     """Phase 10: K7-K9 against their plain versions and each other, for each
     of the five demand modes in backlog and lost sales: at 65,536 x 30
     (E = 1) and at 1,024 lanes x 16 episodes, K9's streams bit for bit
-    against plain K9, K8 against K7 on K9's streams and against plain K8,
-    K7 _random on K9's demand against K8, and K7 against plain K7. Returns
-    the max |diff| per kernel."""
+    against plain K9, K8 against K7 on K9's streams, K8 bit for bit against
+    plain K8 (int32 state, the same arithmetic; also on a ragged batch,
+    ``RAGGED``), K7 _random on K9's demand against K8, and K7 against plain
+    K7. Then K8 bit for bit against plain K8 on chains of ``IM_CHAIN_M1``
+    stocked stages (``im_chain``), each m1 K8's own instance, backlog and
+    lost sales, at E = 1, 16 and ragged. Returns the max |diff| per kernel
+    (K8's is 0: it is held bit for bit)."""
+    import torch
+
     from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.ops import episode_kernels as ek
     err = dict.fromkeys(IM_KERNELS, 0.0)
 
     def track(name, *args):
         err[name] = max(err[name], close(*args, 1e-5, 1e-3))
+
+    def k8_exact(case, got, *plain_args):
+        if not torch.equal(got, ek._im_fused_plain(params, SEED, *plain_args, dev)):
+            raise AssertionError(f"K8 vs plain K8, {case}: not bit for bit")
 
     for label, kw in IM_DIST_MODES:
         for backlog in (True, False):
@@ -1227,21 +1295,48 @@ def im_cross_check(dev):
                   ek.episode_returns_im_random(params, d, SEED), k8, 1e-5, 1e-3)
             track("episode_returns_im", f"K7 vs plain K7, {case}", k7,
                   ek._episode_returns_im_plain(params, a, d))
-            track("episode_returns_im_fused", f"K8 vs plain K8, {case}", k8,
-                  ek._im_fused_plain(params, SEED, CHECK_LANES, 1, dev)[0])
+            k8_exact(case, k8.reshape(1, -1), CHECK_LANES, 1)
             E = MAIN_EPISODES
             a, d = ek.sample_streams_debug_im(params, SEED, MULTI_LANES, E, device=dev)
             pa, pd = ek._im_fused_plain(params, SEED, MULTI_LANES, E, dev, dump=True)
             exact(f"K9 actions, E={E}, {case}", a, pa)
             exact(f"K9 demand, E={E}, {case}", d, pd)
             k8 = ek.episode_returns_im_fused(params, SEED, MULTI_LANES, E, device=dev)
-            track("episode_returns_im_fused", f"K8 vs plain K8, E={E}, {case}", k8,
-                  ek._im_fused_plain(params, SEED, MULTI_LANES, E, dev))
+            k8_exact(f"E={E}, {case}", k8, MULTI_LANES, E)
+            b, e = RAGGED
+            k8_exact(f"ragged {b} x {e}, {case}",
+                     ek.episode_returns_im_fused(params, SEED, b, e, device=dev), b, e)
             for e in range(E):
                 close(f"K8 episode {e} vs K7 on K9's streams, {case}", k8[e],
                       ek.episode_returns_im(params, a[:, e].contiguous(),
                                             d[:, e].contiguous()), 1e-5, 1e-3)
+    for m1 in IM_CHAIN_M1:   # K8's instances for other m1
+        for backlog in (True, False):
+            params = im_chain(m1, backlog)
+            case = f"m1={m1}, {'backlog' if backlog else 'lost sales'}"
+            k8_exact(case, ek.episode_returns_im_fused(params, SEED, CHECK_LANES, device=dev)
+                     .reshape(1, -1), CHECK_LANES, 1)
+            k8_exact(f"E={E}, {case}",
+                     ek.episode_returns_im_fused(params, SEED, MULTI_LANES, E, device=dev),
+                     MULTI_LANES, E)
+            b, e = RAGGED
+            k8_exact(f"ragged {b} x {e}, {case}",
+                     ek.episode_returns_im_fused(params, SEED, b, e, device=dev), b, e)
     return err
+
+
+def im_chain(m1, backlog):
+    """An InvManagement chain of ``m1`` stocked stages, the default's
+    inventories, costs, capacities and lead times taken in turn (lt_max 1
+    at m1 = 1, 5 at 2, 10 past), Poisson demand."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    d = im.default_params()
+
+    def cycle(xs, n):
+        return tuple(xs[i % len(xs)] for i in range(n))
+    return im.default_params(backlog=backlog, I0=cycle(d.I0, m1), r=cycle(d.r, m1 + 1),
+                             k=cycle(d.k, m1 + 1), h=cycle(d.h, m1), c=cycle(d.c, m1),
+                             L=cycle(d.L, m1))
 
 
 def im_main_path(dev, wrappers):
@@ -1251,7 +1346,8 @@ def im_main_path(dev, wrappers):
     ``random_episode_returns`` at 4,194,304 x 16 must launch K8 exactly
     once, nothing else and no plain version. After the counts are read, the
     first 65,536 lanes of episode 0 are held against K7 (the same counters)
-    and the first 1,024 lanes of every episode against plain K8. Returns
+    and the first 1,024 lanes of every episode against plain K8, bit for
+    bit. Returns
     (launches, max |diff| of K8, mean return, streams and seed for phase
     14)."""
     import torch
@@ -1283,10 +1379,9 @@ def im_main_path(dev, wrappers):
     err = close("IM main path: K8 episode 0 vs K7 on K9's streams", ret[0, :CHECK_LANES],
                 k7, 1e-5, 1e-3)
     close("IM main path: K7 _random vs K8 episode 0", k7r, ret[0, :CHECK_LANES], 1e-5, 1e-3)
-    err = max(err, close("IM main path: first lanes vs plain K8",
-                         ret[:, :MULTI_LANES].contiguous(),
-                         ek._im_fused_plain(params, seed, MULTI_LANES, MAIN_EPISODES, dev),
-                         1e-5, 1e-3))
+    if not torch.equal(ret[:, :MULTI_LANES].contiguous(),
+                       ek._im_fused_plain(params, seed, MULTI_LANES, MAIN_EPISODES, dev)):
+        raise AssertionError("IM main path: the first lanes differ from plain K8")
     mean = float(ret.double().mean())
     del ret
     return launches, err, mean, (params, a, d, seed)
@@ -1676,14 +1771,20 @@ def nv_policy_cross_check(dev):
     by DEMAND_SHARE, orders, raws and rewards by the share of lanes, and,
     teacher-forced, its raws the folded actor on its assembled obs plus
     std times the plain normals (atol=1e-4). K19/K20 at 65,536 x 16 x 50,
-    deterministic and stochastic: K20's econ bit for bit and demand by
-    DEMAND_SHARE, K20 = K19, K19 and K20's orders against the plain version
-    by the share of lanes, K13 on K20's streams = K19, the stochastic
-    episode 0 = K18 (econ and demand bit for bit, returns = its
-    gamma^t-summed rewards). A NaN std: NaN raws, orders and returns in the
-    kernels and the plain versions, the econ and demand untouched. K21 at
-    64 x 65,536 against plain K21 and through the goodness-of-fit pin.
-    Returns (max |diff| per kernel, plain ms per kernel, lines)."""
+    deterministic and stochastic: K20's econ and demand bit for bit against
+    the plain version, K20 = K19 bit for bit, K19 and K20's orders against
+    the plain version by the share of lanes, K13 on K20's streams = K19 bit
+    for bit; the stochastic episode 0 against K18: econ and demand bit for
+    bit, its orders and its returns against K18's orders and
+    gamma^t-summed rewards by the share of lanes (K19's actor sums on the
+    tensor cores, K18's on the FP32 cores, so a lane may round the other
+    way; whether they are bit for bit is reported). K19/K20 on a ragged
+    batch (``RAGGED``; deterministic and stochastic) and with a NaN weight
+    (``nan_weight_actor``), against the plain version. A NaN std: NaN raws,
+    orders and returns in the kernels and the plain versions, the econ and
+    demand untouched. K21 at 64 x 65,536 against plain K21 and through the
+    goodness-of-fit pin. Returns (max |diff| per kernel, plain ms per
+    kernel, lines)."""
     import functools
 
     import torch
@@ -1693,7 +1794,7 @@ def nv_policy_cross_check(dev):
     from or_gym_inventory_torch.ops import rng
     B, E = PPO_ENVS, EVAL_EPISODES
     err = dict.fromkeys(NV_POLICY_KERNELS, 0.0)
-    plain_ms, lines, bitwise = {}, [], {"K13 on K20": True, "K19 episode 0 vs K18": True}
+    plain_ms, lines, bitwise = {}, [], {"K19 episode 0 vs K18": True}
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
 
     def track(name, value):
@@ -1740,9 +1841,8 @@ def nv_policy_cross_check(dev):
                                                     SEED, B, E, dev, True)
                 plain_ms.setdefault("sample_policy_streams_debug_nv", ms)
                 exact(f"K20 econ, {kind}, {case}", e20, we)
-                track("sample_policy_streams_debug_nv",
-                      demand_check(f"K20 demand, {kind}, {case}", d20, wd))
-                close(f"K20 vs K19 returns, {kind}, {case}", r20, k19, 1e-5, 1e-3)
+                exact(f"K20 demand vs plain, {kind}, {case}", d20, wd)
+                exact(f"K20 vs K19 returns, {kind}, {case}", r20, k19)
                 sh_r, e19 = lane_share(f"K19 vs plain, {kind}, {case}", k19, want)
                 sh_a, e_orders = lane_share(f"K20 orders vs plain, {kind}, {case}",
                                             a20.reshape(T, E * B), wa.reshape(T, E * B))
@@ -1752,21 +1852,26 @@ def nv_policy_cross_check(dev):
                                             e20.permute(1, 0, 2).reshape(5, E * B).contiguous(),
                                             a20.reshape(T, E * B).contiguous(),
                                             d20.reshape(T, E * B).contiguous()).reshape(E, B)
-                close(f"K13 on K20's streams vs K19, {kind}, {case}", k13, k19, 1e-5, 1e-3)
-                bitwise["K13 on K20"] &= bool(torch.equal(k13, k19))
-                line = (f"K19/K20 {kind}, {case}: econ bit-exact, K13 on K20's streams = "
-                        f"K19, lanes agreeing with plain K19 {sh_r:.4%} (returns), {sh_a:.4%} "
-                        "(orders)")
+                exact(f"K13 on K20's streams vs K19, {kind}, {case}", k13, k19)
+                line = (f"K19/K20 {kind}, {case}: econ and demand bit-exact, K20 = K19 and K13 "
+                        f"on K20's streams = K19 bit for bit, lanes agreeing with plain K19 "
+                        f"{sh_r:.4%} (returns), {sh_a:.4%} (orders)")
                 if ls is not None:
                     exact(f"stochastic K19 episode 0 econ vs K18, {case}", e20[0], tr["econ"])
                     exact(f"stochastic K19 episode 0 demand vs K18, {case}", d20[:, 0],
                           tr["demand"])
                     ret18 = functools.reduce(lambda acc, t: acc + disc[t] * tr["reward"][t],
                                              range(T), torch.zeros_like(k19[0]))
-                    close(f"stochastic K19 episode 0 vs K18's rewards, {case}", k19[0], ret18,
-                          1e-5, 1e-3)
+                    # K19's actor sums on the tensor cores, K18's on the FP32 cores: a
+                    # lane's orders may round apart, so episode 0 is held by lane share
+                    ord18 = (torch.tanh(tr["raw"][:, 0]) + 1.0) * ek._nv_half_hi(params)[0]
+                    sh_o, _ = lane_share(f"stochastic K19 episode 0 orders vs K18's, {case}",
+                                         a20[:, 0], ord18)
+                    sh_e, _ = lane_share(f"stochastic K19 episode 0 vs K18's rewards, {case}",
+                                         k19[0], ret18)
                     bitwise["K19 episode 0 vs K18"] &= bool(torch.equal(k19[0], ret18))
-                    line += "; episode 0 = K18"
+                    line += (f"; episode 0 against K18: econ and demand bit-exact, lanes "
+                             f"agreeing {sh_o:.4%} (orders), {sh_e:.4%} (returns)")
                 lines.append(line)
                 del k19, r20, e20, a20, d20, want, we, wa, wd, k13
             nan_ls = torch.full_like(log_std, float("nan"))
@@ -1782,6 +1887,8 @@ def nv_policy_cross_check(dev):
                 raise AssertionError(f"K18/K19 with a NaN std, {case}: not NaN throughout, or "
                                      "the econ or demand moved")
             del tr, got, plain, got19
+            if (L, gamma) == (5, 1.0):
+                lines += nv_tile_edge_cases(params, dev, actor, log_std)
     lines.append("a NaN std: NaN raws, orders, rewards and returns in K18, K19 and plain K18, "
                  "the econ and demand unchanged; bit for bit: " + ", ".join(
                      f"{k} {v}" for k, v in bitwise.items()))
@@ -1794,6 +1901,75 @@ def nv_policy_cross_check(dev):
                  "goodness-of-fit pin holds: " + ", ".join(f"{k} {v:.6g}" for k, v in pin.items()))
     torch.cuda.synchronize()
     return err, plain_ms, lines
+
+
+def nv_tile_edge_cases(params, dev, actor, log_std):
+    """K19/K20 on the tile's edges, against the plain version: a ragged batch
+    (``RAGGED``), deterministic and stochastic, econ and demand bit for bit,
+    returns and orders by the share of lanes; a NaN weight in the hidden
+    layer 1 (``nan_weight_actor``): NaN orders and returns as the plain
+    version's, the econ and demand bit for bit; and the linear count, the
+    layout the entry points take where no Poisson table fits a block
+    (``NV_LINEAR_MU_MAX`` on ``NV_LINEAR_LANES`` x 2, deterministic and
+    stochastic): econ and demand bit for bit, K20 = K19, returns and orders
+    by the share of lanes. Returns the lines to print."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    b, e = RAGGED
+    T, lines = params.step_limit, []
+    for ls in (None, log_std):
+        kind = "deterministic" if ls is None else "stochastic"
+        ret, econ, acts, dems = ek.sample_policy_streams_debug_nv(params, actor, SEED, b, e, ls,
+                                                                  dev)
+        want, we, wa, wd = ek._nv_policy_plain(params, actor,
+                                               None if ls is None else ek.clipped_std(ls), SEED,
+                                               b, e, dev, True)
+        exact(f"K20 ragged econ, {kind}", econ, we)
+        exact(f"K20 ragged demand, {kind}", dems, wd)
+        share, _ = lane_share(f"K19/K20 ragged {b} x {e}, {kind}", ret, want)
+        share_a, _ = lane_share(f"K20 ragged orders, {kind}", acts.reshape(T, e * b),
+                                wa.reshape(T, e * b))
+        lines.append(f"K19/K20 ragged {b} x {e} ({b * e % 64} pairs in the last tile), {kind}: "
+                     f"econ and demand bit-exact, lanes agreeing with plain {share:.4%} "
+                     f"(returns), {share_a:.4%} (orders)")
+    bad = nan_weight_actor(actor)
+    ret, econ, acts, dems = ek.sample_policy_streams_debug_nv(params, bad, SEED, 4_096, 2, None,
+                                                              dev)
+    want, we, wa, wd = ek._nv_policy_plain(params, bad, None, SEED, 4_096, 2, dev, True)
+    exact("K20 NaN weight econ", econ, we)
+    exact("K20 NaN weight demand", dems, wd)
+    if not all(bool(torch.isnan(x).all()) for x in (ret, acts, want, wa)):
+        raise AssertionError("K19/K20 NaN weight: orders and returns not all NaN")
+    lines.append("K19/K20 NaN weight (0x7fffffff in layer 1): NaN orders and returns as the "
+                 "plain version's, econ and demand bit-exact")
+    lin = nv_params(params.lead_time, params.gamma, NV_LINEAR_MU_MAX)
+    st = ek._nv_plan(lin, "cpu")["struct"]   # the host's struct: K, kc_max
+    dims = tuple([lin.obs_dim] + [int(W.shape[1]) for W in actor[0]])
+    plan = ek._nv_tile_choice(dims, st.L, st.K, lin.step_limit, st.kc_max)
+    if plan.layout != "linear":
+        raise AssertionError(f"K19 at mu_max={NV_LINEAR_MU_MAX} (K = {st.K}) takes the "
+                             f"{plan.layout} layout, not the linear count")
+    b, e = NV_LINEAR_LANES, 2
+    for ls in (None, log_std):
+        kind = "deterministic" if ls is None else "stochastic"
+        case = f"the linear count, mu_max={NV_LINEAR_MU_MAX}, {kind}"
+        k19 = ek.episode_returns_nv_policy(lin, actor, SEED, b, e, ls, dev)
+        ret, econ, acts, dems = ek.sample_policy_streams_debug_nv(lin, actor, SEED, b, e, ls, dev)
+        want, we, wa, wd = ek._nv_policy_plain(lin, actor,
+                                               None if ls is None else ek.clipped_std(ls), SEED,
+                                               b, e, dev, True)
+        exact(f"K20 econ, {case}", econ, we)
+        exact(f"K20 demand, {case}", dems, wd)
+        exact(f"K20 vs K19 returns, {case}", ret, k19)
+        share, _ = lane_share(f"K19 vs plain, {case}", k19, want)
+        share_a, _ = lane_share(f"K20 orders vs plain, {case}", acts.reshape(-1, e * b),
+                                wa.reshape(-1, e * b))
+        lines.append(f"K19/K20 {case} at {b} x {e} x {lin.step_limit} (K = {st.K}, "
+                     f"{plan.lanes} lanes, {plan.bytes} B a block): econ and demand bit-exact, "
+                     f"K20 = K19, lanes agreeing with plain {share:.4%} (returns), "
+                     f"{share_a:.4%} (orders)")
+    return lines
 
 
 def nv_reward_check(dev, params):
@@ -2737,8 +2913,10 @@ def main() -> int:
           "graph; SASS LDL/STL per kernel of net_episode.cu: "
           + ("cuobjdump not found" if local is None else
              ", ".join(f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(local.items()))), flush=True)
-    print("[2 build] K5/K6 and K11/K12 on the tensor-core tile (mlp_tile.cuh): "
+    print("[2 build] K5/K6, K11/K12 and K19/K20 on the tensor-core tile (mlp_tile.cuh): "
           + tile_sass_check(logs), flush=True)
+    print("[2 build] K8, its ring in shared memory and its stages in registers: "
+          + k8_frame_check(logs), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -2917,8 +3095,11 @@ def main() -> int:
     err.update(im_cross_check(dev))
     print(f"[10 IM cross-check] 5 demand modes x backlog/lost sales at {CHECK_LANES} x "
           f"{NUM_STEPS} and {MULTI_LANES} x {MAIN_EPISODES}: K9 streams bit-exact; K8 = K7 "
-          "on K9's streams = K7 _random on K9's demand, and K7, K8 = their plain versions, "
-          f"within rtol=1e-5 atol=1e-3; max |diff| "
+          "on K9's streams = K7 _random on K9's demand within rtol=1e-5 atol=1e-3; K8 = plain "
+          f"K8 bit for bit (also ragged {RAGGED[0]} x {RAGGED[1]}, and at m1 = "
+          f"{', '.join(map(str, IM_CHAIN_M1))} at E = 1, {MAIN_EPISODES} and ragged); "
+          "K7 = plain K7 within "
+          f"rtol=1e-5 atol=1e-3; max |diff| "
           f"{ {k: err[k] for k in IM_KERNELS[:2]} }; {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3018,6 +3199,7 @@ def main() -> int:
     im_summary = dict(im_rates, random_ms=im_t["best_ms"],
                       random_env_steps_s=env_steps / im_t["best_ms"] * 1e3,
                       k10_share_of_update=k10_t["best_ms"] / im_update_ms,
+                      k8_ms=k8_t["best_ms"], k8_bound_ms=work["episode_returns_im_fused"][0],
                       validate_avg_reward=avg, validate_eval_se=se)
 
     # 16. K11/K12 against their plain versions, with phase 13's trained actor
@@ -3215,14 +3397,19 @@ def main() -> int:
     k21_t = cuda_time(ek.sample_normals_debug, SEED, NORMAL_ROWS, PPO_ENVS, dev, warmup=2,
                       iters=20)
     nv_dims = [nv_p.obs_dim, 64, 64, 1]
-    nv_det = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False)
+    nv_det_linear = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False)
+    nv_det = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False, table=True)
     nv_sto = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, True)
     n_nv_eval = PPO_ENVS * E * nv_T
+    nv_bytes = {"episode_returns_nv_policy": PPO_ENVS * E * 4,
+                "sample_policy_streams_debug_nv": PPO_ENVS * E * (1 + 5 + 2 * nv_T) * 4}
+    nv_tile_bounds = {name: tc_bound(n_bytes, n_nv_eval, nv_det, mlp_tc_flops(nv_dims))
+                      for name, n_bytes in nv_bytes.items()}
+    nv_first_bounds = {name: bound(n_bytes, n_nv_eval * nv_det_linear)
+                       for name, n_bytes in nv_bytes.items()}
+    work.update({name: b for name, (b, _) in nv_tile_bounds.items()})
     work.update({
         "rollout_traj_nv": bound(PPO_ENVS * (5 + 4 * nv_T) * 4, PPO_ENVS * nv_T * nv_sto),
-        "episode_returns_nv_policy": bound(PPO_ENVS * E * 4, n_nv_eval * nv_det),
-        "sample_policy_streams_debug_nv": bound(PPO_ENVS * E * (1 + 5 + 2 * nv_T) * 4,
-                                                n_nv_eval * nv_det),
         "sample_normals_debug": bound(NORMAL_ROWS * PPO_ENVS * 4,
                                       NORMAL_ROWS * PPO_ENVS * NORMAL_OPS),
     })
@@ -3230,11 +3417,20 @@ def main() -> int:
         ("rollout_traj_nv", k18_t), ("episode_returns_nv_policy", k19_t),
         ("sample_policy_streams_debug_nv", k20_t), ("sample_normals_debug", k21_t))})
     print(f"[24 work] NV policy per env-step: MLP {mlp_ops(nv_dims)} + step {nv_step} + draws "
-          f"{nv_policy_draw_ops(nv_p, False):.1f} (deterministic) / "
-          f"{nv_policy_draw_ops(nv_p, True):.1f} (stochastic) ops; K21 {NORMAL_OPS} ops a "
-          f"normal; plain versions timed in phase 21 with its seeded actor", flush=True)
+          f"{nv_policy_draw_ops(nv_p, False, table=True):.1f} (K19/K20, deterministic, the "
+          f"search) / {nv_policy_draw_ops(nv_p, False):.1f} (the first version's linear count) / "
+          f"{nv_policy_draw_ops(nv_p, True):.1f} (K18, stochastic) ops; K19/K20 run the MLP's "
+          f"{mlp_tc_flops(nv_dims)} FLOPs on the tensor cores as three TF32 products; K21 "
+          f"{NORMAL_OPS} ops a normal; plain versions timed in phase 21 with its seeded actor",
+          flush=True)
     for name in NV_POLICY_KERNELS:
         print_kernel(24, name, times[name], work[name], launches[name])
+        if name in nv_tile_bounds:
+            fp32_ms, first_ms = nv_tile_bounds[name][1], nv_first_bounds[name][0]
+            kt = times[name][0]["best_ms"]
+            print(f"[24 kernel] {name}: bound with every operation at FP32 {fp32_ms:.4f} ms "
+                  f"({fp32_ms / kt:.1%} of it); by the first version's count (the linear "
+                  f"count, FP32) {first_ms:.4f} ms ({first_ms / kt:.1%})", flush=True)
     print(f"[24 kernel] episode_returns_nv_policy, stochastic: {k19s_t['best_ms']:.4f} ms "
           f"(mean {k19s_t['mean_ms']:.4f}); rollout_traj_nv is "
           f"{k18_t['best_ms'] / nv_update_ms:.1%} of the best NV PPO update "
@@ -3250,6 +3446,10 @@ def main() -> int:
           "RESULTS.md's TPU rows, rewards not speeds: PPO +97,569, best heuristic -106,568 "
           f"(XLA rollout, 30 episodes); {time.perf_counter() - t0:.1f} s", flush=True)
     nv_summary.update(k18_ms=k18_t["best_ms"], k19_ms=k19_t["best_ms"],
+                      k19_stoch_ms=k19s_t["best_ms"],
+                      k19_bound_ms=work["episode_returns_nv_policy"][0],
+                      k19_fp32_bound_ms=nv_tile_bounds["episode_returns_nv_policy"][1],
+                      k19_first_bound_ms=nv_first_bounds["episode_returns_nv_policy"][0],
                       k18_share_of_update=k18_t["best_ms"] / nv_update_ms,
                       reward_mean=nv_avg, reward_se=nv_se, reward_train_s=nv_wall,
                       reward_updates=nv_upd)

@@ -15,6 +15,17 @@
 //    binary search of the demand table. One thread per (episode, lane): the
 //    TPU interleaved E episodes per lane to hide the serial period chain;
 //    here more resident threads do that job, so E only widens the grid.
+//    The first version kept the whole state in the thread's ImEpisode, a
+//    1,232-byte local frame; at 4,194,304 x 16 threads its loads went to
+//    L2 (54.6 ms on an H100, PERF.md). Now the ring of fulfilled orders
+//    lives in the thread's column of shared memory ([word][thread], lt m1
+//    words, sized by ops/episode_kernels.py _im_fused_plan) and every stage
+//    loop of im_step.cuh is unrolled, so on-hand, backlog, the actions and
+//    the step's per-stage arrays are registers: no frame at all. There is
+//    an instance for each m1 from 1 to IM_MAX_M1, its loops unrolled to
+//    exactly m1 stages (32 registers at m1 = 3); one instance unrolled to
+//    IM_MAX_M1 under i < m1 predicates took 71-79 registers and ran 1.8x
+//    slower at m1 = 3 (tools/im_fused_sweep.py times both).
 // K9 k_im_sample_streams  replaces sample_streams_debug_im (:1873, body
 //    _im_streams_debug_kernel :901): the streams K8 draws, through the same
 //    draws. Bound by bytes: the streams it writes.
@@ -29,6 +40,12 @@
 #include "im_step.cuh"
 #include "launch.cuh"
 #include "philox.cuh"
+
+// K8's launch, sized by ops/episode_kernels.py _im_fused_plan (mirrored
+// there by _ImSmem): threads a block and the ring's words a thread (lt m1).
+struct ImSmem {
+  int threads, words;
+};
 
 namespace {
 
@@ -60,26 +77,34 @@ __global__ void k_im_returns(const __grid_constant__ ImParams p,
   out[b] = total;
 }
 
-template <bool BACKLOG>
+// K8: one thread per (episode, lane), the state of ImSharedEpisode<M1>:
+// on-hand and backlog in registers, the ring of fulfilled orders in the
+// thread's lay.words words of dynamic shared memory ([word][thread]). A
+// thread touches only its own column, so there is no barrier and a thread
+// past the batch returns at once.
+template <bool BACKLOG, int M1>
 __global__ void k_im_returns_fused(const __grid_constant__ ImParams p,
                                    const float* __restrict__ table,
                                    const int* __restrict__ user_d,
                                    const float* __restrict__ disc,
                                    float* __restrict__ out, unsigned seed,
                                    long long B, int E, int T) {
+  extern __shared__ int ring_words[];
   const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (idx >= B * E) return;
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
-  ImEpisode s;
-  im_reset(p, s);
-  int act[IM_MAX_M1], r_req[IM_MAX_M1];
+  ImSharedEpisode<M1> s;
+  s.rh = ring_words + threadIdx.x;
+  s.stride = (int)blockDim.x;
+  im_reset<M1>(p, s);
+  int act[im_width<M1>()], r_req[im_width<M1>()];
   float total = 0.f;
   for (int t = 0; t < T; ++t) {
     WordStream ws(seed, 0u, lane, e, (unsigned)t);
-    im_draw_actions(p, ws, act);
+    im_draw_actions<M1>(p, ws, act);
     const int d = im_demand(p, table, user_d, t, ws.next());
-    const float profit = im_step<BACKLOG>(p, s, t, act, d, r_req);
+    const float profit = im_step<BACKLOG, M1>(p, s, t, act, d, r_req);
     total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), profit));
   }
   out[idx] = total;  // (E, B), episode-major
@@ -104,6 +129,32 @@ __global__ void k_im_sample_streams(const __grid_constant__ ImParams p,
   }
 }
 
+template <bool BACKLOG, int M1>
+int launch_fused(const ImParams& p, const ImSmem& lay, const float* table, const int* user_d,
+                 const float* disc, float* out, unsigned seed, long long B, int E, int T,
+                 cudaStream_t stream) {
+  auto kernel = k_im_returns_fused<BACKLOG, M1>;
+  const size_t smem = (size_t)lay.words * lay.threads * sizeof(int);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((B * E + lay.threads - 1) / lay.threads);
+  kernel<<<blocks, lay.threads, smem, stream>>>(p, table, user_d, disc, out, seed, B, E, T);
+  return (int)cudaGetLastError();
+}
+
+// K8's instance for the params' m1, M1 .. IM_MAX_M1.
+template <bool BACKLOG, int M1 = 1>
+int launch_fused_m1(const ImParams& p, const ImSmem& lay, const float* table, const int* user_d,
+                    const float* disc, float* out, unsigned seed, long long B, int E, int T,
+                    cudaStream_t stream) {
+  if (p.m1 == M1)
+    return launch_fused<BACKLOG, M1>(p, lay, table, user_d, disc, out, seed, B, E, T, stream);
+  if constexpr (M1 < IM_MAX_M1)
+    return launch_fused_m1<BACKLOG, M1 + 1>(p, lay, table, user_d, disc, out, seed, B, E, T,
+                                            stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -118,14 +169,16 @@ int im_episode_returns(const ImParams* p, const int* acts, const int* dems,
   return (int)cudaGetLastError();
 }
 
-int im_episode_returns_fused(const ImParams* p, const float* table,
+// K8 on lay->threads a block with lay->words of ring a thread, the
+// instance unrolled to the params' m1.
+int im_episode_returns_fused(const ImParams* p, const ImSmem* lay, const float* table,
                              const int* user_d, const float* disc, float* out,
                              unsigned seed, int backlog, long long B, int E,
                              int T, cudaStream_t stream) {
-  auto kernel = backlog ? k_im_returns_fused<true> : k_im_returns_fused<false>;
-  kernel<<<blocks_for(B * E), kThreads, 0, stream>>>(*p, table, user_d, disc, out,
-                                                     seed, B, E, T);
-  return (int)cudaGetLastError();
+  return backlog ? launch_fused_m1<true>(*p, *lay, table, user_d, disc, out, seed, B, E, T,
+                                         stream)
+                 : launch_fused_m1<false>(*p, *lay, table, user_d, disc, out, seed, B, E, T,
+                                          stream);
 }
 
 int im_sample_streams(const ImParams* p, const float* table, const int* user_d,

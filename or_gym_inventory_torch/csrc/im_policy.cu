@@ -43,8 +43,8 @@
 // in 3xTF32; then the thread draws its pair's demand (a register) and,
 // when stochastic, its normals (the transient rows of its column), takes
 // its actions and steps. The InvManagement step stays on K10's per-thread frame
-// (ImEpisode and the ring of requested orders, local memory): K8 steps
-// 31 M env-steps from such a frame in ~0.9 ms. Bound by operations: the
+// (ImEpisode and the ring of requested orders, local memory). Bound by
+// operations: the
 // products, 2 sum(in out) FLOPs an env-step, as three TF32 products each.
 // The batch tail is masked: a warp past it returns, a pair past it
 // computes (its warp's products need every thread) but writes nothing.

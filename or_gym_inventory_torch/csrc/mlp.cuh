@@ -1,7 +1,7 @@
-// The folded MLP actor as the policy kernels run it, one forward pass per
-// thread, shared by the NetInvMgmt policy kernels (net_policy.cu K4-K6) and
-// the InvManagement trajectory kernel (im_policy.cu K10). It replaces the
-// in-kernel pallas_episode_kernels.mlp_forward (:1124).
+// The folded MLP actor as the trajectory kernels run it, one forward pass
+// per thread, shared by K4 (net_policy.cu), K10 (im_policy.cu) and K18
+// (nv_policy.cu); the learned-policy returns kernels run mlp_tile.cuh's. It
+// replaces the in-kernel pallas_episode_kernels.mlp_forward (:1124).
 //
 // The folded actor (obs normalisation already in layer 1) is copied once per
 // block into shared memory, each layer as W^T (in, out16) row-major, then b

@@ -29,27 +29,54 @@
 //    Box-Muller normals of the policy kernels' generator, (rows, B), for the
 //    goodness-of-fit pin.
 //
-// Design (a simple kernel first): one thread per lane (K18) or per
-// (episode, lane) (K19/K20), as K10/K11. The step, the reset's formulas and
-// the inversion are nv_step.cuh's, unchanged; the actor is mlp.cuh's
-// (weights and activations in shared memory: 5,905 floats of weights for the
-// default 10-64-64-1 actor and 64 KB of activations at 128 threads). The
-// observation is assembled from the live state in the order of
-// _nv_policy_kernel (:586) and _nv_traj_kernel (:1783): econ, then the
-// pipeline oldest first, ring[(head + j) % L]. Demand does not depend on the
-// orders, so each chunk of NV_CHUNK = 16 periods first draws its 16 demand
-// words and inverts them with one recurrence, then runs its 16 policy
-// periods; the chunk's demands wait in a small local array. Bound by
-// operations: the MLP's ~9,900 per env-step dwarf the step and the draws.
-// K21 writes one float per two words: bound by bytes.
+// K18's design (a simple kernel first): one thread per lane, as K10. The
+// step, the reset's formulas and the inversion are nv_step.cuh's; the actor
+// is mlp.cuh's (weights and activations in shared memory: 5,905 floats of
+// weights for the default 10-64-64-1 actor and 64 KB of activations at 128
+// threads). The observation is assembled from the live state in the order
+// of _nv_policy_kernel (:586) and _nv_traj_kernel (:1783): econ, then the
+// pipeline oldest first, ring[(head + j) % L]. Demand does not depend on
+// the orders, so each chunk of NV_CHUNK = 16 periods first draws its 16
+// demand words and inverts them with one recurrence (the linear count),
+// then runs its 16 policy periods. Bound by operations: the MLP's ~9,900
+// per env-step dwarf the step and the draws. K21 writes one float per two
+// words: bound by bytes.
+//
+// K19/K20's design: a block per tile of (episode, lane) pairs, one thread
+// each (mlp_tile.cuh), as K5/K6 and K11/K12. The first version ran K18's
+// design with E episodes per lane: 37.97 ms at 65,536 x 16 x 50 on an H100
+// (PERF.md), the MLP on the FP32 cores, each chunk of 16 periods rerunning
+// the K = 177 recurrence steps of the linear count. Now:
+// - the reset draws the econ, builds the episode's table of suffix sums
+//   (nv_step.cuh nv_table_setup, K14-K17's) in the pair's column and
+//   searches every period's demand up front (nv_table_invert, the same
+//   counts bit for bit as the linear count), keeping each as 16 bits, two a
+//   word, in rows that last the episode; a block barrier, and the table's
+//   rows become the activations and the pipeline (NV_DEM_UPFRONT). The
+//   table needs K rows a lane only while the reset runs; the demand ceil(T
+//   / 2);
+// - per period each thread writes its obs column (through keep_nan); its
+//   warp runs the actor for its 32 pairs on the tensor cores in 3xTF32;
+//   the thread adds its normal when stochastic, squashes the order and
+//   steps its pair with nv_step_ring on the pipeline in its column of
+//   shared memory ([slot][lane]); econ, head and the Poisson anchor live in
+//   registers. No local frame in the deterministic instances.
+// Bound by operations: the products, 2 sum(in out) FLOPs an env-step, as
+// three TF32 products each; the reset's table and searches come next.
+// Where no table fits a block, the demand is the linear count per chunk
+// (NV_DEM_LINEAR); tools/nv_tile_sweep.py times it, and two layouts of its
+// own, beside the up-front one. The batch tail is masked: a warp past it returns after the
+// reset's barrier, a pair past it computes but writes nothing.
 //
 // Random stream (philox.cuh): key (seed, 1), counter (lane, episode, period,
 // block). The reset's five uniforms are the first five words of period
 // NV_ECON_PERIOD; period t's word 0 is its demand's uniform and, when
 // stochastic, words 1 and 2 the u1 and u2 of its normal (act_dim 1), so the
 // policy period recomputes the period's block for them. K18 is episode 0, so
-// episode 0 of the stochastic K19 draws exactly K18's words and takes K18's
-// orders for the same seed; the deterministic K19 draws one word a period.
+// episode 0 of the stochastic K19 draws exactly K18's words (its actor sums
+// on the tensor cores, K18's on the FP32 cores, so their orders agree lane
+// by lane but for a rounding); the deterministic K19 draws one word a
+// period.
 // K28 draws K18's reset and demand words; its head's words are words 1 and 2
 // of the period (word 1 alone for "uniform").
 // K21's element (row, lane) is normal01(word 0, word 1) of counter
@@ -67,9 +94,30 @@
 
 #include "launch.cuh"
 #include "mlp.cuh"
+#include "mlp_tile.cuh"
 #include "nv_step.cuh"
 #include "philox.cuh"
 #include "wide_mlp.cuh"
+
+// Where the tile kernel K19/K20 takes its demand from (NvTile.layout):
+#define NV_DEM_LINEAR 0   // per chunk of NV_CHUNK periods, the linear count
+                          // (nv_poisson_invert) into NV_CHUNK rows: where
+                          // no table fits a block (_nv_tile_plan)
+#define NV_DEM_UPFRONT 1  // the whole episode's demand searched at the
+                          // reset into ceil(T / 2) rows, the table on the
+                          // rows the activations and the ring take after it
+
+// The tile kernel's regions beside the MlpTile's activation buffer, float
+// offsets, each [row][lane] at a stride of the tile's lanes (a multiple of
+// 32, so that the lanes' data-dependent table probes and their rows of
+// demand and pipeline fall on 32 banks), as ops/episode_kernels.py
+// _nv_tile_plan lays them out (mirrored there by _NvTile).
+struct NvTile {
+  int layout;   // NV_DEM_*
+  int s_dem;    // the demand rows
+  int s_ring;   // the pipeline, L rows
+  int s_table;  // the table, K rows; -1 for NV_DEM_LINEAR
+};
 
 namespace {
 
@@ -84,12 +132,11 @@ __device__ __forceinline__ void policy_reset(const NvParams& p, unsigned seed,
   nv_econ(p, u, s);
 }
 
-// The demand of periods t0 .. t0 + NV_CHUNK - 1 (word 0 of each), inverted
-// with one recurrence; past the horizon no step reads it.
-__device__ __forceinline__ void chunk_demand(const NvParams& p, const NvPoisson& q,
-                                             unsigned seed, unsigned lane, unsigned e,
-                                             int t0, int T, float* d) {
-  float v[NV_CHUNK];
+// The thresholds v = (1 - u) * total of periods t0 .. t0 + NV_CHUNK - 1
+// (u from word 0 of each); 0 past the horizon, where no step reads them.
+__device__ __forceinline__ void chunk_thresholds(const NvPoisson& q, unsigned seed,
+                                                 unsigned lane, unsigned e, int t0, int T,
+                                                 float* v) {
 #pragma unroll
   for (int i = 0; i < NV_CHUNK; ++i) {
     v[i] = 0.f;
@@ -98,6 +145,15 @@ __device__ __forceinline__ void chunk_demand(const NvParams& p, const NvPoisson&
       v[i] = __fmul_rn(__fsub_rn(1.f, u01(ws.next())), q.total);
     }
   }
+}
+
+// The demand of periods t0 .. t0 + NV_CHUNK - 1, inverted with one
+// recurrence.
+__device__ __forceinline__ void chunk_demand(const NvParams& p, const NvPoisson& q,
+                                             unsigned seed, unsigned lane, unsigned e,
+                                             int t0, int T, float* d) {
+  float v[NV_CHUNK];
+  chunk_thresholds(q, seed, lane, e, t0, T, v);
   nv_poisson_invert(p, q, v, d);
 }
 
@@ -172,52 +228,176 @@ __global__ void k_nv_rollout_traj(const __grid_constant__ NvParams p,
   }
 }
 
-template <bool STOCH, bool DUMP>
+// The tile's demand of one (lane, episode): the thresholds of the period
+// words and, per layout, the linear count or the table's search.
+struct TileDemand {
+  const NvParams& p;
+  const NvTile& nt;
+  NvPoisson q;
+  NvTable tb;
+  float* rows;  // the pair's column of the demand rows, nt.s_dem
+  int N;        // the rows' stride: the tile's lanes
+
+  // LAYOUT's setup of the anchor: the renormalisation total, or the table
+  // in the pair's column of nt.s_table and the total.
+  template <int LAYOUT>
+  __device__ __forceinline__ void setup(float* smem, int n) {
+    if (LAYOUT == NV_DEM_LINEAR)
+      q.total = nv_poisson_total(p, q);
+    else
+      tb = nv_table_setup(p, q, smem + nt.s_table + n, N);
+  }
+
+  // NV_DEM_LINEAR: periods t0 .. t0 + NV_CHUNK - 1 into the rows.
+  __device__ __forceinline__ void chunk(unsigned seed, unsigned lane, unsigned e, int t0,
+                                        int T) const {
+    float v[NV_CHUNK], d[NV_CHUNK];
+    chunk_thresholds(q, seed, lane, e, t0, T, v);
+    nv_poisson_invert(p, q, v, d);
+#pragma unroll
+    for (int i = 0; i < NV_CHUNK; ++i) rows[i * N] = d[i];
+  }
+
+  // NV_DEM_UPFRONT: every period's demand searched in the table into the
+  // rows, two a word (16 bits each: a demand is an integer in [0, kc + 1],
+  // kc + 1 < 2^16 where a table fits, _nv_tile_plan); a NaN mu (then kc is
+  // NaN, and so is every demand) is read back from kc.
+  __device__ __forceinline__ void upfront(unsigned seed, unsigned lane, unsigned e, int T) {
+    unsigned* words = reinterpret_cast<unsigned*>(rows);
+    for (int t0 = 0; t0 < T; t0 += NV_CHUNK) {
+      float v[NV_CHUNK], d[NV_CHUNK];
+      chunk_thresholds(q, seed, lane, e, t0, T, v);
+      nv_table_invert(p, q, tb, v, d);
+#pragma unroll
+      for (int i = 0; i < NV_CHUNK; i += 2)
+        if (t0 + i < T)
+          words[((t0 + i) >> 1) * N] = (unsigned)d[i] | ((unsigned)d[i + 1] << 16);
+    }
+  }
+
+  // The demand of period t, i its index in the chunk.
+  template <int LAYOUT>
+  __device__ __forceinline__ float at(int t, int i) const {
+    if (LAYOUT == NV_DEM_LINEAR) return rows[i * N];
+    if (isnan(q.kc)) return __int_as_float(0x7fffffff);
+    const unsigned w = reinterpret_cast<const unsigned*>(rows)[(t >> 1) * N];
+    return (float)((w >> ((t & 1) << 4)) & 0xFFFFu);
+  }
+};
+
+// The pair's observation column x (rows S apart), in the order of
+// policy_period's: econ, then the pipeline oldest first, through keep_nan
+// (a NaN order reaches the ring); then zero rows up to pad8(obs_dim).
+__device__ __forceinline__ void tile_obs(const NvParams& p, const NvEcon& c,
+                                         const NvSharedRing& ring, int head, int obs_pad,
+                                         float* x, int S) {
+  x[0] = keep_nan(c.price);
+  x[S] = keep_nan(c.cost);
+  x[2 * S] = keep_nan(c.h);
+  x[3 * S] = keep_nan(c.k);
+  x[4 * S] = keep_nan(c.mu);
+  for (int j = 0; j < p.L; ++j) {
+    int k = head + j;
+    if (k >= p.L) k -= p.L;
+    x[(5 + j) * S] = keep_nan(ring(k));
+  }
+  for (int k = 5 + p.L; k < obs_pad; ++k) x[k * S] = 0.f;
+}
+
+// The reset of one (lane, episode) in the tile: the economics from the
+// first five words of period NV_ECON_PERIOD (dumped when DUMP), the
+// Poisson anchor.
+template <bool DUMP>
+__device__ __forceinline__ NvEcon tile_reset(const NvParams& p, const float* __restrict__ lgam,
+                                             unsigned seed, unsigned lane, unsigned e,
+                                             bool live, float* econo, long long B,
+                                             NvPoisson& q) {
+  WordStream ws(seed, 1u, lane, e, NV_ECON_PERIOD);
+  float u[5];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) u[r] = u01(ws.next());
+  const NvEcon c = nv_econ(p, u);
+  if (DUMP && live) {
+    float* row = econo + (long long)e * 5 * B + lane;  // (E, 5, B)
+    row[0] = c.price;
+    row[B] = c.cost;
+    row[2 * B] = c.h;
+    row[3 * B] = c.k;
+    row[4 * B] = c.mu;
+  }
+  q = nv_poisson_anchor(p, lgam, c.mu);
+  return c;
+}
+
+// K19/K20 on the tensor-core tile (mlp_tile.cuh): a block of m.lanes
+// (lane, episode) pairs, one thread each, the pair's column of the
+// activation buffer its observation and H. LAYOUT is where the demand
+// comes from (NvTile). The episode's pipeline lives in the pair's column
+// of nt.s_ring; its head, econ and Poisson anchor in registers.
+template <bool STOCH, bool DUMP, int LAYOUT>
 __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
-                                    const __grid_constant__ Mlp m,
-                                    const float* __restrict__ params, int n_params,
+                                    const __grid_constant__ MlpTile m,
+                                    const __grid_constant__ NvTile nt,
+                                    const float* __restrict__ w,
                                     const float* __restrict__ lgam,
                                     const float* __restrict__ disc,
                                     float* __restrict__ out, float* __restrict__ econo,
                                     float* __restrict__ acto, float* __restrict__ demo,
                                     unsigned seed, long long B, int E, int T) {
-  float *h0, *h1;
-  const float* sw = load_params(m, params, n_params, h0, h1);
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= B * E) return;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = threadIdx.x, S = m.stride, N = m.lanes;
+  const long long pair0 = (long long)blockIdx.x * N, idx = pair0 + n;
+  const bool past = pair0 + (n & ~31) >= B * E;  // the warp's pairs all lie past the batch
+  constexpr bool upfront = LAYOUT == NV_DEM_UPFRONT;
+  if (!upfront && past) return;
+  const bool live = idx < B * E;
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
-  const float stdv = STOCH ? sw[n_params - 1] : 0.f;
-  NvEpisode s;
-  policy_reset(p, seed, lane, e, s);
-  if (DUMP) {
-    float* row = econo + (long long)e * 5 * B + lane;  // (E, 5, B)
-    row[0] = s.price;
-    row[B] = s.cost;
-    row[2 * B] = s.h;
-    row[3 * B] = s.k;
-    row[4 * B] = s.mu;
+  TileDemand dem{p, nt, {}, {}, smem + nt.s_dem + n, N};
+  const NvEcon c = tile_reset<DUMP>(p, lgam, seed, lane, e, live, econo, B, dem.q);
+  dem.setup<LAYOUT>(smem, n);
+  if (upfront) {
+    // the whole episode's demand now; then the table is dead, and its rows
+    // become the activations and the ring (a block barrier between)
+    dem.upfront(seed, lane, e, T);
+    __syncthreads();
+    if (past) return;
   }
-  const NvPoisson q = nv_poisson_setup(p, lgam, s.mu);
+  const NvSharedRing ring{smem + nt.s_ring + n, N};
+  for (int j = 0; j < p.L; ++j) ring(j) = 0.f;
+  int head = 0;
+  const float stdv = STOCH ? __ldg(w + m.std) : 0.f;
+  const int obs_pad = (m.dims[0] + 7) & ~7;
+  float* x = smem + m.s_x0 + n;
   float total = 0.f;
   for (int t0 = 0; t0 < T; t0 += NV_CHUNK) {
-    float d[NV_CHUNK];
-    chunk_demand(p, q, seed, lane, e, t0, T, d);
-    const int n = min(NV_CHUNK, T - t0);
-    for (int i = 0; i < n; ++i) {
+    if (!upfront) dem.chunk(seed, lane, e, t0, T);
+    const int cn = min(NV_CHUNK, T - t0);
+    for (int i = 0; i < cn; ++i) {
       const int t = t0 + i;
-      float raw;
-      const float order = policy_period<STOCH>(p, m, sw, stdv, seed, lane, e, t, s, h0, h1,
-                                               raw);
-      if (DUMP) {
+      tile_obs(p, c, ring, head, obs_pad, x, S);
+      __syncwarp();
+      float v = mlp_tile_forward(m, w, smem)[n];
+      if (STOCH) {
+        WordStream ws(seed, 1u, lane, e, (unsigned)t);
+        ws.next();  // word 0: the period's demand
+        const unsigned u1 = ws.next();
+        v = __fadd_rn(v, __fmul_rn(stdv, normal01(u1, ws.next())));
+      }
+      const float order = __fmul_rn(__fadd_rn(tanhf(v), 1.f), m.half_hi[0]);
+      const float d = dem.at<LAYOUT>(t, i);
+      if (DUMP && live) {
         const long long k = ((long long)t * E + e) * B + lane;  // (T, E, B)
         acto[k] = order;
-        demo[k] = d[i];
+        demo[k] = d;
       }
-      total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), nv_step(p, s, order, d[i])));
+      float qty;
+      const float reward = nv_step_ring(p, ring, head, c, order, d, qty);
+      total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), reward));
     }
   }
-  out[idx] = total;  // (E, B), episode-major
+  if (live) out[idx] = total;  // (E, B), episode-major
 }
 
 __global__ void k_sample_normals(float* __restrict__ out, unsigned seed, long long B,
@@ -302,18 +482,28 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
+template <bool STOCH, bool DUMP, int LAYOUT>
+int launch_layout(const NvParams& p, const MlpTile& m, const NvTile& nt, const float* w,
+                  const float* lgam, const float* disc, float* out, float* econ, float* acts,
+                  float* dems, unsigned seed, long long B, int E, int T, cudaStream_t stream) {
+  return launch_mlp_tile(k_nv_policy_returns<STOCH, DUMP, LAYOUT>, m, B * E, stream, p, m, nt, w,
+                         lgam, disc, out, econ, acts, dems, seed, B, E, T);
+}
+
+// The entry points' layouts: NV_DEM_UPFRONT, or the linear count where no
+// table fits a block (_nv_tile_plan).
 template <bool STOCH, bool DUMP>
-int launch_policy_returns(const NvParams& p, const Mlp& m, const float* params,
-                          int n_params, const float* lgam, const float* disc, float* out,
-                          float* econ, float* acts, float* dems, unsigned seed,
-                          long long B, int E, int T, cudaStream_t stream) {
-  auto kernel = k_nv_policy_returns<STOCH, DUMP>;
-  const size_t smem = smem_bytes(m, n_params);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_for(B * E), kThreads, smem, stream>>>(p, m, params, n_params, lgam, disc,
-                                                        out, econ, acts, dems, seed, B, E, T);
-  return (int)cudaGetLastError();
+int launch_policy_returns(const NvParams& p, const MlpTile& m, const NvTile& nt,
+                          const float* w, const float* lgam, const float* disc, float* out,
+                          float* econ, float* acts, float* dems, unsigned seed, long long B,
+                          int E, int T, cudaStream_t stream) {
+  if (nt.layout == NV_DEM_UPFRONT)
+    return launch_layout<STOCH, DUMP, NV_DEM_UPFRONT>(p, m, nt, w, lgam, disc, out, econ, acts,
+                                                      dems, seed, B, E, T, stream);
+  if (nt.layout == NV_DEM_LINEAR)
+    return launch_layout<STOCH, DUMP, NV_DEM_LINEAR>(p, m, nt, w, lgam, disc, out, econ, acts,
+                                                     dems, seed, B, E, T, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -332,24 +522,20 @@ int nv_rollout_traj(const NvParams* p, const Mlp* mlp, const float* params, int 
 }
 
 // acts == nullptr: returns only (K19); otherwise also econ, acts and dems (K20).
-int nv_policy_returns(const NvParams* p, const Mlp* mlp, const float* params, int n_params,
+int nv_policy_returns(const NvParams* p, const MlpTile* m, const NvTile* nt, const float* w,
                       const float* lgam, const float* disc, float* out, float* econ,
                       float* acts, float* dems, unsigned seed, int stochastic, long long B,
                       int E, int T, cudaStream_t stream) {
   const bool dump = acts != nullptr;
   if (stochastic)
-    return dump ? launch_policy_returns<true, true>(*p, *mlp, params, n_params, lgam, disc,
-                                                    out, econ, acts, dems, seed, B, E, T,
-                                                    stream)
-                : launch_policy_returns<true, false>(*p, *mlp, params, n_params, lgam, disc,
-                                                     out, econ, acts, dems, seed, B, E, T,
-                                                     stream);
-  return dump ? launch_policy_returns<false, true>(*p, *mlp, params, n_params, lgam, disc,
-                                                   out, econ, acts, dems, seed, B, E, T,
-                                                   stream)
-              : launch_policy_returns<false, false>(*p, *mlp, params, n_params, lgam, disc,
-                                                    out, econ, acts, dems, seed, B, E, T,
-                                                    stream);
+    return dump ? launch_policy_returns<true, true>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
+                                                    dems, seed, B, E, T, stream)
+                : launch_policy_returns<true, false>(*p, *m, *nt, w, lgam, disc, out, econ,
+                                                     acts, dems, seed, B, E, T, stream);
+  return dump ? launch_policy_returns<false, true>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
+                                                   dems, seed, B, E, T, stream)
+              : launch_policy_returns<false, false>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
+                                                    dems, seed, B, E, T, stream);
 }
 
 int nv_rollout_traj_wide(const NvParams* p, const WideMlp* wm, const float* w,

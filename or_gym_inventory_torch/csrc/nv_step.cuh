@@ -13,8 +13,10 @@
 // - lead_time 0: the order after the [0, max_order] clip and before the
 //   max_inventory cap is on hand (newsvendor.py:136-142); otherwise on hand
 //   is the oldest pipeline slot, and unsold stock expires.
-// - The pipeline is a ring of depth L (the oldest at ``head``), in local
-//   memory; its sum runs oldest first, as JAX's sum(P[1:], P[0]).
+// - The pipeline is a ring of depth L (the oldest at ``head``), in a
+//   thread's local NvEpisode or, in K19/K20's tile, in the pair's column of
+//   shared memory (nv_step_ring takes either); its sum runs oldest first,
+//   as JAX's sum(P[1:], P[0]).
 // - Purchase cost is charged on the capped order.
 // - NaN: jnp.clip/maximum/minimum propagate it (nanmath.cuh), so a NaN
 //   action gives a NaN return.
@@ -46,9 +48,12 @@
 //   ulps of total). ops/episode_kernels.py _nv_table_plan sizes the block
 //   to the table (NvParams.threads) and picks, for a K whose table a block
 //   of 32 cannot hold, the linear count below instead (NvParams.table 0);
-// - linear (nv_poisson_invert; K18-K20, whose shared memory holds the
-//   actor): each chunk of 16 periods reruns the K steps and compares every
-//   S(k) with each threshold. lgamma(kc + 1) is a host-built table of f32
+//   K19/K20's tile (nv_policy.cu) builds the same table at its reset and
+//   searches every period of the episode there at once;
+// - linear (nv_poisson_invert; K18 and K28, whose shared memory holds the
+//   actor, and K19/K20 where no table fits a block): each chunk of 16
+//   periods reruns the K steps and compares every S(k) with each
+//   threshold. lgamma(kc + 1) is a host-built table of f32
 // hi/lo pairs split from float64 exactly as JAX splits them, indexed by kc
 // (0 for kc < 2; kc beyond the table takes its last pair, as JAX's masked
 // loop does).
@@ -84,42 +89,81 @@ __device__ __forceinline__ void nv_reset(const NvParams& p, NvEpisode& s) {
   s.head = 0;
 }
 
+// The economics of one episode, as the step reads them.
+struct NvEcon {
+  float price, cost, h, k, mu;
+};
+
 // The reset's five conditional uniforms (newsvendor.py:105-111).
-__device__ __forceinline__ void nv_econ(const NvParams& p, const float* u, NvEpisode& s) {
-  s.price = max_nan(1.f, __fmul_rn(u[0], p.p_max));
-  s.cost = max_nan(1.f, __fmul_rn(u[1], s.price));
-  s.h = __fmul_rn(u[2], min_nan(s.cost, p.h_max));
-  s.k = __fmul_rn(u[3], p.k_max);
-  s.mu = __fmul_rn(u[4], p.mu_max);
+__device__ __forceinline__ NvEcon nv_econ(const NvParams& p, const float* u) {
+  NvEcon c;
+  c.price = max_nan(1.f, __fmul_rn(u[0], p.p_max));
+  c.cost = max_nan(1.f, __fmul_rn(u[1], c.price));
+  c.h = __fmul_rn(u[2], min_nan(c.cost, p.h_max));
+  c.k = __fmul_rn(u[3], p.k_max);
+  c.mu = __fmul_rn(u[4], p.mu_max);
+  return c;
 }
 
+__device__ __forceinline__ void nv_econ(const NvParams& p, const float* u, NvEpisode& s) {
+  const NvEcon c = nv_econ(p, u);
+  s.price = c.price;
+  s.cost = c.cost;
+  s.h = c.h;
+  s.k = c.k;
+  s.mu = c.mu;
+}
+
+// The pipeline's slots as nv_step_ring reads them: a thread's own ring
+// (NvEpisode, local memory) or its column of a [slot][lane] region of
+// shared memory (the tile kernel K19/K20, nv_policy.cu).
+struct NvFrameRing {
+  float* r;
+  __device__ float& operator()(int k) const { return r[k]; }
+};
+
+struct NvSharedRing {
+  float* r;
+  int stride;
+  __device__ float& operator()(int k) const { return r[k * stride]; }
+};
+
 // One period: the undiscounted reward of ``order_raw`` against demand d; the
-// capped order that enters the pipeline into q.
-__device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
-                                         float order_raw, float d, float& q) {
+// capped order that enters the pipeline into q. ``ring`` and ``head`` are
+// the pipeline (the oldest at ``head``), ``c`` the economics.
+template <class Ring>
+__device__ __forceinline__ float nv_step_ring(const NvParams& p, const Ring& ring, int& head,
+                                              const NvEcon& c, float order_raw, float d,
+                                              float& q) {
   const int L = p.L;
   float psum = 0.f, inv = order_raw;
   if (L > 0) {
-    inv = s.ring[s.head];
+    inv = ring(head);
     psum = inv;
     for (int j = 1; j < L; ++j) {
-      int k = s.head + j;
+      int k = head + j;
       if (k >= L) k -= L;
-      psum = __fadd_rn(psum, s.ring[k]);
+      psum = __fadd_rn(psum, ring(k));
     }
   }
   q = max_nan(0.f, min_nan(order_raw, __fsub_rn(p.max_inv, psum)));
   const float sales = min_nan(inv, d);
   const float excess = max_nan(0.f, __fsub_rn(inv, d));
   const float shortage = max_nan(0.f, __fsub_rn(d, inv));
-  float reward = __fsub_rn(__fmul_rn(sales, s.price), __fmul_rn(q, s.cost));
-  reward = __fsub_rn(reward, __fmul_rn(excess, s.h));
-  reward = __fsub_rn(reward, __fmul_rn(shortage, s.k));
+  float reward = __fsub_rn(__fmul_rn(sales, c.price), __fmul_rn(q, c.cost));
+  reward = __fsub_rn(reward, __fmul_rn(excess, c.h));
+  reward = __fsub_rn(reward, __fmul_rn(shortage, c.k));
   if (L > 0) {
-    s.ring[s.head] = q;
-    s.head = s.head + 1 == L ? 0 : s.head + 1;
+    ring(head) = q;
+    head = head + 1 == L ? 0 : head + 1;
   }
   return reward;
+}
+
+__device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,
+                                         float order_raw, float d, float& q) {
+  const NvEcon c{s.price, s.cost, s.h, s.k, s.mu};
+  return nv_step_ring(p, NvFrameRing{s.ring}, s.head, c, order_raw, d, q);
 }
 
 __device__ __forceinline__ float nv_step(const NvParams& p, NvEpisode& s,

@@ -59,8 +59,9 @@ SIGNATURES = {
     "im_episode": {
         # params, acts, dems, disc, out, seed, random, backlog, B, T, stream
         "im_episode_returns": ((_P, _P, _P, _P, _P, _U32, _I, _I, _LL, _I, _P), _I),
-        # params, table, user_d, disc, out, seed, backlog, B, E, T, stream
-        "im_episode_returns_fused": ((_P, _P, _P, _P, _P, _U32, _I, _LL, _I, _I, _P), _I),
+        # params, ring layout, table, user_d, disc, out, seed, backlog, B, E,
+        # T, stream
+        "im_episode_returns_fused": ((_P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _I, _P), _I),
         # params, table, user_d, acts, dems, seed, B, E, T, stream
         "im_sample_streams": ((_P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
     },
@@ -99,9 +100,9 @@ SIGNATURES = {
         # demand, seed, B, T, stream
         "nv_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _P),
                             _I),
-        # params, mlp, actor, n_actor, lgamma, disc, out, econ, acts, dems,
+        # params, tile, nv tile, actor, lgamma, disc, out, econ, acts, dems,
         # seed, stochastic, B, E, T, stream
-        "nv_policy_returns": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I,
+        "nv_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I,
                                _I, _P), _I),
         # out, seed, B, rows, stream
         "sample_normals": ((_P, _U32, _LL, _I, _P), _I),

@@ -13,11 +13,13 @@ version), and what every MLP policy kernel shares:
 - ``fold_offpolicy_actor``, the off-policy learners' actor (relu trunk,
   mean head, and for SAC the log_std head beside it) folded the same way;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by K4 (``ops/net_step.py``), K10 and K18-K20;
-  ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5
-  and K11 over a tile of lanes on the tensor cores (``csrc/mlp_tile.cuh``,
-  its layout ``_mlp_tile_plan``); and ``_pack_wide_actor``, the actor of
-  the off-policy trajectory kernels K27-K29 (``csrc/wide_mlp.cuh``);
+  shared by K4 (``ops/net_step.py``), K10 and K18;
+  ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5,
+  K11 and K19 over a tile of lanes on the tensor cores
+  (``csrc/mlp_tile.cuh``, its layout ``_mlp_tile_plan``; K19's demand,
+  pipeline and Poisson table ``_nv_tile_plan``); and ``_pack_wide_actor``,
+  the actor of the off-policy trajectory kernels K27-K29
+  (``csrc/wide_mlp.cuh``);
 - the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
   relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
   ``"uniform"``), ``_im_step_math``, ``_im_obs_rows``,
@@ -774,7 +776,62 @@ def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = Tr
     for i in range(params.num_stages):
         st.gain[i] = float(np.float32(float(up[i]) - float(uc[i])))
         st.k[i] = float(np.float32(params.k[i]))
-    return dict(host, struct=st)
+    fused = _im_fused_plan(m1, lt)
+    return dict(host, struct=st, fused=_ImSmem(threads=fused.threads, words=fused.words))
+
+
+def _blocks_per_sm(nbytes: int, threads: int, regs: int) -> int:
+    """Resident blocks of ``threads`` an H100 SM holds with ``nbytes`` of
+    shared memory a block and ``regs`` registers a thread (allocated to
+    each warp in multiples of 8 a thread)."""
+    warps_by_regs = REGS_PER_SM // (32 * (-(-regs // 8) * 8))
+    return min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), warps_by_regs // (threads // 32),
+               THREADS_PER_SM // threads, BLOCKS_PER_SM)
+
+
+class _ImSmem(ctypes.Structure):
+    """Mirror of ``struct ImSmem`` in csrc/im_episode.cu."""
+    _fields_ = [("threads", ctypes.c_int), ("words", ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ImFusedPlan:
+    """K8's launch: ``threads`` a block, ``words`` of ring a thread (lt m1,
+    [word][thread] in dynamic shared memory), ``bytes`` a block, resident
+    ``blocks_per_sm``."""
+    threads: int
+    words: int
+    bytes: int
+    blocks_per_sm: int
+
+
+# the registers a thread of K8's instance for each m1 (csrc/im_episode.cu,
+# the stage loops unrolled to exactly m1; the most ptxas -v reports on
+# sm_90a for backlog and lost sales, which phase 2 of chip_smoke.py
+# checks); the largest block the plan tries
+_IM_FUSED_REGS = {1: 32, 2: 32, 3: 32, 4: 40, 5: 44, 6: 46, 7: 47, 8: 54}
+_IM_FUSED_MAX_THREADS = 256
+
+
+@functools.lru_cache(maxsize=64)
+def _im_fused_plan(m1: int, lt: int) -> ImFusedPlan:
+    """The block size, among multiples of 32 up to 256, at which an SM holds
+    the most threads of K8 (the smallest such block, for the fullest last
+    wave) with ``lt * m1`` words of ring a thread, counting the SM's shared
+    memory, registers (``_IM_FUSED_REGS`` a thread of the instance for
+    this m1), threads and blocks. Every (m1, lt) within the struct maxima
+    fits a block of 32 (256 words, 32 KB)."""
+    words = lt * m1
+    regs = _IM_FUSED_REGS[m1]
+    best = None
+    for threads in range(32, _IM_FUSED_MAX_THREADS + 1, 32):
+        nbytes = 4 * words * threads
+        if nbytes > SMEM_OPTIN_BYTES:
+            break
+        plan = ImFusedPlan(threads, words, nbytes, _blocks_per_sm(nbytes, threads, regs))
+        if best is None or plan.blocks_per_sm * threads > best.blocks_per_sm * best.threads:
+            best = plan
+    return best
 
 
 def _im_actions_plain(params: im.InvManagementParams, words):
@@ -1031,8 +1088,9 @@ def _im_fused_call(wrapper, params, seed, batch, episodes_per_lane, device, dump
             out = (acts, dems)
         else:
             out = torch.empty((E, batch), dtype=torch.float32, device=dev)
-            _launch("im_episode", "im_episode_returns_fused", *args,
-                    plan["disc"].data_ptr(), out.data_ptr(), seed,
+            lay = plan["fused"]
+            _launch("im_episode", "im_episode_returns_fused", args[0], ctypes.addressof(lay),
+                    *args[1:], plan["disc"].data_ptr(), out.data_ptr(), seed,
                     int(params.backlog), batch, E, T, _stream(dev))
     wrapper.launches += 1
     return out
@@ -1044,9 +1102,11 @@ def episode_returns_im_fused(params: im.InvManagementParams, seed, batch: int,
     inclusive uniform int actions on [0, c_i] and demand by inversion of
     the host CDF table for all four stochastic dist modes (USER mode takes
     ``user_D[t]``; a law beyond the table cap raises NotImplementedError).
-    K8: one thread per (episode, lane) (csrc/im_episode.cu
-    ``k_im_returns_fused``). Returns (batch,) for episodes_per_lane=1, else
-    (episodes_per_lane, batch), episode-major."""
+    K8: one thread per (episode, lane), its ring of fulfilled orders in
+    shared memory and its stages in registers (csrc/im_episode.cu
+    ``k_im_returns_fused``, the block sized by ``_im_fused_plan``). Returns
+    (batch,) for episodes_per_lane=1, else (episodes_per_lane, batch),
+    episode-major."""
     out = _im_fused_call(episode_returns_im_fused, params, seed, batch,
                          episodes_per_lane, device, False)
     return out.reshape(batch) if episodes_per_lane == 1 else out
@@ -2178,11 +2238,12 @@ def _sample_normals_plain(seed, rows, batch, device):
                         for r in range(rows)])
 
 
-def _nv_policy_args(params, actor, log_std, batch, E, device):
-    """(device, std or None, Mlp struct, packed actor) of a K18-K20 call;
-    raises ValueError for a batch, E or actor the kernels do not take. The
-    actor is packed only on the card (None, None on the CPU, where any
-    actor that fits the env runs)."""
+def _nv_policy_args(params, actor, log_std, batch, E, device, tile=False):
+    """(device, std or None, actor struct, packed actor) of a K18-K20 call:
+    ``_pack_actor``'s Mlp for K18, ``_pack_tile_actor``'s MlpTile with
+    ``tile`` (K19/K20); raises ValueError for a batch, E or actor the
+    kernels do not take. The actor is packed only on the card (None, None
+    on the CPU, where any actor that fits the env runs)."""
     dev = resolve_device(device)
     if E < 1 or batch < 1:
         raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
@@ -2190,8 +2251,103 @@ def _nv_policy_args(params, actor, log_std, batch, E, device):
     if dev.type == "cpu":
         _actor_dims(actor, params.obs_dim, 1)
         return dev, std, None, None
-    mlp, flat = _pack_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), dev)
-    return dev, std, mlp, flat
+    pack = _pack_tile_actor if tile else _pack_actor
+    st, flat = pack(actor, std, params.obs_dim, 1, _nv_half_hi(params), dev)
+    return dev, std, st, flat
+
+
+class _NvTile(ctypes.Structure):
+    """Mirror of ``struct NvTile`` in csrc/nv_policy.cu."""
+    _fields_ = [("layout", ctypes.c_int), ("s_dem", ctypes.c_int), ("s_ring", ctypes.c_int),
+                ("s_table", ctypes.c_int)]
+
+
+NV_CHUNK = 16   # csrc/nv_step.cuh: the periods whose demand is inverted at once
+# K19/K20's demand layouts (csrc/nv_policy.cu NV_DEM_*): the episode's
+# demand searched up front where its table fits a block, else the linear
+# count
+NV_TILE_LAYOUTS = {"linear": 0, "upfront": 1}
+# registers a thread of K19/K20's instances, the most ptxas -v reports on
+# sm_90a (the stochastic linear count's; phase 2 of chip_smoke.py checks
+# every instance against it): what the plan's blocks an SM count
+_NV_TILE_REGS = 171
+
+
+@dataclasses.dataclass(frozen=True)
+class NvTilePlan:
+    """K19/K20's tile: ``lanes`` (lane, episode) pairs a block; the MLP
+    tile's activation buffer (``rows`` at ``stride``, as ``_mlp_tile_plan``
+    lays it out), the demand rows (``dem_rows``), the pipeline's L rows and,
+    for the up-front layout, the table's K rows, each [row][lane] at a
+    stride of ``lanes``, at the float ``offsets`` (x0, dem, ring, table; -1:
+    none); ``floats`` in all, ``bytes``, and the blocks an SM holds by
+    shared memory, registers (``_NV_TILE_REGS``) and threads."""
+    layout: str
+    lanes: int
+    stride: int
+    rows: int
+    in_place: bool
+    offsets: dict
+    dem_rows: int
+    floats: int
+    bytes: int
+    blocks_per_sm: int
+
+
+def _nv_tile_plan(dims, L: int, K: int, T: int, lanes: int, layout: str) -> NvTilePlan:
+    """The shared-memory layout of K19/K20's tile of ``lanes`` pairs for an
+    actor of widths ``dims``, lead time ``L``, ``K`` recurrence steps and
+    ``T`` periods, with the demand ``layout``:
+    - "upfront": ceil(T / 2) rows of the episode's demand, two 16-bit
+      values a word, then one region that holds the table while the reset
+      searches it and the activation buffer and the pipeline after (a block
+      barrier between): max(K rows, the buffer and L rows);
+    - "linear": the activation buffer, then NV_CHUNK rows of the chunk's
+      demand and the L rows of the pipeline."""
+    act = _mlp_tile_plan(dims, 0, 0, 0, lanes)
+    buf, N = act.floats, lanes
+    if layout == "upfront":
+        dem_rows = -(-T // 2)
+        x0 = dem_rows * N
+        offsets = {"x0": x0, "dem": 0, "ring": x0 + buf, "table": x0}
+        floats = x0 + max(K * N, buf + L * N)
+    else:
+        dem_rows = NV_CHUNK
+        offsets = {"x0": 0, "dem": buf, "ring": buf + NV_CHUNK * N, "table": -1}
+        floats = buf + (NV_CHUNK + L) * N
+    return NvTilePlan(layout, lanes, act.stride, act.rows, act.in_place, offsets, dem_rows,
+                      floats, 4 * floats, _blocks_per_sm(4 * floats, lanes, _NV_TILE_REGS))
+
+
+def _nv_tile_choice(dims, L: int, K: int, T: int, kc_max: int) -> NvTilePlan:
+    """The entry points' plan: "upfront" at the first of ``_MLP_TILES``
+    whose shared memory fits a block, else the linear count. "upfront"
+    needs every demand below 2^16 (kc_max + 1 < 65,536). Raises ValueError
+    if not even the linear count fits."""
+    layouts = ["upfront"] if kc_max + 1 < 1 << 16 else []
+    for name in layouts + ["linear"]:
+        for lanes in _MLP_TILES:
+            plan = _nv_tile_plan(dims, L, K, T, lanes, name)
+            if plan.bytes <= SMEM_OPTIN_BYTES:
+                return plan
+    raise ValueError(f"actor of widths {list(dims)} at lead time {L}: K19's tile needs "
+                     f"{plan.bytes} bytes; the shared memory of a block holds {SMEM_OPTIN_BYTES}")
+
+
+def _nv_tile_structs(st: _MlpTile, plan: NvTilePlan):
+    """(a copy of the packed actor's MlpTile laid out as ``plan``, its
+    NvTile)."""
+    tile = _MlpTile.from_buffer_copy(st)
+    tile.lanes, tile.stride = plan.lanes, plan.stride
+    x0 = plan.offsets["x0"]
+    tile.s_x0 = x0
+    tile.s_x1 = x0 if plan.in_place else x0 + plan.rows * plan.stride
+    tile.s_dem = tile.s_z = tile.s_scratch = -1   # the demand has rows of its own
+    tile.s_state = plan.offsets["ring"]
+    tile.s_total = plan.floats
+    nt = _NvTile(layout=NV_TILE_LAYOUTS[plan.layout], s_dem=plan.offsets["dem"],
+                 s_ring=plan.offsets["ring"], s_table=plan.offsets["table"])
+    return tile, nt
 
 
 def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: int,
@@ -2282,12 +2438,15 @@ def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     (E, 5, B), orders (T, E, B), demands (T, E, B)), the streams None
     without ``dump``."""
     E = int(episodes_per_lane)
-    dev, std, mlp, flat = _nv_policy_args(params, actor, log_std, batch, E, device)
+    dev, std, st, flat = _nv_policy_args(params, actor, log_std, batch, E, device, tile=True)
     seed = int(seed) & rng.MASK32
     if dev.type == "cpu":
         return _nv_policy_plain(params, actor, std, seed, batch, E, dev, dump)
     plan = _nv_plan(params, _plan_key(dev))
     T = params.step_limit
+    nv_st = plan["struct"]
+    tile, nt = _nv_tile_structs(st, _nv_tile_choice(
+        tuple(st.dims[:st.n_layers + 1]), nv_st.L, nv_st.K, T, nv_st.kc_max))
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((E, batch), **f32)
     econ = acts = dems = None
@@ -2296,9 +2455,9 @@ def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
         acts = torch.empty((T, E, batch), **f32)
         dems = torch.empty((T, E, batch), **f32)
     with torch.cuda.device(dev):
-        _launch("nv_policy", "nv_policy_returns", ctypes.addressof(plan["struct"]),
-                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(), plan["lgam"].data_ptr(),
-                plan["disc"].data_ptr(), out.data_ptr(),
+        _launch("nv_policy", "nv_policy_returns", ctypes.addressof(nv_st),
+                ctypes.addressof(tile), ctypes.addressof(nt), flat.data_ptr(),
+                plan["lgam"].data_ptr(), plan["disc"].data_ptr(), out.data_ptr(),
                 *(None if x is None else x.data_ptr() for x in (econ, acts, dems)),
                 seed, int(std is not None), batch, E, T, _stream(dev))
     wrapper.launches += 1
@@ -2311,12 +2470,14 @@ def episode_returns_nv_policy(params: nv.NewsvendorParams, actor, seed, batch: i
     Poisson(mu) demand and the MLP actor all run inside the kernel,
     gamma^t-discounted. ``actor`` is ``(Ws, bs)`` from ``fold_actor_params``.
     Deterministic by default; with the trained ``log_std`` ((1,)) the orders
-    come from tanh-squashed Gaussian samples around the mean. K19: one
-    thread per (episode, lane) (csrc/nv_policy.cu ``k_nv_policy_returns``);
-    on the CPU the plain version runs. Returns (batch,) for
-    episodes_per_lane=1, else (episodes_per_lane, batch), episode-major.
-    This is ``vector.fast_episodes.policy_episode_returns``' Newsvendor
-    path."""
+    come from tanh-squashed Gaussian samples around the mean. K19: a block
+    per tile of (episode, lane) pairs, one thread each, the actor on the
+    tensor cores and every period's demand searched at the reset
+    (csrc/nv_policy.cu ``k_nv_policy_returns`` on csrc/mlp_tile.cuh, laid
+    out by ``_nv_tile_choice``); on the CPU the plain version runs. Returns
+    (batch,) for episodes_per_lane=1, else (episodes_per_lane, batch),
+    episode-major. This is ``vector.fast_episodes.policy_episode_returns``'
+    Newsvendor path."""
     out = _nv_policy_call(episode_returns_nv_policy, params, actor, seed, batch,
                           episodes_per_lane, log_std, False, device)[0]
     return out.reshape(batch) if episodes_per_lane == 1 else out
