@@ -88,11 +88,14 @@ Poisson demand in backlog and lost sales, binomial and USER mode, with K7
 on K23's streams, K24 replayed through the env step chain, its raws
 squashed to its actions and a NaN std), K25/K26 in phase 30 (K25 on 30
 chained periods at 65,536 lanes, backlog and lost sales; K26 on K3's demand
-against K2 and plain K26) and K27-K29 in phase 32 (at 65,536 lanes with a
-seeded actor of SB3's default (256, 256) relu widths, heads det, sac and
-uniform, the demand against K10/K18/K4's on the same seed, a_norm
-teacher-forced on the kernel's own obs, each kernel's streams through the
-plain step chain, K29's through K1 too). Kernels on no main path are
+against K2 and plain K26) and K27-K29 in phase 32 (at 65,536 lanes and at
+the learners' 1,024, with a seeded actor of SB3's default (256, 256) relu
+widths, heads det, sac and uniform, the demand against K10/K18/K4's on the
+same seed, a_norm teacher-forced on the kernel's own obs, each kernel's
+streams through the plain step chain, K29's through K1 too; and K27/K28 on
+a ragged batch of 1,000 lanes, K28's econ bit for bit, and, with a
+(512, 512) actor whose slice fits no cluster tile, on the wrapper's wide
+route). Kernels on no main path are
 launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
 K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
@@ -104,7 +107,9 @@ only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
 hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
 tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
-load or store. Then it times the vecenv rollout (phase 5),
+load or store; K27/K28's cluster instances (csrc/cluster_mlp.cuh) must all
+be built and spill nothing, their products on the FP32 cores (no HMMA).
+Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
 and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
@@ -113,8 +118,10 @@ InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
 PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
 validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
-beat the random policy's (phase 29), then K25-K29 (K27-K29 also at the
-learners' 1,024 lanes) and one TD3 iteration split into the kernel,
+beat the random policy's (phase 29), then K25-K29 (K27-K29 at the
+learners' 1,024 lanes and at 65,536, through the entry points and, for
+K27/K28, the cluster kernel alone, whose outputs must first equal the
+entry point's bit for bit) and one TD3 iteration split into the kernel,
 ``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
 for the search it runs (``nv_draw_ops``), with the first version's linear
 count's beside it; K5/K6, K11/K12, K19/K20 and K22-K24's with their
@@ -132,7 +139,8 @@ The last eight lines are one JSON object of per-kernel numbers, K1-K29
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
-head's), one
+head's at the learners' 1,024 lanes, the shape their main paths launch),
+one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
 paths' rates and reward, one of the Newsvendor paths' rates and reward, one
 of the recurrent paths' rates and reward, one of the slice-7 paths' rates
@@ -189,7 +197,8 @@ element; free-running, a_norm on >= 99% of lanes within rtol=1e-4
 atol=1e-4 and the other streams by the share of lanes (rtol=1e-4
 atol=1e-2), uniform bit for bit, except the det and sac lanes of the float
 families (K28, K29), which their pipelines' feedback lets drift and which
-need only FLOAT_FREE_SHARE; K27's a_norm rescaled gives its actions on
+need only FLOAT_FREE_SHARE (K28 on the ragged batch too; on the wide
+route's (512, 512) actor its share is reported, not gated); K27's a_norm rescaled gives its actions on
 >= 99.99% of elements and the env step chain on its streams its inv
 exactly; the plain step chain on K28's and K29's a_norm and demand gives
 their other streams within rtol=1e-5 atol=1e-3 (orders rtol=1e-6
@@ -328,8 +337,15 @@ NV_PPO_BUDGET = 4_000_000
 # the off-policy learners (slice 7): SB3's default actor, every roster's OFF_CFG
 # (off_policy.py:69); TD3/DDPG's exploration sigma
 OFF_ARCH = (256, 256)
+# an actor whose slice fits no cluster tile of K27/K28 (the wide route)
+OFF_WIDE = (512, 512)
+# the learners' lanes (TD3_RECIPE's num_envs): the main paths launch K27-K29
+# at this shape
+LEARN_LANES = 1_024
 OFF_STD = 0.1
 OFF_MODES = ("det", "sac", "uniform")
+# the off-policy kernels on the cluster (csrc/cluster_mlp.cuh): K27, K28
+CLUSTER_KERNELS = ("rollout_traj_im_offpolicy", "rollout_traj_nv_offpolicy")
 # K28/K29's det lanes free-running against the plain version are reported and
 # held only this far: the float families feed every order back into the obs,
 # so the 256-wide MLP's ulps grow over the episode (on an H100, K28 98.88% of
@@ -754,6 +770,33 @@ def tile_sass_check(logs):
             if ptx and (not regs or max(regs) > ek._NV_TILE_REGS):
                 raise AssertionError(f"{kernel}: its instances use {regs} registers; "
                                      f"_nv_tile_plan counts {ek._NV_TILE_REGS}")
+        parts.append(f"{src}.cu {kernel} (LDL/STL/HMMA) " + ", ".join(
+            f"{k} {ld}/{st}/{h}" for k, (ld, st, h) in sorted(mine.items()))
+            + "; ptxas " + "; ".join(ptx))
+    return "; ".join(parts)
+
+
+def cluster_check(logs):
+    """Phase 2's check of K27/K28 on the thread-block cluster (im_policy.cu
+    ``k_im_rollout_traj_cluster<RELU,BACKLOG>``, nv_policy.cu
+    ``k_nv_rollout_traj_cluster<RELU>``): every instance built, none spills
+    (ptxas, where this run built the library), and none holds a tensor-core
+    instruction (the products run on the FP32 cores). Returns the line to
+    print; raises on a miss."""
+    from or_gym_inventory_torch.ops import _build
+    parts = []
+    for src, kernel, want in (("im_policy", "k_im_rollout_traj_cluster", 4),
+                              ("nv_policy", "k_nv_rollout_traj_cluster", 2)):
+        counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
+        if counts is None:
+            raise AssertionError("cuobjdump not found: the cluster kernels' SASS cannot be read")
+        mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+        log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
+        ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
+        if (len(mine) != want or (ptx and len(ptx) != want) or any("spills" in e for e in ptx)
+                or any(h for _, _, h in mine.values())):
+            raise AssertionError(f"{kernel}: {len(mine)} instances (want {want}), "
+                                 f"LDL/STL/HMMA {mine}, ptxas {ptx}")
         parts.append(f"{src}.cu {kernel} (LDL/STL/HMMA) " + ", ".join(
             f"{k} {ld}/{st}/{h}" for k, (ld, st, h) in sorted(mine.items()))
             + "; ptxas " + "; ".join(ptx))
@@ -2372,9 +2415,9 @@ def b6_main_path(dev, wrappers, smi):
                              "rollout_transposed_env_steps_s": rate}
 
 
-def seeded_offpolicy_actor(obs_dim, act_dim, stochastic, dev):
-    """Phase 32's actor: an ``off_policy._Actor`` of SB3's default widths
-    OFF_ARCH drawn from its own initialisation, obs statistics with mean ~50
+def seeded_offpolicy_actor(obs_dim, act_dim, stochastic, dev, arch=None):
+    """Phase 32's actor: an ``off_policy._Actor`` of ``arch`` widths (SB3's
+    default, OFF_ARCH, when None) drawn from its own initialisation, obs statistics with mean ~50
     and std ~20 folded into its first layer, and the det head's log(0.1).
     Returns (folded actor, log_std), on ``dev``."""
     import torch
@@ -2383,11 +2426,12 @@ def seeded_offpolicy_actor(obs_dim, act_dim, stochastic, dev):
     from or_gym_inventory_torch.agents import ppo
     from or_gym_inventory_torch.ops import episode_kernels as ek
     g = torch.Generator().manual_seed(SEED + int(stochastic))
-    actor = op._Actor(obs_dim, act_dim, OFF_ARCH, stochastic, g)
+    arch = OFF_ARCH if arch is None else arch
+    actor = op._Actor(obs_dim, act_dim, arch, stochastic, g)
     rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(obs_dim, generator=g),
                              var=(20.0 + 5.0 * torch.rand(obs_dim, generator=g)) ** 2,
                              count=torch.tensor(1e3))
-    Ws, bs = ek.fold_offpolicy_actor(OFF_ARCH, actor, rms, stochastic)
+    Ws, bs = ek.fold_offpolicy_actor(arch, actor, rms, stochastic)
     return ((tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs)),
             torch.full((act_dim,), math.log(OFF_STD), device=dev))
 
@@ -2444,6 +2488,22 @@ def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev):
     return worst
 
 
+def nv_step_chain(params, tr, label):
+    """The plain Newsvendor step chain on K28's econ, demand and a_norm
+    gives its orders (rtol=1e-6, atol=1e-4) and rewards (rtol=1e-5,
+    atol=1e-3)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    P = [torch.zeros_like(tr["reward"][0])] * params.lead_time
+    half_hi = ek._nv_half_hi(params)[0]
+    for t in range(params.step_limit):
+        P, rew, q = ek._nv_step_math(params, P, *tr["econ"][:4],
+                                     (tr["raw"][t, 0] + 1.0) * half_hi, tr["demand"][t])
+        close(f"step chain order[{t}] vs K28, {label}", q, tr["orders"][t], 1e-6, 1e-4)
+        close(f"step chain reward[{t}] vs K28, {label}", rew, tr["reward"][t], 1e-5, 1e-3)
+
+
 def offpolicy_cross_check(dev):
     """Phase 32: K27-K29 at 65,536 lanes with a seeded (256, 256) relu actor,
     heads det (sigma 0.1), sac and uniform, against their plain versions:
@@ -2466,91 +2526,180 @@ def offpolicy_cross_check(dev):
     from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.ops import net_step as ns
-    B = CHECK_LANES
     err, plain_ms, lines = {}, {}, []
-    for name, kernel, plain, params, ppo_kernel, obs_dim, act_dim in offpolicy_families(dev):
-        ppo_actor, ppo_log_std = seeded_actor(obs_dim, act_dim, dev)
-        ppo_demand = ppo_kernel(params, ppo_actor, ppo_log_std, SEED, B, device=dev)["demand"]
+    cases = [(fam, B, mode) for fam in offpolicy_families(dev) for B in (CHECK_LANES, LEARN_LANES)
+             for mode in OFF_MODES]
+    for fam, B, mode in cases:
+        name, kernel, plain, params, ppo_kernel, obs_dim, act_dim = fam
         nv_family = name == "rollout_traj_nv_offpolicy"
         same = demand_check if nv_family else exact
-        err[name] = 0.0
-        for mode in OFF_MODES:
-            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
-            tr = kernel(params, actor, log_std, SEED, B, mode, "relu", dev)
-            std = ek.clipped_std(log_std) if mode == "det" else None
-            ms, want = timed_once(plain, params, actor, std, SEED, B, dev, mode, "relu")
-            if mode == "det":
-                plain_ms[name] = ms
-            same(f"{name} demand, {mode}", tr["demand"], want["demand"])
-            same(f"{name} demand vs the PPO kernel's, {mode}", tr["demand"], ppo_demand)
-            if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
-                raise AssertionError(f"{name} {mode}: a_norm outside [-1, 1]")
-            forced = offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev)
-            need = FLOAT_FREE_SHARE if name != "rollout_traj_im_offpolicy" and \
-                mode != "uniform" else LANE_SHARE
-            if mode == "uniform":
-                exact(f"{name} a_norm, uniform", tr["raw"], want["raw"])
-                shares = {"raw": (1.0, 0.0)}
-            else:
-                shares = {"raw": lane_share(f"{name} a_norm vs plain, {mode}", tr["raw"],
-                                            want["raw"], 1e-4, 1e-4, need)}
-            shares.update({k: lane_share(f"{name} {k} vs plain, {mode}", tr[k], want[k],
-                                         need=need)
-                           for k in tr if k not in ("raw", "demand")})
-            err[name] = max([err[name]] + [e for _, e in shares.values()])
-            lines.append(f"{name} {mode}: demand equal to plain's and the PPO kernel's; "
-                         f"a_norm teacher-forced max |diff| {forced:.3g}; lanes agreeing "
-                         + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
-            if name == "rollout_traj_im_offpolicy":
-                acts = im.trunc_i32((tr["raw"] + 1.0) * torch.tensor(
-                    ek._half_c(params), device=dev)[None, :, None])
-                share = float((acts == tr["actions"]).double().mean())
-                if share < 0.9999:
-                    raise AssertionError(f"K27 {mode}: a_norm rescaled gives its actions on "
-                                         f"{share:.4%} of elements")
-                state, _ = im.reset(params, batch=B, device=dev)
-                for t in range(NUM_STEPS):
-                    exact(f"step chain inv[{t}] vs K27 inv, {mode}", state.inv.T, tr["inv"][t])
-                    state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
-                                                    tr["demand"][t])
-                    close(f"step chain reward[{t}] vs K27, {mode}", ts.reward,
-                          tr["reward"][t], 1e-4, 1e-2)
-                exact(f"step chain final inv vs K27, {mode}", state.inv.T,
-                      tr["inv"][NUM_STEPS])
-                lines.append(f"K27 {mode}: a_norm rescaled gives its actions on {share:.4%} "
-                             "of elements; the env step chain gives its inv exactly")
-            elif nv_family:
-                P = [torch.zeros_like(tr["reward"][0])] * params.lead_time
-                half_hi = ek._nv_half_hi(params)[0]
-                for t in range(params.step_limit):
-                    P, rew, q = ek._nv_step_math(params, P, *tr["econ"][:4],
-                                                 (tr["raw"][t, 0] + 1.0) * half_hi,
-                                                 tr["demand"][t])
-                    close(f"step chain order[{t}] vs K28, {mode}", q, tr["orders"][t], 1e-6, 1e-4)
-                    close(f"step chain reward[{t}] vs K28, {mode}", rew, tr["reward"][t], 1e-5,
-                          1e-3)
-                lines.append(f"K28 {mode}: the plain step chain on its econ, demand and a_norm "
-                             "gives its orders and rewards")
-            elif name == "rollout_traj_net_offpolicy":
-                acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
-                close(f"K1 on K29's streams vs its rewards, {mode}",
-                      ns.episode_returns(params, acts.contiguous(), tr["demand"]),
-                      tr["reward"].sum(0), 1e-5, 1e-3)
-                n_ro = params.topology.n_reorder
-                X, Y, U, RH = ns.init_transposed(params, B, dev)
-                for t in range(params.num_periods):
-                    X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, acts[t],
-                                                              tr["demand"][t], t)
-                    for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
-                        close(f"step chain {k}[{t}] vs K29, {mode}", tr[k][t + (k != "r")],
-                              want_k, 1e-5, 1e-3)
-                    close(f"step chain reward[{t}] vs K29, {mode}", tr["reward"][t], rew, 1e-5,
-                          1e-3)
-                lines.append(f"K29 {mode}: the plain step chain on its demand and a_norm gives "
-                             "its x, u, r and rewards; K1 on its streams its rewards' sum")
+        err.setdefault(name, 0.0)
+        if mode == OFF_MODES[0]:
+            ppo_actor, ppo_log_std = seeded_actor(obs_dim, act_dim, dev)
+            ppo_demand = ppo_kernel(params, ppo_actor, ppo_log_std, SEED, B, device=dev)["demand"]
+        actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
+        tr = kernel(params, actor, log_std, SEED, B, mode, "relu", dev)
+        std = ek.clipped_std(log_std) if mode == "det" else None
+        ms, want = timed_once(plain, params, actor, std, SEED, B, dev, mode, "relu")
+        if mode == "det" and B == LEARN_LANES:
+            plain_ms[name] = ms
+        name_b = f"{name} at {B} lanes"
+        same(f"{name_b} demand, {mode}", tr["demand"], want["demand"])
+        same(f"{name_b} demand vs the PPO kernel's, {mode}", tr["demand"], ppo_demand)
+        if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+            raise AssertionError(f"{name_b} {mode}: a_norm outside [-1, 1]")
+        forced = offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev)
+        need = FLOAT_FREE_SHARE if name != "rollout_traj_im_offpolicy" and \
+            mode != "uniform" else LANE_SHARE
+        if mode == "uniform":
+            exact(f"{name_b} a_norm, uniform", tr["raw"], want["raw"])
+            shares = {"raw": (1.0, 0.0)}
+        else:
+            shares = {"raw": lane_share(f"{name_b} a_norm vs plain, {mode}", tr["raw"],
+                                        want["raw"], 1e-4, 1e-4, need)}
+        shares.update({k: lane_share(f"{name_b} {k} vs plain, {mode}", tr[k], want[k],
+                                     need=need)
+                       for k in tr if k not in ("raw", "demand")})
+        err[name] = max([err[name]] + [e for _, e in shares.values()])
+        lines.append(f"{name_b} {mode}: demand equal to plain's and the PPO kernel's; "
+                     f"a_norm teacher-forced max |diff| {forced:.3g}; lanes agreeing "
+                     + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
+        if name == "rollout_traj_im_offpolicy":
+            acts = im.trunc_i32((tr["raw"] + 1.0) * torch.tensor(
+                ek._half_c(params), device=dev)[None, :, None])
+            share = float((acts == tr["actions"]).double().mean())
+            if share < 0.9999:
+                raise AssertionError(f"K27 {mode}: a_norm rescaled gives its actions on "
+                                     f"{share:.4%} of elements")
+            state, _ = im.reset(params, batch=B, device=dev)
+            for t in range(NUM_STEPS):
+                exact(f"step chain inv[{t}] vs K27 inv, {mode}", state.inv.T, tr["inv"][t])
+                state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
+                                                tr["demand"][t])
+                close(f"step chain reward[{t}] vs K27, {mode}", ts.reward,
+                      tr["reward"][t], 1e-4, 1e-2)
+            exact(f"step chain final inv vs K27, {mode}", state.inv.T,
+                  tr["inv"][NUM_STEPS])
+            lines.append(f"K27 {mode}: a_norm rescaled gives its actions on {share:.4%} "
+                         "of elements; the env step chain gives its inv exactly")
+        elif nv_family:
+            nv_step_chain(params, tr, mode)
+            lines.append(f"K28 {mode}: the plain step chain on its econ, demand and a_norm "
+                         "gives its orders and rewards")
+        elif name == "rollout_traj_net_offpolicy":
+            acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
+            close(f"K1 on K29's streams vs its rewards, {mode}",
+                  ns.episode_returns(params, acts.contiguous(), tr["demand"]),
+                  tr["reward"].sum(0), 1e-5, 1e-3)
+            n_ro = params.topology.n_reorder
+            X, Y, U, RH = ns.init_transposed(params, B, dev)
+            for t in range(params.num_periods):
+                X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, acts[t],
+                                                          tr["demand"][t], t)
+                for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
+                    close(f"step chain {k}[{t}] vs K29, {mode}", tr[k][t + (k != "r")],
+                          want_k, 1e-5, 1e-3)
+                close(f"step chain reward[{t}] vs K29, {mode}", tr["reward"][t], rew, 1e-5,
+                      1e-3)
+            lines.append(f"K29 {mode}: the plain step chain on its demand and a_norm gives "
+                         "its x, u, r and rewards; K1 on its streams its rewards' sum")
+        del tr, want
+    # K27/K28 on a ragged batch, and on the wide route: an actor of OFF_WIDE
+    # widths, whose slice fits no cluster tile, so the wrapper launches the
+    # first design (csrc/wide_mlp.cuh). K27's a_norm free-running on >= 99%
+    # of lanes; K28's econ bit for bit and its a_norm teacher-forced, with
+    # the plain step chain on its streams, and free-running on
+    # FLOAT_FREE_SHARE of the ragged batch's lanes, as the cases above; on
+    # the wide route its free-running share is reported, not gated: the
+    # (512, 512) actor's ulps feed back through the pipeline
+    for name, kernel, plain, params, _, obs_dim, act_dim in offpolicy_families(dev)[:2]:
+        nv_family = name == "rollout_traj_nv_offpolicy"
+        same = demand_check if nv_family else exact
+        for case, B, arch in (("ragged", RAGGED[0], OFF_ARCH),
+                              ("wide route", LEARN_LANES, OFF_WIDE)):
+            need = LANE_SHARE if not nv_family else \
+                FLOAT_FREE_SHARE if case == "ragged" else 0.0
+            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, False, dev, arch)
+            std = ek.clipped_std(log_std)
+            tr = kernel(params, actor, log_std, SEED, B, "det", "relu", dev)
+            route = "wide" if case == "wide route" else "cluster"
+            if kernel.route != route:
+                raise AssertionError(f"{name} {case}: the wrapper took the {kernel.route} route")
+            want = plain(params, actor, std, SEED, B, dev, "det", "relu")
+            same(f"{name} {case} demand", tr["demand"], want["demand"])
+            if nv_family:
+                exact(f"{name} {case} econ", tr["econ"], want["econ"])
+            forced = offpolicy_teacher_forced(name, params, tr, actor, std, "det", act_dim, dev)
+            share, e = lane_share(f"{name} {case} a_norm vs plain", tr["raw"], want["raw"],
+                                  1e-4, 1e-4, need)
+            err[name] = max(err[name], e)
+            if nv_family:
+                nv_step_chain(params, tr, f"det, {case}")
+            lines.append(f"{name} det, {case} ({B} lanes, actor {arch}, the {route} kernel): "
+                         f"demand{' and econ' if nv_family else ''} equal to plain's; a_norm "
+                         f"teacher-forced max |diff| "
+                         f"{forced:.3g}; lanes agreeing {share:.4%}"
+                         + ("; the plain step chain on its econ, demand and a_norm gives its "
+                            "orders and rewards" if nv_family else ""))
             del tr, want
     torch.cuda.synchronize()
     return err, plain_ms, lines
+
+
+def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
+    """A function that launches K27's or K28's cluster kernel alone (the
+    det head, the entry points' plan), its plan, packed actor and outputs
+    made once, before: what CUDA events around it time is the launch. It is
+    launched once here, and each of its outputs must equal the entry
+    point's (``kernel``) on the same seed and batch, bit for bit."""
+    import ctypes
+
+    import torch
+
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    std = ek.clipped_std(log_std)
+    if name == "rollout_traj_im_offpolicy":
+        src, T, act, obs = "im_policy", params.periods, params.m1, params.pipeline_length
+        st, flat = ek._pack_cluster_actor(actor, std, obs, act, "det", ek._half_c(params), T,
+                                          obs, False, dev)
+        flags, plan = (1, int(params.backlog)), ek._im_plan(params, ek._plan_key(dev))
+        env = (plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr())
+        shapes = [((T + 1, act, batch), torch.int32), ((T, act, batch), torch.int32),
+                  ((T, act, batch), torch.float32), ((T, batch), torch.float32),
+                  ((T, batch), torch.int32)]
+        streams = ("inv", "actions", "raw", "reward", "demand")
+    else:
+        src, T, obs = "nv_policy", params.step_limit, params.obs_dim
+        st, flat = ek._pack_cluster_actor(actor, std, obs, 1, "det", ek._nv_half_hi(params), T,
+                                          obs + 1, True, dev)
+        flags, plan = (1,), ek._nv_plan(params, ek._plan_key(dev))
+        env = (plan["lgam"].data_ptr(),)
+        shapes = [((5, batch), torch.float32)] + [((T, batch), torch.float32)] * 4
+        streams = ("econ", "orders", "raw", "reward", "demand")
+    fam = src.split("_")[0]
+    ek._set_cluster_grid(st, batch, src, f"{fam}_rollout_traj_cluster_occupancy", flags, dev)
+    outs = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in shapes]
+    fn = getattr(_build.library(src), f"{fam}_rollout_traj_cluster")
+    args = (ctypes.addressof(plan["struct"]), ctypes.addressof(st), flat.data_ptr(), *env,
+            *(o.data_ptr() for o in outs), SEED, *flags, batch, T, ek._stream(dev))
+
+    alive = (st, flat, plan, outs)   # what the pointers in args point into
+
+    def launch():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"{fam}_rollout_traj_cluster: {_build.error_string(src, rc)}")
+        return alive[-1]
+    launch()
+    want = kernel(params, actor, log_std, SEED, batch, "det", "relu", dev)
+    if kernel.route != "cluster":
+        raise AssertionError(f"{name} at {batch} lanes took the {kernel.route} route")
+    for k, got in zip(streams, outs):
+        exact(f"{name} kernel alone {k} vs the entry point's at {batch} lanes",
+              got.reshape(-1), want[k].reshape(-1))
+    del want
+    return launch
 
 
 def td3_main_path(dev, wrappers, smi):
@@ -2781,31 +2930,38 @@ def slice7_phases(dev, wrappers, smi, err, times, work):
                       k26_t, {"best_ms": b6_plain_ms["episode_returns_random_policy"]})})
     off_lines = []
     for name, kernel, _, fparams, _, obs_dim, act_dim in offpolicy_families(dev):
-        mode_ms = {}
-        for mode in OFF_MODES:
-            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
-            mode_ms[mode] = cuda_time(kernel, fparams, actor, log_std, SEED, B, mode, "relu",
-                                      dev, warmup=1, iters=5)
-            if mode == "det":   # the learners' shape: TD3_RECIPE's 1,024 envs
-                mode_ms["det_learner"] = cuda_time(
-                    kernel, fparams, actor, log_std, SEED, TD3_RECIPE["num_envs"], mode,
-                    "relu", dev, warmup=1, iters=5)
         n_bytes, per_step, horizon, weights = offpolicy_work(name, fparams, obs_dim, act_dim,
                                                              "det")
-        work[name] = bound(B * n_bytes + weights, B * horizon * per_step)
-        times[name] = (mode_ms["det"], {"best_ms": off_plain_ms[name]})
-        n_learn = TD3_RECIPE["num_envs"]
-        learn_bound = bound(n_learn * n_bytes + weights, n_learn * horizon * per_step)
-        off_lines.append(f"{name}: det {mode_ms['det']['best_ms']:.4f} ms, sac "
-                         f"{mode_ms['sac']['best_ms']:.4f} ms, uniform "
-                         f"{mode_ms['uniform']['best_ms']:.4f} ms at {B} x {horizon}; det "
-                         f"{mode_ms['det_learner']['best_ms']:.4f} ms at the learners' "
-                         f"{n_learn} x {horizon} (bound {learn_bound[0]:.4f} ms by "
-                         f"{learn_bound[1]}); {per_step:.0f} operations an env-step (det)")
-        off_summary[f"{name}_learner_ms"] = mode_ms["det_learner"]["best_ms"]
-        off_summary[f"{name}_learner_bound_ms"] = learn_bound[0]
-        off_summary[f"{name}_sac_ms"] = mode_ms["sac"]["best_ms"]
-        off_summary[f"{name}_uniform_ms"] = mode_ms["uniform"]["best_ms"]
+        entry_ms, parts = {}, []
+        for mode in OFF_MODES:
+            actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
+            for lanes in (LEARN_LANES, B):
+                entry_ms[mode, lanes] = cuda_time(kernel, fparams, actor, log_std, SEED, lanes,
+                                                  mode, "relu", dev, warmup=1, iters=5)
+        actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, False, dev)
+        for lanes in (LEARN_LANES, B):
+            b_ms, b_by = bound(lanes * n_bytes + weights, lanes * horizon * per_step)
+            det = entry_ms["det", lanes]["best_ms"]
+            key = "learner" if lanes == LEARN_LANES else "check"
+            off_summary[f"{name}_{key}_ms"] = det
+            off_summary[f"{name}_{key}_bound_ms"] = b_ms
+            line = f"at {lanes} x {horizon}: det {det:.4f} ms through the entry point"
+            if name in CLUSTER_KERNELS:   # the kernel alone, its plan and inputs made before
+                alone = cuda_time(offpolicy_kernel_launch(name, kernel, fparams, actor, log_std,
+                                                          lanes, dev), warmup=1,
+                                  iters=5)["best_ms"]
+                off_summary[f"{name}_{key}_kernel_ms"] = alone
+                line += f", {alone:.4f} ms the kernel alone"
+            parts.append(line + f", bound {b_ms:.4f} ms by {b_by} ({b_ms / det:.1%} of the "
+                         f"entry point's); sac {entry_ms['sac', lanes]['best_ms']:.4f}, uniform "
+                         f"{entry_ms['uniform', lanes]['best_ms']:.4f} ms")
+            off_summary[f"{name}_{key}_sac_ms"] = entry_ms["sac", lanes]["best_ms"]
+            off_summary[f"{name}_{key}_uniform_ms"] = entry_ms["uniform", lanes]["best_ms"]
+        # the kernels line holds the main paths' shape, the learners' lanes
+        work[name] = bound(LEARN_LANES * n_bytes + weights, LEARN_LANES * horizon * per_step)
+        times[name] = (entry_ms["det", LEARN_LANES], {"best_ms": off_plain_ms[name]})
+        off_lines.append(f"{name} {'; '.join(parts)}; {per_step:.0f} operations an env-step "
+                         f"(det)")
     print(f"[35 work] K25 per lane {state_rows} state rows read and written, step "
           f"{step_ops(topo)} ops; K26 per env-step step {step_ops(topo)} + actions "
           f"{random_action_ops(topo)} ops; K27-K29: the (256, 256) relu actor "
@@ -2899,8 +3055,10 @@ def main() -> int:
                    if e.startswith(("k_batched_step", "k_episode_returns_random",
                                     "k_im_rollout_traj_wide", "k_nv_rollout_traj_wide",
                                     "k_rollout_traj_wide"))]
-    print("[2 build] K25-K29 (net_episode.cu, im/nv/net_policy.cu on wide_mlp.cuh): "
-          + "; ".join(new_entries), flush=True)
+    print("[2 build] K25/K26 (net_episode.cu), K29 and K27/K28's wide route (im/nv/net_"
+          "policy.cu on wide_mlp.cuh): " + "; ".join(new_entries), flush=True)
+    print("[2 build] K27/K28 on the thread-block cluster (cluster_mlp.cuh, FP32 products): "
+          + cluster_check(logs), flush=True)
     net_so = str(_build._target(_build.CSRC / "net_episode.cu"))
     net_log = next((out for so, out in logs.items() if "libnet_episode" in so), "")
     local = sass_counts(net_so)

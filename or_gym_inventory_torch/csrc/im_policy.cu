@@ -19,10 +19,13 @@
 //    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
 //    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
 //    "kernel"): K10's streams, the raw stream holding the normalised [-1, 1]
-//    actions. The actor is wide_mlp.cuh's (a block per 32 lanes, the SB3
-//    default (256, 256) actor streamed from L2); threads 0..31 own the
-//    lanes' envs, as in K24. Bound by operations: the (256, 256) actor's
-//    ~1.5e5 per env-step.
+//    actions. k_im_rollout_traj_cluster runs the SB3 default (256, 256)
+//    actor over a thread-block cluster, each CTA holding a slice of it in
+//    shared memory (cluster_mlp.cuh); k_im_rollout_traj_wide, the first
+//    design, is the wide route for an actor whose slice fits no CTA (a
+//    block per 32 lanes, the actor streamed from L2, wide_mlp.cuh; threads
+//    0..31 own the lanes' envs, as in K24). Bound by operations: the
+//    (256, 256) actor's ~1.5e5 per env-step.
 //
 // K10's design (a simple kernel first): one thread per lane; the step is
 // im_step.cuh's, the actor mlp.cuh's (weights and activations in shared
@@ -69,6 +72,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_mlp.cuh"
 #include "im_step.cuh"
 #include "launch.cuh"
 #include "mlp.cuh"
@@ -300,6 +304,107 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int i = 0; i < m1; ++i) invo[((long long)T * m1 + i) * B + b] = s.inv[i];
 }
 
+// K27 over a thread-block cluster (cluster_mlp.cuh). CTA r of a cluster
+// steps lanes r lanes_cta .. of each tile, one thread each (the ImEpisode
+// frame in local memory, as K10); the rest runs on every thread: at each
+// tile's reset, every (lane, period)'s demand and head noise from the
+// period's words (the demand word, then the head's) into shared memory;
+// per period, the obs of the CTA's lanes, read from their on-hand and
+// ring of requested orders in shared memory, into every CTA's xo, then
+// the cluster's actor; then the lane threads' head and step.
+template <bool RELU, bool BACKLOG>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    k_im_rollout_traj_cluster(const __grid_constant__ ImParams p,
+                              const __grid_constant__ ClusterMlp m, const float* __restrict__ w,
+                              const float* __restrict__ table, const int* __restrict__ user_d,
+                              const float* __restrict__ disc, int* __restrict__ invo,
+                              int* __restrict__ acto, float* __restrict__ rawo,
+                              float* __restrict__ rewo, int* __restrict__ demo, unsigned seed,
+                              long long B, int T) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), n = threadIdx.x, Lc = m.lanes_cta, A = m.act;
+  const bool actor = m.head != kHeadUniform, lane = n < Lc;
+  if (actor) cluster_load_weights(m, w, rank, smem);
+  const int m1 = p.m1, lt = p.lt, n_obs = m1 * (lt + 1);
+  const long long tiles = (B + m.lanes - 1) / m.lanes;
+  int* dem = reinterpret_cast<int*>(smem + m.s_dem);       // [lane][T]
+  float* zs = smem + m.s_z;                                // [lane][T][act]
+  int* state = reinterpret_cast<int*>(smem + m.s_state);  // [lane][on-hand m1, ring lt m1]
+  int* mine = state + n * m.state_words;                   // a lane thread's
+  ImEpisode s;
+  int act[IM_MAX_M1];
+  for (long long tile = blockIdx.x / m.cluster; tile < tiles; tile += gridDim.x / m.cluster) {
+    const long long lane0 = tile * m.lanes + rank * Lc, b = lane0 + n;
+    const bool live = lane && b < B;
+    if (lane) {
+      im_reset(p, s);
+      for (int i = 0; i < m1; ++i) mine[i] = s.inv[i];
+    }
+    for (int i = n; i < Lc * T; i += kClusterThreads) {  // the draws, a (lane, period) each
+      const int l = i / T, t = i - l * T;
+      WordStream ws(seed, 1u, (unsigned)(lane0 + l), 0u, (unsigned)t);
+      dem[i] = im_demand(p, table, user_d, t, ws.next());
+      offpolicy_noise(m.head, A, ws, zs + (long long)i * A);
+    }
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+      if (actor) {  // the obs of period t, in policy_period's order, zero rows to kin[0]
+        const int q0 = max(t - lt, 0);
+        for (int i = n; i < m.kin[0] * Lc; i += kClusterThreads) {
+          const int k = i / Lc, l = i - k * Lc;
+          const int* st = state + l * m.state_words;
+          int v = 0;
+          if (k < m1) {
+            v = st[k];
+          } else if (k < n_obs) {
+            const int j = (k - m1) / m1, q = q0 + j;
+            if (q < t) v = st[m1 + (q % lt) * m1 + (k - m1 - j * m1)];
+          }
+          cluster_put(cl, m, smem + m.s_xo, k * m.stride + rank * Lc + l, (float)v);
+        }
+      }
+      const float* H = actor ? cluster_forward<RELU>(cl, m, smem, rank) : nullptr;
+      if (lane) {
+        if (live)
+          for (int i = 0; i < m1; ++i) invo[((long long)t * m1 + i) * B + b] = s.inv[i];
+        const int d = dem[n * T + t];
+        const float* z = zs + ((long long)n * T + t) * A;
+        for (int i = 0; i < m1; ++i) {
+          float st;
+          const float a = cluster_head(m, smem, H, n, i, z[i], st);
+          act[i] = (int)__fmul_rn(__fadd_rn(a, 1.f), m.half_hi[i]);
+          if (live) {
+            const long long k = ((long long)t * m1 + i) * B + b;
+            rawo[k] = st;
+            acto[k] = act[i];
+          }
+        }
+        const float profit = step_and_record<BACKLOG>(p, s, t, act, d, mine + m1);
+        for (int i = 0; i < m1; ++i) mine[i] = s.inv[i];
+        if (live) {
+          rewo[(long long)t * B + b] = __fmul_rn(__ldg(disc + t), profit);
+          demo[(long long)t * B + b] = d;
+        }
+      }
+      if (actor) __syncthreads();  // the lanes' state, for the next obs
+    }
+    if (live)
+      for (int i = 0; i < m1; ++i) invo[((long long)T * m1 + i) * B + b] = s.inv[i];
+    __syncthreads();  // the last period's draws are read
+  }
+  if (actor) cl.sync();  // no CTA leaves while a peer may still write its memory
+}
+
+using ImClusterKernel = decltype(&k_im_rollout_traj_cluster<true, true>);
+
+ImClusterKernel im_cluster_kernel(int relu, int backlog) {
+  if (relu)
+    return backlog ? k_im_rollout_traj_cluster<true, true> : k_im_rollout_traj_cluster<true, false>;
+  return backlog ? k_im_rollout_traj_cluster<false, true> : k_im_rollout_traj_cluster<false, false>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,6 +455,21 @@ int im_rollout_traj_wide(const ImParams* p, const WideMlp* wm, const float* w,
   kernel<<<wide_blocks(B), kWideThreads, smem, stream>>>(*p, *wm, w, table, user_d, disc, inv,
                                                          acts, raw, rew, dem, seed, B, T);
   return (int)cudaGetLastError();
+}
+
+// K27 on the cluster (cluster_mlp.cuh): m->clusters clusters of
+// m->cluster CTAs.
+int im_rollout_traj_cluster(const ImParams* p, const ClusterMlp* m, const float* w,
+                            const float* table, const int* user_d, const float* disc, int* inv,
+                            int* acts, float* raw, float* rew, int* dem, unsigned seed, int relu,
+                            int backlog, long long B, int T, cudaStream_t stream) {
+  return launch_cluster(im_cluster_kernel(relu, backlog), *m, stream, *p, *m, w, table,
+                        user_d, disc, inv, acts, raw, rew, dem, seed, B, T);
+}
+
+// The clusters of K27's instance that the card holds at once, into *out.
+int im_rollout_traj_cluster_occupancy(const ClusterMlp* m, int relu, int backlog, int* out) {
+  return max_active_clusters(im_cluster_kernel(relu, backlog), *m, out);
 }
 
 }  // extern "C"

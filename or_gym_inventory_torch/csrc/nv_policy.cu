@@ -22,9 +22,13 @@
 //    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
 //    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
 //    "kernel"): K18's streams, the raw stream holding the normalised [-1, 1]
-//    orders. The actor is wide_mlp.cuh's (a block per 32 lanes); threads
-//    0..31 own the lanes' resets, demand chunks and pipelines. Bound by
-//    operations: the (256, 256) actor's ~1.4e5 per env-step.
+//    orders. k_nv_rollout_traj_cluster runs the actor over a thread-block
+//    cluster (cluster_mlp.cuh), each tile's demand counted up front by
+//    every thread; k_nv_rollout_traj_wide, the first design, is the wide
+//    route for an actor whose slice fits no CTA (a block per 32 lanes,
+//    wide_mlp.cuh; threads 0..31 own the lanes' resets, demand chunks and
+//    pipelines). Bound by operations: the (256, 256) actor's ~1.4e5 per
+//    env-step.
 // K21 k_sample_normals  replaces sample_normals_debug (:1849): the
 //    Box-Muller normals of the policy kernels' generator, (rows, B), for the
 //    goodness-of-fit pin.
@@ -92,6 +96,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_mlp.cuh"
 #include "launch.cuh"
 #include "mlp.cuh"
 #include "mlp_tile.cuh"
@@ -482,6 +487,128 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
+// K28 over a thread-block cluster (cluster_mlp.cuh). CTA r of a cluster
+// steps lanes r lanes_cta .. of each tile, one thread each (the econ and
+// the pipeline's head in registers, the pipeline in the lane's row of
+// shared memory); the rest runs on every thread. At each tile's reset the
+// lane threads draw the econ and set up the Poisson anchor; then every
+// thread counts the lanes' demand, a (lane, chunk of NV_CHUNK periods) at
+// a time with chunk_demand (K18's words and recurrence), and draws the
+// head noise of each (lane, period), into shared memory. Per period, the
+// obs of the CTA's lanes into every CTA's xo, the cluster's actor, then
+// the lane threads' head and step.
+template <bool RELU>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    k_nv_rollout_traj_cluster(const __grid_constant__ NvParams p,
+                              const __grid_constant__ ClusterMlp m, const float* __restrict__ w,
+                              const float* __restrict__ lgam, float* __restrict__ econo,
+                              float* __restrict__ ordo, float* __restrict__ rawo,
+                              float* __restrict__ rewo, float* __restrict__ demo, unsigned seed,
+                              long long B, int T) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), n = threadIdx.x, Lc = m.lanes_cta, A = m.act;
+  const bool actor = m.head != kHeadUniform, lane = n < Lc;
+  if (actor) cluster_load_weights(m, w, rank, smem);
+  const long long tiles = (B + m.lanes - 1) / m.lanes;
+  const int chunks = (T + NV_CHUNK - 1) / NV_CHUNK, L = p.L, n_obs = 5 + L;
+  float* dem = smem + m.s_dem;      // [lane][T]
+  float* zs = smem + m.s_z;         // [lane][T][act]
+  float* qs = smem + m.s_q;         // [lane][4]: the anchors
+  float* state = smem + m.s_state;  // [lane][econ 5, pipeline L, its head]
+  float* mine = state + n * m.state_words;  // a lane thread's
+  const NvSharedRing ring{mine + 5, 1};
+  NvEcon c;
+  int head = 0;
+  for (long long tile = blockIdx.x / m.cluster; tile < tiles; tile += gridDim.x / m.cluster) {
+    const long long lane0 = tile * m.lanes + rank * Lc, b = lane0 + n;
+    const bool live = lane && b < B;
+    if (lane) {
+      WordStream ws(seed, 1u, (unsigned)b, 0u, NV_ECON_PERIOD);
+      float u[5];
+      for (int r = 0; r < 5; ++r) u[r] = u01(ws.next());
+      c = nv_econ(p, u);
+      if (live) {
+        econo[b] = c.price;
+        econo[B + b] = c.cost;
+        econo[2 * B + b] = c.h;
+        econo[3 * B + b] = c.k;
+        econo[4 * B + b] = c.mu;
+      }
+      const float e[5] = {c.price, c.cost, c.h, c.k, c.mu};
+      for (int r = 0; r < 5; ++r) mine[r] = e[r];
+      for (int j = 0; j < L; ++j) ring(j) = 0.f;
+      head = 0;
+      mine[5 + L] = __int_as_float(head);
+      const NvPoisson q = nv_poisson_setup(p, lgam, c.mu);
+      qs[4 * n] = q.mu;
+      qs[4 * n + 1] = q.kc;
+      qs[4 * n + 2] = q.p_c;
+      qs[4 * n + 3] = q.total;
+    }
+    __syncthreads();  // the anchors are in
+    for (int i = n; i < Lc * chunks; i += kClusterThreads) {
+      const int l = i % Lc, t0 = (i / Lc) * NV_CHUNK;
+      const NvPoisson q{qs[4 * l], qs[4 * l + 1], qs[4 * l + 2], qs[4 * l + 3]};
+      float d[NV_CHUNK];
+      chunk_demand(p, q, seed, (unsigned)(lane0 + l), 0u, t0, T, d);
+#pragma unroll
+      for (int j = 0; j < NV_CHUNK; ++j)
+        if (t0 + j < T) dem[l * T + t0 + j] = d[j];
+    }
+    for (int i = n; i < Lc * T; i += kClusterThreads) {  // the head noise, a (lane, period) each
+      const int l = i / T, t = i - l * T;
+      WordStream ws(seed, 1u, (unsigned)(lane0 + l), 0u, (unsigned)t);
+      ws.next();  // word 0: the period's demand
+      offpolicy_noise(m.head, A, ws, zs + (long long)i * A);
+    }
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+      if (actor) {  // the obs of period t: econ, the pipeline oldest first, zero rows to kin[0]
+        for (int i = n; i < m.kin[0] * Lc; i += kClusterThreads) {
+          const int k = i / Lc, l = i - k * Lc;
+          const float* st = state + l * m.state_words;
+          float v = 0.f;
+          if (k < 5) {
+            v = st[k];
+          } else if (k < n_obs) {
+            int j = __float_as_int(st[5 + L]) + k - 5;
+            if (j >= L) j -= L;
+            v = st[5 + j];
+          }
+          cluster_put(cl, m, smem + m.s_xo, k * m.stride + rank * Lc + l, v);
+        }
+      }
+      const float* H = actor ? cluster_forward<RELU>(cl, m, smem, rank) : nullptr;
+      if (lane) {
+        float st, qty;
+        const float a = cluster_head(m, smem, H, n, 0, zs[((long long)n * T + t) * A], st);
+        const float order = __fmul_rn(__fadd_rn(a, 1.f), m.half_hi[0]);
+        const float dt = dem[n * T + t];
+        const float reward = nv_step_ring(p, ring, head, c, order, dt, qty);
+        mine[5 + L] = __int_as_float(head);
+        if (live) {
+          const long long k = (long long)t * B + b;  // (T, B) and (T, 1, B)
+          ordo[k] = qty;
+          rawo[k] = st;
+          rewo[k] = reward;
+          demo[k] = dt;
+        }
+      }
+      if (actor) __syncthreads();  // the lanes' state, for the next obs
+    }
+    __syncthreads();  // the last period's draws are read
+  }
+  if (actor) cl.sync();  // no CTA leaves while a peer may still write its memory
+}
+
+using NvClusterKernel = decltype(&k_nv_rollout_traj_cluster<true>);
+
+NvClusterKernel nv_cluster_kernel(int relu) {
+  return relu ? k_nv_rollout_traj_cluster<true> : k_nv_rollout_traj_cluster<false>;
+}
+
 template <bool STOCH, bool DUMP, int LAYOUT>
 int launch_layout(const NvParams& p, const MlpTile& m, const NvTile& nt, const float* w,
                   const float* lgam, const float* disc, float* out, float* econ, float* acts,
@@ -549,6 +676,21 @@ int nv_rollout_traj_wide(const NvParams* p, const WideMlp* wm, const float* w,
   kernel<<<wide_blocks(B), kWideThreads, smem, stream>>>(*p, *wm, w, lgam, econ, orders, raw,
                                                          rew, dem, seed, B, T);
   return (int)cudaGetLastError();
+}
+
+// K28 on the cluster (cluster_mlp.cuh): m->clusters clusters of
+// m->cluster CTAs.
+int nv_rollout_traj_cluster(const NvParams* p, const ClusterMlp* m, const float* w,
+                            const float* lgam, float* econ, float* orders, float* raw,
+                            float* rew, float* dem, unsigned seed, int relu, long long B, int T,
+                            cudaStream_t stream) {
+  return launch_cluster(nv_cluster_kernel(relu), *m, stream, *p, *m, w, lgam, econ,
+                        orders, raw, rew, dem, seed, B, T);
+}
+
+// The clusters of K28's instance that the card holds at once, into *out.
+int nv_rollout_traj_cluster_occupancy(const ClusterMlp* m, int relu, int* out) {
+  return max_active_clusters(nv_cluster_kernel(relu), *m, out);
 }
 
 int sample_normals(float* out, unsigned seed, long long B, int rows, cudaStream_t stream) {

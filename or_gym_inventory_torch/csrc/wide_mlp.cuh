@@ -1,7 +1,10 @@
 // The folded actor of the off-policy learners (SAC, TD3, DDPG) as the
-// trajectory kernels run it, one block over a tile of kWideLanes lanes,
-// shared by K27 (im_policy.cu), K28 (nv_policy.cu) and K29
-// (net_policy.cu). It replaces the in-kernel pallas_episode_kernels
+// trajectory kernels' first design runs it, one block over a tile of
+// kWideLanes lanes: K29 (net_policy.cu), and K27 (im_policy.cu) and K28
+// (nv_policy.cu) on their wide route, for an actor whose slice fits no
+// CTA of cluster_mlp.cuh, where they run otherwise; the heads' math
+// (offpolicy_head) and noise (offpolicy_noise) are shared with
+// cluster_mlp.cuh. It replaces the in-kernel pallas_episode_kernels
 // .mlp_forward (:1124) with a relu (or tanh) trunk and the heads of
 // traj_policy (:1036-1081): "det", "sac", "uniform", and "ppo" on a relu
 // trunk (the PPO head on a tanh trunk stays K4/K10/K18's, mlp.cuh).
@@ -53,8 +56,9 @@
 #define WIDE_MAX_LAYERS 8
 #define WIDE_MAX_ACT 32
 
-constexpr int kWideLanes = 32;     // lanes a block runs: the activations' columns
-constexpr int kWideThreads = 256;  // 32 output groups x 8 lane groups
+constexpr int kWideLanes = 32;                 // lanes a block runs: the activations' columns
+constexpr int kWideThreads = 256;              // output groups x lane groups
+constexpr int kWideGroups = kWideLanes / 4;    // lane groups of 4 lanes
 
 enum WideHead { kHeadPpo = 0, kHeadDet = 1, kHeadSac = 2, kHeadUniform = 3 };
 
@@ -79,8 +83,9 @@ template <bool RELU>
 __device__ __forceinline__ void wide_layer(const float* __restrict__ W,
                                            const float* __restrict__ bias, int ni, int no8,
                                            const float* in, float* out, bool hidden) {
-  const int lg = threadIdx.x & 7;
-  for (int o0 = (threadIdx.x >> 3) * 8; o0 < no8; o0 += (kWideThreads / 8) * 8) {
+  const int lg = threadIdx.x % kWideGroups;
+  const int step = (kWideThreads / kWideGroups) * 8;  // outputs a pass
+  for (int o0 = (threadIdx.x / kWideGroups) * 8; o0 < no8; o0 += step) {
     float acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -142,37 +147,40 @@ __device__ __forceinline__ const float* wide_forward(const WideMlp& m,
 // The head's noise of one (lane, period) from the words after the demand's:
 // the act u1 words then the act u2 words as Box-Muller normals, or, for
 // "uniform", the act u1 words as 24-bit uniforms.
-__device__ __forceinline__ void wide_noise(const WideMlp& m, WordStream& ws, float* z) {
-  if (m.head == kHeadUniform) {
-    for (int i = 0; i < m.act; ++i) z[i] = u01(ws.next());
+__device__ __forceinline__ void offpolicy_noise(int head, int act, WordStream& ws, float* z) {
+  if (head == kHeadUniform) {
+    for (int i = 0; i < act; ++i) z[i] = u01(ws.next());
     return;
   }
   unsigned w1[WIDE_MAX_ACT];
-  for (int i = 0; i < m.act; ++i) w1[i] = ws.next();
-  for (int i = 0; i < m.act; ++i) z[i] = normal01(w1[i], ws.next());
+  for (int i = 0; i < act; ++i) w1[i] = ws.next();
+  for (int i = 0; i < act; ++i) z[i] = normal01(w1[i], ws.next());
 }
 
-// Action i's head for lane column n of the outputs H ([row][lane]): returns
-// a_norm in [-1, 1] (the env takes low + (a_norm + 1) half_hi) and the
-// value the kernel stores in its raw stream.
-__device__ __forceinline__ float wide_head(const WideMlp& m, const float* __restrict__ w,
-                                           const float* H, int n, int i, float z,
-                                           float& store) {
+__device__ __forceinline__ void wide_noise(const WideMlp& m, WordStream& ws, float* z) {
+  offpolicy_noise(m.head, m.act, ws, z);
+}
+
+// Action i's head from its output h = H_i, for "sac" also ls = H_{act+i},
+// for "ppo" and "det" the std s = std_i, and its noise z: returns a_norm in
+// [-1, 1] (the env takes low + (a_norm + 1) half_hi) and the value the
+// kernel stores in its raw stream.
+__device__ __forceinline__ float offpolicy_head(int head, float h, float ls, float s, float z,
+                                                float& store) {
   float a;
-  switch (m.head) {
+  switch (head) {
     case kHeadPpo: {
-      const float raw = __fadd_rn(H[i * kWideLanes + n], __fmul_rn(__ldg(w + m.std + i), z));
+      const float raw = __fadd_rn(h, __fmul_rn(s, z));
       store = raw;
       return tanhf(raw);
     }
     case kHeadDet:
-      a = __fadd_rn(tanhf(H[i * kWideLanes + n]), __fmul_rn(__ldg(w + m.std + i), z));
+      a = __fadd_rn(tanhf(h), __fmul_rn(s, z));
       a = min_nan(max_nan(a, -1.f), 1.f);
       break;
     case kHeadSac: {
-      const float ls = H[(m.act + i) * kWideLanes + n];
       const float sd = expf(min_nan(max_nan(ls, -10.f), 2.f));
-      a = tanhf(__fadd_rn(H[i * kWideLanes + n], __fmul_rn(sd, z)));
+      a = tanhf(__fadd_rn(h, __fmul_rn(sd, z)));
       break;
     }
     default:
@@ -180,6 +188,18 @@ __device__ __forceinline__ float wide_head(const WideMlp& m, const float* __rest
   }
   store = a;
   return a;
+}
+
+// Action i's head (offpolicy_head) for lane column n of the outputs H
+// ([row][lane]).
+__device__ __forceinline__ float wide_head(const WideMlp& m, const float* __restrict__ w,
+                                           const float* H, int n, int i, float z,
+                                           float& store) {
+  const bool with_std = m.head == kHeadPpo || m.head == kHeadDet;
+  const bool actor = m.head != kHeadUniform;
+  return offpolicy_head(m.head, actor ? H[i * kWideLanes + n] : 0.f,
+                        m.head == kHeadSac ? H[(m.act + i) * kWideLanes + n] : 0.f,
+                        with_std ? __ldg(w + m.std + i) : 0.f, z, store);
 }
 
 size_t wide_smem_bytes(const WideMlp& m) {

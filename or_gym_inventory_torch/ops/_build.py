@@ -78,6 +78,12 @@ SIGNATURES = {
         # demand, seed, relu, backlog, B, T, stream
         "im_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
                                   _LL, _I, _P), _I),
+        # params, cluster, actor, table, user_d, disc, inv, acts, raw, reward,
+        # demand, seed, relu, backlog, B, T, stream
+        "im_rollout_traj_cluster": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
+                                     _LL, _I, _P), _I),
+        # cluster, relu, backlog, out
+        "im_rollout_traj_cluster_occupancy": ((_P, _I, _I, _P), _I),
     },
     "im_lstm": {
         # params, lstm, actor, table, user_d, disc, out, acts, dems, seed,
@@ -110,6 +116,12 @@ SIGNATURES = {
         # seed, relu, B, T, stream
         "nv_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _P),
                                  _I),
+        # params, cluster, actor, lgamma, econ, orders, raw, reward, demand,
+        # seed, relu, B, T, stream
+        "nv_rollout_traj_cluster": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I,
+                                     _P), _I),
+        # cluster, relu, out
+        "nv_rollout_traj_cluster_occupancy": ((_P, _I, _P), _I),
     },
 }
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}

@@ -17,8 +17,11 @@ version), and what every MLP policy kernel shares:
   ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5,
   K11 and K19 over a tile of lanes on the tensor cores
   (``csrc/mlp_tile.cuh``, its layout ``_mlp_tile_plan``; K19's demand,
-  pipeline and Poisson table ``_nv_tile_plan``); and ``_pack_wide_actor``,
-  the actor of the off-policy trajectory kernels K27-K29
+  pipeline and Poisson table ``_nv_tile_plan``); ``_pack_cluster_actor``,
+  the actor of the off-policy trajectory kernels K27 and K28 over a
+  thread-block cluster (``csrc/cluster_mlp.cuh``, its layout
+  ``_cluster_plan``, its tile ``_cluster_choice``); and
+  ``_pack_wide_actor``, the actor of K29 and of K27/K28's wide route
   (``csrc/wide_mlp.cuh``);
 - the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
   relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
@@ -79,7 +82,8 @@ package has it. The plain versions compute with the layers as (out, in), as
 the Pallas kernels did (``kernel_layers``); the CUDA kernels take them as
 (in, out) with the outputs padded to 16 (``_pack_actor``), or to 8 for the
 wide kernels (``_pack_wide_actor``), or as tensor-core A fragments
-(``_pack_tile_actor``, ``_pack_lstm_actor``).
+(``_pack_tile_actor``, ``_pack_lstm_actor``), or as each CTA's slices
+of a cluster (``_pack_cluster_actor``).
 """
 
 from __future__ import annotations
@@ -511,14 +515,37 @@ def _set_mlp_tile(st: _MlpTile, plan: MlpTilePlan) -> None:
     st.s_total = plan.floats
 
 
+def _gather_source(dims, with_std: bool):
+    """The source offsets of a cached gather's concatenation: each layer's W
+    (in, out) row-major, then each b, then the std (``with_std``), then one
+    zero. Returns (W offsets, b offsets, the std's offset, the zero's)."""
+    pairs = list(zip(dims, dims[1:]))
+    w_src = np.cumsum([0] + [i * o for i, o in pairs])
+    b_src = w_src[-1] + np.cumsum([0] + [o for _, o in pairs])
+    std_src = int(b_src[-1])
+    return w_src, b_src, std_src, std_src + (dims[-1] if with_std else 0)
+
+
+def _gather(actor, std, index, zero, dev) -> torch.Tensor:
+    """The packed buffer of a cached plan: the actor's layers (and the std
+    when given) concatenated as ``_gather_source`` counts them, with a
+    zero, indexed by ``index``: one cat and one index."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ws, bs = actor
+    src = [torch.as_tensor(W, **f32).reshape(-1) for W in Ws]
+    src += [torch.as_tensor(b, **f32).reshape(-1) for b in bs]
+    if std is not None:
+        src.append(torch.as_tensor(std, **f32).reshape(-1))
+    return torch.cat(src + [zero])[index]
+
+
 @functools.lru_cache(maxsize=32)
 def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: int,
                     state_words: int, device: str):
     """(the MlpTile struct, the gather index and a zero, both on ``device``)
-    of ``_pack_tile_actor``: the packed buffer is the concatenation of the
-    layers' W (in, out) row-major, their b, the std when given and the
-    zero, gathered by the index. Built once per shape, so a call packs with
-    a few launches."""
+    of ``_pack_tile_actor``: the packed buffer is ``_gather_source``'s
+    concatenation gathered by the index. Built once per shape, so a call
+    packs with a few launches."""
     plans = [_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes)
              for lanes in _MLP_TILES]
     plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
@@ -527,9 +554,7 @@ def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: 
                          f"lane needs {min(pl.floats for pl in plans) * 4} bytes; the shared "
                          f"memory of a block holds {SMEM_OPTIN_BYTES}")
     pairs = list(zip(dims, dims[1:]))
-    w_src = np.cumsum([0] + [i * o for i, o in pairs])
-    b_src = w_src[-1] + np.cumsum([0] + [o for _, o in pairs])
-    zero = int(b_src[-1]) + (dims[-1] if with_std else 0)   # the source's last element
+    w_src, b_src, std_src, zero = _gather_source(dims, with_std)
     st = _MlpTile(n_layers=len(pairs), std=-1)
     parts, at = [], 0
     for layer, (i, o) in enumerate(pairs):
@@ -543,7 +568,7 @@ def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: 
         at += W.numel() + b.numel()
     if with_std:
         st.std = at
-        parts.append(torch.from_numpy(b_src[-1] + np.arange(dims[-1])))
+        parts.append(torch.from_numpy(std_src + np.arange(dims[-1])))
     for k, d in enumerate(dims):
         st.dims[k] = d
     for k, h in enumerate(half_hi):
@@ -572,13 +597,7 @@ def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
     st, index, zero = _tile_pack_plan(tuple(dims), std is not None,
                                       tuple(float(h) for h in half_hi), dem_rows, scratch_rows,
                                       state_words, _plan_key(dev) if dev.type == "cuda" else "cpu")
-    f32 = dict(dtype=torch.float32, device=dev)
-    Ws, bs = actor
-    src = [torch.as_tensor(W, **f32).reshape(-1) for W in Ws]
-    src += [torch.as_tensor(b, **f32).reshape(-1) for b in bs]
-    if std is not None:
-        src.append(torch.as_tensor(std, **f32).reshape(-1))
-    return st, _quiet_nans(torch.cat(src + [zero])[index])
+    return st, _quiet_nans(_gather(actor, std, index, zero, dev))
 
 
 # maxima of the wide actor of K27-K29 (csrc/wide_mlp.cuh): layers and the
@@ -594,42 +613,328 @@ class _WideMlp(ctypes.Structure):
                 ("std", ctypes.c_int), ("half_hi", ctypes.c_float * WIDE_MAX_ACT)]
 
 
+@functools.lru_cache(maxsize=32)
+def _wide_pack_plan(dims, act_dim: int, policy: str, half_hi, device: str):
+    """(the WideMlp struct, the gather index and a zero on ``device``) of
+    ``_pack_wide_actor``, built once per shape."""
+    with_std = policy in ("ppo", "det")
+    w_src, b_src, std_src, zero = _gather_source(dims, with_std)
+    parts = []
+    for layer, (i, o) in enumerate(zip(dims, dims[1:])):
+        W = np.full((i, _pad8(o)), zero, np.int64)   # W^T (in, out8), zero-padded
+        W[:, :o] = w_src[layer] + np.arange(i)[:, None] * o + np.arange(o)[None, :]
+        b = np.full(_pad8(o), zero, np.int64)
+        b[:o] = b_src[layer] + np.arange(o)
+        parts += [W.reshape(-1), b]
+    rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
+    st = _WideMlp(n_layers=len(dims) - 1, rows=rows, act=act_dim, head=HEADS[policy], std=-1)
+    if with_std:
+        st.std = sum(x.size for x in parts)
+        parts.append(std_src + np.arange(act_dim))
+    for k, d in enumerate(dims):
+        st.dims[k] = d
+    for i, h in enumerate(half_hi):
+        st.half_hi[i] = h
+    return (st, torch.from_numpy(np.concatenate(parts)).to(device),
+            torch.zeros(1, dtype=torch.float32, device=device))
+
+
 def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, device):
     """The wide kernels' actor arguments: the WideMlp struct (the head,
     ``half_hi[i]`` the f32 factor that maps a_norm_i + 1 onto action i's
     range) and one flat float32 buffer on ``device``, each layer as W^T
     (in, out8) then b (out8), the outputs zero-padded to a multiple of 8,
-    then the std when the head takes one ("ppo", "det"). Raises ValueError
-    for an actor beyond the kernels' maxima or whose two activation buffers
-    of 32 lanes exceed the shared memory of a block."""
+    then the std when the head takes one ("ppo", "det"). The layout and its
+    gather index are cached per shape (``_wide_pack_plan``), so a call packs
+    with one cat and one index. Raises ValueError for an actor beyond the
+    kernels' maxima or whose two activation buffers of 32 lanes exceed the
+    shared memory of a block."""
     dims = _head_dims(actor, obs_dim, act_dim, policy)
-    Ws, bs = actor
-    if len(Ws) > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
+    if len(dims) - 1 > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
         raise ValueError(f"actor widths {dims}: the wide kernels take at most "
                          f"{WIDE_MAX_LAYERS} layers and {WIDE_MAX_ACT} actions")
-    parts = []
-    for W, b in zip(Ws, bs):
-        n_in, n_out = W.shape
-        Wp = torch.zeros((n_in, _pad8(n_out)), dtype=torch.float32, device=device)
-        bp = torch.zeros(_pad8(n_out), dtype=torch.float32, device=device)
-        Wp[:, :n_out] = torch.as_tensor(W, dtype=torch.float32, device=device)
-        bp[:n_out] = torch.as_tensor(b, dtype=torch.float32, device=device)
-        parts += [Wp.reshape(-1), bp]
     rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
-    st = _WideMlp(n_layers=len(dims) - 1, rows=rows, act=act_dim, head=HEADS[policy], std=-1)
-    if policy in ("ppo", "det"):
-        st.std = sum(p.numel() for p in parts)
-        parts.append(std.to(device=device, dtype=torch.float32).reshape(-1))
-    for k, d in enumerate(dims):
-        st.dims[k] = d
-    for i, h in enumerate(half_hi):
-        st.half_hi[i] = h
     smem = 2 * rows * _WIDE_LANES * 4
     if smem > SMEM_OPTIN_BYTES:
         raise ValueError(f"actor of widths {dims}: two activation buffers of {rows} rows x "
                          f"{_WIDE_LANES} lanes need {smem} bytes; the shared memory of a block "
                          f"holds {SMEM_OPTIN_BYTES}")
-    return st, torch.cat(parts).contiguous()
+    dev = torch.device(device)
+    st, index, zero = _wide_pack_plan(tuple(dims), act_dim, policy,
+                                      tuple(float(h) for h in half_hi[:act_dim]),
+                                      _plan_key(dev) if dev.type == "cuda" else "cpu")
+    return st, _gather(actor, std if st.std >= 0 else None, index, zero, dev)
+
+
+# ------------------------------ the off-policy actor over a cluster (K27, K28)
+
+# csrc/cluster_mlp.cuh: threads a CTA (16 warps) and the portable cluster size
+_CLUSTER_THREADS, CLUSTER_MAX_SIZE = 512, 8
+# the (CTAs a cluster, lanes a tile) that the entry points try for an actor,
+# in order: the first whose CTA fits the shared memory of a block; if none
+# does, the wrapper takes the wide route (csrc/wide_mlp.cuh). Four CTAs over
+# 64 lanes is the fastest FP32 tile of K27 and K28 at 65,536 lanes
+# (tools/wide_cluster_sweep.py, PERF.md). At the learners' 1,024 lanes eight
+# over 96 ran K27 3% faster (K28 no faster) but 21% slower at 65,536: not
+# kept, since a tile chosen by the batch is a second layout to hold for 3%
+_CLUSTER_TILES = ((4, 64), (4, 32), (8, 64), (8, 32))
+# "uniform" runs no actor: one CTA a cluster of 64 lanes, or 32 where its
+# demand and noise rows would not fit
+_CLUSTER_UNIFORM_LANES = (64, 32)
+
+
+class _ClusterMlp(ctypes.Structure):
+    """Mirror of ``struct ClusterMlp`` in csrc/cluster_mlp.cuh (all fields
+    4-byte, so both sides lay it out without padding)."""
+    _fields_ = [("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (WIDE_MAX_LAYERS + 1)),
+                ("kin", ctypes.c_int * WIDE_MAX_LAYERS), ("rows", ctypes.c_int * WIDE_MAX_LAYERS),
+                ("ws", ctypes.c_int * WIDE_MAX_LAYERS), ("w", ctypes.c_int * WIDE_MAX_LAYERS),
+                ("b", ctypes.c_int * WIDE_MAX_LAYERS), ("std", ctypes.c_int),
+                ("block", ctypes.c_int), ("act", ctypes.c_int), ("head", ctypes.c_int),
+                ("cluster", ctypes.c_int), ("lanes", ctypes.c_int), ("lanes_cta", ctypes.c_int),
+                ("stride", ctypes.c_int), ("s_xo", ctypes.c_int), ("s_x0", ctypes.c_int),
+                ("s_x1", ctypes.c_int), ("s_xl", ctypes.c_int), ("s_red", ctypes.c_int),
+                ("s_h", ctypes.c_int),
+                ("s_dem", ctypes.c_int), ("s_z", ctypes.c_int), ("s_q", ctypes.c_int),
+                ("s_state", ctypes.c_int), ("state_words", ctypes.c_int),
+                ("floats", ctypes.c_int), ("clusters", ctypes.c_int),
+                ("half_hi", ctypes.c_float * WIDE_MAX_ACT)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """One launch's layout of csrc/cluster_mlp.cuh: ``cluster`` CTAs a
+    cluster run a tile of ``lanes`` lanes, ``lanes_cta`` a CTA; per layer
+    its input rows ``kin`` (pad8(obs_dim), then the padded widths), the
+    rows ``rows`` a CTA holds (a hidden layer's width padded to 16 C, over
+    C; the output layer's pad8(outputs), whole), the row stride ``ws`` of
+    its W slice (rows + 8 for a hidden layer) and the float offsets ``w``
+    and ``b`` of its W slice ([k][ws]) and bias in a CTA's block of
+    ``block`` floats, then the std at ``std`` (or -1): a hidden layer's R
+    rows are its width padded to 16 C, over C. In shared memory,
+    the block at 0, then the regions ``offsets`` (xo, the tile's obs, and
+    x0 and x1, the outputs of the hidden layers but the last, [row][stride],
+    as many as they need, up to two; xl, the last hidden layer's outputs for
+    the CTA's lanes; red, the output layer's partial sums (32 groups x 8 x
+    the CTA's lanes); h, the CTA's
+    lanes' outputs; dem and z, the
+    lanes' demand [lane][T] and head noise [lane][T][act]; q, K28's
+    Poisson anchors; state, ``state_words`` a lane), ``floats`` in all.
+    Every region starts on 16 bytes."""
+    cluster: int
+    lanes: int
+    lanes_cta: int
+    stride: int
+    kin: tuple
+    rows: tuple
+    ws: tuple
+    w: tuple
+    b: tuple
+    std: int
+    block: int
+    state_words: int
+    offsets: dict
+    floats: int
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
+                  anchors: bool, cluster: int, lanes: int, actor: bool = True) -> ClusterPlan:
+    """The layout of a cluster of ``cluster`` CTAs over a tile of ``lanes``
+    lanes for an actor of widths ``dims`` (``actor`` False: the "uniform"
+    head, no weights and no activations), a horizon of ``T``,
+    ``state_words`` words of state a lane (K27: on-hand and the ring of
+    requested orders, obs_dim; K28: econ, the pipeline and its head,
+    obs_dim + 1) and, when ``anchors``, K28's Poisson anchors. Raises
+    ValueError for a tile the kernels do not take: lanes a multiple of 32
+    (of 16 per n-tile pair and 32 per FP32 warp item), an even number of
+    lanes a CTA (the float2 stores), at most a thread each."""
+    lanes_cta = lanes // cluster
+    if not (1 <= cluster <= CLUSTER_MAX_SIZE and lanes % 32 == 0 and lanes_cta * cluster == lanes
+            and lanes_cta <= _CLUSTER_THREADS and lanes_cta % 2 == 0):
+        raise ValueError(f"no cluster tile of {cluster} CTAs over {lanes} lanes")
+    stride = lanes + 8
+    kin, rows, ws, w, b = [], [], [], [], []
+    at, obs_rows, full, last_rows, out_rows, std = 0, 0, [], 0, 0, -1
+    if actor:
+        k = _pad8(dims[0])
+        for layer, out in enumerate(dims[1:]):
+            if layer < len(dims) - 2:
+                width = -(-out // (16 * cluster)) * 16 * cluster
+                R, RS = width // cluster, width // cluster + 8
+            else:
+                width = R = RS = _pad8(out)
+            kin.append(k)
+            rows.append(R)
+            ws.append(RS)
+            w.append(at)
+            at = _pad4(at + k * RS)
+            b.append(at)
+            at = _pad4(at + R)
+            k = width
+        if with_std:
+            std = at
+            at = _pad4(at + act_dim)
+        # the hidden layers' outputs but the last's, whole; the last's for the
+        # CTA's lanes
+        full, last_rows = kin[1:-1], (kin[-1] if len(kin) > 1 else 0)
+        obs_rows, out_rows = kin[0], rows[-1]
+    x_rows = max(full, default=0)
+    sizes = {"xo": obs_rows * stride, "x0": x_rows * stride,
+             "x1": x_rows * stride if len(full) > 1 else 0, "xl": last_rows * lanes_cta,
+             "red": 32 * 8 * lanes_cta if actor else 0,
+             "h": _pad4(out_rows * lanes_cta), "dem": _pad4(lanes_cta * T),
+             "z": _pad4(lanes_cta * T * act_dim), "q": 4 * lanes_cta if anchors else 0,
+             "state": _pad4(lanes_cta * state_words)}
+    offsets, floats = {}, at
+    for name, size in sizes.items():
+        offsets[name] = floats
+        floats += size
+    return ClusterPlan(cluster, lanes, lanes_cta, stride, tuple(kin), tuple(rows), tuple(ws),
+                       tuple(w), tuple(b), std, at, state_words, offsets, floats)
+
+
+def _cluster_choice(dims, act_dim: int, with_std: bool, T: int, state_words: int,
+                    anchors: bool, actor: bool = True):
+    """The entry points' plan (``_cluster_plan``'s arguments): for an
+    actor, the first of ``_CLUSTER_TILES`` whose CTA fits the shared memory
+    of a block; for "uniform" (no actor) one CTA a cluster with the first
+    of ``_CLUSTER_UNIFORM_LANES`` lanes that fits. None when nothing fits:
+    then K27/K28 take the wide route (csrc/wide_mlp.cuh), decided from the
+    sizes before any launch."""
+    tiles = _CLUSTER_TILES if actor else [(1, n) for n in _CLUSTER_UNIFORM_LANES]
+    for cluster, lanes in tiles:
+        plan = _cluster_plan(dims, act_dim, with_std, T, state_words, anchors, cluster, lanes,
+                             actor)
+        if plan.floats * 4 <= SMEM_OPTIN_BYTES:
+            return plan
+    return None
+
+
+def _cluster_index(dims, act_dim: int, with_std: bool, plan: ClusterPlan) -> np.ndarray:
+    """The gather index of the packed buffer (C blocks of ``plan.block``
+    floats, rank r's at r block) into ``_gather_source``'s concatenation:
+    rank r's rows of each hidden layer's W^T as [k][ws] and of its b, the
+    output layer's W^T [k][pad8(outputs)] and b whole, the std; the zero
+    everywhere else (padded rows and columns)."""
+    w_src, b_src, std_src, zero = _gather_source(dims, with_std)
+    index = np.full((plan.cluster, plan.block), zero, np.int64)
+    for layer, (i, o) in enumerate(zip(dims, dims[1:])):
+        R, RS = plan.rows[layer], plan.ws[layer]
+        for r in range(plan.cluster):
+            first = r * R if layer < len(dims) - 2 else 0
+            cols = np.arange(first, min(first + R, o)) if first < o else np.arange(0)
+            c = cols - first
+            Wi = w_src[layer] + np.arange(i)[:, None] * o + cols[None, :]
+            index[r, plan.w[layer] + np.arange(i)[:, None] * RS + c[None, :]] = Wi
+            index[r, plan.b[layer] + c] = b_src[layer] + cols
+    if with_std:
+        index[:, plan.std:plan.std + act_dim] = std_src + np.arange(act_dim)
+    return index.reshape(-1)
+
+
+def _cluster_struct(dims, act_dim: int, policy: str, half_hi, plan: ClusterPlan) -> _ClusterMlp:
+    """The ClusterMlp struct of ``plan`` for an actor of widths ``dims``
+    under ``policy``'s head (its ``clusters`` left for the launch)."""
+    st = _ClusterMlp(n_layers=len(dims) - 1, std=plan.std, block=plan.block, act=act_dim,
+                     head=HEADS[policy], cluster=plan.cluster, lanes=plan.lanes,
+                     lanes_cta=plan.lanes_cta, stride=plan.stride,
+                     state_words=plan.state_words, floats=plan.floats)
+    for k, d in enumerate(dims):
+        st.dims[k] = d
+    for name in ("kin", "rows", "ws", "w", "b"):
+        for k, v in enumerate(getattr(plan, name)):
+            getattr(st, name)[k] = v
+    for name, offset in plan.offsets.items():
+        setattr(st, f"s_{name}", offset)
+    for i, h in enumerate(half_hi):
+        st.half_hi[i] = h
+    return st
+
+
+@functools.lru_cache(maxsize=32)
+def _cluster_pack_plan(dims, act_dim: int, policy: str, half_hi, T: int, state_words: int,
+                       anchors: bool, device: str):
+    """(the ClusterMlp struct, the gather index and a zero on ``device``) of
+    ``_pack_cluster_actor`` at ``_cluster_choice``'s tile, built once per
+    shape; None for the wide route."""
+    actor = policy != "uniform"
+    with_std = policy in ("ppo", "det")
+    plan = _cluster_choice(dims, act_dim, with_std, T, state_words, anchors, actor)
+    if plan is None:
+        return None
+    st = _cluster_struct(dims, act_dim, policy, half_hi, plan)
+    zero = torch.zeros(1, dtype=torch.float32, device=device)
+    if not actor:
+        return st, None, zero
+    index = _cluster_index(dims, act_dim, with_std, plan)
+    return st, torch.from_numpy(index).to(device), zero
+
+
+def _pack_cluster_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, T: int,
+                        state_words: int, anchors: bool, device):
+    """K27/K28's actor arguments on the cluster (csrc/cluster_mlp.cuh): a
+    copy of the ClusterMlp struct (its ``clusters`` left for the launch)
+    and one flat float32 buffer on ``device``, C blocks of ``block`` floats
+    (``_cluster_index``), gathered with one cat and one index from the
+    layout cached per shape (``_cluster_pack_plan``; ``T``,
+    ``state_words`` and ``anchors`` as ``_cluster_plan`` takes them), at
+    the entry points' tile (``_cluster_choice``). Returns None when no
+    cluster tile fits (the wide route); raises ValueError for an actor
+    beyond the maxima."""
+    dims = _head_dims(actor, obs_dim, act_dim, policy)
+    if len(dims) - 1 > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
+        raise ValueError(f"actor widths {dims}: the wide kernels take at most "
+                         f"{WIDE_MAX_LAYERS} layers and {WIDE_MAX_ACT} actions")
+    dev = torch.device(device)
+    plan = _cluster_pack_plan(tuple(dims), act_dim, policy,
+                              tuple(float(h) for h in half_hi[:act_dim]), int(T),
+                              int(state_words), bool(anchors),
+                              _plan_key(dev) if dev.type == "cuda" else "cpu")
+    if plan is None:
+        return None
+    st, index, zero = plan
+    st = _ClusterMlp.from_buffer_copy(st)
+    if index is None:   # "uniform": no actor
+        return st, zero
+    return st, _gather(actor, std if st.std >= 0 else None, index, zero, dev)
+
+
+def _cluster_grid(tiles: int, max_active: int) -> int:
+    """The persistent grid's clusters: one a tile, at most ``max_active``
+    (what the card holds at once). Raises RuntimeError when it holds none."""
+    if max_active < 1:
+        raise RuntimeError("the card holds no cluster of this launch's CTAs at once")
+    return min(tiles, max_active)
+
+
+@functools.lru_cache(maxsize=64)
+def _cluster_max_active(lib_name: str, fn_name: str, cluster: int, floats: int, flags: tuple,
+                        device: str) -> int:
+    """The clusters the card holds at once for a launch of ``fn_name``'s
+    instance (``flags``: relu[, backlog]) with ``cluster`` CTAs of
+    ``floats`` floats of shared memory, from
+    cudaOccupancyMaxActiveClusters; cached per card."""
+    from or_gym_inventory_torch.ops import _build
+    st = _ClusterMlp(cluster=cluster, floats=floats)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        rc = getattr(_build.library(lib_name), fn_name)(ctypes.addressof(st), *flags,
+                                                         ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}: {_build.error_string(lib_name, rc)}")
+    return out.value
+
+
+def _set_cluster_grid(st: _ClusterMlp, batch: int, lib_name: str, fn_name: str, flags,
+                      dev) -> None:
+    """Write the persistent grid's clusters for ``batch`` lanes into ``st``."""
+    max_active = _cluster_max_active(lib_name, fn_name, st.cluster, st.floats, tuple(flags),
+                                      _plan_key(dev))
+    st.clusters = _cluster_grid(-(-batch // st.lanes), max_active)
 
 
 def _offpolicy_std(policy: str, log_std):
@@ -1195,9 +1500,15 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
     ``rollout_traj_im``'s dict, ``raw`` holding the normalised [-1, 1]
     actions (the pre-squash samples for "ppo"). The stream is K10's: per
     period the demand word, then the head's words, so its demand is K10's
-    for the same seed. K27: a block per 32 lanes (csrc/im_policy.cu
-    ``k_im_rollout_traj_wide`` on csrc/wide_mlp.cuh), which runs the SB3
-    default (256, 256) actor; on the CPU the plain version runs."""
+    for the same seed. K27 on the card: a thread-block cluster a tile of
+    lanes (csrc/im_policy.cu ``k_im_rollout_traj_cluster`` on
+    csrc/cluster_mlp.cuh), the actor's slices in the CTAs' shared memory,
+    for any actor a cluster tile holds (``_cluster_choice``: the SB3
+    default (256, 256) actor and anything as small); a wider one takes the
+    wide route, a block per 32 lanes with the weights streamed from L2
+    (``k_im_rollout_traj_wide`` on csrc/wide_mlp.cuh), chosen from the
+    sizes before the launch. Either launch that fails raises. On the CPU
+    the plain version runs."""
     _check_head(policy, act_name)
     dev = resolve_device(device)
     if batch < 1:
@@ -1209,7 +1520,18 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
     if dev.type == "cpu":
         _head_dims(actor, obs_dim, m1, policy)
         return _rollout_traj_im_plain(params, actor, std, seed, batch, dev, policy, act_name)
-    st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev)
+    flags = (int(act_name == "relu"), int(params.backlog))
+    packed = _pack_cluster_actor(actor, std, obs_dim, m1, policy, _half_c(params), T, obs_dim,
+                                 False, dev)
+    if packed is None:   # the wide route: no cluster tile holds the actor
+        fn = "im_rollout_traj_wide"
+        st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev)
+    else:
+        fn = "im_rollout_traj_cluster"
+        st, flat = packed
+        with torch.cuda.device(dev):
+            _set_cluster_grid(st, batch, "im_policy", "im_rollout_traj_cluster_occupancy", flags,
+                              dev)
     plan = _im_plan(params, _plan_key(dev))
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1219,16 +1541,18 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
                reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
-        _launch("im_policy", "im_rollout_traj_wide", ctypes.addressof(plan["struct"]),
+        _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
-                seed, int(act_name == "relu"), int(params.backlog), batch, T, _stream(dev))
+                seed, *flags, batch, T, _stream(dev))
     rollout_traj_im_offpolicy.launches += 1
+    rollout_traj_im_offpolicy.route = "wide" if packed is None else "cluster"
     return out
 
 
 rollout_traj_im_offpolicy.launches = 0
+rollout_traj_im_offpolicy.route = None   # the last launch's: "cluster" or "wide"
 
 
 def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
@@ -2400,9 +2724,14 @@ def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed,
     ``rollout_traj_nv``'s dict, ``raw (T, 1, batch)`` holding the normalised
     [-1, 1] orders (the pre-squash samples for "ppo"). The stream is K18's:
     the reset's words, per period the demand's word 0, then the head's, so
-    its econ and demand are K18's for the same seed. K28: a block per 32
-    lanes (csrc/nv_policy.cu ``k_nv_rollout_traj_wide`` on
-    csrc/wide_mlp.cuh); on the CPU the plain version runs."""
+    its econ and demand are K18's for the same seed. K28 on the card: a
+    thread-block cluster a tile of lanes (csrc/nv_policy.cu
+    ``k_nv_rollout_traj_cluster`` on csrc/cluster_mlp.cuh), each tile's
+    demand counted up front into shared memory, for any actor and horizon
+    a cluster tile holds (``_cluster_choice``); otherwise the wide route
+    (``k_nv_rollout_traj_wide`` on csrc/wide_mlp.cuh), chosen from the
+    sizes before the launch. Either launch that fails raises. On the CPU
+    the plain version runs."""
     _check_head(policy, act_name)
     dev = resolve_device(device)
     if batch < 1:
@@ -2412,24 +2741,37 @@ def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed,
     if dev.type == "cpu":
         _head_dims(actor, params.obs_dim, 1, policy)
         return _rollout_traj_nv_plain(params, actor, std, seed, batch, dev, policy, act_name)
-    st, flat = _pack_wide_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params),
-                                dev)
-    plan = _nv_plan(params, _plan_key(dev))
     T = params.step_limit
+    relu = int(act_name == "relu")
+    packed = _pack_cluster_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params), T,
+                                 params.obs_dim + 1, True, dev)
+    if packed is None:   # the wide route: no cluster tile holds the actor and the demand
+        fn = "nv_rollout_traj_wide"
+        st, flat = _pack_wide_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params),
+                                    dev)
+    else:
+        fn = "nv_rollout_traj_cluster"
+        st, flat = packed
+        with torch.cuda.device(dev):
+            _set_cluster_grid(st, batch, "nv_policy", "nv_rollout_traj_cluster_occupancy",
+                              (relu,), dev)
+    plan = _nv_plan(params, _plan_key(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(econ=torch.empty((5, batch), **f32), orders=torch.empty((T, batch), **f32),
                raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **f32))
     with torch.cuda.device(dev):
-        _launch("nv_policy", "nv_rollout_traj_wide", ctypes.addressof(plan["struct"]),
+        _launch("nv_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(), plan["lgam"].data_ptr(),
                 *(out[k].data_ptr() for k in ("econ", "orders", "raw", "reward", "demand")),
-                seed, int(act_name == "relu"), batch, T, _stream(dev))
+                seed, relu, batch, T, _stream(dev))
     rollout_traj_nv_offpolicy.launches += 1
+    rollout_traj_nv_offpolicy.route = "wide" if packed is None else "cluster"
     return out
 
 
 rollout_traj_nv_offpolicy.launches = 0
+rollout_traj_nv_offpolicy.route = None   # the last launch's: "cluster" or "wide"
 
 
 def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std, dump,
