@@ -95,7 +95,13 @@ same seed, a_norm teacher-forced on the kernel's own obs, each kernel's
 streams through the plain step chain, K29's through K1 too; and K27/K28 on
 a ragged batch of 1,000 lanes, K28's econ bit for bit, and, with a
 (512, 512) actor whose slice fits no cluster tile, on the wrapper's wide
-route). Kernels on no main path are
+route; K29 too on the ragged batch and the wide route, and, at 65,536
+lanes, on the batch route that the wrapper takes past
+``net_step._NET_CLUSTER_MAX_ROUNDS`` rounds of the card's clusters, the
+first design). Phase 7 also holds the stochastic K6's episode 0 against K4
+on the same seed (its words are K4's, and both run the actor on the same
+tensor-core tile): demand bit for bit, actions by the share of lanes,
+whether bit for bit reported. Kernels on no main path are
 launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
 K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
@@ -107,8 +113,12 @@ only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
 hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
 tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
-load or store; K27/K28's cluster instances (csrc/cluster_mlp.cuh) must all
-be built and spill nothing, their products on the FP32 cores (no HMMA).
+load or store; K4 is K5's tile with one stochastic episode a lane and its
+streams written (``k_policy_returns<1,0,1>``), held as K5's stochastic
+instances; K27-K29's cluster instances (csrc/cluster_mlp.cuh) must all be
+built and spill nothing, their products on the FP32 cores (no HMMA).
+Phase 6 also times K1 at the 1,024 and 4,096 lanes x 30 at which bench.py's
+cross-check launches it (16 of its 17 launches are at 1,024).
 Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
@@ -120,11 +130,11 @@ PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
 validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
 beat the random policy's (phase 29), then K25-K29 (K27-K29 at the
 learners' 1,024 lanes and at 65,536, through the entry points and, for
-K27/K28, the cluster kernel alone, whose outputs must first equal the
-entry point's bit for bit) and one TD3 iteration split into the kernel,
+K27-K29, the kernel alone on the entry point's route, whose outputs must
+first equal the entry point's bit for bit) and one TD3 iteration split into the kernel,
 ``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
 for the search it runs (``nv_draw_ops``), with the first version's linear
-count's beside it; K5/K6, K11/K12, K19/K20 and K22-K24's with their
+count's beside it; K4-K6, K11/K12, K19/K20 and K22-K24's with their
 tensor-core products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate
 and encoder products, ``lstm_tc_flops``) as three TF32 products on the
 tensor cores (``tc_bound``), with the all-FP32 count's beside it (and for
@@ -139,7 +149,8 @@ The last eight lines are one JSON object of per-kernel numbers, K1-K29
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
-head's at the learners' 1,024 lanes, the shape their main paths launch),
+head's at the learners' 1,024 lanes, the shape their main paths launch;
+K1's row also splits its launches, times and bounds by shape),
 one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
 paths' rates and reward, one of the Newsvendor paths' rates and reward, one
@@ -217,6 +228,11 @@ MAIN_LANES = 4_194_304       # bench.py NUM_ENVS_PALLAS
 MAIN_EPISODES = 16           # bench.py EPISODES_PER_LANE
 CHECK_LANES = 65_536         # cross-check size, and the K1/K3 main-path shape
 MULTI_LANES = 1_024          # bench.py:115, E=16 dumped in ranges of 8
+# K4: K5/K6's tile kernel, stochastic, its streams written (net_policy.cu)
+K4_INSTANCE = "k_policy_returns<1,0,1>"
+# K1's other shapes: the cross-check's per-episode launches (MULTI_LANES)
+# and bench.py's own cross-check size (bench.py:79-135 runs at 4,096)
+K1_LANES = (MULTI_LANES, 4_096)
 ROLLOUT_ENVS = 262_144       # bench.py NUM_ENVS_XLA
 SEED = 2024
 PPO_ENVS = 65_536            # the PPO main path: envs x 30 periods per update
@@ -344,8 +360,6 @@ OFF_WIDE = (512, 512)
 LEARN_LANES = 1_024
 OFF_STD = 0.1
 OFF_MODES = ("det", "sac", "uniform")
-# the off-policy kernels on the cluster (csrc/cluster_mlp.cuh): K27, K28
-CLUSTER_KERNELS = ("rollout_traj_im_offpolicy", "rollout_traj_nv_offpolicy")
 # K28/K29's det lanes free-running against the plain version are reported and
 # held only this far: the float families feed every order back into the obs,
 # so the 256-wide MLP's ulps grow over the episode (on an H100, K28 98.88% of
@@ -732,8 +746,9 @@ def sass_counts(so_path):
 
 
 def tile_sass_check(logs):
-    """Phase 2's check of the tile kernels: every instance of K5/K6
-    (net_policy.cu ``k_policy_returns<STOCH,DUMP>``), of K11/K12
+    """Phase 2's check of the tile kernels: every instance of K4-K6
+    (net_policy.cu ``k_policy_returns<STOCH,DUMP,TRAJ>``, K4 the one
+    ``<1,0,1>``, which must be there), of K11/K12
     (im_policy.cu ``k_im_policy_returns``) and of K19/K20 (nv_policy.cu
     ``k_nv_policy_returns<STOCH,DUMP,LAYOUT>``) holds HMMA instructions and
     spills nothing (ptxas, where this run built the library); K5/K6's and
@@ -757,6 +772,8 @@ def tile_sass_check(logs):
         ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
         if not mine or any(h == 0 for _, _, h in mine.values()) or any("spills" in e for e in ptx):
             raise AssertionError(f"{kernel}: instances without HMMA or with spills {mine} {ptx}")
+        if src == "net_policy" and K4_INSTANCE not in mine:
+            raise AssertionError(f"K4's instance {K4_INSTANCE} is not in {sorted(mine)}")
         if src != "im_policy":
             for name, (ld, st, _) in mine.items():
                 stoch = name.startswith(kernel + "<1")
@@ -777,16 +794,18 @@ def tile_sass_check(logs):
 
 
 def cluster_check(logs):
-    """Phase 2's check of K27/K28 on the thread-block cluster (im_policy.cu
+    """Phase 2's check of K27-K29 on the thread-block cluster (im_policy.cu
     ``k_im_rollout_traj_cluster<RELU,BACKLOG>``, nv_policy.cu
-    ``k_nv_rollout_traj_cluster<RELU>``): every instance built, none spills
+    ``k_nv_rollout_traj_cluster<RELU>``, net_policy.cu
+    ``k_rollout_traj_cluster<RELU>``): every instance built, none spills
     (ptxas, where this run built the library), and none holds a tensor-core
     instruction (the products run on the FP32 cores). Returns the line to
     print; raises on a miss."""
     from or_gym_inventory_torch.ops import _build
     parts = []
     for src, kernel, want in (("im_policy", "k_im_rollout_traj_cluster", 4),
-                              ("nv_policy", "k_nv_rollout_traj_cluster", 2)):
+                              ("nv_policy", "k_nv_rollout_traj_cluster", 2),
+                              ("net_policy", "k_rollout_traj_cluster", 2)):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
         if counts is None:
             raise AssertionError("cuobjdump not found: the cluster kernels' SASS cannot be read")
@@ -882,26 +901,31 @@ def cross_check(params, dev):
     kernel against the stream-in kernel on its own dumped streams, at one
     episode per lane and at E=16 dumped in ranges of 8, and the env step
     chain on the same streams. Every kernel output is also held against its
-    plain version on the same inputs. Returns the max |diff| per kernel and
-    the streams, which phase 6 times the kernels on."""
+    plain version on the same inputs. Returns the max |diff| per kernel, the
+    streams, which phase 6 times the kernels on, and K1's launches by its
+    lanes."""
     import torch
 
     from or_gym_inventory_torch.envs import net_inv_management as net
     from or_gym_inventory_torch.ops import net_step as ns
     hi = float(params.topology.order_cap_heuristic * 2)
-    err = {}
+    err, k1_lanes = {}, {}
+
+    def k1(a, d):   # K1, its launch counted by its lanes
+        k1_lanes[a.shape[-1]] = k1_lanes.get(a.shape[-1], 0) + 1
+        return ns.episode_returns(params, a, d)
 
     acts, dems = ns.sample_streams_debug(params, SEED, hi, CHECK_LANES, device=dev)
     pa, pd = ns._sample_streams_plain(params, SEED, hi, CHECK_LANES, NUM_STEPS, 0, 1, dev)
     exact("K3 actions", acts, pa.reshape(acts.shape))
     exact("K3 demands", dems, pd.reshape(dems.shape))
     err["sample_streams_debug"] = 0.0
-    k1 = ns.episode_returns(params, acts, dems)
-    err["episode_returns"] = close("K1 vs plain K1", k1,
+    r1 = k1(acts, dems)
+    err["episode_returns"] = close("K1 vs plain K1", r1,
                                    ns._episode_returns_plain(params, acts, dems),
                                    1e-5, 1e-3)
     k2 = ns.episode_returns_fully_fused(params, SEED, hi, CHECK_LANES, device=dev)
-    close("K2 vs K1 on K3's streams", k2, k1, 1e-5, 1e-3)
+    close("K2 vs K1 on K3's streams", k2, r1, 1e-5, 1e-3)
     err["episode_returns_fully_fused"] = close(
         "K2 vs plain K2", k2, ns._episode_returns_fully_fused_plain(
             params, SEED, hi, CHECK_LANES, NUM_STEPS, 1, dev)[0], 1e-5, 1e-3)
@@ -923,8 +947,7 @@ def cross_check(params, dev):
         exact(f"K3 actions, episodes [{e0}, {e0 + 8})", a_e, pa_e)
         exact(f"K3 demands, episodes [{e0}, {e0 + 8})", d_e, pd_e)
         for e in range(e0, e0 + 8):
-            per = ns.episode_returns(params, a_e[:, e - e0].contiguous(),
-                                     d_e[:, e - e0].contiguous())
+            per = k1(a_e[:, e - e0].contiguous(), d_e[:, e - e0].contiguous())
             close(f"K2 episode {e} vs K1", multi[e], per, 1e-5, 1e-3)
 
     state, _ = net.reset(params, batch=CHECK_LANES, device=dev)
@@ -932,9 +955,9 @@ def cross_check(params, dev):
     for t in range(NUM_STEPS):
         state, ts = net.step_with_demand(params, state, acts[t].T, dems[t].T)
         chain = chain + ts.reward
-    close("env step chain vs K1", chain, k1, 1e-4, 1e-2)
+    close("env step chain vs K1", chain, r1, 1e-4, 1e-2)
     torch.cuda.synchronize()
-    return err, acts, dems
+    return err, acts, dems, k1_lanes
 
 
 def episode_returns_at_scale(params, dev, err, wrappers):
@@ -1057,6 +1080,7 @@ def policy_cross_check(params, dev, actor, log_std):
     keep = ~nan_k
     close("K1 vs plain K1 beside the NaN lane", k1[keep], p1[keep], 1e-5, 1e-3)
     lines.append("NaN action: K1 and plain K1 NaN in that lane only, equal elsewhere")
+    k4_acts, k4_dem = acts, tr["demand"]   # for the stochastic K6's episode 0 below
     del tr, acts, nan_acts, obs
 
     # K5 and K6, deterministic and stochastic, E episodes per lane
@@ -1076,6 +1100,14 @@ def policy_cross_check(params, dev, actor, log_std):
             plain_ms["episode_returns_net_policy"] = ms5
             plain_ms["sample_policy_streams_debug_net"] = ms6
         exact(f"K6 demand, {kind}", d6, want_d)
+        if ls is not None:   # K4 draws the words of the stochastic K5/K6's episode 0
+            exact("stochastic K6 episode 0 demand vs K4", d6[:, 0], k4_dem)
+            share4, _ = lane_share("stochastic K6 episode 0 actions vs K4's squashed raws",
+                                   a6[:, 0], k4_acts)
+            lines.append(f"stochastic K6 episode 0 vs K4 on the same seed and actor: demand "
+                         f"bit-exact, actions agreeing on {share4:.4%} of lanes, bit for bit: "
+                         f"{torch.equal(a6[:, 0], k4_acts)}")
+            del k4_acts, k4_dem
         err["sample_policy_streams_debug_net"] = max(
             err["sample_policy_streams_debug_net"],
             close(f"K6 vs K5 returns, {kind}", k6, k5, 1e-5, 1e-3))
@@ -2455,12 +2487,13 @@ def offpolicy_families(dev):
              netp.topology.n_reorder)]
 
 
-def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev):
+def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev, atol=1e-4):
     """The kernel's a_norm against the plain head (``traj_policy``) on the
     kernel's own observations, rebuilt from its streams by the family's
     ``assemble_obs_from_streams``, and the plain draws of its words: every
-    element within atol=1e-4 (the MLP's sums in another order, tanhf/expf
-    ulps; no feedback through the episode). Returns the max |diff|."""
+    element within ``atol`` (1e-4: the MLP's sums in another order,
+    tanhf/expf ulps; no feedback through the episode). Returns (the max
+    |diff|, the share of elements within 1e-4)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
@@ -2478,14 +2511,15 @@ def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev):
     layers = ek.kernel_layers(actor, dev)
     lanes = torch.arange(tr["raw"].shape[-1], dtype=torch.int64, device=dev)
     n_head = ek._head_words(mode, act_dim)
-    worst = 0.0
+    worst, within = 0.0, 0
     for t in range(tr["raw"].shape[0]):
         words = rng.period_words(SEED, lanes, 0, t, n_dem + n_head, key1=rng.POLICY_KEY)
         _, a = ek.traj_policy(mode, "relu", act_dim, layers, std, list(obs_all[t].T),
                               ek._head_noise(mode, words[n_dem:]))
         worst = max(worst, close(f"{name} a_norm[{t}] vs the plain head on its own obs, {mode}",
-                                 tr["raw"][t], a, 0.0, 1e-4))
-    return worst
+                                 tr["raw"][t], a, 0.0, atol))
+        within += int(((tr["raw"][t] - a).abs() <= 1e-4).sum())
+    return worst, within / tr["raw"].numel()
 
 
 def nv_step_chain(params, tr, label):
@@ -2504,9 +2538,55 @@ def nv_step_chain(params, tr, label):
         close(f"step chain reward[{t}] vs K28, {label}", rew, tr["reward"][t], 1e-5, 1e-3)
 
 
+def net_step_chain(params, tr, label, dev):
+    """K1 on K29's a_norm (mapped onto the actions) and demand gives its
+    rewards' sum (rtol=1e-5, atol=1e-3), and the plain step chain on them
+    its x, u, r and rewards (rtol=1e-5, atol=1e-3)."""
+    from or_gym_inventory_torch.ops import net_step as ns
+    acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
+    close(f"K1 on K29's streams vs its rewards, {label}",
+          ns.episode_returns(params, acts.contiguous(), tr["demand"]),
+          tr["reward"].sum(0), 1e-5, 1e-3)
+    n_ro = params.topology.n_reorder
+    X, Y, U, RH = ns.init_transposed(params, tr["raw"].shape[-1], dev)
+    for t in range(params.num_periods):
+        X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, acts[t],
+                                                  tr["demand"][t], t)
+        for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
+            close(f"step chain {k}[{t}] vs K29, {label}", tr[k][t + (k != "r")], want_k,
+                  1e-5, 1e-3)
+        close(f"step chain reward[{t}] vs K29, {label}", tr["reward"][t], rew, 1e-5, 1e-3)
+
+
+def offpolicy_route(name, params, batch, mode, dev):
+    """The route the off-policy wrapper ``name`` must take for ``batch``
+    lanes under ``mode`` with phase 32's (256, 256) actor: K27/K28 the
+    cluster; K29 the cluster at the learners' 1,024 lanes, and beyond that
+    by its rule (``net_step._net_route``: the rounds of the clusters the
+    card holds for the plan's tile)."""
+    if name != "rollout_traj_net_offpolicy":
+        return "cluster"
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    act = T.n_reorder
+    dims = (T.obs_dim, *OFF_ARCH, 2 * act if mode == "sac" else act)
+    plan = ek._cluster_choice(dims, act, mode in ("ppo", "det"), params.num_periods,
+                              ns._shared_layout(T)[0].words, False, mode != "uniform",
+                              ns._net_cluster_layout(T))
+    held = ek._cluster_max_active("net_policy", "net_rollout_traj_cluster_occupancy",
+                                  plan.cluster, plan.floats, (1,), ek._plan_key(dev))
+    route = ns._net_route(batch, plan.lanes, held)
+    if batch == LEARN_LANES and route != "cluster":
+        raise AssertionError(f"K29 at the learners' {batch} lanes, {mode}: the {route} route")
+    return route
+
+
 def offpolicy_cross_check(dev):
-    """Phase 32: K27-K29 at 65,536 lanes with a seeded (256, 256) relu actor,
-    heads det (sigma 0.1), sac and uniform, against their plain versions:
+    """Phase 32: K27-K29 at 65,536 and 1,024 lanes with a seeded (256, 256)
+    relu actor, heads det (sigma 0.1), sac and uniform, each on the route
+    ``offpolicy_route`` names (K29 at 65,536 det and sac on its batch
+    route, the first design), against their plain versions:
     demand bit for bit (Newsvendor's by the K16 rule), and bit for bit with
     K10/K18/K4's on the same seed; the stored a_norm in [-1, 1],
     teacher-forced within atol=1e-4 on every element
@@ -2519,8 +2599,9 @@ def offpolicy_cross_check(dev):
     on K28's econ, demand and a_norm gives its orders and rewards, on K29's
     demand and a_norm its x, u, r and rewards (rtol=1e-5, atol=1e-3), K1 on
     K29's actions and demand its rewards' sum. The InvManagement step chain
-    on K27's streams gives its inv exactly. Returns (max |diff| per kernel
-    over agreeing lanes, plain ms of the det head, lines)."""
+    on K27's streams gives its inv exactly. Then each on a ragged batch and
+    an actor of OFF_WIDE widths (the wide route). Returns (max |diff| per
+    kernel over agreeing lanes, plain ms of the det head, lines)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
@@ -2539,6 +2620,9 @@ def offpolicy_cross_check(dev):
             ppo_demand = ppo_kernel(params, ppo_actor, ppo_log_std, SEED, B, device=dev)["demand"]
         actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, mode == "sac", dev)
         tr = kernel(params, actor, log_std, SEED, B, mode, "relu", dev)
+        route = kernel.route
+        if route != offpolicy_route(name, params, B, mode, dev):
+            raise AssertionError(f"{name} at {B} lanes, {mode}: the {route} route")
         std = ek.clipped_std(log_std) if mode == "det" else None
         ms, want = timed_once(plain, params, actor, std, SEED, B, dev, mode, "relu")
         if mode == "det" and B == LEARN_LANES:
@@ -2548,7 +2632,7 @@ def offpolicy_cross_check(dev):
         same(f"{name_b} demand vs the PPO kernel's, {mode}", tr["demand"], ppo_demand)
         if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
             raise AssertionError(f"{name_b} {mode}: a_norm outside [-1, 1]")
-        forced = offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev)
+        forced, _ = offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev)
         need = FLOAT_FREE_SHARE if name != "rollout_traj_im_offpolicy" and \
             mode != "uniform" else LANE_SHARE
         if mode == "uniform":
@@ -2561,7 +2645,8 @@ def offpolicy_cross_check(dev):
                                      need=need)
                        for k in tr if k not in ("raw", "demand")})
         err[name] = max([err[name]] + [e for _, e in shares.values()])
-        lines.append(f"{name_b} {mode}: demand equal to plain's and the PPO kernel's; "
+        lines.append(f"{name_b} {mode} ({route} route): demand equal to plain's and the PPO "
+                     f"kernel's; "
                      f"a_norm teacher-forced max |diff| {forced:.3g}; lanes agreeing "
                      + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
         if name == "rollout_traj_im_offpolicy":
@@ -2587,37 +2672,24 @@ def offpolicy_cross_check(dev):
             lines.append(f"K28 {mode}: the plain step chain on its econ, demand and a_norm "
                          "gives its orders and rewards")
         elif name == "rollout_traj_net_offpolicy":
-            acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
-            close(f"K1 on K29's streams vs its rewards, {mode}",
-                  ns.episode_returns(params, acts.contiguous(), tr["demand"]),
-                  tr["reward"].sum(0), 1e-5, 1e-3)
-            n_ro = params.topology.n_reorder
-            X, Y, U, RH = ns.init_transposed(params, B, dev)
-            for t in range(params.num_periods):
-                X, Y, U, RH, rew = ns._batched_step_plain(params, X, Y, U, RH, acts[t],
-                                                          tr["demand"][t], t)
-                for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
-                    close(f"step chain {k}[{t}] vs K29, {mode}", tr[k][t + (k != "r")],
-                          want_k, 1e-5, 1e-3)
-                close(f"step chain reward[{t}] vs K29, {mode}", tr["reward"][t], rew, 1e-5,
-                      1e-3)
+            net_step_chain(params, tr, mode, dev)
             lines.append(f"K29 {mode}: the plain step chain on its demand and a_norm gives "
                          "its x, u, r and rewards; K1 on its streams its rewards' sum")
         del tr, want
-    # K27/K28 on a ragged batch, and on the wide route: an actor of OFF_WIDE
+    # K27-K29 on a ragged batch, and on the wide route: an actor of OFF_WIDE
     # widths, whose slice fits no cluster tile, so the wrapper launches the
     # first design (csrc/wide_mlp.cuh). K27's a_norm free-running on >= 99%
-    # of lanes; K28's econ bit for bit and its a_norm teacher-forced, with
-    # the plain step chain on its streams, and free-running on
-    # FLOAT_FREE_SHARE of the ragged batch's lanes, as the cases above; on
-    # the wide route its free-running share is reported, not gated: the
-    # (512, 512) actor's ulps feed back through the pipeline
-    for name, kernel, plain, params, _, obs_dim, act_dim in offpolicy_families(dev)[:2]:
+    # of lanes; K28's econ bit for bit; K28's and K29's a_norm
+    # teacher-forced, with the plain step chain on their streams, and
+    # free-running on FLOAT_FREE_SHARE of the ragged batch's lanes, as the
+    # cases above; on the wide route their free-running share is reported,
+    # not gated: the (512, 512) actor's ulps feed back through the state
+    for name, kernel, plain, params, _, obs_dim, act_dim in offpolicy_families(dev):
         nv_family = name == "rollout_traj_nv_offpolicy"
         same = demand_check if nv_family else exact
         for case, B, arch in (("ragged", RAGGED[0], OFF_ARCH),
                               ("wide route", LEARN_LANES, OFF_WIDE)):
-            need = LANE_SHARE if not nv_family else \
+            need = LANE_SHARE if name == "rollout_traj_im_offpolicy" else \
                 FLOAT_FREE_SHARE if case == "ragged" else 0.0
             actor, log_std = seeded_offpolicy_actor(obs_dim, act_dim, False, dev, arch)
             std = ek.clipped_std(log_std)
@@ -2629,59 +2701,91 @@ def offpolicy_cross_check(dev):
             same(f"{name} {case} demand", tr["demand"], want["demand"])
             if nv_family:
                 exact(f"{name} {case} econ", tr["econ"], want["econ"])
-            forced = offpolicy_teacher_forced(name, params, tr, actor, std, "det", act_dim, dev)
+            # K29's first design under the (512, 512) actor: 512-term f32 sums
+            # of NetInvMgmt's obs, whose order windows reach hundreds, round
+            # to ~1e-4 in either order (on an H100, 111 of 337,920 elements
+            # past 1e-4, the largest 1.25e-4): every element within 1e-3, the
+            # share within 1e-4 reported
+            wide_net = name == "rollout_traj_net_offpolicy" and case == "wide route"
+            forced, within = offpolicy_teacher_forced(name, params, tr, actor, std, "det",
+                                                      act_dim, dev, 1e-3 if wide_net else 1e-4)
             share, e = lane_share(f"{name} {case} a_norm vs plain", tr["raw"], want["raw"],
                                   1e-4, 1e-4, need)
             err[name] = max(err[name], e)
             if nv_family:
                 nv_step_chain(params, tr, f"det, {case}")
+            elif name == "rollout_traj_net_offpolicy":
+                net_step_chain(params, tr, f"det, {case}", dev)
             lines.append(f"{name} det, {case} ({B} lanes, actor {arch}, the {route} kernel): "
                          f"demand{' and econ' if nv_family else ''} equal to plain's; a_norm "
                          f"teacher-forced max |diff| "
-                         f"{forced:.3g}; lanes agreeing {share:.4%}"
+                         f"{forced:.3g} ({within:.4%} of elements within 1e-4); lanes agreeing "
+                         f"{share:.4%}"
                          + ("; the plain step chain on its econ, demand and a_norm gives its "
-                            "orders and rewards" if nv_family else ""))
+                            "orders and rewards" if nv_family else
+                            "; K1 and the plain step chain on its demand and a_norm give its "
+                            "rewards, x, u and r" if name == "rollout_traj_net_offpolicy"
+                            else ""))
             del tr, want
     torch.cuda.synchronize()
     return err, plain_ms, lines
 
 
 def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
-    """A function that launches K27's or K28's cluster kernel alone (the
-    det head, the entry points' plan), its plan, packed actor and outputs
-    made once, before: what CUDA events around it time is the launch. It is
-    launched once here, and each of its outputs must equal the entry
-    point's (``kernel``) on the same seed and batch, bit for bit."""
+    """A function that launches K27's, K28's or K29's kernel alone on the
+    route its entry point takes (the det head: the cluster, or K29's wide
+    route past its rounds), its plan, packed actor and outputs made once,
+    before: what CUDA events around it time is the launch. It is launched
+    once here, and each of its outputs must equal the entry point's
+    (``kernel``) on the same seed and batch, bit for bit. Returns (the
+    function, the route)."""
     import ctypes
 
     import torch
 
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
     std = ek.clipped_std(log_std)
+    want = kernel(params, actor, log_std, SEED, batch, "det", "relu", dev)
+    route = kernel.route
     if name == "rollout_traj_im_offpolicy":
         src, T, act, obs = "im_policy", params.periods, params.m1, params.pipeline_length
         st, flat = ek._pack_cluster_actor(actor, std, obs, act, "det", ek._half_c(params), T,
                                           obs, False, dev)
         flags, plan = (1, int(params.backlog)), ek._im_plan(params, ek._plan_key(dev))
-        env = (plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr())
-        shapes = [((T + 1, act, batch), torch.int32), ((T, act, batch), torch.int32),
-                  ((T, act, batch), torch.float32), ((T, batch), torch.float32),
-                  ((T, batch), torch.int32)]
+        head, env = (ctypes.addressof(plan["struct"]),), (
+            plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr())
         streams = ("inv", "actions", "raw", "reward", "demand")
-    else:
+    elif name == "rollout_traj_nv_offpolicy":
         src, T, obs = "nv_policy", params.step_limit, params.obs_dim
         st, flat = ek._pack_cluster_actor(actor, std, obs, 1, "det", ek._nv_half_hi(params), T,
                                           obs + 1, True, dev)
         flags, plan = (1,), ek._nv_plan(params, ek._plan_key(dev))
-        env = (plan["lgam"].data_ptr(),)
-        shapes = [((5, batch), torch.float32)] + [((T, batch), torch.float32)] * 4
+        head, env = (ctypes.addressof(plan["struct"]),), (plan["lgam"].data_ptr(),)
         streams = ("econ", "orders", "raw", "reward", "demand")
+    else:
+        topo, T = params.topology, params.num_periods
+        src, act, half_hi = "net_policy", topo.n_reorder, [ns._half_hi(topo)] * topo.n_reorder
+        layout, lay = ns._shared_layout(topo)
+        if route == "cluster":
+            st, flat = ek._pack_cluster_actor(actor, std, topo.obs_dim, act, "det", half_hi, T,
+                                              layout.words, False, dev,
+                                              ns._net_cluster_layout(topo))
+        else:
+            st, flat = ek._pack_wide_actor(actor, std, topo.obs_dim, act, "det", half_hi, dev)
+        flags = (1,)
+        tp, disc, tab = ns._launch_plan(params, T, ek._plan_key(dev), True)
+        plan = (tp, disc, tab, lay)
+        head = (ctypes.addressof(tp),) + ((ctypes.addressof(lay),) if route == "cluster" else ())
+        env = (tab.data_ptr(), disc.data_ptr())
+        streams = ("x", "u", "r", "raw", "reward", "demand")
     fam = src.split("_")[0]
-    ek._set_cluster_grid(st, batch, src, f"{fam}_rollout_traj_cluster_occupancy", flags, dev)
-    outs = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in shapes]
-    fn = getattr(_build.library(src), f"{fam}_rollout_traj_cluster")
-    args = (ctypes.addressof(plan["struct"]), ctypes.addressof(st), flat.data_ptr(), *env,
+    if route == "cluster":
+        ek._set_cluster_grid(st, batch, src, f"{fam}_rollout_traj_cluster_occupancy", flags, dev)
+    outs = [torch.empty_like(want[k]) for k in streams]
+    fn = getattr(_build.library(src), f"{fam}_rollout_traj_{route}")
+    args = (*head, ctypes.addressof(st), flat.data_ptr(), *env,
             *(o.data_ptr() for o in outs), SEED, *flags, batch, T, ek._stream(dev))
 
     alive = (st, flat, plan, outs)   # what the pointers in args point into
@@ -2689,17 +2793,14 @@ def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
     def launch():
         rc = fn(*args)
         if rc:
-            raise RuntimeError(f"{fam}_rollout_traj_cluster: {_build.error_string(src, rc)}")
+            raise RuntimeError(f"{fam}_rollout_traj_{route}: {_build.error_string(src, rc)}")
         return alive[-1]
     launch()
-    want = kernel(params, actor, log_std, SEED, batch, "det", "relu", dev)
-    if kernel.route != "cluster":
-        raise AssertionError(f"{name} at {batch} lanes took the {kernel.route} route")
     for k, got in zip(streams, outs):
-        exact(f"{name} kernel alone {k} vs the entry point's at {batch} lanes",
+        exact(f"{name} kernel alone ({route}) {k} vs the entry point's at {batch} lanes",
               got.reshape(-1), want[k].reshape(-1))
     del want
-    return launch
+    return launch, route
 
 
 def td3_main_path(dev, wrappers, smi):
@@ -2790,13 +2891,17 @@ def offpolicy_short_runs(dev, wrappers):
             moved = {n: c for n, c in launches.items() if c}
             if moved != {kname: 2}:
                 raise AssertionError(f"{algo} on {fam} launched {moved}, not {kname} twice")
+            route = wrappers[kname][0].route   # the head's iteration, the last launch
+            if route != "cluster":
+                raise AssertionError(f"{algo} on {fam}: {kname} took the {route} route")
             if not np.isfinite(metrics["mean_step_reward"]).all() or \
                     state.buffer.filled != 2 * 1024 * horizon:
                 raise AssertionError(f"{algo} on {fam}: non-finite rewards or a buffer of "
                                      f"{state.buffer.filled}")
             total = {n: total[n] + launches[n] for n in total}
             lines.append(f"{algo} on {fam}, 2 iterations (uniform, then {algo}'s head) at 1,024 "
-                         f"x {horizon}: {kname} launched twice, nothing else; mean step reward "
+                         f"x {horizon}: {kname} launched twice (the head's on the cluster), "
+                         f"nothing else; mean step reward "
                          f"{np.round(metrics['mean_step_reward'], 3).tolist()}; {wall:.1f} s")
     return total, lines
 
@@ -2946,12 +3051,13 @@ def slice7_phases(dev, wrappers, smi, err, times, work):
             off_summary[f"{name}_{key}_ms"] = det
             off_summary[f"{name}_{key}_bound_ms"] = b_ms
             line = f"at {lanes} x {horizon}: det {det:.4f} ms through the entry point"
-            if name in CLUSTER_KERNELS:   # the kernel alone, its plan and inputs made before
-                alone = cuda_time(offpolicy_kernel_launch(name, kernel, fparams, actor, log_std,
-                                                          lanes, dev), warmup=1,
-                                  iters=5)["best_ms"]
-                off_summary[f"{name}_{key}_kernel_ms"] = alone
-                line += f", {alone:.4f} ms the kernel alone"
+            # the kernel alone on the entry point's route, its plan and inputs made before
+            launch, route = offpolicy_kernel_launch(name, kernel, fparams, actor, log_std,
+                                                    lanes, dev)
+            alone = cuda_time(launch, warmup=1, iters=5)["best_ms"]
+            off_summary[f"{name}_{key}_kernel_ms"] = alone
+            off_summary[f"{name}_{key}_route"] = route
+            line += f", {alone:.4f} ms the kernel alone ({route} route)"
             parts.append(line + f", bound {b_ms:.4f} ms by {b_by} ({b_ms / det:.1%} of the "
                          f"entry point's); sac {entry_ms['sac', lanes]['best_ms']:.4f}, uniform "
                          f"{entry_ms['uniform', lanes]['best_ms']:.4f} ms")
@@ -3055,9 +3161,9 @@ def main() -> int:
                    if e.startswith(("k_batched_step", "k_episode_returns_random",
                                     "k_im_rollout_traj_wide", "k_nv_rollout_traj_wide",
                                     "k_rollout_traj_wide"))]
-    print("[2 build] K25/K26 (net_episode.cu), K29 and K27/K28's wide route (im/nv/net_"
+    print("[2 build] K25/K26 (net_episode.cu) and K27-K29's wide route (im/nv/net_"
           "policy.cu on wide_mlp.cuh): " + "; ".join(new_entries), flush=True)
-    print("[2 build] K27/K28 on the thread-block cluster (cluster_mlp.cuh, FP32 products): "
+    print("[2 build] K27-K29 on the thread-block cluster (cluster_mlp.cuh, FP32 products): "
           + cluster_check(logs), flush=True)
     net_so = str(_build._target(_build.CSRC / "net_episode.cu"))
     net_log = next((out for so, out in logs.items() if "libnet_episode" in so), "")
@@ -3071,8 +3177,8 @@ def main() -> int:
           "graph; SASS LDL/STL per kernel of net_episode.cu: "
           + ("cuobjdump not found" if local is None else
              ", ".join(f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(local.items()))), flush=True)
-    print("[2 build] K5/K6, K11/K12 and K19/K20 on the tensor-core tile (mlp_tile.cuh): "
-          + tile_sass_check(logs), flush=True)
+    print(f"[2 build] K4-K6 (K4 = {K4_INSTANCE}), K11/K12 and K19/K20 on the tensor-core "
+          "tile (mlp_tile.cuh): " + tile_sass_check(logs), flush=True)
     print("[2 build] K8, its ring in shared memory and its stages in registers: "
           + k8_frame_check(logs), flush=True)
 
@@ -3081,7 +3187,7 @@ def main() -> int:
     params = net.default_params(num_periods=NUM_STEPS)
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    err, acts, dems = cross_check(params, dev)
+    err, acts, dems, k1_lanes = cross_check(params, dev)
     print(f"[3 cross-check] K3 streams bit-exact; K1, K2 within rtol=1e-5 atol=1e-3 "
           f"of their plain versions and of each other; step chain within rtol=1e-4 "
           f"atol=1e-2; {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3091,6 +3197,9 @@ def main() -> int:
     missing = [name for name in RANDOM_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing}")
+    if sum(k1_lanes.values()) != launches["episode_returns"]:
+        raise AssertionError(f"K1 launched {launches['episode_returns']} times, by its lanes "
+                             f"{k1_lanes}")
     print(f"[4 main path] {MAIN_LANES * MAIN_EPISODES} episode returns from K2 launched "
           f"once and nothing else, within "
           f"rtol=1e-5 atol=1e-3 of plain K2 on the same seed, mean {mean:.3f}; "
@@ -3136,6 +3245,19 @@ def main() -> int:
     k2_t = cuda_time(ns.episode_returns_fully_fused, params, SEED, hi, MAIN_LANES,
                      NUM_STEPS, MAIN_EPISODES, dev, warmup=1, iters=5)
     del acts, dems
+    # K1 at each shape the cross-check launches it at, and at bench.py's 4,096
+    k1_by_lanes = {CHECK_LANES: (k1_t, k1_p)}
+    for lanes in K1_LANES:
+        a1, d1 = ns.sample_streams_debug(params, SEED, hi, lanes, device=dev)
+        k1_by_lanes[lanes] = (cuda_time(ns.episode_returns, params, a1, d1, warmup=2, iters=20),
+                              cuda_time(ns._episode_returns_plain, params, a1, d1, warmup=1,
+                                        iters=3))
+        del a1, d1
+    k1_shapes = {f"{lanes}x{NUM_STEPS}": {
+        "launches": k1_lanes.get(lanes, 0), "ms": t["best_ms"], "plain_ms": pt["best_ms"],
+        "bound_ms": bound(lanes * (NUM_STEPS * words + 1) * 4,
+                          lanes * NUM_STEPS * step_ops(T))[0]}
+        for lanes, (t, pt) in k1_by_lanes.items()}
     main_envs = MAIN_LANES * MAIN_EPISODES
     work = {
         "episode_returns": bound(CHECK_LANES * (NUM_STEPS * words + 1) * 4,
@@ -3152,6 +3274,11 @@ def main() -> int:
           f"ops; peaks {HBM_BYTES_PER_S:.3g} B/s, {FP32_OPS_PER_S:.3g} op/s", flush=True)
     for name in RANDOM_KERNELS:
         print_kernel(6, name, times[name], work[name], launches[name])
+    print("[6 kernel] episode_returns by shape (launches on the main path: bench.py's "
+          "cross-check, once at 65,536 lanes and once per episode at 1,024): " + "; ".join(
+              f"{k}: {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+              f"ms by bytes ({v['bound_ms'] / v['ms']:.1%} of it), launches {v['launches']}"
+              for k, v in k1_shapes.items()) + f" on {smi}", flush=True)
     t0 = time.perf_counter()
     err2, lines = k2_graph_check(dev)
     err["episode_returns_fully_fused"] = max(err["episode_returns_fully_fused"], err2)
@@ -3207,13 +3334,11 @@ def main() -> int:
     k4_rows = (NUM_STEPS + 1) * (T.n_main + T.n_retail) + NUM_STEPS * (
         2 * T.n_reorder + 1 + T.n_retail)
     n_eval = PPO_ENVS * E * NUM_STEPS
-    work.update({
-        "rollout_traj_net": bound(
-            PPO_ENVS * k4_rows * 4,
-            PPO_ENVS * NUM_STEPS * (step_all + policy_draw_ops(T, specs, True))),
-    })
     k5_ops = step_all + policy_draw_ops(T, specs, False)
     tile_bounds = {
+        "rollout_traj_net": tc_bound(PPO_ENVS * k4_rows * 4, PPO_ENVS * NUM_STEPS,
+                                     step_all + policy_draw_ops(T, specs, True),
+                                     mlp_tc_flops(dims)),
         "episode_returns_net_policy": tc_bound(PPO_ENVS * E * 4, n_eval, k5_ops,
                                                mlp_tc_flops(dims)),
         "sample_policy_streams_debug_net": tc_bound(PPO_ENVS * E * (1 + NUM_STEPS * words) * 4,
@@ -3725,6 +3850,7 @@ def main() -> int:
                      "max_abs_err": err[name], "ms": kt["best_ms"],
                      "plain_ms": pt["best_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
+    rows[0]["by_shape"] = k1_shapes   # K1: the row's numbers are at 65,536 lanes
 
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card

@@ -1,11 +1,16 @@
-// The folded off-policy actor of K27 (im_policy.cu) and K28 (nv_policy.cu)
-// over a thread-block cluster, at the learners' shape: 1,024 lanes x the
-// horizon, SB3's default (256, 256) relu actor. It replaces, as wide_mlp.cuh
-// did, the in-kernel pallas_episode_kernels.mlp_forward (:1124) under the
-// heads of traj_policy (:1036-1081); the heads' math is wide_mlp.cuh's
-// offpolicy_head, unchanged. K29 (net_policy.cu) stays on wide_mlp.cuh,
-// and so do K27/K28 where a CTA's slice of the actor does not fit (the
-// wrapper's plan picks that route from the sizes, before the launch).
+// The folded off-policy actor of K27 (im_policy.cu), K28 (nv_policy.cu) and
+// K29 (net_policy.cu) over a thread-block cluster, at the learners' shape:
+// 1,024 lanes x the horizon, SB3's default (256, 256) relu actor. It
+// replaces, as wide_mlp.cuh did, the in-kernel
+// pallas_episode_kernels.mlp_forward (:1124) under the heads of traj_policy
+// (:1036-1081); the heads' math is wide_mlp.cuh's offpolicy_head,
+// unchanged. They stay on wide_mlp.cuh where a CTA's slice of the actor
+// does not fit, and K29 for a batch of more rounds than its rule allows
+// (the wrapper's plan picks that route from the sizes, before the launch).
+// The regions below are offsets the plan lays out (ops/episode_kernels.py
+// _cluster_plan, on the family's ClusterLayout): K29's puts red and h inside
+// x0, which is dead from the last hidden layer's barrier to the next
+// period's obs barrier, and its rows unpadded.
 //
 // What bounds it: operations, the actor's ~1.5e5 FMAs an env-step. The
 // first design (wide_mlp.cuh) ran a block per 32 lanes: 32 blocks on 132

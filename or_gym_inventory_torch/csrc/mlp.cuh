@@ -1,7 +1,8 @@
-// The folded MLP actor as the trajectory kernels run it, one forward pass
-// per thread, shared by K4 (net_policy.cu), K10 (im_policy.cu) and K18
-// (nv_policy.cu); the learned-policy returns kernels run mlp_tile.cuh's. It
-// replaces the in-kernel pallas_episode_kernels.mlp_forward (:1124).
+// The folded MLP actor as the PPO trajectory kernels K10 (im_policy.cu) and
+// K18 (nv_policy.cu) run it, one forward pass per thread (and K4's first
+// design, kept in tools/net_traj_parent.cu); the learned-policy returns
+// kernels and K4 run mlp_tile.cuh's. It replaces the in-kernel
+// pallas_episode_kernels.mlp_forward (:1124).
 //
 // The folded actor (obs normalisation already in layer 1) is copied once per
 // block into shared memory, each layer as W^T (in, out16) row-major, then b

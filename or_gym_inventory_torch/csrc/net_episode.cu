@@ -96,7 +96,7 @@ __device__ __forceinline__ float random_episode(const NetTopo& tp, const SharedV
   for (int t = 0; t < T; ++t) {
     WordStream ws(seed, 0u, lane, e, (unsigned)t);
     total += __ldg(disc + t) *
-             step_view(tp, s, DrawnActions{ws, act_scale}, demand(ws, t), nullptr);
+             step_view(tp, s, DrawnActions{ws, act_scale}, demand(ws, t), NoSink{});
   }
   return total;
 }

@@ -26,12 +26,14 @@
 // ro_pur[i], ro_ring[i], rt_ret[j]), so it cannot live in registers.
 // step_view is one body over two views of it, with the same accessors:
 // - FrameView: a thread's own Episode, sized to net_topo.cuh's maxima, in
-//   local memory. K1, K4, K25 and K29 keep it (K1: 1,792 bytes a thread).
+//   local memory. K1, K25 and K29's wide route keep it (K1: 1,792 bytes a
+//   thread).
 // - SharedView: the words the real graph needs (4 n_main + 2 n_ro + n_rt +
 //   sum L_i: 108 on the default graph, 400 at the maxima) in dynamic shared
 //   memory, laid out [word][thread] so that a warp's 32 accesses to one
 //   warp-uniform word fall on 32 banks. ops/net_step.py _shared_state_plan
-//   sizes it. K2, K26 and K5/K6 (over a block's lanes) take it.
+//   sizes it. K2, K26, K4-K6 (over a tile's lanes) and K29 on the cluster
+//   (over a CTA's lanes, [word][lane]) take it.
 // K2 first kept the frame. At 4,194,304 x 16 threads its ~624 live bytes a
 // thread outran L1 and L2, and the old step's ~400 frame accesses an
 // env-step (seven scratch arrays zeroed, three passes over the links, a
@@ -96,10 +98,14 @@ struct NetSmem {
 struct SharedView {
   float *x_, *consumed_, *arrivals_, *sold_, *y_, *u_, *ring_;
   int* slot_;
-  int n;  // threads per block: the stride between a thread's words
+  int n;  // the stride between a column's words: threads per block, or lanes
 
-  __device__ SharedView(float* smem, const NetSmem& L) : n((int)blockDim.x) {
-    float* p = smem + threadIdx.x;
+  __device__ SharedView(float* smem, const NetSmem& L)
+      : SharedView(smem, L, (int)blockDim.x, (int)threadIdx.x) {}
+  // column ``col`` of a [word][lane] region ``stride`` floats a word (K29 on
+  // the cluster: a CTA's lanes, fewer than its threads)
+  __device__ SharedView(float* smem, const NetSmem& L, int stride, int col) : n(stride) {
+    float* p = smem + col;
     x_ = p + L.x * n;
     consumed_ = p + L.consumed * n;
     arrivals_ = p + L.arrivals * n;
@@ -145,7 +151,8 @@ __device__ __forceinline__ float order_window(const NetTopo& tp,
 }
 
 // Sources of a period's actions (one value per reorder link) and demand (one
-// per retail link). The step calls each source once per index, in index
+// per retail link), and sinks of its fulfilled orders (one per reorder
+// link). The step calls each source and sink once per index, in index
 // order, so a source may draw its words as it is read.
 struct FromArray {  // a thread's own array
   const float* p;
@@ -163,6 +170,24 @@ struct DrawnActions {
   WordStream& ws;
   float act_scale;
   __device__ float operator()(int) const { return (float)(ws.next() >> 8) * act_scale; }
+};
+
+struct NoSink {  // the fulfilled orders are not kept
+  __device__ void operator()(int, float) const {}
+};
+
+struct ToArray {  // a thread's own array
+  float* p;
+  __device__ void operator()(int k, float f) const { p[k] = f; }
+};
+
+struct ToRows {  // a (rows, B) slice of device memory, p at row 0 of the lane
+  float* p;
+  long long stride;
+  bool on;  // false past the batch: nothing is written
+  __device__ void operator()(int k, float f) const {
+    if (on) p[k * stride] = f;
+  }
 };
 
 // Demand of retail link j in period t from its word.
@@ -183,8 +208,7 @@ struct DrawnDemand {
 };
 
 // One period (pallas_net_step._step_math) on the state view s: returns the
-// undiscounted profit and, when r is given, writes the fulfilled orders to
-// r[0, n_ro). One pass over the reorder links does each link's contention,
+// undiscounted profit and hands each fulfilled order to the sink r. One pass over the reorder links does each link's contention,
 // delivery, pipeline and profit terms, keeping _step_math's order of
 // effects: contention reads the period's opening X (arrivals are kept apart
 // until the pass ends), holding cost takes Y after the link's delivery, HC
@@ -193,9 +217,9 @@ struct DrawnDemand {
 // material, so only those links add -price * r. The state stays exact
 // (integer-valued floats); the profit differs from the plain version's only
 // in f32 summation order.
-template <class S, class Act, class Dem>
+template <class S, class Act, class Dem, class Sink>
 __device__ __forceinline__ float step_view(const NetTopo& tp, const S& s, const Act& act,
-                                           const Dem& dem, float* r) {
+                                           const Dem& dem, const Sink& r) {
   for (int n = 0; n < tp.n_main; ++n) s.consumed(n) = s.arrivals(n) = s.sold(n) = 0.f;
   float total = 0.f;
 
@@ -215,7 +239,7 @@ __device__ __forceinline__ float step_view(const NetTopo& tp, const S& s, const 
     } else {
       total -= tp.ro_price[i] * f;
     }
-    if (r) r[i] = f;
+    r(i, f);
     const int L = tp.ro_L[i];
     float a = f;
     if (L > 0) {
@@ -254,11 +278,12 @@ __device__ __forceinline__ float step_view(const NetTopo& tp, const S& s, const 
   return total;
 }
 
-// step_view on a thread's Episode, with the actions and demand in arrays.
+// step_view on a thread's Episode, with the actions, demand and fulfilled
+// orders in arrays.
 __device__ __forceinline__ float step_period(const NetTopo& tp, Episode& s,
                                              const float* act, const float* dem,
                                              float* r) {
-  return step_view(tp, FrameView{s}, FromArray{act}, FromArray{dem}, r);
+  return step_view(tp, FrameView{s}, FromArray{act}, FromArray{dem}, ToArray{r});
 }
 
 // Actions act[0, n_ro) and demand dem[0, n_rt) of one (lane, episode,

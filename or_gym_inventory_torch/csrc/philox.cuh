@@ -64,6 +64,14 @@ struct WordStream {
   }
 };
 
+// Word k of one (lane, episode, period) alone: WordStream's k-th next().
+__device__ __forceinline__ unsigned word_at(unsigned seed, unsigned key1, unsigned lane,
+                                            unsigned e, unsigned t, int k) {
+  const uint4 b = philox4x32_10(make_uint4(lane, e, t, (unsigned)(k >> 2)), make_uint2(seed, key1));
+  const int c = k & 3;
+  return c == 0 ? b.x : c == 1 ? b.y : c == 2 ? b.z : b.w;
+}
+
 __device__ __forceinline__ float u01(unsigned word) {
   return (float)(word >> 8) * 5.9604644775390625e-8f;  // exact: u24 < 2^24
 }

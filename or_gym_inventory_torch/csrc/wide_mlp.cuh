@@ -1,8 +1,9 @@
 // The folded actor of the off-policy learners (SAC, TD3, DDPG) as the
 // trajectory kernels' first design runs it, one block over a tile of
-// kWideLanes lanes: K29 (net_policy.cu), and K27 (im_policy.cu) and K28
-// (nv_policy.cu) on their wide route, for an actor whose slice fits no
-// CTA of cluster_mlp.cuh, where they run otherwise; the heads' math
+// kWideLanes lanes: K27 (im_policy.cu), K28 (nv_policy.cu) and K29
+// (net_policy.cu) on their wide route, for an actor whose slice fits no
+// CTA of cluster_mlp.cuh (and K29 for a batch of many rounds), where they
+// run otherwise; the heads' math
 // (offpolicy_head) and noise (offpolicy_noise) are shared with
 // cluster_mlp.cuh. It replaces the in-kernel pallas_episode_kernels
 // .mlp_forward (:1124) with a relu (or tanh) trunk and the heads of

@@ -43,9 +43,9 @@ SIGNATURES = {
         "net_episode_returns_random": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _P), _I),
     },
     "net_policy": {
-        # topo, mlp, params, n_params, tables, disc, x, u, r, raw, reward,
+        # topo, state layout, tile, actor, tables, disc, x, u, r, raw, reward,
         # demand, seed, B, T, stream
-        "net_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        "net_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _U32, _LL, _I, _P), _I),
         # topo, state layout, tile, actor, tables, disc, out, acts, dems, seed,
         # B, E, T, stochastic, stream
@@ -55,6 +55,12 @@ SIGNATURES = {
         # relu, B, T, stream
         "net_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
                                    _LL, _I, _P), _I),
+        # topo, state layout, cluster, actor, tables, disc, x, u, r, raw,
+        # reward, demand, seed, relu, B, T, stream
+        "net_rollout_traj_cluster": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32,
+                                      _I, _LL, _I, _P), _I),
+        # cluster, relu, out
+        "net_rollout_traj_cluster_occupancy": ((_P, _I, _P), _I),
     },
     "im_episode": {
         # params, acts, dems, disc, out, seed, random, backlog, B, T, stream

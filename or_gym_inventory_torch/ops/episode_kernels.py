@@ -13,15 +13,16 @@ version), and what every MLP policy kernel shares:
 - ``fold_offpolicy_actor``, the off-policy learners' actor (relu trunk,
   mean head, and for SAC the log_std head beside it) folded the same way;
 - ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by K4 (``ops/net_step.py``), K10 and K18;
+  shared by K10 and K18;
   ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5,
-  K11 and K19 over a tile of lanes on the tensor cores
+  K11 and K19 and of K4 (``ops/net_step.py``) over a tile of lanes on the
+  tensor cores
   (``csrc/mlp_tile.cuh``, its layout ``_mlp_tile_plan``; K19's demand,
   pipeline and Poisson table ``_nv_tile_plan``); ``_pack_cluster_actor``,
-  the actor of the off-policy trajectory kernels K27 and K28 over a
+  the actor of the off-policy trajectory kernels K27-K29 over a
   thread-block cluster (``csrc/cluster_mlp.cuh``, its layout
   ``_cluster_plan``, its tile ``_cluster_choice``); and
-  ``_pack_wide_actor``, the actor of K29 and of K27/K28's wide route
+  ``_pack_wide_actor``, the actor of their wide route
   (``csrc/wide_mlp.cuh``);
 - the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
   relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
@@ -666,7 +667,7 @@ def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_h
     return st, _gather(actor, std if st.std >= 0 else None, index, zero, dev)
 
 
-# ------------------------------ the off-policy actor over a cluster (K27, K28)
+# ------------------------- the off-policy actor over a cluster (K27, K28, K29)
 
 # csrc/cluster_mlp.cuh: threads a CTA (16 warps) and the portable cluster size
 _CLUSTER_THREADS, CLUSTER_MAX_SIZE = 512, 8
@@ -708,7 +709,8 @@ class ClusterPlan:
     its input rows ``kin`` (pad8(obs_dim), then the padded widths), the
     rows ``rows`` a CTA holds (a hidden layer's width padded to 16 C, over
     C; the output layer's pad8(outputs), whole), the row stride ``ws`` of
-    its W slice (rows + 8 for a hidden layer) and the float offsets ``w``
+    its W slice (rows + the layout's pad for a hidden layer; ``stride``,
+    the activations', is lanes + the pad) and the float offsets ``w``
     and ``b`` of its W slice ([k][ws]) and bias in a CTA's block of
     ``block`` floats, then the std at ``std`` (or -1): a hidden layer's R
     rows are its width padded to 16 C, over C. In shared memory,
@@ -717,8 +719,9 @@ class ClusterPlan:
     as many as they need, up to two; xl, the last hidden layer's outputs for
     the CTA's lanes; red, the output layer's partial sums (32 groups x 8 x
     the CTA's lanes); h, the CTA's
-    lanes' outputs; dem and z, the
-    lanes' demand [lane][T] and head noise [lane][T][act]; q, K28's
+    lanes' outputs (red and h inside x0 under the layout's out_in_x0, where
+    x0 holds them); dem and z, the lanes' demand [lane][T][dem_rows] and
+    head noise [lane][T][act] ([lane][act] under noise_per_period); q, K28's
     Poisson anchors; state, ``state_words`` a lane), ``floats`` in all.
     Every region starts on 16 bytes."""
     cluster: int
@@ -741,14 +744,42 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterLayout:
+    """What a family's cluster kernel keeps a CTA beside the actor, as
+    ``_cluster_plan`` lays it out: ``dem_rows`` demands a (lane, period);
+    ``pad`` floats past each row of the hidden layers' W slices and of the
+    activations (8 keeps the A fragment loads of a 3xTF32 form on 32
+    banks; the FP32 products' loads are conflict-free at 0);
+    ``out_in_x0``, the output layer's partial sums and outputs in x0, which
+    is dead from the last hidden layer's barrier to the next period's obs
+    barrier, where it holds them; ``noise_per_period``, the head's noise of
+    one period a lane (drawn each period) rather than the episode's (drawn
+    at the reset; "uniform" keeps the episode's)."""
+    dem_rows: int = 1
+    pad: int = 8
+    out_in_x0: bool = False
+    noise_per_period: bool = False
+
+
+# K27 and K28's layout; K29's (``net_step._net_cluster_layout``) keeps one
+# demand a retail link, no padding, the output layer in x0 and a period's
+# noise, which is what lets 4 CTAs hold 64 lanes of its (68, 256, 256, 11)
+# actor (tools/net_traj_sweep.py, PERF.md)
+_K27_LAYOUT = ClusterLayout()
+
+
 def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
-                  anchors: bool, cluster: int, lanes: int, actor: bool = True) -> ClusterPlan:
+                  anchors: bool, cluster: int, lanes: int, actor: bool = True,
+                  layout: ClusterLayout = _K27_LAYOUT) -> ClusterPlan:
     """The layout of a cluster of ``cluster`` CTAs over a tile of ``lanes``
     lanes for an actor of widths ``dims`` (``actor`` False: the "uniform"
     head, no weights and no activations), a horizon of ``T``,
     ``state_words`` words of state a lane (K27: on-hand and the ring of
     requested orders, obs_dim; K28: econ, the pipeline and its head,
-    obs_dim + 1) and, when ``anchors``, K28's Poisson anchors. Raises
+    obs_dim + 1; K29: net_step._shared_layout's words with the step's
+    scratch), the family's ``layout`` (``ClusterLayout``) and, when
+    ``anchors``, K28's Poisson anchors. Raises
     ValueError for a tile the kernels do not take: lanes a multiple of 32
     (of 16 per n-tile pair and 32 per FP32 warp item), an even number of
     lanes a CTA (the float2 stores), at most a thread each."""
@@ -756,7 +787,7 @@ def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
     if not (1 <= cluster <= CLUSTER_MAX_SIZE and lanes % 32 == 0 and lanes_cta * cluster == lanes
             and lanes_cta <= _CLUSTER_THREADS and lanes_cta % 2 == 0):
         raise ValueError(f"no cluster tile of {cluster} CTAs over {lanes} lanes")
-    stride = lanes + 8
+    stride = lanes + layout.pad
     kin, rows, ws, w, b = [], [], [], [], []
     at, obs_rows, full, last_rows, out_rows, std = 0, 0, [], 0, 0, -1
     if actor:
@@ -764,7 +795,7 @@ def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
         for layer, out in enumerate(dims[1:]):
             if layer < len(dims) - 2:
                 width = -(-out // (16 * cluster)) * 16 * cluster
-                R, RS = width // cluster, width // cluster + 8
+                R, RS = width // cluster, width // cluster + layout.pad
             else:
                 width = R = RS = _pad8(out)
             kin.append(k)
@@ -783,32 +814,38 @@ def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
         full, last_rows = kin[1:-1], (kin[-1] if len(kin) > 1 else 0)
         obs_rows, out_rows = kin[0], rows[-1]
     x_rows = max(full, default=0)
+    noise_rows = 1 if layout.noise_per_period and actor else T
+    out_sizes = {"red": 32 * 8 * lanes_cta if actor else 0, "h": _pad4(out_rows * lanes_cta)}
+    in_x0 = layout.out_in_x0 and x_rows * stride >= sum(out_sizes.values())
     sizes = {"xo": obs_rows * stride, "x0": x_rows * stride,
              "x1": x_rows * stride if len(full) > 1 else 0, "xl": last_rows * lanes_cta,
-             "red": 32 * 8 * lanes_cta if actor else 0,
-             "h": _pad4(out_rows * lanes_cta), "dem": _pad4(lanes_cta * T),
-             "z": _pad4(lanes_cta * T * act_dim), "q": 4 * lanes_cta if anchors else 0,
+             **({"red": 0, "h": 0} if in_x0 else out_sizes),
+             "dem": _pad4(lanes_cta * T * layout.dem_rows),
+             "z": _pad4(lanes_cta * noise_rows * act_dim), "q": 4 * lanes_cta if anchors else 0,
              "state": _pad4(lanes_cta * state_words)}
     offsets, floats = {}, at
     for name, size in sizes.items():
         offsets[name] = floats
         floats += size
+    if in_x0:
+        offsets["red"] = offsets["x0"]
+        offsets["h"] = offsets["x0"] + out_sizes["red"]
     return ClusterPlan(cluster, lanes, lanes_cta, stride, tuple(kin), tuple(rows), tuple(ws),
                        tuple(w), tuple(b), std, at, state_words, offsets, floats)
 
 
 def _cluster_choice(dims, act_dim: int, with_std: bool, T: int, state_words: int,
-                    anchors: bool, actor: bool = True):
+                    anchors: bool, actor: bool = True, layout: ClusterLayout = _K27_LAYOUT):
     """The entry points' plan (``_cluster_plan``'s arguments): for an
     actor, the first of ``_CLUSTER_TILES`` whose CTA fits the shared memory
     of a block; for "uniform" (no actor) one CTA a cluster with the first
     of ``_CLUSTER_UNIFORM_LANES`` lanes that fits. None when nothing fits:
-    then K27/K28 take the wide route (csrc/wide_mlp.cuh), decided from the
+    then K27-K29 take the wide route (csrc/wide_mlp.cuh), decided from the
     sizes before any launch."""
     tiles = _CLUSTER_TILES if actor else [(1, n) for n in _CLUSTER_UNIFORM_LANES]
     for cluster, lanes in tiles:
         plan = _cluster_plan(dims, act_dim, with_std, T, state_words, anchors, cluster, lanes,
-                             actor)
+                             actor, layout)
         if plan.floats * 4 <= SMEM_OPTIN_BYTES:
             return plan
     return None
@@ -857,13 +894,13 @@ def _cluster_struct(dims, act_dim: int, policy: str, half_hi, plan: ClusterPlan)
 
 @functools.lru_cache(maxsize=32)
 def _cluster_pack_plan(dims, act_dim: int, policy: str, half_hi, T: int, state_words: int,
-                       anchors: bool, device: str):
+                       anchors: bool, device: str, layout: ClusterLayout = _K27_LAYOUT):
     """(the ClusterMlp struct, the gather index and a zero on ``device``) of
     ``_pack_cluster_actor`` at ``_cluster_choice``'s tile, built once per
     shape; None for the wide route."""
     actor = policy != "uniform"
     with_std = policy in ("ppo", "det")
-    plan = _cluster_choice(dims, act_dim, with_std, T, state_words, anchors, actor)
+    plan = _cluster_choice(dims, act_dim, with_std, T, state_words, anchors, actor, layout)
     if plan is None:
         return None
     st = _cluster_struct(dims, act_dim, policy, half_hi, plan)
@@ -875,13 +912,15 @@ def _cluster_pack_plan(dims, act_dim: int, policy: str, half_hi, T: int, state_w
 
 
 def _pack_cluster_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, T: int,
-                        state_words: int, anchors: bool, device):
-    """K27/K28's actor arguments on the cluster (csrc/cluster_mlp.cuh): a
+                        state_words: int, anchors: bool, device,
+                        layout: ClusterLayout = _K27_LAYOUT):
+    """K27-K29's actor arguments on the cluster (csrc/cluster_mlp.cuh): a
     copy of the ClusterMlp struct (its ``clusters`` left for the launch)
     and one flat float32 buffer on ``device``, C blocks of ``block`` floats
     (``_cluster_index``), gathered with one cat and one index from the
     layout cached per shape (``_cluster_pack_plan``; ``T``,
-    ``state_words`` and ``anchors`` as ``_cluster_plan`` takes them), at
+    ``state_words``, ``anchors`` and ``layout`` as ``_cluster_plan``
+    takes them), at
     the entry points' tile (``_cluster_choice``). Returns None when no
     cluster tile fits (the wide route); raises ValueError for an actor
     beyond the maxima."""
@@ -893,7 +932,7 @@ def _pack_cluster_actor(actor, std, obs_dim: int, act_dim: int, policy: str, hal
     plan = _cluster_pack_plan(tuple(dims), act_dim, policy,
                               tuple(float(h) for h in half_hi[:act_dim]), int(T),
                               int(state_words), bool(anchors),
-                              _plan_key(dev) if dev.type == "cuda" else "cpu")
+                              _plan_key(dev) if dev.type == "cuda" else "cpu", layout)
     if plan is None:
         return None
     st, index, zero = plan

@@ -715,15 +715,8 @@ def _half_hi(T) -> float:
     return float(np.float32(0.5 * float(T.order_cap_heuristic * 2)))
 
 
-def _pack_net_actor(T, actor, std, device):
-    """``episode_kernels._pack_actor`` for the topology (K4): obs_dim
-    inputs, one output per reorder link, each squashed to [0, act_hi)."""
-    return ek._pack_actor(actor, std, T.obs_dim, T.n_reorder,
-                          [_half_hi(T)] * T.n_reorder, device)
-
-
 def _pack_net_tile_actor(T, actor, std, device):
-    """``episode_kernels._pack_tile_actor`` for the topology (K5/K6): the
+    """``episode_kernels._pack_tile_actor`` for the topology (K4-K6): the
     tile's transient rows hold a demand row per retail link and the step's
     per-node scratch, and each lane keeps the state of ``_shared_layout(T,
     scratch=False)``."""
@@ -837,9 +830,11 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
     node inventories and retail backlogs (the final snapshots last),
     ``r (T, n_ro, batch)`` fulfilled orders, ``raw (T, n_ro, batch)``
     pre-squash Gaussian samples, ``reward (T, batch)`` (alpha^t-discounted)
-    and ``demand (T, n_rt, batch)``. K4: one thread per lane
-    (csrc/net_policy.cu ``k_rollout_traj``); on the CPU the plain version
-    runs. ``policy``/``act_name`` select the head and the trunk
+    and ``demand (T, n_rt, batch)``. K4: K5's tile with one stochastic
+    episode a lane and the streams written, the actor on the tensor cores
+    and the state in shared memory (csrc/net_policy.cu
+    ``k_policy_returns<1, 0, 1>`` on csrc/mlp_tile.cuh); on the CPU the
+    plain version runs. ``policy``/``act_name`` select the head and the trunk
     (``episode_kernels.traj_policy``): the default ("ppo", "tanh") is K4's;
     any other pair is ``rollout_traj_net_offpolicy``'s (K29), whose ``raw``
     holds the normalised [-1, 1] actions. A ``hostfn`` demand link raises
@@ -859,7 +854,7 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
     if dev.type == "cpu":
         ek._actor_dims(actor, T.obs_dim, n_ro)
         return _rollout_traj_plain(params, actor, std, seed, batch, dev)
-    mlp, flat = _pack_net_actor(T, actor, std, dev)
+    st, flat = _pack_net_tile_actor(T, actor, std, dev)
     tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
@@ -869,8 +864,9 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
                reward=torch.empty((num_steps, batch), **f32),
                demand=torch.empty((num_steps, n_rt, batch), **f32))
     with torch.cuda.device(dev):
-        _launch("net_rollout_traj", ctypes.addressof(tp), ctypes.addressof(mlp),
-                flat.data_ptr(), flat.numel(), tab.data_ptr(), disc.data_ptr(),
+        _launch("net_rollout_traj", ctypes.addressof(tp),
+                ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
+                flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
                 seed, batch, num_steps, ek._stream(dev), lib_name="net_policy")
     rollout_traj_net.launches += 1
@@ -878,6 +874,35 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
 
 
 rollout_traj_net.launches = 0
+
+
+# K29's cluster walks a batch's tiles a round at a time (tiles over the
+# clusters the card holds at once), one tile's chain a round, while the first
+# design's blocks overlap on the card: on an H100 (30 clusters of 4 CTAs over
+# 64 lanes) the cluster led it up to 8 rounds (15,360 lanes, 7.24 against
+# 7.73 ms) and trailed from 16 (30,720 lanes, 14.47 against 11.70; 65,536
+# lanes, 35 rounds, 31.44 against 23.18: tools/net_traj_sweep.py, PERF.md).
+# So a batch of more rounds takes the wide route.
+_NET_CLUSTER_MAX_ROUNDS = 8
+
+
+def _net_route(batch: int, lanes: int, clusters_held: int) -> str:
+    """K29's route for ``batch`` lanes on tiles of ``lanes`` when the card
+    holds ``clusters_held`` clusters at once: "cluster" while the rounds
+    (tiles over clusters, rounded up) are at most
+    ``_NET_CLUSTER_MAX_ROUNDS``, else "wide"."""
+    tiles = -(-batch // lanes)
+    rounds = -(-tiles // max(clusters_held, 1))
+    return "cluster" if rounds <= _NET_CLUSTER_MAX_ROUNDS else "wide"
+
+
+def _net_cluster_layout(T) -> ek.ClusterLayout:
+    """K29's cluster layout (``episode_kernels.ClusterLayout``): a demand
+    a retail link, and the room that lets 4 CTAs hold 64 lanes of the
+    (68, 256, 256, 11) actor: no padding (its FP32 products' loads are
+    conflict-free without it), the output layer's sums in x0, a period's
+    noise."""
+    return ek.ClusterLayout(dem_rows=T.n_retail, pad=0, out_in_x0=True, noise_per_period=True)
 
 
 def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch: int,
@@ -889,9 +914,18 @@ def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch
     dict, ``raw (T, n_ro, batch)`` holding the normalised [-1, 1] actions
     (the pre-squash samples for "ppo"). The stream is K4's: per period the
     n_rt demand words, then the head's, so its demand is K4's for the same
-    seed. K29: a block per 32 lanes (csrc/net_policy.cu
-    ``k_rollout_traj_wide`` on csrc/wide_mlp.cuh); on the CPU the plain
-    version runs. A ``hostfn`` demand link raises NotImplementedError."""
+    seed. K29 on the card: a thread-block cluster a tile of lanes
+    (csrc/net_policy.cu ``k_rollout_traj_cluster`` on csrc/cluster_mlp.cuh),
+    the actor's slices in the CTAs' shared memory and the lanes' state
+    beside them, for any actor a cluster tile holds
+    (``episode_kernels._cluster_choice``); a wider one takes the wide
+    route, a block per 32 lanes with the weights streamed from L2
+    (``k_rollout_traj_wide`` on csrc/wide_mlp.cuh), chosen from the sizes
+    before the launch, and so does a batch of more than
+    ``_NET_CLUSTER_MAX_ROUNDS`` rounds of the card's clusters
+    (``_net_route``); ``.route`` names the last launch's. Either launch that
+    fails raises. On the CPU the plain version runs. A ``hostfn``
+    demand link raises NotImplementedError."""
     ek._check_head(policy, act_name)
     dev = resolve_device(device)
     if batch < 1:
@@ -904,8 +938,11 @@ def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch
     if dev.type == "cpu":
         ek._head_dims(actor, T.obs_dim, n_ro, policy)
         return _rollout_traj_plain(params, actor, std, seed, batch, dev, policy, act_name)
-    st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy,
-                                   [_half_hi(T)] * n_ro, dev)
+    relu = int(act_name == "relu")
+    half_hi = [_half_hi(T)] * n_ro
+    layout, lay = _shared_layout(T)
+    packed = ek._pack_cluster_actor(actor, std, T.obs_dim, n_ro, policy, half_hi, num_steps,
+                                    layout.words, False, dev, _net_cluster_layout(T))
     tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(x=torch.empty((num_steps + 1, n_main, batch), **f32),
@@ -914,17 +951,32 @@ def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch
                raw=torch.empty((num_steps, n_ro, batch), **f32),
                reward=torch.empty((num_steps, batch), **f32),
                demand=torch.empty((num_steps, n_rt, batch), **f32))
+    streams = tuple(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand"))
     with torch.cuda.device(dev):
-        _launch("net_rollout_traj_wide", ctypes.addressof(tp), ctypes.addressof(st),
-                flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
-                *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
-                seed, int(act_name == "relu"), batch, num_steps, ek._stream(dev),
-                lib_name="net_policy")
+        route = "wide"   # no cluster tile holds the actor, or the batch is too deep
+        if packed is not None:
+            st, flat = packed
+            held = ek._cluster_max_active("net_policy", "net_rollout_traj_cluster_occupancy",
+                                          st.cluster, st.floats, (relu,), ek._plan_key(dev))
+            route = _net_route(batch, st.lanes, held)
+        if route == "cluster":
+            st.clusters = ek._cluster_grid(-(-batch // st.lanes), held)
+            _launch("net_rollout_traj_cluster", ctypes.addressof(tp), ctypes.addressof(lay),
+                    ctypes.addressof(st), flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
+                    *streams, seed, relu, batch, num_steps, ek._stream(dev),
+                    lib_name="net_policy")
+        else:
+            st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy, half_hi, dev)
+            _launch("net_rollout_traj_wide", ctypes.addressof(tp), ctypes.addressof(st),
+                    flat.data_ptr(), tab.data_ptr(), disc.data_ptr(), *streams, seed, relu,
+                    batch, num_steps, ek._stream(dev), lib_name="net_policy")
     rollout_traj_net_offpolicy.launches += 1
+    rollout_traj_net_offpolicy.route = route
     return out
 
 
 rollout_traj_net_offpolicy.launches = 0
+rollout_traj_net_offpolicy.route = None   # the last launch's: "cluster" or "wide"
 
 
 def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,

@@ -173,7 +173,7 @@ def _wide_actor(T, width, seed=0):
 
 def test_net_policy_wrappers_take_a_wider_actor_on_the_cpu():
     """The NetInvMgmt wrappers pack the CUDA actor only on the card, so with
-    device="cpu" a 300-wide actor (mlp.cuh takes 256) runs as JAX runs it:
+    device="cpu" a 300-wide actor (the tile takes 256) runs as JAX runs it:
     K5's deterministic returns are JAX's stream-in kernel on K6's dumped
     streams, and K4 and K29 run. The cap stays on the card."""
     steps = 10
@@ -193,7 +193,7 @@ def test_net_policy_wrappers_take_a_wider_actor_on_the_cpu():
     tr = tns.rollout_traj_net(tp, actor, log_std, 5, B, "det", "relu", CPU)
     assert float(tr["raw"].abs().max()) <= 1.0
     with pytest.raises(ValueError, match="256"):
-        tns._pack_net_actor(T, actor, None, CPU)
+        tns._pack_net_tile_actor(T, actor, None, CPU)
     with pytest.raises(ValueError, match="obs_dim"):
         tns.episode_returns_net_policy(tp, ((actor[0][0][1:], actor[0][1]), actor[1]), 5, B,
                                        device=CPU)

@@ -280,11 +280,13 @@ def test_policy_wrappers_refuse_what_is_not_ported(params, actor):
     wide = (torch.zeros(68, 300), torch.zeros(300, 11)), (torch.zeros(300), torch.zeros(11))
     assert tns.episode_returns_net_policy(tp, wide, 1, 4, device=CPU).shape == (4,)
     with pytest.raises(ValueError, match="width"):
-        tns._pack_net_actor(tp.topology, wide, None, CPU)
+        tns._pack_net_tile_actor(tp.topology, wide, None, CPU)
+    # K4-K6's tile holds any actor within the width cap in a block's shared
+    # memory (four hidden layers of 256: two buffers of 256 rows at 64 lanes)
     big = ((torch.zeros(68, 256),) + (torch.zeros(256, 256),) * 3 + (torch.zeros(256, 11),),
            (torch.zeros(256),) * 4 + (torch.zeros(11),))
-    with pytest.raises(ValueError, match="shared memory"):
-        tns._pack_net_actor(tp.topology, big, None, CPU)
+    st, _ = tns._pack_net_tile_actor(tp.topology, big, None, CPU)
+    assert st.lanes == 64 and st.s_total * 4 <= tek.SMEM_OPTIN_BYTES
     T = dataclasses.replace(tp.topology, rt_demand=(("hostfn", lambda **kw: 5, ()),))
     with pytest.raises(NotImplementedError, match="host callable"):
         tns.rollout_traj_net(tnet.NetInvParams(topology=T, num_periods=STEPS), actor,
