@@ -71,16 +71,16 @@ step and K5/K6 on a ragged batch (1,000 x 3) and with a NaN weight, K7-K9
 in phase 10 for all five demand modes in backlog and lost sales, and K10
 in phase 12 (with the env step chain on its streams and a
 NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
-K12's streams and K10 against the stochastic episode 0, a ragged batch and
-a NaN weight), and K13-K17 in
+K12's streams and K10 against the stochastic episode 0 bit for bit, a
+ragged batch and a NaN weight), and K13-K17 in
 phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
 0.99, mu_max 200 and 3, with the chain K16 = K14 = K13 _random = K13 on
 K17's streams and a NaN lane; and K16/K17 at mu_max 30,000, whose Poisson
 table no block holds, so they count linearly, at 4,096 x 2 x 50), and K18-K21 in phase 21 (K18 at 65,536 x
 50, K19/K20 at 65,536 x 16 x 50, lead time 5 and 0, gamma 1 and 0.99,
 deterministic and stochastic, with K13 on K20's streams, K18 against the
-stochastic episode 0, a NaN std, K19/K20 on a ragged batch, with a NaN
-weight and on the linear count at mu_max 30,000 (4,096 x 2 x 50), and K21's
+stochastic episode 0 bit for bit, a NaN std, K19/K20 on a ragged batch,
+with a NaN weight and on the linear count at mu_max 30,000 (4,096 x 2 x 50), and K21's
 normals through the goodness-of-fit pin of
 tests/test_pallas_policy.py:394-419), and K22-K24
 in phase 25 (at 65,536 x 30 with a seeded actor of the benchmark widths,
@@ -113,10 +113,12 @@ only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
 hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
 tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
-load or store; K4 is K5's tile with one stochastic episode a lane and its
-streams written (``k_policy_returns<1,0,1>``), held as K5's stochastic
-instances; K27-K29's cluster instances (csrc/cluster_mlp.cuh) must all be
-built and spill nothing, their products on the FP32 cores (no HMMA).
+load or store; K4, K10 and K18 are the tiles of K5, K11 and K19 with one
+stochastic episode a lane and their streams written (``TRAJ_INSTANCES``:
+``k_policy_returns<1,0,1>``, ``k_im_policy_returns<1,0,1,BACKLOG>``,
+``k_nv_policy_returns<1,0,1,LAYOUT>``), which must be there, held as their
+kernels' stochastic instances; K27-K29's cluster instances
+(csrc/cluster_mlp.cuh) must all be built and spill nothing, their products on the FP32 cores (no HMMA).
 Phase 6 also times K1 at the 1,024 and 4,096 lanes x 30 at which bench.py's
 cross-check launches it (16 of its 17 launches are at 1,024).
 Then it times the vecenv rollout (phase 5),
@@ -134,11 +136,11 @@ K27-K29, the kernel alone on the entry point's route, whose outputs must
 first equal the entry point's bit for bit) and one TD3 iteration split into the kernel,
 ``insert_chunk`` and the gradient updates (phase 35). K16's bound is counted
 for the search it runs (``nv_draw_ops``), with the first version's linear
-count's beside it; K4-K6, K11/K12, K19/K20 and K22-K24's with their
+count's beside it; K4-K6, K10-K12, K18-K20 and K22-K24's with their
 tensor-core products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate
 and encoder products, ``lstm_tc_flops``) as three TF32 products on the
 tensor cores (``tc_bound``), with the all-FP32 count's beside it (and for
-K19/K20, whose search replaced the linear count, the first version's count
+K18-K20, whose search replaced the linear count, the first version's count
 too).
 Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
@@ -176,20 +178,22 @@ K8 bit for bit (int32 state, the same arithmetic; E = 1, 16 and a ragged
 batch in phase 10, also on chains of 1, 2 and 8 stocked stages, each m1 its
 own instance; the main path's first lanes in phase 11). K11 and K12 are
 held like K10, and K7 on K12's streams gives K11's returns within rtol=1e-5
-atol=1e-3. Newsvendor (K13-K17): econ and action streams bit for bit; the
-demand equal on at least 99.99% of draws and never more than 1 apart (the
+atol=1e-3; the stochastic K11's episode 0 equals K10 bit for bit (the same
+tile kernel): actions, demand, and its return K10's reward sum. Newsvendor
+(K13-K17): econ and action streams bit for bit; the demand equal on at least 99.99% of draws and never more than 1 apart (the
 inversion's logf/expf may differ from torch's by an ulp); returns against
 the plain versions within rtol=1e-5 atol=1e-2 on at least 99% of lanes; the
 chain on K17's streams within rtol=1e-5 atol=1e-3 (the same words and the
 same arithmetic: bit for bit is expected, and the script says whether it
-was). Newsvendor policy kernels (K18-K21): econ bit for bit; K18's demand
-by the K16 rule, K19/K20's bit for bit; K18's raws teacher-forced
+was). Newsvendor policy kernels (K18-K21): econ and demand bit for bit
+(K18 searches its Poisson table as K19/K20 do); K18's raws teacher-forced
 atol=1e-4; free-running orders, raws, rewards and returns by the share of
 lanes (>= 99% within rtol=1e-4 atol=1e-2: tanh and the MLP's sum order feed
 back through the pipeline); K20 = K19 and K13 on K20's streams = K19 bit for
-bit; the stochastic K19's episode 0 against K18 by the share of lanes (K19's
-actor on the tensor cores, K18's on the FP32 cores; whether bit for bit is
-reported); K21 atol=1e-5.
+bit; the stochastic K19's episode 0 against K18 bit for bit (the same tile
+kernel): econ, demand, K20's orders through the pipeline's cap against
+K18's capped orders, and the return against K18's gamma^t-summed rewards;
+K21 atol=1e-5.
 LSTM kernels (K22-K24; the kernels run the gate product and the encoder on
 the tensor cores in 3xTF32, which keeps FP32's accuracy, the plain versions
 in full f32 with TF32 off): demand bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
@@ -228,8 +232,12 @@ MAIN_LANES = 4_194_304       # bench.py NUM_ENVS_PALLAS
 MAIN_EPISODES = 16           # bench.py EPISODES_PER_LANE
 CHECK_LANES = 65_536         # cross-check size, and the K1/K3 main-path shape
 MULTI_LANES = 1_024          # bench.py:115, E=16 dumped in ranges of 8
-# K4: K5/K6's tile kernel, stochastic, its streams written (net_policy.cu)
-K4_INSTANCE = "k_policy_returns<1,0,1>"
+# K4, K10 and K18: the tile kernels of K5/K6, K11/K12 and K19/K20, stochastic,
+# their streams written (net_policy.cu; im_policy.cu in backlog and lost
+# sales; nv_policy.cu on either demand layout)
+TRAJ_INSTANCES = {"im_policy": ("k_im_policy_returns<1,0,1,0>", "k_im_policy_returns<1,0,1,1>"),
+                  "nv_policy": ("k_nv_policy_returns<1,0,1,0>", "k_nv_policy_returns<1,0,1,1>"),
+                  "net_policy": ("k_policy_returns<1,0,1>",)}
 # K1's other shapes: the cross-check's per-episode launches (MULTI_LANES)
 # and bench.py's own cross-check size (bench.py:79-135 runs at 4,096)
 K1_LANES = (MULTI_LANES, 4_096)
@@ -747,17 +755,18 @@ def sass_counts(so_path):
 
 def tile_sass_check(logs):
     """Phase 2's check of the tile kernels: every instance of K4-K6
-    (net_policy.cu ``k_policy_returns<STOCH,DUMP,TRAJ>``, K4 the one
-    ``<1,0,1>``, which must be there), of K11/K12
-    (im_policy.cu ``k_im_policy_returns``) and of K19/K20 (nv_policy.cu
-    ``k_nv_policy_returns<STOCH,DUMP,LAYOUT>``) holds HMMA instructions and
-    spills nothing (ptxas, where this run built the library); K5/K6's and
-    K19/K20's deterministic instances have no local-memory load or store
-    and no stack. Their stochastic instances may keep the 32-byte frame of
-    cosf's Payne-Hanek reduction (CUDA's library, for |x| > 105,615; the
-    normals' argument 2 pi u stays below 2 pi, so it is never run), at most
-    8 LDL/STL. K19/K20's instances use at most ``_NV_TILE_REGS``
-    registers, which their plan counts. Returns the line
+    (net_policy.cu ``k_policy_returns<STOCH,DUMP,TRAJ>``), of K10-K12
+    (im_policy.cu ``k_im_policy_returns<STOCH,DUMP,TRAJ,BACKLOG>``) and of
+    K18-K20 (nv_policy.cu ``k_nv_policy_returns<STOCH,DUMP,TRAJ,LAYOUT>``)
+    holds HMMA instructions and spills nothing (ptxas, where this run built
+    the library); the trajectory kernels' instances (``TRAJ_INSTANCES``:
+    K4's ``<1,0,1>``, K10's ``<1,0,1,0/1>`` and K18's ``<1,0,1,0/1>``) must
+    be there. K4-K6's and K18-K20's deterministic instances have no
+    local-memory load or store and no stack. Their stochastic instances may
+    keep the 32-byte frame of cosf's Payne-Hanek reduction (CUDA's library,
+    for |x| > 105,615; the normals' argument 2 pi u stays below 2 pi, so it
+    is never run), at most 8 LDL/STL. K18-K20's instances use at most
+    ``_NV_TILE_REGS`` registers, which their plan counts. Returns the line
     to print; raises on a miss."""
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
@@ -772,8 +781,9 @@ def tile_sass_check(logs):
         ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
         if not mine or any(h == 0 for _, _, h in mine.values()) or any("spills" in e for e in ptx):
             raise AssertionError(f"{kernel}: instances without HMMA or with spills {mine} {ptx}")
-        if src == "net_policy" and K4_INSTANCE not in mine:
-            raise AssertionError(f"K4's instance {K4_INSTANCE} is not in {sorted(mine)}")
+        missing = [k for k in TRAJ_INSTANCES[src] if k not in mine]
+        if missing:
+            raise AssertionError(f"the trajectory instances {missing} are not in {sorted(mine)}")
         if src != "im_policy":
             for name, (ld, st, _) in mine.items():
                 stoch = name.startswith(kernel + "<1")
@@ -1516,12 +1526,12 @@ def im_policy_cross_check(dev, actor, log_std):
     return err, plain_ms, lines
 
 
-def im_reward_check(dev):
+def im_reward_check(dev, seed=0):
     """Phase 15, the IM-backlog protocol of tools/validate_kernel_ppo.py:
     periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M steps
-    (39 updates), seed 0, rollout="kernel"; then 30 deterministic episodes
-    through ``vecenv.evaluate_episodes``. Returns (AvgReward, its standard
-    error, training seconds, updates)."""
+    (39 updates), seed 0 (or ``seed``), rollout="kernel"; then 30
+    deterministic episodes through ``vecenv.evaluate_episodes``. Returns
+    (AvgReward, its standard error, training seconds, updates)."""
     import numpy as np
     import torch
 
@@ -1532,8 +1542,9 @@ def im_reward_check(dev):
     cfg = ppo.PPOConfig(num_envs=1024, rollout_steps=50, num_minibatches=8,
                         update_epochs=4, shuffle_minibatches=False, rollout="kernel")
     t0 = time.perf_counter()
-    state, metrics = ppo.train(im.ENV, params, cfg, torch.Generator(device=dev).manual_seed(0),
-                               2_000_000, device=dev)
+    state, metrics = ppo.train(im.ENV, params, cfg,
+                               torch.Generator(device=dev).manual_seed(seed), 2_000_000,
+                               device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     policy = ppo.make_eval_policy(im.ENV, params, cfg, deterministic=True)
@@ -1554,8 +1565,10 @@ def im_eval_cross_check(dev, params, actor, log_std):
     actor, deterministic and stochastic, against plain K11/K12 (demand bit
     for bit; returns and actions by the share of lanes); K7 on K12's streams
     gives K11's returns; the stochastic K11's episode 0 against K10 on the
-    same seed (actions and returns by the share of lanes). Returns (max
-    |diff| per kernel, plain ms per kernel, lines)."""
+    same seed, bit for bit (K10 is the same tile kernel's one-episode
+    instance: its actions and demand are K12's episode 0's, its reward sum
+    K11's episode 0 return). Returns (max |diff| per kernel, plain ms per
+    kernel, lines)."""
     import functools
 
     import torch
@@ -1594,14 +1607,12 @@ def im_eval_cross_check(dev, params, actor, log_std):
                      f"{sh_a:.4%} (actions)")
         if ls is not None:
             tr = ek.rollout_traj_im(params, actor, ls, SEED, B, device=dev)
-            sh_k, _ = lane_share("stochastic K11 episode 0 actions vs K10",
-                                 a12[:, 0].reshape(T * m1, B), tr["actions"].reshape(T * m1, B))
-            sh_kr, _ = lane_share("stochastic K11 episode 0 vs K10's reward sum", k11[0],
-                                  functools.reduce(torch.add, tr["reward"]), 1e-5, 1e-3)
-            lines.append(f"stochastic K11 episode 0 vs K10 on the same seed: lanes agreeing "
-                         f"{sh_k:.4%} (actions), {sh_kr:.4%} (returns); demand bit-exact "
-                         f"{bool(torch.equal(d12[:, 0], tr['demand']))}")
-            exact("stochastic K11 episode 0 demand vs K10", d12[:, 0], tr["demand"])
+            exact("stochastic K12 episode 0 actions vs K10", a12[:, 0], tr["actions"])
+            exact("stochastic K12 episode 0 demand vs K10", d12[:, 0], tr["demand"])
+            exact("stochastic K11 episode 0 vs K10's reward sum", k11[0],
+                  functools.reduce(torch.add, tr["reward"]))
+            lines.append(f"stochastic K11/K12 episode 0 vs K10 on the same seed, {B} lanes: "
+                         "actions, demand and return (K10's reward sum) bit for bit")
             del tr
         del k11, r12, a12, d12, want, want_a, want_d, replay
     lines += tile_edge_cases("im", params, dev, actor, log_std)
@@ -1842,18 +1853,17 @@ def normals_pin(z):
 def nv_policy_cross_check(dev):
     """Phase 21: K18-K21 against their plain versions with a seeded actor
     (obs_dim 10 or 5, act_dim 1, obs statistics folded), for lead time 5
-    and 0 and gamma 1 and 0.99. K18 at 65,536 x 50: econ bit for bit, demand
-    by DEMAND_SHARE, orders, raws and rewards by the share of lanes, and,
+    and 0 and gamma 1 and 0.99. K18 at 65,536 x 50: econ and demand bit for
+    bit, orders, raws and rewards by the share of lanes, and,
     teacher-forced, its raws the folded actor on its assembled obs plus
     std times the plain normals (atol=1e-4). K19/K20 at 65,536 x 16 x 50,
     deterministic and stochastic: K20's econ and demand bit for bit against
     the plain version, K20 = K19 bit for bit, K19 and K20's orders against
     the plain version by the share of lanes, K13 on K20's streams = K19 bit
-    for bit; the stochastic episode 0 against K18: econ and demand bit for
-    bit, its orders and its returns against K18's orders and
-    gamma^t-summed rewards by the share of lanes (K19's actor sums on the
-    tensor cores, K18's on the FP32 cores, so a lane may round the other
-    way; whether they are bit for bit is reported). K19/K20 on a ragged
+    for bit; the stochastic episode 0 against K18 bit for bit (K18 is the
+    same tile kernel's one-episode instance): econ, demand, K20's orders
+    through the pipeline's cap (``capped_orders``) against K18's capped
+    orders, and K19's return against K18's gamma^t-summed rewards. K19/K20 on a ragged
     batch (``RAGGED``; deterministic and stochastic) and with a NaN weight
     (``nan_weight_actor``), against the plain version. A NaN std: NaN raws,
     orders and returns in the kernels and the plain versions, the econ and
@@ -1869,7 +1879,7 @@ def nv_policy_cross_check(dev):
     from or_gym_inventory_torch.ops import rng
     B, E = PPO_ENVS, EVAL_EPISODES
     err = dict.fromkeys(NV_POLICY_KERNELS, 0.0)
-    plain_ms, lines, bitwise = {}, [], {"K19 episode 0 vs K18": True}
+    plain_ms, lines = {}, []
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
 
     def track(name, value):
@@ -1885,8 +1895,7 @@ def nv_policy_cross_check(dev):
             ms, want = timed_once(ek._rollout_traj_nv_plain, params, actor, std, SEED, B, dev)
             plain_ms.setdefault("rollout_traj_nv", ms)
             exact(f"K18 econ, {case}", tr["econ"], want["econ"])
-            d_err = demand_check(f"K18 demand, {case}", tr["demand"], want["demand"])
-            track("rollout_traj_nv", d_err)
+            exact(f"K18 demand, {case}", tr["demand"], want["demand"])
             shares = {k: lane_share(f"K18 {k} vs plain, {case}", tr[k], want[k])
                       for k in ("orders", "raw", "reward")}
             track("rollout_traj_nv", max(e for _, e in shares.values()))
@@ -1898,8 +1907,7 @@ def nv_policy_cross_check(dev):
                       ek.folded_actor_mean(actor, obs[t])[:, 0]
                       + std[0, 0] * rng.normal01(w[1], w[2]), 0.0, 1e-4)
             del obs
-            lines.append(f"K18 {case}: econ bit-exact, demand max |diff| {d_err}, lanes "
-                         "agreeing " + ", ".join(
+            lines.append(f"K18 {case}: econ and demand bit-exact, lanes agreeing " + ", ".join(
                              f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
                          + "; raws = folded actor + plain normals within atol=1e-4")
             disc = ek._discounts(params.gamma, T)
@@ -1932,21 +1940,16 @@ def nv_policy_cross_check(dev):
                         f"on K20's streams = K19 bit for bit, lanes agreeing with plain K19 "
                         f"{sh_r:.4%} (returns), {sh_a:.4%} (orders)")
                 if ls is not None:
-                    exact(f"stochastic K19 episode 0 econ vs K18, {case}", e20[0], tr["econ"])
-                    exact(f"stochastic K19 episode 0 demand vs K18, {case}", d20[:, 0],
+                    exact(f"stochastic K20 episode 0 econ vs K18, {case}", e20[0], tr["econ"])
+                    exact(f"stochastic K20 episode 0 demand vs K18, {case}", d20[:, 0],
                           tr["demand"])
+                    exact(f"stochastic K20 episode 0 orders, capped, vs K18's, {case}",
+                          capped_orders(params, a20[:, 0]), tr["orders"])
                     ret18 = functools.reduce(lambda acc, t: acc + disc[t] * tr["reward"][t],
                                              range(T), torch.zeros_like(k19[0]))
-                    # K19's actor sums on the tensor cores, K18's on the FP32 cores: a
-                    # lane's orders may round apart, so episode 0 is held by lane share
-                    ord18 = (torch.tanh(tr["raw"][:, 0]) + 1.0) * ek._nv_half_hi(params)[0]
-                    sh_o, _ = lane_share(f"stochastic K19 episode 0 orders vs K18's, {case}",
-                                         a20[:, 0], ord18)
-                    sh_e, _ = lane_share(f"stochastic K19 episode 0 vs K18's rewards, {case}",
-                                         k19[0], ret18)
-                    bitwise["K19 episode 0 vs K18"] &= bool(torch.equal(k19[0], ret18))
-                    line += (f"; episode 0 against K18: econ and demand bit-exact, lanes "
-                             f"agreeing {sh_o:.4%} (orders), {sh_e:.4%} (returns)")
+                    exact(f"stochastic K19 episode 0 vs K18's rewards, {case}", k19[0], ret18)
+                    line += ("; episode 0 against K18: econ, demand, orders (capped) and "
+                             "return bit for bit")
                 lines.append(line)
                 del k19, r20, e20, a20, d20, want, we, wa, wd, k13
             nan_ls = torch.full_like(log_std, float("nan"))
@@ -1965,8 +1968,7 @@ def nv_policy_cross_check(dev):
             if (L, gamma) == (5, 1.0):
                 lines += nv_tile_edge_cases(params, dev, actor, log_std)
     lines.append("a NaN std: NaN raws, orders, rewards and returns in K18, K19 and plain K18, "
-                 "the econ and demand unchanged; bit for bit: " + ", ".join(
-                     f"{k} {v}" for k, v in bitwise.items()))
+                 "the econ and demand unchanged")
     z = ek.sample_normals_debug(SEED, NORMAL_ROWS, B, device=dev)
     plain_ms["sample_normals_debug"], pz = timed_once(ek._sample_normals_plain, SEED,
                                                       NORMAL_ROWS, B, dev)
@@ -1976,6 +1978,21 @@ def nv_policy_cross_check(dev):
                  "goodness-of-fit pin holds: " + ", ".join(f"{k} {v:.6g}" for k, v in pin.items()))
     torch.cuda.synchronize()
     return err, plain_ms, lines
+
+
+def capped_orders(params, orders):
+    """K20's orders (T, B), written before the pipeline's cap, through the
+    plain step's cap (``_nv_step_math``, nv_step_ring's arithmetic) as K18
+    writes them, the pipeline the capped orders of the last L periods."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    zero = torch.zeros_like(orders[0])
+    P, q = [zero] * params.lead_time, []
+    for order in orders:
+        P, _, qty = ek._nv_step_math(params, P, zero, zero, zero, zero, order, zero)
+        q.append(qty)
+    return torch.stack(q)
 
 
 def nv_tile_edge_cases(params, dev, actor, log_std):
@@ -2047,12 +2064,12 @@ def nv_tile_edge_cases(params, dev, actor, log_std):
     return lines
 
 
-def nv_reward_check(dev, params):
+def nv_reward_check(dev, params, seed=0):
     """Phase 24's reward: benchmarks/benchmark_newsvendor.py's PPO_CFG with
     rollout="kernel" (256 envs x 50, 8 minibatches, 4 epochs, ent_coef 0)
-    for RESULTS.md:56's 4M env-steps, seed 0, on ``params``; then the
-    deterministic ``policy_episode_returns`` of the trained actor over
-    65,536 x 16 episodes. Returns (mean, its standard error, training
+    for RESULTS.md:56's 4M env-steps, seed 0 (or ``seed``), on ``params``;
+    then the deterministic ``policy_episode_returns`` of the trained actor
+    over 65,536 x 16 episodes. Returns (mean, its standard error, training
     seconds, updates)."""
     import torch
 
@@ -2062,8 +2079,9 @@ def nv_reward_check(dev, params):
     from or_gym_inventory_torch.vector import fast_episodes
     cfg = ppo.PPOConfig(**NV_PPO_RECIPE)
     t0 = time.perf_counter()
-    state, metrics = ppo.train(nv.ENV, params, cfg, torch.Generator(device=dev).manual_seed(0),
-                               NV_PPO_BUDGET, device=dev)
+    state, metrics = ppo.train(nv.ENV, params, cfg,
+                               torch.Generator(device=dev).manual_seed(seed), NV_PPO_BUDGET,
+                               device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     actor = ek.fold_actor_params(cfg, state.params, state.rms)
@@ -3177,8 +3195,9 @@ def main() -> int:
           "graph; SASS LDL/STL per kernel of net_episode.cu: "
           + ("cuobjdump not found" if local is None else
              ", ".join(f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(local.items()))), flush=True)
-    print(f"[2 build] K4-K6 (K4 = {K4_INSTANCE}), K11/K12 and K19/K20 on the tensor-core "
-          "tile (mlp_tile.cuh): " + tile_sass_check(logs), flush=True)
+    print("[2 build] K4-K6, K10-K12 and K18-K20 on the tensor-core tile (mlp_tile.cuh; K4, "
+          f"K10 and K18 = {', '.join(k for ks in TRAJ_INSTANCES.values() for k in ks)}): "
+          + tile_sass_check(logs), flush=True)
     print("[2 build] K8, its ring in shared memory and its stages in registers: "
           + k8_frame_check(logs), flush=True)
 
@@ -3447,6 +3466,11 @@ def main() -> int:
     del im_a, im_d
     m1, T = im_params.m1, NUM_STEPS
     im_dims = [im_params.pipeline_length, 64, 64, m1]
+    # K10 on K11's tile: the MLP's products as three TF32 products each
+    k10_bound, k10_fp32_ms = tc_bound(
+        PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4, PPO_ENVS * T,
+        mlp_ops(im_dims) + im_step_ops(im_params) + im_policy_draw_ops(im_params, table_len),
+        mlp_tc_flops(im_dims))
     work.update({
         "episode_returns_im": bound(CHECK_LANES * (T * (m1 + 1) + 1) * 4,
                                     CHECK_LANES * T * im_step_ops(im_params)),
@@ -3455,10 +3479,7 @@ def main() -> int:
             main_envs * T * (im_step_ops(im_params) + im_draw_ops(im_params, table_len))),
         "sample_streams_debug_im": bound(CHECK_LANES * T * (m1 + 1) * 4,
                                          CHECK_LANES * T * im_draw_ops(im_params, table_len)),
-        "rollout_traj_im": bound(
-            PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4,
-            PPO_ENVS * T * (mlp_ops(im_dims) + im_step_ops(im_params)
-                            + im_policy_draw_ops(im_params, table_len))),
+        "rollout_traj_im": k10_bound,
     })
     times.update({"episode_returns_im": (k7_t, k7_p),
                   "episode_returns_im_fused": (k8_t, k8_p),
@@ -3470,8 +3491,11 @@ def main() -> int:
           f"K8 timed at {CHECK_LANES} x {T}, E=1", flush=True)
     for name in IM_KERNELS:
         print_kernel(14, name, times[name], work[name], launches[name])
-    print(f"[14 kernel] rollout_traj_im is {k10_t['best_ms'] / im_update_ms:.1%} of the "
-          f"best IM PPO update ({im_update_ms:.3f} ms)", flush=True)
+    print(f"[14 kernel] rollout_traj_im (K11's tile): the MLP's {mlp_tc_flops(im_dims)} FLOPs "
+          f"an env-step as three TF32 products; bound with every operation at FP32 "
+          f"{k10_fp32_ms:.4f} ms ({k10_fp32_ms / k10_t['best_ms']:.1%} of it); "
+          f"{k10_t['best_ms'] / im_update_ms:.1%} of the best IM PPO update "
+          f"({im_update_ms:.3f} ms)", flush=True)
 
     # 15. reward at the IM-backlog protocol of tools/validate_kernel_ppo.py
     t0 = time.perf_counter()
@@ -3481,6 +3505,8 @@ def main() -> int:
           f"over 30 deterministic episodes; {time.perf_counter() - t0:.1f} s", flush=True)
     im_summary = dict(im_rates, random_ms=im_t["best_ms"],
                       random_env_steps_s=env_steps / im_t["best_ms"] * 1e3,
+                      k10_ms=k10_t["best_ms"], k10_bound_ms=k10_bound[0],
+                      k10_fp32_bound_ms=k10_fp32_ms,
                       k10_share_of_update=k10_t["best_ms"] / im_update_ms,
                       k8_ms=k8_t["best_ms"], k8_bound_ms=work["episode_returns_im_fused"][0],
                       validate_avg_reward=avg, validate_eval_se=se)
@@ -3682,7 +3708,7 @@ def main() -> int:
     nv_dims = [nv_p.obs_dim, 64, 64, 1]
     nv_det_linear = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False)
     nv_det = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False, table=True)
-    nv_sto = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, True)
+    nv_sto = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, True, table=True)
     n_nv_eval = PPO_ENVS * E * nv_T
     nv_bytes = {"episode_returns_nv_policy": PPO_ENVS * E * 4,
                 "sample_policy_streams_debug_nv": PPO_ENVS * E * (1 + 5 + 2 * nv_T) * 4}
@@ -3691,8 +3717,14 @@ def main() -> int:
     nv_first_bounds = {name: bound(n_bytes, n_nv_eval * nv_det_linear)
                        for name, n_bytes in nv_bytes.items()}
     work.update({name: b for name, (b, _) in nv_tile_bounds.items()})
+    # K18 on K19's tile: the MLP's products at TF32, every period's demand searched
+    nv_tile_bounds["rollout_traj_nv"] = tc_bound(PPO_ENVS * (5 + 4 * nv_T) * 4,
+                                                 PPO_ENVS * nv_T, nv_sto, mlp_tc_flops(nv_dims))
+    nv_first_bounds["rollout_traj_nv"] = bound(
+        PPO_ENVS * (5 + 4 * nv_T) * 4,
+        PPO_ENVS * nv_T * (mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, True)))
+    work["rollout_traj_nv"] = nv_tile_bounds["rollout_traj_nv"][0]
     work.update({
-        "rollout_traj_nv": bound(PPO_ENVS * (5 + 4 * nv_T) * 4, PPO_ENVS * nv_T * nv_sto),
         "sample_normals_debug": bound(NORMAL_ROWS * PPO_ENVS * 4,
                                       NORMAL_ROWS * PPO_ENVS * NORMAL_OPS),
     })
@@ -3702,7 +3734,9 @@ def main() -> int:
     print(f"[24 work] NV policy per env-step: MLP {mlp_ops(nv_dims)} + step {nv_step} + draws "
           f"{nv_policy_draw_ops(nv_p, False, table=True):.1f} (K19/K20, deterministic, the "
           f"search) / {nv_policy_draw_ops(nv_p, False):.1f} (the first version's linear count) / "
-          f"{nv_policy_draw_ops(nv_p, True):.1f} (K18, stochastic) ops; K19/K20 run the MLP's "
+          f"{nv_policy_draw_ops(nv_p, True, table=True):.1f} (K18, stochastic, the search; "
+          f"{nv_policy_draw_ops(nv_p, True):.1f} by its first version's linear count) ops; "
+          f"K18-K20 run the MLP's "
           f"{mlp_tc_flops(nv_dims)} FLOPs on the tensor cores as three TF32 products; K21 "
           f"{NORMAL_OPS} ops a normal; plain versions timed in phase 21 with its seeded actor",
           flush=True)
@@ -3733,6 +3767,8 @@ def main() -> int:
                       k19_bound_ms=work["episode_returns_nv_policy"][0],
                       k19_fp32_bound_ms=nv_tile_bounds["episode_returns_nv_policy"][1],
                       k19_first_bound_ms=nv_first_bounds["episode_returns_nv_policy"][0],
+                      k18_bound_ms=work["rollout_traj_nv"][0],
+                      k18_fp32_bound_ms=nv_tile_bounds["rollout_traj_nv"][1],
                       k18_share_of_update=k18_t["best_ms"] / nv_update_ms,
                       reward_mean=nv_avg, reward_se=nv_se, reward_train_s=nv_wall,
                       reward_updates=nv_upd)

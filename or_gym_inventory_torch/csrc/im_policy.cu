@@ -2,19 +2,21 @@
 // with ctypes by ops/_build.py and wrapped by ops/episode_kernels.py, whose
 // plain PyTorch versions compute the same functions.
 //
-// K10 k_im_rollout_traj  replaces pallas_episode_kernels.rollout_traj_im
-//    (:1683; body _im_traj_kernel :1641, obs _im_obs_rows :1108, policy head
-//    traj_policy "ppo" :1036, trunk mlp_forward :1124). One stochastic-policy
-//    episode per lane, the training streams written to device memory:
-//    start-of-period on-hand inv (T+1 snapshots), int actions, pre-squash
-//    raws, alpha^t rewards and demand, each (T[+1], rows, B) and coalesced
-//    along B. PPO with rollout="kernel" feeds on it.
-// K11/K12 k_im_policy_returns  replace _im_policy_call (:1218) behind
-//    episode_returns_im_policy (:1264) and its stream-dumping twin
-//    sample_policy_streams_debug_im (:1287; body _im_policy_kernel :1170,
-//    actions _policy_actions :1149): the same policy, deterministic or
-//    stochastic, E episodes per lane, returns (E, B); with DUMP it also
-//    writes the int actions (T, E, m1, B) and the demand (T, E, B) it used.
+// K10 k_im_policy_returns<1, 0, 1, BACKLOG>  replaces
+//    pallas_episode_kernels.rollout_traj_im (:1683; body _im_traj_kernel
+//    :1641, obs _im_obs_rows :1108, policy head traj_policy "ppo" :1036,
+//    trunk mlp_forward :1124). One stochastic-policy episode per lane, the
+//    training streams written to device memory: start-of-period on-hand inv
+//    (T+1 snapshots), int actions, pre-squash raws, alpha^t rewards and
+//    demand, each (T[+1], rows, B) and coalesced along B. PPO with
+//    rollout="kernel" feeds on it.
+// K11/K12 k_im_policy_returns<STOCH, DUMP, 0, BACKLOG>  replace
+//    _im_policy_call (:1218) behind episode_returns_im_policy (:1264) and
+//    its stream-dumping twin sample_policy_streams_debug_im (:1287; body
+//    _im_policy_kernel :1170, actions _policy_actions :1149): the same
+//    policy, deterministic or stochastic, E episodes per lane, returns
+//    (E, B); with DUMP it also writes the int actions (T, E, m1, B) and the
+//    demand (T, E, B) it used.
 // K27 k_im_rollout_traj_wide  replaces rollout_traj_im (:1683) under the
 //    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
 //    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
@@ -27,38 +29,32 @@
 //    0..31 own the lanes' envs, as in K24). Bound by operations: the
 //    (256, 256) actor's ~1.5e5 per env-step.
 //
-// K10's design (a simple kernel first): one thread per lane; the step is
-// im_step.cuh's, the actor mlp.cuh's (weights and activations in shared
-// memory: 7,379 floats of weights for the default 33-64-64-3 actor and 64
-// KB of activations at 128 threads). The observation is assembled from the
-// live state in the order of _im_obs_rows: on-hand, then the requested
-// orders of periods max(t - lt, 0) .. t-1 oldest first, one row per
-// (period, stage), zero rows at the end while t < lt. The requested orders
-// live in a ring of depth lt per stage (slot p % lt), in local memory.
-// Bound by operations: the MLP's ~12,800 per env-step dwarf the step and
-// the draws.
-//
-// K11/K12's design: a block per tile of (episode, lane) pairs, one thread
-// each (mlp_tile.cuh). The first version ran K10's design with E episodes
-// per lane: 45.50 ms at 65,536 x 16 x 30 on an H100 (PERF.md), its MLP on
-// the FP32 cores at ~9 TFLOP/s. Now, per period, each thread writes its
+// K10-K12's design: a block per tile of (episode, lane) pairs, one thread
+// each (mlp_tile.cuh); K10 is the one-episode, stochastic instance with its
+// streams written (TRAJ), so it cannot drift from K11. The first versions
+// ran one thread per pair with the actor on the FP32 cores (mlp.cuh): K11
+// 45.50 ms at 65,536 x 16 x 30, K10 2.5333 ms at 65,536 x 30 on an H100
+// (PERF.md), the MLP at ~9 TFLOP/s. Now, per period, each thread writes its
 // obs column; its warp runs the actor for its 32 pairs on the tensor cores
-// in 3xTF32; then the thread draws its pair's demand (a register) and,
-// when stochastic, its normals (the transient rows of its column), takes
-// its actions and steps. The InvManagement step stays on K10's per-thread frame
-// (ImEpisode and the ring of requested orders, local memory). Bound by
-// operations: the
-// products, 2 sum(in out) FLOPs an env-step, as three TF32 products each.
-// The batch tail is masked: a warp past it returns, a pair past it
-// computes (its warp's products need every thread) but writes nothing.
+// in 3xTF32; then the thread draws its pair's demand (a register) and, when
+// stochastic, its normals (the transient rows of its column), takes its
+// actions and steps. The InvManagement step stays on a per-thread frame
+// (ImEpisode and the ring of requested orders, local memory). K10 writes the
+// on-hand at each period's start and after the last, the raws before the
+// squash, the actions, the demand and the alpha^t reward. Bound by
+// operations: the products, 2 sum(in out) FLOPs an env-step, as three TF32
+// products each. The batch tail is masked: a warp past it returns, a pair
+// past it computes (its warp's products need every thread) but writes
+// nothing.
 //
 // Random stream (philox.cuh): key (seed, 1), counter (lane, episode, period,
 // block); per period one demand word, then, when stochastic, the m1 u1 and
 // the m1 u2 words of the Box-Muller normals (pallas_episode_kernels.py
 // :1657-1658, :69-70). K10 is episode 0, so episode 0 of the stochastic K11
-// draws exactly K10's words for the same seed and takes K10's actions. K27
-// draws the demand word, then the head's m1 u1 and m1 u2 words (the m1 u1
-// words alone for "uniform"), so its demand is K10's for the same seed.
+// draws exactly K10's words for the same seed and, on the same tile, takes
+// K10's actions bit for bit. K27 draws the demand word, then the head's m1
+// u1 and m1 u2 words (the m1 u1 words alone for "uniform"), so its demand is
+// K10's for the same seed.
 //
 // Rounding: raw = H + std * z with two roundings (__fmul_rn/__fadd_rn), as
 // the plain version computes it; the action truncates,
@@ -75,44 +71,11 @@
 #include "cluster_mlp.cuh"
 #include "im_step.cuh"
 #include "launch.cuh"
-#include "mlp.cuh"
 #include "mlp_tile.cuh"
 #include "philox.cuh"
 #include "wide_mlp.cuh"
 
 namespace {
-
-// Demand, then the policy's raw samples and int actions, of one (lane,
-// episode, period): the observation of the live state into h0, the actor,
-// the head. ``ah`` is the ring of requested orders. Returns the demand.
-template <bool STOCH>
-__device__ __forceinline__ int policy_period(
-    const ImParams& p, const Mlp& m, const float* w, const float* stdv,
-    const float* __restrict__ table, const int* __restrict__ user_d,
-    unsigned seed, unsigned lane, unsigned e, int t, const ImEpisode& s,
-    const int* ah, float* h0, float* h1, float* raw, int* act) {
-  const int m1 = p.m1, lt = p.lt;
-  WordStream ws(seed, 1u, lane, e, (unsigned)t);
-  const int d = im_demand(p, table, user_d, t, ws.next());
-  for (int i = 0; i < m1; ++i) col(h0, i) = (float)s.inv[i];
-  const int q0 = max(t - lt, 0);
-  for (int j = 0; j < lt; ++j) {
-    const int q = q0 + j;
-    for (int i = 0; i < m1; ++i)
-      col(h0, m1 + j * m1 + i) = q < t ? (float)ah[(q % lt) * m1 + i] : 0.f;
-  }
-  float* H = mlp_forward(m, w, h0, h1);
-  unsigned w1[IM_MAX_M1];
-  if (STOCH)
-    for (int i = 0; i < m1; ++i) w1[i] = ws.next();
-  for (int i = 0; i < m1; ++i) {
-    float x = col(H, i);
-    if (STOCH) x = __fadd_rn(x, __fmul_rn(stdv[i], normal01(w1[i], ws.next())));
-    raw[i] = x;
-    act[i] = (int)__fmul_rn(__fadd_rn(tanhf(x), 1.f), m.half_hi[i]);
-  }
-  return d;
-}
 
 // One period's step, with the requested orders pushed into the ring ``ah``.
 template <bool BACKLOG>
@@ -127,45 +90,15 @@ __device__ __forceinline__ float step_and_record(const ImParams& p, ImEpisode& s
   return profit;
 }
 
-template <bool BACKLOG>
-__global__ void k_im_rollout_traj(const __grid_constant__ ImParams p,
-                                  const __grid_constant__ Mlp m,
-                                  const float* __restrict__ params, int n_params,
-                                  const float* __restrict__ table,
-                                  const int* __restrict__ user_d,
-                                  const float* __restrict__ disc,
-                                  int* __restrict__ invo, int* __restrict__ acto,
-                                  float* __restrict__ rawo, float* __restrict__ rewo,
-                                  int* __restrict__ demo, unsigned seed,
-                                  long long B, int T) {
-  float *h0, *h1;
-  const float* sw = load_params(m, params, n_params, h0, h1);
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int m1 = p.m1;
-  const float* stdv = sw + n_params - m1;
-  ImEpisode s;
-  im_reset(p, s);
-  int ah[IM_MAX_LT * IM_MAX_M1];  // requested order of period q: slot q % lt
-  int act[IM_MAX_M1];
-  float raw[IM_MAX_M1];
-  for (int t = 0; t < T; ++t) {
-    for (int i = 0; i < m1; ++i) invo[((long long)t * m1 + i) * B + b] = s.inv[i];
-    const int d = policy_period<true>(p, m, sw, stdv, table, user_d, seed, (unsigned)b,
-                                      0u, t, s, ah, h0, h1, raw, act);
-    demo[(long long)t * B + b] = d;
-    for (int i = 0; i < m1; ++i) {
-      const long long k = ((long long)t * m1 + i) * B + b;
-      rawo[k] = raw[i];
-      acto[k] = act[i];
-    }
-    const float profit = step_and_record<BACKLOG>(p, s, t, act, d, ah);
-    rewo[(long long)t * B + b] = __fmul_rn(__ldg(disc + t), profit);
-  }
-  for (int i = 0; i < m1; ++i) invo[((long long)T * m1 + i) * B + b] = s.inv[i];
-}
+// The streams K10 writes (TRAJ) beside the actions and demand (DUMP's acto
+// and demo), each (T[+1], m1, B): the on-hand at each period's start and
+// after the last, the pre-squash raws, the alpha^t rewards.
+struct ImTrajStreams {
+  int* inv;
+  float *raw, *rew;
+};
 
-template <bool STOCH, bool DUMP, bool BACKLOG>
+template <bool STOCH, bool DUMP, bool TRAJ, bool BACKLOG>
 __global__ void k_im_policy_returns(const __grid_constant__ ImParams p,
                                     const __grid_constant__ MlpTile m,
                                     const float* __restrict__ w,
@@ -173,7 +106,8 @@ __global__ void k_im_policy_returns(const __grid_constant__ ImParams p,
                                     const int* __restrict__ user_d,
                                     const float* __restrict__ disc,
                                     float* __restrict__ out, int* __restrict__ acto,
-                                    int* __restrict__ demo, unsigned seed,
+                                    int* __restrict__ demo,
+                                    const __grid_constant__ ImTrajStreams tr, unsigned seed,
                                     long long B, int E, int T) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -192,6 +126,8 @@ __global__ void k_im_policy_returns(const __grid_constant__ ImParams p,
   int act[IM_MAX_M1];
   float total = 0.f;
   for (int t = 0; t < T; ++t) {
+    if (TRAJ && live)  // the start-of-period on-hand
+      for (int i = 0; i < m1; ++i) tr.inv[((long long)t * m1 + i) * B + lane] = s.inv[i];
     lane_obs(p, s, t, ah, x, S);  // the obs rows, then zero rows up to pad8
     for (int k = m1 * (p.lt + 1); k < obs_pad; ++k) x[k * S] = 0.f;
     __syncwarp();
@@ -207,22 +143,31 @@ __global__ void k_im_policy_returns(const __grid_constant__ ImParams p,
     for (int i = 0; i < m1; ++i) {
       float v = H[i * S];
       if (STOCH) v = __fadd_rn(v, __fmul_rn(__ldg(w + m.std + i), z[i * S]));
+      if (TRAJ && live) tr.raw[(row * m1 + i) * B + lane] = v;
       act[i] = (int)__fmul_rn(__fadd_rn(tanhf(v), 1.f), m.half_hi[i]);
-      if (DUMP && live) acto[(row * m1 + i) * B + lane] = act[i];
+      if ((DUMP || TRAJ) && live) acto[(row * m1 + i) * B + lane] = act[i];
     }
-    if (DUMP && live) demo[row * B + lane] = d;
+    if ((DUMP || TRAJ) && live) demo[row * B + lane] = d;
     const float profit = step_and_record<BACKLOG>(p, s, t, act, d, ah);
-    total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), profit));
+    const float reward = __fmul_rn(__ldg(disc + t), profit);
+    if (TRAJ) {
+      if (live) tr.rew[row * B + lane] = reward;
+    } else {
+      total = __fadd_rn(total, reward);
+    }
   }
-  if (live) out[idx] = total;  // (E, B), episode-major
+  if (TRAJ && live)  // the final on-hand, the bootstrap obs
+    for (int i = 0; i < m1; ++i) tr.inv[((long long)T * m1 + i) * B + lane] = s.inv[i];
+  if (!TRAJ && live) out[idx] = total;  // (E, B), episode-major
 }
 
-template <bool STOCH, bool DUMP, bool BACKLOG>
+template <bool STOCH, bool DUMP, bool TRAJ, bool BACKLOG>
 int launch_policy_kernel(const ImParams& p, const MlpTile& m, const float* w, const float* table,
                          const int* user_d, const float* disc, float* out, int* acts, int* dems,
-                         unsigned seed, long long B, int E, int T, cudaStream_t stream) {
-  return launch_mlp_tile(k_im_policy_returns<STOCH, DUMP, BACKLOG>, m, B * E, stream, p, m, w,
-                         table, user_d, disc, out, acts, dems, seed, B, E, T);
+                         const ImTrajStreams& tr, unsigned seed, long long B, int E, int T,
+                         cudaStream_t stream) {
+  return launch_mlp_tile(k_im_policy_returns<STOCH, DUMP, TRAJ, BACKLOG>, m, B * E, stream, p, m,
+                         w, table, user_d, disc, out, acts, dems, tr, seed, B, E, T);
 }
 
 template <bool STOCH, bool DUMP>
@@ -230,14 +175,15 @@ int launch_policy_returns(const ImParams& p, const MlpTile& m, const float* w, c
                           const int* user_d, const float* disc, float* out, int* acts, int* dems,
                           unsigned seed, int backlog, long long B, int E, int T,
                           cudaStream_t stream) {
-  return backlog ? launch_policy_kernel<STOCH, DUMP, true>(p, m, w, table, user_d, disc, out,
-                                                           acts, dems, seed, B, E, T, stream)
-                 : launch_policy_kernel<STOCH, DUMP, false>(p, m, w, table, user_d, disc, out,
-                                                            acts, dems, seed, B, E, T, stream);
+  const ImTrajStreams none{};
+  return backlog ? launch_policy_kernel<STOCH, DUMP, false, true>(
+                       p, m, w, table, user_d, disc, out, acts, dems, none, seed, B, E, T, stream)
+                 : launch_policy_kernel<STOCH, DUMP, false, false>(
+                       p, m, w, table, user_d, disc, out, acts, dems, none, seed, B, E, T, stream);
 }
 
 // The lane's observation into column n of x ([row][kWideLanes]), in the
-// order of policy_period's.
+// order of lane_obs's.
 __device__ __forceinline__ void wide_obs(const ImParams& p, const ImEpisode& s, int t,
                                          const int* ah, float* x, int n) {
   const int m1 = p.m1, lt = p.lt;
@@ -350,7 +296,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
     __syncthreads();
     for (int t = 0; t < T; ++t) {
-      if (actor) {  // the obs of period t, in policy_period's order, zero rows to kin[0]
+      if (actor) {  // the obs of period t, in lane_obs's order, zero rows to kin[0]
         const int q0 = max(t - lt, 0);
         for (int i = n; i < m.kin[0] * Lc; i += kClusterThreads) {
           const int k = i / Lc, l = i - k * Lc;
@@ -409,19 +355,18 @@ ImClusterKernel im_cluster_kernel(int relu, int backlog) {
 
 extern "C" {
 
-int im_rollout_traj(const ImParams* p, const Mlp* mlp, const float* params,
-                    int n_params, const float* table, const int* user_d,
-                    const float* disc, int* inv, int* acts, float* raw,
-                    float* rew, int* dem, unsigned seed, int backlog, long long B,
-                    int T, cudaStream_t stream) {
-  auto kernel = backlog ? k_im_rollout_traj<true> : k_im_rollout_traj<false>;
-  const size_t smem = smem_bytes(*mlp, n_params);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_for(B), kThreads, smem, stream>>>(*p, *mlp, params, n_params, table,
-                                                    user_d, disc, inv, acts, raw, rew,
-                                                    dem, seed, B, T);
-  return (int)cudaGetLastError();
+// K10: one stochastic episode a lane on K11's tile, its streams written.
+int im_rollout_traj(const ImParams* p, const MlpTile* m, const float* w, const float* table,
+                    const int* user_d, const float* disc, int* inv, int* acts, float* raw,
+                    float* rew, int* dem, unsigned seed, int backlog, long long B, int T,
+                    cudaStream_t stream) {
+  const ImTrajStreams tr{inv, raw, rew};
+  return backlog ? launch_policy_kernel<true, false, true, true>(
+                       *p, *m, w, table, user_d, disc, nullptr, acts, dem, tr, seed, B, 1, T,
+                       stream)
+                 : launch_policy_kernel<true, false, true, false>(
+                       *p, *m, w, table, user_d, disc, nullptr, acts, dem, tr, seed, B, 1, T,
+                       stream);
 }
 
 // acts == dems == nullptr: returns only (K11); otherwise also the streams (K12).

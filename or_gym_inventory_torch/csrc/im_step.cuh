@@ -1,7 +1,8 @@
 // One InvManagement period on one thread, and the period draws of the
 // random policy, shared by every InvManagement kernel (im_episode.cu K7-K9,
-// im_policy.cu K10), so that they cannot drift apart; and the observation
-// column of the tile kernels (im_policy.cu K11/K12, im_lstm.cu K22-K24). It replaces
+// im_policy.cu K10-K12 and K27), so that they cannot drift apart; and the
+// observation column of the tile kernels (im_policy.cu K10-K12, im_lstm.cu
+// K22-K24). It replaces
 // pallas_episode_kernels._im_step_math (:686), _im_sample_actions (:841),
 // _im_sample_demand (:853) and _invert_discrete_i32 (:824).
 //

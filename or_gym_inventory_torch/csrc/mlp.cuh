@@ -1,7 +1,8 @@
-// The folded MLP actor as the PPO trajectory kernels K10 (im_policy.cu) and
-// K18 (nv_policy.cu) run it, one forward pass per thread (and K4's first
-// design, kept in tools/net_traj_parent.cu); the learned-policy returns
-// kernels and K4 run mlp_tile.cuh's. It replaces the in-kernel
+// The folded MLP actor one forward pass per thread, as the first designs of
+// the PPO trajectory kernels K4, K10 and K18 ran it (kept in
+// tools/net_traj_parent.cu, tools/im_traj_parent.cu and
+// tools/nv_traj_parent.cu); the package's MLP kernels run mlp_tile.cuh's,
+// which takes MlpTile's maxima from here. It replaced the in-kernel
 // pallas_episode_kernels.mlp_forward (:1124).
 //
 // The folded actor (obs normalisation already in layer 1) is copied once per

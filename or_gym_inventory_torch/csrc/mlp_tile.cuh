@@ -1,11 +1,13 @@
 // The folded MLP actor over a tile of lanes on the tensor cores, shared by
 // the learned-policy returns kernels K5/K6 (net_policy.cu
 // k_policy_returns), K11/K12 (im_policy.cu k_im_policy_returns) and
-// K19/K20 (nv_policy.cu k_nv_policy_returns), and by K4 (net_policy.cu
-// k_policy_returns<1, 0, 1>, the PPO trajectory). It replaces the in-kernel
+// K19/K20 (nv_policy.cu k_nv_policy_returns), and by the PPO trajectory
+// kernels K4, K10 and K18, their one-episode stochastic instances with the
+// streams written (TRAJ). It replaces the in-kernel
 // pallas_episode_kernels.mlp_forward (:1124) of _net_policy_call,
-// _im_policy_call, _nv_policy_call and _net_traj_kernel, which ran the
-// layers as MXU matmuls over a (rows, lanes) tile.
+// _im_policy_call, _nv_policy_call, _net_traj_kernel, _im_traj_kernel and
+// _nv_traj_kernel, which ran the layers as MXU matmuls over a (rows,
+// lanes) tile.
 //
 // What bounds it: the products, 2 sum(in out) FLOPs an env-step (18,304 at
 // K5's default 68-64-64-11 actor, 12,800 at K11's 33-64-64-3), nearly all

@@ -3,21 +3,21 @@
 // and wrapped by ops/episode_kernels.py, whose plain PyTorch versions compute
 // the same functions.
 //
-// K18 k_nv_rollout_traj  replaces pallas_episode_kernels.rollout_traj_nv
-//    (:1796; body _nv_traj_kernel :1752, policy head traj_policy "ppo" :1036,
-//    trunk mlp_forward :1124). One stochastic-policy episode per lane, the
-//    reset, the per-lane Poisson(mu) demand and the actor all in the kernel,
-//    the training streams written to device memory: econ (5, B), the capped
-//    orders, the pre-squash raws, the undiscounted rewards and the demand,
-//    (T[, 1], B) each, coalesced along B. PPO with rollout="kernel" feeds on
-//    it.
-// K19/K20 k_nv_policy_returns  replace _nv_policy_call (:603) behind
-//    episode_returns_nv_policy (:648) and its stream-dumping twin
-//    sample_policy_streams_debug_nv (:665; body _nv_policy_kernel :544): the
-//    same policy, deterministic or stochastic, E episodes per lane, returns
-//    (E, B) gamma^t-discounted; with DUMP it also writes the econ (E, 5, B),
-//    the orders before the max_inventory cap (T, E, B) and the demand
-//    (T, E, B) it used.
+// K18 k_nv_policy_returns<1, 0, 1, LAYOUT>  replaces
+//    pallas_episode_kernels.rollout_traj_nv (:1796; body _nv_traj_kernel
+//    :1752, policy head traj_policy "ppo" :1036, trunk mlp_forward :1124).
+//    One stochastic-policy episode per lane, the reset, the per-lane
+//    Poisson(mu) demand and the actor all in the kernel, the training
+//    streams written to device memory: econ (5, B), the capped orders, the
+//    pre-squash raws, the undiscounted rewards and the demand, (T[, 1], B)
+//    each, coalesced along B. PPO with rollout="kernel" feeds on it.
+// K19/K20 k_nv_policy_returns<STOCH, DUMP, 0, LAYOUT>  replace
+//    _nv_policy_call (:603) behind episode_returns_nv_policy (:648) and its
+//    stream-dumping twin sample_policy_streams_debug_nv (:665; body
+//    _nv_policy_kernel :544): the same policy, deterministic or stochastic,
+//    E episodes per lane, returns (E, B) gamma^t-discounted; with DUMP it
+//    also writes the econ (E, 5, B), the orders before the max_inventory cap
+//    (T, E, B) and the demand (T, E, B) it used.
 // K28 k_nv_rollout_traj_wide  replaces rollout_traj_nv (:1796) under the
 //    off-policy heads traj_policy "det", "sac" and "uniform" (:1062-1080) on
 //    a relu (or tanh) trunk, the collection of OffPolicyConfig(collect=
@@ -33,24 +33,13 @@
 //    Box-Muller normals of the policy kernels' generator, (rows, B), for the
 //    goodness-of-fit pin.
 //
-// K18's design (a simple kernel first): one thread per lane, as K10. The
-// step, the reset's formulas and the inversion are nv_step.cuh's; the actor
-// is mlp.cuh's (weights and activations in shared memory: 5,905 floats of
-// weights for the default 10-64-64-1 actor and 64 KB of activations at 128
-// threads). The observation is assembled from the live state in the order
-// of _nv_policy_kernel (:586) and _nv_traj_kernel (:1783): econ, then the
-// pipeline oldest first, ring[(head + j) % L]. Demand does not depend on
-// the orders, so each chunk of NV_CHUNK = 16 periods first draws its 16
-// demand words and inverts them with one recurrence (the linear count),
-// then runs its 16 policy periods. Bound by operations: the MLP's ~9,900
-// per env-step dwarf the step and the draws. K21 writes one float per two
-// words: bound by bytes.
-//
-// K19/K20's design: a block per tile of (episode, lane) pairs, one thread
-// each (mlp_tile.cuh), as K5/K6 and K11/K12. The first version ran K18's
-// design with E episodes per lane: 37.97 ms at 65,536 x 16 x 50 on an H100
-// (PERF.md), the MLP on the FP32 cores, each chunk of 16 periods rerunning
-// the K = 177 recurrence steps of the linear count. Now:
+// K18-K20's design: a block per tile of (episode, lane) pairs, one thread
+// each (mlp_tile.cuh), as K4-K6 and K10-K12; K18 is the one-episode,
+// stochastic instance with its streams written (TRAJ), so it cannot drift
+// from K19. The first versions ran one thread per pair with the actor on
+// the FP32 cores (mlp.cuh), each chunk of 16 periods rerunning the K = 177
+// recurrence steps of the linear count: K19 37.97 ms at 65,536 x 16 x 50,
+// K18 2.6996 ms at 65,536 x 50 on an H100 (PERF.md). Now:
 // - the reset draws the econ, builds the episode's table of suffix sums
 //   (nv_step.cuh nv_table_setup, K14-K17's) in the pair's column and
 //   searches every period's demand up front (nv_table_invert, the same
@@ -64,23 +53,29 @@
 //   the thread adds its normal when stochastic, squashes the order and
 //   steps its pair with nv_step_ring on the pipeline in its column of
 //   shared memory ([slot][lane]); econ, head and the Poisson anchor live in
-//   registers. No local frame in the deterministic instances.
+//   registers. No local frame in the deterministic instances;
+// - K18 writes the econ at the reset, and per period the raw before the
+//   squash, the capped order that enters the pipeline, the undiscounted
+//   reward and the demand.
 // Bound by operations: the products, 2 sum(in out) FLOPs an env-step, as
 // three TF32 products each; the reset's table and searches come next.
 // Where no table fits a block, the demand is the linear count per chunk
 // (NV_DEM_LINEAR); tools/nv_tile_sweep.py times it, and two layouts of its
-// own, beside the up-front one. The batch tail is masked: a warp past it returns after the
-// reset's barrier, a pair past it computes but writes nothing.
+// own, beside the up-front one. The batch tail is masked: a warp past it
+// returns after the reset's barrier, a pair past it computes but writes
+// nothing. The observation is assembled from the live state in the order of
+// _nv_policy_kernel (:586) and _nv_traj_kernel (:1783): econ, then the
+// pipeline oldest first, ring[(head + j) % L]. K21 writes one float per two
+// words: bound by bytes.
 //
 // Random stream (philox.cuh): key (seed, 1), counter (lane, episode, period,
 // block). The reset's five uniforms are the first five words of period
 // NV_ECON_PERIOD; period t's word 0 is its demand's uniform and, when
 // stochastic, words 1 and 2 the u1 and u2 of its normal (act_dim 1), so the
 // policy period recomputes the period's block for them. K18 is episode 0, so
-// episode 0 of the stochastic K19 draws exactly K18's words (its actor sums
-// on the tensor cores, K18's on the FP32 cores, so their orders agree lane
-// by lane but for a rounding); the deterministic K19 draws one word a
-// period.
+// episode 0 of the stochastic K19 draws exactly K18's words and, on the same
+// tile, gives K18's streams bit for bit; the deterministic K19 draws one
+// word a period.
 // K28 draws K18's reset and demand words; its head's words are words 1 and 2
 // of the period (word 1 alone for "uniform").
 // K21's element (row, lane) is normal01(word 0, word 1) of counter
@@ -98,13 +93,12 @@
 
 #include "cluster_mlp.cuh"
 #include "launch.cuh"
-#include "mlp.cuh"
 #include "mlp_tile.cuh"
 #include "nv_step.cuh"
 #include "philox.cuh"
 #include "wide_mlp.cuh"
 
-// Where the tile kernel K19/K20 takes its demand from (NvTile.layout):
+// Where the tile kernel K18-K20 takes its demand from (NvTile.layout):
 #define NV_DEM_LINEAR 0   // per chunk of NV_CHUNK periods, the linear count
                           // (nv_poisson_invert) into NV_CHUNK rows: where
                           // no table fits a block (_nv_tile_plan)
@@ -160,77 +154,6 @@ __device__ __forceinline__ void chunk_demand(const NvParams& p, const NvPoisson&
   float v[NV_CHUNK];
   chunk_thresholds(q, seed, lane, e, t0, T, v);
   nv_poisson_invert(p, q, v, d);
-}
-
-// The policy's raw sample and order of one (lane, episode, period): the
-// observation of the live state into h0, the actor, the head. Returns the
-// order, before the max_inventory cap.
-template <bool STOCH>
-__device__ __forceinline__ float policy_period(const NvParams& p, const Mlp& m,
-                                               const float* w, float stdv, unsigned seed,
-                                               unsigned lane, unsigned e, int t,
-                                               const NvEpisode& s, float* h0, float* h1,
-                                               float& raw) {
-  col(h0, 0) = s.price;
-  col(h0, 1) = s.cost;
-  col(h0, 2) = s.h;
-  col(h0, 3) = s.k;
-  col(h0, 4) = s.mu;
-  for (int j = 0; j < p.L; ++j) {
-    int k = s.head + j;
-    if (k >= p.L) k -= p.L;
-    col(h0, 5 + j) = s.ring[k];
-  }
-  float x = col(mlp_forward(m, w, h0, h1), 0);
-  if (STOCH) {
-    WordStream ws(seed, 1u, lane, e, (unsigned)t);
-    ws.next();  // word 0: the period's demand
-    const unsigned u1 = ws.next();
-    x = __fadd_rn(x, __fmul_rn(stdv, normal01(u1, ws.next())));
-  }
-  raw = x;
-  return __fmul_rn(__fadd_rn(tanhf(x), 1.f), m.half_hi[0]);
-}
-
-__global__ void k_nv_rollout_traj(const __grid_constant__ NvParams p,
-                                  const __grid_constant__ Mlp m,
-                                  const float* __restrict__ params, int n_params,
-                                  const float* __restrict__ lgam,
-                                  float* __restrict__ econo, float* __restrict__ ordo,
-                                  float* __restrict__ rawo, float* __restrict__ rewo,
-                                  float* __restrict__ demo, unsigned seed, long long B,
-                                  int T) {
-  float *h0, *h1;
-  const float* sw = load_params(m, params, n_params, h0, h1);
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const unsigned lane = (unsigned)b;
-  const float stdv = sw[n_params - 1];
-  NvEpisode s;
-  policy_reset(p, seed, lane, 0u, s);
-  econo[b] = s.price;
-  econo[B + b] = s.cost;
-  econo[2 * B + b] = s.h;
-  econo[3 * B + b] = s.k;
-  econo[4 * B + b] = s.mu;
-  const NvPoisson q = nv_poisson_setup(p, lgam, s.mu);
-  for (int t0 = 0; t0 < T; t0 += NV_CHUNK) {
-    float d[NV_CHUNK];
-    chunk_demand(p, q, seed, lane, 0u, t0, T, d);
-    const int n = min(NV_CHUNK, T - t0);
-    for (int i = 0; i < n; ++i) {
-      const int t = t0 + i;
-      float raw, qty;
-      const float order = policy_period<true>(p, m, sw, stdv, seed, lane, 0u, t, s, h0, h1,
-                                              raw);
-      const float reward = nv_step(p, s, order, d[i], qty);
-      const long long k = (long long)t * B + b;  // (T, B) and (T, 1, B)
-      ordo[k] = qty;
-      rawo[k] = raw;
-      rewo[k] = reward;
-      demo[k] = d[i];
-    }
-  }
 }
 
 // The tile's demand of one (lane, episode): the thresholds of the period
@@ -290,8 +213,8 @@ struct TileDemand {
   }
 };
 
-// The pair's observation column x (rows S apart), in the order of
-// policy_period's: econ, then the pipeline oldest first, through keep_nan
+// The pair's observation column x (rows S apart): econ, then the pipeline
+// oldest first, through keep_nan
 // (a NaN order reaches the ring); then zero rows up to pad8(obs_dim).
 __device__ __forceinline__ void tile_obs(const NvParams& p, const NvEcon& c,
                                          const NvSharedRing& ring, int head, int obs_pad,
@@ -310,7 +233,7 @@ __device__ __forceinline__ void tile_obs(const NvParams& p, const NvEcon& c,
 }
 
 // The reset of one (lane, episode) in the tile: the economics from the
-// first five words of period NV_ECON_PERIOD (dumped when DUMP), the
+// first five words of period NV_ECON_PERIOD (written when DUMP), the
 // Poisson anchor.
 template <bool DUMP>
 __device__ __forceinline__ NvEcon tile_reset(const NvParams& p, const float* __restrict__ lgam,
@@ -334,12 +257,19 @@ __device__ __forceinline__ NvEcon tile_reset(const NvParams& p, const float* __r
   return c;
 }
 
-// K19/K20 on the tensor-core tile (mlp_tile.cuh): a block of m.lanes
+// The streams K18 writes (TRAJ) beside the econ and demand (DUMP's econo
+// and demo), each (T, B): the capped orders, the pre-squash raws, the
+// undiscounted rewards.
+struct NvTrajStreams {
+  float *orders, *raw, *rew;
+};
+
+// K18-K20 on the tensor-core tile (mlp_tile.cuh): a block of m.lanes
 // (lane, episode) pairs, one thread each, the pair's column of the
 // activation buffer its observation and H. LAYOUT is where the demand
 // comes from (NvTile). The episode's pipeline lives in the pair's column
 // of nt.s_ring; its head, econ and Poisson anchor in registers.
-template <bool STOCH, bool DUMP, int LAYOUT>
+template <bool STOCH, bool DUMP, bool TRAJ, int LAYOUT>
 __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
                                     const __grid_constant__ MlpTile m,
                                     const __grid_constant__ NvTile nt,
@@ -348,7 +278,8 @@ __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
                                     const float* __restrict__ disc,
                                     float* __restrict__ out, float* __restrict__ econo,
                                     float* __restrict__ acto, float* __restrict__ demo,
-                                    unsigned seed, long long B, int E, int T) {
+                                    const __grid_constant__ NvTrajStreams tr, unsigned seed,
+                                    long long B, int E, int T) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = threadIdx.x, S = m.stride, N = m.lanes;
@@ -360,7 +291,7 @@ __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
   const unsigned e = (unsigned)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)e * B);
   TileDemand dem{p, nt, {}, {}, smem + nt.s_dem + n, N};
-  const NvEcon c = tile_reset<DUMP>(p, lgam, seed, lane, e, live, econo, B, dem.q);
+  const NvEcon c = tile_reset<DUMP || TRAJ>(p, lgam, seed, lane, e, live, econo, B, dem.q);
   dem.setup<LAYOUT>(smem, n);
   if (upfront) {
     // the whole episode's demand now; then the table is dead, and its rows
@@ -390,19 +321,25 @@ __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
         const unsigned u1 = ws.next();
         v = __fadd_rn(v, __fmul_rn(stdv, normal01(u1, ws.next())));
       }
+      const long long k = ((long long)t * E + e) * B + lane;  // (T, E, B)
+      if (TRAJ && live) tr.raw[k] = v;
       const float order = __fmul_rn(__fadd_rn(tanhf(v), 1.f), m.half_hi[0]);
       const float d = dem.at<LAYOUT>(t, i);
-      if (DUMP && live) {
-        const long long k = ((long long)t * E + e) * B + lane;  // (T, E, B)
-        acto[k] = order;
-        demo[k] = d;
-      }
+      if (DUMP && live) acto[k] = order;
+      if ((DUMP || TRAJ) && live) demo[k] = d;
       float qty;
       const float reward = nv_step_ring(p, ring, head, c, order, d, qty);
-      total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), reward));
+      if (TRAJ) {
+        if (live) {
+          tr.orders[k] = qty;
+          tr.rew[k] = reward;
+        }
+      } else {
+        total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), reward));
+      }
     }
   }
-  if (live) out[idx] = total;  // (E, B), episode-major
+  if (!TRAJ && live) out[idx] = total;  // (E, B), episode-major
 }
 
 __global__ void k_sample_normals(float* __restrict__ out, unsigned seed, long long B,
@@ -493,7 +430,7 @@ __global__ void __launch_bounds__(kWideThreads)
 // shared memory); the rest runs on every thread. At each tile's reset the
 // lane threads draw the econ and set up the Poisson anchor; then every
 // thread counts the lanes' demand, a (lane, chunk of NV_CHUNK periods) at
-// a time with chunk_demand (K18's words and recurrence), and draws the
+// a time with chunk_demand (K18's words, the linear count), and draws the
 // head noise of each (lane, period), into shared memory. Per period, the
 // obs of the CTA's lanes into every CTA's xo, the cluster's actor, then
 // the lane threads' head and step.
@@ -609,27 +546,29 @@ NvClusterKernel nv_cluster_kernel(int relu) {
   return relu ? k_nv_rollout_traj_cluster<true> : k_nv_rollout_traj_cluster<false>;
 }
 
-template <bool STOCH, bool DUMP, int LAYOUT>
+template <bool STOCH, bool DUMP, bool TRAJ, int LAYOUT>
 int launch_layout(const NvParams& p, const MlpTile& m, const NvTile& nt, const float* w,
                   const float* lgam, const float* disc, float* out, float* econ, float* acts,
-                  float* dems, unsigned seed, long long B, int E, int T, cudaStream_t stream) {
-  return launch_mlp_tile(k_nv_policy_returns<STOCH, DUMP, LAYOUT>, m, B * E, stream, p, m, nt, w,
-                         lgam, disc, out, econ, acts, dems, seed, B, E, T);
+                  float* dems, const NvTrajStreams& tr, unsigned seed, long long B, int E, int T,
+                  cudaStream_t stream) {
+  return launch_mlp_tile(k_nv_policy_returns<STOCH, DUMP, TRAJ, LAYOUT>, m, B * E, stream, p, m,
+                         nt, w, lgam, disc, out, econ, acts, dems, tr, seed, B, E, T);
 }
 
 // The entry points' layouts: NV_DEM_UPFRONT, or the linear count where no
 // table fits a block (_nv_tile_plan).
-template <bool STOCH, bool DUMP>
+template <bool STOCH, bool DUMP, bool TRAJ>
 int launch_policy_returns(const NvParams& p, const MlpTile& m, const NvTile& nt,
                           const float* w, const float* lgam, const float* disc, float* out,
-                          float* econ, float* acts, float* dems, unsigned seed, long long B,
-                          int E, int T, cudaStream_t stream) {
+                          float* econ, float* acts, float* dems, const NvTrajStreams& tr,
+                          unsigned seed, long long B, int E, int T, cudaStream_t stream) {
   if (nt.layout == NV_DEM_UPFRONT)
-    return launch_layout<STOCH, DUMP, NV_DEM_UPFRONT>(p, m, nt, w, lgam, disc, out, econ, acts,
-                                                      dems, seed, B, E, T, stream);
+    return launch_layout<STOCH, DUMP, TRAJ, NV_DEM_UPFRONT>(p, m, nt, w, lgam, disc, out, econ,
+                                                            acts, dems, tr, seed, B, E, T,
+                                                            stream);
   if (nt.layout == NV_DEM_LINEAR)
-    return launch_layout<STOCH, DUMP, NV_DEM_LINEAR>(p, m, nt, w, lgam, disc, out, econ, acts,
-                                                     dems, seed, B, E, T, stream);
+    return launch_layout<STOCH, DUMP, TRAJ, NV_DEM_LINEAR>(p, m, nt, w, lgam, disc, out, econ,
+                                                           acts, dems, tr, seed, B, E, T, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -637,15 +576,13 @@ int launch_policy_returns(const NvParams& p, const MlpTile& m, const NvTile& nt,
 
 extern "C" {
 
-int nv_rollout_traj(const NvParams* p, const Mlp* mlp, const float* params, int n_params,
+// K18: one stochastic episode a lane on K19's tile, its streams written.
+int nv_rollout_traj(const NvParams* p, const MlpTile* m, const NvTile* nt, const float* w,
                     const float* lgam, float* econ, float* orders, float* raw, float* rew,
                     float* dem, unsigned seed, long long B, int T, cudaStream_t stream) {
-  const size_t smem = smem_bytes(*mlp, n_params);
-  cudaError_t err = allow_smem(k_nv_rollout_traj, smem);
-  if (err != cudaSuccess) return (int)err;
-  k_nv_rollout_traj<<<blocks_for(B), kThreads, smem, stream>>>(
-      *p, *mlp, params, n_params, lgam, econ, orders, raw, rew, dem, seed, B, T);
-  return (int)cudaGetLastError();
+  return launch_policy_returns<true, false, true>(*p, *m, *nt, w, lgam, nullptr, nullptr, econ,
+                                                  nullptr, dem, NvTrajStreams{orders, raw, rew},
+                                                  seed, B, 1, T, stream);
 }
 
 // acts == nullptr: returns only (K19); otherwise also econ, acts and dems (K20).
@@ -654,15 +591,20 @@ int nv_policy_returns(const NvParams* p, const MlpTile* m, const NvTile* nt, con
                       float* acts, float* dems, unsigned seed, int stochastic, long long B,
                       int E, int T, cudaStream_t stream) {
   const bool dump = acts != nullptr;
+  const NvTrajStreams none{};
   if (stochastic)
-    return dump ? launch_policy_returns<true, true>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
-                                                    dems, seed, B, E, T, stream)
-                : launch_policy_returns<true, false>(*p, *m, *nt, w, lgam, disc, out, econ,
-                                                     acts, dems, seed, B, E, T, stream);
-  return dump ? launch_policy_returns<false, true>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
-                                                   dems, seed, B, E, T, stream)
-              : launch_policy_returns<false, false>(*p, *m, *nt, w, lgam, disc, out, econ, acts,
-                                                    dems, seed, B, E, T, stream);
+    return dump ? launch_policy_returns<true, true, false>(*p, *m, *nt, w, lgam, disc, out, econ,
+                                                           acts, dems, none, seed, B, E, T,
+                                                           stream)
+                : launch_policy_returns<true, false, false>(*p, *m, *nt, w, lgam, disc, out,
+                                                            econ, acts, dems, none, seed, B, E,
+                                                            T, stream);
+  return dump ? launch_policy_returns<false, true, false>(*p, *m, *nt, w, lgam, disc, out, econ,
+                                                          acts, dems, none, seed, B, E, T,
+                                                          stream)
+              : launch_policy_returns<false, false, false>(*p, *m, *nt, w, lgam, disc, out, econ,
+                                                           acts, dems, none, seed, B, E, T,
+                                                           stream);
 }
 
 int nv_rollout_traj_wide(const NvParams* p, const WideMlp* wm, const float* w,

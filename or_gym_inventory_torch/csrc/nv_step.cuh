@@ -48,10 +48,10 @@
 //   ulps of total). ops/episode_kernels.py _nv_table_plan sizes the block
 //   to the table (NvParams.threads) and picks, for a K whose table a block
 //   of 32 cannot hold, the linear count below instead (NvParams.table 0);
-//   K19/K20's tile (nv_policy.cu) builds the same table at its reset and
+//   K18-K20's tile (nv_policy.cu) builds the same table at its reset and
 //   searches every period of the episode there at once;
-// - linear (nv_poisson_invert; K18 and K28, whose shared memory holds the
-//   actor, and K19/K20 where no table fits a block): each chunk of 16
+// - linear (nv_poisson_invert; K28, whose shared memory holds the actor,
+//   and K18-K20 where no table fits a block): each chunk of 16
 //   periods reruns the K steps and compares every S(k) with each
 //   threshold. lgamma(kc + 1) is a host-built table of f32
 // hi/lo pairs split from float64 exactly as JAX splits them, indexed by kc

@@ -8,7 +8,7 @@
 // cluster_mlp.cuh. It replaces the in-kernel pallas_episode_kernels
 // .mlp_forward (:1124) with a relu (or tanh) trunk and the heads of
 // traj_policy (:1036-1081): "det", "sac", "uniform", and "ppo" on a relu
-// trunk (the PPO head on a tanh trunk stays K4/K10/K18's, mlp.cuh).
+// trunk (the PPO head on a tanh trunk stays K4/K10/K18's, mlp_tile.cuh).
 //
 // What bounds it: operations. The off-policy actor has SB3's default width,
 // (256, 256): 76,038 floats (304 KB) for InvManagement's 33 inputs and the

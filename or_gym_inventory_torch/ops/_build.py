@@ -72,10 +72,10 @@ SIGNATURES = {
         "im_sample_streams": ((_P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
     },
     "im_policy": {
-        # params, mlp, actor, n_actor, table, user_d, disc, inv, acts, raw,
-        # reward, demand, seed, backlog, B, T, stream
-        "im_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
-                             _LL, _I, _P), _I),
+        # params, tile, actor, table, user_d, disc, inv, acts, raw, reward,
+        # demand, seed, backlog, B, T, stream
+        "im_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I,
+                             _P), _I),
         # params, tile, actor, table, user_d, disc, out, acts, dems, seed,
         # stochastic, backlog, B, E, T, stream
         "im_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
@@ -108,9 +108,9 @@ SIGNATURES = {
         "nv_episodes": ((_P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _I, _P), _I),
     },
     "nv_policy": {
-        # params, mlp, actor, n_actor, lgamma, econ, orders, raw, reward,
+        # params, tile, nv tile, actor, lgamma, econ, orders, raw, reward,
         # demand, seed, B, T, stream
-        "nv_rollout_traj": ((_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _P),
+        "nv_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL, _I, _P),
                             _I),
         # params, tile, nv tile, actor, lgamma, disc, out, econ, acts, dems,
         # seed, stochastic, B, E, T, stream

@@ -12,12 +12,13 @@ version), and what every MLP policy kernel shares:
   layer 1), ``folded_actor_mean`` and ``apply_folded_actor``, on host;
 - ``fold_offpolicy_actor``, the off-policy learners' actor (relu trunk,
   mean head, and for SAC the log_std head beside it) folded the same way;
-- ``_pack_actor``, the actor as the CUDA kernels take it (``csrc/mlp.cuh``),
-  shared by K10 and K18;
+- ``_pack_actor``, the actor as the first designs of the PPO trajectory
+  kernels took it (``csrc/mlp.cuh``; kept for their copies under
+  ``tools/``);
   ``_pack_tile_actor``, the actor of the learned-policy returns kernels K5,
-  K11 and K19 and of K4 (``ops/net_step.py``) over a tile of lanes on the
-  tensor cores
-  (``csrc/mlp_tile.cuh``, its layout ``_mlp_tile_plan``; K19's demand,
+  K11 and K19 and of the PPO trajectory kernels K4 (``ops/net_step.py``),
+  K10 and K18 over a tile of lanes on the tensor cores
+  (``csrc/mlp_tile.cuh``, its layout ``_mlp_tile_plan``; K18/K19's demand,
   pipeline and Poisson table ``_nv_tile_plan``); ``_pack_cluster_actor``,
   the actor of the off-policy trajectory kernels K27-K29 over a
   thread-block cluster (``csrc/cluster_mlp.cuh``, its layout
@@ -81,8 +82,8 @@ Newsvendor dumps are laid out as K17's: econ (E, 5, B), streams (T, E, B).
 An actor is ``(Ws, bs)``: Ws[l] (in, out), bs[l] (out,), float32, as the JAX
 package has it. The plain versions compute with the layers as (out, in), as
 the Pallas kernels did (``kernel_layers``); the CUDA kernels take them as
-(in, out) with the outputs padded to 16 (``_pack_actor``), or to 8 for the
-wide kernels (``_pack_wide_actor``), or as tensor-core A fragments
+(in, out) with the outputs padded to 8 for the wide kernels
+(``_pack_wide_actor``), or as tensor-core A fragments
 (``_pack_tile_actor``, ``_pack_lstm_actor``), or as each CTA's slices
 of a cluster (``_pack_cluster_actor``).
 """
@@ -104,9 +105,9 @@ from or_gym_inventory_torch.envs import newsvendor as nv
 from or_gym_inventory_torch.ops import distributions as dist
 from or_gym_inventory_torch.ops import rng
 
-# maxima of the actor the policy kernels take (csrc/mlp.cuh); its weights,
-# biases and std must fit the dynamic shared memory a Hopper block may opt
-# in to (227 KB)
+# maxima of the actor the policy kernels take (csrc/mlp.cuh); a block's
+# layout must fit the dynamic shared memory a Hopper block may opt in to
+# (227 KB)
 MAX_LAYERS, MAX_WIDTH, MAX_ACT = 8, 256, 32
 SMEM_OPTIN_BYTES = 232_448
 # an H100 SM's shared memory, the share the runtime reserves per resident
@@ -370,13 +371,15 @@ def _mlp_dims(actor, obs_dim: int, act_dim: int):
 
 
 def _pack_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
-    """The kernels' actor arguments: the Mlp struct (``half_hi[i]`` the f32
-    factor that maps tanh(raw_i) + 1 onto action i's range) and one flat
-    float32 buffer on ``device``, each layer as W^T (in, out16) then b
-    (out16), the outputs zero-padded to a multiple of 16, then the std when
-    given. Raises ValueError for an actor beyond the kernels' maxima, or if
-    the buffer and the activation buffers exceed the shared memory of a
-    block."""
+    """The actor arguments of the first designs of K4, K10 and K18 (one
+    forward pass a thread, csrc/mlp.cuh; kept as copies under ``tools/``
+    for the sweeps that time them against the tile): the Mlp struct
+    (``half_hi[i]`` the f32 factor that maps tanh(raw_i) + 1 onto action
+    i's range) and one flat float32 buffer on ``device``, each layer as W^T
+    (in, out16) then b (out16), the outputs zero-padded to a multiple of 16,
+    then the std when given. Raises ValueError for an actor beyond the
+    kernels' maxima, or if the buffer and the activation buffers exceed the
+    shared memory of a block."""
     dims = _mlp_dims(actor, obs_dim, act_dim)
     Ws, bs = actor
     parts = []
@@ -1350,6 +1353,14 @@ def _im_policy_plain(params, actor, std, seed, batch, E, device, dump=False):
 
 # ------------------------------------------------------------------ wrappers
 
+def _im_tile_actor(params: im.InvManagementParams, actor, std, device):
+    """The actor arguments of K10-K12 on the tensor-core tile
+    (``_pack_tile_actor`` at the env's obs and act widths and ``_half_c``):
+    the MlpTile struct and the packed buffer, the std last when given."""
+    return _pack_tile_actor(actor, std, im.observation_space(params).shape[0], params.m1,
+                            _half_c(params), device)
+
+
 def _check_im_streams(params, demands, actions=None):
     if demands.dtype != torch.int32 or (actions is not None and actions.dtype != torch.int32):
         raise TypeError("actions and demands must be int32")
@@ -1484,12 +1495,15 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
     Returns a dict: ``inv (T+1, m1, batch)`` int32 start-of-period on-hand
     (the final snapshot last), ``actions (T, m1, batch)`` int32,
     ``raw (T, m1, batch)`` f32 pre-squash samples, ``reward (T, batch)`` f32
-    (alpha^t-discounted) and ``demand (T, batch)`` int32. K10: one thread
-    per lane (csrc/im_policy.cu ``k_im_rollout_traj``); on the CPU the plain
-    version runs. ``policy``/``act_name`` select the head and the trunk
-    (``traj_policy``): the default ("ppo", "tanh") is K10's; any other pair
-    (the off-policy heads "det", "sac", "uniform", a relu trunk) is
-    ``rollout_traj_im_offpolicy``'s (K27), whose ``raw`` holds the
+    (alpha^t-discounted) and ``demand (T, batch)`` int32. K10: K11's tile
+    with one stochastic episode a lane and the streams written, the actor on
+    the tensor cores (csrc/im_policy.cu ``k_im_policy_returns<1, 0, 1,
+    BACKLOG>`` on csrc/mlp_tile.cuh), so its streams are the stochastic
+    K11's episode 0 for the same seed; a launch that fails raises. On the
+    CPU the plain version runs. ``policy``/``act_name`` select the head and
+    the trunk (``traj_policy``): the default ("ppo", "tanh") is K10's; any
+    other pair (the off-policy heads "det", "sac", "uniform", a relu trunk)
+    is ``rollout_traj_im_offpolicy``'s (K27), whose ``raw`` holds the
     normalised [-1, 1] actions."""
     _check_head(policy, act_name)
     if (policy, act_name) != ("ppo", "tanh"):
@@ -1505,7 +1519,7 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
     if dev.type == "cpu":
         _actor_dims(actor, obs_dim, m1)
         return _rollout_traj_im_plain(params, actor, std, seed, batch, dev)
-    mlp, flat = _pack_actor(actor, std, obs_dim, m1, _half_c(params), dev)
+    st, flat = _im_tile_actor(params, actor, std, dev)
     plan = _im_plan(params, _plan_key(dev))
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1516,7 +1530,7 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
         _launch("im_policy", "im_rollout_traj", ctypes.addressof(plan["struct"]),
-                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(),
+                ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
                 seed, int(params.backlog), batch, T, _stream(dev))
@@ -1609,7 +1623,7 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     if dev.type == "cpu":
         _actor_dims(actor, obs_dim, m1)
         return _im_policy_plain(params, actor, std, seed, batch, E, dev, dump)
-    st, flat = _pack_tile_actor(actor, std, obs_dim, m1, _half_c(params), dev)
+    st, flat = _im_tile_actor(params, actor, std, dev)
     plan = _im_plan(params, _plan_key(dev))
     out = torch.empty((E, batch), dtype=torch.float32, device=dev)
     acts = dems = None
@@ -2601,12 +2615,19 @@ def _sample_normals_plain(seed, rows, batch, device):
                         for r in range(rows)])
 
 
-def _nv_policy_args(params, actor, log_std, batch, E, device, tile=False):
-    """(device, std or None, actor struct, packed actor) of a K18-K20 call:
-    ``_pack_actor``'s Mlp for K18, ``_pack_tile_actor``'s MlpTile with
-    ``tile`` (K19/K20); raises ValueError for a batch, E or actor the
-    kernels do not take. The actor is packed only on the card (None, None
-    on the CPU, where any actor that fits the env runs)."""
+def _nv_tile_actor(params: nv.NewsvendorParams, actor, std, device):
+    """The actor arguments of K18-K20 on the tensor-core tile
+    (``_pack_tile_actor`` at the env's obs width, one action, and
+    ``_nv_half_hi``): the MlpTile struct and the packed buffer, the std
+    last when given; ``_nv_tile_launch`` lays the tile out."""
+    return _pack_tile_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), device)
+
+
+def _nv_policy_args(params, actor, log_std, batch, E, device):
+    """(device, std or None, MlpTile struct, packed actor) of a K18-K20
+    call (``_nv_tile_actor``); raises ValueError for a batch, E or actor
+    the kernels do not take. The actor is packed only on the card (None,
+    None on the CPU, where any actor that fits the env runs)."""
     dev = resolve_device(device)
     if E < 1 or batch < 1:
         raise ValueError(f"need batch >= 1 and episodes_per_lane >= 1, got {batch}, {E}")
@@ -2614,8 +2635,7 @@ def _nv_policy_args(params, actor, log_std, batch, E, device, tile=False):
     if dev.type == "cpu":
         _actor_dims(actor, params.obs_dim, 1)
         return dev, std, None, None
-    pack = _pack_tile_actor if tile else _pack_actor
-    st, flat = pack(actor, std, params.obs_dim, 1, _nv_half_hi(params), dev)
+    st, flat = _nv_tile_actor(params, actor, std, dev)
     return dev, std, st, flat
 
 
@@ -2713,6 +2733,14 @@ def _nv_tile_structs(st: _MlpTile, plan: NvTilePlan):
     return tile, nt
 
 
+def _nv_tile_launch(st: _MlpTile, nv_st: _NvParams, T: int):
+    """K18-K20's (MlpTile, NvTile) for the packed actor's ``st`` and the
+    launch plan's params struct ``nv_st`` at ``T`` periods: the layout
+    ``_nv_tile_choice`` takes."""
+    return _nv_tile_structs(st, _nv_tile_choice(tuple(st.dims[:st.n_layers + 1]), nv_st.L,
+                                                nv_st.K, T, nv_st.kc_max))
+
+
 def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: int,
                     policy: str = "ppo", act_name: str = "tanh", device=None):
     """One full stochastic-policy Newsvendor episode per lane with the
@@ -2721,11 +2749,16 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
     ``clipped_std``. Returns a dict, all float32: ``econ (5, batch)``,
     ``orders (T, batch)`` (the capped orders, the obs pipeline's stream),
     ``raw (T, 1, batch)`` (pre-squash samples), ``reward (T, batch)``
-    (undiscounted, env semantics) and ``demand (T, batch)``. K18: one thread
-    per lane (csrc/nv_policy.cu ``k_nv_rollout_traj``); on the CPU the plain
-    version runs. ``policy``/``act_name`` select the head and the trunk
-    (``traj_policy``): the default ("ppo", "tanh") is K18's; any other pair
-    is ``rollout_traj_nv_offpolicy``'s (K28), whose ``raw`` holds the
+    (undiscounted, env semantics) and ``demand (T, batch)``. K18: K19's tile
+    with one stochastic episode a lane and the streams written, the actor on
+    the tensor cores and every period's demand searched at the reset
+    (csrc/nv_policy.cu ``k_nv_policy_returns<1, 0, 1, LAYOUT>`` on
+    csrc/mlp_tile.cuh, laid out by ``_nv_tile_choice`` as K19), so its
+    streams are the stochastic K19's episode 0 for the same seed; a launch
+    that fails raises. On the CPU the plain version runs.
+    ``policy``/``act_name`` select the head and the trunk (``traj_policy``):
+    the default ("ppo", "tanh") is K18's; any other pair is
+    ``rollout_traj_nv_offpolicy``'s (K28), whose ``raw`` holds the
     normalised [-1, 1] orders."""
     _check_head(policy, act_name)
     if (policy, act_name) != ("ppo", "tanh"):
@@ -2733,19 +2766,21 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
                                          act_name, device)
     if log_std is None:
         raise ValueError("rollout_traj_nv samples the stochastic policy: log_std is required")
-    dev, std, mlp, flat = _nv_policy_args(params, actor, log_std, batch, 1, device)
+    dev, std, st, flat = _nv_policy_args(params, actor, log_std, batch, 1, device)
     seed = int(seed) & rng.MASK32
     if dev.type == "cpu":
         return _rollout_traj_nv_plain(params, actor, std, seed, batch, dev)
     plan = _nv_plan(params, _plan_key(dev))
     T = params.step_limit
+    tile, nt = _nv_tile_launch(st, plan["struct"], T)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(econ=torch.empty((5, batch), **f32), orders=torch.empty((T, batch), **f32),
                raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **f32))
     with torch.cuda.device(dev):
         _launch("nv_policy", "nv_rollout_traj", ctypes.addressof(plan["struct"]),
-                ctypes.addressof(mlp), flat.data_ptr(), flat.numel(), plan["lgam"].data_ptr(),
+                ctypes.addressof(tile), ctypes.addressof(nt), flat.data_ptr(),
+                plan["lgam"].data_ptr(),
                 *(out[k].data_ptr() for k in ("econ", "orders", "raw", "reward", "demand")),
                 seed, batch, T, _stream(dev))
     rollout_traj_nv.launches += 1
@@ -2819,15 +2854,14 @@ def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     (E, 5, B), orders (T, E, B), demands (T, E, B)), the streams None
     without ``dump``."""
     E = int(episodes_per_lane)
-    dev, std, st, flat = _nv_policy_args(params, actor, log_std, batch, E, device, tile=True)
+    dev, std, st, flat = _nv_policy_args(params, actor, log_std, batch, E, device)
     seed = int(seed) & rng.MASK32
     if dev.type == "cpu":
         return _nv_policy_plain(params, actor, std, seed, batch, E, dev, dump)
     plan = _nv_plan(params, _plan_key(dev))
     T = params.step_limit
     nv_st = plan["struct"]
-    tile, nt = _nv_tile_structs(st, _nv_tile_choice(
-        tuple(st.dims[:st.n_layers + 1]), nv_st.L, nv_st.K, T, nv_st.kc_max))
+    tile, nt = _nv_tile_launch(st, nv_st, T)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((E, batch), **f32)
     econ = acts = dems = None
