@@ -87,8 +87,9 @@ in phase 25 (at 65,536 x 30 with a seeded actor of the benchmark widths,
 Poisson demand in backlog and lost sales, binomial and USER mode, with K7
 on K23's streams, K24 replayed through the env step chain, its raws
 squashed to its actions and a NaN std), K25/K26 in phase 30 (K25 on 30
-chained periods at 65,536 lanes, backlog and lost sales; K26 on K3's demand
-against K2 and plain K26) and K27-K29 in phase 32 (at 65,536 lanes and at
+chained periods at 65,536 lanes, backlog and lost sales, on the default,
+two-retail and custom graphs; K26 on K3's demand against K2 and plain K26)
+and K27-K29 in phase 32 (at 65,536 lanes and at
 the learners' 1,024, with a seeded actor of SB3's default (256, 256) relu
 widths, heads det, sac and uniform, the demand against K10/K18/K4's on the
 same seed, a_norm teacher-forced on the kernel's own obs, each kernel's
@@ -107,7 +108,9 @@ K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
 (phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
 (phase 25). Phase 2 prints each kernel's registers and stack frame from
 ``ptxas -v``, and the local-memory loads and stores (LDL/STL) in the SASS
-of net_episode.cu's kernels; it fails unless K5/K6's deterministic
+of net_episode.cu's kernels; it fails unless K1 and K25 (their state in
+shared memory), and K2, K3 and K26 with them, have no stack frame and no
+LDL/STL, K5/K6's deterministic
 instances (the state in shared memory) have none (the stochastic ones keep
 only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
 hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
@@ -120,7 +123,9 @@ stochastic episode a lane and their streams written (``TRAJ_INSTANCES``:
 kernels' stochastic instances; K27-K29's cluster instances
 (csrc/cluster_mlp.cuh) must all be built and spill nothing, their products on the FP32 cores (no HMMA).
 Phase 6 also times K1 at the 1,024 and 4,096 lanes x 30 at which bench.py's
-cross-check launches it (16 of its 17 launches are at 1,024).
+cross-check launches it (16 of its 17 launches are at 1,024), each shape
+through the entry point and the kernel alone (the C entry point with its
+plan made before, its returns the entry point's bit for bit).
 Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
@@ -165,7 +170,9 @@ K9 and K10) bit for bit; the InvManagement int32 state of the env step
 chain against K10's inv exactly; K1-K3 and K7-K8 against their plain
 versions, the fused kernels against the stream-in kernels, and the
 stream-in kernels on K4/K6/K10's streams against their rewards and K5's
-returns, rtol=1e-5 atol=1e-3 (f32 sums in another order, FMA contraction);
+returns, rtol=1e-5 atol=1e-3 (f32 sums in another order, FMA contraction),
+except K2 against K1 on K3's streams, bit for bit (one episode body, one
+order of sums);
 the env step chain against the stream-in kernel and K4/K10's reward
 streams rtol=1e-4 atol=1e-2 (bench.py:156); K4's raws against the folded
 actor on the assembled obs plus the plain normals atol=1e-4 (matmul sums
@@ -864,6 +871,31 @@ def k8_frame_check(logs):
             + "; ".join(ptx))
 
 
+def net_episode_frame_check(logs, local):
+    """Phase 2's check of net_episode.cu's kernels, K1 ``k_episode_returns``
+    and K25 ``k_batched_step`` (their state in shared memory since they
+    left the thread's Episode frame) with K2, K3 and K26: none has a stack
+    frame (ptxas, where this run built the library) or a local-memory load
+    or store in its SASS (``local``, sass_counts of net_episode.cu).
+    Returns the line to print; raises on a miss."""
+    kernels = ("k_episode_returns", "k_batched_step", "k_episode_returns_fused",
+               "k_sample_streams", "k_episode_returns_random")
+    if local is None:
+        raise AssertionError("cuobjdump not found: K1's and K25's SASS cannot be read")
+    log = next((out for so, out in logs.items() if "libnet_episode-" in so), "")
+    ptx = {e.split(" ")[0]: e for e in ptxas_entries(log).split("; ") if e}
+    parts = []
+    for k in kernels:
+        entry = ptx.get(k)
+        if k not in local or (log and entry is None):
+            raise AssertionError(f"{k}: not in net_episode.cu's build")
+        ld, st, _ = local[k]
+        if ld or st or (entry and (" 0 B stack" not in entry or "spills" in entry)):
+            raise AssertionError(f"{k}: {ld} LDL / {st} STL, {entry}: a local frame")
+        parts.append(f"{k} {ld}/{st} LDL/STL" + (f", {entry.split(' ', 1)[1]}" if entry else ""))
+    return "; ".join(parts)
+
+
 def k2_graph_check(dev):
     """Phase 6: K2 on ``topology.two_retail_topology`` at 65,536 x 4 x 30, backlog and
     lost sales, against plain K2 on the same seed, rtol=1e-5 atol=1e-3: the
@@ -893,6 +925,29 @@ def k2_graph_check(dev):
     return worst, lines
 
 
+def k1_kernel_launch(params, acts, dems, dev):
+    """A launch of K1 alone on ``acts``/``dems``: the C entry point with the
+    plan, the discounts and the output made before, as the entry point
+    makes them (host work out of the timing). Returns (launch, its output)."""
+    import ctypes
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    num_steps, _, B = acts.shape
+    tp, disc, _ = ns._launch_plan(params, num_steps, ek._plan_key(dev), False)
+    _, lay, st = ns._k1_layout(T.n_main, T.n_reorder, T.n_retail, sum(T.ro_L))
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    args = (ctypes.addressof(tp), ctypes.addressof(lay), ctypes.addressof(st), acts.data_ptr(),
+            dems.data_ptr(), disc.data_ptr(), out.data_ptr(), B, num_steps, ek._stream(dev))
+
+    def launch():
+        ek._launch("net_episode", "net_episode_returns", *args)
+    return launch, out
+
+
 def timed_once(fn, *args):
     """(milliseconds between CUDA events around one call, its result)."""
     import torch
@@ -908,9 +963,9 @@ def timed_once(fn, *args):
 
 def cross_check(params, dev):
     """Phase 3, the main path's cross-check (bench.py:79-161): the fused
-    kernel against the stream-in kernel on its own dumped streams, at one
-    episode per lane and at E=16 dumped in ranges of 8, and the env step
-    chain on the same streams. Every kernel output is also held against its
+    kernel against the stream-in kernel on its own dumped streams, bit for
+    bit, at one episode per lane and at E=16 dumped in ranges of 8, and the
+    env step chain on the same streams. Every kernel output is also held against its
     plain version on the same inputs. Returns the max |diff| per kernel, the
     streams, which phase 6 times the kernels on, and K1's launches by its
     lanes."""
@@ -935,7 +990,7 @@ def cross_check(params, dev):
                                    ns._episode_returns_plain(params, acts, dems),
                                    1e-5, 1e-3)
     k2 = ns.episode_returns_fully_fused(params, SEED, hi, CHECK_LANES, device=dev)
-    close("K2 vs K1 on K3's streams", k2, r1, 1e-5, 1e-3)
+    exact("K2 vs K1 on K3's streams", k2, r1)   # one episode body, one order of sums
     err["episode_returns_fully_fused"] = close(
         "K2 vs plain K2", k2, ns._episode_returns_fully_fused_plain(
             params, SEED, hi, CHECK_LANES, NUM_STEPS, 1, dev)[0], 1e-5, 1e-3)
@@ -958,7 +1013,7 @@ def cross_check(params, dev):
         exact(f"K3 demands, episodes [{e0}, {e0 + 8})", d_e, pd_e)
         for e in range(e0, e0 + 8):
             per = k1(a_e[:, e - e0].contiguous(), d_e[:, e - e0].contiguous())
-            close(f"K2 episode {e} vs K1", multi[e], per, 1e-5, 1e-3)
+            exact(f"K2 episode {e} vs K1", multi[e], per)
 
     state, _ = net.reset(params, batch=CHECK_LANES, device=dev)
     chain = torch.zeros(CHECK_LANES, dtype=torch.float32, device=dev)
@@ -2365,21 +2420,29 @@ def lstm_reward_check(dev):
 
 def b6_cross_check(dev):
     """Phase 30: K25 against its plain version on 30 chained periods at
-    65,536 lanes of the default graph, backlog and lost sales (random
-    actions and demand, each period's input the kernel's last output; X, Y,
-    U, RH' and the reward within rtol=1e-5 atol=1e-3); K26 on K3's dumped
-    demand against K2's returns on the same seed and against plain K26,
-    rtol=1e-5 atol=1e-3. Returns (max |diff| per kernel, plain ms, lines)."""
+    65,536 lanes, backlog and lost sales, on the default graph and on
+    ``topology.two_retail_topology`` and ``custom_topology`` (links with
+    L = 0, which have no ring word in K25's state; several retail links;
+    periods t < L; alpha 0.97, the discount through ctypes' rounding to
+    f32): random actions and demand, each period's input the
+    kernel's last output; X, Y, U, RH' and the reward within rtol=1e-5
+    atol=1e-3. K26 on K3's dumped demand against K2's returns on the same
+    seed and against plain K26, rtol=1e-5 atol=1e-3. The plain time is the
+    default graph's. Returns (max |diff| per kernel, plain ms, lines)."""
     import torch
 
     from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import topology
     from or_gym_inventory_torch.ops import net_step as ns
     B = CHECK_LANES
     err = {"batched_step": 0.0}
     plain_ms, lines = {}, []
-    for backlog in (True, False):
-        params = net.default_params(num_periods=NUM_STEPS, backlog=backlog)
-        case = "backlog" if backlog else "lost sales"
+    graphs = (("default", topology.default_topology), ("two-retail", topology.two_retail_topology),
+              ("custom", topology.custom_topology))
+    for (graph, topo_fn), backlog in ((g, b) for g in graphs for b in (True, False)):
+        params = net.default_params(topology=topo_fn(NUM_STEPS), num_periods=NUM_STEPS,
+                                    backlog=backlog, alpha=1.0 if graph == "default" else 0.97)
+        case = f"{graph} graph, {'backlog' if backlog else 'lost sales'}"
         T = params.topology
         hi = float(T.order_cap_heuristic * 2)
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -2390,13 +2453,14 @@ def b6_cross_check(dev):
             got = ns.batched_step(params, X, Y, U, RH, action, demand, t)
             ms, want = timed_once(ns._batched_step_plain, params, X, Y, U, RH, action, demand,
                                   t)
-            plain_ms["batched_step"] = min(plain_ms.get("batched_step", ms), ms)
+            if graph == "default":
+                plain_ms["batched_step"] = min(plain_ms.get("batched_step", ms), ms)
             for name, a, b in zip(("X", "Y", "U", "RH", "reward"), got, want):
                 err["batched_step"] = max(err["batched_step"],
                                           close(f"K25 {name}[{t}], {case}", a, b, 1e-5, 1e-3))
             X, Y, U, RH = got[:4]
-        lines.append(f"K25 vs plain, {case}: {NUM_STEPS} chained periods at {B} lanes within "
-                     "rtol=1e-5 atol=1e-3")
+        lines.append(f"K25 vs plain, {case} (lead times {T.ro_L}): {NUM_STEPS} chained "
+                     f"periods at {B} lanes within rtol=1e-5 atol=1e-3")
     params = net.default_params(num_periods=NUM_STEPS)
     hi = float(params.topology.order_cap_heuristic * 2)
     _, dems = ns.sample_streams_debug(params, SEED, hi, B, device=dev)
@@ -3195,6 +3259,8 @@ def main() -> int:
           "graph; SASS LDL/STL per kernel of net_episode.cu: "
           + ("cuobjdump not found" if local is None else
              ", ".join(f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(local.items()))), flush=True)
+    print("[2 build] K1-K3, K25 and K26 (net_episode.cu; K1 and K25 on shared-memory state "
+          "staged by cp.async), no frame: " + net_episode_frame_check(logs, local), flush=True)
     print("[2 build] K4-K6, K10-K12 and K18-K20 on the tensor-core tile (mlp_tile.cuh; K4, "
           f"K10 and K18 = {', '.join(k for ks in TRAJ_INSTANCES.values() for k in ks)}): "
           + tile_sass_check(logs), flush=True)
@@ -3208,7 +3274,8 @@ def main() -> int:
     t0 = time.perf_counter()
     err, acts, dems, k1_lanes = cross_check(params, dev)
     print(f"[3 cross-check] K3 streams bit-exact; K1, K2 within rtol=1e-5 atol=1e-3 "
-          f"of their plain versions and of each other; step chain within rtol=1e-4 "
+          f"of their plain versions; K2 equal to K1 on K3's streams bit for bit (65,536 "
+          f"lanes, and each of the 16 episodes at 1,024); step chain within rtol=1e-4 "
           f"atol=1e-2; {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     mean, k2_plain_ms = episode_returns_at_scale(params, dev, err, wrappers)
@@ -3257,6 +3324,13 @@ def main() -> int:
     words = T.n_reorder + T.n_retail
     k1_t = cuda_time(ns.episode_returns, params, acts, dems, warmup=2, iters=20)
     k1_p = cuda_time(ns._episode_returns_plain, params, acts, dems, warmup=1, iters=3)
+
+    def k1_alone(a, d):   # K1 alone, its output first held against the entry point's
+        launch, out = k1_kernel_launch(params, a, d, dev)
+        launch()
+        exact("K1 alone vs the entry point", out, ns.episode_returns(params, a, d))
+        return cuda_time(launch, warmup=2, iters=20)["best_ms"]
+    k1_alone_ms = {CHECK_LANES: k1_alone(acts, dems)}
     k3_t = cuda_time(ns.sample_streams_debug, params, SEED, hi, CHECK_LANES,
                      NUM_STEPS, 1, None, dev, warmup=2, iters=20)
     k3_p = cuda_time(ns._sample_streams_plain, params, SEED, hi, CHECK_LANES,
@@ -3271,9 +3345,11 @@ def main() -> int:
         k1_by_lanes[lanes] = (cuda_time(ns.episode_returns, params, a1, d1, warmup=2, iters=20),
                               cuda_time(ns._episode_returns_plain, params, a1, d1, warmup=1,
                                         iters=3))
+        k1_alone_ms[lanes] = k1_alone(a1, d1)
         del a1, d1
     k1_shapes = {f"{lanes}x{NUM_STEPS}": {
         "launches": k1_lanes.get(lanes, 0), "ms": t["best_ms"], "plain_ms": pt["best_ms"],
+        "kernel_ms": k1_alone_ms[lanes],
         "bound_ms": bound(lanes * (NUM_STEPS * words + 1) * 4,
                           lanes * NUM_STEPS * step_ops(T))[0]}
         for lanes, (t, pt) in k1_by_lanes.items()}
@@ -3295,7 +3371,8 @@ def main() -> int:
         print_kernel(6, name, times[name], work[name], launches[name])
     print("[6 kernel] episode_returns by shape (launches on the main path: bench.py's "
           "cross-check, once at 65,536 lanes and once per episode at 1,024): " + "; ".join(
-              f"{k}: {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+              f"{k}: {v['ms']:.4f} ms through the entry point, {v['kernel_ms']:.4f} ms the "
+              f"kernel alone, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
               f"ms by bytes ({v['bound_ms'] / v['ms']:.1%} of it), launches {v['launches']}"
               for k, v in k1_shapes.items()) + f" on {smi}", flush=True)
     t0 = time.perf_counter()

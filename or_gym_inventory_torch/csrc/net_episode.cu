@@ -1,41 +1,64 @@
 // NetInvMgmt whole-episode kernels for Hopper (sm_90a), bound with ctypes
 // by ops/_build.py and wrapped by ops/net_step.py, whose plain PyTorch
-// versions compute the same functions.
+// versions compute the same functions. K1, K2, K25 and K26 keep a lane's
+// state in dynamic shared memory (net_step.cuh SharedView, [word][thread]);
+// K3 keeps none. No kernel here has a stack frame.
 //
 // K1 k_episode_returns  replaces pallas_net_step.episode_returns (:820,
-//    body _episode_kernel_body :144, step _step_math :34). One thread per
-//    env reads its (T, n_ro) actions and (T, n_rt) demands, coalesced along
-//    B, and keeps the state in registers and local memory for the whole
-//    episode. Bound by bytes: (T*(n_ro+n_rt)+1)*4 per env, read once.
+//    body _episode_kernel_body :144, step _step_math :34): the returns of
+//    given (T, n_ro, B) actions and (T, n_rt, B) demand. One thread a lane
+//    runs K2's episode body (shared_episode, step_view on the shared state),
+//    so on K3's streams it gives K2's returns bit for bit. Its periods' n_ro
+//    + n_rt words are staged into shared memory ahead of the step by 4-byte
+//    cp.async copies, coalesced across the warp (one row of a block's lanes
+//    is contiguous in B) and needing no alignment, so any B works: two
+//    buffers of `chunk` periods, the next chunk copied while this one is
+//    stepped (commit_group / wait_group 1), so no global load sits on a
+//    period's chain. ops/net_step.py _k1_plan lays the staging beside the
+//    state (NetStage): 4 periods a buffer, 128 threads a block where that
+//    fits. Bound by bytes, (T*(n_ro+n_rt)+1)*4 per lane read once, but at
+//    the main path's shapes a lane's chain of T dependent steps sets the
+//    time: on an H100 80GB HBM3 at 700 W, 0.118-0.127 ms alone at 1,024 and
+//    4,096 lanes x 30 whatever the block size, 0.248-0.257 at 65,536
+//    (11.0-11.4% of its bound); the first design, the state in the
+//    1,792-byte Episode frame in local memory (tools/net_episode_parent.cu),
+//    0.148-0.155 and 1.037-1.060 in turns (tools/net_k1_k25_sweep.py,
+//    PERF.md).
 // K2 k_episode_returns_fused  replaces episode_returns_fully_fused (:379).
 //    Actions and demand are drawn in the kernel, so only the returns leave
 //    it. Bound by operations: per env-step three Philox4x32-10 blocks, the
 //    contention chain, deliveries, retail, profit and one binary search per
 //    table link. One thread per (episode, lane): the TPU interleaved E
 //    episodes per lane to hide the serial contention chain (:312-318); here
-//    more resident threads do that job, so E only widens the grid. The
-//    first version kept the state in a 2,240-byte local-memory frame whose
-//    traffic went out to HBM (2,217 ms at 4,194,304 x 16 x 30, 0.8% of the
-//    bound). Now the state is in shared memory (net_step.cuh SharedView,
-//    432 bytes a thread on the default graph, 4 blocks of 128 an SM) and
-//    step_view makes one pass over the links, drawing each action word as
-//    it reaches the link: no stack, no local loads or stores, 163-166 ms,
-//    10.5-10.7% of the 17.52 ms bound (H100 80GB HBM3, 700 W). Blocks of
-//    256 were ~1% faster (tools/k2_block_sweep.py), less than the spread
-//    between runs, so K2 keeps launch.cuh's kThreads.
+//    more resident threads do that job, so E only widens the grid. The state
+//    is in shared memory (432 bytes a thread on the default graph, 4 blocks
+//    of 128 an SM) and step_view makes one pass over the links, drawing each
+//    action word as it reaches the link: 163-166 ms at 4,194,304 x 16 x 30,
+//    10.5-10.7% of the 17.52 ms bound (H100 80GB HBM3, 700 W; the first
+//    version's local frame went out to HBM, 2,217 ms). Blocks of 256 were ~1%
+//    faster (tools/k2_block_sweep.py), less than the spread between runs, so
+//    K2 keeps launch.cuh's kThreads.
 // K3 k_sample_streams  replaces sample_streams_debug (:427). It writes the
-//    streams K2 draws for episodes [e0, e1), through the same draw_period.
-//    The counter-based generator needs no replay of the other episodes.
-//    Bound by bytes: the streams it writes.
+//    streams K2 draws for episodes [e0, e1) (draw_period: K2's draws, each
+//    value stored as it is drawn). The counter-based generator needs no
+//    replay of the other episodes. Bound by bytes: the streams it writes.
 // K25 k_batched_step  replaces batched_step (:774, body _kernel_body :112):
 //    one period of a lockstep batch on the transposed (rows, B) state X, Y,
 //    U and the newest-first order history RH (lt x n_ro rows), with the
 //    actions and demand given; writes X', Y', U', RH' and the reward
-//    alpha^t * profit. One thread per lane: it loads the lane's rows into
-//    step_period's Episode, with the one order of each link that arrives
-//    this period (RH row L_i - 1, times the arrival mask t >= L_i) in slot 0
-//    of the link's ring, steps, and writes RH' as the new orders followed by
-//    RH's first lt - 1 rows. Bound by bytes: every row read and written once.
+//    alpha^t * profit. One thread a lane copies (cp.async) the lane's X, Y,
+//    U, actions, demand and, for each link with L > 0, the one order that
+//    arrives this period (RH row L_i - 1, times the mask t >= L_i) into
+//    shared memory: one ring word a link, which the packed topology's
+//    ro_ring names (ops/net_step.py _k25_plan), not the episode's sum L_i
+//    ring. While those copies fly, the grid copies RH's first (lt - 1) n_ro
+//    rows to RH' rows n_ro.. (one contiguous block, float4 where both ends
+//    are 16-byte aligned): most of the kernel's bytes. Then step_view runs
+//    and hands the fulfilled orders straight to RH' rows 0..n_ro-1 (ToRows).
+//    Bound by bytes: every row read and written once, 0.0245 ms at 65,536
+//    lanes; 0.046-0.054 ms alone there on an H100 80GB HBM3 at 700 W (the
+//    copy alone 0.042-0.049), against the first design's 0.075-0.083 on the
+//    local frame (tools/net_k1_k25_sweep.py, PERF.md).
 // K26 k_episode_returns_random  replaces episode_returns_random_policy
 //    (:857, body _episode_kernel_body_inkernel_actions :169): whole-episode
 //    returns with the uniform [0, act_hi) actions drawn in the kernel and
@@ -46,12 +69,11 @@
 //    Philox blocks and the step. 0.19-0.23 ms at 65,536 x 30, 7-8% of the
 //    bound (first version, on the local frame, 0.95 ms).
 //
-// The period step (step_view, on an Episode or on shared memory) is in
-// net_step.cuh, shared with the policy kernels; its notes list the
-// semantics that are easy to get wrong. The batch tail is masked, so any
-// B >= 1 works (no TPU tile assert). Discount: alpha**t is a Python double
-// rounded to f32 in the JAX kernel (:165); the wrapper passes that table,
-// the kernel calls no powf.
+// The period step (step_view) is in net_step.cuh, shared with the policy
+// kernels; its notes list the semantics that are easy to get wrong. The
+// batch tail is masked, so any B >= 1 works (no TPU tile assert). Discount:
+// alpha**t is a Python double rounded to f32 in the JAX kernel (:165); the
+// wrapper passes that table (K25: that value), the kernel calls no powf.
 
 #include <cuda_runtime.h>
 
@@ -59,27 +81,45 @@
 #include "net_step.cuh"
 #include "philox.cuh"
 
+// The staging words beside a thread's state (K1 and K25), laid out by
+// ops/net_step.py _k1_plan / _k25_plan (mirrored there by _NetStage): a
+// thread's words in all, the first staging word, the periods a buffer, and
+// the threads a block. A staged period is its n_ro action words, then its
+// n_rt demand words, [word][thread] like the state. K1 keeps two buffers of
+// `chunk` periods; K25 stages its one period (chunk 1) once.
+struct NetStage {
+  int words, stage, chunk, threads;
+};
+
 namespace {
 
-__global__ void k_episode_returns(const __grid_constant__ NetTopo tp,
-                                  const float* __restrict__ acts,
-                                  const float* __restrict__ dems,
-                                  const float* __restrict__ disc,
-                                  float* __restrict__ out, long long B, int T) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  Episode s;
-  episode_reset(tp, s);
-  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+// Hopper's asynchronous copy of 4 bytes from global to shared memory,
+// issued by the thread that later reads it: needs no alignment beyond the
+// word's, and completes by the thread's own wait_group.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One episode's discounted return on the shared state s: the reset, then
+// per period t the profit period(t) of one step_view, discounted by disc[t].
+// K1, K2 and K26 run it, so the three sum alike.
+template <class Period>
+__device__ __forceinline__ float shared_episode(const NetTopo& tp, const SharedView& s,
+                                                const float* __restrict__ disc, int T,
+                                                Period period) {
+  reset_view(tp, s);
   float total = 0.f;
-  for (int t = 0; t < T; ++t) {
-    for (int i = 0; i < tp.n_ro; ++i)
-      act[i] = __ldg(acts + ((long long)t * tp.n_ro + i) * B + b);
-    for (int j = 0; j < tp.n_rt; ++j)
-      dem[j] = __ldg(dems + ((long long)t * tp.n_rt + j) * B + b);
-    total += __ldg(disc + t) * step_period(tp, s, act, dem, r);
-  }
-  out[b] = total;
+  for (int t = 0; t < T; ++t) total += __ldg(disc + t) * period(t);
+  return total;
 }
 
 // The random policy's discounted return on the shared state s: per period
@@ -91,14 +131,48 @@ __device__ __forceinline__ float random_episode(const NetTopo& tp, const SharedV
                                                 float act_scale,
                                                 const float* __restrict__ disc, int T,
                                                 DemandOf demand) {
-  reset_view(tp, s);
-  float total = 0.f;
-  for (int t = 0; t < T; ++t) {
+  return shared_episode(tp, s, disc, T, [&](int t) {
     WordStream ws(seed, 0u, lane, e, (unsigned)t);
-    total += __ldg(disc + t) *
-             step_view(tp, s, DrawnActions{ws, act_scale}, demand(ws, t), NoSink{});
-  }
-  return total;
+    return step_view(tp, s, DrawnActions{ws, act_scale}, demand(ws, t), NoSink{});
+  });
+}
+
+__global__ void k_episode_returns(const __grid_constant__ NetTopo tp,
+                                  const __grid_constant__ NetSmem lay,
+                                  const __grid_constant__ NetStage st,
+                                  const float* __restrict__ acts,
+                                  const float* __restrict__ dems,
+                                  const float* __restrict__ disc,
+                                  float* __restrict__ out, long long B, int T) {
+  extern __shared__ float net_state[];
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int n = blockDim.x, n_ro = tp.n_ro, n_rt = tp.n_rt, C = st.chunk;
+  const int period_words = (n_ro + n_rt) * n;  // a staged period's stride
+  float* const stage = net_state + st.stage * n + threadIdx.x;
+  // copy periods [t0, min(t0 + C, T)) into buffer (t0 / C) % 2, one group
+  auto issue = [&](int t0) {
+    float* dst = stage + ((t0 / C) & 1) * C * period_words;
+    for (int t = t0; t < min(t0 + C, T); ++t, dst += period_words) {
+      const float* a = acts + (long long)t * n_ro * B + b;
+      const float* d = dems + (long long)t * n_rt * B + b;
+      for (int i = 0; i < n_ro; ++i) cp_async4(dst + i * n, a + i * B);
+      for (int j = 0; j < n_rt; ++j) cp_async4(dst + (n_ro + j) * n, d + j * B);
+    }
+    cp_async_commit();
+  };
+  const SharedView s(net_state, lay);
+  issue(0);
+  out[b] = shared_episode(tp, s, disc, T, [&](int t) {
+    const int c = t % C;
+    if (c == 0) {
+      if (t + C < T) issue(t + C);  // into the buffer the last chunk used
+      else cp_async_commit();       // an empty group keeps the count
+      cp_async_wait<1>();           // this chunk's group has landed
+    }
+    const float* p = stage + (((t / C) & 1) * C + c) * period_words;
+    return step_view(tp, s, FromColumn{p, n}, FromColumn{p + n_ro * n, n}, NoSink{});
+  });
 }
 
 __global__ void k_episode_returns_fused(const __grid_constant__ NetTopo tp,
@@ -130,17 +204,18 @@ __global__ void k_sample_streams(const __grid_constant__ NetTopo tp,
   if (idx >= B * W) return;
   const int w = (int)(idx / B);
   const unsigned lane = (unsigned)(idx - (long long)w * B);
-  float act[NET_MAX_RO], dem[NET_MAX_RT];
   for (int t = 0; t < T; ++t) {
-    draw_period(tp, tables, seed, lane, (unsigned)(e0 + w), (unsigned)t,
-                act_scale, act, dem);
     const long long row = (long long)t * W + w;  // (T, W, rows, B)
-    for (int i = 0; i < tp.n_ro; ++i) acts[(row * tp.n_ro + i) * B + lane] = act[i];
-    for (int j = 0; j < tp.n_rt; ++j) dems[(row * tp.n_rt + j) * B + lane] = dem[j];
+    draw_period(tp, tables, seed, lane, (unsigned)(e0 + w), (unsigned)t, act_scale,
+                ToRows{acts + row * tp.n_ro * B + lane, B, true},
+                ToRows{dems + row * tp.n_rt * B + lane, B, true});
   }
 }
 
+// tp.ro_ring[i] is link i's one ring word among the links with L > 0
 __global__ void k_batched_step(const __grid_constant__ NetTopo tp,
+                               const __grid_constant__ NetSmem lay,
+                               const __grid_constant__ NetStage st,
                                const float* __restrict__ X, const float* __restrict__ Y,
                                const float* __restrict__ U, const float* __restrict__ RH,
                                const float* __restrict__ acts,
@@ -148,30 +223,54 @@ __global__ void k_batched_step(const __grid_constant__ NetTopo tp,
                                float* __restrict__ Yo, float* __restrict__ Uo,
                                float* __restrict__ RHo, float* __restrict__ rew,
                                float disc, int t, int lt, long long B) {
+  extern __shared__ float net_state[];
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const int n = blockDim.x, n_ro = tp.n_ro;
+  const SharedView s(net_state, lay);
+  float* const in = net_state + st.stage * n + threadIdx.x;  // actions, then demand
+  if (b < B) {  // the lane's inputs, in flight during the copy below
+    for (int k = 0; k < tp.n_main; ++k) cp_async4(&s.X(k), X + k * B + b);
+    for (int j = 0; j < tp.n_rt; ++j) {
+      cp_async4(&s.U(j), U + j * B + b);
+      cp_async4(in + (n_ro + j) * n, dems + j * B + b);
+    }
+    for (int i = 0; i < n_ro; ++i) {
+      cp_async4(&s.Y(i), Y + i * B + b);
+      cp_async4(in + i * n, acts + i * B + b);
+      const int L = tp.ro_L[i];
+      if (L > 0) cp_async4(&s.ring(tp.ro_ring[i]), RH + ((long long)(L - 1) * n_ro + i) * B + b);
+    }
+    cp_async_commit();
+  }
+  // RH' rows [n_ro, lt n_ro) = RH rows [0, (lt - 1) n_ro): one block of
+  // (lt - 1) n_ro B floats, spread over the grid's threads
+  const long long len = (long long)(lt - 1) * n_ro * B;
+  const float* src = RH;
+  float* dst = RHo + (long long)n_ro * B;
+  const long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long G = (long long)gridDim.x * blockDim.x;
+  long long k0 = 0;
+  if (((reinterpret_cast<size_t>(src) | reinterpret_cast<size_t>(dst)) & 15) == 0) {
+    const long long len4 = len / 4;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+    for (long long k = g; k < len4; k += G) d4[k] = __ldg(s4 + k);
+    k0 = len4 * 4;
+  }
+  for (long long k = k0 + g; k < len; k += G) dst[k] = __ldg(src + k);
   if (b >= B) return;
-  const int n_ro = tp.n_ro;
-  Episode s;
-  for (int n = 0; n < tp.n_main; ++n) s.X[n] = X[n * B + b];
-  for (int j = 0; j < tp.n_rt; ++j) s.U[j] = U[j * B + b];
-  float act[NET_MAX_RO], dem[NET_MAX_RT], r[NET_MAX_RO];
+  cp_async_wait<0>();
   for (int i = 0; i < n_ro; ++i) {
-    s.Y[i] = Y[i * B + b];
-    s.slot[i] = 0;
+    s.slot(i) = 0;
     const int L = tp.ro_L[i];
-    if (L > 0)
-      s.ring[tp.ro_ring[i]] = RH[((long long)(L - 1) * n_ro + i) * B + b] * (t >= L ? 1.f : 0.f);
-    act[i] = acts[i * B + b];
+    if (L > t) s.ring(tp.ro_ring[i]) *= 0.f;  // the mask t >= L_i, NaN kept as the JAX kernel does
   }
-  for (int j = 0; j < tp.n_rt; ++j) dem[j] = dems[j * B + b];
-  const float profit = step_period(tp, s, act, dem, r);
-  for (int n = 0; n < tp.n_main; ++n) Xo[n * B + b] = s.X[n];
-  for (int j = 0; j < tp.n_rt; ++j) Uo[j * B + b] = s.U[j];
-  for (int i = 0; i < n_ro; ++i) {
-    Yo[i * B + b] = s.Y[i];
-    RHo[i * B + b] = r[i];
-  }
-  for (long long k = n_ro; k < (long long)lt * n_ro; ++k) RHo[k * B + b] = RH[(k - n_ro) * B + b];
+  const float profit = step_view(tp, s, FromColumn{in, n}, FromColumn{in + n_ro * n, n},
+                                 ToRows{RHo + b, B, true});
+  for (int k = 0; k < tp.n_main; ++k) Xo[k * B + b] = s.X(k);
+  for (int j = 0; j < tp.n_rt; ++j) Uo[j * B + b] = s.U(j);
+  for (int i = 0; i < n_ro; ++i) Yo[i * B + b] = s.Y(i);
   rew[b] = disc * profit;
 }
 
@@ -202,15 +301,24 @@ cudaError_t allow_state(K kernel, size_t bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// A staged kernel's (K1, K25) block: st.words a thread, st.threads a block.
+size_t staged_smem(const NetStage& st) { return (size_t)st.words * st.threads * sizeof(float); }
+unsigned staged_blocks(const NetStage& st, long long B) {
+  return (unsigned)((B + st.threads - 1) / st.threads);
+}
+
 }  // namespace
 
 extern "C" {
 
-int net_episode_returns(const NetTopo* topo, const float* acts,
-                        const float* dems, const float* disc, float* out,
+int net_episode_returns(const NetTopo* topo, const NetSmem* lay, const NetStage* st,
+                        const float* acts, const float* dems, const float* disc, float* out,
                         long long B, int T, cudaStream_t stream) {
-  k_episode_returns<<<blocks_for(B), kThreads, 0, stream>>>(*topo, acts, dems,
-                                                            disc, out, B, T);
+  const size_t smem = staged_smem(*st);
+  cudaError_t err = allow_state(k_episode_returns, smem);
+  if (err != cudaSuccess) return (int)err;
+  k_episode_returns<<<staged_blocks(*st, B), st->threads, smem, stream>>>(
+      *topo, *lay, *st, acts, dems, disc, out, B, T);
   return (int)cudaGetLastError();
 }
 
@@ -234,12 +342,16 @@ int net_sample_streams(const NetTopo* topo, const float* tables, float* acts,
   return (int)cudaGetLastError();
 }
 
-int net_batched_step(const NetTopo* topo, const float* X, const float* Y, const float* U,
-                     const float* RH, const float* acts, const float* dems, float* Xo,
-                     float* Yo, float* Uo, float* RHo, float* rew, float disc, int t, int lt,
-                     long long B, cudaStream_t stream) {
-  k_batched_step<<<blocks_for(B), kThreads, 0, stream>>>(*topo, X, Y, U, RH, acts, dems, Xo,
-                                                         Yo, Uo, RHo, rew, disc, t, lt, B);
+int net_batched_step(const NetTopo* topo, const NetSmem* lay, const NetStage* st,
+                     const float* X, const float* Y, const float* U, const float* RH,
+                     const float* acts, const float* dems, float* Xo, float* Yo, float* Uo,
+                     float* RHo, float* rew, float disc, int t, int lt, long long B,
+                     cudaStream_t stream) {
+  const size_t smem = staged_smem(*st);
+  cudaError_t err = allow_state(k_batched_step, smem);
+  if (err != cudaSuccess) return (int)err;
+  k_batched_step<<<staged_blocks(*st, B), st->threads, smem, stream>>>(
+      *topo, *lay, *st, X, Y, U, RH, acts, dems, Xo, Yo, Uo, RHo, rew, disc, t, lt, B);
   return (int)cudaGetLastError();
 }
 

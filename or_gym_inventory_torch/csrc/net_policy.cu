@@ -96,13 +96,6 @@ struct TileView : SharedView {
   __device__ float& sold(int k) const { return scratch_[(2 * nm + k) * S]; }
 };
 
-// A column of a [row][lane] buffer in shared memory, read as a step source.
-struct FromColumn {
-  const float* p;
-  int S;
-  __device__ float operator()(int k) const { return p[k * S]; }
-};
-
 // The words of one (lane, episode, period) of K5/K6 into the thread's
 // columns: the demand of each retail link into dem and, when stochastic,
 // the n_ro normals of the u1 then the u2 words into z.

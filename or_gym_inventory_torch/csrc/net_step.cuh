@@ -26,14 +26,15 @@
 // ro_pur[i], ro_ring[i], rt_ret[j]), so it cannot live in registers.
 // step_view is one body over two views of it, with the same accessors:
 // - FrameView: a thread's own Episode, sized to net_topo.cuh's maxima, in
-//   local memory. K1, K25 and K29's wide route keep it (K1: 1,792 bytes a
-//   thread).
+//   local memory (1,792 bytes a thread). Only K29's wide route keeps it.
 // - SharedView: the words the real graph needs (4 n_main + 2 n_ro + n_rt +
 //   sum L_i: 108 on the default graph, 400 at the maxima) in dynamic shared
 //   memory, laid out [word][thread] so that a warp's 32 accesses to one
 //   warp-uniform word fall on 32 banks. ops/net_step.py _shared_state_plan
-//   sizes it. K2, K26, K4-K6 (over a tile's lanes) and K29 on the cluster
-//   (over a CTA's lanes, [word][lane]) take it.
+//   sizes it. K1, K2, K26, K4-K6 (over a tile's lanes) and K29 on the
+//   cluster (over a CTA's lanes, [word][lane]) take it; K25 takes it with
+//   one ring word per link with L > 0 (the arriving order; its packed
+//   topology's ro_ring names that word), since it steps a single period.
 // K2 first kept the frame. At 4,194,304 x 16 threads its ~624 live bytes a
 // thread outran L1 and L2, and the old step's ~400 frame accesses an
 // env-step (seven scratch arrays zeroed, three passes over the links, a
@@ -41,7 +42,8 @@
 // operations bound. step_view makes one pass over the links and sums the
 // profit into a scalar, ~200 accesses an env-step, all to shared memory in
 // K2 and K26: 0 bytes of stack, and K2 at 163-166 ms, 10.5-10.7% of its
-// 17.52 ms bound, on an H100 80GB HBM3 at 700 W (PERF.md).
+// 17.52 ms bound, on an H100 80GB HBM3 at 700 W (PERF.md). K1 and K25 left
+// the frame in the same way (net_episode.cu).
 //
 // The NetInvMgmt draws are here too (link_demand, draw_period, and the
 // step's action and demand sources), built on philox.cuh. Random-policy
@@ -59,8 +61,8 @@
 #include "net_topo.cuh"
 #include "philox.cuh"
 
-// The thread frame of the array-fed kernels: the state, and the step's
-// per-node scratch (consumed, arrivals, sold).
+// The thread frame of K29's wide route: the state, and the step's per-node
+// scratch (consumed, arrivals, sold).
 struct Episode {
   float X[NET_MAX_MAIN];
   float Y[NET_MAX_RO];
@@ -159,6 +161,12 @@ struct FromArray {  // a thread's own array
   __device__ float operator()(int k) const { return p[k]; }
 };
 
+struct FromColumn {  // a column of a [row][lane] buffer in shared memory
+  const float* p;
+  int S;  // the stride between the column's rows
+  __device__ float operator()(int k) const { return p[k * S]; }
+};
+
 struct FromStream {  // a (rows, B) slice of device memory, p at row 0 of the lane
   const float* p;
   long long stride;
@@ -226,32 +234,47 @@ __device__ __forceinline__ float step_view(const NetTopo& tp, const S& s, const 
   // 0-1) per reorder link: fulfillment with sequential supplier contention,
   // the delivery and the pipeline, the link's profit terms
   for (int i = 0; i < tp.n_ro; ++i) {
+    // The link's loads first. None of them aliases a store of this
+    // iteration (distinct fields; a link's supplier is not its purchaser),
+    // but the compiler cannot know it and would hold each load behind the
+    // store before it: loaded here, they issue together instead of one
+    // shared-memory round trip after another on the lane's chain.
+    const int sup = tp.ro_sup[i], pur = tp.ro_pur[i], L = tp.ro_L[i];
     const float req = max_nan(0.f, rintf(act(i)));
-    const int sup = tp.ro_sup[i];
+    const float y_in = s.Y(i), arr_in = s.arrivals(pur);
+    float x_sup = 0.f, used = 0.f, sold = 0.f;
+    if (sup >= 0) {
+      x_sup = s.X(sup);
+      used = s.consumed(sup);
+      sold = s.sold(sup);
+    }
+    int slot = 0;
+    float a = 0.f;
+    if (L > 0) {
+      slot = s.slot(i);
+      a = s.ring(tp.ro_ring[i] + slot);
+    }
     float f = req;
     if (sup >= 0) {
-      float avail = max_nan(0.f, s.X(sup) - s.consumed(sup));
+      float avail = max_nan(0.f, x_sup - used);
       if (tp.is_factory[sup])
         avail = min_nan(avail, min_nan(tp.C[sup], tp.v[sup] * avail));
       f = min_nan(req, avail);
-      s.consumed(sup) = s.consumed(sup) + __fdiv_rn(f, tp.v[sup]);
-      s.sold(sup) += f;
+      s.consumed(sup) = used + __fdiv_rn(f, tp.v[sup]);
+      s.sold(sup) = sold + f;
     } else {
       total -= tp.ro_price[i] * f;
     }
     r(i, f);
-    const int L = tp.ro_L[i];
-    float a = f;
     if (L > 0) {
-      int& slot = s.slot(i);
-      float& cell = s.ring(tp.ro_ring[i] + slot);
-      a = cell;
-      cell = f;
-      slot = slot + 1 == L ? 0 : slot + 1;
+      s.ring(tp.ro_ring[i] + slot) = f;
+      s.slot(i) = slot + 1 == L ? 0 : slot + 1;
+    } else {
+      a = f;
     }
-    const float y = s.Y(i) - a + f;
+    const float y = y_in - a + f;
     s.Y(i) = y;
-    s.arrivals(tp.ro_pur[i]) += a;
+    s.arrivals(pur) = arr_in + a;
     total -= tp.ro_g[i] * max_nan(0.f, y);
   }
   for (int n = 0; n < tp.n_main; ++n)
@@ -260,10 +283,11 @@ __device__ __forceinline__ float step_view(const NetTopo& tp, const S& s, const 
   // 2-4) sequential retail fulfillment, with its revenue and backlog penalty
   for (int j = 0; j < tp.n_rt; ++j) {
     const int ret = tp.rt_ret[j];
-    const float to_fill = max_nan(0.f, rintf(dem(j))) + s.U(j);
-    const float sl = min_nan(to_fill, max_nan(0.f, s.X(ret)));
-    s.X(ret) = s.X(ret) - sl;
-    s.sold(ret) += sl;
+    const float d = dem(j), u_in = s.U(j), x_ret = s.X(ret), sold = s.sold(ret);
+    const float to_fill = max_nan(0.f, rintf(d)) + u_in;
+    const float sl = min_nan(to_fill, max_nan(0.f, x_ret));
+    s.X(ret) = x_ret - sl;
+    s.sold(ret) = sold + sl;
     const float u = tp.backlog ? to_fill - sl : 0.f;
     s.U(j) = u;
     total += tp.rt_price[j] * sl - tp.rt_b[j] * u;
@@ -286,17 +310,19 @@ __device__ __forceinline__ float step_period(const NetTopo& tp, Episode& s,
   return step_view(tp, FrameView{s}, FromArray{act}, FromArray{dem}, ToArray{r});
 }
 
-// Actions act[0, n_ro) and demand dem[0, n_rt) of one (lane, episode,
-// period) of the random-policy kernels.
+// The n_ro actions and n_rt demands of one (lane, episode, period) of the
+// random-policy kernels, handed to the sinks act and dem as they are drawn
+// (K2's DrawnActions and DrawnDemand, in K2's order).
+template <class ActSink, class DemSink>
 __device__ __forceinline__ void draw_period(const NetTopo& tp,
                                             const float* __restrict__ tables,
                                             unsigned seed, unsigned lane,
                                             unsigned e, unsigned t,
-                                            float act_scale, float* act,
-                                            float* dem) {
+                                            float act_scale, const ActSink& act,
+                                            const DemSink& dem) {
   WordStream ws(seed, 0u, lane, e, t);
   const DrawnActions draw_act{ws, act_scale};
-  for (int i = 0; i < tp.n_ro; ++i) act[i] = draw_act(i);
+  for (int i = 0; i < tp.n_ro; ++i) act(i, draw_act(i));
   const DrawnDemand draw_dem{tp, tables, t, ws};
-  for (int j = 0; j < tp.n_rt; ++j) dem[j] = draw_dem(j);
+  for (int j = 0; j < tp.n_rt; ++j) dem(j, draw_dem(j));
 }

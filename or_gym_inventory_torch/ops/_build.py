@@ -29,16 +29,16 @@ _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # every source also exports csrc/launch.cuh's cuda_error_message
 SIGNATURES = {
     "net_episode": {
-        # topo, acts, dems, disc, out, B, T, stream
-        "net_episode_returns": ((_P, _P, _P, _P, _P, _LL, _I, _P), _I),
+        # topo, state layout, staging, acts, dems, disc, out, B, T, stream
+        "net_episode_returns": ((_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P), _I),
         # topo, layout, disc, tables, out, seed, act_scale, B, E, T, stream
         "net_episode_returns_fused": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
         # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
         "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
-        # topo, X, Y, U, RH, acts, dems, X', Y', U', RH', reward, disc, t, lt,
-        # B, stream
-        "net_batched_step": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
-                              _LL, _P), _I),
+        # topo, state layout, staging, X, Y, U, RH, acts, dems, X', Y', U',
+        # RH', reward, disc, t, lt, B, stream
+        "net_batched_step": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                              _I, _I, _LL, _P), _I),
         # topo, layout, dems, disc, out, seed, act_scale, B, T, stream
         "net_episode_returns_random": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _P), _I),
     },

@@ -363,6 +363,81 @@ def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int,
     return SharedStatePlan(words, offsets, THREADS, nbytes, blocks)
 
 
+class _NetStage(ctypes.Structure):
+    """Mirror of ``struct NetStage`` in csrc/net_episode.cu: K1's and K25's
+    words a thread (state and staging), the first staging word, the periods
+    a staging buffer and the threads a block."""
+    _fields_ = [(name, ctypes.c_int) for name in ("words", "stage", "chunk", "threads")]
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedPlan:
+    """The launch plan of K1 and K25: the lane's state (``state``, a
+    ``SharedStatePlan``) and, from word ``stage`` on, the words its
+    asynchronous copies land in; word k of thread t lies at
+    ``smem[k * threads + t]``."""
+    state: SharedStatePlan
+    stage: int            # first staging word (the state's words)
+    chunk: int            # periods a staging buffer
+    words: int            # 32-bit words a thread, state and staging
+    threads: int          # threads a block
+    bytes: int            # dynamic shared memory a block
+    blocks_per_sm: int    # resident blocks an SM holds on an H100
+
+    def struct(self) -> "_NetStage":
+        return _NetStage(words=self.words, stage=self.stage, chunk=self.chunk,
+                         threads=self.threads)
+
+
+def _staged_plan(state: SharedStatePlan, stage_words: int, chunk: int,
+                 threads: int) -> StagedPlan:
+    """``state`` followed by ``stage_words`` staging words a thread, at
+    ``threads`` a block."""
+    words = state.words + stage_words
+    nbytes = words * 4 * threads
+    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), 2048 // threads, 32)
+    return StagedPlan(state, state.words, chunk, words, threads, nbytes, blocks)
+
+
+# K1's block sizes, largest first: it takes the first whose block fits in
+# shared memory (128 on every graph but the largest). On an H100 the block
+# size moved K1 by at most 3.4% at 1,024, 4,096 and 65,536 lanes x 30
+# (tools/net_k1_k25_sweep.py): a lane's chain of periods sets its time.
+K1_THREADS = (128, 64, 32)
+# K1's periods a staging buffer (two buffers). Four ran 2% faster than one
+# at 1,024 and 4,096 lanes and 7% at 65,536 (fewer waits, and at 65,536
+# fewer resident warps contending for an SM's issue slots; same sweep).
+K1_CHUNK = 4
+
+
+def _k1_plan(n_main: int, n_ro: int, n_rt: int, ring: int, chunk: int = K1_CHUNK,
+             threads: int = None) -> StagedPlan:
+    """K1's shared memory for a graph of those counts (as
+    ``_shared_state_plan`` takes them): K2's state (scratch included), then
+    two staging buffers of ``chunk`` periods of n_ro + n_rt words, at
+    ``threads`` a block, by default the first of ``K1_THREADS`` whose block
+    fits. Raises ValueError where none fits."""
+    if chunk < 1:
+        raise ValueError(f"K1 stages at least one period a buffer, got {chunk}")
+    state = _shared_state_plan(n_main, n_ro, n_rt, ring)
+    stage_words = 2 * chunk * (n_ro + n_rt)
+    for n in (K1_THREADS if threads is None else (threads,)):
+        plan = _staged_plan(state, stage_words, chunk, n)
+        if plan.bytes <= SMEM_PER_BLOCK:
+            return plan
+    raise ValueError(f"K1's staging of {chunk} periods a buffer fits no block of "
+                     f"{threads or K1_THREADS} threads")
+
+
+def _k25_plan(n_main: int, n_ro: int, n_rt: int, arriving: int) -> StagedPlan:
+    """K25's shared memory: the state of ``_shared_state_plan`` with one
+    ring word for each of the ``arriving`` links with L > 0 (the order that
+    arrives this period), then one staged period (its actions and demand),
+    at ``THREADS`` a block."""
+    state = _shared_state_plan(n_main, n_ro, n_rt, arriving)
+    return _staged_plan(state, n_ro + n_rt, 1, THREADS)
+
+
 @functools.lru_cache(maxsize=32)
 def _shared_layout(topology, scratch: bool = True):
     """(plan, its ``_NetSmem``) for ``topology``; ``scratch`` as
@@ -431,6 +506,43 @@ def _launch_plan(params: NetInvParams, num_steps: int, device: str,
             _f32_on(tables, device))
 
 
+@functools.lru_cache(maxsize=64)
+def _k1_layout(n_main: int, n_ro: int, n_rt: int, ring: int):
+    """(``_k1_plan``, its state's ``_NetSmem``, its ``_NetStage``) for a
+    graph of those counts."""
+    plan = _k1_plan(n_main, n_ro, n_rt, ring)
+    return plan, _NetSmem(words=plan.state.words, **plan.state.offsets), plan.struct()
+
+
+def _arriving_words(ro_L) -> tuple:
+    """K25's ring word of each reorder link: its index among the links with
+    L > 0, whose one arriving order it holds; -1 for a link with L = 0,
+    which delivers the same period's order and has no word."""
+    words, k = [], 0
+    for L in ro_L:
+        words.append(k if L > 0 else -1)
+        k += L > 0
+    return tuple(words)
+
+
+@functools.lru_cache(maxsize=16)
+def _k25_launch(params: NetInvParams):
+    """K25's host-built arguments for ``params``: the topology struct with
+    ``ro_ring`` naming each link's arriving word (``_arriving_words``), the
+    ``_k25_plan``'s ``_NetSmem`` and ``_NetStage``, lt and the row counts
+    of the five outputs. It packs nothing of the demand, so a ``hostfn``
+    link is no obstacle."""
+    T = params.topology
+    tp, _ = _pack_topology(params)
+    words = _arriving_words(T.ro_L)
+    for i, k in enumerate(words):
+        tp.ro_ring[i] = k
+    plan = _k25_plan(T.n_main, T.n_reorder, T.n_retail, sum(k >= 0 for k in words))
+    lt = max(T.lt_max, 1)
+    return (tp, _NetSmem(words=plan.state.words, **plan.state.offsets), plan.struct(), lt,
+            (T.n_main, T.n_reorder, T.n_retail, lt * T.n_reorder, 1))
+
+
 def _launch(fn_name, *args, lib_name="net_episode"):
     ek._launch(lib_name, fn_name, *args)
 
@@ -454,9 +566,14 @@ def episode_returns(params: NetInvParams, actions: torch.Tensor,
                     demands: torch.Tensor) -> torch.Tensor:
     """Discounted episode returns (B,) for pre-sampled streams ``actions``
     (T, n_reorder, B) and ``demands`` (T, n_retail, B), both float32 on one
-    device. K1: on CUDA tensors one thread per env runs the whole episode
-    (csrc/net_episode.cu ``k_episode_returns``); on CPU tensors the plain
-    version runs."""
+    device. K1: on CUDA tensors one thread a lane runs K2's episode body on
+    its state in shared memory, each period's words staged ahead of the step
+    by asynchronous copies (csrc/net_episode.cu ``k_episode_returns``, laid
+    out by ``_k1_plan``); on CPU tensors the plain version runs. On an H100
+    (80GB HBM3, 700 W) the kernel alone takes 0.12 ms at 1,024 lanes x 30,
+    where a lane's chain of periods sets its time, and 0.25 ms at 65,536
+    (the first design, the state in a local-memory frame: 0.15 and 1.04;
+    tools/net_k1_k25_sweep.py, PERF.md)."""
     _check_streams(params, actions, demands)
     if actions.device.type == "cpu":
         return _episode_returns_plain(params, actions, demands)
@@ -467,11 +584,13 @@ def episode_returns(params: NetInvParams, actions: torch.Tensor,
     num_steps, _, B = actions.shape
     dev = actions.device
     tp, disc, _ = _launch_plan(params, num_steps, ek._plan_key(dev), False)
+    T = params.topology
+    _, lay, st = _k1_layout(T.n_main, T.n_reorder, T.n_retail, sum(T.ro_L))
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("net_episode_returns", ctypes.addressof(tp), actions.data_ptr(),
-                demands.data_ptr(), disc.data_ptr(), out.data_ptr(), B, num_steps,
-                ek._stream(dev))
+        _launch("net_episode_returns", ctypes.addressof(tp), ctypes.addressof(lay),
+                ctypes.addressof(st), actions.data_ptr(), demands.data_ptr(), disc.data_ptr(),
+                out.data_ptr(), B, num_steps, ek._stream(dev))
     episode_returns.launches += 1
     return out
 
@@ -572,44 +691,50 @@ def _batched_step_plain(params: NetInvParams, X, Y, U, RH, action, demand, t: in
             disc * profit)
 
 
+_K25_INPUTS = ("X", "Y", "U", "RH", "action", "demand")
+
+
 def batched_step(params: NetInvParams, X: torch.Tensor, Y: torch.Tensor, U: torch.Tensor,
                  RH: torch.Tensor, action: torch.Tensor, demand: torch.Tensor, t: int):
     """One NetInvMgmt period over a transposed lockstep batch. Shapes
     (rows, B), float32, on one device: X (n_main, B), Y (n_reorder, B), U
     (n_retail, B), RH (lt_max * n_reorder, B) newest-first, action
     (n_reorder, B), demand (n_retail, B); ``t`` the period, a host int.
-    Returns (X', Y', U', RH', reward (B,)), the reward alpha^t-discounted.
-    K25: one thread per lane (csrc/net_episode.cu ``k_batched_step``); on
-    CPU tensors the plain version runs."""
+    Returns (X', Y', U', RH', reward (B,)), the reward alpha^t-discounted,
+    each a contiguous view of one buffer. K25: one thread a lane steps its
+    state in shared memory, copied in with one ring word per link with
+    L > 0, while the grid copies RH's rows that RH' shifts down
+    (csrc/net_episode.cu ``k_batched_step``, laid out by ``_k25_plan``); on
+    CPU tensors the plain version runs. On an H100 (80GB HBM3, 700 W) the
+    kernel alone takes 0.050 ms at 65,536 lanes against the first design's
+    0.080 (tools/net_k1_k25_sweep.py, PERF.md)."""
     T = params.topology
-    lt = max(T.lt_max, 1)
-    B = X.shape[-1]
-    rows = {"X": (X, T.n_main), "Y": (Y, T.n_reorder), "U": (U, T.n_retail),
-            "RH": (RH, lt * T.n_reorder), "action": (action, T.n_reorder),
-            "demand": (demand, T.n_retail)}
-    for name, (x, n) in rows.items():
+    n_ro, n_rt = T.n_reorder, T.n_retail
+    ins = (X, Y, U, RH, action, demand)
+    B, dev = X.shape[-1], X.device
+    rows = (T.n_main, n_ro, n_rt, max(T.lt_max, 1) * n_ro, n_ro, n_rt)
+    for name, x, n in zip(_K25_INPUTS, ins, rows):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32")
-        if tuple(x.shape) != (n, B) or x.device != X.device:
-            raise ValueError(f"expected {name} ({n}, {B}) on {X.device}; got "
+        if x.shape != (n, B) or x.device != dev:
+            raise ValueError(f"expected {name} ({n}, {B}) on {dev}; got "
                              f"{tuple(x.shape)} on {x.device}")
     t = int(t)
-    if X.device.type == "cpu":
+    if dev.type == "cpu":
         return _batched_step_plain(params, X, Y, U, RH, action, demand, t)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    dev = X.device
-    tp, _, _ = _launch_plan(params, 1, ek._plan_key(dev), False)
-    ins = [x.contiguous() for x, _ in rows.values()]
-    outs = [torch.empty((n, B), dtype=torch.float32, device=dev)
-            for _, n in list(rows.values())[:4]]
-    rew = torch.empty(B, dtype=torch.float32, device=dev)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    tp, lay, st, lt, out_rows = _k25_launch(params)
+    ins = [x.contiguous() for x in ins]
+    outs = torch.empty((sum(out_rows), B), dtype=torch.float32, device=dev).split(out_rows)
     with torch.cuda.device(dev):
-        _launch("net_batched_step", ctypes.addressof(tp), *(x.data_ptr() for x in ins),
-                *(x.data_ptr() for x in outs), rew.data_ptr(),
-                float(np.float32(params.alpha ** t)), t, lt, B, ek._stream(dev))
+        # ctypes rounds the double alpha^t to f32 to nearest, as np.float32 does
+        _launch("net_batched_step", ctypes.addressof(tp), ctypes.addressof(lay),
+                ctypes.addressof(st), *(x.data_ptr() for x in ins),
+                *(x.data_ptr() for x in outs), float(params.alpha ** t), t, lt, B,
+                ek._stream(dev))
     batched_step.launches += 1
-    return (*outs, rew)
+    return (*outs[:4], outs[4].reshape(B))
 
 
 batched_step.launches = 0
