@@ -116,8 +116,10 @@ only cosf's never-run 32-byte reduction frame) and K5/K6's and K11/K12's
 hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
 tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
-load or store; K4, K10 and K18 are the tiles of K5, K11 and K19 with one
-stochastic episode a lane and their streams written (``TRAJ_INSTANCES``:
+load or store, and K7 (K8's body, its streams staged by cp.async) one for
+each m1, backlog flag and mode, none with either; K4, K10 and K18 are the
+tiles of K5, K11 and K19 with one stochastic episode a lane and their
+streams written (``TRAJ_INSTANCES``:
 ``k_policy_returns<1,0,1>``, ``k_im_policy_returns<1,0,1,BACKLOG>``,
 ``k_nv_policy_returns<1,0,1,LAYOUT>``), which must be there, held as their
 kernels' stochastic instances; K27-K29's cluster instances
@@ -125,7 +127,8 @@ kernels' stochastic instances; K27-K29's cluster instances
 Phase 6 also times K1 at the 1,024 and 4,096 lanes x 30 at which bench.py's
 cross-check launches it (16 of its 17 launches are at 1,024), each shape
 through the entry point and the kernel alone (the C entry point with its
-plan made before, its returns the entry point's bit for bit).
+plan made before, its returns the entry point's bit for bit); K3 at 65,536
+x 30 and K7 (streamed and _random, phase 14) are timed alone the same way.
 Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
@@ -171,8 +174,9 @@ chain against K10's inv exactly; K1-K3 and K7-K8 against their plain
 versions, the fused kernels against the stream-in kernels, and the
 stream-in kernels on K4/K6/K10's streams against their rewards and K5's
 returns, rtol=1e-5 atol=1e-3 (f32 sums in another order, FMA contraction),
-except K2 against K1 on K3's streams, bit for bit (one episode body, one
-order of sums);
+except K2 against K1 on K3's streams, and K8 against K7 on K9's streams and
+K7 _random on K9's demand, bit for bit (one episode body, one order of
+sums);
 the env step chain against the stream-in kernel and K4/K10's reward
 streams rtol=1e-4 atol=1e-2 (bench.py:156); K4's raws against the folded
 actor on the assembled obs plus the plain normals atol=1e-4 (matmul sums
@@ -871,6 +875,37 @@ def k8_frame_check(logs):
             + "; ".join(ptx))
 
 
+def k7_frame_check(logs):
+    """Phase 2's check of K7 (im_episode.cu ``k_im_returns<BACKLOG, RANDOM,
+    M1>``, K8's episode body with its streams staged by cp.async): an
+    instance for each m1 from 1 to IM_MAX_M1 in backlog and lost sales,
+    streamed and _random, none with a stack frame (ptxas, where this run
+    built the library), a spill or a local-memory load or store. Returns the
+    line to print; raises on a miss."""
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    kernel = "k_im_returns"
+    counts = sass_counts(str(_build._target(_build.CSRC / "im_episode.cu")))
+    if counts is None:
+        raise AssertionError("cuobjdump not found: K7's SASS cannot be read")
+    mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+    log = next((out for so, out in logs.items() if "libim_episode-" in so), "")
+    ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
+    for entry in ptx:
+        if not re.match(r"%s<\d,\d,\d+> \d+ registers, 0 B stack$" % kernel, entry):
+            raise AssertionError(f"K7 {entry}: a stack frame or spills")
+    want = 4 * ek.IM_MAX_M1
+    if len(mine) != want or (ptx and len(ptx) != want):
+        raise AssertionError(f"K7: {len(mine)} instances in the SASS, {len(ptx)} in ptxas; "
+                             f"want one for each m1 in both modes, backlog and lost sales, "
+                             f"{want}")
+    if any(ld + st for ld, st, _ in mine.values()):
+        raise AssertionError(f"K7: local-memory loads or stores {mine}")
+    return ("im_episode.cu k_im_returns (LDL/STL) " + ", ".join(
+        f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(mine.items())) + "; ptxas "
+            + "; ".join(ptx))
+
+
 def net_episode_frame_check(logs, local):
     """Phase 2's check of net_episode.cu's kernels, K1 ``k_episode_returns``
     and K25 ``k_batched_step`` (their state in shared memory since they
@@ -945,6 +980,52 @@ def k1_kernel_launch(params, acts, dems, dev):
 
     def launch():
         ek._launch("net_episode", "net_episode_returns", *args)
+    return launch, out
+
+
+def k3_kernel_launch(params, act_hi, dev):
+    """A launch of K3 alone at the main path's shape (``CHECK_LANES`` x
+    ``NUM_STEPS``, one episode, seed ``SEED``): the C entry point with the
+    plan and the outputs made before, as the entry point makes them. Returns
+    (launch, (actions, demands))."""
+    import ctypes
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    tp, _, tab = ns._launch_plan(params, NUM_STEPS, ek._plan_key(dev), True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    acts = torch.empty((NUM_STEPS, T.n_reorder, CHECK_LANES), **f32)
+    dems = torch.empty((NUM_STEPS, T.n_retail, CHECK_LANES), **f32)
+    args = (ctypes.addressof(tp), tab.data_ptr(), acts.data_ptr(), dems.data_ptr(), SEED,
+            ns._act_scale(act_hi), CHECK_LANES, NUM_STEPS, 0, 1, ek._stream(dev))
+
+    def launch():
+        ek._launch("net_episode", "net_sample_streams", *args)
+    return launch, (acts, dems)
+
+
+def k7_kernel_launch(params, acts, dems, seed, dev):
+    """A launch of K7 alone on ``dems`` and ``acts`` (None: _random on
+    ``seed``): the C entry point with the plan, the discounts and the output
+    made before, as the entry point makes them. Returns (launch, output)."""
+    import ctypes
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T, B = dems.shape
+    plan = ek._im_plan(params, ek._plan_key(dev), False)
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    args = (ctypes.addressof(plan["struct"]), ctypes.addressof(plan["k7"]),
+            None if acts is None else acts.data_ptr(), dems.data_ptr(), plan["disc"].data_ptr(),
+            out.data_ptr(), seed or 0, int(acts is None), int(params.backlog), B, T,
+            ek._stream(dev))
+
+    def launch():
+        ek._launch("im_episode", "im_episode_returns", *args)
     return launch, out
 
 
@@ -1430,9 +1511,9 @@ def im_cross_check(dev):
             exact(f"K9 demand, {case}", d, pd[:, 0])
             k8 = ek.episode_returns_im_fused(params, SEED, CHECK_LANES, device=dev)
             k7 = ek.episode_returns_im(params, a, d)
-            close(f"K8 vs K7 on K9's streams, {case}", k8, k7, 1e-5, 1e-3)
-            close(f"K7 _random on K9's demand vs K8, {case}",
-                  ek.episode_returns_im_random(params, d, SEED), k8, 1e-5, 1e-3)
+            exact(f"K8 vs K7 on K9's streams, {case}", k8, k7)   # one episode body
+            exact(f"K7 _random on K9's demand vs K8, {case}",
+                  ek.episode_returns_im_random(params, d, SEED), k8)
             track("episode_returns_im", f"K7 vs plain K7, {case}", k7,
                   ek._episode_returns_im_plain(params, a, d))
             k8_exact(case, k8.reshape(1, -1), CHECK_LANES, 1)
@@ -1447,9 +1528,9 @@ def im_cross_check(dev):
             k8_exact(f"ragged {b} x {e}, {case}",
                      ek.episode_returns_im_fused(params, SEED, b, e, device=dev), b, e)
             for e in range(E):
-                close(f"K8 episode {e} vs K7 on K9's streams, {case}", k8[e],
+                exact(f"K8 episode {e} vs K7 on K9's streams, {case}", k8[e],
                       ek.episode_returns_im(params, a[:, e].contiguous(),
-                                            d[:, e].contiguous()), 1e-5, 1e-3)
+                                            d[:, e].contiguous()))
     for m1 in IM_CHAIN_M1:   # K8's instances for other m1
         for backlog in (True, False):
             params = im_chain(m1, backlog)
@@ -1516,9 +1597,9 @@ def im_main_path(dev, wrappers):
     if ret.shape != (MAIN_LANES * MAIN_EPISODES,):
         raise AssertionError(f"IM main path: returns of shape {tuple(ret.shape)}")
     ret = ret.reshape(MAIN_EPISODES, MAIN_LANES)
-    err = close("IM main path: K8 episode 0 vs K7 on K9's streams", ret[0, :CHECK_LANES],
-                k7, 1e-5, 1e-3)
-    close("IM main path: K7 _random vs K8 episode 0", k7r, ret[0, :CHECK_LANES], 1e-5, 1e-3)
+    exact("IM main path: K8 episode 0 vs K7 on K9's streams", ret[0, :CHECK_LANES], k7)
+    exact("IM main path: K7 _random vs K8 episode 0", k7r, ret[0, :CHECK_LANES])
+    err = 0.0
     if not torch.equal(ret[:, :MULTI_LANES].contiguous(),
                        ek._im_fused_plain(params, seed, MULTI_LANES, MAIN_EPISODES, dev)):
         raise AssertionError("IM main path: the first lanes differ from plain K8")
@@ -3266,6 +3347,8 @@ def main() -> int:
           + tile_sass_check(logs), flush=True)
     print("[2 build] K8, its ring in shared memory and its stages in registers: "
           + k8_frame_check(logs), flush=True)
+    print("[2 build] K7 on K8's body, its streams staged by cp.async: " + k7_frame_check(logs),
+          flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -3333,6 +3416,12 @@ def main() -> int:
     k1_alone_ms = {CHECK_LANES: k1_alone(acts, dems)}
     k3_t = cuda_time(ns.sample_streams_debug, params, SEED, hi, CHECK_LANES,
                      NUM_STEPS, 1, None, dev, warmup=2, iters=20)
+    launch, (a3, d3) = k3_kernel_launch(params, hi, dev)
+    launch()   # K3 alone, its streams first held against the entry point's
+    exact("K3 alone vs the entry point, actions", a3, acts)
+    exact("K3 alone vs the entry point, demand", d3, dems)
+    k3_alone_ms = cuda_time(launch, warmup=2, iters=20)["best_ms"]
+    del a3, d3
     k3_p = cuda_time(ns._sample_streams_plain, params, SEED, hi, CHECK_LANES,
                      NUM_STEPS, 0, 1, dev, warmup=1, iters=3)
     k2_t = cuda_time(ns.episode_returns_fully_fused, params, SEED, hi, MAIN_LANES,
@@ -3369,6 +3458,11 @@ def main() -> int:
           f"ops; peaks {HBM_BYTES_PER_S:.3g} B/s, {FP32_OPS_PER_S:.3g} op/s", flush=True)
     for name in RANDOM_KERNELS:
         print_kernel(6, name, times[name], work[name], launches[name])
+    k3_bound = work["sample_streams_debug"][0]
+    print(f"[6 kernel] sample_streams_debug (K3, a thread a (lane, episode, 4 periods)) at "
+          f"{CHECK_LANES} x {NUM_STEPS}: {k3_alone_ms:.4f} ms the kernel alone, "
+          f"{k3_t['best_ms']:.4f} ms through the entry point, bound {k3_bound:.4f} ms "
+          f"({k3_bound / k3_alone_ms:.1%} of the kernel alone) on {smi}", flush=True)
     print("[6 kernel] episode_returns by shape (launches on the main path: bench.py's "
           "cross-check, once at 65,536 lanes and once per episode at 1,024): " + "; ".join(
               f"{k}: {v['ms']:.4f} ms through the entry point, {v['kernel_ms']:.4f} ms the "
@@ -3474,7 +3568,7 @@ def main() -> int:
     err.update(im_cross_check(dev))
     print(f"[10 IM cross-check] 5 demand modes x backlog/lost sales at {CHECK_LANES} x "
           f"{NUM_STEPS} and {MULTI_LANES} x {MAIN_EPISODES}: K9 streams bit-exact; K8 = K7 "
-          "on K9's streams = K7 _random on K9's demand within rtol=1e-5 atol=1e-3; K8 = plain "
+          "on K9's streams = K7 _random on K9's demand bit for bit; K8 = plain "
           f"K8 bit for bit (also ragged {RAGGED[0]} x {RAGGED[1]}, and at m1 = "
           f"{', '.join(map(str, IM_CHAIN_M1))} at E = 1, {MAIN_EPISODES} and ragged); "
           "K7 = plain K7 within "
@@ -3530,6 +3624,16 @@ def main() -> int:
     table_len = len(ek._im_demand_spec(im_params)[1])
     k7_t = cuda_time(ek.episode_returns_im, im_params, im_a, im_d, warmup=2, iters=20)
     k7_p = cuda_time(ek._episode_returns_im_plain, im_params, im_a, im_d, warmup=1, iters=3)
+    k7r_t = cuda_time(ek.episode_returns_im_random, im_params, im_d, im_seed, warmup=2, iters=20)
+
+    def k7_alone(a, seed, want):   # K7 alone, its output first held against the entry point's
+        launch, out = k7_kernel_launch(im_params, a, im_d, seed, dev)
+        launch()
+        exact("K7 alone vs the entry point", out, want)
+        return cuda_time(launch, warmup=2, iters=20)["best_ms"]
+    k7_alone_ms = {
+        "streamed": k7_alone(im_a, None, ek.episode_returns_im(im_params, im_a, im_d)),
+        "random": k7_alone(None, im_seed, ek.episode_returns_im_random(im_params, im_d, im_seed))}
     k8_t = cuda_time(ek.episode_returns_im_fused, im_params, SEED, MAIN_LANES,
                      MAIN_EPISODES, dev, warmup=1, iters=5)
     k8_p = cuda_time(ek._im_fused_plain, im_params, SEED, CHECK_LANES, 1, dev,
@@ -3568,6 +3672,14 @@ def main() -> int:
           f"K8 timed at {CHECK_LANES} x {T}, E=1", flush=True)
     for name in IM_KERNELS:
         print_kernel(14, name, times[name], work[name], launches[name])
+    k7_bound = work["episode_returns_im"][0]
+    print(f"[14 kernel] episode_returns_im (K7 on K8's body, staged by cp.async, "
+          f"{ek._im_k7_plan(m1, im_params.lt_max)}) at {CHECK_LANES} x {T}: streamed "
+          f"{k7_alone_ms['streamed']:.4f} ms the kernel alone "
+          f"({k7_bound / k7_alone_ms['streamed']:.1%} of its bound), {k7_t['best_ms']:.4f} "
+          f"through the entry point; _random "
+          f"{k7_alone_ms['random']:.4f} alone, {k7r_t['best_ms']:.4f} through the entry point "
+          f"on {smi}", flush=True)
     print(f"[14 kernel] rollout_traj_im (K11's tile): the MLP's {mlp_tc_flops(im_dims)} FLOPs "
           f"an env-step as three TF32 products; bound with every operation at FP32 "
           f"{k10_fp32_ms:.4f} ms ({k10_fp32_ms / k10_t['best_ms']:.1%} of it); "
@@ -3964,6 +4076,9 @@ def main() -> int:
                      "plain_ms": pt["best_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
     rows[0]["by_shape"] = k1_shapes   # K1: the row's numbers are at 65,536 lanes
+    rows[2]["kernel_ms"] = k3_alone_ms
+    rows[6]["kernel_ms"] = k7_alone_ms["streamed"]   # K7: the row's numbers are streamed
+    rows[6]["random"] = {"ms": k7r_t["best_ms"], "kernel_ms": k7_alone_ms["random"]}
 
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card

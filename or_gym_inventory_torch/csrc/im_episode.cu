@@ -4,10 +4,20 @@
 //
 // K7 k_im_returns  replaces pallas_episode_kernels._im_call (:779) behind
 //    episode_returns_im (:802) and episode_returns_im_random (:815); body
-//    _im_kernel :750, step _im_step_math :686. One thread per env reads its
+//    _im_kernel :750, step _im_step_math :686. One thread a lane reads its
 //    (T, m1) int32 actions (or, RANDOM, draws them: K8's action words at
 //    episode 0) and its (T,) int32 demand, coalesced along B. Bound by
-//    bytes: (T * (m1 + 1) + 1) * 4 per env, read once.
+//    bytes: (T * (m1 + 1) + 1) * 4 per env, read once, but a lane's chain
+//    of T dependent steps sets its time. It runs K8's episode body (the
+//    state of ImSharedEpisode<M1>, an instance per m1 and mode), so on K9's
+//    streams it gives K8's returns bit for bit, and stages a period's m1 + 1
+//    words into shared memory ahead of the step by 4-byte cp.async copies
+//    (cp_async.cuh), two buffers of `chunk` periods, the next chunk copied
+//    while this one is stepped (commit_group / wait_group 1), as K1 does:
+//    no global load sits on a period's chain. ops/episode_kernels.py
+//    _im_k7_plan lays the ring and the staging out (ImStage). The first
+//    design stepped on the 1,232-byte ImEpisode frame in local memory with
+//    each period's m1 + 1 loads on the chain (tools/k3_k7_parent.cu).
 // K8 k_im_returns_fused  replaces episode_returns_im_fused (:919, body
 //    _im_fused_kernel :868). Actions and demand are drawn in the kernel
 //    (im_step.cuh), so only the returns leave it. Bound by operations: per
@@ -37,6 +47,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "im_step.cuh"
 #include "launch.cuh"
 #include "philox.cuh"
@@ -47,31 +58,73 @@ struct ImSmem {
   int threads, words;
 };
 
+// K7's launch, laid out by ops/episode_kernels.py _im_k7_plan (mirrored
+// there by _ImStage): threads a block, words a thread (the ring's lt m1,
+// then two staging buffers of `chunk` periods of m1 + 1 words), the first
+// staging word (lt m1).
+struct ImStage {
+  int threads, words, stage, chunk;
+};
+
 namespace {
 
-template <bool BACKLOG, bool RANDOM>
+// K7: one thread a lane on K8's state (ImSharedEpisode<M1>: on-hand,
+// backlog, the actions and the orders in registers, the ring in the
+// thread's column of shared memory, words [0, st.stage)), its streamed
+// words staged ahead of the step by cp.async into two buffers of st.chunk
+// periods from word st.stage on, [word][thread] like the ring: a period is
+// its M1 action words, then its demand word. RANDOM stages the demand alone
+// and draws the actions as K8 does. A thread touches only its own column,
+// so there is no barrier and a thread past the batch returns at once.
+template <bool BACKLOG, bool RANDOM, int M1>
 __global__ void k_im_returns(const __grid_constant__ ImParams p,
+                             const __grid_constant__ ImStage st,
                              const int* __restrict__ acts,
                              const int* __restrict__ dems,
                              const float* __restrict__ disc,
                              float* __restrict__ out, unsigned seed, long long B,
                              int T) {
+  extern __shared__ int im_words[];
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (b >= B) return;
-  ImEpisode s;
-  im_reset(p, s);
-  int act[IM_MAX_M1], r_req[IM_MAX_M1];
+  const int n = blockDim.x, C = st.chunk;
+  constexpr int kPeriod = M1 + 1;  // a staged period's words
+  int* const stage = im_words + st.stage * n + threadIdx.x;
+  // copy periods [t0, min(t0 + C, T)) into buffer (t0 / C) % 2, one group
+  auto copy_chunk = [&](int t0) {
+    int* dst = stage + ((t0 / C) & 1) * C * kPeriod * n;
+    for (int t = t0; t < min(t0 + C, T); ++t, dst += kPeriod * n) {
+      if (!RANDOM) {
+#pragma unroll
+        for (int i = 0; i < M1; ++i) cp_async4(dst + i * n, acts + ((long long)t * M1 + i) * B + b);
+      }
+      cp_async4(dst + M1 * n, dems + (long long)t * B + b);
+    }
+    cp_async_commit();
+  };
+  ImSharedEpisode<M1> s;
+  s.rh = im_words + threadIdx.x;
+  s.stride = n;
+  im_reset<M1>(p, s);
+  int act[M1], r_req[M1];
   float total = 0.f;
+  copy_chunk(0);
   for (int t = 0; t < T; ++t) {
+    const int c = t % C;
+    if (c == 0) {
+      if (t + C < T) copy_chunk(t + C);  // into the buffer the last chunk used
+      else cp_async_commit();       // an empty group keeps the count
+      cp_async_wait<1>();           // this chunk's group has landed
+    }
+    const int* q = stage + (((t / C) & 1) * C + c) * kPeriod * n;
     if (RANDOM) {
       WordStream ws(seed, 0u, (unsigned)b, 0u, (unsigned)t);
-      im_draw_actions(p, ws, act);
+      im_draw_actions<M1>(p, ws, act);
     } else {
-      for (int i = 0; i < p.m1; ++i)
-        act[i] = __ldg(acts + ((long long)t * p.m1 + i) * B + b);
+#pragma unroll
+      for (int i = 0; i < M1; ++i) act[i] = q[i * n];
     }
-    const int d = __ldg(dems + (long long)t * B + b);
-    const float profit = im_step<BACKLOG>(p, s, t, act, d, r_req);
+    const float profit = im_step<BACKLOG, M1>(p, s, t, act, q[M1 * n], r_req);
     total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), profit));
   }
   out[b] = total;
@@ -155,18 +208,45 @@ int launch_fused_m1(const ImParams& p, const ImSmem& lay, const float* table, co
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool BACKLOG, bool RANDOM, int M1>
+int launch_k7(const ImParams& p, const ImStage& st, const int* acts, const int* dems,
+              const float* disc, float* out, unsigned seed, long long B, int T,
+              cudaStream_t stream) {
+  auto kernel = k_im_returns<BACKLOG, RANDOM, M1>;
+  const size_t smem = (size_t)st.words * st.threads * sizeof(int);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((B + st.threads - 1) / st.threads);
+  kernel<<<blocks, st.threads, smem, stream>>>(p, st, acts, dems, disc, out, seed, B, T);
+  return (int)cudaGetLastError();
+}
+
+// K7's instance for the params' m1, M1 .. IM_MAX_M1.
+template <bool BACKLOG, bool RANDOM, int M1 = 1>
+int launch_k7_m1(const ImParams& p, const ImStage& st, const int* acts, const int* dems,
+                 const float* disc, float* out, unsigned seed, long long B, int T,
+                 cudaStream_t stream) {
+  if (p.m1 == M1)
+    return launch_k7<BACKLOG, RANDOM, M1>(p, st, acts, dems, disc, out, seed, B, T, stream);
+  if constexpr (M1 < IM_MAX_M1)
+    return launch_k7_m1<BACKLOG, RANDOM, M1 + 1>(p, st, acts, dems, disc, out, seed, B, T,
+                                                 stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// random != 0: K7 _random, the actions drawn in the kernel (acts unused).
-int im_episode_returns(const ImParams* p, const int* acts, const int* dems,
+// K7 on st->threads a block with st->words a thread, the instance unrolled
+// to the params' m1; random != 0: K7 _random, the actions drawn in the
+// kernel (acts unused).
+int im_episode_returns(const ImParams* p, const ImStage* st, const int* acts, const int* dems,
                        const float* disc, float* out, unsigned seed, int random,
                        int backlog, long long B, int T, cudaStream_t stream) {
-  auto kernel = backlog ? (random ? k_im_returns<true, true> : k_im_returns<true, false>)
-                        : (random ? k_im_returns<false, true> : k_im_returns<false, false>);
-  kernel<<<blocks_for(B), kThreads, 0, stream>>>(*p, acts, dems, disc, out, seed, B, T);
-  return (int)cudaGetLastError();
+  auto launch = backlog ? (random ? launch_k7_m1<true, true> : launch_k7_m1<true, false>)
+                        : (random ? launch_k7_m1<false, true> : launch_k7_m1<false, false>);
+  return launch(*p, *st, acts, dems, disc, out, seed, B, T, stream);
 }
 
 // K8 on lay->threads a block with lay->words of ring a thread, the

@@ -23,13 +23,15 @@
 //   lt_max per stage holds the order of period p in slot p % lt_max; period t
 //   reads slot (t - L_i) % lt_max (zero before period L_i), then overwrites
 //   slot t % lt_max. Indexed at run time, it lives in a thread's local
-//   frame (ImEpisode) or, in K8, in shared memory (ImSharedEpisode).
+//   frame (ImEpisode) or, in K7 and K8, in shared memory
+//   (ImSharedEpisode).
 // - One body, two views of the state: im_step, im_reset and
 //   im_draw_actions take the state type and M1 (im_stages). The frame
-//   kernels (K7, K9-K12, K22-K24, K27) call them as before, with their
-//   loops to the run-time m1; K8 unrolls them, so its per-stage arrays
-//   (inv, bkl, the orders, the actions) are registers and its frame is
-//   empty.
+//   kernels (K9-K12, K22-K24, K27) call them as before, with their loops
+//   to the run-time m1; K7 and K8 unroll them, an instance per m1, so
+//   their per-stage arrays (inv, bkl, the orders, the actions) are
+//   registers and their frames are empty. So K7 on K9's streams and K8
+//   run one body: the same bits.
 // - Profit is summed per stage in the JAX order, (price - cost) * S, then
 //   - k * U, then - h * max(inv, 0), each product and sum rounded alone
 //   (__fmul_rn, __fadd_rn): no FMA contraction, so the plain version's
@@ -60,7 +62,7 @@ struct ImParams {
   float act_span[IM_MAX_M1];    // f32(c_i + 1), the random policy's factor
 };
 
-// The state in a thread's frame (local memory): every kernel but K8.
+// The state in a thread's frame (local memory): every kernel but K7 and K8.
 struct ImEpisode {
   int inv[IM_MAX_M1];
   int bkl[IM_MAX_M1 + 1];
@@ -76,7 +78,7 @@ __host__ __device__ constexpr int im_width() {
   return M1 > 0 ? M1 : IM_MAX_M1;
 }
 
-// K8's state: on-hand and backlog in registers (every stage loop of
+// K7's and K8's state: on-hand and backlog in registers (every stage loop of
 // im_stages unrolled, so their indices are constants), the ring of
 // fulfilled orders in the thread's column of a [word][thread] region of
 // shared memory (the slot, t % lt, is the same for every thread of the
@@ -94,7 +96,8 @@ struct ImSharedEpisode {
 // f(i) for each stage i < m1 + EXTRA. M1 = IM_LOOP: a loop to the run-time
 // m1, as the frame kernels always ran it; else unrolled to im_width<M1>()
 // + EXTRA stages under i < m1 + EXTRA: for M1 > 0 the caller's m1 is M1, so
-// the predicate folds away and exactly M1 stages remain (K8's instances);
+// the predicate folds away and exactly M1 stages remain (K7's and K8's
+// instances);
 // M1 = 0 unrolls to the struct maxima under run-time predicates.
 template <int M1, int EXTRA = 0, class F>
 __device__ __forceinline__ void im_stages(int m1, F f) {
@@ -121,7 +124,7 @@ __device__ __forceinline__ void im_reset(const ImParams& p, S& s) {
 }
 
 // One period (pallas_episode_kernels._im_step_math) on the state s (an
-// ImEpisode or K8's ImSharedEpisode): the requested orders max(act, 0) go
+// ImEpisode or K7/K8's ImSharedEpisode): the requested orders max(act, 0) go
 // to r_req[0, m1); returns the undiscounted profit.
 template <bool BACKLOG, int M1 = IM_LOOP, class S>
 __device__ __forceinline__ float im_step(const ImParams& p, S& s, int t, const int* act,

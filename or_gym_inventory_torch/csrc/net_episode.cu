@@ -41,7 +41,15 @@
 // K3 k_sample_streams  replaces sample_streams_debug (:427). It writes the
 //    streams K2 draws for episodes [e0, e1) (draw_period: K2's draws, each
 //    value stored as it is drawn). The counter-based generator needs no
-//    replay of the other episodes. Bound by bytes: the streams it writes.
+//    replay of the other episodes, nor of the other periods: a period's
+//    words are counter (lane, episode, period, block), so a thread draws
+//    kK3Periods (4) periods of one (lane, episode), each alone, and writes
+//    their n_ro + n_rt words: B x W x T / 4 threads on a 2-D grid, lanes
+//    along x, so a warp's threads are consecutive lanes of one output row
+//    (coalesced stores).
+//    The first design walked a lane's T periods on one thread, B x W
+//    threads (tools/k3_k7_parent.cu). Bound by bytes: the streams it
+//    writes.
 // K25 k_batched_step  replaces batched_step (:774, body _kernel_body :112):
 //    one period of a lockstep batch on the transposed (rows, B) state X, Y,
 //    U and the newest-first order history RH (lt x n_ro rows), with the
@@ -77,6 +85,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "launch.cuh"
 #include "net_step.cuh"
 #include "philox.cuh"
@@ -93,21 +102,14 @@ struct NetStage {
 
 namespace {
 
-// Hopper's asynchronous copy of 4 bytes from global to shared memory,
-// issued by the thread that later reads it: needs no alignment beyond the
-// word's, and completes by the thread's own wait_group.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// K3's periods a thread: a thread draws kK3Periods periods of one (lane,
+// episode), each from its own counter, and writes their n_ro + n_rt words.
+// Four ran 3-4% faster than one at 65,536 lanes x 30 on an H100 (the row's
+// index work spread over four periods, four Philox chains in flight) and
+// alike at 1,024 x 8 episodes; two alike at both (tools/k3_k7_sweep.py
+// times 1 and 2 by a text change of this line).
+constexpr int kK3Periods = 4;
+__host__ __device__ constexpr int k3_groups(int T) { return (T + kK3Periods - 1) / kK3Periods; }
 
 // One episode's discounted return on the shared state s: the reset, then
 // per period t the profit period(t) of one step_view, discounted by disc[t].
@@ -194,21 +196,27 @@ __global__ void k_episode_returns_fused(const __grid_constant__ NetTopo tp,
                             });
 }
 
+// K3 on a 2-D grid: x over the lanes, y over the rows q = (group of
+// kK3Periods periods) * W + episode (a block strides over the rows past the
+// grid's 65,535), so a warp's threads are consecutive lanes of one output
+// row and no thread divides a 64-bit index.
 __global__ void k_sample_streams(const __grid_constant__ NetTopo tp,
                                  const float* __restrict__ tables,
                                  float* __restrict__ acts,
                                  float* __restrict__ dems, unsigned seed,
                                  float act_scale, long long B, int T, int e0,
                                  int W) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= B * W) return;
-  const int w = (int)(idx / B);
-  const unsigned lane = (unsigned)(idx - (long long)w * B);
-  for (int t = 0; t < T; ++t) {
-    const long long row = (long long)t * W + w;  // (T, W, rows, B)
-    draw_period(tp, tables, seed, lane, (unsigned)(e0 + w), (unsigned)t, act_scale,
-                ToRows{acts + row * tp.n_ro * B + lane, B, true},
-                ToRows{dems + row * tp.n_rt * B + lane, B, true});
+  const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const int rows = k3_groups(T) * W;
+  for (int q = blockIdx.y; q < rows; q += gridDim.y) {
+    const int w = q % W, t0 = q / W * kK3Periods;
+    for (int t = t0; t < min(t0 + kK3Periods, T); ++t) {
+      const long long row = (long long)t * W + w;  // (T, W, rows, B)
+      draw_period(tp, tables, seed, (unsigned)lane, (unsigned)(e0 + w), (unsigned)t,
+                  act_scale, ToRows{acts + row * tp.n_ro * B + lane, B, true},
+                  ToRows{dems + row * tp.n_rt * B + lane, B, true});
+    }
   }
 }
 
@@ -337,8 +345,11 @@ int net_episode_returns_fused(const NetTopo* topo, const NetSmem* lay, const flo
 int net_sample_streams(const NetTopo* topo, const float* tables, float* acts,
                        float* dems, unsigned seed, float act_scale, long long B,
                        int T, int e0, int e1, cudaStream_t stream) {
-  k_sample_streams<<<blocks_for(B * (e1 - e0)), kThreads, 0, stream>>>(
-      *topo, tables, acts, dems, seed, act_scale, B, T, e0, e1 - e0);
+  if (T < 1) return (int)cudaSuccess;  // nothing to write
+  const int rows = k3_groups(T) * (e1 - e0);
+  const dim3 grid(blocks_for(B), rows < 65535 ? rows : 65535);
+  k_sample_streams<<<grid, kThreads, 0, stream>>>(*topo, tables, acts, dems, seed, act_scale,
+                                                  B, T, e0, e1 - e0);
   return (int)cudaGetLastError();
 }
 

@@ -63,8 +63,9 @@ SIGNATURES = {
         "net_rollout_traj_cluster_occupancy": ((_P, _I, _P), _I),
     },
     "im_episode": {
-        # params, acts, dems, disc, out, seed, random, backlog, B, T, stream
-        "im_episode_returns": ((_P, _P, _P, _P, _P, _U32, _I, _I, _LL, _I, _P), _I),
+        # params, staging layout, acts, dems, disc, out, seed, random, backlog,
+        # B, T, stream
+        "im_episode_returns": ((_P, _P, _P, _P, _P, _P, _U32, _I, _I, _LL, _I, _P), _I),
         # params, ring layout, table, user_d, disc, out, seed, backlog, B, E,
         # T, stream
         "im_episode_returns_fused": ((_P, _P, _P, _P, _P, _P, _U32, _I, _LL, _I, _I, _P), _I),

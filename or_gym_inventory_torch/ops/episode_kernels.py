@@ -1124,7 +1124,8 @@ def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = Tr
         st.gain[i] = float(np.float32(float(up[i]) - float(uc[i])))
         st.k[i] = float(np.float32(params.k[i]))
     fused = _im_fused_plan(m1, lt)
-    return dict(host, struct=st, fused=_ImSmem(threads=fused.threads, words=fused.words))
+    return dict(host, struct=st, fused=_ImSmem(threads=fused.threads, words=fused.words),
+                k7=_im_k7_plan(m1, lt).struct())
 
 
 def _blocks_per_sm(nbytes: int, threads: int, regs: int) -> int:
@@ -1179,6 +1180,76 @@ def _im_fused_plan(m1: int, lt: int) -> ImFusedPlan:
         if best is None or plan.blocks_per_sm * threads > best.blocks_per_sm * best.threads:
             best = plan
     return best
+
+
+class _ImStage(ctypes.Structure):
+    """Mirror of ``struct ImStage`` in csrc/im_episode.cu: K7's threads a
+    block, words a thread, first staging word and periods a buffer."""
+    _fields_ = [(name, ctypes.c_int) for name in ("threads", "words", "stage", "chunk")]
+
+
+@dataclasses.dataclass(frozen=True)
+class ImK7Plan:
+    """K7's launch: the ring of ``stage`` (lt m1) words a thread, then two
+    staging buffers of ``chunk`` periods of m1 + 1 words (the actions, then
+    the demand), ``words`` a thread in all, [word][thread] in dynamic
+    shared memory at ``threads`` a block: ``bytes`` a block, resident
+    ``blocks_per_sm`` by shared memory, threads and blocks."""
+    threads: int
+    words: int
+    stage: int
+    chunk: int
+    bytes: int
+    blocks_per_sm: int
+
+    def struct(self) -> _ImStage:
+        return _ImStage(threads=self.threads, words=self.words, stage=self.stage,
+                        chunk=self.chunk)
+
+
+# K7's layouts in order of preference: periods a staging buffer, then
+# threads a block; the plan takes the first at which an SM holds
+# IM_K7_RESIDENT threads, else the one at which it holds the most. On an
+# H100 four periods a buffer ran 10% faster than one at the defaults (m1 =
+# 3, lt 10; 3 to 21 blocks an SM, every block size within 1%), but at the
+# struct maxima (m1 = 8, lt 32) 128 threads an SM ran 17% slower than 192
+# (tools/k3_k7_sweep.py).
+IM_K7_CHUNKS = (4, 2, 1)
+IM_K7_THREADS = (128, 64, 32)
+IM_K7_RESIDENT = 256
+
+
+def _im_k7_layout(m1: int, lt: int, chunk: int, threads: int):
+    """K7's layout at ``chunk`` periods a buffer and ``threads`` a block, or
+    None where the block exceeds the shared memory a block may opt in to."""
+    ring = lt * m1
+    words = ring + 2 * chunk * (m1 + 1)
+    nbytes = 4 * words * threads
+    if nbytes > SMEM_OPTIN_BYTES:
+        return None
+    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), THREADS_PER_SM // threads,
+                 BLOCKS_PER_SM)
+    return ImK7Plan(threads, words, ring, chunk, nbytes, blocks)
+
+
+@functools.lru_cache(maxsize=64)
+def _im_k7_plan(m1: int, lt: int, chunk: int = None, threads: int = None) -> ImK7Plan:
+    """K7's shared memory for ``m1`` stocked stages and lead-time ring depth
+    ``lt``: the ring's lt m1 words, then 2 x ``chunk`` x (m1 + 1) staging
+    words a thread, at ``threads`` a block; either left None is chosen from
+    ``IM_K7_CHUNKS`` / ``IM_K7_THREADS`` (the first layout that holds
+    ``IM_K7_RESIDENT`` threads an SM, else the first that holds the most).
+    Raises ValueError where no block holds a layout."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"K7 stages at least one period a buffer, got {chunk}")
+    layouts = [_im_k7_layout(m1, lt, c, n)
+               for c in (IM_K7_CHUNKS if chunk is None else (chunk,))
+               for n in (IM_K7_THREADS if threads is None else (threads,))]
+    layouts = [plan for plan in layouts if plan is not None]
+    if not layouts:
+        raise ValueError(f"K7's ring of {lt * m1} words and its staging fit no block "
+                         f"(chunk {chunk or IM_K7_CHUNKS}, threads {threads or IM_K7_THREADS})")
+    return max(layouts, key=lambda plan: min(plan.blocks_per_sm * plan.threads, IM_K7_RESIDENT))
 
 
 def _im_actions_plain(params: im.InvManagementParams, words):
@@ -1388,6 +1459,7 @@ def _im_returns_call(wrapper, params, actions, demands, seed):
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("im_episode", "im_episode_returns", ctypes.addressof(plan["struct"]),
+                ctypes.addressof(plan["k7"]),
                 None if actions is None else actions.data_ptr(), demands.data_ptr(),
                 plan["disc"].data_ptr(), out.data_ptr(), seed or 0, int(actions is None),
                 int(params.backlog), B, T, _stream(dev))
@@ -1400,8 +1472,10 @@ def episode_returns_im(params: im.InvManagementParams, actions: torch.Tensor,
     """Discounted episode returns (B,) float32 for pre-sampled int32 streams
     ``actions`` (periods, m1, B), raw requests (negatives clamp as in the
     reference), and ``demands`` (periods, B), on one device. K7: on CUDA
-    tensors one thread per env runs the whole episode (csrc/im_episode.cu
-    ``k_im_returns``); on CPU tensors the plain version runs."""
+    tensors one thread per env runs the whole episode on K8's state, its
+    streams staged into shared memory ahead of the step (csrc/im_episode.cu
+    ``k_im_returns``, laid out by ``_im_k7_plan``); on CPU tensors the plain
+    version runs."""
     return _im_returns_call(episode_returns_im, params, actions, demands, None)
 
 
