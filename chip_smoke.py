@@ -68,7 +68,9 @@ PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
 (at the main path's shapes, with a seeded actor whose obs statistics are
 folded into layer 1), which also holds the NaN propagation of the shared
 step and K5/K6 on a ragged batch (1,000 x 3) and with a NaN weight, K7-K9
-in phase 10 for all five demand modes in backlog and lost sales, and K10
+in phase 10 for all five demand modes in backlog and lost sales (K9 also on
+a ragged batch, and on a chain of 8 stocked stages with lt 32, the struct
+maxima, with K8 = K7 on its streams), and K10
 in phase 12 (with the env step chain on its streams and a
 NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
 K12's streams and K10 against the stochastic episode 0 bit for bit, a
@@ -117,7 +119,8 @@ hold tensor-core (HMMA) instructions and spill nothing; K19/K20 (the
 tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
 load or store, and K7 (K8's body, its streams staged by cp.async) one for
-each m1, backlog flag and mode, none with either; K4, K10 and K18 are the
+each m1, backlog flag and mode, none with either, and K9 one for each m1
+and K21 (both on 2-D grids), none with either; K4, K10 and K18 are the
 tiles of K5, K11 and K19 with one stochastic episode a lane and their
 streams written (``TRAJ_INSTANCES``:
 ``k_policy_returns<1,0,1>``, ``k_im_policy_returns<1,0,1,BACKLOG>``,
@@ -204,7 +207,7 @@ back through the pipeline); K20 = K19 and K13 on K20's streams = K19 bit for
 bit; the stochastic K19's episode 0 against K18 bit for bit (the same tile
 kernel): econ, demand, K20's orders through the pipeline's cap against
 K18's capped orders, and the return against K18's gamma^t-summed rewards;
-K21 atol=1e-5.
+K21 atol=1e-5 (also on a ragged batch in phase 24).
 LSTM kernels (K22-K24; the kernels run the gate product and the encoder on
 the tensor cores in 3xTF32, which keeps FP32's accuracy, the plain versions
 in full f32 with TF32 off): demand bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
@@ -364,6 +367,9 @@ DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain versio
 NV_LINEAR_MU_MAX, NV_LINEAR_LANES = 30_000.0, 4_096
 # K8's instances beside the default's three stocked stages (phase 10)
 IM_CHAIN_M1 = (1, 2, 8)
+# lead times of phase 10's chain of 8 stocked stages at lt_max 32 (the struct
+# maxima, where tools/k9_k21_sweep.py times K9 too)
+IM_MAXIMA_L = (3, 5, 10, 32) * 2
 NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
 # benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for RESULTS.md:56's 4M env-steps
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
@@ -875,35 +881,51 @@ def k8_frame_check(logs):
             + "; ".join(ptx))
 
 
+def frame_free_check(logs, src, prefix, want, name):
+    """Phase 2's check that ``src``.cu holds ``want`` kernels whose names
+    start with ``prefix``, none with a stack frame (ptxas, where this run
+    built the library), a spill or a local-memory load or store (SASS).
+    Returns the part of the line to print; raises on a miss."""
+    from or_gym_inventory_torch.ops import _build
+    counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
+    if counts is None:
+        raise AssertionError(f"cuobjdump not found: {name}'s SASS cannot be read")
+    mine = {k: v for k, v in counts.items() if k.startswith(prefix)}
+    log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
+    ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(prefix)]
+    for entry in ptx:
+        if not re.match(r"\S+ \d+ registers, 0 B stack$", entry):
+            raise AssertionError(f"{name} {entry}: a stack frame or spills")
+    if len(mine) != want or (ptx and len(ptx) != want):
+        raise AssertionError(f"{name}: {len(mine)} instances in the SASS, {len(ptx)} in "
+                             f"ptxas; want {want}")
+    if any(ld + st for ld, st, _ in mine.values()):
+        raise AssertionError(f"{name}: local-memory loads or stores {mine}")
+    return (f"{src}.cu {prefix.rstrip('<')} (LDL/STL) " + ", ".join(
+        f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(mine.items())) + "; ptxas "
+            + "; ".join(ptx))
+
+
 def k7_frame_check(logs):
     """Phase 2's check of K7 (im_episode.cu ``k_im_returns<BACKLOG, RANDOM,
     M1>``, K8's episode body with its streams staged by cp.async): an
     instance for each m1 from 1 to IM_MAX_M1 in backlog and lost sales,
-    streamed and _random, none with a stack frame (ptxas, where this run
-    built the library), a spill or a local-memory load or store. Returns the
-    line to print; raises on a miss."""
-    from or_gym_inventory_torch.ops import _build
+    streamed and _random, none with a stack frame, a spill or a
+    local-memory load or store (``frame_free_check``)."""
     from or_gym_inventory_torch.ops import episode_kernels as ek
-    kernel = "k_im_returns"
-    counts = sass_counts(str(_build._target(_build.CSRC / "im_episode.cu")))
-    if counts is None:
-        raise AssertionError("cuobjdump not found: K7's SASS cannot be read")
-    mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
-    log = next((out for so, out in logs.items() if "libim_episode-" in so), "")
-    ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
-    for entry in ptx:
-        if not re.match(r"%s<\d,\d,\d+> \d+ registers, 0 B stack$" % kernel, entry):
-            raise AssertionError(f"K7 {entry}: a stack frame or spills")
-    want = 4 * ek.IM_MAX_M1
-    if len(mine) != want or (ptx and len(ptx) != want):
-        raise AssertionError(f"K7: {len(mine)} instances in the SASS, {len(ptx)} in ptxas; "
-                             f"want one for each m1 in both modes, backlog and lost sales, "
-                             f"{want}")
-    if any(ld + st for ld, st, _ in mine.values()):
-        raise AssertionError(f"K7: local-memory loads or stores {mine}")
-    return ("im_episode.cu k_im_returns (LDL/STL) " + ", ".join(
-        f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(mine.items())) + "; ptxas "
-            + "; ".join(ptx))
+    return frame_free_check(logs, "im_episode", "k_im_returns<", 4 * ek.IM_MAX_M1, "K7")
+
+
+def k9_k21_frame_check(logs):
+    """Phase 2's check of K9 (im_episode.cu ``k_im_sample_streams<M1>``, an
+    instance for each m1 from 1 to IM_MAX_M1) and K21 (nv_policy.cu
+    ``k_sample_normals``), both on 2-D grids: none with a stack frame, a
+    spill or a local-memory load or store (``frame_free_check``; K21's one
+    copy of normal01 keeps cosf's never-run reduction out of a frame)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    return "; ".join((
+        frame_free_check(logs, "im_episode", "k_im_sample_streams<", ek.IM_MAX_M1, "K9"),
+        frame_free_check(logs, "nv_policy", "k_sample_normals", 1, "K21")))
 
 
 def net_episode_frame_check(logs, local):
@@ -1482,12 +1504,14 @@ def im_cross_check(dev):
     of the five demand modes in backlog and lost sales: at 65,536 x 30
     (E = 1) and at 1,024 lanes x 16 episodes, K9's streams bit for bit
     against plain K9, K8 against K7 on K9's streams, K8 bit for bit against
-    plain K8 (int32 state, the same arithmetic; also on a ragged batch,
-    ``RAGGED``), K7 _random on K9's demand against K8, and K7 against plain
-    K7. Then K8 bit for bit against plain K8 on chains of ``IM_CHAIN_M1``
-    stocked stages (``im_chain``), each m1 K8's own instance, backlog and
-    lost sales, at E = 1, 16 and ragged. Returns the max |diff| per kernel
-    (K8's is 0: it is held bit for bit)."""
+    plain K8 (int32 state, the same arithmetic; K8 and K9 also on a ragged
+    batch, ``RAGGED``), K7 _random on K9's demand against K8, and K7 against
+    plain K7. Then K8 bit for bit against plain K8 on chains of
+    ``IM_CHAIN_M1`` stocked stages (``im_chain``), each m1 K8's own
+    instance, backlog and lost sales, at E = 1, 16 and ragged; and K9's m1
+    = 8 instance at lt 32 (``IM_MAXIMA_L``) bit for bit against plain K9 at
+    E = 1, 16 and two ragged batches, K8 = K7 on its streams. Returns the
+    max |diff| per kernel (K8's is 0: it is held bit for bit)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
@@ -1500,6 +1524,15 @@ def im_cross_check(dev):
     def k8_exact(case, got, *plain_args):
         if not torch.equal(got, ek._im_fused_plain(params, SEED, *plain_args, dev)):
             raise AssertionError(f"K8 vs plain K8, {case}: not bit for bit")
+
+    def k9_exact(params, case, b, e):   # K9 at b lanes x e episodes against plain K9
+        a, d = ek.sample_streams_debug_im(params, SEED, b, e, device=dev)
+        pa, pd = ek._im_fused_plain(params, SEED, b, e, dev, dump=True)
+        if e == 1:
+            pa, pd = pa[:, 0], pd[:, 0]
+        exact(f"K9 actions, {case}", a, pa)
+        exact(f"K9 demand, {case}", d, pd)
+        return a, d
 
     for label, kw in IM_DIST_MODES:
         for backlog in (True, False):
@@ -1527,6 +1560,7 @@ def im_cross_check(dev):
             b, e = RAGGED
             k8_exact(f"ragged {b} x {e}, {case}",
                      ek.episode_returns_im_fused(params, SEED, b, e, device=dev), b, e)
+            k9_exact(params, f"ragged {b} x {e}, {case}", b, e)
             for e in range(E):
                 exact(f"K8 episode {e} vs K7 on K9's streams, {case}", k8[e],
                       ek.episode_returns_im(params, a[:, e].contiguous(),
@@ -1543,13 +1577,23 @@ def im_cross_check(dev):
             b, e = RAGGED
             k8_exact(f"ragged {b} x {e}, {case}",
                      ek.episode_returns_im_fused(params, SEED, b, e, device=dev), b, e)
+    for backlog in (True, False):   # K9's m1 = 8 instance at lt 32, the struct maxima
+        params = im_chain(8, backlog, IM_MAXIMA_L)
+        case = f"m1=8, lt=32, {'backlog' if backlog else 'lost sales'}"
+        a, d = k9_exact(params, case, CHECK_LANES, 1)
+        exact(f"K8 vs K7 on K9's streams, {case}",
+              ek.episode_returns_im_fused(params, SEED, CHECK_LANES, device=dev),
+              ek.episode_returns_im(params, a, d))
+        k9_exact(params, f"E={E}, {case}", MULTI_LANES, E)
+        k9_exact(params, f"ragged {RAGGED[0]} x {RAGGED[1]}, {case}", *RAGGED)
+        k9_exact(params, f"ragged {RAGGED[0] + 25} x 1, {case}", RAGGED[0] + 25, 1)
     return err
 
 
-def im_chain(m1, backlog):
+def im_chain(m1, backlog, L=None):
     """An InvManagement chain of ``m1`` stocked stages, the default's
     inventories, costs, capacities and lead times taken in turn (lt_max 1
-    at m1 = 1, 5 at 2, 10 past), Poisson demand."""
+    at m1 = 1, 5 at 2, 10 past; or the lead times ``L``), Poisson demand."""
     from or_gym_inventory_torch.envs import inv_management as im
     d = im.default_params()
 
@@ -1557,7 +1601,7 @@ def im_chain(m1, backlog):
         return tuple(xs[i % len(xs)] for i in range(n))
     return im.default_params(backlog=backlog, I0=cycle(d.I0, m1), r=cycle(d.r, m1 + 1),
                              k=cycle(d.k, m1 + 1), h=cycle(d.h, m1), c=cycle(d.c, m1),
-                             L=cycle(d.L, m1))
+                             L=cycle(d.L, m1) if L is None else L)
 
 
 def im_main_path(dev, wrappers):
@@ -3349,6 +3393,8 @@ def main() -> int:
           + k8_frame_check(logs), flush=True)
     print("[2 build] K7 on K8's body, its streams staged by cp.async: " + k7_frame_check(logs),
           flush=True)
+    print("[2 build] K9 (an instance per m1) and K21 on 2-D grids: " + k9_k21_frame_check(logs),
+          flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -3567,7 +3613,9 @@ def main() -> int:
     t0 = time.perf_counter()
     err.update(im_cross_check(dev))
     print(f"[10 IM cross-check] 5 demand modes x backlog/lost sales at {CHECK_LANES} x "
-          f"{NUM_STEPS} and {MULTI_LANES} x {MAIN_EPISODES}: K9 streams bit-exact; K8 = K7 "
+          f"{NUM_STEPS} and {MULTI_LANES} x {MAIN_EPISODES}: K9 streams bit-exact (also "
+          f"ragged {RAGGED[0]} x {RAGGED[1]}, and at m1 = 8, lt 32 at E = 1, "
+          f"{MAIN_EPISODES}, ragged {RAGGED[0]} x {RAGGED[1]} and {RAGGED[0] + 25} x 1); K8 = K7 "
           "on K9's streams = K7 _random on K9's demand bit for bit; K8 = plain "
           f"K8 bit for bit (also ragged {RAGGED[0]} x {RAGGED[1]}, and at m1 = "
           f"{', '.join(map(str, IM_CHAIN_M1))} at E = 1, {MAIN_EPISODES} and ragged); "
@@ -3894,6 +3942,13 @@ def main() -> int:
                       None, dev, warmup=1, iters=3)
     k21_t = cuda_time(ek.sample_normals_debug, SEED, NORMAL_ROWS, PPO_ENVS, dev, warmup=2,
                       iters=20)
+    rows, b = NORMAL_ROWS - 1, RAGGED[0]   # no multiple of K21's rows a thread, nor of a warp
+    k21_ragged = close(f"K21 vs plain K21, ragged {rows} x {b}",
+                       ek.sample_normals_debug(SEED, rows, b, device=dev),
+                       ek._sample_normals_plain(SEED, rows, b, dev), 0.0, 1e-5)
+    print(f"[24 kernel] sample_normals_debug (K21) ragged {rows} x {b}: within atol=1e-5 of "
+          f"plain K21, max |diff| {k21_ragged}", flush=True)
+    err["sample_normals_debug"] = max(err["sample_normals_debug"], k21_ragged)
     nv_dims = [nv_p.obs_dim, 64, 64, 1]
     nv_det_linear = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False)
     nv_det = mlp_ops(nv_dims) + nv_step + nv_policy_draw_ops(nv_p, False, table=True)

@@ -36,9 +36,18 @@
 //    exactly m1 stages (32 registers at m1 = 3); one instance unrolled to
 //    IM_MAX_M1 under i < m1 predicates took 71-79 registers and ran 1.8x
 //    slower at m1 = 3 (tools/im_fused_sweep.py times both).
-// K9 k_im_sample_streams  replaces sample_streams_debug_im (:1873, body
+// K9 k_im_sample_streams<M1>  replaces sample_streams_debug_im (:1873, body
 //    _im_streams_debug_kernel :901): the streams K8 draws, through the same
-//    draws. Bound by bytes: the streams it writes.
+//    draws (im_draw_actions<M1>, im_demand). No period depends on another:
+//    a period's words are counter (lane, episode, period, block), so a
+//    thread draws kK9Periods (4) periods of one (lane, episode), each from
+//    its own counter, on K3's 2-D grid (net_episode.cu): lanes along x, so
+//    a warp's stores are consecutive lanes of one output row, and rows q =
+//    (group of periods) x E + episode along y, no 64-bit division. An
+//    instance per m1 (launch_k9_m1, as K7's and K8's), so the actions are
+//    registers and there is no frame. The first design walked a lane's T
+//    periods on one thread, the actions in a frame sized to IM_MAX_M1
+//    (tools/k9_k21_parent.cu). Bound by bytes: the streams it writes.
 //
 // The period step and the draws are in im_step.cuh (their notes list the
 // semantics that are easy to get wrong). The batch tail is masked, so any
@@ -67,6 +76,14 @@ struct ImStage {
 };
 
 namespace {
+
+// K9's periods a thread: a thread draws kK9Periods periods of one (lane,
+// episode), each from its own counter, and writes their m1 + 1 words. One
+// ran 5-15% slower at 65,536 lanes x 30 on an H100 (12-21% in USER mode),
+// two within 5%, eight within 5% but 4-10% slower at m1 = 8 (64 registers)
+// (tools/k9_k21_sweep.py times 1, 2 and 8 by a text change of this line).
+constexpr int kK9Periods = 4;
+__host__ __device__ constexpr int k9_groups(int T) { return (T + kK9Periods - 1) / kK9Periods; }
 
 // K7: one thread a lane on K8's state (ImSharedEpisode<M1>: on-hand,
 // backlog, the actions and the orders in registers, the ring in the
@@ -163,22 +180,34 @@ __global__ void k_im_returns_fused(const __grid_constant__ ImParams p,
   out[idx] = total;  // (E, B), episode-major
 }
 
+// K9 on a 2-D grid: x over the lanes, y over the rows q = (group of
+// kK9Periods periods) * E + episode (a block strides over the rows past the
+// grid's 65,535). Each period: its M1 action words, then the demand word,
+// stored to (T, E, M1, B) and (T, E, B).
+template <int M1>
 __global__ void k_im_sample_streams(const __grid_constant__ ImParams p,
                                     const float* __restrict__ table,
                                     const int* __restrict__ user_d,
                                     int* __restrict__ acts, int* __restrict__ dems,
                                     unsigned seed, long long B, int E, int T) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= B * E) return;
-  const unsigned e = (unsigned)(idx / B);
-  const unsigned lane = (unsigned)(idx - (long long)e * B);
-  int act[IM_MAX_M1];
-  for (int t = 0; t < T; ++t) {
-    WordStream ws(seed, 0u, lane, e, (unsigned)t);
-    im_draw_actions(p, ws, act);
-    const long long row = (long long)t * E + e;  // (T, E, m1, B) and (T, E, B)
-    for (int i = 0; i < p.m1; ++i) acts[(row * p.m1 + i) * B + lane] = act[i];
-    dems[row * B + lane] = im_demand(p, table, user_d, t, ws.next());
+  const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const int rows = k9_groups(T) * E;
+  for (int q = blockIdx.y; q < rows; q += gridDim.y) {
+    const int e = q % E, t0 = q / E * kK9Periods;
+#pragma unroll
+    for (int k = 0; k < kK9Periods; ++k) {
+      const int t = t0 + k;
+      if (t >= T) break;
+      WordStream ws(seed, 0u, (unsigned)lane, (unsigned)e, (unsigned)t);
+      int act[M1];
+      im_draw_actions<M1>(p, ws, act);
+      const long long row = (long long)t * E + e;
+      int* const a = acts + row * M1 * B + lane;
+#pragma unroll
+      for (int i = 0; i < M1; ++i) a[i * B] = act[i];
+      dems[row * B + lane] = im_demand(p, table, user_d, t, ws.next());
+    }
   }
 }
 
@@ -234,6 +263,22 @@ int launch_k7_m1(const ImParams& p, const ImStage& st, const int* acts, const in
   return (int)cudaErrorInvalidValue;
 }
 
+// K9's instance for the params' m1, M1 .. IM_MAX_M1.
+template <int M1 = 1>
+int launch_k9_m1(const ImParams& p, const float* table, const int* user_d, int* acts,
+                 int* dems, unsigned seed, long long B, int E, int T, cudaStream_t stream) {
+  if (p.m1 == M1) {
+    const int rows = k9_groups(T) * E;
+    const dim3 grid(blocks_for(B), rows < 65535 ? rows : 65535);
+    k_im_sample_streams<M1><<<grid, kThreads, 0, stream>>>(p, table, user_d, acts, dems, seed,
+                                                            B, E, T);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (M1 < IM_MAX_M1)
+    return launch_k9_m1<M1 + 1>(p, table, user_d, acts, dems, seed, B, E, T, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -261,12 +306,12 @@ int im_episode_returns_fused(const ImParams* p, const ImSmem* lay, const float* 
                                           stream);
 }
 
+// K9, the instance unrolled to the params' m1.
 int im_sample_streams(const ImParams* p, const float* table, const int* user_d,
                       int* acts, int* dems, unsigned seed, long long B, int E,
                       int T, cudaStream_t stream) {
-  k_im_sample_streams<<<blocks_for(B * E), kThreads, 0, stream>>>(
-      *p, table, user_d, acts, dems, seed, B, E, T);
-  return (int)cudaGetLastError();
+  if (T < 1) return (int)cudaSuccess;  // nothing to write
+  return launch_k9_m1(*p, table, user_d, acts, dems, seed, B, E, T, stream);
 }
 
 }  // extern "C"

@@ -27,11 +27,12 @@
 //   (ImSharedEpisode).
 // - One body, two views of the state: im_step, im_reset and
 //   im_draw_actions take the state type and M1 (im_stages). The frame
-//   kernels (K9-K12, K22-K24, K27) call them as before, with their loops
+//   kernels (K10-K12, K22-K24, K27) call them as before, with their loops
 //   to the run-time m1; K7 and K8 unroll them, an instance per m1, so
 //   their per-stage arrays (inv, bkl, the orders, the actions) are
 //   registers and their frames are empty. So K7 on K9's streams and K8
-//   run one body: the same bits.
+//   run one body: the same bits. K9 draws through im_draw_actions<M1> too,
+//   an instance per m1, its actions in registers.
 // - Profit is summed per stage in the JAX order, (price - cost) * S, then
 //   - k * U, then - h * max(inv, 0), each product and sum rounded alone
 //   (__fmul_rn, __fadd_rn): no FMA contraction, so the plain version's
@@ -62,7 +63,8 @@ struct ImParams {
   float act_span[IM_MAX_M1];    // f32(c_i + 1), the random policy's factor
 };
 
-// The state in a thread's frame (local memory): every kernel but K7 and K8.
+// The state in a thread's frame (local memory): every stepping kernel but
+// K7 and K8.
 struct ImEpisode {
   int inv[IM_MAX_M1];
   int bkl[IM_MAX_M1 + 1];

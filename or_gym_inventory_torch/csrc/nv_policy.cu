@@ -31,7 +31,13 @@
 //    env-step.
 // K21 k_sample_normals  replaces sample_normals_debug (:1849): the
 //    Box-Muller normals of the policy kernels' generator, (rows, B), for the
-//    goodness-of-fit pin.
+//    goodness-of-fit pin. A thread walks kK21Rows (8) rows of one lane on a
+//    2-D grid (lanes along x, row groups along y), so no thread divides a
+//    64-bit index; each element is one Philox block, and the thread computes
+//    the next row's block while it forms this row's normal. The first design
+//    gave a thread one element of a 1-D grid, its (row, lane) from a 64-bit
+//    division (tools/k9_k21_parent.cu). Bound by operations: a Philox
+//    block, the normal's logf, cosf and sqrtf.
 //
 // K18-K20's design: a block per tile of (episode, lane) pairs, one thread
 // each (mlp_tile.cuh), as K4-K6 and K10-K12; K18 is the one-episode,
@@ -342,15 +348,46 @@ __global__ void k_nv_policy_returns(const __grid_constant__ NvParams p,
   if (!TRAJ && live) out[idx] = total;  // (E, B), episode-major
 }
 
+// K21's rows a thread: a thread walks kK21Rows rows of one lane, each from
+// its own counter. Eight ran 3-5% faster than four at 64 x 1,048,576 on an
+// H100 and alike at 64 x 65,536; one and two 13-29% slower at 1,048,576
+// (tools/k9_k21_sweep.py times 1, 2 and 4 by a text change of this line).
+constexpr int kK21Rows = 8;
+__host__ __device__ constexpr int k21_groups(int rows) { return (rows + kK21Rows - 1) / kK21Rows; }
+
+// K21 on a 2-D grid: x over the lanes, y over the groups of kK21Rows rows
+// (a block strides over the groups past the grid's 65,535), so a warp's
+// stores are consecutive lanes of one row and no thread divides a 64-bit
+// index. Element (row, lane) is normal01 of words 0 and 1 of counter (lane,
+// 0, row, 0) under key (seed, 1), as the first design had it. The row loop
+// stays rolled, one copy of normal01 in it, and each pass forms this row's
+// normal while it computes the next row's Philox block, so two independent
+// chains are in flight. With the loop unrolled (a copy of normal01 a row)
+// ptxas put cosf's Payne-Hanek reduction (never run: the argument stays
+// below 2 pi) in a 32-byte frame with LDL/STL; with one copy it keeps it in
+// registers, and the rolled loop ran 1-6% faster at 64 x 1,048,576.
 __global__ void k_sample_normals(float* __restrict__ out, unsigned seed, long long B,
-                                 long long n) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const unsigned row = (unsigned)(idx / B);
-  const unsigned lane = (unsigned)(idx - (long long)row * B);
-  WordStream ws(seed, 1u, lane, 0u, row);
-  const unsigned w0 = ws.next();
-  out[idx] = normal01(w0, ws.next());  // (rows, B)
+                                 int rows) {
+  const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const int groups = k21_groups(rows);
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const int r0 = g * kK21Rows, r1 = min(r0 + kK21Rows, rows);
+    WordStream ws(seed, 1u, (unsigned)lane, 0u, (unsigned)r0);
+    unsigned w0 = ws.next(), w1 = ws.next();
+#pragma unroll 1
+    for (int row = r0; row < r1; ++row) {
+      unsigned n0 = 0u, n1 = 0u;
+      if (row + 1 < r1) {
+        WordStream nx(seed, 1u, (unsigned)lane, 0u, (unsigned)(row + 1));
+        n0 = nx.next();
+        n1 = nx.next();
+      }
+      out[row * B + lane] = normal01(w0, w1);  // (rows, B)
+      w0 = n0;
+      w1 = n1;
+    }
+  }
 }
 
 template <bool RELU>
@@ -636,8 +673,10 @@ int nv_rollout_traj_cluster_occupancy(const ClusterMlp* m, int relu, int* out) {
 }
 
 int sample_normals(float* out, unsigned seed, long long B, int rows, cudaStream_t stream) {
-  const long long n = B * rows;
-  k_sample_normals<<<blocks_for(n), kThreads, 0, stream>>>(out, seed, B, n);
+  if (rows < 1) return (int)cudaSuccess;  // nothing to write
+  const int groups = k21_groups(rows);
+  const dim3 grid(blocks_for(B), groups < 65535 ? groups : 65535);
+  k_sample_normals<<<grid, kThreads, 0, stream>>>(out, seed, B, rows);
   return (int)cudaGetLastError();
 }
 

@@ -1547,9 +1547,12 @@ episode_returns_im_fused.launches = 0
 def sample_streams_debug_im(params: im.InvManagementParams, seed, batch: int,
                             episodes_per_lane: int = 1, device=None):
     """The exact action and demand streams ``episode_returns_im_fused``
-    draws for ``seed``. K9: it shares K8's draws (csrc/im_step.cuh).
-    Returns (actions (T, m1, batch), demands (T, batch)) int32 for
-    episodes_per_lane=1, else (T, E, m1, batch) and (T, E, batch)."""
+    draws for ``seed``. K9: it shares K8's draws (csrc/im_step.cuh); a
+    thread draws four periods of one (lane, episode), each from its own
+    counter, on a 2-D grid, an instance per m1 (csrc/im_episode.cu
+    ``k_im_sample_streams<M1>``). Returns (actions (T, m1, batch), demands
+    (T, batch)) int32 for episodes_per_lane=1, else (T, E, m1, batch) and
+    (T, E, batch)."""
     acts, dems = _im_fused_call(sample_streams_debug_im, params, seed, batch,
                                 episodes_per_lane, device, True)
     if episodes_per_lane == 1:
@@ -2995,9 +2998,9 @@ sample_policy_streams_debug_nv.launches = 0
 def sample_normals_debug(seed, rows: int, batch: int, device=None) -> torch.Tensor:
     """(rows, batch) float32 of the policy kernels' Box-Muller standard
     normals, for a goodness-of-fit pin: element (row, lane) is normal01 of
-    words 0 and 1 of counter (lane, 0, row, 0) under key (seed, 1). K21: one
-    thread per element (csrc/nv_policy.cu ``k_sample_normals``); on the CPU
-    the plain version runs."""
+    words 0 and 1 of counter (lane, 0, row, 0) under key (seed, 1). K21: a
+    thread walks eight rows of one lane on a 2-D grid (csrc/nv_policy.cu
+    ``k_sample_normals``); on the CPU the plain version runs."""
     dev = resolve_device(device)
     if rows < 1 or batch < 1:
         raise ValueError(f"need rows >= 1 and batch >= 1, got {rows}, {batch}")
