@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's thirteen main paths, each with every
+at once), then drives the port's fourteen main paths, each with every
 launch counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -61,7 +61,16 @@ launch counter set to 0 just before it and read just after:
   episodes, which must beat the random policy;
 - slice 7, SAC and DDPG on Newsvendor and NetInvMgmt (phase 34), 2
   iterations each (the uniform warmup, then the algorithm's head): K28 or
-  K29 once per iteration and nothing else.
+  K29 once per iteration and nothing else;
+- slice 8, PPO's fused policy+env update (phase 36): Newsvendor at
+  benchmarks/benchmark_newsvendor.py's PPO_CFG with ``rollout="xla"``,
+  plain PyTorch on ``vector.vecenv`` as the JAX package left it to XLA,
+  launches no kernel and runs no plain kernel version; its trained-steps/s
+  is printed beside the kernel path's at the same config, and
+  ``vecenv.auto_reset``'s share of an update. Phase 37 trains ``PPOAgent``
+  on it, saves and loads it (the loaded agent's actions equal bit for bit)
+  and trains ``A2CAgent`` with ``A2CConfig()``; phase 38 takes one update
+  at ``PPOConfig()``'s defaults on InvManagement and NetInvMgmt.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -107,7 +116,8 @@ tensor-core tile): demand bit for bit, actions by the share of lanes,
 whether bit for bit reported. Kernels on no main path are
 launched only to be held: K6, K5 with its streams dumped (phase 7), K9 and
 K7, the streams and the stream-in replay of K8's draws (phases 10-12), K12
-(phase 16), K13, K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
+(phase 16), K13 (also on ragged batches and at lead times 0 and 32, its
+edges), K14, K15 and K17 (phase 18), K20 and K21 (phase 21), K23
 (phase 25). Phase 2 prints each kernel's registers and stack frame from
 ``ptxas -v``, and the local-memory loads and stores (LDL/STL) in the SASS
 of net_episode.cu's kernels; it fails unless K1 and K25 (their state in
@@ -120,7 +130,9 @@ tensor-core tile too) are held as K5/K6, and K8 must have an instance for
 each m1 up to the struct maxima, none with a stack frame or a local-memory
 load or store, and K7 (K8's body, its streams staged by cp.async) one for
 each m1, backlog flag and mode, none with either, and K9 one for each m1
-and K21 (both on 2-D grids), none with either; K4, K10 and K18 are the
+and K21 (both on 2-D grids), none with either, and K13 one for each lead
+time from 0 to 32 and mode (its pipeline in registers), none with either;
+K4, K10 and K18 are the
 tiles of K5, K11 and K19 with one stochastic episode a lane and their
 streams written (``TRAJ_INSTANCES``:
 ``k_policy_returns<1,0,1>``, ``k_im_policy_returns<1,0,1,BACKLOG>``,
@@ -131,7 +143,8 @@ Phase 6 also times K1 at the 1,024 and 4,096 lanes x 30 at which bench.py's
 cross-check launches it (16 of its 17 launches are at 1,024), each shape
 through the entry point and the kernel alone (the C entry point with its
 plan made before, its returns the entry point's bit for bit); K3 at 65,536
-x 30 and K7 (streamed and _random, phase 14) are timed alone the same way.
+x 30, K7 (streamed and _random, phase 14) and K13 (streamed and _random,
+phase 20) are timed alone the same way.
 Then it times the vecenv rollout (phase 5),
 each kernel against its plain version (phases 6, 9, 14, 20, 24 and 28), K2
 against plain K2 on a graph with two retail links and L = 0 links, backlog
@@ -157,8 +170,8 @@ Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
-The last eight lines are one JSON object of per-kernel numbers, K1-K29
-(``launches`` is the sum of a kernel's launches in the thirteen main-path
+The last nine lines are one JSON object of per-kernel numbers, K1-K29
+(``launches`` is the sum of a kernel's launches in the fourteen main-path
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
@@ -168,7 +181,8 @@ one
 JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
 paths' rates and reward, one of the Newsvendor paths' rates and reward, one
 of the recurrent paths' rates and reward, one of the slice-7 paths' rates
-and TD3's reward, the card's name and power limit as nvidia-smi gives them,
+and TD3's reward, one of the xla path's rates beside the kernel path's and
+the agents' training times, the card's name and power limit as nvidia-smi gives them,
 and ``{"ok": true, "device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
@@ -177,9 +191,9 @@ chain against K10's inv exactly; K1-K3 and K7-K8 against their plain
 versions, the fused kernels against the stream-in kernels, and the
 stream-in kernels on K4/K6/K10's streams against their rewards and K5's
 returns, rtol=1e-5 atol=1e-3 (f32 sums in another order, FMA contraction),
-except K2 against K1 on K3's streams, and K8 against K7 on K9's streams and
-K7 _random on K9's demand, bit for bit (one episode body, one order of
-sums);
+except K2 against K1 on K3's streams, K8 against K7 on K9's streams and
+K7 _random on K9's demand, and K13 and K13 _random on K17's streams
+against K16, bit for bit (one episode body, one order of sums);
 the env step chain against the stream-in kernel and K4/K10's reward
 streams rtol=1e-4 atol=1e-2 (bench.py:156); K4's raws against the folded
 actor on the assembled obs plus the plain normals atol=1e-4 (matmul sums
@@ -197,9 +211,8 @@ tile kernel): actions, demand, and its return K10's reward sum. Newsvendor
 (K13-K17): econ and action streams bit for bit; the demand equal on at least 99.99% of draws and never more than 1 apart (the
 inversion's logf/expf may differ from torch's by an ulp); returns against
 the plain versions within rtol=1e-5 atol=1e-2 on at least 99% of lanes; the
-chain on K17's streams within rtol=1e-5 atol=1e-3 (the same words and the
-same arithmetic: bit for bit is expected, and the script says whether it
-was). Newsvendor policy kernels (K18-K21): econ and demand bit for bit
+chain K16 = K14 = K13 _random = K13 on K17's streams bit for bit (the same
+words and the same arithmetic). Newsvendor policy kernels (K18-K21): econ and demand bit for bit
 (K18 searches its Poisson table as K19/K20 do); K18's raws teacher-forced
 atol=1e-4; free-running orders, raws, rewards and returns by the share of
 lanes (>= 99% within rtol=1e-4 atol=1e-2: tanh and the MLP's sum order feed
@@ -362,6 +375,9 @@ NV_ENV_CONFIG = {"lead_time": 5, "step_limit": 50, "p_max": 100.0, "h_max": 5.0,
 NV_CASES = [(L, gamma, mu_max) for L in (5, 0) for gamma in (1.0, 0.99)
             for mu_max in (200.0, 3.0)]
 DEMAND_SHARE = 0.9999        # Newsvendor demand draws equal to the plain version's
+# K13's edges in phase 18: (lead time, lanes), ragged batches and the
+# pipeline's depths 0 and NV_MAX_L, each its own instance
+K13_EDGES = ((5, 1_000), (5, 1_025), (0, 1_000), (0, 1_025), (32, 1_025), (32, 65_536))
 # a mu_max whose Poisson table (K = 2,005 floats a thread) no block of 32
 # holds, so K14-K17 and K19/K20 count linearly; held at a small batch
 NV_LINEAR_MU_MAX, NV_LINEAR_LANES = 30_000.0, 4_096
@@ -398,6 +414,11 @@ TD3_RECIPE = dict(algo="td3", collect="kernel", num_envs=1024, buffer_size=200_7
 # iteration are host-bound eager PyTorch, 8-15 ms each on an H100's host
 TD3_ITERS = 8
 TPU_TD3_REWARD = "+5,061.2 +- 29.1"  # tools/remeasure_logs/validate_kernel_collect.jsonl:10
+# the xla path (phases 36-38): updates timed at PPO_CFG on each path (the
+# first builds the model), PPOAgent's and A2CAgent's updates
+XLA_RATE_UPDATES = 4
+XLA_AGENT_UPDATES = 16
+XLA_A2C_UPDATES = 8
 
 
 def close(name, got, want, rtol, atol):
@@ -928,6 +949,15 @@ def k9_k21_frame_check(logs):
         frame_free_check(logs, "nv_policy", "k_sample_normals", 1, "K21")))
 
 
+def k13_frame_check(logs):
+    """Phase 2's check of K13 (nv_episode.cu ``k_nv_returns<RANDOM, L>``,
+    its pipeline in registers, its streams staged by cp.async): an instance
+    for each mode and each lead time from 0 to NV_MAX_L, none with a stack
+    frame, a spill or a local-memory load or store (``frame_free_check``)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    return frame_free_check(logs, "nv_episode", "k_nv_returns<", 2 * (ek.NV_MAX_L + 1), "K13")
+
+
 def net_episode_frame_check(logs, local):
     """Phase 2's check of net_episode.cu's kernels, K1 ``k_episode_returns``
     and K25 ``k_batched_step`` (their state in shared memory since they
@@ -1048,6 +1078,28 @@ def k7_kernel_launch(params, acts, dems, seed, dev):
 
     def launch():
         ek._launch("im_episode", "im_episode_returns", *args)
+    return launch, out
+
+
+def k13_kernel_launch(params, econ, acts, dems, seed, dev):
+    """A launch of K13 alone on ``econ``, ``dems`` and ``acts`` (None:
+    _random on ``seed``): the C entry point with the plan, the discounts
+    and the output made before, as the entry point makes them. Returns
+    (launch, output)."""
+    import ctypes
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T, B = dems.shape
+    plan = ek._nv_plan(params, ek._plan_key(dev))
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    args = (ctypes.addressof(plan["struct"]), econ.data_ptr(),
+            None if acts is None else acts.data_ptr(), dems.data_ptr(), plan["disc"].data_ptr(),
+            out.data_ptr(), seed or 0, int(acts is None), B, T, ek._stream(dev))
+
+    def launch():
+        ek._launch("nv_episode", "nv_episode_returns", *args)
     return launch, out
 
 
@@ -1877,16 +1929,18 @@ def nv_cross_check(dev):
     actions bit for bit against plain K17 and its demand by DEMAND_SHARE;
     K16 against plain K16 by the share of lanes; K16 at E=1 equal to
     episode 0 at E=4; on episode 0's streams K15 = K17, and the chain K16 =
-    K14 = K13 _random = K13 (rtol=1e-5 atol=1e-3; whether bit for bit is
-    reported); K13 and K14 against their plain versions; a NaN action
-    through K13 gives NaN in its lane only, as in plain K13. Returns (max
-    |diff| per kernel, lines)."""
+    K14 = K13 _random = K13 bit for bit; K13 and K14 against their plain
+    versions; a NaN action through K13 gives NaN in its lane only, as in
+    plain K13. Then K13 at ``K13_EDGES`` (ragged batches, the ring's depths
+    0 and 32): K13 and K13 _random on K17's streams equal to K16 bit for
+    bit, and against plain with orders past both clips. Returns (max |diff|
+    per kernel, lines)."""
     import torch
 
     from or_gym_inventory_torch.ops import episode_kernels as ek
     B, E = CHECK_LANES, 4
     err = dict.fromkeys(NV_KERNELS, 0.0)
-    lines, bitwise = [], True
+    lines = []
 
     def track(name, value):
         err[name] = max(err[name], value)
@@ -1919,8 +1973,7 @@ def nv_cross_check(dev):
         k13r = ek.episode_returns_nv_random(params, e0, d0, SEED)
         k13 = ek.episode_returns_nv(params, e0, a0, d0)
         for name, got in (("K14", k14), ("K13 _random", k13r), ("K13", k13)):
-            close(f"{name} on K17's streams vs K16, {case}", got, k16[0], 1e-5, 1e-3)
-            bitwise = bitwise and bool(torch.equal(got, k16[0]))
+            exact(f"{name} on K17's streams vs K16, {case}", got, k16[0])
         _, e14 = lane_share(f"K14 vs plain, {case}", k14,
                             ek._nv_fused_plain(params, SEED, B, 1, dev, e0)[0], 1e-5, 1e-2)
         track("episode_returns_nv_fused", e14)
@@ -1941,7 +1994,25 @@ def nv_cross_check(dev):
                      "episode 0; K15 = K17's episode 0; K14, K13 _random, K13 on K17's "
                      "streams = K16; a NaN action gives NaN in its lane only")
         del econ, acts, dems, k16
-    lines.append(f"the chain K16 = K14 = K13 _random = K13 held bit for bit: {bitwise}")
+    lines.append("the chain K16 = K14 = K13 _random = K13 held bit for bit (an exact gate)")
+    for L, b in K13_EDGES:
+        params = nv_params(L, 0.99)
+        case = f"K13 at L={L} on {b} lanes"
+        econ, acts, dems = ek.sample_streams_debug_nv_reset(params, SEED, b, 1, dev)
+        e0, a0, d0 = econ[0].contiguous(), acts[:, 0].contiguous(), dems[:, 0].contiguous()
+        k16 = ek.episode_returns_nv_reset_fused(params, SEED, b, 1, dev)   # (b,) at E = 1
+        k13r = ek.episode_returns_nv_random(params, e0, d0, SEED)
+        exact(f"{case} on K17's streams vs K16", ek.episode_returns_nv(params, e0, a0, d0), k16)
+        exact(f"{case}, _random on K17's streams vs K16", k13r, k16)
+        wild = a0 * 1.5 - 10.0     # orders past both clip bounds
+        e13 = close(f"{case} vs plain", ek.episode_returns_nv(params, e0, wild, d0),
+                    ek._episode_returns_nv_plain(params, e0, wild, d0), 1e-5, 1e-2)
+        e13r = close(f"{case}, _random vs plain", k13r,
+                     ek._episode_returns_nv_plain(params, e0, None, d0, SEED), 1e-5, 1e-2)
+        track("episode_returns_nv", max(e13, e13r))
+        lines.append(f"{case}, gamma 0.99 (its instances k_nv_returns<*,{L}>): K13 and K13 _random on "
+                     f"K17's streams = K16 bit for bit; against plain max |diff| {e13:.6g} "
+                     f"(orders past both clips), _random {e13r:.6g}")
     for mu_max in (NV_CASES[0][2], NV_CASES[1][2], NV_LINEAR_MU_MAX):
         params = nv_params(mu_max=mu_max)
         K = ek._nv_window(params)[1]
@@ -3293,6 +3364,167 @@ def slice7_phases(dev, wrappers, smi, err, times, work):
     return launches, off_summary
 
 
+def update_times(env, params, cfg, dev, updates):
+    """``updates`` updates of ``train`` at ``cfg`` on ``dev``: each one's
+    wall time (synchronised at its end) and the metrics."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import ppo
+    stamps = [time.perf_counter()]
+
+    def progress(_m, _s):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _, metrics = ppo.train(env, params, cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           updates * cfg.num_envs * cfg.rollout_steps, device=dev,
+                           progress=progress)
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    if bad or len(metrics["update"]) != updates:
+        raise AssertionError(f"xla path metrics not finite: {bad}; {metrics}")
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], metrics
+
+
+def auto_reset_share(env, params, cfg, dev):
+    """One xla update at ``cfg`` with ``vecenv.auto_reset`` timed inside it
+    (the card synchronised around each call): (its ms in the update, the
+    update's ms, calls)."""
+    import torch
+
+    from or_gym_inventory_torch.vector import vecenv
+    inner, spent = vecenv.auto_reset, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    vecenv.auto_reset = timed
+    try:
+        update_times(env, params, cfg, dev, 1)                      # warm
+        spent.clear()
+        ms, _ = update_times(env, params, cfg, dev, 1)
+    finally:
+        vecenv.auto_reset = inner
+    return sum(spent) * 1e3, ms[0], len(spent)
+
+
+def xla_phases(dev, wrappers, smi):
+    """Phases 36-38, the fused policy+env update (``rollout="xla"``, plain
+    PyTorch, no kernel on its path) and the agents: 36, Newsvendor at
+    benchmark_newsvendor.py's PPO_CFG, counting launches (none) with every
+    plain kernel version patched to raise, its trained-steps/s beside the
+    kernel path's at the same config, and ``vecenv.auto_reset``'s share of
+    an update; 37, ``PPOAgent`` trains PPO_CFG for XLA_AGENT_UPDATES
+    updates, saves, and a fresh agent loads it and acts as it does, bit for
+    bit; ``A2CAgent`` with ``A2CConfig()`` takes a few updates; 38,
+    InvManagement and NetInvMgmt take one update each at ``PPOConfig()``'s
+    defaults. Every loss finite. Returns the summary."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import A2CAgent, PPOAgent
+    from or_gym_inventory_torch.agents import a2c, ppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import _build
+    params = nv.default_params(env_config=NV_ENV_CONFIG)
+    xla_cfg = ppo.PPOConfig(**dict(NV_PPO_RECIPE, rollout="xla"))
+    samples = xla_cfg.num_envs * xla_cfg.rollout_steps
+    summary = {}
+
+    # 36. the counted xla path, its rate beside the kernel path's, auto_reset
+    t0 = time.perf_counter()
+    reset_counts(wrappers)
+    with no_plain_versions():
+        xla_ms, metrics = update_times(nv.ENV, params, xla_cfg, dev, XLA_RATE_UPDATES)
+    launches = read_counts(wrappers)
+    if any(launches.values()):
+        raise AssertionError(f"the xla path launched kernels: {launches}")
+    kernel_ms, _ = update_times(nv.ENV, params, ppo.PPOConfig(**NV_PPO_RECIPE), dev,
+                                    XLA_RATE_UPDATES)
+    xla_best, kernel_best = min(xla_ms[1:]), min(kernel_ms[1:])
+    reset_ms, update_ms, calls = auto_reset_share(nv.ENV, params, xla_cfg, dev)
+    summary.update(nv_update_ms=xla_best, nv_trained_steps_s=samples / xla_best * 1e3,
+                   nv_kernel_update_ms=kernel_best,
+                   nv_kernel_trained_steps_s=samples / kernel_best * 1e3,
+                   auto_reset_ms=reset_ms, auto_reset_update_ms=update_ms)
+    print(f"[36 xla main path] Newsvendor PPO_CFG (256 x 50, 8 minibatches, 4 epochs), "
+          f'rollout="xla": no kernel launched, no plain kernel version; update ms '
+          f"{', '.join(f'{t:.3f}' for t in xla_ms)}; best {xla_best:.3f} ms = "
+          f"{samples / xla_best * 1e3:.6g} trained-steps/s, beside rollout=\"kernel\" (K18) at "
+          f"the same config: {', '.join(f'{t:.3f}' for t in kernel_ms)}; best {kernel_best:.3f} "
+          f"ms = {samples / kernel_best * 1e3:.6g} trained-steps/s ({kernel_best / xla_best:.3f} "
+          f"of the xla update's time), on {smi}; launches {launches}", flush=True)
+    print(f"[36 xla main path] metrics: " + "; ".join(
+        f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in metrics.items()), flush=True)
+    print(f"[36 xla main path] vecenv.auto_reset (a whole batch reset every step): "
+          f"{reset_ms:.3f} ms over {calls} calls in one update of {update_ms:.3f} ms "
+          f"({reset_ms / update_ms:.1%}; the card synchronised around each call), on {smi}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 37. the agents: train, save, load, act; A2C
+    t0 = time.perf_counter()
+    root = _build.BUILD_DIR / "chip_smoke_agents"
+    kw = dict(model_dir=str(root / "models"), log_dir=str(root / "logs"), force_retrain=True,
+              device=dev)
+    agent = PPOAgent(nv.ENV, nv.default_params, config=xla_cfg, **kw)
+    agent.train(NV_ENV_CONFIG, XLA_AGENT_UPDATES * samples)
+    log = agent.training_log
+    if len(log["update"]) != XLA_AGENT_UPDATES or not all(
+            np.isfinite(log[k]).all() for k in ("pg_loss", "v_loss", "entropy")):
+        raise AssertionError(f"PPOAgent's training log: {log}")
+    path = agent.save()
+    fresh = PPOAgent(nv.ENV, nv.default_params, config=xla_cfg, **kw)
+    fresh.load(path)
+    _, ts = nv.ENV.reset(params, torch.Generator(device=dev).manual_seed(7), 4_096, device=dev)
+    acts = [a.device_policy(nv.ENV, params)(None, ts.obs, None, 0) for a in (agent, fresh)]
+    exact("PPOAgent: the loaded agent's device_policy actions", acts[1], acts[0])
+
+    class host:   # what get_action reads of a host env (no gymnasium on this machine)
+        action_space = nv.ENV.action_space(params)
+    one = [a.get_action(ts.obs[0].cpu().numpy(), host) for a in (agent, fresh)]
+    if not (np.array_equal(one[0], one[1]) and one[0].shape == (1,)):
+        raise AssertionError(f"PPOAgent get_action after load: {one}")
+    a2c_agent = A2CAgent(nv.ENV, nv.default_params, **kw)
+    a2c_cfg = a2c_agent.config
+    a2c_agent.train(NV_ENV_CONFIG, XLA_A2C_UPDATES * a2c_cfg.num_envs * a2c_cfg.rollout_steps)
+    a2c_log = a2c_agent.training_log
+    if a2c_cfg != a2c.A2CConfig() or not all(np.isfinite(v).all() for v in a2c_log.values()):
+        raise AssertionError(f"A2CAgent: {a2c_cfg}; {a2c_log}")
+    summary.update(agent_train_s=agent.training_time, a2c_train_s=a2c_agent.training_time,
+                   a2c_trained_steps_s=XLA_A2C_UPDATES * a2c_cfg.num_envs
+                   * a2c_cfg.rollout_steps / a2c_agent.training_time)
+    print(f"[37 agents] PPOAgent PPO_CFG on the xla path: {XLA_AGENT_UPDATES} updates in "
+          f"{agent.training_time:.2f} s, last mean_step_reward {log['mean_step_reward'][-1]:.6g}; "
+          f"saved to {os.path.basename(path)}, a fresh agent loaded it: device_policy on 4,096 "
+          f"obs and get_action {one[0].tolist()} equal bit for bit; A2CAgent, A2CConfig() "
+          f"(256 x 8, RMSprop): {XLA_A2C_UPDATES} updates in {a2c_agent.training_time:.2f} s "
+          f"({summary['a2c_trained_steps_s']:.6g} trained-steps/s with its host work), v_loss "
+          f"{', '.join(f'{x:.4g}' for x in a2c_log['v_loss'][-3:])}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 38. one update at PPOConfig()'s defaults on the other two families
+    t0 = time.perf_counter()
+    for label, mod, p in (("InvManagement", im, im.default_params()),
+                          ("NetInvMgmt", net, net.default_params())):
+        ms, m = update_times(mod.ENV, p, ppo.PPOConfig(), dev, 1)
+        summary[f"{label}_default_update_ms"] = ms[0]
+        print(f"[38 xla defaults] {label}, PPOConfig() (1,024 x 64, 8 minibatches, 4 epochs, "
+              f'rollout="xla"): one update {ms[0]:.3f} ms (its first, the model built), '
+              f"pg_loss {m['pg_loss'][0]:.6g}, v_loss {m['v_loss'][0]:.6g}, entropy "
+              f"{m['entropy'][0]:.6g}, episodes {m['episodes'][0]:.0f}", flush=True)
+    print(f"[38 xla defaults] {time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -3395,6 +3627,8 @@ def main() -> int:
           flush=True)
     print("[2 build] K9 (an instance per m1) and K21 on 2-D grids: " + k9_k21_frame_check(logs),
           flush=True)
+    print("[2 build] K13, its pipeline in registers and its streams staged by cp.async: "
+          + k13_frame_check(logs), flush=True)
 
     # 3-4. the main path, counting launches: bench.py's cross-check, then
     # random-policy returns at the operating point
@@ -3813,6 +4047,16 @@ def main() -> int:
     econ, acts, dems = econ[0].contiguous(), acts[:, 0].contiguous(), dems[:, 0].contiguous()
     k13_t = cuda_time(ek.episode_returns_nv, nv_p, econ, acts, dems, warmup=2, iters=20)
     k13_p = cuda_time(ek._episode_returns_nv_plain, nv_p, econ, acts, dems, warmup=1, iters=3)
+    k13r_t = cuda_time(ek.episode_returns_nv_random, nv_p, econ, dems, SEED, warmup=2, iters=20)
+
+    def k13_alone(a, seed, want):  # K13 alone, its output first held against the entry point's
+        launch, out = k13_kernel_launch(nv_p, econ, a, dems, seed, dev)
+        launch()
+        exact("K13 alone vs the entry point", out, want)
+        return cuda_time(launch, warmup=2, iters=20)["best_ms"]
+    k13_alone_ms = {
+        "streamed": k13_alone(acts, None, ek.episode_returns_nv(nv_p, econ, acts, dems)),
+        "random": k13_alone(None, SEED, ek.episode_returns_nv_random(nv_p, econ, dems, SEED))}
     k14_t = cuda_time(ek.episode_returns_nv_fused, nv_p, econ, SEED, warmup=2, iters=20)
     k14_p = cuda_time(ek._nv_fused_plain, nv_p, SEED, CHECK_LANES, 1, dev, econ,
                       warmup=1, iters=3)
@@ -3880,6 +4124,13 @@ def main() -> int:
                   f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     print(f"[20 kernel] episode_returns_im_policy, stochastic: {k11s_t['best_ms']:.4f} ms "
           f"(mean {k11s_t['mean_ms']:.4f})", flush=True)
+    k13_bound = work["episode_returns_nv"][0]
+    print(f"[20 kernel] episode_returns_nv (K13, its pipeline in registers, an instance per "
+          f"lead time, its streams staged by cp.async, {ek._nv_k13_plan()}): "
+          f"{k13_alone_ms['streamed']:.4f} ms the kernel alone ({k13_bound / k13_alone_ms['streamed']:.1%} "
+          f"of its bound), {k13_t['best_ms']:.4f} through the entry point; _random "
+          f"{k13_alone_ms['random']:.4f} alone, {k13r_t['best_ms']:.4f} through the entry point "
+          f"(best of 20), on {smi}", flush=True)
     nv_summary = {"random_ms": nv_t["best_ms"],
                   "random_env_steps_s": nv_steps / nv_t["best_ms"] * 1e3,
                   "k16_ms": k16_t["best_ms"], "k16_bound_ms": work[
@@ -4122,6 +4373,8 @@ def main() -> int:
     launches_s7, off_summary = slice7_phases(dev, wrappers, smi, err, times, work)
     launches = {name: launches[name] + launches_s7[name] for name in wrappers}
 
+    xla_summary = xla_phases(dev, wrappers, smi)
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -4134,6 +4387,8 @@ def main() -> int:
     rows[2]["kernel_ms"] = k3_alone_ms
     rows[6]["kernel_ms"] = k7_alone_ms["streamed"]   # K7: the row's numbers are streamed
     rows[6]["random"] = {"ms": k7r_t["best_ms"], "kernel_ms": k7_alone_ms["random"]}
+    rows[12]["kernel_ms"] = k13_alone_ms["streamed"]   # K13: the row's numbers are streamed
+    rows[12]["random"] = {"ms": k13r_t["best_ms"], "kernel_ms": k13_alone_ms["random"]}
 
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card
@@ -4143,6 +4398,7 @@ def main() -> int:
     print(json.dumps({"nv_main_path": nv_summary}))
     print(json.dumps({"lstm_main_path": lstm_rates}))
     print(json.dumps({"offpolicy_main_path": off_summary}))
+    print(json.dumps({"xla_main_path": xla_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

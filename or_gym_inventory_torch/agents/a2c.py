@@ -1,14 +1,14 @@
 """A2C as a configuration of the PPO machinery (port of
-``or_gym_inventory_tpu/agents/a2c.py:17-37``): one epoch, one minibatch,
-RMSprop (SB3's A2C default), no clipping in effect and no LR anneal.
-``A2CAgent`` waits for the agents slice (ROADMAP.md A11).
+``or_gym_inventory_tpu/agents/a2c.py``): one epoch, one minibatch, RMSprop
+(SB3's A2C default), no clipping in effect and no LR anneal, on PPO's
+update (the default ``rollout="xla"``) and its ``PPOAgent``.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-from or_gym_inventory_torch.agents.ppo import PPOConfig
+from or_gym_inventory_torch.agents.ppo import PPOAgent, PPOConfig
 
 
 def A2CConfig(num_envs: int = 256, rollout_steps: int = 8, lr: float = 7e-4,
@@ -30,3 +30,11 @@ def A2CConfig(num_envs: int = 256, rollout_steps: int = 8, lr: float = 7e-4,
         optimizer=optimizer)
     fields.update(kw)
     return PPOConfig(**fields)
+
+
+class A2CAgent(PPOAgent):
+    """``PPOAgent`` with ``A2CConfig()`` unless a config is given."""
+
+    def __init__(self, env, params_factory, name: str = "A2C", config=None, **kwargs):
+        super().__init__(env, params_factory, name=name, config=config or A2CConfig(),
+                         **kwargs)

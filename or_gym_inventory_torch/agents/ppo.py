@@ -1,24 +1,35 @@
-"""PPO trained through the trajectory kernels.
+"""PPO: the fused policy+env update and the trajectory-kernel update.
 
-Port of ``or_gym_inventory_tpu/agents/ppo.py:46-785``, the
-``rollout="kernel"`` path without a mesh, on all three families: each
-update runs one stochastic-policy episode per env in the family's
-trajectory kernel (``ops.net_step.rollout_traj_net``, K4,
-``ops.episode_kernels.rollout_traj_im``, K10, or ``rollout_traj_nv``, K18),
-rebuilds the observation batch from the dumped streams, recomputes logp and
-values in one forward pass, and runs epochs of minibatched
-clipped-surrogate SGD. The SGD phase is plain PyTorch (``nn`` layers,
-autograd, matmuls), as the JAX package left it to XLA.
+Port of ``or_gym_inventory_tpu/agents/ppo.py`` without a mesh, on all three
+families. Two ways to make an update's experience:
+
+- ``rollout="xla"`` (the default; JAX :589-673): ``rollout_steps`` periods
+  of the policy and ``vecenv.batch_step`` / ``vecenv.auto_reset`` in a
+  Python loop over ``num_envs`` envs, episodes carried across updates and
+  reset where they end, the bootstrap taken from the pre-reset obs of a
+  step whose episode ended. Plain PyTorch, as the JAX package left it to
+  XLA: no kernel runs on this path.
+- ``rollout="kernel"`` (JAX :486-587): episode-aligned updates, one
+  stochastic-policy episode per env in the family's trajectory kernel
+  (``ops.net_step.rollout_traj_net``, K4, ``ops.episode_kernels.
+  rollout_traj_im``, K10, or ``rollout_traj_nv``, K18); the obs batch is
+  rebuilt from the dumped streams and logp and values recomputed in one
+  forward pass.
+
+Both then run GAE and epochs of minibatched clipped-surrogate SGD
+(``sgd_phase``: ``nn`` layers, autograd, matmuls). ``PPOAgent`` wraps the
+learner in the reference's agent protocol (checkpoints, the skip-retrain
+shortcut, the EvalCallback analogue, the training log).
 
 Where the port differs in form:
 
 - ``PPOTrainState.params`` is an ``MLPActorCritic``; an update changes its
   parameters and the optimizer state in place (JAX returned new trees).
 - ``jax.random`` keys become one ``torch.Generator``: it draws the
-  kernel seed of every update and the minibatch permutations.
-- ``rollout="xla"`` (the fused policy+env rollout), ``PPOAgent``,
-  checkpoints and the mesh are still to port (ROADMAP.md A6b, A14); they
-  raise NotImplementedError.
+  policy's noise, the envs' demand and resets, the kernel seed of every
+  update and the minibatch permutations.
+- The mesh is still to port (ROADMAP.md A14); it raises
+  NotImplementedError.
 - The JAX package's ``num_envs % 1024`` check was a TPU tile constraint;
   the CUDA kernels mask the batch tail, so any ``num_envs`` works.
 - ``updates_per_call`` chunked updates into one device program; here every
@@ -26,11 +37,17 @@ Where the port differs in form:
 - ``minibatch_chunks=0`` picks chunks of at most 32,768 samples, the JAX
   package's TPU-measured value, except on a CUDA device, where it keeps each
   minibatch whole (``_chunk_count``).
+- Checkpoints are ``torch.save`` files with the suffix ``.pt``
+  (``utils.checkpoint``), where the JAX package wrote flax msgpack.
 """
 
 from __future__ import annotations
 
+import copy
+import csv
 import dataclasses
+import os
+import time
 import warnings
 from typing import Optional, Tuple
 
@@ -38,10 +55,13 @@ import numpy as np
 import torch
 
 from or_gym_inventory_torch.agents import networks
+from or_gym_inventory_torch.agents.base import (BaseAgent, ckpt_trained_timesteps,
+                                                write_ckpt_meta)
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management, net_inv_management, newsvendor
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import episode_kernels, net_step
+from or_gym_inventory_torch.utils import checkpoint
 from or_gym_inventory_torch.vector import vecenv
 
 # Below this env count the classic shuffled minibatch recipe is kept; at or
@@ -390,17 +410,110 @@ def sgd_phase(cfg: PPOConfig, opt: Optimizer, state: PPOTrainState, batch: dict,
     return torch.stack(auxs).mean(dim=0)
 
 
+def _action_bounds(env: Environment, env_params, device):
+    """(low, high, int actions) of the env's action box on ``device``; an
+    infinite high bound becomes 1e4, as the JAX package squashes to it."""
+    space = env.action_space(env_params)
+    high = np.where(np.isinf(space.high), 1e4, space.high)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(space.low, **f32), torch.as_tensor(high, **f32),
+            bool(np.issubdtype(space.dtype, np.integer)))
+
+
+def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimizer, dev):
+    """The fused policy+env update of JAX ``ppo.py:589-673``."""
+    low, high, int_actions = _action_bounds(env, env_params, dev)
+
+    def to_env_action(raw):
+        a = networks.squash_action(raw, low, high)
+        return a.to(torch.int32) if int_actions else a
+
+    def update(state: PPOTrainState, generator: torch.Generator):
+        """``rollout_steps`` periods of the policy and the envs from the
+        state's envs and obs, then GAE and the SGD epochs. Where an episode
+        ends mid-rollout its envs reset, and its last step bootstraps from
+        the pre-reset obs (fixed-horizon truncation)."""
+        n_envs = state.last_obs.shape[0]
+        norm = state.rms.normalize if cfg.normalize_obs else \
+            (lambda x: x.to(torch.float32))
+        env_state, obs, ret_accum = state.env_state, state.last_obs, state.ret_accum
+        tr = {k: [] for k in ("obs", "raw", "logp", "value", "reward", "ret_accum", "done",
+                              "final_obs")}
+        with torch.no_grad():
+            for _ in range(cfg.rollout_steps):
+                mean, log_std, value = apply_actor_critic(state.params, norm(obs), cfg)
+                raw = networks.gaussian_sample(generator, mean, log_std)
+                logp = networks.gaussian_log_prob(raw, mean, log_std)
+                env_state, ts = vecenv.batch_step(env, env_params, env_state,
+                                                  to_env_action(raw), generator)
+                env_state, next_obs = vecenv.auto_reset(env, env_params, env_state, ts,
+                                                        generator, n_envs)
+                # VecNormalize's order (SB3): accumulate, record, then zero at
+                # the episode's end, so a whole episode's discounted return
+                # enters the statistics
+                ret_rec = ret_accum * cfg.gamma + ts.reward
+                ret_accum = ret_rec * (1.0 - ts.done.to(torch.float32))
+                for k, v in (("obs", obs), ("raw", raw), ("logp", logp), ("value", value),
+                             ("reward", ts.reward), ("ret_accum", ret_rec),
+                             ("done", ts.done), ("final_obs", ts.obs)):
+                    tr[k].append(v)
+                obs = next_obs
+        tr = {k: torch.stack(v) for k, v in tr.items()}
+        reward_raw, done, values = tr["reward"], tr["done"], tr["value"]
+        if cfg.normalize_reward:
+            # scale the rewards by the running std of discounted returns
+            ret_rms = state.ret_rms.update(tr["ret_accum"].reshape(-1, 1))
+            scale = torch.rsqrt(ret_rms.var[0] + 1e-8)
+            reward = torch.clamp(reward_raw * scale, -10.0, 10.0)
+        else:
+            ret_rms, reward = state.ret_rms, reward_raw
+
+        # each step's next value: V(next obs), but V(final obs) where the
+        # episode ended at that step
+        T, D = cfg.rollout_steps, tr["obs"].shape[-1]
+        with torch.no_grad():
+            _, _, bootstrap = apply_actor_critic(state.params, norm(tr["final_obs"][-1]), cfg)
+            _, _, v_final = apply_actor_critic(
+                state.params, norm(tr["final_obs"].reshape(-1, D)), cfg)
+        next_values = torch.cat([values[1:], bootstrap[None]], dim=0)
+        next_values = torch.where(done, v_final.reshape(values.shape), next_values)
+        advs = gae_advantages(cfg, reward, done, values, next_values)
+
+        # the batch holds the obs normalised with the pre-update statistics,
+        # as JAX's loss normalises each minibatch with them
+        batch = dict(obs=norm(tr["obs"].reshape(-1, D)).reshape(T, n_envs, D), raw=tr["raw"],
+                     logp=tr["logp"], value=values, adv=advs, ret=advs + values)
+        pg_loss, v_loss, ent = sgd_phase(cfg, opt, state, batch, n_envs, generator)
+        rms = state.rms.update(tr["obs"].reshape(-1, D)) if cfg.normalize_obs else state.rms
+        metrics = dict(mean_step_reward=torch.mean(reward_raw),
+                       episodes=torch.clamp_min(torch.sum(done), 1),
+                       pg_loss=pg_loss, v_loss=v_loss, entropy=ent)
+        new_state = PPOTrainState(
+            params=state.params, opt_state=state.opt_state, rms=rms, ret_rms=ret_rms,
+            ret_accum=ret_accum, env_state=env_state, last_obs=obs,
+            update_idx=state.update_idx + 1)
+        return new_state, metrics
+
+    return update
+
+
 def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
                    total_updates: int, device=None):
-    """One PPO update ``update(state, generator) -> (state, metrics)`` on the
-    kernel path. Raises NotImplementedError for what is still to port."""
+    """One PPO update ``update(state, generator) -> (state, metrics)``:
+    ``cfg.rollout`` picks the fused policy+env rollout ("xla") or the
+    trajectory kernel ("kernel"). Raises ValueError for a config the path
+    refuses, NotImplementedError for a family the kernels do not run."""
     dev = resolve_device(device)
     if cfg.rollout not in ("xla", "kernel"):
         raise ValueError(f"rollout must be 'xla' or 'kernel', got {cfg.rollout!r}")
+    opt = Optimizer(cfg, total_updates)
     if cfg.rollout == "xla":
-        raise NotImplementedError(
-            "rollout='xla' (the fused policy+env rollout) is still to port "
-            "(ROADMAP.md A6b); use rollout='kernel'")
+        if cfg.compute_dtype is not None:
+            raise ValueError(
+                "compute_dtype is a kernel-rollout option (the xla path computes "
+                "logp_old in the rollout at f32; mixing precisions would skew the "
+                "epoch-0 ratio)")
+        return _make_xla_update(env, env_params, cfg, opt, dev)
     family = getattr(env, "name", None)
     if family not in ("net_inv_management", "inv_management", "newsvendor"):
         raise NotImplementedError(
@@ -411,7 +524,6 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
         raise ValueError(
             "rollout='kernel' runs episode-aligned updates: rollout_steps "
             f"({cfg.rollout_steps}) must equal the env horizon ({horizon})")
-    opt = Optimizer(cfg, total_updates)
 
     def update_kernel(state: PPOTrainState, generator: torch.Generator):
         """One episode-aligned update off the trajectory kernel: the
@@ -529,15 +641,10 @@ def make_eval_policy(env: Environment, env_params, cfg: PPOConfig,
     """``policy_fn(policy_state=(model, rms), obs, generator, t)`` for the
     vecenv rollouts: the squashed mean, or with ``deterministic=False`` a
     squashed Gaussian sample."""
-    space = env.action_space(env_params)
-    int_actions = np.issubdtype(space.dtype, np.integer)
-    high_np = np.where(np.isinf(space.high), 1e4, space.high)
-
     @torch.no_grad()
     def policy(policy_state, obs, generator, _t):
         model, rms = policy_state
-        low = torch.as_tensor(space.low, dtype=torch.float32, device=obs.device)
-        high = torch.as_tensor(high_np, dtype=torch.float32, device=obs.device)
+        low, high, int_actions = _action_bounds(env, env_params, obs.device)
         norm_obs = rms.normalize(obs) if (cfg.normalize_obs and rms is not None) \
             else obs.to(torch.float32)
         mean, log_std, _ = model(norm_obs)
@@ -547,3 +654,155 @@ def make_eval_policy(env: Environment, env_params, cfg: PPOConfig,
         return a.to(torch.int32) if int_actions else a
     return policy
 
+
+
+# ======================================================== host agent wrapper
+
+class PPOAgent(BaseAgent):
+    """The ``BaseAgent``-protocol wrapper over the PPO learner (JAX
+    ``ppo.py:790-965``), with SB3AgentWrapper's ergonomics
+    (benchmark_InvManagementBacklogEnv.py:201-342): the checkpoint shortcut
+    unless ``force_retrain``, ``save``/``load``, the training log for
+    learning curves, deterministic evaluation actions.
+
+    ``eval_every_updates`` > 0 is the EvalCallback analogue: every so many
+    updates a deterministic ``vecenv.evaluate_episodes`` of
+    ``eval_episodes`` envs, the best parameters kept and restored after
+    training (benchmark_InvManagementBacklogEnv.py:275-281, 303-311).
+    ``device`` is where training runs (None: the card); ``get_action``
+    answers from a CPU copy of the policy, since one observation at a time
+    is bound by latency."""
+
+    def __init__(self, env: Environment, params_factory, name: str = "PPO",
+                 config: Optional[PPOConfig] = None, model_dir: str = "./models",
+                 log_dir: str = "./logs", force_retrain: bool = False, mesh=None,
+                 seed: int = 0, eval_every_updates: int = 0, eval_episodes: int = 64,
+                 device=None):
+        super().__init__(name=name)
+        self.env = env
+        self.params_factory = params_factory
+        self.config = config or PPOConfig()
+        self.model_dir, self.log_dir = model_dir, log_dir
+        self.force_retrain = force_retrain
+        self.mesh = mesh
+        self.seed = seed
+        self.eval_every_updates = eval_every_updates
+        self.eval_episodes = eval_episodes
+        self.device = device
+        self.env_params = None
+        self.train_state = None
+        self.training_log = None
+        self.trained_timesteps = 0
+        self._eval = None
+
+    # -- persistence -----------------------------------------------------
+    def _ckpt_path(self, prefix: str = "") -> str:
+        return os.path.join(self.model_dir, f"{prefix}{self.name}.pt")
+
+    def save(self, path: Optional[str] = None) -> str:
+        """The parameters and the obs statistics to ``path`` (the agent's
+        checkpoint by default), with the trained budget beside it."""
+        path = path or self._ckpt_path()
+        rms = self.train_state.rms
+        checkpoint.save_pytree(path, {
+            "params": checkpoint.to_tree(self.train_state.params),
+            "rms": {"mean": rms.mean, "var": rms.var, "count": rms.count}})
+        write_ckpt_meta(path, self.trained_timesteps)
+        return path
+
+    def load(self, path: str):
+        """A train state of one env holding the checkpoint's parameters and
+        obs statistics, on the agent's device."""
+        dev = resolve_device(self.device)
+        payload = checkpoint.load_pytree(path, map_location=dev)
+        if self.env_params is None:
+            self.env_params = self.params_factory()
+        state = init_train_state(self.env, self.env_params, self.config.replace(num_envs=1),
+                                 torch.Generator(device=dev).manual_seed(self.seed), 1,
+                                 device=dev)
+        state.params.load_state_dict(payload["params"])
+        self.train_state = dataclasses.replace(state, rms=RunningMeanStd(**payload["rms"]))
+        self.trained_timesteps = ckpt_trained_timesteps(path)
+        self._eval = None
+
+    # -- training --------------------------------------------------------
+    def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
+        self.env_params = self.params_factory(env_config=env_config or None)
+        ckpt = self._ckpt_path(save_path_prefix)
+        if not self.force_retrain and os.path.exists(ckpt):
+            trained = ckpt_trained_timesteps(ckpt)
+            if trained >= total_timesteps:
+                print(f"Loading existing model for {self.name} from {ckpt} "
+                      f"(trained {trained} >= {total_timesteps})")
+                self.load(ckpt)
+                self.training_time = 0.0
+                return
+            print(f"Checkpoint {ckpt} trained only {trained} < {total_timesteps} steps; "
+                  "retraining")
+        print(f"Training {self.name} for {total_timesteps} steps...")
+        dev = resolve_device(self.device)
+        start = time.time()
+        best = {"reward": -np.inf, "params": None, "rms": None}
+        progress = None
+        if self.eval_every_updates > 0:
+            eval_pol = make_eval_policy(self.env, self.env_params, self.config)
+
+            def progress(m, st):
+                if m["update"] % self.eval_every_updates:
+                    return
+                totals, _ = vecenv.evaluate_episodes(
+                    self.env, self.env_params, eval_pol, (st.params, st.rms),
+                    torch.Generator(device=dev).manual_seed(self.seed + 1),
+                    self.eval_episodes, device=dev)
+                mean = float(totals.double().mean())
+                if mean > best["reward"]:
+                    best.update(reward=mean, params=copy.deepcopy(st.params), rms=st.rms)
+
+        state, metrics = train(self.env, self.env_params, self.config,
+                               torch.Generator(device=dev).manual_seed(self.seed),
+                               total_timesteps, mesh=self.mesh, progress=progress, device=dev)
+        if best["params"] is not None:
+            print(f"Loading best model (eval reward {best['reward']:.2f})")
+            state = dataclasses.replace(state, params=best["params"], rms=best["rms"])
+        self.train_state = state
+        self._eval = None
+        self.training_log = metrics
+        self.training_time = time.time() - start
+        self.trained_timesteps = total_timesteps
+        self.save(ckpt)
+        if metrics:
+            os.makedirs(self.log_dir, exist_ok=True)
+            log_path = os.path.join(self.log_dir, f"{self.name}_train_log.csv")
+            with open(log_path, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(metrics.keys()))
+                w.writeheader()
+                for i in range(len(metrics["update"])):
+                    w.writerow({k: metrics[k][i] for k in metrics})
+        print(f"Training for {self.name} finished in {self.training_time:.2f}s "
+              f"({total_timesteps / max(self.training_time, 1e-9):,.0f} trained-steps/s)")
+
+    # -- evaluation ------------------------------------------------------
+    def _eval_policy(self):
+        """The deterministic policy and a CPU copy of the parameters and
+        statistics it reads (a round trip to the card a step would cost
+        more than the step)."""
+        if self._eval is None:
+            rms = self.train_state.rms
+            cpu_rms = RunningMeanStd(mean=rms.mean.cpu(), var=rms.var.cpu(),
+                                     count=rms.count.cpu())
+            self._eval = (make_eval_policy(self.env, self.env_params, self.config),
+                          (copy.deepcopy(self.train_state.params).cpu(), cpu_rms),
+                          torch.Generator().manual_seed(0))
+        return self._eval
+
+    def get_action(self, observation, env):
+        if self.train_state is None:
+            return env.action_space.sample().astype(env.action_space.dtype)
+        policy, ps, generator = self._eval_policy()
+        obs = torch.as_tensor(np.asarray(observation, np.float32))[None]
+        return np.asarray(policy(ps, obs, generator, 0)[0]).astype(env.action_space.dtype)
+
+    def device_policy(self, env, params):
+        policy = make_eval_policy(self.env, self.env_params or params, self.config)
+        ps = (self.train_state.params, self.train_state.rms)
+        return lambda _s, obs, generator, t: policy(ps, obs, generator, t)

@@ -307,13 +307,14 @@ def A2CLSTMConfig(num_envs: int = 256, rollout_steps: int = 8, lr: float = 7e-4,
 
 class RecurrentPPOAgent:
     """The host wrapper of the JAX package (BaseAgent protocol, checkpoints,
-    ``get_action`` with a carried state): still to port with ``PPOAgent``
-    and ``agents/base`` (ROADMAP.md A6b)."""
+    ``get_action`` with a carried state): still to port with the recurrent
+    ``rollout="xla"`` update, on ``ppo.PPOAgent``'s pattern (ROADMAP.md
+    A6b)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            f"{type(self).__name__} is still to port with PPOAgent, agents/base and "
-            "checkpoints (ROADMAP.md A6b); use recurrent_ppo.train")
+            f"{type(self).__name__} is still to port with the recurrent rollout='xla' "
+            "update (ROADMAP.md A6b); use recurrent_ppo.train")
 
 
 class A2CLSTMAgent(RecurrentPPOAgent):

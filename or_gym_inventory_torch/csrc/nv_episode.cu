@@ -2,12 +2,32 @@
 // ops/_build.py and wrapped by ops/episode_kernels.py, whose plain PyTorch
 // versions compute the same functions.
 //
-// K13 k_nv_returns  replaces pallas_episode_kernels._nv_call (:123) behind
-//    episode_returns_nv (:146) and episode_returns_nv_random (:157); body
-//    _nv_kernel :99. One thread per env reads its econ (5, B) and its (T,)
-//    f32 actions, clipped to [0, max_order] (or, RANDOM, draws them: K16's
-//    action words of episode 0), and its (T,) demand, coalesced along B.
-//    Bound by bytes: (5 + 2 T + 1) * 4 per env, read or written once.
+// K13 k_nv_returns<RANDOM, L>  replaces pallas_episode_kernels._nv_call
+//    (:123) behind episode_returns_nv (:146) and episode_returns_nv_random
+//    (:157); body _nv_kernel :99. One thread a lane reads its econ (5, B)
+//    and its (T,) f32 actions, clipped to [0, max_order] (or, RANDOM, draws
+//    them: K16's action words of episode 0), and its (T,) demand, coalesced
+//    along B. Bound by bytes: (5 + 2 T + 1) * 4 per env, read or written
+//    once; but a lane's T periods are a chain (each order's cap reads the
+//    pipeline), and what sets the time is the instructions a period issues
+//    and the latency of that chain, not the loads. So the pipeline is a
+//    shift register of L registers (nv_step_shift, an instance per L from 0
+//    to NV_MAX_L and per mode), and the periods of a chunk of kK13Chunk are
+//    unrolled, so that the parts of a period off the chain (the reward, the
+//    discount, the next period's words) overlap the chain's. The order and
+//    demand words are staged into shared memory ahead of the step by
+//    4-byte cp.async copies (cp_async.cuh), two buffers of kK13Chunk
+//    periods a thread ([word][thread]), the next chunk copied while this one
+//    is stepped, as K1 and K7 do; RANDOM stages the demand alone and draws
+//    the chunk's orders while the copies are in flight.
+//    ops/episode_kernels.py _nv_k13_plan sizes the block (NvParams.
+//    k13_threads) and its shared memory. The float operations are
+//    nv_step_ring's, in its order, so the returns equal the first design's
+//    bit for bit. The first design stepped on NvEpisode's ring of NV_MAX_L
+//    floats in a local frame, each period's loads on the chain; a second
+//    kept the ring in a column of shared memory and staged the streams as
+//    here, one period at a time (both in tools/k13_parent.cu, which
+//    tools/k13_sweep.py times in turns with this one).
 // K14/K15 k_nv_episodes<ECON_IN>  replace _nv_fused_call (:341) behind
 //    episode_returns_nv_fused (:368) and sample_streams_debug_nv (:529):
 //    econ streamed in, actions and Poisson(mu) demand drawn in the kernel
@@ -50,13 +70,25 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "launch.cuh"
 #include "nv_step.cuh"
 #include "philox.cuh"
 
 namespace {
 
-template <bool RANDOM>
+// K13's periods a staging buffer and an unrolled chunk of the period loop;
+// 8 keeps 16 words a thread in flight while a chunk is stepped, about 4 MB
+// over the card at 65,536 lanes (tools/k13_sweep.py times 4 and 16 by a
+// text change of this line; ops/episode_kernels.py NV_K13_CHUNK mirrors it).
+constexpr int kK13Chunk = 8;
+
+// K13: one thread a lane, its pipeline in registers (nv_step_shift), its
+// column of dynamic shared memory ([word][thread]) two staging buffers of
+// kK13Chunk periods: a period's order word, then its demand word (RANDOM:
+// the demand word alone). A thread touches only its own column, so there
+// is no barrier and a thread past the batch returns at once.
+template <bool RANDOM, int L>
 __global__ void k_nv_returns(const __grid_constant__ NvParams p,
                              const float* __restrict__ econ,
                              const float* __restrict__ acts,
@@ -64,25 +96,53 @@ __global__ void k_nv_returns(const __grid_constant__ NvParams p,
                              const float* __restrict__ disc,
                              float* __restrict__ out, unsigned seed, long long B,
                              int T) {
+  extern __shared__ float nv_words[];
   const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (b >= B) return;
-  NvEpisode s;
-  nv_reset(p, s);
-  s.price = __ldg(econ + b);
-  s.cost = __ldg(econ + B + b);
-  s.h = __ldg(econ + 2 * B + b);
-  s.k = __ldg(econ + 3 * B + b);
-  float total = 0.f;
-  for (int t = 0; t < T; ++t) {
-    float order;
-    if (RANDOM) {
-      WordStream ws(seed, 0u, (unsigned)b, 0u, (unsigned)t);
-      order = __fmul_rn(u01(ws.next()), p.max_order);
-    } else {
-      order = min_nan(max_nan(__ldg(acts + (long long)t * B + b), 0.f), p.max_order);
+  constexpr int kWords = RANDOM ? 1 : 2;  // staged words a period
+  const int n = blockDim.x;
+  float* const stage = nv_words + threadIdx.x;
+  // copy periods [t0, t0 + kK13Chunk) (those below T) into buffer ``buf``
+  auto copy_chunk = [&](int t0, int buf) {
+    float* const dst = stage + buf * kK13Chunk * kWords * n;
+#pragma unroll
+    for (int i = 0; i < kK13Chunk; ++i) {
+      if (t0 + i >= T) break;
+      const long long k = (long long)(t0 + i) * B + b;
+      if (!RANDOM) cp_async4(dst + 2 * i * n, acts + k);
+      cp_async4(dst + (kWords * i + kWords - 1) * n, dems + k);
     }
-    const float reward = nv_step(p, s, order, __ldg(dems + (long long)t * B + b));
-    total = __fadd_rn(total, __fmul_rn(__ldg(disc + t), reward));
+    cp_async_commit();
+  };
+  float ring[L > 0 ? L : 1];
+#pragma unroll
+  for (int j = 0; j < L; ++j) ring[j] = 0.f;
+  const NvEcon c{__ldg(econ + b), __ldg(econ + B + b), __ldg(econ + 2 * B + b),
+                 __ldg(econ + 3 * B + b), 0.f};
+  float total = 0.f;
+  copy_chunk(0, 0);
+  for (int t0 = 0, buf = 0; t0 < T; t0 += kK13Chunk, buf ^= 1) {
+    if (t0 + kK13Chunk < T) copy_chunk(t0 + kK13Chunk, buf ^ 1);
+    else cp_async_commit();  // an empty group keeps the count
+    float order[kK13Chunk];
+    if (RANDOM) {  // this chunk's orders, drawn while the copies are in flight
+#pragma unroll
+      for (int i = 0; i < kK13Chunk; ++i) {
+        WordStream ws(seed, 0u, (unsigned)b, 0u, (unsigned)(t0 + i));
+        order[i] = __fmul_rn(u01(ws.next()), p.max_order);
+      }
+    }
+    cp_async_wait<1>();  // this chunk's group has landed
+    const float* const q = stage + buf * kK13Chunk * kWords * n;
+#pragma unroll
+    for (int i = 0; i < kK13Chunk; ++i) {
+      if (t0 + i >= T) break;
+      if (!RANDOM) order[i] = min_nan(max_nan(q[2 * i * n], 0.f), p.max_order);
+      float q_cap;
+      const float reward = nv_step_shift<L>(p, ring, c, order[i],
+                                            q[(kWords * i + kWords - 1) * n], q_cap);
+      total = __fadd_rn(total, __fmul_rn(__ldg(disc + t0 + i), reward));
+    }
   }
   out[b] = total;
 }
@@ -161,6 +221,26 @@ __global__ void k_nv_episodes(const __grid_constant__ NvParams p,
   if (!DUMP) out[idx] = total;  // (E, B), episode-major
 }
 
+// K13's instance for the params' lead time, L .. NV_MAX_L.
+template <bool RANDOM, int L = 0>
+int launch_k13(const NvParams& p, const float* econ, const float* acts, const float* dems,
+               const float* disc, float* out, unsigned seed, long long B, int T,
+               cudaStream_t stream) {
+  if (p.L == L) {
+    if (p.k13_threads < 1) return (int)cudaErrorInvalidValue;
+    auto kernel = k_nv_returns<RANDOM, L>;
+    const size_t smem = (size_t)2 * kK13Chunk * (RANDOM ? 1 : 2) * p.k13_threads * sizeof(float);
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((B + p.k13_threads - 1) / p.k13_threads);
+    kernel<<<blocks, p.k13_threads, smem, stream>>>(p, econ, acts, dems, disc, out, seed, B, T);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (L < NV_MAX_L)
+    return launch_k13<RANDOM, L + 1>(p, econ, acts, dems, disc, out, seed, B, T, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool ECON_IN, bool DUMP, bool TABLE>
 int launch_plan(const NvParams& p, const float* lgam, const float* econ_in,
                 const float* disc, float* out, float* econ_out, float* acts, float* dems,
@@ -190,15 +270,14 @@ int launch_episodes(const NvParams& p, const float* lgam, const float* econ_in,
 
 extern "C" {
 
+// K13 on p->k13_threads a block, the instance for the params' lead time;
 // random != 0: K13 _random, the actions drawn in the kernel (acts unused).
 int nv_episode_returns(const NvParams* p, const float* econ, const float* acts,
                        const float* dems, const float* disc, float* out,
                        unsigned seed, int random, long long B, int T,
                        cudaStream_t stream) {
-  auto kernel = random ? k_nv_returns<true> : k_nv_returns<false>;
-  kernel<<<blocks_for(B), kThreads, 0, stream>>>(*p, econ, acts, dems, disc, out, seed,
-                                                 B, T);
-  return (int)cudaGetLastError();
+  return random ? launch_k13<true>(*p, econ, acts, dems, disc, out, seed, B, T, stream)
+                : launch_k13<false>(*p, econ, acts, dems, disc, out, seed, B, T, stream);
 }
 
 // econ_in != nullptr: K14/K15, the econ (5, B) streamed in (E must be 1);

@@ -14,9 +14,11 @@
 //   max_inventory cap is on hand (newsvendor.py:136-142); otherwise on hand
 //   is the oldest pipeline slot, and unsold stock expires.
 // - The pipeline is a ring of depth L (the oldest at ``head``), in a
-//   thread's local NvEpisode or, in K19/K20's tile, in the pair's column of
-//   shared memory (nv_step_ring takes either); its sum runs oldest first,
-//   as JAX's sum(P[1:], P[0]).
+//   thread's local NvEpisode (K14-K17) or in the pair's column of shared
+//   memory in K19/K20's tile (nv_step_ring takes either), or a shift
+//   register of L registers, the oldest first, in K13 (nv_step_shift, an
+//   instance per L); its sum runs oldest first, as JAX's sum(P[1:], P[0]),
+//   and the rest of the step is one function (nv_reward) for all three.
 // - Purchase cost is charged on the capped order.
 // - NaN: jnp.clip/maximum/minimum propagate it (nanmath.cuh), so a NaN
 //   action gives a NaN return.
@@ -76,6 +78,7 @@ struct NvParams {
   float wb;             // Wb, the widest half-window
   float max_inv, max_order;
   float p_max, h_max, k_max, mu_max;
+  int k13_threads;      // K13's block size (nv_episode.cu; _nv_k13_plan)
 };
 
 struct NvEpisode {
@@ -128,6 +131,21 @@ struct NvSharedRing {
   __device__ float& operator()(int k) const { return r[k * stride]; }
 };
 
+// One period after the pipeline is read: the undiscounted reward of
+// ``order_raw`` against demand d, with ``inv`` on hand and ``psum`` in the
+// pipeline; the capped order that enters the pipeline into q. ``c`` is the
+// economics.
+__device__ __forceinline__ float nv_reward(const NvParams& p, const NvEcon& c, float inv,
+                                           float psum, float order_raw, float d, float& q) {
+  q = max_nan(0.f, min_nan(order_raw, __fsub_rn(p.max_inv, psum)));
+  const float sales = min_nan(inv, d);
+  const float excess = max_nan(0.f, __fsub_rn(inv, d));
+  const float shortage = max_nan(0.f, __fsub_rn(d, inv));
+  float reward = __fsub_rn(__fmul_rn(sales, c.price), __fmul_rn(q, c.cost));
+  reward = __fsub_rn(reward, __fmul_rn(excess, c.h));
+  return __fsub_rn(reward, __fmul_rn(shortage, c.k));
+}
+
 // One period: the undiscounted reward of ``order_raw`` against demand d; the
 // capped order that enters the pipeline into q. ``ring`` and ``head`` are
 // the pipeline (the oldest at ``head``), ``c`` the economics.
@@ -146,16 +164,34 @@ __device__ __forceinline__ float nv_step_ring(const NvParams& p, const Ring& rin
       psum = __fadd_rn(psum, ring(k));
     }
   }
-  q = max_nan(0.f, min_nan(order_raw, __fsub_rn(p.max_inv, psum)));
-  const float sales = min_nan(inv, d);
-  const float excess = max_nan(0.f, __fsub_rn(inv, d));
-  const float shortage = max_nan(0.f, __fsub_rn(d, inv));
-  float reward = __fsub_rn(__fmul_rn(sales, c.price), __fmul_rn(q, c.cost));
-  reward = __fsub_rn(reward, __fmul_rn(excess, c.h));
-  reward = __fsub_rn(reward, __fmul_rn(shortage, c.k));
+  const float reward = nv_reward(p, c, inv, psum, order_raw, d, q);
   if (L > 0) {
     ring(head) = q;
     head = head + 1 == L ? 0 : head + 1;
+  }
+  return reward;
+}
+
+// nv_step_ring on a pipeline of a depth L known at compile time, held as a
+// shift register: ring[0] arrives next, ring[L - 1] is the newest. With the
+// period loop unrolled every index is a constant, so the pipeline stays in
+// registers (K13); the float operations are nv_step_ring's, in its order.
+template <int L>
+__device__ __forceinline__ float nv_step_shift(const NvParams& p, float (&ring)[L > 0 ? L : 1],
+                                               const NvEcon& c, float order_raw, float d,
+                                               float& q) {
+  float psum = 0.f, inv = order_raw;
+  if constexpr (L > 0) {
+    inv = ring[0];
+    psum = inv;
+#pragma unroll
+    for (int j = 1; j < L; ++j) psum = __fadd_rn(psum, ring[j]);
+  }
+  const float reward = nv_reward(p, c, inv, psum, order_raw, d, q);
+  if constexpr (L > 0) {
+#pragma unroll
+    for (int j = 0; j + 1 < L; ++j) ring[j] = ring[j + 1];
+    ring[L - 1] = q;
   }
   return reward;
 }

@@ -2290,7 +2290,7 @@ class _NvParams(ctypes.Structure):
                 ("wb", ctypes.c_float), ("max_inv", ctypes.c_float),
                 ("max_order", ctypes.c_float), ("p_max", ctypes.c_float),
                 ("h_max", ctypes.c_float), ("k_max", ctypes.c_float),
-                ("mu_max", ctypes.c_float)]
+                ("mu_max", ctypes.c_float), ("k13_threads", ctypes.c_int)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2340,10 +2340,50 @@ def _nv_table_plan(K: int) -> NvTablePlan:
     return best
 
 
+@dataclasses.dataclass(frozen=True)
+class NvK13Plan:
+    """K13's launch: two staging buffers of ``chunk`` periods of
+    ``per_period`` words (the order, then the demand; ``_random`` the demand
+    alone), ``words`` a thread, [word][thread] in dynamic shared memory at
+    ``threads`` a block: ``bytes`` a block, resident ``blocks_per_sm`` by
+    shared memory, threads and blocks (the pipeline is in registers)."""
+    threads: int
+    words: int
+    per_period: int
+    chunk: int
+    bytes: int
+    blocks_per_sm: int
+
+
+# K13's periods a staging buffer and an unrolled chunk (kK13Chunk of
+# csrc/nv_episode.cu), and its block: launch.cuh's kThreads. On an H100, 64
+# and 256 threads ran within 2% of 128 (tools/k13_sweep.py, the shared-memory
+# form).
+NV_K13_CHUNK = 8
+NV_K13_THREADS = 128
+
+
+@functools.lru_cache(maxsize=16)
+def _nv_k13_plan(random: bool = False, threads: int = NV_K13_THREADS) -> NvK13Plan:
+    """K13's shared memory: 2 x ``NV_K13_CHUNK`` periods of 2 words a
+    thread (1 for ``random``) at ``threads`` a block. Raises ValueError
+    where no block holds it."""
+    per_period = 1 if random else 2
+    words = 2 * NV_K13_CHUNK * per_period
+    nbytes = 4 * words * threads
+    if threads < 32 or threads % 32 or threads > 1024 or nbytes > SMEM_OPTIN_BYTES:
+        raise ValueError(f"K13 launches whole warps, at most 1,024 threads and "
+                         f"{SMEM_OPTIN_BYTES} bytes a block; got {threads} threads, {nbytes} B")
+    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), THREADS_PER_SM // threads,
+                 BLOCKS_PER_SM)
+    return NvK13Plan(threads, words, per_period, NV_K13_CHUNK, nbytes, blocks)
+
+
 @functools.lru_cache(maxsize=32)
 def _nv_plan(params: nv.NewsvendorParams, device: str):
     """A launch's host-built arguments, built once per (params, device): the
-    params struct (with K14-K17's ``_nv_table_plan``), the f32 gamma^t table (as a list and on ``device``) and
+    params struct (with K14-K17's ``_nv_table_plan`` and K13's
+    ``_nv_k13_plan``), the f32 gamma^t table (as a list and on ``device``) and
     the lgamma pairs on ``device``. Raises ValueError for a lead time beyond
     the ring's depth."""
     if params.lead_time > NV_MAX_L:
@@ -2351,11 +2391,12 @@ def _nv_plan(params: nv.NewsvendorParams, device: str):
                          f"ring holds at most {NV_MAX_L}")
     Wb, K, lgam = _nv_window(params)
     launch = _nv_table_plan(K)
+    k13 = _nv_k13_plan()
     st = _NvParams(L=params.lead_time, K=K, threads=launch.threads, table=int(launch.table),
                    kc_max=len(lgam) - 1, wb=float(Wb),
                    max_inv=params.max_inventory, max_order=params.max_order_quantity,
                    p_max=params.p_max, h_max=params.h_max, k_max=params.k_max,
-                   mu_max=params.mu_max)
+                   mu_max=params.mu_max, k13_threads=k13.threads)
     discs = _discounts(params.gamma, params.step_limit)
     return dict(struct=st, discs=discs,
                 disc=torch.tensor(discs, dtype=torch.float32, device=device),
@@ -2465,8 +2506,10 @@ def episode_returns_nv(params: nv.NewsvendorParams, econ: torch.Tensor,
     given) and float32 streams ``actions`` (step_limit, B), clipped to
     [0, max_order] as the reference clips them, and ``demands``
     (step_limit, B), on one device. K13: on CUDA tensors one thread per env
-    runs the whole episode (csrc/nv_episode.cu ``k_nv_returns``); on CPU
-    tensors the plain version runs."""
+    runs the whole episode, its pipeline in registers (an instance per lead
+    time) and its streams staged into shared memory ahead of the step
+    (csrc/nv_episode.cu ``k_nv_returns``, laid out by ``_nv_k13_plan``); on
+    CPU tensors the plain version runs."""
     return _nv_returns_call(episode_returns_nv, params, econ, actions, demands, None)
 
 

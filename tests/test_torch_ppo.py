@@ -203,8 +203,11 @@ def test_train_on_cpu_and_what_is_not_ported():
     assert all(np.isfinite(v).all() and v.shape == (2,) for v in metrics.values())
     assert list(metrics["timesteps"]) == [600, 1200]
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        tppo.train(tnet.ENV, tp, cfg.replace(rollout="xla"), gen, 600, device=CPU)
+    # the fused policy+env update (rollout="xla", the default) trains too
+    xla_state, xla_metrics = tppo.train(tnet.ENV, tp, cfg.replace(rollout="xla"), gen, 600,
+                                        device=CPU)
+    assert xla_state.update_idx == 1 and set(xla_metrics) == set(metrics)
+    assert all(np.isfinite(v).all() and v.shape == (1,) for v in xla_metrics.values())
     with pytest.raises(NotImplementedError, match="A14"):
         tppo.train(tnet.ENV, tp, cfg, gen, 600, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="horizon"):
