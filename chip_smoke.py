@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's fourteen main paths, each with every
+at once), then drives the port's fifteen main paths, each with every
 launch counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -70,7 +70,20 @@ launch counter set to 0 just before it and read just after:
   ``vecenv.auto_reset``'s share of an update. Phase 37 trains ``PPOAgent``
   on it, saves and loads it (the loaded agent's actions equal bit for bit)
   and trains ``A2CAgent`` with ``A2CConfig()``; phase 38 takes one update
-  at ``PPOConfig()``'s defaults on InvManagement and NetInvMgmt.
+  at ``PPOConfig()``'s defaults on InvManagement and NetInvMgmt;
+- slice 9, recurrent PPO's fused policy+env update (phase 39): the
+  roster's PPO_LSTM configs with ``rollout="xla"`` on InvManagement (512 x
+  50), NetInvMgmt and Newsvendor (256 x 30), launching no kernel and no
+  plain kernel version, beside the kernel path's update at InvManagement's
+  config (K24 once an update, nothing else). Phase 40 trains
+  ``RecurrentPPOAgent`` on the kernel path (K24 once an update) and
+  ``A2CLSTMAgent`` with ``A2CLSTMConfig()`` on the xla path, saves and
+  loads them (``get_action`` over an episode and the stateful seeded
+  evaluator equal bit for bit); phase 41 runs the seeded evaluators
+  (``vector.evaluate_episodes_seeded``) at 65,536 lanes on each family, a
+  permuted 1,000-seed sub-batch equal to the full batch's rows bit for bit
+  and 256 seeds on the card against the CPU. Phase 15 also evaluates its
+  trained PPO on the seeded protocol (30 episodes, seeds 4000-4029).
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -171,7 +184,7 @@ failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
 The last nine lines are one JSON object of per-kernel numbers, K1-K29
-(``launches`` is the sum of a kernel's launches in the fourteen main-path
+(``launches`` is the sum of a kernel's launches in the fifteen main-path
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
@@ -419,6 +432,29 @@ TPU_TD3_REWARD = "+5,061.2 +- 29.1"  # tools/remeasure_logs/validate_kernel_coll
 XLA_RATE_UPDATES = 4
 XLA_AGENT_UPDATES = 16
 XLA_A2C_UPDATES = 8
+# the recurrent xla path (phase 39): the roster's PPO_LSTM rows, each update
+# timed (the first builds the model; the best of RPPO_RATE_UPDATES is kept)
+RPPO_XLA_CASES = (
+    ("InvManagement PPO_LSTM", "im", {"periods": 50},
+     dict(num_envs=512, rollout_steps=50, num_minibatches=8),
+     "benchmarks/benchmark_inv_management_backlog.py:80-83"),
+    ("NetInvMgmt SB3_PPO-LSTM", "net", None,
+     dict(num_envs=256, rollout_steps=30, num_minibatches=8),
+     "benchmarks/benchmark_net_inv_backlog_combined.py:63-66"),
+    ("Newsvendor", "nv", NV_ENV_CONFIG,
+     dict(num_envs=256, rollout_steps=30, num_minibatches=8), "NetInvMgmt's shape"),
+)
+RPPO_RATE_UPDATES = 3
+RPPO_AGENT_ENVS = 4_096       # phase 40: RecurrentPPOAgent on the kernel path
+RPPO_AGENT_UPDATES = 3
+# the seeded evaluators (phase 41): lanes a family, the permuted sub-batch
+# held against them, and the seeds run on the card and on the CPU
+SEEDED_LANES = 65_536
+SEEDED_SUB = 1_000
+SEEDED_CPU = 256
+# demand draws equal on the card and the CPU: Newsvendor's inversion may move
+# a draw by 1 at expf/logf ulps, held as against JAX (ROADMAP, departures)
+SEEDED_DEMAND_SHARE = 0.999
 
 
 def close(name, got, want, rtol, atol):
@@ -599,9 +635,9 @@ def nv_draw_ops(params, econ_drawn, table=True):
     without, the linear count of the first version (nv_poisson_invert, as
     K18 runs it, and K19/K20's first version): per chunk of 16 periods the K recurrence steps again
     and per period K compare-and-count pairs."""
-    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import nv_poisson
     T = params.step_limit
-    _, K, _ = ek._nv_window(params)
+    _, K, _ = nv_poisson.window(params)
     if table:
         per_episode = 30 + K * (7 + 4) + T * (4 * math.ceil(math.log2(K)) + 2 + 2)
     else:
@@ -1762,8 +1798,11 @@ def im_reward_check(dev, seed=0):
     """Phase 15, the IM-backlog protocol of tools/validate_kernel_ppo.py:
     periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M steps
     (39 updates), seed 0 (or ``seed``), rollout="kernel"; then 30
-    deterministic episodes through ``vecenv.evaluate_episodes``. Returns
-    (AvgReward, its standard error, training seconds, updates)."""
+    deterministic episodes through ``vecenv.evaluate_episodes`` and, on the
+    reference protocol, through ``vecenv.evaluate_episodes_seeded`` on seeds
+    4000-4029 (validate_kernel_ppo.py:47-55). Returns (AvgReward, its
+    standard error, training seconds, updates, the seeded AvgReward, its
+    standard error)."""
     import numpy as np
     import torch
 
@@ -1783,11 +1822,15 @@ def im_reward_check(dev, seed=0):
     totals, _ = vecenv.evaluate_episodes(im.ENV, params, policy, (state.params, state.rms),
                                          torch.Generator(device=dev).manual_seed(4000), 30,
                                          device=dev)
-    totals = totals.double().cpu().numpy()
-    if not np.isfinite(totals).all():
+    seeded, _ = vecenv.evaluate_episodes_seeded(im.ENV, params, policy,
+                                                (state.params, state.rms),
+                                                torch.arange(4000, 4030), device=dev)
+    totals, seeded = totals.double().cpu().numpy(), seeded.double().cpu().numpy()
+    if not (np.isfinite(totals).all() and np.isfinite(seeded).all()):
         raise AssertionError("IM reward check: non-finite episode totals")
     return (float(totals.mean()), float(totals.std(ddof=1) / np.sqrt(len(totals))), wall,
-            len(metrics["update"]))
+            len(metrics["update"]), float(seeded.mean()),
+            float(seeded.std(ddof=1) / np.sqrt(len(seeded))))
 
 
 # ------------------------------------------ InvManagement evaluation (slice 4)
@@ -1938,6 +1981,7 @@ def nv_cross_check(dev):
     import torch
 
     from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import nv_poisson
     B, E = CHECK_LANES, 4
     err = dict.fromkeys(NV_KERNELS, 0.0)
     lines = []
@@ -2015,7 +2059,7 @@ def nv_cross_check(dev):
                      f"(orders past both clips), _random {e13r:.6g}")
     for mu_max in (NV_CASES[0][2], NV_CASES[1][2], NV_LINEAR_MU_MAX):
         params = nv_params(mu_max=mu_max)
-        K = ek._nv_window(params)[1]
+        K = nv_poisson.window(params)[1]
         lines.append(f"mu_max={mu_max}: K = {K}, {ek._nv_table_plan(K)}")
     params = nv_params(mu_max=NV_LINEAR_MU_MAX)
     b = NV_LINEAR_LANES
@@ -2372,6 +2416,21 @@ def seeded_lstm_actor(params, dev):
     return actor, model.log_std.detach().to(dev)
 
 
+def k24_against_plain(params, actor, log_std, B, dev, case):
+    """K24 (``rollout_traj_im_lstm``) and its plain version on the same
+    actor, ``B`` lanes x ``params``' horizon: demand bit for bit; inv,
+    actions, raws and rewards by the share of lanes (``lane_share``).
+    Returns (K24's trajectory, plain's ms, {key: (share, max |diff|)})."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    tr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, B, device=dev)
+    ms, ptr = timed_once(ek._rollout_traj_im_lstm_plain, params, actor,
+                         ek.clipped_std(log_std), SEED, B, dev)
+    exact(f"K24 demand vs plain, {case}", tr["demand"], ptr["demand"])
+    shares = {k: lane_share(f"K24 {k} vs plain, {case}", tr[k], ptr[k])
+              for k in ("inv", "actions", "raw", "reward")}
+    return tr, ms, shares
+
+
 def lstm_cross_check(dev):
     """Phase 25: K22-K24 against their plain versions at 65,536 x 30 with a
     seeded actor of the benchmark widths, for Poisson demand in backlog and
@@ -2401,7 +2460,6 @@ def lstm_cross_check(dev):
         case = f"{label}, {'backlog' if backlog else 'lost sales'}"
         m1 = params.m1
         actor, log_std = seeded_lstm_actor(params, dev)
-        std = ek.clipped_std(log_std)
         k22 = ek.episode_returns_im_lstm(params, actor, SEED, B, dev)
         r23, a23, d23 = ek.sample_lstm_streams_debug_im(params, actor, SEED, B, dev)
         ms, (want, want_a, want_d) = timed_once(ek._im_lstm_plain, params, actor, SEED, B, dev,
@@ -2419,16 +2477,11 @@ def lstm_cross_check(dev):
         bitwise["K7 on K23"] &= bool(torch.equal(k7, k22))
         del want, want_a, want_d, k7
 
-        tr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, B, device=dev)
-        ms, ptr = timed_once(ek._rollout_traj_im_lstm_plain, params, actor, std, SEED, B, dev)
+        tr, ms, shares = k24_against_plain(params, actor, log_std, B, dev, case)
         plain_ms.setdefault("rollout_traj_im_lstm", ms)
-        exact(f"K24 demand vs plain, {case}", tr["demand"], ptr["demand"])
         exact(f"K24 demand vs K23, {case}", tr["demand"], d23)
-        shares = {k: lane_share(f"K24 {k} vs plain, {case}", tr[k], ptr[k])
-                  for k in ("inv", "actions", "raw", "reward")}
         err["rollout_traj_im_lstm"] = max([err["rollout_traj_im_lstm"]]
                                           + [e for _, e in shares.values()])
-        del ptr
         state, _ = im.reset(params, batch=B, device=dev)
         for t in range(T):
             exact(f"step chain inv[{t}] vs K24 inv, {case}", state.inv.T, tr["inv"][t])
@@ -3386,10 +3439,31 @@ def update_times(env, params, cfg, dev, updates):
     return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], metrics
 
 
-def auto_reset_share(env, params, cfg, dev):
-    """One xla update at ``cfg`` with ``vecenv.auto_reset`` timed inside it
-    (the card synchronised around each call): (its ms in the update, the
-    update's ms, calls)."""
+def rppo_update_times(env, params, cfg, dev, updates):
+    """``update_times`` of ``recurrent_ppo.train``."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    stamps = [time.perf_counter()]
+
+    def progress(_m, _s):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _, _, metrics = rppo.train(env, params, cfg, torch.Generator(device=dev).manual_seed(SEED),
+                               updates * cfg.num_envs * cfg.rollout_steps, device=dev,
+                               progress=progress)
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    if bad or len(metrics["update"]) != updates:
+        raise AssertionError(f"recurrent path metrics not finite: {bad}; {metrics}")
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], metrics
+
+
+def auto_reset_share(env, params, cfg, dev, times=update_times):
+    """One xla update at ``cfg`` (``times``: PPO's or recurrent PPO's) with
+    ``vecenv.auto_reset`` timed inside it (the card synchronised around
+    each call): (its ms in the update, the update's ms, calls)."""
     import torch
 
     from or_gym_inventory_torch.vector import vecenv
@@ -3405,9 +3479,9 @@ def auto_reset_share(env, params, cfg, dev):
 
     vecenv.auto_reset = timed
     try:
-        update_times(env, params, cfg, dev, 1)                      # warm
+        times(env, params, cfg, dev, 1)                             # warm
         spent.clear()
-        ms, _ = update_times(env, params, cfg, dev, 1)
+        ms, _ = times(env, params, cfg, dev, 1)
     finally:
         vecenv.auto_reset = inner
     return sum(spent) * 1e3, ms[0], len(spent)
@@ -3525,6 +3599,264 @@ def xla_phases(dev, wrappers, smi):
     return summary
 
 
+def elementwise_policy(space, dev):
+    """Phase 41's deterministic policy: each lane's orders from its own obs
+    alone, elementwise (half the action box's top less a quarter of the
+    obs' first entries, clipped), so that nothing but the env's draws could
+    couple the lanes."""
+    import numpy as np
+    import torch
+    low = torch.as_tensor(space.low, dtype=torch.float32, device=dev)
+    high = torch.as_tensor(np.where(np.isinf(space.high), 1e4, space.high),
+                           dtype=torch.float32, device=dev)
+    ints = np.issubdtype(space.dtype, np.integer)
+
+    def policy(_state, obs, _generator, _t):
+        x = obs[:, :low.shape[0]].to(torch.float32)
+        a = torch.minimum(torch.maximum(0.5 * high - 0.25 * x, low), high)
+        return a.to(torch.int32) if ints else a
+    return policy
+
+
+def rppo_xla_phases(dev, wrappers, smi, err):
+    """Phases 39-41, the recurrent fused policy+env update
+    (``recurrent_ppo`` with ``rollout="xla"``, plain PyTorch, no kernel on
+    its path), the recurrent agents and the seeded evaluators. 39, counted:
+    the roster's PPO_LSTM configs on the three families (RPPO_XLA_CASES),
+    every plain kernel version patched to raise and no kernel launched,
+    the best of RPPO_RATE_UPDATES updates, trained-steps/s and
+    ``auto_reset``'s share; beside InvManagement's, the kernel path's
+    update at the same config, K24 counted. 40: ``RecurrentPPOAgent`` with
+    ``rollout="kernel"`` on InvManagement (K24 counted) and
+    ``A2CLSTMAgent`` (``A2CLSTMConfig()``, xla) train, save and load; the
+    loaded agents' ``get_action`` over an episode and their
+    ``device_policy_stateful`` through ``evaluate_episodes_seeded_stateful``
+    equal the trained ones' bit for bit. Before each run of K24 on a path
+    (39's 512 x 50, 40's RPPO_AGENT_ENVS x 30), K24 against its plain
+    version at that shape with ``seeded_lstm_actor`` (phase 25's gates,
+    ``k24_against_plain``), its max |diff| into ``err``. 41:
+    ``evaluate_episodes_seeded`` at SEEDED_LANES lanes a family with
+    ``elementwise_policy``, its env-steps/s; a permuted sub-batch of
+    SEEDED_SUB seeds gives the full batch's rows bit for bit; SEEDED_CPU
+    seeds on the card against the CPU: the draws and InvManagement's
+    integer states, obs and actions exact, its totals exactly those of the
+    card's step chain on the CPU's actions and demand (the card's f32 powf
+    and stage sum round otherwise than the CPU's), every family's totals
+    against the CPU's by the fraction-closeness rule. Returns (launches,
+    summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import A2CLSTMAgent, RecurrentPPOAgent
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    from or_gym_inventory_torch.vector import (evaluate_episodes_seeded,
+                                               evaluate_episodes_seeded_stateful)
+    mods = {"im": im, "net": net, "nv": nv}
+    totals = {name: 0 for name in wrappers}
+    summary = {}
+
+    def k24_check(params, B, label):
+        """K24 against plain at this path's shape; its line."""
+        actor, log_std = seeded_lstm_actor(params, dev)
+        case = f"{label}, {B} x {im.ENV.horizon(params)}"
+        _, _, shares = k24_against_plain(params, actor, log_std, B, dev, case)
+        err["rollout_traj_im_lstm"] = max([err["rollout_traj_im_lstm"]]
+                                          + [e for _, e in shares.values()])
+        return (f"K24 against plain at {B} x {im.ENV.horizon(params)} (seeded actor, encoder "
+                f"64, hidden 128): demand bit for bit, lanes agreeing "
+                + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                + f", max |diff| over them {max(e for _, e in shares.values()):.6g}")
+
+    # 39. the recurrent xla path on three families, counted; the kernel path beside IM's
+    t0 = time.perf_counter()
+    for label, fam, env_config, kw, source in RPPO_XLA_CASES:
+        mod = mods[fam]
+        params = mod.default_params(env_config=env_config)
+        cfg = rppo.RecurrentPPOConfig(**kw)
+        samples = cfg.num_envs * cfg.rollout_steps
+        reset_counts(wrappers)
+        with no_plain_versions():
+            ms, metrics = rppo_update_times(mod.ENV, params, cfg, dev, RPPO_RATE_UPDATES)
+        launches = read_counts(wrappers)
+        if any(launches.values()):
+            raise AssertionError(f"the recurrent xla path launched kernels: {launches}")
+        best = min(ms)
+        reset_ms, update_ms, calls = auto_reset_share(mod.ENV, params, cfg, dev,
+                                                      rppo_update_times)
+        key = fam + "_rppo_xla"
+        summary.update({f"{key}_update_ms": best, f"{key}_trained_steps_s": samples / best * 1e3,
+                        f"{key}_auto_reset_ms": reset_ms, f"{key}_auto_reset_update_ms": update_ms})
+        print(f"[39 RPPO xla main path] {label} ({source}: {cfg.num_envs} x "
+              f"{cfg.rollout_steps}, horizon {mod.ENV.horizon(params)}, encoder 64, hidden 128, "
+              f"{cfg.update_epochs} epochs x {cfg.num_minibatches} env-sliced minibatches), "
+              f'rollout="xla": no kernel launched, no plain kernel version; update ms '
+              f"{', '.join(f'{t:.3f}' for t in ms)}; best {best:.3f} ms = "
+              f"{samples / best * 1e3:.6g} trained-steps/s; vecenv.auto_reset {reset_ms:.3f} ms "
+              f"over {calls} calls in one update of {update_ms:.3f} ms ({reset_ms / update_ms:.1%}; "
+              f"the card synchronised around each call), on {smi}", flush=True)
+        print(f"[39 RPPO xla main path] {label} metrics: " + "; ".join(
+            f"{k} {', '.join(f'{x:.6g}' for x in v)}" for k, v in metrics.items()), flush=True)
+        if fam == "im":
+            print(f"[39 RPPO xla main path] {label}: {k24_check(params, cfg.num_envs, label)}",
+                  flush=True)
+            kcfg = cfg.replace(rollout="kernel")
+            reset_counts(wrappers)
+            with no_plain_versions():
+                kms, _ = rppo_update_times(mod.ENV, params, kcfg, dev, RPPO_RATE_UPDATES)
+            launches = read_counts(wrappers)
+            moved = {n: c for n, c in launches.items() if c}
+            if moved != {"rollout_traj_im_lstm": RPPO_RATE_UPDATES}:
+                raise AssertionError(f"the recurrent kernel path launched {moved}")
+            totals = {n: totals[n] + launches[n] for n in wrappers}
+            kbest = min(kms)
+            summary.update(im_rppo_kernel_update_ms=kbest,
+                           im_rppo_kernel_trained_steps_s=samples / kbest * 1e3)
+            print(f'[39 RPPO xla main path] {label} beside rollout="kernel" at the same '
+                  f"config: update ms {', '.join(f'{t:.3f}' for t in kms)}; best {kbest:.3f} "
+                  f"ms = {samples / kbest * 1e3:.6g} trained-steps/s ({kbest / best:.3f} of the "
+                  f"xla update's time); K24 launched {launches['rollout_traj_im_lstm']} times, "
+                  f"nothing else", flush=True)
+    print(f"[39 RPPO xla main path] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 40. the recurrent agents: train, save, load, act, the stateful evaluator
+    t0 = time.perf_counter()
+    root = _build.BUILD_DIR / "chip_smoke_agents"
+    kw = dict(model_dir=str(root / "models"), log_dir=str(root / "logs"), force_retrain=True,
+              device=dev)
+    params = im.default_params()
+    space = im.ENV.action_space(params)
+
+    class host:   # what get_action reads of a host env (no gymnasium on this machine)
+        action_space = space
+        period = 0
+
+    kcfg = rppo.RecurrentPPOConfig(num_envs=RPPO_AGENT_ENVS, rollout_steps=NUM_STEPS,
+                                   rollout="kernel")
+    runs = (("RecurrentPPOAgent", RecurrentPPOAgent, kcfg, RPPO_AGENT_UPDATES),
+            ("A2CLSTMAgent", A2CLSTMAgent, rppo.A2CLSTMConfig(), XLA_A2C_UPDATES))
+    seeds = torch.arange(4000, 4000 + RPPO_AGENT_ENVS)
+    for label, cls, cfg, updates in runs:
+        agent = cls(im.ENV, im.default_params, config=cfg, **kw)
+        if cfg.rollout == "kernel":
+            print(f"[40 RPPO agents] {label}: {k24_check(params, cfg.num_envs, label)}",
+                  flush=True)
+        reset_counts(wrappers)
+        agent.train(None, updates * cfg.num_envs * cfg.rollout_steps)
+        launches = read_counts(wrappers)
+        moved = {n: c for n, c in launches.items() if c}
+        want = {"rollout_traj_im_lstm": updates} if cfg.rollout == "kernel" else {}
+        if moved != want:
+            raise AssertionError(f"{label} launched {moved}, not {want}")
+        totals = {n: totals[n] + launches[n] for n in wrappers}
+        log = agent.training_log
+        if len(log["update"]) != updates or not all(np.isfinite(v).all() for v in log.values()):
+            raise AssertionError(f"{label}'s training log: {log}")
+        if agent.device_policy(im.ENV, params) is not None:
+            raise AssertionError(f"{label}.device_policy is not None")
+        fresh = cls(im.ENV, im.default_params, config=cfg, **kw)
+        fresh.load(agent.save())
+        state, ts = im.reset(params, None, 1, device=dev)
+        acts = []
+        for t in range(NUM_STEPS):   # one episode on a demand of 20 a period
+            host.period = t
+            pair = [a.get_action(ts.obs[0].cpu().numpy(), host) for a in (agent, fresh)]
+            if not np.array_equal(pair[0], pair[1]):
+                raise AssertionError(f"{label} get_action after load at period {t}: {pair}")
+            acts.append(pair[0])
+            state, ts = im.step_with_demand(params, state,
+                                            torch.as_tensor(pair[0], device=dev)[None],
+                                            torch.tensor([20], dtype=torch.int32, device=dev))
+        evals = [evaluate_episodes_seeded_stateful(im.ENV, params,
+                                                   *a.device_policy_stateful(im.ENV, params),
+                                                   seeds, device=dev)[0] for a in (agent, fresh)]
+        exact(f"{label}: the loaded agent's seeded stateful returns", evals[1], evals[0])
+        mean = float(evals[0].double().mean())
+        summary[f"{label}_train_s"] = agent.training_time
+        summary[f"{label}_seeded_mean"] = mean
+        print(f"[40 RPPO agents] {label} ({cfg.num_envs} x {cfg.rollout_steps}, "
+              f'rollout="{cfg.rollout}"): {updates} updates in {agent.training_time:.2f} s, '
+              f"launches {moved or 'none'}; saved, loaded by a fresh agent: get_action over "
+              f"{NUM_STEPS} periods (carry reset at period 0; last {acts[-1].tolist()}) and "
+              f"evaluate_episodes_seeded_stateful on {RPPO_AGENT_ENVS} seeds equal bit for "
+              f"bit, mean return {mean:.6g}", flush=True)
+    print(f"[40 RPPO agents] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 41. the seeded evaluators at scale; lane independence; the card against the CPU
+    t0 = time.perf_counter()
+    keys = {"im": "demand_realized", "net": "demand", "nv": "demand"}
+    for fam, env_config in (("im", None), ("net", None), ("nv", NV_ENV_CONFIG)):
+        mod = mods[fam]
+        params = mod.default_params(env_config=env_config)
+        policy = elementwise_policy(mod.ENV.action_space(params), dev)
+        cpu_policy = elementwise_policy(mod.ENV.action_space(params), "cpu")
+        seeds = torch.arange(SEEDED_LANES, device=dev) + 10_000
+        horizon = mod.ENV.horizon(params)
+        full, traj = evaluate_episodes_seeded(mod.ENV, params, policy, None, seeds, device=dev)
+        if full.shape != (SEEDED_LANES,) or not torch.isfinite(full).all():
+            raise AssertionError(f"seeded {fam}: shape {tuple(full.shape)} or non-finite")
+        idx = torch.randperm(SEEDED_LANES, generator=torch.Generator().manual_seed(7))[
+            :SEEDED_SUB].to(dev)
+        part, ptraj = evaluate_episodes_seeded(mod.ENV, params, policy, None, seeds[idx],
+                                               device=dev)
+        exact(f"seeded {fam}: a permuted sub-batch's totals", part, full[idx])
+        exact(f"seeded {fam}: a permuted sub-batch's demand", ptraj.info[keys[fam]],
+              traj.info[keys[fam]][:, idx])
+        exact(f"seeded {fam}: a permuted sub-batch's obs", ptraj.obs, traj.obs[:, idx])
+        card, ctraj = evaluate_episodes_seeded(mod.ENV, params, policy, None,
+                                               seeds[:SEEDED_CPU], device=dev)
+        host_t, htraj = evaluate_episodes_seeded(mod.ENV, params, cpu_policy, None,
+                                                 seeds[:SEEDED_CPU].cpu(), device="cpu")
+        if fam == "im":
+            for k in ("demand_realized", "current_inventory_on_hand", "current_backlog"):
+                exact(f"seeded im: {k} on the card against the CPU", ctraj.info[k].cpu(),
+                      htraj.info[k])
+            exact("seeded im: obs on the card against the CPU", ctraj.obs.cpu(), htraj.obs)
+            exact("seeded im: actions on the card against the CPU", ctraj.action.cpu(),
+                  htraj.action)
+            # the totals: the card's reward chain on the CPU's actions and demand,
+            # summed period by period as the evaluator sums them
+            state, _ = im.reset(params, None, SEEDED_CPU, device=dev)
+            chain = torch.zeros(SEEDED_CPU, device=dev)
+            for t in range(horizon):
+                state, ts = im.step_with_demand(params, state, htraj.action[t].to(dev),
+                                                htraj.info["demand_realized"][t].to(dev))
+                chain = chain + ts.reward
+            exact("seeded im: totals on the card against the card's step chain on the CPU's "
+                  "actions and demand", card, chain)
+        gap = (ctraj.info[keys[fam]].cpu().double() - htraj.info[keys[fam]].double()).abs()
+        dem_share = float((gap == 0).double().mean())
+        ok = torch.isclose(card.cpu(), host_t, rtol=1e-4, atol=1e-2)
+        bit = bool(torch.equal(card.cpu(), host_t))
+        if float(ok.double().mean()) < LANE_SHARE or dem_share < SEEDED_DEMAND_SHARE \
+                or float(gap.max()) > 1:
+            raise AssertionError(f"seeded {fam} on the card against the CPU: totals share "
+                                 f"{float(ok.double().mean())}, demand share {dem_share}")
+        tm = cuda_time(evaluate_episodes_seeded, mod.ENV, params, policy, None, seeds, dev,
+                       warmup=1, iters=3)
+        steps = SEEDED_LANES * horizon
+        summary.update({f"{fam}_seeded_ms": tm["best_ms"],
+                        f"{fam}_seeded_env_steps_s": steps / tm["best_ms"] * 1e3,
+                        f"{fam}_seeded_mean": float(full.double().mean())})
+        print(f"[41 seeded eval] {mod.ENV.name} at {SEEDED_LANES} lanes x {horizon} "
+              f"(elementwise deterministic policy): best {tm['best_ms']:.3f} ms (mean "
+              f"{tm['mean_ms']:.3f}) = {steps / tm['best_ms'] * 1e3:.6g} env-steps/s on {smi}, "
+              f"mean return {float(full.double().mean()):.6g}; a permuted sub-batch of "
+              f"{SEEDED_SUB} seeds equal to the full batch's rows bit for bit (totals, demand, "
+              f"obs); {SEEDED_CPU} seeds on the card against the CPU: demand equal on "
+              f"{dem_share:.4%} of draws, totals within rtol 1e-4 atol 1e-2 on "
+              f"{float(ok.double().mean()):.2%} of lanes, bit for bit: {bit}"
+              + ("; integer states, obs and actions bit for bit, the totals those of the "
+                 "card's step chain on the CPU's actions and demand bit for bit"
+                 if fam == "im" else ""), flush=True)
+    print(f"[41 seeded eval] {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals, summary
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -3556,6 +3888,7 @@ def main() -> int:
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.ops import nv_poisson
     from or_gym_inventory_torch.utils.profiling import cuda_time
     from or_gym_inventory_torch.vector import fast_episodes, vecenv
 
@@ -3970,17 +4303,20 @@ def main() -> int:
 
     # 15. reward at the IM-backlog protocol of tools/validate_kernel_ppo.py
     t0 = time.perf_counter()
-    avg, se, wall, n_upd = im_reward_check(dev)
+    avg, se, wall, n_upd, s_avg, s_se = im_reward_check(dev)
     print(f"[15 IM reward] periods 50, 1,024 envs, 4 epochs x 8 env-sliced minibatches, 2M "
           f"steps ({n_upd} updates, {wall:.1f} s), seed 0: AvgReward {avg:.1f} +- {se:.1f} "
-          f"over 30 deterministic episodes; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"over 30 deterministic episodes (evaluate_episodes); on the reference protocol "
+          f"(evaluate_episodes_seeded, seeds 4000-4029) {s_avg:.1f} +- {s_se:.1f}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     im_summary = dict(im_rates, random_ms=im_t["best_ms"],
                       random_env_steps_s=env_steps / im_t["best_ms"] * 1e3,
                       k10_ms=k10_t["best_ms"], k10_bound_ms=k10_bound[0],
                       k10_fp32_bound_ms=k10_fp32_ms,
                       k10_share_of_update=k10_t["best_ms"] / im_update_ms,
                       k8_ms=k8_t["best_ms"], k8_bound_ms=work["episode_returns_im_fused"][0],
-                      validate_avg_reward=avg, validate_eval_se=se)
+                      validate_avg_reward=avg, validate_eval_se=se,
+                      validate_seeded_avg_reward=s_avg, validate_seeded_se=s_se)
 
     # 16. K11/K12 against their plain versions, with phase 13's trained actor
     t0 = time.perf_counter()
@@ -4110,7 +4446,7 @@ def main() -> int:
           f"+ draws {im_policy_draw_ops(im_params, table_len, stochastic=False)} ops "
           f"(deterministic); NV per env-step: step {nv_step} ops, draws {nv_draw:.1f} "
           f"(econ in) / {nv_draw_reset:.1f} (econ drawn) ops with the table "
-          f"({ek._nv_table_plan(ek._nv_window(nv_p)[1])}); the first version's "
+          f"({ek._nv_table_plan(nv_poisson.window(nv_p)[1])}); the first version's "
           f"linear count "
           f"{nv_draw_linear:.1f} (econ drawn), K16's bound by it {k16_linear_bound[0]:.4f} ms; "
           f"K13-K15 and K17 and plain K14-K17 at {CHECK_LANES} x {nv_T}, E=1, plain K16 at "
@@ -4375,6 +4711,9 @@ def main() -> int:
 
     xla_summary = xla_phases(dev, wrappers, smi)
 
+    launches_rppo, rppo_summary = rppo_xla_phases(dev, wrappers, smi, err)
+    launches = {name: launches[name] + launches_rppo[name] for name in wrappers}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -4399,6 +4738,7 @@ def main() -> int:
     print(json.dumps({"lstm_main_path": lstm_rates}))
     print(json.dumps({"offpolicy_main_path": off_summary}))
     print(json.dumps({"xla_main_path": xla_summary}))
+    print(json.dumps({"rppo_xla_main_path": rppo_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ Ported so far: ``base`` (the agent protocol, ``RandomAgent``,
 actor-critics and their Gaussian helpers), ``ppo`` (PPO on the fused
 policy+env update or the trajectory kernels of the three families, and
 ``PPOAgent``), ``a2c`` (its config and ``A2CAgent``), ``recurrent_ppo``
-(recurrent PPO and the A2C_LSTM config, trained through the InvManagement
-LSTM trajectory kernel) and ``off_policy`` (SAC, TD3 and DDPG with
+(recurrent PPO and the A2C_LSTM config on the fused policy+env update or
+the InvManagement LSTM trajectory kernel, ``RecurrentPPOAgent`` and
+``A2CLSTMAgent``) and ``off_policy`` (SAC, TD3 and DDPG with
 ``collect="kernel"``, through the trajectory kernels' off-policy heads on
 all three families).
 
@@ -22,6 +23,8 @@ _EXPORTS = {
     "BaseAgent": "base", "RandomAgent": "base", "PolicyAgent": "base",
     "PPOAgent": "ppo", "PPOConfig": "ppo",
     "A2CAgent": "a2c", "A2CConfig": "a2c",
+    "RecurrentPPOAgent": "recurrent_ppo", "RecurrentPPOConfig": "recurrent_ppo",
+    "A2CLSTMAgent": "recurrent_ppo", "A2CLSTMConfig": "recurrent_ppo",
 }
 __all__ = sorted(_EXPORTS)
 

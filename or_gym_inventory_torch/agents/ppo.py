@@ -420,13 +420,20 @@ def _action_bounds(env: Environment, env_params, device):
             bool(np.issubdtype(space.dtype, np.integer)))
 
 
-def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimizer, dev):
-    """The fused policy+env update of JAX ``ppo.py:589-673``."""
-    low, high, int_actions = _action_bounds(env, env_params, dev)
+def env_action_fn(env: Environment, env_params, device):
+    """``to_env_action(raw)``: raw actions squashed into the env's action
+    box on ``device``, cast to int32 for an integer box."""
+    low, high, int_actions = _action_bounds(env, env_params, device)
 
     def to_env_action(raw):
         a = networks.squash_action(raw, low, high)
         return a.to(torch.int32) if int_actions else a
+    return to_env_action
+
+
+def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimizer, dev):
+    """The fused policy+env update of JAX ``ppo.py:589-673``."""
+    to_env_action = env_action_fn(env, env_params, dev)
 
     def update(state: PPOTrainState, generator: torch.Generator):
         """``rollout_steps`` periods of the policy and the envs from the
@@ -644,14 +651,12 @@ def make_eval_policy(env: Environment, env_params, cfg: PPOConfig,
     @torch.no_grad()
     def policy(policy_state, obs, generator, _t):
         model, rms = policy_state
-        low, high, int_actions = _action_bounds(env, env_params, obs.device)
         norm_obs = rms.normalize(obs) if (cfg.normalize_obs and rms is not None) \
             else obs.to(torch.float32)
         mean, log_std, _ = model(norm_obs)
         raw = mean if deterministic else networks.gaussian_sample(generator, mean,
                                                                   log_std)
-        a = networks.squash_action(raw, low, high)
-        return a.to(torch.int32) if int_actions else a
+        return env_action_fn(env, env_params, obs.device)(raw)
     return policy
 
 
@@ -710,6 +715,13 @@ class PPOAgent(BaseAgent):
         write_ckpt_meta(path, self.trained_timesteps)
         return path
 
+    def _template_state(self, dev):
+        """A fresh train state of one env on ``dev``, whose model a
+        checkpoint's parameters fill."""
+        return init_train_state(self.env, self.env_params, self.config.replace(num_envs=1),
+                                torch.Generator(device=dev).manual_seed(self.seed), 1,
+                                device=dev)
+
     def load(self, path: str):
         """A train state of one env holding the checkpoint's parameters and
         obs statistics, on the agent's device."""
@@ -717,31 +729,16 @@ class PPOAgent(BaseAgent):
         payload = checkpoint.load_pytree(path, map_location=dev)
         if self.env_params is None:
             self.env_params = self.params_factory()
-        state = init_train_state(self.env, self.env_params, self.config.replace(num_envs=1),
-                                 torch.Generator(device=dev).manual_seed(self.seed), 1,
-                                 device=dev)
+        state = self._template_state(dev)
         state.params.load_state_dict(payload["params"])
         self.train_state = dataclasses.replace(state, rms=RunningMeanStd(**payload["rms"]))
         self.trained_timesteps = ckpt_trained_timesteps(path)
         self._eval = None
 
     # -- training --------------------------------------------------------
-    def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
-        self.env_params = self.params_factory(env_config=env_config or None)
-        ckpt = self._ckpt_path(save_path_prefix)
-        if not self.force_retrain and os.path.exists(ckpt):
-            trained = ckpt_trained_timesteps(ckpt)
-            if trained >= total_timesteps:
-                print(f"Loading existing model for {self.name} from {ckpt} "
-                      f"(trained {trained} >= {total_timesteps})")
-                self.load(ckpt)
-                self.training_time = 0.0
-                return
-            print(f"Checkpoint {ckpt} trained only {trained} < {total_timesteps} steps; "
-                  "retraining")
-        print(f"Training {self.name} for {total_timesteps} steps...")
-        dev = resolve_device(self.device)
-        start = time.time()
+    def _fit(self, total_timesteps: int, dev):
+        """(train state, metrics) of a training run on ``dev``, with the
+        EvalCallback analogue's best parameters restored."""
         best = {"reward": -np.inf, "params": None, "rms": None}
         progress = None
         if self.eval_every_updates > 0:
@@ -764,6 +761,24 @@ class PPOAgent(BaseAgent):
         if best["params"] is not None:
             print(f"Loading best model (eval reward {best['reward']:.2f})")
             state = dataclasses.replace(state, params=best["params"], rms=best["rms"])
+        return state, metrics
+
+    def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
+        self.env_params = self.params_factory(env_config=env_config or None)
+        ckpt = self._ckpt_path(save_path_prefix)
+        if not self.force_retrain and os.path.exists(ckpt):
+            trained = ckpt_trained_timesteps(ckpt)
+            if trained >= total_timesteps:
+                print(f"Loading existing model for {self.name} from {ckpt} "
+                      f"(trained {trained} >= {total_timesteps})")
+                self.load(ckpt)
+                self.training_time = 0.0
+                return
+            print(f"Checkpoint {ckpt} trained only {trained} < {total_timesteps} steps; "
+                  "retraining")
+        print(f"Training {self.name} for {total_timesteps} steps...")
+        start = time.time()
+        state, metrics = self._fit(total_timesteps, resolve_device(self.device))
         self.train_state = state
         self._eval = None
         self.training_log = metrics

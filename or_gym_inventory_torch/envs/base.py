@@ -13,7 +13,7 @@ takes the demand injected (the NumPy-parity oracle's hook).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from or_gym_inventory_torch.core.spaces import Box
 from or_gym_inventory_torch.core.struct import TimeStep
@@ -30,6 +30,9 @@ class Environment:
     step_with_demand: Callable[..., Tuple[Any, TimeStep]]
     observation_space: Callable[[Any], Box]
     action_space: Callable[[Any], Box]
+    # seeded_draws(params, seeds) -> (reset, demands): the lane-seeded
+    # episodes' draws (vector.vecenv.evaluate_episodes_seeded)
+    seeded_draws: Optional[Callable[..., Tuple[Callable, list]]] = None
 
     def horizon(self, params) -> int:
         """Static episode length (all families truncate at a fixed horizon)."""

@@ -37,6 +37,7 @@ from or_gym_inventory_torch.core.spaces import Box
 from or_gym_inventory_torch.core.struct import TimeStep
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import distributions as dist
+from or_gym_inventory_torch.ops import rng
 
 _SEQ_KEYS = ("I0", "r", "k", "h", "c", "L", "user_D")
 
@@ -405,16 +406,49 @@ def sample_demand(params: InvManagementParams, generator: torch.Generator,
     dev = resolve_device(device)
     kind, *rest = _demand_plan(params, str(dev))
     if kind == "user":
-        vals, = rest
-        period = torch.as_tensor(period, device=dev).expand(batch).long()
-        return vals[torch.clamp(period, max=vals.shape[0] - 1)]
+        return _demand_of(kind, rest, None, period, batch, dev)
     if kind == "law":
         d = dist.sample_from_law(demand_law(params), generator, batch, dev)
         return d.to(torch.int32)
-    base, table = rest
     u24 = torch.randint(0, 1 << 24, (batch,), generator=generator, device=dev)
-    u = u24.to(torch.float32) * (2.0 ** -24)
+    return _demand_of(kind, rest, u24.to(torch.float32) * (2.0 ** -24), period, batch, dev)
+
+
+def _demand_of(kind, rest, u, period, batch: int, dev) -> torch.Tensor:
+    """The demand of a "user" or "table" plan: ``user_D[t]`` (0 past its
+    end), or ``base + #{F in table : F <= u}``."""
+    if kind == "user":
+        vals, = rest
+        period = torch.as_tensor(period, device=dev).expand(batch).long()
+        return vals[torch.clamp(period, max=vals.shape[0] - 1)]
+    base, table = rest
     return (torch.searchsorted(table, u, right=True) + base).to(torch.int32)
+
+
+def demand_from_uniform(params: InvManagementParams, u: torch.Tensor, period) -> torch.Tensor:
+    """(batch,) int32 demand of ``period`` from the (batch,) f32 uniforms
+    ``u``: what ``sample_demand`` gives for the same 24-bit uniform (USER
+    mode reads ``user_D[t]`` and ignores ``u``). A law past the table cap
+    cannot be drawn from one uniform: NotImplementedError."""
+    kind, *rest = _demand_plan(params, str(u.device))
+    if kind == "law":
+        raise NotImplementedError(
+            f"demand law {demand_law(params)} has no inversion table within the cap: it "
+            "cannot be drawn from one uniform a period")
+    return _demand_of(kind, rest, u, period, u.shape[0], u.device)
+
+
+def seeded_draws(params: InvManagementParams, seeds: torch.Tensor):
+    """(reset, demands) of lane-seeded episodes
+    (``vector.vecenv.evaluate_episodes_seeded``): ``reset()`` gives the
+    batch's (state, TimeStep) and ``demands[t]`` period t's demand from
+    word 0 of lane i's block under (seeds[i], ``rng.SEEDED_KEY``), all drawn
+    here, before any step. A law past the table cap raises
+    NotImplementedError."""
+    n, dev = seeds.shape[0], seeds.device
+    demands = [demand_from_uniform(params, rng.uniform01(rng.seeded_words(seeds, t, 1)[0]), t)
+               for t in range(params.horizon)]
+    return (lambda: reset(params, None, n, device=dev)), demands
 
 
 def step(params: InvManagementParams, state: InvManagementState,
@@ -432,4 +466,5 @@ ENV = Environment(
     step_with_demand=step_with_demand,
     observation_space=observation_space,
     action_space=action_space,
+    seeded_draws=seeded_draws,
 )

@@ -33,7 +33,7 @@ from or_gym_inventory_torch.envs import topology as topo_mod
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.envs.topology import Topology
 from or_gym_inventory_torch.ops import distributions as dist
-from or_gym_inventory_torch.ops import net_step
+from or_gym_inventory_torch.ops import net_step, rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,22 +329,60 @@ def sample_demand(params: NetInvParams, generator: torch.Generator,
     _refuse_hostfn(T)
     period = torch.as_tensor(period, device=dev).expand(batch).long()
     cols = []
-    for spec, (kind, *rest) in zip(T.rt_demand, _demand_plan(T, str(dev))):
-        if kind == "law":
+    for spec, plan in zip(T.rt_demand, _demand_plan(T, str(dev))):
+        if plan[0] == "law":
             cols.append(dist.sample_from_law(spec, generator, batch, dev))
             continue
         # every other link draws its uniform, const links too, so the stream
         # layout does not depend on the specs
         u24 = torch.randint(0, 1 << 24, (batch,), generator=generator, device=dev)
-        if kind == "table":
-            base, table = rest
-            u = u24.to(torch.float32) * (2.0 ** -24)
-            d = torch.searchsorted(table, u, right=True).to(torch.float32)
-            cols.append(d + base if base else d)
-        else:
-            vals, = rest
-            cols.append(vals[torch.clamp(period, max=vals.shape[0] - 1)])
+        cols.append(_link_demand(plan, u24.to(torch.float32) * (2.0 ** -24), period))
     return torch.stack(cols, dim=1)
+
+
+def _link_demand(plan, u, period) -> torch.Tensor:
+    """One link's f32 demand: ``base + #{F in table : F <= u}`` for a
+    "table" link, its value of ``period`` for a "user" or const link."""
+    kind, *rest = plan
+    if kind == "table":
+        base, table = rest
+        d = torch.searchsorted(table, u, right=True).to(torch.float32)
+        return d + base if base else d
+    vals, = rest
+    return vals[torch.clamp(period, max=vals.shape[0] - 1)]
+
+
+def demand_from_uniforms(params: NetInvParams, u: torch.Tensor, period) -> torch.Tensor:
+    """(batch, n_retail) demand of ``period`` from (batch, n_retail) f32
+    uniforms ``u``, one a retail link (const and user links ignore theirs):
+    what ``sample_demand`` gives for the same 24-bit uniforms. A link whose
+    law has no table within the cap cannot be drawn from one uniform:
+    NotImplementedError, as for a ``hostfn`` spec."""
+    T = params.topology
+    _refuse_hostfn(T)
+    plans = _demand_plan(T, str(u.device))
+    wide = [spec for spec, plan in zip(T.rt_demand, plans) if plan[0] == "law"]
+    if wide:
+        raise NotImplementedError(
+            f"retail demand {wide} has no inversion table within the cap: it cannot be "
+            "drawn from one uniform a period")
+    period = torch.as_tensor(period, device=u.device).expand(u.shape[0]).long()
+    return torch.stack([_link_demand(plan, u[:, j], period) for j, plan in enumerate(plans)],
+                       dim=1)
+
+
+def seeded_draws(params: NetInvParams, seeds: torch.Tensor):
+    """(reset, demands) of lane-seeded episodes
+    (``vector.vecenv.evaluate_episodes_seeded``): ``reset()`` gives the
+    batch's (state, TimeStep) and ``demands[t]`` period t's (B, n_retail)
+    demand, word j of lane i's block under (seeds[i], ``rng.SEEDED_KEY``)
+    for retail link j (const links too), all drawn here, before any step.
+    A link whose law is past the table cap raises NotImplementedError."""
+    n, dev, k = seeds.shape[0], seeds.device, params.topology.n_retail
+    demands = [demand_from_uniforms(
+        params, torch.stack([rng.uniform01(w) for w in rng.seeded_words(seeds, t, k)], dim=1),
+        t) for t in range(params.horizon)]
+    return (lambda: reset(params, None, n, device=dev)), demands
 
 
 def step(params: NetInvParams, state: NetInvState, action: torch.Tensor,
@@ -362,4 +400,5 @@ ENV = Environment(
     step_with_demand=step_with_demand,
     observation_space=observation_space,
     action_space=action_space,
+    seeded_draws=seeded_draws,
 )

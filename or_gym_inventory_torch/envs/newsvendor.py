@@ -33,6 +33,7 @@ from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.core.spaces import Box
 from or_gym_inventory_torch.core.struct import TimeStep
 from or_gym_inventory_torch.envs.base import Environment
+from or_gym_inventory_torch.ops import nv_poisson, rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +221,20 @@ def step_with_demand(params: NewsvendorParams, state: NewsvendorState,
     return new_state, ts
 
 
+def seeded_draws(params: NewsvendorParams, seeds: torch.Tensor):
+    """(reset, demands) of lane-seeded episodes
+    (``vector.vecenv.evaluate_episodes_seeded``): ``reset()`` resets on lane
+    i's economics, drawn from the five words of period
+    ``rng.SEEDED_RESET_PERIOD`` under (seeds[i], ``rng.SEEDED_KEY``), and
+    ``demands[t]`` is period t's Poisson(mu) demand from word 0 of its
+    block, inverted as the episode kernels invert it (``ops.nv_poisson``),
+    all drawn here, before any step."""
+    words = rng.seeded_words(seeds, rng.SEEDED_RESET_PERIOD, 5)
+    econ = torch.stack(econ_from_uniforms(params, [rng.uniform01(w) for w in words]), dim=1)
+    us = [rng.uniform01(rng.seeded_words(seeds, t, 1)[0]) for t in range(params.horizon)]
+    return (lambda: reset_with_econ(params, econ)), nv_poisson.demand(params, econ[:, 4], us)
+
+
 def step(params: NewsvendorParams, state: NewsvendorState, action: torch.Tensor,
          generator: torch.Generator):
     demand = torch.poisson(state.econ[:, 4], generator=generator)
@@ -234,4 +249,5 @@ ENV = Environment(
     step_with_demand=step_with_demand,
     observation_space=observation_space,
     action_space=action_space,
+    seeded_draws=seeded_draws,
 )

@@ -28,8 +28,8 @@ version), and what every MLP policy kernel shares:
 - the plain versions of the in-kernel helpers ``mlp_forward`` (tanh or
   relu trunk), ``traj_policy`` (heads ``"ppo"``, ``"det"``, ``"sac"`` and
   ``"uniform"``), ``_im_step_math``, ``_im_obs_rows``,
-  ``_nv_step_math``, ``_nv_obs_rows``, ``_nv_poisson_setup``,
-  ``_nv_poisson_invert`` and ``_nv_econ_from_uniforms``. Those of ``_uniform01`` and ``_normal01`` are
+  ``_nv_step_math``, ``_nv_obs_rows`` and ``_nv_econ_from_uniforms``
+  (the Poisson inversion is ``ops.nv_poisson``'s). Those of ``_uniform01`` and ``_normal01`` are
   ``ops.rng.uniform01`` and ``normal01``, which turn Philox words into the
   kernels' draws where the TPU drew from its own generator.
 
@@ -93,7 +93,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -103,6 +102,7 @@ from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management as im
 from or_gym_inventory_torch.envs import newsvendor as nv
 from or_gym_inventory_torch.ops import distributions as dist
+from or_gym_inventory_torch.ops import nv_poisson
 from or_gym_inventory_torch.ops import rng
 
 # maxima of the actor the policy kernels take (csrc/mlp.cuh); a block's
@@ -2166,8 +2166,6 @@ rollout_traj_im_lstm.launches = 0
 
 NV_MAX_L = 32                # the pipeline ring's depth (csrc/nv_step.cuh)
 NV_ECON_PERIOD = 0xFFFFFFFF  # the period index of the reset's five words
-_NV_TAIL_Z = 5.75            # one-sided normal tail ~4.5e-9 at Z=5.75
-_NV_TAIL_PAD = 6             # absolute slack on top of Z*sqrt(mu) (small-mu skew)
 
 
 def _nv_step_math(params: nv.NewsvendorParams, P, price, cost, h, k, order_raw, d):
@@ -2192,89 +2190,6 @@ def _nv_step_math(params: nv.NewsvendorParams, P, price, cost, h, k, order_raw, 
     if L > 0:
         P = P[1:] + [order_qty]
     return P, reward, order_qty
-
-
-def _nv_window(params: nv.NewsvendorParams):
-    """(Wb, K, lgamma_consts): worst-case half-width, the recurrence's steps
-    and float64 lgamma(k+1) for every reachable cutoff kc
-    (pallas_episode_kernels._nv_window)."""
-    mu_max = max(float(params.mu_max), 1.0)
-    Wb = int(math.ceil(_NV_TAIL_Z * math.sqrt(mu_max))) + _NV_TAIL_PAD
-    kc_max = int(math.floor(mu_max)) + Wb
-    return Wb, 2 * Wb + 1, tuple(float(math.lgamma(k + 1)) for k in range(kc_max + 1))
-
-
-@functools.lru_cache(maxsize=32)
-def _nv_lgamma_pairs(params: nv.NewsvendorParams) -> np.ndarray:
-    """(kc_max + 1, 2) f32: lgamma(k+1) split into hi = f32(x) and
-    lo = f32(x - hi) from float64, as JAX splits its constants (:237-242);
-    rows 0 and 1 are 0, since lgamma(1) = lgamma(2) = 0."""
-    _, _, lgam = _nv_window(params)
-    out = np.zeros((len(lgam), 2), np.float32)
-    for kk in range(2, len(lgam)):
-        hi = np.float32(lgam[kk])
-        out[kk] = hi, np.float32(lgam[kk] - float(hi))
-    return out
-
-
-def _nv_recur(T, comp, p, kf, mu_safe):
-    """One step of the descending recurrence: T += p (Kahan-compensated),
-    pmf(k-1) = pmf(k) * (k / mu), an exact division."""
-    y = p - comp
-    t_new = T + y
-    comp = (t_new - T) - y
-    return t_new, comp, p * (kf / mu_safe), kf - 1.0
-
-
-def _nv_poisson_setup(params: nv.NewsvendorParams, mu):
-    """Per-episode inversion anchor (mu_safe, kc, pmf(kc), t_total) of (N,)
-    f32 ``mu`` (pallas_episode_kernels._nv_poisson_setup), operation for
-    operation: the cutoff kc, the hi/lo lgamma pair, the Veltkamp split of
-    log(mu), the TwoSum-compensated exponent and the renormalisation total
-    of K = 2 Wb + 1 recurrence steps."""
-    Wb, K, _ = _nv_window(params)
-    mu = torch.as_tensor(mu).to(torch.float32)
-    one = torch.ones_like(mu)
-    mu_safe = torch.maximum(mu, torch.full_like(mu, nv.as_f32(1e-6)))
-    pad = 2.0 + 4.0 * torch.minimum(mu_safe, one)
-    w = torch.ceil(_NV_TAIL_Z * torch.sqrt(mu_safe) + pad)
-    kc = torch.floor(mu_safe) + torch.minimum(w, torch.full_like(w, float(Wb)))
-    pairs = torch.as_tensor(_nv_lgamma_pairs(params), device=mu.device)
-    row = pairs[torch.nan_to_num(kc).clamp(0, pairs.shape[0] - 1).long()]
-    lg_hi = torch.where(kc >= 2.0, row[..., 0], torch.zeros_like(mu))
-    lg_lo = torch.where(kc >= 2.0, row[..., 1], torch.zeros_like(mu))
-    logmu = torch.log(mu_safe)
-    s = logmu * 4097.0                      # Veltkamp split: 12-bit head
-    head = s - (s - logmu)
-    tail = logmu - head
-    a1 = kc * head                          # exact: 9 + 12 bits < 24
-    A = a1 - lg_hi                          # TwoSum-compensated cancels
-    t1 = A - a1
-    e1 = (a1 - (A - t1)) - (lg_hi + t1)
-    B = A - mu_safe
-    t2 = B - A
-    e2 = (A - (B - t2)) - (mu_safe + t2)
-    g = B + (e1 + e2 + kc * tail - lg_lo)
-    p_c = torch.exp(g)
-    p, T, comp, kf = p_c, torch.zeros_like(p_c), torch.zeros_like(p_c), kc
-    for _ in range(K):
-        T, comp, p, kf = _nv_recur(T, comp, p, kf, mu_safe)
-    return mu_safe, kc, p_c, T
-
-
-def _nv_poisson_invert(mu_safe, kc, p_c, t_total, K, us):
-    """demand_i = #{k : F(k) <= u_i} for each (N,) uniform in the list ``us``
-    (pallas_episode_kernels._nv_poisson_invert): one shared descending
-    suffix-sum recurrence of K steps, per-u compare-accumulate, thresholds
-    v = (1 - u) * t_total. Returns a list of (N,) f32 demands."""
-    vs = (1.0 - torch.stack(list(us))) * t_total   # 1 - u exact for 24-bit uniforms
-    cnt = torch.zeros_like(vs)
-    p, T, comp, kf = p_c, torch.zeros_like(p_c), torch.zeros_like(p_c), kc
-    for _ in range(K):
-        cnt += (T < vs).to(torch.float32)
-        T, comp, p, kf = _nv_recur(T, comp, p, kf, mu_safe)
-    d = torch.maximum(kc + 1.0 - cnt, torch.zeros_like(cnt))
-    return list(d)
 
 
 # the reset's formulas on the kernel's five uniforms
@@ -2389,7 +2304,7 @@ def _nv_plan(params: nv.NewsvendorParams, device: str):
     if params.lead_time > NV_MAX_L:
         raise ValueError(f"lead_time={params.lead_time}: the CUDA kernels' pipeline "
                          f"ring holds at most {NV_MAX_L}")
-    Wb, K, lgam = _nv_window(params)
+    Wb, K, lgam = nv_poisson.window(params)
     launch = _nv_table_plan(K)
     k13 = _nv_k13_plan()
     st = _NvParams(L=params.lead_time, K=K, threads=launch.threads, table=int(launch.table),
@@ -2400,7 +2315,7 @@ def _nv_plan(params: nv.NewsvendorParams, device: str):
     discs = _discounts(params.gamma, params.step_limit)
     return dict(struct=st, discs=discs,
                 disc=torch.tensor(discs, dtype=torch.float32, device=device),
-                lgam=torch.as_tensor(_nv_lgamma_pairs(params), device=device).reshape(-1))
+                lgam=torch.as_tensor(nv_poisson.lgamma_pairs(params), device=device).reshape(-1))
 
 
 def _nv_order(params, word):
@@ -2443,7 +2358,6 @@ def _nv_fused_plain(params, seed, batch, E, device, econ=None, dump=False):
     ``dump`` (econ (E, 5, batch), actions (T, E, batch), demands
     (T, E, batch))."""
     T = params.step_limit
-    _, K, _ = _nv_window(params)
     idx = torch.arange(E * batch, dtype=torch.int64, device=device)
     episodes, lanes = idx // batch, idx % batch
     if econ is None:
@@ -2456,7 +2370,7 @@ def _nv_fused_plain(params, seed, batch, E, device, econ=None, dump=False):
         w_act, w_dem = rng.period_words(seed, lanes, episodes, t, 2)
         orders.append(_nv_order(params, w_act))
         us.append(rng.uniform01(w_dem))
-    dems = _nv_poisson_invert(*_nv_poisson_setup(params, econ[4]), K, us)
+    dems = nv_poisson.demand(params, econ[4], us)
     if dump:
         return (torch.stack(econ).reshape(5, E, batch).transpose(0, 1),
                 torch.stack(orders).reshape(T, E, batch),
@@ -2569,7 +2483,7 @@ def episode_returns_nv_fused(params: nv.NewsvendorParams, econ: torch.Tensor, se
     Poisson(mu) demand drawn in the kernel, for the economics ``econ``
     (5, B) of ``nv.draw_econ``-style resets. K14: one thread per lane
     (csrc/nv_episode.cu ``k_nv_episodes``); the demand inverts the CDF by
-    ``_nv_poisson_setup``/``_nv_poisson_invert``'s recurrence, run once per
+    ``nv_poisson.setup``/``invert``'s recurrence, run once per
     episode into a shared-memory table that each period searches. It draws
     ``episode_returns_nv_reset_fused``'s action and demand words of episode
     0."""
@@ -2648,10 +2562,9 @@ def _nv_policy_econ_plain(params, seed, lanes, episodes):
 def _nv_policy_demand_plain(params, seed, lanes, episodes, mu):
     """Every period's demand from word 0 of its block under key (seed, 1),
     inverted at once (the count does not depend on the chunk)."""
-    _, K, _ = _nv_window(params)
     us = [rng.uniform01(rng.period_words(seed, lanes, episodes, t, 1, key1=rng.POLICY_KEY)[0])
           for t in range(params.step_limit)]
-    return _nv_poisson_invert(*_nv_poisson_setup(params, mu), K, us)
+    return nv_poisson.demand(params, mu, us)
 
 
 def _nv_policy_period_plain(params, layers, std, seed, lanes, episodes, t, econ, P,

@@ -31,6 +31,13 @@ the block w // 4.
   and ``sac``, the act_dim u1 and the act_dim u2 words of the Box-Muller
   normals, and for ``uniform`` the act_dim u1 words alone, as 24-bit
   uniforms (a_norm = 2 u - 1).
+- The seeded evaluators (``vector.vecenv.evaluate_episodes_seeded``), key
+  (seeds[i], ``SEEDED_KEY``) = (seeds[i], 2) a lane, counter (0, 0, period,
+  block): lane i's words depend on ``seeds[i]`` alone, not on its index or
+  batch (``seeded_words``). Per period the family's env draws: one demand
+  word (InvManagement), one word a retail link, const links too
+  (NetInvMgmt), one demand word (Newsvendor, whose reset's five words are
+  those of period ``SEEDED_RESET_PERIOD`` = 0xFFFFFFFF, the kernels' layout).
 
 A word becomes a uniform as ``(word >> 8) * 2**-24`` (24 bits, exact in
 f32), and two uniforms a normal as ``sqrt(-2 ln(1 - u1)) * cos(2 pi u2)``
@@ -45,6 +52,8 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 POLICY_KEY = 1                       # key[1] of the policy kernels' stream
+SEEDED_KEY = 2                       # key[1] of the seeded evaluators' streams
+SEEDED_RESET_PERIOD = MASK32         # the period of Newsvendor's reset words
 TWO_PI_F32 = 6.2831854820251465      # f32(2 pi), as the JAX kernels round it
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
@@ -61,12 +70,15 @@ def _mulhilo(a: int, b: torch.Tensor):
     return hi, lo
 
 
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
     """Ten Philox4x32 rounds of the counter (c0, c1, c2, c3) under the key
     (k0, k1). Counters are int64 tensors (broadcastable) or ints holding
-    values in [0, 2**32); returns the four output words as int64 tensors."""
+    values in [0, 2**32); so is each key half, a tensor of them broadcast
+    against the counters (a key a lane). Returns the four output words as
+    int64 tensors."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in (c0, c1, c2, c3))
-    k0, k1 = k0 & MASK32, k1 & MASK32
+    k0, k1 = (k.to(torch.int64) & MASK32 if isinstance(k, torch.Tensor) else k & MASK32
+              for k in (k0, k1))
     for r in range(10):
         if r:
             k0, k1 = (k0 + _W0) & MASK32, (k1 + _W1) & MASK32
@@ -85,6 +97,21 @@ def period_words(seed: int, lanes: torch.Tensor, episode, period: int,
     words = []
     for blk in range((n_words + 3) // 4):
         words.extend(philox4x32_10(lanes, episode, period, blk, seed, key1))
+    return words[:n_words]
+
+
+def seeded_words(seeds: torch.Tensor, period: int, n_words: int):
+    """The ``n_words`` words of ``period`` for each lane of ``seeds`` (B,)
+    under the key (seeds[i], ``SEEDED_KEY``) and the counter (0, 0, period,
+    block): a list of ``n_words`` int64 tensors shaped like ``seeds``. The
+    lane index is in neither, so lane i's words depend on ``seeds[i]``
+    alone."""
+    seeds = torch.as_tensor(seeds).to(torch.int64) & MASK32
+    zero = torch.zeros_like(seeds)
+    words = []
+    for blk in range((n_words + 3) // 4):
+        words.extend(w.expand(seeds.shape)
+                     for w in philox4x32_10(zero, zero, period, blk, seeds, SEEDED_KEY))
     return words[:n_words]
 
 

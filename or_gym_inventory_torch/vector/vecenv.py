@@ -5,6 +5,14 @@ batched natively over a leading env dimension, so ``vmap`` disappears, and
 ``lax.scan`` over periods becomes a Python loop. Every reference family
 truncates at a fixed horizon, so a batch stays in lockstep and auto-reset is
 an elementwise ``where``.
+
+The seeded evaluators (``evaluate_episodes_seeded`` and its stateful twin)
+drive lane i by ``seeds[i]`` alone, as the reference seeds episode i. The
+JAX package folds each seed into a key a lane; here every env draw of lane i
+comes from its own Philox stream, key (seeds[i], ``rng.SEEDED_KEY``)
+(``ops.rng.seeded_words``), drawn by the family's ``seeded_draws`` and fed
+through its ``step_with_demand``, so lane i's episode does not depend on
+the batch it runs in.
 """
 
 from __future__ import annotations
@@ -113,3 +121,56 @@ def evaluate_episodes(env: Environment, params, policy_fn: Callable,
         obs = ts.obs
     traj = _stack(trajs)
     return traj.reward.sum(dim=0), traj
+
+
+def _seeded_episode(env: Environment, params, seeds, act, device):
+    """The episode loop of the seeded evaluators: ``act(obs, generator, t)
+    -> action`` each period, the env stepped on lane-seeded demand."""
+    dev = resolve_device(device)
+    seeds = torch.as_tensor(seeds, device=dev).to(torch.int64)
+    if env.seeded_draws is None:
+        raise NotImplementedError(f"no seeded draws for the env family {env.name!r}")
+    reset, demands = env.seeded_draws(params, seeds)
+    generator = torch.Generator(device=dev).manual_seed(int(seeds[0]) & 0xFFFFFFFF)
+    state, ts = reset()
+    obs, trajs, totals = ts.obs, [], torch.zeros_like(ts.reward)
+    for t, demand in enumerate(demands):
+        action = act(obs, generator, t)
+        state, ts = env.step_with_demand(params, state, action, demand)
+        trajs.append(Trajectory(obs=obs, action=action, reward=ts.reward,
+                                done=ts.done, next_obs=ts.obs, info=ts.info))
+        # summed period by period, so that a lane's total does not depend on
+        # the batch (a reduction over periods orders its sums by batch size)
+        totals, obs = totals + ts.reward, ts.obs
+    return totals, _stack(trajs)
+
+
+def evaluate_episodes_seeded(env: Environment, params, policy_fn: Callable, policy_state,
+                             seeds, device=None):
+    """One fixed-horizon episode per lane, lane i driven only by
+    ``seeds[i]`` (the reference seeds episode i with ``seed_offset + i``,
+    benchmark_newsvendor.py:227-228): its reset and every period's env
+    draws come from its own Philox words (the env's ``seeded_draws``), so its row
+    does not depend on the batch's size, order or other lanes.
+    ``policy_fn(policy_state, obs, generator, t) -> action``; the one
+    ``generator`` (on the device, seeded from ``seeds[0]``, as the JAX
+    package derives every period's action key from ``seeds[0]`` alone) is
+    for stochastic policies, and a deterministic one never reads it.
+    Returns (totals, Trajectory) as ``evaluate_episodes`` does."""
+    return _seeded_episode(env, params, seeds,
+                           lambda obs, g, t: policy_fn(policy_state, obs, g, t), device)
+
+
+def evaluate_episodes_seeded_stateful(env: Environment, params, carry0_fn: Callable,
+                                      policy_fn: Callable, seeds, device=None):
+    """``evaluate_episodes_seeded`` for stateful (recurrent) policies:
+    ``carry0_fn(num_envs)`` builds the initial carry and ``policy_fn(carry,
+    obs, generator, t) -> (carry, action)`` threads it through the episode.
+    Seeding and return layout are ``evaluate_episodes_seeded``'s."""
+    seeds = torch.as_tensor(seeds)
+    carry = [carry0_fn(seeds.shape[0])]
+
+    def act(obs, g, t):
+        carry[0], action = policy_fn(carry[0], obs, g, t)
+        return action
+    return _seeded_episode(env, params, seeds, act, device)

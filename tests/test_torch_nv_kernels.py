@@ -40,6 +40,7 @@ from scipy import stats
 
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.ops import episode_kernels as tek
+from or_gym_inventory_torch.ops import nv_poisson as nvp
 from or_gym_inventory_torch.vector import fast_episodes as tfe
 from or_gym_inventory_tpu.envs import newsvendor as jnv
 from or_gym_inventory_tpu.ops import pallas_episode_kernels as jek
@@ -100,13 +101,13 @@ def test_poisson_inversion_matches_jax(mu):
          * 2.0 ** -24).astype(np.float32)
     u[:3] = [0.0, 2.0 ** -24, 1.0 - 2.0 ** -24]
     mu_arr = np.full(n, mu, np.float32)
-    setup = tek._nv_poisson_setup(tp, _t(mu_arr))
+    setup = nvp.setup(tp, _t(mu_arr))
     jsetup = jek._nv_poisson_setup(jp, jnp.asarray(mu_arr))
     np.testing.assert_array_equal(setup[1].numpy(), np.asarray(jsetup[1]))   # kc
     for a, b in zip(setup, jsetup):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4)
-    _, K, _ = tek._nv_window(tp)
-    got = tek._nv_poisson_invert(*setup, K, [_t(u)])[0].numpy()
+    _, K, _ = nvp.window(tp)
+    got = nvp.invert(*setup, K, [_t(u)])[0].numpy()
     want = np.asarray(jek._nv_poisson_invert(*jsetup, K, [jnp.asarray(u)])[0])
     diff = np.abs(got - want)
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
@@ -153,11 +154,11 @@ def test_k16_does_not_depend_on_batch_or_chunk():
     assert torch.equal(small, big[:2, :16])
     # the count of a uniform does not depend on the chunk it is inverted in
     mu = tnv.draw_econ(tp, torch.Generator().manual_seed(1), 64, device=CPU)[:, 4]
-    _, K, _ = tek._nv_window(tp)
+    _, K, _ = nvp.window(tp)
     us = list(torch.rand((50, 64), generator=torch.Generator().manual_seed(2)))
-    setup = tek._nv_poisson_setup(tp, mu)
-    whole = torch.stack(tek._nv_poisson_invert(*setup, K, us))
-    chunks = torch.cat([torch.stack(tek._nv_poisson_invert(*setup, K, us[i:i + 16]))
+    setup = nvp.setup(tp, mu)
+    whole = torch.stack(nvp.invert(*setup, K, us))
+    chunks = torch.cat([torch.stack(nvp.invert(*setup, K, us[i:i + 16]))
                         for i in range(0, 50, 16)])
     assert torch.equal(whole, chunks)
     for fn in (tek.episode_returns_nv_fused, tek.episode_returns_nv_reset_fused,

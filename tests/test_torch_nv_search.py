@@ -24,6 +24,7 @@ from test_torch_net_k2_plan import _c_struct_fields, _ctypes_fields
 
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.ops import episode_kernels as tek
+from or_gym_inventory_torch.ops import nv_poisson as nvp
 
 NV_CHUNK = 16   # csrc/nv_step.cuh: the thresholds one search round serves
 
@@ -35,8 +36,8 @@ def _params(mu_max):
 def _table_setup(params, mu):
     """(anchor (mu_safe, kc, p_c, total), S (K, N), m (N,), lo (N,), hi (N,))
     as nv_table_setup builds them."""
-    mu_safe, kc, p_c, _ = tek._nv_poisson_setup(params, mu)
-    _, K, _ = tek._nv_window(params)
+    mu_safe, kc, p_c, _ = nvp.setup(params, mu)
+    _, K, _ = nvp.window(params)
     T, comp, p, kf = torch.zeros_like(p_c), torch.zeros_like(p_c), p_c, kc
     n = p_c.shape[0]
     S = torch.empty((K, n), dtype=torch.float32)
@@ -46,7 +47,7 @@ def _table_setup(params, mu):
     for k in range(K):
         s = T
         S[k] = s
-        T, comp, p, kf = tek._nv_recur(T, comp, p, kf, mu_safe)
+        T, comp, p, kf = nvp.recur(T, comp, p, kf, mu_safe)
         m = torch.where((m == K) & (T < s), torch.full_like(m, k), m)
         in_suffix = m <= k
         lo = torch.where(in_suffix, torch.fmin(lo, s), lo)
@@ -75,8 +76,8 @@ def _table_invert(kc, S, m, lo, hi, vs):
 
 
 def _oracle(params, anchor, us):
-    _, K, _ = tek._nv_window(params)
-    return torch.stack(tek._nv_poisson_invert(*anchor, K, list(us)))
+    _, K, _ = nvp.window(params)
+    return torch.stack(nvp.invert(*anchor, K, list(us)))
 
 
 def _check(params, mu, us):
@@ -126,7 +127,7 @@ def test_nan_mu_counts_zero_as_the_linear_count():
     mu = torch.tensor([float("nan"), 5.0, float("nan"), 150.0])
     us = torch.full((NV_CHUNK, 4), 0.25)
     m = _check(params, mu, us)
-    assert int(m[0]) == tek._nv_window(params)[1]   # no decrease is seen in NaNs
+    assert int(m[0]) == nvp.window(params)[1]   # no decrease is seen in NaNs
 
 
 def test_a_lane_whose_sums_decrease_is_searched_in_two_parts():
@@ -136,7 +137,7 @@ def test_a_lane_whose_sums_decrease_is_searched_in_two_parts():
     params = _params(200.0)
     mu = _mu_grid(200.0, 4096)
     anchor, S, m, lo, hi = _table_setup(params, mu)
-    _, K, _ = tek._nv_window(params)
+    _, K, _ = nvp.window(params)
     bent = torch.nonzero(m < K).flatten()
     assert bent.numel() > 0, "no lane of the grid has a decreasing suffix sum"
     mu_b = mu[bent]
@@ -191,7 +192,7 @@ PLANS = {
 def test_plan_matches_a_hand_count(mu_max):
     K, threads, nbytes, blocks, table = PLANS[mu_max]
     params = _params(mu_max)
-    assert tek._nv_window(params)[1] == K
+    assert nvp.window(params)[1] == K
     plan = tek._nv_table_plan(K)
     assert plan == tek.NvTablePlan(threads, nbytes, blocks, table)
     assert plan.bytes <= tek.SMEM_OPTIN_BYTES

@@ -36,6 +36,7 @@ from test_torch_nv_search import NV_CHUNK, _table_invert, _table_setup
 from or_gym_inventory_torch.agents import networks, ppo
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.ops import episode_kernels as tek
+from or_gym_inventory_torch.ops import nv_poisson as nvp
 
 DIMS = (10, 64, 64, 1)   # ENV_CONFIG_EVAL's obs_dim 5 + lead_time 5, the default actor
 
@@ -64,7 +65,7 @@ NAMES = ("x0", "dem", "ring", "table")
 @pytest.mark.parametrize("layout", list(DEFAULTS))
 def test_plan_matches_a_hand_count_at_the_defaults(layout):
     params = _params()
-    _, K, _ = tek._nv_window(params)
+    _, K, _ = nvp.window(params)
     assert (K, params.obs_dim) == (177, DIMS[0])
     offsets, dem_rows, floats, blocks = DEFAULTS[layout]
     plan = tek._nv_tile_plan(DIMS, params.lead_time, K, params.step_limit, 64, layout)
@@ -201,8 +202,8 @@ def _check_upfront(mu_max, mu_values, seed, T=50):
     us = torch.from_numpy((rng.integers(0, 1 << 24, (T, mu.shape[0])) * 2.0 ** -24)
                           .astype(np.float32))
     got = _upfront_demands(params, mu, us)
-    _, K, _ = tek._nv_window(params)
-    want = torch.stack(tek._nv_poisson_invert(*tek._nv_poisson_setup(params, mu), K, list(us)))
+    _, K, _ = nvp.window(params)
+    want = torch.stack(nvp.invert(*nvp.setup(params, mu), K, list(us)))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
