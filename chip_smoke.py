@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's fifteen main paths, each with every
+at once), then drives the port's seventeen main paths, each with every
 launch counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -83,7 +83,18 @@ launch counter set to 0 just before it and read just after:
   (``vector.evaluate_episodes_seeded``) at 65,536 lanes on each family, a
   permuted 1,000-seed sub-batch equal to the full batch's rows bit for bit
   and 256 seeds on the card against the CPU. Phase 15 also evaluates its
-  trained PPO on the seeded protocol (30 episodes, seeds 4000-4029).
+  trained PPO on the seeded protocol (30 episodes, seeds 4000-4029);
+- slice 10, the off-policy step-interleaved update (phase 42): SAC, TD3
+  and DDPG with ``collect="xla"`` at ``make_agent``'s config (32 envs,
+  (256, 256), batch 256) on each family, launching no kernel and no plain
+  kernel version, each iteration timed, and TD3 on InvManagement at
+  tools/validate_kernel_collect.py's config beside it. Phase 43 builds
+  the seven learners by name (``agents.make_agent``), trains, saves and
+  loads each (``get_action`` bit for bit), and trains ``TD3Agent`` with
+  ``collect="kernel"`` on InvManagement (K27 once an iteration, nothing
+  else); phase 44 holds ``poisson_ppf`` on the card against SciPy and runs
+  the heuristic roster through the seeded evaluator at 65,536 lanes, its
+  actions against the CPU's teacher-forced.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -184,7 +195,7 @@ failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
 The last nine lines are one JSON object of per-kernel numbers, K1-K29
-(``launches`` is the sum of a kernel's launches in the fifteen main-path
+(``launches`` is the sum of a kernel's launches in the seventeen main-path
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
@@ -455,6 +466,38 @@ SEEDED_CPU = 256
 # demand draws equal on the card and the CPU: Newsvendor's inversion may move
 # a draw by 1 at expf/logf ulps, held as against JAX (ROADMAP, departures)
 SEEDED_DEMAND_SHARE = 0.999
+# the off-policy xla path (phase 42): make_agent's SAC/TD3/DDPG config
+# (agents/algo_registry.py), each iteration timed past the uniform warmup;
+# beside TD3 on InvManagement, tools/validate_kernel_collect.py's config
+OFF_XLA_RECIPE = dict(num_envs=32, buffer_size=100_000, batch_size=256, start_steps=1_000)
+OFF_XLA_ITERS = 200
+OFF_XLA_VKC = dict(num_envs=1024, buffer_size=200_704, batch_size=256, updates_per_iter=32)
+OFF_XLA_VKC_ITERS = 20
+# phase 43: make_agent's seven names, a family each, at a few updates
+AGENT_NAMES = (("PPO", "Newsvendor-v0", 2), ("A2C", "InvManagementBacklog-v0", 2),
+               ("SAC", "NetInvMgmtBacklog-v0", 40), ("TD3", "InvManagementBacklog-v0", 40),
+               ("DDPG", "Newsvendor-v0", 40), ("PPO_LSTM", "InvManagementBacklog-v0", 1),
+               ("A2C_LSTM", "NetInvMgmtBacklog-v0", 2))
+# phase 44: the heuristic roster at HEUR_LANES lanes; HEUR_CPU lanes teacher-
+# forced against the CPU; poisson_ppf's random points and its allowance (the
+# card's float64 gammaincc may round a CDF at a quantile's edge otherwise)
+HEUR_LANES = 65_536
+HEUR_CPU = 1_024
+PPF_POINTS = 1_000_000
+PPF_ALLOWED = 10
+NV_HEUR_SHARE = 0.9999
+# RESULTS.md's rows on the reference protocol (first seed, episodes, the
+# benchmark's env_config), rewards of the JAX package's seeded evaluator, not
+# speeds: benchmark_newsvendor.py, benchmark_inv_management_backlog_combined.py
+# (periods 50), benchmark_net_inv_backlog_combined.py (30 periods)
+HEUR_PROTOCOL = {"nv": (2000, 30, NV_ENV_CONFIG, "RESULTS.md:67-70"),
+                 "im": (9000, 30, {"periods": 50}, "RESULTS.md:144-148"),
+                 "net": (11000, 10, {"num_periods": 30}, "RESULTS.md:180-181")}
+HEUR_RESULTS = {"OrderUpTo_SF=0.8": "-106,568", "OrderUpTo_SF=1.0": "-138,709",
+                "OrderUpTo_SF=1.2": "-170,849", "ClassicNV_SF=1.0_k_vs_h": "-140,622",
+                "BaseStock_SF=1.0": "+5,251", "BaseStock_SF=0.8": "+3,076",
+                "BaseStock_SF=1.2": "-29,775", "ConstantOrder_5%": "-2,610",
+                "ConstantOrder_10%": "-5,760"}
 
 
 def close(name, got, want, rtol, atol):
@@ -3857,6 +3900,262 @@ def rppo_xla_phases(dev, wrappers, smi, err):
     return totals, summary
 
 
+def offpolicy_iteration_times(env, params, cfg, dev, iters):
+    """The iterations of ``make_offpolicy``'s xla update at ``cfg`` past its
+    uniform warmup (``start_steps``), each synchronised and timed on the
+    host: (ms per iteration, the last iteration's metrics, warmup count)."""
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    init, update, _ = op.make_offpolicy(env, params, cfg, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    state = init(generator)
+    warm = -(-cfg.start_steps // cfg.num_envs)
+    for _ in range(warm):
+        state, _ = update(state, generator)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        state, metrics = update(state, generator)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+        raise AssertionError(f"off-policy xla metrics not finite: {metrics}")
+    return ms, metrics, warm
+
+
+def offpolicy_xla_phases(dev, wrappers, smi):
+    """Phases 42-44, slice 10: the off-policy step-interleaved update
+    (``OffPolicyConfig(collect="xla")``, plain PyTorch, no kernel on its
+    path), the agents by name and the heuristic roster. 42, counted: SAC,
+    TD3 and DDPG on each family's defaults (Newsvendor's ENV_CONFIG_EVAL) at
+    ``make_agent``'s config (32 envs, (256, 256) networks, batch 256, one
+    update an iteration), every plain kernel version patched to raise and
+    no kernel launched, the median of OFF_XLA_ITERS iterations past the
+    warmup and trained-steps/s; beside TD3 on InvManagement the same
+    iteration at tools/validate_kernel_collect.py's config. 43:
+    ``make_agent`` for the seven names, a family each, a few updates; every
+    learner saved, loaded and acting bit for bit; ``TD3Agent`` with
+    ``collect="kernel"`` on InvManagement, K27 counted, its
+    ``device_policy`` through ``evaluate_episodes_seeded`` equal before and
+    after the load. 44: ``poisson_ppf`` on the card against SciPy on the
+    host (JAX's grids exact, PPF_POINTS random points with at most
+    PPF_ALLOWED mismatches, none past 1); every device heuristic through
+    ``evaluate_episodes_seeded`` at HEUR_LANES lanes, env-steps/s; the
+    card's actions against the CPU's on the CPU trajectory's obs,
+    teacher-forced (exact but on Newsvendor, there NV_HEUR_SHARE and never
+    past 1); each heuristic's figure on RESULTS.md's protocol. Returns
+    (launches, summary)."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from or_gym_inventory_torch.agents import heuristics as H
+    from or_gym_inventory_torch.agents import make_agent
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.envs import registry
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops.distributions import poisson_ppf
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    from or_gym_inventory_torch.vector import evaluate_episodes_seeded
+    fams = (("Newsvendor", "nv", nv, nv.default_params(env_config=NV_ENV_CONFIG)),
+            ("InvManagement", "im", im, im.default_params()),
+            ("NetInvMgmt", "net", net, net.default_params()))
+    totals = {name: 0 for name in wrappers}
+    summary = {}
+
+    # 42. the off-policy xla iteration, counted, at make_agent's config
+    t0 = time.perf_counter()
+    for label, fam, mod, params in fams:
+        for algo in ("sac", "td3", "ddpg"):
+            cfg = op.OffPolicyConfig(algo=algo, **OFF_XLA_RECIPE)
+            reset_counts(wrappers)
+            with no_plain_versions():
+                ms, metrics, warm = offpolicy_iteration_times(mod.ENV, params, cfg, dev,
+                                                              OFF_XLA_ITERS)
+            launches = read_counts(wrappers)
+            if any(launches.values()):
+                raise AssertionError(f"the off-policy xla path launched kernels: {launches}")
+            med = float(np.median(ms))
+            key = f"{fam}_{algo}_xla"
+            summary.update({f"{key}_iter_ms": med,
+                            f"{key}_trained_steps_s": cfg.num_envs / med * 1e3})
+            print(f"[42 off-policy xla] {label} {algo.upper()} (make_agent's config: "
+                  f"{cfg.num_envs} envs, (256, 256), batch 256, 1 update an iteration), "
+                  f'collect="xla": no kernel launched, no plain kernel version; {OFF_XLA_ITERS} '
+                  f"iterations past {warm} of warmup: median {med:.3f} ms (min {min(ms):.3f}, "
+                  f"max {max(ms):.3f}) = {cfg.num_envs / med * 1e3:.6g} trained-steps/s on "
+                  f"{smi}; mean_step_reward {float(metrics['mean_step_reward']):.6g}, alpha "
+                  f"{float(metrics['alpha']):.6g}", flush=True)
+            if fam == "im" and algo == "td3":
+                vcfg = op.OffPolicyConfig(algo="td3", **OFF_XLA_VKC)
+                reset_counts(wrappers)
+                with no_plain_versions():
+                    vms, _, vwarm = offpolicy_iteration_times(mod.ENV, params, vcfg, dev,
+                                                              OFF_XLA_VKC_ITERS)
+                launches = read_counts(wrappers)
+                if any(launches.values()):
+                    raise AssertionError(f"the off-policy xla path launched kernels: {launches}")
+                vmed = float(np.median(vms))
+                summary.update(im_td3_xla_vkc_iter_ms=vmed,
+                               im_td3_xla_vkc_trained_steps_s=vcfg.num_envs / vmed * 1e3,
+                               im_td3_xla_vkc_update_ms=vmed / vcfg.updates_per_iter)
+                print(f"[42 off-policy xla] {label} TD3 at validate_kernel_collect.py's config "
+                      f"(1,024 envs, buffer 200,704, batch 256, 32 updates an iteration): "
+                      f"{OFF_XLA_VKC_ITERS} iterations past {vwarm} of warmup: median "
+                      f"{vmed:.3f} ms = {vmed / vcfg.updates_per_iter:.3f} ms an update = "
+                      f"{vcfg.num_envs / vmed * 1e3:.6g} trained-steps/s; no kernel launched",
+                      flush=True)
+    print(f"[42 off-policy xla] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 43. make_agent's seven names: train, save, load, act; TD3 on the kernel path
+    t0 = time.perf_counter()
+    root = _build.BUILD_DIR / "chip_smoke_agents"
+    kw = dict(model_dir=str(root / "models"), log_dir=str(root / "logs"), force_retrain=True,
+              device=dev)
+    for name, env_id, updates in AGENT_NAMES:
+        env, params = registry.make_functional(env_id)
+        agent = make_agent(name, env_id, **kw)
+        cfg = agent.config   # an off-policy iteration is one env step
+        steps = updates * cfg.num_envs * getattr(cfg, "rollout_steps", 1)
+        reset_counts(wrappers)
+        agent.train(None, steps)
+        launches = read_counts(wrappers)
+        if any(launches.values()):
+            raise AssertionError(f"make_agent({name!r}) launched kernels: {launches}")
+        fresh = make_agent(name, env_id, **kw)
+        fresh.load(agent.save())
+
+        class host:   # what get_action reads of a host env (no gymnasium on this machine)
+            action_space = env.action_space(params)
+            period = 0
+        _, ts = env.reset(params, torch.Generator(device=dev).manual_seed(3), 1, device=dev)
+        pair = [a.get_action(ts.obs[0].cpu().numpy(), host) for a in (agent, fresh)]
+        if not np.array_equal(pair[0], pair[1]):
+            raise AssertionError(f"make_agent({name!r}) get_action after load: {pair}")
+        summary[f"make_agent_{name}_train_s"] = agent.training_time
+        print(f"[43 agents by name] make_agent({name!r}, {env_id!r}): {type(agent).__name__}, "
+              f"{steps} env-steps in {agent.training_time:.2f} s, no kernel launched; saved, "
+              f"loaded, get_action {pair[0].tolist()} equal bit for bit", flush=True)
+    params = im.default_params()
+    kcfg = op.OffPolicyConfig(collect="kernel", num_envs=LEARN_LANES, buffer_size=200_704,
+                              batch_size=256, start_steps=LEARN_LANES * NUM_STEPS)
+    agent = op.TD3Agent(im.ENV, im.default_params, config=kcfg, **kw)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        agent.train(None, 2 * LEARN_LANES * NUM_STEPS)
+    launches = read_counts(wrappers)
+    moved = {n: c for n, c in launches.items() if c}
+    if moved != {"rollout_traj_im_offpolicy": 2}:
+        raise AssertionError(f"TD3Agent(collect='kernel') launched {moved}, not K27 twice")
+    totals = {n: totals[n] + launches[n] for n in wrappers}
+    fresh = op.TD3Agent(im.ENV, im.default_params, config=kcfg, **kw)
+    fresh.load(agent.save())
+    seeds = torch.arange(4000, 4000 + SEEDED_LANES, device=dev)
+    evals = [evaluate_episodes_seeded(im.ENV, params, a.device_policy(im.ENV, params), None,
+                                      seeds, device=dev)[0] for a in (agent, fresh)]
+    exact("TD3Agent(collect='kernel'): the loaded agent's seeded returns", evals[1], evals[0])
+    summary.update(td3_kernel_agent_train_s=agent.training_time,
+                   td3_kernel_agent_seeded_mean=float(evals[0].double().mean()))
+    print(f"[43 agents by name] TD3Agent collect=\"kernel\" on InvManagement ({LEARN_LANES} x "
+          f"{NUM_STEPS}, the uniform warmup then the det head, 30 updates each): "
+          f"{agent.training_time:.2f} s, K27 launched twice, nothing else, no plain version; "
+          f"saved, loaded; device_policy through evaluate_episodes_seeded on {SEEDED_LANES} "
+          f"seeds equal bit for bit, mean return {float(evals[0].double().mean()):.6g}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 44. the heuristic roster on the card
+    t0 = time.perf_counter()
+    grid_q = np.array([0.001, 0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 0.999,
+                       0.833333, 0.6, 0.3711], np.float32)
+    for mu in (0.5, 5, 20, 200, 500, 1200, 1440, 2000, 4000):
+        got = poisson_ppf(torch.as_tensor(grid_q, device=dev), float(mu)).cpu().numpy()
+        if not np.array_equal(got, stats.poisson.ppf(grid_q.astype(np.float64), mu)):
+            raise AssertionError(f"poisson_ppf on the card off scipy at mu {mu}: {got}")
+    rng = np.random.default_rng(SEED)
+    for n, (lo, hi) in ((500, (0.5, 5000.0)), (200, (0.1, 500.0)), (200, (500.0, 2000.0))):
+        q = rng.uniform(0.001, 0.999, n).astype(np.float32)
+        mu = (np.exp(rng.uniform(np.log(lo), np.log(hi), n)) if n == 500
+              else rng.uniform(lo, hi, n)).astype(np.float32)
+        got = poisson_ppf(torch.as_tensor(q, device=dev), torch.as_tensor(mu, device=dev))
+        if not np.array_equal(got.cpu().numpy(), stats.poisson.ppf(q.astype(np.float64),
+                                                                   mu.astype(np.float64))):
+            raise AssertionError(f"poisson_ppf on the card off scipy on JAX's grid {lo}-{hi}")
+    q = rng.uniform(0.001, 0.999, PPF_POINTS).astype(np.float32)
+    mu = rng.uniform(0.1, 16_000.0, PPF_POINTS).astype(np.float32)
+    qd, mud = torch.as_tensor(q, device=dev), torch.as_tensor(mu, device=dev)
+    got = poisson_ppf(qd, mud).cpu().numpy()
+    want = stats.poisson.ppf(q.astype(np.float64), mu.astype(np.float64))
+    miss = int((got != want).sum())
+    worst = float(np.abs(got - want).max())
+    if miss > PPF_ALLOWED or worst > 1:
+        raise AssertionError(f"poisson_ppf on the card: {miss} of {PPF_POINTS} off scipy, "
+                             f"worst by {worst}")
+    ppf_t = cuda_time(poisson_ppf, qd, mud, warmup=1, iters=3)
+    summary.update(ppf_mismatches=miss, ppf_points=PPF_POINTS, ppf_ms=ppf_t["best_ms"])
+    print(f"[44 heuristics] poisson_ppf on the card: JAX's grids (tests/test_distributions.py:"
+          f"126-163, tests/test_heuristics.py:20-36) equal to scipy; {PPF_POINTS} random (q, mu), "
+          f"mu 0.1-16,000: {miss} off scipy (allowed {PPF_ALLOWED}), worst by {worst:g}; "
+          f"{ppf_t['best_ms']:.3f} ms a call on them (23 float64 bisection steps) on {smi}",
+          flush=True)
+    roster = {"nv": [H.OrderUpToHeuristicAgent(0.8), H.OrderUpToHeuristicAgent(1.0),
+                     H.OrderUpToHeuristicAgent(1.2), H.ClassicNewsvendorAgent("k_vs_h", 1.0),
+                     H.ClassicNewsvendorAgent("profit_margin", 1.0), H.sSPolicyAgent()],
+              "im": [H.BaseStockAgent(sf) for sf in (0.8, 1.0, 1.2)],
+              "net": [H.ConstantOrderAgent(0.05), H.ConstantOrderAgent(0.1)]}
+    for label, fam, mod, params in fams:
+        horizon = mod.ENV.horizon(params)
+        for agent in roster[fam]:
+            policy = agent.device_policy(mod.ENV, params)
+            seeds = torch.arange(HEUR_LANES, device=dev) + 20_000
+            full, _ = evaluate_episodes_seeded(mod.ENV, params, policy, None, seeds, device=dev)
+            if not torch.isfinite(full).all():
+                raise AssertionError(f"{agent.name}: non-finite returns")
+            tm = cuda_time(evaluate_episodes_seeded, mod.ENV, params, policy, None, seeds, dev,
+                           warmup=0, iters=2)
+            rate = HEUR_LANES * horizon / tm["best_ms"] * 1e3
+            # teacher-forced: the card's policy on the CPU trajectory's obs
+            _, htraj = evaluate_episodes_seeded(mod.ENV, params, policy, None,
+                                                torch.arange(HEUR_CPU) + 20_000, device="cpu")
+            card = torch.stack([policy(None, htraj.obs[t].to(dev), None, t).cpu()
+                                for t in range(horizon)])
+            gap = (card.double() - htraj.action.double()).abs()
+            share = float((gap == 0).double().mean())
+            if fam == "nv":
+                if share < NV_HEUR_SHARE or float(gap.max()) > 1:
+                    raise AssertionError(f"{agent.name} on the card against the CPU: share "
+                                         f"{share}, worst {float(gap.max())}")
+            else:
+                exact(f"{agent.name}: the card's actions on the CPU's obs", card, htraj.action)
+            start, n_eps, env_config, where = HEUR_PROTOCOL[fam]
+            ref_params = mod.default_params(env_config=env_config)
+            ref, _ = evaluate_episodes_seeded(mod.ENV, ref_params,
+                                              agent.device_policy(mod.ENV, ref_params), None,
+                                              torch.arange(start, start + n_eps, device=dev),
+                                              device=dev)
+            ref = ref.double().cpu()
+            avg, se = float(ref.mean()), float(ref.std() / np.sqrt(n_eps))
+            summary.update({f"heur_{agent.name}_env_steps_s": rate,
+                            f"heur_{agent.name}_ms": tm["best_ms"],
+                            f"heur_{agent.name}_protocol_mean": avg,
+                            f"heur_{agent.name}_lanes_mean": float(full.double().mean())})
+            print(f"[44 heuristics] {label} {agent.name} at {HEUR_LANES} lanes x {horizon} "
+                  f"(evaluate_episodes_seeded): best {tm['best_ms']:.3f} ms = {rate:.6g} "
+                  f"env-steps/s on {smi}, mean return {float(full.double().mean()):.6g}; "
+                  f"{HEUR_CPU} lanes teacher-forced on the CPU's obs: actions equal on "
+                  f"{share:.4%} (worst by {float(gap.max()):g}); reference protocol ({n_eps} "
+                  f"episodes, seeds {start}+, horizon {mod.ENV.horizon(ref_params)}): "
+                  f"{avg:.1f} +- {se:.1f}, RESULTS.md "
+                  f"{HEUR_RESULTS.get(agent.name, 'no row')} ({where}; the JAX package's "
+                  f"streams, a reward, not a gate)", flush=True)
+    print(f"[44 heuristics] {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals, summary
+
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -4714,6 +5013,9 @@ def main() -> int:
     launches_rppo, rppo_summary = rppo_xla_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_rppo[name] for name in wrappers}
 
+    launches_off, off_xla_summary = offpolicy_xla_phases(dev, wrappers, smi)
+    launches = {name: launches[name] + launches_off[name] for name in wrappers}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -4739,6 +5041,7 @@ def main() -> int:
     print(json.dumps({"offpolicy_main_path": off_summary}))
     print(json.dumps({"xla_main_path": xla_summary}))
     print(json.dumps({"rppo_xla_main_path": rppo_summary}))
+    print(json.dumps({"offpolicy_xla_main_path": off_xla_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

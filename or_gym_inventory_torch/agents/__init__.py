@@ -7,14 +7,15 @@ policy+env update or the trajectory kernels of the three families, and
 ``PPOAgent``), ``a2c`` (its config and ``A2CAgent``), ``recurrent_ppo``
 (recurrent PPO and the A2C_LSTM config on the fused policy+env update or
 the InvManagement LSTM trajectory kernel, ``RecurrentPPOAgent`` and
-``A2CLSTMAgent``) and ``off_policy`` (SAC, TD3 and DDPG with
-``collect="kernel"``, through the trajectory kernels' off-policy heads on
-all three families).
+``A2CLSTMAgent``), ``off_policy`` (SAC, TD3 and DDPG on the fused
+policy+env step or the trajectory kernels' off-policy heads, and
+``SACAgent``, ``TD3Agent``, ``DDPGAgent``), ``heuristics`` (the heuristic
+roster, host and device forms) and ``algo_registry`` (``make_agent``).
 
-The agents and configs are exported by name (``from
-or_gym_inventory_torch.agents import PPOAgent``), each module imported at
-the first use of one of its names, so that importing one module does not
-pull in the others.
+The agents, configs, ``make_agent`` and the ``heuristics`` module are
+exported by name (``from or_gym_inventory_torch.agents import PPOAgent``),
+each module imported at the first use of one of its names, so that
+importing one module does not pull in the others.
 """
 
 import importlib
@@ -25,11 +26,16 @@ _EXPORTS = {
     "A2CAgent": "a2c", "A2CConfig": "a2c",
     "RecurrentPPOAgent": "recurrent_ppo", "RecurrentPPOConfig": "recurrent_ppo",
     "A2CLSTMAgent": "recurrent_ppo", "A2CLSTMConfig": "recurrent_ppo",
+    "OffPolicyAgent": "off_policy", "SACAgent": "off_policy", "TD3Agent": "off_policy",
+    "DDPGAgent": "off_policy", "OffPolicyConfig": "off_policy",
+    "make_agent": "algo_registry",
 }
-__all__ = sorted(_EXPORTS)
+__all__ = sorted(_EXPORTS) + ["heuristics"]
 
 
 def __getattr__(name):
+    if name == "heuristics":
+        return importlib.import_module(f"{__name__}.heuristics")
     if name in _EXPORTS:
         return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

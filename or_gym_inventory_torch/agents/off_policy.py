@@ -1,19 +1,30 @@
-"""Off-policy actor-learners, SAC, TD3 and DDPG, collecting through the
-trajectory kernels' off-policy heads.
+"""Off-policy actor-learners, SAC, TD3 and DDPG, on a replay buffer on the
+device, and their agents.
 
-Port of ``or_gym_inventory_tpu/agents/off_policy.py:47-256, 257-376,
-480-666, 678-804``, the ``OffPolicyConfig(collect="kernel")`` path without a
-mesh, on all three families. Each iteration runs one full episode per env
-in the family's trajectory kernel with the folded relu actor and the head
-of the phase (``"uniform"`` while warming up, then ``"sac"`` for SAC's
-squashed state-dependent Gaussian or ``"det"`` for TD3/DDPG's clipped
-post-squash noise): ``ops.episode_kernels.rollout_traj_im_offpolicy`` (K27),
-``rollout_traj_nv_offpolicy`` (K28) or ``ops.net_step.
-rollout_traj_net_offpolicy`` (K29). It inserts the ``num_envs * horizon``
-n-step transitions into the replay buffer in one contiguous write, then runs
-``horizon * updates_per_iter`` gradient updates (the XLA path's
-update:env-step ratio). The gradient steps are plain PyTorch (``nn`` layers,
-autograd), as the JAX package left them to XLA.
+Port of ``or_gym_inventory_tpu/agents/off_policy.py`` without the mesh, on
+all three families, on both collection paths:
+
+- ``collect="xla"`` (the default): each iteration takes one fused
+  policy+env step of every env through ``vector.vecenv`` (``batch_step``,
+  then ``auto_reset``), pushes the transition into a rolling n-step window,
+  inserts the window's collapsed transition into the buffer, then runs
+  ``updates_per_iter`` gradient updates, TD3's delay counted in iterations.
+  Plain PyTorch on the device it is given, as the JAX package left it to
+  XLA: no kernel is launched.
+- ``collect="kernel"``: each iteration runs one full episode per env in the
+  family's trajectory kernel with the folded relu actor and the head of the
+  phase (``"uniform"`` while warming up, then ``"sac"`` for SAC's squashed
+  state-dependent Gaussian or ``"det"`` for TD3/DDPG's clipped post-squash
+  noise): ``ops.episode_kernels.rollout_traj_im_offpolicy`` (K27),
+  ``rollout_traj_nv_offpolicy`` (K28) or ``ops.net_step.
+  rollout_traj_net_offpolicy`` (K29). It inserts the ``num_envs * horizon``
+  n-step transitions in one contiguous write, then runs ``horizon *
+  updates_per_iter`` gradient updates (the xla path's update:env-step
+  ratio), TD3's delay counted in gradient updates.
+
+The gradient steps are plain PyTorch (``nn`` layers, autograd) on both.
+``OffPolicyAgent`` (``SACAgent``, ``TD3Agent``, ``DDPGAgent``) wraps them in
+the ``BaseAgent`` protocol with checkpoints, as ``agents.ppo.PPOAgent``.
 
 Where the port differs in form:
 
@@ -23,24 +34,28 @@ Where the port differs in form:
   exactly: eps 1e-8, no clipping, no anneal).
 - The replay buffer is written in place; ``insert`` and ``insert_chunk``
   return it, so JAX's ``buf = buf.insert(...)`` reads the same.
-- One ``torch.Generator`` replaces the JAX key chain: it draws each
-  iteration's kernel seed and, up front, its minibatch indices and normals.
-  ``one_update`` takes those as tensors, so a test can feed JAX's.
+- One ``torch.Generator`` replaces the JAX key chain. On the kernel path it
+  draws each iteration's kernel seed, then its minibatch indices and
+  normals; on the xla path each iteration's action normals and warmup
+  uniforms, then its minibatch indices and normals, then the env's draws.
+  ``iterate`` takes those as tensors on either path, so a test can feed
+  JAX's.
 - The kernels run in full f32; the JAX package ran the off-policy heads'
   matmuls at DEFAULT (bf16-class) precision to fit its TPU compiler
   (``off_policy.py:599-606``).
 - JAX's ``num_envs % 1024`` check and its TPU-backend check were tile and
   platform constraints: the CUDA kernels mask the batch tail.
-- ``collect="xla"`` (the step-interleaved path), ``OffPolicyAgent`` (and
-  ``SACAgent``, ``TD3Agent``, ``DDPGAgent``) and the mesh are still to port
-  (ROADMAP.md A9b); they raise NotImplementedError.
+- The data-parallel path (``mesh=``, ``axis_name``) is still to port
+  (ROADMAP.md A14); it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
-import math
+import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -48,15 +63,18 @@ import torch
 from torch import nn
 
 from or_gym_inventory_torch.agents import networks
+from or_gym_inventory_torch.agents.base import (BaseAgent, ckpt_trained_timesteps,
+                                                write_ckpt_meta)
 from or_gym_inventory_torch.agents.ppo import Optimizer, OptState, PPOConfig, RunningMeanStd
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management, net_inv_management, newsvendor
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import episode_kernels, net_step
+from or_gym_inventory_torch.utils import checkpoint
 from or_gym_inventory_torch.vector import vecenv
 
-_A9B = ("is still to port (ROADMAP.md A9b); use OffPolicyConfig(collect='kernel') "
-        "with off_policy.train")
+_MESH = ("data-parallel off-policy training over a mesh is still to port "
+         "(ROADMAP.md A14, torch.distributed)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +275,7 @@ class OffPolicyState:
     env_state: object
     last_obs: torch.Tensor
     step_idx: int
+    window: dict               # the rolling n-step window, oldest first (xla path)
 
 
 def _adam(cfg: OffPolicyConfig) -> Optimizer:
@@ -274,54 +293,63 @@ def _polyak(target: nn.Module, source: nn.Module, tau: float):
 def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
                    axis_name: Optional[str] = None, local_envs: Optional[int] = None,
                    device=None):
-    """Build ``(init, update_kernel, eval_policy)`` for the configured
-    algorithm (JAX make_offpolicy with ``collect="kernel"``):
+    """Build ``(init, update, eval_policy)`` for the configured algorithm and
+    collection path (JAX make_offpolicy):
 
     - ``init(generator) -> OffPolicyState`` initialises the actor and the
       critics from ``generator`` (on its device), fresh optimizer states,
-      unit statistics, an empty buffer (the capacity rounded down to whole
-      collection chunks) and ``num_envs`` reset envs;
-    - ``update_kernel(state, generator, warmup=False) -> (state, metrics)``
-      runs one episode-chunked iteration (``warmup``: the uniform head);
-      ``update_kernel.iterate(state, seed, idx, z, warmup)`` is the same
-      iteration on given draws, and ``update_kernel.one_update(state, idx,
-      z_next, z_pi, uidx)`` one gradient step on given minibatch indices
-      and normals;
+      unit statistics, an empty buffer (on the kernel path the capacity
+      rounded down to whole collection chunks), ``num_envs`` reset envs and
+      a zero n-step window;
+    - with ``collect="xla"``, ``update(state, generator) -> (state,
+      metrics)`` runs one step-interleaved iteration;
+      ``update.iterate(state, generator, a_z, a_u, idx, z)`` is the same
+      iteration on given draws (the action normals and warmup uniforms
+      (num_envs, act_dim), the minibatch rows (updates_per_iter, batch) and
+      normals (updates_per_iter, 2, batch, act_dim)), ``generator`` then
+      drawing only the env's steps and resets;
+    - with ``collect="kernel"``, ``update(state, generator, warmup=False)
+      -> (state, metrics)`` runs one episode-chunked iteration
+      (``warmup``: the uniform head); ``update.iterate(state, seed, idx, z,
+      warmup)`` is the same iteration on given draws;
+    - ``update.one_update(state, idx, z_next, z_pi, uidx)`` is one gradient
+      step on given minibatch indices and normals, on either path;
     - ``eval_policy((actor, rms), obs, generator, t)`` is the deterministic
       squashed mean, rescaled to the action box (int-cast for integer
       actions).
 
-    ``collect="xla"`` and a mesh (``axis_name``) raise NotImplementedError."""
+    A mesh (``axis_name``, ``local_envs``) raises NotImplementedError."""
     if cfg.n_step < 1:
         raise ValueError(f"n_step must be >= 1, got {cfg.n_step}")
     if cfg.collect not in ("xla", "kernel"):
         raise ValueError(f"collect must be 'xla' or 'kernel', got {cfg.collect!r}")
-    if cfg.collect == "xla":
-        raise NotImplementedError(f"collect='xla' (the step-interleaved path) {_A9B}")
     if axis_name is not None or local_envs is not None:
-        raise NotImplementedError(f"data-parallel off-policy training over a mesh {_A9B}")
+        raise NotImplementedError(_MESH)
     if cfg.algo not in ("sac", "td3", "ddpg"):
         raise ValueError(f"algo must be 'sac', 'td3' or 'ddpg', got {cfg.algo!r}")
     dev = resolve_device(device)
     fam = getattr(env, "name", None)
-    if fam not in ("inv_management", "newsvendor", "net_inv_management"):
-        raise NotImplementedError(
-            "collect='kernel' supports the InvManagement, Newsvendor and NetInvMgmt "
-            f"families (got {fam!r})")
     n_local = cfg.num_envs
-    horizon = env.horizon(env_params)
-    if cfg.n_step > horizon:
-        raise ValueError(
-            f"collect='kernel' runs episode-aligned collection: n_step ({cfg.n_step}) "
-            f"cannot exceed the env horizon ({horizon})")
-    chunk = n_local * horizon
-    if cfg.buffer_size < chunk:
-        raise ValueError(
-            "collect='kernel' inserts num_envs * horizon transitions per iteration "
-            f"({n_local} * {horizon} = {chunk}); buffer_size must hold at least one "
-            f"collection chunk (got {cfg.buffer_size})")
-    # the capacity rounded down to whole chunks keeps insert_chunk's pointer aligned
-    buffer_local = (cfg.buffer_size // chunk) * chunk
+    buffer_local = cfg.buffer_size
+    kernel_mode = cfg.collect == "kernel"
+    if kernel_mode:
+        if fam not in ("inv_management", "newsvendor", "net_inv_management"):
+            raise NotImplementedError(
+                "collect='kernel' supports the InvManagement, Newsvendor and NetInvMgmt "
+                f"families (got {fam!r})")
+        horizon = env.horizon(env_params)
+        if cfg.n_step > horizon:
+            raise ValueError(
+                f"collect='kernel' runs episode-aligned collection: n_step ({cfg.n_step}) "
+                f"cannot exceed the env horizon ({horizon})")
+        chunk = n_local * horizon
+        if cfg.buffer_size < chunk:
+            raise ValueError(
+                "collect='kernel' inserts num_envs * horizon transitions per iteration "
+                f"({n_local} * {horizon} = {chunk}); buffer_size must hold at least one "
+                f"collection chunk (got {cfg.buffer_size})")
+        # the capacity rounded down to whole chunks keeps insert_chunk's pointer aligned
+        buffer_local = (cfg.buffer_size // chunk) * chunk
 
     space = env.action_space(env_params)
     obs_dim = int(env.observation_space(env_params).shape[0])
@@ -348,6 +376,13 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         actor, twin_q = actor.to(dev), twin_q.to(dev)
         log_alpha = torch.zeros((), dtype=torch.float32, device=dev)
         env_state, ts0 = vecenv.batch_reset(env, env_params, generator, n_local, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        n = cfg.n_step
+        window = dict(obs=torch.zeros((n, n_local, obs_dim), **f32),
+                      action=torch.zeros((n, n_local, act_dim), **f32),
+                      reward=torch.zeros((n, n_local), **f32),
+                      next_obs=torch.zeros((n, n_local, obs_dim), **f32),
+                      done=torch.zeros((n, n_local), dtype=torch.bool, device=dev))
         return OffPolicyState(
             actor_params=actor, q_params=twin_q, target_q_params=copy.deepcopy(twin_q),
             target_actor_params=copy.deepcopy(actor), log_alpha=log_alpha,
@@ -355,7 +390,7 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
             q_opt=opt.init(list(twin_q.parameters())), alpha_opt=opt.init([log_alpha]),
             rms=RunningMeanStd.create(obs_dim, dev),
             buffer=ReplayBuffer.create(buffer_local, obs_dim, act_dim, dev),
-            env_state=env_state, last_obs=ts0.obs, step_idx=0)
+            env_state=env_state, last_obs=ts0.obs, step_idx=0, window=window)
 
     def actor_raw(actor, nobs, z):
         """SAC's pre-squash sample mean + std * z and its log-prob."""
@@ -427,6 +462,74 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         _polyak(state.target_actor_params, actor, cfg.tau)
         return dict(q_loss=q_loss.detach(), actor_loss=a_loss.detach() if do_actor else None)
 
+    # ------------------------------------------- the step-interleaved path
+    ins = "insert_chunk" if buffer_local % n_local == 0 else "insert"
+
+    def act(state: OffPolicyState, a_z, a_u):
+        """The iteration's normalised action: ``a_u`` (uniform in [-1, 1])
+        until ``start_steps`` env steps, then SAC's squashed sample or
+        TD3/DDPG's clipped tanh(mean) + explore_noise * ``a_z``, the noise
+        after the squash."""
+        if state.step_idx * cfg.num_envs < cfg.start_steps:
+            return a_u
+        with torch.no_grad():
+            mean, log_std = state.actor_params(norm(state.rms, state.last_obs))
+            if stochastic:
+                return torch.tanh(mean + torch.exp(torch.clamp(log_std, -10.0, 2.0)) * a_z)
+            return torch.clamp(torch.tanh(mean) + cfg.explore_noise * a_z, -1.0, 1.0)
+
+    def iterate_xla(state: OffPolicyState, generator: torch.Generator, a_z, a_u, idx, z):
+        """One step-interleaved iteration on given draws (JAX update): the
+        action, one step of every env and its auto-reset (``generator``
+        draws their demand and resets), the transition pushed into the
+        oldest-first window, whose collapse is inserted once the window is
+        full, the obs statistics updated on the pre-step obs, then
+        ``len(idx)`` gradient steps, each with TD3's phase ``step_idx``.
+        Updates ``state`` in place and returns (state, metrics)."""
+        a_norm = act(state, a_z, a_u)
+        env_state, ts = vecenv.batch_step(env, env_params, state.env_state,
+                                          to_env_action(a_norm), generator)
+        env_state, next_obs = vecenv.auto_reset(env, env_params, env_state, ts, generator,
+                                                n_local)
+        new = dict(obs=state.last_obs.to(torch.float32), action=a_norm, reward=ts.reward,
+                   next_obs=ts.obs.to(torch.float32), done=ts.done)
+        window = {k: v[None] if cfg.n_step == 1 else torch.cat([state.window[k][1:], v[None]])
+                  for k, v in new.items()}
+        # the window starts at zero: its oldest row holds a real transition
+        # only after n_step - 1 pushes
+        if state.step_idx >= cfg.n_step - 1:
+            reward_n, next_obs_n, done_n, disc_n = nstep_aggregate(
+                window["reward"], window["done"], window["next_obs"], cfg.gamma)
+            getattr(state.buffer, ins)(window["obs"][0], window["action"][0], reward_n,
+                                       next_obs_n, done_n, disc_n)
+        if cfg.normalize_obs:
+            state.rms = state.rms.update(state.last_obs)
+        for u in range(len(idx)):
+            one_update(state, idx[u], z[u, 0], z[u, 1], state.step_idx)
+        state.env_state, state.last_obs, state.window = env_state, next_obs, window
+        state.step_idx += 1
+        return state, dict(mean_step_reward=torch.mean(ts.reward),
+                           alpha=torch.exp(state.log_alpha))
+
+    def update(state: OffPolicyState, generator: torch.Generator):
+        """One step-interleaved iteration (JAX update): ``generator`` draws
+        the action normals and warmup uniforms, the minibatch rows (uniform
+        over the rows filled once this iteration's transition is in) and
+        normals, then the env's steps and resets; ``iterate`` runs it.
+        Returns (state, metrics)."""
+        gdev = generator.device
+        shape = (n_local, act_dim)
+        a_z = torch.randn(shape, generator=generator, device=gdev).to(dev)
+        a_u = (torch.rand(shape, generator=generator, device=gdev) * 2.0 - 1.0).to(dev)
+        filled = state.buffer.filled + (n_local if state.step_idx >= cfg.n_step - 1 else 0)
+        filled = min(filled, state.buffer.size)
+        idx = torch.randint(0, max(filled, 1), (cfg.updates_per_iter, cfg.batch_size),
+                            generator=generator, device=gdev).to(dev)
+        z = torch.randn((cfg.updates_per_iter, 2, cfg.batch_size, act_dim),
+                        generator=generator, device=gdev).to(dev)
+        return iterate_xla(state, generator, a_z, a_u, idx, z)
+
+    # ------------------------------------------------ the kernel path
     def collect(state: OffPolicyState, seed: int, mode: str):
         """One episode per env through the family's trajectory kernel:
         (obs_all (T+1, B, D) f32, a_norm (T, B, A), reward (T, B))."""
@@ -497,6 +600,8 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
     update_kernel.one_update = one_update
     update_kernel.iterate = iterate
     update_kernel.collect = collect
+    update.one_update = one_update
+    update.iterate = iterate_xla
 
     @torch.no_grad()
     def eval_policy(policy_state, obs, _generator, _t):
@@ -504,28 +609,32 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         mean, _ = actor(norm(rms, obs))
         return to_env_action(torch.tanh(mean))
 
-    return init, update_kernel, eval_policy
+    return init, (update_kernel if kernel_mode else update), eval_policy
 
 
 def train(env: Environment, env_params, cfg: OffPolicyConfig, generator: torch.Generator,
           total_timesteps: int, log_every: int = 500, progress=None, mesh=None,
           axis_name: str = "env", device=None):
-    """Run off-policy training with ``collect="kernel"`` (JAX train): exactly
-    ``total_timesteps // (num_envs * horizon)`` iterations (at least one),
-    the first ``ceil(start_steps / (num_envs * horizon))`` of them the
-    uniform warmup, metrics averaged over chunks of ``log_every``
-    iterations (each chunk within one phase). Returns (state, eval_policy,
-    metrics as a dict of numpy arrays with mean_step_reward, alpha and
-    timesteps). ``progress(metrics, state)`` is called after each chunk. A
-    ``mesh`` raises NotImplementedError."""
+    """Run off-policy training (JAX train): exactly ``total_timesteps //
+    steps_per_iter`` iterations (at least one), an iteration covering
+    ``num_envs`` env steps with ``collect="xla"`` and ``num_envs * horizon``
+    with ``collect="kernel"``, whose first ``ceil(start_steps /
+    steps_per_iter)`` iterations run the uniform head as their own phase
+    (the xla path warms up inside its iterations). Metrics stay on the
+    device and are averaged over chunks of ``log_every`` iterations (each
+    chunk within one phase). Returns (state, eval_policy, metrics as a dict
+    of numpy arrays with mean_step_reward, alpha and timesteps).
+    ``progress(metrics, state)`` is called after each chunk. A ``mesh``
+    raises NotImplementedError."""
     if mesh is not None:
-        raise NotImplementedError(f"data-parallel off-policy training over a mesh {_A9B}")
+        raise NotImplementedError(_MESH)
+    kernel_mode = cfg.collect == "kernel"
     init, update, eval_policy = make_offpolicy(env, env_params, cfg, device=device)
     state = init(generator)
-    steps_per_iter = cfg.num_envs * env.horizon(env_params)
+    steps_per_iter = cfg.num_envs * (env.horizon(env_params) if kernel_mode else 1)
     n_iters = max(1, total_timesteps // steps_per_iter)
     warm_iters = min(n_iters, -(-cfg.start_steps // steps_per_iter)) \
-        if cfg.start_steps > 0 else 0
+        if kernel_mode and cfg.start_steps > 0 else 0
     log_every = max(1, min(log_every, n_iters))
     metrics_log = []
     done_iters = 0
@@ -536,7 +645,10 @@ def train(env: Environment, env_params, cfg: OffPolicyConfig, generator: torch.G
             n = min(n, warm_iters - done_iters)
         chunk = []
         for _ in range(n):
-            state, metrics = update(state, generator, warmup=warm)
+            if kernel_mode:
+                state, metrics = update(state, generator, warmup=warm)
+            else:
+                state, metrics = update(state, generator)
             chunk.append(metrics)
         done_iters += n
         m = {k: float(torch.stack([c[k] for c in chunk]).mean()) for k in chunk[0]}
@@ -548,21 +660,182 @@ def train(env: Environment, env_params, cfg: OffPolicyConfig, generator: torch.G
     return state, eval_policy, stacked
 
 
-class OffPolicyAgent:
-    """The BaseAgent-protocol wrapper of the JAX package (checkpoints,
-    save/load, get_action) is still to port (ROADMAP.md A9b)."""
+# ======================================================== host agent wrapper
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__} {_A9B}")
+class OffPolicyAgent(BaseAgent):
+    """The ``BaseAgent``-protocol wrapper over SAC, TD3 and DDPG (JAX
+    ``off_policy.py:809-979``), with SB3AgentWrapper's ergonomics: the
+    checkpoint shortcut unless ``force_retrain``, ``save``/``load``, the
+    training log, deterministic evaluation actions.
+
+    ``eval_every_chunks`` > 0 is the EvalCallback analogue: every so many
+    training chunks a deterministic ``vecenv.evaluate_episodes`` of
+    ``eval_episodes`` envs, the best actor and statistics kept and restored
+    after training (benchmark_InvManagementBacklogEnv.py:275-281, 303-311).
+    ``device`` is where training runs (None: the card); ``get_action``
+    answers from a CPU copy of the actor, since one observation at a time
+    is bound by latency. A ``mesh`` raises NotImplementedError in ``train``
+    (ROADMAP.md A14)."""
+
+    def __init__(self, env: Environment, params_factory, algo: str = "sac",
+                 name: Optional[str] = None, config: Optional[OffPolicyConfig] = None,
+                 model_dir: str = "./models", log_dir: str = "./logs",
+                 force_retrain: bool = False, seed: int = 0, eval_every_chunks: int = 0,
+                 eval_episodes: int = 64, mesh=None, device=None):
+        super().__init__(name=name or algo.upper())
+        self.env = env
+        self.params_factory = params_factory
+        self.config = (config or OffPolicyConfig()).replace(algo=algo)
+        self.model_dir, self.log_dir = model_dir, log_dir
+        self.force_retrain = force_retrain
+        self.seed = seed
+        self.mesh = mesh
+        self.eval_every_chunks = eval_every_chunks
+        self.eval_episodes = eval_episodes
+        self.device = device
+        self.env_params = None
+        self.state = None
+        self.training_log = None
+        self.trained_timesteps = 0
+        self._eval = None
+
+    # -- persistence -----------------------------------------------------
+    def _ckpt_path(self, prefix: str = "") -> str:
+        return os.path.join(self.model_dir, f"{prefix}{self.name}.pt")
+
+    def save(self, path: Optional[str] = None) -> str:
+        """The actor and the obs statistics to ``path`` (the agent's
+        checkpoint by default), with the trained budget beside it."""
+        path = path or self._ckpt_path()
+        rms = self.state.rms
+        checkpoint.save_pytree(path, {
+            "actor": checkpoint.to_tree(self.state.actor_params),
+            "rms": {"mean": rms.mean, "var": rms.var, "count": rms.count}})
+        write_ckpt_meta(path, self.trained_timesteps)
+        return path
+
+    def _xla(self, dev, params=None):
+        """(init, update, eval_policy) of the xla path on ``dev``: init and
+        evaluation do not depend on the collection path, so a kernel-trained
+        checkpoint loads and evaluates on any device."""
+        return make_offpolicy(self.env, params or self.env_params,
+                              self.config.replace(collect="xla"), device=dev)
+
+    def load(self, path: str):
+        """A state holding the checkpoint's actor and obs statistics (and a
+        template's one env, critics and buffer), on the agent's device."""
+        dev = resolve_device(self.device)
+        payload = checkpoint.load_pytree(path, map_location=dev)
+        if self.env_params is None:
+            self.env_params = self.params_factory()
+        init, _, _ = make_offpolicy(
+            self.env, self.env_params,
+            self.config.replace(collect="xla", num_envs=1, buffer_size=1), device=dev)
+        state = init(torch.Generator(device=dev).manual_seed(self.seed))
+        state.actor_params.load_state_dict(payload["actor"])
+        state.rms = RunningMeanStd(**payload["rms"])
+        self.state = state
+        self.trained_timesteps = ckpt_trained_timesteps(path)
+        self._eval = None
+
+    # -- training --------------------------------------------------------
+    def _fit(self, total_timesteps: int, dev):
+        """(state, metrics) of a training run on ``dev``, with the
+        EvalCallback analogue's best actor restored."""
+        best = {"reward": -np.inf, "actor": None, "rms": None}
+        progress = None
+        if self.eval_every_chunks > 0:
+            _, _, eval_pol = self._xla(dev)
+            chunks = [0]
+
+            def progress(_m, st):
+                chunks[0] += 1
+                if chunks[0] % self.eval_every_chunks:
+                    return
+                totals, _ = vecenv.evaluate_episodes(
+                    self.env, self.env_params, eval_pol, (st.actor_params, st.rms),
+                    torch.Generator(device=dev).manual_seed(self.seed + 1),
+                    self.eval_episodes, device=dev)
+                mean = float(totals.double().mean())
+                if mean > best["reward"]:
+                    best.update(reward=mean, actor=copy.deepcopy(st.actor_params), rms=st.rms)
+
+        state, _, metrics = train(self.env, self.env_params, self.config,
+                                  torch.Generator(device=dev).manual_seed(self.seed),
+                                  total_timesteps, progress=progress, mesh=self.mesh, device=dev)
+        if best["actor"] is not None:
+            print(f"Loading best model (eval reward {best['reward']:.2f})")
+            state.actor_params, state.rms = best["actor"], best["rms"]
+        return state, metrics
+
+    def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
+        self.env_params = self.params_factory(env_config=env_config or None)
+        ckpt = self._ckpt_path(save_path_prefix)
+        if not self.force_retrain and os.path.exists(ckpt):
+            trained = ckpt_trained_timesteps(ckpt)
+            if trained >= total_timesteps:
+                print(f"Loading existing model for {self.name} from {ckpt} "
+                      f"(trained {trained} >= {total_timesteps})")
+                self.load(ckpt)
+                self.training_time = 0.0
+                return
+            print(f"Checkpoint {ckpt} trained only {trained} < {total_timesteps} steps; "
+                  "retraining")
+        print(f"Training {self.name} ({self.config.algo}) for {total_timesteps} steps...")
+        start = time.time()
+        self.state, metrics = self._fit(total_timesteps, resolve_device(self.device))
+        self._eval = None
+        self.training_log = metrics
+        self.training_time = time.time() - start
+        self.trained_timesteps = total_timesteps
+        self.save(ckpt)
+        if metrics:
+            os.makedirs(self.log_dir, exist_ok=True)
+            with open(os.path.join(self.log_dir, f"{self.name}_train_log.csv"), "w",
+                      newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(metrics.keys()))
+                w.writeheader()
+                for i in range(len(metrics["timesteps"])):
+                    w.writerow({k: metrics[k][i] for k in metrics})
+        print(f"Training for {self.name} finished in {self.training_time:.2f}s "
+              f"({total_timesteps / max(self.training_time, 1e-9):,.0f} trained-steps/s)")
+
+    # -- evaluation ------------------------------------------------------
+    def _eval_policy(self):
+        """The deterministic policy on the CPU and CPU copies of the actor
+        and statistics it reads (a round trip to the card a step would cost
+        more than the step)."""
+        if self._eval is None:
+            rms = self.state.rms
+            cpu_rms = RunningMeanStd(mean=rms.mean.cpu(), var=rms.var.cpu(),
+                                     count=rms.count.cpu())
+            _, _, eval_policy = self._xla("cpu")
+            self._eval = (eval_policy, (copy.deepcopy(self.state.actor_params).cpu(), cpu_rms))
+        return self._eval
+
+    def get_action(self, observation, env):
+        if self.state is None:
+            return env.action_space.sample().astype(env.action_space.dtype)
+        policy, ps = self._eval_policy()
+        obs = torch.as_tensor(np.asarray(observation, np.float32))[None]
+        return np.asarray(policy(ps, obs, None, 0)[0]).astype(env.action_space.dtype)
+
+    def device_policy(self, env, params):
+        _, _, eval_policy = self._xla(resolve_device(self.device), self.env_params or params)
+        ps = (self.state.actor_params, self.state.rms)
+        return lambda _s, obs, generator, t: eval_policy(ps, obs, generator, t)
 
 
 class SACAgent(OffPolicyAgent):
-    pass
+    def __init__(self, env, params_factory, name="SAC", **kw):
+        super().__init__(env, params_factory, algo="sac", name=name, **kw)
 
 
 class TD3Agent(OffPolicyAgent):
-    pass
+    def __init__(self, env, params_factory, name="TD3", **kw):
+        super().__init__(env, params_factory, algo="td3", name=name, **kw)
 
 
 class DDPGAgent(OffPolicyAgent):
-    pass
+    def __init__(self, env, params_factory, name="DDPG", **kw):
+        super().__init__(env, params_factory, algo="ddpg", name=name, **kw)

@@ -280,14 +280,15 @@ def test_insert_chunk_refuses_a_chunk_that_does_not_divide():
 
 def test_collect_kernel_config_validation():
     """tests/test_kernel_collect.py:160, with the port's departures: no
-    num_envs % 1024 and no TPU-backend check; collect="xla", a mesh and the
-    agents raise NotImplementedError naming ROADMAP A9b."""
+    num_envs % 1024 and no TPU-backend check; a mesh raises
+    NotImplementedError naming ROADMAP A14; the default config
+    (collect="xla") and the four agents construct."""
     _, tp = _im(30)
     make = top.make_offpolicy
     with pytest.raises(ValueError, match="'xla' or 'kernel'"):
         make(tim.ENV, tp, top.OffPolicyConfig(collect="x"), device=CPU)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        make(tim.ENV, tp, top.OffPolicyConfig(), device=CPU)
+    _, update, _ = make(tim.ENV, tp, top.OffPolicyConfig(), device=CPU)
+    assert callable(update.iterate) and callable(update.one_update)
     with pytest.raises(ValueError, match="n_step"):
         make(tim.ENV, tp, top.OffPolicyConfig(collect="kernel", num_envs=100, n_step=99),
              device=CPU)
@@ -298,14 +299,15 @@ def test_collect_kernel_config_validation():
                                               buffer_size=1024), device=CPU)
     with pytest.raises(ValueError, match="algo"):
         make(tim.ENV, tp, top.OffPolicyConfig(algo="ppo", collect="kernel"), device=CPU)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A14"):
         make(tim.ENV, tp, top.OffPolicyConfig(collect="kernel"), axis_name="env", device=CPU)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A14"):
         top.train(tim.ENV, tp, top.OffPolicyConfig(collect="kernel"), torch.Generator(), 10,
                   mesh=object(), device=CPU)
-    for agent in (top.OffPolicyAgent, top.SACAgent, top.TD3Agent, top.DDPGAgent):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            agent(tim.ENV, tim.default_params)
+    for agent, algo in ((top.OffPolicyAgent, "sac"), (top.SACAgent, "sac"),
+                        (top.TD3Agent, "td3"), (top.DDPGAgent, "ddpg")):
+        built = agent(tim.ENV, tim.default_params)
+        assert built.config.algo == algo and built.state is None
     # 100 envs run (JAX refused num_envs % 1024); the capacity is rounded
     # down to whole collection chunks, as JAX does (off_policy.py:339)
     init, _, _ = make(tim.ENV, tp, top.OffPolicyConfig(
