@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
-at once), then drives the port's seventeen main paths, each with every
+at once), then drives the port's main paths, each with every
 launch counter set to 0 just before it and read just after:
 
 - slice 1, NetInvMgmt random-policy episode returns (phases 3-4): what
@@ -94,7 +94,20 @@ launch counter set to 0 just before it and read just after:
   ``collect="kernel"`` on InvManagement (K27 once an iteration, nothing
   else); phase 44 holds ``poisson_ppf`` on the card against SciPy and runs
   the heuristic roster through the seeded evaluator at 65,536 lanes, its
-  actions against the CPU's teacher-forced.
+  actions against the CPU's teacher-forced;
+- slice 11, the benchmark harness and the Gymnasium surfaces (phases
+  45-47): ``bench.protocols``' InvManagement backlog protocol through
+  ``bench.runner.run_benchmark`` with the vectorized evaluator on the card,
+  30 episodes from seed 4000 at 50 periods, the roster cut to Random,
+  BaseStock 1.0, PPO and PPO_Kernel (``OGT_AGENTS``, ``OGT_KERNEL_ROSTER``),
+  K10 launched once for each of PPO_Kernel's 3 updates and nothing else,
+  no plain version in that run (K10 is held against it just before, at
+  PPO_Kernel's 1,024 x 50); the host protocol (``bench.evaluate_agent`` on the
+  port's ``envs.adapters.InvManagementBacklogEnv``) with BaseStock 1.0 and
+  the trained PPO, each mean within 4 combined standard errors of its
+  phase-45 mean; ``vector.gym_vector.BatchedGymVectorEnv`` over
+  NetInvMgmt's defaults at 4,096 envs, SAME_STEP, for a horizon plus one
+  (both no launch).
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -105,7 +118,8 @@ in phase 10 for all five demand modes in backlog and lost sales (K9 also on
 a ragged batch, and on a chain of 8 stocked stages with lt 32, the struct
 maxima, with K8 = K7 on its streams), and K10
 in phase 12 (with the env step chain on its streams and a
-NaN std), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
+NaN std) and again at 1,024 x 50 on the IM-backlog protocol's params before
+phase 45 (``k10_against_plain``), K11/K12 in phase 16 (at 65,536 x 16 x 30, both modes, with K7 on
 K12's streams and K10 against the stochastic episode 0 bit for bit, a
 ragged batch and a NaN weight), and K13-K17 in
 phase 18 (at 65,536 x 50, E 1 and 4, for lead time 5 and 0, gamma 1 and
@@ -194,20 +208,22 @@ Every phase prints its lines; any
 failure raises and exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
-The last nine lines are one JSON object of per-kernel numbers, K1-K29
-(``launches`` is the sum of a kernel's launches in the seventeen main-path
+The last lines are one JSON object of per-kernel numbers, K1-K29
+(``launches`` is the sum of a kernel's launches in the counted main-path
 runs, so 0 for K6, K7, K9, K12-K15, K17, K20, K21 and K23; for K4, K5,
 K10, K11, K14, K16, K18, K19, K20, K22, K24 and K27-K29, ``max_abs_err`` is
 over the lanes that agree with the plain version; K27-K29's row is the det
 head's at the learners' 1,024 lanes, the shape their main paths launch;
-K1's row also splits its launches, times and bounds by shape),
-one
-JSON object of the NetInvMgmt PPO path's rates, one of the InvManagement
-paths' rates and reward, one of the Newsvendor paths' rates and reward, one
-of the recurrent paths' rates and reward, one of the slice-7 paths' rates
-and TD3's reward, one of the xla path's rates beside the kernel path's and
-the agents' training times, the card's name and power limit as nvidia-smi gives them,
-and ``{"ok": true, "device": {...}}``.
+K1's row also splits its launches, times and bounds by shape), one JSON
+object a group of paths (``ppo_main_path``: the NetInvMgmt PPO path's
+rates; ``im_main_path``, ``nv_main_path``, ``lstm_main_path``: those
+families' and the recurrent paths' rates and rewards;
+``offpolicy_main_path``: the slice-7 paths' rates and TD3's reward;
+``xla_main_path``, ``rppo_xla_main_path``, ``offpolicy_xla_main_path``: the
+xla paths' rates beside the kernel paths' and the agents' training times;
+``bench_main_path``: phases 45-47's rewards, rates and warm-ups), the card's
+name and power limit as nvidia-smi gives them, and ``{"ok": true,
+"device": {...}}``.
 
 Tolerances: streams of draws (actions of K3 and K9, demand of K3, K4, K6,
 K9 and K10) bit for bit; the InvManagement int32 state of the env step
@@ -498,6 +514,17 @@ HEUR_RESULTS = {"OrderUpTo_SF=0.8": "-106,568", "OrderUpTo_SF=1.0": "-138,709",
                 "BaseStock_SF=1.0": "+5,251", "BaseStock_SF=0.8": "+3,076",
                 "BaseStock_SF=1.2": "-29,775", "ConstantOrder_5%": "-2,610",
                 "ConstantOrder_10%": "-5,760"}
+
+# phases 45-47, the harness: the InvManagement backlog protocol (seeds from
+# 4000, periods 50) on a cut roster through run_benchmark, its RL budget
+# BENCH_KERNEL_UPDATES of PPO_Kernel's updates (1,024 x 50; PPO's 256 x 50
+# takes four times as many), then the host protocol, then the vector env
+BENCH_PROTOCOL = "benchmark_inv_management_backlog"
+BENCH_ROSTER = ("Random", "BaseStock_SF=1.0", "PPO", "PPO_Kernel")
+BENCH_EPISODES = 30
+BENCH_KERNEL_UPDATES = 3
+BENCH_HOST_SE = 4            # the host path's mean within 4 combined SE of the device path's
+VEC_ENVS = 4_096
 
 
 def close(name, got, want, rtol, atol):
@@ -1783,42 +1810,52 @@ def im_main_path(dev, wrappers):
     return launches, err, mean, (params, a, d, seed)
 
 
+def k10_against_plain(params, actor, log_std, B, dev, case):
+    """K10 (``rollout_traj_im``) and its plain version on the same actor,
+    ``B`` lanes x ``params``' horizon: demand bit for bit; inv, actions, raws
+    and rewards by the share of lanes (``lane_share``); the env step chain on
+    K10's actions and demand reproduces its inv exactly and its rewards
+    within rtol=1e-4 atol=1e-2 on every lane. Returns (K10's trajectory,
+    plain's ms, {key: (share, max |diff|)})."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    tr = ek.rollout_traj_im(params, actor, log_std, SEED, B, device=dev)
+    ms, want = timed_once(ek._rollout_traj_im_plain, params, actor, ek.clipped_std(log_std),
+                          SEED, B, dev)
+    exact(f"K10 demand, {case}", tr["demand"], want["demand"])
+    shares = {k: lane_share(f"K10 {k} vs plain, {case}", tr[k], want[k])
+              for k in ("inv", "actions", "raw", "reward")}
+    del want
+    T = tr["reward"].shape[0]
+    state, _ = im.reset(params, batch=B, device=dev)
+    for t in range(T):
+        exact(f"step chain inv[{t}] vs K10 inv, {case}", state.inv.T, tr["inv"][t])
+        state, ts = im.step_with_demand(params, state, tr["actions"][t].T, tr["demand"][t])
+        close(f"step chain reward[{t}] vs K10, {case}", ts.reward, tr["reward"][t],
+              1e-4, 1e-2)
+    exact(f"step chain final inv vs K10, {case}", state.inv.T, tr["inv"][T])
+    return tr, ms, shares
+
+
 def im_policy_cross_check(dev, actor, log_std):
     """Phase 12: K10 at 65,536 x 30, backlog and lost sales, against plain
-    K10 (demand bit for bit; inv, actions, raw and reward by the share of
-    lanes); the env step chain on K10's actions and demand reproduces its
-    inv exactly and its rewards within rtol=1e-4 atol=1e-2 on every lane; K7
-    on K10's streams gives the sum of its rewards; a NaN std gives NaN raws
-    and actions 0 in the kernel and the plain version. Returns (max |diff|
-    over agreeing lanes, plain ms, lines)."""
+    K10 and the env step chain (``k10_against_plain``); K7 on K10's streams
+    gives the sum of its rewards; a NaN std gives NaN raws and actions 0 in
+    the kernel and the plain version. Returns (max |diff| over agreeing
+    lanes, plain ms, lines)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.ops import episode_kernels as ek
-    B = CHECK_LANES
-    std = ek.clipped_std(log_std)
     err, plain_ms, lines = 0.0, None, []
     for backlog in (True, False):
         params = im.default_params(backlog=backlog)
         case = "backlog" if backlog else "lost sales"
-        tr = ek.rollout_traj_im(params, actor, log_std, SEED, B, device=dev)
-        ms, want = timed_once(ek._rollout_traj_im_plain, params, actor, std, SEED, B, dev)
+        tr, ms, shares = k10_against_plain(params, actor, log_std, CHECK_LANES, dev, case)
         plain_ms = plain_ms or ms
-        exact(f"K10 demand, {case}", tr["demand"], want["demand"])
-        shares = {k: lane_share(f"K10 {k} vs plain, {case}", tr[k], want[k])
-                  for k in ("inv", "actions", "raw", "reward")}
         err = max([err] + [e for _, e in shares.values()])
         lines.append(f"K10 vs plain, {case}: lanes agreeing " + ", ".join(
             f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
-        del want
-        state, _ = im.reset(params, batch=B, device=dev)
-        for t in range(NUM_STEPS):
-            exact(f"step chain inv[{t}] vs K10 inv, {case}", state.inv.T, tr["inv"][t])
-            state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
-                                            tr["demand"][t])
-            close(f"step chain reward[{t}] vs K10, {case}", ts.reward, tr["reward"][t],
-                  1e-4, 1e-2)
-        exact(f"step chain final inv vs K10, {case}", state.inv.T, tr["inv"][NUM_STEPS])
         close(f"K7 on K10's streams vs its rewards, {case}",
               ek.episode_returns_im(params, tr["actions"], tr["demand"]),
               tr["reward"].sum(0), 1e-5, 1e-3)
@@ -4156,6 +4193,210 @@ def offpolicy_xla_phases(dev, wrappers, smi):
     return totals, summary
 
 
+def bench_phases(dev, wrappers, smi, err):
+    """Phases 45-47, slice 11: the benchmark harness and the Gymnasium
+    surfaces. 45: first, before the count, K10 against its plain version at
+    the shape PPO_Kernel's training gives it (the protocol's params, 1,024
+    lanes x 50 periods, ``seeded_actor`` of the roster's 64x64 width;
+    ``k10_against_plain``), its max |diff| into ``err``; then, counted,
+    ``bench.protocols``' InvManagement backlog
+    protocol through ``run_benchmark`` with the vectorized evaluator on the
+    card (OGT_FAST's path), BENCH_EPISODES episodes from seed 4000 at 50
+    periods, the roster cut to BENCH_ROSTER by OGT_AGENTS with
+    OGT_KERNEL_ROSTER=1, its artifacts in a temporary directory, every
+    plain kernel version patched to raise: PPO_Kernel's training launches
+    K10 once an update and nothing else does; every row evaluated on the
+    vectorized path (the summary's ``attrs["vectorized"]``) with Seeds
+    4000-4029 and SuccessRate 100; the summary and raw CSVs written, and the
+    boxplot where matplotlib is installed; each row's AvgReward +- SE, rate
+    and warm-up seconds. 46, counted (no
+    launch): ``evaluate_agent``, the host protocol, on the port's
+    ``InvManagementBacklogEnv`` with BaseStock 1.0 and phase 45's trained
+    PPO (loaded from its checkpoint by the skip-retrain path; ``get_action``
+    on its CPU copy) over the same seeds: SuccessRate 100, each mean within
+    BENCH_HOST_SE combined SE of its phase-45 mean (same policy and laws,
+    other streams), the time per episode. 47, counted (no launch):
+    ``BatchedGymVectorEnv`` over NetInvMgmt's defaults at VEC_ENVS envs on
+    the card, SAME_STEP, the random action for a horizon plus one:
+    ``final_obs`` and its masks at the horizon alone, the fresh obs after
+    it, env-steps/s. Returns (launches, summary)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from or_gym_inventory_torch.agents import heuristics as H
+    from or_gym_inventory_torch.bench import protocols
+    from or_gym_inventory_torch.bench.evaluate import evaluate_agent
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.vector.gym_vector import BatchedGymVectorEnv
+
+    totals = {name: 0 for name in wrappers}
+    summary = {}
+    proto = protocols.PROTOCOLS[BENCH_PROTOCOL]
+    short = proto.env_name_short
+    seeds = list(range(proto.seed_offset, proto.seed_offset + BENCH_EPISODES))
+    budget = BENCH_KERNEL_UPDATES * 1024 * proto.env_config["periods"]
+
+    def mean_se(x):
+        x = np.asarray(x, np.float64)
+        return float(x.mean()), float(x.std(ddof=1) / np.sqrt(len(x)))
+
+    # 45. K10 against plain at PPO_Kernel's shape, then the protocol through
+    # run_benchmark, counted
+    t0 = time.perf_counter()
+    params = proto.params_factory(env_config=proto.env_config)
+    actor, log_std = seeded_actor(params.pipeline_length, params.m1, dev)
+    B, T = 1024, im.ENV.horizon(params)
+    _, _, shares = k10_against_plain(params, actor, log_std, B, dev,
+                                     f"the protocol's params, {B} x {T}")
+    err["rollout_traj_im"] = max([err["rollout_traj_im"]] + [e for _, e in shares.values()])
+    print(f"[45 protocol] K10 against plain at PPO_Kernel's {B} x {T} (seeded 64x64 actor): "
+          "demand bit for bit, lanes agreeing "
+          + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+          + f", max |diff| over them {max(e for _, e in shares.values()):.6g}; the env step "
+          f"chain gives its inv exactly; {time.perf_counter() - t0:.1f} s", flush=True)
+    del actor, log_std
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        env_vars = {"OGT_AGENTS": ",".join(BENCH_ROSTER), "OGT_KERNEL_ROSTER": "1"}
+        saved_env = {k: os.environ.get(k) for k in env_vars}
+        os.environ.update(env_vars)
+        try:
+            reset_counts(wrappers)
+            with no_plain_versions():
+                table, raw = protocols.run(BENCH_PROTOCOL, root=root, device=dev,
+                                           episodes=BENCH_EPISODES, timesteps=budget, fast=True)
+            launches = read_counts(wrappers)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        moved = {n: c for n, c in launches.items() if c}
+        if moved != {"rollout_traj_im": BENCH_KERNEL_UPDATES}:
+            raise AssertionError(f"the protocol launched {moved}, not K10 once for each of "
+                                 f"PPO_Kernel's {BENCH_KERNEL_UPDATES} updates")
+        totals = {n: totals[n] + launches[n] for n in wrappers}
+        vec_runs = table.attrs["vectorized"]
+        if sorted(vec_runs) != sorted(BENCH_ROSTER) or sorted(table.index) != sorted(BENCH_ROSTER):
+            raise AssertionError(f"rows {sorted(table.index)}, vectorized {sorted(vec_runs)}")
+        if not (table["SuccessRate(%)"] == 100).all():
+            raise AssertionError(f"SuccessRate(%): {table['SuccessRate(%)'].to_dict()}")
+        results = os.path.join(root, f"benchmark_results_torch_{short}_subset")
+        for name in ("summary.csv", "raw_summary.csv"):
+            if not os.path.exists(os.path.join(results, f"{short}_benchmark_{name}")):
+                raise AssertionError(f"run_benchmark wrote no {name}")
+        png = os.path.join(results, f"{short}_benchmark_rewards_boxplot.png")
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if has_mpl and not os.path.exists(png):
+            raise AssertionError("run_benchmark drew no rewards boxplot")
+        device_rows = {}
+        for name in BENCH_ROSTER:
+            rows = raw[raw.Agent == name]
+            if rows["Seed"].tolist() != seeds:
+                raise AssertionError(f"{name}: Seeds {rows['Seed'].tolist()}")
+            if not np.isfinite(rows["TotalReward"]).all():
+                raise AssertionError(f"{name}: non-finite returns")
+            avg, se = mean_se(rows["TotalReward"])
+            device_rows[name] = (avg, se)
+            res = vec_runs[name]
+            summary.update({f"{name}_avg_reward": avg, f"{name}_se": se,
+                            f"{name}_env_steps_s": res["steps_per_second"],
+                            f"{name}_warmup_s": res["compile_seconds"]})
+            print(f"[45 protocol] {BENCH_PROTOCOL} {name}: AvgReward {avg:.1f} +- {se:.1f} over "
+                  f"{BENCH_EPISODES} episodes (seeds {seeds[0]}-{seeds[-1]}, periods "
+                  f"{proto.env_config['periods']}), evaluate_agent_vectorized "
+                  f"{res['steps_per_second']:.6g} env-steps/s, warm-up (compile_seconds) "
+                  f"{res['compile_seconds']:.3f} s on {smi}; SuccessRate 100", flush=True)
+        train_s = {n: float(table.loc[n, "TrainingTime(s)"]) for n in ("PPO", "PPO_Kernel")}
+        summary.update(k10_launches=launches["rollout_traj_im"], rl_budget=budget,
+                       ppo_train_s=train_s["PPO"], ppo_kernel_train_s=train_s["PPO_Kernel"],
+                       boxplot=os.path.exists(png))
+        print(f"[45 protocol] run_benchmark (fast, OGT_AGENTS={env_vars['OGT_AGENTS']}, "
+              f"OGT_KERNEL_ROSTER=1), RL budget {budget} env-steps: PPO trained in "
+              f"{train_s['PPO']:.2f} s (xla, no kernel), PPO_Kernel in "
+              f"{train_s['PPO_Kernel']:.2f} s with K10 launched "
+              f"{launches['rollout_traj_im']} times, once an update, nothing else, no plain "
+              f"version; summary and raw CSVs written, "
+              + ("the rewards boxplot drawn" if has_mpl else
+                 "no plot drawn: matplotlib is not installed on this host (run_benchmark "
+                 "prints the error and goes on, as the JAX package's does)")
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 46. the host protocol on the port's adapter, counted
+        t0 = time.perf_counter()
+        ppo_agent = dict(protocols.build_agents(BENCH_PROTOCOL, root=root, device=dev))["PPO"]
+        ppo_agent.train(proto.env_config, budget, save_path_prefix=f"{short}_")
+        if ppo_agent.training_time != 0.0:
+            raise AssertionError("phase 46's PPO retrained instead of loading phase 45's")
+        reset_counts(wrappers)
+        for agent in (H.BaseStockAgent(1.0), ppo_agent):
+            df = evaluate_agent(agent, proto.env_factory, BENCH_EPISODES,
+                                seed_offset=proto.seed_offset,
+                                env_config=proto.env_config)["summary"]
+            if len(df) != BENCH_EPISODES or not df["Error"].isna().all() \
+                    or df["Seed"].tolist() != seeds:
+                raise AssertionError(f"{agent.name} on the host path: {df['Error'].tolist()}")
+            avg, se = mean_se(df["TotalReward"])
+            d_avg, d_se = device_rows[agent.name]
+            gap = abs(avg - d_avg) / np.hypot(se, d_se)
+            if not gap <= BENCH_HOST_SE:
+                raise AssertionError(f"{agent.name}: host {avg} +- {se} against the card's "
+                                     f"{d_avg} +- {d_se}: {gap:.2f} combined SE apart")
+            per_ep = float(df["Time"].mean())
+            summary.update({f"host_{agent.name}_avg_reward": avg, f"host_{agent.name}_se": se,
+                            f"host_{agent.name}_s_per_episode": per_ep})
+            print(f"[46 host protocol] evaluate_agent on {proto.env_factory.__name__} "
+                  f"(NumPy, PCG64 streams) {agent.name}: AvgReward {avg:.1f} +- {se:.1f}, "
+                  f"SuccessRate 100; the card's {d_avg:.1f} +- {d_se:.1f} ({gap:.2f} combined "
+                  f"SE apart, allowed {BENCH_HOST_SE}); {per_ep * 1e3:.3f} ms an episode of "
+                  f"{proto.env_config['periods']} periods on the host", flush=True)
+        launches = read_counts(wrappers)
+        if any(launches.values()):
+            raise AssertionError(f"the host protocol launched kernels: {launches}")
+        print(f"[46 host protocol] no kernel launched; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # 47. BatchedGymVectorEnv on the card, counted
+    t0 = time.perf_counter()
+    params = net.default_params()
+    T = params.num_periods
+    venv = BatchedGymVectorEnv(net.ENV, params, VEC_ENVS, seed=SEED, device=dev)
+    obs, _ = venv.reset()
+    fresh = obs.copy()
+    reset_counts(wrappers)
+    step_s = []
+    for t in range(T + 1):
+        action = venv.action_space.sample()
+        s0 = time.perf_counter()
+        obs, reward, term, trunc, info = venv.step(action)
+        step_s.append(time.perf_counter() - s0)
+        ended = bool(info["_final_obs"].any())
+        if ended != (t == T - 1) or not np.isfinite(reward).all():
+            raise AssertionError(f"BatchedGymVectorEnv step {t}: final_obs mask {ended}")
+        if t == T - 1:
+            if not (trunc.all() and info["_final_obs"].all()
+                    and info["final_obs"].shape == obs.shape == (VEC_ENVS, params.obs_dim)):
+                raise AssertionError("no final_obs at the horizon")
+            if not np.array_equal(obs, fresh):
+                raise AssertionError("the step after the horizon is not the reset obs")
+    launches = read_counts(wrappers)
+    if any(launches.values()):
+        raise AssertionError(f"BatchedGymVectorEnv launched kernels: {launches}")
+    rate = VEC_ENVS * (T + 1) / sum(step_s)
+    summary.update(vec_env_steps_s=rate, vec_step_ms_median=float(np.median(step_s)) * 1e3)
+    print(f"[47 vector env] BatchedGymVectorEnv(NetInvMgmt defaults, {VEC_ENVS} envs, "
+          f"SAME_STEP) on the card, {T + 1} steps of the random action (NumPy in and out): "
+          f"{rate:.6g} env-steps/s, median step {np.median(step_s) * 1e3:.3f} ms on {smi}; "
+          f"final_obs and its masks at step {T} alone, the reset obs after it; no kernel "
+          f"launched; {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals, summary
+
 RANDOM_KERNELS = ("episode_returns", "episode_returns_fully_fused",
                   "sample_streams_debug")
 POLICY_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
@@ -5016,6 +5257,9 @@ def main() -> int:
     launches_off, off_xla_summary = offpolicy_xla_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_off[name] for name in wrappers}
 
+    launches_bench, bench_summary = bench_phases(dev, wrappers, smi, err)
+    launches = {name: launches[name] + launches_bench[name] for name in wrappers}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -5042,6 +5286,7 @@ def main() -> int:
     print(json.dumps({"xla_main_path": xla_summary}))
     print(json.dumps({"rppo_xla_main_path": rppo_summary}))
     print(json.dumps({"offpolicy_xla_main_path": off_xla_summary}))
+    print(json.dumps({"bench_main_path": bench_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

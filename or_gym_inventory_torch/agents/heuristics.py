@@ -2,7 +2,9 @@
 ``or_gym_inventory_tpu/agents/heuristics.py``).
 
 Host agents (the ``BaseAgent`` protocol, NumPy/SciPy) mirror the benchmark
-scripts' classes formula for formula:
+scripts' classes formula for formula, reading the attributes of the
+``envs.adapters`` envs they step (``lead_time``, ``action_log``,
+``period``, ``dist_param``, the action space):
 
 - OrderUpToHeuristicAgent        benchmark_newsvendor.py:97-111
 - ClassicNewsvendorAgent         benchmark_newsvendor.py:113-161

@@ -78,8 +78,10 @@ class Box:
         return torch.clamp(x, low.to(x.dtype), high.to(x.dtype))
 
     def to_gymnasium(self):
-        import gymnasium
-        return gymnasium.spaces.Box(low=self.low, high=self.high, dtype=self.dtype)
+        """A ``gymnasium.spaces.Box`` of the same bounds (``core.gym_compat``'s
+        stand-in where gymnasium is not installed)."""
+        from or_gym_inventory_torch.core.gym_compat import Box as GymBox
+        return GymBox(low=self.low, high=self.high, dtype=self.dtype)
 
     def __repr__(self):
         return f"Box(shape={self.shape}, dtype={self.dtype})"

@@ -10,11 +10,9 @@ layers, as in the JAX package:
   device path; the eight functional ids of the reference ship registered on
   the port's env modules;
 - ``make(name, **config)`` -> a host (Gymnasium) env from a creator given to
-  ``register_env``. The JAX package registers its ``envs.adapters`` classes
-  under the ten reference ids; the port's adapters are still to port
-  (ROADMAP.md A12), so until then ``make`` of one of those ids raises
-  NotImplementedError naming A12 (the id is known, its host env is not
-  there yet). An id nobody registered raises KeyError.
+  ``register_env``; the port's ``envs.adapters`` classes ship registered
+  under the ten reference ids, as the JAX package's do. An id nobody
+  registered raises KeyError.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
+from or_gym_inventory_torch.envs import adapters as ad
 from or_gym_inventory_torch.envs import inv_management as im
 from or_gym_inventory_torch.envs import net_inv_management as net
 from or_gym_inventory_torch.envs import newsvendor as nv
@@ -31,12 +30,20 @@ from or_gym_inventory_torch.envs.base import Environment
 _HOST_REGISTRY: Dict[str, Callable] = {}
 _FUNC_REGISTRY: Dict[str, Tuple[Environment, Callable]] = {}
 
-# the reference's host env ids (JAX registry.py:71-82), served by envs.adapters
-REFERENCE_HOST_IDS = (
-    "Newsvendor-v0", "CustomizableNewsvendor-v0", "InvManagement-v0",
-    "InvManagementBacklog-v0", "InvManagementLostSales-v0", "NetInvMgmt-v0",
-    "NetInvMgmtBacklog-v0", "NetInvMgmtLostSales-v0", "NetInvMgmtCustomBacklog-v0",
-    "NetInvMgmtCustomLostSales-v0")
+# the reference's host env ids (JAX registry.py:71-82) and their envs.adapters classes
+_HOST_CLASSES = {
+    "Newsvendor-v0": ad.NewsvendorEnv,
+    "CustomizableNewsvendor-v0": ad.CustomizableNewsvendorEnv,
+    "InvManagement-v0": ad.InvManagementMasterEnv,
+    "InvManagementBacklog-v0": ad.InvManagementBacklogEnv,
+    "InvManagementLostSales-v0": ad.InvManagementLostSalesEnv,
+    "NetInvMgmt-v0": ad.NetInvMgmtMasterEnv,
+    "NetInvMgmtBacklog-v0": ad.NetInvMgmtBacklogEnv,
+    "NetInvMgmtLostSales-v0": ad.NetInvMgmtLostSalesEnv,
+    "NetInvMgmtCustomBacklog-v0": ad.NetInvMgmtCustomBacklogEnv,
+    "NetInvMgmtCustomLostSales-v0": ad.NetInvMgmtCustomLostSalesEnv,
+}
+REFERENCE_HOST_IDS = tuple(_HOST_CLASSES)
 
 
 def register_env(name: str, creator: Callable) -> None:
@@ -75,15 +82,9 @@ def _net_custom_params(env_config=None, backlog=True):
                               backlog=backlog)
 
 
-def _adapter_to_port(name: str, **_config):
-    raise NotImplementedError(
-        f"the host (Gymnasium) env {name!r} is an envs.adapters class, still to port "
-        "(ROADMAP.md A12); make_functional serves its device form")
-
-
 def _register_builtins():
-    for name in REFERENCE_HOST_IDS:
-        register_env(name, partial(_adapter_to_port, name))
+    for name, cls in _HOST_CLASSES.items():
+        register_env(name, cls)
     register_functional("Newsvendor-v0", nv.ENV, nv.default_params)
     register_functional("InvManagementBacklog-v0", im.ENV,
                         partial(im.default_params, backlog=True))

@@ -3,7 +3,8 @@
 
 The names the JAX package's ``vector/__init__.py`` exports are exported here
 too (``from or_gym_inventory_torch.vector import evaluate_episodes_seeded``),
-each module imported at the first use of one of its names.
+and ``gym_vector.BatchedGymVectorEnv``, each module imported at the first use
+of one of its names.
 """
 
 import importlib
@@ -14,6 +15,7 @@ _EXPORTS = {
     "evaluate_episodes_seeded": "vecenv", "evaluate_episodes_seeded_stateful": "vecenv",
     "Trajectory": "vecenv",
     "policy_episode_returns": "fast_episodes", "random_episode_returns": "fast_episodes",
+    "BatchedGymVectorEnv": "gym_vector",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -12,7 +12,8 @@ package's and SciPy.
   points a mu band up to 16,000, and equal to JAX's wherever JAX's equals
   SciPy.
 - The host forms equal JAX's host forms on JAX's own ``envs.adapters`` envs,
-  action for action over 10 periods; the device forms equal JAX's device
+  and on the port's ``envs.adapters`` envs, action for action over 10
+  periods; the device forms equal JAX's device
   forms on the same obs exactly, and their own host forms as
   tests/test_heuristics.py holds JAX's (Newsvendor within one unit: the
   host computes in float64, the device in f32).
@@ -31,6 +32,7 @@ import torch
 from scipy import stats
 
 from or_gym_inventory_torch.agents import heuristics as TH
+from or_gym_inventory_torch.envs import adapters as tad
 from or_gym_inventory_torch.envs import inv_management as tim
 from or_gym_inventory_torch.envs import net_inv_management as tnet
 from or_gym_inventory_torch.envs import newsvendor as tnv
@@ -299,8 +301,8 @@ def _net_params():
 
 
 def _host_episode(make_env, jagent, tagent, seed, periods=10):
-    """Both host forms on one of JAX's adapter envs, stepped on JAX's
-    actions: (obs list, port actions, JAX actions)."""
+    """Both host forms on one adapter env (JAX's or the port's), stepped on
+    JAX's actions: (obs list, port actions, JAX actions)."""
     env = make_env()
     obs, _ = env.reset(seed=seed)
     rows, got, want = [], [], []
@@ -321,6 +323,20 @@ def test_host_forms_equal_jax(pair):
     make_env = (ad.NewsvendorEnv if pair < len(NV_PAIRS) else
                 ad.InvManagementBacklogEnv if pair < len(NV_PAIRS) + len(IM_PAIRS) else
                 (lambda: ad.NetInvMgmtBacklogEnv(num_periods=10)))
+    for seed in (3, 4):
+        _, got, want = _host_episode(make_env, jagent, tagent, seed)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("pair", range(len(NV_PAIRS) + len(IM_PAIRS) + len(NET_PAIRS)))
+def test_host_forms_equal_jax_on_port_adapters(pair):
+    """The same as ``test_host_forms_equal_jax`` on the port's adapters."""
+    jagent, tagent = (NV_PAIRS + IM_PAIRS + NET_PAIRS)[pair]
+    make_env = (tad.NewsvendorEnv if pair < len(NV_PAIRS) else
+                tad.InvManagementBacklogEnv if pair < len(NV_PAIRS) + len(IM_PAIRS) else
+                (lambda: tad.NetInvMgmtBacklogEnv(num_periods=10)))
     for seed in (3, 4):
         _, got, want = _host_episode(make_env, jagent, tagent, seed)
         for a, b in zip(got, want):

@@ -4,8 +4,10 @@ the JAX package's, and the off-policy agents (``SACAgent``, ``TD3Agent``,
 
 - ``make_functional`` of the eight functional ids gives the port's params
   equal to JAX's, field for field (the NetInvMgmt LostSales ids run
-  ``backlog=True``, QUIRKS.md #1); ``make`` of a reference host id raises
-  NotImplementedError naming ROADMAP A12, of an unknown id KeyError.
+  ``backlog=True``, QUIRKS.md #1); ``make`` of a reference host id builds
+  the port's ``envs.adapters`` class JAX's registry builds, of an unknown
+  id raises KeyError; the NetInvMgmt functional ids agree with their
+  adapters on the backlog quirk (tests/test_registry.py:34).
 - ``make_agent`` builds all seven names with JAX's defaults and each trains
   a few steps; the SB3/RLlib aliases and the two errors behave as
   tests/test_registry.py:45-70 holds JAX's.
@@ -30,6 +32,7 @@ from or_gym_inventory_torch.agents import off_policy as top
 from or_gym_inventory_torch.envs import inv_management as tim
 from or_gym_inventory_torch.envs import net_inv_management as tnet
 from or_gym_inventory_torch.envs import newsvendor as tnv
+from or_gym_inventory_torch.envs import adapters as tadapters
 from or_gym_inventory_torch.envs import registry as treg
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_torch.vector import evaluate_episodes_seeded
@@ -83,9 +86,16 @@ def test_make_functional_covers_jax_ids():
 
 
 def test_make_host_ids_wait_for_adapters():
+    """``make`` builds each reference host id as the port's adapter class
+    of JAX's class's name, which resets and steps (the name is kept from
+    when these ids waited for the adapters and raised)."""
     for name in treg.REFERENCE_HOST_IDS:
-        with pytest.raises(NotImplementedError, match="A12"):
-            treg.make(name)
+        env = treg.make(name)
+        assert type(env) is getattr(tadapters, type(jreg.make(name)).__name__)
+        obs, _ = env.reset(seed=0)
+        assert env.observation_space.contains(obs)
+        assert np.isfinite(env.step(env.action_space.sample())[1])
+    assert treg.make("InvManagementBacklog-v0", periods=7).periods == 7
     with pytest.raises(KeyError, match="Unknown env"):
         treg.make("Nope-v0")
     with pytest.raises(KeyError, match="Unknown env"):
@@ -99,6 +109,17 @@ def test_make_host_ids_wait_for_adapters():
     finally:
         treg._HOST_REGISTRY.pop("Custom-v0")
         treg._FUNC_REGISTRY.pop("CustomNV-v0")
+
+
+def test_net_lost_sales_functional_matches_adapter_quirk():
+    """QUIRKS.md #1 (tests/test_registry.py:34 on the port): the reference's
+    NetInvMgmt LostSales subclasses de facto run backlog=True; the
+    functional ids agree with the adapters the same ids build."""
+    for name in ["NetInvMgmtLostSales-v0", "NetInvMgmtCustomLostSales-v0",
+                 "NetInvMgmtBacklog-v0", "NetInvMgmtCustomBacklog-v0"]:
+        _, params = treg.make_functional(name)
+        assert params.backlog is True, name
+        assert treg.make(name).backlog is True, name
 
 
 NAMES = {   # name -> (class, env id, a small config, steps)
