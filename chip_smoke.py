@@ -107,7 +107,25 @@ launch counter set to 0 just before it and read just after:
   the trained PPO, each mean within 4 combined standard errors of its
   phase-45 mean; ``vector.gym_vector.BatchedGymVectorEnv`` over
   NetInvMgmt's defaults at 4,096 envs, SAME_STEP, for a horizon plus one
-  (both no launch).
+  (both no launch);
+- slice 12, ``parallel/mesh`` and the data-parallel learners on
+  ``torch.distributed`` (phases 48-50, last; each destroys its process
+  group): 48, NCCL at world 1 in this process: the sharded random returns
+  (K2 at 4,194,304 x 16, K8 and K16 at 65,536 x 16) and policy returns (K5,
+  K11, K19 at 65,536 x 16), each equal to the unsharded kernel call on rank
+  0's seed bit for bit, and one data-parallel PPO update (K4, 65,536 x 30)
+  equal to the single-process update on the same rank generator bit for
+  bit, both timed in turns; 49, two ranks spawned on the one card (gloo,
+  collectives on host copies of the CUDA tensors; ``--mesh-rank``): every
+  rank's block of the sharded returns (NetInvMgmt 1,048,576 lanes x 4, the
+  others 65,536 x 4) equal to its unsharded kernel call, two data-parallel
+  PPO kernel updates a family (K4, K10, K18 at 65,536 global envs) with the
+  replicas bit for bit equal after each, one recurrent kernel update (K24,
+  4,096 x 30) and one off-policy kernel iteration each (K27 TD3, K28 SAC,
+  K29 DDPG, 1,024 lanes a rank), and an ``OrbaxCheckpointer`` saved at
+  update 1 of InvManagement and resumed from a fresh state giving update
+  2's parameters bit for bit; 50, ``PPOAgent(mesh=)`` on the two ranks:
+  rank 0 alone writes the checkpoint, a second ``train`` skips on both.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -221,7 +239,10 @@ families' and the recurrent paths' rates and rewards;
 ``offpolicy_main_path``: the slice-7 paths' rates and TD3's reward;
 ``xla_main_path``, ``rppo_xla_main_path``, ``offpolicy_xla_main_path``: the
 xla paths' rates beside the kernel paths' and the agents' training times;
-``bench_main_path``: phases 45-47's rewards, rates and warm-ups), the card's
+``bench_main_path``: phases 45-47's rewards, rates and warm-ups;
+``mesh_main_path``: phases 48-50's update times, walls and the gloo
+collectives' shares; a spawned rank's launches count with this process's),
+the card's
 name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.
 
@@ -4407,6 +4428,485 @@ PPO_PATH_KERNELS = POLICY_KERNELS[:2]   # K6 is held in phase 7, off the path
 IM_PATH_KERNELS = ("episode_returns_im_fused", "rollout_traj_im")
 
 
+# ------------------------------------------------- phases 48-50: the mesh
+
+MESH_FAMILY_LANES = 65_536   # K8/K16 and the policy kernels' lanes, phases 48 and 49
+MESH_EPISODES = 16           # phase 48's episodes a lane
+MESH_RANK_NET_LANES = 1_048_576  # phase 49: NetInvMgmt's global lanes
+MESH_RANK_EPISODES = 4       # phase 49's episodes a lane
+MESH_PPO_ENVS = 65_536       # the data-parallel PPO updates (global envs)
+MESH_RPPO_ENVS = 4_096       # the data-parallel recurrent update (global envs)
+MESH_OFF_LANES = 1_024       # an off-policy iteration's lanes a rank
+MESH_WORLD = 2               # phase 49's ranks on the one card
+MESH_TIMEOUT_S = 600         # every collective's timeout, and the ranks' wall
+MESH_PPO_TURNS = ("mesh", "plain", "plain", "mesh")   # phase 48's timed updates
+MESH_RETURNS = (("episode_returns_fully_fused", "episode_returns_net_policy", "net"),
+                ("episode_returns_im_fused", "episode_returns_im_policy", "im"),
+                ("episode_returns_nv_reset_fused", "episode_returns_nv_policy", "nv"))
+MESH_PPO_KERNELS = (("rollout_traj_net", "net"), ("rollout_traj_im", "im"),
+                    ("rollout_traj_nv", "nv"))
+MESH_OFF_CASES = (("td3", "im", "rollout_traj_im_offpolicy"),
+                  ("sac", "nv", "rollout_traj_nv_offpolicy"),
+                  ("ddpg", "net", "rollout_traj_net_offpolicy"))
+
+
+def mesh_family(fam):
+    """(env, params) of phases 48-50: NetInvMgmt's default graph at 30
+    periods, InvManagement backlog, Newsvendor ENV_CONFIG_EVAL."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    if fam == "net":
+        return net.ENV, net.default_params(num_periods=NUM_STEPS)
+    if fam == "im":
+        return im.ENV, im.default_params(backlog=True)
+    return nv_env(), nv_params()
+
+
+def mesh_ppo_config(num_envs, horizon):
+    from or_gym_inventory_torch.agents import ppo
+    return ppo.PPOConfig(num_envs=num_envs, rollout_steps=horizon, num_minibatches=8,
+                         update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64), rollout="kernel")
+
+
+def mesh_returns(mesh, dev, lanes, episodes, wrappers):
+    """The sharded random and policy returns of every family, each run
+    counted alone (its kernel once, nothing else, no plain version), then
+    this rank's block held against the unsharded kernel call on its rank
+    seed bit for bit, and the mean against the gathered returns; ``lanes``
+    maps (kernel, family) to global lanes, MESH_FAMILY_LANES by default.
+    Returns (launches summed, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import rng
+    from or_gym_inventory_torch.parallel import mesh as pm
+    from or_gym_inventory_torch.vector import fast_episodes
+    total, lines = {name: 0 for name in wrappers}, []
+    for random_k, policy_k, fam in MESH_RETURNS:
+        env, params = mesh_family(fam)
+        obs_dim = int(env.observation_space(params).shape[0])
+        act_dim = int(torch.tensor(env.action_space(params).shape).prod())
+        actor, _ = seeded_actor(obs_dim, act_dim, dev)
+        for kernel, call in (
+                (random_k, lambda g, n: pm.sharded_random_episode_returns(
+                    params, g, n, mesh, episodes_per_lane=episodes)),
+                (policy_k, lambda g, n: pm.sharded_policy_episode_returns(
+                    params, actor, g, n, mesh, episodes_per_lane=episodes))):
+            n_lanes = lanes.get((kernel, fam), MESH_FAMILY_LANES)
+            local = n_lanes // mesh.size
+            reset_counts(wrappers)
+            with no_plain_versions():
+                rets, mean = call(torch.Generator(device=dev).manual_seed(SEED), n_lanes)
+            launches = read_counts(wrappers)
+            moved = {n: c for n, c in launches.items() if c}
+            if moved != {kernel: 1}:
+                raise AssertionError(f"sharded {kernel} launched {moved}, not it once")
+            total = {n: total[n] + launches[n] for n in total}
+            seed = rng.rank_seed(fast_episodes.kernel_seed(
+                torch.Generator(device=dev).manual_seed(SEED)), mesh.rank)
+            if kernel == random_k:
+                want = fast_episodes.random_returns_on_seed(params, seed, local, episodes, dev)
+            else:
+                want = fast_episodes.policy_returns_on_seed(params, actor, seed, local,
+                                                            episodes, device=dev)
+            mine = rets.reshape(mesh.size, -1)[mesh.rank]
+            exact(f"rank {mesh.rank}'s block of sharded {kernel}", mine, want)
+            close(f"sharded {kernel}'s mean", mean.reshape(1),
+                  rets.double().mean().float().reshape(1), 1e-5, 1e-3)
+            lines.append(f"{kernel} sharded at {n_lanes} x {episodes} ({local} lanes a rank): "
+                         f"launched once, rank {mesh.rank}'s block equal to the unsharded "
+                         f"kernel call on its seed {seed} bit for bit, mean {float(mean):.6g}")
+    return total, lines
+
+
+def flat_params(state) -> "torch.Tensor":
+    """Every parameter of a learner's state, one flat f32 tensor."""
+    import torch
+    names = ("params",) if hasattr(state, "params") else (
+        "actor_params", "q_params", "target_actor_params", "target_q_params")
+    return torch.cat([p.detach().reshape(-1).float() for n in names
+                      for p in getattr(state, n).parameters()])
+
+
+def replicas_equal(mesh, state, label):
+    """Raise unless every rank's parameters equal rank 0's bit for bit."""
+    flat = flat_params(state)
+    blocks = mesh.gather(flat[None])
+    for r in range(1, mesh.size):
+        exact(f"{label}: rank {r}'s parameters against rank 0's", blocks[r], blocks[0])
+
+
+def mesh_world1_phase(dev, wrappers, smi):
+    """Phase 48, in this process: NCCL at world 1. The sharded returns of
+    every family (``mesh_returns``) and one data-parallel PPO kernel update
+    (K4, 65,536 x 30) equal to the single-process update on the same rank
+    generator bit for bit, timed in turns (``MESH_PPO_TURNS``, after one
+    untimed single-process update). Returns (launches, lines, summary)."""
+    import copy
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.parallel import initialize_multihost, make_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl", timeout=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh()
+        launches, lines = mesh_returns(
+            mesh, dev, {("episode_returns_fully_fused", "net"): MAIN_LANES}, MESH_EPISODES,
+            wrappers)
+        env, params = mesh_family("net")
+        cfg = mesh_ppo_config(MESH_PPO_ENVS, NUM_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rank_gen = mesh.rank_generator(gen)
+        base = ppo.init_train_state(env, params, cfg, gen, 4, device=dev, env_generator=rank_gen)
+        updates = {"mesh": ppo.make_update_fn(env, params, cfg, 4, device=dev, mesh=mesh),
+                   "plain": ppo.make_update_fn(env, params, cfg, 4, device=dev)}
+
+        def run(kind):
+            state = copy.deepcopy(base)
+            g = torch.Generator(device=dev)
+            g.set_state(rank_gen.get_state())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = updates[kind](state, g)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, flat_params(state), metrics
+
+        run("plain")      # builds cuBLAS's plans; not timed
+        times, got = {"mesh": [], "plain": []}, {}
+        for i, kind in enumerate(MESH_PPO_TURNS):
+            if i == 0:
+                reset_counts(wrappers)
+                with no_plain_versions():
+                    ms, flat, metrics = run(kind)
+                counted = read_counts(wrappers)
+                moved = {n: c for n, c in counted.items() if c}
+                if moved != {"rollout_traj_net": 1}:
+                    raise AssertionError(f"the world-1 PPO update launched {moved}, not K4 once")
+                launches = {n: launches[n] + counted[n] for n in launches}
+            else:
+                ms, flat, metrics = run(kind)
+            times[kind].append(ms)
+            got.setdefault(kind, (flat, metrics))
+        exact("world-1 data-parallel PPO update against the single-process update",
+              got["mesh"][0], got["plain"][0])
+        for k, v in got["plain"][1].items():
+            if float(got["mesh"][1][k]) != float(v):
+                raise AssertionError(f"world-1 PPO metric {k}: {got['mesh'][1][k]} != {v}")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        lines.append(f"data-parallel PPO update at world 1 (K4, {MESH_PPO_ENVS} x {NUM_STEPS}, "
+                     f"64x64, 4 epochs x 8 minibatches) equal to the single-process update on "
+                     f"the same rank generator bit for bit (parameters and metrics); in turns "
+                     f"{' '.join(MESH_PPO_TURNS)}: mesh ms "
+                     f"{', '.join(f'{t:.3f}' for t in times['mesh'])}, single-process ms "
+                     f"{', '.join(f'{t:.3f}' for t in times['plain'])}; medians {med['mesh']:.3f} "
+                     f"against {med['plain']:.3f} ms, NCCL's world-1 overhead "
+                     f"{med['mesh'] - med['plain']:.3f} ms an update on {smi}")
+        summary = {"world1_update_ms": med["mesh"], "single_update_ms": med["plain"],
+                   "world1_overhead_ms": med["mesh"] - med["plain"],
+                   "world1_update_turns_ms": times}
+        return launches, lines, summary
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed_collectives(mesh):
+    """Wrap the mesh's ``sum`` and ``gather`` so that each adds its wall
+    (host copies included) to the returned dict."""
+    spent = {"sum": 0.0, "gather": 0.0}
+    for name in spent:
+        real = getattr(mesh, name)
+
+        def timed(*a, _real=real, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            spent[_name] += time.perf_counter() - t0
+            return out
+        setattr(mesh, name, timed)
+    return spent
+
+
+def mesh_rank_learners(mesh, dev, workdir):
+    """Phase 49's learners on this rank: two PPO kernel updates a family, a
+    checkpoint of InvManagement's at update 1, one recurrent kernel update
+    and one off-policy kernel iteration each; the replicas held equal after
+    each. Returns (lines, the checkpoint's resume check as a callable)."""
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.utils import checkpoint
+    lines, resume = [], None
+    for kernel, fam in MESH_PPO_KERNELS:
+        env, params = mesh_family(fam)
+        horizon = env.horizon(params)
+        cfg = mesh_ppo_config(MESH_PPO_ENVS, horizon)
+        local = MESH_PPO_ENVS // mesh.size
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rank_gen = mesh.rank_generator(gen)
+        state = ppo.init_train_state(env, params, cfg, gen, 2, device=dev, local_envs=local,
+                                     env_generator=rank_gen)
+        update = ppo.make_update_fn(env, params, cfg, 2, device=dev, mesh=mesh)
+        for u in (1, 2):
+            state, metrics = update(state, rank_gen)
+            replicas_equal(mesh, state, f"PPO {kernel} update {u}")
+            if fam == "im" and u == 1:
+                ck = checkpoint.OrbaxCheckpointer(str(workdir / "ckpt"), max_to_keep=2)
+                ck.save(1, ppo_ckpt_tree(state, rank_gen))
+        if fam == "im":
+            ck.wait()
+            want = flat_params(state)
+
+            def resume(env=env, params=params, cfg=cfg, local=local, update=update,
+                       ck=ck, want=want):
+                gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+                rank_gen = mesh.rank_generator(gen)
+                fresh = ppo.init_train_state(env, params, cfg, gen, 2, device=dev,
+                                             local_envs=local, env_generator=rank_gen)
+                tree = ck.restore(template=ppo_ckpt_tree(fresh, rank_gen))
+                state = ppo_from_tree(fresh, rank_gen, tree)
+                state, _ = update(state, rank_gen)
+                exact(f"rank {mesh.rank}: PPO resumed from the update-1 checkpoint against "
+                      "update 2", flat_params(state), want)
+        lines.append(f"PPO {kernel} at {MESH_PPO_ENVS} x {horizon} ({local} envs a rank): 2 "
+                     f"updates, replicas equal bit for bit after each; mean step reward "
+                     f"{float(metrics['mean_step_reward']):.6g}")
+
+    env, params = mesh_family("im")
+    cfg = rppo.RecurrentPPOConfig(num_envs=MESH_RPPO_ENVS, rollout_steps=NUM_STEPS,
+                                  num_minibatches=8, update_epochs=4, rollout="kernel",
+                                  hidden=LSTM_HIDDEN, encoder=LSTM_ENCODER)
+    state, _, metrics = rppo.train(env, params, cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                   MESH_RPPO_ENVS * NUM_STEPS, mesh=mesh)
+    replicas_equal(mesh, state, "recurrent PPO K24 update")
+    lines.append(f"recurrent PPO rollout_traj_im_lstm at {MESH_RPPO_ENVS} x {NUM_STEPS}: one "
+                 f"update, replicas equal bit for bit; v_loss {float(metrics['v_loss'][0]):.6g}")
+
+    for algo, fam, kernel in MESH_OFF_CASES:
+        env, params = mesh_family(fam)
+        horizon = env.horizon(params)
+        lanes = MESH_OFF_LANES * mesh.size
+        cfg = op.OffPolicyConfig(algo=algo, collect="kernel", num_envs=lanes,
+                                 buffer_size=lanes * horizon * 2, batch_size=256, start_steps=0)
+        state, _, metrics = op.train(env, params, cfg,
+                                     torch.Generator(device=dev).manual_seed(SEED),
+                                     lanes * horizon, mesh=mesh)
+        replicas_equal(mesh, state, f"{algo} {kernel} iteration")
+        if state.buffer.filled != MESH_OFF_LANES * horizon:
+            raise AssertionError(f"{algo}: {state.buffer.filled} rows in rank {mesh.rank}'s "
+                                 "buffer slice")
+        lines.append(f"{algo} {kernel} at {lanes} x {horizon} ({MESH_OFF_LANES} lanes a rank): "
+                     f"one iteration of {horizon} gradient steps, replicas equal bit for bit; "
+                     f"mean step reward {float(metrics['mean_step_reward'][0]):.6g}")
+    return lines, resume
+
+
+def ppo_ckpt_tree(state, rank_gen):
+    """A PPO train state and its rank generator as ``OrbaxCheckpointer``'s
+    tree: the replicated parameters, optimizer state and statistics, and
+    this rank's envs, obs, accumulator and generator under ``PerRank``."""
+    from or_gym_inventory_torch.utils import checkpoint
+    return checkpoint.to_tree({
+        "params": state.params, "opt": state.opt_state, "rms": state.rms,
+        "ret_rms": state.ret_rms, "update_idx": state.update_idx,
+        "rank": checkpoint.PerRank({"env_state": state.env_state, "last_obs": state.last_obs,
+                                    "ret_accum": state.ret_accum, "generator": rank_gen})})
+
+
+def ppo_from_tree(template, rank_gen, tree):
+    """``ppo_ckpt_tree``'s inverse onto a fresh state; ``rank_gen`` takes
+    the saved generator state."""
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.utils import checkpoint
+    checkpoint.restore(rank_gen, tree["rank"]["generator"])
+    return ppo.PPOTrainState(
+        params=checkpoint.restore(template.params, tree["params"]),
+        opt_state=checkpoint.restore(template.opt_state, tree["opt"]),
+        rms=checkpoint.restore(template.rms, tree["rms"]),
+        ret_rms=checkpoint.restore(template.ret_rms, tree["ret_rms"]),
+        ret_accum=tree["rank"]["ret_accum"],
+        env_state=checkpoint.restore(template.env_state, tree["rank"]["env_state"]),
+        last_obs=tree["rank"]["last_obs"], update_idx=tree["update_idx"])
+
+
+def mesh_rank_agent(mesh, dev, workdir):
+    """Phase 50 on this rank: ``PPOAgent(mesh=)`` on NetInvMgmt's kernel path
+    (2 updates at 8,192 x 30), then a second agent at the same budget, which
+    must skip on every rank. Returns (lines, saves by this rank, skipped)."""
+    import contextlib
+    import io
+
+    from or_gym_inventory_torch.agents import PPOAgent
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    cfg = mesh_ppo_config(8_192, NUM_STEPS)
+    budget = 2 * cfg.num_envs * NUM_STEPS
+    kw = dict(config=cfg, model_dir=str(workdir / "models"), log_dir=str(workdir / "logs"),
+              mesh=mesh)
+    agent = PPOAgent(net.ENV, net.default_params, **kw)
+    saves = []
+    real_save = agent.save
+    agent.save = lambda *a, **k: saves.append(mesh.rank) or real_save(*a, **k)
+    agent.train({}, budget)
+    if not (workdir / "models" / "PPO.pt").exists():
+        raise AssertionError(f"rank {mesh.rank}: no checkpoint once train returned")
+    replicas_equal(mesh, agent.train_state, "PPOAgent")
+    again = PPOAgent(net.ENV, net.default_params, **kw)
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        again.train({}, budget)
+    skipped = "Loading existing model" in said.getvalue() and again.get_training_time() == 0.0
+    if not skipped:
+        raise AssertionError(f"rank {mesh.rank}: the second train did not skip")
+    return [f"PPOAgent(mesh=) on NetInvMgmt's kernel path, {cfg.num_envs} x {NUM_STEPS}, 2 "
+            f"updates: rank {mesh.rank} saved {len(saves)} time(s), the checkpoint there when "
+            "train returned, a second train skipped"], saves, skipped
+
+
+def mesh_rank_main(rank, world, workdir) -> int:
+    """A rank of phases 49-50 (``python3 chip_smoke.py --mesh-rank <rank>
+    <world> <dir>``): gloo on the one card, a FileStore in ``dir``. Writes
+    its launches (phase 49's counted runs, phase 50's), checks, lines and
+    walls to ``dir/rank<rank>.json``."""
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.parallel import initialize_multihost, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = pathlib.Path(workdir)
+    initialize_multihost(f"file://{workdir / 'store'}", world, rank, backend="gloo",
+                         timeout=MESH_TIMEOUT_S)
+    mesh = make_mesh()
+    dev = mesh.device
+    wrappers = {name: [getattr(ns if "/net_" in source else ek, name)]
+                for name, source, _ in KERNEL_ROWS}
+    wrappers["episode_returns_im"].append(ek.episode_returns_im_random)
+    wrappers["episode_returns_nv"].append(ek.episode_returns_nv_random)
+    spent = _timed_collectives(mesh)
+    mesh.barrier()
+    t0 = time.perf_counter()
+    launches49, lines = mesh_returns(
+        mesh, dev, {(k, "net"): MESH_RANK_NET_LANES for k in MESH_RETURNS[0][:2]},
+        MESH_RANK_EPISODES, wrappers)
+    reset_counts(wrappers)
+    with no_plain_versions():
+        learner_lines, resume = mesh_rank_learners(mesh, dev, workdir)
+    counted = read_counts(wrappers)
+    torch.cuda.synchronize()
+    wall49 = time.perf_counter() - t0
+    launches49 = {n: launches49[n] + counted[n] for n in launches49}
+    resume()
+    lines += learner_lines + [f"rank {rank}: an OrbaxCheckpointer saved at update 1 of PPO "
+                              "rollout_traj_im, restored into a fresh state, gives update 2's "
+                              "parameters bit for bit"]
+    mesh.barrier()
+    t0 = time.perf_counter()
+    reset_counts(wrappers)
+    with no_plain_versions():
+        agent_lines, saves, skipped = mesh_rank_agent(mesh, dev, workdir / "agent")
+    launches50 = read_counts(wrappers)
+    torch.cuda.synchronize()
+    wall50 = time.perf_counter() - t0
+    (workdir / f"rank{rank}.json").write_text(json.dumps({
+        "launches49": launches49, "launches50": launches50, "lines": lines + agent_lines,
+        "wall49_s": wall49, "wall50_s": wall50, "sum_s": spent["sum"],
+        "gather_s": spent["gather"], "saves": saves, "skipped": skipped}))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_ranks_phases(dev, wrappers, smi):
+    """Phases 49-50: ``MESH_WORLD`` ranks of this script on the one card
+    (``mesh_rank_main``), waited for within ``MESH_TIMEOUT_S``; a rank that
+    fails fails the phases, and every rank is stopped. Returns (launches of
+    both phases, lines, summary)."""
+    import os
+    import pathlib
+    import shutil
+
+    import torch
+    root = pathlib.Path(__file__).resolve().parent
+    workdir = root / "build" / "chip_smoke_mesh"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=f"{root}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--mesh-rank",
+                               str(r), str(MESH_WORLD), str(workdir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(MESH_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+    if [out["saves"] for out in ranks] != [[0]] + [[]] * (MESH_WORLD - 1) or \
+            not all(out["skipped"] for out in ranks):
+        raise AssertionError(f"PPOAgent(mesh=): saves {[o['saves'] for o in ranks]}, skipped "
+                             f"{[o['skipped'] for o in ranks]}")
+    launches49 = {n: sum(o["launches49"][n] for o in ranks) for n in wrappers}
+    launches50 = {n: sum(o["launches50"][n] for o in ranks) for n in wrappers}
+    for name, kern in [("K4", "rollout_traj_net"), ("K10", "rollout_traj_im"),
+                       ("K18", "rollout_traj_nv"), ("K24", "rollout_traj_im_lstm")] + \
+            [(k, k) for _, _, k in MESH_OFF_CASES] + \
+            [(k, k) for row in MESH_RETURNS for k in row[:2]]:
+        if launches49[kern] == 0:
+            raise AssertionError(f"phase 49 launched no {name}")
+    if {n: c for n, c in launches50.items() if c} != {"rollout_traj_net": 2 * MESH_WORLD}:
+        raise AssertionError(f"phase 50 launched {launches50}, not K4 twice a rank")
+    wall49 = max(o["wall49_s"] for o in ranks)
+    lines = [line for o in ranks for line in o["lines"]]
+    shares = {f"rank{r}": {"gather": o["gather_s"] / o["wall49_s"],
+                           "all_reduce": o["sum_s"] / o["wall49_s"]}
+              for r, o in enumerate(ranks)}
+    summary = {"phase49_rank_wall_s": wall49, "phase50_rank_wall_s":
+               max(o["wall50_s"] for o in ranks), "gloo_shares_of_phase49": shares,
+               "gather_s": [o["gather_s"] for o in ranks],
+               "all_reduce_s": [o["sum_s"] for o in ranks]}
+    gathers = ", ".join(f"{o['gather_s']:.3f}" for o in ranks)
+    reduces = ", ".join(f"{o['sum_s']:.3f}" for o in ranks)
+    lines.append(f"gloo on the one card: gather {gathers} s and all_reduce {reduces} s (host "
+                 f"copies included) of the ranks' {wall49:.1f} s phase-49 wall on {smi}")
+    return {n: launches49[n] + launches50[n] for n in wrappers}, lines, summary
+
+
+def mesh_phases(dev, wrappers, smi):
+    """Phases 48-50 (``mesh_world1_phase``, then ``mesh_ranks_phases``),
+    each wall printed. Returns (launches, the mesh_main_path summary)."""
+    t0 = time.perf_counter()
+    launches48, lines, summary = mesh_world1_phase(dev, wrappers, smi)
+    for line in lines:
+        print(f"[48 mesh world 1] {line}", flush=True)
+    wall48 = time.perf_counter() - t0
+    print(f"[48 mesh world 1] launches {launches48}; {wall48:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches49, lines, rank_summary = mesh_ranks_phases(dev, wrappers, smi)
+    for line in lines:
+        print(f"[49-50 mesh ranks] {line}", flush=True)
+    wall49 = time.perf_counter() - t0
+    print(f"[49-50 mesh ranks] launches {launches49}; {wall49:.1f} s (two processes, their "
+          "start included)", flush=True)
+    summary.update(rank_summary, phase48_s=wall48, phases49_50_s=wall49)
+    return {n: launches48[n] + launches49[n] for n in wrappers}, summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -5260,6 +5760,9 @@ def main() -> int:
     launches_bench, bench_summary = bench_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_bench[name] for name in wrappers}
 
+    launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
+    launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
+
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         (kt, pt), (b_ms, b_by) = times[name], work[name]
@@ -5287,6 +5790,7 @@ def main() -> int:
     print(json.dumps({"rppo_xla_main_path": rppo_summary}))
     print(json.dumps({"offpolicy_xla_main_path": off_xla_summary}))
     print(json.dumps({"bench_main_path": bench_summary}))
+    print(json.dumps({"mesh_main_path": mesh_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -5294,4 +5798,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -14,10 +14,13 @@ the host protocol for single-env evaluation.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from or_gym_inventory_torch.core.device import resolve_device
 
 
 def write_ckpt_meta(ckpt_path: str, trained_timesteps: int) -> None:
@@ -37,6 +40,27 @@ def ckpt_trained_timesteps(ckpt_path: str) -> int:
             return int(json.load(f).get("trained_timesteps", 0))
     except (OSError, ValueError):
         return 0
+
+
+def checkpoint_budget(ckpt_path: str, mesh=None) -> Optional[int]:
+    """The budget recorded beside the checkpoint at ``ckpt_path``, None
+    when there is no checkpoint. Under a ``mesh`` every rank gets rank 0's
+    reading, so the skip-retrain decision is the same on every rank (one
+    rank training while another skips would block in a collective)."""
+    found = ckpt_trained_timesteps(ckpt_path) if os.path.exists(ckpt_path) else None
+    return found if mesh is None else mesh.broadcast_object(found)
+
+
+def training_device(device=None, mesh=None) -> torch.device:
+    """An agent's training device: ``device``, else the mesh's, else the
+    card (``core.device.resolve_device``)."""
+    return resolve_device(device if device is not None or mesh is None else mesh.device)
+
+
+def writes_files(mesh=None) -> bool:
+    """Whether this process writes the agent's checkpoint and logs: rank 0
+    of a mesh, or the process itself without one."""
+    return mesh is None or mesh.rank == 0
 
 
 class BaseAgent:

@@ -1,8 +1,9 @@
 """Off-policy actor-learners, SAC, TD3 and DDPG, on a replay buffer on the
 device, and their agents.
 
-Port of ``or_gym_inventory_tpu/agents/off_policy.py`` without the mesh, on
-all three families, on both collection paths:
+Port of ``or_gym_inventory_tpu/agents/off_policy.py`` on all three
+families, on both collection paths, on one device or data-parallel over a
+``parallel.Mesh``:
 
 - ``collect="xla"`` (the default): each iteration takes one fused
   policy+env step of every env through ``vector.vecenv`` (``batch_step``,
@@ -45,8 +46,15 @@ Where the port differs in form:
   (``off_policy.py:599-606``).
 - JAX's ``num_envs % 1024`` check and its TPU-backend check were tile and
   platform constraints: the CUDA kernels mask the batch tail.
-- The data-parallel path (``mesh=``, ``axis_name``) is still to port
-  (ROADMAP.md A14); it raises NotImplementedError.
+- With ``mesh=`` (JAX :678-790) each rank holds ``num_envs / world`` envs,
+  its own n-step window and its own slice of the replay buffer
+  (``buffer_size * local // num_envs`` rows); each samples its own
+  ``batch_size`` minibatch, and the critic, actor and temperature gradients
+  are averaged over the ranks, so the replicated networks stay equal. The
+  warmup tests count the global ``num_envs``; the obs statistics sum over
+  the ranks and ``mean_step_reward`` is averaged. The rank generator that
+  ``train`` forks draws each rank's env steps, kernel seeds, minibatches and
+  normals.
 """
 
 from __future__ import annotations
@@ -63,19 +71,17 @@ import torch
 from torch import nn
 
 from or_gym_inventory_torch.agents import networks
-from or_gym_inventory_torch.agents.base import (BaseAgent, ckpt_trained_timesteps,
-                                                write_ckpt_meta)
-from or_gym_inventory_torch.agents.ppo import Optimizer, OptState, PPOConfig, RunningMeanStd
+from or_gym_inventory_torch.agents.base import (BaseAgent, checkpoint_budget,
+                                                ckpt_trained_timesteps, training_device,
+                                                write_ckpt_meta, writes_files)
+from or_gym_inventory_torch.agents.ppo import (Optimizer, OptState, PPOConfig, RunningMeanStd,
+                                               _mean_over)
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management, net_inv_management, newsvendor
 from or_gym_inventory_torch.envs.base import Environment
 from or_gym_inventory_torch.ops import episode_kernels, net_step
 from or_gym_inventory_torch.utils import checkpoint
 from or_gym_inventory_torch.vector import vecenv
-
-_MESH = ("data-parallel off-policy training over a mesh is still to port "
-         "(ROADMAP.md A14, torch.distributed)")
-
 
 @dataclasses.dataclass(frozen=True)
 class OffPolicyConfig:
@@ -291,16 +297,16 @@ def _polyak(target: nn.Module, source: nn.Module, tau: float):
 
 
 def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
-                   axis_name: Optional[str] = None, local_envs: Optional[int] = None,
-                   device=None):
+                   mesh=None, local_envs: Optional[int] = None, device=None):
     """Build ``(init, update, eval_policy)`` for the configured algorithm and
     collection path (JAX make_offpolicy):
 
-    - ``init(generator) -> OffPolicyState`` initialises the actor and the
-      critics from ``generator`` (on its device), fresh optimizer states,
-      unit statistics, an empty buffer (on the kernel path the capacity
-      rounded down to whole collection chunks), ``num_envs`` reset envs and
-      a zero n-step window;
+    - ``init(generator, env_generator=None) -> OffPolicyState`` initialises
+      the actor and the critics from ``generator`` (on its device), fresh
+      optimizer states, unit statistics, an empty buffer (on the kernel path
+      the capacity rounded down to whole collection chunks), ``local_envs``
+      (by default ``num_envs``) envs reset from ``env_generator`` (by
+      default ``generator``) and a zero n-step window;
     - with ``collect="xla"``, ``update(state, generator) -> (state,
       metrics)`` runs one step-interleaved iteration;
       ``update.iterate(state, generator, a_z, a_u, idx, z)`` is the same
@@ -318,19 +324,20 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
       squashed mean, rescaled to the action box (int-cast for integer
       actions).
 
-    A mesh (``axis_name``, ``local_envs``) raises NotImplementedError."""
+    With a ``mesh`` the update is one rank's part of the data-parallel
+    iteration (the module's docstring): ``local_envs`` envs (by default
+    ``num_envs / world``) and a buffer of ``buffer_size * local_envs //
+    num_envs`` rows."""
     if cfg.n_step < 1:
         raise ValueError(f"n_step must be >= 1, got {cfg.n_step}")
     if cfg.collect not in ("xla", "kernel"):
         raise ValueError(f"collect must be 'xla' or 'kernel', got {cfg.collect!r}")
-    if axis_name is not None or local_envs is not None:
-        raise NotImplementedError(_MESH)
     if cfg.algo not in ("sac", "td3", "ddpg"):
         raise ValueError(f"algo must be 'sac', 'td3' or 'ddpg', got {cfg.algo!r}")
     dev = resolve_device(device)
     fam = getattr(env, "name", None)
-    n_local = cfg.num_envs
-    buffer_local = cfg.buffer_size
+    n_local = local_envs or (cfg.num_envs if mesh is None else cfg.num_envs // mesh.size)
+    buffer_local = cfg.buffer_size * n_local // cfg.num_envs
     kernel_mode = cfg.collect == "kernel"
     if kernel_mode:
         if fam not in ("inv_management", "newsvendor", "net_inv_management"):
@@ -343,13 +350,13 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
                 f"collect='kernel' runs episode-aligned collection: n_step ({cfg.n_step}) "
                 f"cannot exceed the env horizon ({horizon})")
         chunk = n_local * horizon
-        if cfg.buffer_size < chunk:
+        if buffer_local < chunk:
             raise ValueError(
                 "collect='kernel' inserts num_envs * horizon transitions per iteration "
-                f"({n_local} * {horizon} = {chunk}); buffer_size must hold at least one "
-                f"collection chunk (got {cfg.buffer_size})")
+                f"({n_local} * {horizon} = {chunk} a rank); buffer_size must hold at least "
+                f"one collection chunk (got {buffer_local} a rank)")
         # the capacity rounded down to whole chunks keeps insert_chunk's pointer aligned
-        buffer_local = (cfg.buffer_size // chunk) * chunk
+        buffer_local = (buffer_local // chunk) * chunk
 
     space = env.action_space(env_params)
     obs_dim = int(env.observation_space(env_params).shape[0])
@@ -369,13 +376,15 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
     def norm(rms, x):
         return rms.normalize(x) if cfg.normalize_obs else x.to(torch.float32)
 
-    def init(generator: torch.Generator) -> OffPolicyState:
+    def init(generator: torch.Generator,
+             env_generator: Optional[torch.Generator] = None) -> OffPolicyState:
         with torch.device(generator.device):
             actor = _Actor(obs_dim, act_dim, cfg.pi_arch, stochastic, generator)
             twin_q = TwinQ(obs_dim, act_dim, cfg.q_arch, cfg.algo == "ddpg", generator)
         actor, twin_q = actor.to(dev), twin_q.to(dev)
         log_alpha = torch.zeros((), dtype=torch.float32, device=dev)
-        env_state, ts0 = vecenv.batch_reset(env, env_params, generator, n_local, device=dev)
+        env_state, ts0 = vecenv.batch_reset(env, env_params, env_generator or generator,
+                                            n_local, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
         n = cfg.n_step
         window = dict(obs=torch.zeros((n, n_local, obs_dim), **f32),
@@ -398,13 +407,17 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         raw = mean + torch.exp(torch.clamp(log_std, -10.0, 2.0)) * z
         return raw, networks.gaussian_log_prob(raw, mean, log_std)
 
+    def mean_grads(grads):
+        """The gradients averaged over the mesh's ranks."""
+        return list(grads) if mesh is None else mesh.mean(grads)
+
     def one_update(state: OffPolicyState, idx, z_next, z_pi, uidx: int):
         """One critic/actor/alpha gradient step (JAX _make_one_update's
         one_update) on the buffer rows ``idx`` (batch,); ``z_next`` and
         ``z_pi`` (batch, act_dim) are the standard normals of SAC's target
         and actor samples (TD3's target smoothing takes ``z_next``).
-        ``uidx`` gates TD3's delayed actor update. Updates ``state`` in
-        place."""
+        ``uidx`` gates TD3's delayed actor update. Each gradient is
+        averaged over the mesh's ranks. Updates ``state`` in place."""
         actor, twin_q = state.actor_params, state.q_params
         mb = state.buffer.gather(idx)
         nob, nnext = norm(state.rms, mb["obs"]), norm(state.rms, mb["next_obs"])
@@ -429,7 +442,8 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         q_loss = ((q1 - target) ** 2).mean()
         if cfg.algo != "ddpg":
             q_loss = q_loss + ((q2 - target) ** 2).mean()
-        state.q_opt = opt.step(q_params, torch.autograd.grad(q_loss, q_params), state.q_opt)
+        state.q_opt = opt.step(q_params, mean_grads(torch.autograd.grad(q_loss, q_params)),
+                               state.q_opt)
 
         a_params = list(actor.parameters())
         do_actor = cfg.algo != "td3" or uidx % cfg.policy_delay == 0
@@ -445,7 +459,7 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
             qscale = torch.abs(q1).mean().detach() + 1.0
             a_loss = -q1.mean() + cfg.pretanh_penalty * qscale * (sat ** 2).mean()
         if do_actor:
-            a_grads = torch.autograd.grad(a_loss, a_params)
+            a_grads = mean_grads(torch.autograd.grad(a_loss, a_params))
         else:   # TD3 between delayed updates: Adam still steps on zero gradients
             a_grads = [torch.zeros_like(p) for p in a_params]
         state.actor_opt = opt.step(a_params, a_grads, state.actor_opt)
@@ -453,7 +467,7 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         if stochastic:
             la = state.log_alpha.detach().requires_grad_(True)
             al_loss = -(torch.exp(la) * (logp.detach() + target_entropy)).mean()
-            la_grad, = torch.autograd.grad(al_loss, [la])
+            la_grad, = mean_grads(torch.autograd.grad(al_loss, [la]))
             log_alpha = state.log_alpha.detach().clone()
             state.alpha_opt = opt.step([log_alpha], [la_grad], state.alpha_opt)
             state.log_alpha = log_alpha
@@ -503,12 +517,12 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
             getattr(state.buffer, ins)(window["obs"][0], window["action"][0], reward_n,
                                        next_obs_n, done_n, disc_n)
         if cfg.normalize_obs:
-            state.rms = state.rms.update(state.last_obs)
+            state.rms = state.rms.update(state.last_obs, mesh)
         for u in range(len(idx)):
             one_update(state, idx[u], z[u, 0], z[u, 1], state.step_idx)
         state.env_state, state.last_obs, state.window = env_state, next_obs, window
         state.step_idx += 1
-        return state, dict(mean_step_reward=torch.mean(ts.reward),
+        return state, dict(mean_step_reward=_mean_over(mesh, torch.mean(ts.reward)),
                            alpha=torch.exp(state.log_alpha))
 
     def update(state: OffPolicyState, generator: torch.Generator):
@@ -569,12 +583,12 @@ def make_offpolicy(env: Environment, env_params, cfg: OffPolicyConfig,
         state.buffer.insert_chunk(*episode_transitions(obs_all, a_norm, reward, cfg.n_step,
                                                        cfg.gamma))
         if cfg.normalize_obs:
-            state.rms = state.rms.update(obs_all[:T_h].reshape(-1, obs_all.shape[-1]))
+            state.rms = state.rms.update(obs_all[:T_h].reshape(-1, obs_all.shape[-1]), mesh)
         n_upd = len(idx)
         for u in range(n_upd):
             one_update(state, idx[u], z[u, 0], z[u, 1], state.step_idx * n_upd + u)
         state.step_idx += 1
-        return state, dict(mean_step_reward=torch.mean(reward),
+        return state, dict(mean_step_reward=_mean_over(mesh, torch.mean(reward)),
                            alpha=torch.exp(state.log_alpha))
 
     def update_kernel(state: OffPolicyState, generator: torch.Generator,
@@ -624,13 +638,23 @@ def train(env: Environment, env_params, cfg: OffPolicyConfig, generator: torch.G
     device and are averaged over chunks of ``log_every`` iterations (each
     chunk within one phase). Returns (state, eval_policy, metrics as a dict
     of numpy arrays with mean_step_reward, alpha and timesteps).
-    ``progress(metrics, state)`` is called after each chunk. A ``mesh``
-    raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    ``progress(metrics, state)`` is called after each chunk. With a ``mesh``
+    every rank calls ``train`` alike, as ``agents.ppo.train`` documents:
+    ``num_envs`` and ``buffer_size`` are asserted to divide by the world
+    size, each rank steps ``num_envs / world`` envs into its own buffer
+    slice on the mesh's device unless ``device`` is given, and the
+    iteration count and the warmup count the global batch."""
     kernel_mode = cfg.collect == "kernel"
-    init, update, eval_policy = make_offpolicy(env, env_params, cfg, device=device)
-    state = init(generator)
+    local, model_generator = None, generator
+    if mesh is not None:
+        assert cfg.num_envs % mesh.size == 0, (cfg.num_envs, mesh.size)
+        assert cfg.buffer_size % mesh.size == 0, (cfg.buffer_size, mesh.size)
+        local = cfg.num_envs // mesh.size
+        generator = mesh.rank_generator(generator)
+        device = training_device(device, mesh)
+    init, update, eval_policy = make_offpolicy(env, env_params, cfg, mesh=mesh,
+                                               local_envs=local, device=device)
+    state = init(model_generator, generator)
     steps_per_iter = cfg.num_envs * (env.horizon(env_params) if kernel_mode else 1)
     n_iters = max(1, total_timesteps // steps_per_iter)
     warm_iters = min(n_iters, -(-cfg.start_steps // steps_per_iter)) \
@@ -672,10 +696,11 @@ class OffPolicyAgent(BaseAgent):
     training chunks a deterministic ``vecenv.evaluate_episodes`` of
     ``eval_episodes`` envs, the best actor and statistics kept and restored
     after training (benchmark_InvManagementBacklogEnv.py:275-281, 303-311).
-    ``device`` is where training runs (None: the card); ``get_action``
-    answers from a CPU copy of the actor, since one observation at a time
-    is bound by latency. A ``mesh`` raises NotImplementedError in ``train``
-    (ROADMAP.md A14)."""
+    ``device`` is where training runs (None: the card, or the mesh's
+    device); ``get_action`` answers from a CPU copy of the actor, since one
+    observation at a time is bound by latency. With a ``mesh`` every rank
+    trains alike; rank 0 alone writes the checkpoint and the log, and its
+    checkpoint decides the skip-retrain shortcut, as in ``PPOAgent``."""
 
     def __init__(self, env: Environment, params_factory, algo: str = "sac",
                  name: Optional[str] = None, config: Optional[OffPolicyConfig] = None,
@@ -724,7 +749,7 @@ class OffPolicyAgent(BaseAgent):
     def load(self, path: str):
         """A state holding the checkpoint's actor and obs statistics (and a
         template's one env, critics and buffer), on the agent's device."""
-        dev = resolve_device(self.device)
+        dev = training_device(self.device, self.mesh)
         payload = checkpoint.load_pytree(path, map_location=dev)
         if self.env_params is None:
             self.env_params = self.params_factory()
@@ -771,8 +796,8 @@ class OffPolicyAgent(BaseAgent):
     def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
         self.env_params = self.params_factory(env_config=env_config or None)
         ckpt = self._ckpt_path(save_path_prefix)
-        if not self.force_retrain and os.path.exists(ckpt):
-            trained = ckpt_trained_timesteps(ckpt)
+        trained = None if self.force_retrain else checkpoint_budget(ckpt, self.mesh)
+        if trained is not None:
             if trained >= total_timesteps:
                 print(f"Loading existing model for {self.name} from {ckpt} "
                       f"(trained {trained} >= {total_timesteps})")
@@ -783,20 +808,23 @@ class OffPolicyAgent(BaseAgent):
                   "retraining")
         print(f"Training {self.name} ({self.config.algo}) for {total_timesteps} steps...")
         start = time.time()
-        self.state, metrics = self._fit(total_timesteps, resolve_device(self.device))
+        self.state, metrics = self._fit(total_timesteps, training_device(self.device, self.mesh))
         self._eval = None
         self.training_log = metrics
         self.training_time = time.time() - start
         self.trained_timesteps = total_timesteps
-        self.save(ckpt)
-        if metrics:
-            os.makedirs(self.log_dir, exist_ok=True)
-            with open(os.path.join(self.log_dir, f"{self.name}_train_log.csv"), "w",
-                      newline="") as f:
-                w = csv.DictWriter(f, fieldnames=list(metrics.keys()))
-                w.writeheader()
-                for i in range(len(metrics["timesteps"])):
-                    w.writerow({k: metrics[k][i] for k in metrics})
+        if writes_files(self.mesh):
+            self.save(ckpt)
+            if metrics:
+                os.makedirs(self.log_dir, exist_ok=True)
+                with open(os.path.join(self.log_dir, f"{self.name}_train_log.csv"), "w",
+                          newline="") as f:
+                    w = csv.DictWriter(f, fieldnames=list(metrics.keys()))
+                    w.writeheader()
+                    for i in range(len(metrics["timesteps"])):
+                        w.writerow({k: metrics[k][i] for k in metrics})
+        if self.mesh is not None:
+            self.mesh.barrier()
         print(f"Training for {self.name} finished in {self.training_time:.2f}s "
               f"({total_timesteps / max(self.training_time, 1e-9):,.0f} trained-steps/s)")
 
@@ -821,7 +849,8 @@ class OffPolicyAgent(BaseAgent):
         return np.asarray(policy(ps, obs, None, 0)[0]).astype(env.action_space.dtype)
 
     def device_policy(self, env, params):
-        _, _, eval_policy = self._xla(resolve_device(self.device), self.env_params or params)
+        _, _, eval_policy = self._xla(training_device(self.device, self.mesh),
+                                      self.env_params or params)
         ps = (self.state.actor_params, self.state.rms)
         return lambda _s, obs, generator, t: eval_policy(ps, obs, generator, t)
 

@@ -1,7 +1,8 @@
 """PPO: the fused policy+env update and the trajectory-kernel update.
 
-Port of ``or_gym_inventory_tpu/agents/ppo.py`` without a mesh, on all three
-families. Two ways to make an update's experience:
+Port of ``or_gym_inventory_tpu/agents/ppo.py`` on all three families, on
+one device or data-parallel over a ``parallel.Mesh``. Two ways to make an
+update's experience:
 
 - ``rollout="xla"`` (the default; JAX :589-673): ``rollout_steps`` periods
   of the policy and ``vecenv.batch_step`` / ``vecenv.auto_reset`` in a
@@ -28,8 +29,15 @@ Where the port differs in form:
 - ``jax.random`` keys become one ``torch.Generator``: it draws the
   policy's noise, the envs' demand and resets, the kernel seed of every
   update and the minibatch permutations.
-- The mesh is still to port (ROADMAP.md A14); it raises
-  NotImplementedError.
+- With ``mesh=`` (JAX :678-765) every rank runs ``num_envs / world`` envs
+  and the same update on them: the parameters start from the replicated
+  generator and stay equal on every rank; the minibatch gradient is averaged
+  over the ranks before the optimizer step (so the clip acts on the mean);
+  ``RunningMeanStd`` sums its counts and moments over the ranks; the
+  advantage statistics stay the shard's own; ``mean_step_reward`` is
+  averaged. The envs' draws, the kernel seeds and the permutations come
+  from the rank generator that ``train`` forks from the replicated one
+  (``Mesh.rank_generator``), where JAX folded the axis index into its key.
 - The JAX package's ``num_envs % 1024`` check was a TPU tile constraint;
   the CUDA kernels mask the batch tail, so any ``num_envs`` works.
 - ``updates_per_call`` chunked updates into one device program; here every
@@ -55,8 +63,9 @@ import numpy as np
 import torch
 
 from or_gym_inventory_torch.agents import networks
-from or_gym_inventory_torch.agents.base import (BaseAgent, ckpt_trained_timesteps,
-                                                write_ckpt_meta)
+from or_gym_inventory_torch.agents.base import (BaseAgent, checkpoint_budget,
+                                                ckpt_trained_timesteps, training_device,
+                                                write_ckpt_meta, writes_files)
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management, net_inv_management, newsvendor
 from or_gym_inventory_torch.envs.base import Environment
@@ -125,12 +134,18 @@ class RunningMeanStd:
         return cls(mean=torch.zeros((dim,), **f32), var=torch.ones((dim,), **f32),
                    count=torch.tensor(1e-4, **f32))
 
-    def update(self, batch: torch.Tensor) -> "RunningMeanStd":
-        """Welford batch update over every row of ``batch`` (..., dim)."""
+    def update(self, batch: torch.Tensor, mesh=None) -> "RunningMeanStd":
+        """Welford batch update over every row of ``batch`` (..., dim); with
+        a ``mesh`` the row count, sums and sums of squares are summed over
+        the ranks first, so every rank holds the same statistics."""
         x = batch.reshape(-1, batch.shape[-1]).to(torch.float32)
         n = torch.tensor(float(x.shape[0]), dtype=torch.float32, device=x.device)
-        b_mean = torch.sum(x, dim=0) / n
-        b_var = torch.clamp_min(torch.sum(x * x, dim=0) / n - b_mean ** 2, 0.0)
+        s = torch.sum(x, dim=0)
+        ss = torch.sum(x * x, dim=0)
+        if mesh is not None:
+            n, s, ss = mesh.sum([n, s, ss])
+        b_mean = s / n
+        b_var = torch.clamp_min(ss / n - b_mean ** 2, 0.0)
         delta = b_mean - self.mean
         tot = self.count + n
         new_mean = self.mean + delta * n / tot
@@ -274,16 +289,19 @@ class Optimizer:
 
 def init_train_state(env: Environment, env_params, cfg: PPOConfig,
                      generator: torch.Generator, total_updates: int,
-                     device=None) -> PPOTrainState:
+                     device=None, local_envs: Optional[int] = None,
+                     env_generator: Optional[torch.Generator] = None) -> PPOTrainState:
     """A fresh model initialised from ``generator``, a fresh optimizer
-    state, unit running statistics and ``num_envs`` reset envs on
-    ``device``."""
+    state, unit running statistics and ``local_envs`` (by default
+    ``num_envs``) envs on ``device``, reset from ``env_generator`` (by
+    default ``generator``; a rank generator under a mesh)."""
     dev = resolve_device(device)
     model = _make_model(env, env_params, cfg, generator).to(dev)
     obs_dim = int(env.observation_space(env_params).shape[0])
-    n = cfg.num_envs
+    n = local_envs or cfg.num_envs
     opt_state = Optimizer(cfg, total_updates).init(list(model.parameters()))
-    env_state, ts0 = vecenv.batch_reset(env, env_params, generator, n, device=dev)
+    env_state, ts0 = vecenv.batch_reset(env, env_params, env_generator or generator, n,
+                                        device=dev)
     return PPOTrainState(
         params=model, opt_state=opt_state,
         rms=RunningMeanStd.create(obs_dim, dev),
@@ -328,13 +346,14 @@ def _chunk_count(cfg: PPOConfig, mb_samples: int, device_type: str = "cpu") -> i
 
 
 def sgd_phase(cfg: PPOConfig, opt: Optimizer, state: PPOTrainState, batch: dict,
-              n_envs: int, generator: torch.Generator):
+              n_envs: int, generator: torch.Generator, mesh=None):
     """Epochs of minibatched clipped-surrogate SGD over a time-major batch
     dict (T, n_envs, ...) with keys obs/raw/logp/value/adv/ret, the obs
     normalised already (the kernel path stores them once per update). The
-    forward is ``apply_actor_critic`` at ``cfg.compute_dtype``. Updates
-    ``state.params`` and ``state.opt_state`` in place; returns the
-    (pg_loss, v_loss, entropy) means over every minibatch."""
+    forward is ``apply_actor_critic`` at ``cfg.compute_dtype``; with a
+    ``mesh`` each minibatch gradient is averaged over the ranks before the
+    step. Updates ``state.params`` and ``state.opt_state`` in place;
+    returns the (pg_loss, v_loss, entropy) means over every minibatch."""
     model = state.params
     params = list(model.parameters())
     T_steps = batch["obs"].shape[0]
@@ -405,6 +424,8 @@ def sgd_phase(cfg: PPOConfig, opt: Optimizer, state: PPOTrainState, batch: dict,
             mbs = fixed
         for i in range(nm):
             grads, aux = minibatch_grads({k: v[i] for k, v in mbs.items()})
+            if mesh is not None:
+                grads = mesh.mean(grads)
             state.opt_state = opt.step(params, grads, state.opt_state)
             auxs.append(aux)
     return torch.stack(auxs).mean(dim=0)
@@ -431,7 +452,8 @@ def env_action_fn(env: Environment, env_params, device):
     return to_env_action
 
 
-def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimizer, dev):
+def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimizer, dev,
+                     mesh=None):
     """The fused policy+env update of JAX ``ppo.py:589-673``."""
     to_env_action = env_action_fn(env, env_params, dev)
 
@@ -469,7 +491,7 @@ def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimize
         reward_raw, done, values = tr["reward"], tr["done"], tr["value"]
         if cfg.normalize_reward:
             # scale the rewards by the running std of discounted returns
-            ret_rms = state.ret_rms.update(tr["ret_accum"].reshape(-1, 1))
+            ret_rms = state.ret_rms.update(tr["ret_accum"].reshape(-1, 1), mesh)
             scale = torch.rsqrt(ret_rms.var[0] + 1e-8)
             reward = torch.clamp(reward_raw * scale, -10.0, 10.0)
         else:
@@ -490,9 +512,10 @@ def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimize
         # as JAX's loss normalises each minibatch with them
         batch = dict(obs=norm(tr["obs"].reshape(-1, D)).reshape(T, n_envs, D), raw=tr["raw"],
                      logp=tr["logp"], value=values, adv=advs, ret=advs + values)
-        pg_loss, v_loss, ent = sgd_phase(cfg, opt, state, batch, n_envs, generator)
-        rms = state.rms.update(tr["obs"].reshape(-1, D)) if cfg.normalize_obs else state.rms
-        metrics = dict(mean_step_reward=torch.mean(reward_raw),
+        pg_loss, v_loss, ent = sgd_phase(cfg, opt, state, batch, n_envs, generator, mesh)
+        rms = state.rms.update(tr["obs"].reshape(-1, D), mesh) if cfg.normalize_obs \
+            else state.rms
+        metrics = dict(mean_step_reward=_mean_over(mesh, torch.mean(reward_raw)),
                        episodes=torch.clamp_min(torch.sum(done), 1),
                        pg_loss=pg_loss, v_loss=v_loss, entropy=ent)
         new_state = PPOTrainState(
@@ -504,12 +527,19 @@ def _make_xla_update(env: Environment, env_params, cfg: PPOConfig, opt: Optimize
     return update
 
 
+def _mean_over(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the mesh's ranks (itself without a mesh)."""
+    return x if mesh is None else mesh.mean([x])[0]
+
+
 def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
-                   total_updates: int, device=None):
+                   total_updates: int, device=None, mesh=None):
     """One PPO update ``update(state, generator) -> (state, metrics)``:
     ``cfg.rollout`` picks the fused policy+env rollout ("xla") or the
-    trajectory kernel ("kernel"). Raises ValueError for a config the path
-    refuses, NotImplementedError for a family the kernels do not run."""
+    trajectory kernel ("kernel"). With a ``mesh`` the update is one rank's
+    part of the data-parallel update (the module's docstring). Raises
+    ValueError for a config the path refuses, NotImplementedError for a
+    family the kernels do not run."""
     dev = resolve_device(device)
     if cfg.rollout not in ("xla", "kernel"):
         raise ValueError(f"rollout must be 'xla' or 'kernel', got {cfg.rollout!r}")
@@ -520,7 +550,7 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
                 "compute_dtype is a kernel-rollout option (the xla path computes "
                 "logp_old in the rollout at f32; mixing precisions would skew the "
                 "epoch-0 ratio)")
-        return _make_xla_update(env, env_params, cfg, opt, dev)
+        return _make_xla_update(env, env_params, cfg, opt, dev, mesh)
     family = getattr(env, "name", None)
     if family not in ("net_inv_management", "inv_management", "newsvendor"):
         raise NotImplementedError(
@@ -569,7 +599,7 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
             acc = acc * cfg.gamma + reward_raw[t]
             ret_accs.append(acc)
         if cfg.normalize_reward:
-            ret_rms = state.ret_rms.update(torch.stack(ret_accs).reshape(-1, 1))
+            ret_rms = state.ret_rms.update(torch.stack(ret_accs).reshape(-1, 1), mesh)
             scale = torch.rsqrt(ret_rms.var[0] + 1e-8)
             reward = torch.clamp(reward_raw * scale, -10.0, 10.0)
         else:
@@ -579,7 +609,7 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
         D = obs_all.shape[-1]
         # statistics from the raw obs; the batch stores the obs normalised
         # once, with the pre-update statistics
-        rms = state.rms.update(obs_all[:T].reshape(-1, D)) if cfg.normalize_obs \
+        rms = state.rms.update(obs_all[:T].reshape(-1, D), mesh) if cfg.normalize_obs \
             else state.rms
         norm = state.rms.normalize if cfg.normalize_obs else \
             (lambda x: x.to(torch.float32))
@@ -601,8 +631,9 @@ def make_update_fn(env: Environment, env_params, cfg: PPOConfig,
 
         batch = dict(obs=obs_n.reshape(T + 1, n_envs, D)[:T], raw=raw,
                      logp=logp, value=values, adv=advs, ret=advs + values)
-        pg_loss, v_loss, ent = sgd_phase(cfg, opt, state, batch, n_envs, generator)
-        metrics = dict(mean_step_reward=torch.mean(reward_raw), episodes=n_envs,
+        pg_loss, v_loss, ent = sgd_phase(cfg, opt, state, batch, n_envs, generator, mesh)
+        metrics = dict(mean_step_reward=_mean_over(mesh, torch.mean(reward_raw)),
+                       episodes=n_envs,
                        pg_loss=pg_loss, v_loss=v_loss, entropy=ent)
         new_state = PPOTrainState(
             params=state.params, opt_state=state.opt_state, rms=rms,
@@ -620,16 +651,28 @@ def train(env: Environment, env_params, cfg: PPOConfig, generator: torch.Generat
     arrays with the keys mean_step_reward, episodes, pg_loss, v_loss,
     entropy, update and timesteps). ``generator`` initialises the model and
     drives every update; ``progress(metrics, state)`` is called after each
-    update. A ``mesh`` raises NotImplementedError (ROADMAP.md A14)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is still to port "
-            "(ROADMAP.md A14, torch.distributed)")
-    dev = resolve_device(device)
+    update.
+
+    With a ``mesh`` (``parallel.make_mesh``) every rank calls ``train`` with
+    the same arguments and the same ``generator`` seed: each runs
+    ``num_envs / world`` envs (asserted to divide) on the mesh's device
+    unless ``device`` is given. ``train`` first forks the rank generator
+    (``Mesh.rank_generator``), which resets the envs and drives the
+    updates, then initialises the model from ``generator``; the returned
+    state's parameters are equal on every rank and ``timesteps`` counts the
+    global batch."""
+    dev = training_device(device, mesh)
     total_updates = cfg.num_updates(total_timesteps)
-    update = make_update_fn(env, env_params, cfg, total_updates, device=dev)
-    state = init_train_state(env, env_params, cfg, generator, total_updates,
-                             device=dev)
+    local = None
+    if mesh is not None:
+        assert cfg.num_envs % mesh.size == 0, (cfg.num_envs, mesh.size)
+        local = cfg.num_envs // mesh.size
+        generator, model_generator = mesh.rank_generator(generator), generator
+    else:
+        model_generator = generator
+    update = make_update_fn(env, env_params, cfg, total_updates, device=dev, mesh=mesh)
+    state = init_train_state(env, env_params, cfg, model_generator, total_updates,
+                             device=dev, local_envs=local, env_generator=generator)
     metrics_log = []
     for i in range(total_updates):
         state, metrics = update(state, generator)
@@ -674,9 +717,13 @@ class PPOAgent(BaseAgent):
     updates a deterministic ``vecenv.evaluate_episodes`` of
     ``eval_episodes`` envs, the best parameters kept and restored after
     training (benchmark_InvManagementBacklogEnv.py:275-281, 303-311).
-    ``device`` is where training runs (None: the card); ``get_action``
-    answers from a CPU copy of the policy, since one observation at a time
-    is bound by latency."""
+    ``device`` is where training runs (None: the card, or the mesh's
+    device); ``get_action`` answers from a CPU copy of the policy, since one
+    observation at a time is bound by latency. With a ``mesh`` every rank
+    constructs and trains the agent alike: rank 0 alone writes the
+    checkpoint, its ``.meta.json`` and the training log while the others
+    wait at a barrier, and rank 0's checkpoint decides the skip-retrain
+    shortcut on every rank."""
 
     def __init__(self, env: Environment, params_factory, name: str = "PPO",
                  config: Optional[PPOConfig] = None, model_dir: str = "./models",
@@ -725,7 +772,7 @@ class PPOAgent(BaseAgent):
     def load(self, path: str):
         """A train state of one env holding the checkpoint's parameters and
         obs statistics, on the agent's device."""
-        dev = resolve_device(self.device)
+        dev = training_device(self.device, self.mesh)
         payload = checkpoint.load_pytree(path, map_location=dev)
         if self.env_params is None:
             self.env_params = self.params_factory()
@@ -766,8 +813,8 @@ class PPOAgent(BaseAgent):
     def train(self, env_config: dict, total_timesteps: int, save_path_prefix: str = ""):
         self.env_params = self.params_factory(env_config=env_config or None)
         ckpt = self._ckpt_path(save_path_prefix)
-        if not self.force_retrain and os.path.exists(ckpt):
-            trained = ckpt_trained_timesteps(ckpt)
+        trained = None if self.force_retrain else checkpoint_budget(ckpt, self.mesh)
+        if trained is not None:
             if trained >= total_timesteps:
                 print(f"Loading existing model for {self.name} from {ckpt} "
                       f"(trained {trained} >= {total_timesteps})")
@@ -778,12 +825,21 @@ class PPOAgent(BaseAgent):
                   "retraining")
         print(f"Training {self.name} for {total_timesteps} steps...")
         start = time.time()
-        state, metrics = self._fit(total_timesteps, resolve_device(self.device))
+        state, metrics = self._fit(total_timesteps, training_device(self.device, self.mesh))
         self.train_state = state
         self._eval = None
         self.training_log = metrics
         self.training_time = time.time() - start
         self.trained_timesteps = total_timesteps
+        if writes_files(self.mesh):
+            self._write(ckpt, metrics)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        print(f"Training for {self.name} finished in {self.training_time:.2f}s "
+              f"({total_timesteps / max(self.training_time, 1e-9):,.0f} trained-steps/s)")
+
+    def _write(self, ckpt: str, metrics: dict):
+        """The checkpoint and the training log."""
         self.save(ckpt)
         if metrics:
             os.makedirs(self.log_dir, exist_ok=True)
@@ -793,8 +849,6 @@ class PPOAgent(BaseAgent):
                 w.writeheader()
                 for i in range(len(metrics["update"])):
                     w.writerow({k: metrics[k][i] for k in metrics})
-        print(f"Training for {self.name} finished in {self.training_time:.2f}s "
-              f"({total_timesteps / max(self.training_time, 1e-9):,.0f} trained-steps/s)")
 
     # -- evaluation ------------------------------------------------------
     def _eval_policy(self):

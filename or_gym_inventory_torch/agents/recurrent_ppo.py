@@ -2,8 +2,9 @@
 LSTM trajectory-kernel update, with ``RecurrentPPOAgent`` and
 ``A2CLSTMAgent``.
 
-Port of ``or_gym_inventory_tpu/agents/recurrent_ppo.py`` without a mesh.
-Two ways to make an update's experience:
+Port of ``or_gym_inventory_tpu/agents/recurrent_ppo.py``, on one device or
+data-parallel over a ``parallel.Mesh``. Two ways to make an update's
+experience:
 
 - ``rollout="xla"`` (the default; JAX :186-256), on all three families:
   ``rollout_steps`` periods of the LSTM policy and ``vecenv.batch_step`` /
@@ -34,8 +35,12 @@ Where the port differs in form, as ``agents/ppo.py`` does:
   changes in place; one ``torch.Generator`` replaces the JAX key chain
   (the policy's noise, the envs' draws, kernel seeds and env
   permutations).
-- The mesh is still to port (ROADMAP.md A14); it raises
-  NotImplementedError.
+- With ``mesh=`` (JAX :383-440) the envs, their LSTM carries and
+  ``last_done`` are each rank's own (``num_envs / world`` envs, which must
+  divide into the minibatches), the parameters are replicated, the
+  minibatch gradients and the running statistics' sums are reduced over the
+  ranks and ``mean_step_reward`` is averaged, as in ``agents/ppo.py``; the
+  rank generator that ``train`` forks drives each rank's draws.
 - The JAX package's ``num_envs % 1024`` check was a TPU tile constraint;
   the CUDA kernel masks the batch tail, so any ``num_envs`` works.
 - ``updates_per_call`` chunked updates into one device program; here every
@@ -53,8 +58,10 @@ import numpy as np
 import torch
 
 from or_gym_inventory_torch.agents import networks
+from or_gym_inventory_torch.agents.base import training_device
 from or_gym_inventory_torch.agents.ppo import (Optimizer, OptState, PPOAgent, PPOConfig,
-                                               RunningMeanStd, env_action_fn, gae_advantages)
+                                               RunningMeanStd, _mean_over, env_action_fn,
+                                               gae_advantages)
 from or_gym_inventory_torch.core.device import resolve_device
 from or_gym_inventory_torch.envs import inv_management
 from or_gym_inventory_torch.envs.base import Environment
@@ -108,13 +115,14 @@ def env_slices(n_envs: int, num_minibatches: int, generator: torch.Generator):
 
 
 def sgd_epochs(cfg: RecurrentPPOConfig, opt: Optimizer, state: RPPOTrainState, batch: dict,
-               norm, generator: torch.Generator, init_carry=None):
+               norm, generator: torch.Generator, init_carry=None, mesh=None):
     """Epochs of env-sliced minibatch SGD over a time-major batch dict
     (T, n_envs, ...) with keys obs/done_in/raw/logp/adv/ret, the LSTM re-run
     over each slice's whole sequence from ``init_carry`` (the update's
     initial (c, h), each (n_envs, hidden)) sliced with the slice's envs, or
     from a zero carry when it is None (recurrent_ppo.py:111-164). ``norm``
-    normalises the raw obs of a minibatch. The value loss is unclipped.
+    normalises the raw obs of a minibatch. The value loss is unclipped; with
+    a ``mesh`` each minibatch gradient is averaged over the ranks.
     Updates ``state.params`` and ``state.opt_state`` in place; returns the
     (pg_loss, v_loss, entropy) means over every minibatch."""
     model = state.params
@@ -143,17 +151,23 @@ def sgd_epochs(cfg: RecurrentPPOConfig, opt: Optimizer, state: RPPOTrainState, b
             loss, aux = loss_fn({k: v[:, idx] for k, v in batch.items()},
                                 tuple(c[idx] for c in init_carry))
             grads = torch.autograd.grad(loss, params)
+            if mesh is not None:
+                grads = mesh.mean(grads)
             state.opt_state = opt.step(params, grads, state.opt_state)
             auxs.append(aux)
     return torch.stack(auxs).mean(dim=0)
 
 
 def make_train_fns(env: Environment, env_params, cfg: RecurrentPPOConfig,
-                   total_updates: int, device=None):
-    """``(init, update, eval_episodes)``: ``init(generator) -> state``,
+                   total_updates: int, device=None, mesh=None,
+                   local_envs: Optional[int] = None):
+    """``(init, update, eval_episodes)``: ``init(generator, env_generator=None)
+    -> state`` (the model from ``generator``, ``local_envs`` or ``num_envs``
+    envs reset from ``env_generator``, by default ``generator``),
     ``update(state, generator) -> (state, metrics)`` of ``cfg.rollout``'s
     path and ``eval_episodes(params, rms, generator, num_envs)``, the
-    deterministic carry-threading evaluator. The kernel path refuses a
+    deterministic carry-threading evaluator. With a ``mesh`` the update is
+    one rank's part of the data-parallel update. The kernel path refuses a
     family other than InvManagement (NotImplementedError) and a
     ``rollout_steps`` other than the horizon (ValueError), as JAX :80-99
     does; its actor fold refuses a trunk other than tanh."""
@@ -178,10 +192,12 @@ def make_train_fns(env: Environment, env_params, cfg: RecurrentPPOConfig,
     def norm_of(rms):
         return rms.normalize if cfg.normalize_obs else (lambda x: x.to(torch.float32))
 
-    def init(generator: torch.Generator) -> RPPOTrainState:
+    def init(generator: torch.Generator,
+             env_generator: Optional[torch.Generator] = None) -> RPPOTrainState:
         model = _make_model(env, env_params, cfg, generator).to(dev)
-        n = cfg.num_envs
-        env_state, ts0 = vecenv.batch_reset(env, env_params, generator, n, device=dev)
+        n = local_envs or cfg.num_envs
+        env_state, ts0 = vecenv.batch_reset(env, env_params, env_generator or generator, n,
+                                            device=dev)
         return RPPOTrainState(
             params=model, opt_state=opt.init(list(model.parameters())),
             rms=RunningMeanStd.create(obs_dim, dev), ret_rms=RunningMeanStd.create(1, dev),
@@ -196,7 +212,7 @@ def make_train_fns(env: Environment, env_params, cfg: RecurrentPPOConfig,
         ``normalize_reward``."""
         if not cfg.normalize_reward:
             return state.ret_rms, reward_raw
-        ret_rms = state.ret_rms.update(ret_accs.reshape(-1, 1))
+        ret_rms = state.ret_rms.update(ret_accs.reshape(-1, 1), mesh)
         return ret_rms, torch.clamp(reward_raw * torch.rsqrt(ret_rms.var[0] + 1e-8),
                                     -10.0, 10.0)
 
@@ -244,10 +260,11 @@ def make_train_fns(env: Environment, env_params, cfg: RecurrentPPOConfig,
         batch = dict(obs=tr["obs"], done_in=tr["done_in"], raw=tr["raw"], logp=tr["logp"],
                      adv=advs, ret=advs + values)
         pg_loss, v_loss, ent = sgd_epochs(cfg, opt, state, batch, norm, generator,
-                                          state.carry)
-        rms = state.rms.update(tr["obs"].reshape(-1, obs_dim)) if cfg.normalize_obs \
+                                          state.carry, mesh)
+        rms = state.rms.update(tr["obs"].reshape(-1, obs_dim), mesh) if cfg.normalize_obs \
             else state.rms
-        metrics = dict(mean_step_reward=torch.mean(reward_raw), pg_loss=pg_loss,
+        metrics = dict(mean_step_reward=_mean_over(mesh, torch.mean(reward_raw)),
+                       pg_loss=pg_loss,
                        v_loss=v_loss, entropy=ent)
         new_state = dataclasses.replace(
             state, rms=rms, ret_rms=ret_rms, ret_accum=ret_accum, env_state=env_state,
@@ -304,10 +321,11 @@ def make_train_fns(env: Environment, env_params, cfg: RecurrentPPOConfig,
         batch = dict(obs=obs_seq, done_in=done_in, raw=raw, logp=logp, adv=advs,
                      ret=advs + values)
         pg_loss, v_loss, ent = sgd_epochs(cfg, opt, state, batch, norm, generator,
-                                          init_carry)
-        rms = state.rms.update(obs_seq.reshape(-1, obs_dim)) if cfg.normalize_obs \
+                                          init_carry, mesh)
+        rms = state.rms.update(obs_seq.reshape(-1, obs_dim), mesh) if cfg.normalize_obs \
             else state.rms
-        metrics = dict(mean_step_reward=torch.mean(reward_raw), pg_loss=pg_loss,
+        metrics = dict(mean_step_reward=_mean_over(mesh, torch.mean(reward_raw)),
+                       pg_loss=pg_loss,
                        v_loss=v_loss, entropy=ent)
         new_state = dataclasses.replace(state, rms=rms, ret_rms=ret_rms,
                                         ret_accum=torch.zeros_like(state.ret_accum),
@@ -339,16 +357,23 @@ def train(env: Environment, env_params, cfg: RecurrentPPOConfig, generator: torc
     update as a dict of numpy arrays with the keys mean_step_reward,
     pg_loss, v_loss, entropy, update and timesteps). ``generator``
     initialises the model and drives every update; ``progress(metrics,
-    state)`` is called after each update. A ``mesh`` raises
-    NotImplementedError (ROADMAP.md A14)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is still to port "
-            "(ROADMAP.md A14, torch.distributed)")
+    state)`` is called after each update. With a ``mesh`` every rank calls
+    ``train`` alike, as ``agents.ppo.train`` documents: ``num_envs / world``
+    envs a rank (asserted to divide, and to divide into the minibatches) on
+    the mesh's device unless ``device`` is given, the rank generator forked
+    first."""
     total_updates = cfg.num_updates(total_timesteps)
+    local, model_generator = None, generator
+    if mesh is not None:
+        assert cfg.num_envs % mesh.size == 0, (cfg.num_envs, mesh.size)
+        local = cfg.num_envs // mesh.size
+        assert local % cfg.num_minibatches == 0, (
+            "per-rank env count must divide into minibatches", local, cfg.num_minibatches)
+        generator = mesh.rank_generator(generator)
+        device = training_device(device, mesh)
     init, update, eval_episodes = make_train_fns(env, env_params, cfg, total_updates,
-                                                 device=device)
-    state = init(generator)
+                                                 device=device, mesh=mesh, local_envs=local)
+    state = init(model_generator, generator)
     metrics_log = []
     for i in range(total_updates):
         state, metrics = update(state, generator)

@@ -38,6 +38,10 @@ the block w // 4.
   word (InvManagement), one word a retail link, const links too
   (NetInvMgmt), one demand word (Newsvendor, whose reset's five words are
   those of period ``SEEDED_RESET_PERIOD`` = 0xFFFFFFFF, the kernels' layout).
+- The ranks of a data-parallel run (``parallel.mesh``), key (seed,
+  ``RANK_KEY``) = (seed, 3), counter (rank, 0, 0, 0): word 0 masked to 31
+  bits is the rank's seed (``rank_seed``), where the JAX package folded the
+  axis index into a replicated key.
 
 A word becomes a uniform as ``(word >> 8) * 2**-24`` (24 bits, exact in
 f32), and two uniforms a normal as ``sqrt(-2 ln(1 - u1)) * cos(2 pi u2)``
@@ -54,6 +58,7 @@ MASK32 = 0xFFFFFFFF
 POLICY_KEY = 1                       # key[1] of the policy kernels' stream
 SEEDED_KEY = 2                       # key[1] of the seeded evaluators' streams
 SEEDED_RESET_PERIOD = MASK32         # the period of Newsvendor's reset words
+RANK_KEY = 3                         # key[1] of the ranks' seeds
 TWO_PI_F32 = 6.2831854820251465      # f32(2 pi), as the JAX kernels round it
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
@@ -113,6 +118,13 @@ def seeded_words(seeds: torch.Tensor, period: int, n_words: int):
         words.extend(w.expand(seeds.shape)
                      for w in philox4x32_10(zero, zero, period, blk, seeds, SEEDED_KEY))
     return words[:n_words]
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The 31-bit seed of ``rank`` in a data-parallel run whose replicated
+    seed is ``seed``: word 0 of the counter (rank, 0, 0, 0) under the key
+    (seed, ``RANK_KEY``), masked to 31 bits."""
+    return int(philox4x32_10(rank, 0, 0, 0, seed, RANK_KEY)[0]) & 0x7FFFFFFF
 
 
 def uniform01(words: torch.Tensor) -> torch.Tensor:

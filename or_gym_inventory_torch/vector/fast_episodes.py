@@ -43,6 +43,24 @@ def _check_family(params):
         raise TypeError(f"Unknown params type {type(params).__name__}")
 
 
+def _check_kernel_demand(params):
+    """Raise before any draw or launch for a family the kernels do not run
+    or a demand they cannot draw (a law beyond the inversion table's cap, a
+    ``hostfn`` link)."""
+    _check_family(params)
+    if isinstance(params, im.InvManagementParams):
+        episode_kernels._im_demand_spec(params)
+    elif isinstance(params, net.NetInvParams):
+        net_step._topology_link_specs(params.topology, params.num_periods)
+
+
+def _episodes(episodes_per_lane) -> int:
+    E = int(episodes_per_lane)
+    if E < 1:
+        raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
+    return E
+
+
 def random_episode_returns(params, generator: torch.Generator, batch: int,
                            episodes_per_lane: int = 1, device=None):
     """Per-episode returns under the uniform-random policy, a
@@ -52,27 +70,33 @@ def random_episode_returns(params, generator: torch.Generator, batch: int,
     semantics), so are its returns; Newsvendor's are gamma^t-discounted in
     the kernel."""
     dev = resolve_device(device)
-    E = int(episodes_per_lane)
-    if E < 1:
-        raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
+    _episodes(episodes_per_lane)
+    _check_kernel_demand(params)
+    return random_returns_on_seed(params, kernel_seed(generator), batch, episodes_per_lane,
+                                  dev)
+
+
+def random_returns_on_seed(params, seed: int, batch: int, episodes_per_lane: int = 1,
+                           device=None):
+    """``random_episode_returns`` on a given 31-bit kernel ``seed``: the
+    family's fused kernel (K2, K8 or K16) at ``batch`` lanes."""
+    dev = resolve_device(device)
+    E = _episodes(episodes_per_lane)
     _check_family(params)
     if isinstance(params, nv.NewsvendorParams):
         # reset-fused: econ, orders and per-lane Poisson(mu) demand all drawn
         # in the kernel
         return episode_kernels.episode_returns_nv_reset_fused(
-            params, kernel_seed(generator), batch, episodes_per_lane=E,
-            device=dev).reshape(-1)
+            params, seed, batch, episodes_per_lane=E, device=dev).reshape(-1)
     if isinstance(params, im.InvManagementParams):
         episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
         return episode_kernels.episode_returns_im_fused(
-            params, kernel_seed(generator), batch, episodes_per_lane=E,
-            device=dev).reshape(-1)
+            params, seed, batch, episodes_per_lane=E, device=dev).reshape(-1)
     T = params.topology
     net_step._topology_link_specs(T, params.num_periods)  # hostfn raises here
     hi = float(T.order_cap_heuristic * 2)
     return net_step.episode_returns_fully_fused(
-        params, kernel_seed(generator), hi, batch, episodes_per_lane=E,
-        device=dev).reshape(-1)
+        params, seed, hi, batch, episodes_per_lane=E, device=dev).reshape(-1)
 
 
 def policy_episode_returns(params, actor, generator: torch.Generator, batch: int,
@@ -92,9 +116,21 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     kernel seed is drawn from ``generator`` (``kernel_seed``), which must
     live on ``device``."""
     dev = resolve_device(device)
-    E = int(episodes_per_lane)
-    if E < 1:
-        raise ValueError(f"episodes_per_lane must be >= 1, got {E}")
+    _episodes(episodes_per_lane)
+    if not deterministic and log_std is None:
+        raise ValueError("deterministic=False requires log_std (the trained "
+                         "per-action-dim log-std parameter)")
+    _check_kernel_demand(params)
+    return policy_returns_on_seed(params, actor, kernel_seed(generator), batch,
+                                  episodes_per_lane, deterministic, log_std, dev)
+
+
+def policy_returns_on_seed(params, actor, seed: int, batch: int, episodes_per_lane: int = 1,
+                           deterministic: bool = True, log_std=None, device=None):
+    """``policy_episode_returns`` on a given 31-bit kernel ``seed``: the
+    family's policy kernel (K5, K11 or K19) at ``batch`` lanes."""
+    dev = resolve_device(device)
+    E = _episodes(episodes_per_lane)
     if not deterministic and log_std is None:
         raise ValueError("deterministic=False requires log_std (the trained "
                          "per-action-dim log-std parameter)")
@@ -102,16 +138,16 @@ def policy_episode_returns(params, actor, generator: torch.Generator, batch: int
     kern_log_std = None if deterministic else log_std
     if isinstance(params, nv.NewsvendorParams):
         return episode_kernels.episode_returns_nv_policy(
-            params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+            params, actor, seed, batch, episodes_per_lane=E,
             log_std=kern_log_std, device=dev).reshape(-1)
     if isinstance(params, im.InvManagementParams):
         episode_kernels._im_demand_spec(params)   # a law beyond the cap raises here
         return episode_kernels.episode_returns_im_policy(
-            params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+            params, actor, seed, batch, episodes_per_lane=E,
             log_std=kern_log_std, device=dev).reshape(-1)
     net_step._topology_link_specs(params.topology, params.num_periods)  # hostfn raises here
     return net_step.episode_returns_net_policy(
-        params, actor, kernel_seed(generator), batch, episodes_per_lane=E,
+        params, actor, seed, batch, episodes_per_lane=E,
         log_std=kern_log_std, device=dev).reshape(-1)
 
 

@@ -31,6 +31,7 @@ from or_gym_inventory_torch.envs import inv_management as tim
 from or_gym_inventory_torch.envs import net_inv_management as tnet
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.ops import episode_kernels as tek
+from or_gym_inventory_torch.parallel import make_mesh
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_tpu.agents import networks as jnetworks
 from or_gym_inventory_tpu.agents import off_policy as jop
@@ -280,9 +281,9 @@ def test_insert_chunk_refuses_a_chunk_that_does_not_divide():
 
 def test_collect_kernel_config_validation():
     """tests/test_kernel_collect.py:160, with the port's departures: no
-    num_envs % 1024 and no TPU-backend check; a mesh raises
-    NotImplementedError naming ROADMAP A14; the default config
-    (collect="xla") and the four agents construct."""
+    num_envs % 1024 and no TPU-backend check; the default config
+    (collect="xla") and the four agents construct; a one-rank mesh builds
+    and trains (two ranks: tests/test_torch_dp_train.py)."""
     _, tp = _im(30)
     make = top.make_offpolicy
     with pytest.raises(ValueError, match="'xla' or 'kernel'"):
@@ -299,11 +300,13 @@ def test_collect_kernel_config_validation():
                                               buffer_size=1024), device=CPU)
     with pytest.raises(ValueError, match="algo"):
         make(tim.ENV, tp, top.OffPolicyConfig(algo="ppo", collect="kernel"), device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        make(tim.ENV, tp, top.OffPolicyConfig(collect="kernel"), axis_name="env", device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        top.train(tim.ENV, tp, top.OffPolicyConfig(collect="kernel"), torch.Generator(), 10,
-                  mesh=object(), device=CPU)
+    small = top.OffPolicyConfig(collect="kernel", num_envs=4, buffer_size=240, batch_size=8,
+                                pi_arch=(8,), q_arch=(8,), start_steps=0)
+    init, _, _ = make(tim.ENV, tp, small, mesh=make_mesh(CPU), device=CPU)
+    assert init(torch.Generator()).buffer.size == 240
+    state, _, metrics = top.train(tim.ENV, tp, small, torch.Generator(), 10, mesh=make_mesh(CPU))
+    assert state.step_idx == 1 and state.buffer.filled == 4 * 30
+    assert metrics["timesteps"].tolist() == [4 * 30]
     for agent, algo in ((top.OffPolicyAgent, "sac"), (top.SACAgent, "sac"),
                         (top.TD3Agent, "td3"), (top.DDPGAgent, "ddpg")):
         built = agent(tim.ENV, tim.default_params)

@@ -28,6 +28,7 @@ from or_gym_inventory_torch.agents import ppo as tppo
 from or_gym_inventory_torch.envs import net_inv_management as tnet
 from or_gym_inventory_torch.ops import episode_kernels as tek
 from or_gym_inventory_torch.ops import net_step as tns
+from or_gym_inventory_torch.parallel import make_mesh
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_tpu.agents import a2c as ja2c
 from or_gym_inventory_tpu.agents import ppo as jppo
@@ -208,8 +209,19 @@ def test_train_on_cpu_and_what_is_not_ported():
                                         device=CPU)
     assert xla_state.update_idx == 1 and set(xla_metrics) == set(metrics)
     assert all(np.isfinite(v).all() and v.shape == (1,) for v in xla_metrics.values())
-    with pytest.raises(NotImplementedError, match="A14"):
-        tppo.train(tnet.ENV, tp, cfg, gen, 600, mesh=object(), device=CPU)
+    # a one-rank mesh (two ranks: tests/test_torch_dp_train.py): train forks
+    # the rank generator, then initialises the model from the replicated one;
+    # the collectives change nothing, so the update equals the single-process
+    # update on the same rank generator bit for bit
+    mesh = make_mesh(CPU)
+    meshed, _ = tppo.train(tnet.ENV, tp, cfg, torch.Generator().manual_seed(7), 600, mesh=mesh)
+    g = torch.Generator().manual_seed(7)
+    rank_gen = mesh.rank_generator(g)
+    plain = tppo.init_train_state(tnet.ENV, tp, cfg, g, 1, device=CPU, env_generator=rank_gen)
+    plain, _ = tppo.make_update_fn(tnet.ENV, tp, cfg, 1, device=CPU)(plain, rank_gen)
+    for k, v in plain.params.state_dict().items():
+        assert torch.equal(meshed.params.state_dict()[k], v), k
+    assert torch.equal(meshed.rms.var, plain.rms.var) and meshed.update_idx == 1
     with pytest.raises(ValueError, match="horizon"):
         tppo.train(tnet.ENV, tp, cfg.replace(rollout_steps=5), gen, 600, device=CPU)
     with pytest.raises(NotImplementedError, match="families"):

@@ -28,6 +28,7 @@ from or_gym_inventory_torch.agents import recurrent_ppo as trppo
 from or_gym_inventory_torch.envs import inv_management as tim
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.ops import episode_kernels as tek
+from or_gym_inventory_torch.parallel import make_mesh
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_tpu.agents import recurrent_ppo as jrppo
 from or_gym_inventory_tpu.envs import inv_management as jim
@@ -157,8 +158,11 @@ def test_what_is_not_ported_raises():
     state, _, metrics = trppo.train(tim.ENV, tp, cfg.replace(rollout="xla"), torch.Generator(),
                                     6 * ENVS, device=CPU)
     assert state.update_idx == 1 and np.isfinite(metrics["v_loss"]).all()
-    with pytest.raises(NotImplementedError, match="A14"):
-        trppo.train(tim.ENV, tp, cfg, torch.Generator(), 6 * ENVS, mesh=object(), device=CPU)
+    # so is the mesh: one rank here (two ranks: tests/test_torch_dp_train.py)
+    state, _, metrics = trppo.train(tim.ENV, tp, cfg.replace(num_envs=8), torch.Generator(),
+                                    6 * 8, mesh=make_mesh(CPU))
+    assert state.update_idx == 1 and state.last_obs.shape[0] == 8
+    assert np.isfinite(metrics["v_loss"]).all()
     nvp = tnv.default_params(step_limit=STEPS)
     with pytest.raises(NotImplementedError, match="InvManagement"):
         trppo.make_train_fns(tnv.ENV, nvp, cfg, 1, device=CPU)

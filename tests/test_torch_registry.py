@@ -34,6 +34,7 @@ from or_gym_inventory_torch.envs import net_inv_management as tnet
 from or_gym_inventory_torch.envs import newsvendor as tnv
 from or_gym_inventory_torch.envs import adapters as tadapters
 from or_gym_inventory_torch.envs import registry as treg
+from or_gym_inventory_torch.parallel import make_mesh
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_torch.vector import evaluate_episodes_seeded
 from or_gym_inventory_tpu.agents import algo_registry as jalgo
@@ -252,13 +253,17 @@ def test_offpolicy_agent_trains_saves_loads_and_acts(tmp_path, capsys, algo, fam
 
 def test_offpolicy_agent_eval_callback_and_mesh(tmp_path, capsys, monkeypatch):
     """Every chunk evaluated (train's chunks of one iteration here), the
-    best actor restored; a mesh raises naming A14."""
+    best actor restored; with a one-rank mesh the agent trains on the
+    mesh's device and writes its checkpoint (two ranks:
+    tests/test_torch_dp_train.py)."""
     agent = _off_agent(TD3Agent, tnv, tmp_path, "xla", eval_every_chunks=1, eval_episodes=4)
     train = top.train
     monkeypatch.setattr(top, "train", lambda *a, **k: train(*a, **{**k, "log_every": 1}))
     agent.train(FAMILIES["newsvendor"][1], 3 * 4)
     assert "Loading best model (eval reward" in capsys.readouterr().out
     assert agent.training_log["timesteps"].tolist() == [4, 8, 12]
-    meshed = _off_agent(SACAgent, tnv, tmp_path, "xla", mesh=object(), force_retrain=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        meshed.train(FAMILIES["newsvendor"][1], 8)
+    meshed = _off_agent(SACAgent, tnv, tmp_path, "xla", mesh=make_mesh(CPU),
+                        force_retrain=True)
+    meshed.train(FAMILIES["newsvendor"][1], 8)
+    assert meshed.training_log["timesteps"].tolist() == [4, 8]
+    assert tbase.ckpt_trained_timesteps(meshed._ckpt_path()) == 8
