@@ -325,7 +325,7 @@ MULTI_LANES = 1_024          # bench.py:115, E=16 dumped in ranges of 8
 # sales; nv_policy.cu on either demand layout)
 TRAJ_INSTANCES = {"im_policy": ("k_im_policy_returns<1,0,1,0>", "k_im_policy_returns<1,0,1,1>"),
                   "nv_policy": ("k_nv_policy_returns<1,0,1,0>", "k_nv_policy_returns<1,0,1,1>"),
-                  "net_policy": ("k_policy_returns<1,0,1>",)}
+                  "net_policy": ("k_policy_returns<1,0,1,S>", "k_policy_returns<1,0,1,G>")}
 # K1's other shapes: the cross-check's per-episode launches (MULTI_LANES)
 # and bench.py's own cross-check size (bench.py:79-135 runs at 4,096)
 K1_LANES = (MULTI_LANES, 4_096)
@@ -507,7 +507,7 @@ SEEDED_DEMAND_SHARE = 0.999
 # (agents/algo_registry.py), each iteration timed past the uniform warmup;
 # beside TD3 on InvManagement, tools/validate_kernel_collect.py's config
 OFF_XLA_RECIPE = dict(num_envs=32, buffer_size=100_000, batch_size=256, start_steps=1_000)
-OFF_XLA_ITERS = 200
+OFF_XLA_ITERS = 100
 OFF_XLA_VKC = dict(num_envs=1024, buffer_size=200_704, batch_size=256, updates_per_iter=32)
 OFF_XLA_VKC_ITERS = 20
 # phase 43: make_agent's seven names, a family each, at a few updates
@@ -869,15 +869,33 @@ class no_plain_versions:
             setattr(mod, n, fn)
 
 
+# a kernel's mangled name: the name, then its template arguments, integral
+# (``Lb1E``, ``Li-3E``) and, for the NetInvMgmt kernels, the topology's size
+# class last (csrc/net_topo.cuh: NetTopoParams<...>, the small class, read
+# "S"; NetTopo, any graph, "G")
+KERNEL_NAME = (r"(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)*(?:7NetTopo|13NetTopoParams"
+               r"ILi\d+ELi\d+ELi\d+EE)?E)?E")
+
+
+def kernel_name(m):
+    """The readable name of a ``KERNEL_NAME`` match: name<flags[,class]>."""
+    args = m.group(2) or ""
+    flags = [f.replace("n", "-") for f in re.findall(r"L[bi](n?\d+)E", args.split("NetTopo")[0])]
+    if "NetTopoParams" in args:
+        flags.append("S")
+    elif "NetTopo" in args:
+        flags.append("G")
+    return f"{m.group(1)}<{','.join(flags)}>" if flags else m.group(1)
+
+
 def ptxas_entries(out):
     """Each kernel of one source's ``ptxas -v`` output as "name<template
     flags> registers, stack frame" (and its spills, where it has any)."""
     rows, name, frame = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"entry function '\w*?(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)+E)?E", ln)
+        m = re.search(r"entry function '\w*?" + KERNEL_NAME, ln)
         if m:
-            flags = ",".join(re.findall(r"L[bi](n?\d+)", m.group(2) or "")).replace("n", "-")
-            name, frame = (f"{m.group(1)}<{flags}>" if flags else m.group(1)), ""
+            name, frame = kernel_name(m), ""
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", ln)
         if m and name:
@@ -906,10 +924,9 @@ def sass_counts(so_path):
                          check=True, timeout=120).stdout
     counts, name = {}, None
     for ln in out.splitlines():
-        m = re.search(r"Function : \S*?(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)+E)?E", ln)
+        m = re.search(r"Function : \S*?" + KERNEL_NAME, ln)
         if m:
-            flags = ",".join(re.findall(r"L[bi](n?\d+)", m.group(2) or "")).replace("n", "-")
-            name = m.group(1) + (f"<{flags}>" if flags else "")
+            name = kernel_name(m)
             counts[name] = [0, 0, 0]
         elif name:
             for k, op in enumerate(("LDL", "STL", "HMMA")):
@@ -980,7 +997,7 @@ def cluster_check(logs):
     parts = []
     for src, kernel, want in (("im_policy", "k_im_rollout_traj_cluster", 4),
                               ("nv_policy", "k_nv_rollout_traj_cluster", 2),
-                              ("net_policy", "k_rollout_traj_cluster", 2)):
+                              ("net_policy", "k_rollout_traj_cluster", 4)):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
         if counts is None:
             raise AssertionError("cuobjdump not found: the cluster kernels' SASS cannot be read")
@@ -1092,8 +1109,9 @@ def net_episode_frame_check(logs, local):
     frame (ptxas, where this run built the library) or a local-memory load
     or store in its SASS (``local``, sass_counts of net_episode.cu).
     Returns the line to print; raises on a miss."""
-    kernels = ("k_episode_returns", "k_batched_step", "k_episode_returns_fused",
-               "k_sample_streams", "k_episode_returns_random")
+    kernels = [f"{k}<{c}>" for k in ("k_episode_returns", "k_batched_step",
+                                      "k_episode_returns_fused", "k_sample_streams",
+                                      "k_episode_returns_random") for c in "SG"]
     if local is None:
         raise AssertionError("cuobjdump not found: K1's and K25's SASS cannot be read")
     log = next((out for so, out in logs.items() if "libnet_episode-" in so), "")
@@ -1154,7 +1172,7 @@ def k1_kernel_launch(params, acts, dems, dev):
     tp, disc, _ = ns._launch_plan(params, num_steps, ek._plan_key(dev), False)
     _, lay, st = ns._k1_layout(T.n_main, T.n_reorder, T.n_retail, sum(T.ro_L))
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    args = (ctypes.addressof(tp), ctypes.addressof(lay), ctypes.addressof(st), acts.data_ptr(),
+    args = (*ns._topo_args(tp), ctypes.addressof(lay), ctypes.addressof(st), acts.data_ptr(),
             dems.data_ptr(), disc.data_ptr(), out.data_ptr(), B, num_steps, ek._stream(dev))
 
     def launch():
@@ -1178,7 +1196,7 @@ def k3_kernel_launch(params, act_hi, dev):
     f32 = dict(dtype=torch.float32, device=dev)
     acts = torch.empty((NUM_STEPS, T.n_reorder, CHECK_LANES), **f32)
     dems = torch.empty((NUM_STEPS, T.n_retail, CHECK_LANES), **f32)
-    args = (ctypes.addressof(tp), tab.data_ptr(), acts.data_ptr(), dems.data_ptr(), SEED,
+    args = (*ns._topo_args(tp), tab.data_ptr(), acts.data_ptr(), dems.data_ptr(), SEED,
             ns._act_scale(act_hi), CHECK_LANES, NUM_STEPS, 0, 1, ek._stream(dev))
 
     def launch():
@@ -1361,13 +1379,15 @@ def seeded_actor(obs_dim, act_dim, dev):
     return actor, model.log_std.detach().to(dev)
 
 
-def policy_cross_check(params, dev, actor, log_std):
+def policy_cross_check(params, dev, actor, log_std, B=CHECK_LANES, E=EVAL_EPISODES,
+                       edges=True):
     """Phase 7: K4-K6 against their plain versions at the main path's shapes
     (65,536 lanes x 30 periods; K5/K6 at 16 episodes per lane,
     deterministic and stochastic), K4's streams replayed teacher-forced
     through K1, the env step chain and the folded actor, and the NaN lane
-    of the shared step. Returns (max |diff| per kernel, plain ms per
-    kernel)."""
+    of the shared step, and with ``edges`` ``tile_edge_cases``; phase 51
+    runs it on ``B`` x ``E`` of another graph without them. Returns (max
+    |diff| per kernel, plain ms per kernel)."""
     import torch
 
     from or_gym_inventory_torch.envs import net_inv_management as net
@@ -1375,7 +1395,7 @@ def policy_cross_check(params, dev, actor, log_std):
     from or_gym_inventory_torch.ops import net_step as ns
     from or_gym_inventory_torch.ops import rng
     T = params.topology
-    B, E = CHECK_LANES, EVAL_EPISODES
+    steps = params.num_periods
     std = ek.clipped_std(log_std)
     err, plain_ms, lines = {}, {}, []
 
@@ -1396,17 +1416,17 @@ def policy_cross_check(params, dev, actor, log_std):
           ns.episode_returns(params, acts.contiguous(), tr["demand"]),
           tr["reward"].sum(0), 1e-5, 1e-3)
     state, _ = net.reset(params, batch=B, device=dev)
-    for t in range(NUM_STEPS):
+    for t in range(steps):
         close(f"step chain X[{t}] vs K4 x", state.X.T, tr["x"][t], 1e-4, 1e-2)
         close(f"step chain U[{t}] vs K4 u", state.U.T, tr["u"][t], 1e-4, 1e-2)
         state, ts = net.step_with_demand(params, state, acts[t].T, tr["demand"][t].T)
         close(f"step chain r[{t}] vs K4 r", ts.info["fulfilled_orders"].T, tr["r"][t],
               1e-4, 1e-2)
-    close("step chain final X vs K4 x", state.X.T, tr["x"][NUM_STEPS], 1e-4, 1e-2)
+    close("step chain final X vs K4 x", state.X.T, tr["x"][steps], 1e-4, 1e-2)
     obs = net.assemble_obs_from_streams(params, tr["x"], tr["u"], tr["r"])
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
     n_rt, n_ro = T.n_retail, T.n_reorder
-    for t in range(NUM_STEPS):
+    for t in range(steps):
         w = rng.period_words(SEED, lanes, 0, t, n_rt + 2 * n_ro, key1=rng.POLICY_KEY)
         z = rng.normal01(torch.stack(w[n_rt:n_rt + n_ro]), torch.stack(w[n_rt + n_ro:]))
         close(f"K4 raw[{t}] vs folded actor + plain normals", tr["raw"][t],
@@ -1459,15 +1479,16 @@ def policy_cross_check(params, dev, actor, log_std):
             err["sample_policy_streams_debug_net"],
             close(f"K6 vs K5 returns, {kind}", k6, k5, 1e-5, 1e-3))
         replay = ns.episode_returns(
-            params, a6.permute(0, 2, 1, 3).reshape(NUM_STEPS, n_ro, E * B).contiguous(),
-            d6.permute(0, 2, 1, 3).reshape(NUM_STEPS, n_rt, E * B).contiguous())
+            params, a6.permute(0, 2, 1, 3).reshape(steps, n_ro, E * B).contiguous(),
+            d6.permute(0, 2, 1, 3).reshape(steps, n_rt, E * B).contiguous())
         close(f"K1 on K6's streams vs K5, {kind}", replay.reshape(E, B), k5, 1e-5, 1e-3)
         share, e5 = lane_share(f"K5 vs plain, {kind}", k5, want)
         err["episode_returns_net_policy"] = max(err["episode_returns_net_policy"], e5)
         lines.append(f"K5/K6 {kind}, {B} x {E}: K6 demand bit-exact, K1 replays "
                      f"K6's streams, {share:.4%} of lanes agree with plain K5")
         del k5, k6, a6, d6, want, want_d, replay
-    lines += tile_edge_cases("net", params, dev, actor, log_std)
+    if edges:
+        lines += tile_edge_cases("net", params, dev, actor, log_std)
     torch.cuda.synchronize()
     return err, plain_ms, lines
 
@@ -2970,15 +2991,16 @@ def nv_step_chain(params, tr, label):
         close(f"step chain reward[{t}] vs K28, {label}", rew, tr["reward"][t], 1e-5, 1e-3)
 
 
-def net_step_chain(params, tr, label, dev):
+def net_step_chain(params, tr, label, dev, reward_atol=1e-3, sum_atol=1e-3):
     """K1 on K29's a_norm (mapped onto the actions) and demand gives its
-    rewards' sum (rtol=1e-5, atol=1e-3), and the plain step chain on them
-    its x, u, r and rewards (rtol=1e-5, atol=1e-3)."""
+    rewards' sum (rtol=1e-5, atol ``sum_atol``), and the plain step chain on
+    them its x, u, r (rtol=1e-5, atol=1e-3) and rewards (atol
+    ``reward_atol``)."""
     from or_gym_inventory_torch.ops import net_step as ns
     acts = (tr["raw"] + 1.0) * ns._half_hi(params.topology)
     close(f"K1 on K29's streams vs its rewards, {label}",
           ns.episode_returns(params, acts.contiguous(), tr["demand"]),
-          tr["reward"].sum(0), 1e-5, 1e-3)
+          tr["reward"].sum(0), 1e-5, sum_atol)
     n_ro = params.topology.n_reorder
     X, Y, U, RH = ns.init_transposed(params, tr["raw"].shape[-1], dev)
     for t in range(params.num_periods):
@@ -2987,7 +3009,8 @@ def net_step_chain(params, tr, label, dev):
         for k, want_k in (("x", X), ("u", U), ("r", RH[:n_ro])):
             close(f"step chain {k}[{t}] vs K29, {label}", tr[k][t + (k != "r")], want_k,
                   1e-5, 1e-3)
-        close(f"step chain reward[{t}] vs K29, {label}", tr["reward"][t], rew, 1e-5, 1e-3)
+        close(f"step chain reward[{t}] vs K29, {label}", tr["reward"][t], rew, 1e-5,
+              reward_atol)
 
 
 def offpolicy_route(name, params, batch, mode, dev):
@@ -3006,8 +3029,9 @@ def offpolicy_route(name, params, batch, mode, dev):
     plan = ek._cluster_choice(dims, act, mode in ("ppo", "det"), params.num_periods,
                               ns._shared_layout(T)[0].words, False, mode != "uniform",
                               ns._net_cluster_layout(T))
+    small = int(ns._small_class(T.n_main, T.n_reorder, T.n_retail))
     held = ek._cluster_max_active("net_policy", "net_rollout_traj_cluster_occupancy",
-                                  plan.cluster, plan.floats, (1,), ek._plan_key(dev))
+                                  plan.cluster, plan.floats, (1, small), ek._plan_key(dev))
     route = ns._net_route(batch, plan.lanes, held)
     if batch == LEARN_LANES and route != "cluster":
         raise AssertionError(f"K29 at the learners' {batch} lanes, {mode}: the {route} route")
@@ -3186,6 +3210,7 @@ def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
         st, flat = ek._pack_cluster_actor(actor, std, obs, act, "det", ek._half_c(params), T,
                                           obs, False, dev)
         flags, plan = (1, int(params.backlog)), ek._im_plan(params, ek._plan_key(dev))
+        occupancy_flags = flags
         head, env = (ctypes.addressof(plan["struct"]),), (
             plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr())
         streams = ("inv", "actions", "raw", "reward", "demand")
@@ -3194,6 +3219,7 @@ def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
         st, flat = ek._pack_cluster_actor(actor, std, obs, 1, "det", ek._nv_half_hi(params), T,
                                           obs + 1, True, dev)
         flags, plan = (1,), ek._nv_plan(params, ek._plan_key(dev))
+        occupancy_flags = flags
         head, env = (ctypes.addressof(plan["struct"]),), (plan["lgam"].data_ptr(),)
         streams = ("econ", "orders", "raw", "reward", "demand")
     else:
@@ -3208,13 +3234,15 @@ def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
             st, flat = ek._pack_wide_actor(actor, std, topo.obs_dim, act, "det", half_hi, dev)
         flags = (1,)
         tp, disc, tab = ns._launch_plan(params, T, ek._plan_key(dev), True)
+        occupancy_flags = (1, int(tp.small is not None))
         plan = (tp, disc, tab, lay)
-        head = (ctypes.addressof(tp),) + ((ctypes.addressof(lay),) if route == "cluster" else ())
+        head = (*ns._topo_args(tp), ctypes.addressof(lay))
         env = (tab.data_ptr(), disc.data_ptr())
         streams = ("x", "u", "r", "raw", "reward", "demand")
     fam = src.split("_")[0]
     if route == "cluster":
-        ek._set_cluster_grid(st, batch, src, f"{fam}_rollout_traj_cluster_occupancy", flags, dev)
+        ek._set_cluster_grid(st, batch, src, f"{fam}_rollout_traj_cluster_occupancy",
+                             occupancy_flags, dev)
     outs = [torch.empty_like(want[k]) for k in streams]
     fn = getattr(_build.library(src), f"{fam}_rollout_traj_{route}")
     args = (*head, ctypes.addressof(st), flat.data_ptr(), *env,
@@ -4907,6 +4935,412 @@ def mesh_phases(dev, wrappers, smi):
     return {n: launches48[n] + launches49[n] for n in wrappers}, summary
 
 
+# phases 51-53: the two graphs past the first design's struct maxima
+# (envs/topology.py): the default graph's nodes 1-8 eight times under one
+# market (48 main nodes, 88 reorder links, 8 retail links, lead times
+# summing to 488) and the custom graph's nodes 1-6 six times (30, 30, 18,
+# 24; obs 72, 30 actions)
+GRAPH_REGIONS = (("default_regions", 8), ("custom_regions", 6))
+GRAPH_LANES = 65_536          # K1-K3, K25 and K26 on both graphs
+GRAPH_EPISODES = 2            # K2's and K3's episodes a lane there
+GRAPH_POLICY_LANES = 1_024    # K4-K6 and K29 on custom_regions(6)
+GRAPH_POLICY_EPISODES = 4     # K5/K6's episodes a lane there
+GRAPH_PPO_UPDATES = 2
+# phase 51's horizon: past every lead time of both graphs (at most 12), cut
+# from 30 to hold the phase near 40 s (the plain versions' Python loops)
+GRAPH_CHECK_STEPS = 15
+GRAPH_PATH_KERNELS = ("episode_returns", "episode_returns_fully_fused", "sample_streams_debug",
+                      "batched_step", "episode_returns_random_policy", "rollout_traj_net",
+                      "episode_returns_net_policy", "rollout_traj_net_offpolicy")
+GRAPH_TURN_KERNELS = ("K2", "K1", "K5", "K4", "K29det", "K29sac")
+GRAPH_TURN_ROUNDS = 2
+
+
+def graph_sweep_tool():
+    """tools/net_graph_sweep.py, the parent design's build and turns."""
+    import importlib
+    import pathlib
+    tools = str(pathlib.Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module("net_graph_sweep")
+
+
+def graph_params(name, copies, steps=NUM_STEPS):
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import topology
+    return net.default_params(topology=getattr(topology, name)(copies, steps),
+                              num_periods=steps)
+
+
+def graph_plans(params):
+    """The launch plans of a graph's random-policy kernels (K1, K2/K26, K25,
+    K3: threads a block, bytes of shared memory a block), as a line and a
+    dict."""
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    counts = (T.n_main, T.n_reorder, T.n_retail, sum(T.ro_L))
+    k2, _ = ns._shared_layout(T)
+    k1, _, _ = ns._k1_layout(*counts)
+    k25 = ns._k25_plan(T.n_main, T.n_reorder, T.n_retail, sum(L > 0 for L in T.ro_L))
+    plans = {"K2/K26": (k2.threads, k2.bytes), "K1": (k1.threads, k1.bytes),
+             "K25": (k25.threads, k25.bytes), "K3": (128, 4 * k2.topo_floats)}
+    line = (f"n_main {T.n_main}, n_ro {T.n_reorder}, n_rt {T.n_retail}, sum L {counts[3]}, "
+            f"obs {T.obs_dim}; state {k2.words} words a lane, records {k2.topo_floats} floats; "
+            + ", ".join(f"{k} {n} threads x {b} B" for k, (n, b) in plans.items())
+            + f" (K1 {k1.chunk} periods a staging buffer)")
+    return line, plans
+
+
+def graph_random_checks(params, dev):
+    """Phase 51 on one graph: K3's streams of GRAPH_EPISODES episodes at
+    GRAPH_LANES bit for bit with plain K3; K2 within rtol=1e-5 atol=1e-3 of
+    plain K2; K1 on each episode's streams equal to K2's episode bit for bit,
+    and within rtol=1e-5 atol=1e-3 of plain K1 on episode 0; K26 on episode
+    0's demand against K2's episode 0 and plain K26 (rtol=1e-5 atol=1e-3);
+    K25 chained over the horizon on episode 0's streams, each period against
+    the plain step on the same inputs (the state rtol=1e-5 atol=1e-3; the
+    reward atol=1e-2: a period's profit sums revenue and cost terms of tens
+    of thousands, eight times the default graph's, to a small difference,
+    in another f32 order than the plain version's; on an H100 the largest
+    |diff| was 2^-8 at default_regions(8)), its rewards' sum against K2's
+    episode 0 (rtol=1e-5 atol=1e-2). Returns (max |diff| per kernel,
+    lines)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import net_step as ns
+    T, steps = params.topology, params.num_periods
+    B, E = GRAPH_LANES, GRAPH_EPISODES
+    hi = float(T.order_cap_heuristic * 2)
+    err = {}
+    acts, dems = ns.sample_streams_debug(params, SEED, hi, B, steps, E, None, dev)
+    p_acts, p_dems = ns._sample_streams_plain(params, SEED, hi, B, steps, 0, E, dev)
+    exact("K3 actions vs plain", acts, p_acts)
+    exact("K3 demand vs plain", dems, p_dems)
+    err["sample_streams_debug"] = 0.0
+    del p_acts, p_dems
+    k2 = ns.episode_returns_fully_fused(params, SEED, hi, B, steps, E, dev)
+    err["episode_returns_fully_fused"] = close(
+        "K2 vs plain", k2, ns._episode_returns_fully_fused_plain(params, SEED, hi, B, steps,
+                                                                 E, dev), 1e-5, 1e-3)
+    a0, d0 = acts[:, 0].contiguous(), dems[:, 0].contiguous()
+    for e in range(E):
+        exact(f"K1 on K3's episode {e} vs K2", ns.episode_returns(
+            params, acts[:, e].contiguous(), dems[:, e].contiguous()), k2[e])
+    err["episode_returns"] = close("K1 vs plain", ns.episode_returns(params, a0, d0),
+                                   ns._episode_returns_plain(params, a0, d0), 1e-5, 1e-3)
+    del acts, dems
+    k26 = ns.episode_returns_random_policy(params, d0, SEED, hi)
+    e26 = close("K26 on K3's demand vs K2", k26, k2[0], 1e-5, 1e-3)
+    err["episode_returns_random_policy"] = max(e26, close(
+        "K26 vs plain", k26, ns._episode_returns_random_policy_plain(params, d0, SEED, hi),
+        1e-5, 1e-3))
+    X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, B, dev))
+    rewards, err["batched_step"] = [], 0.0
+    for t in range(steps):
+        got = ns.batched_step(params, X, Y, U, RH, a0[t], d0[t], t)
+        want = ns._batched_step_plain(params, X, Y, U, RH, a0[t], d0[t], t)
+        for name, g, w in zip(("X", "Y", "U", "RH", "reward"), got, want):
+            err["batched_step"] = max(err["batched_step"], close(
+                f"K25 {name}[{t}] vs plain", g, w, 1e-5, 1e-2 if name == "reward" else 1e-3))
+        X, Y, U, RH = got[:4]
+        rewards.append(got[4])
+    close("K25's rewards summed vs K2", torch.stack(rewards).sum(0), k2[0], 1e-5, 1e-2)
+    torch.cuda.synchronize()
+    lines = [f"K3 ({E} episodes at {B} lanes x {steps}) bit for bit with plain K3; K2 "
+             f"within rtol=1e-5 atol=1e-3 of plain K2 (max |diff| "
+             f"{err['episode_returns_fully_fused']:.6g}); K1 on each episode's streams = K2's "
+             f"returns bit for bit; K1 vs plain {err['episode_returns']:.6g}; K26 on K3's demand "
+             f"vs K2 {e26:.6g} ({'bit for bit' if e26 == 0 else 'not bit for bit'}), vs plain "
+             f"{err['episode_returns_random_policy']:.6g}; K25 chained {steps} periods vs "
+             f"the plain step {err['batched_step']:.6g}, its rewards' sum = K2's episode 0"]
+    return err, lines
+
+
+def graph_offpolicy_checks(params, dev):
+    """Phase 51: K29 on custom_regions(6) at GRAPH_POLICY_LANES, the (256,
+    256) relu actor under the det (TD3's) and sac heads on the cluster, and
+    the det head under an OFF_WIDE actor on the wide route, as phase 32
+    holds K29: demand bit for bit with plain's (and, on the cluster, with
+    K4's on the same seed); a_norm in [-1, 1] and teacher-forced within
+    atol=1e-4 under the det head (the wide route 1e-3, as phase 32's), and
+    1e-3 under the sac head, whose log-std outputs' error reaches a_norm
+    scaled by exp(log_std) |z| (on an H100, 2 of 30,720 elements at
+    1.16e-4, the share within 1e-4 reported); free-running lanes
+    within rtol=1e-4 on >= FLOAT_FREE_SHARE (the wide route's share
+    reported); K1 and the plain step chain on its demand and a_norm give
+    its rewards, x, u and r; the rewards within atol=1e-2 a period and their
+    sum within atol=0.1 (the graph's 18 retail links at price 25 make
+    revenue and cost terms of ~1e4 a period, summed to small differences in
+    another f32 order than the plain version's; on an H100 K1's sum of a
+    det lane differed from the kernel's by 2^-6). Returns (max |diff| over
+    agreeing lanes, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    B, obs, act = GRAPH_POLICY_LANES, T.obs_dim, T.n_reorder
+    ppo_actor, ppo_log_std = seeded_actor(obs, act, dev)
+    ppo_demand = ns.rollout_traj_net(params, ppo_actor, ppo_log_std, SEED, B,
+                                     device=dev)["demand"]
+    worst, lines = 0.0, []
+    for mode, arch, route in (("det", OFF_ARCH, "cluster"), ("sac", OFF_ARCH, "cluster"),
+                              ("det", OFF_WIDE, "wide")):
+        actor, log_std = seeded_offpolicy_actor(obs, act, mode == "sac", dev, arch)
+        std = ek.clipped_std(log_std) if mode == "det" else None
+        tr = ns.rollout_traj_net_offpolicy(params, actor, log_std, SEED, B, mode, "relu", dev)
+        if ns.rollout_traj_net_offpolicy.route != route:
+            raise AssertionError(f"K29 {mode} {arch}: the {ns.rollout_traj_net_offpolicy.route} "
+                                 f"route, not the {route}")
+        want = ns._rollout_traj_plain(params, actor, std, SEED, B, dev, mode, "relu")
+        exact(f"K29 {mode} {route} demand vs plain", tr["demand"], want["demand"])
+        if route == "cluster":
+            exact(f"K29 {mode} demand vs K4's", tr["demand"], ppo_demand)
+        if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+            raise AssertionError(f"K29 {mode} {route}: a_norm outside [-1, 1]")
+        forced, within = offpolicy_teacher_forced(
+            "rollout_traj_net_offpolicy", params, tr, actor, std, mode, act, dev,
+            1e-3 if route == "wide" or mode == "sac" else 1e-4)
+        need = FLOAT_FREE_SHARE if route == "cluster" else 0.0
+        shares = {k: lane_share(f"K29 {mode} {route} {k} vs plain", tr[k], want[k],
+                                *((1e-4, 1e-4) if k == "raw" else (1e-4, 1e-2)), need)
+                  for k in tr if k != "demand"}
+        worst = max([worst] + [e for _, e in shares.values()])
+        net_step_chain(params, tr, f"custom_regions(6), {mode}, {route}", dev, 1e-2, 1e-1)
+        also = " and K4's" if route == "cluster" else ""
+        lines.append(f"K29 {mode} on the {route} route (actor {arch}, {B} lanes): demand "
+                     f"equal to plain's{also}; "
+                     f"a_norm teacher-forced max |diff| {forced:.3g} ({within:.4%} within 1e-4); "
+                     f"lanes agreeing " + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in
+                                                    shares.items())
+                     + "; K1 and the plain step chain on its streams give its rewards, x, u, r")
+        del tr, want
+    torch.cuda.synchronize()
+    return worst, lines
+
+
+def graph_main_path(dev, wrappers, smi, policy_params, random_params):
+    """Phase 52, counted: on ``random_params`` (default_regions(8)) bench.py's
+    path, K3's streams and K1 on them, ``random_episode_returns`` (K2),
+    ``rollout_transposed`` (K25 a period) and K26 on K3's demand; on
+    ``policy_params`` (custom_regions(6)) PPO with ``rollout="kernel"`` for
+    GRAPH_PPO_UPDATES updates at GRAPH_POLICY_LANES envs (K4 an update),
+    the trained actor's ``policy_episode_returns`` (K5), and TD3 and SAC
+    with ``collect="kernel"`` for 2 iterations each (K29 an iteration),
+    every plain version patched to raise. Returns (launches, lines,
+    summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.vector import fast_episodes
+    B, PB = GRAPH_LANES, GRAPH_POLICY_LANES
+    T8 = random_params.topology
+    hi = float(T8.order_cap_heuristic * 2)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        acts, dems = ns.sample_streams_debug(random_params, SEED, hi, B, device=dev)
+        k1 = ns.episode_returns(random_params, acts, dems)
+        ret = fast_episodes.random_episode_returns(
+            random_params, torch.Generator(device=dev).manual_seed(5), B, GRAPH_EPISODES,
+            device=dev)
+        total = ns.rollout_transposed(random_params, torch.Generator(device=dev).manual_seed(3),
+                                      B, NUM_STEPS, device=dev)
+        k26 = ns.episode_returns_random_policy(random_params, dems, SEED, hi)
+        del acts, dems
+        cfg = ppo.PPOConfig(num_envs=PB, rollout_steps=NUM_STEPS, num_minibatches=8,
+                            update_epochs=4, pi_arch=(64, 64), vf_arch=(64, 64),
+                            rollout="kernel")
+        state, metrics = ppo.train(net.ENV, policy_params, cfg,
+                                   torch.Generator(device=dev).manual_seed(SEED),
+                                   GRAPH_PPO_UPDATES * PB * NUM_STEPS, device=dev)
+        actor = ek.fold_actor_params(cfg, state.params, state.rms)
+        k5 = fast_episodes.policy_episode_returns(
+            policy_params, actor, torch.Generator(device=dev).manual_seed(6), PB,
+            GRAPH_POLICY_EPISODES, device=dev)
+        off = {}
+        for algo in ("td3", "sac"):
+            ocfg = op.OffPolicyConfig(algo=algo, collect="kernel", num_envs=PB,
+                                      buffer_size=PB * NUM_STEPS * 2, batch_size=256,
+                                      start_steps=PB * NUM_STEPS, updates_per_iter=1)
+            _, _, off[algo] = op.train(net.ENV, policy_params, ocfg,
+                                       torch.Generator(device=dev).manual_seed(1),
+                                       2 * PB * NUM_STEPS, log_every=1, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    missing = [k for k in GRAPH_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the graphs' path launched no {missing}: {launches}")
+    want = {"rollout_traj_net": GRAPH_PPO_UPDATES, "rollout_traj_net_offpolicy": 4,
+            "batched_step": NUM_STEPS, "episode_returns_net_policy": 1}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"the graphs' path launched {launches}, not {want}")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    finite = [torch.isfinite(x).all() for x in (k1, ret, total, k26, k5)]
+    if bad or not all(finite) or not all(np.isfinite(m["mean_step_reward"]).all()
+                                         for m in off.values()):
+        raise AssertionError(f"the graphs' path: non-finite metrics {bad} or outputs {finite}")
+    summary = {"wall_s": wall, "k5_mean": float(k5.double().mean()),
+               "random_mean": float(ret.double().mean()),
+               "ppo_metrics": {k: [float(x) for x in v] for k, v in metrics.items()}}
+    lines = [f"default_regions(8): K3 and K1 at {B} x {NUM_STEPS}, random_episode_returns "
+             f"{B} x {GRAPH_EPISODES} (K2, mean {summary['random_mean']:.6g}), "
+             f"rollout_transposed (K25 x {NUM_STEPS}), K26; custom_regions(6): PPO "
+             f"{GRAPH_PPO_UPDATES} updates at {PB} x {NUM_STEPS} through K4, "
+             f"policy_episode_returns {PB} x {GRAPH_POLICY_EPISODES} through K5 (mean "
+             f"{summary['k5_mean']:.6g}), TD3 and SAC 2 iterations each through K29; no plain "
+             f"version; launches {dict((k, v) for k, v in launches.items() if v)}; "
+             f"{wall:.1f} s on {smi}"]
+    return launches, lines, summary
+
+
+def graph_times(dev, params, policy):
+    """Phase 53 on one graph: each kernel's best of its entry point's
+    launches (``cuda_time``) at phase 51's shapes, beside its bound by the
+    work model's counts for this graph. Returns {name: (ms, bound ms,
+    bound by)}."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    T = params.topology
+    B, E = GRAPH_LANES, GRAPH_EPISODES
+    hi = float(T.order_cap_heuristic * 2)
+    specs = ns._topology_link_specs(T, NUM_STEPS)
+    words = T.n_reorder + T.n_retail
+    lt = max(T.lt_max, 1)
+    acts, dems = ns.sample_streams_debug(params, SEED, hi, B, device=dev)
+    X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, B, dev))
+    state_rows = T.n_main + T.n_reorder + T.n_retail + lt * T.n_reorder
+    runs = {
+        "episode_returns": ((ns.episode_returns, params, acts, dems),
+                            bound(B * (NUM_STEPS * words + 1) * 4, B * NUM_STEPS * step_ops(T))),
+        "episode_returns_fully_fused": (
+            (ns.episode_returns_fully_fused, params, SEED, hi, B, NUM_STEPS, E, dev),
+            bound(E * B * 4, E * B * NUM_STEPS * (step_ops(T) + draw_ops(T, specs)))),
+        "sample_streams_debug": (
+            (ns.sample_streams_debug, params, SEED, hi, B, NUM_STEPS, E, None, dev),
+            bound(E * B * NUM_STEPS * words * 4, E * B * NUM_STEPS * draw_ops(T, specs))),
+        "batched_step": ((ns.batched_step, params, X, Y, U, RH, acts[3], dems[3], 3),
+                         bound(B * (2 * state_rows + words + 1) * 4, B * step_ops(T))),
+        "episode_returns_random_policy": (
+            (ns.episode_returns_random_policy, params, dems, SEED, hi),
+            bound(B * (NUM_STEPS * T.n_retail + 1) * 4,
+                  B * NUM_STEPS * (step_ops(T) + random_action_ops(T)))),
+    }
+    if policy:
+        PB, PE = GRAPH_POLICY_LANES, GRAPH_POLICY_EPISODES
+        actor, log_std = seeded_actor(T.obs_dim, T.n_reorder, dev)
+        dims = [T.obs_dim, 64, 64, T.n_reorder]
+        step_all = step_ops(T) + mlp_ops(dims)
+        k5_ops = step_all + policy_draw_ops(T, specs, False)
+        k4_rows = (NUM_STEPS + 1) * (T.n_main + T.n_retail) + NUM_STEPS * (
+            2 * T.n_reorder + 1 + T.n_retail)
+        runs.update({
+            "episode_returns_net_policy": (
+                (ns.episode_returns_net_policy, params, actor, SEED, PB, PE, None, dev),
+                tc_bound(PB * PE * 4, PB * PE * NUM_STEPS, k5_ops, mlp_tc_flops(dims))[0]),
+            "sample_policy_streams_debug_net": (
+                (ns.sample_policy_streams_debug_net, params, actor, SEED, PB, PE, None, dev),
+                tc_bound(PB * PE * (1 + NUM_STEPS * words) * 4, PB * PE * NUM_STEPS, k5_ops,
+                         mlp_tc_flops(dims))[0]),
+            "rollout_traj_net": (
+                (ns.rollout_traj_net, params, actor, log_std, SEED, PB, "ppo", "tanh", dev),
+                tc_bound(PB * k4_rows * 4, PB * NUM_STEPS,
+                         step_all + policy_draw_ops(T, specs, True), mlp_tc_flops(dims))[0]),
+        })
+        for mode in ("det", "sac"):
+            off_actor, off_log_std = seeded_offpolicy_actor(T.obs_dim, T.n_reorder,
+                                                            mode == "sac", dev)
+            n_bytes, per_step, horizon, weights = offpolicy_work(
+                "rollout_traj_net_offpolicy", params, T.obs_dim, T.n_reorder, mode)
+            runs[f"rollout_traj_net_offpolicy {mode}"] = (
+                (ns.rollout_traj_net_offpolicy, params, off_actor, off_log_std, SEED, PB, mode,
+                 "relu", dev),
+                bound(PB * n_bytes + weights, PB * horizon * per_step))
+    out = {}
+    for name, ((fn, *args), (b_ms, b_by)) in runs.items():
+        out[name] = (cuda_time(fn, *args, warmup=1, iters=5)["best_ms"], b_ms, b_by)
+    del acts, dems, X, Y, U, RH
+    return out
+
+
+def graph_phases(dev, wrappers, smi, err, parent_libs):
+    """Phases 51-53: the two test graphs (GRAPH_REGIONS), past the first
+    design's struct maxima. 51, at GRAPH_CHECK_STEPS periods: each graph's
+    plans, K1-K3, K25 and K26 on both against their plain versions
+    (``graph_random_checks``), and on custom_regions(6) K4-K6
+    (``policy_cross_check`` at GRAPH_POLICY_LANES x GRAPH_POLICY_EPISODES)
+    and K29 (``graph_offpolicy_checks``). 52: the
+    graphs' counted path (``graph_main_path``). 53: each kernel's time on
+    each graph beside its bound (``graph_times``), and K2, K1, K5, K4 and
+    K29 on the default graph in turns with their parent design
+    (tools/net_graph_sweep.py, its libraries built with phase 2's). Returns
+    (launches, lines, summary)."""
+    import torch
+
+    net_graph_sweep = graph_sweep_tool()
+    t0 = time.perf_counter()
+    graphs = {f"{name}({copies})": graph_params(name, copies) for name, copies in GRAPH_REGIONS}
+    random_params, policy_params = graphs["default_regions(8)"], graphs["custom_regions(6)"]
+    checks = {label: graph_params(name, copies, GRAPH_CHECK_STEPS)
+              for label, (name, copies) in zip(graphs, GRAPH_REGIONS)}
+    summary, lines = {"plans": {}, "times": {}}, []
+    for label, params in checks.items():
+        line, plans = graph_plans(params)
+        summary["plans"][label] = plans
+        lines.append(f"[51 graphs] {label}: {line}")
+        t1 = time.perf_counter()
+        e, ls = graph_random_checks(params, dev)
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+        lines += [f"[51 graphs] {label}: {x}" for x in ls]
+        lines.append(f"[51 graphs] {label}: K1-K3, K25, K26 {time.perf_counter() - t1:.1f} s")
+    custom = checks["custom_regions(6)"]
+    actor, log_std = seeded_actor(custom.topology.obs_dim, custom.topology.n_reorder, dev)
+    t1 = time.perf_counter()
+    e, _, ls = policy_cross_check(custom, dev, actor, log_std, GRAPH_POLICY_LANES,
+                                  GRAPH_POLICY_EPISODES, edges=False)
+    ls.append(f"K4-K6 {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0.0), v)
+    lines += [f"[51 graphs] custom_regions(6): {x}" for x in ls]
+    e29, ls = graph_offpolicy_checks(custom, dev)
+    ls.append(f"K29 {time.perf_counter() - t1:.1f} s")
+    err["rollout_traj_net_offpolicy"] = max(err.get("rollout_traj_net_offpolicy", 0.0), e29)
+    lines += [f"[51 graphs] custom_regions(6): {x}" for x in ls]
+    lines.append(f"[51 graphs] {time.perf_counter() - t0:.1f} s")
+    for x in lines:
+        print(x, flush=True)
+
+    launches, path_lines, summary["path"] = graph_main_path(dev, wrappers, smi, policy_params,
+                                                            random_params)
+    for x in path_lines:
+        print(f"[52 graph path] {x}", flush=True)
+
+    t0 = time.perf_counter()
+    for label, params in graphs.items():
+        times = graph_times(dev, params, params is policy_params)
+        summary["times"][label] = times
+        print(f"[53 graph times] {label}: " + "; ".join(
+            f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
+            for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
+    turns = net_graph_sweep.turns(dev, parent_libs, GRAPH_TURN_KERNELS, GRAPH_TURN_ROUNDS)
+    summary["turns"] = turns
+    for name, r in turns.items():
+        print(f"[53 turns] {net_graph_sweep.line(name, r)} on {smi}", flush=True)
+    print(f"[53 graph times] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return launches, lines + path_lines, summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -4949,11 +5383,15 @@ def main() -> int:
     print(f"[1 device] {kind}, {torch.cuda.device_count()} card(s); nvidia-smi: "
           f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build (and, all at once, phase 53's parent design of the NetInvMgmt
+    # kernels, tools/net_graph_parent/)
     t0 = time.perf_counter()
+    net_graph_sweep = graph_sweep_tool()
+    parent_jobs = net_graph_sweep.start_parent_build()
     logs = _build.build()
     for lib in _build.SIGNATURES:
         _build.library(lib)
+    parent_libs = net_graph_sweep.finish_parent_build(parent_jobs)
     ptxas = [ln.split("info    :")[-1].strip() for out in logs.values()
              for ln in out.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -5760,6 +6198,9 @@ def main() -> int:
     launches_bench, bench_summary = bench_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_bench[name] for name in wrappers}
 
+    launches_graph, _, graph_summary = graph_phases(dev, wrappers, smi, err, parent_libs)
+    launches = {name: launches[name] + launches_graph[name] for name in wrappers}
+
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
 
@@ -5791,6 +6232,7 @@ def main() -> int:
     print(json.dumps({"offpolicy_xla_main_path": off_xla_summary}))
     print(json.dumps({"bench_main_path": bench_summary}))
     print(json.dumps({"mesh_main_path": mesh_summary}))
+    print(json.dumps({"graph_main_path": graph_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

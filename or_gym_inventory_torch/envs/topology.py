@@ -52,6 +52,8 @@ Both reference topologies ship as built-ins: ``default_topology()``
 
 from __future__ import annotations
 
+import copy
+
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -342,9 +344,10 @@ def from_networkx(graph, num_periods: int,
     return compile_graph(nodes, edges, num_periods, user_D, sample_path)
 
 
-def default_topology(num_periods: int = 30, **kw) -> Topology:
-    """The reference default 9-node network (network_management.py:108-144)."""
-    nodes = {
+# The reference default 9-node network (network_management.py:108-144), as
+# compile_graph takes it: (nodes, edges).
+DEFAULT_GRAPH = (
+    {
         0: {},                                                    # market
         1: dict(I0=100, h=0.030),                                 # retailer
         2: dict(I0=110, h=0.020),                                 # distributor
@@ -353,8 +356,8 @@ def default_topology(num_periods: int = 30, **kw) -> Topology:
         5: dict(I0=350, C=90, o=0.015, v=1.000, h=0.013),         # manufacturer
         6: dict(I0=380, C=80, o=0.012, v=1.000, h=0.011),         # manufacturer
         7: {}, 8: {},                                             # raw materials
-    }
-    edges = [
+    },
+    [
         (1, 0, dict(p=2.000, b=0.100, dist_param=dict(lam=20))),
         (2, 1, dict(L=5, p=1.500, g=0.010)),
         (3, 1, dict(L=3, p=1.600, g=0.015)),
@@ -367,30 +370,72 @@ def default_topology(num_periods: int = 30, **kw) -> Topology:
         (7, 5, dict(L=1, p=0.050, g=0.005)),
         (8, 5, dict(L=2, p=0.070, g=0.002)),
         (8, 6, dict(L=0, p=0.200, g=0.000)),
-    ]
-    return compile_graph(nodes, edges, num_periods, **kw)
+    ],
+)
 
-
-def custom_topology(num_periods: int = 30, **kw) -> Topology:
-    """The custom 7-node network (network_management_custom.py:108-139):
-    1 market <- 3 retailers <- 1 distributor <- 1 factory <- 1 raw-material."""
-    nodes = {
+# The custom 7-node network (network_management_custom.py:108-139):
+# 1 market <- 3 retailers <- 1 distributor <- 1 factory <- 1 raw-material.
+_RETAIL = dict(p=25.000, b=0.200, dist_param=dict(lam=20))
+CUSTOM_GRAPH = (
+    {
         0: {},
         1: dict(I0=120, h=0.200), 2: dict(I0=120, h=0.200), 3: dict(I0=120, h=0.200),
         4: dict(I0=900, h=0.200),
         5: dict(I0=1200, C=80, o=0.012, v=1.000, h=0.100),
         6: {},
-    }
-    retail = dict(p=25.000, b=0.200, dist_param=dict(lam=20))
-    edges = [
-        (1, 0, dict(retail)), (2, 0, dict(retail)), (3, 0, dict(retail)),
+    },
+    [
+        (1, 0, dict(_RETAIL)), (2, 0, dict(_RETAIL)), (3, 0, dict(_RETAIL)),
         (4, 1, dict(L=1, p=5.500, g=0.010)),
         (4, 2, dict(L=1, p=5.500, g=0.010)),
         (4, 3, dict(L=1, p=5.500, g=0.010)),
         (5, 4, dict(L=1, p=1.2, g=0.015)),
         (6, 5, dict(L=0, p=0.500, g=0.000)),
-    ]
-    return compile_graph(nodes, edges, num_periods, **kw)
+    ],
+)
+
+
+def default_topology(num_periods: int = 30, **kw) -> Topology:
+    """The reference default 9-node network (network_management.py:108-144)."""
+    return compile_graph(*copy.deepcopy(DEFAULT_GRAPH), num_periods, **kw)
+
+
+def custom_topology(num_periods: int = 30, **kw) -> Topology:
+    """The custom 7-node network (network_management_custom.py:108-139):
+    1 market <- 3 retailers <- 1 distributor <- 1 factory <- 1 raw-material."""
+    return compile_graph(*copy.deepcopy(CUSTOM_GRAPH), num_periods, **kw)
+
+
+def repeated_regions(graph, copies: int):
+    """(nodes, edges) of ``copies`` copies of ``graph``'s nodes 1.. under
+    its one market, node 0: copy c's node k becomes k + c * (the largest
+    node id), and every copy's retailers sell to node 0. A supply network of
+    several regions under one market, as compile_graph takes it."""
+    nodes, edges = copy.deepcopy(graph)
+    top = max(nodes)
+
+    def shift(j, c):
+        return 0 if j == 0 else j + c * top
+    out_nodes = {0: nodes[0]}
+    out_edges = []
+    for c in range(copies):
+        out_nodes.update({shift(j, c): copy.deepcopy(a) for j, a in nodes.items() if j})
+        out_edges += [(shift(u, c), shift(v, c), copy.deepcopy(a)) for u, v, a in edges]
+    return out_nodes, out_edges
+
+
+def default_regions(copies: int, num_periods: int = 30, **kw) -> Topology:
+    """``copies`` copies of the default network's nodes 1-8 under one market
+    (``repeated_regions``): 6 main nodes, 11 reorder links and one retail
+    link a copy."""
+    return compile_graph(*repeated_regions(DEFAULT_GRAPH, copies), num_periods, **kw)
+
+
+def custom_regions(copies: int, num_periods: int = 30, **kw) -> Topology:
+    """``copies`` copies of the custom network's nodes 1-6 under one market
+    (``repeated_regions``): 5 main nodes, 5 reorder links and 3 retail links
+    a copy."""
+    return compile_graph(*repeated_regions(CUSTOM_GRAPH, copies), num_periods, **kw)
 
 
 def two_retail_topology(num_periods: int = 30, **kw) -> Topology:

@@ -29,38 +29,40 @@ _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # every source also exports csrc/launch.cuh's cuda_error_message
 SIGNATURES = {
     "net_episode": {
-        # topo, state layout, staging, acts, dems, disc, out, B, T, stream
-        "net_episode_returns": ((_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P), _I),
-        # topo, layout, disc, tables, out, seed, act_scale, B, E, T, stream
-        "net_episode_returns_fused": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _I, _P), _I),
-        # topo, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
-        "net_sample_streams": ((_P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
-        # topo, state layout, staging, X, Y, U, RH, acts, dems, X', Y', U',
+        # topo, small, state layout, staging, acts, dems, disc, out, B, T, stream
+        "net_episode_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P), _I),
+        # topo, small, layout, threads, disc, tables, out, seed, act_scale, B, E, T,
+        # stream
+        "net_episode_returns_fused": ((_P, _P, _P, _I, _P, _P, _P, _U32, _F, _LL, _I, _I,
+                                       _P), _I),
+        # topo, small, tables, acts, dems, seed, act_scale, B, T, e0, e1, stream
+        "net_sample_streams": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _I, _I, _P), _I),
+        # topo, small, state layout, staging, X, Y, U, RH, acts, dems, X', Y', U',
         # RH', reward, disc, t, lt, B, stream
-        "net_batched_step": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+        "net_batched_step": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                               _I, _I, _LL, _P), _I),
-        # topo, layout, dems, disc, out, seed, act_scale, B, T, stream
-        "net_episode_returns_random": ((_P, _P, _P, _P, _P, _U32, _F, _LL, _I, _P), _I),
+        # topo, small, layout, threads, dems, disc, out, seed, act_scale, B, T, stream
+        "net_episode_returns_random": ((_P, _P, _P, _I, _P, _P, _P, _U32, _F, _LL, _I, _P), _I),
     },
     "net_policy": {
-        # topo, state layout, tile, actor, tables, disc, x, u, r, raw, reward,
+        # topo, small, state layout, tile, actor, tables, disc, x, u, r, raw, reward,
         # demand, seed, B, T, stream
-        "net_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "net_rollout_traj": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _U32, _LL, _I, _P), _I),
-        # topo, state layout, tile, actor, tables, disc, out, acts, dems, seed,
+        # topo, small, state layout, tile, actor, tables, disc, out, acts, dems, seed,
         # B, E, T, stochastic, stream
-        "net_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL,
+        "net_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _LL,
                                 _I, _I, _I, _P), _I),
-        # topo, wide, actor, tables, disc, x, u, r, raw, reward, demand, seed,
-        # relu, B, T, stream
-        "net_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I,
-                                   _LL, _I, _P), _I),
-        # topo, state layout, cluster, actor, tables, disc, x, u, r, raw,
+        # topo, small, state layout, wide, actor, tables, disc, x, u, r, raw, reward,
+        # demand, seed, relu, B, T, stream
+        "net_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32,
+                                   _I, _LL, _I, _P), _I),
+        # topo, small, state layout, cluster, actor, tables, disc, x, u, r, raw,
         # reward, demand, seed, relu, B, T, stream
-        "net_rollout_traj_cluster": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32,
+        "net_rollout_traj_cluster": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32,
                                       _I, _LL, _I, _P), _I),
-        # cluster, relu, out
-        "net_rollout_traj_cluster_occupancy": ((_P, _I, _P), _I),
+        # cluster, relu, small, out
+        "net_rollout_traj_cluster_occupancy": ((_P, _I, _I, _P), _I),
     },
     "im_episode": {
         # params, staging layout, acts, dems, disc, out, seed, random, backlog,

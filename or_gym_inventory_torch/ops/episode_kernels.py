@@ -483,14 +483,15 @@ _MLP_TILES = (64, 32)
 
 
 def _mlp_tile_plan(dims, dem_rows: int, scratch_rows: int, state_words: int,
-                   lanes: int) -> MlpTilePlan:
+                   lanes: int, topo_floats: int = 0) -> MlpTilePlan:
     """The layout of a tile of ``lanes`` pairs for an actor of widths
     ``dims``: the activations (the obs rows padded to 8, each layer's
     outputs to 16; in place when each layer is one product, since it reads
     all of its inputs before it writes: a hidden layer of one M-tile or of
     a group of ``_MLP_TILE_GROUP``, an output layer of one M-tile; else
     two ping-pong buffers), then ``state_words``
-    words a lane of state that lasts the episode. The period's transient
+    words a lane of state that lasts the episode, then ``topo_floats`` for the
+    block (K4-K6: the topology's records, ops/net_step.py). The period's transient
     rows lie in the buffer that ends with H, from row pad16(act), dead
     until the next period's obs: ``dem_rows`` of demand, a row of normals
     per action and ``scratch_rows`` of step scratch; the buffers have rows
@@ -507,7 +508,8 @@ def _mlp_tile_plan(dims, dem_rows: int, scratch_rows: int, state_words: int,
     state = x1 + rows * stride
     offsets = {"x0": 0, "x1": x1, "dem": dem, "z": dem + dem_rows * stride,
                "scratch": dem + (dem_rows + act) * stride, "state": state}
-    return MlpTilePlan(lanes, stride, rows, in_place, offsets, state + state_words * lanes)
+    return MlpTilePlan(lanes, stride, rows, in_place, offsets,
+                       state + state_words * lanes + topo_floats)
 
 
 def _set_mlp_tile(st: _MlpTile, plan: MlpTilePlan) -> None:
@@ -545,12 +547,12 @@ def _gather(actor, std, index, zero, dev) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: int,
-                    state_words: int, device: str):
+                    state_words: int, device: str, topo_floats: int = 0):
     """(the MlpTile struct, the gather index and a zero, both on ``device``)
     of ``_pack_tile_actor``: the packed buffer is ``_gather_source``'s
     concatenation gathered by the index. Built once per shape, so a call
     packs with a few launches."""
-    plans = [_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes)
+    plans = [_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes, topo_floats)
              for lanes in _MLP_TILES]
     plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
     if plan is None:
@@ -583,7 +585,8 @@ def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: 
 
 
 def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
-                     dem_rows: int = 0, scratch_rows: int = 0, state_words: int = 0):
+                     dem_rows: int = 0, scratch_rows: int = 0, state_words: int = 0,
+                     topo_floats: int = 0):
     """The tile kernels' actor arguments: the MlpTile struct and one flat
     float32 buffer on ``device``. The buffer holds each layer's W as the A
     fragments of the tensor-core product (W^T zero-padded to (pad16(out),
@@ -592,7 +595,7 @@ def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
     carries their offsets, ``half_hi`` (the f32 factor that maps
     tanh(raw_i) + 1 onto action i's range), the tile (the first of
     ``_MLP_TILES`` whose layout, ``_mlp_tile_plan`` with ``dem_rows``,
-    ``scratch_rows`` and ``state_words``, fits a block) and the layout
+    ``scratch_rows``, ``state_words`` and ``topo_floats``, fits a block) and the layout
     (``_tile_pack_plan``, cached). Raises ValueError for an actor beyond the
     kernels' maxima, as ``_pack_actor`` does, or beyond the shared memory
     of a block."""
@@ -600,7 +603,8 @@ def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
     dev = torch.device(device)
     st, index, zero = _tile_pack_plan(tuple(dims), std is not None,
                                       tuple(float(h) for h in half_hi), dem_rows, scratch_rows,
-                                      state_words, _plan_key(dev) if dev.type == "cuda" else "cpu")
+                                      state_words, _plan_key(dev) if dev.type == "cuda" else "cpu",
+                                      topo_floats)
     return st, _quiet_nans(_gather(actor, std, index, zero, dev))
 
 
@@ -758,11 +762,13 @@ class ClusterLayout:
     is dead from the last hidden layer's barrier to the next period's obs
     barrier, where it holds them; ``noise_per_period``, the head's noise of
     one period a lane (drawn each period) rather than the episode's (drawn
-    at the reset; "uniform" keeps the episode's)."""
+    at the reset; "uniform" keeps the episode's); ``topo_floats``, floats a
+    CTA keeps after its last region (K29: the topology's records)."""
     dem_rows: int = 1
     pad: int = 8
     out_in_x0: bool = False
     noise_per_period: bool = False
+    topo_floats: int = 0
 
 
 # K27 and K28's layout; K29's (``net_step._net_cluster_layout``) keeps one
@@ -830,6 +836,7 @@ def _cluster_plan(dims, act_dim: int, with_std: bool, T: int, state_words: int,
     for name, size in sizes.items():
         offsets[name] = floats
         floats += size
+    floats += layout.topo_floats
     if in_x0:
         offsets["red"] = offsets["x0"]
         offsets["h"] = offsets["x0"] + out_sizes["red"]

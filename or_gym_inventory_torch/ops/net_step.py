@@ -45,17 +45,26 @@ from or_gym_inventory_torch.ops import rng
 if TYPE_CHECKING:  # the env imports this module for its demand sampler
     from or_gym_inventory_torch.envs.net_inv_management import NetInvParams
 
-# fixed maxima of the topology struct the kernels take by value
-# (csrc/net_topo.cuh); the wrappers raise beyond them
-MAX_MAIN, MAX_RO, MAX_RT, MAX_RING = 16, 32, 16, 256
-
-# K2 and K26 keep each thread's state in dynamic shared memory. An H100 gives
-# a block at most 227 KB of it and an SM 228 KB, of which it keeps 1 KB for
-# each resident block; an SM holds at most 2,048 threads and 32 blocks.
+# The kernels keep each thread's state, and the topology's records, in
+# dynamic shared memory. An H100 gives a block at most 227 KB of it and an SM
+# 228 KB, of which it keeps 1 KB for each resident block; an SM holds at most
+# 2,048 threads and 32 blocks.
 SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = (
     ek.SMEM_OPTIN_BYTES, ek.SMEM_PER_SM, ek.SMEM_PER_BLOCK_RESERVED)
-# threads a block of every kernel (csrc/launch.cuh kThreads)
+# the block size of every kernel on a graph whose state fits it
+# (csrc/launch.cuh kThreads)
 THREADS = 128
+# the block sizes of the shared-state kernels (K1, K2, K25, K26), largest
+# first: each takes the first whose block holds the graph's state and
+# records; 32 threads, a warp, is the least, and sets the one bound on a graph
+STATE_THREADS = (THREADS, 64, 32)
+# floats of a topology record (csrc/net_topo.cuh NetLink, NetNode, NetRetail)
+RECORD_FLOATS = 8
+# the small size class (csrc/net_topo.cuh NetTopoSmall, the first design's
+# maxima): a graph of at most these reorder links, main nodes and retail
+# links passes its records in the kernels' parameters, which the default
+# graph's kernels read 2-6% faster than records in shared memory
+SMALL_RO, SMALL_MAIN, SMALL_RT = 32, 16, 16
 
 
 def init_transposed(params: NetInvParams, batch: int, device=None):
@@ -301,24 +310,60 @@ def _episode_returns_fully_fused_plain(params, seed, act_hi, batch, num_steps,
 
 # ------------------------------------------------------------ kernel binding
 
+class _NetLink(ctypes.Structure):
+    """Mirror of ``struct NetLink`` in csrc/net_topo.cuh: a reorder link."""
+    _fields_ = [("sup", ctypes.c_int), ("pur", ctypes.c_int), ("L", ctypes.c_int),
+                ("ring", ctypes.c_int), ("price", ctypes.c_float), ("g", ctypes.c_float),
+                ("pad0", ctypes.c_int), ("pad1", ctypes.c_int)]
+
+
+class _NetNode(ctypes.Structure):
+    """Mirror of ``struct NetNode`` in csrc/net_topo.cuh: a main node."""
+    _fields_ = [("is_factory", ctypes.c_int), ("C", ctypes.c_float), ("v", ctypes.c_float),
+                ("h", ctypes.c_float), ("o", ctypes.c_float), ("I0", ctypes.c_float),
+                ("pad0", ctypes.c_int), ("pad1", ctypes.c_int)]
+
+
+class _NetRetail(ctypes.Structure):
+    """Mirror of ``struct NetRetail`` in csrc/net_topo.cuh: a retail link
+    and its demand plan."""
+    _fields_ = [("ret", ctypes.c_int), ("konst", ctypes.c_int), ("off", ctypes.c_int),
+                ("len", ctypes.c_int), ("price", ctypes.c_float), ("b", ctypes.c_float),
+                ("base", ctypes.c_float), ("pad0", ctypes.c_int)]
+
+
 class _NetTopo(ctypes.Structure):
-    """Mirror of ``struct NetTopo`` in csrc/net_topo.cuh (all fields
-    4-byte, so both sides lay it out without padding)."""
-    _fields_ = [
-        ("n_main", ctypes.c_int), ("n_ro", ctypes.c_int),
-        ("n_rt", ctypes.c_int), ("backlog", ctypes.c_int),
-        ("ro_sup", ctypes.c_int * MAX_RO), ("ro_pur", ctypes.c_int * MAX_RO),
-        ("ro_L", ctypes.c_int * MAX_RO), ("ro_ring", ctypes.c_int * MAX_RO),
-        ("ro_price", ctypes.c_float * MAX_RO), ("ro_g", ctypes.c_float * MAX_RO),
-        ("is_factory", ctypes.c_int * MAX_MAIN),
-        ("I0", ctypes.c_float * MAX_MAIN), ("h", ctypes.c_float * MAX_MAIN),
-        ("C", ctypes.c_float * MAX_MAIN), ("o", ctypes.c_float * MAX_MAIN),
-        ("v", ctypes.c_float * MAX_MAIN),
-        ("rt_ret", ctypes.c_int * MAX_RT), ("rt_price", ctypes.c_float * MAX_RT),
-        ("rt_b", ctypes.c_float * MAX_RT), ("rt_const", ctypes.c_int * MAX_RT),
-        ("rt_off", ctypes.c_int * MAX_RT), ("rt_len", ctypes.c_int * MAX_RT),
-        ("rt_base", ctypes.c_float * MAX_RT),
-    ]
+    """Mirror of ``struct NetTopo`` in csrc/net_topo.cuh: the counts and the
+    device address of the records (4 ints, then an 8-byte pointer at offset
+    16, so both sides lay it out without padding)."""
+    _fields_ = [("n_main", ctypes.c_int), ("n_ro", ctypes.c_int), ("n_rt", ctypes.c_int),
+                ("backlog", ctypes.c_int), ("rec", ctypes.c_void_p)]
+
+
+# each field of the small class's arrays: (name, the record and its field,
+# the array's length)
+_SMALL_FIELDS = (
+    [(f"ro_{f}", "links", f, SMALL_RO) for f in ("sup", "pur", "L", "ring", "price", "g")]
+    + [(f, "nodes", f, SMALL_MAIN) for f in ("is_factory", "I0", "h", "C", "o", "v")]
+    + [(f"rt_{name}", "retail", f, SMALL_RT)
+       for name, f in (("ret", "ret"), ("price", "price"), ("b", "b"), ("const", "konst"),
+                       ("off", "off"), ("len", "len"), ("base", "base"))])
+
+
+class _NetTopoSmall(ctypes.Structure):
+    """Mirror of ``NetTopoSmall`` (``NetTopoParams<32, 16, 16>``) in
+    csrc/net_topo.cuh, the first design's struct: the counts, then each
+    record field in an array of its own (all fields 4-byte, so both sides
+    lay it out without padding)."""
+    _fields_ = [("n_main", ctypes.c_int), ("n_ro", ctypes.c_int), ("n_rt", ctypes.c_int),
+                ("backlog", ctypes.c_int)] + [
+        (name, dict(_NetLink._fields_ + _NetNode._fields_ + _NetRetail._fields_)[field] * n)
+        for name, _, field, n in _SMALL_FIELDS]
+
+
+def _small_class(n_main: int, n_ro: int, n_rt: int) -> bool:
+    """Whether a graph of these counts takes the small size class."""
+    return n_main <= SMALL_MAIN and n_ro <= SMALL_RO and n_rt <= SMALL_RT
 
 
 class _NetSmem(ctypes.Structure):
@@ -332,12 +377,44 @@ class _NetSmem(ctypes.Structure):
 class SharedStatePlan:
     """The launch plan of K2 and K26, and (without the scratch) the state
     K5/K6 keep a lane. ``offsets`` maps each state field to its first word;
-    word k of thread t lies at ``smem[k * threads + t]``."""
+    word k of thread t lies at ``smem[k * threads + t]``; the topology's
+    ``topo_floats`` follow the threads' words."""
     words: int            # 32-bit words of state a thread
     offsets: dict
     threads: int          # threads a block
     bytes: int            # dynamic shared memory a block
     blocks_per_sm: int    # resident blocks an SM holds on an H100
+    topo_floats: int      # the topology's records, the block's last floats
+
+
+def _topo_floats(n_main: int, n_ro: int, n_rt: int) -> int:
+    """Floats of a graph's topology records in a block's shared memory:
+    none for the small class, whose records are kernel parameters."""
+    if _small_class(n_main, n_ro, n_rt):
+        return 0
+    return RECORD_FLOATS * (n_main + n_ro + n_rt)
+
+
+def _block_plan(words: int, topo_floats: int, threads) -> tuple:
+    """(threads, bytes, blocks an SM) of the first block size in ``threads``
+    whose ``words`` a thread and the records fit a block's shared memory, or
+    None."""
+    for n in threads:
+        nbytes = 4 * (words * n + topo_floats)
+        if nbytes <= SMEM_PER_BLOCK:
+            blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), 2048 // n, 32)
+            return n, nbytes, blocks
+    return None
+
+
+def _too_large(what: str, words: int, topo_floats: int) -> ValueError:
+    """The refusal of a graph whose ``words`` a lane (``what``) and records
+    fit no block of 32 threads."""
+    held = (SMEM_PER_BLOCK - 4 * topo_floats) // (4 * 32)
+    return ValueError(
+        f"graph too large for the CUDA kernels: {what} needs {words} words a lane beside "
+        f"the topology's {topo_floats}; the {SMEM_PER_BLOCK} bytes of shared memory of a "
+        f"block of 32 threads hold {max(held, 0)} words a lane")
 
 
 def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int,
@@ -345,8 +422,11 @@ def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int,
     """The shared-memory layout of a graph with ``n_main`` main nodes,
     ``n_ro`` reorder links, ``n_rt`` retail links and lead times summing to
     ``ring``: X, consumed, arrivals and sold per main node, Y and the ring
-    position per reorder link, U per retail link, then the order rings.
-    Every graph within the struct maxima fits a block of ``THREADS``.
+    position per reorder link, U per retail link, then the order rings; the
+    topology's records (``_topo_floats``) after the block's state. The block
+    size is the first of ``STATE_THREADS`` that holds them (128 on a small
+    graph of up to 453 words a lane); raises ValueError past a block of 32
+    threads.
     Without ``scratch`` the step's per-node scratch
     (consumed, arrivals, sold) has no words (its offsets are the next
     field's): K5/K6 keep it in their tile's transient rows (net_policy.cu
@@ -358,9 +438,11 @@ def _shared_state_plan(n_main: int, n_ro: int, n_rt: int, ring: int,
     for name, size in sizes.items():
         offsets[name] = words
         words += size
-    nbytes = words * 4 * THREADS
-    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), 2048 // THREADS, 32)
-    return SharedStatePlan(words, offsets, THREADS, nbytes, blocks)
+    topo = _topo_floats(n_main, n_ro, n_rt)
+    block = _block_plan(words, topo, STATE_THREADS)
+    if block is None:
+        raise _too_large("the state", words, topo)
+    return SharedStatePlan(words, offsets, *block, topo)
 
 
 class _NetStage(ctypes.Structure):
@@ -390,20 +472,21 @@ class StagedPlan:
 
 
 def _staged_plan(state: SharedStatePlan, stage_words: int, chunk: int,
-                 threads: int) -> StagedPlan:
-    """``state`` followed by ``stage_words`` staging words a thread, at
-    ``threads`` a block."""
+                 threads) -> StagedPlan:
+    """``state`` followed by ``stage_words`` staging words a thread, then the
+    records, at the first block size in ``threads`` that holds them, or
+    None."""
     words = state.words + stage_words
-    nbytes = words * 4 * threads
-    blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), 2048 // threads, 32)
-    return StagedPlan(state, state.words, chunk, words, threads, nbytes, blocks)
+    block = _block_plan(words, state.topo_floats, threads)
+    return None if block is None else StagedPlan(state, state.words, chunk, words, *block)
 
 
 # K1's block sizes, largest first: it takes the first whose block fits in
-# shared memory (128 on every graph but the largest). On an H100 the block
-# size moved K1 by at most 3.4% at 1,024, 4,096 and 65,536 lanes x 30
-# (tools/net_k1_k25_sweep.py): a lane's chain of periods sets its time.
-K1_THREADS = (128, 64, 32)
+# shared memory (128 on a small graph of up to 453 words of state and
+# staging). On an H100 the block size moved K1 by at most 3.4% at 1,024,
+# 4,096 and 65,536 lanes x 30 (tools/net_k1_k25_sweep.py): a lane's chain
+# of periods sets its time.
+K1_THREADS = STATE_THREADS
 # K1's periods a staging buffer (two buffers). Four ran 2% faster than one
 # at 1,024 and 4,096 lanes and 7% at 65,536 (fewer waits, and at 65,536
 # fewer resident warps contending for an SM's issue slots; same sweep).
@@ -416,26 +499,33 @@ def _k1_plan(n_main: int, n_ro: int, n_rt: int, ring: int, chunk: int = K1_CHUNK
     ``_shared_state_plan`` takes them): K2's state (scratch included), then
     two staging buffers of ``chunk`` periods of n_ro + n_rt words, at
     ``threads`` a block, by default the first of ``K1_THREADS`` whose block
-    fits. Raises ValueError where none fits."""
+    fits, then the records. Raises ValueError where none fits, naming the
+    words."""
     if chunk < 1:
         raise ValueError(f"K1 stages at least one period a buffer, got {chunk}")
     state = _shared_state_plan(n_main, n_ro, n_rt, ring)
     stage_words = 2 * chunk * (n_ro + n_rt)
-    for n in (K1_THREADS if threads is None else (threads,)):
-        plan = _staged_plan(state, stage_words, chunk, n)
-        if plan.bytes <= SMEM_PER_BLOCK:
-            return plan
-    raise ValueError(f"K1's staging of {chunk} periods a buffer fits no block of "
-                     f"{threads or K1_THREADS} threads")
+    plan = _staged_plan(state, stage_words, chunk, K1_THREADS if threads is None else (threads,))
+    if plan is None:
+        raise ValueError(f"K1's staging of {chunk} periods a buffer fits no block of "
+                         f"{threads or K1_THREADS} threads: " + str(_too_large(
+                             "K1's state and staging", state.words + stage_words,
+                             state.topo_floats)))
+    return plan
 
 
 def _k25_plan(n_main: int, n_ro: int, n_rt: int, arriving: int) -> StagedPlan:
     """K25's shared memory: the state of ``_shared_state_plan`` with one
     ring word for each of the ``arriving`` links with L > 0 (the order that
     arrives this period), then one staged period (its actions and demand),
-    at ``THREADS`` a block."""
+    at the first of ``STATE_THREADS`` whose block holds them, then the
+    records. Raises ValueError past a block of 32 threads."""
     state = _shared_state_plan(n_main, n_ro, n_rt, arriving)
-    return _staged_plan(state, n_ro + n_rt, 1, THREADS)
+    plan = _staged_plan(state, n_ro + n_rt, 1, STATE_THREADS)
+    if plan is None:
+        raise _too_large("K25's state and staging", state.words + n_ro + n_rt,
+                         state.topo_floats)
+    return plan
 
 
 @functools.lru_cache(maxsize=32)
@@ -447,43 +537,83 @@ def _shared_layout(topology, scratch: bool = True):
     return plan, _NetSmem(words=plan.words, **plan.offsets)
 
 
-def _pack_topology(params: NetInvParams, link_specs=None):
-    """The kernels' topology struct, and the flat f32 list of every link's
-    inversion table or per-period constants that ``rt_off``/``rt_len``
-    index. Raises ValueError for a topology beyond the struct's maxima."""
+@dataclasses.dataclass(frozen=True)
+class PackedTopology:
+    """The topology's records as the kernels read them (csrc/net_topo.cuh):
+    ``links`` (``_NetLink`` a reorder link), ``nodes`` (``_NetNode`` a main
+    node) and ``retail`` (``_NetRetail`` a retail link), and the flat f32
+    list ``tables`` of every retail link's inversion table or per-period
+    constants, which a retail record's ``off``/``len`` index."""
+    n_main: int
+    n_ro: int
+    n_rt: int
+    backlog: int
+    links: ctypes.Array
+    nodes: ctypes.Array
+    retail: ctypes.Array
+    tables: list
+
+    def records(self) -> np.ndarray:
+        """The records as int32 words, in the kernels' order: the links, the
+        main nodes, then the retail links."""
+        raw = bytes(self.links) + bytes(self.nodes) + bytes(self.retail)
+        return np.frombuffer(raw, dtype=np.int32).copy()
+
+
+def _pack_topology(params: NetInvParams, link_specs=None, rings=None) -> PackedTopology:
+    """The kernels' topology records and demand tables (``PackedTopology``).
+    ``link_specs`` (``_topology_link_specs``) plans the demand; without it
+    the retail records plan none (K1, K25 and K26 read no demand table).
+    ``rings`` names each link's ring offset (K25: ``_arriving_words``); by
+    default the cumulative lead times. No graph is too large to pack; the
+    kernels' plans bound it by a block's shared memory."""
     T = params.topology
     n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
-    ring = sum(T.ro_L)
-    if n_main > MAX_MAIN or n_ro > MAX_RO or n_rt > MAX_RT or ring > MAX_RING:
-        raise ValueError(
-            f"topology too large for the CUDA kernels: n_main={n_main} "
-            f"(max {MAX_MAIN}), n_reorder={n_ro} (max {MAX_RO}), "
-            f"n_retail={n_rt} (max {MAX_RT}), sum of lead times={ring} "
-            f"(max {MAX_RING})")
-    tp = _NetTopo(n_main=n_main, n_ro=n_ro, n_rt=n_rt, backlog=int(params.backlog))
-    off = 0
-    for i in range(n_ro):
-        tp.ro_sup[i], tp.ro_pur[i] = T.ro_sup_main[i], T.ro_pur_main[i]
-        tp.ro_L[i], tp.ro_ring[i] = T.ro_L[i], off
-        tp.ro_price[i], tp.ro_g[i] = T.ro_price[i], T.ro_g[i]
-        off += T.ro_L[i]
-    for n in range(n_main):
-        tp.is_factory[n] = int(T.is_factory[n])
-        tp.I0[n], tp.h[n], tp.C[n] = T.I0[n], T.h[n], T.C[n]
-        tp.o[n], tp.v[n] = T.o[n], T.v[n]
+    rings = rings if rings is not None else tuple(np.cumsum((0,) + T.ro_L[:-1]).tolist())
+    links = (_NetLink * n_ro)(*(
+        _NetLink(sup=T.ro_sup_main[i], pur=T.ro_pur_main[i], L=T.ro_L[i], ring=int(rings[i]),
+                 price=T.ro_price[i], g=T.ro_g[i]) for i in range(n_ro)))
+    nodes = (_NetNode * n_main)(*(
+        _NetNode(is_factory=int(T.is_factory[n]), C=T.C[n], v=T.v[n], h=T.h[n], o=T.o[n],
+                 I0=T.I0[n]) for n in range(n_main)))
+    retail = (_NetRetail * n_rt)()
     tables = []
     for j in range(n_rt):
-        tp.rt_ret[j] = T.rt_retailer_main[j]
-        tp.rt_price[j], tp.rt_b[j] = T.rt_price[j], T.rt_b[j]
+        rt = retail[j]
+        rt.ret, rt.price, rt.b = T.rt_retailer_main[j], T.rt_price[j], T.rt_b[j]
         if link_specs is None:
             continue
         spec = link_specs[j]
         values = spec[1] if spec[0] == "const" else spec[2]
-        tp.rt_const[j] = int(spec[0] == "const")
-        tp.rt_base[j] = 0.0 if spec[0] == "const" else float(spec[1])
-        tp.rt_off[j], tp.rt_len[j] = len(tables), len(values)
+        rt.konst = int(spec[0] == "const")
+        rt.base = 0.0 if spec[0] == "const" else float(spec[1])
+        rt.off, rt.len = len(tables), len(values)
         tables.extend(values)
-    return tp, tables
+    return PackedTopology(n_main, n_ro, n_rt, int(params.backlog), links, nodes, retail, tables)
+
+
+def _topology_on(packed: PackedTopology, device: str) -> _NetTopo:
+    """The header of ``packed``'s records copied to ``device``, the header
+    keeping the copy alive; for a graph of the small class its ``small``
+    is the records in a ``_NetTopoSmall`` (else None)."""
+    rec = torch.from_numpy(packed.records()).to(device)
+    counts = dict(n_main=packed.n_main, n_ro=packed.n_ro, n_rt=packed.n_rt,
+                  backlog=packed.backlog)
+    tp = _NetTopo(rec=rec.data_ptr(), **counts)
+    tp.records = rec
+    tp.small = None
+    if _small_class(packed.n_main, packed.n_ro, packed.n_rt):
+        tp.small = _NetTopoSmall(**counts)
+        for name, records, field, _ in _SMALL_FIELDS:
+            for k, rec in enumerate(getattr(packed, records)):
+                getattr(tp.small, name)[k] = getattr(rec, field)
+    return tp
+
+
+def _topo_args(tp: _NetTopo) -> tuple:
+    """The C entry points' first two arguments: the header and, for the
+    small class, the small struct (else None)."""
+    return ctypes.addressof(tp), None if tp.small is None else ctypes.addressof(tp.small)
 
 
 def _f32_on(values, device):
@@ -494,16 +624,18 @@ def _f32_on(values, device):
 @functools.lru_cache(maxsize=16)
 def _launch_plan(params: NetInvParams, num_steps: int, device: str,
                  with_demand: bool):
-    """A launch's host-built arguments: the topology struct, the f32 alpha^t
-    table and, ``with_demand``, every link's inversion table, the tables
-    copied to ``device``. Built once per (params, num_steps, device), so a
-    launch packs and copies nothing. K1 takes no demand tables, so its
-    topology may hold a ``hostfn`` link."""
+    """A launch's host-built arguments: the topology's header with its
+    records on ``device`` (``_topology_on``), the f32 alpha^t table and,
+    ``with_demand``, every link's inversion table, the tables copied to
+    ``device``. Built once per (params, num_steps, device), so a launch packs
+    and copies nothing. K1 takes no demand tables, so its topology may hold
+    a ``hostfn`` link."""
     link_specs = (_topology_link_specs(params.topology, num_steps)
                   if with_demand else None)
-    tp, tables = _pack_topology(params, link_specs)
-    return (tp, _f32_on(ek._discounts(params.alpha, num_steps), device),
-            _f32_on(tables, device))
+    packed = _pack_topology(params, link_specs)
+    return (_topology_on(packed, device),
+            _f32_on(ek._discounts(params.alpha, num_steps), device),
+            _f32_on(packed.tables, device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -526,18 +658,16 @@ def _arriving_words(ro_L) -> tuple:
 
 
 @functools.lru_cache(maxsize=16)
-def _k25_launch(params: NetInvParams):
-    """K25's host-built arguments for ``params``: the topology struct with
-    ``ro_ring`` naming each link's arriving word (``_arriving_words``), the
-    ``_k25_plan``'s ``_NetSmem`` and ``_NetStage``, lt and the row counts
-    of the five outputs. It packs nothing of the demand, so a ``hostfn``
-    link is no obstacle."""
+def _k25_launch(params: NetInvParams, device: str):
+    """K25's host-built arguments for ``params`` on ``device``: the topology's
+    header with its records, each link's ``ring`` naming its arriving word
+    (``_arriving_words``), the ``_k25_plan``'s ``_NetSmem`` and
+    ``_NetStage``, lt and the row counts of the five outputs. It packs
+    nothing of the demand, so a ``hostfn`` link is no obstacle."""
     T = params.topology
-    tp, _ = _pack_topology(params)
     words = _arriving_words(T.ro_L)
-    for i, k in enumerate(words):
-        tp.ro_ring[i] = k
     plan = _k25_plan(T.n_main, T.n_reorder, T.n_retail, sum(k >= 0 for k in words))
+    tp = _topology_on(_pack_topology(params, rings=words), device)
     lt = max(T.lt_max, 1)
     return (tp, _NetSmem(words=plan.state.words, **plan.state.offsets), plan.struct(), lt,
             (T.n_main, T.n_reorder, T.n_retail, lt * T.n_reorder, 1))
@@ -588,7 +718,7 @@ def episode_returns(params: NetInvParams, actions: torch.Tensor,
     _, lay, st = _k1_layout(T.n_main, T.n_reorder, T.n_retail, sum(T.ro_L))
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("net_episode_returns", ctypes.addressof(tp), ctypes.addressof(lay),
+        _launch("net_episode_returns", *_topo_args(tp), ctypes.addressof(lay),
                 ctypes.addressof(st), actions.data_ptr(), demands.data_ptr(), disc.data_ptr(),
                 out.data_ptr(), B, num_steps, ek._stream(dev))
     episode_returns.launches += 1
@@ -621,12 +751,12 @@ def episode_returns_fully_fused(params: NetInvParams, seed: int, act_hi: float,
                                                  num_steps, E, dev)
     else:
         tp, disc, tab = _launch_plan(params, num_steps, ek._plan_key(dev), True)
-        _, layout = _shared_layout(params.topology)
+        plan, layout = _shared_layout(params.topology)
         out = torch.empty((E, batch), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            _launch("net_episode_returns_fused", ctypes.addressof(tp), ctypes.addressof(layout),
-                    disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi),
-                    batch, E, num_steps, ek._stream(dev))
+            _launch("net_episode_returns_fused", *_topo_args(tp), ctypes.addressof(layout),
+                    plan.threads, disc.data_ptr(), tab.data_ptr(), out.data_ptr(), seed,
+                    _act_scale(act_hi), batch, E, num_steps, ek._stream(dev))
         episode_returns_fully_fused.launches += 1
     return out.reshape(batch) if E == 1 else out
 
@@ -664,7 +794,7 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
         acts = torch.empty((num_steps, W, n_ro, batch), dtype=torch.float32, device=dev)
         dems = torch.empty((num_steps, W, n_rt, batch), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            _launch("net_sample_streams", ctypes.addressof(tp), tab.data_ptr(),
+            _launch("net_sample_streams", *_topo_args(tp), tab.data_ptr(),
                     acts.data_ptr(), dems.data_ptr(), seed, _act_scale(act_hi),
                     batch, num_steps, e0, e1, ek._stream(dev))
         sample_streams_debug.launches += 1
@@ -724,12 +854,12 @@ def batched_step(params: NetInvParams, X: torch.Tensor, Y: torch.Tensor, U: torc
         return _batched_step_plain(params, X, Y, U, RH, action, demand, t)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    tp, lay, st, lt, out_rows = _k25_launch(params)
+    tp, lay, st, lt, out_rows = _k25_launch(params, ek._plan_key(dev))
     ins = [x.contiguous() for x in ins]
     outs = torch.empty((sum(out_rows), B), dtype=torch.float32, device=dev).split(out_rows)
     with torch.cuda.device(dev):
         # ctypes rounds the double alpha^t to f32 to nearest, as np.float32 does
-        _launch("net_batched_step", ctypes.addressof(tp), ctypes.addressof(lay),
+        _launch("net_batched_step", *_topo_args(tp), ctypes.addressof(lay),
                 ctypes.addressof(st), *(x.data_ptr() for x in ins),
                 *(x.data_ptr() for x in outs), float(params.alpha ** t), t, lt, B,
                 ek._stream(dev))
@@ -806,12 +936,12 @@ def episode_returns_random_policy(params: NetInvParams, demands: torch.Tensor, s
     num_steps, _, B = demands.shape
     dev = demands.device
     tp, disc, _ = _launch_plan(params, num_steps, ek._plan_key(dev), False)
-    _, layout = _shared_layout(params.topology)
+    plan, layout = _shared_layout(params.topology)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("net_episode_returns_random", ctypes.addressof(tp), ctypes.addressof(layout),
-                demands.data_ptr(), disc.data_ptr(), out.data_ptr(), seed, _act_scale(act_hi),
-                B, num_steps, ek._stream(dev))
+        _launch("net_episode_returns_random", *_topo_args(tp), ctypes.addressof(layout),
+                plan.threads, demands.data_ptr(), disc.data_ptr(), out.data_ptr(), seed,
+                _act_scale(act_hi), B, num_steps, ek._stream(dev))
     episode_returns_random_policy.launches += 1
     return out
 
@@ -843,12 +973,13 @@ def _half_hi(T) -> float:
 def _pack_net_tile_actor(T, actor, std, device):
     """``episode_kernels._pack_tile_actor`` for the topology (K4-K6): the
     tile's transient rows hold a demand row per retail link and the step's
-    per-node scratch, and each lane keeps the state of ``_shared_layout(T,
-    scratch=False)``."""
+    per-node scratch, each lane keeps the state of ``_shared_layout(T,
+    scratch=False)``, and the block the topology's records."""
+    state = _shared_layout(T, False)[0]
     return ek._pack_tile_actor(actor, std, T.obs_dim, T.n_reorder,
                                [_half_hi(T)] * T.n_reorder, device, dem_rows=T.n_retail,
-                               scratch_rows=3 * T.n_main,
-                               state_words=_shared_layout(T, False)[0].words)
+                               scratch_rows=3 * T.n_main, state_words=state.words,
+                               topo_floats=state.topo_floats)
 
 
 def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH,
@@ -989,7 +1120,7 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
                reward=torch.empty((num_steps, batch), **f32),
                demand=torch.empty((num_steps, n_rt, batch), **f32))
     with torch.cuda.device(dev):
-        _launch("net_rollout_traj", ctypes.addressof(tp),
+        _launch("net_rollout_traj", *_topo_args(tp),
                 ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
                 flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
@@ -1023,11 +1154,29 @@ def _net_route(batch: int, lanes: int, clusters_held: int) -> str:
 
 def _net_cluster_layout(T) -> ek.ClusterLayout:
     """K29's cluster layout (``episode_kernels.ClusterLayout``): a demand
-    a retail link, and the room that lets 4 CTAs hold 64 lanes of the
-    (68, 256, 256, 11) actor: no padding (its FP32 products' loads are
-    conflict-free without it), the output layer's sums in x0, a period's
-    noise."""
-    return ek.ClusterLayout(dem_rows=T.n_retail, pad=0, out_in_x0=True, noise_per_period=True)
+    a retail link, the topology's records after the regions, and the room
+    that lets 4 CTAs hold 64 lanes of the (68, 256, 256, 11) actor: no
+    padding (its FP32 products' loads are conflict-free without it), the
+    output layer's sums in x0, a period's noise."""
+    return ek.ClusterLayout(dem_rows=T.n_retail, pad=0, out_in_x0=True, noise_per_period=True,
+                            topo_floats=_topo_floats(T.n_main, T.n_reorder, T.n_retail))
+
+
+def _net_wide_bytes(T, wide: ek._WideMlp) -> None:
+    """Check that a block of K29's wide route fits the shared memory of a
+    block: the two activation buffers of ``wide``, then each of its 32
+    lanes' state (``_shared_layout`` with the scratch) and demand rows,
+    then the records (csrc/net_policy.cu net_rollout_traj_wide). Raises
+    ValueError past it."""
+    state = _shared_layout(T)[0]
+    lanes = ek._WIDE_LANES
+    nbytes = 4 * (2 * wide.rows * lanes + (state.words + T.n_retail) * lanes + state.topo_floats)
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"graph too large for K29's wide route: its activations, {state.words} words of "
+            f"state and {T.n_retail} demand rows a lane over {lanes} lanes and the "
+            f"topology's {state.topo_floats} floats need {nbytes} bytes; the shared memory of "
+            f"a block holds {SMEM_PER_BLOCK}")
 
 
 def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch: int,
@@ -1082,19 +1231,22 @@ def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch
         if packed is not None:
             st, flat = packed
             held = ek._cluster_max_active("net_policy", "net_rollout_traj_cluster_occupancy",
-                                          st.cluster, st.floats, (relu,), ek._plan_key(dev))
+                                          st.cluster, st.floats, (relu, int(tp.small is not None)),
+                                          ek._plan_key(dev))
             route = _net_route(batch, st.lanes, held)
         if route == "cluster":
             st.clusters = ek._cluster_grid(-(-batch // st.lanes), held)
-            _launch("net_rollout_traj_cluster", ctypes.addressof(tp), ctypes.addressof(lay),
+            _launch("net_rollout_traj_cluster", *_topo_args(tp), ctypes.addressof(lay),
                     ctypes.addressof(st), flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                     *streams, seed, relu, batch, num_steps, ek._stream(dev),
                     lib_name="net_policy")
         else:
             st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy, half_hi, dev)
-            _launch("net_rollout_traj_wide", ctypes.addressof(tp), ctypes.addressof(st),
-                    flat.data_ptr(), tab.data_ptr(), disc.data_ptr(), *streams, seed, relu,
-                    batch, num_steps, ek._stream(dev), lib_name="net_policy")
+            _net_wide_bytes(T, st)
+            _launch("net_rollout_traj_wide", *_topo_args(tp), ctypes.addressof(lay),
+                    ctypes.addressof(st), flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
+                    *streams, seed, relu, batch, num_steps, ek._stream(dev),
+                    lib_name="net_policy")
     rollout_traj_net_offpolicy.launches += 1
     rollout_traj_net_offpolicy.route = route
     return out
@@ -1129,7 +1281,7 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
         acts = torch.empty((num_steps, E, T.n_reorder, batch), **f32)
         dems = torch.empty((num_steps, E, T.n_retail, batch), **f32)
     with torch.cuda.device(dev):
-        _launch("net_policy_returns", ctypes.addressof(tp),
+        _launch("net_policy_returns", *_topo_args(tp),
                 ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
                 flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,

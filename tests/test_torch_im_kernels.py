@@ -45,6 +45,7 @@ from or_gym_inventory_torch.ops import episode_kernels as tek
 from or_gym_inventory_torch.ops import rng
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_torch.vector import fast_episodes as tfe
+from or_gym_inventory_torch.vector import vecenv as tvec
 from or_gym_inventory_tpu.envs import inv_management as jim
 from or_gym_inventory_tpu.ops import pallas_episode_kernels as jek
 from or_gym_inventory_tpu.vector import fast_episodes as jfe
@@ -267,9 +268,18 @@ def test_wrappers_check_inputs_and_count_no_launches_on_cpu():
     with pytest.raises(ValueError, match="too large"):
         tek._im_plan(tim.default_params(I0=(1,) * 9, r=(1.0,) * 10, k=(0.0,) * 10,
                                         h=(0.0,) * 9, c=(5,) * 9, L=(1,) * 9), CPU)
+    # a law past the inversion table's cap runs the vecenv rollout, with a
+    # RuntimeWarning, as the JAX package runs its XLA rollout
     wide = tim.default_params(periods=STEPS, dist_param={"mu": 50_000})
-    with pytest.raises(NotImplementedError, match="cap"):
-        tfe.random_episode_returns(wide, torch.Generator(), 4, device=CPU)
+    with pytest.warns(RuntimeWarning, match="cap"):
+        out = tfe.random_episode_returns(wide, torch.Generator().manual_seed(3), 4,
+                                         episodes_per_lane=2, device=CPU)
+    space = tim.action_space(wide)
+    _, traj = tvec.rollout(tim.ENV, wide,
+                           lambda _s, obs, g, _t: space.sample(g, (obs.shape[0],), device=CPU),
+                           None, torch.Generator().manual_seed(3), 8, STEPS, device=CPU)
+    assert out.shape == (8,) and torch.equal(out, traj.reward.sum(0))
+    assert counts == [w.launches for w in wrappers]
     # the stream-in kernel takes any law: it reads no table
     tek.episode_returns_im(wide, acts, dems)
     if not torch.cuda.is_available():

@@ -250,9 +250,13 @@ def test_lstm_policy_episode_returns_on_the_three_families(monkeypatch):
     seed = tfe.kernel_seed(torch.Generator().manual_seed(5))
     assert out.shape == (32,) and torch.equal(out, tek.episode_returns_im_lstm(
         tp, actor, seed, 32, device=CPU))
+    # a law past the inversion table's cap: the vecenv route with the carry
+    # threaded, with a RuntimeWarning, as the JAX package's XLA scan
     wide = tim.default_params(periods=STEPS, dist_param={"mu": 50_000})
-    with pytest.raises(NotImplementedError, match="cap"):
-        tfe.lstm_policy_episode_returns(wide, actor, torch.Generator(), 4, device=CPU)
+    with pytest.warns(RuntimeWarning, match="cap"):
+        out = tfe.lstm_policy_episode_returns(wide, actor, torch.Generator().manual_seed(3), 4,
+                                              device=CPU)
+    assert out.shape == (4,) and bool(torch.isfinite(out).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tfe.lstm_policy_episode_returns(tp, actor, torch.Generator(), 4)

@@ -39,6 +39,7 @@ from or_gym_inventory_torch.envs import inv_management as tim
 from or_gym_inventory_torch.ops import episode_kernels as tek
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_torch.vector import fast_episodes as tfe
+from or_gym_inventory_torch.vector import vecenv as tvec
 from or_gym_inventory_tpu.envs import inv_management as jim
 from or_gym_inventory_tpu.ops import pallas_episode_kernels as jek
 
@@ -144,9 +145,19 @@ def test_policy_episode_returns_runs_plain_k11():
     with pytest.raises(ValueError, match="log_std"):
         tfe.policy_episode_returns(tp, actor, torch.Generator(), 4, deterministic=False,
                                    device=CPU)
+    # a law past the inversion table's cap: the folded actor through the
+    # vecenv rollout, with a RuntimeWarning, as the JAX package's XLA rollout
     wide = tim.default_params(periods=STEPS, dist_param={"mu": 50_000})
-    with pytest.raises(NotImplementedError, match="cap"):
-        tfe.policy_episode_returns(wide, actor, torch.Generator(), 4, device=CPU)
+    with pytest.warns(RuntimeWarning, match="cap"):
+        out = tfe.policy_episode_returns(wide, actor, torch.Generator().manual_seed(3), 4,
+                                         episodes_per_lane=2, device=CPU)
+    space = tim.action_space(wide)
+    low = torch.as_tensor(space.low, dtype=torch.float32)
+    high = torch.as_tensor(space.high, dtype=torch.float32)
+    _, traj = tvec.rollout(
+        tim.ENV, wide, lambda _s, obs, g, _t: tek.apply_folded_actor(actor, obs, low, high, True),
+        None, torch.Generator().manual_seed(3), 8, STEPS, device=CPU)
+    assert out.shape == (8,) and torch.equal(out, traj.reward.sum(0))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tfe.policy_episode_returns(tp, actor, torch.Generator(), 4)

@@ -5,11 +5,12 @@ far as the CPU reaches them.
 - K1's staged plan (``net_step._k1_plan``): K2's state, then two staging
   buffers of ``K1_CHUNK`` periods of n_ro + n_rt words, by hand-counted
   words, bytes and blocks an SM at 32, 64 and 128 threads a block on the
-  default, maxima, custom and two-retail graphs; the block size the plan
-  takes is the first of ``K1_THREADS`` that fits an H100's 227 KB;
+  default, maxima, custom and two-retail graphs (all of the small size
+  class, so no record takes shared memory); the block size the plan takes
+  is the first of ``K1_THREADS`` that fits an H100's 227 KB;
 - K25's layout (``net_step._k25_plan``, ``_arriving_words``,
   ``_k25_launch``): one ring word for each link with L > 0, the packed
-  topology's ``ro_ring`` naming it, none for an L = 0 link;
+  link record's ``ring`` naming it, none for an L = 0 link;
 - a plain-torch replica of K25's indexing on that layout (the lane's words
   copied in, the mask t >= L_i, step_view's one pass in its load order, the
   fulfilled orders straight to RH', RH's rows shifted down) against the JAX
@@ -70,7 +71,7 @@ TWO_RETAIL_EDGES = [(1, 0, dict(p=2.0, b=0.1, dist_param=dict(lam=20))),
 
 
 def _maxima_topology(num_periods=PERIODS):
-    """A graph at the struct maxima (net_topo.cuh): 16 retailers, each
+    """A graph at the first design's struct maxima: 16 retailers, each
     selling to the market and buying from two raw-material nodes at lead
     time 8, so 16 main nodes, 32 reorder links, 16 retail links and lead
     times summing to 256."""
@@ -141,6 +142,13 @@ def test_k1_takes_the_first_block_size_that_fits(graph, threads):
 def test_k1_refuses_a_staging_no_block_holds():
     with pytest.raises(ValueError, match="fits no block"):
         tns._k1_plan(16, 32, 16, 256, chunk=16)
+    # eight default regions under one market: 864 + 2*4*96 words at 32
+    # threads; a ring of 1,200 words too many beside the staging, and the
+    # refusal names the words
+    plan = tns._k1_plan(48, 88, 8, 488)
+    assert (plan.chunk, plan.threads, plan.words) == (4, 32, 864 + 2 * 4 * 96)
+    with pytest.raises(ValueError, match="K1's state and staging needs 2344 words"):
+        tns._k1_plan(48, 88, 8, 1_200)
     with pytest.raises(ValueError, match="at least one period"):
         tns._k1_plan(6, 11, 1, 61, chunk=0)
 
@@ -166,8 +174,8 @@ def test_k25_keeps_one_ring_word_per_link_with_a_lead_time(graph):
     T = params.topology
     assert tns._arriving_words(T.ro_L) == words
     assert all((k < 0) == (L == 0) for k, L in zip(words, T.ro_L))
-    tp, lay, st, lt, out_rows = tns._k25_launch(params)
-    assert tuple(tp.ro_ring[:T.n_reorder]) == words
+    tp, lay, st, lt, out_rows = tns._k25_launch(params, "cpu")
+    assert _records(tp).ro_ring == words
     plan = tns._k25_plan(T.n_main, T.n_reorder, T.n_retail, sum(k >= 0 for k in words))
     assert plan.state.words == state_words == lay.words == st.stage
     assert plan.words == state_words + stage_words == st.words
@@ -175,9 +183,28 @@ def test_k25_keeps_one_ring_word_per_link_with_a_lead_time(graph):
     assert (st.threads, st.chunk) == (tns.THREADS, 1)
     assert lt == max(T.lt_max, 1)
     assert out_rows == (T.n_main, T.n_reorder, T.n_retail, lt * T.n_reorder, 1)
-    full, _ = tns._pack_topology(params)   # the rest of the struct is _pack_topology's
-    full.ro_ring = tp.ro_ring
-    assert bytes(full) == bytes(tp)
+    # the rest of the records are _pack_topology's
+    full = tns._pack_topology(params).records().reshape(-1, tns.RECORD_FLOATS)
+    full[:T.n_reorder, 3] = words
+    assert np.array_equal(full.reshape(-1), tp.records.numpy())
+    assert (tp.n_main, tp.n_ro, tp.n_rt, tp.backlog) == (T.n_main, T.n_reorder, T.n_retail,
+                                                         int(params.backlog))
+
+
+def _records(tp):
+    """The records of the header ``tp`` (``net_step._topology_on``) read back
+    through their ctypes mirrors, as per-field tuples named as the first
+    design's struct named them (ro_sup, ..., is_factory, ..., rt_ret, ...)."""
+    raw = tp.records.cpu().numpy().tobytes()
+    links = (tns._NetLink * tp.n_ro).from_buffer_copy(raw, 0)
+    nodes = (tns._NetNode * tp.n_main).from_buffer_copy(raw, ctypes.sizeof(links))
+    retail = (tns._NetRetail * tp.n_rt).from_buffer_copy(
+        raw, ctypes.sizeof(links) + ctypes.sizeof(nodes))
+    out = dict(n_main=tp.n_main, n_ro=tp.n_ro, n_rt=tp.n_rt, backlog=tp.backlog)
+    for prefix, recs in (("ro_", links), ("", nodes), ("rt_", retail)):
+        for name, _ in recs._type_._fields_:
+            out[prefix + name] = tuple(getattr(r, name) for r in recs)
+    return types.SimpleNamespace(**out)
 
 
 def test_net_stage_mirrors_the_c_struct():
@@ -187,13 +214,14 @@ def test_net_stage_mirrors_the_c_struct():
 
 
 def test_k1_and_k25_take_their_layouts():
-    """K1: topo, state layout, staging, acts, dems, disc, out, B, T, stream;
-    K25: topo, state layout, staging, the six inputs, the five outputs,
-    disc, t, lt, B, stream."""
+    """K1: topo, the small class's struct, state layout, staging, acts,
+    dems, disc, out, B, T, stream; K25: topo, the small struct, state
+    layout, staging, the six inputs, the five outputs, disc, t, lt, B,
+    stream."""
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     c = _c_entry_points("net_episode")
-    assert c["net_episode_returns"][0] == (P,) * 7 + (LL, I, P)
-    assert c["net_batched_step"][0] == (P,) * 14 + (F, I, I, LL, P)
+    assert c["net_episode_returns"][0] == (P,) * 8 + (LL, I, P)
+    assert c["net_batched_step"][0] == (P,) * 15 + (F, I, I, LL, P)
 
 
 @pytest.mark.parametrize("alpha", [0.97, 0.99, 0.5, 1.0 / 3.0])
@@ -215,7 +243,8 @@ def _k25_replica(params, X, Y, U, RH, action, demand, t):
     (ring word ``tp.ro_ring[i]``), the fulfilled orders into RH' rows
     0..n_ro-1, RH's rows [0, (lt - 1) n_ro) into RH' rows n_ro.., and the
     reward f32(alpha^t) * profit."""
-    tp, _, st, lt, _ = tns._k25_launch(params)
+    tp, _, st, lt, _ = tns._k25_launch(params, "cpu")
+    tp = _records(tp)
     plan = tns._k25_plan(tp.n_main, tp.n_ro, tp.n_rt,
                          sum(k >= 0 for k in tns._arriving_words(params.topology.ro_L)))
     off, n_ro, n_rt, n_main = plan.state.offsets, tp.n_ro, tp.n_rt, tp.n_main

@@ -43,6 +43,7 @@ from or_gym_inventory_torch.ops import net_step as tns
 from or_gym_inventory_torch.ops import rng
 from or_gym_inventory_torch.utils import interop
 from or_gym_inventory_torch.vector import fast_episodes as tfe
+from or_gym_inventory_torch.vector import vecenv as tvec
 from or_gym_inventory_tpu.envs import net_inv_management as jnet
 from or_gym_inventory_tpu.ops import pallas_episode_kernels as jek
 from or_gym_inventory_tpu.ops import pallas_net_step as pns
@@ -354,7 +355,9 @@ WIDE_SPECS = [
 def test_sample_demand_draws_specs_beyond_the_table_cap(spec, mean, var, kurt):
     """Poisson(50,000) and the other named laws with wider support than the
     4,096-entry inversion table: the env draws them from the law, as the
-    JAX env does; the kernels still refuse them."""
+    JAX env does; the kernels' plan still refuses them, and
+    ``random_episode_returns`` runs them through the vecenv rollout, with a
+    RuntimeWarning, as the JAX package runs its XLA rollout."""
     T = dataclasses.replace(ttopo.default_topology(6), rt_demand=(spec,))
     params = tnet.NetInvParams(topology=T, num_periods=6)
     n = 200_000
@@ -365,7 +368,15 @@ def test_sample_demand_draws_specs_beyond_the_table_cap(spec, mean, var, kurt):
     assert abs(d.var(ddof=1) - var) < 5 * var * np.sqrt((kurt - 1) / n)
     assert np.array_equal(d, np.round(d)) and d.min() >= 0
     with pytest.raises(NotImplementedError, match="cap"):
-        tfe.random_episode_returns(params, torch.Generator(), 4, device=CPU)
+        tns._topology_link_specs(T, 6)
+    with pytest.warns(RuntimeWarning, match="cap"):
+        out = tfe.random_episode_returns(params, torch.Generator().manual_seed(1), 4,
+                                         device=CPU)
+    space = tnet.action_space(params)
+    _, traj = tvec.rollout(tnet.ENV, params,
+                           lambda _s, obs, g, _t: space.sample(g, (obs.shape[0],), device=CPU),
+                           None, torch.Generator().manual_seed(1), 4, 6, device=CPU)
+    assert out.shape == (4,) and torch.equal(out, traj.reward.sum(0))
 
 
 # ------------------------------------------------------------ on the card

@@ -91,11 +91,21 @@ def test_interop_params_round_trip(backlog, alpha):
 
 
 def test_pack_topology_refuses_oversized_graph():
+    """Lead times of 40 (a ring of 440 words, past the first design's 256)
+    pack and plan a block of 64; lead times of 200 (2,247 words of state a
+    lane) fit no block of 32 threads, and the plan names both counts (the
+    graph's records are kernel parameters: the small size class)."""
     T = ttopo.default_topology(10)
     wide = dataclasses.replace(T, ro_L=(40,) * T.n_reorder)
-    with pytest.raises(ValueError, match="too large"):
-        tns._pack_topology(tnet.NetInvParams(topology=wide, num_periods=10))
-    tp, tables = tns._pack_topology(tnet.default_params(num_periods=10),
-                                    tns._topology_link_specs(T, 10))
-    assert tp.n_ro == 11 and tp.rt_len[0] == len(tables) == 49
-    assert list(tp.ro_ring)[:11] == list(np.cumsum((0,) + T.ro_L[:-1]))
+    packed = tns._pack_topology(tnet.NetInvParams(topology=wide, num_periods=10))
+    assert [r.ring for r in packed.links] == list(range(0, 440, 40))
+    assert tns._shared_layout(wide)[0].threads == 64
+    wider = dataclasses.replace(T, ro_L=(200,) * T.n_reorder)
+    tns._pack_topology(tnet.NetInvParams(topology=wider, num_periods=10))
+    with pytest.raises(ValueError, match="too large.* needs 2247 words a lane beside the "
+                                         "topology's 0.* hold 1816 words a lane"):
+        tns._shared_layout(wider)
+    packed = tns._pack_topology(tnet.default_params(num_periods=10),
+                                tns._topology_link_specs(T, 10))
+    assert packed.n_ro == 11 and packed.retail[0].len == len(packed.tables) == 49
+    assert [r.ring for r in packed.links] == list(np.cumsum((0,) + T.ro_L[:-1]))
