@@ -125,7 +125,25 @@ launch counter set to 0 just before it and read just after:
   K29 DDPG, 1,024 lanes a rank), and an ``OrbaxCheckpointer`` saved at
   update 1 of InvManagement and resumed from a fresh state giving update
   2's parameters bit for bit; 50, ``PPOAgent(mesh=)`` on the two ranks:
-  rank 0 alone writes the checkpoint, a second ``train`` skips on both.
+  rank 0 alone writes the checkpoint, a second ``train`` skips on both;
+- the MLP actor at any width, depth and action count (phase 54, before the
+  mesh; the general actor classes, csrc/mlp_tile.cuh ``MlpTileG`` and
+  csrc/wide_mlp.cuh ``WideMlpG``): on NetInvMgmt ``default_regions(8)``
+  (obs 544, 88 actions) at 1,024 envs x 30, PPO ``rollout="kernel"`` for 2
+  updates (K4 each), ``policy_episode_returns`` of the trained actor
+  deterministic and stochastic at 1,024 x 4 (K5 each) and its dump (K6),
+  and TD3 and SAC ``collect="kernel"`` with SB3's (256, 256) actor for 2
+  iterations each (K29 each, on the wide route), no plain version; before
+  it each lifted kernel against its plain version by its family's gates
+  at 1,024 lanes (K4-K6 on ``default_regions(8)`` and ``(3)`` and under 10
+  layers by phase 7's, K29's three heads, (400, 300) actors on K10-K12
+  and K18-K20 by phases 12, 16 and 21's, 10 relu layers on K27 by phase
+  32's) and on the workspace route at 16,384 lanes, where each block walks
+  later tiles ((1024, 1024) actors on K4-K6, K10-K12, K18-K20 and K27),
+  and after it each one's time beside its bound, the kernels whose sources
+  the classes changed at their default shapes in turns with the parent
+  design (tools/actor_sweep.py), bit for bit, and the general class in
+  turns with the fixed one there.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -208,9 +226,10 @@ and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
 with its gradient in 8 chunks per minibatch against 1 (phase 9), trains
 InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
-PPO_CFG for 4M env-steps for its reward (phase 24), and recurrent PPO at
-validate_kernel_ppo.py's rppo_kernel protocol for its reward, which must
-beat the random policy's (phase 29), then K25-K29 (K27-K29 at the
+PPO_CFG for 2M of RESULTS.md's 4M env-steps for its reward (phase 24), and
+recurrent PPO at validate_kernel_ppo.py's rppo_kernel protocol cut to 1M of
+its 2M steps for its reward, which must beat the random policy's (phase
+29), then K25-K29 (K27-K29 at the
 learners' 1,024 lanes and at 65,536, through the entry points and, for
 K27-K29, the kernel alone on the entry point's route, whose outputs must
 first equal the entry point's bit for bit) and one TD3 iteration split into the kernel,
@@ -241,7 +260,9 @@ families' and the recurrent paths' rates and rewards;
 xla paths' rates beside the kernel paths' and the agents' training times;
 ``bench_main_path``: phases 45-47's rewards, rates and warm-ups;
 ``mesh_main_path``: phases 48-50's update times, walls and the gloo
-collectives' shares; a spawned rank's launches count with this process's),
+collectives' shares; a spawned rank's launches count with this process's;
+``graph_main_path``: phases 51-53's plans, times and turns;
+``actor_main_path``: phase 54's times, turns and the path's wall),
 the card's
 name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -427,7 +448,9 @@ LSTM_CASES = [(IM_DIST_MODES[0], True), (IM_DIST_MODES[0], False), (IM_DIST_MODE
 # tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel"): IM backlog, periods 50
 RPPO_RECIPE = dict(num_envs=1024, rollout_steps=50, num_minibatches=8, update_epochs=4,
                    rollout="kernel")
-RPPO_BUDGET = 2_000_000
+# cut from the protocol's 2M steps to 1M, to hold the run in its limit beside
+# phase 54 (its reward must still beat the random policy's)
+RPPO_BUDGET = 1_000_000
 RPPO_EVAL_ENVS = 64
 TPU_RPPO_REWARD = "+8,306.2 +- 15.5"  # tools/remeasure_logs/validate_kernel_ppo.jsonl:11
 # benchmarks/benchmark_newsvendor.py:35-38 (the reference's evaluation config)
@@ -448,10 +471,12 @@ IM_CHAIN_M1 = (1, 2, 8)
 # maxima, where tools/k9_k21_sweep.py times K9 too)
 IM_MAXIMA_L = (3, 5, 10, 32) * 2
 NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
-# benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for RESULTS.md:56's 4M env-steps
+# benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for 2M of RESULTS.md:56's 4M
+# env-steps (cut to hold the run in its limit beside phase 54; its return
+# must still beat the random policy's)
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
                      ent_coef=0.0, rollout="kernel")
-NV_PPO_BUDGET = 4_000_000
+NV_PPO_BUDGET = 2_000_000
 # the off-policy learners (slice 7): SB3's default actor, every roster's OFF_CFG
 # (off_policy.py:69); TD3/DDPG's exploration sigma
 OFF_ARCH = (256, 256)
@@ -871,10 +896,12 @@ class no_plain_versions:
 
 # a kernel's mangled name: the name, then its template arguments, integral
 # (``Lb1E``, ``Li-3E``) and, for the NetInvMgmt kernels, the topology's size
-# class last (csrc/net_topo.cuh: NetTopoParams<...>, the small class, read
-# "S"; NetTopo, any graph, "G")
+# class (csrc/net_topo.cuh: NetTopoParams<...>, the small class, read
+# "S"; NetTopo, any graph, "G"), then, for the actor kernels, the actor's
+# class (MlpTile or WideMlp, the fixed class, unread; MlpTileG or WideMlpG,
+# any actor, read "A")
 KERNEL_NAME = (r"(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)*(?:7NetTopo|13NetTopoParams"
-               r"ILi\d+ELi\d+ELi\d+EE)?E)?E")
+               r"ILi\d+ELi\d+ELi\d+EE)?(?:7MlpTile|8MlpTileG|7WideMlp|8WideMlpG)?E)?E")
 
 
 def kernel_name(m):
@@ -885,6 +912,8 @@ def kernel_name(m):
         flags.append("S")
     elif "NetTopo" in args:
         flags.append("G")
+    if "MlpTileG" in args or "WideMlpG" in args:
+        flags.append("A")
     return f"{m.group(1)}<{','.join(flags)}>" if flags else m.group(1)
 
 
@@ -2484,7 +2513,8 @@ def nv_tile_edge_cases(params, dev, actor, log_std):
 def nv_reward_check(dev, params, seed=0):
     """Phase 24's reward: benchmarks/benchmark_newsvendor.py's PPO_CFG with
     rollout="kernel" (256 envs x 50, 8 minibatches, 4 epochs, ent_coef 0)
-    for RESULTS.md:56's 4M env-steps, seed 0 (or ``seed``), on ``params``;
+    for NV_PPO_BUDGET env-steps (2M of RESULTS.md:56's 4M), seed 0 (or
+    ``seed``), on ``params``;
     then the deterministic ``policy_episode_returns`` of the trained actor
     over 65,536 x 16 episodes. Returns (mean, its standard error, training
     seconds, updates)."""
@@ -2756,7 +2786,8 @@ def lstm_eval_main_path(dev, wrappers, params, actor, smi):
 def lstm_reward_check(dev):
     """Phase 29, tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel")'s
     protocol: IM backlog, periods 50, 1,024 envs, rollout_steps 50, 8
-    minibatches, 4 epochs, 2M steps (39 updates), seed 0; then the port's
+    minibatches, 4 epochs, RPPO_BUDGET steps (1M of its 2M: 19 updates),
+    seed 0; then the port's
     ``eval_episodes`` on 64 envs. The random policy's mean return at the
     same params (K8, 65,536 episodes) is the bar it must beat. Returns
     (mean, its standard error, the random mean, training seconds,
@@ -2975,6 +3006,31 @@ def offpolicy_teacher_forced(name, params, tr, actor, std, mode, act_dim, dev, a
     return worst, within / tr["raw"].numel()
 
 
+def im_step_chain(params, tr, label, dev):
+    """K27's a_norm rescaled by ``_half_c`` gives its actions on >= 99.99%
+    of elements, and the InvManagement step chain on its actions and demand
+    gives its inv exactly and its rewards (rtol=1e-4, atol=1e-2). Returns
+    that share."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    acts = im.trunc_i32((tr["raw"] + 1.0) * torch.tensor(
+        ek._half_c(params), device=dev)[None, :, None])
+    share = float((acts == tr["actions"]).double().mean())
+    if share < 0.9999:
+        raise AssertionError(f"K27 {label}: a_norm rescaled gives its actions on "
+                             f"{share:.4%} of elements")
+    steps = tr["reward"].shape[0]
+    state, _ = im.reset(params, batch=tr["reward"].shape[1], device=dev)
+    for t in range(steps):
+        exact(f"step chain inv[{t}] vs K27 inv, {label}", state.inv.T, tr["inv"][t])
+        state, ts = im.step_with_demand(params, state, tr["actions"][t].T, tr["demand"][t])
+        close(f"step chain reward[{t}] vs K27, {label}", ts.reward, tr["reward"][t], 1e-4, 1e-2)
+    exact(f"step chain final inv vs K27, {label}", state.inv.T, tr["inv"][steps])
+    return share
+
+
 def nv_step_chain(params, tr, label):
     """The plain Newsvendor step chain on K28's econ, demand and a_norm
     gives its orders (rtol=1e-6, atol=1e-4) and rewards (rtol=1e-5,
@@ -3060,7 +3116,6 @@ def offpolicy_cross_check(dev):
     kernel over agreeing lanes, plain ms of the det head, lines)."""
     import torch
 
-    from or_gym_inventory_torch.envs import inv_management as im
     from or_gym_inventory_torch.ops import episode_kernels as ek
     from or_gym_inventory_torch.ops import net_step as ns
     err, plain_ms, lines = {}, {}, []
@@ -3106,21 +3161,7 @@ def offpolicy_cross_check(dev):
                      f"a_norm teacher-forced max |diff| {forced:.3g}; lanes agreeing "
                      + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items()))
         if name == "rollout_traj_im_offpolicy":
-            acts = im.trunc_i32((tr["raw"] + 1.0) * torch.tensor(
-                ek._half_c(params), device=dev)[None, :, None])
-            share = float((acts == tr["actions"]).double().mean())
-            if share < 0.9999:
-                raise AssertionError(f"K27 {mode}: a_norm rescaled gives its actions on "
-                                     f"{share:.4%} of elements")
-            state, _ = im.reset(params, batch=B, device=dev)
-            for t in range(NUM_STEPS):
-                exact(f"step chain inv[{t}] vs K27 inv, {mode}", state.inv.T, tr["inv"][t])
-                state, ts = im.step_with_demand(params, state, tr["actions"][t].T,
-                                                tr["demand"][t])
-                close(f"step chain reward[{t}] vs K27, {mode}", ts.reward,
-                      tr["reward"][t], 1e-4, 1e-2)
-            exact(f"step chain final inv vs K27, {mode}", state.inv.T,
-                  tr["inv"][NUM_STEPS])
+            share = im_step_chain(params, tr, mode, dev)
             lines.append(f"K27 {mode}: a_norm rescaled gives its actions on {share:.4%} "
                          "of elements; the env step chain gives its inv exactly")
         elif nv_family:
@@ -5341,6 +5382,661 @@ def graph_phases(dev, wrappers, smi, err, parent_libs):
     return launches, lines + path_lines, summary
 
 
+# phase 54: the MLP actor at any width, depth and action count (the actor
+# classes past the fixed structs, csrc/mlp_tile.cuh MlpTileG and
+# csrc/wide_mlp.cuh WideMlpG): NetInvMgmt default_regions(8) (obs 544, 88
+# actions) through the entry points, and beside it, kernel against plain,
+# default_regions(3) (33 actions), a (400, 300) actor (TD3's widths,
+# Fujimoto et al. 2018) on InvManagement and Newsvendor, (1024, 1024)
+# actors on the workspace route, a 10-layer actor on K4-K6 and K27
+ACTOR_LANES = 1_024           # the lifted path's envs and lanes, and the checks'
+ACTOR_EPISODES = 4            # K5/K6's, K11's and K19's episodes a lane there
+ACTOR_CHECK_STEPS = 15        # the NetInvMgmt checks' horizon, past every lead time
+ACTOR_PPO_UPDATES = 2
+ACTOR_OFF_ITERS = 2           # SAC's and TD3's: the warmup's uniform head, then theirs
+ACTOR_TURN_ROUNDS = 2
+ACTOR_WIDE = (400, 300)
+ACTOR_HUGE = (1024, 1024)
+ACTOR_DEEP = (64,) * 9        # 10 layers with the output layer
+# the workspace route's checks: ACTOR_WS_LANES lanes (x ACTOR_EPISODES for
+# the returns) give more tiles, or blocks of 32 lanes, than the persistent
+# grid has blocks, so each block walks later ones
+ACTOR_WS_LANES = 16_384
+ACTOR_PATH_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
+                      "sample_policy_streams_debug_net", "rollout_traj_net_offpolicy")
+
+
+def actor_sweep_tool():
+    """tools/actor_sweep.py, the parent design's build and turns."""
+    graph_sweep_tool()   # puts tools/ on sys.path
+    import importlib
+    return importlib.import_module("actor_sweep")
+
+
+def arch_actor(obs_dim, act_dim, arch, dev, folded=True, seed=SEED):
+    """A PPO actor of ``arch`` widths (tanh) drawn from its own
+    initialisation; ``folded``: obs statistics with mean ~50 and std ~20
+    folded into its first layer, as ``seeded_actor``'s; else the raw actor
+    (ROADMAP C6). Returns (folded actor, log_std), on ``dev``."""
+    import torch
+
+    from or_gym_inventory_torch.agents import networks, ppo
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    g = torch.Generator().manual_seed(seed)
+    model = networks.MLPActorCritic(obs_dim, act_dim, pi_arch=tuple(arch), generator=g)
+    rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(obs_dim, generator=g),
+                             var=(20.0 + 5.0 * torch.rand(obs_dim, generator=g)) ** 2,
+                             count=torch.tensor(1e3)) if folded else None
+    Ws, bs = ek.fold_actor_params(ppo.PPOConfig(), model, rms)
+    return ((tuple(W.to(dev) for W in Ws), tuple(b.to(dev) for b in bs)),
+            model.log_std.detach().to(dev))
+
+
+def actor_label(arch):
+    """An actor's name in phase 54's lines: "10 layers" for ACTOR_DEEP, else
+    its widths."""
+    return f"{len(arch) + 1} layers" if arch == ACTOR_DEEP else f"{arch}"
+
+
+def actor_plan(label, st):
+    """A packed struct's class and layout as a line: the tile or the wide
+    route, lanes, shared memory and workspace bytes a block."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    if isinstance(st, ek._MlpTileG):
+        return (f"{label}: MlpTileG, {st.lanes} lanes, {4 * st.s_total} B of shared memory, "
+                f"{4 * st.ws_floats} B of workspace a block")
+    if isinstance(st, ek._WideMlpG):
+        return (f"{label}: WideMlpG, buffers of {st.rows0} and {st.rows1} rows, "
+                f"{4 * st.ws_floats} B of workspace a block")
+    if isinstance(st, ek._MlpTile):
+        return f"{label}: MlpTile (fixed), {st.lanes} lanes, {4 * st.s_total} B"
+    return f"{label}: {type(st).__name__} (fixed)"
+
+
+def actor_plans(p8, p3, imp, nvp, dev):
+    """The lifted shapes' plans (the packing the entry points do), as lines."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    lines = []
+    for label, params in (("default_regions(8)", p8), ("default_regions(3)", p3)):
+        T = params.topology
+        actor, log_std = arch_actor(T.obs_dim, T.n_reorder, (64, 64), dev)
+        st, _ = ns._pack_net_tile_actor(T, actor, ek.clipped_std(log_std), dev)
+        lines.append(actor_plan(f"K4-K6 {label} (64, 64)", st))
+    T = p8.topology
+    for mode in ("det", "sac", "uniform"):
+        actor, log_std = seeded_offpolicy_actor(T.obs_dim, T.n_reorder, mode == "sac", dev)
+        st, _ = ek._pack_wide_actor(actor, ek._offpolicy_std(mode, log_std), T.obs_dim,
+                                    T.n_reorder, mode, [ns._half_hi(T)] * T.n_reorder, dev,
+                                    ns._net_wide_extra(T), noise_rows=True)
+        lines.append(actor_plan(f"K29 default_regions(8) {OFF_ARCH} {mode}", st))
+    T = graph_params("default_regions", 1).topology
+    for arch in (ACTOR_DEEP, ACTOR_HUGE):
+        actor, _ = arch_actor(T.obs_dim, T.n_reorder, arch, dev)
+        st, _ = ns._pack_net_tile_actor(T, actor, None, dev)
+        lines.append(actor_plan(f"K4-K6 default graph {arch}", st))
+    obs = im.observation_space(imp).shape[0]
+    for arch in (ACTOR_WIDE, ACTOR_HUGE, ACTOR_DEEP):
+        actor, _ = arch_actor(obs, imp.m1, arch, dev)
+        lines.append(actor_plan(f"K10-K12 {arch}", ek._im_tile_actor(imp, actor, None, dev)[0]))
+    layouts = {v: k for k, v in ek.NV_TILE_LAYOUTS.items()}
+    for arch in (ACTOR_WIDE, ACTOR_HUGE):
+        actor, _ = arch_actor(nvp.obs_dim, 1, arch, dev)
+        st, _ = ek._nv_tile_actor(nvp, actor, None, dev)
+        tile, nt = ek._nv_tile_launch(st, ek._nv_plan(nvp, "cpu")["struct"], nvp.step_limit)
+        lines.append(actor_plan(f"K18-K20 {arch} ({layouts[nt.layout]} layout)", tile))
+    for arch in (ACTOR_DEEP, ACTOR_HUGE):
+        actor, _ = seeded_offpolicy_actor(obs, imp.m1, False, dev, arch)
+        st, _ = ek._pack_wide_actor(actor, torch.ones(imp.m1, device=dev), obs, imp.m1, "det",
+                                    ek._half_c(imp), dev)
+        lines.append(actor_plan(f"K27 {arch} relu det", st))
+    return lines
+
+
+def actor_offpolicy_checks(params, dev):
+    """K29 on ``params`` (default_regions(8)) at ACTOR_LANES on the wide
+    route's general class: the (256, 256) relu actor under the det and sac
+    heads and the warmup's uniform head; demand bit for bit with plain's,
+    a_norm in [-1, 1] and teacher-forced within atol=1e-3 (the wide route's
+    FP32 sums in another order, as phase 51 holds it), the uniform head's
+    a_norm bit for bit, the free-running lanes' shares reported; K1 and the
+    plain step chain on its streams give its rewards, x, u and r. Returns
+    (max |diff| over agreeing lanes, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    T = params.topology
+    B, obs, act = ACTOR_LANES, T.obs_dim, T.n_reorder
+    worst, lines = 0.0, []
+    for mode in ("det", "sac", "uniform"):
+        actor, log_std = seeded_offpolicy_actor(obs, act, mode == "sac", dev)
+        std = ek.clipped_std(log_std) if mode == "det" else None
+        tr = ns.rollout_traj_net_offpolicy(params, actor, log_std, SEED, B, mode, "relu", dev)
+        if ns.rollout_traj_net_offpolicy.route != "wide":
+            raise AssertionError(f"K29 {mode}: the {ns.rollout_traj_net_offpolicy.route} route")
+        want = ns._rollout_traj_plain(params, actor, std, SEED, B, dev, mode, "relu")
+        exact(f"K29 {mode} demand vs plain", tr["demand"], want["demand"])
+        if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+            raise AssertionError(f"K29 {mode}: a_norm outside [-1, 1]")
+        if mode == "uniform":
+            exact("K29 uniform a_norm vs plain", tr["raw"], want["raw"])
+            forced, within = 0.0, 1.0
+        else:
+            forced, within = offpolicy_teacher_forced(
+                "rollout_traj_net_offpolicy", params, tr, actor, std, mode, act, dev, 1e-3)
+        shares = {k: lane_share(f"K29 {mode} {k} vs plain", tr[k], want[k],
+                                *((1e-4, 1e-4) if k == "raw" else (1e-4, 1e-2)), 0.0)
+                  for k in tr if k != "demand"}
+        worst = max([worst] + [e for _, e in shares.values()])
+        net_step_chain(params, tr, f"default_regions(8), {mode}", dev, 1e-2, 1e-1)
+        lines.append(f"K29 {mode} on the wide route's general class ({B} lanes x "
+                     f"{params.num_periods}): demand equal to plain's; a_norm teacher-forced "
+                     f"max |diff| {forced:.3g} ({within:.4%} within 1e-4); lanes agreeing "
+                     + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                     + "; K1 and the plain step chain on its streams give its rewards")
+        del tr, want
+    return worst, lines
+
+
+def persistent_walk(label, st, units, threads, nbytes, regs, dev):
+    """Raise unless ``st`` (a general-class struct) takes the workspace
+    route and ``units`` (tiles, or blocks of lanes) outnumber the blocks of
+    its persistent grid (``_persistent_blocks``), so a block walks later
+    ones. Returns (blocks, units)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    if not st.ws_floats:
+        raise AssertionError(f"{label}: not on the workspace route")
+    blocks = ek._persistent_blocks(units, st.ws_floats, threads, nbytes, regs, dev)
+    if blocks >= units:
+        raise AssertionError(f"{label}: {units} units on {blocks} blocks, none walks a later one")
+    return blocks, units
+
+
+def im_tile_gates(label, params, actor, log_std, B, E, dev):
+    """K10-K12 under ``actor`` by phases 12 and 16's gates: K10 at ``B``
+    lanes (``k10_against_plain``); K11/K12 at ``B`` x ``E``, deterministic
+    and stochastic, against plain: K12's demand bit for bit, K12's returns
+    K11's (rtol=1e-5, atol=1e-3), K11's returns and K12's actions by the
+    share of lanes (LANE_SHARE), K7 on K12's streams K11's returns (1e-5,
+    1e-3); the stochastic K11/K12's episode 0 K10's actions, demand and
+    reward sum bit for bit. Returns ({kernel: max |diff|}, lines)."""
+    import functools
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T, m1 = params.periods, params.m1
+    tr, _, shares = k10_against_plain(params, actor, log_std, B, dev, label)
+    err = {"rollout_traj_im": max(e for _, e in shares.values())}
+    lines = [f"K10 {label} at {B} x {T} vs plain and the env step chain: lanes agreeing "
+             + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())]
+    for ls in (None, log_std):
+        kind = "det" if ls is None else "stoch"
+        k11 = ek.episode_returns_im_policy(params, actor, SEED, B, E, ls, dev)
+        r12, a12, d12 = ek.sample_policy_streams_debug_im(params, actor, SEED, B, E, ls, dev)
+        want, want_a, want_d = ek._im_policy_plain(
+            params, actor, None if ls is None else ek.clipped_std(ls), SEED, B, E, dev, True)
+        exact(f"K12 {label} demand, {kind}", d12, want_d)
+        err["sample_policy_streams_debug_im"] = max(
+            err.get("sample_policy_streams_debug_im", 0.0),
+            close(f"K12 vs K11 returns, {label}, {kind}", r12, k11, 1e-5, 1e-3))
+        sh_r, e11 = lane_share(f"K11 {label} vs plain, {kind}", k11, want)
+        sh_a, _ = lane_share(f"K12 {label} actions vs plain, {kind}",
+                             a12.permute(0, 2, 1, 3).reshape(T * m1, E * B),
+                             want_a.permute(0, 2, 1, 3).reshape(T * m1, E * B))
+        err["episode_returns_im_policy"] = max(err.get("episode_returns_im_policy", 0.0), e11)
+        replay = ek.episode_returns_im(
+            params, a12.permute(0, 2, 1, 3).reshape(T, m1, E * B).contiguous(),
+            d12.reshape(T, E * B).contiguous())
+        close(f"K7 on K12's streams vs K11, {label}, {kind}", replay.reshape(E, B), k11, 1e-5,
+              1e-3)
+        line = (f"K11/K12 {label} {kind} at {B} x {E} x {T}: K12 demand bit for bit, K12 = K11 "
+                f"within 1e-5/1e-3, K7 replays K12's streams, lanes agreeing with plain "
+                f"{sh_r:.4%} (returns), {sh_a:.4%} (actions)")
+        if ls is not None:
+            exact(f"stochastic K12 episode 0 actions vs K10, {label}", a12[:, 0], tr["actions"])
+            exact(f"stochastic K12 episode 0 demand vs K10, {label}", d12[:, 0], tr["demand"])
+            exact(f"stochastic K11 episode 0 vs K10's reward sum, {label}", k11[0],
+                  functools.reduce(torch.add, tr["reward"]))
+            line += "; episode 0 K10's actions, demand and return bit for bit"
+        lines.append(line)
+        del k11, r12, a12, d12, want, want_a, want_d, replay
+    return err, lines
+
+
+def nv_tile_gates(label, params, actor, log_std, B, E, dev):
+    """K18-K20 under ``actor`` by phase 21's gates: K18 at ``B`` lanes
+    against plain (econ and demand bit for bit, orders, raws and rewards by
+    the share of lanes, its raws the folded actor on its assembled obs plus
+    std times the plain normals within atol=1e-4); K19/K20 at ``B`` x
+    ``E``, deterministic and stochastic: K20's econ and demand bit for bit,
+    K20 = K19 and K13 on K20's streams = K19 bit for bit, K19's returns and
+    K20's orders by the share of lanes; the stochastic episode 0 K18's
+    econ, demand, capped orders and return bit for bit. Returns ({kernel:
+    max |diff|}, lines)."""
+    import functools
+
+    import torch
+
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    T, std = params.step_limit, ek.clipped_std(log_std)
+    tr = ek.rollout_traj_nv(params, actor, log_std, SEED, B, device=dev)
+    want = ek._rollout_traj_nv_plain(params, actor, std, SEED, B, dev)
+    exact(f"K18 {label} econ", tr["econ"], want["econ"])
+    exact(f"K18 {label} demand", tr["demand"], want["demand"])
+    shares = {k: lane_share(f"K18 {label} {k} vs plain", tr[k], want[k])
+              for k in ("orders", "raw", "reward")}
+    err = {"rollout_traj_nv": max(e for _, e in shares.values())}
+    del want
+    obs = nv.assemble_obs_from_streams(params, tr["econ"], tr["orders"])
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    for t in range(T):
+        w = rng.period_words(SEED, lanes, 0, t, 3, key1=rng.POLICY_KEY)
+        close(f"K18 {label} raw[{t}] vs folded actor + plain normals", tr["raw"][t, 0],
+              ek.folded_actor_mean(actor, obs[t])[:, 0] + std[0, 0] * rng.normal01(w[1], w[2]),
+              0.0, 1e-4)
+    del obs
+    lines = [f"K18 {label} at {B} x {T}: econ and demand bit-exact, lanes agreeing "
+             + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+             + "; raws = folded actor + plain normals within atol=1e-4"]
+    disc = ek._discounts(params.gamma, T)
+    for ls in (None, log_std):
+        kind = "det" if ls is None else "stoch"
+        k19 = ek.episode_returns_nv_policy(params, actor, SEED, B, E, ls, dev)
+        r20, e20, a20, d20 = ek.sample_policy_streams_debug_nv(params, actor, SEED, B, E, ls, dev)
+        want, we, wa, wd = ek._nv_policy_plain(params, actor, None if ls is None else std, SEED,
+                                               B, E, dev, True)
+        exact(f"K20 {label} econ, {kind}", e20, we)
+        exact(f"K20 {label} demand vs plain, {kind}", d20, wd)
+        exact(f"K20 vs K19 returns, {label}, {kind}", r20, k19)
+        sh_r, e19 = lane_share(f"K19 {label} vs plain, {kind}", k19, want)
+        sh_a, e_orders = lane_share(f"K20 {label} orders vs plain, {kind}",
+                                    a20.reshape(T, E * B), wa.reshape(T, E * B))
+        err["episode_returns_nv_policy"] = max(err.get("episode_returns_nv_policy", 0.0), e19)
+        err["sample_policy_streams_debug_nv"] = max(
+            err.get("sample_policy_streams_debug_nv", 0.0), e_orders)
+        k13 = ek.episode_returns_nv(params, e20.permute(1, 0, 2).reshape(5, E * B).contiguous(),
+                                    a20.reshape(T, E * B).contiguous(),
+                                    d20.reshape(T, E * B).contiguous()).reshape(E, B)
+        exact(f"K13 on K20's streams vs K19, {label}, {kind}", k13, k19)
+        line = (f"K19/K20 {label} {kind} at {B} x {E} x {T}: econ and demand bit-exact, K20 = "
+                f"K19 and K13 on K20's streams = K19 bit for bit, lanes agreeing with plain "
+                f"{sh_r:.4%} (returns), {sh_a:.4%} (orders)")
+        if ls is not None:
+            exact(f"stochastic K20 episode 0 econ vs K18, {label}", e20[0], tr["econ"])
+            exact(f"stochastic K20 episode 0 demand vs K18, {label}", d20[:, 0], tr["demand"])
+            exact(f"stochastic K20 episode 0 orders, capped, vs K18's, {label}",
+                  capped_orders(params, a20[:, 0]), tr["orders"])
+            exact(f"stochastic K19 episode 0 vs K18's rewards, {label}", k19[0],
+                  functools.reduce(lambda acc, t: acc + disc[t] * tr["reward"][t], range(T),
+                                   torch.zeros_like(k19[0])))
+            line += "; episode 0 K18's econ, demand, orders (capped) and return bit for bit"
+        lines.append(line)
+        del k19, r20, e20, a20, d20, want, we, wa, wd, k13
+    return err, lines
+
+
+def k27_gates(label, params, arch, B, dev, route):
+    """K27 under a relu det actor of ``arch`` widths at ``B`` lanes by phase
+    32's gates for the wide route: demand bit for bit, a_norm in [-1, 1],
+    teacher-forced within atol=1e-4, every output by the share of lanes
+    (LANE_SHARE, a_norm within 1e-4), a_norm rescaled giving its actions
+    and the env step chain its inv exactly (``im_step_chain``). Returns
+    (max |diff| over agreeing lanes, line)."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    obs = im.observation_space(params).shape[0]
+    actor, log_std = seeded_offpolicy_actor(obs, params.m1, False, dev, arch)
+    std = ek.clipped_std(log_std)
+    tr = ek.rollout_traj_im_offpolicy(params, actor, log_std, SEED, B, "det", "relu", dev)
+    if ek.rollout_traj_im_offpolicy.route != route:
+        raise AssertionError(f"K27 {label}: the {ek.rollout_traj_im_offpolicy.route} route")
+    want = ek._rollout_traj_im_plain(params, actor, std, SEED, B, dev, "det", "relu")
+    exact(f"K27 {label} demand vs plain", tr["demand"], want["demand"])
+    if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+        raise AssertionError(f"K27 {label}: a_norm outside [-1, 1]")
+    forced, within = offpolicy_teacher_forced("rollout_traj_im_offpolicy", params, tr, actor, std,
+                                              "det", params.m1, dev)
+    shares = {"raw": lane_share(f"K27 {label} a_norm vs plain", tr["raw"], want["raw"], 1e-4,
+                                1e-4)}
+    shares.update({k: lane_share(f"K27 {label} {k} vs plain", tr[k], want[k])
+                   for k in ("inv", "actions", "reward")})
+    del want
+    share = im_step_chain(params, tr, label, dev)
+    return max(e for _, e in shares.values()), (
+        f"K27 {label} relu det at {B} lanes on the {route} route's general class: demand bit "
+        f"for bit, a_norm teacher-forced max |diff| {forced:.3g} ({within:.4%} within 1e-4), "
+        f"lanes agreeing " + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+        + f"; a_norm rescaled gives its actions on {share:.4%} of elements, the env step "
+        "chain its inv exactly")
+
+
+def actor_checks(dev, p8, p3, imp, nvp):
+    """Phase 54's checks, each lifted kernel by the gates its family's
+    phases hold it to. At ACTOR_LANES (x ACTOR_EPISODES): K4-K6 on
+    default_regions(8) and (3) and under a 10-layer actor on the default
+    graph (``policy_cross_check``, a folded (64, 64) actor on the graphs),
+    the C6 lane share of a raw actor on default_regions(8) (reported); K29
+    there (``actor_offpolicy_checks``); K10-K12 and K18-K20 under a (400,
+    300) actor (``im_tile_gates``, ``nv_tile_gates``); K27 under a 10-layer
+    relu actor on the wide route (``k27_gates``). On the workspace route,
+    at ACTOR_WS_LANES, each block walking later tiles or blocks
+    (``persistent_walk``): K4-K6, K10-K12 and K18-K20 (the up-front layout)
+    under a (1024, 1024) actor, and K27 under a (1024, 1024) relu one.
+    Returns ({kernel: max |diff|}, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    err, lines = {}, []
+
+    def keep(e):
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0.0), v)
+
+    B, E, WB = ACTOR_LANES, ACTOR_EPISODES, ACTOR_WS_LANES
+    netp = graph_params("default_regions", 1, ACTOR_CHECK_STEPS)
+    for label, params, arch, lanes in (("default_regions(8)", p8, (64, 64), B),
+                                       ("default_regions(3)", p3, (64, 64), B),
+                                       ("default graph", netp, ACTOR_DEEP, B),
+                                       ("default graph", netp, ACTOR_HUGE, WB)):
+        T = params.topology
+        actor, log_std = arch_actor(T.obs_dim, T.n_reorder, arch, dev)
+        if arch == ACTOR_HUGE:
+            st, _ = ns._pack_net_tile_actor(T, actor, None, dev)
+            blocks, tiles = persistent_walk(f"K5 {arch}", st, -(-lanes * E // st.lanes),
+                                            st.lanes, 4 * st.s_total, ek._TILE_REGS, dev)
+            label += f" (workspace, K5's {tiles} tiles on {blocks} blocks)"
+        e, _, ls = policy_cross_check(params, dev, actor, log_std, lanes, E, edges=False)
+        keep(e)
+        lines += [f"{label}, folded {arch}: {x}" for x in ls]
+    T = p8.topology
+    raw, _ = arch_actor(T.obs_dim, T.n_reorder, (64, 64), dev, folded=False)
+    got = ns.episode_returns_net_policy(p8, raw, SEED, B, E, None, dev)
+    want = ns._policy_returns_plain(p8, raw, None, SEED, B, E, dev)[0]
+    share, _ = lane_share("K5 raw actor vs plain (C6, reported)", got, want, need=0.0)
+    lines.append(f"default_regions(8), raw (64, 64) actor (C6, not gated): K5 det lanes "
+                 f"agreeing {share:.4%}")
+    e, ls = actor_offpolicy_checks(p8, dev)
+    keep({"rollout_traj_net_offpolicy": e})
+    lines += ls
+
+    obs = im.observation_space(imp).shape[0]
+    for arch, lanes in ((ACTOR_WIDE, B), (ACTOR_HUGE, WB)):
+        actor, log_std = arch_actor(obs, imp.m1, arch, dev)
+        label = f"{arch}"
+        if arch == ACTOR_HUGE:
+            st, _ = ek._im_tile_actor(imp, actor, None, dev)
+            blocks, tiles = persistent_walk(f"K11 {arch}", st, -(-lanes * E // st.lanes),
+                                            st.lanes, 4 * st.s_total, ek._TILE_REGS, dev)
+            label += f" (workspace, K11's {tiles} tiles on {blocks} blocks)"
+        e, ls = im_tile_gates(label, imp, actor, log_std, lanes, E, dev)
+        keep(e)
+        lines += ls
+    for arch, lanes in ((ACTOR_WIDE, B), (ACTOR_HUGE, WB)):
+        actor, log_std = arch_actor(nvp.obs_dim, 1, arch, dev)
+        label = f"{arch}"
+        if arch == ACTOR_HUGE:
+            st, _ = ek._nv_tile_actor(nvp, actor, None, dev)
+            tile, nt = ek._nv_tile_launch(st, ek._nv_plan(nvp, "cpu")["struct"], nvp.step_limit)
+            if nt.layout != ek.NV_TILE_LAYOUTS["upfront"]:
+                raise AssertionError(f"K19 {arch}: not the up-front layout")
+            blocks, tiles = persistent_walk(f"K19 {arch}", tile, -(-lanes * E // tile.lanes),
+                                            tile.lanes, 4 * tile.s_total, ek._TILE_REGS, dev)
+            label += f" (workspace, up-front layout, K19's {tiles} tiles on {blocks} blocks)"
+        e, ls = nv_tile_gates(label, nvp, actor, log_std, lanes, E, dev)
+        keep(e)
+        lines += ls
+
+    for arch, lanes in ((ACTOR_DEEP, B), (ACTOR_HUGE, WB)):
+        label = actor_label(arch)
+        if arch == ACTOR_HUGE:
+            actor, _ = seeded_offpolicy_actor(obs, imp.m1, False, dev, arch)
+            st, _ = ek._pack_wide_actor(actor, torch.ones(imp.m1, device=dev), obs, imp.m1,
+                                        "det", ek._half_c(imp), dev)
+            blocks, units = persistent_walk(f"K27 {arch}", st, -(-lanes // ek._WIDE_LANES),
+                                            ek._WIDE_THREADS, 0, ek._WIDE_REGS, dev)
+            label += f" (workspace, {units} blocks of lanes on {blocks} blocks)"
+        e, line = k27_gates(label, imp, arch, lanes, dev, "wide")
+        keep({"rollout_traj_im_offpolicy": e})
+        lines.append(line)
+    torch.cuda.synchronize()
+    return err, lines
+
+
+def actor_main_path(dev, wrappers, smi, params):
+    """Phase 54, counted, on ``params`` (default_regions(8), 30 periods):
+    PPO with ``rollout="kernel"`` and its default (64, 64) actor for
+    ACTOR_PPO_UPDATES updates at ACTOR_LANES envs (K4 an update), the
+    trained actor's ``policy_episode_returns`` deterministic and stochastic
+    at ACTOR_LANES x ACTOR_EPISODES (K5) and its dump (K6), and SAC and TD3
+    with ``collect="kernel"`` and SB3's (256, 256) actor for ACTOR_OFF_ITERS
+    iterations each, the first on the warmup's uniform head (K29 an
+    iteration, on the wide route), every plain version patched to raise.
+    Returns (launches, lines, summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.vector import fast_episodes
+    B, E = ACTOR_LANES, ACTOR_EPISODES
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        cfg = ppo.PPOConfig(num_envs=B, rollout_steps=NUM_STEPS, num_minibatches=8,
+                            update_epochs=4, rollout="kernel")
+        state, metrics = ppo.train(net.ENV, params, cfg,
+                                   torch.Generator(device=dev).manual_seed(SEED),
+                                   ACTOR_PPO_UPDATES * B * NUM_STEPS, device=dev)
+        actor = ek.fold_actor_params(cfg, state.params, state.rms)
+        g = torch.Generator(device=dev).manual_seed(7)
+        det = fast_episodes.policy_episode_returns(params, actor, g, B, E, device=dev)
+        sto = fast_episodes.policy_episode_returns(params, actor, g, B, E, False,
+                                                   state.params.log_std.detach(), dev)
+        k6, a6, d6 = ns.sample_policy_streams_debug_net(params, actor, SEED, B, E, None, dev)
+        off = {}
+        for algo in ("td3", "sac"):
+            ocfg = op.OffPolicyConfig(algo=algo, collect="kernel", num_envs=B,
+                                      buffer_size=B * NUM_STEPS * ACTOR_OFF_ITERS,
+                                      batch_size=256, start_steps=B * NUM_STEPS,
+                                      updates_per_iter=1)
+            _, _, off[algo] = op.train(net.ENV, params, ocfg,
+                                       torch.Generator(device=dev).manual_seed(1),
+                                       ACTOR_OFF_ITERS * B * NUM_STEPS, log_every=1, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    want = {"rollout_traj_net": ACTOR_PPO_UPDATES, "episode_returns_net_policy": 2,
+            "sample_policy_streams_debug_net": 1,
+            "rollout_traj_net_offpolicy": 2 * ACTOR_OFF_ITERS}
+    moved = {k: v for k, v in launches.items() if v}
+    if moved != want:
+        raise AssertionError(f"the lifted path launched {moved}, not {want}")
+    if ns.rollout_traj_net_offpolicy.route != "wide":
+        raise AssertionError("K29 on default_regions(8): not on the wide route")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    finite = [torch.isfinite(x).all() for x in (det, sto, k6, a6)]
+    if bad or not all(finite) or det.shape != (E * B,) or not all(
+            np.isfinite(m["mean_step_reward"]).all() for m in off.values()):
+        raise AssertionError(f"the lifted path: non-finite metrics {bad} or outputs {finite}")
+    summary = {"wall_s": wall, "k5_det_mean": float(det.double().mean()),
+               "k5_sto_mean": float(sto.double().mean()),
+               "ppo_metrics": {k: [float(x) for x in v] for k, v in metrics.items()}}
+    lines = [f"default_regions(8) x {NUM_STEPS}: PPO {ACTOR_PPO_UPDATES} updates at {B} envs "
+             f"through K4, policy_episode_returns {B} x {E} det (mean "
+             f"{summary['k5_det_mean']:.6g}) and stoch (mean {summary['k5_sto_mean']:.6g}) "
+             f"through K5, K6's dump, TD3 and SAC {ACTOR_OFF_ITERS} iterations each (uniform "
+             f"warmup, then their heads) through K29 on the wide route; no plain version; "
+             f"launches {moved}; {wall:.1f} s on {smi}"]
+    return launches, lines, summary
+
+
+def actor_times(dev, p8, p3, imp, nvp):
+    """Phase 54's times: each lifted kernel's best of its entry point's
+    launches (``cuda_time``) beside its bound (the work model's counts at
+    its widths; the tile's products as three TF32 products each), K4-K6 and
+    K29 on default_regions(8) at the path's shapes, the others at
+    ACTOR_LANES (x ACTOR_EPISODES for the returns), the (1024, 1024) actors
+    on the workspace route at ACTOR_WS_LANES. Returns {name: (ms, bound ms,
+    bound by)}."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    B, E = ACTOR_LANES, ACTOR_EPISODES
+    runs = {}
+    for label, params in (("default_regions(8)", p8), ("default_regions(3)", p3)):
+        T = params.topology
+        specs = ns._topology_link_specs(T, NUM_STEPS)
+        actor, log_std = arch_actor(T.obs_dim, T.n_reorder, (64, 64), dev)
+        dims = [T.obs_dim, 64, 64, T.n_reorder]
+        ops = step_ops(T) + mlp_ops(dims)
+        words = T.n_reorder + T.n_retail
+        k4_rows = (NUM_STEPS + 1) * (T.n_main + T.n_retail) + NUM_STEPS * (
+            2 * T.n_reorder + 1 + T.n_retail)
+        runs[f"K5 {label}"] = ((ns.episode_returns_net_policy, params, actor, SEED, B, E, None,
+                                dev), tc_bound(B * E * 4, B * E * NUM_STEPS,
+                                               ops + policy_draw_ops(T, specs, False),
+                                               mlp_tc_flops(dims))[0])
+        if label == "default_regions(8)":
+            runs[f"K6 {label}"] = ((ns.sample_policy_streams_debug_net, params, actor, SEED, B,
+                                    E, None, dev),
+                                   tc_bound(B * E * (1 + NUM_STEPS * words) * 4,
+                                            B * E * NUM_STEPS,
+                                            ops + policy_draw_ops(T, specs, False),
+                                            mlp_tc_flops(dims))[0])
+            runs[f"K4 {label}"] = ((ns.rollout_traj_net, params, actor, log_std, SEED, B, "ppo",
+                                    "tanh", dev),
+                                   tc_bound(B * k4_rows * 4, B * NUM_STEPS,
+                                            ops + policy_draw_ops(T, specs, True),
+                                            mlp_tc_flops(dims))[0])
+            for mode in ("det", "sac"):
+                off_actor, off_log_std = seeded_offpolicy_actor(T.obs_dim, T.n_reorder,
+                                                                mode == "sac", dev)
+                n_bytes, per_step, horizon, weights = offpolicy_work(
+                    "rollout_traj_net_offpolicy", params, T.obs_dim, T.n_reorder, mode)
+                runs[f"K29 {mode} {label}"] = (
+                    (ns.rollout_traj_net_offpolicy, params, off_actor, off_log_std, SEED, B,
+                     mode, "relu", dev), bound(B * n_bytes + weights, B * horizon * per_step))
+    obs = im.observation_space(imp).shape[0]
+    table_len = len(ek._im_demand_spec(imp)[1])
+    T_im = imp.periods
+    for arch, lanes, eps in ((ACTOR_WIDE, B, E), (ACTOR_HUGE, ACTOR_WS_LANES, E)):
+        actor, log_std = arch_actor(obs, imp.m1, arch, dev)
+        dims = [obs, *arch, imp.m1]
+        ops = im_step_ops(imp) + mlp_ops(dims) + im_policy_draw_ops(imp, table_len, False)
+        runs[f"K11 {arch}"] = ((ek.episode_returns_im_policy, imp, actor, SEED, lanes, eps, None,
+                                dev), tc_bound(lanes * eps * 4, lanes * eps * T_im, ops,
+                                               mlp_tc_flops(dims))[0])
+        if arch == ACTOR_WIDE:
+            runs[f"K10 {arch}"] = (
+                (ek.rollout_traj_im, imp, actor, log_std, SEED, lanes, "ppo", "tanh", dev),
+                tc_bound(lanes * ((T_im + 1) * imp.m1 + 2 * T_im * imp.m1 + 2 * T_im) * 4,
+                         lanes * T_im, im_step_ops(imp) + mlp_ops(dims)
+                         + im_policy_draw_ops(imp, table_len, True), mlp_tc_flops(dims))[0])
+    T_nv = nvp.step_limit
+    for arch, lanes in ((ACTOR_WIDE, B), (ACTOR_HUGE, ACTOR_WS_LANES)):
+        actor, log_std = arch_actor(nvp.obs_dim, 1, arch, dev)
+        dims = [nvp.obs_dim, *arch, 1]
+        runs[f"K19 {arch}"] = (
+            (ek.episode_returns_nv_policy, nvp, actor, SEED, lanes, E, None, dev),
+            tc_bound(lanes * E * 4, lanes * E * T_nv, nv_step_ops(nvp) + mlp_ops(dims)
+                     + nv_policy_draw_ops(nvp, False, table=True), mlp_tc_flops(dims))[0])
+        if arch == ACTOR_WIDE:
+            runs[f"K18 {arch}"] = (
+                (ek.rollout_traj_nv, nvp, actor, log_std, SEED, lanes, "ppo", "tanh", dev),
+                tc_bound(lanes * (5 + 4 * T_nv) * 4, lanes * T_nv, nv_step_ops(nvp)
+                         + mlp_ops(dims) + nv_policy_draw_ops(nvp, True, table=True),
+                         mlp_tc_flops(dims))[0])
+    netp = graph_params("default_regions", 1)
+    T = netp.topology
+    for arch, lanes in ((ACTOR_DEEP, B), (ACTOR_HUGE, ACTOR_WS_LANES)):
+        actor, _ = arch_actor(T.obs_dim, T.n_reorder, arch, dev)
+        dims = [T.obs_dim, *arch, T.n_reorder]
+        runs[f"K5 {actor_label(arch)}"] = (
+            (ns.episode_returns_net_policy, netp, actor, SEED, lanes, E, None, dev),
+            tc_bound(lanes * E * 4, lanes * E * NUM_STEPS, step_ops(T) + mlp_ops(dims)
+                     + policy_draw_ops(T, ns._topology_link_specs(T, NUM_STEPS), False),
+                     mlp_tc_flops(dims))[0])
+    n_bytes, per_step, horizon, _ = offpolicy_work("rollout_traj_im_offpolicy", imp, obs,
+                                                   imp.m1, "det")
+    for arch, lanes in ((ACTOR_DEEP, B), (ACTOR_HUGE, ACTOR_WS_LANES)):
+        off_actor, off_log_std = seeded_offpolicy_actor(obs, imp.m1, False, dev, arch)
+        dims = [obs, *arch, imp.m1]
+        runs[f"K27 {actor_label(arch)}"] = (
+            (ek.rollout_traj_im_offpolicy, imp, off_actor, off_log_std, SEED, lanes, "det",
+             "relu", dev),
+            bound(lanes * n_bytes + sum(a * b + b for a, b in zip(dims, dims[1:])) * 4,
+                  lanes * horizon * (per_step + mlp_ops(dims)
+                                     - mlp_ops([obs, *OFF_ARCH, imp.m1]))))
+    out = {}
+    for name, ((fn, *args), (b_ms, b_by)) in runs.items():
+        out[name] = (cuda_time(fn, *args, warmup=1, iters=3)["best_ms"], b_ms, b_by)
+    return out
+
+
+def actor_phases(dev, wrappers, smi, err, parent_libs):
+    """Phase 54: the lifted actor classes. The plans (``actor_plans``), the
+    kernels against their plain versions (``actor_checks``, at
+    ACTOR_CHECK_STEPS periods on the graphs), the counted path on
+    default_regions(8) (``actor_main_path``), each lifted kernel's time
+    beside its bound (``actor_times``), and every kernel whose source the
+    general class changed at its default shapes in turns with the parent
+    design (tools/actor_sweep.py, its libraries built with phase 2's), bit
+    for bit; then the general class against the fixed one on the same
+    default actors (reported: whether the fixed class is still needed).
+    Returns (launches, summary)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    actor_sweep = actor_sweep_tool()
+    t0 = time.perf_counter()
+    p8c = graph_params("default_regions", 8, ACTOR_CHECK_STEPS)
+    p3c = graph_params("default_regions", 3, ACTOR_CHECK_STEPS)
+    imp, nvp = im.default_params(backlog=True), nv_params()
+    for x in actor_plans(p8c, p3c, imp, nvp, dev):
+        print(f"[54 actor plans] {x}", flush=True)
+    e, lines = actor_checks(dev, p8c, p3c, imp, nvp)
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0.0), v)
+    for x in lines:
+        print(f"[54 actor checks] {x}", flush=True)
+    print(f"[54 actor checks] {time.perf_counter() - t0:.1f} s", flush=True)
+    p8 = graph_params("default_regions", 8)
+    launches, path_lines, summary = actor_main_path(dev, wrappers, smi, p8)
+    for x in path_lines:
+        print(f"[54 actor path] {x}", flush=True)
+    t0 = time.perf_counter()
+    times = actor_times(dev, p8, graph_params("default_regions", 3), imp, nvp)
+    summary["times"] = times
+    print("[54 actor times] " + "; ".join(
+        f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
+        for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
+    turns = actor_sweep.turns(dev, parent_libs, actor_sweep.KERNELS, ACTOR_TURN_ROUNDS)
+    summary["turns"] = turns
+    for name, r in turns.items():
+        print(f"[54 turns] {actor_sweep.line(name, r)} on {smi}", flush=True)
+    general = actor_sweep.turns(dev, None, actor_sweep.GENERAL_KERNELS, ACTOR_TURN_ROUNDS,
+                                general=True)
+    summary["general_turns"] = general
+    for name, r in general.items():
+        print(f"[54 general turns] {actor_sweep.line(name, r, True)} on {smi}", flush=True)
+    print(f"[54 actor times] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return launches, summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -5384,14 +6080,18 @@ def main() -> int:
           f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # 2. build (and, all at once, phase 53's parent design of the NetInvMgmt
-    # kernels, tools/net_graph_parent/)
+    # kernels, tools/net_graph_parent/, and phase 54's of the actor kernels,
+    # tools/actor_parent/)
     t0 = time.perf_counter()
     net_graph_sweep = graph_sweep_tool()
     parent_jobs = net_graph_sweep.start_parent_build()
+    actor_sweep = actor_sweep_tool()
+    actor_jobs = actor_sweep.start_parent_build()
     logs = _build.build()
     for lib in _build.SIGNATURES:
         _build.library(lib)
     parent_libs = net_graph_sweep.finish_parent_build(parent_jobs)
+    actor_parent_libs = actor_sweep.finish_parent_build(actor_jobs)
     ptxas = [ln.split("info    :")[-1].strip() for out in logs.values()
              for ln in out.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -6201,6 +6901,9 @@ def main() -> int:
     launches_graph, _, graph_summary = graph_phases(dev, wrappers, smi, err, parent_libs)
     launches = {name: launches[name] + launches_graph[name] for name in wrappers}
 
+    launches_actor, actor_summary = actor_phases(dev, wrappers, smi, err, actor_parent_libs)
+    launches = {name: launches[name] + launches_actor[name] for name in wrappers}
+
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
 
@@ -6233,6 +6936,7 @@ def main() -> int:
     print(json.dumps({"bench_main_path": bench_summary}))
     print(json.dumps({"mesh_main_path": mesh_summary}))
     print(json.dumps({"graph_main_path": graph_summary}))
+    print(json.dumps({"actor_main_path": actor_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

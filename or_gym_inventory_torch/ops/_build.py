@@ -26,7 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32, ctypes.c_float)
 # C entry points of each source: {source stem: {name: (argtypes, restype)}};
-# every source also exports csrc/launch.cuh's cuda_error_message
+# every source also exports csrc/launch.cuh's cuda_error_message. The policy
+# sources' entry points named *_any take the general actor class
+# (csrc/mlp_tile.cuh MlpTileG, csrc/wide_mlp.cuh WideMlpG) with the
+# arguments of the entry point without the suffix (``_any`` below).
 SIGNATURES = {
     "net_episode": {
         # topo, small, state layout, staging, acts, dems, disc, out, B, T, stream
@@ -133,6 +136,14 @@ SIGNATURES = {
         "nv_rollout_traj_cluster_occupancy": ((_P, _I, _P), _I),
     },
 }
+for _stem, _names in (("net_policy", ("net_rollout_traj", "net_policy_returns",
+                                        "net_rollout_traj_wide")),
+                     ("im_policy", ("im_rollout_traj", "im_policy_returns",
+                                    "im_rollout_traj_wide")),
+                     ("nv_policy", ("nv_rollout_traj", "nv_policy_returns",
+                                    "nv_rollout_traj_wide"))):
+    for _name in _names:
+        SIGNATURES[_stem][_name + "_any"] = SIGNATURES[_stem][_name]
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}
 
 

@@ -105,11 +105,16 @@ from or_gym_inventory_torch.ops import distributions as dist
 from or_gym_inventory_torch.ops import nv_poisson
 from or_gym_inventory_torch.ops import rng
 
-# maxima of the actor the policy kernels take (csrc/mlp.cuh); a block's
-# layout must fit the dynamic shared memory a Hopper block may opt in to
-# (227 KB)
+# maxima of the first design's actor (csrc/mlp.cuh) and of the tile's fixed
+# class (csrc/mlp_tile.cuh MlpTile); an actor past them, or whose layout fits
+# no block, takes the general class (MlpTileG). A block's layout must fit the
+# dynamic shared memory a Hopper block may opt in to (227 KB)
 MAX_LAYERS, MAX_WIDTH, MAX_ACT = 8, 256, 32
 SMEM_OPTIN_BYTES = 232_448
+# the device workspace of the general classes' activations (MlpTileG,
+# WideMlpG), where they fit no block: a block's slice must fit it, and the
+# persistent grid holds as many blocks as it has slices for
+WORKSPACE_MAX_BYTES = 1 << 32
 # an H100 SM's shared memory, the share the runtime reserves per resident
 # block, and the SM's limits on resident threads and blocks
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233_472, 1_024
@@ -361,7 +366,8 @@ def _head_dims(actor, obs_dim: int, act_dim: int, policy: str):
 
 
 def _mlp_dims(actor, obs_dim: int, act_dim: int):
-    """``_actor_dims``, raising ValueError beyond the MLP kernels' maxima."""
+    """``_actor_dims``, raising ValueError beyond the first design's maxima
+    (``_pack_actor``, which only tools/ uses)."""
     dims = _actor_dims(actor, obs_dim, act_dim)
     if len(dims) - 1 > MAX_LAYERS or max(dims) > MAX_WIDTH or act_dim > MAX_ACT:
         raise ValueError(f"actor widths {dims}: the kernels take at most "
@@ -545,73 +551,277 @@ def _gather(actor, std, index, zero, dev) -> torch.Tensor:
     return torch.cat(src + [zero])[index]
 
 
+def _within_fixed_tile(dims) -> bool:
+    """Whether an actor of widths ``dims`` fits MlpTile's fixed arrays
+    (MAX_LAYERS layers, widths up to MAX_WIDTH, MAX_ACT actions): the
+    parent's class, which keeps its layout where that fits a block."""
+    return len(dims) - 1 <= MAX_LAYERS and max(dims) <= MAX_WIDTH and dims[-1] <= MAX_ACT
+
+
+def _fixed_tile_plan(dims, dem_rows: int, scratch_rows: int, state_words: int,
+                     topo_floats: int = 0):
+    """MlpTile's plan: the first of ``_MLP_TILES`` whose ``_mlp_tile_plan``
+    fits a block, for an actor within the fixed arrays; else None (the
+    general class)."""
+    if not _within_fixed_tile(dims):
+        return None
+    return next((pl for pl in (_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes,
+                                              topo_floats) for lanes in _MLP_TILES)
+                 if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpTileAnyPlan:
+    """The general class's layout (csrc/mlp_tile.cuh MlpTileG) of a tile of
+    ``lanes`` pairs: activation buffer 0 of ``rows[0]`` rows (the obs, the
+    outputs of layers 1, 3, ...) and buffer 1 of ``rows[1]`` (layers 0, 2,
+    ...; one buffer of ``rows[0]`` when ``in_place``), [row][lane] at
+    ``stride``; ``transient``: where the period's transient rows lie, "dead"
+    (from row 0 of the buffer that does not hold H) or "after_h" (from row
+    pad16(act) of H's); ``workspace``: the buffers in the block's slice of
+    the device workspace (``act_floats`` floats a block, rows ``lanes``
+    apart) rather than in shared memory. ``offsets``: x0, x1, dem, z and
+    scratch from the activation base, state in shared memory; ``floats``:
+    the block's shared memory (the activations when not in the workspace,
+    the state, the records)."""
+    lanes: int
+    stride: int
+    rows: tuple
+    in_place: bool
+    transient: str
+    workspace: bool
+    offsets: dict
+    act_floats: int
+    floats: int
+
+
+def _mlp_tile_plan_any(dims, dem_rows: int, scratch_rows: int, state_words: int, lanes: int,
+                       topo_floats: int = 0, workspace: bool = False) -> MlpTileAnyPlan:
+    """The general class's layout for an actor of widths ``dims`` (see
+    ``MlpTileAnyPlan``): layer l writes buffer (l + 1) & 1, so each buffer
+    has the rows of what it holds (the obs padded to 8, the outputs to 16);
+    in place, one buffer, where ``_mlp_tile_plan`` would be. The
+    ``dem_rows`` + act + ``scratch_rows`` transient rows take the fewer
+    rows of the two places the period leaves them: the buffer that H is not
+    in (dead from the actor's end to the next obs), or H's from row
+    pad16(act); "dead" on a tie. Then, in shared memory, ``state_words`` a
+    lane and ``topo_floats``."""
+    stride = lanes if workspace else lanes + 8
+    act, n = dims[-1], len(dims) - 1
+    trans = dem_rows + act + scratch_rows
+    need = [_pad8(dims[0]), 0]
+    for layer, d in enumerate(dims[1:]):
+        need[(layer + 1) & 1] = max(need[(layer + 1) & 1], _pad16(d))
+    in_place = (all(_pad16(d) // 16 in (1, _MLP_TILE_GROUP) for d in dims[1:-1])
+                and _pad16(act) == 16)
+    h = n & 1   # the buffer that holds H
+    if in_place:
+        rows = (max(need + [_pad16(act) + trans]), 0)
+        where, h = "after_h", 0
+    else:
+        dead = list(need)
+        dead[1 - h] = max(dead[1 - h], trans)
+        after = list(need)
+        after[h] = max(after[h], _pad16(act) + trans)
+        where, rows = (("dead", dead) if sum(dead) <= sum(after) else ("after_h", after))
+        rows = tuple(rows)
+    x1 = 0 if in_place else rows[0] * stride
+    base = {0: 0, 1: x1}
+    dem = base[1 - h] if where == "dead" else base[h] + _pad16(act) * stride
+    act_floats = (rows[0] + rows[1]) * stride
+    state = 0 if workspace else act_floats
+    offsets = {"x0": 0, "x1": x1, "dem": dem, "z": dem + dem_rows * stride,
+               "scratch": dem + (dem_rows + act) * stride, "state": state}
+    return MlpTileAnyPlan(lanes, stride, rows, in_place, where, workspace, offsets, act_floats,
+                          state + state_words * lanes + topo_floats)
+
+
+def _tile_choice_any(dims, dem_rows: int, scratch_rows: int, state_words: int,
+                     topo_floats: int = 0) -> MlpTileAnyPlan:
+    """The general class's plan: the first of ``_MLP_TILES`` whose layout
+    fits a block with the activations in shared memory, else the first
+    with them in the workspace (a block's slice within
+    WORKSPACE_MAX_BYTES). Raises ValueError past both, naming the bytes
+    needed and held."""
+    plans = [_mlp_tile_plan_any(dims, dem_rows, scratch_rows, state_words, lanes, topo_floats,
+                                workspace) for workspace in (False, True) for lanes in _MLP_TILES]
+    for plan in plans:
+        if plan.floats * 4 <= SMEM_OPTIN_BYTES and 4 * plan.act_floats <= WORKSPACE_MAX_BYTES:
+            return plan
+    least = min(plans, key=lambda pl: (pl.floats, pl.act_floats))
+    raise ValueError(
+        f"actor of widths {list(dims)} with {state_words} words of state a lane: its tile needs "
+        f"{least.floats * 4} bytes of shared memory beside {least.act_floats * 4} bytes of "
+        f"workspace a block; a block holds {SMEM_OPTIN_BYTES} and the workspace "
+        f"{WORKSPACE_MAX_BYTES}")
+
+
+class _MlpTileG(ctypes.Structure):
+    """Mirror of ``struct MlpTileG`` in csrc/mlp_tile.cuh (the workspace's
+    pointer, then 4-byte fields)."""
+    _fields_ = [("ws", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in
+        ("n_layers", "table", "half_hi", "std", "lanes", "stride", "s_x0", "s_x1", "s_dem",
+         "s_z", "s_scratch", "s_state", "s_total", "ws_floats", "grid")]
+
+
+def _set_mlp_tile_any(st: _MlpTileG, plan: MlpTileAnyPlan) -> None:
+    """Write the general class's ``plan`` into ``st`` (its grid and
+    workspace are the launch's)."""
+    st.lanes, st.stride = plan.lanes, plan.stride
+    for name, offset in plan.offsets.items():
+        setattr(st, f"s_{name}", offset)
+    st.s_total = plan.floats
+    st.ws_floats = plan.act_floats if plan.workspace else 0
+
+
+def _int_floats(values) -> torch.Tensor:
+    """Int32 ``values`` as the float32 words that hold their bits (the
+    general classes' tables in the packed buffer, read as ints)."""
+    return torch.from_numpy(np.asarray(values, np.int32).view(np.float32).copy())
+
+
 @functools.lru_cache(maxsize=32)
 def _tile_pack_plan(dims, with_std: bool, half_hi, dem_rows: int, scratch_rows: int,
-                    state_words: int, device: str, topo_floats: int = 0):
-    """(the MlpTile struct, the gather index and a zero, both on ``device``)
-    of ``_pack_tile_actor``: the packed buffer is ``_gather_source``'s
-    concatenation gathered by the index. Built once per shape, so a call
-    packs with a few launches."""
-    plans = [_mlp_tile_plan(dims, dem_rows, scratch_rows, state_words, lanes, topo_floats)
-             for lanes in _MLP_TILES]
-    plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
+                    state_words: int, device: str, topo_floats: int = 0, general: bool = False):
+    """(the struct, the gather index and a zero on ``device``, and the
+    general class's table words or None) of ``_pack_tile_actor``: the packed
+    buffer is ``_gather_source``'s concatenation gathered by the index, then
+    the table. MlpTile where the actor fits its arrays and its layout a
+    block (``_fixed_tile_plan``) and ``general`` is False; else MlpTileG
+    (``_tile_choice_any``). Built once per shape, so a call packs with a
+    few launches."""
+    plan = None if general else _fixed_tile_plan(dims, dem_rows, scratch_rows, state_words,
+                                                 topo_floats)
     if plan is None:
-        raise ValueError(f"actor of widths {list(dims)} with {state_words} words of state a "
-                         f"lane needs {min(pl.floats for pl in plans) * 4} bytes; the shared "
-                         f"memory of a block holds {SMEM_OPTIN_BYTES}")
+        plan = _tile_choice_any(dims, dem_rows, scratch_rows, state_words, topo_floats)
     pairs = list(zip(dims, dims[1:]))
     w_src, b_src, std_src, zero = _gather_source(dims, with_std)
-    st = _MlpTile(n_layers=len(pairs), std=-1)
-    parts, at = [], 0
+    w_at, b_at, parts, at = [], [], [], 0
     for layer, (i, o) in enumerate(pairs):
         W = torch.full((_pad16(o), _pad8(i)), zero, dtype=torch.int64)   # W^T, zero-padded
         W[:o, :i] = torch.from_numpy(w_src[layer] + np.arange(i)[None, :] * o
                                      + np.arange(o)[:, None])
         b = torch.full((_pad16(o),), zero, dtype=torch.int64)
         b[:o] = torch.from_numpy(b_src[layer] + np.arange(o))
-        st.w[layer], st.b[layer] = at, at + W.numel()
+        w_at.append(at)
+        b_at.append(at + W.numel())
         parts += [_mma_fragments(W), b]
         at += W.numel() + b.numel()
+    std_at = -1
     if with_std:
-        st.std = at
+        std_at = at
         parts.append(torch.from_numpy(std_src + np.arange(dims[-1])))
-    for k, d in enumerate(dims):
-        st.dims[k] = d
-    for k, h in enumerate(half_hi):
-        st.half_hi[k] = h
-    _set_mlp_tile(st, plan)
-    return (st, torch.cat(parts).to(device),
-            torch.zeros(1, dtype=torch.float32, device=device))
+        at += dims[-1]
+    index = torch.cat(parts).to(device)
+    zero_t = torch.zeros(1, dtype=torch.float32, device=device)
+    if isinstance(plan, MlpTilePlan):
+        st = _MlpTile(n_layers=len(pairs), std=std_at)
+        for layer in range(len(pairs)):
+            st.w[layer], st.b[layer] = w_at[layer], b_at[layer]
+        for k, d in enumerate(dims):
+            st.dims[k] = d
+        for k, h in enumerate(half_hi):
+            st.half_hi[k] = h
+        _set_mlp_tile(st, plan)
+        return st, index, zero_t, None
+    # the general class: zero words to 16 bytes, the layer table (an int4
+    # {in, out, w, b} a layer), then half_hi
+    table = _pad4(at)
+    words = [0] * (table - at)
+    words += [v for i, o, w, b in zip(dims, dims[1:], w_at, b_at) for v in (i, o, w, b)]
+    st = _MlpTileG(n_layers=len(pairs), table=table, half_hi=table + 4 * len(pairs), std=std_at)
+    _set_mlp_tile_any(st, plan)
+    tail = torch.cat([_int_floats(words), torch.tensor(half_hi, dtype=torch.float32)])
+    return st, index, zero_t, tail.to(device)
 
 
 def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
                      dem_rows: int = 0, scratch_rows: int = 0, state_words: int = 0,
-                     topo_floats: int = 0):
-    """The tile kernels' actor arguments: the MlpTile struct and one flat
-    float32 buffer on ``device``. The buffer holds each layer's W as the A
+                     topo_floats: int = 0, general: bool = False):
+    """The tile kernels' actor arguments: the struct and one flat float32
+    buffer on ``device``. The buffer holds each layer's W as the A
     fragments of the tensor-core product (W^T zero-padded to (pad16(out),
     pad8(in)), in ``_mma_fragments``' order) and its b padded to 16, then
-    the std when given; every NaN as the quiet NaN 0x7fc00000. The struct
-    carries their offsets, ``half_hi`` (the f32 factor that maps
-    tanh(raw_i) + 1 onto action i's range), the tile (the first of
-    ``_MLP_TILES`` whose layout, ``_mlp_tile_plan`` with ``dem_rows``,
-    ``scratch_rows``, ``state_words`` and ``topo_floats``, fits a block) and the layout
-    (``_tile_pack_plan``, cached). Raises ValueError for an actor beyond the
-    kernels' maxima, as ``_pack_actor`` does, or beyond the shared memory
-    of a block."""
-    dims = _mlp_dims(actor, obs_dim, act_dim)
+    the std when given; every NaN as the quiet NaN 0x7fc00000. For an actor
+    within the fixed arrays whose layout fits a block (and ``general``
+    False) the struct is MlpTile, carrying their offsets, ``half_hi`` (the
+    f32 factor that maps tanh(raw_i) + 1 onto action i's range), the tile
+    (the first of ``_MLP_TILES`` whose layout, ``_mlp_tile_plan`` with
+    ``dem_rows``, ``scratch_rows``, ``state_words`` and ``topo_floats``,
+    fits a block) and the layout; for any other actor a copy of MlpTileG
+    (``_tile_choice_any``'s layout, its ``actor_dims`` the widths), the
+    buffer then holding the layer table and half_hi, and the launch setting
+    its grid and workspace (``_tile_launch``). Cached per shape
+    (``_tile_pack_plan``). Raises ValueError for an actor that does not fit
+    the env, or whose state fits no block."""
+    dims = _actor_dims(actor, obs_dim, act_dim)
     dev = torch.device(device)
-    st, index, zero = _tile_pack_plan(tuple(dims), std is not None,
-                                      tuple(float(h) for h in half_hi), dem_rows, scratch_rows,
-                                      state_words, _plan_key(dev) if dev.type == "cuda" else "cpu",
-                                      topo_floats)
-    return st, _quiet_nans(_gather(actor, std, index, zero, dev))
+    st, index, zero, tail = _tile_pack_plan(
+        tuple(dims), std is not None, tuple(float(h) for h in half_hi), dem_rows, scratch_rows,
+        state_words, _plan_key(dev) if dev.type == "cuda" else "cpu", topo_floats, general)
+    flat = _quiet_nans(_gather(actor, std, index, zero, dev))
+    if tail is None:
+        return st, flat
+    st = _MlpTileG.from_buffer_copy(st)
+    st.actor_dims = tuple(dims)
+    return st, torch.cat([flat, tail])
 
 
-# maxima of the wide actor of K27-K29 (csrc/wide_mlp.cuh): layers and the
-# env's actions; its widths are bounded by the shared memory of a block
+# registers a thread of the tile's instances (160-172 on sm_90a, ptxas -v):
+# what the persistent grid of the general class counts its blocks an SM by
+_TILE_REGS = 172
+
+
+def _persistent_blocks(units: int, slice_floats: int, threads: int, nbytes: int, regs: int,
+                       dev) -> int:
+    """Blocks of a launch whose blocks each need a workspace slice of
+    ``slice_floats``: at most what the card holds at once (its SMs x
+    ``_blocks_per_sm``), at most ``units`` (tiles or blocks of lanes), and
+    within WORKSPACE_MAX_BYTES; each walks units blockIdx.x, + blocks, ..."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = sms * max(1, _blocks_per_sm(nbytes, threads, regs))
+    slots = max(1, min(slots, WORKSPACE_MAX_BYTES // (4 * slice_floats)))
+    return min(units, slots)
+
+
+def _set_workspace(st, blocks: int, dev) -> None:
+    """Give a general-class struct ``blocks`` blocks and a workspace of a
+    slice a block, allocated for this launch through PyTorch's caching
+    allocator on the current stream (no cudaMalloc once the allocator holds
+    the size; a launch on another stream gets its own). The struct keeps
+    the tensor alive until the launch is queued; the allocator hands its
+    memory on only to later work on the same stream."""
+    st.grid = blocks
+    st.workspace = torch.empty(blocks * st.ws_floats, dtype=torch.float32, device=dev)
+    st.ws = st.workspace.data_ptr()
+
+
+def _tile_launch(st, pairs: int, dev) -> str:
+    """Set a general-class struct's grid (a block a tile, or the persistent
+    grid over the workspace) and workspace for ``pairs`` (lane, episode)
+    pairs; returns the C entry points' suffix ("" for MlpTile, "_any")."""
+    if not isinstance(st, _MlpTileG):
+        return ""
+    tiles = -(-pairs // st.lanes)
+    if st.ws_floats:
+        _set_workspace(st, _persistent_blocks(tiles, st.ws_floats, st.lanes, 4 * st.s_total,
+                                              _TILE_REGS, dev), dev)
+    else:
+        st.grid, st.ws = tiles, None
+    return "_any"
+
+
+# maxima of the wide actor's fixed class (csrc/wide_mlp.cuh WideMlp) and of
+# the cluster's struct (csrc/cluster_mlp.cuh ClusterMlp): layers and the env's
+# actions; an actor past them, or whose buffers fit no block, takes the wide
+# route's general class (WideMlpG)
 WIDE_MAX_LAYERS, WIDE_MAX_ACT = 8, 32
 _WIDE_LANES = 32   # kWideLanes of csrc/wide_mlp.cuh: the lanes a block runs
+_WIDE_THREADS = 256   # kWideThreads: a block's threads
+# registers a thread of the wide instances (ptxas -v on sm_90a prints them in
+# phase 2): what the persistent grid counts its blocks an SM by
+_WIDE_REGS = 128
 
 
 class _WideMlp(ctypes.Structure):
@@ -621,11 +831,9 @@ class _WideMlp(ctypes.Structure):
                 ("std", ctypes.c_int), ("half_hi", ctypes.c_float * WIDE_MAX_ACT)]
 
 
-@functools.lru_cache(maxsize=32)
-def _wide_pack_plan(dims, act_dim: int, policy: str, half_hi, device: str):
-    """(the WideMlp struct, the gather index and a zero on ``device``) of
-    ``_pack_wide_actor``, built once per shape."""
-    with_std = policy in ("ppo", "det")
+def _wide_index(dims, act_dim: int, with_std: bool):
+    """(the gather index of the wide buffer, the std's offset or -1): each
+    layer's W^T (in, out8) then b (out8), zero-padded, then the std."""
     w_src, b_src, std_src, zero = _gather_source(dims, with_std)
     parts = []
     for layer, (i, o) in enumerate(zip(dims, dims[1:])):
@@ -634,44 +842,128 @@ def _wide_pack_plan(dims, act_dim: int, policy: str, half_hi, device: str):
         b = np.full(_pad8(o), zero, np.int64)
         b[:o] = b_src[layer] + np.arange(o)
         parts += [W.reshape(-1), b]
-    rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
-    st = _WideMlp(n_layers=len(dims) - 1, rows=rows, act=act_dim, head=HEADS[policy], std=-1)
+    std = -1
     if with_std:
-        st.std = sum(x.size for x in parts)
+        std = sum(x.size for x in parts)
         parts.append(std_src + np.arange(act_dim))
+    return np.concatenate(parts), std
+
+
+@functools.lru_cache(maxsize=32)
+def _wide_pack_plan(dims, act_dim: int, policy: str, half_hi, device: str):
+    """(the WideMlp struct, the gather index and a zero on ``device``) of
+    ``_pack_wide_actor``, built once per shape."""
+    index, std = _wide_index(dims, act_dim, policy in ("ppo", "det"))
+    rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
+    st = _WideMlp(n_layers=len(dims) - 1, rows=rows, act=act_dim, head=HEADS[policy], std=std)
     for k, d in enumerate(dims):
         st.dims[k] = d
     for i, h in enumerate(half_hi):
         st.half_hi[i] = h
-    return (st, torch.from_numpy(np.concatenate(parts)).to(device),
+    return (st, torch.from_numpy(index).to(device),
             torch.zeros(1, dtype=torch.float32, device=device))
 
 
-def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, device):
-    """The wide kernels' actor arguments: the WideMlp struct (the head,
-    ``half_hi[i]`` the f32 factor that maps a_norm_i + 1 onto action i's
-    range) and one flat float32 buffer on ``device``, each layer as W^T
-    (in, out8) then b (out8), the outputs zero-padded to a multiple of 8,
-    then the std when the head takes one ("ppo", "det"). The layout and its
-    gather index are cached per shape (``_wide_pack_plan``), so a call packs
-    with one cat and one index. Raises ValueError for an actor beyond the
-    kernels' maxima or whose two activation buffers of 32 lanes exceed the
-    shared memory of a block."""
-    dims = _head_dims(actor, obs_dim, act_dim, policy)
-    if len(dims) - 1 > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
-        raise ValueError(f"actor widths {dims}: the wide kernels take at most "
-                         f"{WIDE_MAX_LAYERS} layers and {WIDE_MAX_ACT} actions")
+class _WideMlpG(ctypes.Structure):
+    """Mirror of ``struct WideMlpG`` in csrc/wide_mlp.cuh (the workspace's
+    pointer, then 4-byte fields)."""
+    _fields_ = [("ws", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in
+        ("n_layers", "dims", "half_hi", "rows0", "rows1", "act", "head", "std", "ws_floats",
+         "grid")]
+
+
+def _wide_rows_any(dims, actor: bool = True) -> tuple:
+    """The general class's activation rows (buffer 0: the obs and the odd
+    layers' outputs padded to 8; buffer 1: the even layers'), none where the
+    head runs no actor."""
+    rows = [dims[0] if actor else 0, 0]
+    if actor:
+        for layer, d in enumerate(dims[1:]):
+            rows[(layer + 1) & 1] = max(rows[(layer + 1) & 1], _pad8(d))
+    return tuple(rows)
+
+
+def _wide_fits_fixed(dims, act_dim: int, extra_floats: int) -> bool:
+    """Whether the wide route's fixed class (WideMlp) takes the actor: its
+    arrays hold it, and its two buffers of the widest layer beside the
+    family's ``extra_floats`` of shared memory fit a block."""
     rows = max([dims[0]] + [_pad8(d) for d in dims[1:]])
-    smem = 2 * rows * _WIDE_LANES * 4
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"actor of widths {dims}: two activation buffers of {rows} rows x "
-                         f"{_WIDE_LANES} lanes need {smem} bytes; the shared memory of a block "
-                         f"holds {SMEM_OPTIN_BYTES}")
+    return (len(dims) - 1 <= WIDE_MAX_LAYERS and act_dim <= WIDE_MAX_ACT
+            and 4 * (2 * rows * _WIDE_LANES + extra_floats) <= SMEM_OPTIN_BYTES)
+
+
+@functools.lru_cache(maxsize=32)
+def _wide_pack_plan_any(dims, act_dim: int, policy: str, half_hi, device: str,
+                        extra_floats: int = 0):
+    """(the WideMlpG struct, the gather index and a zero on ``device``, the
+    table words) of ``_pack_wide_actor``'s general class: the fixed class's
+    layers and std, then the widths (ints) and half_hi; the buffers sized by
+    layer parity (``_wide_rows_any``) in shared memory where they fit beside
+    ``extra_floats``, else in the workspace. Raises ValueError where
+    ``extra_floats`` alone fit no block or a block's slice exceeds
+    WORKSPACE_MAX_BYTES, naming the bytes."""
+    index, std = _wide_index(dims, act_dim, policy in ("ppo", "det"))
+    at = int(index.size)
+    rows = _wide_rows_any(dims, policy != "uniform")
+    acts = (rows[0] + rows[1]) * _WIDE_LANES
+    workspace = 4 * (acts + extra_floats) > SMEM_OPTIN_BYTES
+    if 4 * extra_floats > SMEM_OPTIN_BYTES or 4 * acts > WORKSPACE_MAX_BYTES:
+        raise ValueError(
+            f"actor of widths {list(dims)}: the wide route needs {4 * extra_floats} bytes of "
+            f"shared memory beside {4 * acts} bytes of activations a block; a block holds "
+            f"{SMEM_OPTIN_BYTES} and the workspace {WORKSPACE_MAX_BYTES}")
+    st = _WideMlpG(n_layers=len(dims) - 1, dims=at, half_hi=at + len(dims), rows0=rows[0],
+                   rows1=rows[1], act=act_dim, head=HEADS[policy], std=std,
+                   ws_floats=acts if workspace else 0)
+    tail = torch.cat([_int_floats(dims), torch.tensor(half_hi, dtype=torch.float32)])
+    return (st, torch.from_numpy(index).to(device),
+            torch.zeros(1, dtype=torch.float32, device=device), tail.to(device))
+
+
+def _pack_wide_actor(actor, std, obs_dim: int, act_dim: int, policy: str, half_hi, device,
+                     extra_floats: int = 0, noise_rows: bool = False, general: bool = False):
+    """The wide kernels' actor arguments: the struct (the head, ``half_hi[i]``
+    the f32 factor that maps a_norm_i + 1 onto action i's range) and one
+    flat float32 buffer on ``device``, each layer as W^T (in, out8) then b
+    (out8), the outputs zero-padded to a multiple of 8, then the std when
+    the head takes one ("ppo", "det"). WideMlp where ``_wide_fits_fixed``
+    (the family keeping ``extra_floats`` of shared memory a block beside
+    the activations); else a copy of WideMlpG (``_wide_pack_plan_any``,
+    with a row of head noise a lane and action beside ``extra_floats`` when
+    ``noise_rows``: K29's), the buffer then holding the widths and half_hi,
+    the launch setting its grid and workspace (``_wide_launch``); WideMlpG
+    too where ``general`` (tools/actor_sweep.py times the two classes on one
+    actor). The layouts and gather indices are cached per shape, so a call
+    packs with one cat and one index.
+    Raises ValueError for an actor that does not fit the env, or past the
+    general class's bounds."""
+    dims = _head_dims(actor, obs_dim, act_dim, policy)
     dev = torch.device(device)
-    st, index, zero = _wide_pack_plan(tuple(dims), act_dim, policy,
-                                      tuple(float(h) for h in half_hi[:act_dim]),
-                                      _plan_key(dev) if dev.type == "cuda" else "cpu")
-    return st, _gather(actor, std if st.std >= 0 else None, index, zero, dev)
+    key = _plan_key(dev) if dev.type == "cuda" else "cpu"
+    hi = tuple(float(h) for h in half_hi[:act_dim])
+    if not general and _wide_fits_fixed(dims, act_dim, extra_floats):
+        st, index, zero = _wide_pack_plan(tuple(dims), act_dim, policy, hi, key)
+        return st, _gather(actor, std if st.std >= 0 else None, index, zero, dev)
+    extra = int(extra_floats) + (act_dim * _WIDE_LANES if noise_rows else 0)
+    st, index, zero, tail = _wide_pack_plan_any(tuple(dims), act_dim, policy, hi, key, extra)
+    flat = _gather(actor, std if st.std >= 0 else None, index, zero, dev)
+    return _WideMlpG.from_buffer_copy(st), torch.cat([flat, tail])
+
+
+def _wide_launch(st, batch: int, dev) -> str:
+    """Set a WideMlpG's grid (a block per 32 lanes, or the persistent grid
+    over the workspace) and workspace for ``batch`` lanes; returns the C
+    entry points' suffix ("" for WideMlp, "_any")."""
+    if not isinstance(st, _WideMlpG):
+        return ""
+    blocks = -(-batch // _WIDE_LANES)
+    if st.ws_floats:
+        _set_workspace(st, _persistent_blocks(blocks, st.ws_floats, _WIDE_THREADS, 0,
+                                              _WIDE_REGS, dev), dev)
+    else:
+        st.grid, st.ws = blocks, None
+    return "_any"
 
 
 # ------------------------- the off-policy actor over a cluster (K27, K28, K29)
@@ -932,12 +1224,12 @@ def _pack_cluster_actor(actor, std, obs_dim: int, act_dim: int, policy: str, hal
     ``state_words``, ``anchors`` and ``layout`` as ``_cluster_plan``
     takes them), at
     the entry points' tile (``_cluster_choice``). Returns None when no
-    cluster tile fits (the wide route); raises ValueError for an actor
-    beyond the maxima."""
+    cluster tile fits, or the actor has more than WIDE_MAX_LAYERS layers or
+    WIDE_MAX_ACT actions (ClusterMlp's arrays): the wide route, whose
+    general class takes any actor."""
     dims = _head_dims(actor, obs_dim, act_dim, policy)
     if len(dims) - 1 > WIDE_MAX_LAYERS or act_dim > WIDE_MAX_ACT:
-        raise ValueError(f"actor widths {dims}: the wide kernels take at most "
-                         f"{WIDE_MAX_LAYERS} layers and {WIDE_MAX_ACT} actions")
+        return None
     dev = torch.device(device)
     plan = _cluster_pack_plan(tuple(dims), act_dim, policy,
                               tuple(float(h) for h in half_hi[:act_dim]), int(T),
@@ -1431,12 +1723,13 @@ def _im_policy_plain(params, actor, std, seed, batch, E, device, dump=False):
 
 # ------------------------------------------------------------------ wrappers
 
-def _im_tile_actor(params: im.InvManagementParams, actor, std, device):
+def _im_tile_actor(params: im.InvManagementParams, actor, std, device, general: bool = False):
     """The actor arguments of K10-K12 on the tensor-core tile
     (``_pack_tile_actor`` at the env's obs and act widths and ``_half_c``):
-    the MlpTile struct and the packed buffer, the std last when given."""
+    the struct (MlpTile, or MlpTileG past its arrays or a block, or where
+    ``general``) and the packed buffer."""
     return _pack_tile_actor(actor, std, im.observation_space(params).shape[0], params.m1,
-                            _half_c(params), device)
+                            _half_c(params), device, general=general)
 
 
 def _check_im_streams(params, demands, actions=None):
@@ -1613,7 +1906,8 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
                reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
-        _launch("im_policy", "im_rollout_traj", ctypes.addressof(plan["struct"]),
+        fn = "im_rollout_traj" + _tile_launch(st, batch, dev)
+        _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
@@ -1661,8 +1955,8 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
     packed = _pack_cluster_actor(actor, std, obs_dim, m1, policy, _half_c(params), T, obs_dim,
                                  False, dev)
     if packed is None:   # the wide route: no cluster tile holds the actor
-        fn = "im_rollout_traj_wide"
         st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev)
+        fn = "im_rollout_traj_wide" + _wide_launch(st, batch, dev)
     else:
         fn = "im_rollout_traj_cluster"
         st, flat = packed
@@ -1715,7 +2009,8 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
         acts = torch.empty((T, E, m1, batch), dtype=torch.int32, device=dev)
         dems = torch.empty((T, E, batch), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("im_policy", "im_policy_returns", ctypes.addressof(plan["struct"]),
+        fn = "im_policy_returns" + _tile_launch(st, E * batch, dev)
+        _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,
@@ -2655,12 +2950,23 @@ def _sample_normals_plain(seed, rows, batch, device):
                         for r in range(rows)])
 
 
-def _nv_tile_actor(params: nv.NewsvendorParams, actor, std, device):
+def _nv_tile_actor(params: nv.NewsvendorParams, actor, std, device, general: bool = False):
     """The actor arguments of K18-K20 on the tensor-core tile
     (``_pack_tile_actor`` at the env's obs width, one action, and
-    ``_nv_half_hi``): the MlpTile struct and the packed buffer, the std
-    last when given; ``_nv_tile_launch`` lays the tile out."""
-    return _pack_tile_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), device)
+    ``_nv_half_hi``): the struct and the packed buffer, the std last when
+    given; ``_nv_tile_launch`` lays the tile out. MlpTile where the actor
+    fits its arrays and ``_nv_tile_choice`` a block for it; else MlpTileG
+    (``_nv_tile_choice_any``), as where ``general``."""
+    dims = _actor_dims(actor, params.obs_dim, 1)
+    general = general or not _within_fixed_tile(dims)
+    if not general:
+        st = _nv_plan(params, "cpu")["struct"]
+        try:
+            _nv_tile_choice(tuple(dims), st.L, st.K, params.step_limit, st.kc_max)
+        except ValueError:
+            general = True
+    return _pack_tile_actor(actor, std, params.obs_dim, 1, _nv_half_hi(params), device,
+                            general=general)
 
 
 def _nv_policy_args(params, actor, log_std, batch, E, device):
@@ -2715,6 +3021,7 @@ class NvTilePlan:
     floats: int
     bytes: int
     blocks_per_sm: int
+    ws_floats: int = 0   # the general class's workspace slice a block (0: none)
 
 
 def _nv_tile_plan(dims, L: int, K: int, T: int, lanes: int, layout: str) -> NvTilePlan:
@@ -2757,26 +3064,79 @@ def _nv_tile_choice(dims, L: int, K: int, T: int, kc_max: int) -> NvTilePlan:
                      f"{plan.bytes} bytes; the shared memory of a block holds {SMEM_OPTIN_BYTES}")
 
 
-def _nv_tile_structs(st: _MlpTile, plan: NvTilePlan):
-    """(a copy of the packed actor's MlpTile laid out as ``plan``, its
-    NvTile)."""
-    tile = _MlpTile.from_buffer_copy(st)
+def _nv_tile_plan_any(dims, L: int, K: int, T: int, lanes: int, layout: str,
+                      workspace: bool = False) -> NvTilePlan:
+    """``_nv_tile_plan`` for the general class (MlpTileG): the activation
+    buffers of ``_mlp_tile_plan_any`` in shared memory, laid out as
+    ``_nv_tile_plan`` lays out the fixed class's, or, with ``workspace``,
+    in the workspace ("x0" then an offset from the block's slice), shared
+    memory holding the demand rows, then one region for the table and, after
+    it, the pipeline (both [row][lane] at a stride of ``lanes``, so a
+    pair's rows are its own): dem_rows + max(K, L) rows for "upfront",
+    NV_CHUNK + L for "linear"."""
+    act = _mlp_tile_plan_any(dims, 0, 0, 0, lanes, workspace=workspace)
+    N = lanes
+    buf = 0 if workspace else act.act_floats
+    if layout == "upfront":
+        dem_rows = -(-T // 2)
+        x0 = dem_rows * N
+        offsets = {"x0": 0 if workspace else x0, "dem": 0, "ring": x0 + buf, "table": x0}
+        floats = x0 + max(K * N, buf + L * N)
+    else:
+        dem_rows = NV_CHUNK
+        offsets = {"x0": 0, "dem": buf, "ring": buf + NV_CHUNK * N, "table": -1}
+        floats = buf + (NV_CHUNK + L) * N
+    return NvTilePlan(layout, lanes, act.stride, act.rows, act.in_place, offsets, dem_rows,
+                      floats, 4 * floats, _blocks_per_sm(4 * floats, lanes, _NV_TILE_REGS),
+                      act.act_floats if workspace else 0)
+
+
+def _nv_tile_choice_any(dims, L: int, K: int, T: int, kc_max: int) -> NvTilePlan:
+    """The general class's plan: as ``_nv_tile_choice``, "upfront" (where
+    every demand is below 2^16) before "linear", the activations in shared
+    memory at the first of ``_MLP_TILES`` that fits, else in the workspace.
+    Raises ValueError where none fits, naming the bytes."""
+    layouts = ["upfront"] if kc_max + 1 < 1 << 16 else []
+    plans = [_nv_tile_plan_any(dims, L, K, T, lanes, name, workspace)
+             for name in layouts + ["linear"] for workspace in (False, True)
+             for lanes in _MLP_TILES]
+    for plan in plans:
+        if plan.bytes <= SMEM_OPTIN_BYTES and 4 * plan.ws_floats <= WORKSPACE_MAX_BYTES:
+            return plan
+    least = min(plans, key=lambda pl: pl.bytes)
+    raise ValueError(f"actor of widths {list(dims)} at lead time {L}: K19's tile needs "
+                     f"{least.bytes} bytes of shared memory beside {4 * least.ws_floats} of "
+                     f"workspace; a block holds {SMEM_OPTIN_BYTES} and the workspace "
+                     f"{WORKSPACE_MAX_BYTES}")
+
+
+def _nv_tile_structs(st, plan: NvTilePlan):
+    """(a copy of the packed actor's tile struct laid out as ``plan``, its
+    NvTile). MlpTileG's second buffer follows its first's rows[0] rows, its
+    workspace slice is the plan's."""
+    tile = type(st).from_buffer_copy(st)
     tile.lanes, tile.stride = plan.lanes, plan.stride
     x0 = plan.offsets["x0"]
     tile.s_x0 = x0
-    tile.s_x1 = x0 if plan.in_place else x0 + plan.rows * plan.stride
+    rows = plan.rows[0] if isinstance(plan.rows, tuple) else plan.rows
+    tile.s_x1 = x0 if plan.in_place else x0 + rows * plan.stride
     tile.s_dem = tile.s_z = tile.s_scratch = -1   # the demand has rows of its own
     tile.s_state = plan.offsets["ring"]
     tile.s_total = plan.floats
     nt = _NvTile(layout=NV_TILE_LAYOUTS[plan.layout], s_dem=plan.offsets["dem"],
                  s_ring=plan.offsets["ring"], s_table=plan.offsets["table"])
+    if isinstance(tile, _MlpTileG):
+        tile.ws_floats = plan.ws_floats
     return tile, nt
 
 
-def _nv_tile_launch(st: _MlpTile, nv_st: _NvParams, T: int):
-    """K18-K20's (MlpTile, NvTile) for the packed actor's ``st`` and the
+def _nv_tile_launch(st, nv_st: _NvParams, T: int):
+    """K18-K20's (tile struct, NvTile) for the packed actor's ``st`` and the
     launch plan's params struct ``nv_st`` at ``T`` periods: the layout
-    ``_nv_tile_choice`` takes."""
+    ``_nv_tile_choice`` takes (``_nv_tile_choice_any`` for MlpTileG)."""
+    if isinstance(st, _MlpTileG):
+        return _nv_tile_structs(st, _nv_tile_choice_any(st.actor_dims, nv_st.L, nv_st.K, T,
+                                                        nv_st.kc_max))
     return _nv_tile_structs(st, _nv_tile_choice(tuple(st.dims[:st.n_layers + 1]), nv_st.L,
                                                 nv_st.K, T, nv_st.kc_max))
 
@@ -2818,7 +3178,8 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
                raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **f32))
     with torch.cuda.device(dev):
-        _launch("nv_policy", "nv_rollout_traj", ctypes.addressof(plan["struct"]),
+        fn = "nv_rollout_traj" + _tile_launch(tile, batch, dev)
+        _launch("nv_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(tile), ctypes.addressof(nt), flat.data_ptr(),
                 plan["lgam"].data_ptr(),
                 *(out[k].data_ptr() for k in ("econ", "orders", "raw", "reward", "demand")),
@@ -2860,9 +3221,9 @@ def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed,
     packed = _pack_cluster_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params), T,
                                  params.obs_dim + 1, True, dev)
     if packed is None:   # the wide route: no cluster tile holds the actor and the demand
-        fn = "nv_rollout_traj_wide"
         st, flat = _pack_wide_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params),
                                     dev)
+        fn = "nv_rollout_traj_wide" + _wide_launch(st, batch, dev)
     else:
         fn = "nv_rollout_traj_cluster"
         st, flat = packed
@@ -2910,7 +3271,8 @@ def _nv_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
         acts = torch.empty((T, E, batch), **f32)
         dems = torch.empty((T, E, batch), **f32)
     with torch.cuda.device(dev):
-        _launch("nv_policy", "nv_policy_returns", ctypes.addressof(nv_st),
+        fn = "nv_policy_returns" + _tile_launch(tile, E * batch, dev)
+        _launch("nv_policy", fn, ctypes.addressof(nv_st),
                 ctypes.addressof(tile), ctypes.addressof(nt), flat.data_ptr(),
                 plan["lgam"].data_ptr(), plan["disc"].data_ptr(), out.data_ptr(),
                 *(None if x is None else x.data_ptr() for x in (econ, acts, dems)),

@@ -970,16 +970,17 @@ def _half_hi(T) -> float:
     return float(np.float32(0.5 * float(T.order_cap_heuristic * 2)))
 
 
-def _pack_net_tile_actor(T, actor, std, device):
+def _pack_net_tile_actor(T, actor, std, device, general: bool = False):
     """``episode_kernels._pack_tile_actor`` for the topology (K4-K6): the
     tile's transient rows hold a demand row per retail link and the step's
     per-node scratch, each lane keeps the state of ``_shared_layout(T,
-    scratch=False)``, and the block the topology's records."""
+    scratch=False)``, and the block the topology's records; MlpTileG where
+    ``general``."""
     state = _shared_layout(T, False)[0]
     return ek._pack_tile_actor(actor, std, T.obs_dim, T.n_reorder,
                                [_half_hi(T)] * T.n_reorder, device, dem_rows=T.n_retail,
                                scratch_rows=3 * T.n_main, state_words=state.words,
-                               topo_floats=state.topo_floats)
+                               topo_floats=state.topo_floats, general=general)
 
 
 def _policy_period_plain(T, plan, layers, std, seed, lanes, episodes, t, X, U, RH,
@@ -1120,7 +1121,7 @@ def rollout_traj_net(params: NetInvParams, actor, log_std, seed, batch: int,
                reward=torch.empty((num_steps, batch), **f32),
                demand=torch.empty((num_steps, n_rt, batch), **f32))
     with torch.cuda.device(dev):
-        _launch("net_rollout_traj", *_topo_args(tp),
+        _launch("net_rollout_traj" + ek._tile_launch(st, batch, dev), *_topo_args(tp),
                 ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
                 flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 *(out[k].data_ptr() for k in ("x", "u", "r", "raw", "reward", "demand")),
@@ -1162,15 +1163,28 @@ def _net_cluster_layout(T) -> ek.ClusterLayout:
                             topo_floats=_topo_floats(T.n_main, T.n_reorder, T.n_retail))
 
 
-def _net_wide_bytes(T, wide: ek._WideMlp) -> None:
+def _net_wide_extra(T) -> int:
+    """Floats of K29's wide block beside its activations: each of its 32
+    lanes' state (``_shared_layout`` with the scratch) and demand rows, then
+    the records (csrc/net_policy.cu net_rollout_traj_wide); the general
+    class adds its head noise's rows (``ek._pack_wide_actor``'s
+    ``noise_rows``)."""
+    state = _shared_layout(T)[0]
+    return (state.words + T.n_retail) * ek._WIDE_LANES + state.topo_floats
+
+
+def _net_wide_bytes(T, wide) -> None:
     """Check that a block of K29's wide route fits the shared memory of a
-    block: the two activation buffers of ``wide``, then each of its 32
-    lanes' state (``_shared_layout`` with the scratch) and demand rows,
-    then the records (csrc/net_policy.cu net_rollout_traj_wide). Raises
-    ValueError past it."""
+    block: the activation buffers of ``wide`` (WideMlp's two of ``rows``,
+    WideMlpG's of rows0 and rows1, none in the workspace, and its noise
+    rows), then ``_net_wide_extra``. Raises ValueError past it."""
     state = _shared_layout(T)[0]
     lanes = ek._WIDE_LANES
-    nbytes = 4 * (2 * wide.rows * lanes + (state.words + T.n_retail) * lanes + state.topo_floats)
+    if isinstance(wide, ek._WideMlpG):
+        acts = (0 if wide.ws_floats else wide.rows0 + wide.rows1) + wide.act
+    else:
+        acts = 2 * wide.rows
+    nbytes = 4 * (acts * lanes + _net_wide_extra(T))
     if nbytes > SMEM_PER_BLOCK:
         raise ValueError(
             f"graph too large for K29's wide route: its activations, {state.words} words of "
@@ -1241,9 +1255,11 @@ def rollout_traj_net_offpolicy(params: NetInvParams, actor, log_std, seed, batch
                     *streams, seed, relu, batch, num_steps, ek._stream(dev),
                     lib_name="net_policy")
         else:
-            st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy, half_hi, dev)
+            st, flat = ek._pack_wide_actor(actor, std, T.obs_dim, n_ro, policy, half_hi, dev,
+                                           _net_wide_extra(T), noise_rows=True)
             _net_wide_bytes(T, st)
-            _launch("net_rollout_traj_wide", *_topo_args(tp), ctypes.addressof(lay),
+            _launch("net_rollout_traj_wide" + ek._wide_launch(st, batch, dev), *_topo_args(tp),
+                    ctypes.addressof(lay),
                     ctypes.addressof(st), flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                     *streams, seed, relu, batch, num_steps, ek._stream(dev),
                     lib_name="net_policy")
@@ -1281,7 +1297,7 @@ def _policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std
         acts = torch.empty((num_steps, E, T.n_reorder, batch), **f32)
         dems = torch.empty((num_steps, E, T.n_retail, batch), **f32)
     with torch.cuda.device(dev):
-        _launch("net_policy_returns", *_topo_args(tp),
+        _launch("net_policy_returns" + ek._tile_launch(st, E * batch, dev), *_topo_args(tp),
                 ctypes.addressof(_shared_layout(T, False)[1]), ctypes.addressof(st),
                 flat.data_ptr(), tab.data_ptr(), disc.data_ptr(),
                 out.data_ptr(), acts.data_ptr() if dump else None,

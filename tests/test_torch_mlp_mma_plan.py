@@ -131,12 +131,18 @@ def test_k5_and_k11_entry_points_pack_the_default_layouts():
     assert (tek.SMEM_PER_SM // (4 * st.s_total + tek.SMEM_PER_BLOCK_RESERVED)) == 12
 
 
-def test_an_actor_beyond_the_maxima_raises_the_first_designs_error():
-    for dims in ([33] + [64] * 9 + [3], [33, 257, 3], [33, 64, 33], [257, 64, 3]):
-        for pack in (tek._pack_actor, tek._pack_tile_actor):
-            with pytest.raises(ValueError, match=r"the kernels take at most 8 layers of "
-                                                 r"width <= 256 and 32 actions"):
-                pack(_actor(dims), None, dims[0], dims[-1], [1.0] * dims[-1], CPU)
+@pytest.mark.parametrize("dims", [[33] + [64] * 9 + [3], [33, 257, 3], [33, 64, 33],
+                                  [257, 64, 3]])
+def test_an_actor_beyond_the_maxima_raises_the_first_designs_error(dims):
+    """The first design (``_pack_actor``, tools/ only) keeps its maxima; the
+    tile takes the same actors on its general class (MlpTileG) in a
+    block's shared memory."""
+    with pytest.raises(ValueError, match=r"the kernels take at most 8 layers of "
+                                         r"width <= 256 and 32 actions"):
+        tek._pack_actor(_actor(dims), None, dims[0], dims[-1], [1.0] * dims[-1], CPU)
+    st, _ = tek._pack_tile_actor(_actor(dims), None, dims[0], dims[-1], [1.0] * dims[-1], CPU)
+    assert isinstance(st, tek._MlpTileG) and st.n_layers == len(dims) - 1
+    assert st.ws_floats == 0 and 4 * st.s_total <= tek.SMEM_OPTIN_BYTES
 
 
 def test_every_actor_the_first_design_took_still_fits():

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from or_gym_inventory_torch.envs import net_inv_management as tnet
+from or_gym_inventory_torch.ops import episode_kernels as tek
 from or_gym_inventory_torch.ops import net_step as tns
 from or_gym_inventory_torch.ops import rng
 from or_gym_inventory_torch.utils import interop
@@ -192,8 +193,8 @@ def test_net_policy_wrappers_take_a_wider_actor_on_the_cpu():
     assert torch.isfinite(tr["reward"]).all() and tr["raw"].shape == (steps, T.n_reorder, B)
     tr = tns.rollout_traj_net(tp, actor, log_std, 5, B, "det", "relu", CPU)
     assert float(tr["raw"].abs().max()) <= 1.0
-    with pytest.raises(ValueError, match="256"):
-        tns._pack_net_tile_actor(T, actor, None, CPU)
+    st, _ = tns._pack_net_tile_actor(T, actor, None, CPU)   # the general class on the card
+    assert isinstance(st, tek._MlpTileG) and st.ws_floats == 0
     with pytest.raises(ValueError, match="obs_dim"):
         tns.episode_returns_net_policy(tp, ((actor[0][0][1:], actor[0][1]), actor[1]), 5, B,
                                        device=CPU)

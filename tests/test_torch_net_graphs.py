@@ -282,10 +282,12 @@ def test_each_wrapper_plans_its_block_by_the_graph(name):
     assert (plan1.threads, plan1.chunk) == k1
     assert tns._k25_plan(T.n_main, T.n_reorder, T.n_retail,
                          sum(L > 0 for L in T.ro_L)).threads == k25
-    if tile is None:   # obs 544: past the MLP tile's 256 inputs
-        with pytest.raises(ValueError, match="at most 8 layers of width <= 256"):
-            tns._pack_net_tile_actor(T, ([torch.zeros(T.obs_dim, 64), torch.zeros(64, 88)],
-                                         [torch.zeros(64), torch.zeros(88)]), None, CPU)
+    if tile is None:   # obs 544: past MlpTile's 256 inputs, the general class
+        st, _ = tns._pack_net_tile_actor(T, ([torch.zeros(T.obs_dim, 64), torch.zeros(64, 88)],
+                                             [torch.zeros(64), torch.zeros(88)]), None, CPU)
+        words = tns._shared_layout(T, False)[0].words
+        assert isinstance(st, tek._MlpTileG) and (st.lanes, st.ws_floats) == (32, 0)
+        assert st.s_total == st.s_state + words * 32 + topo <= tek.SMEM_OPTIN_BYTES // 4
         return
     st, _ = tns._pack_net_tile_actor(T, ([torch.zeros(T.obs_dim, 64), torch.zeros(64, 64),
                                           torch.zeros(64, T.n_reorder)],

@@ -280,8 +280,9 @@ def test_policy_wrappers_refuse_what_is_not_ported(params, actor):
     # the kernels' caps hold on the card only: the CPU takes any actor
     wide = (torch.zeros(68, 300), torch.zeros(300, 11)), (torch.zeros(300), torch.zeros(11))
     assert tns.episode_returns_net_policy(tp, wide, 1, 4, device=CPU).shape == (4,)
-    with pytest.raises(ValueError, match="width"):
-        tns._pack_net_tile_actor(tp.topology, wide, None, CPU)
+    # past MlpTile's 256 the card takes the general class (MlpTileG)
+    st, _ = tns._pack_net_tile_actor(tp.topology, wide, None, CPU)
+    assert isinstance(st, tek._MlpTileG) and st.lanes == 64 and st.ws_floats == 0
     # K4-K6's tile holds any actor within the width cap in a block's shared
     # memory (four hidden layers of 256: two buffers of 256 rows at 64 lanes)
     big = ((torch.zeros(68, 256),) + (torch.zeros(256, 256),) * 3 + (torch.zeros(256, 11),),

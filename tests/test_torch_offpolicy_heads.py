@@ -219,13 +219,21 @@ def test_pack_wide_actor_layout():
     st, flat = tek._pack_wide_actor(sac_actor, None, 33, 3, "sac", [1.0] * 3, CPU)
     assert st.std == -1 and st.rows == 256 and flat.numel() == 33 * 256 + 256 + 256 * 256 \
         + 256 + 256 * 8 + 8
+    # past a block (two buffers of 1,000 rows) or WideMlp's 8 layers: the
+    # general class, its widths and half_hi after the layers; "uniform" runs
+    # no actor, so its buffers have no rows
     wide = ([torch.zeros(33, 1000), torch.zeros(1000, 3)], [torch.zeros(1000), torch.zeros(3)])
-    with pytest.raises(ValueError, match="shared memory"):
-        tek._pack_wide_actor(wide, None, 33, 3, "uniform", [1.0] * 3, CPU)
+    st, flat = tek._pack_wide_actor(wide, None, 33, 3, "uniform", [1.0] * 3, CPU)
+    assert isinstance(st, tek._WideMlpG) and (st.rows0, st.rows1, st.ws_floats) == (0, 0, 0)
+    st, _ = tek._pack_wide_actor(wide, torch.ones(3), 33, 3, "det", [1.0] * 3, CPU)
+    assert (st.rows0, st.rows1, st.ws_floats) == (33, 1000, 0)
+    assert st.std == 33 * 1000 + 1000 + 1000 * 8 + 8
     deep = ([torch.zeros(33, 8)] + [torch.zeros(8, 8)] * 8 + [torch.zeros(8, 3)],
             [torch.zeros(8)] * 9 + [torch.zeros(3)])
-    with pytest.raises(ValueError, match="at most"):
-        tek._pack_wide_actor(deep, None, 33, 3, "uniform", [1.0] * 3, CPU)
+    st, flat = tek._pack_wide_actor(deep, None, 33, 3, "uniform", [1.0] * 3, CPU)
+    assert isinstance(st, tek._WideMlpG) and st.n_layers == 10
+    assert flat[st.dims:st.dims + 11].view(torch.int32).tolist() == [33] + [8] * 9 + [3]
+    assert flat[st.half_hi:].tolist() == [1.0] * 3
 
 
 # ------------------------------------------- InvManagement (K27) replays

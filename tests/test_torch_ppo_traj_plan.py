@@ -124,18 +124,22 @@ def test_k10_packs_k11s_tile(case):
 
 def test_k10_and_k11_refuse_the_struct_maxima_alike():
     """At IM_MAX_M1 stages and lead time IM_MAX_LT the obs is 8 x 33 = 264
-    wide, past the MLP's 256: K10 and K11 raise the same error."""
+    wide, past MlpTile's 256: K10 and K11 both take the general class
+    (MlpTileG) with the same tile and layout (the std's 8 floats and the
+    table past the layers in K10's buffer), as they took the same error
+    before the widths were lifted."""
     params = _chain(tek.IM_MAX_M1, tek.IM_MAX_LT)
     obs = tim.observation_space(params).shape[0]
     assert obs == 264
     actor = _actor([obs, 64, 64, tek.IM_MAX_M1])
     std = torch.ones(tek.IM_MAX_M1, 1)
-    errors = []
-    for s in (std, None):
-        with pytest.raises(ValueError, match="width <= 256") as info:
-            tek._im_tile_actor(params, actor, s, CPU)
-        errors.append(str(info.value))
-    assert errors[0] == errors[1]
+    (k10, flat10), (k11, flat11) = (tek._im_tile_actor(params, actor, s, CPU)
+                                    for s in (std, None))
+    for st in (k10, k11):
+        assert isinstance(st, tek._MlpTileG) and (st.lanes, st.stride, st.ws_floats) == (64, 72, 0)
+    fields = ("lanes", "stride", "s_x0", "s_x1", "s_z", "s_state", "s_total")
+    assert [getattr(k10, f) for f in fields] == [getattr(k11, f) for f in fields]
+    assert (k10.std, k11.std) == (k11.table, -1) and flat10.numel() == flat11.numel() + 8
 
 
 def test_both_im_entry_points_pack_through_one_helper():

@@ -170,9 +170,13 @@ def test_the_entry_points_route():
     uni = choice(K28_DIMS, 1, False, 50, 11, True, actor=False)
     assert (uni.lanes, uni.floats) == (64, 64 * 50 * 2 + 4 * 64 + 64 * 11)
     assert choice(K28_DIMS, 1, False, 20_000, 11, True, actor=False) is None
-    with pytest.raises(ValueError, match="at most"):
-        tek._pack_cluster_actor(_actor((33,) + (8,) * 9 + (3,)), None, 33, 3, "uniform",
-                                [1.0] * 3, 30, 33, False, CPU)
+    # past ClusterMlp's 8 layers the wrappers take the wide route, whose
+    # general class (WideMlpG) holds any depth
+    deep = _actor((33,) + (8,) * 9 + (3,))
+    assert tek._pack_cluster_actor(deep, None, 33, 3, "uniform", [1.0] * 3, 30, 33, False,
+                                   CPU) is None
+    st, _ = tek._pack_wide_actor(deep, None, 33, 3, "uniform", [1.0] * 3, CPU)
+    assert isinstance(st, tek._WideMlpG) and st.n_layers == 10 and st.ws_floats == 0
 
 
 @pytest.mark.parametrize("cluster, lanes", [(8, 16), (8, 48), (16, 64), (3, 64), (1, 1024)])
