@@ -56,7 +56,7 @@ launch counter set to 0 just before it and read just after:
   replayed on the same generator seed, and K26 against K2;
 - slice 7, TD3 with ``collect="kernel"`` on InvManagement backlog (phase
   33) at tools/validate_kernel_collect.py's config (1,024 envs, buffer
-  200,704, batch 256, 32 updates per period) for 8 iterations: K27 once
+  200,704, batch 256, 32 updates per period) for 4 iterations: K27 once
   per iteration and nothing else; then the deterministic actor over 30
   episodes, which must beat the random policy;
 - slice 7, SAC and DDPG on Newsvendor and NetInvMgmt (phase 34), 2
@@ -143,7 +143,25 @@ launch counter set to 0 just before it and read just after:
   and after it each one's time beside its bound, the kernels whose sources
   the classes changed at their default shapes in turns with the parent
   design (tools/actor_sweep.py), bit for bit, and the general class in
-  turns with the fixed one there.
+  turns with the fixed one there;
+- InvManagement at any stage count and lead time (phase 55, after phase 54;
+  the chain route, csrc/im_step.cuh ``ImParamsG``): on IM-chain12-lt40 (12
+  stocked stages, lead times to 40, 60 periods; obs 492)
+  ``random_episode_returns`` at 1,048,576 x 4 (K8), K9's dump and K7
+  streamed and _random on it at 65,536, PPO ``rollout="kernel"`` for 2
+  updates at 4,096 envs (K10 each), ``policy_episode_returns`` of the
+  trained actor deterministic and stochastic at 65,536 x 4 (K11 each) and
+  its dump (K12), ``RecurrentPPOAgent`` on the kernel path for 2 updates at
+  4,096 envs (K24 each), ``lstm_policy_episode_returns`` at 65,536 (K22)
+  and its dump (K23), and ``TD3Agent`` and ``SACAgent`` ``collect="kernel"``
+  with SB3's (256, 256) actor for 2 iterations each (K27 each), no plain
+  version; before it the chain instances' frames and every chain kernel
+  against its plain version on IM-chain12-lt40, IM-chain9 and IM-lt33 by
+  its family's gates (K7-K9 bit for bit at 4,096 x 2; K10-K12 by phases 12
+  and 16's, K22-K24 by phase 25's at 4,096; K27's three heads at 1,024,
+  teacher-forced against the head in float64), and after it each one's
+  time beside its bound and the IM kernels at their default shapes in turns
+  with the parent design (tools/im_caps_sweep.py), bit for bit.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -226,9 +244,9 @@ and lost sales, at 65,536 x 4 x 30 (phase 6), one PPO update
 with its gradient in 8 chunks per minibatch against 1 (phase 9), trains
 InvManagement at the protocol of tools/validate_kernel_ppo.py for its
 reward (phase 15), Newsvendor at benchmarks/benchmark_newsvendor.py's
-PPO_CFG for 2M of RESULTS.md's 4M env-steps for its reward (phase 24), and
-recurrent PPO at validate_kernel_ppo.py's rppo_kernel protocol cut to 1M of
-its 2M steps for its reward, which must beat the random policy's (phase
+PPO_CFG for 1M of RESULTS.md's 4M env-steps for its reward (phase 24), and
+recurrent PPO at validate_kernel_ppo.py's rppo_kernel protocol cut to 0.5M
+of its 2M steps for its reward, which must beat the random policy's (phase
 29), then K25-K29 (K27-K29 at the
 learners' 1,024 lanes and at 65,536, through the entry points and, for
 K27-K29, the kernel alone on the entry point's route, whose outputs must
@@ -262,7 +280,8 @@ xla paths' rates beside the kernel paths' and the agents' training times;
 ``mesh_main_path``: phases 48-50's update times, walls and the gloo
 collectives' shares; a spawned rank's launches count with this process's;
 ``graph_main_path``: phases 51-53's plans, times and turns;
-``actor_main_path``: phase 54's times, turns and the path's wall),
+``actor_main_path``: phase 54's times, turns and the path's wall;
+``im_caps_main_path``: phase 55's times, turns and the path's wall),
 the card's
 name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -448,9 +467,9 @@ LSTM_CASES = [(IM_DIST_MODES[0], True), (IM_DIST_MODES[0], False), (IM_DIST_MODE
 # tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel"): IM backlog, periods 50
 RPPO_RECIPE = dict(num_envs=1024, rollout_steps=50, num_minibatches=8, update_epochs=4,
                    rollout="kernel")
-# cut from the protocol's 2M steps to 1M, to hold the run in its limit beside
-# phase 54 (its reward must still beat the random policy's)
-RPPO_BUDGET = 1_000_000
+# cut from the protocol's 2M steps to 0.5M, to hold the run in its limit beside
+# phases 54-55 (its reward must still beat the random policy's)
+RPPO_BUDGET = 500_000
 RPPO_EVAL_ENVS = 64
 TPU_RPPO_REWARD = "+8,306.2 +- 15.5"  # tools/remeasure_logs/validate_kernel_ppo.jsonl:11
 # benchmarks/benchmark_newsvendor.py:35-38 (the reference's evaluation config)
@@ -471,12 +490,12 @@ IM_CHAIN_M1 = (1, 2, 8)
 # maxima, where tools/k9_k21_sweep.py times K9 too)
 IM_MAXIMA_L = (3, 5, 10, 32) * 2
 NORMAL_ROWS = 64             # K21's dump: 64 x 65,536 normals for the goodness-of-fit pin
-# benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for 2M of RESULTS.md:56's 4M
-# env-steps (cut to hold the run in its limit beside phase 54; its return
+# benchmarks/benchmark_newsvendor.py:46-47 PPO_CFG, for 1M of RESULTS.md:56's 4M
+# env-steps (cut to hold the run in its limit beside phases 54-55; its return
 # must still beat the random policy's)
 NV_PPO_RECIPE = dict(num_envs=256, rollout_steps=50, num_minibatches=8, update_epochs=4,
                      ent_coef=0.0, rollout="kernel")
-NV_PPO_BUDGET = 2_000_000
+NV_PPO_BUDGET = 1_000_000
 # the off-policy learners (slice 7): SB3's default actor, every roster's OFF_CFG
 # (off_policy.py:69); TD3/DDPG's exploration sigma
 OFF_ARCH = (256, 256)
@@ -496,9 +515,10 @@ FLOAT_FREE_SHARE = 0.5
 # tools/validate_kernel_collect.py run_row("td3", "kernel"), cut from 2M env-steps
 TD3_RECIPE = dict(algo="td3", collect="kernel", num_envs=1024, buffer_size=200_704,
                   batch_size=256, updates_per_iter=32)
-# 245,760 env-steps, 1 uniform warmup + 7 det iterations: its 960 updates an
-# iteration are host-bound eager PyTorch, 8-15 ms each on an H100's host
-TD3_ITERS = 8
+# 122,880 env-steps, 1 uniform warmup + 3 det iterations (cut from 8 to hold the
+# run in its limit beside phases 54-55): its 960 updates an iteration are
+# host-bound eager PyTorch, 8-15 ms each on an H100's host
+TD3_ITERS = 4
 TPU_TD3_REWARD = "+5,061.2 +- 29.1"  # tools/remeasure_logs/validate_kernel_collect.jsonl:10
 # the xla path (phases 36-38): updates timed at PPO_CFG on each path (the
 # first builds the model), PPOAgent's and A2CAgent's updates
@@ -899,9 +919,12 @@ class no_plain_versions:
 # class (csrc/net_topo.cuh: NetTopoParams<...>, the small class, read
 # "S"; NetTopo, any graph, "G"), then, for the actor kernels, the actor's
 # class (MlpTile or WideMlp, the fixed class, unread; MlpTileG or WideMlpG,
-# any actor, read "A")
+# any actor, read "A"), then, for the InvManagement policy kernels, the
+# params' route (csrc/im_step.cuh ImParams, the fixed route, unread;
+# ImParamsG, the chain route, read "C")
 KERNEL_NAME = (r"(k_[a-z0-9_]+?)(I(?:L[bi]n?\d+E)*(?:7NetTopo|13NetTopoParams"
-               r"ILi\d+ELi\d+ELi\d+EE)?(?:7MlpTile|8MlpTileG|7WideMlp|8WideMlpG)?E)?E")
+               r"ILi\d+ELi\d+ELi\d+EE)?(?:7MlpTile|8MlpTileG|7WideMlp|8WideMlpG)?"
+               r"(?:8ImParams|9ImParamsG)?E)?E")
 
 
 def kernel_name(m):
@@ -914,6 +937,8 @@ def kernel_name(m):
         flags.append("G")
     if "MlpTileG" in args or "WideMlpG" in args:
         flags.append("A")
+    if "ImParamsG" in args:
+        flags.append("C")
     return f"{m.group(1)}<{','.join(flags)}>" if flags else m.group(1)
 
 
@@ -1020,19 +1045,25 @@ def cluster_check(logs):
     ``k_nv_rollout_traj_cluster<RELU>``, net_policy.cu
     ``k_rollout_traj_cluster<RELU>``): every instance built, none spills
     (ptxas, where this run built the library), and none holds a tensor-core
-    instruction (the products run on the FP32 cores). Returns the line to
-    print; raises on a miss."""
+    instruction (the products run on the FP32 cores). K27's chain-route
+    instances (``<RELU,BACKLOG,C>``, phase 55) are counted apart, four more.
+    Returns the line to print; raises on a miss."""
     from or_gym_inventory_torch.ops import _build
     parts = []
     for src, kernel, want in (("im_policy", "k_im_rollout_traj_cluster", 4),
+                              ("im_policy", "k_im_rollout_traj_cluster", -4),
                               ("nv_policy", "k_nv_rollout_traj_cluster", 2),
                               ("net_policy", "k_rollout_traj_cluster", 4)):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
         if counts is None:
             raise AssertionError("cuobjdump not found: the cluster kernels' SASS cannot be read")
-        mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+        chain = want < 0   # the chain route's instances, <...,C>
+        want = abs(want)
+        mine = {k: v for k, v in counts.items()
+                if k.startswith(kernel + "<") and k.endswith(",C>") == chain}
         log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
-        ptx = [e for e in ptxas_entries(log).split("; ") if e.startswith(kernel + "<")]
+        ptx = [e for e in ptxas_entries(log).split("; ")
+               if e.startswith(kernel + "<") and (",C> " in e) == chain]
         if (len(mine) != want or (ptx and len(ptx) != want) or any("spills" in e for e in ptx)
                 or any(h for _, _, h in mine.values())):
             raise AssertionError(f"{kernel}: {len(mine)} instances (want {want}), "
@@ -2513,7 +2544,7 @@ def nv_tile_edge_cases(params, dev, actor, log_std):
 def nv_reward_check(dev, params, seed=0):
     """Phase 24's reward: benchmarks/benchmark_newsvendor.py's PPO_CFG with
     rollout="kernel" (256 envs x 50, 8 minibatches, 4 epochs, ent_coef 0)
-    for NV_PPO_BUDGET env-steps (2M of RESULTS.md:56's 4M), seed 0 (or
+    for NV_PPO_BUDGET env-steps (1M of RESULTS.md:56's 4M), seed 0 (or
     ``seed``), on ``params``;
     then the deterministic ``policy_episode_returns`` of the trained actor
     over 65,536 x 16 episodes. Returns (mean, its standard error, training
@@ -2786,7 +2817,7 @@ def lstm_eval_main_path(dev, wrappers, params, actor, smi):
 def lstm_reward_check(dev):
     """Phase 29, tools/validate_kernel_ppo.py run_rppo_row("rppo_kernel")'s
     protocol: IM backlog, periods 50, 1,024 envs, rollout_steps 50, 8
-    minibatches, 4 epochs, RPPO_BUDGET steps (1M of its 2M: 19 updates),
+    minibatches, 4 epochs, RPPO_BUDGET steps (0.5M of its 2M: 9 updates),
     seed 0; then the port's
     ``eval_episodes`` on 64 envs. The random policy's mean return at the
     same params (K8, 65,536 episodes) is the bar it must beat. Returns
@@ -6037,6 +6068,567 @@ def actor_phases(dev, wrappers, smi, err, parent_libs):
     return launches, summary
 
 
+# phase 55: InvManagement at any stage count and lead time (the chain route,
+# csrc/im_step.cuh ImParamsG, the C entry points *_chain): IM-chain12-lt40
+# (the reference's InvManagementBacklogEnv widened to 12 stocked stages,
+# lead times (3, 5, 10, 40) x 3, 60 periods so that the 40-period orders
+# arrive) through the entry points, and beside it, kernel against plain,
+# IM-chain9 (nine stages) and IM-lt33 (the defaults with a lead time of 33)
+IM_CAPS_CONFIGS = {
+    "IM-chain12-lt40": dict(backlog=True, periods=60, I0=(100, 100, 200) * 4,
+                            c=(100, 90, 80) * 4, h=(0.15, 0.10, 0.05) * 4,
+                            L=(3, 5, 10, 40) * 3, r=(1.5, 0.5, 13), k=(0.10, 0.025, 13)),
+    "IM-chain9": dict(periods=30, I0=(80,) * 9, r=tuple(16.0 - i for i in range(10)),
+                      k=(0.1,) * 10, h=(0.1,) * 9, c=(60,) * 9, L=(1, 2, 3) * 3),
+    "IM-lt33": dict(periods=36, L=(3, 5, 33)),
+}
+IM_CAPS_MAIN_LANES = 1_048_576   # K8 on the path, x IM_CAPS_EPISODES
+IM_CAPS_EPISODES = 4
+IM_CAPS_LANES = 65_536           # K7, K9, K11 (x 4), K12, K22, K23 on the path
+IM_CAPS_ENVS = 4_096             # PPO's and recurrent PPO's envs (K10, K24)
+IM_CAPS_UPDATES = 2
+IM_CAPS_OFF_LANES = 1_024        # TD3's and SAC's envs (K27)
+IM_CAPS_OFF_ITERS = 2            # the warmup's uniform head, then theirs
+IM_CAPS_CHECK_LANES = 4_096      # the checks' lanes (x IM_CAPS_CHECK_EPISODES)
+IM_CAPS_CHECK_EPISODES = 2
+IM_CAPS_TURN_ROUNDS = 2
+# each kernel row's phase-55 time (``im_caps_times``' keys)
+IM_CAPS_ROWS = {"episode_returns_im": "K7", "episode_returns_im_fused": "K8",
+                "sample_streams_debug_im": "K9", "rollout_traj_im": "K10",
+                "episode_returns_im_policy": "K11", "sample_policy_streams_debug_im": "K12",
+                "episode_returns_im_lstm": "K22", "sample_lstm_streams_debug_im": "K23",
+                "rollout_traj_im_lstm": "K24", "rollout_traj_im_offpolicy": "K27 det"}
+
+
+def im_caps_sweep_tool():
+    """tools/im_caps_sweep.py, the parent design's build and turns."""
+    graph_sweep_tool()   # puts tools/ on sys.path
+    import importlib
+    return importlib.import_module("im_caps_sweep")
+
+
+def im_caps_params(name):
+    """The InvManagement params of ``IM_CAPS_CONFIGS[name]``; a triple
+    (first, last, n) for r or k is n values from first to last, evenly
+    spaced, as f32."""
+    import numpy as np
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    kw = dict(IM_CAPS_CONFIGS[name])
+    for key in ("r", "k"):
+        if len(kw.get(key, ())) == 3 and isinstance(kw[key][2], int):
+            first, last, n = kw[key]
+            kw[key] = tuple(float(x) for x in np.linspace(first, last, n, dtype=np.float32))
+    return im.default_params(**kw)
+
+
+def im_caps_k27_plan(params, mode, dev):
+    """(route, struct) of K27's launch under SB3's (256, 256) relu actor and
+    ``mode``'s head on ``params`` (``rollout_traj_im_offpolicy``'s choice)."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    obs, m1 = im.observation_space(params).shape[0], params.m1
+    actor, log_std = seeded_offpolicy_actor(obs, m1, mode == "sac", dev)
+    words, layout, extra = ek._k27_state(params)
+    std = ek._offpolicy_std(mode, log_std)
+    packed = ek._pack_cluster_actor(actor, std, obs, m1, mode, ek._half_c(params),
+                                    params.periods, words, False, dev, layout)
+    if packed is not None:
+        return "cluster", packed[0]
+    chain = ek._im_plan(params, ek._plan_key(dev))["chain"]
+    return "wide", ek._pack_wide_actor(actor, std, obs, m1, mode, ek._half_c(params), dev,
+                                       extra, general=chain)[0]
+
+
+def im_caps_plans(params_of, dev):
+    """Phase 55's plans, a line a configuration: the route and the words,
+    K8's and K7's layouts, the tile's under a (64, 64) actor, K27's under
+    each head and the LSTM's at the benchmark widths."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    lines = []
+    for name, params in params_of.items():
+        m1, lt, obs = params.m1, params.lt_max, im.observation_space(params).shape[0]
+        plan = ek._im_plan(params, ek._plan_key(dev))
+        g, fused = plan["struct"], ek._im_fused_plan(m1, lt, plan["chain"])
+        k7 = ek._im_k7_plan(m1, lt, chain=plan["chain"])
+        actor, _ = seeded_actor(obs, m1, dev)
+        st, _ = ek._im_tile_actor(params, actor, None, dev)
+        k27 = []
+        for mode in ("det", "sac", "uniform"):
+            route, kst = im_caps_k27_plan(params, mode, dev)
+            if route == "cluster":
+                k27.append(f"{mode} cluster {kst.cluster} CTAs over {kst.lanes} lanes, "
+                           f"{kst.floats * 4} B a CTA")
+            else:
+                ws = f"workspace {kst.ws_floats * 4} B a block" if kst.ws_floats else "in shared"
+                k27.append(f"{mode} wide {type(kst).__name__[1:]} {kst.rows0} + {kst.rows1} "
+                           f"rows ({ws}), {4 * ek._k27_state(params)[2]} B of lane state and "
+                           "records")
+        lactor, _ = seeded_lstm_actor(params, dev)
+        lst, _ = ek._pack_lstm_actor(lactor, None, obs, m1, ek._half_c(params), dev,
+                                     g.rec_words if plan["chain"] else 0)
+        tile_ws = f", workspace {st.ws_floats * 4} B a block" if getattr(st, "ws_floats", 0) \
+            else ""
+        lstm_bytes = (lst.s_total + (g.rec_words if plan["chain"] else 0)) * 4
+        lines.append(
+            f"{name}: m1 {m1}, lt_max {lt}, obs {obs}, {params.periods} periods; route "
+            + (f"chain: the {g.rec_words} words of records staged into each block's shared "
+               f"memory, a policy lane's column {g.state_words} words" if plan["chain"]
+               else "fixed (ImParams)")
+            + f"; K8 {fused.threads} threads x {fused.words} words ({fused.bytes} B, "
+            f"{fused.blocks_per_sm} blocks an SM); K7 {k7.threads} threads, chunk {k7.chunk}, "
+            f"{k7.bytes} B; K10-K12 (64, 64): {type(st).__name__[1:]} {st.lanes} lanes, "
+            f"{st.s_total * 4} B{tile_ws}; K27 (256, 256): " + "; ".join(k27)
+            + f"; K22-K24 (64, 128): {lst.lanes} lanes, {lstm_bytes} B"
+            + (f", the lanes' state in a workspace of {g.state_words} words a lane"
+               if plan["chain"] else ""))
+    return lines
+
+
+def im_caps_frames(logs):
+    """Phase 55's line on the chain route's instances (their frames
+    reported on their own; the fixed instances' checks are phase 2's): K7,
+    K8 and K9's looped kernels (``k_im_returns_chain``,
+    ``k_im_returns_fused_chain``, ``k_im_sample_streams_chain``) and the
+    policy kernels' ``<...,C>`` instances, registers and stack from ptxas,
+    LDL/STL from the SASS; K7-K9's with no stack and no spill, K8's within
+    the registers its plan counts (``_IM_FUSED_CHAIN_REGS``); the LSTM's
+    64-lane instances spill at their 128 registers as the fixed route's do
+    (phase 2). Raises on a miss."""
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    parts = []
+    for src in ("im_episode", "im_policy", "im_lstm"):
+        counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu"))) or {}
+        log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
+        ptx = [e for e in ptxas_entries(log).split("; ")
+               if e.split(" ")[0].endswith((",C>", "_chain", "_chain>"))
+               or "_chain<" in e.split(" ")[0]]
+        mine = {k: v for k, v in counts.items() if k.endswith(",C>") or "_chain" in k}
+        for entry in ptx:
+            if src == "im_episode" and not re.match(r"\S+ \d+ registers, 0 B stack$", entry):
+                raise AssertionError(f"the chain route's {entry}: a stack frame or spills")
+            m = re.match(r"k_im_returns_fused_chain<\d> (\d+) registers", entry)
+            if m and int(m.group(1)) > ek._IM_FUSED_CHAIN_REGS:
+                raise AssertionError(f"{entry}: _im_fused_plan counts "
+                                     f"{ek._IM_FUSED_CHAIN_REGS} registers")
+        if not mine:
+            raise AssertionError(f"{src}.cu: no chain-route instance in the SASS")
+        parts.append(f"{src}.cu (LDL/STL/HMMA) " + ", ".join(
+            f"{k} {ld}/{st}/{h}" for k, (ld, st, h) in sorted(mine.items()))
+            + "; ptxas " + "; ".join(ptx))
+    return "; ".join(parts)
+
+
+def step_chain_exact(params, tr, label, dev):
+    """The InvManagement env step chain on a trajectory's actions and demand
+    gives its inv exactly and its rewards within rtol=1e-4 atol=1e-2."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    steps = tr["reward"].shape[0]
+    state, _ = im.reset(params, batch=tr["reward"].shape[1], device=dev)
+    for t in range(steps):
+        exact(f"step chain inv[{t}], {label}", state.inv.T, tr["inv"][t])
+        state, ts = im.step_with_demand(params, state, tr["actions"][t].T, tr["demand"][t])
+        close(f"step chain reward[{t}], {label}", ts.reward, tr["reward"][t], 1e-4, 1e-2)
+    exact(f"step chain final inv, {label}", state.inv.T, tr["inv"][steps])
+
+
+def im_caps_random_gates(label, params, B, E, dev):
+    """K7-K9 exact: K9's streams and K8's returns at ``B`` x ``E`` equal
+    their plain versions', K7 streamed and _random on K9's episode 0 equal
+    K8's. Returns the line."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    a, d = ek.sample_streams_debug_im(params, SEED, B, E, dev)
+    wa, wd = ek._im_fused_plain(params, SEED, B, E, dev, dump=True)
+    exact(f"K9 {label} actions vs plain", a, wa)
+    exact(f"K9 {label} demand vs plain", d, wd)
+    k8 = ek.episode_returns_im_fused(params, SEED, B, E, dev)
+    exact(f"K8 {label} vs plain", k8, ek._im_fused_plain(params, SEED, B, E, dev))
+    a0, d0 = a[:, 0].contiguous(), d[:, 0].contiguous()
+    exact(f"K7 {label} on K9's streams vs K8", ek.episode_returns_im(params, a0, d0), k8[0])
+    exact(f"K7 _random {label} vs K8", ek.episode_returns_im_random(params, d0, SEED), k8[0])
+    return (f"K7-K9 {label} at {B} x {E} x {params.periods}: K9's streams and K8's returns "
+            "equal plain's, K7 streamed and _random on K9's streams K8's, bit for bit")
+
+
+def im_caps_lstm_gates(label, params, B, dev):
+    """K22-K24 under the benchmark's actor (encoder 64, hidden 128) at
+    ``B`` lanes by phase 25's gates: K23's demand bit for bit and its
+    returns K22's; K22's returns and K23's actions by the share of lanes;
+    K7 on K23's streams K22's within 1e-5/1e-3; K24 against plain by the
+    share of lanes, its demand K23's, the env step chain its inv exactly.
+    Returns ({kernel: max |diff|}, line)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T, m1 = params.periods, params.m1
+    actor, log_std = seeded_lstm_actor(params, dev)
+    k22 = ek.episode_returns_im_lstm(params, actor, SEED, B, dev)
+    r23, a23, d23 = ek.sample_lstm_streams_debug_im(params, actor, SEED, B, dev)
+    want, want_a, want_d = ek._im_lstm_plain(params, actor, SEED, B, dev, True)
+    exact(f"K23 {label} demand", d23, want_d)
+    exact(f"K23 {label} returns vs K22", r23, k22)
+    sh_r, e22 = lane_share(f"K22 {label} vs plain", k22, want)
+    sh_a, e23 = lane_share(f"K23 {label} actions vs plain", a23.reshape(T * m1, B),
+                           want_a.reshape(T * m1, B))
+    close(f"K7 on K23's streams vs K22, {label}", ek.episode_returns_im(params, a23, d23), k22,
+          1e-5, 1e-3)
+    tr, _, shares = k24_against_plain(params, actor, log_std, B, dev, label)
+    exact(f"K24 {label} demand vs K23", tr["demand"], d23)
+    step_chain_exact(params, tr, f"K24 {label}", dev)
+    err = {"episode_returns_im_lstm": e22, "sample_lstm_streams_debug_im": max(e22, e23),
+           "rollout_traj_im_lstm": max(e for _, e in shares.values())}
+    return err, (f"K22-K24 {label} at {B} x {T}: K23 demand bit for bit, K23 = K22, lanes "
+                 f"agreeing with plain {sh_r:.4%} (K22), {sh_a:.4%} (K23's actions), K24 "
+                 + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                 + "; K7 replays K23's streams; the step chain gives K24's inv exactly")
+
+
+def im_caps_teacher_forced(label, params, tr, actor, std, mode, dev, atol=1e-4):
+    """K27's a_norm against the plain head on its own observations
+    (``offpolicy_teacher_forced``'s), computed in float64 as well as in
+    float32: every element within ``atol`` of the float64 head (the gate),
+    and the float32 plain head's max |diff| reported. At IM-chain12-lt40's
+    492 inputs the float32 head's own sums miss the exact head by about
+    1e-4 through the sac head's exp(clip(ls)) (PERF.md §6), so the float64
+    head is the oracle there. Returns (max |diff| against the
+    float64 head, against the float32 one)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    m1 = params.m1
+    obs_all = im.assemble_obs_from_streams(params, tr["inv"], tr["actions"])
+    Ws, bs = actor
+    layers64 = [(W.double().T, b.double().reshape(-1, 1)) for W, b in zip(Ws, bs)]
+    layers32 = ek.kernel_layers(actor, dev)
+    std64 = None if std is None else std.double().reshape(-1, 1)
+    lanes = torch.arange(tr["raw"].shape[-1], dtype=torch.int64, device=dev)
+    n_head = ek._head_words(mode, m1)
+    e64 = e32 = 0.0
+    for t in range(tr["raw"].shape[0]):
+        words = rng.period_words(SEED, lanes, 0, t, 1 + n_head, key1=rng.POLICY_KEY)
+        z = ek._head_noise(mode, words[1:])
+        _, a32 = ek.traj_policy(mode, "relu", m1, layers32, std, list(obs_all[t].T), z)
+        H = obs_all[t].double().T
+        for i, (W, b) in enumerate(layers64):
+            H = W @ H + b
+            if i < len(layers64) - 1:
+                H = torch.relu(H)
+        if mode == "det":
+            a64 = torch.clamp(torch.tanh(H) + std64 * z.double(), -1.0, 1.0)
+        else:
+            a64 = torch.tanh(H[:m1] + torch.exp(torch.clamp(H[m1:], -10.0, 2.0)) * z.double())
+        e64 = max(e64, close(f"K27 {label} {mode} a_norm[{t}] vs the float64 head on its own "
+                             "obs", tr["raw"][t], a64, 0.0, atol))
+        e32 = max(e32, float((tr["raw"][t].double() - a32.double()).abs().max()))
+    return e64, e32
+
+
+def im_caps_k27_gates(label, params, B, dev):
+    """K27 under SB3's (256, 256) relu actor at ``B`` lanes, each head: the
+    demand bit for bit with plain's, a_norm in [-1, 1] and teacher-forced
+    within atol=1e-4 of the float64 head (``im_caps_teacher_forced``;
+    uniform's bit for bit against plain), a_norm rescaled giving its
+    actions and the env step chain its inv exactly (``im_step_chain``).
+    Returns (max |diff|, line)."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    obs, m1 = im.observation_space(params).shape[0], params.m1
+    worst, parts = 0.0, []
+    for mode in ("det", "sac", "uniform"):
+        actor, log_std = seeded_offpolicy_actor(obs, m1, mode == "sac", dev)
+        std = ek._offpolicy_std(mode, log_std)
+        tr = ek.rollout_traj_im_offpolicy(params, actor, log_std, SEED, B, mode, "relu", dev)
+        route = ek.rollout_traj_im_offpolicy.route
+        want = ek._rollout_traj_im_plain(params, actor, std, SEED, B, dev, mode, "relu")
+        exact(f"K27 {label} {mode} demand vs plain", tr["demand"], want["demand"])
+        if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+            raise AssertionError(f"K27 {label} {mode}: a_norm outside [-1, 1]")
+        if mode == "uniform":
+            exact(f"K27 {label} uniform a_norm vs plain", tr["raw"], want["raw"])
+            forced = forced32 = 0.0
+        else:
+            forced, forced32 = im_caps_teacher_forced(label, params, tr, actor, std, mode, dev)
+        share = im_step_chain(params, tr, f"{label} {mode}", dev)
+        worst = max(worst, forced)
+        parts.append(f"{mode} on the {route} route: teacher-forced max |diff| {forced:.3g} "
+                     f"against the float64 head ({forced32:.3g} against the float32 plain "
+                     f"head), rescaled a_norm gives its actions on {share:.4%}")
+        del tr, want
+    return worst, (f"K27 {label} at {B} x {params.periods}: demand bit for bit with plain's, "
+                   + "; ".join(parts) + "; the env step chain gives its inv exactly")
+
+
+def im_caps_checks(dev, params_of):
+    """Phase 55's checks on each configuration: K7-K9 exact at
+    IM_CAPS_CHECK_LANES x IM_CAPS_CHECK_EPISODES; K10-K12 by phases 12 and
+    16's gates under a folded (64, 64) actor (``im_tile_gates``); K22-K24
+    by phase 25's (``im_caps_lstm_gates``); K27's three heads
+    (``im_caps_k27_gates``, at IM_CAPS_OFF_LANES). Returns ({kernel: max
+    |diff|}, lines)."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    err, lines = {}, []
+
+    def keep(e):
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0.0), v)
+
+    B, E = IM_CAPS_CHECK_LANES, IM_CAPS_CHECK_EPISODES
+    for name, params in params_of.items():
+        lines.append(im_caps_random_gates(name, params, B, E, dev))
+        keep(dict.fromkeys(("episode_returns_im", "episode_returns_im_fused",
+                            "sample_streams_debug_im"), 0.0))
+        actor, log_std = seeded_actor(im.observation_space(params).shape[0], params.m1, dev)
+        e, ls = im_tile_gates(name, params, actor, log_std, B, E, dev)
+        keep(e)
+        lines += ls
+        e, line = im_caps_lstm_gates(name, params, B, dev)
+        keep(e)
+        lines.append(line)
+        e, line = im_caps_k27_gates(name, params, IM_CAPS_OFF_LANES, dev)
+        keep({"rollout_traj_im_offpolicy": e})
+        lines.append(line)
+    torch.cuda.synchronize()
+    return err, lines
+
+
+def im_caps_main_path(dev, wrappers, smi, params):
+    """Phase 55, counted, on ``params`` (IM-chain12-lt40): K8 through
+    ``random_episode_returns`` at IM_CAPS_MAIN_LANES x IM_CAPS_EPISODES, K9's
+    dump and K7 streamed and _random on it at IM_CAPS_LANES; PPO with
+    ``rollout="kernel"`` for IM_CAPS_UPDATES updates at IM_CAPS_ENVS envs
+    (K10 each), the trained actor's ``policy_episode_returns``
+    deterministic and stochastic at IM_CAPS_LANES x IM_CAPS_EPISODES (K11)
+    and its dump (K12); ``RecurrentPPOAgent`` on the kernel path with the
+    benchmark's actor for IM_CAPS_UPDATES updates (K24 each),
+    ``lstm_policy_episode_returns`` (K22) and its dump (K23); ``TD3Agent``
+    and ``SACAgent`` with ``collect="kernel"`` and SB3's (256, 256) actor
+    for IM_CAPS_OFF_ITERS iterations each, the warmup's uniform head first
+    (K27 each); every plain version patched to raise. Then K8's episode 0
+    on K9's seed against K7 on K9's streams, bit for bit. Returns
+    (launches, lines, summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import RecurrentPPOAgent
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    T = params.periods
+    BM, E, BL, BE, BO = (IM_CAPS_MAIN_LANES, IM_CAPS_EPISODES, IM_CAPS_LANES, IM_CAPS_ENVS,
+                         IM_CAPS_OFF_LANES)
+    root = _build.BUILD_DIR / "chip_smoke_im_caps"
+    kw = dict(model_dir=str(root / "models"), log_dir=str(root / "logs"), force_retrain=True,
+              device=dev)
+
+    def factory(env_config=None):
+        return params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen.get_state())
+    seed = fast_episodes.kernel_seed(replay)
+    lactor, _ = seeded_lstm_actor(params, dev)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        ret = fast_episodes.random_episode_returns(params, gen, BM, E, dev)
+        a, d = ek.sample_streams_debug_im(params, seed, BL, device=dev)
+        k7 = ek.episode_returns_im(params, a, d)
+        k7r = ek.episode_returns_im_random(params, d, seed)
+        cfg = ppo.PPOConfig(num_envs=BE, rollout_steps=T, num_minibatches=8, update_epochs=4,
+                            rollout="kernel")
+        state, metrics = ppo.train(im.ENV, params, cfg,
+                                   torch.Generator(device=dev).manual_seed(SEED),
+                                   IM_CAPS_UPDATES * BE * T, device=dev)
+        actor = ek.fold_actor_params(cfg, state.params, state.rms)
+        g = torch.Generator(device=dev).manual_seed(7)
+        det = fast_episodes.policy_episode_returns(params, actor, g, BL, E, device=dev)
+        sto = fast_episodes.policy_episode_returns(params, actor, g, BL, E, False,
+                                                   state.params.log_std.detach(), dev)
+        r12, a12, d12 = ek.sample_policy_streams_debug_im(params, actor, SEED, BL, 1, None, dev)
+        ragent = RecurrentPPOAgent(im.ENV, factory, config=rppo.RecurrentPPOConfig(
+            num_envs=BE, rollout_steps=T, rollout="kernel"), **kw)
+        ragent.train(None, IM_CAPS_UPDATES * BE * T)
+        g22 = torch.Generator(device=dev)
+        g22.set_state(g.get_state())
+        k22 = fast_episodes.lstm_policy_episode_returns(params, lactor, g, BL, dev)
+        r23, a23, d23 = ek.sample_lstm_streams_debug_im(
+            params, lactor, fast_episodes.kernel_seed(g22), BL, dev)
+        off = {}
+        for cls in (op.TD3Agent, op.SACAgent):
+            ocfg = op.OffPolicyConfig(collect="kernel", num_envs=BO,
+                                      buffer_size=BO * T * IM_CAPS_OFF_ITERS, batch_size=256,
+                                      start_steps=BO * T, updates_per_iter=1)
+            agent = cls(im.ENV, factory, config=ocfg, **kw)
+            agent.train(None, IM_CAPS_OFF_ITERS * BO * T)
+            off[cls.__name__] = agent.training_time
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    want = {"episode_returns_im_fused": 1, "sample_streams_debug_im": 1, "episode_returns_im": 2,
+            "rollout_traj_im": IM_CAPS_UPDATES, "episode_returns_im_policy": 2,
+            "sample_policy_streams_debug_im": 1, "rollout_traj_im_lstm": IM_CAPS_UPDATES,
+            "episode_returns_im_lstm": 1, "sample_lstm_streams_debug_im": 1,
+            "rollout_traj_im_offpolicy": 2 * IM_CAPS_OFF_ITERS}
+    moved = {k: v for k, v in launches.items() if v}
+    if moved != want:
+        raise AssertionError(f"the IM-chain12-lt40 path launched {moved}, not {want}")
+    if ret.shape != (E * BM,):
+        raise AssertionError(f"IM-chain12-lt40 returns of shape {tuple(ret.shape)}")
+    exact("IM-chain12-lt40 path: K8 episode 0 vs K7 on K9's streams", ret.reshape(E, BM)[0, :BL],
+          k7)
+    exact("IM-chain12-lt40 path: K7 _random vs K7", k7r, k7)
+    exact("IM-chain12-lt40 path: K23 vs K22", r23, k22)
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    finite = [bool(torch.isfinite(x).all()) for x in (ret, det, sto, r12, k22)]
+    rlog = ragent.training_log
+    if bad or not all(finite) or not all(np.isfinite(v).all() for v in rlog.values()):
+        raise AssertionError(f"the IM-chain12-lt40 path: non-finite metrics {bad} or outputs "
+                             f"{finite}")
+    summary = {"wall_s": wall, "k8_mean": float(ret.double().mean()),
+               "k11_det_mean": float(det.double().mean()),
+               "k11_sto_mean": float(sto.double().mean()),
+               "k22_mean": float(k22.double().mean()),
+               "ppo_metrics": {k: [float(x) for x in v] for k, v in metrics.items()},
+               "rppo_train_s": ragent.training_time, "offpolicy_train_s": off,
+               "k27_route": ek.rollout_traj_im_offpolicy.route}
+    lines = [f"IM-chain12-lt40 x {T}: random_episode_returns {BM} x {E} through K8 (mean "
+             f"{summary['k8_mean']:.6g}), K9's dump and K7 streamed and _random on it at {BL} "
+             f"(K8's episode 0 bit for bit); PPO {IM_CAPS_UPDATES} updates at {BE} envs through "
+             f"K10, policy_episode_returns {BL} x {E} det (mean {summary['k11_det_mean']:.6g}) "
+             f"and stoch (mean {summary['k11_sto_mean']:.6g}) through K11, K12's dump; "
+             f"RecurrentPPOAgent {IM_CAPS_UPDATES} updates at {BE} envs through K24 "
+             f"({ragent.training_time:.2f} s), lstm_policy_episode_returns {BL} through K22 "
+             f"(mean {summary['k22_mean']:.6g}) and K23's dump on its seed (= K22 bit for bit); "
+             f"TD3Agent and SACAgent "
+             f"{IM_CAPS_OFF_ITERS} iterations at {BO} envs through K27 on the "
+             f"{summary['k27_route']} route (uniform warmup, then their heads); no plain "
+             f"version; launches {moved}; {wall:.1f} s on {smi}"]
+    del ret, a, d, a12, d12, a23, d23
+    return launches, lines, summary
+
+
+def im_caps_times(dev, params):
+    """Phase 55's times on ``params`` (IM-chain12-lt40): each kernel's best
+    of 3 of its entry point's launches (``cuda_time``) at the path's shapes
+    (K27 under the seeded (256, 256) actors), beside its bound by the work
+    model (the tile's and the LSTM's products as three TF32 products each).
+    Returns {name: (ms, bound ms, bound by)}."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    T, m1 = params.periods, params.m1
+    obs = im.observation_space(params).shape[0]
+    tl = len(ek._im_demand_spec(params)[1])
+    BM, E, BL, BE, BO = (IM_CAPS_MAIN_LANES, IM_CAPS_EPISODES, IM_CAPS_LANES, IM_CAPS_ENVS,
+                         IM_CAPS_OFF_LANES)
+    step, draws = im_step_ops(params), im_draw_ops(params, tl)
+    a, d = ek.sample_streams_debug_im(params, SEED, BL, device=dev)
+    actor, log_std = seeded_actor(obs, m1, dev)
+    dims = [obs, 64, 64, m1]
+    lactor, llog_std = seeded_lstm_actor(params, dev)
+    ldims = [obs] + list(LSTM_ENCODER)
+    ltc = lstm_tc_flops(ldims, LSTM_HIDDEN)
+    lcell = lstm_ops(ldims, LSTM_HIDDEN, m1) + step
+    traj_bytes = ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4
+    runs = {
+        "K8": ((ek.episode_returns_im_fused, params, SEED, BM, E, dev),
+               bound(BM * E * 4, BM * E * T * (step + draws))),
+        "K7": ((ek.episode_returns_im, params, a, d),
+               bound(BL * (T * (m1 + 1) + 1) * 4, BL * T * step)),
+        "K7 _random": ((ek.episode_returns_im_random, params, d, SEED),
+                       bound(BL * (T + 1) * 4, BL * T * (step + draws))),
+        "K9": ((ek.sample_streams_debug_im, params, SEED, BL, 1, dev),
+               bound(BL * T * (m1 + 1) * 4, BL * T * draws)),
+        "K10": ((ek.rollout_traj_im, params, actor, log_std, SEED, BE, "ppo", "tanh", dev),
+                tc_bound(BE * traj_bytes, BE * T,
+                         mlp_ops(dims) + step + im_policy_draw_ops(params, tl),
+                         mlp_tc_flops(dims))[0]),
+        "K11": ((ek.episode_returns_im_policy, params, actor, SEED, BL, E, None, dev),
+                tc_bound(BL * E * 4, BL * E * T,
+                         mlp_ops(dims) + step + im_policy_draw_ops(params, tl, False),
+                         mlp_tc_flops(dims))[0]),
+        "K12": ((ek.sample_policy_streams_debug_im, params, actor, SEED, BL, 1, None, dev),
+                tc_bound(BL * (1 + T * (m1 + 1)) * 4, BL * T,
+                         mlp_ops(dims) + step + im_policy_draw_ops(params, tl, False),
+                         mlp_tc_flops(dims))[0]),
+        "K22": ((ek.episode_returns_im_lstm, params, lactor, SEED, BL, dev),
+                tc_bound(BL * 4, BL * T, lcell + im_policy_draw_ops(params, tl, False), ltc)[0]),
+        "K23": ((ek.sample_lstm_streams_debug_im, params, lactor, SEED, BL, dev),
+                tc_bound(BL * (1 + T * (m1 + 1)) * 4, BL * T,
+                         lcell + im_policy_draw_ops(params, tl, False), ltc)[0]),
+        "K24": ((ek.rollout_traj_im_lstm, params, lactor, llog_std, SEED, BE, dev),
+                tc_bound(BE * traj_bytes, BE * T, lcell + im_policy_draw_ops(params, tl),
+                         ltc)[0]),
+    }
+    for mode in ("det", "sac", "uniform"):
+        off_actor, off_log_std = seeded_offpolicy_actor(obs, m1, mode == "sac", dev)
+        if mode == "uniform":   # no actor: the step and the demand and m1 uniform words
+            b = bound(BO * traj_bytes, BO * T * (step + draws + 3 * m1))
+        else:
+            n_bytes, per_step, horizon, weights = offpolicy_work(
+                "rollout_traj_im_offpolicy", params, obs, m1, mode)
+            b = bound(BO * n_bytes + weights, BO * horizon * per_step)
+        runs[f"K27 {mode}"] = ((ek.rollout_traj_im_offpolicy, params, off_actor, off_log_std,
+                                SEED, BO, mode, "relu", dev), b)
+    out = {}
+    for name, ((fn, *args), (b_ms, b_by)) in runs.items():
+        out[name] = (cuda_time(fn, *args, warmup=1, iters=3)["best_ms"], b_ms, b_by)
+    del a, d
+    torch.cuda.synchronize()
+    return out
+
+
+def im_caps_phases(dev, wrappers, smi, err, logs, parent_libs):
+    """Phase 55: InvManagement at any stage count and lead time. The plans
+    (``im_caps_plans``) and the chain route's frames (``im_caps_frames``),
+    the kernels against their plain versions on the three configurations
+    (``im_caps_checks``), the counted path on IM-chain12-lt40
+    (``im_caps_main_path``), each kernel's time there beside its bound
+    (``im_caps_times``), and the IM kernels at their default shapes in
+    turns with the parent design (tools/im_caps_sweep.py, its libraries
+    built with phase 2's), bit for bit. Returns (launches, summary)."""
+    import torch
+    sweep = im_caps_sweep_tool()
+    t0 = time.perf_counter()
+    params_of = {name: im_caps_params(name) for name in IM_CAPS_CONFIGS}
+    for x in im_caps_plans(params_of, dev):
+        print(f"[55 im plans] {x}", flush=True)
+    print(f"[55 im frames] {im_caps_frames(logs)}", flush=True)
+    e, lines = im_caps_checks(dev, params_of)
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0.0), v)
+    for x in lines:
+        print(f"[55 im checks] {x}", flush=True)
+    print(f"[55 im checks] {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, path_lines, summary = im_caps_main_path(dev, wrappers, smi,
+                                                      params_of["IM-chain12-lt40"])
+    for x in path_lines:
+        print(f"[55 im path] {x}", flush=True)
+    t0 = time.perf_counter()
+    times = im_caps_times(dev, params_of["IM-chain12-lt40"])
+    summary["times"] = times
+    print("[55 im times] IM-chain12-lt40: " + "; ".join(
+        f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
+        for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
+    turns = sweep.turns(dev, parent_libs, sweep.KERNELS, IM_CAPS_TURN_ROUNDS)
+    summary["turns"] = turns
+    for name, r in turns.items():
+        print(f"[55 turns] {sweep.actor_sweep.line(name, r)} on {smi}", flush=True)
+    print(f"[55 im times] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return launches, summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -6087,11 +6679,14 @@ def main() -> int:
     parent_jobs = net_graph_sweep.start_parent_build()
     actor_sweep = actor_sweep_tool()
     actor_jobs = actor_sweep.start_parent_build()
+    im_caps_sweep = im_caps_sweep_tool()
+    im_caps_jobs = im_caps_sweep.start_parent_build()
     logs = _build.build()
     for lib in _build.SIGNATURES:
         _build.library(lib)
     parent_libs = net_graph_sweep.finish_parent_build(parent_jobs)
     actor_parent_libs = actor_sweep.finish_parent_build(actor_jobs)
+    im_caps_parent_libs = im_caps_sweep.finish_parent_build(im_caps_jobs)
     ptxas = [ln.split("info    :")[-1].strip() for out in logs.values()
              for ln in out.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -6904,6 +7499,10 @@ def main() -> int:
     launches_actor, actor_summary = actor_phases(dev, wrappers, smi, err, actor_parent_libs)
     launches = {name: launches[name] + launches_actor[name] for name in wrappers}
 
+    launches_im, im_caps_summary = im_caps_phases(dev, wrappers, smi, err, logs,
+                                                  im_caps_parent_libs)
+    launches = {name: launches[name] + launches_im[name] for name in wrappers}
+
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
 
@@ -6921,6 +7520,12 @@ def main() -> int:
     rows[6]["random"] = {"ms": k7r_t["best_ms"], "kernel_ms": k7_alone_ms["random"]}
     rows[12]["kernel_ms"] = k13_alone_ms["streamed"]   # K13: the row's numbers are streamed
     rows[12]["random"] = {"ms": k13r_t["best_ms"], "kernel_ms": k13_alone_ms["random"]}
+    # the chain route's kernels: phase 55's times on IM-chain12-lt40 beside the row's
+    for row in rows:
+        key = IM_CAPS_ROWS.get(row["name"])
+        if key:
+            ms, b_ms, b_by = im_caps_summary["times"][key]
+            row["im_chain12_lt40"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card
@@ -6937,6 +7542,7 @@ def main() -> int:
     print(json.dumps({"mesh_main_path": mesh_summary}))
     print(json.dumps({"graph_main_path": graph_summary}))
     print(json.dumps({"actor_main_path": actor_summary}))
+    print(json.dumps({"im_caps_main_path": im_caps_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -29,7 +29,10 @@ _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # every source also exports csrc/launch.cuh's cuda_error_message. The policy
 # sources' entry points named *_any take the general actor class
 # (csrc/mlp_tile.cuh MlpTileG, csrc/wide_mlp.cuh WideMlpG) with the
-# arguments of the entry point without the suffix (``_any`` below).
+# arguments of the entry point without the suffix (``_any`` below); the
+# InvManagement entry points named *_chain take the chain route's params
+# (csrc/im_step.cuh ImParamsG, past the struct maxima; the policy kernels on
+# the general actor class) with them too (``_chain`` below).
 SIGNATURES = {
     "net_episode": {
         # topo, small, state layout, staging, acts, dems, disc, out, B, T, stream
@@ -144,6 +147,9 @@ for _stem, _names in (("net_policy", ("net_rollout_traj", "net_policy_returns",
                                     "nv_rollout_traj_wide"))):
     for _name in _names:
         SIGNATURES[_stem][_name + "_any"] = SIGNATURES[_stem][_name]
+for _stem in ("im_episode", "im_policy", "im_lstm"):
+    for _name in [n for n in SIGNATURES[_stem] if not n.endswith("_any")]:
+        SIGNATURES[_stem][_name + "_chain"] = SIGNATURES[_stem][_name]
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}
 
 

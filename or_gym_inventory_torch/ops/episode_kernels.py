@@ -57,6 +57,15 @@ version), and what every MLP policy kernel shares:
 | ``sample_policy_streams_debug_nv`` | ``sample_policy_streams_debug_nv`` :665 (K20) |
 | ``sample_normals_debug``          | ``sample_normals_debug`` :1849 (K21)         |
 
+The InvManagement kernels take any stage count and lead time: params within
+``IM_MAX_M1`` stocked stages and lead times up to ``IM_MAX_LT`` pack the
+fixed ``struct ImParams`` (``_ImParams``); any other takes the chain route
+(``_ImParamsG``, the C entry points ``*_chain``): the per-stage records
+(``_im_records``) staged by each block into its shared memory and each
+lane's state a column of ``_im_lane_words`` words (csrc/im_step.cuh).
+``_im_plan`` picks the route and raises ValueError only where a lane's
+state fits no block of 32 lanes.
+
 Each wrapper runs the plain version for CPU tensors; on CUDA it launches its
 kernel and raises if the launch fails; nothing falls back. It counts its
 launches in ``<wrapper>.launches``. Layout follows the JAX package, the
@@ -119,7 +128,8 @@ WORKSPACE_MAX_BYTES = 1 << 32
 # block, and the SM's limits on resident threads and blocks
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 233_472, 1_024
 THREADS_PER_SM, BLOCKS_PER_SM = 2_048, 32
-# and of the InvManagement params struct (csrc/im_step.cuh)
+# and of the InvManagement params struct (csrc/im_step.cuh): params past
+# them take the chain route (ImParamsG, the C entry points named *_chain)
 IM_MAX_M1, IM_MAX_LT = 8, 32
 # the trajectory kernels' heads (csrc/wide_mlp.cuh WideHead) and trunks
 HEADS = {"ppo": 0, "det": 1, "sac": 2, "uniform": 3}
@@ -1403,16 +1413,82 @@ def _im_host_plan(params: im.InvManagementParams, device: str, with_demand: bool
                 user_d=torch.tensor(user_d, dtype=torch.int32, device=device))
 
 
+class _ImParamsG(ctypes.Structure):
+    """Mirror of ``struct ImParamsG`` in csrc/im_step.cuh: the chain route's
+    records and (the LSTM kernels') state workspace on the card, then 4-byte
+    fields."""
+    _fields_ = [("rec", ctypes.c_void_p), ("ws", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in
+        ("m1", "lt", "user", "tab_len", "base", "rec_words", "state_words", "ws_stride")]
+
+
+def _im_fixed(m1: int, lt: int) -> bool:
+    """Whether params of ``m1`` stocked stages and lead times up to ``lt``
+    fit ImParams's arrays: the parent's route; any other takes the chain
+    route."""
+    return m1 <= IM_MAX_M1 and lt <= IM_MAX_LT
+
+
+def _im_record_words(m1: int) -> int:
+    """Words of the chain route's records (csrc/im_step.cuh im_stage_records):
+    c, L, I0, h, act_span and half_c of m1 stages, gain and k of m1 + 1."""
+    return 8 * m1 + 2
+
+
+def _im_lane_words(m1: int, lt: int, policy: bool = True) -> int:
+    """Words of a chain lane's column (csrc/im_step.cuh im_lane): on-hand
+    (m1), backlog (m1 + 1), the ring of fulfilled orders (lt m1) and the
+    actions (m1); for the policy kernels (``policy``) also the ring of
+    requested orders (lt m1) and a float an action (the wide route's head
+    noise, the LSTM's raw samples)."""
+    return 3 * m1 + 1 + lt * m1 + (lt * m1 + m1 if policy else 0)
+
+
+def _im_records(params: im.InvManagementParams) -> torch.Tensor:
+    """The chain route's records as int32 words (floats as their bits), in
+    im_stage_records' order: c, L, I0, gain, k, h, act_span, half_c."""
+    m1 = params.m1
+    up, uc = params.unit_price, params.unit_cost
+    ints = np.array([*params.c[:m1], *params.L[:m1], *params.I0[:m1]], np.int32)
+    floats = np.array([*(np.float32(float(up[i]) - float(uc[i])) for i in range(m1 + 1)),
+                       *(np.float32(params.k[i]) for i in range(m1 + 1)),
+                       *params.holding_cost_vec[:m1],
+                       *(np.float32(params.c[i] + 1) for i in range(m1)),
+                       *_half_c(params)], np.float32)
+    words = np.concatenate([ints, floats.view(np.int32)])
+    assert words.size == _im_record_words(m1)
+    return torch.from_numpy(words)
+
+
 @functools.lru_cache(maxsize=32)
 def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = True):
-    """A launch's host-built arguments: ``_im_host_plan`` and the params
-    struct of the CUDA kernels. Raises ValueError for params beyond the
-    struct's maxima."""
+    """A launch's host-built arguments: ``_im_host_plan``, the params struct
+    of the CUDA kernels and K8's and K7's layouts. Params within the struct
+    maxima pack ImParams (``chain`` False), the parent's struct; any other
+    takes the chain route (``chain`` True): ImParamsG, its records copied to
+    ``device`` (kept as ``rec``). Raises ValueError where a lane's state
+    (``_im_lane_words``, the policy kernels') and the records fit no block
+    of 32 lanes, naming the words needed and held."""
     m1, lt = params.m1, params.lt_max
-    if m1 > IM_MAX_M1 or lt > IM_MAX_LT:
-        raise ValueError(f"InvManagement params too large for the CUDA kernels: "
-                         f"m1={m1} (max {IM_MAX_M1}), lt_max={lt} (max {IM_MAX_LT})")
+    chain = not _im_fixed(m1, lt)
+    if chain:
+        rec_words, words = _im_record_words(m1), _im_lane_words(m1, lt)
+        held = (SMEM_OPTIN_BYTES // 4 - rec_words) // 32
+        if words > held:
+            raise ValueError(
+                f"InvManagement params of m1={m1} stocked stages and lt_max={lt}: a lane's state "
+                f"takes {words} words; a block of 32 lanes holds {held} words a lane beside the "
+                f"{rec_words} words of records")
     host = _im_host_plan(params, device, with_demand)
+    if chain:
+        rec = _im_records(params).to(device)
+        st = _ImParamsG(rec=rec.data_ptr(), m1=m1, lt=lt, user=int(host["user"]),
+                        tab_len=host["tab_len"], base=host["base"], rec_words=rec_words,
+                        state_words=words)
+        fused = _im_fused_plan(m1, lt, True)
+        return dict(host, struct=st, rec=rec, chain=True,
+                    fused=_ImSmem(threads=fused.threads, words=fused.words),
+                    k7=_im_k7_plan(m1, lt, chain=True).struct())
     st = _ImParams(m1=m1, lt=lt, user=int(host["user"]), tab_len=host["tab_len"],
                    base=host["base"])
     up, uc, hv = params.unit_price, params.unit_cost, params.holding_cost_vec
@@ -1423,8 +1499,16 @@ def _im_plan(params: im.InvManagementParams, device: str, with_demand: bool = Tr
         st.gain[i] = float(np.float32(float(up[i]) - float(uc[i])))
         st.k[i] = float(np.float32(params.k[i]))
     fused = _im_fused_plan(m1, lt)
-    return dict(host, struct=st, fused=_ImSmem(threads=fused.threads, words=fused.words),
+    return dict(host, struct=st, chain=False,
+                fused=_ImSmem(threads=fused.threads, words=fused.words),
                 k7=_im_k7_plan(m1, lt).struct())
+
+
+def _im_fn(plan, name: str, suffix: str = "") -> str:
+    """The C entry point ``name`` of ``plan``'s route: ``name`` + "_chain"
+    on the chain route, else ``name`` + ``suffix`` (the actor class's,
+    ``_tile_launch``'s or ``_wide_launch``'s)."""
+    return name + ("_chain" if plan["chain"] else suffix)
 
 
 def _blocks_per_sm(nbytes: int, threads: int, regs: int) -> int:
@@ -1455,29 +1539,38 @@ class ImFusedPlan:
 # the registers a thread of K8's instance for each m1 (csrc/im_episode.cu,
 # the stage loops unrolled to exactly m1; the most ptxas -v reports on
 # sm_90a for backlog and lost sales, which phase 2 of chip_smoke.py
-# checks); the largest block the plan tries
+# checks), of its chain route's looped kernel (k_im_returns_fused_chain;
+# phase 55 checks it); the largest block the plan tries
 _IM_FUSED_REGS = {1: 32, 2: 32, 3: 32, 4: 40, 5: 44, 6: 46, 7: 47, 8: 54}
+_IM_FUSED_CHAIN_REGS = 47
 _IM_FUSED_MAX_THREADS = 256
 
 
 @functools.lru_cache(maxsize=64)
-def _im_fused_plan(m1: int, lt: int) -> ImFusedPlan:
+def _im_fused_plan(m1: int, lt: int, chain: bool = False) -> ImFusedPlan:
     """The block size, among multiples of 32 up to 256, at which an SM holds
     the most threads of K8 (the smallest such block, for the fullest last
     wave) with ``lt * m1`` words of ring a thread, counting the SM's shared
     memory, registers (``_IM_FUSED_REGS`` a thread of the instance for
     this m1), threads and blocks. Every (m1, lt) within the struct maxima
-    fits a block of 32 (256 words, 32 KB)."""
-    words = lt * m1
-    regs = _IM_FUSED_REGS[m1]
+    fits a block of 32 (256 words, 32 KB). On the chain route (``chain``)
+    a thread's column holds ``_im_lane_words(m1, lt, False)`` words and the
+    block the records beside them; raises ValueError where no block of 32
+    holds them, naming the words."""
+    words = _im_lane_words(m1, lt, False) if chain else lt * m1
+    rec = _im_record_words(m1) if chain else 0
+    regs = _IM_FUSED_CHAIN_REGS if chain else _IM_FUSED_REGS[m1]
     best = None
     for threads in range(32, _IM_FUSED_MAX_THREADS + 1, 32):
-        nbytes = 4 * words * threads
+        nbytes = 4 * (words * threads + rec)
         if nbytes > SMEM_OPTIN_BYTES:
             break
         plan = ImFusedPlan(threads, words, nbytes, _blocks_per_sm(nbytes, threads, regs))
         if best is None or plan.blocks_per_sm * threads > best.blocks_per_sm * best.threads:
             best = plan
+    if best is None:
+        raise ValueError(f"K8's column of {words} words a thread and {rec} words of records fit "
+                         f"no block of 32 threads ({SMEM_OPTIN_BYTES} bytes)")
     return best
 
 
@@ -1518,12 +1611,14 @@ IM_K7_THREADS = (128, 64, 32)
 IM_K7_RESIDENT = 256
 
 
-def _im_k7_layout(m1: int, lt: int, chunk: int, threads: int):
+def _im_k7_layout(m1: int, lt: int, chunk: int, threads: int, chain: bool = False):
     """K7's layout at ``chunk`` periods a buffer and ``threads`` a block, or
-    None where the block exceeds the shared memory a block may opt in to."""
-    ring = lt * m1
+    None where the block exceeds the shared memory a block may opt in to.
+    On the chain route the ring's place holds the thread's state column
+    (on-hand, backlog and the ring, im_lane) and the block the records."""
+    ring = (_im_lane_words(m1, lt, False) - m1) if chain else lt * m1
     words = ring + 2 * chunk * (m1 + 1)
-    nbytes = 4 * words * threads
+    nbytes = 4 * (words * threads + (_im_record_words(m1) if chain else 0))
     if nbytes > SMEM_OPTIN_BYTES:
         return None
     blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), THREADS_PER_SM // threads,
@@ -1532,21 +1627,24 @@ def _im_k7_layout(m1: int, lt: int, chunk: int, threads: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _im_k7_plan(m1: int, lt: int, chunk: int = None, threads: int = None) -> ImK7Plan:
+def _im_k7_plan(m1: int, lt: int, chunk: int = None, threads: int = None,
+                chain: bool = False) -> ImK7Plan:
     """K7's shared memory for ``m1`` stocked stages and lead-time ring depth
-    ``lt``: the ring's lt m1 words, then 2 x ``chunk`` x (m1 + 1) staging
-    words a thread, at ``threads`` a block; either left None is chosen from
-    ``IM_K7_CHUNKS`` / ``IM_K7_THREADS`` (the first layout that holds
-    ``IM_K7_RESIDENT`` threads an SM, else the first that holds the most).
-    Raises ValueError where no block holds a layout."""
+    ``lt``: the ring's lt m1 words (on the chain route, ``chain``, the
+    thread's state column, ``_im_k7_layout``), then 2 x ``chunk`` x (m1 + 1)
+    staging words a thread, at ``threads`` a block; either left None is
+    chosen from ``IM_K7_CHUNKS`` / ``IM_K7_THREADS`` (the first layout that
+    holds ``IM_K7_RESIDENT`` threads an SM, else the first that holds the
+    most). Raises ValueError where no block holds a layout."""
     if chunk is not None and chunk < 1:
         raise ValueError(f"K7 stages at least one period a buffer, got {chunk}")
-    layouts = [_im_k7_layout(m1, lt, c, n)
+    layouts = [_im_k7_layout(m1, lt, c, n, chain)
                for c in (IM_K7_CHUNKS if chunk is None else (chunk,))
                for n in (IM_K7_THREADS if threads is None else (threads,))]
     layouts = [plan for plan in layouts if plan is not None]
     if not layouts:
-        raise ValueError(f"K7's ring of {lt * m1} words and its staging fit no block "
+        ring = (_im_lane_words(m1, lt, False) - m1) if chain else lt * m1
+        raise ValueError(f"K7's ring of {ring} words and its staging fit no block "
                          f"(chunk {chunk or IM_K7_CHUNKS}, threads {threads or IM_K7_THREADS})")
     return max(layouts, key=lambda plan: min(plan.blocks_per_sm * plan.threads, IM_K7_RESIDENT))
 
@@ -1727,9 +1825,16 @@ def _im_tile_actor(params: im.InvManagementParams, actor, std, device, general: 
     """The actor arguments of K10-K12 on the tensor-core tile
     (``_pack_tile_actor`` at the env's obs and act widths and ``_half_c``):
     the struct (MlpTile, or MlpTileG past its arrays or a block, or where
-    ``general``) and the packed buffer."""
-    return _pack_tile_actor(actor, std, im.observation_space(params).shape[0], params.m1,
-                            _half_c(params), device, general=general)
+    ``general``) and the packed buffer. Params on the chain route take
+    MlpTileG, its state region holding each lane's column
+    (``_im_lane_words``) and the records after it."""
+    m1, lt = params.m1, params.lt_max
+    chain = not _im_fixed(m1, lt)
+    return _pack_tile_actor(actor, std, im.observation_space(params).shape[0], m1,
+                            _half_c(params), device,
+                            state_words=_im_lane_words(m1, lt) if chain else 0,
+                            topo_floats=_im_record_words(m1) if chain else 0,
+                            general=general or chain)
 
 
 def _check_im_streams(params, demands, actions=None):
@@ -1758,7 +1863,7 @@ def _im_returns_call(wrapper, params, actions, demands, seed):
     plan = _im_plan(params, _plan_key(dev), False)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("im_episode", "im_episode_returns", ctypes.addressof(plan["struct"]),
+        _launch("im_episode", _im_fn(plan, "im_episode_returns"), ctypes.addressof(plan["struct"]),
                 ctypes.addressof(plan["k7"]),
                 None if actions is None else actions.data_ptr(), demands.data_ptr(),
                 plan["disc"].data_ptr(), out.data_ptr(), seed or 0, int(actions is None),
@@ -1812,13 +1917,14 @@ def _im_fused_call(wrapper, params, seed, batch, episodes_per_lane, device, dump
         if dump:
             acts = torch.empty((T, E, m1, batch), dtype=torch.int32, device=dev)
             dems = torch.empty((T, E, batch), dtype=torch.int32, device=dev)
-            _launch("im_episode", "im_sample_streams", *args, acts.data_ptr(),
+            _launch("im_episode", _im_fn(plan, "im_sample_streams"), *args, acts.data_ptr(),
                     dems.data_ptr(), seed, batch, E, T, _stream(dev))
             out = (acts, dems)
         else:
             out = torch.empty((E, batch), dtype=torch.float32, device=dev)
             lay = plan["fused"]
-            _launch("im_episode", "im_episode_returns_fused", args[0], ctypes.addressof(lay),
+            _launch("im_episode", _im_fn(plan, "im_episode_returns_fused"), args[0],
+                    ctypes.addressof(lay),
                     *args[1:], plan["disc"].data_ptr(), out.data_ptr(), seed,
                     int(params.backlog), batch, E, T, _stream(dev))
     wrapper.launches += 1
@@ -1896,8 +2002,8 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
     if dev.type == "cpu":
         _actor_dims(actor, obs_dim, m1)
         return _rollout_traj_im_plain(params, actor, std, seed, batch, dev)
-    st, flat = _im_tile_actor(params, actor, std, dev)
     plan = _im_plan(params, _plan_key(dev))
+    st, flat = _im_tile_actor(params, actor, std, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(inv=torch.empty((T + 1, m1, batch), **i32),
@@ -1906,7 +2012,7 @@ def rollout_traj_im(params: im.InvManagementParams, actor, log_std, seed,
                reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
-        fn = "im_rollout_traj" + _tile_launch(st, batch, dev)
+        fn = _im_fn(plan, "im_rollout_traj", _tile_launch(st, batch, dev))
         _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
@@ -1952,18 +2058,20 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
         _head_dims(actor, obs_dim, m1, policy)
         return _rollout_traj_im_plain(params, actor, std, seed, batch, dev, policy, act_name)
     flags = (int(act_name == "relu"), int(params.backlog))
-    packed = _pack_cluster_actor(actor, std, obs_dim, m1, policy, _half_c(params), T, obs_dim,
-                                 False, dev)
+    plan = _im_plan(params, _plan_key(dev))
+    words, layout, extra = _k27_state(params)
+    packed = _pack_cluster_actor(actor, std, obs_dim, m1, policy, _half_c(params), T, words,
+                                 False, dev, layout)
     if packed is None:   # the wide route: no cluster tile holds the actor
-        st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev)
-        fn = "im_rollout_traj_wide" + _wide_launch(st, batch, dev)
+        st, flat = _pack_wide_actor(actor, std, obs_dim, m1, policy, _half_c(params), dev, extra,
+                                    general=plan["chain"])
+        fn = _im_fn(plan, "im_rollout_traj_wide", _wide_launch(st, batch, dev))
     else:
-        fn = "im_rollout_traj_cluster"
+        fn = _im_fn(plan, "im_rollout_traj_cluster")
         st, flat = packed
         with torch.cuda.device(dev):
-            _set_cluster_grid(st, batch, "im_policy", "im_rollout_traj_cluster_occupancy", flags,
-                              dev)
-    plan = _im_plan(params, _plan_key(dev))
+            _set_cluster_grid(st, batch, "im_policy",
+                              _im_fn(plan, "im_rollout_traj_cluster_occupancy"), flags, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(inv=torch.empty((T + 1, m1, batch), **i32),
@@ -1986,6 +2094,19 @@ rollout_traj_im_offpolicy.launches = 0
 rollout_traj_im_offpolicy.route = None   # the last launch's: "cluster" or "wide"
 
 
+def _k27_state(params: im.InvManagementParams):
+    """K27's state words a lane, the cluster's layout and the wide route's
+    shared memory beside its activations: the fixed route's on-hand and
+    ring of requested orders (obs_dim words; the wide route keeps its
+    lanes' state in their frames), or the chain route's columns
+    (``_im_lane_words``) with the records after them."""
+    m1, lt = params.m1, params.lt_max
+    if _im_fixed(m1, lt):
+        return im.observation_space(params).shape[0], _K27_LAYOUT, 0
+    words, rec = _im_lane_words(m1, lt), _im_record_words(m1)
+    return words, ClusterLayout(topo_floats=rec), _WIDE_LANES * words + rec
+
+
 def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_std,
                     dump, device):
     """K11 (``dump`` False) or K12 for ``wrapper``: (returns (E, B), actions,
@@ -2001,15 +2122,15 @@ def _im_policy_call(wrapper, params, actor, seed, batch, episodes_per_lane, log_
     if dev.type == "cpu":
         _actor_dims(actor, obs_dim, m1)
         return _im_policy_plain(params, actor, std, seed, batch, E, dev, dump)
-    st, flat = _im_tile_actor(params, actor, std, dev)
     plan = _im_plan(params, _plan_key(dev))
+    st, flat = _im_tile_actor(params, actor, std, dev)
     out = torch.empty((E, batch), dtype=torch.float32, device=dev)
     acts = dems = None
     if dump:
         acts = torch.empty((T, E, m1, batch), dtype=torch.int32, device=dev)
         dems = torch.empty((T, E, batch), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        fn = "im_policy_returns" + _tile_launch(st, E * batch, dev)
+        fn = _im_fn(plan, "im_policy_returns", _tile_launch(st, E * batch, dev))
         _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(),
                 plan["table"].data_ptr(), plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
@@ -2066,8 +2187,9 @@ sample_policy_streams_debug_im.launches = 0
 
 # maxima of the LSTM kernels (csrc/lstm.cuh): encoder layers, the hidden
 # width (a multiple of 4, padded to the unit groups of 8 of the tensor-core
-# product; at most LSTM_MAX_GROUPS groups), actions; the widths are bounded
-# by the shared memory of a block
+# product; at most LSTM_MAX_GROUPS groups), actions (on the fixed route: the
+# chain route reads the half ranges from its records); the widths are
+# bounded by the shared memory of a block
 LSTM_MAX_ENC, LSTM_MAX_HIDDEN, LSTM_MAX_ACT = 4, 128, 8
 
 
@@ -2301,7 +2423,8 @@ def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
 _LSTM_TILES = ((64, 4), (32, 8))
 
 
-def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
+def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
+                     records: int = 0):
     """The LSTM kernels' actor arguments: the Lstm struct and one flat
     float32 buffer on ``device``. The buffer holds the gate weights as the
     A fragments of the tensor-core product (``_gate_fragments``); the gate
@@ -2309,23 +2432,27 @@ def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     encoder layer's W and b, as fragments too (``_encoder_fragments``); the
     mean head's W (act, h) and b; the std when given; every NaN as the
     quiet NaN 0x7fc00000 (``_QUIET_NAN_BITS``). The struct carries
-    their offsets, the tile (the first of ``_LSTM_TILES`` whose layout fits
-    a block's shared memory) and the layout (``_lstm_plan``). Raises
+    their offsets, the tile (the first of ``_LSTM_TILES`` whose layout, and
+    ``records`` words after it, fit a block's shared memory) and the layout
+    (``_lstm_plan``). ``records`` > 0 is the InvManagement chain route's
+    (its records staged after the activations, csrc/im_lstm.cu), whose
+    half ranges come from the records: no LSTM_MAX_ACT there. Raises
     ValueError for an actor beyond the kernels' maxima or the shared memory
     of a block."""
     dims, h = _lstm_dims(actor, obs_dim, act_dim)
     n_enc = len(dims) - 1
-    if n_enc > LSTM_MAX_ENC or h % 4 or h > LSTM_MAX_HIDDEN or act_dim > LSTM_MAX_ACT:
+    if (n_enc > LSTM_MAX_ENC or h % 4 or h > LSTM_MAX_HIDDEN
+            or (act_dim > LSTM_MAX_ACT and not records)):
         raise ValueError(f"LSTM actor of widths {dims}, hidden {h}, {act_dim} actions: the "
                          f"kernels take at most {LSTM_MAX_ENC} encoder layers, a hidden width "
                          f"that is a multiple of 4 and <= {LSTM_MAX_HIDDEN}, and "
-                         f"{LSTM_MAX_ACT} actions")
+                         f"{LSTM_MAX_ACT} actions (any on the chain route)")
     plans = [_lstm_plan(dims, h, act_dim, t) for t in _LSTM_TILES]
-    plan = next((pl for pl in plans if pl.floats * 4 <= SMEM_OPTIN_BYTES), None)
+    plan = next((pl for pl in plans if (pl.floats + records) * 4 <= SMEM_OPTIN_BYTES), None)
     if plan is None:
         raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: "
-                         f"{min(pl.floats for pl in plans) * 4} bytes of shared memory a "
-                         f"block; a block holds {SMEM_OPTIN_BYTES}")
+                         f"{(min(pl.floats for pl in plans) + records) * 4} bytes of shared "
+                         f"memory a block; a block holds {SMEM_OPTIN_BYTES}")
     a = _lstm_on(actor, device)
     bias = torch.zeros((plan.h_pad, 4), dtype=torch.float32, device=device)
     bias[:h] = a["bh"].reshape(4, h).T
@@ -2344,7 +2471,7 @@ def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device):
     st.std = -1 if std is None else append(std.to(device=device, dtype=torch.float32))
     for k, d in enumerate(dims):
         st.dims[k] = d
-    for i, v in enumerate(half_hi):
+    for i, v in enumerate(half_hi[:LSTM_MAX_ACT]):
         st.half_hi[i] = v
     _set_lstm_tile(st, plan)
     return st, _quiet_nans(torch.cat(parts))
@@ -2360,6 +2487,26 @@ def _set_lstm_tile(st: _Lstm, plan: LstmPlan) -> None:
     st.s_total = plan.floats
 
 
+def _im_lstm_launch(params, actor, std, batch, dev):
+    """(the params struct, the Lstm struct, the packed actor, the entry
+    points' suffix) of a K22-K24 launch on the card. On the chain route a
+    copy of the ImParamsG with the lanes' state in a workspace taken for
+    the launch (``_im_lane_words`` a lane, [word][lane] over the grid's
+    lanes; kept alive on the struct until the launch is queued, as
+    ``_set_workspace`` keeps its)."""
+    plan = _im_plan(params, _plan_key(dev))
+    rec = _im_record_words(params.m1) if plan["chain"] else 0
+    st, flat = _pack_lstm_actor(actor, std, im.observation_space(params).shape[0], params.m1,
+                                _half_c(params), dev, rec)
+    if not plan["chain"]:
+        return plan["struct"], st, flat, ""
+    g = _ImParamsG.from_buffer_copy(plan["struct"])
+    g.ws_stride = -(-batch // st.lanes) * st.lanes
+    g.workspace = torch.empty(g.state_words * g.ws_stride, dtype=torch.int32, device=dev)
+    g.ws = g.workspace.data_ptr()
+    return g, st, flat, "_chain"
+
+
 def _im_lstm_args(params, actor, batch, device):
     """(device, obs_dim) of a K22-K24 call, the actor checked against the env."""
     dev = resolve_device(device)
@@ -2373,18 +2520,18 @@ def _im_lstm_args(params, actor, batch, device):
 def _im_lstm_call(wrapper, params, actor, seed, batch, dump, device):
     """K22 (``dump`` False) or K23 for ``wrapper``: (returns (B,), actions,
     demands), the streams None without ``dump``."""
-    dev, obs_dim = _im_lstm_args(params, actor, batch, device)
+    dev, _ = _im_lstm_args(params, actor, batch, device)
     seed = int(seed) & rng.MASK32
     if dev.type == "cpu":
         return _im_lstm_plain(params, actor, seed, batch, dev, dump)
-    st, flat = _pack_lstm_actor(actor, None, obs_dim, params.m1, _half_c(params), dev)
     plan = _im_plan(params, _plan_key(dev))
     T, m1 = params.periods, params.m1
     out = torch.empty(batch, dtype=torch.float32, device=dev)
     acts = torch.empty((T, m1, batch), dtype=torch.int32, device=dev) if dump else None
     dems = torch.empty((T, batch), dtype=torch.int32, device=dev) if dump else None
     with torch.cuda.device(dev):
-        _launch("im_lstm", "im_lstm_returns", ctypes.addressof(plan["struct"]),
+        g, st, flat, suffix = _im_lstm_launch(params, actor, None, batch, dev)
+        _launch("im_lstm", "im_lstm_returns" + suffix, ctypes.addressof(g),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(), out.data_ptr(),
                 acts.data_ptr() if dump else None, dems.data_ptr() if dump else None,
@@ -2436,12 +2583,11 @@ def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, b
     block per 64 lanes, the gate product on the tensor cores
     (csrc/im_lstm.cu ``k_im_lstm_traj``); on the CPU the plain version
     runs."""
-    dev, obs_dim = _im_lstm_args(params, actor, batch, device)
+    dev, _ = _im_lstm_args(params, actor, batch, device)
     seed = int(seed) & rng.MASK32
     std = clipped_std(torch.as_tensor(log_std).detach())
     if dev.type == "cpu":
         return _rollout_traj_im_lstm_plain(params, actor, std, seed, batch, dev)
-    st, flat = _pack_lstm_actor(actor, std, obs_dim, params.m1, _half_c(params), dev)
     plan = _im_plan(params, _plan_key(dev))
     T, m1 = params.periods, params.m1
     i32 = dict(dtype=torch.int32, device=dev)
@@ -2452,7 +2598,8 @@ def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, b
                reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
-        _launch("im_lstm", "im_lstm_rollout_traj", ctypes.addressof(plan["struct"]),
+        g, st, flat, suffix = _im_lstm_launch(params, actor, std, batch, dev)
+        _launch("im_lstm", "im_lstm_rollout_traj" + suffix, ctypes.addressof(g),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),

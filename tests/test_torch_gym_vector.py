@@ -226,10 +226,11 @@ def test_port_equals_jax_on_user_demand(case):
     port = _venv(tenv, tp, n, seed=0, autoreset_mode=mode)
     ref = JaxVectorEnv(jenv, jp, num_envs=n, seed=0, autoreset_mode=mode)
     np.testing.assert_array_equal(port.reset(seed=1)[0], ref.reset(seed=1)[0])
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0)   # every draw seeded: NetInvMgmt's within its space's bounds
+    space = ref.action_space
     for t in range(2 * horizon + 1):
-        actions = ref.action_space.sample() if family == "net" else \
-            rng.integers(0, 60, size=(n, 3)).astype(np.int32)
+        actions = rng.uniform(space.low, space.high).astype(space.dtype) if family == "net" \
+            else rng.integers(0, 60, size=(n, 3)).astype(np.int32)
         got, want = port.step(actions), ref.step(actions)
         np.testing.assert_array_equal(got[0], want[0], err_msg=f"obs, step {t}")
         np.testing.assert_allclose(got[1], want[1], rtol=1e-6, err_msg=f"reward, step {t}")

@@ -3,14 +3,17 @@
 the JAX package, which bakes every shape in at trace time and so has no
 such cap.
 
+Past the caps the kernels take the chain route (csrc/im_step.cuh
+``ImParamsG``, tests/test_torch_im_any.py): each case checks that
+``_im_plan`` plans it there.
+
 Each case runs one plain version on the CPU past one cap and hands its
 streams to JAX: the Pallas stream-in kernel ``episode_returns_im`` in
 interpret mode and the XLA env chain ``_replay_chain`` of
 tests/test_kernel_rollout.py. Tolerances: returns ``rtol=1e-5, atol=1e-3``
 (f32 profit sums in the same order; XLA may contract a product and a sum
 into an FMA); the int32 on-hand stream exactly; rewards ``rtol=1e-5,
-atol=1e-2``. The struct caps themselves still bind where the struct is
-packed, on the card (``_im_plan``).
+atol=1e-2``.
 """
 
 import dataclasses
@@ -45,8 +48,9 @@ def _params(case):
     jp = jim.default_params(**CASES[case])
     tp = interop.im_params_from_numpy(dataclasses.asdict(jp))
     assert tp.m1 > tek.IM_MAX_M1 or tp.lt_max > tek.IM_MAX_LT
-    with pytest.raises(ValueError, match="too large"):
-        tek._im_plan(tp, CPU)
+    plan = tek._im_plan(tp, CPU)
+    assert plan["chain"] and isinstance(plan["struct"], tek._ImParamsG)
+    assert plan["struct"].state_words == 4 * tp.m1 + 1 + 2 * tp.lt_max * tp.m1
     return jp, tp
 
 

@@ -265,9 +265,13 @@ def test_wrappers_check_inputs_and_count_no_launches_on_cpu():
     with pytest.raises(ValueError, match="obs_dim"):
         Ws, bs = _actor(tp)
         tek.rollout_traj_im(tp, (Ws[1:], bs[1:]), torch.zeros(3), 1, 4, device=CPU)
-    with pytest.raises(ValueError, match="too large"):
+    # nine stocked stages take the chain route (ImParamsG); a lane's state
+    # past a block of 32 lanes is refused, naming the words
+    assert tek._im_plan(tim.default_params(I0=(1,) * 9, r=(1.0,) * 10, k=(0.0,) * 10,
+                                           h=(0.0,) * 9, c=(5,) * 9, L=(1,) * 9), CPU)["chain"]
+    with pytest.raises(ValueError, match="words a lane"):
         tek._im_plan(tim.default_params(I0=(1,) * 9, r=(1.0,) * 10, k=(0.0,) * 10,
-                                        h=(0.0,) * 9, c=(5,) * 9, L=(1,) * 9), CPU)
+                                        h=(0.0,) * 9, c=(5,) * 9, L=(120,) * 9), CPU)
     # a law past the inversion table's cap runs the vecenv rollout, with a
     # RuntimeWarning, as the JAX package runs its XLA rollout
     wide = tim.default_params(periods=STEPS, dist_param={"mu": 50_000})

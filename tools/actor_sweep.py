@@ -97,7 +97,8 @@ def start_parent_build() -> dict:
 def finish_parent_build(jobs: dict) -> dict:
     """Wait for ``start_parent_build``'s jobs and bind the libraries with the
     package's signatures of the fixed class's entry points (the parent had
-    no ``*_any``); returns {stem: library}. Raises if a build failed."""
+    no ``*_any`` and no ``*_chain``); returns {stem: library}. Raises if a
+    build failed."""
     from or_gym_inventory_torch.ops import _build
     libs = {}
     for stem, proc in jobs.items():
@@ -106,7 +107,7 @@ def finish_parent_build(jobs: dict) -> dict:
             raise RuntimeError(f"nvcc failed for the parent {stem}.cu:\n{out}")
         lib = ctypes.CDLL(str(_parent_so(stem)))
         sigs = {fn: sig for fn, sig in _build.SIGNATURES[stem].items()
-                if not fn.endswith("_any")}
+                if not fn.endswith(("_any", "_chain"))}
         for fn, (argtypes, restype) in {**sigs, **_build._SHARED}.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = list(argtypes), restype
         libs[stem] = lib
@@ -344,17 +345,20 @@ def _same_bits(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def turns(dev, parent_libs, names=KERNELS, rounds: int = 3, general=False) -> dict:
+def turns(dev, parent_libs, names=KERNELS, rounds: int = 3, general=False,
+          make=None) -> dict:
     """Each kernel of ``names``: its outputs held against the parent's bit
     for bit (raises where they differ), then its launches timed in turns
     parent, package, package, parent (``rounds`` times). ``general``: the
     general class against the fixed one (``cases``), a difference recorded
-    with its max |diff| rather than raised. Returns {name: results}."""
+    with its max |diff| rather than raised. ``make``: the function that
+    makes the cases in place of ``cases`` (tools/im_caps_sweep.py's).
+    Returns {name: results}."""
     import statistics
 
     import torch
     results = {}
-    all_cases = cases(dev, parent_libs, names, general)
+    all_cases = (make or cases)(dev, parent_libs, names, general)
     for name in names:
         case = all_cases[name]
         got, want = case.package(), case.parent()
