@@ -140,10 +140,9 @@ launch counter set to 0 just before it and read just after:
   and K18-K20 by phases 12, 16 and 21's, 10 relu layers on K27 by phase
   32's) and on the workspace route at 16,384 lanes, where each block walks
   later tiles ((1024, 1024) actors on K4-K6, K10-K12, K18-K20 and K27),
-  and after it each one's time beside its bound, the kernels whose sources
-  the classes changed at their default shapes in turns with the parent
-  design (tools/actor_sweep.py), bit for bit, and the general class in
-  turns with the fixed one there;
+  and after it each one's time beside its bound and the general class in
+  turns with the fixed one at the default shapes (tools/actor_sweep.py;
+  its turns with the parent design run alone);
 - InvManagement at any stage count and lead time (phase 55, after phase 54;
   the chain route, csrc/im_step.cuh ``ImParamsG``): on IM-chain12-lt40 (12
   stocked stages, lead times to 40, 60 periods; obs 492)
@@ -160,8 +159,24 @@ launch counter set to 0 just before it and read just after:
   its family's gates (K7-K9 bit for bit at 4,096 x 2; K10-K12 by phases 12
   and 16's, K22-K24 by phase 25's at 4,096; K27's three heads at 1,024,
   teacher-forced against the head in float64), and after it each one's
-  time beside its bound and the IM kernels at their default shapes in turns
-  with the parent design (tools/im_caps_sweep.py), bit for bit.
+  time beside its bound (the turns with the parent design at the default
+  shapes run alone: tools/im_caps_sweep.py);
+- Newsvendor at any lead time (phase 56, last before the mesh; the column
+  instances of K13, K14 and K16 past NV_MAX_L, the lanes' pipelines in
+  shared memory on K28's wide route): on NV-lt60 (lead time 60, 120
+  periods; obs 65) ``random_episode_returns`` at 1,048,576 x 4 (K16 once),
+  PPO ``rollout="kernel"`` for 1 update at 4,096 envs (K18),
+  ``policy_episode_returns`` of the trained actor at 65,536 x 4 (K19), and
+  ``TD3Agent`` and ``SACAgent`` ``collect="kernel"`` with SB3's (256, 256)
+  actor for 1 iteration each (K28 each, on the cluster), no plain version;
+  before it the plans on NV-lt60, NV-lt33 (one past the register route)
+  and NV-lt64 (no order ever arrives), the column instances' frames and,
+  on all three, K13-K17 by phase 18's gates at 4,096 x 2, K18-K20 by phase
+  21's at 4,096 x 2 under a seeded 64x64 actor and K28's three heads on
+  the cluster and det on the wide route ((512, 512)) at 1,024 lanes,
+  teacher-forced and replayed through the plain step chain bit for bit;
+  after it each one's time on NV-lt60 beside its bound (the turns with the
+  parent design at lead time 5 run alone: tools/nv_caps_sweep.py).
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -223,7 +238,8 @@ each m1 up to the struct maxima, none with a stack frame or a local-memory
 load or store, and K7 (K8's body, its streams staged by cp.async) one for
 each m1, backlog flag and mode, none with either, and K9 one for each m1
 and K21 (both on 2-D grids), none with either, and K13 one for each lead
-time from 0 to 32 and mode (its pipeline in registers), none with either;
+time from 0 to 32 and mode (its pipeline in registers) and one a mode for
+any lead time past it (its pipeline in shared memory), none with either;
 K4, K10 and K18 are the
 tiles of K5, K11 and K19 with one stochastic episode a lane and their
 streams written (``TRAJ_INSTANCES``:
@@ -279,9 +295,10 @@ xla paths' rates beside the kernel paths' and the agents' training times;
 ``bench_main_path``: phases 45-47's rewards, rates and warm-ups;
 ``mesh_main_path``: phases 48-50's update times, walls and the gloo
 collectives' shares; a spawned rank's launches count with this process's;
-``graph_main_path``: phases 51-53's plans, times and turns;
-``actor_main_path``: phase 54's times, turns and the path's wall;
-``im_caps_main_path``: phase 55's times, turns and the path's wall),
+``graph_main_path``: phases 51-53's plans and times;
+``actor_main_path``: phase 54's times, the general class's turns and the
+path's wall; ``im_caps_main_path``, ``nv_caps_main_path``: phases 55's and
+56's times and the paths' walls),
 the card's
 name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -1155,11 +1172,13 @@ def k9_k21_frame_check(logs):
 
 def k13_frame_check(logs):
     """Phase 2's check of K13 (nv_episode.cu ``k_nv_returns<RANDOM, L>``,
-    its pipeline in registers, its streams staged by cp.async): an instance
-    for each mode and each lead time from 0 to NV_MAX_L, none with a stack
-    frame, a spill or a local-memory load or store (``frame_free_check``)."""
+    its streams staged by cp.async): an instance for each mode and each lead
+    time from 0 to NV_MAX_L (its pipeline in registers) and the column
+    instance of each mode (L = -1, its pipeline in shared memory, for any
+    lead time past NV_MAX_L), none with a stack frame, a spill or a
+    local-memory load or store (``frame_free_check``)."""
     from or_gym_inventory_torch.ops import episode_kernels as ek
-    return frame_free_check(logs, "nv_episode", "k_nv_returns<", 2 * (ek.NV_MAX_L + 1), "K13")
+    return frame_free_check(logs, "nv_episode", "k_nv_returns<", 2 * (ek.NV_MAX_L + 2), "K13")
 
 
 def net_episode_frame_check(logs, local):
@@ -5024,12 +5043,11 @@ GRAPH_CHECK_STEPS = 15
 GRAPH_PATH_KERNELS = ("episode_returns", "episode_returns_fully_fused", "sample_streams_debug",
                       "batched_step", "episode_returns_random_policy", "rollout_traj_net",
                       "episode_returns_net_policy", "rollout_traj_net_offpolicy")
-GRAPH_TURN_KERNELS = ("K2", "K1", "K5", "K4", "K29det", "K29sac")
-GRAPH_TURN_ROUNDS = 2
 
 
 def graph_sweep_tool():
-    """tools/net_graph_sweep.py, the parent design's build and turns."""
+    """tools/net_graph_sweep.py (its helpers; its turns against the parent
+    design run alone, not in this smoke)."""
     import importlib
     import pathlib
     tools = str(pathlib.Path(__file__).resolve().parent / "tools")
@@ -5343,7 +5361,7 @@ def graph_times(dev, params, policy):
     return out
 
 
-def graph_phases(dev, wrappers, smi, err, parent_libs):
+def graph_phases(dev, wrappers, smi, err):
     """Phases 51-53: the two test graphs (GRAPH_REGIONS), past the first
     design's struct maxima. 51, at GRAPH_CHECK_STEPS periods: each graph's
     plans, K1-K3, K25 and K26 on both against their plain versions
@@ -5351,13 +5369,11 @@ def graph_phases(dev, wrappers, smi, err, parent_libs):
     (``policy_cross_check`` at GRAPH_POLICY_LANES x GRAPH_POLICY_EPISODES)
     and K29 (``graph_offpolicy_checks``). 52: the
     graphs' counted path (``graph_main_path``). 53: each kernel's time on
-    each graph beside its bound (``graph_times``), and K2, K1, K5, K4 and
-    K29 on the default graph in turns with their parent design
-    (tools/net_graph_sweep.py, its libraries built with phase 2's). Returns
-    (launches, lines, summary)."""
+    each graph beside its bound (``graph_times``). The turns of K2, K1, K5,
+    K4 and K29 with their parent design run alone: tools/net_graph_sweep.py.
+    Returns (launches, lines, summary)."""
     import torch
 
-    net_graph_sweep = graph_sweep_tool()
     t0 = time.perf_counter()
     graphs = {f"{name}({copies})": graph_params(name, copies) for name, copies in GRAPH_REGIONS}
     random_params, policy_params = graphs["default_regions(8)"], graphs["custom_regions(6)"]
@@ -5404,10 +5420,6 @@ def graph_phases(dev, wrappers, smi, err, parent_libs):
         print(f"[53 graph times] {label}: " + "; ".join(
             f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
             for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
-    turns = net_graph_sweep.turns(dev, parent_libs, GRAPH_TURN_KERNELS, GRAPH_TURN_ROUNDS)
-    summary["turns"] = turns
-    for name, r in turns.items():
-        print(f"[53 turns] {net_graph_sweep.line(name, r)} on {smi}", flush=True)
     print(f"[53 graph times] {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
     return launches, lines + path_lines, summary
@@ -5438,7 +5450,8 @@ ACTOR_PATH_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
 
 
 def actor_sweep_tool():
-    """tools/actor_sweep.py, the parent design's build and turns."""
+    """tools/actor_sweep.py (phase 54's turns of the general class against
+    the fixed one; its turns against the parent design run alone)."""
     graph_sweep_tool()   # puts tools/ on sys.path
     import importlib
     return importlib.import_module("actor_sweep")
@@ -6017,17 +6030,15 @@ def actor_times(dev, p8, p3, imp, nvp):
     return out
 
 
-def actor_phases(dev, wrappers, smi, err, parent_libs):
+def actor_phases(dev, wrappers, smi, err):
     """Phase 54: the lifted actor classes. The plans (``actor_plans``), the
     kernels against their plain versions (``actor_checks``, at
     ACTOR_CHECK_STEPS periods on the graphs), the counted path on
     default_regions(8) (``actor_main_path``), each lifted kernel's time
-    beside its bound (``actor_times``), and every kernel whose source the
-    general class changed at its default shapes in turns with the parent
-    design (tools/actor_sweep.py, its libraries built with phase 2's), bit
-    for bit; then the general class against the fixed one on the same
-    default actors (reported: whether the fixed class is still needed).
-    Returns (launches, summary)."""
+    beside its bound (``actor_times``), and the general class against the
+    fixed one on the same default actors (tools/actor_sweep.py; reported:
+    whether the fixed class is still needed). The turns against the parent
+    design run alone: tools/actor_sweep.py. Returns (launches, summary)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
@@ -6054,10 +6065,6 @@ def actor_phases(dev, wrappers, smi, err, parent_libs):
     print("[54 actor times] " + "; ".join(
         f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
         for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
-    turns = actor_sweep.turns(dev, parent_libs, actor_sweep.KERNELS, ACTOR_TURN_ROUNDS)
-    summary["turns"] = turns
-    for name, r in turns.items():
-        print(f"[54 turns] {actor_sweep.line(name, r)} on {smi}", flush=True)
     general = actor_sweep.turns(dev, None, actor_sweep.GENERAL_KERNELS, ACTOR_TURN_ROUNDS,
                                 general=True)
     summary["general_turns"] = general
@@ -6091,20 +6098,12 @@ IM_CAPS_OFF_LANES = 1_024        # TD3's and SAC's envs (K27)
 IM_CAPS_OFF_ITERS = 2            # the warmup's uniform head, then theirs
 IM_CAPS_CHECK_LANES = 4_096      # the checks' lanes (x IM_CAPS_CHECK_EPISODES)
 IM_CAPS_CHECK_EPISODES = 2
-IM_CAPS_TURN_ROUNDS = 2
 # each kernel row's phase-55 time (``im_caps_times``' keys)
 IM_CAPS_ROWS = {"episode_returns_im": "K7", "episode_returns_im_fused": "K8",
                 "sample_streams_debug_im": "K9", "rollout_traj_im": "K10",
                 "episode_returns_im_policy": "K11", "sample_policy_streams_debug_im": "K12",
                 "episode_returns_im_lstm": "K22", "sample_lstm_streams_debug_im": "K23",
                 "rollout_traj_im_lstm": "K24", "rollout_traj_im_offpolicy": "K27 det"}
-
-
-def im_caps_sweep_tool():
-    """tools/im_caps_sweep.py, the parent design's build and turns."""
-    graph_sweep_tool()   # puts tools/ on sys.path
-    import importlib
-    return importlib.import_module("im_caps_sweep")
 
 
 def im_caps_params(name):
@@ -6588,17 +6587,16 @@ def im_caps_times(dev, params):
     return out
 
 
-def im_caps_phases(dev, wrappers, smi, err, logs, parent_libs):
+def im_caps_phases(dev, wrappers, smi, err, logs):
     """Phase 55: InvManagement at any stage count and lead time. The plans
     (``im_caps_plans``) and the chain route's frames (``im_caps_frames``),
     the kernels against their plain versions on the three configurations
     (``im_caps_checks``), the counted path on IM-chain12-lt40
-    (``im_caps_main_path``), each kernel's time there beside its bound
-    (``im_caps_times``), and the IM kernels at their default shapes in
-    turns with the parent design (tools/im_caps_sweep.py, its libraries
-    built with phase 2's), bit for bit. Returns (launches, summary)."""
+    (``im_caps_main_path``) and each kernel's time there beside its bound
+    (``im_caps_times``). The turns of the IM kernels with the parent design
+    at their default shapes run alone: tools/im_caps_sweep.py. Returns
+    (launches, summary)."""
     import torch
-    sweep = im_caps_sweep_tool()
     t0 = time.perf_counter()
     params_of = {name: im_caps_params(name) for name in IM_CAPS_CONFIGS}
     for x in im_caps_plans(params_of, dev):
@@ -6620,11 +6618,438 @@ def im_caps_phases(dev, wrappers, smi, err, logs, parent_libs):
     print("[55 im times] IM-chain12-lt40: " + "; ".join(
         f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
         for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
-    turns = sweep.turns(dev, parent_libs, sweep.KERNELS, IM_CAPS_TURN_ROUNDS)
-    summary["turns"] = turns
-    for name, r in turns.items():
-        print(f"[55 turns] {sweep.actor_sweep.line(name, r)} on {smi}", flush=True)
     print(f"[55 im times] {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return launches, summary
+
+
+# phase 56: Newsvendor at any lead time (csrc/nv_episode.cu's column
+# instances of K13, K14 and K16 past NV_MAX_L; K28's wide route with the
+# lanes' pipelines in shared memory; K18-K20's tile and K28's cluster held
+# their pipelines in shared memory already): benchmark_newsvendor.py:35-38's
+# ENV_CONFIG_EVAL with a longer lead time, a daily-period newsvendor
+# restocked by ocean freight. NV-lt60 (obs 65) runs the counted path; NV-lt33
+# is one past the register route, NV-lt64 a lead time past the horizon (no
+# order ever arrives)
+NV_CAPS_CONFIGS = {"NV-lt60": dict(lead_time=60, step_limit=120),
+                   "NV-lt33": dict(lead_time=33, step_limit=50),
+                   "NV-lt64": dict(lead_time=64, step_limit=50)}
+NV_CAPS_MAIN_LANES = 1_048_576   # K16 on the path, x NV_CAPS_EPISODES
+NV_CAPS_EPISODES = 4
+NV_CAPS_LANES = 65_536           # K19 (x NV_CAPS_EPISODES) on the path; K13-K15, K17, K20 timed
+NV_CAPS_ENVS = 4_096             # PPO's envs (K18)
+NV_CAPS_OFF_LANES = 1_024        # TD3's and SAC's envs (K28), and K28's checks
+NV_CAPS_CHECK_LANES = 4_096      # the checks' lanes (x NV_CAPS_CHECK_EPISODES)
+NV_CAPS_CHECK_EPISODES = 2
+# each kernel row's phase-56 time (``nv_caps_times``' keys)
+NV_CAPS_ROWS = {"episode_returns_nv": "K13", "episode_returns_nv_fused": "K14",
+                "sample_streams_debug_nv": "K15", "episode_returns_nv_reset_fused": "K16",
+                "sample_streams_debug_nv_reset": "K17", "rollout_traj_nv": "K18",
+                "episode_returns_nv_policy": "K19", "sample_policy_streams_debug_nv": "K20",
+                "rollout_traj_nv_offpolicy": "K28 det"}
+
+
+def nv_caps_params(name):
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    return nv.default_params(dict(NV_ENV_CONFIG, **NV_CAPS_CONFIGS[name]))
+
+
+def nv_caps_plans(params_of, dev):
+    """Phase 56's plans, a line a configuration: the lead time's route, K13's
+    and K14-K17's columns, K19's tile under a seeded 64x64 actor, K28's
+    cluster under SB3's (256, 256) actor and its wide route under a (512,
+    512) one."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    lines = []
+    for name, params in params_of.items():
+        L, T, obs = params.lead_time, params.step_limit, params.obs_dim
+        st = ek._nv_plan(params, ek._plan_key(dev))["struct"]
+        ring = L if L > ek.NV_MAX_L else 0
+        k13, tab = ek._nv_k13_launch(ring), ek._nv_table_plan(st.K, ring)
+        actor, _ = seeded_actor(obs, 1, dev)
+        tst, _ = ek._nv_tile_actor(params, actor, None, dev)
+        tile, nt = ek._nv_tile_launch(tst, st, T)
+        off, off_ls = seeded_offpolicy_actor(obs, 1, False, dev)
+        cst, _ = ek._pack_cluster_actor(off, ek._offpolicy_std("det", off_ls), obs, 1, "det",
+                                        ek._nv_half_hi(params), T, obs + 1, True, dev)
+        wide, wide_ls = seeded_offpolicy_actor(obs, 1, False, dev, OFF_WIDE)
+        wst, _ = ek._pack_wide_actor(wide, ek._offpolicy_std("det", wide_ls), obs, 1, "det",
+                                     ek._nv_half_hi(params), dev, ek._nv_wide_extra(params))
+        acts = 2 * wst.rows * 32 if isinstance(wst, ek._WideMlp) else (
+            0 if wst.ws_floats else (wst.rows0 + wst.rows1) * 32)
+        lines.append(
+            f"{name}: lead time {L}, {T} periods, obs {obs}, K = {st.K}; route "
+            + ("the column instances (pipeline in shared memory)" if ring else
+               "registers (K13) and the local ring (K14/K16)")
+            + f"; K13 {k13.threads} threads x {k13.words} words ({k13.bytes} B, "
+            f"{k13.blocks_per_sm} blocks an SM); K14-K17 {tab.threads} threads x "
+            f"{st.K * tab.table + ring} words ({tab.bytes} B, {tab.blocks_per_sm} blocks an SM, "
+            f"{'table' if tab.table else 'linear count'}); K18-K20 (64, 64): "
+            f"{type(tst).__name__[1:]} {tile.lanes} lanes, {tile.s_total * 4} B, layout "
+            f"{nt.layout}, ring rows at {nt.s_ring}; K28 (256, 256) det: cluster "
+            f"{cst.cluster} CTAs over {cst.lanes} lanes, {cst.floats * 4} B a CTA, "
+            f"{cst.state_words} state words a lane; K28 (512, 512) wide "
+            f"{type(wst).__name__[1:]}: {4 * (acts + ek._nv_wide_extra(params))} B a block "
+            f"({4 * ek._nv_wide_extra(params)} B of pipelines)")
+    return lines
+
+
+def nv_caps_frames(logs):
+    """Phase 56's line on the column instances (K13's are phase 2's,
+    ``k13_frame_check``): K14/K16's ``k_nv_episodes_column<ECON_IN,TABLE>``
+    (four) and K28's wide route, their registers and stack from ptxas and
+    LDL/STL from the SASS. Raises unless the four are built, each within
+    ``_NV_COLUMN_REGS`` registers."""
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    parts = []
+    for src, pick in (("nv_episode", lambda k: k.startswith("k_nv_episodes_column")),
+                      ("nv_policy", lambda k: k.startswith("k_nv_rollout_traj_wide"))):
+        counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu"))) or {}
+        log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
+        ptx = [e for e in ptxas_entries(log).split("; ") if pick(e.split(" ")[0])]
+        mine = {k: v for k, v in counts.items() if pick(k)}
+        if src == "nv_episode":
+            if len(mine) != 4:
+                raise AssertionError(f"nv_episode.cu: {len(mine)} instances of "
+                                     "k_nv_episodes_column in the SASS, want 4")
+            for entry in ptx:
+                if int(entry.split(" ")[1]) > ek._NV_COLUMN_REGS:
+                    raise AssertionError(f"{entry}: _nv_table_plan counts "
+                                         f"{ek._NV_COLUMN_REGS} registers")
+        parts.append(f"{src}.cu (LDL/STL) " + ", ".join(
+            f"{k} {ld}/{st}" for k, (ld, st, _) in sorted(mine.items()))
+            + "; ptxas " + "; ".join(ptx))
+    return "; ".join(parts)
+
+
+def nv_caps_random_gates(label, params, B, E, dev):
+    """K13-K17 by phase 18's gates at ``B`` x ``E``: K17's econ and actions
+    bit for bit against plain K17, its demand by DEMAND_SHARE; K16 against
+    plain by the share of lanes; K15 = K17's episode 0; on K17's streams the
+    chain K16 = K14 = K13 _random = K13 bit for bit; K13 (orders past both
+    clips), K13 _random and K14 against plain. Returns ({kernel: max
+    |diff|}, line)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    econ, acts, dems = ek.sample_streams_debug_nv_reset(params, SEED, B, E, dev)
+    pe, pa, pd = ek._nv_fused_plain(params, SEED, B, E, dev, dump=True)
+    exact(f"K17 {label} econ vs plain", econ, pe)
+    exact(f"K17 {label} actions vs plain", acts, pa)
+    err = {"sample_streams_debug_nv_reset": demand_check(f"K17 {label} demand vs plain", dems,
+                                                         pd)}
+    del pe, pa, pd
+    k16 = ek.episode_returns_nv_reset_fused(params, SEED, B, E, dev)
+    share, err["episode_returns_nv_reset_fused"] = lane_share(
+        f"K16 {label} vs plain", k16, ek._nv_fused_plain(params, SEED, B, E, dev), 1e-5, 1e-2)
+    e0, a0, d0 = econ[0].contiguous(), acts[:, 0].contiguous(), dems[:, 0].contiguous()
+    a15, d15 = ek.sample_streams_debug_nv(params, e0, SEED)
+    exact(f"K15 {label} actions vs K17 episode 0", a15, a0)
+    exact(f"K15 {label} demand vs K17 episode 0", d15, d0)
+    err["sample_streams_debug_nv"] = err["sample_streams_debug_nv_reset"]
+    k14 = ek.episode_returns_nv_fused(params, e0, SEED)
+    k13r = ek.episode_returns_nv_random(params, e0, d0, SEED)
+    for name, got in (("K14", k14), ("K13 _random", k13r),
+                      ("K13", ek.episode_returns_nv(params, e0, a0, d0))):
+        exact(f"{name} {label} on K17's streams vs K16", got, k16[0])
+    _, err["episode_returns_nv_fused"] = lane_share(
+        f"K14 {label} vs plain", k14, ek._nv_fused_plain(params, SEED, B, 1, dev, e0)[0],
+        1e-5, 1e-2)
+    wild = a0 * 1.5 - 10.0     # orders past both clip bounds
+    err["episode_returns_nv"] = max(
+        close(f"K13 {label} vs plain", ek.episode_returns_nv(params, e0, wild, d0),
+              ek._episode_returns_nv_plain(params, e0, wild, d0), 1e-5, 1e-2),
+        close(f"K13 _random {label} vs plain", k13r,
+              ek._episode_returns_nv_plain(params, e0, None, d0, SEED), 1e-5, 1e-2))
+    return err, (f"K13-K17 {label} at {B} x {E} x {params.step_limit}: K17's econ and actions "
+                 f"bit for bit, demand max |diff| {err['sample_streams_debug_nv_reset']}; K16 "
+                 f"{share:.4%} of lanes = plain; K15 = K17's episode 0; K16 = K14 = K13 "
+                 f"_random = K13 on K17's streams bit for bit; K13 against plain max |diff| "
+                 f"{err['episode_returns_nv']:.6g} (orders past both clips)")
+
+
+def nv_step_chain_exact(params, tr, label):
+    """The plain Newsvendor step chain on a trajectory's econ, demand and
+    a_norm gives its capped orders and rewards bit for bit (the kernel's
+    step is ``_nv_step_math``'s operations in its order)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    P = [torch.zeros_like(tr["reward"][0])] * params.lead_time
+    half_hi = ek._nv_half_hi(params)[0]
+    for t in range(params.step_limit):
+        P, rew, q = ek._nv_step_math(params, P, *tr["econ"][:4],
+                                     (tr["raw"][t, 0] + 1.0) * half_hi, tr["demand"][t])
+        exact(f"step chain order[{t}] vs K28, {label}", q, tr["orders"][t])
+        exact(f"step chain reward[{t}] vs K28, {label}", rew, tr["reward"][t])
+
+
+def nv_caps_k28_gates(label, params, B, dev):
+    """K28 at ``B`` lanes on the cluster under SB3's (256, 256) relu actor,
+    each head, and on the wide route under a (512, 512) one, det: the
+    route the wrapper names, econ and demand bit for bit with K18's on the
+    same seed, a_norm in [-1, 1] and teacher-forced within atol=1e-4 of
+    the plain head on its own obs (``offpolicy_teacher_forced``; uniform's
+    bit for bit against plain), the plain step chain replaying its orders
+    and rewards bit for bit. Returns (max |diff|, line)."""
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    obs = params.obs_dim
+    actor, log_std = seeded_actor(obs, 1, dev)
+    k18 = ek.rollout_traj_nv(params, actor, log_std, SEED, B, device=dev)
+    worst, parts = 0.0, []
+    for mode, arch, route in (("det", None, "cluster"), ("sac", None, "cluster"),
+                              ("uniform", None, "cluster"), ("det", OFF_WIDE, "wide")):
+        off, off_ls = seeded_offpolicy_actor(obs, 1, mode == "sac", dev, arch)
+        tr = ek.rollout_traj_nv_offpolicy(params, off, off_ls, SEED, B, mode, "relu", dev)
+        if ek.rollout_traj_nv_offpolicy.route != route:
+            raise AssertionError(f"K28 {label} {mode}: the {ek.rollout_traj_nv_offpolicy.route} "
+                                 f"route, not {route}")
+        tag = f"K28 {label} {mode} ({route})"
+        exact(f"{tag} econ vs K18's", tr["econ"], k18["econ"])
+        exact(f"{tag} demand vs K18's", tr["demand"], k18["demand"])
+        if not (float(tr["raw"].min()) >= -1.0 and float(tr["raw"].max()) <= 1.0):
+            raise AssertionError(f"{tag}: a_norm outside [-1, 1]")
+        std = ek._offpolicy_std(mode, off_ls)
+        if mode == "uniform":
+            want = ek._rollout_traj_nv_plain(params, off, std, SEED, B, dev, mode, "relu")
+            exact(f"{tag} a_norm vs plain", tr["raw"], want["raw"])
+            forced = 0.0
+            del want
+        else:
+            forced, _ = offpolicy_teacher_forced("rollout_traj_nv_offpolicy", params, tr, off,
+                                                 std, mode, 1, dev)
+        nv_step_chain_exact(params, tr, tag)
+        worst = max(worst, forced)
+        parts.append(f"{mode} on the {route} route: teacher-forced max |diff| {forced:.3g}")
+        del tr
+    return worst, (f"K28 {label} at {B} x {params.step_limit}: econ and demand K18's bit for "
+                   "bit, " + "; ".join(parts) + "; the plain step chain replays its orders and "
+                   "rewards bit for bit")
+
+
+def nv_caps_checks(dev, params_of):
+    """Phase 56's checks on each configuration: K13-K17 at
+    NV_CAPS_CHECK_LANES x NV_CAPS_CHECK_EPISODES (``nv_caps_random_gates``);
+    K18-K20 there under a seeded 64x64 actor by phase 21's gates
+    (``nv_tile_gates``); K28 at NV_CAPS_OFF_LANES (``nv_caps_k28_gates``).
+    Returns ({kernel: max |diff|}, lines)."""
+    import torch
+    err, lines = {}, []
+
+    def keep(e):
+        for name, v in e.items():
+            err[name] = max(err.get(name, 0.0), v)
+
+    B, E = NV_CAPS_CHECK_LANES, NV_CAPS_CHECK_EPISODES
+    for name, params in params_of.items():
+        e, line = nv_caps_random_gates(name, params, B, E, dev)
+        keep(e)
+        lines.append(line)
+        actor, log_std = seeded_actor(params.obs_dim, 1, dev)
+        e, ls = nv_tile_gates(name, params, actor, log_std, B, E, dev)
+        keep(e)
+        lines += ls
+        e, line = nv_caps_k28_gates(name, params, NV_CAPS_OFF_LANES, dev)
+        keep({"rollout_traj_nv_offpolicy": e})
+        lines.append(line)
+    torch.cuda.synchronize()
+    return err, lines
+
+
+def nv_caps_main_path(dev, wrappers, smi, params):
+    """Phase 56, counted, on ``params`` (NV-lt60): ``random_episode_returns``
+    at NV_CAPS_MAIN_LANES x NV_CAPS_EPISODES (K16 once); PPO with
+    ``rollout="kernel"`` for one update at NV_CAPS_ENVS envs (K18); the
+    trained actor's ``policy_episode_returns`` at NV_CAPS_LANES x
+    NV_CAPS_EPISODES (K19); ``TD3Agent`` and ``SACAgent`` with
+    ``collect="kernel"`` and SB3's (256, 256) actor for one iteration each,
+    their own heads from the start (K28 each, on the cluster); every plain
+    version patched to raise. Then the first NV_CAPS_CHECK_LANES lanes of
+    K16's returns against plain K16 on the replayed seed. Returns
+    (launches, lines, summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import off_policy as op
+    from or_gym_inventory_torch.agents import ppo
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    from or_gym_inventory_torch.ops import _build
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    T = params.step_limit
+    BM, E, BL, BE, BO = (NV_CAPS_MAIN_LANES, NV_CAPS_EPISODES, NV_CAPS_LANES, NV_CAPS_ENVS,
+                         NV_CAPS_OFF_LANES)
+    root = _build.BUILD_DIR / "chip_smoke_nv_caps"
+    kw = dict(model_dir=str(root / "models"), log_dir=str(root / "logs"), force_retrain=True,
+              device=dev)
+
+    def factory(env_config=None):
+        return params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen.get_state())
+    seed = fast_episodes.kernel_seed(replay)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        ret = fast_episodes.random_episode_returns(params, gen, BM, E, dev)
+        cfg = ppo.PPOConfig(num_envs=BE, rollout_steps=T, num_minibatches=8, update_epochs=4,
+                            rollout="kernel")
+        state, metrics = ppo.train(nv.ENV, params, cfg,
+                                   torch.Generator(device=dev).manual_seed(SEED), BE * T,
+                                   device=dev)
+        actor = ek.fold_actor_params(cfg, state.params, state.rms)
+        det = fast_episodes.policy_episode_returns(params, actor,
+                                                   torch.Generator(device=dev).manual_seed(7),
+                                                   BL, E, device=dev)
+        off = {}
+        for cls in (op.TD3Agent, op.SACAgent):
+            ocfg = op.OffPolicyConfig(collect="kernel", num_envs=BO, buffer_size=BO * T,
+                                      batch_size=256, start_steps=0, updates_per_iter=1)
+            agent = cls(nv.ENV, factory, config=ocfg, **kw)
+            agent.train(None, BO * T)
+            off[cls.__name__] = agent.training_time
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    want = {"episode_returns_nv_reset_fused": 1, "rollout_traj_nv": 1,
+            "episode_returns_nv_policy": 1, "rollout_traj_nv_offpolicy": 2}
+    moved = {k: v for k, v in launches.items() if v}
+    if moved != want:
+        raise AssertionError(f"the NV-lt60 path launched {moved}, not {want}")
+    if ek.rollout_traj_nv_offpolicy.route != "cluster":
+        raise AssertionError("K28 on NV-lt60's path: not on the cluster")
+    if ret.shape != (E * BM,) or det.shape != (E * BL,):
+        raise AssertionError(f"NV-lt60 returns of shape {tuple(ret.shape)}, {tuple(det.shape)}")
+    share, e16 = lane_share("NV-lt60 path: K16's first lanes vs plain K16",
+                            ret.reshape(E, BM)[:, :NV_CAPS_CHECK_LANES].contiguous(),
+                            ek._nv_fused_plain(params, seed, NV_CAPS_CHECK_LANES, E, dev),
+                            1e-5, 1e-2)
+    bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+    if bad or not all(bool(torch.isfinite(x).all()) for x in (ret, det)):
+        raise AssertionError(f"the NV-lt60 path: non-finite metrics {bad} or returns")
+    summary = {"wall_s": wall, "k16_mean": float(ret.double().mean()),
+               "k19_det_mean": float(det.double().mean()),
+               "ppo_metrics": {k: [float(x) for x in v] for k, v in metrics.items()},
+               "offpolicy_train_s": off, "k28_route": ek.rollout_traj_nv_offpolicy.route}
+    lines = [f"NV-lt60 x {T}: random_episode_returns {BM} x {E} through K16 (mean "
+             f"{summary['k16_mean']:.6g}; the first {NV_CAPS_CHECK_LANES} lanes {share:.4%} = "
+             f"plain K16); PPO 1 update at {BE} envs through K18, policy_episode_returns {BL} x "
+             f"{E} det through K19 (mean {summary['k19_det_mean']:.6g}); TD3Agent and SACAgent "
+             f"1 iteration each at {BO} envs through K28 on the cluster; no plain version; "
+             f"launches {moved}; {wall:.1f} s on {smi}"]
+    del ret, det
+    return launches, lines, summary
+
+
+def nv_caps_times(dev, params):
+    """Phase 56's times on ``params`` (NV-lt60): each kernel's best of 3 of
+    its entry point's launches (``cuda_time``) at the path's shapes (K13-K15,
+    K17 and K20 at NV_CAPS_LANES; K18 at NV_CAPS_ENVS; K28 under the seeded
+    (256, 256) actors at NV_CAPS_OFF_LANES, and det under (512, 512) on the
+    wide route), beside its bound by the work model (the tile's products as
+    three TF32 products each); and K16 at lead time 5 on the same shape, for
+    the time an env-step. Returns {name: (ms, bound ms, bound by)}."""
+    import dataclasses
+
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    T, obs = params.step_limit, params.obs_dim
+    BM, E, BL, BE, BO = (NV_CAPS_MAIN_LANES, NV_CAPS_EPISODES, NV_CAPS_LANES, NV_CAPS_ENVS,
+                         NV_CAPS_OFF_LANES)
+    step = nv_step_ops(params)
+    draw, draw_reset = nv_draw_ops(params, False), nv_draw_ops(params, True)
+    econ, acts, dems = ek.sample_streams_debug_nv_reset(params, SEED, BL, device=dev)
+    econ, acts, dems = (x.contiguous() for x in (econ[0], acts[:, 0], dems[:, 0]))
+    actor, log_std = seeded_actor(obs, 1, dev)
+    dims = [obs, 64, 64, 1]
+    det = mlp_ops(dims) + step + nv_policy_draw_ops(params, False, table=True)
+    sto = mlp_ops(dims) + step + nv_policy_draw_ops(params, True, table=True)
+    lt5 = dataclasses.replace(params, lead_time=5)
+    runs = {
+        "K13": ((ek.episode_returns_nv, params, econ, acts, dems),
+                bound(BL * (5 + 2 * T + 1) * 4, BL * T * step)),
+        "K13 _random": ((ek.episode_returns_nv_random, params, econ, dems, SEED),
+                        bound(BL * (5 + T + 1) * 4, BL * T * (step + draw))),
+        "K14": ((ek.episode_returns_nv_fused, params, econ, SEED),
+                bound(BL * (5 + 1) * 4, BL * T * (step + draw))),
+        "K15": ((ek.sample_streams_debug_nv, params, econ, SEED),
+                bound(BL * (5 + 2 * T) * 4, BL * T * draw)),
+        "K16": ((ek.episode_returns_nv_reset_fused, params, SEED, BM, E, dev),
+                bound(BM * E * 4, BM * E * T * (step + draw_reset))),
+        "K16 lead time 5": ((ek.episode_returns_nv_reset_fused, lt5, SEED, BM, E, dev),
+                            bound(BM * E * 4, BM * E * T * (nv_step_ops(lt5)
+                                                             + nv_draw_ops(lt5, True)))),
+        "K17": ((ek.sample_streams_debug_nv_reset, params, SEED, BL, 1, dev),
+                bound(BL * (5 + 2 * T) * 4, BL * T * draw_reset)),
+        "K18": ((ek.rollout_traj_nv, params, actor, log_std, SEED, BE, "ppo", "tanh", dev),
+                tc_bound(BE * (5 + 4 * T) * 4, BE * T, sto, mlp_tc_flops(dims))[0]),
+        "K19": ((ek.episode_returns_nv_policy, params, actor, SEED, BL, E, None, dev),
+                tc_bound(BL * E * 4, BL * E * T, det, mlp_tc_flops(dims))[0]),
+        "K20": ((ek.sample_policy_streams_debug_nv, params, actor, SEED, BL, 1, None, dev),
+                tc_bound(BL * (1 + 5 + 2 * T) * 4, BL * T, det, mlp_tc_flops(dims))[0]),
+    }
+    for mode, arch in (("det", None), ("sac", None), ("uniform", None), ("det", OFF_WIDE)):
+        off, off_ls = seeded_offpolicy_actor(obs, 1, mode == "sac", dev, arch)
+        if mode == "uniform":   # no actor: the step, the demand and one uniform word
+            b = bound(BO * (5 + 4 * T) * 4,
+                      BO * T * (step + nv_policy_draw_ops(params, False) + 3))
+        else:
+            n_bytes, per_step, horizon, weights = offpolicy_work(
+                "rollout_traj_nv_offpolicy", params, obs, 1, mode)
+            if arch is not None:   # the (512, 512) trunk in place of offpolicy_work's
+                wide_dims = [obs, *arch, 1]
+                per_step += mlp_ops(wide_dims) - mlp_ops([obs, *OFF_ARCH, 1])
+                weights = sum(a * b + b for a, b in zip(wide_dims, wide_dims[1:])) * 4
+            b = bound(BO * n_bytes + weights, BO * horizon * per_step)
+        key = f"K28 {mode}" + (" wide" if arch else "")
+        runs[key] = ((ek.rollout_traj_nv_offpolicy, params, off, off_ls, SEED, BO, mode,
+                      "relu", dev), b)
+    out = {}
+    for name, ((fn, *args), (b_ms, b_by)) in runs.items():
+        out[name] = (cuda_time(fn, *args, warmup=1, iters=3)["best_ms"], b_ms, b_by)
+    del econ, acts, dems
+    torch.cuda.synchronize()
+    return out
+
+
+def nv_caps_phases(dev, wrappers, smi, err, logs):
+    """Phase 56: Newsvendor at any lead time. The plans (``nv_caps_plans``)
+    and the column instances' frames (``nv_caps_frames``), the kernels
+    against their plain versions on the three configurations
+    (``nv_caps_checks``), the counted path on NV-lt60 (``nv_caps_main_path``)
+    and each kernel's time there beside its bound (``nv_caps_times``). The
+    turns at lead time 5 with the parent design run alone:
+    tools/nv_caps_sweep.py. Returns (launches, summary)."""
+    import torch
+    t0 = time.perf_counter()
+    params_of = {name: nv_caps_params(name) for name in NV_CAPS_CONFIGS}
+    for x in nv_caps_plans(params_of, dev):
+        print(f"[56 nv plans] {x}", flush=True)
+    print(f"[56 nv frames] {nv_caps_frames(logs)}", flush=True)
+    e, lines = nv_caps_checks(dev, params_of)
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0.0), v)
+    for x in lines:
+        print(f"[56 nv checks] {x}", flush=True)
+    print(f"[56 nv checks] {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, path_lines, summary = nv_caps_main_path(dev, wrappers, smi, params_of["NV-lt60"])
+    for x in path_lines:
+        print(f"[56 nv path] {x}", flush=True)
+    t0 = time.perf_counter()
+    times = nv_caps_times(dev, params_of["NV-lt60"])
+    summary["times"] = times
+    env_steps = NV_CAPS_MAIN_LANES * NV_CAPS_EPISODES * params_of["NV-lt60"].step_limit
+    print("[56 nv times] NV-lt60: " + "; ".join(
+        f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
+        for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
+    print(f"[56 nv times] K16 at {NV_CAPS_MAIN_LANES} x {NV_CAPS_EPISODES} x "
+          f"{params_of['NV-lt60'].step_limit}: lead time 60 "
+          f"{env_steps / times['K16'][0] * 1e3:.6g} env-steps/s, lead time 5 "
+          f"{env_steps / times['K16 lead time 5'][0] * 1e3:.6g} "
+          f"({times['K16'][0] / times['K16 lead time 5'][0]:.2f}x the time); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
     return launches, summary
 
@@ -6671,22 +7096,11 @@ def main() -> int:
     print(f"[1 device] {kind}, {torch.cuda.device_count()} card(s); nvidia-smi: "
           f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build (and, all at once, phase 53's parent design of the NetInvMgmt
-    # kernels, tools/net_graph_parent/, and phase 54's of the actor kernels,
-    # tools/actor_parent/)
+    # 2. build
     t0 = time.perf_counter()
-    net_graph_sweep = graph_sweep_tool()
-    parent_jobs = net_graph_sweep.start_parent_build()
-    actor_sweep = actor_sweep_tool()
-    actor_jobs = actor_sweep.start_parent_build()
-    im_caps_sweep = im_caps_sweep_tool()
-    im_caps_jobs = im_caps_sweep.start_parent_build()
     logs = _build.build()
     for lib in _build.SIGNATURES:
         _build.library(lib)
-    parent_libs = net_graph_sweep.finish_parent_build(parent_jobs)
-    actor_parent_libs = actor_sweep.finish_parent_build(actor_jobs)
-    im_caps_parent_libs = im_caps_sweep.finish_parent_build(im_caps_jobs)
     ptxas = [ln.split("info    :")[-1].strip() for out in logs.values()
              for ln in out.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -7493,15 +7907,17 @@ def main() -> int:
     launches_bench, bench_summary = bench_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_bench[name] for name in wrappers}
 
-    launches_graph, _, graph_summary = graph_phases(dev, wrappers, smi, err, parent_libs)
+    launches_graph, _, graph_summary = graph_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_graph[name] for name in wrappers}
 
-    launches_actor, actor_summary = actor_phases(dev, wrappers, smi, err, actor_parent_libs)
+    launches_actor, actor_summary = actor_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_actor[name] for name in wrappers}
 
-    launches_im, im_caps_summary = im_caps_phases(dev, wrappers, smi, err, logs,
-                                                  im_caps_parent_libs)
+    launches_im, im_caps_summary = im_caps_phases(dev, wrappers, smi, err, logs)
     launches = {name: launches[name] + launches_im[name] for name in wrappers}
+
+    launches_nv, nv_caps_summary = nv_caps_phases(dev, wrappers, smi, err, logs)
+    launches = {name: launches[name] + launches_nv[name] for name in wrappers}
 
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
@@ -7520,12 +7936,15 @@ def main() -> int:
     rows[6]["random"] = {"ms": k7r_t["best_ms"], "kernel_ms": k7_alone_ms["random"]}
     rows[12]["kernel_ms"] = k13_alone_ms["streamed"]   # K13: the row's numbers are streamed
     rows[12]["random"] = {"ms": k13r_t["best_ms"], "kernel_ms": k13_alone_ms["random"]}
-    # the chain route's kernels: phase 55's times on IM-chain12-lt40 beside the row's
+    # the chain route's kernels: phase 55's times on IM-chain12-lt40 beside the
+    # row's; the Newsvendor kernels: phase 56's on NV-lt60
     for row in rows:
-        key = IM_CAPS_ROWS.get(row["name"])
-        if key:
-            ms, b_ms, b_by = im_caps_summary["times"][key]
-            row["im_chain12_lt40"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        for table, summ, label in ((IM_CAPS_ROWS, im_caps_summary, "im_chain12_lt40"),
+                                   (NV_CAPS_ROWS, nv_caps_summary, "nv_lt60")):
+            key = table.get(row["name"])
+            if key:
+                ms, b_ms, b_by = summ["times"][key]
+                row[label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card
@@ -7543,6 +7962,7 @@ def main() -> int:
     print(json.dumps({"graph_main_path": graph_summary}))
     print(json.dumps({"actor_main_path": actor_summary}))
     print(json.dumps({"im_caps_main_path": im_caps_summary}))
+    print(json.dumps({"nv_caps_main_path": nv_caps_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

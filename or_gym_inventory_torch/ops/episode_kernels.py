@@ -2613,7 +2613,10 @@ rollout_traj_im_lstm.launches = 0
 
 # =============================================== Newsvendor kernels K13-K17
 
-NV_MAX_L = 32                # the pipeline ring's depth (csrc/nv_step.cuh)
+# the local ring's slots and K13's register instances (csrc/nv_step.cuh):
+# past this lead time K13, K14 and K16 keep the pipeline in a thread's column
+# of shared memory (their column instances)
+NV_MAX_L = 32
 NV_ECON_PERIOD = 0xFFFFFFFF  # the period index of the reset's five words
 
 
@@ -2660,103 +2663,156 @@ class _NvParams(ctypes.Structure):
 @dataclasses.dataclass(frozen=True)
 class NvTablePlan:
     """K14-K17's launch: ``threads`` a block, ``bytes`` of dynamic shared
-    memory a block (the [k][thread] table of the K suffix sums), resident
-    ``blocks_per_sm``; ``table`` False picks the linear count instead."""
+    memory a block for the stepping instances (the [k][thread] table of the
+    K suffix sums, then, past NV_MAX_L, ``ring`` words of pipeline a
+    thread), resident ``blocks_per_sm``; ``table`` False picks the linear
+    count instead."""
     threads: int
     bytes: int
     blocks_per_sm: int
     table: bool
+    ring: int = 0
 
 
 # a block of 256 threads launches at any register count (65,536 / 256)
 _NV_TABLE_MAX_THREADS = 256
 # registers a thread of K13-K17: the most ptxas -v reports for an instance
-# of k_nv_episodes (80-96 on sm_90a); an SM's 65,536 registers go to warps
-# in whole allocations of 32 x this (a multiple of 8)
+# of k_nv_episodes (80-96 on sm_90a), and for its column instances (96-98;
+# chip_smoke.py checks both); an SM's 65,536 registers go to warps in whole
+# allocations of 32 x this, rounded up to a multiple of 8
 _NV_TABLE_REGS = 96
+_NV_COLUMN_REGS = 98
 REGS_PER_SM = 65_536
 
 
-def _nv_table_plan(K: int) -> NvTablePlan:
+def _nv_column_words() -> int:
+    """The words a thread of a block of 32 may take of its shared memory."""
+    return SMEM_OPTIN_BYTES // (4 * 32)
+
+
+def _nv_best_block(words: int, table: bool, ring: int) -> NvTablePlan:
     """The block size, among multiples of 32 up to 256, at which an SM holds
-    the most threads with a table of ``K`` floats a thread (the smallest
+    the most threads of ``words`` words of shared memory each (the smallest
     such block, for the fullest last wave), counting the SM's shared
-    memory, registers (``_NV_TABLE_REGS`` a thread), threads and blocks;
-    for a K whose table a block of 32 cannot hold (K > 1,816: mu_max >
-    ~24,500), the linear count at ``_POLICY_THREADS`` (csrc/launch.cuh
-    kThreads) with no table."""
-    per_thread = 4 * K
-    warps_by_regs = REGS_PER_SM // (32 * _NV_TABLE_REGS)
-    if 32 * per_thread > SMEM_OPTIN_BYTES:
-        blocks = min(warps_by_regs // (_POLICY_THREADS // 32),
-                     THREADS_PER_SM // _POLICY_THREADS, BLOCKS_PER_SM)
-        return NvTablePlan(_POLICY_THREADS, 0, blocks, False)
+    memory, registers (``_NV_TABLE_REGS`` a thread, ``_NV_COLUMN_REGS``
+    for the column instances, ``ring`` > 0), threads and blocks. Raises
+    ValueError where no block of 32 holds them, naming the words."""
+    regs = -(-(_NV_COLUMN_REGS if ring else _NV_TABLE_REGS) // 8) * 8
+    warps_by_regs = REGS_PER_SM // (32 * regs)
     best = None
     for threads in range(32, _NV_TABLE_MAX_THREADS + 1, 32):
-        nbytes = per_thread * threads
+        nbytes = 4 * words * threads
         if nbytes > SMEM_OPTIN_BYTES:
             break
         blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED),
                      warps_by_regs // (threads // 32), THREADS_PER_SM // threads,
                      BLOCKS_PER_SM)
         if best is None or blocks * threads > best.blocks_per_sm * best.threads:
-            best = NvTablePlan(threads, nbytes, blocks, True)
+            best = NvTablePlan(threads, nbytes, blocks, table, ring)
+    if best is None:
+        raise ValueError(f"K14/K16's column of {words} words a thread (a pipeline of {ring}) "
+                         f"fits no block: a block of 32 threads holds {_nv_column_words()} "
+                         "words a thread")
     return best
+
+
+def _nv_table_plan(K: int, ring: int = 0) -> NvTablePlan:
+    """The block of K14-K17 with a table of ``K`` floats a thread and, for
+    the column instances (a lead time past NV_MAX_L), ``ring`` words of
+    pipeline after it (``_nv_best_block``); for a K whose table and ring a
+    block of 32 cannot hold (K > 1,816 with no ring: mu_max > ~24,500), the
+    linear count: at ``_POLICY_THREADS`` (csrc/launch.cuh kThreads) with no
+    shared memory where ``ring`` is 0, else sized to the ring alone. Raises
+    ValueError where not even the ring fits a block of 32."""
+    if 32 * 4 * (K + ring) <= SMEM_OPTIN_BYTES:
+        return _nv_best_block(K + ring, True, ring)
+    if ring:
+        return _nv_best_block(ring, False, ring)
+    warps_by_regs = REGS_PER_SM // (32 * _NV_TABLE_REGS)
+    blocks = min(warps_by_regs // (_POLICY_THREADS // 32), THREADS_PER_SM // _POLICY_THREADS,
+                 BLOCKS_PER_SM)
+    return NvTablePlan(_POLICY_THREADS, 0, blocks, False)
 
 
 @dataclasses.dataclass(frozen=True)
 class NvK13Plan:
     """K13's launch: two staging buffers of ``chunk`` periods of
     ``per_period`` words (the order, then the demand; ``_random`` the demand
-    alone), ``words`` a thread, [word][thread] in dynamic shared memory at
-    ``threads`` a block: ``bytes`` a block, resident ``blocks_per_sm`` by
-    shared memory, threads and blocks (the pipeline is in registers)."""
+    alone), then, for the column instance (a lead time past NV_MAX_L),
+    ``ring`` words of pipeline: ``words`` a thread, [word][thread] in
+    dynamic shared memory at ``threads`` a block: ``bytes`` a block,
+    resident ``blocks_per_sm`` by shared memory, threads and blocks (within
+    NV_MAX_L the pipeline is in registers)."""
     threads: int
     words: int
     per_period: int
     chunk: int
     bytes: int
     blocks_per_sm: int
+    ring: int = 0
 
 
 # K13's periods a staging buffer and an unrolled chunk (kK13Chunk of
 # csrc/nv_episode.cu), and its block: launch.cuh's kThreads. On an H100, 64
 # and 256 threads ran within 2% of 128 (tools/k13_sweep.py, the shared-memory
-# form).
+# form). The column instance takes the first of NV_K13_COLUMN_THREADS whose
+# block holds its columns.
 NV_K13_CHUNK = 8
 NV_K13_THREADS = 128
+NV_K13_COLUMN_THREADS = (NV_K13_THREADS, 64, 32)
 
 
-@functools.lru_cache(maxsize=16)
-def _nv_k13_plan(random: bool = False, threads: int = NV_K13_THREADS) -> NvK13Plan:
+@functools.lru_cache(maxsize=64)
+def _nv_k13_plan(random: bool = False, threads: int = NV_K13_THREADS,
+                 ring: int = 0) -> NvK13Plan:
     """K13's shared memory: 2 x ``NV_K13_CHUNK`` periods of 2 words a
-    thread (1 for ``random``) at ``threads`` a block. Raises ValueError
-    where no block holds it."""
+    thread (1 for ``random``) and ``ring`` words of pipeline at ``threads``
+    a block. Raises ValueError where no block holds it."""
     per_period = 1 if random else 2
-    words = 2 * NV_K13_CHUNK * per_period
+    words = 2 * NV_K13_CHUNK * per_period + ring
     nbytes = 4 * words * threads
     if threads < 32 or threads % 32 or threads > 1024 or nbytes > SMEM_OPTIN_BYTES:
         raise ValueError(f"K13 launches whole warps, at most 1,024 threads and "
                          f"{SMEM_OPTIN_BYTES} bytes a block; got {threads} threads, {nbytes} B")
     blocks = min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED), THREADS_PER_SM // threads,
                  BLOCKS_PER_SM)
-    return NvK13Plan(threads, words, per_period, NV_K13_CHUNK, nbytes, blocks)
+    return NvK13Plan(threads, words, per_period, NV_K13_CHUNK, nbytes, blocks, ring)
+
+
+def _nv_k13_launch(ring: int) -> NvK13Plan:
+    """K13's plan for a pipeline of ``ring`` words (0: the register
+    instances): ``_nv_k13_plan`` at NV_K13_THREADS, or for the column
+    instance at the first of NV_K13_COLUMN_THREADS whose block holds the
+    streamed mode's columns (the larger; ``_random``'s fit the same block).
+    Raises ValueError where no block of 32 holds them, naming the words."""
+    words = 4 * NV_K13_CHUNK + ring
+    for threads in (NV_K13_COLUMN_THREADS if ring else (NV_K13_THREADS,)):
+        if 4 * words * threads <= SMEM_OPTIN_BYTES:
+            return _nv_k13_plan(False, threads, ring)
+    raise ValueError(f"K13's column of {words} words a thread (two buffers of {NV_K13_CHUNK} "
+                     f"periods and a pipeline of {ring}) fits no block: a block of 32 threads "
+                     f"holds {_nv_column_words()} words a thread")
 
 
 @functools.lru_cache(maxsize=32)
 def _nv_plan(params: nv.NewsvendorParams, device: str):
     """A launch's host-built arguments, built once per (params, device): the
     params struct (with K14-K17's ``_nv_table_plan`` and K13's
-    ``_nv_k13_plan``), the f32 gamma^t table (as a list and on ``device``) and
-    the lgamma pairs on ``device``. Raises ValueError for a lead time beyond
-    the ring's depth."""
-    if params.lead_time > NV_MAX_L:
-        raise ValueError(f"lead_time={params.lead_time}: the CUDA kernels' pipeline "
-                         f"ring holds at most {NV_MAX_L}")
+    ``_nv_k13_launch``), the f32 gamma^t table (as a list and on
+    ``device``) and the lgamma pairs on ``device``. Any lead time runs:
+    past NV_MAX_L the kernels keep the pipeline in a column of shared
+    memory, sized here. Raises ValueError, naming the words needed and held,
+    where a block of 32 threads holds no column (K13's, the largest, 32 + L
+    words: a lead time past 1,784)."""
+    L = params.lead_time
+    ring = L if L > NV_MAX_L else 0   # the column instances' pipeline, words a thread
     Wb, K, lgam = nv_poisson.window(params)
-    launch = _nv_table_plan(K)
-    k13 = _nv_k13_plan()
-    st = _NvParams(L=params.lead_time, K=K, threads=launch.threads, table=int(launch.table),
+    try:
+        k13 = _nv_k13_launch(ring)
+        launch = _nv_table_plan(K, ring)
+    except ValueError as e:
+        raise ValueError(f"Newsvendor lead_time={L}: {e}") from None
+    st = _NvParams(L=L, K=K, threads=launch.threads, table=int(launch.table),
                    kc_max=len(lgam) - 1, wb=float(Wb),
                    max_inv=params.max_inventory, max_order=params.max_order_quantity,
                    p_max=params.p_max, h_max=params.h_max, k_max=params.k_max,
@@ -2870,9 +2926,10 @@ def episode_returns_nv(params: nv.NewsvendorParams, econ: torch.Tensor,
     [0, max_order] as the reference clips them, and ``demands``
     (step_limit, B), on one device. K13: on CUDA tensors one thread per env
     runs the whole episode, its pipeline in registers (an instance per lead
-    time) and its streams staged into shared memory ahead of the step
-    (csrc/nv_episode.cu ``k_nv_returns``, laid out by ``_nv_k13_plan``); on
-    CPU tensors the plain version runs."""
+    time up to NV_MAX_L; past it the column instance, the pipeline in the
+    thread's column of shared memory) and its streams staged into shared
+    memory ahead of the step (csrc/nv_episode.cu ``k_nv_returns``, laid out
+    by ``_nv_k13_launch``); on CPU tensors the plain version runs."""
     return _nv_returns_call(episode_returns_nv, params, econ, actions, demands, None)
 
 
@@ -2961,7 +3018,8 @@ def episode_returns_nv_reset_fused(params: nv.NewsvendorParams, seed, batch: int
     economics, the orders and the per-lane Poisson(mu) demand are all drawn
     in the kernel, gamma^t-discounted. K16: one thread per (episode, lane)
     (csrc/nv_episode.cu ``k_nv_episodes``, the Poisson table in shared
-    memory, the block sized by ``_nv_table_plan``). Returns (batch,) for
+    memory, the block sized by ``_nv_table_plan``; past NV_MAX_L
+    ``k_nv_episodes_column``, the pipeline after the table). Returns (batch,) for
     episodes_per_lane=1, else (episodes_per_lane, batch), episode-major.
     This is ``vector.fast_episodes.random_episode_returns``' Newsvendor
     path."""
@@ -3338,6 +3396,12 @@ def rollout_traj_nv(params: nv.NewsvendorParams, actor, log_std, seed, batch: in
 rollout_traj_nv.launches = 0
 
 
+def _nv_wide_extra(params: nv.NewsvendorParams) -> int:
+    """Floats of shared memory K28's wide route keeps a block beside the
+    activations: the 32 lanes' pipelines, L rows of ``_WIDE_LANES``."""
+    return _WIDE_LANES * params.lead_time
+
+
 def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed, batch: int,
                               policy: str = "det", act_name: str = "relu", device=None):
     """``rollout_traj_nv`` under the off-policy heads (see
@@ -3363,13 +3427,14 @@ def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed,
     if dev.type == "cpu":
         _head_dims(actor, params.obs_dim, 1, policy)
         return _rollout_traj_nv_plain(params, actor, std, seed, batch, dev, policy, act_name)
+    plan = _nv_plan(params, _plan_key(dev))
     T = params.step_limit
     relu = int(act_name == "relu")
     packed = _pack_cluster_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params), T,
                                  params.obs_dim + 1, True, dev)
     if packed is None:   # the wide route: no cluster tile holds the actor and the demand
         st, flat = _pack_wide_actor(actor, std, params.obs_dim, 1, policy, _nv_half_hi(params),
-                                    dev)
+                                    dev, _nv_wide_extra(params))
         fn = "nv_rollout_traj_wide" + _wide_launch(st, batch, dev)
     else:
         fn = "nv_rollout_traj_cluster"
@@ -3377,7 +3442,6 @@ def rollout_traj_nv_offpolicy(params: nv.NewsvendorParams, actor, log_std, seed,
         with torch.cuda.device(dev):
             _set_cluster_grid(st, batch, "nv_policy", "nv_rollout_traj_cluster_occupancy",
                               (relu,), dev)
-    plan = _nv_plan(params, _plan_key(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(econ=torch.empty((5, batch), **f32), orders=torch.empty((T, batch), **f32),
                raw=torch.empty((T, 1, batch), **f32), reward=torch.empty((T, batch), **f32),

@@ -74,17 +74,26 @@ def test_the_wrapper_carries_the_plan(L):
 def test_an_instance_for_each_mode_and_lead_time():
     """nv_episode.cu holds K13 as one template over RANDOM and L, dispatched
     to the instance for the params' L from 0 to NV_MAX_L in both modes, its
-    pipeline a shift register, its streams copied by cp.async in chunks of
-    NV_K13_CHUNK periods; the C entry keeps its parameters."""
+    pipeline a shift register, and past NV_MAX_L to the column instance (L =
+    kK13Column), its pipeline in the thread's column after the staging
+    buffers; its streams copied by cp.async in chunks of NV_K13_CHUNK
+    periods; the C entry keeps its parameters."""
     text = (CSRC / "nv_episode.cu").read_text()
-    body = text[text.index("__global__ void k_nv_returns"):text.index("template <bool ECON_IN")]
+    body = text[text.index("__global__ void k_nv_returns"):
+                text.index("template <bool ECON_IN, bool DUMP, bool TABLE>\n__global__")]
     assert "template <bool RANDOM, int L>\n__global__ void k_nv_returns" in text
     assert "nv_step_shift<L>(" in body and "cp_async4(" in body
-    assert "NvEpisode" not in body and "NvSharedRing" not in body
+    assert "NvEpisode" not in body
+    assert "constexpr int kK13Column = -1;" in text
+    assert ("if constexpr (L == kK13Column)\n        reward = nv_step_ring(p, col, head"
+            in body)
+    assert "const NvSharedRing col{stage + 2 * kK13Chunk * kWords * n, n};" in body
     assert f"constexpr int kK13Chunk = {tek.NV_K13_CHUNK};" in text
     for random in ("true", "false"):
         assert f"launch_k13<{random}>(*p" in text
-    assert "if constexpr (L < NV_MAX_L)\n    return launch_k13<RANDOM, L + 1>" in text
+    assert "if constexpr (L == NV_MAX_L)\n    return launch_k13<RANDOM, kK13Column>" in text
+    assert "else if constexpr (L != kK13Column)\n    return launch_k13<RANDOM, L + 1>" in text
+    assert "(L == kK13Column ? p.L : 0)" in text
     assert "kernel<<<blocks, p.k13_threads, smem, stream>>>" in text
     assert int(re.search(r"#define NV_MAX_L (\d+)", (CSRC / "nv_step.cuh").read_text())
                .group(1)) == tek.NV_MAX_L

@@ -257,8 +257,11 @@ def test_wrappers_check_inputs_and_count_no_launches_on_cpu():
         tek.episode_returns_nv_fused(tp, econ[:4], 1)
     with pytest.raises(ValueError, match="episodes_per_lane"):
         tek.episode_returns_nv_reset_fused(tp, 1, 8, episodes_per_lane=0, device=CPU)
-    with pytest.raises(ValueError, match="lead_time"):
-        tek._nv_plan(tnv.default_params(lead_time=33), CPU)
+    # past NV_MAX_L the column route plans; past a block of 32 threads'
+    # columns (K13's 32 + L words) every wrapper's plan raises, naming them
+    assert tek._nv_plan(tnv.default_params(lead_time=33), CPU)["struct"].L == 33
+    with pytest.raises(ValueError, match="lead_time=1785: K13's column of 1817 words"):
+        tek._nv_plan(tnv.default_params(lead_time=1785), CPU)
     # the learned-policy evaluation runs plain K19 on the CPU, and counts nothing
     actor = ((torch.zeros(10, 4), torch.zeros(4, 1)), (torch.zeros(4), torch.zeros(1)))
     launches = tek.episode_returns_nv_policy.launches

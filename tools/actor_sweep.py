@@ -44,7 +44,9 @@ whether the fixed class is still needed beside the general one.
     python3 tools/actor_sweep.py [--rounds 3] [--kernels K4,K5,...] [--general]
 
 Without a CUDA card it exits 1. ``chip_smoke.py`` (phase 54) calls
-``start_parent_build`` beside the package's build and ``turns``, both ways.
+``turns`` with ``general=True``; the turns against the parent design run
+alone. tools/im_caps_sweep.py and tools/nv_caps_sweep.py take their policy
+kernels' cases from ``cases``.
 """
 
 from __future__ import annotations
@@ -278,7 +280,7 @@ def cases(dev, parent_libs, names=KERNELS, general=False) -> dict:
     fams = {"K27": ("im_policy", "im_rollout_traj", obs, imp.m1, ek._half_c(imp), T_im, obs,
                     False, ek._K27_LAYOUT, (1, 1), 0, False),
             "K28": ("nv_policy", "nv_rollout_traj", nvp.obs_dim, 1, ek._nv_half_hi(nvp), T_nv,
-                    nvp.obs_dim + 1, True, ek._K27_LAYOUT, (1,), 0, False),
+                    nvp.obs_dim + 1, True, ek._K27_LAYOUT, (1,), ek._nv_wide_extra(nvp), False),
             "K29": ("net_policy", "net_rollout_traj", T.obs_dim, T.n_reorder,
                     [ns._half_hi(T)] * T.n_reorder, steps, ns._shared_layout(T)[0].words,
                     False, ns._net_cluster_layout(T), (1, int(tp.small is not None)),

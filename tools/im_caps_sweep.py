@@ -35,8 +35,8 @@ with the card's name and power limit, and a JSON line of all of it.
 
     python3 tools/im_caps_sweep.py [--rounds 3] [--kernels K7,K8,...]
 
-Without a CUDA card it exits 1. ``chip_smoke.py`` (phase 55) calls
-``start_parent_build`` beside the package's build and ``turns``.
+Without a CUDA card it exits 1. It runs alone; ``chip_smoke.py`` (phase
+55) no longer builds the parent or takes these turns.
 """
 
 from __future__ import annotations

@@ -41,9 +41,9 @@ default graph (records staged in shared memory), those records read
 through the read-only path from device memory, and the small class
 through the large class's step body.
 
-Without a CUDA card it exits 1. ``chip_smoke.py`` (phase 53) calls
-``start_parent_build`` with the package's build and ``turns`` for K2, K1,
-K5, K4 and K29.
+Without a CUDA card it exits 1. It runs alone: ``chip_smoke.py`` no longer
+builds the parent or takes these turns (phase 53 times the graphs' kernels
+alone).
 """
 
 from __future__ import annotations
