@@ -161,7 +161,7 @@ launch counter set to 0 just before it and read just after:
   teacher-forced against the head in float64), and after it each one's
   time beside its bound (the turns with the parent design at the default
   shapes run alone: tools/im_caps_sweep.py);
-- Newsvendor at any lead time (phase 56, last before the mesh; the column
+- Newsvendor at any lead time (phase 56; the column
   instances of K13, K14 and K16 past NV_MAX_L, the lanes' pipelines in
   shared memory on K28's wide route): on NV-lt60 (lead time 60, 120
   periods; obs 65) ``random_episode_returns`` at 1,048,576 x 4 (K16 once),
@@ -176,7 +176,24 @@ launch counter set to 0 just before it and read just after:
   the cluster and det on the wide route ((512, 512)) at 1,024 lanes,
   teacher-forced and replayed through the plain step chain bit for bit;
   after it each one's time on NV-lt60 beside its bound (the turns with the
-  parent design at lead time 5 run alone: tools/nv_caps_sweep.py).
+  parent design at lead time 5 run alone: tools/nv_caps_sweep.py);
+- the LSTM actor at any encoder depth, encoder width and hidden width
+  (phase 57, last before the mesh; csrc/lstm.cuh ``LstmG``, the kernels of
+  csrc/im_lstm_any.cu): on LSTM-256 (no encoder, hidden 256), LSTM-deep90
+  (six tanh layers of 64, hidden 90), LSTM-wide (encoder (256, 256), hidden
+  512: the workspace route) and IM-chain12-lt40 x LSTM (encoder 64, hidden
+  256: the chain route), recurrent PPO ``rollout="kernel"`` for 2 updates
+  at 4,096 envs (K24 each), ``lstm_policy_episode_returns`` of the trained
+  actor (K22; 262,144 lanes on LSTM-256, 65,536 on the others) and K23's
+  dump on its seed at 65,536, no plain version; before it the plans, each
+  configuration's K22-K24 by phase 25's gates (K22 at the path's lanes, K23
+  and K24 at 65,536, NaN weights at 1,024), and the benchmark actor
+  through ``LstmG`` in shared memory and on the workspace equal to the
+  fixed class bit for bit; after it each one's time beside its bound (the
+  turns with the parent design run alone: tools/lstm_caps_sweep.py), and
+  the seeded evaluators on laws past the table cap (Poisson 50,000 on
+  InvManagement, randint(0, 100,000) on a NetInvMgmt link) at 16,384
+  lanes: the law's mean, lanes alone = in the batch, card = CPU.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -2593,12 +2610,13 @@ def nv_reward_check(dev, params, seed=0):
 
 # ------------------------------------- InvManagement recurrent PPO (slice 6)
 
-def seeded_lstm_actor(params, dev):
+def seeded_lstm_actor(params, dev, encoder=LSTM_ENCODER, hidden=LSTM_HIDDEN):
     """Phase 25's actor: an LSTMActorCritic of the benchmark widths (encoder
-    64, hidden 128) drawn from its own initialisation, its mean head scaled
-    by 30 so that the actions move across their range, and obs statistics
-    with mean ~50 and std ~20 folded into the encoder's first layer.
-    Returns (folded actor, log_std) on ``dev``."""
+    64, hidden 128; phase 57 passes others) drawn from its own
+    initialisation, its mean head scaled by 30 so that the actions move
+    across their range, and obs statistics with mean ~50 and std ~20 folded
+    into the encoder's first layer (none without an encoder, as the fold
+    keeps none). Returns (folded actor, log_std) on ``dev``."""
     import torch
 
     from or_gym_inventory_torch.agents import networks, ppo
@@ -2607,8 +2625,7 @@ def seeded_lstm_actor(params, dev):
     from or_gym_inventory_torch.ops import episode_kernels as ek
     g = torch.Generator().manual_seed(SEED)
     D = im.observation_space(params).shape[0]
-    model = networks.LSTMActorCritic(D, params.m1, hidden=LSTM_HIDDEN, encoder=LSTM_ENCODER,
-                                     generator=g)
+    model = networks.LSTMActorCritic(D, params.m1, hidden=hidden, encoder=encoder, generator=g)
     with torch.no_grad():
         model.mean.weight.mul_(30.0)
     rms = ppo.RunningMeanStd(mean=50.0 + 5.0 * torch.randn(D, generator=g),
@@ -7054,6 +7071,386 @@ def nv_caps_phases(dev, wrappers, smi, err, logs):
     return launches, summary
 
 
+# phase 57: the LSTM actor at any encoder depth, encoder width and hidden
+# width (csrc/lstm.cuh LstmG; csrc/im_lstm.cu k_im_lstm_returns_g and
+# k_im_lstm_traj_g through the *_any and *_chain_any entry points), and the
+# seeded evaluators' wide demand laws. A configuration: (IM_CAPS_CONFIGS'
+# params, or None for InvManagementBacklogEnv's defaults; the encoder; the
+# hidden width; where the general class's regions lie, by the bytes of
+# _lstm_plan: "shared" or "workspace"; K22's lanes on the path)
+LSTM_ANY_CONFIGS = {
+    "LSTM-256": (None, (), 256, "shared", 262_144),
+    "LSTM-deep90": (None, (64,) * 6, 90, "shared", 65_536),
+    "LSTM-wide": (None, (256, 256), 512, "workspace", 65_536),
+    "IM-chain12-lt40 x LSTM": ("IM-chain12-lt40", (64,), 256, "shared", 65_536),
+}
+LSTM_ANY_LANES = 65_536     # K23 on the path; the checks' K23 and K24
+LSTM_ANY_ENVS = 4_096       # recurrent PPO's envs on the path (K24)
+LSTM_ANY_UPDATES = 2
+LSTM_ANY_NAN_LANES = 1_024
+# the seeded evaluators' wide laws (past the 4,096-entry table): InvManagement's
+# Poisson and one NetInvMgmt retail link's randint, at A20_SEEDS lanes
+A20_MU, A20_RANDINT = 50_000.0, (0, 100_000)
+A20_SEEDS = 16_384
+A20_PERIODS = 10
+
+
+def lstm_any_params(name):
+    from or_gym_inventory_torch.envs import inv_management as im
+    base = LSTM_ANY_CONFIGS[name][0]
+    return im.default_params() if base is None else im_caps_params(base)
+
+
+def lstm_any_plan(name, params, actor, dev):
+    """A configuration's plan line: the class, the tile and where the
+    regions lie, the bytes; raises unless the general class takes the actor
+    with its regions where LSTM_ANY_CONFIGS says."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    _, encoder, hidden, home, _ = LSTM_ANY_CONFIGS[name]
+    plan = ek._im_plan(params, ek._plan_key(dev))
+    rec = ek._im_record_words(params.m1) if plan["chain"] else 0
+    obs = im.observation_space(params).shape[0]
+    st, flat = ek._pack_lstm_actor(actor, None, obs, params.m1, ek._half_c(params), dev, rec)
+    got = "workspace" if getattr(st, "ws_floats", 0) else "shared"
+    if not isinstance(st, ek._LstmG) or got != home:
+        raise AssertionError(f"{name}: {type(st).__name__[1:]} in {got}, not LstmG in {home}")
+    dims = [obs] + list(encoder)
+    fixed_bytes = [4 * ek._lstm_plan(dims, hidden, params.m1, t).floats for t in ek._LSTM_TILES]
+    return (f"{name}: obs {obs}, encoder {encoder}, hidden {hidden}, {params.m1} actions, "
+            f"{params.periods} periods, {'chain' if plan['chain'] else 'fixed'} route; LstmG "
+            f"{st.lanes} lanes x {st.warps_m} warps, C beside H, regions in {got} "
+            + (f"({4 * st.ws_floats} B a block's slice)" if st.ws_floats else
+               f"({4 * st.smem_floats} B + {4 * rec} B of records)")
+            + f"; _lstm_plan's bytes (no C) {fixed_bytes[0]} at 64 lanes, {fixed_bytes[1]} at "
+            f"32; packed actor {4 * flat.numel()} B")
+
+
+def lstm_any_gates(label, params, actor, log_std, b22, dev):
+    """K22-K24 on the general class by phase 25's gates: K22 at ``b22``
+    lanes and K23 at LSTM_ANY_LANES against their plain versions (K23's
+    demand bit for bit, its returns K22's first lanes bit for bit, K22's
+    returns and K23's actions by the share of lanes), K7 on K23's streams
+    K22's within 1e-5/1e-3, K24 at LSTM_ANY_LANES against plain by the share
+    of lanes, its demand K23's, the env step chain its inv exactly; a NaN
+    weight (0x7fffffff) in wx, wh and the first encoder layer: K23's actions
+    and demand plain's, K24's raws NaN. Returns ({kernel: max |diff|},
+    line)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    T, m1, BL = params.periods, params.m1, LSTM_ANY_LANES
+    k22 = ek.episode_returns_im_lstm(params, actor, SEED, b22, dev)
+    r23, a23, d23 = ek.sample_lstm_streams_debug_im(params, actor, SEED, BL, dev)
+    want, want_a, want_d = ek._im_lstm_plain(params, actor, SEED, b22, dev, True)
+    exact(f"K23 {label} demand", d23, want_d[..., :BL])
+    exact(f"K23 {label} returns vs K22", r23, k22[:BL])
+    sh_r, e22 = lane_share(f"K22 {label} vs plain", k22, want)
+    sh_a, e23 = lane_share(f"K23 {label} actions vs plain", a23.reshape(T * m1, BL),
+                           want_a[..., :BL].reshape(T * m1, BL))
+    del want, want_a, want_d
+    close(f"K7 on K23's streams vs K22, {label}", ek.episode_returns_im(params, a23, d23),
+          k22[:BL], 1e-5, 1e-3)
+    tr, _, shares = k24_against_plain(params, actor, log_std, BL, dev, label)
+    exact(f"K24 {label} demand vs K23", tr["demand"], d23)
+    step_chain_exact(params, tr, f"K24 {label}", dev)
+    nan = torch.tensor([0x7FFFFFFF], dtype=torch.int32).view(torch.float32).to(dev)[0]
+    wheres = ("wx", "wh") + (("enc",) if actor["enc"] else ())
+    for where in wheres:
+        bad = {k: ([(W.clone(), b.clone()) for W, b in v] if k == "enc" else v.clone())
+               for k, v in actor.items()}
+        if where == "enc":
+            bad["enc"][0][0][5, 7] = nan
+        else:
+            bad[where][10, 3] = nan
+        n = LSTM_ANY_NAN_LANES
+        _, a, d = ek.sample_lstm_streams_debug_im(params, bad, SEED, n, dev)
+        _, want_a, want_d = ek._im_lstm_plain(params, bad, SEED, n, dev, True)
+        exact(f"K23 {label} actions with a NaN weight in {where}", a, want_a)
+        exact(f"K23 {label} demand with a NaN weight in {where}", d, want_d)
+        got = ek.rollout_traj_im_lstm(params, bad, log_std, SEED, n, device=dev)
+        if not (torch.isnan(got["raw"]).all() and int(got["actions"].abs().max()) == 0):
+            raise AssertionError(f"K24 {label} with a NaN weight in {where}: raws not NaN")
+    err = {"episode_returns_im_lstm": e22, "sample_lstm_streams_debug_im": max(e22, e23),
+           "rollout_traj_im_lstm": max(e for _, e in shares.values())}
+    return err, (f"{label}: K22 at {b22} x {T}, K23 at {BL}: K23 demand bit for bit, K23 = "
+                 f"K22's lanes bit for bit, lanes agreeing with plain {sh_r:.4%} (K22), "
+                 f"{sh_a:.4%} (K23's actions); K24 at {BL} "
+                 + ", ".join(f"{k} {sh:.4%}" for k, (sh, _) in shares.items())
+                 + "; K7 replays K23's streams; the step chain gives K24's inv exactly; a "
+                 f"NaN weight in {', '.join(wheres)}: K23 plain's actions, K24's raws NaN")
+
+
+def lstm_any_classes(dev):
+    """The benchmark actor (encoder 64, hidden 128) through the general
+    class, its regions in shared memory and, with the shared memory a block
+    holds patched to 0, in the workspace on a persistent grid of fewer
+    blocks than tiles, against the fixed class: K23's returns, actions and
+    demand and K24's streams bit for bit at LSTM_ANY_LANES. Returns a
+    line."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    params = im.default_params()
+    actor, log_std = seeded_lstm_actor(params, dev)
+    BL = LSTM_ANY_LANES
+    fixed = ek.sample_lstm_streams_debug_im(params, actor, SEED, BL, dev)
+    ftr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, BL, device=dev)
+    saved = ek._lstm_fixed, ek.SMEM_OPTIN_BYTES
+    grids = {}
+    try:
+        ek._lstm_fixed = lambda *_a: False
+        for home in ("shared", "workspace"):
+            if home == "workspace":
+                ek.SMEM_OPTIN_BYTES = 0
+            st, _ = ek._pack_lstm_actor(actor, None, 33, 3, ek._half_c(params), dev)
+            ek._lstm_launch(st, BL, dev)
+            grids[home] = (st.grid, -(-BL // st.lanes))
+            got = ek.sample_lstm_streams_debug_im(params, actor, SEED, BL, dev)
+            gtr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, BL, device=dev)
+            for k, x, y in zip(("returns", "actions", "demand"), got, fixed):
+                exact(f"K23 general class ({home}) vs fixed, {k}", x, y)
+            for k in gtr:
+                exact(f"K24 general class ({home}) vs fixed, {k}", gtr[k], ftr[k])
+    finally:
+        ek._lstm_fixed, ek.SMEM_OPTIN_BYTES = saved
+    (ws_grid, ws_tiles) = grids["workspace"]
+    if ws_grid >= ws_tiles:
+        raise AssertionError(f"the workspace route's grid {ws_grid} does not walk {ws_tiles} "
+                             "tiles")
+    torch.cuda.synchronize()
+    return (f"the benchmark actor through LstmG at {BL} x 30: in shared memory ({grids['shared'][0]} "
+            f"blocks) and in the workspace ({ws_grid} blocks walking {ws_tiles} tiles), K23's "
+            "returns, actions and demand and K24's streams equal to the fixed class's bit for "
+            "bit")
+
+
+def lstm_any_checks(dev, params_of):
+    """Phase 57's checks: the plans, the general class against the fixed
+    one, and each configuration's gates (``lstm_any_gates``). Returns
+    ({kernel: max |diff|}, lines)."""
+    import torch
+    lines, err = [], {}
+    for name, params in params_of.items():
+        _, encoder, hidden, _, b22 = LSTM_ANY_CONFIGS[name]
+        actor, log_std = seeded_lstm_actor(params, dev, encoder, hidden)
+        lines.append(lstm_any_plan(name, params, actor, dev))
+        e, line = lstm_any_gates(name, params, actor, log_std, b22, dev)
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+        lines.append(line)
+        del actor
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    lines.append(lstm_any_classes(dev))
+    return err, lines
+
+
+def lstm_any_main_path(dev, wrappers, smi, params_of):
+    """Phase 57, counted, on each configuration: recurrent PPO with
+    ``rollout="kernel"`` at the configuration's widths for LSTM_ANY_UPDATES
+    updates at LSTM_ANY_ENVS envs (K24 each), the trained actor's
+    ``lstm_policy_episode_returns`` at the configuration's K22 lanes (K22)
+    and K23's dump on its seed at LSTM_ANY_LANES (K23, its returns K22's
+    lanes bit for bit); every plain version patched to raise. Returns
+    (launches, lines, summary)."""
+    import numpy as np
+    import torch
+
+    from or_gym_inventory_torch.agents import recurrent_ppo as rppo
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.vector import fast_episodes
+    BL, BE, U = LSTM_ANY_LANES, LSTM_ANY_ENVS, LSTM_ANY_UPDATES
+    runs, summary = {}, {}
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        for name, params in params_of.items():
+            _, encoder, hidden, _, b22 = LSTM_ANY_CONFIGS[name]
+            T = params.periods
+            cfg = rppo.RecurrentPPOConfig(num_envs=BE, rollout_steps=T, num_minibatches=8,
+                                          update_epochs=4, hidden=hidden, encoder=encoder,
+                                          rollout="kernel")
+            t1 = time.perf_counter()
+            state, _, metrics = rppo.train(im.ENV, params, cfg,
+                                           torch.Generator(device=dev).manual_seed(SEED),
+                                           U * BE * T, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            actor = ek.fold_lstm_actor(cfg, state.params, state.rms)
+            g = torch.Generator(device=dev).manual_seed(7)
+            g23 = torch.Generator(device=dev)
+            g23.set_state(g.get_state())
+            k22 = fast_episodes.lstm_policy_episode_returns(params, actor, g, b22, dev)
+            r23, _, _ = ek.sample_lstm_streams_debug_im(params, actor,
+                                                        fast_episodes.kernel_seed(g23), BL, dev)
+            runs[name] = (metrics, k22, r23, train_s)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    n = len(params_of)
+    want = {"rollout_traj_im_lstm": n * U, "episode_returns_im_lstm": n,
+            "sample_lstm_streams_debug_im": n}
+    moved = {k: v for k, v in launches.items() if v}
+    if moved != want:
+        raise AssertionError(f"the phase-57 path launched {moved}, not {want}")
+    lines = []
+    for name, (metrics, k22, r23, train_s) in runs.items():
+        exact(f"{name} path: K23 vs K22", r23, k22[:LSTM_ANY_LANES])
+        bad = [k for k, v in metrics.items() if not np.isfinite(v).all()]
+        if bad or len(metrics["update"]) != U or not bool(torch.isfinite(k22).all()):
+            raise AssertionError(f"{name} path: non-finite metrics {bad} or returns")
+        summary[name] = {"rppo_train_s": train_s, "k22_mean": float(k22.double().mean()),
+                         "mean_step_reward": [float(x) for x in metrics["mean_step_reward"]]}
+        lines.append(f"{name}: recurrent PPO {U} updates at {BE} x {params_of[name].periods} "
+                     f"through K24 ({train_s:.2f} s), lstm_policy_episode_returns of the trained "
+                     f"actor at {k22.shape[0]} through K22 (mean {summary[name]['k22_mean']:.6g}), "
+                     f"K23's dump on its seed at {LSTM_ANY_LANES} (= K22 bit for bit)")
+    lines.append(f"no plain version; launches {moved}; {wall:.1f} s on {smi}")
+    summary["wall_s"] = wall
+    return launches, lines, summary
+
+
+def lstm_any_times(dev, params_of):
+    """Phase 57's times: on each configuration K22 at its path lanes, K23 at
+    LSTM_ANY_LANES and K24 at LSTM_ANY_ENVS under the seeded actor, best of
+    3 of the entry point's launches (``cuda_time``), beside the bound by the
+    work model (the gate and encoder products as three TF32 products each,
+    ``lstm_tc_flops``; the rest at FP32, ``lstm_ops``). Returns {config:
+    {K22/K23/K24: (ms, bound ms, bound by)}}."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.utils.profiling import cuda_time
+    out = {}
+    for name, params in params_of.items():
+        _, encoder, hidden, _, b22 = LSTM_ANY_CONFIGS[name]
+        T, m1 = params.periods, params.m1
+        obs = im.observation_space(params).shape[0]
+        tl = len(ek._im_demand_spec(params)[1])
+        actor, log_std = seeded_lstm_actor(params, dev, encoder, hidden)
+        dims = [obs] + list(encoder)
+        tc, ops = lstm_tc_flops(dims, hidden), lstm_ops(dims, hidden, m1) + im_step_ops(params)
+        det = ops + im_policy_draw_ops(params, tl, False)
+        BL, BE = LSTM_ANY_LANES, LSTM_ANY_ENVS
+        traj_bytes = ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4
+        runs = {
+            "K22": ((ek.episode_returns_im_lstm, params, actor, SEED, b22, dev),
+                    tc_bound(b22 * 4, b22 * T, det, tc)[0]),
+            "K23": ((ek.sample_lstm_streams_debug_im, params, actor, SEED, BL, dev),
+                    tc_bound(BL * (1 + T * (m1 + 1)) * 4, BL * T, det, tc)[0]),
+            "K24": ((ek.rollout_traj_im_lstm, params, actor, log_std, SEED, BE, dev),
+                    tc_bound(BE * traj_bytes, BE * T, ops + im_policy_draw_ops(params, tl), tc)[0]),
+        }
+        out[name] = {k: (cuda_time(fn, *args, warmup=1, iters=3)["best_ms"], b_ms, b_by)
+                     for k, ((fn, *args), (b_ms, b_by)) in runs.items()}
+    return out
+
+
+def a20_phase(dev):
+    """Phase 57's seeded evaluators on the card, on laws past the table cap:
+    InvManagement's Poisson(A20_MU) and a NetInvMgmt retail link's
+    randint(A20_RANDINT) beside a table link (two_retail_topology), at
+    A20_SEEDS lanes x A20_PERIODS. The drawn demand's mean within 4 standard
+    errors of the law's; the table link's draws and lanes 0..999 in a batch
+    of their own bit for bit those of the full batch; the card's draws
+    those of the CPU for the first 256 seeds. Returns a line."""
+    import dataclasses
+
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import topology
+    from or_gym_inventory_torch.vector import vecenv
+    seeds = torch.arange(A20_SEEDS, device=dev) * 3 + 4000
+    lo, hi = A20_RANDINT
+    p = net.default_params(topology=topology.two_retail_topology(A20_PERIODS),
+                           num_periods=A20_PERIODS)
+    topo = dataclasses.replace(p.topology, rt_demand=(("randint", lo, hi),)
+                               + p.topology.rt_demand[1:])
+    cases = {
+        "InvManagement Poisson": (im.ENV, im.default_params(periods=A20_PERIODS,
+                                                             dist_param={"mu": A20_MU}),
+                                  "demand_realized", A20_MU, A20_MU),
+        "NetInvMgmt randint": (net.ENV, dataclasses.replace(p, topology=topo), "demand",
+                               (lo + hi - 1) / 2, ((hi - lo) ** 2 - 1) / 12),
+    }
+    parts = []
+    for label, (env, params, key, mean, var) in cases.items():
+        space = env.action_space(params)
+        dtype = torch.int32 if env is im.ENV else torch.float32
+
+        def policy(_s, obs, _g, _t):
+            return torch.full((obs.shape[0],) + space.shape, 10, dtype=dtype, device=obs.device)
+
+        t0 = time.perf_counter()
+        totals, traj = vecenv.evaluate_episodes_seeded(env, params, policy, None, seeds,
+                                                       device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = traj.info[key].double().reshape(A20_PERIODS, A20_SEEDS, -1)
+        got = float(d[..., 0].mean())
+        se = (var / d[..., 0].numel()) ** 0.5
+        if not (abs(got - mean) <= 4 * se and bool(torch.isfinite(totals).all())):
+            raise AssertionError(f"A20 {label}: mean demand {got} against the law's {mean} "
+                                 f"(SE {se})")
+        _, part = vecenv.evaluate_episodes_seeded(env, params, policy, None, seeds[:1000],
+                                                  device=dev)
+        exact(f"A20 {label}: lanes 0..999 alone vs in the batch", part.info[key],
+              traj.info[key][:, :1000])
+        _, cpu = vecenv.evaluate_episodes_seeded(env, params, policy, None,
+                                                 seeds[:256].cpu(), device="cpu")
+        exact(f"A20 {label}: the card's draws vs the CPU's", traj.info[key][:, :256].cpu(),
+              cpu.info[key])
+        if env is net.ENV:
+            _, table = vecenv.evaluate_episodes_seeded(env, p, policy, None, seeds[:1000],
+                                                       device=dev)
+            exact(f"A20 {label}: the table link's draws", part.info[key][..., 1:],
+                  table.info[key][..., 1:])
+        parts.append(f"{label} at {A20_SEEDS} x {A20_PERIODS}: mean demand {got:.6g} against "
+                     f"{mean:.6g} (SE {se:.3g}), lanes alone = in the batch, card = CPU bit for "
+                     f"bit, {wall:.2f} s")
+    return "; ".join(parts)
+
+
+def lstm_any_phases(dev, wrappers, smi, err):
+    """Phase 57: the LSTM actor at any encoder depth, encoder width and
+    hidden width, and the seeded evaluators' wide laws. The plans and each
+    configuration's gates and the general class against the fixed one
+    (``lstm_any_checks``), the counted path (``lstm_any_main_path``), the
+    times beside their bounds (``lstm_any_times``) and the wide laws on the
+    card (``a20_phase``). The turns at the default actor with the parent
+    design run alone: tools/lstm_caps_sweep.py. Returns (launches,
+    summary)."""
+    import torch
+    t0 = time.perf_counter()
+    params_of = {name: lstm_any_params(name) for name in LSTM_ANY_CONFIGS}
+    e, lines = lstm_any_checks(dev, params_of)
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0.0), v)
+    for x in lines:
+        print(f"[57 lstm checks] {x}", flush=True)
+    print(f"[57 lstm checks] {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, path_lines, summary = lstm_any_main_path(dev, wrappers, smi, params_of)
+    for x in path_lines:
+        print(f"[57 lstm path] {x}", flush=True)
+    t0 = time.perf_counter()
+    times = lstm_any_times(dev, params_of)
+    summary["times"] = times
+    for name, row in times.items():
+        print(f"[57 lstm times] {name}: " + "; ".join(
+            f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
+            for k, (ms, b, by) in row.items()) + f" on {smi}", flush=True)
+    print(f"[57 lstm times] {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[57 wide laws] {a20_phase(dev)}; {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -7919,6 +8316,9 @@ def main() -> int:
     launches_nv, nv_caps_summary = nv_caps_phases(dev, wrappers, smi, err, logs)
     launches = {name: launches[name] + launches_nv[name] for name in wrappers}
 
+    launches_lstm, lstm_any_summary = lstm_any_phases(dev, wrappers, smi, err)
+    launches = {name: launches[name] + launches_lstm[name] for name in wrappers}
+
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
 
@@ -7946,6 +8346,12 @@ def main() -> int:
                 ms, b_ms, b_by = summ["times"][key]
                 row[label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
+    # K22-K24 on the general class: phase 57's times on each configuration
+    for row, key in zip(rows[21:24], ("K22", "K23", "K24")):
+        row["lstm_any"] = {name: {"ms": t[key][0], "bound_ms": t[key][1], "bound_by": t[key][2],
+                                  "source": "or_gym_inventory_torch/csrc/im_lstm_any.cu"}
+                           for name, t in lstm_any_summary["times"].items()}
+
     # the last lines: the kernels, a summary of the PPO main path (kept near
     # the end, where a short tail of the output still holds it), the card
     print(json.dumps({"kernels": rows}))
@@ -7963,6 +8369,7 @@ def main() -> int:
     print(json.dumps({"actor_main_path": actor_summary}))
     print(json.dumps({"im_caps_main_path": im_caps_summary}))
     print(json.dumps({"nv_caps_main_path": nv_caps_summary}))
+    print(json.dumps({"lstm_any_main_path": lstm_any_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -425,16 +425,21 @@ def _demand_of(kind, rest, u, period, batch: int, dev) -> torch.Tensor:
     return (torch.searchsorted(table, u, right=True) + base).to(torch.int32)
 
 
-def demand_from_uniform(params: InvManagementParams, u: torch.Tensor, period) -> torch.Tensor:
+def demand_from_uniform(params: InvManagementParams, u: torch.Tensor, period,
+                        law=None) -> torch.Tensor:
     """(batch,) int32 demand of ``period`` from the (batch,) f32 uniforms
     ``u``: what ``sample_demand`` gives for the same 24-bit uniform (USER
     mode reads ``user_D[t]`` and ignores ``u``). A law past the table cap
-    cannot be drawn from one uniform: NotImplementedError."""
+    cannot be drawn from one uniform: ``law(spec)`` draws it (the seeded
+    evaluators' per-lane draws), and without ``law`` it raises
+    NotImplementedError."""
     kind, *rest = _demand_plan(params, str(u.device))
     if kind == "law":
-        raise NotImplementedError(
-            f"demand law {demand_law(params)} has no inversion table within the cap: it "
-            "cannot be drawn from one uniform a period")
+        if law is None:
+            raise NotImplementedError(
+                f"demand law {demand_law(params)} has no inversion table within the cap: it "
+                "cannot be drawn from one uniform a period")
+        return law(demand_law(params)).to(torch.int32)
     return _demand_of(kind, rest, u, period, u.shape[0], u.device)
 
 
@@ -443,11 +448,13 @@ def seeded_draws(params: InvManagementParams, seeds: torch.Tensor):
     (``vector.vecenv.evaluate_episodes_seeded``): ``reset()`` gives the
     batch's (state, TimeStep) and ``demands[t]`` period t's demand from
     word 0 of lane i's block under (seeds[i], ``rng.SEEDED_KEY``), all drawn
-    here, before any step. A law past the table cap raises
-    NotImplementedError."""
+    here, before any step. A law past the table cap is drawn from lane i's
+    stream 1 of the same key (``distributions.seeded_law_draws``)."""
     n, dev = seeds.shape[0], seeds.device
-    demands = [demand_from_uniform(params, rng.uniform01(rng.seeded_words(seeds, t, 1)[0]), t)
-               for t in range(params.horizon)]
+    demands = [demand_from_uniform(
+        params, rng.uniform01(rng.seeded_words(seeds, t, 1)[0]), t,
+        lambda spec, t=t: dist.seeded_law_draws(spec, seeds, 1, t))
+        for t in range(params.horizon)]
     return (lambda: reset(params, None, n, device=dev)), demands
 
 

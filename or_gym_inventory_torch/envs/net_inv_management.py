@@ -352,23 +352,27 @@ def _link_demand(plan, u, period) -> torch.Tensor:
     return vals[torch.clamp(period, max=vals.shape[0] - 1)]
 
 
-def demand_from_uniforms(params: NetInvParams, u: torch.Tensor, period) -> torch.Tensor:
+def demand_from_uniforms(params: NetInvParams, u: torch.Tensor, period,
+                         law=None) -> torch.Tensor:
     """(batch, n_retail) demand of ``period`` from (batch, n_retail) f32
     uniforms ``u``, one a retail link (const and user links ignore theirs):
     what ``sample_demand`` gives for the same 24-bit uniforms. A link whose
     law has no table within the cap cannot be drawn from one uniform:
-    NotImplementedError, as for a ``hostfn`` spec."""
+    ``law(j, spec)`` draws link j's column (the seeded evaluators' per-lane
+    draws), and without ``law`` it raises NotImplementedError, as for a
+    ``hostfn`` spec."""
     T = params.topology
     _refuse_hostfn(T)
     plans = _demand_plan(T, str(u.device))
     wide = [spec for spec, plan in zip(T.rt_demand, plans) if plan[0] == "law"]
-    if wide:
+    if wide and law is None:
         raise NotImplementedError(
             f"retail demand {wide} has no inversion table within the cap: it cannot be "
             "drawn from one uniform a period")
     period = torch.as_tensor(period, device=u.device).expand(u.shape[0]).long()
-    return torch.stack([_link_demand(plan, u[:, j], period) for j, plan in enumerate(plans)],
-                       dim=1)
+    return torch.stack([law(j, spec).to(torch.float32) if plan[0] == "law"
+                        else _link_demand(plan, u[:, j], period)
+                        for j, (spec, plan) in enumerate(zip(T.rt_demand, plans))], dim=1)
 
 
 def seeded_draws(params: NetInvParams, seeds: torch.Tensor):
@@ -377,11 +381,13 @@ def seeded_draws(params: NetInvParams, seeds: torch.Tensor):
     batch's (state, TimeStep) and ``demands[t]`` period t's (B, n_retail)
     demand, word j of lane i's block under (seeds[i], ``rng.SEEDED_KEY``)
     for retail link j (const links too), all drawn here, before any step.
-    A link whose law is past the table cap raises NotImplementedError."""
+    A link whose law is past the table cap is drawn from lane i's stream
+    1 + j of the same key (``distributions.seeded_law_draws``)."""
     n, dev, k = seeds.shape[0], seeds.device, params.topology.n_retail
     demands = [demand_from_uniforms(
         params, torch.stack([rng.uniform01(w) for w in rng.seeded_words(seeds, t, k)], dim=1),
-        t) for t in range(params.horizon)]
+        t, lambda j, spec, t=t: dist.seeded_law_draws(spec, seeds, 1 + j, t))
+        for t in range(params.horizon)]
     return (lambda: reset(params, None, n, device=dev)), demands
 
 

@@ -32,7 +32,9 @@ _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # arguments of the entry point without the suffix (``_any`` below); the
 # InvManagement entry points named *_chain take the chain route's params
 # (csrc/im_step.cuh ImParamsG, past the struct maxima; the policy kernels on
-# the general actor class) with them too (``_chain`` below).
+# the general actor class) with them too (``_chain`` below); the LSTM
+# kernels' general class (csrc/lstm.cuh LstmG) is csrc/im_lstm_any.cu's,
+# *_any and *_chain_any.
 SIGNATURES = {
     "net_episode": {
         # topo, small, state layout, staging, acts, dems, disc, out, B, T, stream
@@ -150,6 +152,11 @@ for _stem, _names in (("net_policy", ("net_rollout_traj", "net_policy_returns",
 for _stem in ("im_episode", "im_policy", "im_lstm"):
     for _name in [n for n in SIGNATURES[_stem] if not n.endswith("_any")]:
         SIGNATURES[_stem][_name + "_chain"] = SIGNATURES[_stem][_name]
+# the LSTM kernels' general actor class (csrc/lstm.cuh LstmG), a source of
+# its own (csrc/im_lstm_any.cu), on either route
+SIGNATURES["im_lstm_any"] = {name + suffix: SIGNATURES["im_lstm"][name]
+                             for name in ("im_lstm_returns", "im_lstm_rollout_traj")
+                             for suffix in ("_any", "_chain_any")}
 _SHARED = {"cuda_error_message": ((_I,), ctypes.c_char_p)}
 
 

@@ -17,7 +17,9 @@ Port of ``or_gym_inventory_tpu/ops/distributions.py``:
   ``scipy.stats.poisson.ppf`` the heuristic agents use. JAX bisects on the
   f32 gammaincc and refines with a series up to mu 16,000; the port bisects
   on the float64 gammaincc, which is exact against scipy without a
-  refinement, past mu 2,000 (where JAX's f32 misses by up to 3) too.
+  refinement, past mu 2,000 (where JAX's f32 misses by up to 3) too;
+- ``seeded_law_draws``, the seeded evaluators' per-lane draw of a law past
+  the table cap, through its quantile on a 53-bit uniform.
 
 ``demand = base + #{F in thresholds : F <= u}`` for a 24-bit uniform u is an
 exact draw of the spec's law up to the uniform's resolution. The torch sampler
@@ -27,6 +29,7 @@ kernels invert the same tables with ``count_le`` of ``csrc/philox.cuh``.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -351,3 +354,127 @@ def poisson_ppf(q, mu, max_k: int = 1 << 22) -> torch.Tensor:
         hi = torch.where(ok, mid, hi)
     out = torch.where(q <= 0.0, 0.0, hi.to(torch.float32))
     return torch.where(q >= 1.0, float(max_k), out)
+
+
+
+# ------------------------------------------- the seeded evaluators' wide laws
+#
+# A law past the table cap, drawn per lane by the seeded evaluators
+# (``vector.vecenv.evaluate_episodes_seeded``): a float64 uniform of 53 bits
+# from two of the lane's own Philox words, through the law's quantile.
+# Poisson, binomial and negative binomial invert a float64 CDF table without
+# the 4,096-entry cap, built from the mode outwards by the pmf's ratio and cut
+# on each side where the tail's mass falls below WIDE_TAIL of the mode's pmf
+# (at most WIDE_TABLE_MAX entries a side); randint, geometric and the rounded
+# normal invert their closed forms. A draw is the law's up to the uniform's
+# 2**-53 and the table's float64 sums.
+
+WIDE_TAIL = 2.0 ** -55
+WIDE_TABLE_MAX = 1 << 24
+_WIDE_CHUNK = 1 << 16
+
+
+def uniform53(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """Float64 uniforms in [0, 1) of 53 bits from two words each (int64
+    tensors holding unsigned 32-bit values): the 32 bits of ``w0``, then the
+    top 21 of ``w1``."""
+    return ((w0 << 21) | (w1 >> 11)).to(torch.float64) * 2.0 ** -53
+
+
+def _ratio_law(spec):
+    """(r, mode, last, sup) of a law drawn through a table: ``r(k)`` =
+    pmf(k + 1) / pmf(k) on a float64 array, the mode, the support's last
+    value (None: unbounded) and ``sup(k)``, a bound on r past k; None for a
+    law with a closed-form quantile. Poisson and binomial are log-concave (r
+    falls with k); so is the negative binomial for n >= 1, and for n < 1 its
+    r rises towards 1 - p from a mode at 0."""
+    import math
+    tag = spec[0]
+    if tag == "poisson":
+        mu = float(spec[1])
+        return (lambda k: mu / (k + 1.0)), math.floor(mu), None, (lambda k: mu / (k + 1.0))
+    if tag == "binomial":
+        n, p = int(spec[1]), float(spec[2])
+
+        def r(k):
+            return (n - k) / (k + 1.0) * (p / (1.0 - p))
+        return r, min(n, math.floor((n + 1) * p)), n, r
+    if tag == "negbinomial":
+        n, p = float(spec[1]), float(spec[2])
+        mode = math.floor((n - 1.0) * (1.0 - p) / p) if n > 1.0 else 0
+
+        def r(k):
+            return (n + k) / (k + 1.0) * (1.0 - p)
+        return r, mode, None, (r if n >= 1.0 else (lambda k: (1.0 - p) + 0.0 * k))
+    return None
+
+
+def _walk(r, mode: int, step: int, last, sup):
+    """log pmf(k) - log pmf(mode) for k = mode + step, mode + 2 step, ...:
+    up to ``last`` or the first k whose tail beyond it (a geometric series
+    of ratio ``sup``) holds less than WIDE_TAIL of pmf(mode)."""
+    import numpy as np
+    out, at, k = [], 0.0, mode
+    while (last - k) * step > 0 if last is not None else True:
+        n = _WIDE_CHUNK if last is None else min(_WIDE_CHUNK, (last - k) * step)
+        ks = k + step * np.arange(1, n + 1, dtype=np.float64)     # the values reached
+        with np.errstate(divide="ignore"):   # r(-1) is infinite: the left end at 0
+            ratio = r(ks - 1.0) if step > 0 else 1.0 / r(ks)      # pmf(ks) / pmf(ks - step)
+            q = sup(ks) if step > 0 else 1.0 / r(ks - 1.0)        # the next ratio, or a bound
+            lp = at + np.cumsum(np.log(ratio))
+            tail = lp + np.log(q) - np.log1p(-np.minimum(q, 1.0))
+        done = np.nonzero((q < 1.0) & (tail < np.log(WIDE_TAIL)))[0]
+        out.append(lp[:done[0] + 1] if done.size else lp)
+        if done.size:
+            break
+        if sum(x.size for x in out) > WIDE_TABLE_MAX:
+            raise NotImplementedError(
+                f"a demand law whose table passes {WIDE_TABLE_MAX} entries on one side of its "
+                f"mode {mode}: the seeded evaluators cannot draw it")
+        k, at = k + step * n, float(lp[-1])
+    return np.concatenate(out) if out else np.zeros(0)
+
+
+@functools.lru_cache(maxsize=16)
+def _wide_table(spec):
+    """(base, float64 thresholds as a NumPy array) of a ratio law:
+    ``base + #{F in thresholds : F <= u}`` draws it for u uniform on [0, 1).
+    The window [base, base + len(thresholds)] holds the law but less than
+    WIDE_TAIL of the mode's pmf in each tail, and its pmf is normalised."""
+    import numpy as np
+    r, mode, last, sup = _ratio_law(spec)
+    left = _walk(r, mode, -1, 0, None) if mode > 0 else np.zeros(0)
+    right = _walk(r, mode, 1, last, sup)
+    pmf = np.exp(np.concatenate([left[::-1], [0.0], right]))
+    cdf = np.cumsum(pmf)
+    return mode - left.size, cdf[:-1] / cdf[-1]
+
+
+def seeded_law_draws(spec, seeds: torch.Tensor, stream: int, period: int) -> torch.Tensor:
+    """(B,) float64 draws of the static named ``spec`` (one of
+    ``sample_from_law``'s laws) in period ``period`` for each lane of
+    ``seeds``: lane i's uniform (``uniform53``) from words 0 and 1 of the
+    counter (0, ``stream``, period, 0) under the key (seeds[i],
+    ``rng.SEEDED_KEY``), so that its draw depends on ``seeds[i]`` alone. The
+    seeded evaluators take a law past the table cap here, ``stream`` = 1 +
+    the retail link's index (the table laws keep word j of stream 0)."""
+    import math
+
+    from or_gym_inventory_torch.ops import rng
+    w0, w1 = rng.seeded_words(seeds, period, 2, stream)
+    u = uniform53(w0, w1)
+    tag = spec[0]
+    if tag == "randint":     # the spec's high is exclusive (numpy ``integers``)
+        low, high = int(spec[1]), int(spec[2])
+        return low + torch.floor(u * float(high - low))
+    if tag == "geometric":   # on {1, 2, ...}: P(X > k) = (1 - p)^k
+        return 1.0 + torch.floor(torch.log1p(-u) / math.log1p(-float(spec[1])))
+    if tag == "normal":      # max(0, round(X)), half to even
+        loc, scale = float(spec[1]), float(spec[2])
+        x = loc + scale * math.sqrt(2.0) * torch.special.erfinv(2.0 * u - 1.0)
+        return torch.clamp_min(torch.round(x), 0.0)
+    if _ratio_law(spec) is None:
+        raise NotImplementedError(f"no sampler for demand spec {tag!r}")
+    base, table = _wide_table(tuple(spec))
+    return base + torch.searchsorted(torch.from_numpy(table).to(u.device), u,
+                                     right=True).to(torch.float64)

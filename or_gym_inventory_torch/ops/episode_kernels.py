@@ -3,7 +3,8 @@ the policy kernels, and the plain versions of the in-kernel helpers.
 
 Port of ``or_gym_inventory_tpu/ops/pallas_episode_kernels.py``: the
 InvManagement kernels (``csrc/im_episode.cu``, ``csrc/im_policy.cu``, and
-under the LSTM actor ``csrc/im_lstm.cu``) and the Newsvendor kernels
+under the LSTM actor ``csrc/im_lstm.cu`` and, past its fixed class,
+``csrc/im_lstm_any.cu``) and the Newsvendor kernels
 (``csrc/nv_episode.cu``, ``csrc/nv_policy.cu``) with their plain PyTorch
 versions, ``fold_lstm_actor`` and ``lstm_forward`` (the LSTM actor's plain
 version), and what every MLP policy kernel shares:
@@ -2185,12 +2186,18 @@ sample_policy_streams_debug_im.launches = 0
 # H = o tanh(C), and the mean head (pallas_episode_kernels.py:1304-1610).
 # The (hidden, lanes) carry stays in the kernel (csrc/lstm.cuh).
 
-# maxima of the LSTM kernels (csrc/lstm.cuh): encoder layers, the hidden
-# width (a multiple of 4, padded to the unit groups of 8 of the tensor-core
-# product; at most LSTM_MAX_GROUPS groups), actions (on the fixed route: the
-# chain route reads the half ranges from its records); the widths are
-# bounded by the shared memory of a block
+# maxima of the LSTM kernels' fixed class (csrc/lstm.cuh Lstm): encoder
+# layers, the hidden width (a multiple of 4, padded to the unit groups of 8 of
+# the tensor-core product; at most LSTM_MAX_GROUPS groups), actions (on the
+# fixed route: the chain route reads the half ranges from its records). An
+# actor past them, or whose layout fits no block, takes the general class
+# (LstmG): any encoder depth and width, any hidden width >= 1, any action
+# count, its regions in shared memory or, past a block of 32 lanes, in a
+# device workspace
 LSTM_MAX_ENC, LSTM_MAX_HIDDEN, LSTM_MAX_ACT = 4, 128, 8
+# registers a thread of the LSTM kernels (their launch bounds: two blocks of
+# 256 threads an SM): what the general class's persistent grid counts by
+_LSTM_REGS = 128
 
 
 def fold_lstm_actor(cfg, model, rms=None) -> dict:
@@ -2253,7 +2260,7 @@ def lstm_forward(actor, obs_rows, H, C):
 
 def _im_lstm_period_plain(params, plan, actor, std, seed, lanes, t, inv, AH, H, C):
     """Demand, raw samples and int actions of period ``t`` of the LSTM
-    kernels (csrc/im_lstm.cu ``lane_draws``/``lane_act``), K10's stream
+    kernels (csrc/im_lstm.cuh ``lane_draws``/``lane_act``), K10's stream
     layout: under key (seed, 1) one demand word, then, with ``std``, the m1
     u1 and the m1 u2 words of the normals; the actor on ``_im_obs_rows``;
     the action (int)((tanh(raw) + 1) * f32(0.5 c_i)). Returns (demand, raw
@@ -2366,7 +2373,9 @@ class LstmPlan:
     the encoder's output padded to 16, or the obs to 8) and units (``h_pad``,
     to 8) and its ``k_steps``; every
     activation buffer [row][lane] with rows ``stride`` floats apart, at the
-    float offsets ``offsets`` (e, h0, h1, x0, x1, m, z), ``floats`` in all."""
+    float offsets ``offsets`` (e, h0, h1, [c,] x0, x1, m, z), ``floats`` in
+    all; with ``workspace`` (the general class past a block) in the block's
+    slice of a device workspace rather than shared memory."""
     lanes: int
     warps_m: int
     threads: int
@@ -2376,23 +2385,29 @@ class LstmPlan:
     stride: int
     offsets: dict
     floats: int
+    workspace: bool = False
 
 
-def _lstm_plan(dims, h: int, act_dim: int, tile) -> LstmPlan:
+def _lstm_plan(dims, h: int, act_dim: int, tile, general: bool = False,
+               workspace: bool = False) -> LstmPlan:
     """The layout of tile ``(lanes, warps_m)`` for an actor of widths
     ``dims`` [obs_dim, enc...] and hidden ``h``: E (the encoder's output,
     or the obs rows without an encoder), H twice, the encoder's input and
     ping-pong buffers, the means, and two buffers of the draws (each
     ``act_dim`` rows of normals and a row of demand). A product's input rows
     are padded to 8 (its k-steps) and an encoder layer's outputs to 16 (its
-    M-tiles); the padding rows stay zero."""
+    M-tiles); the padding rows stay zero. The ``general`` class keeps C in a
+    region of its own after H (``h_pad`` rows); on the ``workspace`` its rows
+    are ``lanes`` floats apart and its floats padded to 4."""
     lanes, warps_m = tile
     n_enc = len(dims) - 1
     e_pad, h_pad = (_pad16(dims[-1]) if n_enc else _pad8(dims[0])), _pad8(h)
-    stride = lanes + 8   # B-fragment loads and the float2 stores hit 32 banks
+    # B-fragment loads and the float2 stores hit 32 banks of shared memory
+    stride = lanes if workspace else lanes + 8
     x_rows = max([_pad8(dims[0])] + [_pad16(d) for d in dims[1:-1]]) if n_enc else 0
-    rows = {"e": e_pad, "h0": h_pad, "h1": h_pad, "x0": x_rows,
-            "x1": x_rows if n_enc > 1 else 0, "m": act_dim, "z": 2 * (act_dim + 1)}
+    rows = {"e": e_pad, "h0": h_pad, "h1": h_pad, **({"c": h_pad} if general else {}),
+            "x0": x_rows, "x1": x_rows if n_enc > 1 else 0, "m": act_dim,
+            "z": 2 * (act_dim + 1)}
     offsets, at = {}, 0
     for name, r in rows.items():
         offsets[name] = at
@@ -2400,7 +2415,7 @@ def _lstm_plan(dims, h: int, act_dim: int, tile) -> LstmPlan:
     if not n_enc:
         offsets["x0"] = offsets["e"]   # the obs rows are the gate input
     return LstmPlan(lanes, warps_m, lanes * warps_m, e_pad, h_pad, (e_pad + h_pad) // 8,
-                    stride, offsets, at)
+                    stride, offsets, -(-at // 4) * 4 if workspace else at, workspace)
 
 
 def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
@@ -2418,93 +2433,179 @@ def _gate_fragments(wx, wh, e_pad: int, h_pad: int) -> torch.Tensor:
     return _mma_fragments(rows.reshape(-1, kp))
 
 
-# the tiles of the LSTM kernels (csrc/im_lstm.cu LSTM_TILES) the entry
-# points take, in order of preference: the first whose shared memory fits
+# the tiles of the LSTM kernels (csrc/im_lstm.cu LSTM_TILES, and
+# csrc/im_lstm_any.cu LSTM_ANY_TILES for the general class) the entry points
+# take, in order of preference: the first whose shared memory fits
 _LSTM_TILES = ((64, 4), (32, 8))
+
+
+class _LstmG(ctypes.Structure):
+    """Mirror of ``struct LstmG`` in csrc/lstm.cuh: the workspace pointer,
+    then 4-byte fields."""
+    _fields_ = [("ws", ctypes.c_void_p)] + [(name, ctypes.c_int) for name in (
+        "n_enc", "table", "half_hi", "hidden", "act", "w_gate", "b_gate", "w_mean", "b_mean",
+        "std", "lanes", "warps_m", "threads", "e_pad", "h_pad", "k_steps", "stride", "s_e",
+        "s_h0", "s_h1", "s_c", "s_x0", "s_x1", "s_m", "s_z", "s_total", "smem_floats",
+        "ws_floats", "grid")]
+
+
+def _lstm_choice_any(dims, h: int, act_dim: int, records: int = 0) -> LstmPlan:
+    """The general class's plan (``_lstm_plan``'s, C a region of its own):
+    the first of ``_LSTM_TILES`` whose regions, with ``records`` words after
+    them, fit a block's shared memory; else the first tile on the workspace.
+    Raises ValueError where one block's slice of the workspace passes
+    WORKSPACE_MAX_BYTES or a region offset passes 32 bits, naming the
+    bytes."""
+    for tile in _LSTM_TILES:
+        plan = _lstm_plan(dims, h, act_dim, tile, general=True)
+        if (plan.floats + records) * 4 <= SMEM_OPTIN_BYTES:
+            return plan
+    plan = _lstm_plan(dims, h, act_dim, _LSTM_TILES[0], general=True, workspace=True)
+    if 4 * plan.floats > WORKSPACE_MAX_BYTES or plan.floats >= 1 << 31:
+        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: a block's slice of the "
+                         f"workspace takes {4 * plan.floats} bytes; a launch holds "
+                         f"{WORKSPACE_MAX_BYTES}")
+    return plan
+
+
+def _lstm_fixed(n_enc: int, h: int, act_dim: int, records: int) -> bool:
+    """Whether an actor fits struct Lstm's arrays (the parent's class):
+    LSTM_MAX_ENC encoder layers, a hidden width that is a multiple of 4 and
+    at most LSTM_MAX_HIDDEN, LSTM_MAX_ACT actions where the half ranges are
+    the struct's (not on the chain route, ``records`` > 0)."""
+    return (n_enc <= LSTM_MAX_ENC and h % 4 == 0 and h <= LSTM_MAX_HIDDEN
+            and (act_dim <= LSTM_MAX_ACT or bool(records)))
 
 
 def _pack_lstm_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
                      records: int = 0):
-    """The LSTM kernels' actor arguments: the Lstm struct and one flat
-    float32 buffer on ``device``. The buffer holds the gate weights as the
-    A fragments of the tensor-core product (``_gate_fragments``); the gate
+    """The LSTM kernels' actor arguments: the struct and one flat float32
+    buffer on ``device``. The buffer holds the gate weights as the A
+    fragments of the tensor-core product (``_gate_fragments``); the gate
     biases (h_pad, 4), row j the four gates [i, f, g, o] of unit j; each
     encoder layer's W and b, as fragments too (``_encoder_fragments``); the
     mean head's W (act, h) and b; the std when given; every NaN as the
-    quiet NaN 0x7fc00000 (``_QUIET_NAN_BITS``). The struct carries
-    their offsets, the tile (the first of ``_LSTM_TILES`` whose layout, and
-    ``records`` words after it, fit a block's shared memory) and the layout
-    (``_lstm_plan``). ``records`` > 0 is the InvManagement chain route's
-    (its records staged after the activations, csrc/im_lstm.cu), whose
-    half ranges come from the records: no LSTM_MAX_ACT there. Raises
-    ValueError for an actor beyond the kernels' maxima or the shared memory
-    of a block."""
+    quiet NaN 0x7fc00000 (``_QUIET_NAN_BITS``). An actor within struct
+    Lstm's arrays (``_lstm_fixed``) whose layout fits a block takes the
+    fixed class, the parent's: the struct carries the offsets, the tile (the
+    first of ``_LSTM_TILES`` whose layout, and ``records`` words after it,
+    fit a block's shared memory) and the layout (``_lstm_plan``). Any other
+    takes the general class (``_LstmG``, ``_lstm_choice_any``): the buffer
+    then ends with the encoder's layer table (an int4 {in, out, w, b} a
+    layer, 16-byte aligned) and half_hi. ``records`` > 0 is the
+    InvManagement chain route's (its records staged after the activations,
+    csrc/im_lstm.cu), whose half ranges come from the records. Raises
+    ValueError past the workspace of a launch or a 32-bit offset, naming the
+    bytes."""
     dims, h = _lstm_dims(actor, obs_dim, act_dim)
     n_enc = len(dims) - 1
-    if (n_enc > LSTM_MAX_ENC or h % 4 or h > LSTM_MAX_HIDDEN
-            or (act_dim > LSTM_MAX_ACT and not records)):
-        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}, {act_dim} actions: the "
-                         f"kernels take at most {LSTM_MAX_ENC} encoder layers, a hidden width "
-                         f"that is a multiple of 4 and <= {LSTM_MAX_HIDDEN}, and "
-                         f"{LSTM_MAX_ACT} actions (any on the chain route)")
-    plans = [_lstm_plan(dims, h, act_dim, t) for t in _LSTM_TILES]
-    plan = next((pl for pl in plans if (pl.floats + records) * 4 <= SMEM_OPTIN_BYTES), None)
-    if plan is None:
-        raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: "
-                         f"{(min(pl.floats for pl in plans) + records) * 4} bytes of shared "
-                         f"memory a block; a block holds {SMEM_OPTIN_BYTES}")
+    plan = None
+    if _lstm_fixed(n_enc, h, act_dim, records):
+        plans = [_lstm_plan(dims, h, act_dim, t) for t in _LSTM_TILES]
+        plan = next((pl for pl in plans if (pl.floats + records) * 4 <= SMEM_OPTIN_BYTES), None)
+    general = plan is None
+    if general:
+        plan = _lstm_choice_any(dims, h, act_dim, records)
     a = _lstm_on(actor, device)
     bias = torch.zeros((plan.h_pad, 4), dtype=torch.float32, device=device)
     bias[:h] = a["bh"].reshape(4, h).T
     parts = [_gate_fragments(a["wx"], a["wh"], plan.e_pad, plan.h_pad), bias.reshape(-1)]
-    st = _Lstm(n_enc=n_enc, hidden=h, act=act_dim, w_gate=0, b_gate=parts[0].numel())
+    st = (_LstmG if general else _Lstm)(n_enc=n_enc, hidden=h, act=act_dim, w_gate=0,
+                                        b_gate=parts[0].numel())
 
     def append(x) -> int:
         offset = sum(p.numel() for p in parts)
         parts.append(x.reshape(-1))
         return offset
 
-    for layer, (W, b) in enumerate(a["enc"]):
+    layers = []
+    for W, b in a["enc"]:
         frag, bias_l = _encoder_fragments(W, b)
-        st.w_enc[layer], st.b_enc[layer] = append(frag), append(bias_l)
+        layers.append((append(frag), append(bias_l)))
     st.w_mean, st.b_mean = append(a["wm"]), append(a["bm"])
     st.std = -1 if std is None else append(std.to(device=device, dtype=torch.float32))
-    for k, d in enumerate(dims):
-        st.dims[k] = d
-    for i, v in enumerate(half_hi[:LSTM_MAX_ACT]):
-        st.half_hi[i] = v
+    if general:
+        at = sum(p.numel() for p in parts)
+        append(torch.zeros(-at % 4, dtype=torch.float32, device=device))
+        st.table = append(_int_floats([[dims[k], dims[k + 1], w, b]
+                                       for k, (w, b) in enumerate(layers)]).to(device))
+        st.half_hi = append(torch.tensor([float(v) for v in half_hi], dtype=torch.float32,
+                                         device=device))
+        if sum(p.numel() for p in parts) >= 1 << 31:
+            raise ValueError(f"LSTM actor of widths {dims}, hidden {h}: the packed actor "
+                             f"takes {4 * sum(p.numel() for p in parts)} bytes, past the "
+                             f"kernels' 32-bit float offsets")
+    else:
+        for layer, (w, b) in enumerate(layers):
+            st.w_enc[layer], st.b_enc[layer] = w, b
+        for k, d in enumerate(dims):
+            st.dims[k] = d
+        for i, v in enumerate(half_hi[:LSTM_MAX_ACT]):
+            st.half_hi[i] = v
     _set_lstm_tile(st, plan)
     return st, _quiet_nans(torch.cat(parts))
 
 
-def _set_lstm_tile(st: _Lstm, plan: LstmPlan) -> None:
-    """Write ``plan``'s tile and shared-memory layout into ``st`` (the
-    packed buffer does not depend on the tile)."""
+def _set_lstm_tile(st, plan: LstmPlan) -> None:
+    """Write ``plan``'s tile and layout into ``st`` (the packed buffer does
+    not depend on the tile); the general class also where its regions lie
+    (``smem_floats`` of shared memory, or ``ws_floats`` a block's slice of
+    the workspace)."""
     for field in ("lanes", "warps_m", "threads", "e_pad", "h_pad", "k_steps", "stride"):
         setattr(st, field, getattr(plan, field))
     for name, offset in plan.offsets.items():
         setattr(st, f"s_{name}", offset)
     st.s_total = plan.floats
+    if isinstance(st, _LstmG):
+        st.smem_floats = 0 if plan.workspace else plan.floats
+        st.ws_floats = plan.floats if plan.workspace else 0
+
+
+# the grid dimension's limit: a general-class launch of more tiles walks them
+_MAX_GRID = (1 << 31) - 1
+
+
+def _lstm_launch(st, batch: int, dev) -> str:
+    """Set a general-class struct's grid (a block a tile, or the persistent
+    grid over the workspace) and workspace for ``batch`` lanes; returns the
+    C entry points' suffix ("" for Lstm, "_any")."""
+    if not isinstance(st, _LstmG):
+        return ""
+    tiles = -(-batch // st.lanes)
+    if st.ws_floats:
+        _set_workspace(st, _persistent_blocks(tiles, st.ws_floats, st.threads,
+                                              4 * st.smem_floats, _LSTM_REGS, dev), dev)
+    else:
+        st.grid, st.ws = min(tiles, _MAX_GRID), None
+    return "_any"
+
+
+def _lstm_lib(suffix: str) -> str:
+    """The source of an LSTM entry point's suffix: csrc/im_lstm_any.cu for
+    the general class's, csrc/im_lstm.cu for the fixed class's."""
+    return "im_lstm_any" if suffix.endswith("_any") else "im_lstm"
 
 
 def _im_lstm_launch(params, actor, std, batch, dev):
-    """(the params struct, the Lstm struct, the packed actor, the entry
+    """(the params struct, the LSTM struct, the packed actor, the entry
     points' suffix) of a K22-K24 launch on the card. On the chain route a
     copy of the ImParamsG with the lanes' state in a workspace taken for
     the launch (``_im_lane_words`` a lane, [word][lane] over the grid's
     lanes; kept alive on the struct until the launch is queued, as
-    ``_set_workspace`` keeps its)."""
+    ``_set_workspace`` keeps its). The general class adds "_any" to the
+    suffix (``_lstm_launch``)."""
     plan = _im_plan(params, _plan_key(dev))
     rec = _im_record_words(params.m1) if plan["chain"] else 0
     st, flat = _pack_lstm_actor(actor, std, im.observation_space(params).shape[0], params.m1,
                                 _half_c(params), dev, rec)
+    suffix = _lstm_launch(st, batch, dev)
     if not plan["chain"]:
-        return plan["struct"], st, flat, ""
+        return plan["struct"], st, flat, suffix
     g = _ImParamsG.from_buffer_copy(plan["struct"])
     g.ws_stride = -(-batch // st.lanes) * st.lanes
     g.workspace = torch.empty(g.state_words * g.ws_stride, dtype=torch.int32, device=dev)
     g.ws = g.workspace.data_ptr()
-    return g, st, flat, "_chain"
+    return g, st, flat, "_chain" + suffix
 
 
 def _im_lstm_args(params, actor, batch, device):
@@ -2531,7 +2632,7 @@ def _im_lstm_call(wrapper, params, actor, seed, batch, dump, device):
     dems = torch.empty((T, batch), dtype=torch.int32, device=dev) if dump else None
     with torch.cuda.device(dev):
         g, st, flat, suffix = _im_lstm_launch(params, actor, None, batch, dev)
-        _launch("im_lstm", "im_lstm_returns" + suffix, ctypes.addressof(g),
+        _launch(_lstm_lib(suffix), "im_lstm_returns" + suffix, ctypes.addressof(g),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(), out.data_ptr(),
                 acts.data_ptr() if dump else None, dems.data_ptr() if dump else None,
@@ -2547,9 +2648,11 @@ def episode_returns_im_lstm(params: im.InvManagementParams, actor, seed, batch: 
     (hidden, lanes) carry kept there. ``actor`` is the dict of
     ``fold_lstm_actor``. Demand is drawn by inverting the demand law's CDF
     table (USER mode reads ``user_D[t]``; a law beyond the table cap raises
-    NotImplementedError). K22: a block per 64 lanes, the gate product on
-    the tensor cores (csrc/im_lstm.cu ``k_im_lstm_returns``); on the CPU
-    the plain version runs."""
+    NotImplementedError). K22: a block per 64 or 32 lanes, the gate product
+    on the tensor cores (csrc/im_lstm.cu ``k_im_lstm_returns``, and
+    csrc/im_lstm_any.cu ``k_im_lstm_returns_g`` for an actor past the fixed
+    class, any encoder depth and width and any hidden width); on the CPU the
+    plain version runs."""
     return _im_lstm_call(episode_returns_im_lstm, params, actor, seed, batch, False,
                          device)[0]
 
@@ -2580,9 +2683,10 @@ def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, b
     batch)`` int32, ``raw (T, m1, batch)`` f32 pre-squash samples, ``reward
     (T, batch)`` f32 (alpha^t-discounted) and ``demand (T, batch)`` int32.
     It draws K10's stream, so its demand is K23's for the same seed. K24: a
-    block per 64 lanes, the gate product on the tensor cores
-    (csrc/im_lstm.cu ``k_im_lstm_traj``); on the CPU the plain version
-    runs."""
+    block per 64 or 32 lanes, the gate product on the tensor cores
+    (csrc/im_lstm.cu ``k_im_lstm_traj``, and csrc/im_lstm_any.cu
+    ``k_im_lstm_traj_g`` for an actor past the fixed class); on the CPU the
+    plain version runs."""
     dev, _ = _im_lstm_args(params, actor, batch, device)
     seed = int(seed) & rng.MASK32
     std = clipped_std(torch.as_tensor(log_std).detach())
@@ -2599,7 +2703,7 @@ def rollout_traj_im_lstm(params: im.InvManagementParams, actor, log_std, seed, b
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
         g, st, flat, suffix = _im_lstm_launch(params, actor, std, batch, dev)
-        _launch("im_lstm", "im_lstm_rollout_traj" + suffix, ctypes.addressof(g),
+        _launch(_lstm_lib(suffix), "im_lstm_rollout_traj" + suffix, ctypes.addressof(g),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),

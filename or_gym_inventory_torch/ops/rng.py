@@ -38,6 +38,9 @@ the block w // 4.
   word (InvManagement), one word a retail link, const links too
   (NetInvMgmt), one demand word (Newsvendor, whose reset's five words are
   those of period ``SEEDED_RESET_PERIOD`` = 0xFFFFFFFF, the kernels' layout).
+  A demand law past the inversion table's cap (InvManagement's, or retail
+  link j's) takes words 0 and 1 of the counter (0, 1 + j, period, 0) instead,
+  a 53-bit uniform (``distributions.seeded_law_draws``).
 - The ranks of a data-parallel run (``parallel.mesh``), key (seed,
   ``RANK_KEY``) = (seed, 3), counter (rank, 0, 0, 0): word 0 masked to 31
   bits is the rank's seed (``rank_seed``), where the JAX package folded the
@@ -105,18 +108,19 @@ def period_words(seed: int, lanes: torch.Tensor, episode, period: int,
     return words[:n_words]
 
 
-def seeded_words(seeds: torch.Tensor, period: int, n_words: int):
+def seeded_words(seeds: torch.Tensor, period: int, n_words: int, stream: int = 0):
     """The ``n_words`` words of ``period`` for each lane of ``seeds`` (B,)
-    under the key (seeds[i], ``SEEDED_KEY``) and the counter (0, 0, period,
-    block): a list of ``n_words`` int64 tensors shaped like ``seeds``. The
-    lane index is in neither, so lane i's words depend on ``seeds[i]``
-    alone."""
+    under the key (seeds[i], ``SEEDED_KEY``) and the counter (0, ``stream``,
+    period, block): a list of ``n_words`` int64 tensors shaped like
+    ``seeds``. The lane index is in neither, so lane i's words depend on
+    ``seeds[i]`` alone. Stream 0 holds the env draws; stream 1 + j a wide
+    law's draws for retail link j (``distributions.seeded_law_draws``)."""
     seeds = torch.as_tensor(seeds).to(torch.int64) & MASK32
     zero = torch.zeros_like(seeds)
     words = []
     for blk in range((n_words + 3) // 4):
         words.extend(w.expand(seeds.shape)
-                     for w in philox4x32_10(zero, zero, period, blk, seeds, SEEDED_KEY))
+                     for w in philox4x32_10(zero, stream, period, blk, seeds, SEEDED_KEY))
     return words[:n_words]
 
 

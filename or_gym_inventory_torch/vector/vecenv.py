@@ -12,7 +12,9 @@ JAX package folds each seed into a key a lane; here every env draw of lane i
 comes from its own Philox stream, key (seeds[i], ``rng.SEEDED_KEY``)
 (``ops.rng.seeded_words``), drawn by the family's ``seeded_draws`` and fed
 through its ``step_with_demand``, so lane i's episode does not depend on
-the batch it runs in.
+the batch it runs in. A demand law past the inversion table's cap is drawn
+from the lane's own stream too, through its quantile on a 53-bit uniform
+(``ops.distributions.seeded_law_draws``).
 """
 
 from __future__ import annotations

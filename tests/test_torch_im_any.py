@@ -190,8 +190,11 @@ def test_chain12_lt40_by_hand():
     lst, _ = tek._pack_lstm_actor(lstm, None, obs, 12, tek._half_c(tp), CPU, 98)
     assert (lst.lanes, lst.stride, lst.s_total) == (32, 40, 854 * 40)
     assert (lst.s_total + 98) * 4 == 137_032
-    with pytest.raises(ValueError, match="8 actions"):   # the fixed route keeps its cap
-        tek._pack_lstm_actor(lstm, None, obs, 12, tek._half_c(tp), CPU)
+    # without records (the fixed ImParams route) 12 actions pass struct Lstm's
+    # half_hi: the general class takes them, its half ranges in the buffer
+    gst, flat = tek._pack_lstm_actor(lstm, None, obs, 12, tek._half_c(tp), CPU)
+    assert isinstance(gst, tek._LstmG)
+    assert flat[gst.half_hi:gst.half_hi + 12].tolist() == list(tek._half_c(tp))
 
 
 def _wide(m1, lt):

@@ -316,12 +316,13 @@ def test_lstm_wrappers_check_inputs_and_count_no_launches_on_cpu():
     # a NaN std: NaN raws cast to 0, as JAX's cast gives them
     tr = tek.rollout_traj_im_lstm(tp, actor, torch.full((3,), float("nan")), 1, 8, device=CPU)
     assert bool(torch.isnan(tr["raw"]).all()) and int(tr["actions"].abs().max()) == 0
-    # the kernels' maxima bind only where the struct is packed
+    # a hidden width off the multiples of 4 packs for the general class,
+    # padded to the unit groups of 8 with zero weights
     cpu = torch.device("cpu")
     model = tnetworks.LSTMActorCritic(33, 3, hidden=18, encoder=(8,))
     odd = tek.fold_lstm_actor(trppo.RecurrentPPOConfig(), model, None)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tek._pack_lstm_actor(odd, None, 33, 3, tek._half_c(tp), cpu)
+    st_odd, _ = tek._pack_lstm_actor(odd, None, 33, 3, tek._half_c(tp), cpu)
+    assert isinstance(st_odd, tek._LstmG) and (st_odd.hidden, st_odd.h_pad) == (18, 24)
     assert tek.episode_returns_im_lstm(tp, odd, 1, 4, device=CPU).shape == (4,)
     st, flat = tek._pack_lstm_actor(actor, tek.clipped_std(LOG_STD), 33, 3, tek._half_c(tp), cpu)
     # the gates' and the encoder's weights as tensor-core fragments, zero-padded:

@@ -25,8 +25,9 @@ Lane i's episode is drawn from the key (seeds[i], ``rng.SEEDED_KEY``) alone
   2,048 seeds with a constant policy: mean demand and mean return within 4
   standard errors of the difference;
 - each family's ``seeded_draws`` gives the evaluator's demand, and a
-  family without one, or a demand law past the table cap, raises before
-  any step.
+  family without one raises before any step; a demand law past the table
+  cap is drawn from the lane's own stream 1 + j (tests/test_torch_lstm_any.py
+  holds its distribution against scipy).
 """
 
 import dataclasses
@@ -273,19 +274,42 @@ def test_distribution_matches_jax_seeded_evaluator(family):
 
 
 def test_wide_law_refused_before_any_step():
-    def policy(*_a):
-        raise AssertionError("a step ran")
-
+    """A demand law past the table cap is no longer refused: both families
+    draw it from the lane's stream 1 + j (``distributions.seeded_law_draws``),
+    every period's row before any step, the table links beside it keeping
+    their stream-0 words; ``demand_from_uniform(s)`` without a ``law`` still
+    refuse one uniform's draw of it."""
+    from or_gym_inventory_torch.ops import distributions as tdist
+    seeds = torch.arange(4)
     wide = tim.default_params(periods=5, dist_param={"mu": 50_000})
+    _, demands = tim.ENV.seeded_draws(wide, seeds)
+    for t, d in enumerate(demands):
+        assert torch.equal(d, tdist.seeded_law_draws(("poisson", 50_000.0), seeds, 1, t)
+                           .to(torch.int32))
+    totals, traj = evaluate_episodes_seeded(
+        tim.ENV, wide, lambda _s, obs, _g, _t: torch.zeros((obs.shape[0], 3), dtype=torch.int32),
+        None, seeds, device=CPU)
+    assert torch.equal(traj.info["demand_realized"], torch.stack(demands))
     with pytest.raises(NotImplementedError, match="cap"):
-        evaluate_episodes_seeded(tim.ENV, wide, policy, None, torch.arange(4), device=CPU)
-    p = tnet.default_params(num_periods=5)
+        tim.demand_from_uniform(wide, torch.zeros(4), 0)
+    from or_gym_inventory_torch.envs import topology as ttopo
+    p = tnet.default_params(topology=ttopo.two_retail_topology(5), num_periods=5)
     topo = dataclasses.replace(p.topology, rt_demand=(("poisson", 50_000.0),)
                                + tuple(p.topology.rt_demand[1:]))
-    wide = dataclasses.replace(p, topology=topo)
+    net_wide = dataclasses.replace(p, topology=topo)
+    _, demands = tnet.ENV.seeded_draws(net_wide, seeds)
+    _, table = tnet.ENV.seeded_draws(p, seeds)
+    for t, (d, dt) in enumerate(zip(demands, table)):
+        assert torch.equal(d[:, 0], tdist.seeded_law_draws(("poisson", 50_000.0), seeds, 1, t)
+                           .to(torch.float32))
+        assert torch.equal(d[:, 1:], dt[:, 1:])
+    totals, traj = evaluate_episodes_seeded_stateful(
+        tnet.ENV, net_wide, lambda n: None,
+        lambda c, obs, _g, _t: (c, torch.zeros((obs.shape[0],) + tnet.ENV.action_space(
+            net_wide).shape)), seeds, device=CPU)
+    assert torch.isfinite(totals).all()
     with pytest.raises(NotImplementedError, match="cap"):
-        evaluate_episodes_seeded_stateful(tnet.ENV, wide, lambda n: None, policy,
-                                          torch.arange(4), device=CPU)
+        tnet.demand_from_uniforms(net_wide, torch.zeros((4, topo.n_retail)), 0)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
