@@ -140,9 +140,9 @@ launch counter set to 0 just before it and read just after:
   and K18-K20 by phases 12, 16 and 21's, 10 relu layers on K27 by phase
   32's) and on the workspace route at 16,384 lanes, where each block walks
   later tiles ((1024, 1024) actors on K4-K6, K10-K12, K18-K20 and K27),
-  and after it each one's time beside its bound and the general class in
-  turns with the fixed one at the default shapes (tools/actor_sweep.py;
-  its turns with the parent design run alone);
+  and after it each one's time beside its bound (the general class in
+  turns with the fixed one at the default shapes, and the turns with the
+  parent design, run alone: tools/actor_sweep.py [--general]);
 - InvManagement at any stage count and lead time (phase 55, after phase 54;
   the chain route, csrc/im_step.cuh ``ImParamsG``): on IM-chain12-lt40 (12
   stocked stages, lead times to 40, 60 periods; obs 492)
@@ -193,7 +193,19 @@ launch counter set to 0 just before it and read just after:
   turns with the parent design run alone: tools/lstm_caps_sweep.py), and
   the seeded evaluators on laws past the table cap (Poisson 50,000 on
   InvManagement, randint(0, 100,000) on a NetInvMgmt link) at 16,384
-  lanes: the law's mean, lanes alone = in the batch, card = CPU.
+  lanes: the law's mean, lanes alone = in the batch, card = CPU;
+- the float64 plain oracle (phase 58, after phase 57; gates only, no
+  counted path): C6, K4, K10 and K18 (their tile's arithmetic, so K5/K6,
+  K11/K12 and K19/K20's) under the two unnormalised actors of
+  ``c6_actors`` and K24 under LSTM-256 at 4,096 lanes x the horizon, their
+  stored raws teacher-forced against the float64 head on their own
+  observations, every element within the float32 forward bound and the
+  max |diff| within 2x the float32 plain head's on the card; C8, on
+  default_regions(8) and custom_regions(6), K25 chained over 30 periods at
+  16,384 lanes (X, Y, U, RH, reward) and K29's det and sac heads at 1,024
+  lanes (a_norm teacher-forced, and the float64 step chain on its streams:
+  x, u, r, reward) within the float32 forward bound of the float64 twin,
+  beside the float32 gates of phases 51 and 54, which stay.
 
 Every kernel output on those paths is held against the kernel's plain
 PyTorch version on the same inputs: K1-K3 in phases 3-4, K4-K6 in phase 7
@@ -288,7 +300,7 @@ first equal the entry point's bit for bit) and one TD3 iteration split into the 
 for the search it runs (``nv_draw_ops``), with the first version's linear
 count's beside it; K4-K6, K10-K12, K18-K20 and K22-K24's with their
 tensor-core products (the MLP's layers, ``mlp_tc_flops``; the LSTM's gate
-and encoder products, ``lstm_tc_flops``) as three TF32 products on the
+and encoder products, ``lstm_tc_flops``) as TF32_PRODUCTS TF32 products on the
 tensor cores (``tc_bound``), with the all-FP32 count's beside it (and for
 K18-K20, whose search replaced the linear count, the first version's count
 too).
@@ -313,9 +325,9 @@ xla paths' rates beside the kernel paths' and the agents' training times;
 ``mesh_main_path``: phases 48-50's update times, walls and the gloo
 collectives' shares; a spawned rank's launches count with this process's;
 ``graph_main_path``: phases 51-53's plans and times;
-``actor_main_path``: phase 54's times, the general class's turns and the
+``actor_main_path``: phase 54's times and the
 path's wall; ``im_caps_main_path``, ``nv_caps_main_path``: phases 55's and
-56's times and the paths' walls),
+56's times and the paths' walls; ``oracle_checks``: phase 58's lines),
 the card's
 name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.
@@ -357,7 +369,7 @@ kernel): econ, demand, K20's orders through the pipeline's cap against
 K18's capped orders, and the return against K18's gamma^t-summed rewards;
 K21 atol=1e-5 (also on a ragged batch in phase 24).
 LSTM kernels (K22-K24; the kernels run the gate product and the encoder on
-the tensor cores in 3xTF32, which keeps FP32's accuracy, the plain versions
+the tensor cores in 6xTF32, which keeps FP32's accuracy, the plain versions
 in full f32 with TF32 off): demand bit for bit; K23's returns equal to K22's; returns, actions, inv, raws and
 rewards against the plain versions by the share of lanes (>= 99% within
 rtol=1e-4 atol=1e-2: the actor sums in another order, so a truncation
@@ -415,6 +427,9 @@ LANE_SHARE = 0.99            # free-running policy kernels vs plain
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_TC_OPS_PER_S = 495e12   # the tensor cores' dense TF32 rate
+# the TF32 products a multiply-add of the tile and LSTM kernels takes
+# (csrc/mma_tf32.cuh: both operands in three pieces, six products)
+TF32_PRODUCTS = 6
 
 KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
     ("episode_returns", "or_gym_inventory_torch/csrc/net_episode.cu",
@@ -469,7 +484,7 @@ KERNEL_ROWS = [  # wrapper, source, the Pallas entry it replaces
      "or_gym_inventory_tpu/ops/pallas_net_step.py:774"),
     ("episode_returns_random_policy", "or_gym_inventory_torch/csrc/net_episode.cu",
      "or_gym_inventory_tpu/ops/pallas_net_step.py:857"),
-    ("rollout_traj_im_offpolicy", "or_gym_inventory_torch/csrc/im_policy.cu",
+    ("rollout_traj_im_offpolicy", "or_gym_inventory_torch/csrc/im_offpolicy.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1683"),
     ("rollout_traj_nv_offpolicy", "or_gym_inventory_torch/csrc/nv_policy.cu",
      "or_gym_inventory_tpu/ops/pallas_episode_kernels.py:1796"),
@@ -892,10 +907,10 @@ def tc_bound(n_bytes, n, ops, tc_flops):
     ``n`` env-steps of ``ops`` operations each: (the smaller of the two
     counts (ms, by), the FP32 count's ms): every operation at FP32, or the
     ``tc_flops`` of them that the kernel runs on the tensor cores
-    (``mlp_tc_flops``, ``lstm_tc_flops``) as three TF32 products each and
-    the rest at FP32."""
+    (``mlp_tc_flops``, ``lstm_tc_flops``) as TF32_PRODUCTS TF32 products
+    each and the rest at FP32."""
     fp32 = bound(n_bytes, n * ops)
-    tc = bound(n_bytes, n * (ops - tc_flops), 3 * n * tc_flops)
+    tc = bound(n_bytes, n * (ops - tc_flops), TF32_PRODUCTS * n * tc_flops)
     return min(fp32, tc), fp32[0]
 
 
@@ -1074,7 +1089,7 @@ def tile_sass_check(logs):
 
 
 def cluster_check(logs):
-    """Phase 2's check of K27-K29 on the thread-block cluster (im_policy.cu
+    """Phase 2's check of K27-K29 on the thread-block cluster (im_offpolicy.cu
     ``k_im_rollout_traj_cluster<RELU,BACKLOG>``, nv_policy.cu
     ``k_nv_rollout_traj_cluster<RELU>``, net_policy.cu
     ``k_rollout_traj_cluster<RELU>``): every instance built, none spills
@@ -1084,8 +1099,8 @@ def cluster_check(logs):
     Returns the line to print; raises on a miss."""
     from or_gym_inventory_torch.ops import _build
     parts = []
-    for src, kernel, want in (("im_policy", "k_im_rollout_traj_cluster", 4),
-                              ("im_policy", "k_im_rollout_traj_cluster", -4),
+    for src, kernel, want in (("im_offpolicy", "k_im_rollout_traj_cluster", 4),
+                              ("im_offpolicy", "k_im_rollout_traj_cluster", -4),
                               ("nv_policy", "k_nv_rollout_traj_cluster", 2),
                               ("net_policy", "k_rollout_traj_cluster", 4)):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu")))
@@ -3314,7 +3329,7 @@ def offpolicy_kernel_launch(name, kernel, params, actor, log_std, batch, dev):
     want = kernel(params, actor, log_std, SEED, batch, "det", "relu", dev)
     route = kernel.route
     if name == "rollout_traj_im_offpolicy":
-        src, T, act, obs = "im_policy", params.periods, params.m1, params.pipeline_length
+        src, T, act, obs = "im_offpolicy", params.periods, params.m1, params.pipeline_length
         st, flat = ek._pack_cluster_actor(actor, std, obs, act, "det", ek._half_c(params), T,
                                           obs, False, dev)
         flags, plan = (1, int(params.backlog)), ek._im_plan(params, ek._plan_key(dev))
@@ -5454,7 +5469,6 @@ ACTOR_EPISODES = 4            # K5/K6's, K11's and K19's episodes a lane there
 ACTOR_CHECK_STEPS = 15        # the NetInvMgmt checks' horizon, past every lead time
 ACTOR_PPO_UPDATES = 2
 ACTOR_OFF_ITERS = 2           # SAC's and TD3's: the warmup's uniform head, then theirs
-ACTOR_TURN_ROUNDS = 2
 ACTOR_WIDE = (400, 300)
 ACTOR_HUGE = (1024, 1024)
 ACTOR_DEEP = (64,) * 9        # 10 layers with the output layer
@@ -5464,14 +5478,6 @@ ACTOR_DEEP = (64,) * 9        # 10 layers with the output layer
 ACTOR_WS_LANES = 16_384
 ACTOR_PATH_KERNELS = ("rollout_traj_net", "episode_returns_net_policy",
                       "sample_policy_streams_debug_net", "rollout_traj_net_offpolicy")
-
-
-def actor_sweep_tool():
-    """tools/actor_sweep.py (phase 54's turns of the general class against
-    the fixed one; its turns against the parent design run alone)."""
-    graph_sweep_tool()   # puts tools/ on sys.path
-    import importlib
-    return importlib.import_module("actor_sweep")
 
 
 def arch_actor(obs_dim, act_dim, arch, dev, folded=True, seed=SEED):
@@ -5946,7 +5952,7 @@ def actor_main_path(dev, wrappers, smi, params):
 def actor_times(dev, p8, p3, imp, nvp):
     """Phase 54's times: each lifted kernel's best of its entry point's
     launches (``cuda_time``) beside its bound (the work model's counts at
-    its widths; the tile's products as three TF32 products each), K4-K6 and
+    its widths; the tile's products as TF32_PRODUCTS TF32 products each), K4-K6 and
     K29 on default_regions(8) at the path's shapes, the others at
     ACTOR_LANES (x ACTOR_EPISODES for the returns), the (1024, 1024) actors
     on the workspace route at ACTOR_WS_LANES. Returns {name: (ms, bound ms,
@@ -6052,14 +6058,13 @@ def actor_phases(dev, wrappers, smi, err):
     kernels against their plain versions (``actor_checks``, at
     ACTOR_CHECK_STEPS periods on the graphs), the counted path on
     default_regions(8) (``actor_main_path``), each lifted kernel's time
-    beside its bound (``actor_times``), and the general class against the
-    fixed one on the same default actors (tools/actor_sweep.py; reported:
-    whether the fixed class is still needed). The turns against the parent
-    design run alone: tools/actor_sweep.py. Returns (launches, summary)."""
+    beside its bound (``actor_times``). The turns against the parent design
+    and of the general class against the fixed one (whether the fixed class
+    is still needed) run alone: tools/actor_sweep.py [--general]. Returns
+    (launches, summary)."""
     import torch
 
     from or_gym_inventory_torch.envs import inv_management as im
-    actor_sweep = actor_sweep_tool()
     t0 = time.perf_counter()
     p8c = graph_params("default_regions", 8, ACTOR_CHECK_STEPS)
     p3c = graph_params("default_regions", 3, ACTOR_CHECK_STEPS)
@@ -6082,11 +6087,6 @@ def actor_phases(dev, wrappers, smi, err):
     print("[54 actor times] " + "; ".join(
         f"{k} {ms:.4f} ms, bound {b:.4f} ms by {by} ({b / ms:.1%})"
         for k, (ms, b, by) in times.items()) + f" on {smi}", flush=True)
-    general = actor_sweep.turns(dev, None, actor_sweep.GENERAL_KERNELS, ACTOR_TURN_ROUNDS,
-                                general=True)
-    summary["general_turns"] = general
-    for name, r in general.items():
-        print(f"[54 general turns] {actor_sweep.line(name, r, True)} on {smi}", flush=True)
     print(f"[54 actor times] {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
     return launches, summary
@@ -6215,7 +6215,7 @@ def im_caps_frames(logs):
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
     parts = []
-    for src in ("im_episode", "im_policy", "im_lstm"):
+    for src in ("im_episode", "im_policy", "im_offpolicy", "im_lstm"):
         counts = sass_counts(str(_build._target(_build.CSRC / f"{src}.cu"))) or {}
         log = next((out for so, out in logs.items() if f"lib{src}-" in so), "")
         ptx = [e for e in ptxas_entries(log).split("; ")
@@ -6301,8 +6301,9 @@ def im_caps_lstm_gates(label, params, B, dev):
 
 def im_caps_teacher_forced(label, params, tr, actor, std, mode, dev, atol=1e-4):
     """K27's a_norm against the plain head on its own observations
-    (``offpolicy_teacher_forced``'s), computed in float64 as well as in
-    float32: every element within ``atol`` of the float64 head (the gate),
+    (``offpolicy_teacher_forced``'s), computed in float64 (``traj_policy``'s
+    float64 twin, on the float32 noise) as well as in float32: every element
+    within ``atol`` of the float64 head (the gate),
     and the float32 plain head's max |diff| reported. At IM-chain12-lt40's
     492 inputs the float32 head's own sums miss the exact head by about
     1e-4 through the sac head's exp(clip(ls)) (PERF.md §6), so the float64
@@ -6315,26 +6316,18 @@ def im_caps_teacher_forced(label, params, tr, actor, std, mode, dev, atol=1e-4):
     from or_gym_inventory_torch.ops import rng
     m1 = params.m1
     obs_all = im.assemble_obs_from_streams(params, tr["inv"], tr["actions"])
-    Ws, bs = actor
-    layers64 = [(W.double().T, b.double().reshape(-1, 1)) for W, b in zip(Ws, bs)]
+    layers64 = ek.kernel_layers(actor, dev, torch.float64)
     layers32 = ek.kernel_layers(actor, dev)
-    std64 = None if std is None else std.double().reshape(-1, 1)
     lanes = torch.arange(tr["raw"].shape[-1], dtype=torch.int64, device=dev)
     n_head = ek._head_words(mode, m1)
     e64 = e32 = 0.0
     for t in range(tr["raw"].shape[0]):
         words = rng.period_words(SEED, lanes, 0, t, 1 + n_head, key1=rng.POLICY_KEY)
         z = ek._head_noise(mode, words[1:])
-        _, a32 = ek.traj_policy(mode, "relu", m1, layers32, std, list(obs_all[t].T), z)
-        H = obs_all[t].double().T
-        for i, (W, b) in enumerate(layers64):
-            H = W @ H + b
-            if i < len(layers64) - 1:
-                H = torch.relu(H)
-        if mode == "det":
-            a64 = torch.clamp(torch.tanh(H) + std64 * z.double(), -1.0, 1.0)
-        else:
-            a64 = torch.tanh(H[:m1] + torch.exp(torch.clamp(H[m1:], -10.0, 2.0)) * z.double())
+        rows = list(obs_all[t].T)
+        _, a32 = ek.traj_policy(mode, "relu", m1, layers32, std, rows, z)
+        a64, _, _ = ek.traj_policy(mode, "relu", m1, layers64, std, rows, z.double(),
+                                   torch.float64)
         e64 = max(e64, close(f"K27 {label} {mode} a_norm[{t}] vs the float64 head on its own "
                              "obs", tr["raw"][t], a64, 0.0, atol))
         e32 = max(e32, float((tr["raw"][t].double() - a32.double()).abs().max()))
@@ -6535,7 +6528,7 @@ def im_caps_times(dev, params):
     """Phase 55's times on ``params`` (IM-chain12-lt40): each kernel's best
     of 3 of its entry point's launches (``cuda_time``) at the path's shapes
     (K27 under the seeded (256, 256) actors), beside its bound by the work
-    model (the tile's and the LSTM's products as three TF32 products each).
+    model (the tile's and the LSTM's products as TF32_PRODUCTS TF32 products each).
     Returns {name: (ms, bound ms, bound by)}."""
     import torch
 
@@ -6964,7 +6957,7 @@ def nv_caps_times(dev, params):
     K17 and K20 at NV_CAPS_LANES; K18 at NV_CAPS_ENVS; K28 under the seeded
     (256, 256) actors at NV_CAPS_OFF_LANES, and det under (512, 512) on the
     wide route), beside its bound by the work model (the tile's products as
-    three TF32 products each); and K16 at lead time 5 on the same shape, for
+    TF32_PRODUCTS TF32 products each); and K16 at lead time 5 on the same shape, for
     the time an env-step. Returns {name: (ms, bound ms, bound by)}."""
     import dataclasses
 
@@ -7317,7 +7310,7 @@ def lstm_any_times(dev, params_of):
     """Phase 57's times: on each configuration K22 at its path lanes, K23 at
     LSTM_ANY_LANES and K24 at LSTM_ANY_ENVS under the seeded actor, best of
     3 of the entry point's launches (``cuda_time``), beside the bound by the
-    work model (the gate and encoder products as three TF32 products each,
+    work model (the gate and encoder products as TF32_PRODUCTS TF32 products each,
     ``lstm_tc_flops``; the rest at FP32, ``lstm_ops``). Returns {config:
     {K22/K23/K24: (ms, bound ms, bound by)}}."""
     from or_gym_inventory_torch.envs import inv_management as im
@@ -7451,6 +7444,324 @@ def lstm_any_phases(dev, wrappers, smi, err):
     return launches, summary
 
 
+# phase 58: C6 and C8 against the float64 plain oracle (the package's plain
+# versions with dtype=torch.float64: ops/episode_kernels.py mlp_forward,
+# traj_policy, lstm_forward; ops/net_step.py _batched_step_plain), each
+# element held within its float32 forward bound. C6: the 6xTF32 tile
+# kernels under the two unnormalised actors (``c6_actors``) and K24 under
+# LSTM-256, at C6_LANES x the horizon; C8: K25 and K29 on the two graphs
+C6_LANES, C6_EPISODES = 4_096, 4
+C6_RATIO = 2.0              # a kernel's max |diff| to float64 over the float32 plain head's
+C8_LANES = 16_384           # K25's chain on each graph
+C8_POLICY_LANES = 1_024     # K29's on each graph (the wide route on default_regions(8))
+C6_TRAJ = {"net": "K4", "im": "K10", "nv": "K18"}
+
+
+def c6_actors(obs_dim, act_dim):
+    """The two unnormalised actors of the C6 check, each with its log_std:
+    ``ppo_init``, PPO's initial 64 x 64 actor with no obs statistics folded
+    in (raw obs into layer 1), and ``gaussian``, the tests' raw random actor
+    (every weight and bias a standard normal, tests/test_torch_nv_tile_plan.py)."""
+    import torch
+
+    from or_gym_inventory_torch.agents import networks, ppo
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    g = torch.Generator().manual_seed(SEED)
+    model = networks.MLPActorCritic(obs_dim, act_dim, generator=g)
+    dims = (obs_dim, 64, 64, act_dim)
+    gauss = (tuple(torch.randn(a, b, generator=g) for a, b in zip(dims, dims[1:])),
+             tuple(torch.randn(b, generator=g) for b in dims[1:]))
+    return {"ppo_init": (ek.fold_actor_params(ppo.PPOConfig(), model, None),
+                         model.log_std.detach()),
+            "gaussian": (gauss, torch.zeros(act_dim))}
+
+
+def c6_family(family):
+    """(params, obs_dim, act_dim, K4/K10/K18's wrapper, the demand words a
+    period before the head's) of ``family`` ("net", "im" or "nv") at its
+    defaults."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    if family == "net":
+        p = net.default_params(num_periods=NUM_STEPS)
+        T = p.topology
+        return p, T.obs_dim, T.n_reorder, ns.rollout_traj_net, T.n_retail
+    if family == "im":
+        p = im.default_params(backlog=True)
+        return p, im.observation_space(p).shape[0], p.m1, ek.rollout_traj_im, 1
+    p = nv_params()
+    return p, p.obs_dim, 1, ek.rollout_traj_nv, 1
+
+
+def traj_obs(family, params, tr):
+    """(T, B, obs_dim): the observations a trajectory kernel's policy saw,
+    rebuilt from its streams by the family's ``assemble_obs_from_streams``."""
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.envs import net_inv_management as net
+    from or_gym_inventory_torch.envs import newsvendor as nv
+    if family == "net":
+        return net.assemble_obs_from_streams(params, tr["x"], tr["u"], tr["r"])
+    if family == "im":
+        return im.assemble_obs_from_streams(params, tr["inv"], tr["actions"])
+    return nv.assemble_obs_from_streams(params, tr["econ"], tr["orders"])
+
+
+def oracle_gate(name, got, want64, bound, plain, ratio=None):
+    """``got`` (a kernel's float32 output) against ``want64`` (the float64
+    oracle): every element finite and within ``bound``, its float32 forward
+    bound; with ``ratio``, the max |diff| at most ``ratio`` times the float32
+    plain version's (``plain``) max |diff| to the same oracle. Returns (the
+    kernel's max |diff|, the plain version's, the largest share of the
+    bound used)."""
+    import torch
+    err = (got.double() - want64).abs()
+    if not torch.isfinite(got).all() or bool((err > bound).any()):
+        raise AssertionError(f"{name}: {int((err > bound).sum())} of {got.numel()} elements "
+                             f"outside the float32 forward bound of the float64 oracle; max "
+                             f"|diff| {float(err.max()):.6g}")
+    used = float((err / bound.clamp_min(1e-300)).max())
+    e32 = float((plain.double() - want64).abs().max())
+    if ratio is not None and float(err.max()) > ratio * e32:
+        raise AssertionError(f"{name}: max |diff| to the float64 oracle {float(err.max()):.6g}, "
+                             f"over {ratio} x the float32 plain version's {e32:.6g}")
+    return float(err.max()), e32, used
+
+
+def c6_teacher_forced(label, family, params, tr, actor, std, dev, ratio=C6_RATIO):
+    """K4/K10/K18's stored raw = H + std z against the float64 ppo head on
+    its own observations (``traj_obs``) and the float64 normals of its
+    words (``oracle_gate``, the float32 plain head on the card beside it).
+    Returns (the kernel's max |diff|, the float32 head's, the bound's share
+    used)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    _, _, act, _, n_dem = c6_family(family)
+    obs_all = traj_obs(family, params, tr)
+    raw = tr["raw"].reshape(tr["raw"].shape[0], act, -1)
+    l32 = ek.kernel_layers(actor, dev)
+    l64 = ek.kernel_layers(actor, dev, torch.float64)
+    lanes = torch.arange(raw.shape[-1], dtype=torch.int64, device=dev)
+    got, want, bound, plain = [], [], [], []
+    for t in range(raw.shape[0]):
+        words = rng.period_words(SEED, lanes, 0, t, n_dem + 2 * act, key1=rng.POLICY_KEY)
+        rows = list(obs_all[t].T)
+        p32, _ = ek.traj_policy("ppo", "tanh", act, l32, std, rows,
+                                ek._head_noise("ppo", words[n_dem:]))
+        w64, _, b64 = ek.traj_policy("ppo", "tanh", act, l64, std, rows,
+                                     ek._head_noise("ppo", words[n_dem:], torch.float64),
+                                     torch.float64)
+        got.append(raw[t])
+        want.append(w64)
+        bound.append(b64)
+        plain.append(p32)
+    return oracle_gate(f"{label} raw, teacher-forced", torch.stack(got), torch.stack(want),
+                       torch.stack(bound), torch.stack(plain), ratio)
+
+
+def c6_lstm_teacher_forced(label, params, tr, actor, std, dev, ratio=C6_RATIO):
+    """K24's raw against the float64 LSTM (``lstm_forward``'s twin, its
+    bounds carried through H and C over the episode) on its own
+    observations, the float32 plain LSTM on the card beside it, as
+    ``c6_teacher_forced``."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import rng
+    m1 = params.m1
+    obs_all = im.assemble_obs_from_streams(params, tr["inv"], tr["actions"])
+    a32 = ek._lstm_on(actor, dev)
+    a64 = ek._lstm_on(actor, dev, torch.float64)
+    B = tr["raw"].shape[-1]
+    h = a32["wh"].shape[1]
+    H32 = torch.zeros((h, B), dtype=torch.float32, device=dev)
+    C32 = torch.zeros_like(H32)
+    H64, C64, e = H32.double(), C32.double(), None
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    s64 = std.double()
+    got, want, bound, plain = [], [], [], []
+    for t in range(tr["raw"].shape[0]):
+        words = rng.period_words(SEED, lanes, 0, t, 1 + 2 * m1, key1=rng.POLICY_KEY)
+        rows = list(obs_all[t].T)
+        m32, H32, C32 = ek.lstm_forward(a32, rows, H32, C32)
+        m64, H64, C64, em, e = ek.lstm_forward(a64, rows, H64, C64, torch.float64, e)
+        z32 = rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]))
+        z64 = rng.normal01(torch.stack(words[1:1 + m1]), torch.stack(words[1 + m1:]),
+                           torch.float64)
+        got.append(tr["raw"][t])
+        want.append(m64 + s64 * z64)
+        bound.append(em + s64 * ek._noise_bound("ppo", z64)
+                     + ek.gamma_f32(2) * (m64.abs() + (s64 * z64).abs()))
+        plain.append(m32 + std * z32)
+    return oracle_gate(f"{label} raw, teacher-forced", torch.stack(got), torch.stack(want),
+                       torch.stack(bound), torch.stack(plain), ratio)
+
+
+def c6_oracle_checks(dev):
+    """Phase 58's C6 gates: K4, K10 and K18 (the tile kernels with their
+    TRAJ flag, so K5/K6, K11/K12 and K19/K20's arithmetic) under both
+    ``c6_actors`` at C6_LANES, and K24 under LSTM-256 (sb3-contrib's hidden
+    256 over the raw obs) at C6_LANES x 30, each teacher-forced against the
+    float64 head within the float32 forward bound and within C6_RATIO x the
+    float32 plain head's max |diff| (``c6_teacher_forced``). Returns the
+    lines."""
+    import torch
+
+    from or_gym_inventory_torch.envs import inv_management as im
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    lines = []
+    for family, k in C6_TRAJ.items():
+        params, obs_dim, act, wrapper, _ = c6_family(family)
+        for kind, (actor, log_std) in c6_actors(obs_dim, act).items():
+            actor = tuple(tuple(x.to(dev) for x in part) for part in actor)
+            tr = wrapper(params, actor, log_std.to(dev), SEED, C6_LANES, device=dev)
+            e, e32, used = c6_teacher_forced(f"{k} {kind}", family, params, tr, actor,
+                                             ek.clipped_std(log_std).to(dev), dev)
+            lines.append(f"{k} {kind} actor ({C6_LANES} x {tr['raw'].shape[0]}): raw "
+                         f"teacher-forced max |diff| to float64 {e:.6g} (float32 plain head "
+                         f"{e32:.6g}; ratio {e / max(e32, 1e-300):.3f} <= {C6_RATIO}), within "
+                         f"the float32 forward bound (at most {used:.3%} of it)")
+            del tr
+    params = im.default_params()
+    actor, log_std = seeded_lstm_actor(params, dev, encoder=(), hidden=256)
+    tr = ek.rollout_traj_im_lstm(params, actor, log_std, SEED, C6_LANES, device=dev)
+    e, e32, used = c6_lstm_teacher_forced("K24 LSTM-256", params, tr, actor,
+                                          ek.clipped_std(log_std).to(dev), dev)
+    lines.append(f"K24 LSTM-256 ({C6_LANES} x {params.periods}): raw teacher-forced max |diff| "
+                 f"to float64 {e:.6g} (float32 plain LSTM {e32:.6g}; ratio "
+                 f"{e / max(e32, 1e-300):.3f} <= {C6_RATIO}), within the float32 forward bound "
+                 f"(at most {used:.3%} of it)")
+    torch.cuda.synchronize()
+    return lines
+
+
+def c8_k25_chain(label, params, dev):
+    """K25 chained over the horizon on K3's streams at C8_LANES, each
+    period against the float64 step on the same inputs: X, Y, U, RH and the
+    reward within their float32 forward bounds (``oracle_gate``, the
+    float32 plain step's max |diff| beside). Returns (max |diff| to
+    float64, the float32 plain step's, the bound's share used)."""
+    import torch
+
+    from or_gym_inventory_torch.ops import net_step as ns
+    T, steps = params.topology, params.num_periods
+    hi = float(T.order_cap_heuristic * 2)
+    a0, d0 = ns.sample_streams_debug(params, SEED, hi, C8_LANES, steps, 1, None, dev)
+    X, Y, U, RH = (x.contiguous() for x in ns.init_transposed(params, C8_LANES, dev))
+    worst = [0.0, 0.0, 0.0]
+    for t in range(steps):
+        got = ns.batched_step(params, X, Y, U, RH, a0[t], d0[t], t)
+        want32 = ns._batched_step_plain(params, X, Y, U, RH, a0[t], d0[t], t)
+        want = ns._batched_step_plain(params, X, Y, U, RH, a0[t], d0[t], t, torch.float64)
+        for i, key in enumerate(("X", "Y", "U", "RH", "reward")):
+            r = oracle_gate(f"K25 {label} {key}[{t}]", got[i], want[i], want[5][key],
+                            want32[i])
+            worst = [max(a, b) for a, b in zip(worst, r)]
+        X, Y, U, RH = got[:4]
+    return tuple(worst)
+
+
+def c8_k29(label, params, dev):
+    """K29 under the det and sac heads with phase 32's (256, 256) relu actor
+    at C8_POLICY_LANES: its a_norm teacher-forced against the float64 head
+    on its own observations, and the float64 step chain on its actions and
+    demand: x, u, r and the reward each period, every element within its
+    float32 forward bound (the float32 plain versions' max |diff| beside).
+    Returns {head: (head's max |diff|, its float32 head's, the step
+    chain's, the float32 chain's, the bound's largest share used)}."""
+    import torch
+
+    from or_gym_inventory_torch.ops import episode_kernels as ek
+    from or_gym_inventory_torch.ops import net_step as ns
+    from or_gym_inventory_torch.ops import rng
+    T = params.topology
+    obs, act, n_ro, n_rt = T.obs_dim, T.n_reorder, T.n_reorder, T.n_retail
+    lanes = torch.arange(C8_POLICY_LANES, dtype=torch.int64, device=dev)
+    out = {}
+    for mode in ("det", "sac"):
+        actor, log_std = seeded_offpolicy_actor(obs, act, mode == "sac", dev)
+        std = ek.clipped_std(log_std) if mode == "det" else None
+        tr = ns.rollout_traj_net_offpolicy(params, actor, log_std, SEED, C8_POLICY_LANES, mode,
+                                           "relu", dev)
+        obs_all = traj_obs("net", params, tr)
+        l32, l64 = ek.kernel_layers(actor, dev), ek.kernel_layers(actor, dev, torch.float64)
+        got, want, bound, plain = [], [], [], []
+        for t in range(params.num_periods):
+            words = rng.period_words(SEED, lanes, 0, t, n_rt + 2 * act, key1=rng.POLICY_KEY)
+            rows = list(obs_all[t].T)
+            _, a32 = ek.traj_policy(mode, "relu", act, l32, std, rows,
+                                    ek._head_noise(mode, words[n_rt:]))
+            a64, _, b64 = ek.traj_policy(mode, "relu", act, l64, std, rows,
+                                         ek._head_noise(mode, words[n_rt:], torch.float64),
+                                         torch.float64)
+            got.append(tr["raw"][t])
+            want.append(a64)
+            bound.append(b64)
+            plain.append(a32)
+        head = oracle_gate(f"K29 {label} {mode} a_norm, teacher-forced", torch.stack(got),
+                           torch.stack(want), torch.stack(bound), torch.stack(plain))
+        acts = (tr["raw"] + 1.0) * ns._half_hi(T)
+        X, Y, U, RH = ns.init_transposed(params, C8_POLICY_LANES, dev)
+        X32, Y32, U32, RH32 = X, Y, U, RH
+        chain = [0.0, 0.0, 0.0]
+        for t in range(params.num_periods):
+            st = ns._batched_step_plain(params, X, Y, U, RH, acts[t], tr["demand"][t], t,
+                                        torch.float64)
+            st32 = ns._batched_step_plain(params, X32, Y32, U32, RH32, acts[t],
+                                          tr["demand"][t], t)
+            X, Y, U, RH = st[:4]
+            X32, Y32, U32, RH32 = st32[:4]
+            for key, g, w, b, p in (("x", tr["x"][t + 1], X, st[5]["X"], X32),
+                                    ("u", tr["u"][t + 1], U, st[5]["U"], U32),
+                                    ("r", tr["r"][t], RH[:n_ro], st[5]["RH"][:n_ro],
+                                     RH32[:n_ro]),
+                                    ("reward", tr["reward"][t], st[4], st[5]["reward"],
+                                     st32[4])):
+                r = oracle_gate(f"K29 {label} {mode} step chain {key}[{t}]", g, w, b, p)
+                chain = [max(a, c) for a, c in zip(chain, r)]
+        out[mode] = (head[0], head[1], chain[0], chain[1], max(head[2], chain[2]))
+        del tr
+    return out
+
+
+def oracle_phases(dev, smi):
+    """Phase 58: C6 (``c6_oracle_checks``) and C8 on default_regions(8) and
+    custom_regions(6) (``c8_k25_chain``, ``c8_k29``) against the float64
+    plain oracle. Gates only: nothing is timed or counted, and the kernels'
+    max |diff| in the JSON line stays their max against plain. Returns a
+    summary."""
+    import torch
+    t0 = time.perf_counter()
+    lines = c6_oracle_checks(dev)
+    summary = {"c6": lines, "c8": []}
+    for x in lines:
+        print(f"[58 oracle C6] {x}", flush=True)
+    print(f"[58 oracle C6] {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for name, copies in GRAPH_REGIONS:
+        label = f"{name}({copies})"
+        params = graph_params(name, copies)
+        e25, e32, used = c8_k25_chain(label, params, dev)
+        line = (f"{label}: K25 chained {params.num_periods} periods at {C8_LANES} lanes, X, Y, "
+                f"U, RH and reward within the float32 forward bound of the float64 step (at "
+                f"most {used:.3%} of it); max |diff| to float64 {e25:.6g}, the float32 plain "
+                f"step's {e32:.6g}")
+        for mode, (eh, eh32, ec, ec32, used) in c8_k29(label, params, dev).items():
+            line += (f"; K29 {mode} at {C8_POLICY_LANES} lanes: a_norm teacher-forced max |diff| "
+                     f"to float64 {eh:.6g} (float32 head {eh32:.6g}), the step chain's x, u, r, "
+                     f"reward {ec:.6g} (float32 chain {ec32:.6g}), within the bound (at most "
+                     f"{used:.3%} of it)")
+        summary["c8"].append(line)
+        print(f"[58 oracle C8] {line}", flush=True)
+    print(f"[58 oracle C8] {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+    torch.cuda.synchronize()
+    return summary
+
+
 def print_kernel(phase, name, kt, work, launches):
     (b_ms, b_by), (t, pt) = work, kt
     print(f"[{phase} kernel] {name}: {t['best_ms']:.4f} ms (mean "
@@ -7517,8 +7828,8 @@ def main() -> int:
                    if e.startswith(("k_batched_step", "k_episode_returns_random",
                                     "k_im_rollout_traj_wide", "k_nv_rollout_traj_wide",
                                     "k_rollout_traj_wide"))]
-    print("[2 build] K25/K26 (net_episode.cu) and K27-K29's wide route (im/nv/net_"
-          "policy.cu on wide_mlp.cuh): " + "; ".join(new_entries), flush=True)
+    print("[2 build] K25/K26 (net_episode.cu) and K27-K29's wide route (im_offpolicy.cu, "
+          "nv/net_policy.cu on wide_mlp.cuh): " + "; ".join(new_entries), flush=True)
     print("[2 build] K27-K29 on the thread-block cluster (cluster_mlp.cuh, FP32 products): "
           + cluster_check(logs), flush=True)
     net_so = str(_build._target(_build.CSRC / "net_episode.cu"))
@@ -7743,7 +8054,8 @@ def main() -> int:
         if name in tile_bounds:
             fp32_ms = tile_bounds[name][1]
             print(f"[9 kernel] {name}: the MLP's {mlp_tc_flops(dims)} FLOPs an env-step as "
-                  f"three TF32 products; bound with every operation at FP32 {fp32_ms:.4f} ms "
+                  f"{TF32_PRODUCTS} TF32 products; bound with every operation at FP32 "
+                  f"{fp32_ms:.4f} ms "
                   f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     print(f"[9 kernel] episode_returns_net_policy, stochastic: {k5s_t['best_ms']:.4f} ms "
           f"(mean {k5s_t['mean_ms']:.4f}); rollout_traj_net is "
@@ -7846,7 +8158,7 @@ def main() -> int:
     del im_a, im_d
     m1, T = im_params.m1, NUM_STEPS
     im_dims = [im_params.pipeline_length, 64, 64, m1]
-    # K10 on K11's tile: the MLP's products as three TF32 products each
+    # K10 on K11's tile: the MLP's products as TF32_PRODUCTS TF32 products each
     k10_bound, k10_fp32_ms = tc_bound(
         PPO_ENVS * ((T + 1) * m1 + 2 * T * m1 + 2 * T) * 4, PPO_ENVS * T,
         mlp_ops(im_dims) + im_step_ops(im_params) + im_policy_draw_ops(im_params, table_len),
@@ -7880,7 +8192,7 @@ def main() -> int:
           f"{k7_alone_ms['random']:.4f} alone, {k7r_t['best_ms']:.4f} through the entry point "
           f"on {smi}", flush=True)
     print(f"[14 kernel] rollout_traj_im (K11's tile): the MLP's {mlp_tc_flops(im_dims)} FLOPs "
-          f"an env-step as three TF32 products; bound with every operation at FP32 "
+          f"an env-step as {TF32_PRODUCTS} TF32 products; bound with every operation at FP32 "
           f"{k10_fp32_ms:.4f} ms ({k10_fp32_ms / k10_t['best_ms']:.1%} of it); "
           f"{k10_t['best_ms'] / im_update_ms:.1%} of the best IM PPO update "
           f"({im_update_ms:.3f} ms)", flush=True)
@@ -8040,7 +8352,8 @@ def main() -> int:
         if name in tile_bounds:
             fp32_ms = tile_bounds[name][1]
             print(f"[20 kernel] {name}: the MLP's {mlp_tc_flops(im_dims)} FLOPs an env-step as "
-                  f"three TF32 products; bound with every operation at FP32 {fp32_ms:.4f} ms "
+                  f"{TF32_PRODUCTS} TF32 products; bound with every operation at FP32 "
+                  f"{fp32_ms:.4f} ms "
                   f"({fp32_ms / times[name][0]['best_ms']:.1%} of it)", flush=True)
     print(f"[20 kernel] episode_returns_im_policy, stochastic: {k11s_t['best_ms']:.4f} ms "
           f"(mean {k11s_t['mean_ms']:.4f})", flush=True)
@@ -8152,7 +8465,8 @@ def main() -> int:
           f"{nv_policy_draw_ops(nv_p, True, table=True):.1f} (K18, stochastic, the search; "
           f"{nv_policy_draw_ops(nv_p, True):.1f} by its first version's linear count) ops; "
           f"K18-K20 run the MLP's "
-          f"{mlp_tc_flops(nv_dims)} FLOPs on the tensor cores as three TF32 products; K21 "
+          f"{mlp_tc_flops(nv_dims)} FLOPs on the tensor cores as {TF32_PRODUCTS} TF32 products; "
+          f"K21 "
           f"{NORMAL_OPS} ops a normal; plain versions timed in phase 21 with its seeded actor",
           flush=True)
     for name in NV_POLICY_KERNELS:
@@ -8260,7 +8574,8 @@ def main() -> int:
           f"(widths {lstm_dims}, hidden {LSTM_HIDDEN}), step {im_step_ops(lstm_p)}, draws "
           f"{im_policy_draw_ops(lstm_p, table_len, stochastic=False)} (deterministic) / "
           f"{im_policy_draw_ops(lstm_p, table_len)} (stochastic); the gate product {gate} "
-          f"and the encoder's products {tc_flops - gate} FLOPs of them, run as three TF32 "
+          f"and the encoder's products {tc_flops - gate} FLOPs of them, run as {TF32_PRODUCTS} "
+          f"TF32 "
           f"products at {TF32_TC_OPS_PER_S:.3g} FLOP/s, the rest at FP32; K22/K23 at {n22} x {T}, K24 at {PPO_ENVS} x {T}, with phase 26's "
           f"trained actor", flush=True)
     for name in LSTM_KERNELS:
@@ -8319,6 +8634,8 @@ def main() -> int:
     launches_lstm, lstm_any_summary = lstm_any_phases(dev, wrappers, smi, err)
     launches = {name: launches[name] + launches_lstm[name] for name in wrappers}
 
+    oracle_summary = oracle_phases(dev, smi)
+
     launches_mesh, mesh_summary = mesh_phases(dev, wrappers, smi)
     launches = {name: launches[name] + launches_mesh[name] for name in wrappers}
 
@@ -8370,6 +8687,7 @@ def main() -> int:
     print(json.dumps({"im_caps_main_path": im_caps_summary}))
     print(json.dumps({"nv_caps_main_path": nv_caps_summary}))
     print(json.dumps({"lstm_any_main_path": lstm_any_summary}))
+    print(json.dumps({"oracle_checks": oracle_summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

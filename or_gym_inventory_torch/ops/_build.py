@@ -91,6 +91,10 @@ SIGNATURES = {
         # stochastic, backlog, B, E, T, stream
         "im_policy_returns": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
                                _LL, _I, _I, _P), _I),
+    },
+    # K27, a source of its own beside im_policy.cu's tile kernels, so that
+    # the two build at once
+    "im_offpolicy": {
         # params, wide, actor, table, user_d, disc, inv, acts, raw, reward,
         # demand, seed, relu, backlog, B, T, stream
         "im_rollout_traj_wide": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U32, _I, _I,
@@ -143,13 +147,13 @@ SIGNATURES = {
 }
 for _stem, _names in (("net_policy", ("net_rollout_traj", "net_policy_returns",
                                         "net_rollout_traj_wide")),
-                     ("im_policy", ("im_rollout_traj", "im_policy_returns",
-                                    "im_rollout_traj_wide")),
+                     ("im_policy", ("im_rollout_traj", "im_policy_returns")),
+                     ("im_offpolicy", ("im_rollout_traj_wide",)),
                      ("nv_policy", ("nv_rollout_traj", "nv_policy_returns",
                                     "nv_rollout_traj_wide"))):
     for _name in _names:
         SIGNATURES[_stem][_name + "_any"] = SIGNATURES[_stem][_name]
-for _stem in ("im_episode", "im_policy", "im_lstm"):
+for _stem in ("im_episode", "im_policy", "im_offpolicy", "im_lstm"):
     for _name in [n for n in SIGNATURES[_stem] if not n.endswith("_any")]:
         SIGNATURES[_stem][_name + "_chain"] = SIGNATURES[_stem][_name]
 # the LSTM kernels' general actor class (csrc/lstm.cuh LstmG), a source of

@@ -224,22 +224,119 @@ def apply_folded_actor(actor, obs, low, high, int_actions: bool):
     return a.to(torch.int32) if int_actions else a
 
 
-def kernel_layers(actor, device):
+# ------------------------------------------------ the float64 plain oracle
+#
+# The plain versions run in float32 by default, the kernels' own arithmetic
+# in another order. With dtype=torch.float64 they are the oracle: the same
+# function of the same float32 inputs (weights, obs, the period's words)
+# computed in float64, with each output's float32 forward bound beside it.
+# The bound is what any float32 evaluation of that function may miss the
+# float64 one by: gamma_n times the running magnitude of each sum (sum |W|
+# |h| + |b| a layer, a step's sum of |terms|), carried through the
+# activations by their largest slope within the error so far, plus each
+# activation's own rounding (Higham, Accuracy and Stability of Numerical
+# Algorithms, 2nd ed., Lemma 3.1 and section 3.5). The kernels' 6xTF32
+# products (csrc/mma_tf32.cuh) miss a product by under 2^-32 of it, within it.
+# Nothing on the card's main path calls these twins.
+
+F32_U = 2.0 ** -24   # float32's unit roundoff
+# ulps of the float32 functions at their worst (CUDA's tanhf, expf and cosf
+# are within 2 ulp), as relative errors of 2u an ulp
+_FN_REL = 4 * F32_U
+# the Box-Muller normal's float32 error: its radius (at most 5.77) times
+# f32(2 pi) u2 rounded and cosf, and its log, sqrt and product, per unit of
+# |z|; bounded as _Z_ABS + _Z_REL |z|
+_Z_ABS, _Z_REL = 48 * F32_U, 8 * F32_U
+_FLOAT_DTYPES = (torch.float32, torch.float64)
+
+
+def gamma_f32(n) -> float:
+    """gamma_n = n u / (1 - n u), u = 2^-24: the relative forward bound of a
+    float32 sum of n + 1 terms (n roundings) in any order, or of n roundings
+    in a row."""
+    nu = n * F32_U
+    return nu / (1.0 - nu)
+
+
+def _check_dtype(dtype):
+    if dtype not in _FLOAT_DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, not {dtype}")
+
+
+def _tanh_slope(y, e):
+    """The largest slope of tanh within e of y: 1 - tanh(max(|y| - e, 0))^2."""
+    return 1.0 - torch.tanh(torch.clamp_min(y.abs() - e, 0.0)) ** 2
+
+
+def _sigmoid_slope(y, e):
+    """The largest slope of the logistic function within e of y."""
+    s = torch.sigmoid(torch.clamp_min(y.abs() - e, 0.0))
+    return s * (1.0 - s)
+
+
+def _dense64(W, b, H, e):
+    """One layer W @ H + b in float64 and its float32 forward bound, the
+    input H carrying the bound e: gamma_{in + 1} (|W| (|H| + e) + |b|) + |W| e."""
+    aW = W.abs()
+    carried = aW @ e
+    mag = aW @ H.abs() + carried + b.abs()
+    return W @ H + b, gamma_f32(W.shape[1] + 1) * mag + carried
+
+
+def _tanh64(Y, e):
+    """tanh of Y in float64, and the bound: the slope within e times e, and
+    tanhf's own rounding."""
+    H = torch.tanh(Y)
+    return H, _tanh_slope(Y, e) * e + _FN_REL * H.abs()
+
+
+def _relu64(Y, e):
+    """relu of Y in float64 (a NaN kept, as the float32 trunk keeps it), and
+    the bound: e, or 0 where Y + e < 0 leaves both sides at 0."""
+    H = torch.relu(Y)
+    return H, torch.where(Y + e < 0.0, torch.zeros_like(e), e)
+
+
+_TRUNKS64 = {"tanh": _tanh64, "relu": _relu64}
+
+
+def _noise_bound(mode: str, z):
+    """The float32 noise's bound against its float64 twin: the normals'
+    (_Z_ABS + _Z_REL |z|), none for the exact 24-bit uniforms."""
+    if mode == "uniform":
+        return torch.zeros_like(z)
+    return _Z_ABS + _Z_REL * z.abs()
+
+
+def kernel_layers(actor, device, dtype=torch.float32):
     """The actor as the plain versions of the kernels use it:
-    [(W (out, in), b (out, 1))] float32 on ``device``."""
+    [(W (out, in), b (out, 1))] on ``device``, its float32 values in
+    ``dtype`` (float32, or float64 for the oracle)."""
+    _check_dtype(dtype)
     Ws, bs = actor
-    return [(torch.as_tensor(W, dtype=torch.float32, device=device).T.contiguous(),
-             torch.as_tensor(b, dtype=torch.float32, device=device).reshape(-1, 1))
+    return [(torch.as_tensor(W, dtype=torch.float32, device=device).to(dtype).T.contiguous(),
+             torch.as_tensor(b, dtype=torch.float32, device=device).to(dtype).reshape(-1, 1))
             for W, b in zip(Ws, bs)]
 
 
-def mlp_forward(layers, act_name: str, obs_rows) -> torch.Tensor:
+def mlp_forward(layers, act_name: str, obs_rows, dtype=torch.float32):
     """Plain version of the in-kernel trunk and head: the obs rows, each (B,),
     stacked to (obs_dim, B), then W @ H + b per layer of ``kernel_layers``
     with ``act_name`` ("tanh" or "relu", which keeps a NaN as jnp.maximum
-    does) after every layer but the last. Returns (outputs, B)."""
+    does) after every layer but the last. Returns (outputs, B); with
+    ``dtype=torch.float64`` (layers of that dtype, the obs rows their
+    float32 values) (outputs, their float32 forward bound), both float64."""
     if act_name not in _TRUNKS:
         raise ValueError(f"unknown act_name {act_name!r}; the trunks are tanh and relu")
+    _check_dtype(dtype)
+    if dtype == torch.float64:
+        H = torch.stack([r.to(torch.float32) for r in obs_rows]).to(torch.float64)
+        e = torch.zeros_like(H)
+        for i, (W, b) in enumerate(layers):
+            H, e = _dense64(W, b, H, e)
+            if i < len(layers) - 1:
+                H, e = _TRUNKS64[act_name](H, e)
+        return H, e
     act = _TRUNKS[act_name]
     H = torch.stack([r.to(torch.float32) for r in obs_rows])
     for i, (W, b) in enumerate(layers):
@@ -250,7 +347,7 @@ def mlp_forward(layers, act_name: str, obs_rows) -> torch.Tensor:
 
 
 def traj_policy(mode: str, act_name: str, act_dim: int, layers, std, obs_rows,
-                z: torch.Tensor):
+                z: torch.Tensor, dtype=torch.float32):
     """Plain version of the trajectory kernels' policy head
     (pallas_episode_kernels.traj_policy :1036-1081). ``z`` (act_dim, B) is
     the period's noise: standard normals, or for ``"uniform"`` the 24-bit
@@ -263,7 +360,13 @@ def traj_policy(mode: str, act_name: str, act_dim: int, layers, std, obs_rows,
       a = tanh(mean + exp(clip(ls, -10, 2)) * z).
     - ``"uniform"`` (warmup): a = 2 z - 1; the actor does not run.
 
-    The off-policy heads store a_norm. An unknown mode raises ValueError."""
+    The off-policy heads store a_norm. An unknown mode raises ValueError.
+    With ``dtype=torch.float64`` (``kernel_layers`` and ``_head_noise`` in
+    that dtype) returns (store, a_norm, the store's float32 forward bound),
+    the noise's own float32 error in the bound."""
+    _check_dtype(dtype)
+    if dtype == torch.float64:
+        return _traj_policy64(mode, act_name, act_dim, layers, std, obs_rows, z)
     if mode == "uniform":
         a = 2.0 * z - 1.0
         return a, a
@@ -284,14 +387,47 @@ def traj_policy(mode: str, act_name: str, act_dim: int, layers, std, obs_rows,
     return a, a
 
 
-def _head_noise(mode: str, words):
+def _traj_policy64(mode, act_name, act_dim, layers, std, obs_rows, z):
+    """``traj_policy`` in float64 with the store's float32 forward bound:
+    the trunk's (``mlp_forward``), the noise's (``_noise_bound``), the
+    head's sums and products (gamma_2) and its tanhf and expf ulps."""
+    ez = _noise_bound(mode, z)
+    if mode == "uniform":
+        a = 2.0 * z - 1.0
+        return a, a, ez
+    if mode not in HEADS:
+        raise ValueError(f"unknown traj_policy mode {mode!r}")
+    H, e = mlp_forward(layers, act_name, obs_rows, torch.float64)
+    want = 2 * act_dim if mode == "sac" else act_dim
+    if H.shape[0] != want:
+        raise ValueError(f"the actor has {H.shape[0]} outputs, expected {want}")
+    if mode in ("ppo", "det"):
+        s = torch.as_tensor(std, dtype=torch.float32, device=H.device).to(torch.float64)
+        if mode == "ppo":
+            raw = H + s * z
+            bound = e + s.abs() * ez + gamma_f32(2) * (H.abs() + (s * z).abs())
+            return raw, torch.tanh(raw), bound
+        t, et = _tanh64(H, e)
+        a = torch.clamp(t + s * z, -1.0, 1.0)
+        return a, a, et + s.abs() * ez + gamma_f32(2) * (t.abs() + (s * z).abs())
+    mean, ls = H[:act_dim], H[act_dim:]
+    em, els = e[:act_dim], e[act_dim:]
+    s = torch.exp(torch.clamp(ls, -10.0, 2.0))
+    es = s * torch.expm1(els) + _FN_REL * s
+    pre = mean + s * z
+    epre = em + s * ez + (z.abs() + ez) * es + gamma_f32(2) * (mean.abs() + (s * z).abs())
+    a, ea = _tanh64(pre, epre)
+    return a, a, ea
+
+
+def _head_noise(mode: str, words, dtype=torch.float32):
     """The head's noise (act_dim, B) from the period's words after the
     demand's: the act_dim u1 then act_dim u2 words as Box-Muller normals,
-    or for ``"uniform"`` the act_dim u1 words as uniforms."""
+    or for ``"uniform"`` the act_dim u1 words as uniforms, in ``dtype``."""
     if mode == "uniform":
-        return rng.uniform01(torch.stack(words))
+        return rng.uniform01(torch.stack(words), dtype)
     n = len(words) // 2
-    return rng.normal01(torch.stack(words[:n]), torch.stack(words[n:]))
+    return rng.normal01(torch.stack(words[:n]), torch.stack(words[n:]), dtype)
 
 
 def _head_words(mode: str, act_dim: int, stochastic: bool = True) -> int:
@@ -492,8 +628,10 @@ class MlpTilePlan:
     floats: int
 
 
-# M-tiles of 16 outputs a warp holds at once (csrc/mlp_tile.cuh MLP_TILE_GROUP)
+# M-tiles of 16 outputs a warp holds at once (csrc/mlp_tile.cuh MLP_TILE_GROUP;
+# K18-K20's general class half as many, csrc/nv_policy.cu NvTileGroup)
 _MLP_TILE_GROUP = 4
+_NV_TILE_GROUP_ANY = _MLP_TILE_GROUP // 2
 # the tiles the entry points take, in order of preference: the first whose
 # shared memory fits a block (the kernels take any multiple of 32)
 _MLP_TILES = (64, 32)
@@ -607,23 +745,25 @@ class MlpTileAnyPlan:
 
 
 def _mlp_tile_plan_any(dims, dem_rows: int, scratch_rows: int, state_words: int, lanes: int,
-                       topo_floats: int = 0, workspace: bool = False) -> MlpTileAnyPlan:
+                       topo_floats: int = 0, workspace: bool = False,
+                       group: int = _MLP_TILE_GROUP) -> MlpTileAnyPlan:
     """The general class's layout for an actor of widths ``dims`` (see
     ``MlpTileAnyPlan``): layer l writes buffer (l + 1) & 1, so each buffer
     has the rows of what it holds (the obs padded to 8, the outputs to 16);
-    in place, one buffer, where ``_mlp_tile_plan`` would be. The
+    in place, one buffer, where each layer is one product (below). The
     ``dem_rows`` + act + ``scratch_rows`` transient rows take the fewer
     rows of the two places the period leaves them: the buffer that H is not
     in (dead from the actor's end to the next obs), or H's from row
     pad16(act); "dead" on a tie. Then, in shared memory, ``state_words`` a
-    lane and ``topo_floats``."""
+    lane and ``topo_floats``. ``group``: the M-tiles the kernel's warp
+    holds at once in a hidden layer (a layer of one group is one product)."""
     stride = lanes if workspace else lanes + 8
     act, n = dims[-1], len(dims) - 1
     trans = dem_rows + act + scratch_rows
     need = [_pad8(dims[0]), 0]
     for layer, d in enumerate(dims[1:]):
         need[(layer + 1) & 1] = max(need[(layer + 1) & 1], _pad16(d))
-    in_place = (all(_pad16(d) // 16 in (1, _MLP_TILE_GROUP) for d in dims[1:-1])
+    in_place = (all(_pad16(d) // 16 in (1, group) for d in dims[1:-1])
                 and _pad16(act) == 16)
     h = n & 1   # the buffer that holds H
     if in_place:
@@ -779,9 +919,10 @@ def _pack_tile_actor(actor, std, obs_dim: int, act_dim: int, half_hi, device,
     return st, torch.cat([flat, tail])
 
 
-# registers a thread of the tile's instances (160-172 on sm_90a, ptxas -v):
-# what the persistent grid of the general class counts its blocks an SM by
-_TILE_REGS = 172
+# registers a thread of the tile's instances (168-180 on sm_90a, ptxas -v,
+# since the six products a k-step of csrc/mma_tf32.cuh): what the persistent
+# grid of the general class counts its blocks an SM by
+_TILE_REGS = 180
 
 
 def _persistent_blocks(units: int, slice_floats: int, threads: int, nbytes: int, regs: int,
@@ -2039,7 +2180,7 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
     actions (the pre-squash samples for "ppo"). The stream is K10's: per
     period the demand word, then the head's words, so its demand is K10's
     for the same seed. K27 on the card: a thread-block cluster a tile of
-    lanes (csrc/im_policy.cu ``k_im_rollout_traj_cluster`` on
+    lanes (csrc/im_offpolicy.cu ``k_im_rollout_traj_cluster`` on
     csrc/cluster_mlp.cuh), the actor's slices in the CTAs' shared memory,
     for any actor a cluster tile holds (``_cluster_choice``: the SB3
     default (256, 256) actor and anything as small); a wider one takes the
@@ -2071,7 +2212,7 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
         fn = _im_fn(plan, "im_rollout_traj_cluster")
         st, flat = packed
         with torch.cuda.device(dev):
-            _set_cluster_grid(st, batch, "im_policy",
+            _set_cluster_grid(st, batch, "im_offpolicy",
                               _im_fn(plan, "im_rollout_traj_cluster_occupancy"), flags, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -2081,7 +2222,7 @@ def rollout_traj_im_offpolicy(params: im.InvManagementParams, actor, log_std, se
                reward=torch.empty((T, batch), **f32),
                demand=torch.empty((T, batch), **i32))
     with torch.cuda.device(dev):
-        _launch("im_policy", fn, ctypes.addressof(plan["struct"]),
+        _launch("im_offpolicy", fn, ctypes.addressof(plan["struct"]),
                 ctypes.addressof(st), flat.data_ptr(), plan["table"].data_ptr(),
                 plan["user_d"].data_ptr(), plan["disc"].data_ptr(),
                 *(out[k].data_ptr() for k in ("inv", "actions", "raw", "reward", "demand")),
@@ -2233,20 +2374,64 @@ def fold_lstm_actor(cfg, model, rms=None) -> dict:
                 wm=f32(model.mean.weight).clone(), bm=f32(model.mean.bias).reshape(-1, 1).clone())
 
 
-def _lstm_on(actor, device) -> dict:
-    """``actor`` with every tensor float32 on ``device``."""
+def _lstm_on(actor, device, dtype=torch.float32) -> dict:
+    """``actor`` with every tensor's float32 values on ``device`` in
+    ``dtype``."""
+    _check_dtype(dtype)
+
     def t(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
+        return torch.as_tensor(x, dtype=torch.float32, device=device).to(dtype)
     return dict(enc=[(t(W), t(b)) for W, b in actor["enc"]],
                 **{k: t(actor[k]) for k in ("wx", "wh", "bh", "wm", "bm")})
 
 
-def lstm_forward(actor, obs_rows, H, C):
+def _lstm_forward64(actor, obs_rows, H, C, err):
+    """``lstm_forward`` in float64 with the float32 forward bounds: ``err``
+    = (bound of H, bound of C), zeros at the episode's start; returns
+    (mean, H', C', (bound of mean, of H', of C')). The gate sums' gamma
+    bound over [E; H] (one product of e + h inputs, as the kernels run
+    it), the sigmoid's and tanh's slopes within the error so far and their
+    float32 ulps, the cell's two products and sum (gamma_2), the head's
+    sum."""
+    eH, eC = err
+    X = torch.stack([r.to(torch.float32) for r in obs_rows]).to(torch.float64)
+    eX = torch.zeros_like(X)
+    for W, b in actor["enc"]:
+        X, eX = _tanh64(*_dense64(W, b, X, eX))
+    h = actor["wh"].shape[1]
+    W = torch.cat([actor["wx"], actor["wh"]], 1)
+    G, eG = _dense64(W, actor["bh"], torch.cat([X, H]), torch.cat([eX, eH]))
+
+    def sig(k):
+        y, e = G[k * h:(k + 1) * h], eG[k * h:(k + 1) * h]
+        s = torch.sigmoid(y)
+        return s, _sigmoid_slope(y, e) * e + 2 * _FN_REL * s
+    (i, ei), (f, ef), (o, eo) = sig(0), sig(1), sig(3)
+    g, eg = _tanh64(G[2 * h:3 * h], eG[2 * h:3 * h])
+    C2 = f * C + i * g
+    eC2 = (f * eC + (C.abs() + eC) * ef + i * eg + (g.abs() + eg) * ei
+           + gamma_f32(2) * ((f * C).abs() + (i * g).abs()))
+    tc, etc = _tanh64(C2, eC2)
+    H2 = o * tc
+    eH2 = o * etc + (tc.abs() + etc) * eo + F32_U * H2.abs()
+    mean, em = _dense64(actor["wm"], actor["bm"], H2, eH2)
+    return mean, H2, C2, em, (eH2, eC2)
+
+
+def lstm_forward(actor, obs_rows, H, C, dtype=torch.float32, err=None):
     """Plain version of the in-kernel LSTM actor (csrc/lstm.cuh
     ``lstm_forward``; pallas_episode_kernels.py:1391-1403): the obs rows,
     each (B,), stacked to (obs_dim, B), the tanh encoder, the gates
     G = Wx @ E + Wh @ H + bh, the cell, and the mean head. ``H`` and ``C``
-    are (hidden, B). Returns (mean (act, B), H', C')."""
+    are (hidden, B). Returns (mean (act, B), H', C'). With
+    ``dtype=torch.float64`` (``_lstm_on`` in that dtype; ``err`` the bounds
+    of H and C carried, None at the episode's start) returns (mean, H', C',
+    the float32 forward bound of mean, the bounds of H' and C' to carry)."""
+    _check_dtype(dtype)
+    if dtype == torch.float64:
+        if err is None:
+            err = (torch.zeros_like(H), torch.zeros_like(C))
+        return _lstm_forward64(actor, obs_rows, H, C, err)
     X = torch.stack([r.to(torch.float32) for r in obs_rows])
     for W, b in actor["enc"]:
         X = torch.tanh(W @ X + b)
@@ -3306,9 +3491,9 @@ NV_CHUNK = 16   # csrc/nv_step.cuh: the periods whose demand is inverted at once
 # count
 NV_TILE_LAYOUTS = {"linear": 0, "upfront": 1}
 # registers a thread of K19/K20's instances, the most ptxas -v reports on
-# sm_90a (the stochastic linear count's; phase 2 of chip_smoke.py checks
-# every instance against it): what the plan's blocks an SM count
-_NV_TILE_REGS = 171
+# sm_90a (phase 2 of chip_smoke.py checks every fixed-class instance
+# against it): what the plan's blocks an SM count
+_NV_TILE_REGS = 178
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3383,7 +3568,8 @@ def _nv_tile_plan_any(dims, L: int, K: int, T: int, lanes: int, layout: str,
     it, the pipeline (both [row][lane] at a stride of ``lanes``, so a
     pair's rows are its own): dem_rows + max(K, L) rows for "upfront",
     NV_CHUNK + L for "linear"."""
-    act = _mlp_tile_plan_any(dims, 0, 0, 0, lanes, workspace=workspace)
+    act = _mlp_tile_plan_any(dims, 0, 0, 0, lanes, workspace=workspace,
+                             group=_NV_TILE_GROUP_ANY)
     N = lanes
     buf = 0 if workspace else act.act_floats
     if layout == "upfront":

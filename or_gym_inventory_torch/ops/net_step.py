@@ -81,10 +81,17 @@ def init_transposed(params: NetInvParams, batch: int, device=None):
     return X, Y, U, RH
 
 
-def _step_math(T, backlog, X, Y, U, RH, act, dem, arrive_valid):
+def _step_math(T, backlog, X, Y, U, RH, act, dem, arrive_valid, dtype=torch.float32):
     """One period over lists of (B,) tensors (pallas_net_step._step_math).
     ``RH`` is a list of lt*n_ro rows, newest-first; ``arrive_valid[i]`` is
-    1.0 iff t >= L_i. Returns (X', Y', U', r_cur, period_profit)."""
+    1.0 iff t >= L_i. Returns (X', Y', U', r_cur, period_profit). With
+    ``dtype=torch.float64`` (the float64 oracle, ops/episode_kernels.py)
+    the same step of the inputs' float32 values in float64, and a sixth
+    item: the float32 forward bound of each output (``_step_bounds``)."""
+    ek._check_dtype(dtype)
+    if dtype == torch.float64:
+        X, Y, U, RH, act, dem = ([r.to(torch.float32).to(dtype) for r in rows]
+                                 for rows in (X, Y, U, RH, act, dem))
     n_main, n_ro, n_rt = T.n_main, T.n_reorder, T.n_retail
 
     # --- 0) order fulfillment with sequential supplier contention ---
@@ -152,11 +159,57 @@ def _step_math(T, backlog, X, Y, U, RH, act, dem, arrive_valid):
         UP[ret] = UP[ret] + T.rt_b[j] * U_new[j]
 
     total = torch.zeros_like(X[0])
+    terms = [] if dtype == torch.float64 else None
     for n in range(n_main):
         HC = T.h[n] * torch.clamp_min(X_mid[n], 0.0) + HCp[n]
         OC = (T.o[n] * sold[n] / T.v[n]) if T.is_factory[n] else zero
         total = total + (SR[n] - PC[n] - OC - HC - UP[n])
-    return X_mid, Y_new, U_new, r_cur, total
+        if terms is not None:
+            terms += [SR[n], PC[n], OC, HC, UP[n]]
+    if terms is None:
+        return X_mid, Y_new, U_new, r_cur, total
+    flows = dict(X=X, Y=Y, U=U, arriving=arriving, arrivals_node=arrivals_node,
+                 consumed=consumed, r_cur=r_cur, sales_rt=sales_rt, d=[
+                     torch.clamp_min(torch.round(d), 0.0) for d in dem])
+    return X_mid, Y_new, U_new, r_cur, total, _step_bounds(T, flows, terms)
+
+
+def _step_terms(T) -> int:
+    """The terms of a period's profit (``_step_math`` step 5): each reorder
+    link's revenue at its supplier and cost at its purchaser and its
+    pipeline holding cost, each retail link's sales and unmet-demand
+    terms, and each node's holding and operating cost."""
+    return 3 * T.n_reorder + 2 * T.n_retail + 2 * T.n_main
+
+
+def _step_bounds(T, flows, terms):
+    """The float32 forward bounds of ``_step_math``'s outputs (float64 rows
+    of the flows each sums): a state row is its input plus or minus its
+    flows, at most gamma_{2 (n_ro + n_rt) + 2} of their sum of |terms| (0
+    wherever they are integers, as the default graphs' are, but bounded
+    all the same); r_cur a min of the request and the supplier's stock,
+    that stock's bound; the profit a sum of ``_step_terms`` products,
+    gamma_{n + 2} of the sum of the node terms' magnitudes (every term of
+    a node's revenue or cost is a price or cost times a quantity >= 0)."""
+    g = ek.gamma_f32(2 * (T.n_reorder + T.n_retail) + 2)
+    f = flows
+    cons = [c.abs() for c in f["consumed"]]
+    x_mag = [f["X"][n].abs() + f["arrivals_node"][n].abs() + cons[n] for n in range(T.n_main)]
+    for j in range(T.n_retail):
+        ret = T.rt_retailer_main[j]
+        x_mag[ret] = x_mag[ret] + f["sales_rt"][j].abs()
+    r_b = []
+    for i in range(T.n_reorder):
+        sup = T.ro_sup_main[i]
+        r_b.append(torch.zeros_like(f["r_cur"][i]) if sup < 0 else
+                   g * (f["X"][sup].abs() + cons[sup]))
+    return dict(
+        X=[g * m for m in x_mag],
+        Y=[g * (f["Y"][i].abs() + f["arriving"][i].abs() + f["r_cur"][i].abs())
+           for i in range(T.n_reorder)],
+        U=[g * (f["d"][j] + f["U"][j].abs()) for j in range(T.n_retail)],
+        r_cur=r_b,
+        profit=ek.gamma_f32(_step_terms(T) + 2) * sum(t.abs() for t in terms))
 
 
 def _poisson_cdf_table(lam: float, granularity: float = 2.0 ** -24):
@@ -806,19 +859,31 @@ def sample_streams_debug(params: NetInvParams, seed: int, act_hi: float,
 sample_streams_debug.launches = 0
 
 
-def _batched_step_plain(params: NetInvParams, X, Y, U, RH, action, demand, t: int):
+def _batched_step_plain(params: NetInvParams, X, Y, U, RH, action, demand, t: int,
+                        dtype=torch.float32):
     """Plain version of K25 (``batched_step``): pallas_net_step._kernel_body
     over (B,) rows, the arrival mask t >= L_i and the discount alpha^t (a
-    Python double rounded to f32) computed from the host int ``t``."""
+    Python double rounded to f32) computed from the host int ``t``. With
+    ``dtype=torch.float64`` the float64 oracle of the inputs' float32
+    values: (X', Y', U', RH', reward) and a dict of their float32 forward
+    bounds under the same keys (RH's kept rows carry no error)."""
     T = params.topology
     lt = max(T.lt_max, 1)
     valid = [1.0 if t >= L else 0.0 for L in T.ro_L]
-    Xn, Yn, Un, r_cur, profit = _step_math(T, params.backlog, list(X), list(Y), list(U),
-                                           list(RH), list(action), list(demand), valid)
-    RHn = r_cur + list(RH)[: (lt - 1) * T.n_reorder]
+    out = _step_math(T, params.backlog, list(X), list(Y), list(U), list(RH), list(action),
+                     list(demand), valid, dtype)
+    Xn, Yn, Un, r_cur, profit = out[:5]
+    kept = [r.to(torch.float32).to(dtype) for r in list(RH)[: (lt - 1) * T.n_reorder]]
+    RHn = r_cur + kept
     disc = float(np.float32(params.alpha ** t))
-    return (torch.stack(Xn), torch.stack(Yn), torch.stack(Un), torch.stack(RHn),
-            disc * profit)
+    step = (torch.stack(Xn), torch.stack(Yn), torch.stack(Un), torch.stack(RHn), disc * profit)
+    if dtype == torch.float32:
+        return step
+    b = out[5]
+    bounds = dict(X=torch.stack(b["X"]), Y=torch.stack(b["Y"]), U=torch.stack(b["U"]),
+                  RH=torch.stack(b["r_cur"] + [torch.zeros_like(r) for r in kept]),
+                  reward=abs(disc) * (b["profit"] + ek.F32_U * profit.abs()))
+    return step + (bounds,)
 
 
 _K25_INPUTS = ("X", "Y", "U", "RH", "action", "demand")

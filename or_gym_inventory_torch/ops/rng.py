@@ -131,14 +131,17 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(philox4x32_10(rank, 0, 0, 0, seed, RANK_KEY)[0]) & 0x7FFFFFFF
 
 
-def uniform01(words: torch.Tensor) -> torch.Tensor:
-    """The 24-bit uniform in [0, 1) of each word, as float32."""
-    return (words >> 8).to(torch.float32) * (2.0 ** -24)
+def uniform01(words: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The 24-bit uniform in [0, 1) of each word, as ``dtype`` (exact in
+    float32 and float64 alike)."""
+    return (words >> 8).to(dtype) * (2.0 ** -24)
 
 
-def normal01(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def normal01(w1: torch.Tensor, w2: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Box-Muller standard normals from two words each
     (pallas_episode_kernels._normal01): 1 - u1 lies in (0, 1], so the log
-    never sees 0 and the radius is at most sqrt(48 ln 2) ~ 5.77."""
-    r = torch.sqrt(-2.0 * torch.log(1.0 - uniform01(w1)))
-    return r * torch.cos(TWO_PI_F32 * uniform01(w2))
+    never sees 0 and the radius is at most sqrt(48 ln 2) ~ 5.77. In
+    float64 (the plain oracle's twin) the same function of the same
+    uniforms, f32(2 pi) included."""
+    r = torch.sqrt(-2.0 * torch.log(1.0 - uniform01(w1, dtype)))
+    return r * torch.cos(TWO_PI_F32 * uniform01(w2, dtype))

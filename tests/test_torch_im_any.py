@@ -325,7 +325,7 @@ def test_within_the_maxima_the_parents_struct_byte_for_byte(kw):
 def test_the_chain_entry_points_take_their_twins_arguments():
     """Every InvManagement C entry point has a *_chain twin with its
     arguments (the params struct is ImParamsG there)."""
-    for stem in ("im_episode", "im_policy", "im_lstm"):
+    for stem in ("im_episode", "im_policy", "im_offpolicy", "im_lstm"):
         sigs = _build.SIGNATURES[stem]
         chains = [fn for fn in sigs if fn.endswith("_chain")]
         fixed = [fn for fn in sigs if not fn.endswith(("_chain", "_any"))]

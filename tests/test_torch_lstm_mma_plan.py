@@ -1,7 +1,7 @@
 """The tensor-core LSTM kernels' plan (K22-K24, csrc/lstm.cuh and
 csrc/im_lstm.cu): the packed actor, the tile and shared-memory layout that
 ops/episode_kernels.py ``_pack_lstm_actor`` computes, the ctypes mirror of
-``struct Lstm``, and the accuracy of the 3xTF32 gate product.
+``struct Lstm``, and the accuracy of the split gate product.
 
 The kernels cannot run here, so what surrounds them is checked on the CPU:
 - the layout against hand counts at the benchmark widths (obs 33, encoder
@@ -12,10 +12,11 @@ The kernels cannot run here, so what surrounds them is checked on the CPU:
   (gid + 8, tig), a2 = (gid, tig + 4), a3 = (gid + 8, tig + 4), gid =
   lane / 4, tig = lane % 4), give the weights zero-padded, unit group g's
   M-tiles being [i; f] and [g; o];
-- a NumPy emulation of the kernel's product (rounding to TF32 as
-  cvt.rna does, by bit arithmetic, the three products in the kernel's order, FP32 accumulation)
-  against the float64 product: within 1e-6 of sum |W| |X| per element, and
-  no more than 4x the FP32 product's own error;
+- a NumPy emulation of the kernel's product (rounding to TF32 as cvt.rna
+  does, by bit arithmetic, both operands in three pieces, the six products
+  in the kernel's order into a fresh sum, FP32 accumulation) against the
+  float64 product: within 1e-6 of sum |W| |X| per element, and no more
+  than 4x the FP32 product's own error;
 - a NaN: the split by bit arithmetic turns the canonical NaN 0x7fffffff
   into a zero, so the wrapper packs every NaN weight as the quiet NaN
   0x7fc00000 and the kernel writes its activations through keep_nan; the
@@ -174,7 +175,7 @@ def test_entry_point_tiles_are_compiled():
     assert groups * 8 == tek.LSTM_MAX_HIDDEN
 
 
-# ------------------------------------------- the 3xTF32 product, emulated
+# ------------------------------------------- the split product, emulated
 
 def _tf32_rna(x):
     """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
@@ -183,14 +184,23 @@ def _tf32_rna(x):
 
 
 def _split(x):
+    """The first design's split: big, and small = x - big rounded to TF32."""
     big = _tf32_rna(x)
     return big, _tf32_rna((x - big).astype(np.float32))
 
 
+def _split3(x):
+    """csrc/mma_tf32.cuh split3_tf32: x = big + mid + rest exactly."""
+    big = _tf32_rna(x)
+    r = (x - big).astype(np.float32)
+    mid = _tf32_rna(r)
+    return big, mid, (r - mid).astype(np.float32)
+
+
 def _mma_3xtf32(W, X):
-    """G = W X as csrc/lstm.cuh gate_kstep runs it: per k-step of 8, the
-    products W_small X_big, W_big X_small, W_big X_big, each an FP32 sum of
-    8 exact products added to the FP32 accumulator."""
+    """G = W X as the first design ran it: per k-step of 8, the products
+    W_small X_big, W_big X_small, W_big X_big (``_split``), each an FP32 sum
+    of 8 exact products added to the FP32 accumulator."""
     Wb, Ws = _split(W)
     Xb, Xs = _split(X)
     acc = np.zeros((W.shape[0], X.shape[1]), np.float32)
@@ -202,6 +212,29 @@ def _mma_3xtf32(W, X):
             for j in range(8):
                 part = (part + prods[:, j].astype(np.float32)).astype(np.float32)
             acc = (acc + part).astype(np.float32)
+    return acc
+
+
+# the six products of csrc/mma_tf32.cuh mma_kstep, smallest first: (W piece,
+# X piece) of (big, mid, rest)
+TF32X6_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def _mma_6xtf32(W, X):
+    """G = W X as csrc/mma_tf32.cuh mma_kstep runs it, its sums modelled as
+    IEEE FP32: per k-step of 8 the six products of ``TF32X6_PAIRS`` on both
+    operands' ``_split3``, each an FP32 sum of 8 exact products, into a
+    fresh FP32 sum, added to the FP32 accumulator."""
+    Wp, Xp = _split3(W), _split3(X)
+    acc = np.zeros((W.shape[0], X.shape[1]), np.float32)
+    for k0 in range(0, W.shape[1], 8):
+        sl = slice(k0, k0 + 8)
+        fresh = np.zeros_like(acc)
+        for i, j in TF32X6_PAIRS:
+            prods = Wp[i][:, sl, None].astype(np.float64) * Xp[j][None, sl, :]
+            for k in range(8):
+                fresh = (fresh + prods[:, k].astype(np.float32)).astype(np.float32)
+        acc = (acc + fresh).astype(np.float32)
     return acc
 
 
@@ -221,7 +254,7 @@ def test_3xtf32_product_keeps_fp32_accuracy(seed):
     X = np.tanh(rng.standard_normal((192, 32)) * 2).astype(np.float32)
     exact = W.astype(np.float64) @ X.astype(np.float64)
     scale = np.abs(W).astype(np.float64) @ np.abs(X).astype(np.float64)
-    err3 = np.abs(_mma_3xtf32(W, X) - exact) / scale
+    err3 = np.abs(_mma_6xtf32(W, X) - exact) / scale
     err32 = np.abs(_fp32_product(W, X) - exact) / scale
     assert err3.max() < 1e-6
     assert err3.max() <= 4 * err32.max()
@@ -240,13 +273,23 @@ def _bits(u):
     return np.array([u], np.uint32)
 
 
-def _kernel_split(x):
-    """csrc/mma_tf32.cuh split_tf32 on float32 bits: (big, small) as stored."""
-    u = x.view(np.uint32)
-    big = ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).astype(np.uint32)
+def _cuda_sub(a, b):
+    """a - b in float32 as the card computes it: a NaN result is CUDA's
+    canonical NaN 0x7fffffff (the host's may differ)."""
     with np.errstate(invalid="ignore"):
-        small = ((x - big.view(np.float32)).view(np.uint32) + np.uint32(0x1000)).astype(np.uint32)
-    return big, small
+        d = (a - b).astype(np.float32)
+    return np.where(np.isnan(d), _bits(NAN_BITS["canonical"]).view(np.float32), d)
+
+
+def _kernel_split(x):
+    """csrc/mma_tf32.cuh split3_tf32 on float32 bits: (big, mid, rest) as
+    stored."""
+    mask, half = np.uint32(0xFFFFE000), np.uint32(0x1000)
+    big = ((x.view(np.uint32) + half) & mask).astype(np.uint32)
+    r = _cuda_sub(x, big.view(np.float32))
+    mid = ((r.view(np.uint32) + half) & mask).astype(np.uint32)
+    rest = (_cuda_sub(r, mid.view(np.float32)).view(np.uint32) + half).astype(np.uint32)
+    return big, mid, rest
 
 
 def _keep_nan(x):
@@ -264,11 +307,11 @@ def test_a_nan_through_keep_nan_stays_a_nan_through_the_split(name):
     """Rounding by bit arithmetic carries the canonical NaN 0x7fffffff (what
     CUDA's arithmetic makes) into the sign bit, a zero; the quiet NaN that
     keep_nan and the wrapper write stays a NaN: the tensor core reads big as
-    NaN, and big + small is NaN."""
+    NaN, and big + mid + rest is NaN."""
     x = _bits(NAN_BITS[name]).view(np.float32)
-    big, small = _kernel_split(_keep_nan(x))
+    big, mid, rest = _kernel_split(_keep_nan(x))
     assert np.isnan(_tensor_core_reads(big)).all()
-    assert np.isnan(_tensor_core_reads(big) + _tensor_core_reads(small)).all()
+    assert np.isnan(sum(_tensor_core_reads(p) for p in (big, mid, rest))).all()
     if name == "canonical":
         assert _tensor_core_reads(_kernel_split(x)[0])[0] == 0.0
 
@@ -288,11 +331,18 @@ def test_split_of_finite_values_and_infinities_is_the_rounding():
     rng = np.random.default_rng(3)
     x = np.concatenate([rng.standard_normal(4096).astype(np.float32),
                         np.array([0.0, -0.0, np.inf, -np.inf, 1e-40], np.float32)])
-    big, small = _kernel_split(x)
+    big, mid, rest = _kernel_split(x)
     np.testing.assert_array_equal(big.view(np.float32), _tf32_rna(x))
     finite = np.isfinite(x)
     want = _tf32_rna((x[finite] - big.view(np.float32)[finite]).astype(np.float32))
-    np.testing.assert_array_equal(_tensor_core_reads(small)[finite], want)
+    np.testing.assert_array_equal(_tensor_core_reads(mid)[finite], want)
+    # the three pieces as the tensor core reads them hold a normal x exactly
+    pieces = [_tensor_core_reads(p).astype(np.float64) for p in (big, mid, rest)]
+    normal = finite & ((np.abs(x) >= np.finfo(np.float32).tiny) | (x == 0))
+    np.testing.assert_array_equal((pieces[0] + pieces[1] + pieces[2])[normal],
+                                  x[normal].astype(np.float64))
+    # an infinity's mid and rest read as zeros, so its products stay infinite
+    assert not pieces[1][~finite].any() and not pieces[2][~finite].any()
 
 
 def _nan_actor(where):

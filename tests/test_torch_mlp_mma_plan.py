@@ -2,7 +2,7 @@
 csrc/net_policy.cu, K11/K12 in csrc/im_policy.cu, on csrc/mlp_tile.cuh):
 the packed actor, the tile and shared-memory layout that
 ops/episode_kernels.py ``_pack_tile_actor`` / ``_mlp_tile_plan`` compute,
-the ctypes mirror of ``struct MlpTile``, and the accuracy of the 3xTF32
+the ctypes mirror of ``struct MlpTile``, and the accuracy of the split
 forward pass.
 
 The kernels cannot run here, so what surrounds them is checked on the CPU:
@@ -14,12 +14,18 @@ The kernels cannot run here, so what surrounds them is checked on the CPU:
   design's error, in its words;
 - the A fragments read back through the PTX m16n8k8 TF32 layout give each
   layer's weights zero-padded, at the struct's offsets;
-- a NumPy emulation of the kernel's forward pass (the three TF32
-  products per k-step in the kernel's order, FP32
-  accumulation, tanh between the layers) against float64: each layer's
-  product within 1e-6 of sum |W| |X| per element and no more than 4x the
-  FP32 product's own error, and the output within 1e-5 of the FP32 plain
-  forward;
+- a NumPy emulation of the kernel's forward pass (both operands split in
+  three TF32 pieces, the six products per k-step in the kernel's order
+  into a fresh sum, FP32 accumulation, tanh between the layers) against
+  float64: each layer's product within 1e-6 of sum |W| |X| per element and
+  no more than 4x the FP32 product's own error, and the output within 1e-5
+  of the FP32 plain forward;
+- the same product on a model of the card's tensor core (the terms of an
+  mma aligned to the largest and truncated, the sum truncated toward
+  zero), on C6's raw actors (PPO's initial actor and the all-normal one)
+  over raw obs: within 2x the float32 product's error on every layer,
+  where the first design (two pieces, three products into the running
+  sum) misses by more;
 - a NaN weight in layer 0, 1 or 2 packs as the quiet NaN 0x7fc00000, which
   the split keeps (tests/test_torch_lstm_mma_plan.py), and the plain
   versions, the kernels' oracle, give NaN raws.
@@ -34,7 +40,8 @@ import re
 import numpy as np
 import pytest
 import torch
-from test_torch_lstm_mma_plan import _fp32_product, _fragments_to_matrix, _mma_3xtf32
+from test_torch_lstm_mma_plan import (TF32X6_PAIRS, _fp32_product, _fragments_to_matrix,
+                                      _mma_6xtf32, _split, _split3)
 from test_torch_net_k2_plan import CSRC, _ctypes_fields
 
 from or_gym_inventory_torch.agents import networks, ppo
@@ -211,12 +218,13 @@ def test_fragments_hold_the_zero_padded_weights(dims):
     assert torch.equal(flat[st.std:], torch.full((dims[-1],), 0.5))
 
 
-# ------------------------------------------- the 3xTF32 forward, emulated
+# ------------------------------------------- the split forward, emulated
 
 def _emulated_forward(st, flat, actor, X):
     """The kernel's forward pass over the obs rows X (obs, lanes) float32:
-    per layer the bias read from the packed buffer plus the 3xTF32 product
-    (csrc/mma_tf32.cuh) of the padded W, tanh on the hidden layers.
+    per layer the bias read from the packed buffer plus the 6xTF32 product
+    (csrc/mma_tf32.cuh, its sums as IEEE FP32) of the padded W, tanh on the
+    hidden layers.
     Returns ([(W, input, product)] per layer, the output rows)."""
     dims = list(st.dims)[:st.n_layers + 1]
     x = np.zeros((-(-dims[0] // 8) * 8, X.shape[1]), np.float32)
@@ -225,7 +233,7 @@ def _emulated_forward(st, flat, actor, X):
     for layer, (W, b) in enumerate(zip(*actor)):
         A, _ = _padded(W, b)
         bp = flat[st.b[layer]:st.b[layer] + A.shape[0]].numpy()
-        prod = _mma_3xtf32(A, x[:A.shape[1]])
+        prod = _mma_6xtf32(A, x[:A.shape[1]])
         layers.append((A, x[:A.shape[1]].copy(), prod))
         y = (prod + bp[:, None]).astype(np.float32)
         x = np.tanh(y).astype(np.float32) if layer < st.n_layers - 1 else y
@@ -253,6 +261,94 @@ def test_3xtf32_forward_keeps_fp32_accuracy(dims, scale):
     plain = tek.mlp_forward(tek.kernel_layers((Ws, bs), CPU), "tanh",
                             list(torch.from_numpy(X))).numpy()
     np.testing.assert_allclose(H, plain, rtol=1e-5, atol=1e-5)
+
+
+# ------------------- the k-step on the card's accumulator, on raw actors
+
+def _rz32(x):
+    """float64 x to float32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_mma(c, A, B):
+    """C + A B for one m16n8k8 TF32 mma.sync as the card's tensor core sums
+    it, modelled: C and the 8 exact products aligned to the largest term,
+    each truncated toward zero at that term's float32 ulp, summed, and the
+    sum truncated toward zero to float32 (on an H100 one mma of raw TF32
+    operands matched the exact sum rounded to nearest on 55.5% of outputs,
+    0.48 ulp toward zero on average: tools/c6_sweep.py's accumulator
+    probe)."""
+    P = A[:, :, None].astype(np.float64) * B[None, :, :].astype(np.float64)
+    terms = np.concatenate([c[:, None, :].astype(np.float64), P], axis=1)
+    _, e = np.frexp(np.abs(terms).max(axis=1))
+    q = np.ldexp(1.0, e - 24)[:, None, :]
+    return _rz32((np.trunc(terms / q) * q).sum(axis=1))
+
+
+def _layer_on_the_card_model(W, X, b, kernels):
+    """W X + b as csrc/mma_tf32.cuh runs it, the bias in the accumulator, on
+    ``_tensor_core_mma``: with ``kernels`` the kernels' scheme (both
+    operands in three pieces, per k-step the six products of
+    ``TF32X6_PAIRS`` into a fresh accumulator added to the running sum in
+    IEEE float32), else the first design's (two pieces, A_small B_big,
+    A_big B_small, A_big B_big into the running sum)."""
+    acc = np.repeat(b[:, None], X.shape[1], 1).astype(np.float32)
+    if kernels:
+        Wp, Xp = _split3(W), _split3(X)
+        pairs = [(Wp[i], Xp[j]) for i, j in TF32X6_PAIRS]
+    else:
+        (Wb, Ws), (Xb, Xs) = _split(W), _split(X)
+        pairs = [(Ws, Xb), (Wb, Xs), (Wb, Xb)]
+    for k0 in range(0, W.shape[1], 8):
+        sl = slice(k0, k0 + 8)
+        if kernels:
+            k = np.zeros_like(acc)
+            for A, B in pairs:
+                k = _tensor_core_mma(k, A[:, sl], B[sl])
+            acc = (acc + k).astype(np.float32)
+        else:
+            for A, B in pairs:
+                acc = _tensor_core_mma(acc, A[:, sl], B[sl])
+    return acc
+
+
+# (obs_dim, actions, the scale of the raw obs): K5's, K11's and K19's
+C6_FAMILIES = {"net": (68, 11, 400), "im": (33, 3, 200), "nv": (10, 1, 300)}
+
+
+@pytest.mark.parametrize("kind", ["ppo_init", "gaussian"])
+@pytest.mark.parametrize("family", list(C6_FAMILIES))
+def test_fresh_kstep_keeps_fp32_accuracy_on_raw_actors(family, kind):
+    """C6's raw actors (chip_smoke.py ``c6_actors``) over raw obs, 256
+    lanes: each layer's product and bias under the kernels' scheme within 2x
+    the float32 product's error per unit of sum |W| |x| + |b| (the float32
+    product sequential, the layer's inputs the float64 forward's
+    activations); the first design on the same model misses by more on
+    the actor's worst layer, the excess C6 measured on the card."""
+    from chip_smoke import c6_actors
+    obs_dim, act, scale = C6_FAMILIES[family]
+    (Ws, bs), _ = c6_actors(obs_dim, act)[kind]
+    X = np.random.default_rng(0).integers(0, scale + 1, (obs_dim, 256)).astype(np.float32)
+    worst = {True: 0.0, False: 0.0}
+    for layer, (Wt, bt) in enumerate(zip(Ws, bs)):
+        W, b = Wt.numpy().T.astype(np.float32), bt.numpy().astype(np.float32)
+        kp = -(-W.shape[1] // 8) * 8
+        Wp = np.zeros((W.shape[0], kp), np.float32)
+        Wp[:, :W.shape[1]] = W
+        Xp = np.zeros((kp, X.shape[1]), np.float32)
+        Xp[:X.shape[0]] = X
+        exact = W.astype(np.float64) @ X.astype(np.float64) + b[:, None]
+        mag = np.abs(W).astype(np.float64) @ np.abs(X).astype(np.float64) + np.abs(b)[:, None]
+        e32 = (np.abs((_fp32_product(W, X) + b[:, None]).astype(np.float32) - exact) / mag).max()
+        for kernels in (True, False):
+            err = (np.abs(_layer_on_the_card_model(Wp, Xp, b, kernels) - exact) / mag).max()
+            worst[kernels] = max(worst[kernels], err / e32)
+        X = np.tanh(exact).astype(np.float32)
+    assert worst[True] <= 2.0
+    assert worst[False] > worst[True]
 
 
 # ------------------------------------------------------- NaN through the pack

@@ -49,8 +49,8 @@ def _params(mu_max=200.0, lead_time=5):
 # an SM, by hand at 64 lanes: the activation buffer 64 rows x 72 = 4,608
 # floats (one buffer: both hidden layers are one group of 4 M-tiles, the
 # output one M-tile); the pipeline 5 rows x 64 = 320; the table 177 x 64 =
-# 11,328; blocks = min(233,472 // (bytes + 1,024), 65,536 // (32 x 176) //
-# 2 = 5 by registers (171 a thread, allocated as 176), 32 by threads)
+# 11,328; blocks = min(233,472 // (bytes + 1,024), 65,536 // (32 x 184) //
+# 2 = 5 by registers (178 a thread, allocated as 184), 32 by threads)
 DEFAULTS = {
     # 4,608 + 16 x 64 of chunk demand + 320 = 5,952 floats, 23,808 B: 9 by
     # shared memory, 5 by registers
@@ -60,6 +60,22 @@ DEFAULTS = {
     "upfront": ((1600, 0, 6208, 1600), 25, 12_928, 4),
 }
 NAMES = ("x0", "dem", "ring", "table")
+
+
+def test_the_general_class_holds_groups_of_two():
+    """K18-K20's general class holds two M-tiles at once in a hidden layer
+    (csrc/nv_policy.cu NvTileGroup, so that its instances do not spill), so
+    its plan keeps a hidden layer of 4 M-tiles out of place, which the
+    fixed class's group of 4 computes in place."""
+    assert "value = MLP_TILE_GROUP / 2;" in (CSRC / "nv_policy.cu").read_text()
+    assert tek._NV_TILE_GROUP_ANY * 2 == tek._MLP_TILE_GROUP
+    params = _params()
+    _, K, _ = nvp.window(params)
+    args = (params.lead_time, K, params.step_limit, 64, "linear", False)
+    assert tek._nv_tile_plan(DIMS, params.lead_time, K, params.step_limit, 64,
+                             "linear").in_place
+    assert not tek._nv_tile_plan_any(DIMS, *args).in_place
+    assert tek._nv_tile_plan_any((10, 32, 32, 1), *args).in_place
 
 
 @pytest.mark.parametrize("layout", list(DEFAULTS))

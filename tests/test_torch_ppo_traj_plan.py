@@ -20,7 +20,7 @@ instance with its training streams written, as far as the CPU reaches them.
 - the first designs left the package (csrc/ defines no
   ``k_im_rollout_traj`` or ``k_nv_rollout_traj``; their copies live in
   tools/);
-- a NumPy emulation of the tile's 3xTF32 forward pass on PPO's initial
+- a NumPy emulation of the tile's 6xTF32 forward pass on PPO's initial
   actors with a RunningMeanStd of the obs folded in, over the obs of plain
   K10 and K18 rollouts: the share of (lane, period) whose K10 action or
   K18 raw departs from the FP32 forward pass is held under 1%.
@@ -281,7 +281,7 @@ def test_the_first_designs_left_the_package():
     assert "launch_policy_returns<true, false, true>" in nv
 
 
-# ------------------------------------------- the 3xTF32 forward, emulated
+# ------------------------------------------- the split forward, emulated
 
 # the emulated actors: PPO's initial actor-critic with the RunningMeanStd of
 # a rollout's obs folded in, as PPO hands the kernels its actor;
@@ -308,7 +308,7 @@ def _ppo_actor(kind, obs_dim, act_dim, obs):
 
 def _emulated_means(actor, obs_rows):
     """The tile's H (act, B) over each period's obs (T, obs, B), emulated
-    (3xTF32 products, csrc/mma_tf32.cuh), and the FP32 plain forward pass's."""
+    (6xTF32 products, csrc/mma_tf32.cuh), and the FP32 plain forward pass's."""
     obs_dim, act = actor[0][0].shape[0], actor[0][-1].shape[1]
     st, flat = tek._pack_tile_actor(actor, None, obs_dim, act, [1.0] * act, CPU)
     layers = tek.kernel_layers(actor, CPU)

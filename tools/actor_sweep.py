@@ -108,12 +108,18 @@ def finish_parent_build(jobs: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent {stem}.cu:\n{out}")
         lib = ctypes.CDLL(str(_parent_so(stem)))
-        sigs = {fn: sig for fn, sig in _build.SIGNATURES[stem].items()
+        sigs = {fn: sig for src in split_sources(stem) for fn, sig in _build.SIGNATURES[src].items()
                 if not fn.endswith(("_any", "_chain"))}
         for fn, (argtypes, restype) in {**sigs, **_build._SHARED}.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = list(argtypes), restype
-        libs[stem] = lib
+        libs.update({src: lib for src in split_sources(stem)})
     return libs
+
+
+def split_sources(stem: str) -> tuple:
+    """The package's sources that a parent's ``stem`` source held: the
+    parents' im_policy.cu also held K27, now csrc/im_offpolicy.cu's."""
+    return ("im_policy", "im_offpolicy") if stem == "im_policy" else (stem,)
 
 
 def _pair(shape, stem, fn, args_of, outs, parent_libs, general=None):
@@ -277,7 +283,7 @@ def cases(dev, parent_libs, names=KERNELS, general=False) -> dict:
     LB = LEARN_LANES
     lay29 = ns._shared_layout(T)[1]
     keep.append(lay29)
-    fams = {"K27": ("im_policy", "im_rollout_traj", obs, imp.m1, ek._half_c(imp), T_im, obs,
+    fams = {"K27": ("im_offpolicy", "im_rollout_traj", obs, imp.m1, ek._half_c(imp), T_im, obs,
                     False, ek._K27_LAYOUT, (1, 1), 0, False),
             "K28": ("nv_policy", "nv_rollout_traj", nvp.obs_dim, 1, ek._nv_half_hi(nvp), T_nv,
                     nvp.obs_dim + 1, True, ek._K27_LAYOUT, (1,), ek._nv_wide_extra(nvp), False),
@@ -348,14 +354,15 @@ def _same_bits(a, b) -> bool:
 
 
 def turns(dev, parent_libs, names=KERNELS, rounds: int = 3, general=False,
-          make=None) -> dict:
+          make=None, bits=True) -> dict:
     """Each kernel of ``names``: its outputs held against the parent's bit
     for bit (raises where they differ), then its launches timed in turns
     parent, package, package, parent (``rounds`` times). ``general``: the
     general class against the fixed one (``cases``), a difference recorded
-    with its max |diff| rather than raised. ``make``: the function that
-    makes the cases in place of ``cases`` (tools/im_caps_sweep.py's).
-    Returns {name: results}."""
+    with its max |diff| rather than raised; so is it with ``bits=False``
+    (a parent of other arithmetic, tools/c6_sweep.py's). ``make``: the
+    function that makes the cases in place of ``cases``
+    (tools/im_caps_sweep.py's). Returns {name: results}."""
     import statistics
 
     import torch
@@ -367,7 +374,7 @@ def turns(dev, parent_libs, names=KERNELS, rounds: int = 3, general=False,
         torch.cuda.synchronize()
         diff = max(float((g.double() - w.double()).abs().nan_to_num(float("inf")).max())
                    if not _same_bits(g, w) else 0.0 for g, w in zip(got, want))
-        if diff and not general:
+        if diff and not general and bits:
             raise AssertionError(f"{name}: an output differs from the parent design's "
                                  f"(max |diff| {diff})")
         del got, want

@@ -93,11 +93,11 @@ def finish_parent_build(jobs: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent {stem}.cu:\n{out}")
         lib = ctypes.CDLL(str(_parent_so(stem)))
-        sigs = {fn: sig for fn, sig in _build.SIGNATURES[stem].items()
-                if not fn.endswith("_chain")}
+        sigs = {fn: sig for src in actor_sweep.split_sources(stem)
+                for fn, sig in _build.SIGNATURES[src].items() if not fn.endswith("_chain")}
         for fn, (argtypes, restype) in {**sigs, **_build._SHARED}.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = list(argtypes), restype
-        libs[stem] = lib
+        libs.update({src: lib for src in actor_sweep.split_sources(stem)})
     return libs
 
 

@@ -39,16 +39,12 @@ inside the events; K7's first design also through its wrapper as it was):
 
 Every run of the package's kernels equals the entry point's outputs bit for
 bit (K7 also K8's returns); the first designs are checked for equality and
-the result printed. Last (unless ``--no-c6``): K5, K11 and K19,
-deterministic and stochastic, on two seeded actors whose obs statistics
-are not folded in (raw obs; ``c6_actors``), at 4,096 lanes x 4 episodes:
-the share of (episode, lane) returns within rtol=1e-4 atol=1e-2 of the
-plain version on the card, beside the plain version on the card against the
-plain version on the CPU (reported, not gated). It prints each time with the card's name and
-power limit, ptxas's registers and stack, the SASS's LDL/STL of K3 and of
-every K7 instance, and a JSON line of the results.
+the result printed (C6's lane shares, once here, are tools/c6_sweep.py's).
+It prints each time with the card's name and power limit, ptxas's
+registers and stack, the SASS's LDL/STL of K3 and of every K7 instance,
+and a JSON line of the results.
 
-    python3 tools/k3_k7_sweep.py [--no-c6]
+    python3 tools/k3_k7_sweep.py
 
 Without a CUDA card it exits 1.
 """
@@ -73,7 +69,6 @@ MULTI = (1_024, 16, (8, 16))   # lanes, episodes, dump range
 THREADS = (64, 128, 256)
 CHUNKS = (1, 2, 4)
 ITERS = 20
-C6_LANES, C6_EPISODES = 4_096, 4
 
 # K3's variants as text changes of csrc/ (file, old, new)
 K3_LOOP = ("  const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;\n"
@@ -345,85 +340,9 @@ def k7_cases(libs, clock, smi, result, dev):
         del a, d
 
 
-def c6_actors(obs_dim, act_dim):
-    """The two unnormalised actors of the C6 check, each with its log_std:
-    ``ppo_init``, PPO's initial 64 x 64 actor with no obs statistics folded
-    in (raw obs into layer 1), and ``gaussian``, the tests' raw random actor
-    (every weight and bias a standard normal, tests/test_torch_nv_tile_plan.py)."""
-    import torch
-
-    from or_gym_inventory_torch.agents import networks, ppo
-    from or_gym_inventory_torch.ops import episode_kernels as ek
-    g = torch.Generator().manual_seed(SEED)
-    model = networks.MLPActorCritic(obs_dim, act_dim, generator=g)
-    dims = (obs_dim, 64, 64, act_dim)
-    gauss = (tuple(torch.randn(a, b, generator=g) for a, b in zip(dims, dims[1:])),
-             tuple(torch.randn(b, generator=g) for b in dims[1:]))
-    return {"ppo_init": (ek.fold_actor_params(ppo.PPOConfig(), model, None),
-                         model.log_std.detach()),
-            "gaussian": (gauss, torch.zeros(act_dim))}
-
-
-def c6_lane_shares(smi, result, dev):
-    """K5, K11 and K19, deterministic and stochastic, on each of
-    ``c6_actors``: the share of (episode, lane) returns within rtol=1e-4
-    atol=1e-2 of the plain version on the card, and the plain version on the
-    card against the plain version on the CPU (the same seed and actor)."""
-    import torch
-
-    import chip_smoke
-    from or_gym_inventory_torch.envs import inv_management as im
-    from or_gym_inventory_torch.envs import net_inv_management as net
-    from or_gym_inventory_torch.envs import newsvendor as nv
-    from or_gym_inventory_torch.ops import episode_kernels as ek
-    from or_gym_inventory_torch.ops import net_step as ns
-    cpu = torch.device("cpu")
-    net_p = net.default_params(num_periods=PERIODS)
-    im_p = im.default_params(backlog=True)
-    nv_p = chip_smoke.nv_params()
-    families = (
-        ("K5", net_p, net_p.topology.obs_dim, net_p.topology.n_reorder,
-         ns.episode_returns_net_policy, ns._policy_returns_plain),
-        ("K11", im_p, im.observation_space(im_p).shape[0], im_p.m1,
-         ek.episode_returns_im_policy, ek._im_policy_plain),
-        ("K19", nv_p, nv.observation_space(nv_p).shape[0], 1,
-         ek.episode_returns_nv_policy, ek._nv_policy_plain),
-    )
-
-    def on(actor, device):
-        return tuple(tuple(x.to(device) for x in part) for part in actor)
-    shares = {}
-    for name, params, obs_dim, act_dim, entry, plain in families:
-        for kind, (actor, log_std) in c6_actors(obs_dim, act_dim).items():
-            for mode in ("det", "stoch"):
-                ls = log_std if mode == "stoch" else None
-                std = None if ls is None else ek.clipped_std(ls)
-                tile = entry(params, on(actor, dev), SEED, C6_LANES, C6_EPISODES,
-                             None if ls is None else ls.to(dev), dev)
-                plain_dev = plain(params, on(actor, dev), None if std is None else std.to(dev),
-                                  SEED, C6_LANES, C6_EPISODES, dev)[0]
-                plain_cpu = plain(params, on(actor, cpu), std, SEED, C6_LANES, C6_EPISODES,
-                                  cpu)[0]
-                tile_share, _ = chip_smoke.lane_share(
-                    f"{name} {kind} {mode} tile", tile.reshape(-1), plain_dev.reshape(-1),
-                    need=0.0)
-                self_share, _ = chip_smoke.lane_share(
-                    f"{name} {kind} {mode} plain", plain_dev.reshape(-1),
-                    plain_cpu.to(dev).reshape(-1), need=0.0)
-                shares[f"{name}_{kind}_{mode}"] = {"tile_vs_plain_on_card": tile_share,
-                                                   "plain_on_card_vs_plain_on_cpu": self_share}
-                print(f"C6 {name} {kind} actor {mode} ({C6_LANES} x {C6_EPISODES}) on {smi}: "
-                      f"tile vs plain on the card {tile_share:.4%} of (episode, lane) returns "
-                      f"within rtol=1e-4 atol=1e-2; plain on the card vs plain on the CPU "
-                      f"{self_share:.4%}", flush=True)
-    result["c6_lane_shares"] = shares
-
-
 def main() -> int:
     import torch
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--no-c6", action="store_true", help="skip the tile kernels' lane shares")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__).parse_args()
     if not torch.cuda.is_available():
         print("k3_k7_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -467,8 +386,6 @@ def main() -> int:
           f"{result['ms']['launch_floor']} ms", flush=True)
     k3_cases(libs, clock, smi, result["ms"], dev)
     k7_cases(libs, clock, smi, result["ms"], dev)
-    if not args.no_c6:
-        c6_lane_shares(smi, result, dev)
     print(json.dumps(result))
     return 0
 

@@ -4,7 +4,7 @@ the actor streamed from L2) beside the thread-block cluster
 (csrc/cluster_mlp.cuh), split into the actor and the env, at several tiles
 and both products.
 
-K27 (``im_rollout_traj_cluster`` in or_gym_inventory_torch/csrc/im_policy.cu)
+K27 (``im_rollout_traj_cluster`` in or_gym_inventory_torch/csrc/im_offpolicy.cu)
 and K28 (``nv_rollout_traj_cluster`` in csrc/nv_policy.cu) run a cluster of
 C CTAs over a tile of N lanes. This script builds, into the ignored
 ``build/wide_cluster_sweep/`` directory, copies of the two sources with one
@@ -78,7 +78,7 @@ SEED = 2024
 SHAPES = (1_024, 65_536)
 TILES = ((4, 64), (8, 96), (8, 64), (4, 32), (8, 32))
 NO_FIT = ((8, 128), (4, 128))
-SOURCES = ("im_policy", "nv_policy")
+SOURCES = ("im_offpolicy", "nv_policy")
 
 # The 3xTF32 form of a hidden layer (csrc/mma_tf32.cuh's split and
 # mma.sync m16n8k8), inserted into the ``tf32`` variant's copy of
@@ -201,7 +201,7 @@ VARIANTS = {
     "threads256": (("cluster_mlp.cuh", "constexpr int kClusterThreads = 512;",
                     "constexpr int kClusterThreads = 256;"),),
     "actor_alone": (
-        ("im_policy.cu", "      if (lane) {\n        if (live)\n          for (int i = 0; i < m1;",
+        ("im_offpolicy.cu", "      if (lane) {\n        if (live)\n          for (int i = 0; i < m1;",
          "      if (false) {\n        if (live)\n          for (int i = 0; i < m1;"),
         ("nv_policy.cu", "      if (lane) {\n        float st, qty;\n        const float a = "
          "cluster_head", "      if (false) {\n        float st, qty;\n        const float a = "
@@ -343,7 +343,7 @@ def launcher(fam, f, B, dev):
         head = (ctypes.addressof(plan["struct"]),)
         tail = (plan["lgam"].data_ptr(),)
         flags = (1,)
-    src = "im_policy" if fam == "im" else "nv_policy"
+    src = "im_offpolicy" if fam == "im" else "nv_policy"
 
     def go(lib, fn, st, flat):
         rc = getattr(lib, f"{fam}_rollout_traj_{fn}")(
@@ -363,7 +363,7 @@ def rounds(fam, f, libs, result, smi, clock, dev):
 
     from or_gym_inventory_torch.ops import _build
     from or_gym_inventory_torch.ops import episode_kernels as ek
-    dims, src = f["dims"], "im_policy" if fam == "im" else "nv_policy"
+    dims, src = f["dims"], "im_offpolicy" if fam == "im" else "nv_policy"
     package, lib256 = _build.library(src), libs["threads256"][src]
     tile = ek._cluster_choice(dims, f["act"], True, f["T"], f["words"], f["anchors"])
     tile = (tile.cluster, tile.lanes)
